@@ -11,6 +11,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running property/parity suites (run via `make test-full`; "
         "`make test-fast` deselects them)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); skips "
+        "inside the test where torch.cuda.is_available() is False")
 
 
 # ---------------------------------------------------------------------------
