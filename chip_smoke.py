@@ -11,9 +11,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    for sm_90a (one process per source, in parallel) into one library.
 3. kernels — each of the four kernels against its plain PyTorch version on
    the card at the full width of ``sdim-paper`` (d=128, m=48, tau=3,
-   L=1024, C=128, B=32, E=16), on margin-screened inputs; times of kernel
-   and plain version (CUDA events, median of 30 after 3 warm-up calls) and
-   the bound from the bytes and FLOP this run's data needs.
+   L=1024, C=128, E=16), on margin-screened inputs, at B=32 and at every
+   shape the main path gives it (history encode, query and fused serve
+   of a 16-request burst; the encode and update of a 32-user event
+   burst); times of kernel and plain version at the main path's shapes
+   (CUDA events, median of 30 after 3 warm-up calls) and the bound from
+   the bytes and FLOP this run's data needs.
 4. main path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -34,6 +37,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -43,6 +47,7 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 B, L, C, D, M, TAU, E = 32, 1024, 128, 128, 48, 3, 16
+BURST, EV_USERS = 16, 32      # main path: requests per burst, users per event burst
 G, U = M // TAU, 1 << TAU
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)   # global atomics add in any order
@@ -100,84 +105,107 @@ def kernel_phase(torch, dev):
     Rn = rng.standard_normal((M, D)).astype(np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     R = t(Rn)
-    seq = t(screened_normal(rng, (B, L, D), Rn))
-    lengths = rng.integers(L // 4, L + 1, B)
-    mask = t((np.arange(L)[None] >= (L - lengths[:, None])).astype(np.float32))
-    q = t(screened_normal(rng, (B, C, D), Rn))
+
+    def history(b, l, dtype=torch.float32):
+        """Margin-screened behaviors (b, l, D) with front-padded ragged masks."""
+        seq = t(screened_normal(rng, (b, l, D), Rn, dtype)).to(dtype)
+        lengths = rng.integers(l // 4, l + 1, b)
+        return seq, t((np.arange(l)[None] >= (l - lengths[:, None])).astype(np.float32))
+
     rows = []
     hash_flop = 2 * M * D + G * D          # per hashed row: projection + bucket add
 
-    # bse_encode (history ingest)
-    out = bse_encode(seq, mask, R, TAU)
-    err = check_close("bse_encode", out, bse_encode_ref(seq, mask, R, TAU), **ATOMIC)
-    seq16 = seq.to(torch.bfloat16)
-    check_close("bse_encode bf16", bse_encode(seq16, mask, R, TAU),
-                bse_encode_ref(seq16, mask, R, TAU), **ATOMIC)
-    valid = float(mask.sum())
+    # bse_encode at B=32 (fp32, bf16), at the main path's history burst
+    # (BURST users, L behaviors, L split over blocks) and at its int8 event
+    # fold (EV_USERS users, E events: one block per user); timed at the burst.
+    err = 0.0
+    for b, l, dtype in ((B, L, torch.float32), (B, L, torch.bfloat16),
+                        (EV_USERS, E, torch.float32), (BURST, L, torch.float32)):
+        seq, mask = history(b, l, dtype)
+        err = max(err, check_close(f"bse_encode {(b, l, D)} {dtype}",
+                                   bse_encode(seq, mask, R, TAU),
+                                   bse_encode_ref(seq, mask, R, TAU), **ATOMIC))
+    valid = float(mask.sum())               # only valid rows need reading and hashing
     rows.append(("bse_encode", "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode.cu",
                  "src/repro/kernels/sdim_bucket/sdim_bucket.py:117", err,
-                 lambda: bse_encode(seq, mask, R, TAU),
-                 lambda: bse_encode_ref(seq, mask, R, TAU),
-                 bound(seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4 + B * G * U * D * 4,
-                       valid * hash_flop)))
+                 partial(bse_encode, seq, mask, R, TAU),
+                 partial(bse_encode_ref, seq, mask, R, TAU),
+                 bound(valid * D * 4 + mask.numel() * 4 + R.numel() * 4
+                       + BURST * G * U * D * 4, valid * hash_flop)))
 
-    # sdim_query (unfused decoupled path: bf16 wire tables)
-    table = bse_encode_ref(seq, mask, R, TAU)
-    wire = table.to(torch.bfloat16)
-    err = check_close("sdim_query", sdim_query(q, wire, R, TAU),
-                      sdim_query_ref(q, wire, R, TAU), **FP32)
-    check_close("sdim_query fp32", sdim_query(q, table, R, TAU),
-                sdim_query_ref(q, table, R, TAU), **FP32)
-    query_flop = B * C * hash_flop + B * G * U * 3 * D
+    # sdim_query (unfused decoupled path: bf16 wire tables) at B=32 and at
+    # the main path's burst; timed at the burst
+    err = 0.0
+    for b in (B, BURST):
+        table = bse_encode_ref(*history(b, L), R, TAU)
+        wire = table.to(torch.bfloat16)
+        q = t(screened_normal(rng, (b, C, D), Rn))
+        for tb in (wire, table):
+            err = max(err, check_close(f"sdim_query {(b, C, D)} {tb.dtype}",
+                                       sdim_query(q, tb, R, TAU),
+                                       sdim_query_ref(q, tb, R, TAU), **FP32))
+    query_flop = BURST * C * hash_flop + BURST * G * U * 3 * D
     rows.append(("sdim_query", "src/repro_torch/kernels/sdim_query/csrc/sdim_query.cu",
                  "src/repro/kernels/sdim_query/sdim_query.py:52", err,
-                 lambda: sdim_query(q, wire, R, TAU), lambda: sdim_query_ref(q, wire, R, TAU),
+                 partial(sdim_query, q, wire, R, TAU),
+                 partial(sdim_query_ref, q, wire, R, TAU),
                  bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4, query_flop)))
 
-    # sdim_fused_serve (fused path), fp32 / bf16 / int8 stores, ragged present
-    N = 2 * B
-    store = torch.cat([table, torch.zeros_like(table)])
-    slots = torch.randperm(N, generator=torch.Generator().manual_seed(0))[:B].to(
-        dev, torch.int32)
-    present = torch.ones(B, device=dev)
-    present[3::4] = 0
+    # sdim_fused_serve (fused path): fp32 / bf16 / int8 stores at B=32 with a
+    # ragged present; fp32 / int8 at the main path's burst, every user
+    # present; timed at the burst on the fp32 store
     errs = {}
-    for name, st, sc in (("fp32", store, None), ("bf16", store.to(torch.bfloat16), None),
-                         ("int8", *quantize_rows(store, dtype=torch.int8))):
-        errs[name] = check_close(
-            f"sdim_fused_serve {name}",
-            sdim_fused_serve(st, slots, q, R, TAU, scales=sc, present=present),
-            sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc, present=present), **FP32)
+    for b, ragged in ((B, True), (BURST, False)):
+        table = bse_encode_ref(*history(b, L), R, TAU)
+        q = t(screened_normal(rng, (b, C, D), Rn))
+        store = torch.cat([table, torch.zeros_like(table)])
+        slots = torch.randperm(2 * b, generator=torch.Generator().manual_seed(b))[:b].to(
+            dev, torch.int32)
+        present = torch.ones(b, device=dev)
+        if ragged:
+            present[3::4] = 0
+        stores = [("fp32", store, None), ("int8", *quantize_rows(store, dtype=torch.int8))]
+        if ragged:
+            stores.insert(1, ("bf16", store.to(torch.bfloat16), None))
+        for name, st, sc in stores:
+            errs[name] = max(errs.get(name, 0.0), check_close(
+                f"sdim_fused_serve {(b, C, D)} {name}",
+                sdim_fused_serve(st, slots, q, R, TAU, scales=sc, present=present),
+                sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc, present=present),
+                **FP32))
     print(f"sdim_fused_serve max abs err by store dtype: {json.dumps(errs)}")
-    n_present = int(present.sum())
+    n_present = int(present.sum())          # an absent user needs only its zero write
     rows.append(("sdim_fused_serve",
                  "src/repro_torch/kernels/sdim_fused_serve/csrc/sdim_fused_serve.cu",
-                 "src/repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86", errs["fp32"],
-                 lambda: sdim_fused_serve(store, slots, q, R, TAU, present=present),
-                 lambda: sdim_fused_serve_ref(store, slots, q, R, TAU, present=present),
-                 bound(n_present * G * U * D * 4 + 2 * q.numel() * 4 + R.numel() * 4 + B * 8,
+                 "src/repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86", max(errs.values()),
+                 partial(sdim_fused_serve, store, slots, q, R, TAU, present=present),
+                 partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
+                 bound(n_present * (G * U * D * 4 + C * D * 4) + q.numel() * 4
+                       + R.numel() * 4 + BURST * 8,
                        n_present * C * hash_flop + n_present * G * U * 3 * D)))
 
-    # sdim_update (event ingest): duplicate slots, a zero-mask row at slot 0
-    events = t(screened_normal(rng, (B, E, D), Rn))
-    ev_mask = t((rng.random((B, E)) > 0.2).astype(np.float32))
+    # sdim_update (event ingest, the main path's EV_USERS x E burst):
+    # duplicate slots, a zero-mask row at slot 0
+    events = t(screened_normal(rng, (EV_USERS, E, D), Rn))
+    ev_mask = t((rng.random((EV_USERS, E)) > 0.2).astype(np.float32))
     ev_mask[0] = 0
-    ev_slots = torch.tensor(np.r_[0, rng.integers(1, B // 2, B - 1)], dtype=torch.int32,
-                            device=dev)
-    base = torch.randn((N, G, U, D), device=dev)
+    ev_slots = torch.tensor(np.r_[0, rng.integers(1, EV_USERS // 2, EV_USERS - 1)],
+                            dtype=torch.int32, device=dev)
+    base = torch.randn((2 * EV_USERS, G, U, D), device=dev)
     a, b = base.clone(), base.clone()
     sdim_update(a, ev_slots, events, ev_mask, R, TAU)
     sdim_update_ref(b, ev_slots, events, ev_mask, R, TAU)
     err = check_close("sdim_update", a, b, **ATOMIC)
     if not torch.equal(a[0], base[0]):
         raise AssertionError("sdim_update: a zero-mask row at slot 0 wrote to slot 0")
-    touched = len(set(ev_slots[1:].tolist()))
+    touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
+    ev_valid = float(ev_mask.sum())
     rows.append(("sdim_update", "src/repro_torch/kernels/sdim_update/csrc/sdim_update.cu",
                  "src/repro/kernels/sdim_update/sdim_update.py:77", err,
-                 lambda: sdim_update(a, ev_slots, events, ev_mask, R, TAU),
-                 lambda: sdim_update_ref(b, ev_slots, events, ev_mask, R, TAU),
-                 bound(2 * touched * G * U * D * 4 + events.numel() * 4 + ev_mask.numel() * 4
-                       + B * 4 + R.numel() * 4, float(ev_mask.sum()) * hash_flop)))
+                 partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
+                 partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
+                 bound(2 * touched * G * U * D * 4 + ev_valid * D * 4 + ev_mask.numel() * 4
+                       + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop)))
 
     timed = []
     for name, source, replaces, err, kernel, plain, (bound_ms, bound_by) in rows:
@@ -225,11 +253,10 @@ def main_path_phase(torch, dev, wrappers):
                                       table_dtype="int8", device=dev),
     }
     requests = request_stream(64, cfg)
-    burst = 16
     ev_rng = np.random.default_rng(1)
-    ev_users = [f"u{u}" for u in ev_rng.integers(0, len(requests), 32)]
-    ev_items = ev_rng.integers(0, cfg.n_items, (32, E)).astype(np.int32)
-    ev_cats = ev_rng.integers(0, cfg.n_cats, (32, E)).astype(np.int32)
+    ev_users = [f"u{u}" for u in ev_rng.integers(0, len(requests), EV_USERS)]
+    ev_items = ev_rng.integers(0, cfg.n_items, (EV_USERS, E)).astype(np.int32)
+    ev_cats = ev_rng.integers(0, cfg.n_cats, (EV_USERS, E)).astype(np.int32)
 
     for w in wrappers:
         w.launches = 0
@@ -242,14 +269,14 @@ def main_path_phase(torch, dev, wrappers):
             before = {w.__name__: w.launches for w in wrappers}
             srv.stats = type(srv.stats)()
             out = []
-            for i in range(0, len(requests), burst):
-                out.extend(srv.handle_requests(requests[i:i + burst]))
+            for i in range(0, len(requests), BURST):
+                out.extend(srv.handle_requests(requests[i:i + BURST]))
             torch.cuda.synchronize()
             scores[(rnd, name)] = np.stack(out)
             per_burst[(rnd, name)] = {w.__name__: (w.launches - before[w.__name__])
-                                      / (len(requests) // burst) for w in wrappers}
+                                      / (len(requests) // BURST) for w in wrappers}
             print(f"serve {name} ({rnd}): {srv.stats.ms_per_request:.3f} ms/request over "
-                  f"{srv.stats.n_requests} requests, launches per {burst}-request burst "
+                  f"{srv.stats.n_requests} requests, launches per {BURST}-request burst "
                   f"{json.dumps(per_burst[(rnd, name)])}")
     launches = {w.__name__: w.launches for w in wrappers}
 

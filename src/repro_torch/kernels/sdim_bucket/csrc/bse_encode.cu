@@ -10,14 +10,17 @@
 // no tensor cores, so no TF32 rounding can flip a sign bit). The table
 // (G*U, d) lives in shared memory for the whole chunk. In the scatter each
 // (group, column) cell set is owned by one thread, so the table needs no
-// shared-memory atomics and the rows of a chunk add in order. A user whose
-// L is split over several blocks is summed into a zeroed output with global
-// atomicAdd (order varies from run to run); a single chunk is stored as is.
-// Masked rows add nothing.
+// shared-memory atomics and the rows of a chunk add in order. Every block
+// adds its chunk into the zeroed output with global atomicAdd, so a user
+// whose L is split over several blocks sums in an order that varies from
+// run to run (a single chunk adds onto zero and is exact). Masked rows add
+// nothing.
 //
 // Bound on the H100 (per user at full width d=128, m=48, tau=3, L=1024):
 // reads L*d*4 + L*4 bytes, writes G*U*d*4 bytes (about 594 KB in all), and
 // does 2*L*m*d = 12.6 MFLOP of fp32 hashing plus L*G*d adds for the scatter.
+// Only valid rows need their d values read and hashed, so a ragged mask
+// lowers both counts in proportion.
 // At 3.35 TB/s and 67 TFLOP/s fp32 (non tensor core) the two are close; the
 // hash loop on CUDA cores is what this simple version spends its time on.
 #include "sdim_common.cuh"
@@ -66,13 +69,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   float* o = out + (size_t)b * GU * d;
-  if (gridDim.y == 1) {
-    for (int i = threadIdx.x; i < GU * d; i += blockDim.x) o[i] = table_s[i];
-  } else {
-    for (int i = threadIdx.x; i < GU * d; i += blockDim.x) {
-      const float v = table_s[i];
-      if (v != 0.f) atomicAdd(o + i, v);
-    }
+  for (int i = threadIdx.x; i < GU * d; i += blockDim.x) {
+    const float v = table_s[i];
+    if (v != 0.f) atomicAdd(o + i, v);
   }
 }
 
@@ -93,7 +92,7 @@ static cudaError_t launch(const void* seq, const float* mask, const float* R, fl
 }  // namespace sdim
 
 // seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d) fp32 -> out (B, G*U, d)
-// fp32. When l_per_block < L the caller passes a zeroed out.
+// fp32. The caller passes a zeroed out.
 extern "C" int sdim_bse_encode(const void* seq, int seq_dtype, const float* mask, const float* R,
                                float* out, int B, int L, int l_per_block, int G, int U, int d,
                                int m, int tau, void* stream) {

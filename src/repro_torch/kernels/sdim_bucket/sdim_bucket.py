@@ -14,7 +14,6 @@ from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
 
 _TILE_ROWS = 32          # sdim_common.cuh kTileRows
-_TARGET_BLOCKS = 264     # two blocks per SM of the H100's 132
 
 
 def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -24,10 +23,11 @@ def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
     return sdim.bucket_table(seq, sig, mask, 1 << tau)
 
 
-def l_per_block(B: int, L: int) -> int:
-    """Behaviors per block: split L so that about ``_TARGET_BLOCKS`` blocks
-    run, in whole tiles (the per-user output is then summed with atomics)."""
-    chunks = max(1, min(-(-_TARGET_BLOCKS // max(B, 1)), -(-L // _TILE_ROWS)))
+def l_per_block(B: int, L: int, target_blocks: int) -> int:
+    """Behaviors per block: split L so that about ``target_blocks`` blocks
+    run, in whole tiles (each block adds its chunk into the zeroed output
+    with atomics)."""
+    chunks = max(1, min(-(-target_blocks // max(B, 1)), -(-L // _TILE_ROWS)))
     per = -(-L // chunks)
     return -(-per // _TILE_ROWS) * _TILE_ROWS
 
@@ -48,11 +48,11 @@ def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("bse_encode: mask and R must be float32")
     dev = _build.require_cuda("bse_encode", seq, mask, R)
-    per = l_per_block(B, L)
-    out = (torch.zeros if per < L else torch.empty)(
-        (B, G * U, d), dtype=torch.float32, device=dev)
+    # two blocks per SM
+    per = l_per_block(B, L, 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.zeros((B, G * U, d), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
-        return out.zero_().reshape(B, G, U, d)
+        return out.reshape(B, G, U, d)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.sdim_bse_encode(seq.data_ptr(), code, mask.data_ptr(),

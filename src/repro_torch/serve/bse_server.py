@@ -73,7 +73,7 @@ class BSEIngestor:
         _sync(tables.device)
         self.stats.encode_time_s += time.perf_counter() - t0
         self.stats.n_encodes += len(users)
-        self.store.write(self.store.assign_fresh(users), tables)
+        self.store.write(self.store.assign(users), tables)
 
     @torch.no_grad()
     def ingest_events(self, users: Sequence[Any], items: np.ndarray,

@@ -114,10 +114,6 @@ class TableStore:
             slots.append(s)
         return np.asarray(slots, np.int32)
 
-    def assign_fresh(self, users: Sequence[Any]) -> np.ndarray:
-        """``assign`` for callers about to overwrite every row wholesale."""
-        return self.assign(users)
-
     def _grow(self) -> None:
         cap = self.capacity
         self.data = torch.cat([self.data, torch.zeros_like(self.data)])

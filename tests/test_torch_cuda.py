@@ -27,6 +27,7 @@ SHAPES = [  # (B, L, C, d, m, tau)
     (1, 40, 8, 32, 12, 2),
     (3, 300, 70, 64, 24, 4),
     (4, 1024, 128, 128, 48, 3),
+    (32, 16, 128, 128, 48, 3),   # an event fold's encode: L in one block per user
 ]
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)
