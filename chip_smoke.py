@@ -9,28 +9,41 @@ Phases, each of which raises (exit code != 0) when it fails:
 1. card  — CUDA must be available; prints the card's name and power limit.
 2. build — compiles every ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc
    for sm_90a (one process per source, in parallel) into one library.
-3. kernels — each of the four kernels against its plain PyTorch version on
+3. kernels — each of the six kernels against its plain PyTorch version on
    the card at the full width of ``sdim-paper`` (d=128, m=48, tau=3,
    L=1024, C=128, E=16), on margin-screened inputs, at B=32 and at every
-   shape the main path gives it (history encode, query and fused serve
-   of a 16-request burst; the encode and update of a 32-user event
-   burst); times of kernel and plain version at the main path's shapes
-   (CUDA events, median of 30 after 3 warm-up calls) and the bound from
-   the bytes and FLOP this run's data needs.
-4. main path — ``sdim-paper`` FULL (10M x 64 item table) with random
+   shape the main paths give it (history encode, query, fused serve, inline
+   serve and target attention of a 16-request burst; the encode and update
+   of a 32-user event burst), with ragged masks, ragged C and L and fully
+   masked users where a kernel takes them; times of kernel and plain
+   version at the main paths' shapes (CUDA events, median of 30 after 3
+   warm-up calls), the bound from the bytes and FLOP this run's data
+   needs, and for target attention the time of PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (a yardstick only).
+4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
    unfused (fetch_many + sdim_query), fused (sdim_fused_serve) and fused
    off an int8 store; then an ingest_events burst (sdim_update) and the
    same requests again. Scores must be finite, fused and unfused must
-   agree within the bf16 wire tolerance, and every kernel's launch count
-   (reset to 0 before this phase) must have risen.
+   agree within the bf16 wire tolerance.
+5. inline path — the same model and requests through ``mode="inline"``
+   (bse_serve, once per burst), against a decoupled server with an fp32
+   wire (max |d score| <= 1e-4) and phase 4's bf16-wire scores before the
+   event burst (<= the wire tolerance).
+6. target path — FULL with interest kind ``"target"`` (random weights from
+   a seeded generator) through ``mode="target_attention"``
+   (target_attention_flash, once per burst): finite scores, and the first
+   burst's long-branch interest against the plain version.
 
+Every launch count is set to 0 just before each of phases 4-6 and read
+just after it; each phase fails if one of its kernels never launched.
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -52,6 +65,7 @@ G, U = M // TAU, 1 << TAU
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)   # global atomics add in any order
 WIRE_TOL = 5e-2                       # fused vs unfused: bf16 wire tables
+INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
 
 
 def card_line() -> str:
@@ -98,7 +112,10 @@ def kernel_phase(torch, dev):
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
         sdim_fused_serve, sdim_fused_serve_ref)
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+    from repro_torch.kernels.target_attn.target_attn import (
+        target_attention_flash, target_attention_flash_ref)
     from repro_torch.serve.quant import quantize_rows
 
     rng = np.random.default_rng(0)
@@ -106,10 +123,13 @@ def kernel_phase(torch, dev):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     R = t(Rn)
 
-    def history(b, l, dtype=torch.float32):
-        """Margin-screened behaviors (b, l, D) with front-padded ragged masks."""
+    def history(b, l, dtype=torch.float32, masked_user=False):
+        """Margin-screened behaviors (b, l, D) with front-padded ragged masks;
+        with ``masked_user`` user 1 has every behavior masked."""
         seq = t(screened_normal(rng, (b, l, D), Rn, dtype)).to(dtype)
         lengths = rng.integers(l // 4, l + 1, b)
+        if masked_user:
+            lengths[1] = 0
         return seq, t((np.arange(l)[None] >= (l - lengths[:, None])).astype(np.float32))
 
     rows = []
@@ -131,7 +151,7 @@ def kernel_phase(torch, dev):
                  partial(bse_encode, seq, mask, R, TAU),
                  partial(bse_encode_ref, seq, mask, R, TAU),
                  bound(valid * D * 4 + mask.numel() * 4 + R.numel() * 4
-                       + BURST * G * U * D * 4, valid * hash_flop)))
+                       + BURST * G * U * D * 4, valid * hash_flop), None))
 
     # sdim_query (unfused decoupled path: bf16 wire tables) at B=32 and at
     # the main path's burst; timed at the burst
@@ -149,11 +169,11 @@ def kernel_phase(torch, dev):
                  "src/repro/kernels/sdim_query/sdim_query.py:52", err,
                  partial(sdim_query, q, wire, R, TAU),
                  partial(sdim_query_ref, q, wire, R, TAU),
-                 bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4, query_flop)))
+                 bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4, query_flop), None))
 
-    # sdim_fused_serve (fused path): fp32 / bf16 / int8 stores at B=32 with a
-    # ragged present; fp32 / int8 at the main path's burst, every user
-    # present; timed at the burst on the fp32 store
+    # sdim_fused_serve (fused path): fp32 / bf16 / int8 / fp8 stores at B=32
+    # with a ragged present; fp32 / int8 / fp8 at the main path's burst,
+    # every user present; timed at the burst on the fp32 store
     errs = {}
     for b, ragged in ((B, True), (BURST, False)):
         table = bse_encode_ref(*history(b, L), R, TAU)
@@ -164,7 +184,8 @@ def kernel_phase(torch, dev):
         present = torch.ones(b, device=dev)
         if ragged:
             present[3::4] = 0
-        stores = [("fp32", store, None), ("int8", *quantize_rows(store, dtype=torch.int8))]
+        stores = [("fp32", store, None), ("int8", *quantize_rows(store, dtype=torch.int8)),
+                  ("fp8", *quantize_rows(store, dtype=torch.float8_e4m3fn))]
         if ragged:
             stores.insert(1, ("bf16", store.to(torch.bfloat16), None))
         for name, st, sc in stores:
@@ -182,7 +203,7 @@ def kernel_phase(torch, dev):
                  partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
                  bound(n_present * (G * U * D * 4 + C * D * 4) + q.numel() * 4
                        + R.numel() * 4 + BURST * 8,
-                       n_present * C * hash_flop + n_present * G * U * 3 * D)))
+                       n_present * C * hash_flop + n_present * G * U * 3 * D), None))
 
     # sdim_update (event ingest, the main path's EV_USERS x E burst):
     # duplicate slots, a zero-mask row at slot 0
@@ -205,18 +226,73 @@ def kernel_phase(torch, dev):
                  partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
                  partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
                  bound(2 * touched * G * U * D * 4 + ev_valid * D * 4 + ev_mask.numel() * 4
-                       + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop)))
+                       + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop), None))
+
+    # bse_serve (inline path): B=32 and the main path's burst in fp32 and
+    # bf16, then a burst with C=100 and a fully masked user (zero output);
+    # timed at the burst in fp32, the main path's dtype
+    err = 0.0
+    for b, c, dtype, masked in ((B, C, torch.float32, False), (B, C, torch.bfloat16, False),
+                                (BURST, C, torch.bfloat16, False),
+                                (BURST, 100, torch.float32, True),
+                                (BURST, C, torch.float32, False)):
+        seq, mask = history(b, L, dtype, masked)
+        q = t(screened_normal(rng, (b, c, D), Rn))
+        out = bse_serve(q, seq, mask, R, TAU)
+        err = max(err, check_close(f"bse_serve {(b, L, c, D)} {dtype}", out,
+                                   bse_serve_ref(q, seq, mask, R, TAU), **FP32))
+        if masked and bool(out[1].any()):
+            raise AssertionError("bse_serve: a fully masked user read non-zero interest")
+    valid = float(mask.sum())
+    rows.append(("bse_serve", "src/repro_torch/kernels/sdim_serve/csrc/bse_serve.cu",
+                 "src/repro/kernels/sdim_serve/sdim_serve.py:68", err,
+                 partial(bse_serve, q, seq, mask, R, TAU),
+                 partial(bse_serve_ref, q, seq, mask, R, TAU),
+                 bound(valid * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
+                       (valid + BURST * C) * hash_flop + BURST * G * U * 3 * D), None))
+
+    # target_attention_flash (target path): B=32 in fp32 and bf16, the burst
+    # with L=1000, C=100 and a fully masked user (uniform over all L rows),
+    # then the main path's burst; timed there. library_ms: PyTorch's
+    # scaled_dot_product_attention on the same inputs with an additive
+    # 0 / -1e30 mask, in fp32 (never called by the port)
+    import torch.nn.functional as F
+    err = 0.0
+    for b, c, l, dtype, masked in ((B, C, L, torch.float32, False),
+                                   (B, C, L, torch.bfloat16, False),
+                                   (BURST, 100, 1000, torch.float32, True),
+                                   (BURST, C, L, torch.float32, False)):
+        seq, mask = history(b, l, dtype, masked)
+        q = torch.randn((b, c, D), generator=torch.Generator(device=dev).manual_seed(c),
+                        device=dev)
+        err = max(err, check_close(f"target_attention_flash {(b, l, c, D)} {dtype}",
+                                   target_attention_flash(q, seq, mask),
+                                   target_attention_flash_ref(q, seq, mask), **FP32))
+    additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
+    library = partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
+    print(f"target attention: |sdpa - plain| max "
+          f"{float((library() - target_attention_flash_ref(q, seq, mask)).abs().max()):.3g}")
+    # a user with a valid row needs only its valid rows (masked ones weigh
+    # exactly 0); a fully masked user needs all L
+    needed = float(sum(L if n == 0 else n for n in mask.sum(1).tolist()))
+    rows.append(("target_attention_flash", "src/repro_torch/kernels/target_attn/csrc/target_attn.cu",
+                 "src/repro/kernels/target_attn/target_attn.py:59", err,
+                 partial(target_attention_flash, q, seq, mask),
+                 partial(target_attention_flash_ref, q, seq, mask),
+                 bound(needed * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4,
+                       4 * C * D * needed), library))
 
     timed = []
-    for name, source, replaces, err, kernel, plain, (bound_ms, bound_by) in rows:
+    for name, source, replaces, err, kernel, plain, (bound_ms, bound_by), library in rows:
         # kernel, plain, plain, kernel: both seen under the same clocks
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        lib_ms = None if library is None else time_ms(library)
         timed.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
         print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
-              f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"max abs err {err:.3g}")
+              f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
     return timed
 
 
@@ -235,54 +311,70 @@ def request_stream(n_requests: int, cfg):
     return out
 
 
-def main_path_phase(torch, dev, wrappers):
-    from repro_torch.configs import sdim_paper
-    from repro_torch.models.ctr import CTRModel
+def serve_all(torch, name, srv, requests, wrappers):
+    """Serve ``requests`` in bursts of BURST; returns the (n, C) scores and
+    each kernel's launches per burst."""
+    before = {w.__name__: w.launches for w in wrappers}
+    srv.stats = type(srv.stats)()
+    out = []
+    for i in range(0, len(requests), BURST):
+        out.extend(srv.handle_requests(requests[i:i + BURST]))
+    torch.cuda.synchronize()
+    scores = np.stack(out)
+    if scores.shape != (len(requests), C) or not np.isfinite(scores).all():
+        raise AssertionError(f"scores {name}: shape {scores.shape}, "
+                             f"finite {np.isfinite(scores).all()}")
+    per_burst = {w.__name__: (w.launches - before[w.__name__]) / (len(requests) // BURST)
+                 for w in wrappers}
+    print(f"serve {name}: {srv.stats.ms_per_request:.3f} ms/request over "
+          f"{srv.stats.n_requests} requests, launches per {BURST}-request burst "
+          f"{json.dumps(per_burst)}")
+    return scores, per_burst
+
+
+def read_launches(wrappers, own, path):
+    """The launch counts after a path; fails if one of its kernels ``own``
+    never launched."""
+    launches = {w.__name__: w.launches for w in wrappers}
+    missing = [k for k in own if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+    print(f"{path} path launches: {json.dumps(launches)}")
+    return launches
+
+
+def reset(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def decoupled_phase(torch, dev, wrappers, model, requests):
     from repro_torch.serve.ctr_server import CTRServer
 
-    cfg = sdim_paper.FULL
-    t0 = time.perf_counter()
-    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    print(f"model init: {time.perf_counter() - t0:.2f} s "
-          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    cfg = model.cfg
     servers = {
         "unfused": CTRServer.build(model, None, "decoupled", device=dev),
         "fused": CTRServer.build(model, None, "decoupled", fused=True, device=dev),
         "fused-int8": CTRServer.build(model, None, "decoupled", fused=True,
                                       table_dtype="int8", device=dev),
     }
-    requests = request_stream(64, cfg)
     ev_rng = np.random.default_rng(1)
     ev_users = [f"u{u}" for u in ev_rng.integers(0, len(requests), EV_USERS)]
     ev_items = ev_rng.integers(0, cfg.n_items, (EV_USERS, E)).astype(np.int32)
     ev_cats = ev_rng.integers(0, cfg.n_cats, (EV_USERS, E)).astype(np.int32)
 
-    for w in wrappers:
-        w.launches = 0
-    scores, per_burst = {}, {}
+    reset(wrappers)
+    scores = {}
     for rnd in ("before events", "after events"):
         if rnd == "after events":
             for srv in servers.values():
                 srv.bse.ingest_events(ev_users, ev_items, ev_cats)
         for name, srv in servers.items():
-            before = {w.__name__: w.launches for w in wrappers}
-            srv.stats = type(srv.stats)()
-            out = []
-            for i in range(0, len(requests), BURST):
-                out.extend(srv.handle_requests(requests[i:i + BURST]))
-            torch.cuda.synchronize()
-            scores[(rnd, name)] = np.stack(out)
-            per_burst[(rnd, name)] = {w.__name__: (w.launches - before[w.__name__])
-                                      / (len(requests) // BURST) for w in wrappers}
-            print(f"serve {name} ({rnd}): {srv.stats.ms_per_request:.3f} ms/request over "
-                  f"{srv.stats.n_requests} requests, launches per {BURST}-request burst "
-                  f"{json.dumps(per_burst[(rnd, name)])}")
-    launches = {w.__name__: w.launches for w in wrappers}
+            scores[(rnd, name)], _ = serve_all(torch, f"{name} ({rnd})", srv, requests,
+                                               wrappers)
+    launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
+                                        "sdim_query"), "decoupled")
 
-    for key, s in scores.items():
-        if s.shape != (len(requests), C) or not np.isfinite(s).all():
-            raise AssertionError(f"scores {key}: shape {s.shape}, finite {np.isfinite(s).all()}")
     for rnd in ("before events", "after events"):
         for name in ("fused", "fused-int8"):
             diff = float(np.abs(scores[(rnd, name)] - scores[(rnd, "unfused")]).max())
@@ -293,10 +385,59 @@ def main_path_phase(torch, dev, wrappers):
                          - scores[("before events", "fused")]).max())
     if moved == 0.0:
         raise AssertionError("the event burst changed no score")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    print(f"main path launches: {json.dumps(launches)}")
+    return launches, scores[("before events", "unfused")]
+
+
+def inline_phase(torch, dev, wrappers, model, requests, bf16_wire_scores):
+    from repro_torch.serve.ctr_server import CTRServer
+
+    inline = CTRServer.build(model, None, "inline", device=dev)
+    fp32_wire = CTRServer.build(model, None, "decoupled", wire_dtype=torch.float32, device=dev)
+    reset(wrappers)
+    scores, per_burst = serve_all(torch, "inline", inline, requests, wrappers)
+    launches = read_launches(wrappers, ("bse_serve",), "inline")
+    if per_burst["bse_serve"] != 1 or sum(per_burst.values()) != 1:
+        raise AssertionError(f"inline serving launched {per_burst} per burst, "
+                             f"not one bse_serve")
+    ref, _ = serve_all(torch, "decoupled, fp32 wire", fp32_wire, requests, wrappers)
+    for name, other, tol in (("decoupled fp32 wire", ref, INLINE_TOL),
+                             ("decoupled bf16 wire", bf16_wire_scores, WIRE_TOL)):
+        diff = float(np.abs(scores - other).max())
+        print(f"|inline - {name}| max: {diff:.3g}")
+        if diff > tol:
+            raise AssertionError(f"inline vs {name} scores differ by {diff} (> {tol})")
+    return launches
+
+
+def target_phase(torch, dev, wrappers, requests):
+    from repro_torch.configs import sdim_paper
+    from repro_torch.kernels.target_attn.target_attn import target_attention_flash_ref
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.serve.ctr_server import CTRServer
+
+    full = sdim_paper.FULL
+    cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, kind="target"))
+    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    server = CTRServer.build(model, None, "target_attention", device=dev)
+    reset(wrappers)
+    _, per_burst = serve_all(torch, "target_attention", server, requests, wrappers)
+    launches = read_launches(wrappers, ("target_attention_flash",), "target")
+    if per_burst["target_attention_flash"] != 1 or sum(per_burst.values()) != 1:
+        raise AssertionError(f"target-attention serving launched {per_burst} per burst, "
+                             f"not one target_attention_flash")
+
+    # the first burst's long branch through the kernel against the plain
+    # version (after the counts were read: a comparison is no path launch)
+    first = requests[:BURST]
+    hist = lambda k: torch.as_tensor(np.concatenate([r[1][k] for r in first]), device=dev)
+    cand = lambda i: torch.as_tensor(np.stack([r[i] for r in first]), device=dev)
+    with torch.no_grad():
+        target_e = model._embed_behaviors(cand(2), cand(3))
+        long_e = model._embed_behaviors(hist("hist_items"), hist("hist_cats"))
+        mask = hist("hist_mask")
+        err = check_close("target long branch", model.interest(target_e, long_e, mask),
+                          target_attention_flash_ref(target_e, long_e, mask), **FP32)
+    print(f"target long branch, first burst: max abs err {err:.3g} against the plain version")
     return launches
 
 
@@ -316,11 +457,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from repro_torch.configs import sdim_paper
     from repro_torch.kernels import _build
     from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update
+    from repro_torch.kernels.target_attn.target_attn import target_attention_flash
+    from repro_torch.models.ctr import CTRModel
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -331,8 +476,21 @@ def main() -> int:
             print("  " + line.strip())
 
     timed = kernel_phase(torch, dev)
-    wrappers = (bse_encode, sdim_update, sdim_fused_serve, sdim_query)
-    launches = main_path_phase(torch, dev, wrappers)
+    wrappers = (bse_encode, sdim_update, sdim_fused_serve, sdim_query, bse_serve,
+                target_attention_flash)
+    t0 = time.perf_counter()
+    model = CTRModel(sdim_paper.FULL, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model init: {time.perf_counter() - t0:.2f} s "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    requests = request_stream(64, model.cfg)
+    launches, bf16_wire_scores = decoupled_phase(torch, dev, wrappers, model, requests)
+    launches["bse_serve"] = inline_phase(torch, dev, wrappers, model, requests,
+                                         bf16_wire_scores)["bse_serve"]
+    del model
+    launches["target_attention_flash"] = target_phase(
+        torch, dev, wrappers, requests)["target_attention_flash"]
     for k in timed:
         k["launches"] = launches[k["name"]]
     print(card)

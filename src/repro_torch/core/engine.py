@@ -15,6 +15,11 @@ operation         what it computes (paper §3.3 / §4)           kernel
                   the per-group bucket sums (the BSE table)
 ``query``         Eq. 9/11/12: hash the candidate, read its     ``sdim_query``
                   bucket in every group, ℓ2-normalize, mean
+``attend``        query ∘ encode (the training forward)        ``bse_encode`` +
+                                                               ``sdim_query``
+``serve``         §4.4 inline serving: encode + query of raw    ``bse_serve``
+                  histories in one launch, the table never
+                  written to device memory
 ``serve_fused``   §4.4 decoupled serving: gather rows by slot   ``sdim_fused_serve``
                   out of the (N, G, U, d) store, dequantize,
                   query — one launch
@@ -22,8 +27,7 @@ operation         what it computes (paper §3.3 / §4)           kernel
                   into store rows by slot, IN PLACE
 ================  ===========================================  ======================
 
-``serve``/``attend`` (inline serving), the sharded entry points and the
-SRHT family are not ported yet.
+The sharded entry points and the SRHT family are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode
 from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
 from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve
 from repro_torch.kernels.sdim_update.sdim_update import sdim_update
 
 
@@ -75,7 +80,8 @@ def _host_slots(slots, n_rows: int, device: torch.device) -> torch.Tensor:
 
 
 class SDIMEngine:
-    """Owns the hash family and dispatches encode/query/serve_fused/update.
+    """Owns the hash family and dispatches encode/query/attend/serve/
+    serve_fused/update.
 
     ``R`` may be passed per call (the CTR model keeps it as a buffer); when
     omitted the engine's own family, made from ``cfg.hash_seed``, is used.
@@ -122,6 +128,28 @@ class SDIMEngine:
                              (qc, table.contiguous(), self._R(R)),
                              dict(tau=self.cfg.tau))
         return out[:, 0] if single else out
+
+    def attend(self, q: torch.Tensor, seq: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               R: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """End-to-end SDIM attention (training graph): query ∘ encode, in
+        seq's dtype."""
+        table = self.encode(seq, mask, R)
+        return self.query(q, table, R).to(seq.dtype)
+
+    def serve(self, q: torch.Tensor, seq: torch.Tensor,
+              mask: Optional[torch.Tensor] = None,
+              R: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """§4.4 inline serving: candidates (B, C, d) against histories
+        (B, L, d) [+ mask (B, L)] in ONE launch; the bucket table never
+        reaches device memory. Returns (B, C, d) in seq's dtype."""
+        if mask is None:
+            mask = torch.ones(seq.shape[:2], dtype=torch.float32, device=seq.device)
+        out = self._dispatch("serve", bse_serve,
+                             (q.float().contiguous(), seq.contiguous(),
+                              mask.float().contiguous(), self._R(R)),
+                             dict(tau=self.cfg.tau))
+        return out.to(seq.dtype)
 
     def serve_fused(self, store: torch.Tensor, slots, q: torch.Tensor,
                     present=None, scales: Optional[torch.Tensor] = None,

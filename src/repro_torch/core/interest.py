@@ -1,9 +1,12 @@
 """Long-term user-interest module (paper: SDIM is architecture-free, §4.4).
 
-Counterpart of ``repro/core/interest.py`` for kinds ``sdim`` and ``none``;
-the retrieval baselines and the other kinds are not ported yet. The hash
-family R is a non-trainable buffer (checkpointed with the model, excluded
-from training).
+Counterpart of ``repro/core/interest.py`` for kinds ``sdim`` (the paper),
+``target`` (exact target attention over the whole history: the DIN
+long-sequence baseline SDIM approximates, through the
+``target_attention_flash`` kernel) and ``none``; the retrieval baselines and
+the other kinds are not ported yet. The hash family R of ``sdim`` is a
+non-trainable buffer (checkpointed with the model, excluded from
+training).
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ from torch import nn
 
 from repro_torch.core.engine import EngineConfig, SDIMEngine
 from repro_torch.device import DeviceLike
+from repro_torch.kernels.target_attn.target_attn import target_attention_flash
 
-INTEREST_KINDS = ("sdim", "none")
+INTEREST_KINDS = ("sdim", "target", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +52,13 @@ class InterestModule(nn.Module):
         if self.cfg.kind == "none":
             return torch.zeros((*q.shape[:-1], seq.shape[-1]), dtype=seq.dtype,
                                device=seq.device)
-        table = self.engine.encode(seq, mask, R=self.R)
-        return self.engine.query(q, table, R=self.R).to(seq.dtype)
+        if self.cfg.kind == "target":
+            single = q.ndim == 2
+            qc = (q[:, None, :] if single else q).float().contiguous()
+            if mask is None:
+                mask = torch.ones(seq.shape[:2], dtype=torch.float32, device=seq.device)
+            out = target_attention_flash(qc, seq.contiguous(), mask.float().contiguous())
+            return (out[:, 0] if single else out).to(seq.dtype)
+        return self.engine.attend(q, seq, mask, R=self.R)
 
     apply = forward

@@ -1,6 +1,8 @@
 """Target attention (DIN, paper §3.2): the short-term branch of the CTR
-model. Counterpart of ``repro/core/target_attention.py::target_attention``;
-plain PyTorch, as the JAX package leaves it to XLA outside any kernel."""
+model, and the function the long-term kind ``"target"`` computes through
+``kernels/target_attn`` (the DIN long-sequence baseline). Counterpart of
+``repro/core/target_attention.py::target_attention``; plain PyTorch, as the
+JAX package leaves it to XLA outside any kernel."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,14 +11,19 @@ import numpy as np
 import torch
 
 
+def default_scale(d: int) -> float:
+    """1/√d rounded as fp32, as jnp computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
 def target_attention(q: torch.Tensor, seq: torch.Tensor,
                      mask: Optional[torch.Tensor],
                      scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q·Sᵀ/√d) S — q (B, d) or (B, C, d), seq (B, L, d), mask
     (B, L). Masked logits are −1e30, so a fully masked row attends
     uniformly."""
-    if scale is None:   # 1/√d rounded as fp32, as jnp computes it
-        scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    if scale is None:
+        scale = default_scale(q.shape[-1])
     single = q.ndim == 2
     qc = q[:, None, :] if single else q
     scores = torch.einsum("bcd,bld->bcl", qc.float(), seq.float()) * scale

@@ -32,15 +32,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 INCLUDE_DIR = KERNELS_DIR / "sdim_bucket" / "csrc"   # sdim_common.cuh
 
 # storage dtype codes shared with csrc/sdim_common.cuh (enum DType)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_bse_serve": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,9 +8,10 @@
 // shared memory once per block; the behaviors stream through in tiles of
 // kTileRows rows. Each (row, group) pair is hashed by one thread (fp32 FMAs,
 // no tensor cores, so no TF32 rounding can flip a sign bit). The table
-// (G*U, d) lives in shared memory for the whole chunk. In the scatter each
-// (group, column) cell set is owned by one thread, so the table needs no
-// shared-memory atomics and the rows of a chunk add in order. Every block
+// (G*U, d) lives in shared memory for the whole chunk. The scatter
+// (sdim_common.cuh: encode_rows, shared with bse_serve) gives each (group,
+// column) cell set to one thread, so the table needs no shared-memory
+// atomics and the rows of a chunk add in order. Every block
 // adds its chunk into the zeroed output with global atomicAdd, so a user
 // whose L is split over several blocks sums in an order that varies from
 // run to run (a single chunk adds onto zero and is exact). Masked rows add
@@ -49,23 +50,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < GU * d; i += blockDim.x) table_s[i] = 0.f;
   load_r(r_s, R, m, d);
 
-  for (int l0 = l_begin; l0 < l_end; l0 += kTileRows) {
-    const int n = min(kTileRows, l_end - l0);
-    __syncthreads();  // table zeroed and R staged, or the previous scatter done
-    load_tile(x_s, x + (size_t)l0 * d, n, d);
-    for (int i = threadIdx.x; i < kTileRows; i += blockDim.x) w_s[i] = i < n ? w[l0 + i] : 0.f;
-    __syncthreads();
-    tile_signatures(sig_s, x_s, r_s, n, G, tau, d);
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
-      const int g = i / d, k = i % d;
-      float* col = table_s + (size_t)g * U * d + k;
-      for (int r = 0; r < n; ++r) {
-        const float wr = w_s[r];
-        if (wr != 0.f) col[(size_t)sig_s[r * G + g] * d] += wr * x_s[r * ld + k];
-      }
-    }
-  }
+  encode_rows(table_s, r_s, x_s, w_s, sig_s, x, w, l_begin, l_end, G, U, d, tau);
   __syncthreads();
 
   float* o = out + (size_t)b * GU * d;

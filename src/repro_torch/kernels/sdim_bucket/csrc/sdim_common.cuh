@@ -1,7 +1,9 @@
-// Device code shared by the four SDIM kernels (bse_encode, sdim_update,
-// sdim_query, sdim_fused_serve): SimHash of a row against R, tau-bit packing
-// into a bucket id per signature group, and the bucket read that answers a
-// candidate against an l2-normalized (G*U, d) table.
+// Device code shared by the SDIM kernels (bse_encode, sdim_update,
+// sdim_query, sdim_fused_serve, bse_serve) and the tile helpers of
+// target_attn: SimHash of a row against R, tau-bit packing into a bucket id
+// per signature group, the in-order bucket scatter of a behavior stream,
+// the l2 normalization of a (G*U, d) table and the bucket read that answers
+// candidates against it.
 //
 // Replaces the shared helpers of the Pallas kernels in
 // src/repro/kernels/sdim_bucket/sdim_bucket.py:58-102 (signature_onehot,
@@ -16,6 +18,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -26,11 +29,12 @@ constexpr int kThreads = 256;   // threads per block, every kernel
 constexpr int kTileRows = 32;   // rows (behaviors, events, candidates) staged per pass
 
 // dtype codes of the C entry points (kernels/_build.py DTYPE_CODES)
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF8 = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 
 // Row stride of an fp32 (rows, d) tile in shared memory: d + 1 puts threads
 // that read one column of different rows on different banks.
@@ -76,14 +80,45 @@ __device__ __forceinline__ void tile_signatures(int* sig_s, const float* x_s, co
 }
 
 // ---------------------------------------------------------------------------
-// Encode body (bse_encode, and the hash half of sdim_update)
+// Encode body (bse_encode, bse_serve, and the hash half of sdim_update)
 // ---------------------------------------------------------------------------
-// Shared memory of bse_encode: the (G*U, d) table, R, one row tile, its
-// weights and its signatures.
+// Shared memory of bse_encode and bse_serve: the (G*U, d) table, R, one row
+// tile, its weights and its signatures.
 inline size_t encode_smem_bytes(int G, int U, int d, int m) {
   return sizeof(float) * ((size_t)G * U * d + (size_t)m * padded(d) +
                           (size_t)kTileRows * padded(d) + kTileRows) +
          sizeof(int) * (size_t)kTileRows * G;
+}
+
+// Stream rows [l_begin, l_end) of one user's behaviors x (L, d) with weights
+// w (L,) through the staged tile x_s and add them into the (G*U, d) table_s
+// in row order: table_s[g*U + sig_g(x_l)] += w_l * x_l. Each (group, column)
+// cell set is owned by one thread, so the table needs no shared-memory
+// atomics. Rows of weight 0 add nothing. The caller has zeroed the table and
+// staged R (each pass starts with a barrier) and syncs before reading the
+// table.
+template <typename T>
+__device__ void encode_rows(float* table_s, const float* r_s, float* x_s, float* w_s, int* sig_s,
+                            const T* __restrict__ x, const float* __restrict__ w, int l_begin,
+                            int l_end, int G, int U, int d, int tau) {
+  const int ld = padded(d);
+  for (int l0 = l_begin; l0 < l_end; l0 += kTileRows) {
+    const int n = min(kTileRows, l_end - l0);
+    __syncthreads();  // table zeroed and R staged, or the previous scatter done
+    load_tile(x_s, x + (size_t)l0 * d, n, d);
+    for (int i = threadIdx.x; i < kTileRows; i += blockDim.x) w_s[i] = i < n ? w[l0 + i] : 0.f;
+    __syncthreads();
+    tile_signatures(sig_s, x_s, r_s, n, G, tau, d);
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
+      const int g = i / d, k = i % d;
+      float* col = table_s + (size_t)g * U * d + k;
+      for (int r = 0; r < n; ++r) {
+        const float wr = w_s[r];
+        if (wr != 0.f) col[(size_t)sig_s[r * G + g] * d] += wr * x_s[r * ld + k];
+      }
+    }
+  }
 }
 
 // Shared memory of sdim_update: as encode, without the table.
@@ -101,10 +136,48 @@ inline size_t query_smem_bytes(int G, int U, int d, int m) {
          sizeof(int) * (size_t)kTileRows * G;
 }
 
+// l2-normalize each of the `rows` rows (rows, d) of an fp32 table in shared
+// memory in place, one warp per row: t / sqrt(sum t^2 + 1e-12), so an
+// all-zero row stays zero. The caller syncs before and after.
+__device__ __forceinline__ void normalize_rows(float* t_s, int rows, int d) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  for (int j = warp; j < rows; j += n_warps) {
+    float* t = t_s + (size_t)j * d;
+    float ss = 0.f;
+    for (int k = lane; k < d; k += 32) ss = fmaf(t[k], t[k], ss);
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float norm = sqrtf(ss + 1e-12f);
+    for (int k = lane; k < d; k += 32) t[k] = t[k] / norm;
+  }
+}
+
+// Answer n candidates q (n, d) fp32 against the l2-normalized (G*U, d) table
+// tn_s, kTileRows at a time through x_s and sig_s:
+//   out[c][k] = present * (1/G) * sum_g tn_s[g*U + sig_g(q_c)][k].
+// Each tile starts with a barrier, so the caller's writes to tn_s are seen.
+__device__ inline void answer_candidates(const float* tn_s, const float* r_s, float* x_s, int* sig_s,
+                                  const float* __restrict__ q, float* __restrict__ out,
+                                  float present, int n, int G, int U, int d, int tau) {
+  const float groups = static_cast<float>(G);
+  for (int c0 = 0; c0 < n; c0 += kTileRows) {
+    const int nt = min(kTileRows, n - c0);
+    __syncthreads();  // table normalized / previous tile's reads done
+    load_tile(x_s, q + (size_t)c0 * d, nt, d);
+    __syncthreads();
+    tile_signatures(sig_s, x_s, r_s, nt, G, tau, d);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt * d; i += blockDim.x) {
+      const int c = i / d, k = i % d;
+      float acc = 0.f;
+      for (int g = 0; g < G; ++g) acc += tn_s[(size_t)(g * U + sig_s[c * G + g]) * d + k];
+      out[(size_t)(c0 + c) * d + k] = acc / groups * present;
+    }
+  }
+}
+
 // One user's table row (G*U, d) in storage type TS, times its per-row scales
-// when given, l2-normalized row by row into shared memory (eps 1e-12 inside
-// the sqrt); then for each of n candidates q (n, d):
-//   out[c][k] = present * (1/G) * sum_g Tn[g*U + sig_g(q_c)][k].
+// when given, staged as fp32 into shared memory and l2-normalized there; then
+// the n candidates q (n, d) are answered against it (answer_candidates).
 template <typename TS>
 __device__ void query_block(float* smem, const TS* __restrict__ row,
                             const float* __restrict__ scales, float present,
@@ -124,33 +197,8 @@ __device__ void query_block(float* smem, const TS* __restrict__ row,
   }
   load_r(r_s, R, m, d);
   __syncthreads();
-
-  // one warp per table row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  for (int j = warp; j < GU; j += n_warps) {
-    float* t = tn_s + (size_t)j * d;
-    float ss = 0.f;
-    for (int k = lane; k < d; k += 32) ss = fmaf(t[k], t[k], ss);
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float norm = sqrtf(ss + 1e-12f);
-    for (int k = lane; k < d; k += 32) t[k] = t[k] / norm;
-  }
-
-  const float groups = static_cast<float>(G);
-  for (int c0 = 0; c0 < n; c0 += kTileRows) {
-    const int nt = min(kTileRows, n - c0);
-    __syncthreads();  // table normalized / previous tile's reads done
-    load_tile(x_s, q + (size_t)c0 * d, nt, d);
-    __syncthreads();
-    tile_signatures(sig_s, x_s, r_s, nt, G, tau, d);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt * d; i += blockDim.x) {
-      const int c = i / d, k = i % d;
-      float acc = 0.f;
-      for (int g = 0; g < G; ++g) acc += tn_s[(size_t)(g * U + sig_s[c * G + g]) * d + k];
-      out[(size_t)(c0 + c) * d + k] = acc / groups * present;
-    }
-  }
+  normalize_rows(tn_s, GU, d);
+  answer_candidates(tn_s, r_s, x_s, sig_s, q, out, present, n, G, U, d, tau);
 }
 
 }  // namespace sdim

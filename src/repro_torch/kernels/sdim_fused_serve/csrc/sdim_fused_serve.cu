@@ -9,11 +9,11 @@
 //
 // Design. One block per (user, C-tile). The block loads its own slot (the
 // TPU kernel used a scalar-prefetched block index map for the gather),
-// reads the row in its storage type (fp32, bf16 or int8), multiplies by the
-// scales in registers and writes the normalized fp32 table into shared
+// reads the row in its storage type (fp32, bf16, int8 or fp8 e4m3),
+// multiplies by the scales in registers and writes the normalized fp32 table into shared
 // memory; only the stored bytes cross device memory, and the gathered
 // (B, G, U, d) rows never exist there. The rest is the sdim_query body
-// (sdim_common.cuh: query_block). fp8 stores are not handled yet.
+// (sdim_common.cuh: query_block).
 //
 // Bound on the H100 (full width d=128, m=48, tau=3): per user G*U*d*itemsize
 // bytes of store row (+ G*U*4 bytes of scales when quantized), plus 2*C*d*4
@@ -60,7 +60,7 @@ static cudaError_t launch(const void* store, const float* scales, const int* slo
 
 }  // namespace sdim
 
-// store (N, G*U, d) fp32|bf16|int8, scales (N, G*U) fp32 or null, slots (B,)
+// store (N, G*U, d) fp32|bf16|int8|fp8 e4m3, scales (N, G*U) fp32 or null, slots (B,)
 // int32 in [0, N), present (B,) fp32 or null, q (B, C, d) fp32, R (m, d) fp32
 // -> out (B, C, d) fp32.
 extern "C" int sdim_fused_serve(const void* store, int store_dtype, const float* scales,
@@ -78,6 +78,9 @@ extern "C" int sdim_fused_serve(const void* store, int store_dtype, const float*
     case sdim::kI8:
       return sdim::launch<int8_t>(store, scales, slots, present, q, R, out, B, C, c_per_block, G,
                                   U, d, m, tau, s);
+    case sdim::kF8:
+      return sdim::launch<__nv_fp8_e4m3>(store, scales, slots, present, q, R, out, B, C,
+                                         c_per_block, G, U, d, m, tau, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,7 +5,7 @@ Pallas kernel ``repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86``) and
 its plain PyTorch version ``sdim_fused_serve_ref``. The wrapper runs the
 plain version for CPU tensors only; for CUDA tensors it launches the kernel
 or raises. ``sdim_fused_serve.launches`` counts kernel launches. Store
-dtypes: fp32, bf16, int8 (with per-row scales); fp8 is not ported yet.
+dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
+from repro_torch.serve.quant import is_quantized
 
 C_PER_BLOCK = 32         # candidates per block (one tile of sdim_common.cuh)
 
@@ -39,7 +40,7 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
                      R: torch.Tensor, tau: int, *,
                      scales: Optional[torch.Tensor] = None,
                      present: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Store (N, G, U, d) fp32|bf16|int8 [+ scales (N, G, U) fp32], slots
+    """Store (N, G, U, d) fp32|bf16|int8|fp8 [+ scales (N, G, U) fp32], slots
     (B,) int32 in [0, N), candidates q (B, C, d) fp32 [+ present (B,) fp32]
     -> interest (B, C, d) fp32, zero where ``present`` is 0."""
     if store.device.type == "cpu":
@@ -56,10 +57,11 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
                          f"q {tuple(q.shape)} slots {tuple(slots.shape)} "
                          f"R {tuple(R.shape)} tau {tau}")
     code = _build.dtype_code("sdim_fused_serve", store,
-                             (torch.float32, torch.bfloat16, torch.int8))
-    if (store.dtype == torch.int8) != (scales is not None):
-        raise ValueError("sdim_fused_serve: int8 stores need scales; other "
-                         "stores take none")
+                             (torch.float32, torch.bfloat16, torch.int8,
+                              torch.float8_e4m3fn))
+    if is_quantized(store.dtype) != (scales is not None):
+        raise ValueError("sdim_fused_serve: int8 and fp8 stores need scales; "
+                         "other stores take none")
     if slots.dtype != torch.int32:
         raise TypeError("sdim_fused_serve: slots must be int32")
     for name, t in (("q", q), ("R", R), ("scales", scales), ("present", present)):

@@ -1,0 +1,57 @@
+"""bse_serve: encode + ℓ2-normalize + multi-candidate query in one launch,
+for inline serving: the bucket table never reaches device memory.
+
+Wrapper of the CUDA kernel ``csrc/bse_serve.cu`` (which replaces the Pallas
+kernel ``repro/kernels/sdim_serve/sdim_serve.py:68``) and its plain PyTorch
+version ``bse_serve_ref``. The wrapper runs the plain version for CPU
+tensors only; for CUDA tensors it launches the kernel or raises.
+``bse_serve.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import sdim
+from repro_torch.kernels import _build
+
+
+def bse_serve_ref(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+                  R: torch.Tensor, tau: int) -> torch.Tensor:
+    """(B, C, d), (B, L, d), (B, L) -> (B, C, d) fp32 == query ∘ encode."""
+    return sdim.sdim_attention(q.float(), seq.float(), mask, R, tau)
+
+
+def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+              R: torch.Tensor, tau: int) -> torch.Tensor:
+    """Candidates q (B, C, d) fp32 against behaviors seq (B, L, d)
+    fp32|bf16 with mask (B, L) fp32 and hash family R (m, d) -> interest
+    (B, C, d) fp32."""
+    if q.device.type == "cpu":
+        return bse_serve_ref(q, seq, mask, R, tau)
+    B, C, d = q.shape
+    L = seq.shape[1]
+    m = R.shape[0]
+    if (m % tau or seq.shape != (B, L, d) or mask.shape != (B, L)
+            or R.shape != (m, d)):
+        raise ValueError(f"bse_serve: shapes q {tuple(q.shape)} seq {tuple(seq.shape)} "
+                         f"mask {tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
+    G, U = m // tau, 1 << tau
+    code = _build.dtype_code("bse_serve", seq, (torch.float32, torch.bfloat16))
+    for name, t in (("q", q), ("mask", mask), ("R", R)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bse_serve: {name} must be float32")
+    dev = _build.require_cuda("bse_serve", q, seq, mask, R)
+    out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
+    if B == 0 or C == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.sdim_bse_serve(q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
+                                 R.data_ptr(), out.data_ptr(), B, L, C, G, U, d, m, tau,
+                                 _build.stream(dev))
+    _build.check(err, "bse_serve")
+    bse_serve.launches += 1
+    return out
+
+
+bse_serve.launches = 0

@@ -2,12 +2,13 @@
 
     python -m repro_torch.launch.serve --arch sdim-paper --requests N \\
         --candidates C --micro-batch B [--fused-serve] \\
-        [--table-dtype fp32|bf16|int8] [--device cuda|cpu]
+        [--table-dtype fp32|bf16|int8|fp8] [--device cuda|cpu]
 
 Mirrors the recsys branch of ``repro/launch/serve.py``: the ``SMOKE``
 config, random weights from a seeded ``torch.Generator``, a BSE + CTR
-server pair in the decoupled deployment, and a loop over synthetic
-requests (served one by one, or in micro-batches). Runs on the card unless
+server pair in the decoupled deployment (an ``sdim`` model) or a CTR server
+that scores raw histories inline (any other interest kind), and a loop over
+synthetic requests (served one by one, or in micro-batches). Runs on the card unless
 ``--device cpu`` is given; without CUDA and without that flag it fails.
 Tiers, sharding, async ingest, admission, tracing and profiling are not
 ported yet.
@@ -35,7 +36,7 @@ def main(argv=None):
                    help="serve micro-batches through the fused "
                         "gather+dequant+query kernel")
     p.add_argument("--table-dtype", default="fp32", choices=sorted(TABLE_DTYPES),
-                   help="BSE table STORAGE dtype (int8 quantizes on write "
+                   help="BSE table STORAGE dtype (int8/fp8 quantize on write "
                         "with per-row scales)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
@@ -51,7 +52,12 @@ def main(argv=None):
     cfg = registry.get(args.arch).SMOKE
     gen = torch.Generator(device=device).manual_seed(0)
     model = CTRModel(cfg, device=device, generator=gen)
-    server = CTRServer.build(model, None, "decoupled", table_dtype=args.table_dtype,
+    mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
+    if mode != "decoupled" and (args.table_dtype != "fp32" or args.fused_serve):
+        p.error(f"--table-dtype/--fused-serve configure the BSE table store, which "
+                f"only the decoupled (sdim) deployment has; arch {args.arch!r} "
+                f"serves {mode!r}")
+    server = CTRServer.build(model, None, mode, table_dtype=args.table_dtype,
                              fused=args.fused_serve, device=device)
     print(f"SDIM engine on {device}"
           f"{' (' + torch.cuda.get_device_name(device) + ')' if device.type == 'cuda' else ''}")
@@ -83,9 +89,10 @@ def main(argv=None):
         report(r, server.handle_request(*req))
     if pending:
         flush()
+    table = ("" if server.bse is None else
+             f"; table {server.bse.table_bytes()} B ({args.table_dtype} storage)")
     print(f"{server.stats.ms_per_request:.1f} ms/request"
-          f"{' (fused serve)' if args.fused_serve else ''}; "
-          f"table {server.bse.table_bytes()} B ({args.table_dtype} storage)")
+          f"{' (fused serve)' if args.fused_serve else ''} ({mode}){table}")
 
 
 if __name__ == "__main__":

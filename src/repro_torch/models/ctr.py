@@ -110,10 +110,12 @@ class CTRModel(nn.Module):
         """A micro-batch of B requests -> (B, C) logits.
 
         user_batch: hist_* (B, ≥short_len); cand_*: (B, C); ctx (B, C,
-        ctx_dim). The long branch reads either ``bucket_tables`` (B, G, U, e)
-        fetched from the BSE server (``engine.query``) or ``interest``
-        (B, C, e) already computed by the fused serve on the BSE side.
-        Inline serving off the raw history is not ported yet."""
+        ctx_dim). The long branch reads ``bucket_tables`` (B, G, U, e)
+        fetched from the BSE server (``engine.query``), or ``interest``
+        (B, C, e) already computed by the fused serve on the BSE side, or,
+        with neither, the raw (B, L) history: ONE ``engine.serve`` for kind
+        ``sdim`` (inline serving), the interest module for any other kind
+        (``target``: exact target attention)."""
         cfg = self.cfg
         B, C = cand_items.shape
         e = cfg.behavior_dim
@@ -136,9 +138,13 @@ class CTRModel(nn.Module):
             elif bucket_tables is not None:
                 long_out = self.engine.query(target_e, bucket_tables, R=self.interest.R)
             else:
-                raise NotImplementedError(
-                    "inline serving off the raw history (engine.serve) is not "
-                    "ported yet: pass bucket_tables= or interest=")
+                long_e = self._embed_behaviors(user_batch["hist_items"],
+                                               user_batch["hist_cats"])    # (B, L, e)
+                if cfg.interest.kind == "sdim":
+                    long_out = self.engine.serve(target_e, long_e, user_batch["hist_mask"],
+                                                 R=self.interest.R)
+                else:
+                    long_out = self.interest(target_e, long_e, user_batch["hist_mask"])
             feats.append(long_out.reshape(B * C, e).to(tflat.dtype))
 
         feats.append(ctx.reshape(B * C, -1).to(tflat.dtype))

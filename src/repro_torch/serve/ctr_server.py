@@ -1,17 +1,25 @@
 """CTR server (paper §4.4, Fig. 1): scores C candidate items per request.
 
-Counterpart of ``repro/serve/ctr_server.py`` for the decoupled deployment:
-the user's long-term state comes from the BSE server's table store, so a
-request costs candidate hashing only. Requests are served one at a time
-(``handle_request``) or micro-batched (``handle_requests``): a burst of N
-requests becomes ONE ``fetch_many`` gather plus ONE scoring pass over the
-padded (N, C_max) candidate block — or, with ``fused=True``, ONE
-``sdim_fused_serve`` launch on the BSE side that hands back only the
-(N, C, e) interest vectors. Missing users are encoded first, in one batched
-``ingest_histories``.
+Counterpart of ``repro/serve/ctr_server.py`` for three deployments (the
+paper's §4.4 serving comparison):
 
-The inline and target-attention deployments, admission control, metrics
-and tracing are not ported yet.
+- ``"decoupled"``: the user's long-term state comes from the BSE server's
+  table store, so a request costs candidate hashing only. A burst of N
+  requests becomes ONE ``fetch_many`` gather plus ONE scoring pass over the
+  padded (N, C_max) candidate block — or, with ``fused=True``, ONE
+  ``sdim_fused_serve`` launch on the BSE side that hands back only the
+  (N, C, e) interest vectors. Missing users are encoded first, in one
+  batched ``ingest_histories``.
+- ``"inline"``: no BSE server; every burst ships the full (N, L) histories
+  and the long branch scores them raw — ONE ``bse_serve`` launch for an
+  ``sdim`` model (SDIM without the BSE split, the paper's ablation).
+- ``"target_attention"``: the same raw path for a model of interest kind
+  ``target`` (DIN over the whole history, ONE ``target_attention_flash``
+  launch per burst).
+
+Requests are served one at a time (``handle_request``) or micro-batched
+(``handle_requests``). Admission control, metrics and tracing are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.ctr import CTRModel
 from repro_torch.serve.bse_server import BSEServer
+
+MODES = ("decoupled", "inline", "target_attention")
 
 
 @dataclasses.dataclass
@@ -48,21 +58,25 @@ class CTRServer:
               mode: str = "decoupled", *, capacity: int = 64,
               wire_dtype: torch.dtype = torch.bfloat16, table_dtype: Any = torch.float32,
               fused: bool = False, device: DeviceLike = "cuda") -> "CTRServer":
-        """The serving pair on ``device``: wires the model's behavior
-        embedding and hash family R into a ``BSEServer``. ``params`` (the
-        JAX package's CTR params pytree as numpy arrays) is loaded into the
-        model first when given (``weights.load_jax_params``); ``None``
-        serves the model's own weights. ``table_dtype`` is the BSE storage
-        dtype (fp32 | bf16 | int8); ``fused=True`` serves micro-batches
-        through ``BSEServer.serve_candidates``."""
+        """The server on ``device``; for ``mode="decoupled"`` it wires the
+        model's behavior embedding and hash family R into a ``BSEServer``
+        (the other modes have none). ``params`` (the JAX package's CTR
+        params pytree as numpy arrays) is loaded into the model first when
+        given (``weights.load_jax_params``); ``None`` serves the model's own
+        weights. ``table_dtype`` is the BSE storage dtype (fp32 | bf16 |
+        int8 | fp8); ``fused=True`` serves micro-batches through
+        ``BSEServer.serve_candidates``."""
         dev = resolve_device(device)
-        if mode != "decoupled":
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported; the port serves 'decoupled'")
+        if mode != "decoupled" and fused:
+            raise ValueError(
+                f"fused serving reads the BSE table store, which only the "
+                f"decoupled deployment has (mode={mode!r})")
         if params is not None:
             from repro_torch.weights import load_jax_params
             load_jax_params(model, params)
         model.to(dev)
+        if mode != "decoupled":
+            return cls(model, None, mode=mode)
 
         def embed(items, cats):
             return model._embed_behaviors(torch.as_tensor(items, device=dev),
@@ -72,14 +86,17 @@ class CTRServer:
                         capacity=capacity, table_dtype=table_dtype, device=dev)
         return cls(model, bse, mode=mode, fused=fused)
 
-    def __init__(self, model: CTRModel, bse_server: BSEServer,
+    def __init__(self, model: CTRModel, bse_server: Optional[BSEServer] = None,
                  mode: str = "decoupled", fused: bool = False):
-        assert mode == "decoupled" and bse_server is not None
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} is not one of {MODES}")
+        if mode == "decoupled" and bse_server is None:
+            raise ValueError("the decoupled deployment needs a BSE server")
         self.model = model
         self.bse = bse_server
         self.mode = mode
         self.fused = fused
-        self.device = bse_server.store.device
+        self.device = model.item_emb.weight.device
         self.stats = ServeStats()
 
     def handle_request(self, user: Any, user_batch: dict, cand_items, cand_cats, ctx):
@@ -109,13 +126,17 @@ class CTRServer:
                 rows.append(np.pad(x, [(0, c_max - c)] + [(0, 0)] * (x.ndim - 1)))
             return torch.as_tensor(np.stack(rows), device=dev)
 
-        # one upload per operand; scoring reads only the short window
+        # one upload per operand; decoupled scoring reads only the short
+        # window, the raw path the full history
         ci, cc, ctx = stack(2), stack(3), stack(4)
-        lo = -self.model.cfg.short_len
+        lo = -self.model.cfg.short_len if self.mode == "decoupled" else 0
         hist = {k: torch.as_tensor(np.concatenate([_host(r[1][k])[:, lo:] for r in requests]),
                                    device=dev)
                 for k in ("hist_items", "hist_cats", "hist_mask")}
 
+        if self.mode != "decoupled":
+            return self._finish(t0, n_cands,
+                                self.model.score_candidates_many(hist, ci, cc, ctx))
         tf0 = time.perf_counter()
         missing = {}
         for r in requests:
@@ -137,7 +158,10 @@ class CTRServer:
             self.stats.fetch_time_s += time.perf_counter() - tf0
             scores = self.model.score_candidates_many(hist, ci, cc, ctx,
                                                       bucket_tables=tables)
+        return self._finish(t0, n_cands, scores)
+
+    def _finish(self, t0: float, n_cands: list, scores: torch.Tensor) -> list:
         host = scores.cpu().numpy()          # one device -> host copy, synchronizes
         self.stats.total_time_s += time.perf_counter() - t0
-        self.stats.n_requests += len(requests)
+        self.stats.n_requests += len(n_cands)
         return [host[i, :c] for i, c in enumerate(n_cands)]

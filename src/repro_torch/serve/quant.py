@@ -3,14 +3,14 @@
 Counterpart of ``repro/serve/quant.py``. Each bucket row ``T[g, u, :]`` is
 stored as
 
-    q[g, u, :]  = round(T[g, u, :] / scale[g, u])   in int8
-    scale[g, u] = max|T[g, u, :]| / QMAX
+    q[g, u, :]  = round(T[g, u, :] / scale[g, u])   in int8 or fp8 (e4m3)
+    scale[g, u] = max|T[g, u, :]| / QMAX              (127 or 448)
 
 and read back as ``q * scale``. Rounding is half-to-even (``torch.round``,
-as ``jnp.round``); an all-zero row gets scale 0 and round-trips exactly; a
-row holding inf/NaN is zeroed (payload and scale) and counted instead of
-emitting ``scale = inf``. Storage dtypes: fp32, bf16, int8 (fp8 is not
-ported yet).
+as ``jnp.round``, for int8; the cast itself for fp8); an all-zero row gets
+scale 0 and round-trips exactly; a row holding inf/NaN is zeroed (payload
+and scale) and counted instead of emitting ``scale = inf``. Storage dtypes:
+fp32, bf16, int8, fp8.
 """
 from __future__ import annotations
 
@@ -23,15 +23,16 @@ TABLE_DTYPES: dict[str, torch.dtype] = {
     "fp32": torch.float32,
     "bf16": torch.bfloat16,
     "int8": torch.int8,
+    "fp8": torch.float8_e4m3fn,
 }
 
 # largest exactly-representable magnitude per quantized dtype
-_QMAX = {torch.int8: 127.0}
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 
 
 def resolve_table_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
-    """``'fp32'``/``'bf16'``/``'int8'`` -> torch dtype; a dtype passes
-    through."""
+    """``'fp32'``/``'bf16'``/``'int8'``/``'fp8'`` -> torch dtype; a dtype
+    passes through."""
     if isinstance(name, torch.dtype):
         return name
     if name in TABLE_DTYPES:
@@ -55,7 +56,7 @@ def _quantize(rows: torch.Tensor, dtype: torch.dtype):
     amax = rows.abs().amax(dim=-1)
     ok = torch.isfinite(amax)
     # amax × fp32(1/q): XLA compiles the JAX package's ``amax / q`` to this
-    # product, so both give the same scale bits
+    # product (for 127 and for 448), so both give the same scale bits
     scales = torch.where(ok, amax, torch.zeros_like(amax)) * float(np.float32(1.0 / q))
     pos = scales > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, scales, torch.ones_like(scales)),

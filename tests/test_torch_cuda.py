@@ -8,8 +8,8 @@ Every test skips inside itself where there is no CUDA. Inputs are margin-
 screened (``repro_torch.kernels.screen``), so kernel and plain version agree
 on every hash bit. Tolerances: fp32 atol 1e-5 / rtol 1e-5 (sums in another
 order); atol 1e-4 for sdim_update and for bse_encode once L is split over
-blocks (global atomics add in any order); bf16 / int8 operands are read
-identically by both, so fp32 tolerances hold there too.
+blocks (global atomics add in any order); bf16 / int8 / fp8 operands are
+read identically by both, so fp32 tolerances hold there too.
 """
 import numpy as np
 import pytest
@@ -20,8 +20,11 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_r
 from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
     sdim_fused_serve, sdim_fused_serve_ref)
 from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
 from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
-from repro_torch.serve.quant import quantize_rows
+from repro_torch.kernels.target_attn.target_attn import (
+    target_attention_flash, target_attention_flash_ref)
+from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
 
 SHAPES = [  # (B, L, C, d, m, tau)
     (1, 40, 8, 32, 12, 2),
@@ -76,7 +79,7 @@ def test_sdim_query_kernel(shape, table_dtype, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_sdim_fused_serve_kernel(shape, store_dtype, dev):
     B, L, C, d, m, tau = shape
@@ -85,8 +88,8 @@ def test_sdim_fused_serve_kernel(shape, store_dtype, dev):
     rows = torch.from_numpy(rng.standard_normal((N, m // tau, 1 << tau, d)).astype(
         np.float32)).to(dev)
     scales = None
-    if store_dtype == "int8":
-        store, scales = quantize_rows(rows, dtype=torch.int8)
+    if store_dtype in ("int8", "fp8"):
+        store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[store_dtype])
     else:
         store = rows.to(torch.bfloat16 if store_dtype == "bf16" else torch.float32)
     slots = torch.tensor(rng.integers(0, N, B), dtype=torch.int32, device=dev)
@@ -120,6 +123,41 @@ def test_sdim_update_kernel(shape, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bse_serve_kernel(shape, dtype, dev):
+    """Ragged L and C, and (B > 1) a last user with every behavior masked,
+    who reads zero."""
+    seq, q, mask, R, _ = _inputs(shape, dev, dtype, seed=2)
+    B, tau = shape[0], shape[-1]
+    if B > 1:
+        mask[-1] = 0
+    before = bse_serve.launches
+    out = bse_serve(q, seq, mask, R, tau)
+    torch.cuda.synchronize()
+    assert bse_serve.launches == before + 1
+    torch.testing.assert_close(out, bse_serve_ref(q, seq, mask, R, tau), **FP32)
+    if B > 1:
+        assert not out[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_target_attention_flash_kernel(shape, dtype, dev):
+    """Ragged L and C, and (B > 1) a fully masked last user, who attends
+    uniformly over all L rows."""
+    seq, q, mask, _, _ = _inputs(shape, dev, dtype, seed=3)
+    if shape[0] > 1:
+        mask[-1] = 0
+    before = target_attention_flash.launches
+    out = target_attention_flash(q, seq, mask)
+    torch.cuda.synchronize()
+    assert target_attention_flash.launches == before + 1
+    torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
     seq, q, mask, R, _ = _inputs(SHAPES[0], dev)
     with pytest.raises(ValueError):
@@ -128,3 +166,7 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
         bse_encode(seq.transpose(1, 2).contiguous().transpose(1, 2), mask, R, 2)
     with pytest.raises(TypeError):
         sdim_query(q.double(), bse_encode_ref(seq, mask, R, 2), R, 2)
+    with pytest.raises(TypeError):
+        bse_serve(q.bfloat16(), seq, mask, R, 2)                # candidates are fp32
+    with pytest.raises(ValueError):
+        target_attention_flash(q, seq, mask[:, :-1].contiguous())

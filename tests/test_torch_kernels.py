@@ -80,7 +80,7 @@ def test_sdim_query_plain_matches_pallas(shape, dtype):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FP32)
 
 
-@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_sdim_fused_serve_plain_matches_pallas(shape, store_dtype):
     B, L, C, d, m, tau, _, block_c = shape
@@ -92,9 +92,12 @@ def test_sdim_fused_serve_plain_matches_pallas(shape, store_dtype):
     present = np.ones(B, np.float32)
     present[-1] = 0.0                               # ragged: last user absent
     scales = jscales = None
-    if store_dtype == "int8":
-        jstore, jscales = jquant.quantize_rows(jnp.asarray(rows), dtype=jnp.int8)
-        store, scales = _t(np.asarray(jstore)), _t(np.asarray(jscales))
+    if store_dtype in ("int8", "fp8"):
+        jdt = jquant.TABLE_DTYPES[store_dtype]
+        jstore, jscales = jquant.quantize_rows(jnp.asarray(rows), dtype=jdt)
+        store = _t(np.asarray(jstore).view(np.uint8)).view(
+            {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[store_dtype])
+        scales = _t(np.asarray(jscales))
     else:
         tdt, jdt = DTYPES[store_dtype]
         store, jstore = _t(rows, tdt), jnp.asarray(rows, jdt)

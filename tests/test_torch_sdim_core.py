@@ -113,7 +113,14 @@ def test_target_attention_matches_jax_incl_fully_masked_row():
         np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["int8"])
+def _bits(payload):
+    """The stored bytes of an int8 / fp8 payload (torch or JAX), as uint8."""
+    if isinstance(payload, torch.Tensor):
+        return payload.view(torch.uint8).numpy()
+    return np.asarray(payload).view(np.uint8)
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
 def test_quantize_round_trip_equals_jax(name):
     rng = np.random.default_rng(4)
     rows = (rng.standard_normal((6, 4, 3, 16)) * 5).astype(np.float32)
@@ -124,7 +131,7 @@ def test_quantize_round_trip_equals_jax(name):
     dt, jdt = quant.TABLE_DTYPES[name], jquant.TABLE_DTYPES[name]
     payload, scales, n_bad = quant.quantize_rows_checked(_t(rows), dtype=dt)
     jpayload, jscales, jn_bad = jquant.quantize_rows_checked(jnp.asarray(rows), dtype=jdt)
-    np.testing.assert_array_equal(payload.numpy(), np.asarray(jpayload))
+    np.testing.assert_array_equal(_bits(payload), _bits(jpayload))
     np.testing.assert_array_equal(scales.numpy(), np.asarray(jscales))
     assert int(n_bad) == int(jn_bad) == 2
     p2, s2 = quant.quantize_rows(_t(rows), dtype=dt)

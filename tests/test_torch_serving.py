@@ -94,7 +94,7 @@ def _serve(server, requests, events):
 
 
 @pytest.mark.parametrize("wire", ["fp32", "bf16"])
-@pytest.mark.parametrize("table_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("table_dtype", ["fp32", "int8", "fp8"])
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 def test_handle_requests_match_jax(jax_side, fused, table_dtype, wire):
     jmodel, jparams, params_np = jax_side
