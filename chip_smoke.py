@@ -38,6 +38,9 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 Every launch count is set to 0 just before each of phases 4-6 and read
 just after it; each phase fails if one of its kernels never launched.
+After the counts are read, each of phases 4-6 runs one more steady burst
+under ``torch.profiler`` and prints the device-busy share of its wall time
+and its five costliest device operations (fused server for phase 4).
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -243,6 +246,8 @@ def kernel_phase(torch, dev):
                                    bse_serve_ref(q, seq, mask, R, TAU), **FP32))
         if masked and bool(out[1].any()):
             raise AssertionError("bse_serve: a fully masked user read non-zero interest")
+    if not torch.equal(out, bse_serve(q, seq, mask, R, TAU)):
+        raise AssertionError("bse_serve: two launches on the same inputs differ")
     valid = float(mask.sum())
     rows.append(("bse_serve", "src/repro_torch/kernels/sdim_serve/csrc/bse_serve.cu",
                  "src/repro/kernels/sdim_serve/sdim_serve.py:68", err,
@@ -268,6 +273,8 @@ def kernel_phase(torch, dev):
         err = max(err, check_close(f"target_attention_flash {(b, l, c, D)} {dtype}",
                                    target_attention_flash(q, seq, mask),
                                    target_attention_flash_ref(q, seq, mask), **FP32))
+    if not torch.equal(target_attention_flash(q, seq, mask), target_attention_flash(q, seq, mask)):
+        raise AssertionError("target_attention_flash: two launches on the same inputs differ")
     additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
     library = partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
     print(f"target attention: |sdpa - plain| max "
@@ -332,6 +339,38 @@ def serve_all(torch, name, srv, requests, wrappers):
     return scores, per_burst
 
 
+def profile_burst(torch, path, srv, burst):
+    """One steady burst of ``path`` under torch.profiler: the share of the
+    burst's wall time in which the card ran a kernel (the union of the device
+    events' intervals over the host clock around the burst) and the five
+    device operations that took the most time. Launches made here are not
+    counted: the path's counts were read before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.handle_requests(burst)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        print(f"profiler {path}: no device time (not measured); burst wall {wall_us / 1e3:.3f} ms")
+        return
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profiler {path}: burst of {len(burst)} requests, wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+          f"{len(spans)} device ops; top 5 by device time:")
+    for name, us in top:
+        print(f"  {us / 1e3:8.4f} ms  {100 * us / wall_us:5.1f}%  {name[:100]}")
+
+
 def read_launches(wrappers, own, path):
     """The launch counts after a path; fails if one of its kernels ``own``
     never launched."""
@@ -374,6 +413,7 @@ def decoupled_phase(torch, dev, wrappers, model, requests):
                                                wrappers)
     launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
                                         "sdim_query"), "decoupled")
+    profile_burst(torch, "decoupled fused", servers["fused"], requests[:BURST])
 
     for rnd in ("before events", "after events"):
         for name in ("fused", "fused-int8"):
@@ -396,6 +436,7 @@ def inline_phase(torch, dev, wrappers, model, requests, bf16_wire_scores):
     reset(wrappers)
     scores, per_burst = serve_all(torch, "inline", inline, requests, wrappers)
     launches = read_launches(wrappers, ("bse_serve",), "inline")
+    profile_burst(torch, "inline", inline, requests[:BURST])
     if per_burst["bse_serve"] != 1 or sum(per_burst.values()) != 1:
         raise AssertionError(f"inline serving launched {per_burst} per burst, "
                              f"not one bse_serve")
@@ -422,6 +463,7 @@ def target_phase(torch, dev, wrappers, requests):
     reset(wrappers)
     _, per_burst = serve_all(torch, "target_attention", server, requests, wrappers)
     launches = read_launches(wrappers, ("target_attention_flash",), "target")
+    profile_burst(torch, "target_attention", server, requests[:BURST])
     if per_burst["target_attention_flash"] != 1 or sum(per_burst.values()) != 1:
         raise AssertionError(f"target-attention serving launched {per_burst} per burst, "
                              f"not one target_attention_flash")

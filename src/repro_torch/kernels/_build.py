@@ -12,6 +12,7 @@ Numerics: no ``--use_fast_math``; the kernels hash in IEEE fp32.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -134,6 +135,15 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return next(iter(devs))
 
 
+def require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary (the kernels
+    that stage rows with cp.async copy 16 bytes at a time)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes tensors that start on a "
+                             f"16-byte boundary (clone the view)")
+
+
 def dtype_code(name: str, t: torch.Tensor, allowed) -> int:
     if t.dtype not in allowed:
         raise TypeError(f"{name}: dtype {t.dtype} not taken by the kernel "
@@ -146,7 +156,20 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of ``device`` as the C entry points take it, read
+    without building a ``torch.cuda.Stream`` object: that costs some
+    microseconds a call, which an event-timed launch of a short kernel pays
+    in full."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device: torch.device):
+    """Make ``device`` current for a launch: ``torch.cuda.device(device)``,
+    or nothing where it is current already (entering the guard costs some
+    microseconds)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, name: str) -> None:

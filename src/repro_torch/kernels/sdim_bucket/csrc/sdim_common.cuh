@@ -80,10 +80,10 @@ __device__ __forceinline__ void tile_signatures(int* sig_s, const float* x_s, co
 }
 
 // ---------------------------------------------------------------------------
-// Encode body (bse_encode, bse_serve, and the hash half of sdim_update)
+// Encode body (bse_encode, and the hash half of sdim_update)
 // ---------------------------------------------------------------------------
-// Shared memory of bse_encode and bse_serve: the (G*U, d) table, R, one row
-// tile, its weights and its signatures.
+// Shared memory of bse_encode: the (G*U, d) table, R, one row tile, its
+// weights and its signatures.
 inline size_t encode_smem_bytes(int G, int U, int d, int m) {
   return sizeof(float) * ((size_t)G * U * d + (size_t)m * padded(d) +
                           (size_t)kTileRows * padded(d) + kTileRows) +

@@ -1,0 +1,179 @@
+// Code shared by the cluster kernels (target_attn, bse_serve): tiles of rows
+// staged into shared memory with asynchronous copies (cp.async, so the next
+// tile lands while the current one is computed), float4 reads of fp32 or
+// bf16 rows, the fp32 FMA steps of register-tiled products, and on the host
+// the launch of a grid of thread-block clusters.
+//
+// Staged rows are d elements plus 16 bytes: every row stays 16-byte aligned
+// for cp.async and float4 reads, and consecutive rows start 4 banks apart, so
+// eight threads that read one float4 of eight different rows hit 32 banks.
+// The copies need d * sizeof(T) to be a multiple of 16 and 16-byte aligned
+// sources (the wrappers check both).
+//
+// Numerics: plain IEEE fp32, as sdim_common.cuh; dot4 and axpy4 are fmaf
+// steps in column order.
+#pragma once
+
+#include <mutex>
+
+#include "sdim_common.cuh"
+
+namespace sdim {
+
+// Row stride, in elements of T, of a staged (rows, d) tile.
+template <typename T>
+__host__ __device__ constexpr int staged_ld(int d) {
+  return d + 16 / static_cast<int>(sizeof(T));
+}
+
+__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// Copy 16 bytes from global to shared memory asynchronously; with
+// src_bytes < 16 only that many are read and the rest of the 16 are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying n <= rows rows of a (n, d) array x into the staged tile dst
+// of `rows` rows; rows n..rows-1 are filled with zeros. The caller commits.
+template <typename T>
+__device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ x, int n, int rows,
+                                                 int d) {
+  constexpr int kPer16 = 16 / sizeof(T);
+  const int per_row = d / kPer16, ld = staged_ld<T>(d);
+  if (blockDim.x % per_row == 0) {  // each thread keeps one 16-byte column: no division per copy
+    const int c = threadIdx.x % per_row, step = blockDim.x / per_row;
+    for (int r = threadIdx.x / per_row; r < rows; r += step) {
+      const T* src = r < n ? x + (size_t)r * d + c * kPer16 : x;
+      cp_async16(dst + (size_t)r * ld + c * kPer16, src, r < n ? 16 : 0);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = i % per_row;
+    const T* src = r < n ? x + (size_t)r * d + c * kPer16 : x;
+    cp_async16(dst + (size_t)r * ld + c * kPer16, src, r < n ? 16 : 0);
+  }
+}
+
+// Four consecutive elements of a 16-byte (fp32) or 8-byte (bf16) aligned row.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// acc + a . b over four columns, in column order.
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// acc + p * x, column by column.
+__device__ __forceinline__ float4 axpy4(float p, float4 x, float4 acc) {
+  return make_float4(fmaf(p, x.x, acc.x), fmaf(p, x.y, acc.y), fmaf(p, x.z, acc.z),
+                     fmaf(p, x.w, acc.w));
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float a) {
+  return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+}
+
+// ---------------------------------------------------------------------------
+// Host: cluster launches
+// ---------------------------------------------------------------------------
+// How many clusters of s CTAs of `fn` (kThreads threads, `smem` bytes of
+// dynamic shared memory) the current device holds at once; asked once per
+// (device, kernel, smem, s) and remembered.
+inline int max_active_clusters(const void* fn, size_t smem, int s) {
+  struct Fit {
+    int device;
+    const void* fn;
+    size_t smem;
+    int s, clusters;
+  };
+  static std::mutex mu;
+  static Fit cache[64];
+  static int n_cached = 0;
+  int device = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cached; ++i) {
+    const Fit& f = cache[i];
+    if (f.device == device && f.fn == fn && f.smem == smem && f.s == s) return f.clusters;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // a query the device refuses is no launch error
+    clusters = 0;
+  }
+  if (n_cached < 64) cache[n_cached++] = Fit{device, fn, smem, s, clusters};
+  return clusters;
+}
+
+// Launch `kernel` with kThreads threads and `smem` bytes of dynamic shared
+// memory on a (s * gx, gy) grid in clusters of s CTAs along x, and return
+// the launch's error. s is the largest of s_max, s_max - 1, ..., s_min for
+// which the device holds all gx * gy clusters at once (one wave), else
+// s_max; the kernel reads s as cluster.num_blocks().
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int s_max, int s_min, int gx, int gy,
+                            size_t smem, cudaStream_t stream, Args... args) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int s = s_max;
+  for (int c = s_max; c >= s_min; --c) {
+    if ((long long)gx * gy <= max_active_clusters(fn, smem, c)) {
+      s = c;
+      break;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s * gx, gy);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace sdim

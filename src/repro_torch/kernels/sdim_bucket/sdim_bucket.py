@@ -54,7 +54,7 @@ def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
     if B == 0 or L == 0:
         return out.reshape(B, G, U, d)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.sdim_bse_encode(seq.data_ptr(), code, mask.data_ptr(),
                                   R.data_ptr(), out.data_ptr(), B, L, per,
                                   G, U, d, m, tau, _build.stream(dev))

@@ -73,7 +73,7 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     if B == 0 or C == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.sdim_fused_serve(
             store.data_ptr(), code, _build.ptr(scales), slots.data_ptr(),
             _build.ptr(present), q.data_ptr(), R.data_ptr(), out.data_ptr(),

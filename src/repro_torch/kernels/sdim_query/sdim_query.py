@@ -42,7 +42,7 @@ def sdim_query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor,
     if B == 0 or C == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.sdim_query(table.data_ptr(), code, q.data_ptr(), R.data_ptr(),
                              out.data_ptr(), B, C, C_PER_BLOCK, G, U, d, m,
                              tau, _build.stream(dev))

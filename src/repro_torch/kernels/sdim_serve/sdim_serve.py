@@ -36,16 +36,21 @@ def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"bse_serve: shapes q {tuple(q.shape)} seq {tuple(seq.shape)} "
                          f"mask {tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
+    if not 1 <= tau <= 4 or d % 8 or d > 128 or -(-G // min(8, G)) * d > 512:
+        raise ValueError(f"bse_serve: the kernel takes tau 1..4, d a multiple of 8 up "
+                         f"to 128 and ceil(G / min(8, G)) * d <= 512; got tau {tau}, "
+                         f"d {d}, G {G}")
     code = _build.dtype_code("bse_serve", seq, (torch.float32, torch.bfloat16))
     for name, t in (("q", q), ("mask", mask), ("R", R)):
         if t.dtype != torch.float32:
             raise TypeError(f"bse_serve: {name} must be float32")
     dev = _build.require_cuda("bse_serve", q, seq, mask, R)
+    _build.require_aligned("bse_serve", q, seq, R)
     out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.sdim_bse_serve(q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
                                  R.data_ptr(), out.data_ptr(), B, L, C, G, U, d, m, tau,
                                  _build.stream(dev))

@@ -51,7 +51,7 @@ def sdim_update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
     if B == 0 or E == 0:
         return store
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = lib.sdim_update(store.data_ptr(), slots.data_ptr(),
                               events.data_ptr(), code, mask.data_ptr(),
                               R.data_ptr(), B, E, G, U, d, m, tau,

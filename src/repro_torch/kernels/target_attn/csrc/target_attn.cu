@@ -8,125 +8,312 @@
 // Replaces the Pallas kernel target_attention_flash
 // (src/repro/kernels/target_attn/target_attn.py:59, pallas_call at :74).
 //
-// Design. One block per (user, tile of kTileRows candidates), 256 threads.
-// The TPU kernel carried the running max, denominator and (TC, d)
-// accumulator in VMEM scratch across a sequential grid over L tiles; here a
-// loop inside the block streams L through shared memory kTileRows rows at a
-// time and keeps those three in shared memory (online softmax, fp32):
-//   m' = max(m, max_l s) ; alpha = e^(m - m') ; p_l = e^(s_l - m')
-//   den = den * alpha + sum_l p_l ; acc = acc * alpha + sum_l p_l * seq_l
-// and the output is acc / (den + 1e-30), as the TPU kernel. Logits are fp32
-// FMAs on CUDA cores (no tensor cores, so no TF32); seq is read in its
-// storage type and widened to fp32 on load. Rows past L in the last tile are
-// never scored, so they stay out of a fully masked user's uniform mean;
-// candidates past C in the last tile are neither scored nor written. Any C
-// and L, 0 included, are taken (the TPU kernel asserts whole tiles).
-//
 // Bound on the H100 (B=16, C=128, L=1024, d=128): 4*B*C*L*d = 1.07 GFLOP of
-// fp32 (the two products) against about 10.5 MB of input: bound by
-// operations, 0.016 ms at 67 TFLOP/s. This simple version does every
-// product as a serial fp32 dot per thread out of shared memory.
-#include "sdim_common.cuh"
+// fp32 (the two products, fewer where whole tiles are masked) against about
+// 10.5 MB of input: bound by operations on the CUDA cores (fp32, no TF32).
+//
+// Design. The TPU kernel walked L in a sequential grid dimension, carrying
+// the running max, denominator and (TC, d) accumulator in VMEM. Here L is
+// split over a thread-block cluster of S CTAs per (user, tile of kCandTile
+// candidates): CTA j takes the j-th chunk of kRowTile-row tiles and runs the
+// online softmax over it (fp32),
+//   m' = max(m, max_l s) ; alpha = e^(m - m') ; p_l = e^(s_l - m')
+//   den = den * alpha + sum_l p_l ; acc = acc * alpha + sum_l p_l * seq_l,
+// then the cluster merges the S partial states through distributed shared
+// memory in rank order, with no atomics:
+//   M = max_j m_j ; den = sum_j den_j e^(m_j - M) ; acc = sum_j acc_j e^(m_j - M)
+// and CTA j writes acc / (den + 1e-30) for its slice of the candidates. S is
+// the largest of 8..4 for which the card holds every cluster at once (a
+// second wave would double the time). At the main shape the H100 cannot
+// hold 32 clusters of 8 at two CTAs an SM but can hold 32 of 7, so a
+// 16-user burst runs 16 users x 2 tiles x 7 chunks = 224 CTAs.
+//
+// Both products are register-tiled fp32 FMAs: thread (cq, lr) of 256 owns
+// 4 candidates (cq*4..) x 2 rows (lr, lr+16) of the logits and the same 4
+// candidates x (4*J columns: float4 column lr + 16*j) of the accumulator,
+// with their running max and denominator in registers (the 16 threads of a
+// half-warp hold the same 4 candidates, so the softmax reduces by shuffles
+// and the weights pass through a per-half-warp slice of shared memory). One
+// float4 shared load feeds 8 (logits) or 4*J (accumulator) FMAs.
+// Row tiles are double-buffered with cp.async.
+//
+// A tile whose every row is masked is skipped when the user has a valid row:
+// its weights are e^(-1e30 - m) = 0 exactly, so the result is unchanged. A
+// fully masked user skips nothing: the uniform mean needs every row. Rows
+// past L are never scored, so padding stays out of that mean. Any C and L,
+// 0 included; d a multiple of 8 up to 256 (the wrapper checks).
+#include <cooperative_groups.h>
+
+#include "tile_staging.cuh"
 
 namespace sdim {
 
-constexpr float kMaskedLogit = -1e30f;
-static_assert(kTileRows == 32, "one warp lane per behavior row of a tile");
+namespace coop = cooperative_groups;
 
-inline size_t target_attn_smem_bytes(int d) {
-  const size_t t = kTileRows;
-  return sizeof(float) * (2 * t * padded(d) + t * d + t * t + 4 * t);
+constexpr float kMaskedLogit = -1e30f;
+constexpr int kMaxChunks = 8;    // CTAs of a cluster (L chunks per user and candidate tile),
+constexpr int kMinChunks = 4;    // the most that fit the grid in one wave, in this range
+constexpr int kCandTile = 64;    // candidates per CTA
+constexpr int kRowTile = 32;     // rows per staged tile: one per lane of a ballot
+constexpr int kLdP = kCandTile + 4;
+static_assert(kThreads == 256 && kCandTile == 4 * (kThreads / 16), "16 x 16 thread tiles");
+
+struct TaLayout {
+  size_t q, m, den, p, list, x, total;
+};
+
+// Dynamic shared memory: candidates (later the accumulators), running max and
+// denominator, weights, the tile list, two row tiles.
+template <typename T>
+__host__ __device__ inline TaLayout ta_layout(int d, int list_cap) {
+  TaLayout s;
+  size_t o = 0;
+  s.q = o;
+  o += align16(sizeof(float) * kCandTile * staged_ld<float>(d));
+  s.m = o;
+  o += align16(sizeof(float) * kCandTile);
+  s.den = o;
+  o += align16(sizeof(float) * kCandTile);
+  s.p = o;
+  o += align16(sizeof(float) * kRowTile * kLdP);
+  s.list = o;
+  o += align16(sizeof(int) * (list_cap + 1));
+  s.x = o;
+  o += align16(sizeof(T) * 2 * kRowTile * staged_ld<T>(d));
+  s.total = o;
+  return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int J>
+__global__ void __launch_bounds__(kThreads, 2)
     target_attn_kernel(const float* __restrict__ q, const T* __restrict__ seq,
                        const float* __restrict__ mask, float* __restrict__ out, int L, int C,
-                       int d, float scale) {
-  extern __shared__ float smem[];
-  const int ld = padded(d);
-  float* q_s = smem;                         // (TC, ld) candidates
-  float* x_s = q_s + kTileRows * ld;         // (TL, ld) behavior tile
-  float* acc_s = x_s + kTileRows * ld;       // (TC, d) running weighted sum
-  float* p_s = acc_s + kTileRows * d;        // (TC, TL) logits, then weights
-  float* w_s = p_s + kTileRows * kTileRows;  // (TL) mask of the tile
-  float* m_s = w_s + kTileRows;              // (TC) running max
-  float* den_s = m_s + kTileRows;            // (TC) running denominator
-  float* a_s = den_s + kTileRows;            // (TC) this tile's rescale factor
+                       int d, float scale, int list_cap) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const TaLayout lay = ta_layout<T>(d, list_cap);
+  float* q_s = reinterpret_cast<float*>(smem + lay.q);   // (TC, ldq); accumulators at the end
+  float* m_s = reinterpret_cast<float*>(smem + lay.m);
+  float* den_s = reinterpret_cast<float*>(smem + lay.den);
+  float* p_s = reinterpret_cast<float*>(smem + lay.p);   // (TL, kLdP) weights
+  int* list_s = reinterpret_cast<int*>(smem + lay.list);  // [0] count, then tile ids
+  T* x_s = reinterpret_cast<T*>(smem + lay.x);            // 2 x (TL, ldx)
 
-  const int b = blockIdx.x, c0 = blockIdx.y * kTileRows;
-  const int nc = min(kTileRows, C - c0);
+  coop::cluster_group cluster = coop::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
+  const int ldq = staged_ld<float>(d), ldx = staged_ld<T>(d), nq = d / 4;
+  const int b = blockIdx.y, c0 = (blockIdx.x / S) * kCandTile;
+  const int nc = min(kCandTile, C - c0);
   const T* x = seq + (size_t)b * L * d;
   const float* w = mask + (size_t)b * L;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
+  const int cq = tid / 16, lr = tid % 16;  // candidates cq*4..cq*4+3; rows / float4 columns
 
-  load_tile(q_s, q + ((size_t)b * C + c0) * d, nc, d);
-  for (int i = threadIdx.x; i < kTileRows * d; i += blockDim.x) acc_s[i] = 0.f;
-  for (int i = threadIdx.x; i < kTileRows; i += blockDim.x) {
-    m_s[i] = kMaskedLogit;
-    den_s[i] = 0.f;
+  stage_rows_async(q_s, q + ((size_t)b * C + c0) * d, nc, kCandTile, d);
+  cp_async_commit();
+
+  // This chunk's tiles, compacted: those with a valid row, or all of them
+  // for a fully masked user.
+  const int nt = (L + kRowTile - 1) / kRowTile, nt_chunk = (nt + S - 1) / S;
+  const int t_begin = rank * nt_chunk, n_chunk = max(0, min(nt - t_begin, nt_chunk));
+  for (int t = warp; t < n_chunk; t += n_warps) {
+    const int l = (t_begin + t) * kRowTile + lane;
+    const unsigned any = __ballot_sync(0xffffffffu, l < L && w[l] > 0.f);
+    if (lane == 0) list_s[1 + t] = any != 0u;
   }
-
-  for (int l0 = 0; l0 < L; l0 += kTileRows) {
-    const int n = min(kTileRows, L - l0);
-    __syncthreads();  // state initialized, or the previous tile's reads done
-    load_tile(x_s, x + (size_t)l0 * d, n, d);
-    for (int i = threadIdx.x; i < kTileRows; i += blockDim.x) w_s[i] = i < n ? w[l0 + i] : 0.f;
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc * n; i += blockDim.x) {
-      const int c = i / n, r = i % n;
-      const float* qc = q_s + c * ld;
-      const float* xr = x_s + r * ld;
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) s = fmaf(qc[k], xr[k], s);
-      p_s[c * kTileRows + r] = w_s[r] > 0.f ? s * scale : kMaskedLogit;
+  bool valid = false;
+#pragma unroll 4
+  for (int l = tid; l < L; l += blockDim.x) valid |= w[l] > 0.f;
+  const bool user_valid = __syncthreads_or(valid);
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < n_chunk; base += 32) {
+      const int t = base + lane;
+      const bool keep = t < n_chunk && (!user_valid || list_s[1 + t] != 0);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (keep) list_s[1 + count + __popc(ballot & ((1u << lane) - 1u))] = t_begin + t;
+      count += __popc(ballot);
     }
-    __syncthreads();
-    // one warp per candidate, one lane per row of the tile
-    for (int c = warp; c < nc; c += n_warps) {
-      float* p = p_s + c * kTileRows;
-      const float m_prev = m_s[c];
-      const float s = lane < n ? p[lane] : kMaskedLogit;
-      float mx = s;
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_prev, mx);
-      const float e = lane < n ? expf(s - m_new) : 0.f;
-      p[lane] = e;
-      float sum = e;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[c] = alpha;
-        den_s[c] = den_s[c] * alpha + sum;
-        m_s[c] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc * d; i += blockDim.x) {
-      const int c = i / d, k = i % d;
-      const float* p = p_s + c * kTileRows;
-      float s = 0.f;
-      for (int r = 0; r < n; ++r) s = fmaf(p[r], x_s[r * ld + k], s);
-      acc_s[i] = acc_s[i] * a_s[c] + s;
-    }
+    if (lane == 0) list_s[0] = count;
   }
   __syncthreads();
-  float* o = out + ((size_t)b * C + c0) * d;
-  for (int i = threadIdx.x; i < nc * d; i += blockDim.x) o[i] = acc_s[i] / (den_s[i / d] + 1e-30f);
+  const int n_tiles = list_s[0];
+
+  auto stage = [&](int it) {
+    const int l0 = list_s[1 + it] * kRowTile;
+    stage_rows_async(x_s + (it & 1) * kRowTile * ldx, x + (size_t)l0 * d,
+                     min(kRowTile, L - l0), kRowTile, d);
+    cp_async_commit();
+  };
+
+  float m[4], den[4];
+  float4 acc[4][J];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMaskedLogit;
+    den[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  if (n_tiles > 0) stage(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and the candidates) landed for every thread
+    const T* xt = x_s + (it & 1) * kRowTile * ldx;
+    const int l0 = list_s[1 + it] * kRowTile, n = min(kRowTile, L - l0);
+    const int r0 = lr, r1 = lr + 16;
+    const bool in0 = r0 < n, in1 = r1 < n;
+    const bool v0 = in0 && w[l0 + r0] > 0.f, v1 = in1 && w[l0 + r1] > 0.f;
+
+    // logits: 4 candidates x 2 rows, each a dot over k in order
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 4
+    for (int k4 = 0; k4 < nq; ++k4) {
+      const float4 xa = load4(xt + r0 * ldx + 4 * k4);
+      const float4 xb = load4(xt + r1 * ldx + 4 * k4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qa = load4(q_s + (cq * 4 + i) * ldq + 4 * k4);
+        s[i][0] = dot4(qa, xa, s[i][0]);
+        s[i][1] = dot4(qa, xb, s[i][1]);
+      }
+    }
+
+    // online softmax per candidate over the half-warp's 32 rows
+    float p[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a0 = v0 ? s[i][0] * scale : kMaskedLogit;
+      const float a1 = v1 ? s[i][1] * scale : kMaskedLogit;
+      float mx = fmaxf(a0, a1);
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      p[i][0] = in0 ? expf(a0 - m_new) : 0.f;
+      p[i][1] = in1 ? expf(a1 - m_new) : 0.f;
+      float sum = p[i][0] + p[i][1];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float alpha = expf(m[i] - m_new);
+      den[i] = den[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[i][j] = scale4(acc[i][j], alpha);
+    }
+    *reinterpret_cast<float4*>(p_s + r0 * kLdP + cq * 4) =
+        make_float4(p[0][0], p[1][0], p[2][0], p[3][0]);
+    *reinterpret_cast<float4*>(p_s + r1 * kLdP + cq * 4) =
+        make_float4(p[0][1], p[1][1], p[2][1], p[3][1]);
+    __syncwarp();  // the half-warp's weights are its own
+
+    // acc += p . seq: 4 candidates x J float4 columns per row, rows in order,
+    // four rows' loads issued together (rows past n weigh 0 and read zeros)
+    for (int rb = 0; rb < n; rb += 4) {
+      float4 pr[4], xv[4][J];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        pr[h] = load4(p_s + (rb + h) * kLdP + cq * 4);
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (lr + 16 * j < nq) xv[h][j] = load4(xt + (rb + h) * ldx + 4 * (lr + 16 * j));
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (lr + 16 * j < nq) {
+            acc[0][j] = axpy4(pr[h].x, xv[h][j], acc[0][j]);
+            acc[1][j] = axpy4(pr[h].y, xv[h][j], acc[1][j]);
+            acc[2][j] = axpy4(pr[h].z, xv[h][j], acc[2][j]);
+            acc[3][j] = axpy4(pr[h].w, xv[h][j], acc[3][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // reads of this tile's buffer and weights done
+  }
+  cp_async_wait<0>();  // the candidates, when no tile was staged
+  __syncthreads();
+
+  // publish this chunk's state: accumulators over the candidates' slot
+  float* acc_s = q_s;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int kq = lr + 16 * j;
+      if (kq < nq) *reinterpret_cast<float4*>(acc_s + (cq * 4 + i) * ldq + 4 * kq) = acc[i][j];
+    }
+    if (lr == 0) {
+      m_s[cq * 4 + i] = m[i];
+      den_s[cq * 4 + i] = den[i];
+    }
+  }
+  cluster.sync();
+
+  // merge the chunks in rank order; CTA `rank` writes its slice of candidates
+  const int per_rank = (kCandTile + S - 1) / S;
+  for (int t = tid; t < per_rank * nq; t += blockDim.x) {
+    const int c = rank * per_rank + t / nq, k4 = t % nq;
+    if (c >= nc) continue;
+    float mj[kMaxChunks], dj[kMaxChunks];
+    float4 aj[kMaxChunks];
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {  // every remote read in flight at once
+      if (j < S) {
+        mj[j] = cluster.map_shared_rank(m_s, j)[c];
+        dj[j] = cluster.map_shared_rank(den_s, j)[c];
+        aj[j] = load4(cluster.map_shared_rank(acc_s, j) + c * ldq + 4 * k4);
+      }
+    }
+    float mm = kMaskedLogit;
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j)
+      if (j < S) mm = fmaxf(mm, mj[j]);
+    float dd = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < kMaxChunks; ++j) {
+      if (j < S) {
+        const float e = expf(mj[j] - mm);
+        dd = fmaf(dj[j], e, dd);
+        a = axpy4(e, aj[j], a);
+      }
+    }
+    const float dn = dd + 1e-30f;
+    *reinterpret_cast<float4*>(out + ((size_t)b * C + c0 + c) * d + 4 * k4) =
+        make_float4(a.x / dn, a.y / dn, a.z / dn, a.w / dn);
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+template <typename T, int J>
+static cudaError_t launch(const float* q, const void* seq, const float* mask, float* out, int B,
+                          int L, int C, int d, float scale, cudaStream_t stream) {
+  const int nt = (L + kRowTile - 1) / kRowTile;
+  const int list_cap = (nt + kMinChunks - 1) / kMinChunks;  // the longest chunk of any S
+  return launch_clusters(target_attn_kernel<T, J>, kMaxChunks, kMinChunks,
+                         (C + kCandTile - 1) / kCandTile, B, ta_layout<T>(d, list_cap).total,
+                         stream, q, static_cast<const T*>(seq), mask, out, L, C, d, scale,
+                         list_cap);
 }
 
 template <typename T>
-static cudaError_t launch(const float* q, const void* seq, const float* mask, float* out, int B,
-                          int L, int C, int d, float scale, cudaStream_t stream) {
-  const size_t smem = target_attn_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(target_attn_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B, (C + kTileRows - 1) / kTileRows);
-  target_attn_kernel<T><<<grid, kThreads, smem, stream>>>(q, static_cast<const T*>(seq), mask,
-                                                          out, L, C, d, scale);
-  return cudaGetLastError();
+static cudaError_t launch_d(const float* q, const void* seq, const float* mask, float* out, int B,
+                            int L, int C, int d, float scale, cudaStream_t stream) {
+  if (d <= 0 || d % 8 != 0) return cudaErrorInvalidValue;
+  if (d <= 64) return launch<T, 1>(q, seq, mask, out, B, L, C, d, scale, stream);
+  if (d <= 128) return launch<T, 2>(q, seq, mask, out, B, L, C, d, scale, stream);
+  if (d <= 256) return launch<T, 4>(q, seq, mask, out, B, L, C, d, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace sdim
@@ -139,9 +326,9 @@ extern "C" int sdim_target_attention(const float* q, const void* seq, int seq_dt
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (seq_dtype) {
     case sdim::kF32:
-      return sdim::launch<float>(q, seq, mask, out, B, L, C, d, scale, s);
+      return sdim::launch_d<float>(q, seq, mask, out, B, L, C, d, scale, s);
     case sdim::kBF16:
-      return sdim::launch<__nv_bfloat16>(q, seq, mask, out, B, L, C, d, scale, s);
+      return sdim::launch_d<__nv_bfloat16>(q, seq, mask, out, B, L, C, d, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -32,6 +32,12 @@ SHAPES = [  # (B, L, C, d, m, tau)
     (4, 1024, 128, 128, 48, 3),
     (32, 16, 128, 128, 48, 3),   # an event fold's encode: L in one block per user
 ]
+# the cluster kernels (bse_serve, target_attention_flash) also at G = 12
+# over a cluster of 8 (uneven group ranges), L = 1000 and C = 100
+CLUSTER_SHAPES = SHAPES + [(3, 1000, 100, 128, 36, 3)]
+# where each user's valid rows lie: random, front-padded (the leading L
+# chunks wholly masked), or only the last 5 rows (the last chunk)
+LAYOUTS = ["random", "front", "last"]
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)
 
@@ -54,6 +60,21 @@ def _inputs(shape, dev, dtype=torch.float32, seed=0):
     mask = (rng.random((B, L)) > 0.25).astype(np.float32)
     t = lambda x: torch.from_numpy(x).to(dev)
     return t(seq).to(dtype), t(q), t(mask), t(R), rng
+
+
+def _layout(mask, layout, rng):
+    """Re-draw the valid rows of ``mask`` (B, L) as ``layout`` says; a user
+    with B > 1 keeps a fully masked last row set either way."""
+    B, L = mask.shape
+    if layout == "front":
+        lengths = torch.from_numpy(rng.integers(1, max(L // 3, 1) + 1, B))
+        mask = (torch.arange(L)[None] >= L - lengths[:, None]).float().to(mask.device)
+    elif layout == "last":
+        mask = torch.zeros_like(mask)
+        mask[:, -5:] = 1.0
+    if B > 1:
+        mask[-1] = 0
+    return mask
 
 
 @pytest.mark.cuda
@@ -123,15 +144,16 @@ def test_sdim_update_kernel(shape, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_bse_serve_kernel(shape, dtype, dev):
-    """Ragged L and C, and (B > 1) a last user with every behavior masked,
-    who reads zero."""
-    seq, q, mask, R, _ = _inputs(shape, dev, dtype, seed=2)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_bse_serve_kernel(shape, dtype, layout, dev):
+    """Ragged L and C, G = 6 (one group per CTA) and G = 12 (uneven group
+    ranges), tau = 4, wholly masked tiles, and (B > 1) a last user with every
+    behavior masked, who reads zero."""
+    seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=2)
     B, tau = shape[0], shape[-1]
-    if B > 1:
-        mask[-1] = 0
+    mask = _layout(mask, layout, rng)
     before = bse_serve.launches
     out = bse_serve(q, seq, mask, R, tau)
     torch.cuda.synchronize()
@@ -142,19 +164,38 @@ def test_bse_serve_kernel(shape, dtype, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_target_attention_flash_kernel(shape, dtype, dev):
-    """Ragged L and C, and (B > 1) a fully masked last user, who attends
-    uniformly over all L rows."""
-    seq, q, mask, _, _ = _inputs(shape, dev, dtype, seed=3)
-    if shape[0] > 1:
-        mask[-1] = 0
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_target_attention_flash_kernel(shape, dtype, layout, dev):
+    """Ragged L and C (L below one tile per cluster rank at L = 40), wholly
+    masked leading chunks, valid rows in the last chunk only, and (B > 1) a
+    fully masked last user, who attends uniformly over all L rows."""
+    seq, q, mask, _, rng = _inputs(shape, dev, dtype, seed=3)
+    mask = _layout(mask, layout, rng)
     before = target_attention_flash.launches
     out = target_attention_flash(q, seq, mask)
     torch.cuda.synchronize()
     assert target_attention_flash.launches == before + 1
     torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+    if shape[0] > 1:
+        uniform = seq[-1].float().mean(0).expand(shape[2], -1)
+        torch.testing.assert_close(out[-1], uniform, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bse_serve", "target_attention_flash"])
+def test_cluster_merges_are_deterministic(kernel, dev):
+    """Both kernels merge their cluster's partial results in rank order
+    without atomics: two launches on the same inputs agree bit for bit."""
+    shape = (4, 1024, 128, 128, 48, 3)
+    seq, q, mask, R, rng = _inputs(shape, dev, seed=4)
+    mask = _layout(mask, "front", rng)
+    if kernel == "bse_serve":
+        run = lambda: bse_serve(q, seq, mask, R, shape[-1])
+    else:
+        run = lambda: target_attention_flash(q, seq, mask)
+    assert torch.equal(run(), run())
 
 
 @pytest.mark.cuda
@@ -170,3 +211,9 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
         bse_serve(q.bfloat16(), seq, mask, R, 2)                # candidates are fp32
     with pytest.raises(ValueError):
         target_attention_flash(q, seq, mask[:, :-1].contiguous())
+    with pytest.raises(ValueError):                             # d not a multiple of 8
+        target_attention_flash(q[..., :12].contiguous(), seq[..., :12].contiguous(), mask)
+    shifted = torch.empty(seq.numel() + 1, device=dev)[1:].view(seq.shape)
+    shifted.copy_(seq)                          # contiguous, 4 bytes past a boundary
+    with pytest.raises(ValueError):
+        bse_serve(q, shifted, mask, R, 2)

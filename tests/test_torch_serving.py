@@ -116,6 +116,27 @@ def test_handle_requests_match_jax(jax_side, fused, table_dtype, wire):
     assert server.bse.table_bytes() == jserver.bse.table_bytes()
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_bf16_store_event_fold_matches_jax(jax_side, fused):
+    """A bf16 store folds two event bursts. JAX's fold turns the bf16 store
+    into fp32 data (engine.update returns fp32); the port keeps it bf16 and
+    folds by encode + read-modify-write. The scores agree at the reference's
+    bf16 tolerance (tests/test_kernels.py:46-47)."""
+    jmodel, jparams, params_np = jax_side
+    requests, events = _traffic(params_np)
+    _, later = _traffic(params_np, seed=3)
+    jserver = JCTRServer.build(jmodel, jparams, "decoupled", table_dtype="bf16", fused=fused)
+    server = CTRServer.build(CTRModel(sdim_paper.SMOKE, device="cpu"), params_np, "decoupled",
+                             table_dtype="bf16", fused=fused, device="cpu")
+    for srv in (server, jserver):
+        srv.handle_requests(requests)
+        srv.bse.ingest_events(*events)
+        srv.bse.ingest_events(*later)
+    assert server.bse.store.data.dtype == torch.bfloat16
+    for a, b in zip(server.handle_requests(requests), jserver.handle_requests(requests)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-2, rtol=2e-2)
+
+
 def test_model_apply_and_encode_match_jax(jax_side):
     """The training forward (interest = query ∘ encode) and the BSE encode
     step, on the same batch."""
