@@ -17,9 +17,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    of a 32-user event burst), with ragged masks, ragged C and L and fully
    masked users where a kernel takes them; times of kernel and plain
    version at the main paths' shapes (CUDA events, median of 30 after 3
-   warm-up calls), the bound from the bytes and FLOP this run's data
-   needs, and for target attention the time of PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs (a yardstick only).
+   warm-up calls, wrapper included), each kernel's device time per launch
+   there (torch.profiler over 20 launches), the bound from the bytes and
+   FLOP this run's data needs, and for target attention the time of
+   PyTorch's ``scaled_dot_product_attention`` on the same inputs (a
+   yardstick only). The four cluster or group-split kernels (bse_encode,
+   sdim_fused_serve, bse_serve, target_attention_flash) must give the same
+   bits on two launches; bse_encode is also timed at 8 and 16 group slices
+   per user.
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -94,6 +99,31 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20):
+    """Device time per call: the summed durations of the device operations
+    of n calls under torch.profiler, over n; None where the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3 if us > 0 else None
+
+
+def same_bits(name, fn) -> None:
+    """Two launches on the same inputs must agree bit for bit."""
+    if not fn().equal(fn()):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -111,7 +141,8 @@ def check_close(name, out, ref, atol, rtol) -> float:
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels.screen import screened_normal
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_ref
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (
+        bse_encode, bse_encode_cuda, bse_encode_ref)
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
         sdim_fused_serve, sdim_fused_serve_ref)
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
@@ -138,16 +169,29 @@ def kernel_phase(torch, dev):
     rows = []
     hash_flop = 2 * M * D + G * D          # per hashed row: projection + bucket add
 
-    # bse_encode at B=32 (fp32, bf16), at the main path's history burst
-    # (BURST users, L behaviors, L split over blocks) and at its int8 event
-    # fold (EV_USERS users, E events: one block per user); timed at the burst.
+    # bse_encode at B=32 (fp32, bf16), at the main path's int8 event fold
+    # (EV_USERS users, E events), at the burst with a fully masked user
+    # (zero table) and at the main path's history burst (BURST users, L
+    # behaviors); timed at the burst, also at 8 and 16 group slices per user.
     err = 0.0
-    for b, l, dtype in ((B, L, torch.float32), (B, L, torch.bfloat16),
-                        (EV_USERS, E, torch.float32), (BURST, L, torch.float32)):
-        seq, mask = history(b, l, dtype)
-        err = max(err, check_close(f"bse_encode {(b, l, D)} {dtype}",
-                                   bse_encode(seq, mask, R, TAU),
+    for b, l, dtype, masked in ((B, L, torch.float32, False), (B, L, torch.bfloat16, False),
+                                (EV_USERS, E, torch.float32, False),
+                                (BURST, L, torch.float32, True),
+                                (BURST, L, torch.float32, False)):
+        seq, mask = history(b, l, dtype, masked)
+        out = bse_encode(seq, mask, R, TAU)
+        err = max(err, check_close(f"bse_encode {(b, l, D)} {dtype}", out,
                                    bse_encode_ref(seq, mask, R, TAU), **ATOMIC))
+        if masked and bool(out[1].any()):
+            raise AssertionError("bse_encode: a fully masked user has a non-zero table")
+    same_bits("bse_encode", partial(bse_encode, seq, mask, R, TAU))
+    for splits in (8, 16):
+        fn = partial(bse_encode_cuda, seq, mask, R, TAU, splits)
+        check_close(f"bse_encode, {splits} group slices", fn(),
+                    bse_encode_ref(seq, mask, R, TAU), **ATOMIC)
+        k1, k2, dev_ms = time_ms(fn), time_ms(fn), device_ms(fn)
+        print(f"bse_encode at {splits} group slices per user ({BURST * splits} CTAs): "
+              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device {dev_ms} ms")
     valid = float(mask.sum())               # only valid rows need reading and hashing
     rows.append(("bse_encode", "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode.cu",
                  "src/repro/kernels/sdim_bucket/sdim_bucket.py:117", err,
@@ -176,10 +220,11 @@ def kernel_phase(torch, dev):
 
     # sdim_fused_serve (fused path): fp32 / bf16 / int8 / fp8 stores at B=32
     # with a ragged present; fp32 / int8 / fp8 at the main path's burst,
-    # every user present; timed at the burst on the fp32 store
+    # every user present, user 1's history fully masked (a zero row); timed
+    # at the burst on the fp32 store
     errs = {}
     for b, ragged in ((B, True), (BURST, False)):
-        table = bse_encode_ref(*history(b, L), R, TAU)
+        table = bse_encode_ref(*history(b, L, masked_user=not ragged), R, TAU)
         q = t(screened_normal(rng, (b, C, D), Rn))
         store = torch.cat([table, torch.zeros_like(table)])
         slots = torch.randperm(2 * b, generator=torch.Generator().manual_seed(b))[:b].to(
@@ -198,6 +243,9 @@ def kernel_phase(torch, dev):
                 sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc, present=present),
                 **FP32))
     print(f"sdim_fused_serve max abs err by store dtype: {json.dumps(errs)}")
+    for name, st, sc in stores:
+        same_bits(f"sdim_fused_serve {name}",
+                  partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present))
     n_present = int(present.sum())          # an absent user needs only its zero write
     rows.append(("sdim_fused_serve",
                  "src/repro_torch/kernels/sdim_fused_serve/csrc/sdim_fused_serve.cu",
@@ -246,8 +294,7 @@ def kernel_phase(torch, dev):
                                    bse_serve_ref(q, seq, mask, R, TAU), **FP32))
         if masked and bool(out[1].any()):
             raise AssertionError("bse_serve: a fully masked user read non-zero interest")
-    if not torch.equal(out, bse_serve(q, seq, mask, R, TAU)):
-        raise AssertionError("bse_serve: two launches on the same inputs differ")
+    same_bits("bse_serve", partial(bse_serve, q, seq, mask, R, TAU))
     valid = float(mask.sum())
     rows.append(("bse_serve", "src/repro_torch/kernels/sdim_serve/csrc/bse_serve.cu",
                  "src/repro/kernels/sdim_serve/sdim_serve.py:68", err,
@@ -273,8 +320,7 @@ def kernel_phase(torch, dev):
         err = max(err, check_close(f"target_attention_flash {(b, l, c, D)} {dtype}",
                                    target_attention_flash(q, seq, mask),
                                    target_attention_flash_ref(q, seq, mask), **FP32))
-    if not torch.equal(target_attention_flash(q, seq, mask), target_attention_flash(q, seq, mask)):
-        raise AssertionError("target_attention_flash: two launches on the same inputs differ")
+    same_bits("target_attention_flash", partial(target_attention_flash, q, seq, mask))
     additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
     library = partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
     print(f"target attention: |sdpa - plain| max "
@@ -294,10 +340,13 @@ def kernel_phase(torch, dev):
         # kernel, plain, plain, kernel: both seen under the same clocks
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
+        dev_ms = device_ms(kernel)
         timed.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                          max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-        print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
+                          max_abs_err=err, ms=min(k1, k2), device_ms=dev_ms,
+                          plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms))
+        print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, plain "
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
     return timed

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Where the time of the two group-split kernels goes, phase by phase, on
+one NVIDIA GPU (written for the H100):
+
+    python3 phase_clocks.py
+
+Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
+the port's own, under ``build/``): thread 0 of every CTA then adds the SM
+cycles of each phase that ``PHASE_MARK`` delimits in ``bse_encode.cu`` and
+``sdim_fused_serve.cu`` (the phase ends after the barrier that closes it,
+so it includes the wait for the slowest thread) and stamps %globaltimer at
+the CTA's start and end. Runs each kernel at the main path's burst shape of
+``chip_smoke.py`` (B = 16, L = 1024 with front-padded lengths uniform on
+[L/4, L], C = 128, d = 128, m = 48, tau = 3, fp32), bse_encode at 8 and 16
+group slices per user, after three warm-up launches, and prints for each
+phase the mean and the largest cycles over CTAs and the cycles of the CTA
+that ends last, with the launch's span and the spread of CTA start times.
+The clocks change the code they time a little (a clock read per mark),
+so each run also prints the device time of the port's own library, which
+never has them (torch.profiler over 20 launches). Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B, L, C, D, M, TAU = 16, 1024, 128, 128, 48, 3
+SLOTS, CTAS = 7, 4096        # tile_staging.cuh: kPhaseSlots, kPhaseCTAs
+PHASES = {
+    "bse_encode": ["batch list + R", "wait + hash (warp 0)", "scatter (warp 0)",
+                   "merge + store"],
+    "sdim_fused_serve": ["row loads", "wait R, cands", "normalize", "cluster barrier",
+                         "push + hash", "rest of the copy", "answers"],
+}
+
+
+def read_phases(lib, reader: str, n_cta: int) -> np.ndarray:
+    rows = np.zeros((CTAS, SLOTS + 2), np.uint64)
+    err = getattr(lib, reader)(ctypes.c_void_p(rows.ctypes.data), ctypes.c_int(rows.nbytes))
+    if err != 0:
+        raise RuntimeError(f"{reader}: CUDA error {err}")
+    return rows[:n_cta].astype(np.int64)
+
+
+def report(name: str, rows: np.ndarray) -> None:
+    begin, end = rows[:, SLOTS], rows[:, SLOTS + 1]
+    done = end > 0                       # absent users' CTAs leave early
+    rows, begin, end = rows[done], begin[done], end[done]
+    last = int(np.argmax(end))
+    cycles = rows[:, :SLOTS].sum(1)
+    ghz = float(np.median(cycles / np.maximum(end - begin, 1)))
+    print(f"{name}: {len(rows)} CTAs, launch span {(end.max() - begin.min()) / 1e3:.2f} us, "
+          f"CTA starts spread over {(begin.max() - begin.min()) / 1e3:.2f} us, "
+          f"CTA time mean {(end - begin).mean() / 1e3:.2f} us max "
+          f"{(end - begin).max() / 1e3:.2f} us, SM clock ~{ghz:.2f} GHz")
+    base = name.split(" ")[0]
+    for k, phase in enumerate(PHASES[base]):
+        if k >= SLOTS:
+            break
+        col = rows[:, k]
+        print(f"  {phase:18s} mean {col.mean():9.0f}  max {col.max():9d}  "
+              f"last CTA {col[last]:9d} cycles")
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Summed device time of n launches under torch.profiler, over n."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+
+
+def host_breakdown(lib, store, slots, q, R) -> None:
+    """Median host time of the pieces of one sdim_fused_serve wrapper call
+    (each piece run on its own, 200 times)."""
+    import torch
+    from repro_torch.kernels import _build
+
+    dev = q.device
+    out = torch.empty(q.shape, device=dev)
+    B, C, d = q.shape
+    G, U = store.shape[1], store.shape[2]
+    args = (store.data_ptr(), 0, None, slots.data_ptr(), None, q.data_ptr(), R.data_ptr(),
+            out.data_ptr(), B, C, G, U, d, R.shape[0], R.shape[0] // G, _build.stream(dev))
+    pieces = {
+        "shape and dtype checks + require_cuda + require_aligned": lambda: (
+            _build.dtype_code("x", store, (torch.float32,)),
+            _build.require_cuda("x", store, slots, q, R), _build.require_aligned("x", store, q, R)),
+        "torch.empty of the output": lambda: torch.empty((B, C, d), device=dev),
+        "stream + device guard": lambda: (_build.stream(dev), _build.on_device(dev)),
+        "C entry point (ctypes + launch)": lambda: lib.sdim_fused_serve(*args),
+    }
+    for name, fn in pieces.items():
+        times = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        print(f"  host: {name}: median {1e6 * np.median(times):.1f} us")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from functools import partial
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_cuda, bse_encode_ref
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    plain = _build.bind(_build.build())
+    _build._lib = lib = _build.bind(_build.build(("-DSDIM_PHASE_CLOCKS",)))
+    rng = np.random.default_rng(0)
+    Rn = rng.standard_normal((M, D)).astype(np.float32)
+    R = torch.from_numpy(Rn).to(dev)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    for b in (B, 2):                     # the burst, and two users (little traffic)
+        seq = t(screened_normal(rng, (b, L, D), Rn))
+        lengths = rng.integers(L // 4, L + 1, b)
+        if b < B:
+            lengths[:] = L
+        mask = t((np.arange(L)[None] >= L - lengths[:, None]).astype(np.float32))
+        q = t(screened_normal(rng, (b, C, D), Rn))
+        store = torch.cat([bse_encode_ref(seq, mask, R, TAU),
+                           torch.zeros((b, M // TAU, 1 << TAU, D), device=dev)])
+        slots = torch.randperm(2 * b, generator=torch.Generator().manual_seed(b))[:b].to(
+            dev, torch.int32)
+        print(f"B = {b}: valid rows per user {sorted(lengths.tolist())}")
+        runs = [(f"bse_encode S={s} B={b}", partial(bse_encode_cuda, seq, mask, R, TAU, s),
+                 "sdim_bse_encode_phases", b * s) for s in (8, 16)]
+        runs.append((f"sdim_fused_serve B={b}",
+                     partial(sdim_fused_serve, store, slots, q, R, TAU),
+                     "sdim_fused_serve_phases", b * 8))
+        for name, fn, reader, n_cta in runs:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            report(name, read_phases(lib, reader, n_cta))
+            _build._lib = plain          # the port's library: device time, no clocks
+            print(f"  device time a launch without the clocks: {device_ms(fn):.4f} ms")
+            _build._lib = lib
+            host = []
+            for _ in range(50):          # the wrapper's host time a launch
+                t0 = time.perf_counter()
+                fn()
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+            print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
+        host_breakdown(plain, store, slots, q, R)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

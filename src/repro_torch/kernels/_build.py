@@ -39,10 +39,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
 }
@@ -54,12 +54,12 @@ def sources() -> list[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
-def _key(nvcc: str) -> str:
+def _key(nvcc: str, flags) -> str:
     h = hashlib.sha256()
     for f in sorted(KERNELS_DIR.glob("*/csrc/*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     h.update(nvcc.encode())
     return h.hexdigest()[:16]
 
@@ -72,12 +72,15 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile every kernel source (one ``nvcc`` per source, all started
     together) and link them into one ``.so``; returns its path. A library
-    already built from the same sources and flags is reused."""
+    already built from the same sources and flags is reused. ``defines``
+    (``-D`` flags) build a variant beside the port's library, e.g. the phase
+    clocks of ``phase_clocks.py``."""
     nvcc = _nvcc()
-    out_dir = BUILD_DIR / _key(nvcc)
+    flags = (*NVCC_FLAGS, *defines)
+    out_dir = BUILD_DIR / _key(nvcc, flags)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -86,7 +89,7 @@ def build() -> Path:
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-c", str(src),
+            cmd = [nvcc, *flags, "-I", str(INCLUDE_DIR), "-c", str(src),
                    "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -110,29 +113,37 @@ def build() -> Path:
     return lib
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """The one CUDA device all of ``tensors`` lie on; raises otherwise."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+    """The one CUDA device all of ``tensors`` lie on; raises otherwise.
+    Compares device indices (``get_device``, -1 off CUDA), which costs less
+    host time than building ``torch.device`` objects on every launch."""
+    index = tensors[0].get_device()
+    if index < 0 or any(t.get_device() != index for t in tensors):
+        devs = sorted({str(t.device) for t in tensors})
         raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
-                         f"device, got {sorted(map(str, devs))}")
+                         f"device, got {devs}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    return next(iter(devs))
+    return tensors[0].device
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:

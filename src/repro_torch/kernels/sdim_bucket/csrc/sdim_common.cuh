@@ -1,16 +1,17 @@
-// Device code shared by the SDIM kernels (bse_encode, sdim_update,
-// sdim_query, sdim_fused_serve, bse_serve) and the tile helpers of
-// target_attn: SimHash of a row against R, tau-bit packing into a bucket id
-// per signature group, the in-order bucket scatter of a behavior stream,
-// the l2 normalization of a (G*U, d) table and the bucket read that answers
-// candidates against it.
+// Device code shared by the SDIM kernels: SimHash of a row against R and
+// tau-bit packing into a bucket id per signature group (one thread per (row,
+// group): sdim_update), the l2 normalization of table rows in shared memory
+// (sdim_query, sdim_fused_serve, bse_serve) and the bucket read that answers
+// candidates against a user's table (query_block: sdim_query).
 //
 // Replaces the shared helpers of the Pallas kernels in
 // src/repro/kernels/sdim_bucket/sdim_bucket.py:58-102 (signature_onehot,
 // encode_tile, query_tile, l2_normalize_rows). The TPU versions express the
 // hash and the bucket scatter/gather as one-hot matrix products for the MXU;
-// here the hash is an fp32 FMA loop per (row, group) and the scatter/gather
-// index the table directly, so no one-hot operand exists.
+// here the hash is an fp32 FMA loop per (row, group) and the gather indexes
+// the table directly, so no one-hot operand exists. bse_encode,
+// sdim_fused_serve and bse_serve hash with register-tiled loops of their
+// own.
 //
 // Numerics: plain IEEE fp32 (no --use_fast_math, fmaf, IEEE sqrtf and
 // division). bit = [r . x >= 0], bits packed little-endian (weight 1 << t)
@@ -80,48 +81,10 @@ __device__ __forceinline__ void tile_signatures(int* sig_s, const float* x_s, co
 }
 
 // ---------------------------------------------------------------------------
-// Encode body (bse_encode, and the hash half of sdim_update)
+// Update body (sdim_update)
 // ---------------------------------------------------------------------------
-// Shared memory of bse_encode: the (G*U, d) table, R, one row tile, its
-// weights and its signatures.
-inline size_t encode_smem_bytes(int G, int U, int d, int m) {
-  return sizeof(float) * ((size_t)G * U * d + (size_t)m * padded(d) +
-                          (size_t)kTileRows * padded(d) + kTileRows) +
-         sizeof(int) * (size_t)kTileRows * G;
-}
-
-// Stream rows [l_begin, l_end) of one user's behaviors x (L, d) with weights
-// w (L,) through the staged tile x_s and add them into the (G*U, d) table_s
-// in row order: table_s[g*U + sig_g(x_l)] += w_l * x_l. Each (group, column)
-// cell set is owned by one thread, so the table needs no shared-memory
-// atomics. Rows of weight 0 add nothing. The caller has zeroed the table and
-// staged R (each pass starts with a barrier) and syncs before reading the
-// table.
-template <typename T>
-__device__ void encode_rows(float* table_s, const float* r_s, float* x_s, float* w_s, int* sig_s,
-                            const T* __restrict__ x, const float* __restrict__ w, int l_begin,
-                            int l_end, int G, int U, int d, int tau) {
-  const int ld = padded(d);
-  for (int l0 = l_begin; l0 < l_end; l0 += kTileRows) {
-    const int n = min(kTileRows, l_end - l0);
-    __syncthreads();  // table zeroed and R staged, or the previous scatter done
-    load_tile(x_s, x + (size_t)l0 * d, n, d);
-    for (int i = threadIdx.x; i < kTileRows; i += blockDim.x) w_s[i] = i < n ? w[l0 + i] : 0.f;
-    __syncthreads();
-    tile_signatures(sig_s, x_s, r_s, n, G, tau, d);
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
-      const int g = i / d, k = i % d;
-      float* col = table_s + (size_t)g * U * d + k;
-      for (int r = 0; r < n; ++r) {
-        const float wr = w_s[r];
-        if (wr != 0.f) col[(size_t)sig_s[r * G + g] * d] += wr * x_s[r * ld + k];
-      }
-    }
-  }
-}
-
-// Shared memory of sdim_update: as encode, without the table.
+// Shared memory of sdim_update: R, one row tile, its weights and its
+// signatures.
 inline size_t update_smem_bytes(int G, int d, int m) {
   return sizeof(float) * ((size_t)m * padded(d) + (size_t)kTileRows * padded(d) + kTileRows) +
          sizeof(int) * (size_t)kTileRows * G;

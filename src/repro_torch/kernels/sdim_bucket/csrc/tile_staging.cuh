@@ -69,6 +69,58 @@ __device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ x
   }
 }
 
+// Bulk copies (the copy engine moves a whole block; no thread issues
+// per-16-byte copies) completing on an mbarrier in shared memory.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Make `bar` count one arrival per phase; run by one thread before any use,
+// followed by a barrier of the threads that use it.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
+               "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// One thread: arrive on `bar` and make its phase wait for `bytes` more
+// bytes of bulk copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One thread: copy `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory to shared memory, counted on `bar` (see mbar_expect).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n\t"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One thread: bulk_copy of a single block, arriving on `bar` for it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  mbar_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// Wait until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t"
+      ".reg .pred p;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t"
+      "}" ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+}
+
 // Four consecutive elements of a 16-byte (fp32) or 8-byte (bf16) aligned row.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -99,8 +151,86 @@ __device__ __forceinline__ float4 scale4(float4 v, float a) {
 }
 
 // ---------------------------------------------------------------------------
+// Phase clocks (phase_clocks.py at the repository root)
+// ---------------------------------------------------------------------------
+// Built with -DSDIM_PHASE_CLOCKS, every thread adds the SM cycles since its
+// previous mark to slot k of a register array (PHASE_MARK(k), k <
+// kPhaseSlots, k a constant), and thread 0 of each CTA writes the slots
+// and the %globaltimer (ns) of PHASE_BEGIN and PHASE_END to its CTA's row
+// of phase_cycles at PHASE_END, so a mark costs no memory access; a C
+// entry point made by PHASE_READER copies the rows out. Built without it
+// (the port's library), the marks compile to nothing.
+#ifdef SDIM_PHASE_CLOCKS
+constexpr int kPhaseSlots = 7, kPhaseCTAs = 4096;
+static __device__ unsigned long long phase_cycles[kPhaseCTAs][kPhaseSlots + 2];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void phase_write(const long long* acc, unsigned long long t0) {
+  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x != 0 || cta >= kPhaseCTAs) return;
+  for (int k = 0; k < kPhaseSlots; ++k) phase_cycles[cta][k] = acc[k];
+  phase_cycles[cta][kPhaseSlots] = t0;
+  phase_cycles[cta][kPhaseSlots + 1] = global_ns();
+}
+
+#define PHASE_BEGIN()                                   \
+  const unsigned long long phase_t0 = global_ns();      \
+  long long phase_acc[kPhaseSlots] = {};                \
+  long long phase_t = clock64()
+#define PHASE_MARK(k)                                   \
+  do {                                                  \
+    const long long phase_now = clock64();              \
+    phase_acc[k] += phase_now - phase_t;                \
+    phase_t = phase_now;                                \
+  } while (0)
+#define PHASE_END() phase_write(phase_acc, phase_t0)
+#define PHASE_READER(name)                                                          \
+  extern "C" int name(void* host, int bytes) {                                      \
+    return cudaMemcpyFromSymbol(host, sdim::phase_cycles,                           \
+                                bytes < (int)sizeof(sdim::phase_cycles)             \
+                                    ? bytes : (int)sizeof(sdim::phase_cycles));     \
+  }
+#else
+#define PHASE_BEGIN()
+#define PHASE_MARK(k)
+#define PHASE_END()
+#define PHASE_READER(name)
+#endif
+
+// ---------------------------------------------------------------------------
 // Host: cluster launches
 // ---------------------------------------------------------------------------
+// Let `fn` take `smem` bytes of dynamic shared memory on the current device:
+// cudaFuncSetAttribute once per (device, kernel) and size grown, not at
+// every launch (a launch timed with events pays for every host call).
+inline cudaError_t allow_smem(const void* fn, size_t smem) {
+  struct Allowed {
+    int device;
+    const void* fn;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static Allowed cache[64];
+  static int n_cached = 0;
+  int device = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < n_cached && !(cache[i].device == device && cache[i].fn == fn)) ++i;
+  if (i < n_cached && cache[i].smem >= smem) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (i < n_cached) cache[i].smem = smem;
+  else if (n_cached < 64) cache[n_cached++] = Allowed{device, fn, smem};
+  return cudaSuccess;
+}
+
 // How many clusters of s CTAs of `fn` (kThreads threads, `smem` bytes of
 // dynamic shared memory) the current device holds at once; asked once per
 // (device, kernel, smem, s) and remembered.
@@ -150,7 +280,7 @@ template <typename... Params, typename... Args>
 cudaError_t launch_clusters(void (*kernel)(Params...), int s_max, int s_min, int gx, int gy,
                             size_t smem, cudaStream_t stream, Args... args) {
   const void* fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
   int s = s_max;
   for (int c = s_max; c >= s_min; --c) {

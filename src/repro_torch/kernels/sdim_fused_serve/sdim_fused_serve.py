@@ -5,7 +5,9 @@ Pallas kernel ``repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86``) and
 its plain PyTorch version ``sdim_fused_serve_ref``. The wrapper runs the
 plain version for CPU tensors only; for CUDA tensors it launches the kernel
 or raises. ``sdim_fused_serve.launches`` counts kernel launches. Store
-dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales.
+dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales. The kernel
+gives each user a thread-block cluster that splits the row and the
+candidates, so each present user's row is read from device memory once.
 """
 from __future__ import annotations
 
@@ -16,9 +18,6 @@ import torch
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
 from repro_torch.serve.quant import is_quantized
-
-C_PER_BLOCK = 32         # candidates per block (one tile of sdim_common.cuh)
-
 
 def sdim_fused_serve_ref(store: torch.Tensor, slots: torch.Tensor,
                          q: torch.Tensor, R: torch.Tensor, tau: int, *,
@@ -59,6 +58,10 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     code = _build.dtype_code("sdim_fused_serve", store,
                              (torch.float32, torch.bfloat16, torch.int8,
                               torch.float8_e4m3fn))
+    if not 1 <= tau <= 4 or d % 4 or d * store.element_size() % 16:
+        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..4 and rows of d "
+                         f"values in whole 16-byte loads (d a multiple of 4, 8 for bf16, "
+                         f"16 for int8 and fp8); got tau {tau}, d {d}, {store.dtype}")
     if is_quantized(store.dtype) != (scales is not None):
         raise ValueError("sdim_fused_serve: int8 and fp8 stores need scales; "
                          "other stores take none")
@@ -69,7 +72,8 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
             raise TypeError(f"sdim_fused_serve: {name} must be float32")
     extra = [t for t in (scales, present) if t is not None]
     dev = _build.require_cuda("sdim_fused_serve", store, slots, q, R, *extra)
-    out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
+    _build.require_aligned("sdim_fused_serve", store, q, R)
+    out = torch.empty_like(q)               # (B, C, d) fp32, contiguous like q
     if B == 0 or C == 0:
         return out
     lib = _build.load()
@@ -77,7 +81,7 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
         err = lib.sdim_fused_serve(
             store.data_ptr(), code, _build.ptr(scales), slots.data_ptr(),
             _build.ptr(present), q.data_ptr(), R.data_ptr(), out.data_ptr(),
-            B, C, C_PER_BLOCK, G, U, d, m, tau, _build.stream(dev))
+            B, C, G, U, d, m, tau, _build.stream(dev))
     _build.check(err, "sdim_fused_serve")
     sdim_fused_serve.launches += 1
     return out

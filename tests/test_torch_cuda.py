@@ -7,16 +7,18 @@ host that has no JAX:
 Every test skips inside itself where there is no CUDA. Inputs are margin-
 screened (``repro_torch.kernels.screen``), so kernel and plain version agree
 on every hash bit. Tolerances: fp32 atol 1e-5 / rtol 1e-5 (sums in another
-order); atol 1e-4 for sdim_update and for bse_encode once L is split over
-blocks (global atomics add in any order); bf16 / int8 / fp8 operands are
-read identically by both, so fp32 tolerances hold there too.
+order); atol 1e-4 for sdim_update (global atomics add in any order) and
+for bse_encode (sums of up to L rows in row order, against the plain
+version's order); bf16 / int8 / fp8 operands are read identically by both,
+so fp32 tolerances hold there too.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.screen import screened_normal
-from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_ref
+from repro_torch.kernels.sdim_bucket.sdim_bucket import (
+    MAX_CELLS, MAX_L, bse_encode, bse_encode_cuda, bse_encode_ref)
 from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
     sdim_fused_serve, sdim_fused_serve_ref)
 from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
@@ -32,8 +34,9 @@ SHAPES = [  # (B, L, C, d, m, tau)
     (4, 1024, 128, 128, 48, 3),
     (32, 16, 128, 128, 48, 3),   # an event fold's encode: L in one block per user
 ]
-# the cluster kernels (bse_serve, target_attention_flash) also at G = 12
-# over a cluster of 8 (uneven group ranges), L = 1000 and C = 100
+# the cluster and group-split kernels (bse_serve, target_attention_flash,
+# sdim_fused_serve, bse_encode) also at G = 12 over 8 ranks (uneven group
+# or row ranges), L = 1000 and C = 100
 CLUSTER_SHAPES = SHAPES + [(3, 1000, 100, 128, 36, 3)]
 # where each user's valid rows lie: random, front-padded (the leading L
 # chunks wholly masked), or only the last 5 rows (the last chunk)
@@ -90,6 +93,25 @@ def test_bse_encode_kernel(shape, dtype, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", ["fewest", "auto", "G"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_bse_encode_kernel_group_slices(shape, dtype, layout, splits, dev):
+    """The fewest group slices a CTA can hold (up to 4 groups each), the
+    wrapper's choice, and one group per CTA; wholly masked tiles, and (B >
+    1) a last user with every behavior masked, whose table is zero."""
+    seq, _, mask, R, rng = _inputs(shape, dev, dtype, seed=5)
+    B, G, U, tau = shape[0], shape[4] // shape[5], 1 << shape[5], shape[5]
+    mask = _layout(mask, layout, rng)
+    S = {"fewest": -(-G // (MAX_CELLS // U)), "auto": None, "G": G}[splits]
+    out = bse_encode_cuda(seq, mask, R, tau, S)
+    torch.testing.assert_close(out, bse_encode_ref(seq, mask, R, tau), **ATOMIC)
+    if B > 1:
+        assert not out[-1].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_sdim_query_kernel(shape, table_dtype, dev):
@@ -101,25 +123,30 @@ def test_sdim_query_kernel(shape, table_dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
 def test_sdim_fused_serve_kernel(shape, store_dtype, dev):
+    """Absent users (every other one) read zero; slot 0 holds a zero row
+    (a fully masked user's table), which reads zero too."""
     B, L, C, d, m, tau = shape
     _, q, _, R, rng = _inputs(shape, dev)
     N = 2 * B + 1
     rows = torch.from_numpy(rng.standard_normal((N, m // tau, 1 << tau, d)).astype(
         np.float32)).to(dev)
+    rows[0] = 0
     scales = None
     if store_dtype in ("int8", "fp8"):
         store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[store_dtype])
     else:
         store = rows.to(torch.bfloat16 if store_dtype == "bf16" else torch.float32)
     slots = torch.tensor(rng.integers(0, N, B), dtype=torch.int32, device=dev)
+    slots[-1] = 0
     present = torch.ones(B, device=dev)
     present[::2] = 0
     out = sdim_fused_serve(store, slots, q, R, tau, scales=scales, present=present)
     ref = sdim_fused_serve_ref(store, slots, q, R, tau, scales=scales, present=present)
     torch.testing.assert_close(out, ref, **FP32)
     assert not out[::2].any()
+    assert not out[-1].any()
 
 
 @pytest.mark.cuda
@@ -184,17 +211,25 @@ def test_target_attention_flash_kernel(shape, dtype, layout, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bse_serve", "target_attention_flash"])
+@pytest.mark.parametrize("kernel", ["bse_serve", "target_attention_flash", "bse_encode",
+                                    "sdim_fused_serve"])
 def test_cluster_merges_are_deterministic(kernel, dev):
-    """Both kernels merge their cluster's partial results in rank order
-    without atomics: two launches on the same inputs agree bit for bit."""
+    """The four kernels that split a user's work over CTAs merge it in rank
+    order or in row order, without atomics: two launches on the same inputs
+    agree bit for bit."""
     shape = (4, 1024, 128, 128, 48, 3)
     seq, q, mask, R, rng = _inputs(shape, dev, seed=4)
     mask = _layout(mask, "front", rng)
     if kernel == "bse_serve":
         run = lambda: bse_serve(q, seq, mask, R, shape[-1])
-    else:
+    elif kernel == "target_attention_flash":
         run = lambda: target_attention_flash(q, seq, mask)
+    elif kernel == "bse_encode":
+        run = lambda: bse_encode(seq, mask, R, shape[-1])
+    else:
+        store = bse_encode_ref(seq, mask, R, shape[-1])
+        slots = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
+        run = lambda: sdim_fused_serve(store, slots, q, R, shape[-1])
     assert torch.equal(run(), run())
 
 
@@ -217,3 +252,31 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
     shifted.copy_(seq)                          # contiguous, 4 bytes past a boundary
     with pytest.raises(ValueError):
         bse_serve(q, shifted, mask, R, 2)
+
+
+@pytest.mark.cuda
+def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """bse_encode takes tau 1..4, d a multiple of 8 up to 128 (one float4
+    column a lane) and L up to MAX_L (its batch list lives in shared
+    memory); sdim_fused_serve takes rows in whole 16-byte loads and 16-byte
+    aligned operands."""
+    seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
+    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+        bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
+    with pytest.raises(ValueError, match="tau 1..4"):
+        bse_encode(seq[..., :128].contiguous(), mask, R[:, :128].contiguous(), 5)
+    with pytest.raises(ValueError, match="d a multiple of 8"):
+        bse_encode(seq[..., :12].contiguous(), mask, R[:8, :12].contiguous(), 2)
+    long_seq = torch.zeros((1, MAX_L + 8, 16), device=dev)
+    with pytest.raises(ValueError, match="L up to"):
+        bse_encode(long_seq, torch.ones((1, MAX_L + 8), device=dev), R[:8, :16].contiguous(), 2)
+    rows = torch.randn((3, 4, 4, 8), device=dev)
+    store, scales = quantize_rows(rows, dtype=torch.int8)      # d = 8: 8 bytes a row
+    slots = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    q8 = q[:, :, :8].contiguous()
+    with pytest.raises(ValueError, match="16-byte loads"):
+        sdim_fused_serve(store, slots, q8, R[:8, :8].contiguous(), 2, scales=scales)
+    shifted = torch.empty(q8.numel() + 1, device=dev)[1:].view(q8.shape)
+    shifted.copy_(q8)                           # contiguous, 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sdim_fused_serve(rows, slots, shifted, R[:8, :8].contiguous(), 2)

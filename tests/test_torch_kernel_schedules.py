@@ -1,8 +1,9 @@
-"""CPU rehearsal of the two cluster kernels' schedules: a numpy emulation
-of how ``target_attn.cu`` and ``bse_serve.cu`` split their work over a
-thread-block cluster and merge it, held against the JAX package on seeded,
-margin-screened inputs. The CUDA kernels cannot run here; this pins the
-merge algebra they implement.
+"""CPU rehearsal of the port's split-work kernels' schedules: a numpy
+emulation of how ``target_attn.cu``, ``bse_serve.cu``, ``bse_encode.cu``
+and ``sdim_fused_serve.cu`` split their work over CTAs (a thread-block
+cluster, or a grid of signature-group slices) and merge it, held against
+the JAX package on seeded, margin-screened inputs. The CUDA kernels cannot
+run here; this pins the algebra they implement.
 
 - target attention: each of S ranks (8 or 7) runs the online softmax
   over its chunk of 32-row tiles, skipping wholly masked tiles unless the
@@ -11,7 +12,16 @@ merge algebra they implement.
 - bse_serve: each of S ranks streams 64-row tiles and builds the table of
   its own range of signature groups (uneven where S does not divide G),
   l2-normalizes it and sums its groups' buckets per candidate; the
-  partials are summed in rank order and divided by G.
+  partials are summed in rank order and divided by G;
+- bse_encode: each of S CTAs (``encode_splits``) lists the user's 8-row
+  batches with a nonzero weight and deals them out to its 16 warps in turn;
+  each warp hashes its batches for the CTA's groups and adds each row to
+  its bucket in row order; the warps' partial tables are summed in warp
+  order and the CTA writes its slice of the table once;
+- sdim_fused_serve: each of S ranks dequantizes and l2-normalizes its
+  ceil(G*U/S) rows of the user's table, hashes its ceil(C/S) candidates
+  for all G groups, and answers them by summing the owners' rows in g
+  order, then / G * present; absent users read no row.
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
@@ -21,8 +31,12 @@ import numpy as np
 import pytest
 
 from repro.core.sdim import sdim_attention as jsdim_attention
+from repro.kernels.sdim_bucket.ref import bse_encode_ref as jbse_encode_ref
+from repro.kernels.sdim_fused_serve.ref import sdim_fused_serve_ref as jsdim_fused_serve_ref
 from repro.kernels.target_attn.ref import target_attention_ref as jtarget_attention_ref
+from repro.serve import quant as jquant
 from repro_torch.kernels.screen import screened_normal
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_CELLS, encode_splits
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MASKED = np.float32(-1e30)
@@ -164,3 +178,154 @@ def test_bse_serve_schedule_matches_jax(shape, layout):
                                      jnp.asarray(R), tau))
     np.testing.assert_allclose(out, ref, **FP32)
     assert not out[-1].any()                      # the fully masked user reads zero
+
+
+def bse_encode_schedule(seq, mask, R, tau, S, batch=8, warps=16):
+    """bse_encode.cu's schedule in numpy fp32: S CTAs per user over G
+    groups. Returns the table and how often each element was written."""
+    B, L, d = seq.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    Rg = R.reshape(G, tau, d)
+    out = np.full((B, G, U, d), np.nan, np.float32)
+    writes = np.zeros((B, G, U, d), np.int64)
+    for b in range(B):
+        live = [t for t in range(-(-L // batch)) if (mask[b, t * batch:(t + 1) * batch] != 0).any()]
+        for rank in range(S):
+            g0, g1 = rank * G // S, (rank + 1) * G // S
+            assert (g1 - g0) * U <= MAX_CELLS
+            parts = np.zeros((warps, g1 - g0, U, d), np.float32)
+            for v in range(warps):                # entry i of the list: warp i % 16
+                mine = live[v::warps]
+                rows = (np.concatenate([np.arange(t * batch, min(L, (t + 1) * batch))
+                                        for t in mine]) if mine else np.zeros(0, np.int64))
+                rows = rows[mask[b, rows] != 0]
+                sig = _signatures(seq[b, rows], Rg[g0:g1], tau)
+                for gl in range(g1 - g0):
+                    for u in range(U):
+                        pick = rows[sig[:, gl] == u]
+                        if len(pick):             # the warp's rows of the cell, in row order
+                            terms = mask[b, pick, None] * seq[b, pick]
+                            parts[v, gl, u] = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
+            total = np.zeros((g1 - g0, U, d), np.float32)
+            for v in range(warps):                # warp order
+                total = total + parts[v]
+            out[b, g0:g1] = total
+            writes[b, g0:g1] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("S", [8, 16])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [
+    (2, 40, 32, 12, 2),          # G = 6
+    (3, 300, 64, 24, 4),         # G = 6, U = 16: at least 3 slices
+    (2, 1024, 128, 48, 3),       # the main shape: G = 16
+    (2, 1000, 128, 36, 3),       # G = 12: uneven slices at S = 8
+], ids=["G6", "G6-U16", "full-width", "G12"])
+def test_bse_encode_schedule_matches_jax(shape, layout, S):
+    """S = 8 or 16 slices, capped as the wrapper caps them (at most G, at
+    least enough for MAX_CELLS sums a CTA): every element is written once,
+    and a fully masked user gets a zero table."""
+    B, L, d, m, tau = shape
+    G, U = m // tau, 1 << tau
+    S = max(-(-G // (MAX_CELLS // U)), min(G, S))
+    rng = np.random.default_rng(13)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    mask = _mask(rng, B, L, layout)
+    out, writes = bse_encode_schedule(seq, mask, R, tau, S)
+    ref = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask), jnp.asarray(R), tau))
+    assert (writes == 1).all()
+    np.testing.assert_allclose(out, ref, **FP32)
+    assert not out[-1].any()                      # the fully masked user
+
+
+@pytest.mark.parametrize("B, G, U, want", [
+    (16, 16, 8, 8),              # the 16-user burst: 128 CTAs, two groups each
+    (4, 16, 8, 16),              # a small burst: one group a CTA
+    (32, 16, 8, 8),              # the 32-user event fold: 8 slices keep a CTA at 16 sums
+    (1, 6, 16, 6),               # never more slices than groups
+    (4096, 16, 4, 4),            # a large batch, U = 4: 4 groups a CTA
+    (4096, 12, 16, 12),          # U = 16: one group a CTA
+    (0, 16, 8, 16),              # no user
+])
+def test_encode_splits_fill_one_wave(B, G, U, want):
+    S = encode_splits(B, G, U, n_sm=132)
+    assert S == want
+    assert -(-G // S) * U <= MAX_CELLS
+    assert B * S <= 132 or S == -(-G // (MAX_CELLS // U))
+
+
+def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32):
+    """sdim_fused_serve.cu's schedule in numpy fp32: a cluster of S ranks
+    per user splits the (g, u) rows and the candidates."""
+    B, C, d = q.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    GU = G * U
+    Rg = R.reshape(G, tau, d)
+    per_row, per_c = -(-GU // S), -(-C // S)
+    out = np.full((B, C, d), np.nan, np.float32)
+    for b in range(B):
+        if present[b] == 0:                       # no row read
+            out[b] = 0.0
+            continue
+        row = store[slots[b]].reshape(GU, d).astype(np.float32)
+        scale = (np.ones(GU, np.float32) if scales is None
+                 else scales[slots[b]].reshape(GU).astype(np.float32))
+        slices = []
+        for rank in range(S):                     # each rank: its rows, normalized
+            lo, hi = min(GU, rank * per_row), min(GU, (rank + 1) * per_row)
+            t = row[lo:hi] * scale[lo:hi, None]
+            norm = np.sqrt((t * t).sum(-1, keepdims=True) + np.float32(1e-12))
+            slices.append(t / norm)
+        for rank in range(S):                     # each rank: its candidates
+            c_lo, c_hi = min(C, rank * per_c), min(C, (rank + 1) * per_c)
+            for c0 in range(c_lo, c_hi, TC):
+                qc = q[b, c0:min(c_hi, c0 + TC)]
+                sig = _signatures(qc, Rg, tau)    # (n, G)
+                acc = np.zeros((len(qc), d), np.float32)
+                for g in range(G):                # g order, rows read from their owners
+                    idx = g * U + sig[:, g]
+                    owner = idx // per_row
+                    acc = acc + np.stack([slices[o][i - o * per_row]
+                                          for o, i in zip(owner, idx)])
+                out[b, c0:c0 + len(qc)] = acc / np.float32(G) * present[b]
+    return out
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", [
+    (3, 8, 32, 12, 2, 8),        # G*U = 24 rows: 3 a rank; one candidate a rank
+    (3, 70, 64, 24, 4, 8),       # U = 16, ragged C
+    (2, 128, 128, 48, 3, 8),     # the main shape: 16 rows and 16 candidates a rank
+    (3, 100, 128, 36, 3, 8),     # G = 12 over 8 ranks, C = 100
+    (2, 5, 128, 48, 3, 7),       # 7 ranks: uneven rows, ranks without candidates
+], ids=["small", "U16", "full-width", "G12", "S7-C5"])
+def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
+    B, C, d, m, tau, S = shape
+    G, U = m // tau, 1 << tau
+    rng = np.random.default_rng(14)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    q = screened_normal(rng, (B, C, d), R)
+    N = 2 * B + 1
+    rows = rng.standard_normal((N, G, U, d)).astype(np.float32)
+    rows[0] = 0.0                                 # a fully masked user's zero table
+    slots = rng.permutation(N)[:B].astype(np.int32)
+    slots[0] = 0
+    present = np.ones(B, np.float32)
+    present[-1] = 0.0                             # the last user is absent
+    jscales = None
+    if store_dtype in ("int8", "fp8"):
+        jstore, jscales = jquant.quantize_rows(jnp.asarray(rows),
+                                               dtype=jquant.TABLE_DTYPES[store_dtype])
+    else:
+        jstore = jnp.asarray(rows, jnp.bfloat16 if store_dtype == "bf16" else jnp.float32)
+    store = np.asarray(jstore).astype(np.float32)  # the stored values, exactly
+    scales = None if jscales is None else np.asarray(jscales)
+    out = sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S)
+    ref = np.asarray(jsdim_fused_serve_ref(jstore, jnp.asarray(slots), jnp.asarray(q),
+                                           jnp.asarray(R), tau, scales=jscales,
+                                           present=jnp.asarray(present)))
+    np.testing.assert_allclose(out, ref, **FP32)
+    assert not out[-1].any()                      # the absent user
+    assert not out[0].any()                       # the zero table reads zero

@@ -196,7 +196,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_repro():
     files = [os.path.join(dp, f) for dp, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch"))
              for f in fs if f.endswith(".py")]
-    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "phase_clocks.py")]
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):
