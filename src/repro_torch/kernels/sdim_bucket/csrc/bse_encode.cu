@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
     return lane < n ? w[l0 + lane] : 0.f;
   };
 
-  // hash layout: lanes 8h..8h+7 take rows h and h + 4, column part q
+  // hash layout: lanes 8h..8h+7 take rows h and h + 4, each every eighth float4 column
   const int hrow = lane / 8, part = lane % 8;
   float wv = warp < n_live ? stage(warp, 0) : 0.f;
   float w1 = warp + kWarps < n_live ? stage(warp + kWarps, 1) : 0.f;
