@@ -21,10 +21,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    there (torch.profiler over 20 launches), the bound from the bytes and
    FLOP this run's data needs, and for target attention the time of
    PyTorch's ``scaled_dot_product_attention`` on the same inputs (a
-   yardstick only). The four cluster or group-split kernels (bse_encode,
-   sdim_fused_serve, bse_serve, target_attention_flash) must give the same
-   bits on two launches; bse_encode is also timed at 8 and 16 group slices
-   per user.
+   yardstick only). All six kernels split or share their work without
+   atomics and must give the same bits on two launches (sdim_query off
+   bf16 and fp32 tables, sdim_update on a fresh clone of the store each
+   time); bse_encode is also timed at 8 and 16 group slices per user.
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -71,7 +71,7 @@ B, L, C, D, M, TAU, E = 32, 1024, 128, 128, 48, 3, 16
 BURST, EV_USERS = 16, 32      # main path: requests per burst, users per event burst
 G, U = M // TAU, 1 << TAU
 FP32 = dict(atol=1e-5, rtol=1e-5)
-ATOMIC = dict(atol=1e-4, rtol=1e-5)   # global atomics add in any order
+ATOMIC = dict(atol=1e-4, rtol=1e-5)   # bse_encode: sums of up to L rows in another order
 WIRE_TOL = 5e-2                       # fused vs unfused: bf16 wire tables
 INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
 
@@ -200,17 +200,22 @@ def kernel_phase(torch, dev):
                  bound(valid * D * 4 + mask.numel() * 4 + R.numel() * 4
                        + BURST * G * U * D * 4, valid * hash_flop), None))
 
-    # sdim_query (unfused decoupled path: bf16 wire tables) at B=32 and at
-    # the main path's burst; timed at the burst
+    # sdim_query (unfused decoupled path: bf16 wire tables, and fp32) at
+    # B=32 with a fully masked user (a zero table, read as zero) and at the
+    # main path's burst; timed at the burst
     err = 0.0
     for b in (B, BURST):
-        table = bse_encode_ref(*history(b, L), R, TAU)
+        table = bse_encode_ref(*history(b, L, masked_user=b == B), R, TAU)
         wire = table.to(torch.bfloat16)
         q = t(screened_normal(rng, (b, C, D), Rn))
         for tb in (wire, table):
-            err = max(err, check_close(f"sdim_query {(b, C, D)} {tb.dtype}",
-                                       sdim_query(q, tb, R, TAU),
+            out = sdim_query(q, tb, R, TAU)
+            err = max(err, check_close(f"sdim_query {(b, C, D)} {tb.dtype}", out,
                                        sdim_query_ref(q, tb, R, TAU), **FP32))
+            if b == B and bool(out[1].any()):
+                raise AssertionError("sdim_query: a zero table read non-zero interest")
+    for tb in (wire, table):
+        same_bits(f"sdim_query {tb.dtype}", partial(sdim_query, q, tb, R, TAU))
     query_flop = BURST * C * hash_flop + BURST * G * U * 3 * D
     rows.append(("sdim_query", "src/repro_torch/kernels/sdim_query/csrc/sdim_query.cu",
                  "src/repro/kernels/sdim_query/sdim_query.py:52", err,
@@ -257,19 +262,25 @@ def kernel_phase(torch, dev):
                        n_present * C * hash_flop + n_present * G * U * 3 * D), None))
 
     # sdim_update (event ingest, the main path's EV_USERS x E burst):
-    # duplicate slots, a zero-mask row at slot 0
+    # a duplicate-heavy burst (every row on one of two slots), then
+    # duplicate slots and a zero-mask row at slot 0; timed on the latter
     events = t(screened_normal(rng, (EV_USERS, E, D), Rn))
     ev_mask = t((rng.random((EV_USERS, E)) > 0.2).astype(np.float32))
     ev_mask[0] = 0
     ev_slots = torch.tensor(np.r_[0, rng.integers(1, EV_USERS // 2, EV_USERS - 1)],
                             dtype=torch.int32, device=dev)
+    two_slots = torch.tensor(np.where(rng.random(EV_USERS) > 0.5, 3, 5), dtype=torch.int32,
+                             device=dev)
     base = torch.randn((2 * EV_USERS, G, U, D), device=dev)
-    a, b = base.clone(), base.clone()
-    sdim_update(a, ev_slots, events, ev_mask, R, TAU)
-    sdim_update_ref(b, ev_slots, events, ev_mask, R, TAU)
-    err = check_close("sdim_update", a, b, **ATOMIC)
+    err = 0.0
+    for name, sl in (("two slots", two_slots), ("duplicate slots", ev_slots)):
+        a, b = base.clone(), base.clone()
+        sdim_update(a, sl, events, ev_mask, R, TAU)
+        sdim_update_ref(b, sl, events, ev_mask, R, TAU)
+        err = max(err, check_close(f"sdim_update {name}", a, b, **FP32))
     if not torch.equal(a[0], base[0]):
         raise AssertionError("sdim_update: a zero-mask row at slot 0 wrote to slot 0")
+    same_bits("sdim_update", lambda: sdim_update(base.clone(), ev_slots, events, ev_mask, R, TAU))
     touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
     ev_valid = float(ev_mask.sum())
     rows.append(("sdim_update", "src/repro_torch/kernels/sdim_update/csrc/sdim_update.cu",

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the two group-split kernels goes, phase by phase, on
-one NVIDIA GPU (written for the H100):
+"""Where the time of the split-work kernels goes, phase by phase, on one
+NVIDIA GPU (written for the H100):
 
     python3 phase_clocks.py
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
-cycles of each phase that ``PHASE_MARK`` delimits in ``bse_encode.cu`` and
-``sdim_fused_serve.cu`` (the phase ends after the barrier that closes it,
-so it includes the wait for the slowest thread) and stamps %globaltimer at
-the CTA's start and end. Runs each kernel at the main path's burst shape of
-``chip_smoke.py`` (B = 16, L = 1024 with front-padded lengths uniform on
-[L/4, L], C = 128, d = 128, m = 48, tau = 3, fp32), bse_encode at 8 and 16
-group slices per user, after three warm-up launches, and prints for each
-phase the mean and the largest cycles over CTAs and the cycles of the CTA
-that ends last, with the launch's span and the spread of CTA start times.
+cycles of each phase that ``PHASE_MARK`` delimits in ``bse_encode.cu``,
+``fused_query.cuh`` (``sdim_fused_serve`` and ``sdim_query``, each with
+its own clocks) and ``sdim_update.cu`` (the phase ends after the barrier
+that closes it, so it includes the wait for the slowest thread) and stamps
+%globaltimer at the CTA's start and end. Runs each kernel at the main
+path's burst shape of ``chip_smoke.py`` (B = 16, L = 1024 with front-padded
+lengths uniform on [L/4, L], C = 128, d = 128, m = 48, tau = 3; fp32, and
+a bf16 table for sdim_query), bse_encode at 8 and 16 group slices per user,
+and sdim_update on the main path's event burst (32 batch rows of E = 16
+events on random slots of 64, some duplicated) at 8 and 16 group
+slices, on chip_smoke.py's duplicate-heavy burst and on 1024 batch rows at
+the wrapper's choice, each after three warm-up launches, and prints for each phase the mean and the largest cycles over
+CTAs and the cycles of the CTA that ends last, with the launch's span and
+the spread of CTA start times.
 The clocks change the code they time a little (a clock read per mark),
 so each run also prints the device time of the port's own library, which
 never has them (torch.profiler over 20 launches). Imports nothing of JAX.
@@ -29,13 +34,17 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-B, L, C, D, M, TAU = 16, 1024, 128, 128, 48, 3
-SLOTS, CTAS = 7, 4096        # tile_staging.cuh: kPhaseSlots, kPhaseCTAs
+B, L, C, D, M, TAU, E = 16, 1024, 128, 128, 48, 3, 16
+SLOTS, CTAS = 7, 8192        # tile_staging.cuh: kPhaseSlots, kPhaseCTAs
+FUSED = ["row loads", "wait R, cands", "normalize", "cluster barrier", "push + hash",
+         "rest of the copy", "answers"]
 PHASES = {
     "bse_encode": ["batch list + R", "wait + hash (warp 0)", "scatter (warp 0)",
                    "merge + store"],
-    "sdim_fused_serve": ["row loads", "wait R, cands", "normalize", "cluster barrier",
-                         "push + hash", "rest of the copy", "answers"],
+    "sdim_fused_serve": FUSED,
+    "sdim_query": FUSED,
+    "sdim_update": ["slot scan", "wait slice, R, events", "hash + cell masks", "sums",
+                    "write", "stage next"],
 }
 
 
@@ -125,6 +134,8 @@ def main() -> int:
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_cuda, bse_encode_ref
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update_cuda, update_splits
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -151,25 +162,62 @@ def main() -> int:
         runs.append((f"sdim_fused_serve B={b}",
                      partial(sdim_fused_serve, store, slots, q, R, TAU),
                      "sdim_fused_serve_phases", b * 8))
-        for name, fn, reader, n_cta in runs:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-            report(name, read_phases(lib, reader, n_cta))
-            _build._lib = plain          # the port's library: device time, no clocks
-            print(f"  device time a launch without the clocks: {device_ms(fn):.4f} ms")
-            _build._lib = lib
-            host = []
-            for _ in range(50):          # the wrapper's host time a launch
-                t0 = time.perf_counter()
-                fn()
-                host.append(time.perf_counter() - t0)
-                torch.cuda.synchronize()
-            print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
+        runs.append((f"sdim_query B={b} bf16",
+                     partial(sdim_query, q, store[:b].to(torch.bfloat16), R, TAU),
+                     "sdim_query_phases", b * 8))
+        for run in runs:
+            clock(lib, plain, *run)
         host_breakdown(plain, store, slots, q, R)
+
+    # sdim_update: the main path's event burst (32 rows on random slots of
+    # 64), chip_smoke.py's duplicate-heavy one (31 rows on 15 slots, a
+    # zero-mask row at slot 0), then a large one
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    G, U = M // TAU, 1 << TAU
+    for name, bu, splits in (("random", 32, (8, 16)), ("duplicate-heavy", 32, (8, 16)),
+                             ("random", 1024, (None,))):
+        events = t(screened_normal(rng, (bu, E, D), Rn))
+        ev_mask = t((rng.random((bu, E)) > 0.2).astype(np.float32))
+        if name == "random":
+            sl = rng.integers(0, 2 * bu, bu)
+        else:
+            sl = np.r_[0, rng.integers(1, bu // 2, bu - 1)]
+            ev_mask[0] = 0
+        ev_slots = t(sl.astype(np.int32))
+        store = torch.randn((2 * bu, G, U, D), device=dev)
+        print(f"sdim_update B = {bu}, {name} slots: {len(set(sl.tolist()))} distinct, "
+              f"at most {np.bincount(sl).max()} rows on one; wrapper's choice "
+              f"S = {update_splits(bu, G, U, D, n_sm)}")
+        for s in splits:
+            s = s or update_splits(bu, G, U, D, n_sm)
+            clock(lib, plain, f"sdim_update S={s} B={bu} {name}",
+                  partial(sdim_update_cuda, store, ev_slots, events, ev_mask, R, TAU, s),
+                  "sdim_update_phases", bu * s)
     return 0
+
+
+def clock(lib, plain, name, fn, reader, n_cta) -> None:
+    """Phase cycles of one launch after three warm-up launches, the device
+    time a launch without the clocks, and the wrapper's host time a call."""
+    import torch
+    from repro_torch.kernels import _build
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    report(name, read_phases(lib, reader, n_cta))
+    _build._lib = plain          # the port's library: device time, no clocks
+    print(f"  device time a launch without the clocks: {device_ms(fn):.4f} ms")
+    _build._lib = lib
+    host = []
+    for _ in range(50):          # the wrapper's host time a launch
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
 
 
 if __name__ == "__main__":

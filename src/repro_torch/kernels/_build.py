@@ -40,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
+    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
@@ -160,6 +160,18 @@ def dtype_code(name: str, t: torch.Tensor, allowed) -> int:
         raise TypeError(f"{name}: dtype {t.dtype} not taken by the kernel "
                         f"(takes {[str(a) for a in allowed]})")
     return DTYPE_CODES[t.dtype]
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``, asked once per device (the wrappers
+    size their grids to fill one wave)."""
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -75,11 +75,11 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Make `bar` count one arrival per phase; run by one thread before any use,
-// followed by a barrier of the threads that use it.
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
-               "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar))
+// Make `bar` count `arrivals` arrivals per phase; run by one thread before
+// any use, followed by a barrier of the threads that use it.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned arrivals = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n\t"
+               "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar)), "r"(arrivals)
                : "memory");
 }
 
@@ -161,7 +161,7 @@ __device__ __forceinline__ float4 scale4(float4 v, float a) {
 // entry point made by PHASE_READER copies the rows out. Built without it
 // (the port's library), the marks compile to nothing.
 #ifdef SDIM_PHASE_CLOCKS
-constexpr int kPhaseSlots = 7, kPhaseCTAs = 4096;
+constexpr int kPhaseSlots = 7, kPhaseCTAs = 8192;
 static __device__ unsigned long long phase_cycles[kPhaseCTAs][kPhaseSlots + 2];
 
 __device__ __forceinline__ unsigned long long global_ns() {

@@ -37,9 +37,6 @@ def encode_splits(B: int, G: int, U: int, n_sm: int) -> int:
     return max(s_min, min(G, n_sm // max(B, 1)))
 
 
-_N_SM: dict = {}
-
-
 def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
                tau: int) -> torch.Tensor:
     """Behaviors seq (B, L, d) fp32|bf16 with mask (B, L) and hash family
@@ -68,10 +65,7 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
     dev = _build.require_cuda("bse_encode", seq, mask, R)
     _build.require_aligned("bse_encode", seq, R)
     if splits is None:
-        n_sm = _N_SM.get(dev.index)
-        if n_sm is None:
-            n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = encode_splits(B, G, U, n_sm)
+        splits = encode_splits(B, G, U, _build.sm_count(dev))
     if B == 0 or L == 0:
         return torch.zeros((B, G, U, d), dtype=torch.float32, device=dev)
     out = R.new_empty((B, G, U, d))         # fp32 on R's device

@@ -7,14 +7,23 @@ PyTorch version ``sdim_update_ref``. The JAX version returns a new store
 store IN PLACE and return it. Duplicate slots accumulate; a row whose mask
 is all zero writes nothing. The wrapper runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-``sdim_update.launches`` counts kernel launches.
+``sdim_update.launches`` counts kernel launches. The kernel splits each
+batch row's signature groups over ``update_splits`` CTAs; the first batch
+row of each slot owns it and folds every batch row of that slot in b order,
+so no two CTAs write one element (no atomics) and two launches agree bit
+for bit.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+
+ITEMS = 2           # (cell, float4 column) sums a thread holds (sdim_update.cu kItems)
+THREADS = 256       # threads a CTA (sdim_common.cuh kThreads)
 
 
 def sdim_update_ref(store: torch.Tensor, slots: torch.Tensor,
@@ -25,12 +34,35 @@ def sdim_update_ref(store: torch.Tensor, slots: torch.Tensor,
     return store.index_add_(0, slots.long(), deltas)
 
 
+def update_cells(d: int) -> int:
+    """The (group, bucket) cells a CTA holds at width d: ITEMS sums a thread
+    over the THREADS // (d / 4) cells that one pass of the block covers."""
+    return ITEMS * (THREADS // (d // 4))
+
+
+def update_splits(B: int, G: int, U: int, d: int, n_sm: int) -> int:
+    """Signature-group slices per batch row, one CTA each: as many as fill
+    the ``n_sm`` SMs in one wave at two CTAs an SM (the kernel's launch
+    bound), at most G, and at least as many as keep a CTA at
+    ``update_cells(d)`` cells."""
+    s_min = -(-G // max(1, update_cells(d) // U))
+    return max(s_min, min(G, 2 * n_sm // max(B, 1)))
+
+
 def sdim_update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
                 mask: torch.Tensor, R: torch.Tensor, tau: int) -> torch.Tensor:
     """Fold events (B, E, d) fp32|bf16 with mask (B, E) into rows ``slots``
     (B,) int32 in [0, N) of the fp32 store (N, G, U, d), in place."""
     if store.device.type == "cpu":
         return sdim_update_ref(store, slots, events, mask, R, tau)
+    return sdim_update_cuda(store, slots, events, mask, R, tau)
+
+
+def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
+                     mask: torch.Tensor, R: torch.Tensor, tau: int,
+                     splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel launch of ``sdim_update`` with ``splits`` signature-group
+    slices per batch row (None: ``update_splits`` for this device)."""
     N, G, U, d = store.shape
     B, E, _ = events.shape
     m = R.shape[0]
@@ -40,6 +72,9 @@ def sdim_update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
         raise ValueError(f"sdim_update: shapes store {tuple(store.shape)} "
                          f"events {tuple(events.shape)} slots "
                          f"{tuple(slots.shape)} mask {tuple(mask.shape)}")
+    if not 1 <= tau <= 4 or d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"sdim_update: the kernel takes tau 1..4 and d a multiple of 8 "
+                         f"up to 128; got tau {tau}, d {d}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:
         raise TypeError("sdim_update: the store must be float32")
@@ -48,13 +83,19 @@ def sdim_update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("sdim_update: mask and R must be float32")
     dev = _build.require_cuda("sdim_update", store, slots, events, mask, R)
+    _build.require_aligned("sdim_update", store, events, R)
+    if splits is None:
+        splits = update_splits(B, G, U, d, _build.sm_count(dev))
+    if not 1 <= splits <= G or -(-G // splits) * U > update_cells(d):
+        raise ValueError(f"sdim_update: {splits} group slices of G = {G} groups; the kernel "
+                         f"takes 1..G slices of at most {update_cells(d)} cells at d = {d}")
     if B == 0 or E == 0:
         return store
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_update(store.data_ptr(), slots.data_ptr(),
                               events.data_ptr(), code, mask.data_ptr(),
-                              R.data_ptr(), B, E, G, U, d, m, tau,
+                              R.data_ptr(), B, E, G, U, d, m, tau, splits,
                               _build.stream(dev))
     _build.check(err, "sdim_update")
     sdim_update.launches += 1

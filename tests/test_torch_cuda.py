@@ -7,15 +7,16 @@ host that has no JAX:
 Every test skips inside itself where there is no CUDA. Inputs are margin-
 screened (``repro_torch.kernels.screen``), so kernel and plain version agree
 on every hash bit. Tolerances: fp32 atol 1e-5 / rtol 1e-5 (sums in another
-order); atol 1e-4 for sdim_update (global atomics add in any order) and
-for bse_encode (sums of up to L rows in row order, against the plain
-version's order); bf16 / int8 / fp8 operands are read identically by both,
-so fp32 tolerances hold there too.
+order); atol 1e-4 for bse_encode (sums of up to L rows in row order,
+against the plain version's order); bf16 / int8 / fp8 operands are read
+identically by both, so fp32 tolerances hold there too. No kernel adds
+with atomics: every one gives the same bits on two launches.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import simhash
 from repro_torch.kernels.screen import screened_normal
 from repro_torch.kernels.sdim_bucket.sdim_bucket import (
     MAX_CELLS, MAX_L, bse_encode, bse_encode_cuda, bse_encode_ref)
@@ -23,7 +24,8 @@ from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
     sdim_fused_serve, sdim_fused_serve_ref)
 from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
 from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
-from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+from repro_torch.kernels.sdim_update.sdim_update import (
+    sdim_update, sdim_update_cuda, sdim_update_ref, update_cells)
 from repro_torch.kernels.target_attn.target_attn import (
     target_attention_flash, target_attention_flash_ref)
 from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
@@ -35,8 +37,8 @@ SHAPES = [  # (B, L, C, d, m, tau)
     (32, 16, 128, 128, 48, 3),   # an event fold's encode: L in one block per user
 ]
 # the cluster and group-split kernels (bse_serve, target_attention_flash,
-# sdim_fused_serve, bse_encode) also at G = 12 over 8 ranks (uneven group
-# or row ranges), L = 1000 and C = 100
+# sdim_fused_serve, sdim_query, bse_encode) also at G = 12 over 8 ranks
+# (uneven group or row ranges), L = 1000 and C = 100
 CLUSTER_SHAPES = SHAPES + [(3, 1000, 100, 128, 36, 3)]
 # where each user's valid rows lie: random, front-padded (the leading L
 # chunks wholly masked), or only the last 5 rows (the last chunk)
@@ -113,12 +115,20 @@ def test_bse_encode_kernel_group_slices(shape, dtype, layout, splits, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
 def test_sdim_query_kernel(shape, table_dtype, dev):
-    seq, q, mask, R, _ = _inputs(shape, dev)
+    """(B > 1) the last user's history is fully masked: a zero table, which
+    reads zero."""
+    seq, q, mask, R, rng = _inputs(shape, dev)
+    mask = _layout(mask, "random", rng)
     table = bse_encode_ref(seq, mask, R, shape[-1]).to(table_dtype)
-    torch.testing.assert_close(sdim_query(q, table, R, shape[-1]),
-                               sdim_query_ref(q, table, R, shape[-1]), **FP32)
+    before = sdim_query.launches
+    out = sdim_query(q, table, R, shape[-1])
+    torch.cuda.synchronize()
+    assert sdim_query.launches == before + 1
+    torch.testing.assert_close(out, sdim_query_ref(q, table, R, shape[-1]), **FP32)
+    if shape[0] > 1:
+        assert not out[-1].any()
 
 
 @pytest.mark.cuda
@@ -149,25 +159,90 @@ def test_sdim_fused_serve_kernel(shape, store_dtype, dev):
     assert not out[-1].any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
-def test_sdim_update_kernel(shape, dev):
+def _update_case(shape, case, dev, dtype=torch.float32, E=None, seed=1):
+    """Store (with -0.0 cells), slots, events, mask and R of an event fold
+    of 2B batch rows: ``dups`` (random slots with duplicates, a zero-mask
+    row at slot 0) or ``two-slots`` (every row on slot 1 or slot B)."""
     B, L, C, d, m, tau = shape
-    E = min(L, 16)
-    rng = np.random.default_rng(1)
+    E = min(L, 16) if E is None else E
+    rng = np.random.default_rng(seed)
     R = rng.standard_normal((m, d)).astype(np.float32)
-    events = torch.from_numpy(screened_normal(rng, (2 * B, E, d), R)).to(dev)
+    events = torch.from_numpy(screened_normal(rng, (2 * B, E, d), R, dtype)).to(dev, dtype)
     mask = torch.from_numpy((rng.random((2 * B, E)) > 0.2).astype(np.float32)).to(dev)
-    mask[0] = 0                                              # zero-mask row at slot 0
-    slots = torch.tensor(np.r_[0, rng.integers(1, B + 1, 2 * B - 1)], dtype=torch.int32,
-                         device=dev)                         # duplicates accumulate
+    if case == "dups":
+        slots = np.r_[0, rng.integers(1, B + 1, 2 * B - 1)]
+        mask[0] = 0                                          # zero-mask row at slot 0
+    else:
+        slots = np.where(rng.random(2 * B) > 0.5, 1, B)
     store = torch.randn((B + 1, m // tau, 1 << tau, d), device=dev)
+    store[:, :, 0, :4] = -0.0
+    slots = torch.tensor(slots, dtype=torch.int32, device=dev)
+    return store, slots, events, mask, torch.from_numpy(R).to(dev)
+
+
+def _check_update(store, out, ref, slots, events, mask, R):
+    """out against the plain version at FP32; the (group, bucket) cells no
+    weighted event reached keep their exact bits (-0.0 included)."""
+    torch.testing.assert_close(out, ref, **FP32)
+    N, G, U, d = store.shape
+    sig = simhash.signatures(events.float(), R, U.bit_length() - 1)   # (B, E, G)
+    b, e = torch.nonzero(mask != 0, as_tuple=True)
+    reached = torch.zeros((N, G, U), dtype=torch.bool, device=store.device)
+    reached[slots[b].long()[:, None], torch.arange(G, device=store.device), sig[b, e]] = True
+    assert torch.equal(out[~reached].view(torch.int32), store[~reached].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dups", "two-slots"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sdim_update_kernel(shape, case, dev):
+    """Duplicate slots fold in b order (the Pallas kernel's running total);
+    a zero-mask row at slot 0 leaves slot 0's bits alone."""
+    store, slots, events, mask, R = _update_case(shape, case, dev)
+    tau = shape[-1]
     a, b = store.clone(), store.clone()
-    assert sdim_update(a, slots, events, mask, torch.from_numpy(R).to(dev), tau) is a
-    sdim_update_ref(b, slots, events, mask, torch.from_numpy(R).to(dev), tau)
-    torch.testing.assert_close(a, b, **ATOMIC)
-    if not (slots[1:] == 0).any():
-        assert torch.equal(a[0], store[0])
+    before = sdim_update.launches
+    assert sdim_update(a, slots, events, mask, R, tau) is a
+    torch.cuda.synchronize()
+    assert sdim_update.launches == before + 1
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    _check_update(store, a, b, slots, events, mask, R)
+    if case == "dups":                                       # only row 0 aims at slot 0
+        assert torch.equal(a[0].view(torch.int32), store[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", ["fewest", "auto", "G"])
+@pytest.mark.parametrize("E", [5, 16, 40, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_sdim_update_kernel_group_slices(shape, dtype, E, splits, dev):
+    """The fewest group slices a CTA can hold, the wrapper's choice and one
+    group per CTA; E = 5 (a mask row at an odd offset; 6 rows a unit), 16
+    (2 rows a unit), 40 and 80 (two and three units a row); bf16 events."""
+    store, slots, events, mask, R = _update_case(shape, "dups", dev, dtype, E, seed=6)
+    G, U, d, tau = store.shape[1], store.shape[2], store.shape[3], shape[-1]
+    S = {"fewest": -(-G // (update_cells(d) // U)), "auto": None, "G": G}[splits]
+    a, b = store.clone(), store.clone()
+    sdim_update_cuda(a, slots, events, mask, R, tau, S)
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    _check_update(store, a, b, slots, events, mask, R)
+
+
+@pytest.mark.cuda
+def test_sdim_update_kernel_many_rows(dev):
+    """B = 1200 batch rows on 40 slots: each owner lists its rows over five
+    windows of 256; and E = 0 leaves the store as it was."""
+    shape = (600, 16, 8, 128, 48, 3)
+    store, slots, events, mask, R = _update_case(shape, "dups", dev)
+    slots = slots % 40
+    a, b = store.clone(), store.clone()
+    sdim_update(a, slots, events, mask, R, 3)
+    sdim_update_ref(b, slots, events, mask, R, 3)
+    _check_update(store, a, b, slots, events, mask, R)
+    c = store.clone()
+    sdim_update(c, slots, events[:, :0].contiguous(), mask[:, :0].contiguous(), R, 3)
+    assert torch.equal(c.view(torch.int32), store.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -212,11 +287,13 @@ def test_target_attention_flash_kernel(shape, dtype, layout, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["bse_serve", "target_attention_flash", "bse_encode",
-                                    "sdim_fused_serve"])
+                                    "sdim_fused_serve", "sdim_query-fp32", "sdim_query-bf16",
+                                    "sdim_update"])
 def test_cluster_merges_are_deterministic(kernel, dev):
-    """The four kernels that split a user's work over CTAs merge it in rank
-    order or in row order, without atomics: two launches on the same inputs
-    agree bit for bit."""
+    """The kernels that split a user's work over CTAs merge it in rank
+    order or in row order, or (sdim_update) give each slot one owner that
+    folds its rows in b order, without atomics: two launches on the same
+    inputs agree bit for bit."""
     shape = (4, 1024, 128, 128, 48, 3)
     seq, q, mask, R, rng = _inputs(shape, dev, seed=4)
     mask = _layout(mask, "front", rng)
@@ -226,10 +303,18 @@ def test_cluster_merges_are_deterministic(kernel, dev):
         run = lambda: target_attention_flash(q, seq, mask)
     elif kernel == "bse_encode":
         run = lambda: bse_encode(seq, mask, R, shape[-1])
-    else:
+    elif kernel == "sdim_fused_serve":
         store = bse_encode_ref(seq, mask, R, shape[-1])
         slots = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
         run = lambda: sdim_fused_serve(store, slots, q, R, shape[-1])
+    elif kernel.startswith("sdim_query"):
+        table = bse_encode_ref(seq, mask, R, shape[-1])
+        if kernel.endswith("bf16"):
+            table = table.to(torch.bfloat16)
+        run = lambda: sdim_query(q, table, R, shape[-1])
+    else:
+        store, slots, events, ev_mask, R = _update_case((16,) + shape[1:], "dups", dev)
+        run = lambda: sdim_update(store.clone(), slots, events, ev_mask, R, shape[-1])
     assert torch.equal(run(), run())
 
 
@@ -258,8 +343,10 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """bse_encode takes tau 1..4, d a multiple of 8 up to 128 (one float4
     column a lane) and L up to MAX_L (its batch list lives in shared
-    memory); sdim_fused_serve takes rows in whole 16-byte loads and 16-byte
-    aligned operands."""
+    memory); sdim_fused_serve and sdim_query take tau 1..4, rows in whole
+    16-byte loads and 16-byte aligned operands; sdim_update takes tau 1..4,
+    d a multiple of 8 up to 128, 1..G group slices that keep a CTA at
+    update_cells(d) cells, and 16-byte aligned operands."""
     seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
     with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
         bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
@@ -280,3 +367,38 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted.copy_(q8)                           # contiguous, 4 bytes past a boundary
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_fused_serve(rows, slots, shifted, R[:8, :8].contiguous(), 2)
+    # sdim_query: bf16 rows of d = 4 are 8 bytes; tau 5; a shifted table
+    with pytest.raises(ValueError, match="16-byte loads"):
+        sdim_query(q[:2, :, :4].contiguous(), torch.zeros((2, 4, 4, 4), device=dev,
+                                                          dtype=torch.bfloat16),
+                   R[:8, :4].contiguous(), 2)
+    with pytest.raises(ValueError, match="tau 1..4"):
+        sdim_query(q[:2, :, :8].contiguous(), torch.zeros((2, 2, 32, 8), device=dev),
+                   R[:10, :8].contiguous(), 5)
+    table = torch.zeros((2, 4, 4, 8), device=dev)
+    shifted_t = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sdim_query(q8, shifted_t, R[:8, :8].contiguous(), 2)
+    # sdim_update: d = 12 and d = 136, tau 5, too few or too many slices, a shifted store
+    ev = torch.zeros((2, 3, 8), device=dev)
+    ev_mask = torch.ones((2, 3), device=dev)
+    store8 = torch.zeros((4, 4, 4, 8), device=dev)
+    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+        sdim_update(torch.zeros((4, 4, 4, 12), device=dev), slots, ev[..., :4].repeat(1, 1, 3),
+                    ev_mask, R[:8, :12].contiguous(), 2)
+    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+        sdim_update(torch.zeros((4, 4, 4, 136), device=dev), slots,
+                    torch.zeros((2, 3, 136), device=dev), ev_mask, R[:8].contiguous(), 2)
+    with pytest.raises(ValueError, match="tau 1..4"):
+        sdim_update(torch.zeros((4, 2, 32, 8), device=dev), slots, ev, ev_mask,
+                    R[:10, :8].contiguous(), 5)
+    for splits in (0, 5):
+        with pytest.raises(ValueError, match="group slices"):
+            sdim_update_cuda(store8, slots, ev, ev_mask, R[:8, :8].contiguous(), 2, splits)
+    big = torch.zeros((2, 8, 16, 128), device=dev)            # a group a CTA at most
+    with pytest.raises(ValueError, match="group slices"):
+        sdim_update_cuda(big, slots, torch.zeros((2, 3, 128), device=dev), ev_mask,
+                         torch.zeros((32, 128), device=dev), 4, 1)
+    shifted_s = torch.empty(store8.numel() + 1, device=dev)[1:].view(store8.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sdim_update(shifted_s, slots, ev, ev_mask, R[:8, :8].contiguous(), 2)

@@ -18,10 +18,16 @@ run here; this pins the algebra they implement.
   each warp hashes its batches for the CTA's groups and adds each row to
   its bucket in row order; the warps' partial tables are summed in warp
   order and the CTA writes its slice of the table once;
-- sdim_fused_serve: each of S ranks dequantizes and l2-normalizes its
-  ceil(G*U/S) rows of the user's table, hashes its ceil(C/S) candidates
-  for all G groups, and answers them by summing the owners' rows in g
-  order, then / G * present; absent users read no row.
+- sdim_fused_serve and sdim_query (one body, fused_query.cuh): each of S
+  ranks dequantizes and l2-normalizes its ceil(G*U/S) rows of the user's
+  table (the store row slots[b], or row b of a fetched table), hashes its
+  ceil(C/S) candidates for all G groups, and answers them by summing the
+  owners' rows in g order, then / G * present; absent users read no row;
+- sdim_update: the first batch row of each slot owns it; each of S CTAs
+  (``update_splits``) takes a slice of its signature groups, starts from
+  the stored slice, adds each batch row of the slot in b order (the row's
+  events summed in e order, kEv at a time) and writes only the cells that
+  an event with a nonzero weight reached.
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
@@ -29,14 +35,20 @@ as the reference's own tests (tests/test_kernels.py:46-58).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.sdim import sdim_attention as jsdim_attention
 from repro.kernels.sdim_bucket.ref import bse_encode_ref as jbse_encode_ref
 from repro.kernels.sdim_fused_serve.ref import sdim_fused_serve_ref as jsdim_fused_serve_ref
+from repro.kernels.sdim_query.ref import sdim_query_ref as jsdim_query_ref
+from repro.kernels.sdim_update.ref import sdim_update_ref as jsdim_update_ref
+from repro.kernels.sdim_update.sdim_update import sdim_update as jsdim_update
 from repro.kernels.target_attn.ref import target_attention_ref as jtarget_attention_ref
 from repro.serve import quant as jquant
 from repro_torch.kernels.screen import screened_normal
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_CELLS, encode_splits
+from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
+                                                         update_splits)
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MASKED = np.float32(-1e30)
@@ -257,8 +269,9 @@ def test_encode_splits_fill_one_wave(B, G, U, want):
 
 
 def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32):
-    """sdim_fused_serve.cu's schedule in numpy fp32: a cluster of S ranks
-    per user splits the (g, u) rows and the candidates."""
+    """fused_query.cuh's schedule in numpy fp32: a cluster of S ranks per
+    user splits the (g, u) rows and the candidates. ``slots`` None: user b
+    reads row b (sdim_query); ``present`` None: every user present."""
     B, C, d = q.shape
     G, U = R.shape[0] // tau, 1 << tau
     GU = G * U
@@ -266,12 +279,14 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
     per_row, per_c = -(-GU // S), -(-C // S)
     out = np.full((B, C, d), np.nan, np.float32)
     for b in range(B):
-        if present[b] == 0:                       # no row read
+        pres = np.float32(1.0) if present is None else present[b]
+        if pres == 0:                             # no row read
             out[b] = 0.0
             continue
-        row = store[slots[b]].reshape(GU, d).astype(np.float32)
+        slot = b if slots is None else slots[b]
+        row = store[slot].reshape(GU, d).astype(np.float32)
         scale = (np.ones(GU, np.float32) if scales is None
-                 else scales[slots[b]].reshape(GU).astype(np.float32))
+                 else scales[slot].reshape(GU).astype(np.float32))
         slices = []
         for rank in range(S):                     # each rank: its rows, normalized
             lo, hi = min(GU, rank * per_row), min(GU, (rank + 1) * per_row)
@@ -289,11 +304,12 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
                     owner = idx // per_row
                     acc = acc + np.stack([slices[o][i - o * per_row]
                                           for o, i in zip(owner, idx)])
-                out[b, c0:c0 + len(qc)] = acc / np.float32(G) * present[b]
+                out[b, c0:c0 + len(qc)] = acc / np.float32(G) * pres
     return out
 
 
-@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8",
+                                         "query-fp32", "query-bf16"])
 @pytest.mark.parametrize("shape", [
     (3, 8, 32, 12, 2, 8),        # G*U = 24 rows: 3 a rank; one candidate a rank
     (3, 70, 64, 24, 4, 8),       # U = 16, ragged C
@@ -302,11 +318,28 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
     (2, 5, 128, 48, 3, 7),       # 7 ranks: uneven rows, ranks without candidates
 ], ids=["small", "U16", "full-width", "G12", "S7-C5"])
 def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
+    """The fused store read, and (``query-*``) sdim_query's identity slots:
+    user b reads row b of a fetched fp32 or bf16 table, held against JAX's
+    sdim_query oracle."""
     B, C, d, m, tau, S = shape
     G, U = m // tau, 1 << tau
     rng = np.random.default_rng(14)
     R = rng.standard_normal((m, d)).astype(np.float32)
     q = screened_normal(rng, (B, C, d), R)
+    if store_dtype.startswith("query-"):
+        tables = rng.standard_normal((B, G, U, d)).astype(np.float32)
+        tables[0] = 0.0                           # a fully masked user's zero table
+        jtable = jnp.asarray(tables, jnp.bfloat16 if store_dtype == "query-bf16"
+                             else jnp.float32)
+        table = np.asarray(jtable).astype(np.float32)  # the fetched values, exactly
+        out = sdim_fused_serve_schedule(table, None, None, None, q, R, tau, S)
+        # the kernel reads a bf16 table exactly into fp32; the oracle would
+        # keep it in bf16, so it gets the same values in fp32
+        ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R),
+                                         tau))
+        np.testing.assert_allclose(out, ref, **FP32)
+        assert not out[0].any()                   # the zero table reads zero
+        return
     N = 2 * B + 1
     rows = rng.standard_normal((N, G, U, d)).astype(np.float32)
     rows[0] = 0.0                                 # a fully masked user's zero table
@@ -329,3 +362,130 @@ def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
     np.testing.assert_allclose(out, ref, **FP32)
     assert not out[-1].any()                      # the absent user
     assert not out[0].any()                       # the zero table reads zero
+
+
+def sdim_update_schedule(store, slots, events, mask, R, tau, S, EV=64):
+    """sdim_update.cu's schedule in numpy fp32: the first batch row of each
+    slot owns it; each of its S CTAs takes a slice of the signature groups,
+    starts from the stored slice, adds every batch row of the slot in b
+    order (the row's events summed per cell in e order, hashed EV at a
+    time) and writes only the cells some weighted event reached. Returns the
+    store and how often each element was written."""
+    N, G, U, d = store.shape
+    B, E, _ = events.shape
+    Rg = R.reshape(G, tau, d)
+    out = store.copy()
+    writes = np.zeros(store.shape, np.int64)
+    for b in range(B):
+        slot = slots[b]
+        if (slots[:b] == slot).any():             # an earlier batch row owns the slot
+            continue
+        for rank in range(S):
+            g0, g1 = rank * G // S, (rank + 1) * G // S
+            acc = store[slot, g0:g1].copy()
+            touched = np.zeros((g1 - g0, U), bool)
+            for bb in b + np.flatnonzero(slots[b:] == slot):  # b order
+                delta = np.zeros((g1 - g0, U, d), np.float32)
+                for e0 in range(0, E, EV):
+                    x = events[bb, e0:e0 + EV].astype(np.float32)
+                    w = mask[bb, e0:e0 + EV]
+                    sig = _signatures(x, Rg[g0:g1], tau)
+                    for gl in range(g1 - g0):
+                        for u in range(U):
+                            pick = np.flatnonzero((sig[:, gl] == u) & (w != 0))
+                            if len(pick):         # e order, after the batch before
+                                terms = np.concatenate([delta[gl, u][None],
+                                                        w[pick, None] * x[pick]])
+                                delta[gl, u] = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
+                                touched[gl, u] = True
+                acc = acc + delta                 # the row's bucket sums, to the running total
+            out[slot, g0:g1][touched] = acc[touched]
+            writes[slot, g0:g1][touched] += 1
+    return out, writes
+
+
+def _update_inputs(rng, B, E, d, m, tau, case, N=None):
+    """Store (with -0.0 cells), slots, events and mask for ``case``: ``dups``
+    (random slots with duplicates, a zero-mask row at slot 0 and an
+    all-masked duplicate of another row's slot) or ``two-slots`` (every
+    row on slot 0 or slot 2)."""
+    G, U = m // tau, 1 << tau
+    N = N or B + 2
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    events = screened_normal(rng, (B, E, d), R)
+    mask = (rng.random((B, E)) > 0.25).astype(np.float32)
+    store = rng.standard_normal((N, G, U, d)).astype(np.float32)
+    store[:, :, 0, :4] = -0.0                     # signed zeros keep their bits unless written
+    if case == "dups":
+        slots = rng.integers(1, max(2, B // 2), B).astype(np.int32)
+        slots[0], mask[0] = 0, 0.0                # zero-mask row at slot 0: writes nothing
+        slots[-1], mask[-1] = slots[1], 0.0       # an all-masked duplicate
+    else:
+        slots = np.where(rng.random(B) > 0.5, 0, 2).astype(np.int32)
+    return store, slots, events, mask, R
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["dups", "two-slots"])
+@pytest.mark.parametrize("shape", [
+    (6, 5, 32, 12, 2, 4),        # G = 6 over S = 4: slices 1, 2, 1, 2; E = 5
+    (6, 16, 128, 48, 3, 4),      # the main path's width: 4 groups a CTA, E = 16
+    (5, 16, 128, 36, 3, 8),      # G = 12 over S = 8: slices of 1 or 2
+    (4, 80, 64, 24, 4, 2),       # U = 16, E = 80: two event batches a row
+], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80"])
+def test_sdim_update_schedule_matches_jax(shape, case, dtype):
+    """Against JAX's segment-sum oracle and the Pallas kernel in interpret
+    mode: every element is written at most once, a zero-mask row and an
+    all-masked duplicate write nothing, and untouched cells (signed zeros
+    included) keep their exact bits."""
+    B, E, d, m, tau, S = shape
+    rng = np.random.default_rng(15)
+    store, slots, events, mask, R = _update_inputs(rng, B, E, d, m, tau, case)
+    jev = jnp.asarray(events, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    ev = np.asarray(jev).astype(np.float32)       # the event values, exactly
+    out, writes = sdim_update_schedule(store, slots, np.asarray(jev), mask, R, tau, S)
+    args = (jnp.asarray(store), jnp.asarray(slots), jev, jnp.asarray(mask), jnp.asarray(R), tau)
+    np.testing.assert_allclose(out, np.asarray(jsdim_update_ref(*args)), **FP32)
+    np.testing.assert_allclose(out, np.asarray(jsdim_update(*args, interpret=True)), **FP32)
+    assert writes.max() <= 1
+    untouched = writes == 0
+    assert (out.view(np.uint32)[untouched] == store.view(np.uint32)[untouched]).all()
+    if case == "dups":
+        assert not writes[0].any()                # slot 0: only the zero-mask row
+    reached = np.zeros_like(writes, bool)         # cells some weighted event reached
+    G, U = m // tau, 1 << tau
+    sig = _signatures(ev.reshape(-1, d), R.reshape(G, tau, d), tau).reshape(B, E, G)
+    for b, e in zip(*np.nonzero(mask)):
+        reached[slots[b], np.arange(G), sig[b, e]] = True
+    np.testing.assert_array_equal(writes == 1, reached)
+
+
+def test_sdim_update_schedule_no_events_writes_nothing():
+    """E = 0 (against the plain version alone: the Pallas kernel takes no
+    empty block): the store comes back bit for bit."""
+    rng = np.random.default_rng(16)
+    store, slots, events, mask, R = _update_inputs(rng, 6, 0, 32, 12, 2, "dups")
+    out, writes = sdim_update_schedule(store, slots, events, mask, R, 2, 4)
+    plain = sdim_update_ref(torch.from_numpy(store.copy()), torch.from_numpy(slots),
+                            torch.from_numpy(events), torch.from_numpy(mask),
+                            torch.from_numpy(R), 2)
+    np.testing.assert_allclose(out, plain.numpy(), **FP32)
+    assert not writes.any()
+    np.testing.assert_array_equal(out.view(np.uint32), store.view(np.uint32))
+
+
+@pytest.mark.parametrize("B, G, U, d, want", [
+    (32, 16, 8, 128, 8),         # the 32-user event fold: 256 CTAs, two groups each
+    (16, 16, 8, 128, 16),        # a 16-user fold: a group a CTA
+    (1, 16, 8, 128, 16),         # one user: never more slices than groups
+    (1024, 16, 8, 128, 8),       # a large batch: the fewest slices, 2 groups each
+    (1024, 12, 16, 128, 12),     # U = 16: a group a CTA at most
+    (64, 6, 4, 32, 4),           # as many as one wave allows
+    (16, 6, 4, 32, 6),           # never more than G
+    (0, 16, 8, 128, 16),         # no batch row
+])
+def test_update_splits_fill_one_wave(B, G, U, d, want):
+    S = update_splits(B, G, U, d, n_sm=132)
+    assert S == want
+    assert 1 <= S <= G and -(-G // S) * U <= update_cells(d)
+    assert B * S <= 2 * 132 or S == -(-G // (update_cells(d) // U))
