@@ -24,7 +24,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    yardstick only). All six kernels split or share their work without
    atomics and must give the same bits on two launches (sdim_query off
    bf16 and fp32 tables, sdim_update on a fresh clone of the store each
-   time); bse_encode is also timed at 8 and 16 group slices per user.
+   time); bse_encode is also timed at 8 and 16 group slices per user. The
+   three backward kernels (bse_encode_backward, sdim_query_backward,
+   target_attention_flash_backward) are held against their closed-form
+   plain versions at the training step's shapes (B=32, L=1024, C=1) and at
+   C=128, with bf16 behaviors, fully masked users and C=0 / L=0, give the
+   same bits on two launches and are timed at C=1.
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -40,12 +45,26 @@ Phases, each of which raises (exit code != 0) when it fails:
    a seeded generator) through ``mode="target_attention"``
    (target_attention_flash, once per burst): finite scores, and the first
    burst's long-branch interest against the plain version.
+7. train path — ``sdim-paper`` FULL, kind ``"sdim"``, seeded random
+   weights, trained by ``make_train_step`` with the launcher's settings
+   (Adagrad lr 0.05, clip 10, batches of 32 from the port's
+   ``DeterministicStream`` of ``generate_batch_graded``). The item rows of
+   what step 1 hashes are redrawn until they clear the hash margin; step
+   1's gradients through the kernels are held against the same step
+   through the plain versions on the card (each parameter's max error over
+   its largest gradient <= 1e-4); 20 steps with finite losses, ms/step
+   (median after warm-up, host clock ending in ``loss.item()``); a
+   checkpoint saved, restored into a fresh model and optimizer, and the
+   next step's loss bit-equal; then kind ``"target"`` the same way for 4
+   steps. One step of each kind runs under ``torch.profiler``.
 
-Every launch count is set to 0 just before each of phases 4-6 and read
-just after it; each phase fails if one of its kernels never launched.
-After the counts are read, each of phases 4-6 runs one more steady burst
-under ``torch.profiler`` and prints the device-busy share of its wall time
-and its five costliest device operations (fused server for phase 4).
+Every launch count is set to 0 just before each of phases 4-7 and read
+just after it; each phase fails if one of its kernels never launched
+(phase 7: bse_encode, sdim_query and both their backward kernels, and
+target_attention_flash and its backward kernel). After the counts are
+read, each of phases 4-7 runs one more steady burst or step under
+``torch.profiler`` and prints the device-busy share of its wall time and
+its five costliest device operations (fused server for phase 4).
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -72,6 +91,9 @@ BURST, EV_USERS = 16, 32      # main path: requests per burst, users per event b
 G, U = M // TAU, 1 << TAU
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)   # bse_encode: sums of up to L rows in another order
+BF16_OUT = dict(atol=1e-5, rtol=8e-3)  # a gradient written in bf16: one bf16 step
+TRAIN_B, TRAIN_STEPS = 32, 20          # phase 7: batch, steps of sdim-paper FULL
+GRAD_TOL = 1e-4                       # phase 7: kernel vs plain gradients / largest gradient
 WIRE_TOL = 5e-2                       # fused vs unfused: bf16 wire tables
 INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
 
@@ -346,6 +368,8 @@ def kernel_phase(torch, dev):
                  bound(needed * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4,
                        4 * C * D * needed), library))
 
+    rows += backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop)
+
     timed = []
     for name, source, replaces, err, kernel, plain, (bound_ms, bound_by), library in rows:
         # kernel, plain, plain, kernel: both seen under the same clocks
@@ -361,6 +385,108 @@ def kernel_phase(torch, dev):
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
     return timed
+
+
+def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
+    """Phase 3 for the three backward kernels (no TPU kernel corresponds to
+    them: the JAX package differentiates the XLA formulation), at the
+    training step's shapes (B = TRAIN_B users, L, C = 1) and at C, against
+    their closed-form plain versions; each timed at the training shape.
+    ``history`` is kernel_phase's maker of screened, ragged behaviors."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket import sdim_bucket as kb
+    from repro_torch.kernels.sdim_query import sdim_query as kq
+    from repro_torch.kernels.target_attn import target_attn as kt
+
+    k = {**vars(kb), **vars(kq), **vars(kt)}
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(11)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+
+    # bse_encode_backward: fp32 and bf16 behaviors, a fully masked user,
+    # L = 0; timed on fp32 behaviors with ragged front-padded masks
+    err, dT = 0.0, randn(TRAIN_B, G, U, D)
+    for dtype, masked in ((torch.bfloat16, False), (torch.float32, True),
+                          (torch.float32, False)):
+        seq, mask = history(TRAIN_B, L, dtype, masked)
+        out = k["bse_encode_backward"](dT, seq, mask, R, TAU)
+        err = max(err, check_close(f"bse_encode_backward {(TRAIN_B, L, D)} {dtype}", out,
+                                   k["bse_encode_backward_ref"](dT, seq, mask, R, TAU),
+                                   **(FP32 if dtype == torch.float32 else BF16_OUT)))
+        if masked and bool(out[1].any()):
+            raise AssertionError("bse_encode_backward: a fully masked user got a gradient")
+    empty = k["bse_encode_backward"](dT, seq[:, :0].contiguous(), mask[:, :0].contiguous(), R, TAU)
+    if empty.shape != (TRAIN_B, 0, D):
+        raise AssertionError(f"bse_encode_backward at L = 0: shape {tuple(empty.shape)}")
+    same_bits("bse_encode_backward", partial(k["bse_encode_backward"], dT, seq, mask, R, TAU))
+    valid = float(mask.sum())
+    rows.append(("bse_encode_backward",
+                 "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode_backward.cu",
+                 "none (gradient of src/repro/kernels/sdim_bucket/sdim_bucket.py:117)", err,
+                 partial(k["bse_encode_backward"], dT, seq, mask, R, TAU),
+                 partial(k["bse_encode_backward_ref"], dT, seq, mask, R, TAU),
+                 bound(valid * D * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
+                       + dT.numel() * 4, valid * (hash_flop + D)), None))
+
+    # sdim_query_backward: C = 1 (the training step) and C = 128, a fully
+    # masked user (a zero table: its gradient is g / 1e-6, so the rows are
+    # compared times their n = sqrt(|t|^2 + 1e-12)), C = 0 (zero, every row
+    # written); timed at C = 1
+    err = 0.0
+    table = k["bse_encode_ref"](*history(TRAIN_B, L, masked_user=True), R, TAU)
+    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+    for c in (C, 0, 1):
+        q = t(screened_normal(rng, (TRAIN_B, c, D), Rn))
+        dout = randn(TRAIN_B, c, D)
+        out = k["sdim_query_backward"](dout, q, table, R, TAU)
+        err = max(err, check_close(f"sdim_query_backward {(TRAIN_B, c, D)} (times n)", out * n,
+                                   k["sdim_query_backward_ref"](dout, q, table, R, TAU) * n,
+                                   **FP32))
+        if c == 0 and bool(out.any()):
+            raise AssertionError("sdim_query_backward: no candidate, yet a gradient")
+    same_bits("sdim_query_backward", partial(k["sdim_query_backward"], dout, q, table, R, TAU))
+    rows.append(("sdim_query_backward",
+                 "src/repro_torch/kernels/sdim_query/csrc/sdim_query_backward.cu",
+                 "none (gradient of src/repro/kernels/sdim_query/sdim_query.py:52)", err,
+                 partial(k["sdim_query_backward"], dout, q, table, R, TAU),
+                 partial(k["sdim_query_backward_ref"], dout, q, table, R, TAU),
+                 bound(2 * q.numel() * 4 + 2 * table.numel() * 4 + R.numel() * 4,
+                       TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * D), None))
+
+    # target_attention_flash_backward: C = 1 and C = 128 in fp32, bf16
+    # behaviors, a fully masked user (uniform weights), C = 0 and L = 0;
+    # timed at C = 1 in fp32
+    err = 0.0
+    for c, dtype, masked in ((C, torch.float32, False), (1, torch.bfloat16, False),
+                             (1, torch.float32, True), (1, torch.float32, False)):
+        seq, mask = history(TRAIN_B, L, dtype, masked)
+        q, dout = randn(TRAIN_B, c, D), randn(TRAIN_B, c, D)
+        out = k["target_attention_flash"](q, seq, mask)
+        got = k["target_attention_flash_backward"](dout, q, seq, mask, out)
+        ref = k["target_attention_flash_backward_ref"](dout, q, seq, mask, out)
+        for name, a, b in (("dq", got[0], ref[0]), ("dseq", got[1], ref[1])):
+            err = max(err, check_close(f"target_attention_flash_backward {name} "
+                                       f"{(TRAIN_B, L, c, D)} {dtype}", a, b,
+                                       **(FP32 if a.dtype == torch.float32 else BF16_OUT)))
+        if masked and bool(got[0][1].any()):
+            raise AssertionError("target_attention_flash_backward: a fully masked user's "
+                                 "candidate got a gradient")
+    for qq, ss, mm in ((q[:, :0], seq, mask), (q, seq[:, :0], mask[:, :0])):
+        qq, ss, mm = qq.contiguous(), ss.contiguous(), mm.contiguous()
+        got = k["target_attention_flash_backward"](qq, qq, ss, mm, qq)
+        if got[0].any() or got[1].any() or got[1].shape != ss.shape:
+            raise AssertionError("target_attention_flash_backward: C = 0 or L = 0 wrong")
+    fn = partial(k["target_attention_flash_backward"], dout, q, seq, mask, out)
+    same_bits("target_attention_flash_backward", lambda: torch.cat([g.reshape(-1) for g in fn()]))
+    needed = float(sum(L if n == 0 else n for n in mask.sum(1).tolist()))
+    rows.append(("target_attention_flash_backward",
+                 "src/repro_torch/kernels/target_attn/csrc/target_attn_backward.cu",
+                 "none (gradient of src/repro/kernels/target_attn/target_attn.py:59)", err, fn,
+                 partial(k["target_attention_flash_backward_ref"], dout, q, seq, mask, out),
+                 bound(needed * D * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
+                       10 * D * needed), None))
+    return rows
 
 
 def request_stream(n_requests: int, cfg):
@@ -399,24 +525,24 @@ def serve_all(torch, name, srv, requests, wrappers):
     return scores, per_burst
 
 
-def profile_burst(torch, path, srv, burst):
-    """One steady burst of ``path`` under torch.profiler: the share of the
-    burst's wall time in which the card ran a kernel (the union of the device
-    events' intervals over the host clock around the burst) and the five
-    device operations that took the most time. Launches made here are not
-    counted: the path's counts were read before."""
+def profile_window(torch, label, fn):
+    """``fn()`` once under torch.profiler: the share of its wall time in
+    which the card ran a kernel (the union of the device events' intervals
+    over the host clock around it) and the five device operations that took
+    the most time. Launches made here are not counted: the path's counts
+    were read before."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.handle_requests(burst)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     if not spans:
-        print(f"profiler {path}: no device time (not measured); burst wall {wall_us / 1e3:.3f} ms")
+        print(f"profiler {label}: no device time (not measured); wall {wall_us / 1e3:.3f} ms")
         return
     busy, end, by_name = 0.0, float("-inf"), {}
     for a, b, name in spans:
@@ -424,11 +550,17 @@ def profile_burst(torch, path, srv, burst):
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profiler {path}: burst of {len(burst)} requests, wall {wall_us / 1e3:.3f} ms, "
+    print(f"profiler {label}: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
           f"{len(spans)} device ops; top 5 by device time:")
     for name, us in top:
         print(f"  {us / 1e3:8.4f} ms  {100 * us / wall_us:5.1f}%  {name[:100]}")
+
+
+def profile_burst(torch, path, srv, burst):
+    """One steady burst of ``path`` under torch.profiler (profile_window)."""
+    profile_window(torch, f"{path}, burst of {len(burst)} requests",
+                   partial(srv.handle_requests, burst))
 
 
 def read_launches(wrappers, own, path):
@@ -543,6 +675,165 @@ def target_phase(torch, dev, wrappers, requests):
     return launches
 
 
+def plain_long_branch(model, refs):
+    """Within the block, ``model``'s long branch runs the kernels' plain
+    PyTorch versions on the card (``refs``: bse_encode_ref, sdim_query_ref,
+    target_attention_flash_ref), autograd of plain PyTorch giving their
+    gradients; everything else is the model's own code."""
+    import contextlib
+
+    interest = model.interest
+    kind, tau = interest.cfg.kind, interest.cfg.tau
+
+    def forward(q, seq, mask):
+        qc = q[:, None, :].float()
+        if kind == "sdim":
+            table = refs["bse_encode_ref"](seq, mask.float(), interest.R, tau)
+            out = refs["sdim_query_ref"](qc, table, interest.R, tau)
+        else:
+            out = refs["target_attention_flash_ref"](qc, seq, mask.float())
+        return out[:, 0].to(seq.dtype)
+
+    @contextlib.contextmanager
+    def swapped():
+        interest.forward = forward          # nn.Module.__call__ reads self.forward
+        try:
+            yield
+        finally:
+            del interest.forward
+
+    return swapped()
+
+
+def train_phase(torch, dev, wrappers):
+    """Phase 7: train sdim-paper FULL (kind sdim, then kind target) through
+    ``make_train_step`` with the launcher's recsys settings (Adagrad lr
+    0.05, clip 10, batches of ``generate_batch_graded`` from the port's
+    ``DeterministicStream``). Returns the launch counts of the phase."""
+    import tempfile
+
+    from repro_torch.configs import sdim_paper
+    from repro_torch.kernels.screen import hashed_behaviors, item_rows_clear, screen_item_rows
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query_ref
+    from repro_torch.kernels.target_attn.target_attn import target_attention_flash_ref
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.loop import make_train_step
+
+    refs = dict(bse_encode_ref=bse_encode_ref, sdim_query_ref=sdim_query_ref,
+                target_attention_flash_ref=target_attention_flash_ref)
+    full = sdim_paper.FULL
+    loss_fn, stream, opt = recsys_setup(full, TRAIN_B)
+    t0 = time.perf_counter()
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(stream).items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    print(f"train: {len(batches)} batches of {TRAIN_B} from generate_batch_graded "
+          f"({full.n_items} items) in {time.perf_counter() - t0:.1f} s")
+
+    def step1_gradients(model, label):
+        """Step 1's gradients through the kernels against the same step
+        through the plain versions on the card: max |difference| over the
+        parameter's largest gradient."""
+        grads = {}
+        for path in ("kernels", "plain"):
+            model.zero_grad(set_to_none=True)
+            if path == "kernels":
+                model.loss(batches[0])[0].backward()
+            else:
+                with plain_long_branch(model, refs):
+                    model.loss(batches[0])[0].backward()
+            grads[path] = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        worst = 0.0
+        for n, g in grads["kernels"].items():
+            ref = grads["plain"][n]
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: non-finite gradient of {n}")
+            rel = float((g - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            print(f"  {label} step-1 gradient {n}: max |kernel - plain| / max |plain| "
+                  f"{rel:.3g} (largest {float(ref.abs().max()):.3g})")
+            worst = max(worst, rel)
+        if worst > GRAD_TOL:
+            raise AssertionError(f"{label}: kernel gradients differ from the plain versions' "
+                                 f"by {worst:.3g} of the largest (> {GRAD_TOL})")
+
+    def train(model, steps, label):
+        init, step = make_train_step(loss_fn, opt)
+        state, losses, times = init(model), [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[i])
+            losses.append(metrics["loss"].item())          # waits for the card
+            times.append(1e3 * (time.perf_counter() - t0))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        steady = times[3:] if len(times) > 3 else times
+        print(f"{label}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"{statistics.median(steady):.2f} ms/step (median of steps 4..{steps}, "
+              f"host clock ending in loss.item()); losses {json.dumps([round(x, 5) for x in losses])}")
+        return state, step
+
+    reset(wrappers)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = CTRModel(full, device=dev, generator=gen)
+    redrawn = screen_item_rows(model, batches[:1], gen)
+    if not bool(item_rows_clear(model, *hashed_behaviors(model, batches[0])).all()):
+        raise AssertionError("step 1's hashed behaviors do not clear the hash margin")
+    print(f"train sdim: {redrawn} item rows redrawn so that step 1's hashed behaviors and "
+          f"candidates clear the margin")
+    step1_gradients(model, "sdim")
+    torch.cuda.reset_peak_memory_stats()
+    state, step = train(model, TRAIN_STEPS, "train sdim FULL")
+    print(f"train sdim: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {w.__name__: w.launches for w in wrappers}
+
+    # checkpoint round trip: save, take the next step; restore into a fresh
+    # model and optimizer, take the same step: the losses must be bit-equal
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        ck.save(d, TRAIN_STEPS, state)
+        t_save = time.perf_counter() - t0
+        _, m_a = step(state, batches[TRAIN_STEPS])
+        del state, model
+        torch.cuda.empty_cache()
+        fresh = CTRModel(full, device=dev, generator=torch.Generator(device=dev).manual_seed(99))
+        init, _ = make_train_step(loss_fn, opt)
+        t0 = time.perf_counter()
+        restored, at = ck.restore(d, init(fresh))
+        t_restore = time.perf_counter() - t0
+        _, m_b = step(restored, batches[TRAIN_STEPS])
+        a, b = m_a["loss"].item(), m_b["loss"].item()
+        print(f"checkpoint at step {at}: save {t_save:.1f} s, restore {t_restore:.1f} s; "
+              f"next loss {a!r} before, {b!r} after restore")
+        if a != b:
+            raise AssertionError(f"the step after a checkpoint round trip differs: {a!r} vs {b!r}")
+    profile_window(torch, "train sdim, one step", partial(step, restored, batches[1]))
+    del restored, fresh
+    torch.cuda.empty_cache()
+
+    # kind target: step-1 gradients against the plain version, a few steps
+    cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, kind="target"))
+    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(8))
+    before = {w.__name__: w.launches for w in wrappers}
+    step1_gradients(model, "target")
+    state, step = train(model, 4, "train target FULL")
+    for w in wrappers:
+        launches[w.__name__] += w.launches - before[w.__name__]
+    profile_window(torch, "train target, one step", partial(step, state, batches[1]))
+    del state, model
+    torch.cuda.empty_cache()
+
+    missing = [k for k in ("bse_encode", "sdim_query", "bse_encode_backward",
+                           "sdim_query_backward", "target_attention_flash",
+                           "target_attention_flash_backward") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the train path: {missing}")
+    print(f"train path launches: {json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -561,12 +852,13 @@ def main() -> int:
 
     from repro_torch.configs import sdim_paper
     from repro_torch.kernels import _build
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_backward
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
-    from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_backward
     from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update
-    from repro_torch.kernels.target_attn.target_attn import target_attention_flash
+    from repro_torch.kernels.target_attn.target_attn import (target_attention_flash,
+                                                             target_attention_flash_backward)
     from repro_torch.models.ctr import CTRModel
 
     t0 = time.perf_counter()
@@ -580,6 +872,7 @@ def main() -> int:
     timed = kernel_phase(torch, dev)
     wrappers = (bse_encode, sdim_update, sdim_fused_serve, sdim_query, bse_serve,
                 target_attention_flash)
+    backward = (bse_encode_backward, sdim_query_backward, target_attention_flash_backward)
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(0))
@@ -593,6 +886,10 @@ def main() -> int:
     del model
     launches["target_attention_flash"] = target_phase(
         torch, dev, wrappers, requests)["target_attention_flash"]
+    torch.cuda.empty_cache()
+    trained = train_phase(torch, dev, wrappers + backward)
+    for w in backward:
+        launches[w.__name__] = trained[w.__name__]
     for k in timed:
         k["launches"] = launches[k["name"]]
     print(card)

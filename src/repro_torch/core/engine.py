@@ -27,6 +27,15 @@ operation         what it computes (paper §3.3 / §4)           kernel
                   into store rows by slot, IN PLACE
 ================  ===========================================  ======================
 
+``encode`` and ``query`` are differentiable (``attend`` is the training
+forward): their wrappers record an autograd Function whose backward is a
+CUDA kernel of its own on the card (``bse_encode_backward``,
+``sdim_query_backward``) and its closed-form plain version on the CPU. The
+gradient reaches the behaviors; signatures are comparisons, so the
+candidates and R get none, as in the JAX package. ``serve``,
+``serve_fused`` and ``update`` serve and ingest only: on CUDA their
+wrappers refuse to run where autograd would record them.
+
 The sharded entry points and the SRHT family are not ported yet.
 """
 from __future__ import annotations

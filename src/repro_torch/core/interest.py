@@ -6,7 +6,8 @@ long-sequence baseline SDIM approximates, through the
 ``target_attention_flash`` kernel) and ``none``; the retrieval baselines and
 the other kinds are not ported yet. The hash family R of ``sdim`` is a
 non-trainable buffer (checkpointed with the model, excluded from
-training).
+training). Both kernel kinds train: gradients reach the behaviors (and,
+for ``target``, the candidates) through the kernels' autograd Functions.
 """
 from __future__ import annotations
 

@@ -1,14 +1,19 @@
 """Synthetic CTR requests with planted long-term interest structure.
 
-The port's own copy of ``repro/data/synthetic.py``'s ``SyntheticCTRConfig``
-and ``generate_batch`` (same numpy draws, so the same seed gives the same
-batch): each user has ``n_interests`` latent categories, the history comes
-in sessions focused on one interest, padded at the FRONT so the most recent
-behaviors are the last positions. Pure numpy on the host.
+The port's own copy of ``repro/data/synthetic.py``'s ``SyntheticCTRConfig``,
+``generate_batch``, ``serving_request`` and ``generate_batch_graded`` (same
+numpy draws, so the same seed gives the same arrays): each user has
+``n_interests`` latent categories, the history comes in sessions focused on
+one interest, padded at the FRONT so the most recent behaviors are the last
+positions. ``generate_batch_graded`` labels clicks with a softmax
+target-attention teacher over per-item latent vectors (the function SDIM
+approximates), the training stream of ``launch/train.py``. Pure numpy on
+the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -75,3 +80,76 @@ def generate_batch(cfg: SyntheticCTRConfig, batch: int, seed: int) -> dict:
         "ctx": ctx,
         "label": label,
     }
+
+
+def serving_request(cfg: SyntheticCTRConfig, n_candidates: int, seed: int) -> dict:
+    """One user's full state + ``n_candidates`` candidates (the CTR-server
+    request shape)."""
+    b = generate_batch(cfg, 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    cand_cat = rng.integers(0, cfg.n_cats, n_candidates)
+    cand_item = _item_of_cat(rng, cand_cat, cfg)
+    return {
+        "hist_items": b["hist_items"][0],
+        "hist_cats": b["hist_cats"][0],
+        "hist_mask": b["hist_mask"][0],
+        "cand_item": cand_item.astype(np.int32),
+        "cand_cat": cand_cat.astype(np.int32),
+        "ctx": np.repeat(b["ctx"], n_candidates, axis=0),
+    }
+
+
+@functools.lru_cache(maxsize=2)
+def _latents(cfg: SyntheticCTRConfig, dim: int, seed: int = 777) -> np.ndarray:
+    """Per-item unit latent vectors (n_items, dim) float64, clustered by
+    category. Cached per (cfg, dim, seed): at sdim-paper FULL (10M items)
+    the array is 640 MB and takes seconds to draw, and every batch of a
+    stream reads it. The cache hands every caller the same array: read it,
+    never write it."""
+    rng = np.random.default_rng(seed)
+    cat_centers = rng.standard_normal((cfg.n_cats, dim))
+    cat_centers /= np.linalg.norm(cat_centers, axis=1, keepdims=True)
+    item_lat = cat_centers[np.arange(cfg.n_items) // cfg.items_per_cat]
+    item_lat = item_lat + 0.35 * rng.standard_normal((cfg.n_items, dim))
+    item_lat /= np.linalg.norm(item_lat, axis=1, keepdims=True)
+    item_lat.flags.writeable = False
+    return item_lat
+
+
+def generate_batch_graded(cfg: SyntheticCTRConfig, batch: int, seed: int,
+                          latent_dim: int = 8, beta: float = 6.0,
+                          signal: float = 6.0) -> dict:
+    """CTR batch whose labels come from a target-attention teacher over the
+    whole (masked) history:
+
+        w_j ∝ exp(β·⟨ẑ_c, ẑ_j⟩),  s = Σ_j w_j ⟨ẑ_c, ẑ_j⟩,
+        y ~ Bernoulli(σ(signal·(s − median(s))))
+
+    half of the candidates are a random history item, half the
+    ``generate_batch`` candidate."""
+    base = generate_batch(cfg, batch, seed)
+    lat = _latents(cfg, latent_dim)
+    rng = np.random.default_rng(seed + 13)
+
+    take = rng.integers(0, cfg.hist_len, batch)
+    anchor = base["hist_items"][np.arange(batch), take]
+    rng.standard_normal((batch, latent_dim))   # the JAX copy's unused jitter: same draws after it
+    cand_item = np.where(rng.random(batch) < 0.5, base["cand_item"], anchor)
+    cand_cat = cand_item // cfg.items_per_cat
+
+    zc = lat[cand_item]                                 # (B, dim)
+    zh = lat[base["hist_items"]]                        # (B, L, dim)
+    cos = np.einsum("bd,bld->bl", zc, zh)
+    mask = base["hist_mask"]
+    logits = beta * cos - 1e30 * (1 - mask)
+    w = np.exp(logits - logits.max(axis=1, keepdims=True))
+    w /= w.sum(axis=1, keepdims=True)
+    s = np.einsum("bl,bl->b", w, cos)
+    p = 1.0 / (1.0 + np.exp(-signal * (s - np.median(s))))
+    label = (rng.random(batch) < p).astype(np.float32)
+
+    out = dict(base)
+    out["cand_item"] = cand_item.astype(np.int32)
+    out["cand_cat"] = cand_cat.astype(np.int32)
+    out["label"] = label
+    return out

@@ -45,6 +45,10 @@ SIGNATURES = {
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
+    "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_query_backward": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_target_attention_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 4
+                                      + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -153,6 +157,22 @@ def require_aligned(name: str, *tensors: torch.Tensor) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes tensors that start on a "
                              f"16-byte boundary (clone the view)")
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would record a call on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record a call of a kernel that has no
+    backward (the serving kernels): its output would be cut off from the
+    graph without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           f"torch.no_grad() or on tensors that do not require grad")
 
 
 def dtype_code(name: str, t: torch.Tensor, allowed) -> int:

@@ -108,12 +108,6 @@ __device__ __forceinline__ void list_live_batches(int* list_s, const float* __re
   __syncthreads();
 }
 
-// Bits 0..3 of a ballot whose bits 0, 8, 16 and 24 hold rows 0..3: the
-// product moves bit 8i to bit 24 + i, and no other term reaches bits 24..27.
-__device__ __forceinline__ unsigned rows_of(unsigned ballot) {
-  return ((ballot & 0x01010101u) * 0x01020408u) >> 24;
-}
-
 template <typename T, int TAU>
 __global__ void __launch_bounds__(kEncodeThreads, 1)
     bse_encode_kernel(const T* __restrict__ seq, const float* __restrict__ mask,
@@ -161,8 +155,10 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
     return lane < n ? w[l0 + lane] : 0.f;
   };
 
-  // hash layout: lanes 8h..8h+7 take rows h and h + 4, each every eighth float4 column
-  const int hrow = lane / 8, part = lane % 8;
+  // hash layout: lanes 8h..8h+7 take rows h and h + 4, each every eighth float4
+  // column (the order of sdim_common.cuh's hash groups, which
+  // bse_encode_backward.cu repeats)
+  const int hrow = lane / kEncodeHashLanes, part = lane % kEncodeHashLanes;
   float wv = warp < n_live ? stage(warp, 0) : 0.f;
   float w1 = warp + kWarps < n_live ? stage(warp + kWarps, 1) : 0.f;
   int buf = 0;
@@ -182,7 +178,7 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
     const T* x0 = xb + hrow * d;
     const T* x1 = xb + (hrow + 4) * d;
 #pragma unroll 4
-    for (int k4 = part; k4 < nq; k4 += 8) {
+    for (int k4 = part; k4 < nq; k4 += kEncodeHashLanes) {
       const float4 v0 = load4(x0 + 4 * k4), v1 = load4(x1 + 4 * k4);
 #pragma unroll
       for (int j = 0; j < NG * TAU; ++j) {
@@ -197,11 +193,8 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
     unsigned bit[NG * TAU];
 #pragma unroll
     for (int j = 0; j < NG * TAU; ++j) {
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) {  // the same sum in all eight lanes
-        a0[j] += __shfl_xor_sync(0xffffffffu, a0[j], o);
-        a1[j] += __shfl_xor_sync(0xffffffffu, a1[j], o);
-      }
+      a0[j] = lane_group_sum<kEncodeHashLanes>(a0[j]);  // the same sum in all eight lanes
+      a1[j] = lane_group_sum<kEncodeHashLanes>(a1[j]);
       bit[j] = rows_of(__ballot_sync(0xffffffffu, a0[j] >= 0.f)) |
                rows_of(__ballot_sync(0xffffffffu, a1[j] >= 0.f)) << 4;
     }

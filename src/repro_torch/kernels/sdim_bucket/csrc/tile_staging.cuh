@@ -1,8 +1,8 @@
 // Code shared by the cluster kernels (target_attn, bse_serve): tiles of rows
 // staged into shared memory with asynchronous copies (cp.async, so the next
-// tile lands while the current one is computed), float4 reads of fp32 or
-// bf16 rows, the fp32 FMA steps of register-tiled products, and on the host
-// the launch of a grid of thread-block clusters.
+// tile lands while the current one is computed), bulk copies on mbarriers,
+// phase clocks, and on the host the launch of a grid of thread-block
+// clusters. The float4 reads and fp32 FMA steps are in sdim_common.cuh.
 //
 // Staged rows are d elements plus 16 bytes: every row stays 16-byte aligned
 // for cp.async and float4 reads, and consecutive rows start 4 banks apart, so
@@ -10,8 +10,7 @@
 // The copies need d * sizeof(T) to be a multiple of 16 and 16-byte aligned
 // sources (the wrappers check both).
 //
-// Numerics: plain IEEE fp32, as sdim_common.cuh; dot4 and axpy4 are fmaf
-// steps in column order.
+// Numerics: plain IEEE fp32, as sdim_common.cuh.
 #pragma once
 
 #include <mutex>
@@ -119,35 +118,6 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
       "@!p bra WAIT;\n\t"
       "}" ::"r"(smem_addr(bar)), "r"(parity)
       : "memory");
-}
-
-// Four consecutive elements of a 16-byte (fp32) or 8-byte (bf16) aligned row.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// acc + a . b over four columns, in column order.
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc + p * x, column by column.
-__device__ __forceinline__ float4 axpy4(float p, float4 x, float4 acc) {
-  return make_float4(fmaf(p, x.x, acc.x), fmaf(p, x.y, acc.y), fmaf(p, x.z, acc.z),
-                     fmaf(p, x.w, acc.w));
-}
-
-__device__ __forceinline__ float4 scale4(float4 v, float a) {
-  return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""bse_encode: SimHash + signature pack + bucket sum of a behavior batch.
+"""bse_encode: SimHash + signature pack + bucket sum of a behavior batch,
+and its gradient.
 
 Wrapper of the CUDA kernel ``csrc/bse_encode.cu`` (which replaces the Pallas
 kernel ``repro/kernels/sdim_bucket/sdim_bucket.py:117``) and its plain
@@ -7,6 +8,16 @@ CPU tensors only; for CUDA tensors it launches the kernel or raises.
 ``bse_encode.launches`` counts kernel launches. The kernel splits each
 user's signature groups over ``encode_splits`` CTAs, each of which writes
 its slice of the table once (no atomics, no zero-filled output).
+
+Where autograd records the call (grad mode on, ``seq`` requiring grad) the
+wrapper goes through ``BSEEncodeFn``, whose backward is
+``bse_encode_backward``: the CUDA kernel ``csrc/bse_encode_backward.cu`` on
+the card (no TPU kernel corresponds to it: the JAX package differentiates
+the XLA formulation), its closed-form plain version on the CPU. Signatures
+are comparisons and carry no gradient, so the gradient of the table
+T[b,g,u] = sum_l [sig_g(s_bl) = u] mask_bl s_bl is a gather,
+d seq[b,l] = mask[b,l] * sum_g dT[b, g, sig_g(s_bl)]; R is a buffer, and a
+mask that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ from repro_torch.kernels import _build
 
 MAX_CELLS = 16      # (group, bucket) sums a CTA holds in registers (bse_encode.cu kCells)
 MAX_L = 32768       # behaviors a user: the kernel's list of 8-row batches lives in shared memory
+MAX_BWD_SMEM = 200 * 1024   # the backward's shared copy of a user's table and of R
 
 
 def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -40,10 +52,34 @@ def encode_splits(B: int, G: int, U: int, n_sm: int) -> int:
 def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
                tau: int) -> torch.Tensor:
     """Behaviors seq (B, L, d) fp32|bf16 with mask (B, L) and hash family
-    R (m, d) -> bucket table (B, G, U, d) fp32."""
+    R (m, d) -> bucket table (B, G, U, d) fp32; differentiable in seq."""
+    if _build.needs_grad(seq, mask, R):
+        if mask.requires_grad or R.requires_grad:
+            raise ValueError("bse_encode: the gradient flows to seq only; mask and R "
+                             "must not require grad")
+        return BSEEncodeFn.apply(seq, mask, R, tau)
+    return _encode(seq, mask, R, tau)
+
+
+def _encode(seq, mask, R, tau):
     if seq.device.type == "cpu":
         return bse_encode_ref(seq, mask, R, tau)
     return bse_encode_cuda(seq, mask, R, tau)
+
+
+class BSEEncodeFn(torch.autograd.Function):
+    """``bse_encode`` with its gradient in seq (``bse_encode_backward``)."""
+
+    @staticmethod
+    def forward(ctx, seq, mask, R, tau):
+        ctx.tau = tau
+        ctx.save_for_backward(seq, mask, R)
+        return _encode(seq, mask, R, tau)
+
+    @staticmethod
+    def backward(ctx, dT):
+        seq, mask, R = ctx.saved_tensors
+        return bse_encode_backward(dT.contiguous(), seq, mask, R, ctx.tau), None, None, None
 
 
 def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -80,3 +116,73 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
 
 
 bse_encode.launches = 0
+
+
+def bse_encode_backward_ref(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+                            R: torch.Tensor, tau: int) -> torch.Tensor:
+    """dT (B, G, U, d) -> d seq (B, L, d) in seq's dtype: each row's G
+    gathered rows of dT summed in group order, times its mask."""
+    sig = simhash.signatures(seq, R, tau).long()                   # (B, L, G)
+    b = torch.arange(seq.shape[0], device=seq.device)[:, None]
+    acc = torch.zeros(seq.shape, dtype=torch.float32, device=seq.device)
+    for g in range(dT.shape[1]):
+        acc = acc + dT[b, g, sig[..., g]].float()
+    return (acc * mask.float()[..., None]).to(seq.dtype)
+
+
+def backward_splits(B: int, L: int, n_sm: int) -> int:
+    """Row chunks per user, one CTA each (8 warps, four rows a warp at a
+    time, ~90 KB of shared memory at full width: two CTAs an SM): as many
+    as fit the ``n_sm`` SMs in one wave at two CTAs an SM, at least one,
+    at most one per 32 rows."""
+    return max(1, min(-(-L // 32), 2 * n_sm // max(B, 1)))
+
+
+def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+                        R: torch.Tensor, tau: int) -> torch.Tensor:
+    """Gradient of ``bse_encode`` in seq: dT (B, G, U, d) fp32 -> d seq
+    (B, L, d) in seq's dtype."""
+    if seq.device.type == "cpu":
+        return bse_encode_backward_ref(dT, seq, mask, R, tau)
+    return bse_encode_backward_cuda(dT, seq, mask, R, tau)
+
+
+def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+                             R: torch.Tensor, tau: int,
+                             splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel launch of ``bse_encode_backward`` with ``splits`` row
+    chunks per user (None: ``backward_splits`` for this device)."""
+    B, L, d = seq.shape
+    m = R.shape[0]
+    G, U = m // tau, 1 << tau
+    if (m % tau or R.shape != (m, d) or mask.shape != (B, L)
+            or dT.shape != (B, G, U, d)):
+        raise ValueError(f"bse_encode_backward: shapes dT {tuple(dT.shape)} seq "
+                         f"{tuple(seq.shape)} mask {tuple(mask.shape)} R {tuple(R.shape)} "
+                         f"tau {tau}")
+    if not 1 <= tau <= 4 or d % 8 or d > 128 or 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM:
+        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..4, d a multiple of 8 "
+                         f"up to 128 and a user's table and R within {MAX_BWD_SMEM} bytes of "
+                         f"shared memory; got tau {tau}, d {d}, m {m}")
+    code = _build.dtype_code("bse_encode_backward", seq, (torch.float32, torch.bfloat16))
+    for name, t in (("dT", dT), ("mask", mask), ("R", R)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"bse_encode_backward: {name} must be float32")
+    dev = _build.require_cuda("bse_encode_backward", dT, seq, mask, R)
+    _build.require_aligned("bse_encode_backward", dT, seq, R)
+    if splits is None:
+        splits = backward_splits(B, L, _build.sm_count(dev))
+    out = torch.empty_like(seq)
+    if B == 0 or L == 0:
+        return out
+    lib = _build.load()
+    with _build.on_device(dev):
+        err = lib.sdim_bse_encode_backward(dT.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
+                                           R.data_ptr(), out.data_ptr(), B, L, G, U, d, m, tau,
+                                           splits, _build.stream(dev))
+    _build.check(err, "bse_encode_backward")
+    bse_encode_backward.launches += 1
+    return out
+
+
+bse_encode_backward.launches = 0

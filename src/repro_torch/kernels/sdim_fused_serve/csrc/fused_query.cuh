@@ -131,7 +131,7 @@ __device__ __forceinline__ void normalize_rows4(float* t_s, int rows, int d) {
 template <int TAU>
 __device__ __forceinline__ void hash_cands(int* sig, const float* q_s, int ldq, int n, int G,
                                            const float* r_s, int ldr, int nq) {
-  constexpr int kSplit = 4;
+  constexpr int kSplit = kQueryHashLanes;
   const int part = threadIdx.x % kSplit, slots = blockDim.x / kSplit;
   const int pairs = (n + 1) / 2, items = pairs * ((G + 1) / 2);
   for (int base = 0; base < items; base += slots) {  // the same trip count for all
@@ -167,9 +167,7 @@ __device__ __forceinline__ void hash_cands(int* sig, const float* q_s, int ldq, 
       for (int g = 0; g < 2; ++g)
 #pragma unroll
         for (int t = 0; t < TAU; ++t) {
-          float v = a[c][g][t];
-          v += __shfl_xor_sync(0xffffffffu, v, 2);  // the same sum in all four lanes
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          const float v = lane_group_sum<kSplit>(a[c][g][t]);  // the same in all four lanes
           bits[c][g] |= (v >= 0.f ? 1 : 0) << t;
         }
     if (on && part == 0) {

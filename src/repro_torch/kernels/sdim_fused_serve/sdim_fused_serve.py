@@ -8,6 +8,8 @@ or raises. ``sdim_fused_serve.launches`` counts kernel launches. Store
 dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales. The kernel
 gives each user a thread-block cluster that splits the row and the
 candidates, so each present user's row is read from device memory once.
+The kernel has no backward (it serves): on CUDA the wrapper raises where
+autograd would record the call.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     if store.device.type == "cpu":
         return sdim_fused_serve_ref(store, slots, q, R, tau, scales=scales,
                                     present=present)
+    _build.refuse_grad("sdim_fused_serve", store, q, R, scales, present)
     N, G, U, d = store.shape
     B, C, _ = q.shape
     m = R.shape[0]

@@ -5,7 +5,9 @@ Wrapper of the CUDA kernel ``csrc/bse_serve.cu`` (which replaces the Pallas
 kernel ``repro/kernels/sdim_serve/sdim_serve.py:68``) and its plain PyTorch
 version ``bse_serve_ref``. The wrapper runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-``bse_serve.launches`` counts kernel launches.
+``bse_serve.launches`` counts kernel launches. The kernel has no backward
+(it serves): on CUDA the wrapper raises where autograd would record the
+call.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
     (B, C, d) fp32."""
     if q.device.type == "cpu":
         return bse_serve_ref(q, seq, mask, R, tau)
+    _build.refuse_grad("bse_serve", q, seq, mask, R)
     B, C, d = q.shape
     L = seq.shape[1]
     m = R.shape[0]

@@ -11,7 +11,8 @@ tensors only; for CUDA tensors it launches the kernel or raises.
 batch row's signature groups over ``update_splits`` CTAs; the first batch
 row of each slot owns it and folds every batch row of that slot in b order,
 so no two CTAs write one element (no atomics) and two launches agree bit
-for bit.
+for bit. The kernel has no backward (it ingests): on CUDA the wrapper
+raises where autograd would record the call.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
                      splits: Optional[int] = None) -> torch.Tensor:
     """The kernel launch of ``sdim_update`` with ``splits`` signature-group
     slices per batch row (None: ``update_splits`` for this device)."""
+    _build.refuse_grad("sdim_update", store, events, mask, R)
     N, G, U, d = store.shape
     B, E, _ = events.shape
     m = R.shape[0]

@@ -6,10 +6,24 @@ Pallas kernel ``repro/kernels/target_attn/target_attn.py:59``) and its plain
 PyTorch version ``target_attention_flash_ref``. The wrapper runs the plain
 version for CPU tensors only; for CUDA tensors it launches the kernel or
 raises. ``target_attention_flash.launches`` counts kernel launches.
+
+Where autograd records the call (grad mode on, q or seq requiring grad)
+the wrapper goes through ``TargetAttentionFn``, whose backward is
+``target_attention_flash_backward``: the CUDA kernel
+``csrc/target_attn_backward.cu`` on the card (no TPU kernel corresponds to
+it: the JAX package differentiates the XLA formulation), its closed-form
+plain version on the CPU. seq is both key and value, so with
+P = softmax(s), s = scale q seq^T (masked logits -1e30, constants):
+  dS   = P o (dout seq^T - D),  D = rowsum(dout o out), 0 where masked
+  dq   = scale dS seq
+  dseq = P^T dout + scale dS^T q.
+A fully masked user attends uniformly (P = 1/L), so its rows get dout / L
+and its candidates no gradient. A mask that requires grad is refused.
 """
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 
@@ -29,7 +43,34 @@ def target_attention_flash(q: torch.Tensor, seq: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Candidates q (B, C, d) fp32 against behaviors seq (B, L, d)
     fp32|bf16 with mask (B, L) fp32 -> softmax(q·Sᵀ/√d) S (B, C, d) fp32;
-    masked logits are −1e30."""
+    masked logits are −1e30. Differentiable in q and seq."""
+    if _build.needs_grad(q, seq, mask):
+        if mask.requires_grad:
+            raise ValueError("target_attention_flash: the gradient flows to q and seq; "
+                             "the mask must not require grad")
+        return TargetAttentionFn.apply(q, seq, mask)
+    return _attend(q, seq, mask)
+
+
+class TargetAttentionFn(torch.autograd.Function):
+    """``target_attention_flash`` with its gradients in q and seq
+    (``target_attention_flash_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, seq, mask):
+        out = _attend(q, seq, mask)
+        ctx.save_for_backward(q, seq, mask, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, seq, mask, out = ctx.saved_tensors
+        dq, dseq = target_attention_flash_backward(dout.contiguous(), q, seq, mask, out)
+        return (dq if ctx.needs_input_grad[0] else None,
+                dseq if ctx.needs_input_grad[1] else None, None)
+
+
+def _attend(q, seq, mask):
     if q.device.type == "cpu":
         return target_attention_flash_ref(q, seq, mask)
     B, C, d = q.shape
@@ -57,3 +98,65 @@ def target_attention_flash(q: torch.Tensor, seq: torch.Tensor,
 
 
 target_attention_flash.launches = 0
+
+
+def target_attention_flash_backward_ref(
+        dout: torch.Tensor, q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+        out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dout (B, C, d) -> (dq (B, C, d) fp32, dseq (B, L, d) in seq's dtype)
+    in closed form; ``out`` is the forward's output."""
+    scale = _scale(q.shape[-1])
+    x, qf, do = seq.float(), q.float(), dout.float()
+    valid = (mask > 0)[:, None, :]
+    s = torch.einsum("bcd,bld->bcl", qf, x) * scale
+    P = torch.softmax(torch.where(valid, s, torch.full((), -1e30, device=s.device)), dim=-1)
+    dP = torch.einsum("bcd,bld->bcl", do, x)
+    D = torch.sum(do * out.float(), dim=-1, keepdim=True)
+    dS = torch.where(valid, P * (dP - D), torch.zeros((), device=s.device))
+    dq = scale * torch.einsum("bcl,bld->bcd", dS, x)
+    dseq = (torch.einsum("bcl,bcd->bld", P, do)
+            + scale * torch.einsum("bcl,bcd->bld", dS, qf))
+    return dq, dseq.to(seq.dtype)
+
+
+def target_attention_flash_backward(
+        dout: torch.Tensor, q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
+        out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``target_attention_flash`` in q and seq: dout (B, C, d)
+    fp32 and the forward's output -> (dq (B, C, d) fp32, dseq (B, L, d) in
+    seq's dtype)."""
+    if q.device.type == "cpu":
+        return target_attention_flash_backward_ref(dout, q, seq, mask, out)
+    B, C, d = q.shape
+    L = seq.shape[1]
+    if (seq.shape != (B, L, d) or mask.shape != (B, L) or dout.shape != (B, C, d)
+            or out.shape != (B, C, d) or d % 8 or d > 256):
+        raise ValueError(f"target_attention_flash_backward: shapes dout {tuple(dout.shape)} "
+                         f"q {tuple(q.shape)} seq {tuple(seq.shape)} mask "
+                         f"{tuple(mask.shape)} out {tuple(out.shape)} (the kernel takes d a "
+                         f"multiple of 8 up to 256)")
+    code = _build.dtype_code("target_attention_flash_backward", seq,
+                             (torch.float32, torch.bfloat16))
+    for name, t in (("dout", dout), ("q", q), ("mask", mask), ("out", out)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"target_attention_flash_backward: {name} must be float32")
+    dev = _build.require_cuda("target_attention_flash_backward", dout, q, seq, mask, out)
+    _build.require_aligned("target_attention_flash_backward", dout, q, seq, out)
+    if B == 0 or C == 0 or L == 0:      # no candidate, or no row to attend to
+        return (torch.zeros((B, C, d), dtype=torch.float32, device=dev),
+                torch.zeros_like(seq))
+    dq = torch.empty((B, C, d), dtype=torch.float32, device=dev)
+    dseq = torch.empty_like(seq)
+    stats = torch.empty((B, C, 4), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with _build.on_device(dev):
+        err = lib.sdim_target_attention_backward(
+            dout.data_ptr(), q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dseq.data_ptr(),
+            B, L, C, d, _scale(d), _build.stream(dev))
+    _build.check(err, "target_attention_flash_backward")
+    target_attention_flash_backward.launches += 1
+    return dq, dseq
+
+
+target_attention_flash_backward.launches = 0

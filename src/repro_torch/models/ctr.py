@@ -96,12 +96,31 @@ class CTRModel(nn.Module):
 
     forward = apply
 
+    def loss(self, batch: dict):
+        """(mean binary cross-entropy with logits, logits (B,)), in the
+        JAX package's stable form max(z, 0) - z y + log1p(e^-|z|)."""
+        logits = self.apply(batch)
+        y = batch["label"].to(logits.dtype)
+        ll = torch.clamp(logits, min=0) - logits * y + torch.log1p(torch.exp(-torch.abs(logits)))
+        return torch.mean(ll), logits
+
     # ---------------- serving ----------------
     def encode_bse_table(self, user_batch: dict) -> torch.Tensor:
         """BSE-server step: embed the long history (B, L) and encode it into
         bucket tables (B, G, U, e) — everything candidate-independent."""
         long_e = self._embed_behaviors(user_batch["hist_items"], user_batch["hist_cats"])
         return self.engine.encode(long_e, user_batch["hist_mask"], R=self.interest.R)
+
+    def score_candidates(self, user_batch: dict, cand_items: torch.Tensor,
+                         cand_cats: torch.Tensor, ctx: torch.Tensor,
+                         bucket_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One user's state (hist_* (1, L)) against C candidates (C,), ctx
+        (C, ctx_dim) -> (C,) logits: the B = 1 case of
+        ``score_candidates_many``, so the two cannot drift apart.
+        ``bucket_table`` (1, G, U, e) is the decoupled deployment's fetched
+        table."""
+        return self.score_candidates_many(user_batch, cand_items[None], cand_cats[None],
+                                          ctx[None], bucket_tables=bucket_table)[0]
 
     def score_candidates_many(self, user_batch: dict, cand_items: torch.Tensor,
                               cand_cats: torch.Tensor, ctx: torch.Tensor,

@@ -1,10 +1,14 @@
-"""Carry the JAX package's CTR params pytree into the port's modules.
+"""Carry the JAX package's CTR params pytree into the port's modules, and
+back out.
 
 ``params_np`` is ``repro.models.ctr.CTRModel.init``'s pytree with every leaf
 converted to a numpy array (``jax.tree_util.tree_map(np.asarray, params)``):
 ``item_emb.table``, ``cat_emb.table``, ``interest.buffers.R`` and
 ``head.fc{i}.{w,b}``. JAX's ``Linear.w`` is (in, out); ``nn.Linear.weight``
-is (out, in), so it is transposed.
+is (out, in), so it is transposed. ``export_params`` is the inverse of
+``load_jax_params``; with ``grad=True`` it exports the parameters'
+gradients in the same tree (zeros for R, a buffer, as ``jax.grad`` gives
+it), so tests compare whole gradient trees.
 """
 from __future__ import annotations
 
@@ -39,3 +43,27 @@ def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
         _copy(layer.weight, np.asarray(head[f"fc{i}"]["w"]).T, f"head.fc{i}.w")
         _copy(layer.bias, head[f"fc{i}"]["b"], f"head.fc{i}.b")
     return model
+
+
+def export_params(model: CTRModel, grad: bool = False) -> dict:
+    """The JAX package's params pytree of ``model`` as numpy arrays (its
+    ``.grad``s with ``grad=True``; zeros where a parameter has none),
+    copied: later updates of the model do not reach them."""
+    def arr(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+        if grad:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
+        x = t.detach().float().cpu().numpy()
+        return np.array(x.T if transpose else x, order="C")    # a copy, never a view
+
+    interest = {}
+    if model.cfg.interest.kind == "sdim":
+        R = model.interest.R
+        interest["buffers"] = {"R": np.zeros(R.shape, np.float32) if grad
+                               else R.detach().cpu().numpy().copy()}
+    head = {}
+    for i in range(model.head.n_layers):
+        layer = getattr(model.head, f"fc{i}")
+        head[f"fc{i}"] = {"w": arr(layer.weight, transpose=True), "b": arr(layer.bias)}
+    return {"item_emb": {"table": arr(model.item_emb.weight)},
+            "cat_emb": {"table": arr(model.cat_emb.weight)},
+            "interest": interest, "head": head}

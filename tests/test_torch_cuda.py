@@ -11,23 +11,40 @@ order); atol 1e-4 for bse_encode (sums of up to L rows in row order,
 against the plain version's order); bf16 / int8 / fp8 operands are read
 identically by both, so fp32 tolerances hold there too. No kernel adds
 with atomics: every one gives the same bits on two launches.
+
+The backward kernels (bse_encode_backward, sdim_query_backward,
+target_attention_flash_backward) are held against their closed-form
+plain versions at FP32 (sums in another order), and at one bf16 step
+(rtol 8e-3) where the gradient is written in bf16: the two round fp32
+sums that differ in the last bits. The serving kernels refuse to run
+under autograd, and a CTR model's loss on the card reaches the item
+embeddings through the long branch with the CPU's gradients.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import sdim_paper
 from repro_torch.core import simhash
-from repro_torch.kernels.screen import screened_normal
+from repro_torch.kernels.screen import (hashed_behaviors, item_rows_clear, screen_item_rows,
+                                        screened_normal)
 from repro_torch.kernels.sdim_bucket.sdim_bucket import (
-    MAX_CELLS, MAX_L, bse_encode, bse_encode_cuda, bse_encode_ref)
+    MAX_CELLS, MAX_L, bse_encode, bse_encode_backward, bse_encode_backward_cuda,
+    bse_encode_backward_ref, bse_encode_cuda, bse_encode_ref)
 from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
     sdim_fused_serve, sdim_fused_serve_ref)
-from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+from repro_torch.kernels.sdim_query.sdim_query import (
+    sdim_query, sdim_query_backward, sdim_query_backward_cuda, sdim_query_backward_ref,
+    sdim_query_ref)
 from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
 from repro_torch.kernels.sdim_update.sdim_update import (
     sdim_update, sdim_update_cuda, sdim_update_ref, update_cells)
 from repro_torch.kernels.target_attn.target_attn import (
-    target_attention_flash, target_attention_flash_ref)
+    target_attention_flash, target_attention_flash_backward,
+    target_attention_flash_backward_ref, target_attention_flash_ref)
+from repro_torch.models.ctr import CTRModel
 from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
 
 SHAPES = [  # (B, L, C, d, m, tau)
@@ -45,6 +62,7 @@ CLUSTER_SHAPES = SHAPES + [(3, 1000, 100, 128, 36, 3)]
 LAYOUTS = ["random", "front", "last"]
 FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)
+BF16_OUT = dict(atol=1e-5, rtol=8e-3)     # one bf16 step of a gradient written in bf16
 
 
 @pytest.fixture
@@ -402,3 +420,184 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted_s = torch.empty(store8.numel() + 1, device=dev)[1:].view(store8.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_update(shifted_s, slots, ev, ev_mask, R[:8, :8].contiguous(), 2)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", ["auto", "one", "rows"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_bse_encode_backward_kernel(shape, dtype, layout, splits, dev):
+    """Against the plain version: the wrapper's row chunks, one chunk a
+    user and one per 8 rows; wholly masked leading rows, valid rows only at
+    the end, and (B > 1) a fully masked last user, whose gradient is 0."""
+    seq, _, mask, R, rng = _inputs(shape, dev, dtype, seed=7)
+    B, L, tau = shape[0], shape[1], shape[-1]
+    mask = _layout(mask, layout, rng)
+    G, U, d = shape[4] // tau, 1 << tau, shape[3]
+    dT = torch.randn((B, G, U, d), device=dev)
+    S = {"auto": None, "one": 1, "rows": -(-L // 8)}[splits]
+    before = bse_encode_backward.launches
+    out = bse_encode_backward_cuda(dT, seq, mask, R, tau, S)
+    torch.cuda.synchronize()
+    assert bse_encode_backward.launches == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), bse_encode_backward_ref(dT, seq, mask, R, tau).float(),
+                               **(FP32 if dtype == torch.float32 else BF16_OUT))
+    if B > 1:
+        assert not out[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [0, 1, 33, None])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_sdim_query_backward_kernel(shape, C, dev):
+    """C = 0 (a zero gradient, every row written), 1 (pointwise training),
+    33 (two passes of candidates) and the shape's C; (B > 1) the last
+    user's table is zero (a fully masked history). Compared times each
+    row's n = sqrt(|t|^2 + 1e-12): a zero row's gradient is g / 1e-6, which
+    scales the rounding of g by 1e6."""
+    seq, q, mask, R, rng = _inputs(shape, dev, seed=8)
+    mask = _layout(mask, "random", rng)
+    tau = shape[-1]
+    q = q[:, :shape[2] if C is None else C].contiguous()
+    table = bse_encode_ref(seq, mask, R, tau)
+    dout = torch.randn(q.shape, device=dev)
+    for S in (None, 1):
+        before = sdim_query_backward.launches
+        out = sdim_query_backward_cuda(dout, q, table, R, tau, S)
+        torch.cuda.synchronize()
+        assert sdim_query_backward.launches == before + 1
+        n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+        torch.testing.assert_close(out * n, sdim_query_backward_ref(dout, q, table, R, tau) * n,
+                                   **FP32)
+    if q.shape[1] == 0:
+        assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES + [(2, 70, 3, 256, 12, 2)])
+def test_target_attention_flash_backward_kernel(shape, dtype, layout, dev):
+    """dq and dseq against the plain version, at the training shape's C = 1
+    and the shape's C, d up to 256; (B > 1) a fully masked last user:
+    uniform weights, its rows get sum_c dout / L, its candidates nothing."""
+    seq, q, mask, _, rng = _inputs(shape, dev, dtype, seed=9)
+    mask = _layout(mask, layout, rng)
+    for C in (1, shape[2]):
+        qc = q[:, :C].contiguous()
+        out = target_attention_flash(qc, seq, mask)
+        dout = torch.randn(qc.shape, device=dev)
+        before = target_attention_flash_backward.launches
+        dq, dseq = target_attention_flash_backward(dout, qc, seq, mask, out)
+        torch.cuda.synchronize()
+        assert target_attention_flash_backward.launches == before + 1 and dseq.dtype == dtype
+        rq, rseq = target_attention_flash_backward_ref(dout, qc, seq, mask, out)
+        torch.testing.assert_close(dq, rq, **FP32)
+        torch.testing.assert_close(dseq.float(), rseq.float(),
+                                   **(FP32 if dtype == torch.float32 else BF16_OUT))
+        if shape[0] > 1:
+            assert not dq[-1].any()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_take_empty_shapes(dev):
+    """L = 0 and C = 0: the wrappers return empty or zero gradients without
+    a launch where there is nothing to do."""
+    seq, q, mask, R, _ = _inputs((2, 0, 4, 32, 12, 2), dev)
+    dT = torch.randn((2, 6, 4, 32), device=dev)
+    assert bse_encode_backward(dT, seq, mask, R, 2).shape == (2, 0, 32)
+    out = torch.zeros_like(q)
+    dq, dseq = target_attention_flash_backward(torch.randn_like(q), q, seq, mask, out)
+    assert not dq.any() and dseq.shape == (2, 0, 32)
+    seq, q, mask, R, _ = _inputs((2, 40, 0, 32, 12, 2), dev)
+    dq, dseq = target_attention_flash_backward(q, q, seq, mask, q)
+    assert dq.shape == (2, 0, 32) and not dseq.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bse_encode_backward", "sdim_query_backward",
+                                    "target_attention_flash_backward"])
+def test_backward_kernels_are_deterministic(kernel, dev):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    shape = (32, 1024, 128, 128, 48, 3)
+    seq, q, mask, R, rng = _inputs(shape, dev, seed=10)
+    mask = _layout(mask, "front", rng)
+    if kernel == "bse_encode_backward":
+        dT = torch.randn((32, 16, 8, 128), device=dev)
+        run = lambda: bse_encode_backward(dT, seq, mask, R, 3)
+    elif kernel == "sdim_query_backward":
+        table, dout = bse_encode_ref(seq, mask, R, 3), torch.randn(q.shape, device=dev)
+        run = lambda: sdim_query_backward(dout, q, table, R, 3)
+    else:
+        q1 = q[:, :1].contiguous()
+        out, dout = target_attention_flash(q1, seq, mask), torch.randn(q1.shape, device=dev)
+        run = lambda: torch.cat([g.reshape(-1) for g in target_attention_flash_backward(
+            dout, q1, seq, mask, out)])
+    assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+def test_serving_wrappers_refuse_autograd(dev):
+    """bse_serve, sdim_fused_serve and sdim_update have no backward: on the
+    card they raise where autograd would record them, and run under
+    no_grad or on inputs that need no gradient."""
+    seq, q, mask, R, _ = _inputs((2, 64, 8, 32, 12, 2), dev)
+    store = bse_encode_ref(seq, mask, R, 2)
+    slots = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    events, ev_mask = seq[:, :5].contiguous(), mask[:, :5].contiguous()
+    calls = {
+        "bse_serve": lambda g: bse_serve(q, seq.clone().requires_grad_(g), mask, R, 2),
+        "sdim_fused_serve": lambda g: sdim_fused_serve(store.clone().requires_grad_(g), slots,
+                                                       q, R, 2),
+        "sdim_update": lambda g: sdim_update(store.clone(), slots,
+                                             events.clone().requires_grad_(g), ev_mask, R, 2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no backward"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sdim", "target"])
+def test_ctr_loss_backward_reaches_item_emb_on_cuda(kind, dev):
+    """CTRModel.loss(batch).backward() on the card (bse_encode + sdim_query,
+    or target_attention_flash, and their backward kernels): every
+    gradient, the item embeddings' through the long branch included, equals
+    the same model's on the CPU (plain versions), with the item rows of
+    what a step hashes margin-screened."""
+    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch_graded
+    cfg = dataclasses.replace(sdim_paper.SMOKE, embed_dim=32, long_len=256,
+                              interest=dataclasses.replace(sdim_paper.SMOKE.interest, kind=kind,
+                                                           m=48, tau=3))
+    dcfg = SyntheticCTRConfig(hist_len=256, n_items=cfg.n_items, n_cats=cfg.n_cats)
+    batch = {k: torch.from_numpy(v) for k, v in generate_batch_graded(dcfg, 16, 5).items()}
+    cpu = CTRModel(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    if kind == "sdim":
+        screen_item_rows(cpu, [batch], torch.Generator().manual_seed(4))
+        assert bool(item_rows_clear(cpu, *hashed_behaviors(cpu, batch)).all())
+    gpu = CTRModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    counts = {f: f.launches for f in (bse_encode_backward, sdim_query_backward,
+                                      target_attention_flash_backward)}
+    for model, b in ((cpu, batch), (gpu, {k: v.to(dev) for k, v in batch.items()})):
+        model.loss(b)[0].backward()
+    torch.cuda.synchronize()
+    launched = [f.__name__ for f, n in counts.items() if f.launches > n]
+    assert launched == (["bse_encode_backward", "sdim_query_backward"] if kind == "sdim"
+                        else ["target_attention_flash_backward"])
+    for (name, p), (_, g) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(g.grad.cpu(), p.grad, atol=1e-4 * scale, rtol=1e-4,
+                                   msg=name)
+    short = set(batch["hist_items"][:, -cfg.short_len:].reshape(-1).tolist())
+    short |= set(batch["cand_item"].tolist())
+    long_only = sorted(set(batch["hist_items"][batch["hist_mask"] > 0].tolist()) - short)
+    assert float(gpu.item_emb.weight.grad[long_only].abs().max()) > 0

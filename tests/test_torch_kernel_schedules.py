@@ -27,17 +27,32 @@ run here; this pins the algebra they implement.
   (``update_splits``) takes a slice of its signature groups, starts from
   the stored slice, adds each batch row of the slot in b order (the row's
   events summed in e order, kEv at a time) and writes only the cells that
-  an event with a nonzero weight reached.
+  an event with a nonzero weight reached;
+- the backward kernels (bse_encode_backward, sdim_query_backward,
+  target_attn_backward), held against jax.grad of the JAX package's XLA
+  formulations: bse_encode_backward gives each of S CTAs a chunk of a
+  user's rows, and each row the sum of its G gathered rows of dT in group
+  order, times its mask; sdim_query_backward gives each of S CTAs a slice
+  of a user's groups, walks the candidates in passes of 32, adds dout / G
+  of each hit into its (g, u) rows in c order, then forms (g - t^ (t^ .
+  g)) / n; target_attn_backward runs a CTA per candidate (32 row groups
+  with an online max and denominator each, merged in group order, then
+  dS * seq summed per row group and merged in order: dq) and a CTA per 32
+  rows that loops over the candidates in order (dseq).
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import sdim as jsdim
+from repro.core import simhash as jsimhash
 from repro.core.sdim import sdim_attention as jsdim_attention
+from repro.core.target_attention import target_attention as jtarget_attention
 from repro.kernels.sdim_bucket.ref import bse_encode_ref as jbse_encode_ref
 from repro.kernels.sdim_fused_serve.ref import sdim_fused_serve_ref as jsdim_fused_serve_ref
 from repro.kernels.sdim_query.ref import sdim_query_ref as jsdim_query_ref
@@ -49,6 +64,8 @@ from repro_torch.kernels.screen import screened_normal
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_CELLS, encode_splits
 from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
                                                          update_splits)
+from repro_torch.kernels.sdim_bucket.sdim_bucket import backward_splits
+from repro_torch.kernels.sdim_query.sdim_query import query_backward_splits
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MASKED = np.float32(-1e30)
@@ -489,3 +506,187 @@ def test_update_splits_fill_one_wave(B, G, U, d, want):
     assert S == want
     assert 1 <= S <= G and -(-G // S) * U <= update_cells(d)
     assert B * S <= 2 * 132 or S == -(-G // (update_cells(d) // U))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels
+# ---------------------------------------------------------------------------
+def bse_encode_backward_schedule(dT, seq, mask, R, tau, S, warps=8):
+    """bse_encode_backward.cu's schedule in numpy fp32: CTA j of user b owns
+    rows [j*L/S, (j+1)*L/S); warp w of it takes four rows at a time, lo +
+    4w .. lo + 4w + 3, then 32 rows on; a masked row writes zero unhashed.
+    Returns d seq and the write counts."""
+    B, L, d = seq.shape
+    G = R.shape[0] // tau
+    Rg = R.reshape(G, tau, d)
+    out = np.full((B, L, d), np.nan, np.float32)
+    writes = np.zeros((B, L), np.int64)
+    for b in range(B):
+        for j in range(S):
+            lo, hi = j * L // S, (j + 1) * L // S
+            for w in range(warps):
+                mine = [lo + r0 + h for r0 in range(4 * w, hi - lo, 4 * warps)
+                        for h in range(4) if r0 + h < hi - lo]
+                for l in mine:
+                    writes[b, l] += 1
+                    if mask[b, l] == 0:
+                        out[b, l] = 0.0
+                        continue
+                    sig = _signatures(seq[b, l][None], Rg, tau)[0]
+                    acc = np.zeros(d, np.float32)
+                    for g in range(G):                # group order
+                        acc = acc + dT[b, g, sig[g]]
+                    out[b, l] = mask[b, l] * acc
+    return out, writes
+
+
+def sdim_query_backward_schedule(dout, q, table, R, tau, S, TC=32):
+    """sdim_query_backward.cu's schedule in numpy fp32: CTA j of user b owns
+    groups [j*G/S, (j+1)*G/S); candidates in passes of TC, each hit adds
+    dout / G into its row in c order; then the row formula. Returns dT and
+    the write counts."""
+    B, C, d = q.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    Rg = R.reshape(G, tau, d)
+    out = np.full((B, G, U, d), np.nan, np.float32)
+    writes = np.zeros((B, G, U), np.int64)
+    for b in range(B):
+        for j in range(S):
+            g0, g1 = j * G // S, (j + 1) * G // S
+            g = np.zeros((g1 - g0, U, d), np.float32)
+            for c0 in range(0, C, TC):
+                sig = _signatures(q[b, c0:c0 + TC], Rg[g0:g1], tau)    # (n, ng)
+                for c in range(len(sig)):
+                    for gl in range(g1 - g0):
+                        g[gl, sig[c, gl]] += dout[b, c0 + c] / np.float32(G)
+            t = table[b, g0:g1]
+            n = np.sqrt(np.sum(t * t, -1, keepdims=True) + np.float32(1e-12))
+            th = t / n
+            out[b, g0:g1] = (g - th * np.sum(th * g, -1, keepdims=True)) / n
+            writes[b, g0:g1] += 1
+    return out, writes
+
+
+def target_attention_backward_schedule(dout, q, seq, mask, out, groups=32):
+    """target_attn_backward.cu's schedule in numpy fp32: a CTA per candidate
+    (row group r takes rows r, r + 32, ...: an online max and denominator
+    each, merged in group order; then dS * seq per row group, merged in
+    order) and a CTA per 32-row tile looping over the candidates."""
+    B, C, d = q.shape
+    L = seq.shape[1]
+    scale = np.float32(1.0) / np.sqrt(np.float32(d))
+    dq = np.zeros((B, C, d), np.float32)
+    dseq = np.zeros((B, L, d), np.float32)
+    for b in range(B):
+        valid = mask[b] > 0
+        stats = []
+        for c in range(C):
+            Dc = np.float32(np.dot(dout[b, c], out[b, c]))
+            a = np.where(valid, (seq[b] @ q[b, c]) * scale, MASKED).astype(np.float32)
+            ms, dens = [], []
+            for r in range(groups):
+                m, den = MASKED, np.float32(0)
+                for l in range(r, L, groups):
+                    mn = max(m, a[l])
+                    den = den * np.exp(m - mn) + np.exp(a[l] - mn)
+                    m = mn
+                ms.append(m)
+                dens.append(den)
+            M = max(ms)
+            DEN = np.float32(0)
+            for m, den in zip(ms, dens):              # group order
+                DEN = DEN + den * np.exp(m - M)
+            dS = np.where(valid, np.exp(a - M) / DEN * (seq[b] @ dout[b, c] - Dc), 0)
+            parts = [(dS[r::groups, None] * seq[b, r::groups]).sum(0) for r in range(groups)]
+            total = np.zeros(d, np.float32)
+            for p in parts:
+                total = total + p
+            dq[b, c] = scale * total
+            stats.append((M, DEN, Dc))
+        for l0 in range(0, L, groups):                # a CTA per 32 rows
+            for l in range(l0, min(L, l0 + groups)):
+                acc = np.zeros(d, np.float32)
+                for c, (M, DEN, Dc) in enumerate(stats):
+                    s = np.float32(np.dot(q[b, c], seq[b, l]))
+                    p = np.exp((s * scale if valid[l] else MASKED) - M) / DEN
+                    k = scale * p * (np.dot(dout[b, c], seq[b, l]) - Dc) if valid[l] else 0.0
+                    acc = acc + p * dout[b, c] + k * q[b, c]
+                dseq[b, l] = acc
+    return dq, dseq
+
+
+def _jax_sdim_backward(dout, q, seq, mask, R, tau):
+    """(table, dT, d seq) of <dout, query(q, encode(seq))> by jax.grad."""
+    R = jnp.asarray(R)
+
+    def encode(s):
+        return jsdim.bucket_table(s, jsimhash.signatures(s, R, tau), jnp.asarray(mask), 1 << tau)
+
+    table, vjp = jax.vjp(encode, jnp.asarray(seq))
+    sig_q = jsimhash.signatures(jnp.asarray(q), R, tau)
+    dT = jax.grad(lambda t: jnp.sum(jsdim.fused_query(t, sig_q) * jnp.asarray(dout)))(table)
+    return np.array(table), np.array(dT), np.array(vjp(dT)[0])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [
+    (2, 40, 3, 32, 12, 2),
+    (3, 100, 40, 64, 24, 4),     # U = 16; two candidate passes
+    (2, 64, 1, 128, 48, 3),      # the main shape, C = 1 (pointwise CTR)
+], ids=["G6", "G6-U16", "full-width"])
+def test_sdim_backward_schedules_match_jax(shape, layout):
+    """bse_encode_backward and sdim_query_backward split as the wrappers
+    split them on a 132-SM card (and with fewer, uneven slices): every
+    element written once; a fully masked user's rows get zero."""
+    B, L, C, d, m, tau = shape
+    G = m // tau
+    rng = np.random.default_rng(21)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    mask = _mask(rng, B, L, layout)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    table, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
+    for S in (query_backward_splits(B, G, 132), max(1, G // 4 + 1)):
+        dT, writes = sdim_query_backward_schedule(dout, q, table, R, tau, S)
+        assert (writes == 1).all()
+        np.testing.assert_allclose(dT, jdT, **FP32)
+    for S in (backward_splits(B, L, 132), 3):
+        dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
+        assert (writes == 1).all()
+        np.testing.assert_allclose(dseq, jdseq, **FP32)
+        assert not dseq[-1].any()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [(2, 40, 3, 32), (3, 70, 5, 64), (2, 96, 1, 128)])
+def test_target_attention_backward_schedule_matches_jax(shape, layout):
+    """L not a multiple of 32 (row groups with one row more than others),
+    C = 1, and a fully masked last user (uniform weights: its rows get
+    sum_c dout / L, its candidates nothing)."""
+    B, L, C, d = shape
+    rng = np.random.default_rng(22)
+    seq = rng.standard_normal((B, L, d)).astype(np.float32)
+    q = rng.standard_normal((B, C, d)).astype(np.float32)
+    mask = _mask(rng, B, L, layout)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    out = np.asarray(jtarget_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
+    dq, dseq = target_attention_backward_schedule(dout, q, seq, mask, out)
+    jdq, jdseq = jax.grad(lambda a, b: jnp.sum(jtarget_attention(a, b, jnp.asarray(mask))
+                                               * jnp.asarray(dout)), argnums=(0, 1))(
+        jnp.asarray(q), jnp.asarray(seq))
+    np.testing.assert_allclose(dq, np.asarray(jdq), **FP32)
+    np.testing.assert_allclose(dseq, np.asarray(jdseq), **FP32)
+    assert not dq[-1].any()
+
+
+@pytest.mark.parametrize("B, L, G, want_rows, want_groups", [
+    (32, 1024, 16, 8, 8),        # the training step: 256 CTAs each, one wave at two an SM
+    (1, 1024, 16, 32, 16),       # one user: a chunk per 32 rows (capped), one group a CTA
+    (4096, 1024, 16, 1, 1),      # a large batch: one CTA a user
+    (2, 40, 6, 2, 6),            # short histories: at most one chunk per 32 rows
+])
+def test_backward_splits_fill_one_wave(B, L, G, want_rows, want_groups):
+    assert backward_splits(B, L, n_sm=132) == want_rows
+    assert query_backward_splits(B, G, n_sm=132) == want_groups
+    assert B * want_rows <= 2 * 132 or want_rows == 1
