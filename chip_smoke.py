@@ -29,7 +29,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    target_attention_flash_backward) are held against their closed-form
    plain versions at the training step's shapes (B=32, L=1024, C=1) and at
    C=128, with bf16 behaviors, fully masked users and C=0 / L=0, give the
-   same bits on two launches and are timed at C=1.
+   same bits on two launches and are timed at C=1. target_attention_flash
+   and its backward are also held and timed at the retrieval kinds' folded
+   shape (B*C = 2,048 users of one candidate over the k = 32 rows each
+   retrieved; some with fewer valid rows, some with none).
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -57,15 +60,36 @@ Phases, each of which raises (exit code != 0) when it fails:
    checkpoint saved, restored into a fresh model and optimizer, and the
    next step's loss bit-equal; then kind ``"target"`` the same way for 4
    steps. One step of each kind runs under ``torch.profiler``.
+8. comparison path — the paper's Table 2/3 kinds on the card. (a) FULL
+   width: ``sdim-paper`` FULL with each of ``avg``, ``sim_hard``, ``eta``,
+   ``ubr4ctr``, ``din_mlp``, ``sdim`` of the SRHT family and
+   ``sdim_expected`` swapped in, sharing one draw of the embedding tables:
+   one 16-request burst of 128 candidates through ``CTRServer`` (inline;
+   decoupled for sdim) with finite scores, the burst's long-branch
+   interest against the plain versions on the card, step 1's gradients
+   through the kernels against the plain versions' (as phase 7) and two
+   Adagrad steps with finite losses. Where a hash decides a bucket or a
+   top-k (eta, sdim) the item rows the burst and step 1 hash are
+   margin-screened; for ubr4ctr the rows at each candidate's top-k
+   boundary are redrawn until the k-th and (k+1)-th scores are apart.
+   sdim_expected has no kernel and its gradient is not finite (ROADMAP.md
+   §C, C2): it runs last, and its non-finite gradient is reported, not
+   failed. (b) The protocol: ``repro_torch.bench.table23_auc`` at its
+   ``quick`` depth (600 steps, batch 128, L = 256, 4,096 eval examples)
+   for all eight kinds: AUC, us/step and the two derived claims; every
+   kind but sdim_expected must train with finite losses.
 
-Every launch count is set to 0 just before each of phases 4-7 and read
+Every launch count is set to 0 just before each of phases 4-8 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
-target_attention_flash and its backward kernel). After the counts are
-read, each of phases 4-7 runs one more steady burst or step under
-``torch.profiler`` and prints the device-busy share of its wall time and
-its five costliest device operations (fused server for phase 4).
-Prints the kernels' JSON line, then as the last line
+target_attention_flash and its backward kernel; phase 8 the same six).
+Launches made only to hold a kernel against its plain version (step 1's
+gradient checks, phase 8's long-branch checks) are not counted. After the
+counts are read, each of phases 4-7 runs one more steady burst
+or step under ``torch.profiler`` and prints the device-busy share of its
+wall time and its five costliest device operations (fused server for
+phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
+path; ``launches_by_path``: every phase), then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -93,6 +117,10 @@ FP32 = dict(atol=1e-5, rtol=1e-5)
 ATOMIC = dict(atol=1e-4, rtol=1e-5)   # bse_encode: sums of up to L rows in another order
 BF16_OUT = dict(atol=1e-5, rtol=8e-3)  # a gradient written in bf16: one bf16 step
 TRAIN_B, TRAIN_STEPS = 32, 20          # phase 7: batch, steps of sdim-paper FULL
+FOLD_L = 32                           # rows a retrieval kind retrieves per candidate at FULL
+# phase 8: the kinds swapped into sdim-paper FULL; sdim_expected last, since
+# its non-finite gradient (ROADMAP.md, C2) leaves NaN in the tables it trains
+COMPARE_KINDS = ("avg", "sim_hard", "eta", "ubr4ctr", "din_mlp", "sdim-srht", "sdim_expected")
 GRAD_TOL = 1e-4                       # phase 7: kernel vs plain gradients / largest gradient
 WIRE_TOL = 5e-2                       # fused vs unfused: bf16 wire tables
 INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
@@ -384,7 +412,68 @@ def kernel_phase(torch, dev):
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, plain "
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
+    folded = folded_retrieval(torch, dev, rng, t)
+    for k in timed:
+        if k["name"] in folded:
+            k["folded"] = folded[k["name"]]
     return timed
+
+
+def folded_retrieval(torch, dev, rng, t):
+    """target_attention_flash and its backward at the retrieval kinds'
+    folded shape: BURST * C users of one candidate each over the FOLD_L
+    rows it retrieved, valid rows first (top-k order), some with fewer and
+    some with none (uniform over all FOLD_L). Held against the plain
+    versions, same bits on two launches, timed like the rows above (SDPA
+    on the same inputs as the forward's yardstick). Returns {kernel name:
+    its numbers at this shape}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.target_attn.target_attn import (
+        target_attention_flash, target_attention_flash_backward,
+        target_attention_flash_backward_ref, target_attention_flash_ref)
+
+    n, l = BURST * C, FOLD_L
+    f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
+    q, seq, dout = f32(n, 1, D), f32(n, l, D), f32(n, 1, D)
+    found = rng.integers(0, l + 1, n)
+    found[:2] = (0, l)
+    mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+    out = target_attention_flash(q, seq, mask)
+    err_f = check_close(f"target_attention_flash folded {(n, l, 1, D)}", out,
+                        target_attention_flash_ref(q, seq, mask), **FP32)
+    got = target_attention_flash_backward(dout, q, seq, mask, out)
+    ref = target_attention_flash_backward_ref(dout, q, seq, mask, out)
+    err_b = max(check_close(f"target_attention_flash_backward folded {name}", a, b, **FP32)
+                for name, a, b in (("dq", got[0], ref[0]), ("dseq", got[1], ref[1])))
+    fwd = partial(target_attention_flash, q, seq, mask)
+    bwd = partial(target_attention_flash_backward, dout, q, seq, mask, out)
+    same_bits("target_attention_flash folded", fwd)
+    same_bits("target_attention_flash_backward folded",
+              lambda: torch.cat([g.reshape(-1) for g in bwd()]))
+    needed = float(sum(l if f == 0 else f for f in found.tolist()))
+    additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
+    cases = (("target_attention_flash", fwd, partial(target_attention_flash_ref, q, seq, mask),
+              err_f, bound(needed * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4,
+                           4 * D * needed),
+              partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)),
+             ("target_attention_flash_backward", bwd,
+              partial(target_attention_flash_backward_ref, dout, q, seq, mask, out), err_b,
+              bound(needed * D * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
+                    10 * D * needed), None))
+    info = {}
+    for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
+        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        lib_ms = None if library is None else time_ms(library)
+        dev_ms = device_ms(kernel)
+        info[name] = dict(shape=dict(users=n, L=l, C=1, d=D), ms=min(k1, k2), device_ms=dev_ms,
+                          plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms, max_abs_err=err)
+        print(f"kernel {name} at the folded retrieval shape ({n} users, L={l}, C=1): "
+              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, plain "
+              f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
+    return info
 
 
 def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
@@ -579,6 +668,33 @@ def reset(wrappers):
         w.launches = 0
 
 
+def all_wrappers():
+    """Every kernel wrapper: the six forward kernels, then the three
+    backward kernels."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_backward
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_backward
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update
+    from repro_torch.kernels.target_attn.target_attn import (target_attention_flash,
+                                                             target_attention_flash_backward)
+    return (bse_encode, sdim_update, sdim_fused_serve, sdim_query, bse_serve,
+            target_attention_flash, bse_encode_backward, sdim_query_backward,
+            target_attention_flash_backward)
+
+
+class uncounted:
+    """Within the block, kernel launches are not counted: a comparison of a
+    kernel with its plain version is no launch of the path."""
+
+    def __enter__(self):
+        self.saved = [(w, w.launches) for w in all_wrappers()]
+
+    def __exit__(self, *exc):
+        for w, n in self.saved:
+            w.launches = n
+
+
 def decoupled_phase(torch, dev, wrappers, model, requests):
     from repro_torch.serve.ctr_server import CTRServer
 
@@ -679,30 +795,97 @@ def plain_long_branch(model, refs):
     """Within the block, ``model``'s long branch runs the kernels' plain
     PyTorch versions on the card (``refs``: bse_encode_ref, sdim_query_ref,
     target_attention_flash_ref), autograd of plain PyTorch giving their
-    gradients; everything else is the model's own code."""
+    gradients; everything else is the model's own code. The retrieval
+    kinds keep their own top-k and gather and attend through
+    target_attention_flash_ref; a kind with no kernel runs as it is."""
     import contextlib
+
+    from repro_torch.core import retrieval
 
     interest = model.interest
     kind, tau = interest.cfg.kind, interest.cfg.tau
 
-    def forward(q, seq, mask):
-        qc = q[:, None, :].float()
+    def forward(q, seq, mask, **_):
+        single = q.ndim == 2
+        qc = (q[:, None, :] if single else q).float()
         if kind == "sdim":
             table = refs["bse_encode_ref"](seq, mask.float(), interest.R, tau)
             out = refs["sdim_query_ref"](qc, table, interest.R, tau)
         else:
             out = refs["target_attention_flash_ref"](qc, seq, mask.float())
-        return out[:, 0].to(seq.dtype)
+        return (out[:, 0] if single else out).to(seq.dtype)
 
     @contextlib.contextmanager
     def swapped():
-        interest.forward = forward          # nn.Module.__call__ reads self.forward
+        if kind in ("sdim", "target"):
+            interest.forward = forward      # nn.Module.__call__ reads self.forward
+        kernel = retrieval.target_attention_flash
+        retrieval.target_attention_flash = refs["target_attention_flash_ref"]
         try:
             yield
         finally:
-            del interest.forward
+            retrieval.target_attention_flash = kernel
+            if kind in ("sdim", "target"):
+                del interest.forward
 
     return swapped()
+
+
+def plain_refs() -> dict:
+    """The plain versions ``plain_long_branch`` swaps in."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query_ref
+    from repro_torch.kernels.target_attn.target_attn import target_attention_flash_ref
+
+    return dict(bse_encode_ref=bse_encode_ref, sdim_query_ref=sdim_query_ref,
+                target_attention_flash_ref=target_attention_flash_ref)
+
+
+def step1_gradients(torch, model, batch, refs, label, finite=True):
+    """Step 1's gradients through the kernels against the same step
+    through the plain versions on the card: max |difference| over the
+    parameter's largest gradient, at most GRAD_TOL. With ``finite=False``
+    (sdim_expected, ROADMAP.md C2) non-finite gradients are counted and
+    printed instead of failing; they must sit at the same places."""
+    grads = {}
+    for path in ("kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        if path == "kernels":
+            with uncounted():
+                model.loss(batch)[0].backward()
+        else:
+            with plain_long_branch(model, refs):
+                model.loss(batch)[0].backward()
+        grads[path] = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    worst = 0.0
+    for n, g in grads["kernels"].items():
+        ref = grads["plain"][n]
+        if g is None or ref is None:        # ubr4ctr's projections only choose rows
+            if g is not None or ref is not None:
+                raise AssertionError(f"{label}: {n} has a gradient in one path only")
+            print(f"  {label} step-1 gradient {n}: none in either path (jax.grad gives "
+                  f"exactly 0)")
+            continue
+        ok = torch.isfinite(ref)
+        if not bool(torch.equal(torch.isfinite(g), ok)):
+            raise AssertionError(f"{label}: the kernel and plain gradients of {n} are "
+                                 f"non-finite at different places")
+        if not bool(ok.all()):
+            if finite:
+                raise AssertionError(f"{label}: non-finite gradient of {n}")
+            print(f"  {label} step-1 gradient {n}: {int((~ok).sum())} of {ok.numel()} entries "
+                  f"non-finite in both paths (ROADMAP.md C2)")
+            g, ref = g[ok], ref[ok]
+        if ref.numel() == 0:
+            continue
+        rel = float((g - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        print(f"  {label} step-1 gradient {n}: max |kernel - plain| / max |plain| "
+              f"{rel:.3g} (largest {float(ref.abs().max()):.3g})")
+        worst = max(worst, rel)
+    if worst > GRAD_TOL:
+        raise AssertionError(f"{label}: kernel gradients differ from the plain versions' "
+                             f"by {worst:.3g} of the largest (> {GRAD_TOL})")
 
 
 def train_phase(torch, dev, wrappers):
@@ -714,16 +897,12 @@ def train_phase(torch, dev, wrappers):
 
     from repro_torch.configs import sdim_paper
     from repro_torch.kernels.screen import hashed_behaviors, item_rows_clear, screen_item_rows
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
-    from repro_torch.kernels.sdim_query.sdim_query import sdim_query_ref
-    from repro_torch.kernels.target_attn.target_attn import target_attention_flash_ref
     from repro_torch.launch.train import recsys_setup
     from repro_torch.models.ctr import CTRModel
     from repro_torch.train import checkpoint as ck
     from repro_torch.train.loop import make_train_step
 
-    refs = dict(bse_encode_ref=bse_encode_ref, sdim_query_ref=sdim_query_ref,
-                target_attention_flash_ref=target_attention_flash_ref)
+    refs = plain_refs()
     full = sdim_paper.FULL
     loss_fn, stream, opt = recsys_setup(full, TRAIN_B)
     t0 = time.perf_counter()
@@ -731,33 +910,6 @@ def train_phase(torch, dev, wrappers):
                for _ in range(TRAIN_STEPS + 1)]
     print(f"train: {len(batches)} batches of {TRAIN_B} from generate_batch_graded "
           f"({full.n_items} items) in {time.perf_counter() - t0:.1f} s")
-
-    def step1_gradients(model, label):
-        """Step 1's gradients through the kernels against the same step
-        through the plain versions on the card: max |difference| over the
-        parameter's largest gradient."""
-        grads = {}
-        for path in ("kernels", "plain"):
-            model.zero_grad(set_to_none=True)
-            if path == "kernels":
-                model.loss(batches[0])[0].backward()
-            else:
-                with plain_long_branch(model, refs):
-                    model.loss(batches[0])[0].backward()
-            grads[path] = {n: p.grad for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        worst = 0.0
-        for n, g in grads["kernels"].items():
-            ref = grads["plain"][n]
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"{label}: non-finite gradient of {n}")
-            rel = float((g - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-            print(f"  {label} step-1 gradient {n}: max |kernel - plain| / max |plain| "
-                  f"{rel:.3g} (largest {float(ref.abs().max()):.3g})")
-            worst = max(worst, rel)
-        if worst > GRAD_TOL:
-            raise AssertionError(f"{label}: kernel gradients differ from the plain versions' "
-                                 f"by {worst:.3g} of the largest (> {GRAD_TOL})")
 
     def train(model, steps, label):
         init, step = make_train_step(loss_fn, opt)
@@ -783,7 +935,7 @@ def train_phase(torch, dev, wrappers):
         raise AssertionError("step 1's hashed behaviors do not clear the hash margin")
     print(f"train sdim: {redrawn} item rows redrawn so that step 1's hashed behaviors and "
           f"candidates clear the margin")
-    step1_gradients(model, "sdim")
+    step1_gradients(torch, model, batches[0], refs, "sdim")
     torch.cuda.reset_peak_memory_stats()
     state, step = train(model, TRAIN_STEPS, "train sdim FULL")
     print(f"train sdim: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -817,7 +969,7 @@ def train_phase(torch, dev, wrappers):
     cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, kind="target"))
     model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(8))
     before = {w.__name__: w.launches for w in wrappers}
-    step1_gradients(model, "target")
+    step1_gradients(torch, model, batches[0], refs, "target")
     state, step = train(model, 4, "train target FULL")
     for w in wrappers:
         launches[w.__name__] += w.launches - before[w.__name__]
@@ -832,6 +984,137 @@ def train_phase(torch, dev, wrappers):
         raise AssertionError(f"kernels never launched on the train path: {missing}")
     print(f"train path launches: {json.dumps(launches)}")
     return launches
+
+
+def comparison_requests(cfg):
+    """One BURST of requests for phase 8: histories as ``request_stream``'s,
+    candidates half random items and half items of the user's own valid
+    history (so sim_hard finds categories to match and some candidates
+    repeat a behavior, as in ``generate_batch_graded``)."""
+    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
+
+    dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items, n_cats=cfg.n_cats)
+    rng = np.random.default_rng(8)
+    out = []
+    for r in range(BURST):
+        raw = generate_batch(dcfg, 1, 1000 + r)
+        user = {k: v for k, v in raw.items() if k.startswith("hist")}
+        valid = raw["hist_items"][0][raw["hist_mask"][0] > 0]
+        ci = np.where(rng.random(C) < 0.5, rng.integers(0, cfg.n_items, C),
+                      rng.choice(valid, C)).astype(np.int32)
+        out.append((f"c{r}", user, ci, (ci // dcfg.items_per_cat).astype(np.int32),
+                    np.zeros((C, cfg.ctx_dim), np.float32)))
+    return out
+
+
+def comparison_phase(torch, dev, wrappers):
+    """Phase 8 (a): sdim-paper FULL with each of COMPARE_KINDS swapped in,
+    served one burst and trained two steps, with kernel-vs-plain checks of
+    the burst's long branch and of step 1's gradients. Returns the launch
+    counts of phase 8 (a) and (b) together."""
+    from repro_torch.configs import sdim_paper
+    from repro_torch.kernels.screen import MARGIN, screen_item_rows, screen_topk_rows
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.train.loop import make_train_step
+
+    refs = plain_refs()
+    full = sdim_paper.FULL
+    loss_fn, stream, opt = recsys_setup(full, TRAIN_B)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(stream).items()}
+               for _ in range(2)]
+    requests = comparison_requests(full)
+    burst = {k: torch.as_tensor(np.concatenate([r[1][k] for r in requests]), device=dev)
+             for k in ("hist_items", "hist_cats", "hist_mask")}
+    burst["cand_item"] = torch.as_tensor(np.stack([r[2] for r in requests]), device=dev)
+    burst["cand_cat"] = torch.as_tensor(np.stack([r[3] for r in requests]), device=dev)
+
+    reset(wrappers)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    base = CTRModel(full, device=dev, generator=gen)      # the one draw of the tables
+    for name in COMPARE_KINDS:
+        kind = "sdim" if name == "sdim-srht" else name
+        extra = dict(family="srht") if name == "sdim-srht" else {}
+        cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, kind=kind,
+                                                                     **extra))
+        model = CTRModel(cfg, device=dev, generator=gen)
+        model.item_emb, model.cat_emb = base.item_emb, base.cat_emb
+        torch.cuda.empty_cache()
+        if kind in ("sdim", "eta"):
+            n = screen_item_rows(model, [burst, batches[0]], gen)
+            print(f"compare {name}: {n} item rows redrawn to clear the hash margin")
+        if kind == "ubr4ctr":
+            # 1e-4 of the largest score: the fp32 scores round at ~1e-6 of it,
+            # and at 1e-3 the redraws do not settle (one user's 1,024 rows
+            # feed all 128 of its candidates' boundaries)
+            n = screen_topk_rows(model, [burst, batches[0]], gen, margin=MARGIN / 10)
+            print(f"compare {name}: {n} item rows redrawn to part the top-k boundaries")
+
+        # one burst through the server, twice: the second is timed steady
+        mode = "decoupled" if kind == "sdim" else "inline"
+        server = CTRServer.build(model, None, mode, device=dev)
+        serve_all(torch, f"{name} ({mode}, first burst)", server, requests, wrappers)
+        serve_all(torch, f"{name} ({mode}, again)", server, requests, wrappers)
+        print(f"compare {name}: {BURST * server.stats.ms_per_request:.3f} ms per "
+              f"{BURST}-request burst of {C} candidates (second burst)")
+        with torch.no_grad():
+            target_e = model._embed_behaviors(burst["cand_item"], burst["cand_cat"])
+            long_e = model._embed_behaviors(burst["hist_items"], burst["hist_cats"])
+            branch = lambda: model.interest(target_e, long_e, burst["hist_mask"],
+                                            seq_cat=burst["hist_cats"], q_cat=burst["cand_cat"])
+            with uncounted():
+                ours = branch()
+            with plain_long_branch(model, refs):
+                ref = branch()
+        err = check_close(f"{name} long branch", ours, ref,
+                          **(ATOMIC if kind == "sdim" else FP32))
+        print(f"compare {name}: burst long branch, kernels vs plain max abs err {err:.3g}")
+
+        finite = name != "sdim_expected"
+        step1_gradients(torch, model, batches[0], refs, f"compare {name}", finite=finite)
+        init, step = make_train_step(loss_fn, opt)
+        state, losses, times = init(model), [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"].item())          # waits for the card
+            times.append(1e3 * (time.perf_counter() - t0))
+        if finite and not all(np.isfinite(losses)):
+            raise AssertionError(f"compare {name}: non-finite loss {losses}")
+        print(f"compare {name}: 2 Adagrad steps of {TRAIN_B}, losses {losses}, "
+              f"{times[1]:.2f} ms/step (second step; first {times[0]:.2f})"
+              + ("" if finite else "; a non-finite loss here follows step 1's non-finite "
+                 "gradient (ROADMAP.md C2), a fault of the JAX reference, not of the port"))
+        del state, model, server
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    table23_protocol(dev)
+    launches = read_launches(wrappers, ("bse_encode", "sdim_query", "target_attention_flash",
+                                        "bse_encode_backward", "sdim_query_backward",
+                                        "target_attention_flash_backward"), "comparison")
+    return launches
+
+
+def table23_protocol(dev) -> None:
+    """Phase 8 (b): the Table 2/3 protocol at its quick depth on the card."""
+    from repro_torch.bench import table23_auc
+
+    t0 = time.perf_counter()
+    rows = table23_auc.run(quick=True, device=dev)
+    print(f"table23 (quick: 600 steps, batch 128, L=256, 4096 eval examples) in "
+          f"{time.perf_counter() - t0:.1f} s:")
+    for r in rows:
+        print("  " + json.dumps(r))
+        kind, first = r["name"].split("/")[1], r.get("first_nonfinite_step")
+        if kind == "sdim_expected":
+            print(f"  table23 sdim_expected: first step with a non-finite loss or gradient: "
+                  f"{first} — the JAX reference's own fault (ROADMAP.md §C, C2: the gradient "
+                  f"of arccos is infinite where a candidate repeats a behavior), which the "
+                  f"port reproduces; not a failure of the port")
+        elif first is not None:
+            raise AssertionError(f"table23 {kind}: non-finite loss or gradient at step {first}")
 
 
 def main() -> int:
@@ -852,13 +1135,6 @@ def main() -> int:
 
     from repro_torch.configs import sdim_paper
     from repro_torch.kernels import _build
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_backward
-    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
-    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_backward
-    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve
-    from repro_torch.kernels.sdim_update.sdim_update import sdim_update
-    from repro_torch.kernels.target_attn.target_attn import (target_attention_flash,
-                                                             target_attention_flash_backward)
     from repro_torch.models.ctr import CTRModel
 
     t0 = time.perf_counter()
@@ -870,9 +1146,7 @@ def main() -> int:
             print("  " + line.strip())
 
     timed = kernel_phase(torch, dev)
-    wrappers = (bse_encode, sdim_update, sdim_fused_serve, sdim_query, bse_serve,
-                target_attention_flash)
-    backward = (bse_encode_backward, sdim_query_backward, target_attention_flash_backward)
+    wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(0))
@@ -880,18 +1154,23 @@ def main() -> int:
     print(f"model init: {time.perf_counter() - t0:.2f} s "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
     requests = request_stream(64, model.cfg)
+    by_path = {}
     launches, bf16_wire_scores = decoupled_phase(torch, dev, wrappers, model, requests)
-    launches["bse_serve"] = inline_phase(torch, dev, wrappers, model, requests,
-                                         bf16_wire_scores)["bse_serve"]
+    by_path["decoupled"] = dict(launches)
+    by_path["inline"] = inline_phase(torch, dev, wrappers, model, requests, bf16_wire_scores)
+    launches["bse_serve"] = by_path["inline"]["bse_serve"]
     del model
-    launches["target_attention_flash"] = target_phase(
-        torch, dev, wrappers, requests)["target_attention_flash"]
+    by_path["target"] = target_phase(torch, dev, wrappers, requests)
+    launches["target_attention_flash"] = by_path["target"]["target_attention_flash"]
     torch.cuda.empty_cache()
-    trained = train_phase(torch, dev, wrappers + backward)
+    by_path["train"] = train_phase(torch, dev, wrappers + backward)
+    by_path["comparison"] = comparison_phase(torch, dev, wrappers + backward)
     for w in backward:
-        launches[w.__name__] = trained[w.__name__]
+        launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:
         k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {path: counts.get(k["name"], 0)
+                                 for path, counts in by_path.items()}
     print(card)
     print(json.dumps({"kernels": timed}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,7 +36,11 @@ candidates and R get none, as in the JAX package. ``serve``,
 ``serve_fused`` and ``update`` serve and ingest only: on CUDA their
 wrappers refuse to run where autograd would record them.
 
-The sharded entry points and the SRHT family are not ported yet.
+Hash families: ``dense`` (plain GEMM SimHash, paper-faithful) | ``srht``
+(subsampled randomized Hadamard transform). The SRHT family is densified
+once at construction (``SRHTHashes.dense_matrix``), so both feed the
+kernels one dense (m, d) operand. The sharded entry points are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ class EngineConfig:
     m: int = 48               # hash functions (paper: 48 online)
     tau: int = 3              # signature width (paper: 3 online)
     d: int = 128              # behavior embedding dim
+    family: str = "dense"     # "dense" | "srht"
     hash_seed: int = 1234
 
     @property
@@ -72,11 +77,20 @@ class EngineConfig:
         return 1 << self.tau
 
 
+FAMILIES = ("dense", "srht")
+
+
 def make_hash_family(cfg: EngineConfig, device: torch.device) -> torch.Tensor:
-    """The dense (m, d) projection operand, from a CPU generator seeded
-    with ``hash_seed`` (so every device gets the same R)."""
+    """The (m, d) projection operand of ``cfg.family``, from a CPU generator
+    seeded with ``hash_seed`` (so every device gets the same R)."""
     gen = torch.Generator().manual_seed(cfg.hash_seed)
-    return simhash.make_hashes(gen, cfg.m, cfg.d).to(device)
+    if cfg.family == "dense":
+        R = simhash.make_hashes(gen, cfg.m, cfg.d)
+    elif cfg.family == "srht":
+        R = simhash.srht_hashes(gen, cfg.m, cfg.d).dense_matrix()
+    else:
+        raise ValueError(f"unknown hash family: {cfg.family!r} (have {FAMILIES})")
+    return R.to(device)
 
 
 def _host_slots(slots, n_rows: int, device: torch.device) -> torch.Tensor:

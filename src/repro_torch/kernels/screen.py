@@ -9,6 +9,14 @@ float64 on the values as they are stored, so all implementations agree on
 every bit. ``screen_item_rows`` does the same for a CTR model's training
 batches: it redraws the item-embedding rows of the behaviors and
 candidates a step hashes until each clears the margin.
+
+A top-k over float scores has the same hazard at its boundary: where the
+k-th and (k+1)-th scores lie within rounding of each other, two
+implementations may retrieve different rows. ``topk_clear`` says whether
+they are apart, and ``screen_topk_rows`` redraws, for a ``ubr4ctr``
+model, the item rows at that boundary until they are. (ETA's scores are
+integer counts of equal bits: once the hash bits agree they are equal,
+and every implementation breaks their frequent ties by index.)
 """
 from __future__ import annotations
 
@@ -45,6 +53,22 @@ def screened_normal(rng: np.random.Generator, shape, R: np.ndarray,
         if not bad.any():
             return x.reshape(shape)
         x[bad] = stored(rng.standard_normal((int(bad.sum()), d)), dtype)
+
+
+def topk_clear(scores: np.ndarray, k: int, margin: float = MARGIN) -> np.ndarray:
+    """Per row of ``scores`` (..., L), -inf where a row is not eligible:
+    whether the k-th and (k+1)-th largest are apart by more than
+    ``margin`` times the row's largest finite |score|, or exactly equal.
+    Equal scores come from equal inputs (-inf, or a behavior that occurs
+    twice in a history, whose rows are the same embedding): every
+    implementation computes them equal and breaks the tie by index."""
+    s = -np.sort(-np.asarray(scores, np.float64), axis=-1)
+    if s.shape[-1] <= k:
+        return np.ones(s.shape[:-1], bool)
+    kth, nxt = s[..., k - 1], s[..., k]
+    finite = np.where(np.isfinite(s), np.abs(s), 0.0).max(axis=-1)
+    gap = np.where(np.isfinite(nxt), kth - np.where(np.isfinite(nxt), nxt, 0.0), np.inf)
+    return (gap == 0) | (gap > margin * finite)
 
 
 @torch.no_grad()
@@ -89,3 +113,49 @@ def screen_item_rows(model, batches, generator: torch.Generator,
             dtype=table.dtype).to(table.device)
         redrawn += rows.numel()
     raise RuntimeError(f"item rows still short of the hash margin after {max_rounds} rounds")
+
+
+@torch.no_grad()
+def ubr4ctr_scores(model, batch: dict) -> torch.Tensor:
+    """A ``ubr4ctr`` model's retrieval scores (B, C, L) of ``batch``'s
+    candidates (``cand_item`` (B,) or (B, C)) against its history, in
+    float64, -inf where the history is masked."""
+    seq = model._embed_behaviors(batch["hist_items"], batch["hist_cats"]).double()
+    q = model._embed_behaviors(batch["cand_item"], batch["cand_cat"]).double()
+    q = q[:, None] if q.ndim == 2 else q
+    ubr = model.interest.ubr
+    s = torch.einsum("bcp,blp->bcl", q @ ubr.wq.weight.double().T, seq @ ubr.wk.weight.double().T)
+    return torch.where(batch["hist_mask"][:, None, :] > 0, s,
+                       torch.full((), float("-inf"), dtype=s.dtype, device=s.device))
+
+
+@torch.no_grad()
+def screen_topk_rows(model, batches, generator: torch.Generator, margin: float = MARGIN,
+                     max_rounds: int = 64) -> int:
+    """For a ``ubr4ctr`` model: redraw, N(0, emb_init²) from ``generator``,
+    the item-embedding rows at the k-th and (k+1)-th places of every
+    candidate's retrieval scores in ``batches`` (dicts of tensors on the
+    model's device) until each candidate's two are apart (``topk_clear``);
+    returns how many rows were redrawn. Raises if ``max_rounds`` do not get
+    there."""
+    k = model.cfg.interest.top_k
+    table = model.item_emb.weight
+    redrawn = 0
+    for _ in range(max_rounds):
+        rows = []
+        for b in batches:
+            scores = ubr4ctr_scores(model, b)
+            bad = torch.from_numpy(~topk_clear(scores.cpu().numpy(), k, margin)).to(scores.device)
+            if bool(bad.any()):
+                order = torch.sort(scores, dim=-1, descending=True, stable=True)[1]
+                at = order[..., k - 1:k + 1][bad]                       # (n, 2) history places
+                users = torch.nonzero(bad)[:, 0]
+                rows.append(b["hist_items"][users[:, None], at].reshape(-1))
+        if not rows:
+            return redrawn
+        rows = torch.unique(torch.cat(rows).long() % model.cfg.n_items)
+        table[rows] = model.cfg.emb_init * torch.randn(
+            (rows.numel(), table.shape[1]), generator=generator, device=generator.device,
+            dtype=table.dtype).to(table.device)
+        redrawn += rows.numel()
+    raise RuntimeError(f"top-k boundaries still within the margin after {max_rounds} rounds")

@@ -26,7 +26,10 @@
 // the largest of 8..4 for which the card holds every cluster at once (a
 // second wave would double the time). At the main shape the H100 cannot
 // hold 32 clusters of 8 at two CTAs an SM but can hold 32 of 7, so a
-// 16-user burst runs 16 users x 2 tiles x 7 chunks = 224 CTAs.
+// 16-user burst runs 16 users x 2 tiles x 7 chunks = 224 CTAs. S never
+// exceeds the number of row tiles: at the retrieval kinds' folded shape
+// (2,048 users of one candidate over k = 32 rows, one tile) a cluster of 8
+// left 7 CTAs with nothing but the merge to wait for, in 62 waves.
 //
 // Both products are register-tiled fp32 FMAs: thread (cq, lr) of 256 owns
 // 4 candidates (cq*4..) x 2 rows (lr, lr+16) of the logits and the same 4
@@ -300,7 +303,10 @@ static cudaError_t launch(const float* q, const void* seq, const float* mask, fl
                           int L, int C, int d, float scale, cudaStream_t stream) {
   const int nt = (L + kRowTile - 1) / kRowTile;
   const int list_cap = (nt + kMinChunks - 1) / kMinChunks;  // the longest chunk of any S
-  return launch_clusters(target_attn_kernel<T, J>, kMaxChunks, kMinChunks,
+  // at most one CTA per row tile (S < kMinChunks only where S = nt: one tile each)
+  const int s_max = nt < 1 ? 1 : (nt < kMaxChunks ? nt : kMaxChunks);
+  const int s_min = s_max < kMinChunks ? s_max : kMinChunks;
+  return launch_clusters(target_attn_kernel<T, J>, s_max, s_min,
                          (C + kCandTile - 1) / kCandTile, B, ta_layout<T>(d, list_cap).total,
                          stream, q, static_cast<const T*>(seq), mask, out, L, C, d, scale,
                          list_cap);

@@ -10,9 +10,10 @@ are the JAX launcher's: batches of ``generate_batch_graded``, Adagrad with
 lr 0.05 and global-norm clipping at 10. ``--device`` defaults to cuda,
 where the kernels and their backward kernels run; ``--device cpu`` runs
 their plain PyTorch versions. Interest kinds other than the config's
-(``target``, ``none``) are trained by building the model from a
-``dataclasses.replace`` of the config's ``interest``; the launcher has no
-flag for them. Arch families the port has not ported raise
+(any of ``core.interest.INTEREST_KINDS``) are trained by building the
+model from a ``dataclasses.replace`` of the config's ``interest``; the
+launcher has no flag for them (``repro_torch.bench.table23_auc`` trains
+them all). Arch families the port has not ported raise
 NotImplementedError (ROADMAP.md lists them).
 """
 from __future__ import annotations

@@ -1,11 +1,13 @@
 """CTR model, ``din`` arch: the paper's own online model (Fig. 3).
 
 Counterpart of ``repro/models/ctr.py`` for ``arch="din"``: short-term target
-attention + long-term interest module + MLP head over
-[target, short rep, long interest, ctx]. Behaviors are concat(item_emb,
-cat_emb) (2·embed_dim), the DIN convention. The weights live in the module
-(the JAX package threads a params pytree instead; ``repro_torch.weights``
-carries one across). The other archs are not ported yet.
+attention + long-term interest module (any of its nine kinds) + MLP head
+over [target, short rep, long interest, ctx]. Behaviors are
+concat(item_emb, cat_emb) (2·embed_dim), the DIN convention; the long
+branch also gets the raw category ids (``sim_hard`` matches on them). The
+weights live in the module (the JAX package threads a params pytree
+instead; ``repro_torch.weights`` carries one across). The other archs are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class CTRModel(nn.Module):
         self.cat_emb = Embedding(cfg.n_cats, cfg.embed_dim, cfg.emb_init,
                                  device=dev, generator=generator)
         self.interest = InterestModule(dataclasses.replace(cfg.interest, d=e),
-                                       device=dev)
+                                       device=dev, generator=generator)
         self.head = MLP(self._head_in_dim(), [*cfg.mlp_hidden, 1], "relu",
                         device=dev, generator=generator)
 
@@ -90,7 +92,8 @@ class CTRModel(nn.Module):
         feats = [target_e, self._short_rep(batch, target_e)]
         if self.cfg.interest.kind != "none":
             long_e = self._embed_behaviors(batch["hist_items"], batch["hist_cats"])
-            feats.append(self.interest(target_e, long_e, batch["hist_mask"]))
+            feats.append(self.interest(target_e, long_e, batch["hist_mask"],
+                                       seq_cat=batch["hist_cats"], q_cat=batch["cand_cat"]))
         feats.append(batch["ctx"].to(target_e.dtype))
         return self.head(torch.cat(feats, dim=-1))[..., 0]
 
@@ -134,7 +137,8 @@ class CTRModel(nn.Module):
         (B, C, e) already computed by the fused serve on the BSE side, or,
         with neither, the raw (B, L) history: ONE ``engine.serve`` for kind
         ``sdim`` (inline serving), the interest module for any other kind
-        (``target``: exact target attention)."""
+        (``target``: exact target attention; the retrieval kinds: top k, then
+        target attention)."""
         cfg = self.cfg
         B, C = cand_items.shape
         e = cfg.behavior_dim
@@ -163,7 +167,8 @@ class CTRModel(nn.Module):
                     long_out = self.engine.serve(target_e, long_e, user_batch["hist_mask"],
                                                  R=self.interest.R)
                 else:
-                    long_out = self.interest(target_e, long_e, user_batch["hist_mask"])
+                    long_out = self.interest(target_e, long_e, user_batch["hist_mask"],
+                                             seq_cat=user_batch["hist_cats"], q_cat=cand_cats)
             feats.append(long_out.reshape(B * C, e).to(tflat.dtype))
 
         feats.append(ctx.reshape(B * C, -1).to(tflat.dtype))

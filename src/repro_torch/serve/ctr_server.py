@@ -12,7 +12,10 @@ paper's §4.4 serving comparison):
   batched ``ingest_histories``.
 - ``"inline"``: no BSE server; every burst ships the full (N, L) histories
   and the long branch scores them raw — ONE ``bse_serve`` launch for an
-  ``sdim`` model (SDIM without the BSE split, the paper's ablation).
+  ``sdim`` model (SDIM without the BSE split, the paper's ablation), the
+  interest module for any other kind (the Table 2/3 baselines: the
+  retrieval kinds launch ``target_attention_flash`` once per burst over
+  the folded (N·C, k) retrieved rows).
 - ``"target_attention"``: the same raw path for a model of interest kind
   ``target`` (DIN over the whole history, ONE ``target_attention_flash``
   launch per burst).

@@ -3,9 +3,11 @@ back out.
 
 ``params_np`` is ``repro.models.ctr.CTRModel.init``'s pytree with every leaf
 converted to a numpy array (``jax.tree_util.tree_map(np.asarray, params)``):
-``item_emb.table``, ``cat_emb.table``, ``interest.buffers.R`` and
-``head.fc{i}.{w,b}``. JAX's ``Linear.w`` is (in, out); ``nn.Linear.weight``
-is (out, in), so it is transposed. ``export_params`` is the inverse of
+``item_emb.table``, ``cat_emb.table``, ``head.fc{i}.{w,b}`` and the interest
+kind's own: ``interest.buffers.R`` (kinds ``sdim``, either family, and
+``eta``), ``interest.mlp.fc{i}.{w,b}`` (``din_mlp``) and
+``interest.{wq,wk}.w`` (``ubr4ctr``). JAX's ``Linear.w`` is (in, out);
+``nn.Linear.weight`` is (out, in), so it is transposed. ``export_params`` is the inverse of
 ``load_jax_params``; with ``grad=True`` it exports the parameters'
 gradients in the same tree (zeros for R, a buffer, as ``jax.grad`` gives
 it), so tests compare whole gradient trees.
@@ -31,9 +33,11 @@ def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
     """Copy ``params_np`` into ``model`` in place; returns the model."""
     _copy(model.item_emb.weight, params_np["item_emb"]["table"], "item_emb.table")
     _copy(model.cat_emb.weight, params_np["cat_emb"]["table"], "cat_emb.table")
-    if model.cfg.interest.kind == "sdim":
-        _copy(model.interest.R, params_np["interest"]["buffers"]["R"],
-              "interest.buffers.R")
+    for name, (t, transpose) in _interest_tensors(model).items():
+        src = params_np["interest"]
+        for key in name.split("."):
+            src = src[key]
+        _copy(t, np.asarray(src).T if transpose else src, f"interest.{name}")
     head = params_np["head"]
     if len(head) != model.head.n_layers:
         raise ValueError(f"head has {len(head)} layers, the model "
@@ -43,6 +47,25 @@ def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
         _copy(layer.weight, np.asarray(head[f"fc{i}"]["w"]).T, f"head.fc{i}.w")
         _copy(layer.bias, head[f"fc{i}"]["b"], f"head.fc{i}.b")
     return model
+
+
+def _interest_tensors(model: CTRModel) -> dict:
+    """The interest module's tensors by their name in the JAX package's
+    ``interest`` subtree (dot-separated) -> (tensor, transposed there)."""
+    interest, kind = model.interest, model.cfg.interest.kind
+    if kind in ("sdim", "eta"):
+        return {"buffers.R": (interest.R, False)}
+    if kind == "din_mlp":
+        mlp = interest.din.mlp
+        out = {}
+        for i in range(mlp.n_layers):
+            layer = getattr(mlp, f"fc{i}")
+            out[f"mlp.fc{i}.w"] = (layer.weight, True)
+            out[f"mlp.fc{i}.b"] = (layer.bias, False)
+        return out
+    if kind == "ubr4ctr":
+        return {"wq.w": (interest.ubr.wq.weight, True), "wk.w": (interest.ubr.wk.weight, True)}
+    return {}
 
 
 def export_params(model: CTRModel, grad: bool = False) -> dict:
@@ -55,11 +78,15 @@ def export_params(model: CTRModel, grad: bool = False) -> dict:
         x = t.detach().float().cpu().numpy()
         return np.array(x.T if transpose else x, order="C")    # a copy, never a view
 
-    interest = {}
-    if model.cfg.interest.kind == "sdim":
-        R = model.interest.R
-        interest["buffers"] = {"R": np.zeros(R.shape, np.float32) if grad
-                               else R.detach().cpu().numpy().copy()}
+    interest: dict = {}
+    for name, (t, transpose) in _interest_tensors(model).items():
+        *path, leaf = name.split(".")
+        node = interest
+        for key in path:
+            node = node.setdefault(key, {})
+        # a buffer (R) has no gradient: zeros, as jax.grad gives it
+        node[leaf] = (np.zeros(tuple(t.shape), np.float32) if grad and not t.requires_grad
+                      else arr(t, transpose))
     head = {}
     for i in range(model.head.n_layers):
         layer = getattr(model.head, f"fc{i}")

@@ -601,3 +601,153 @@ def test_ctr_loss_backward_reaches_item_emb_on_cuda(kind, dev):
     short |= set(batch["cand_item"].tolist())
     long_only = sorted(set(batch["hist_items"][batch["hist_mask"] > 0].tolist()) - short)
     assert float(gpu.item_emb.weight.grad[long_only].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the Table 2/3 baselines on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 32])
+def test_target_attention_flash_at_the_folded_retrieval_shape(L, dev):
+    """Kernel 6 and its backward where the retrieval kinds call them: B·C =
+    2,048 folded users of one candidate each over the L = k rows retrieved,
+    valid rows first (top-k order), some with fewer than k (a masked tail)
+    and some with none (fully masked: uniform over the k rows)."""
+    rng = np.random.default_rng(L)
+    n = 2048
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)
+    q, seq = t(rng.standard_normal((n, 1, 128))), t(rng.standard_normal((n, L, 128)))
+    found = rng.integers(0, L + 1, n)
+    found[:3] = (0, L, 1)
+    mask = t(np.arange(L)[None] < found[:, None])
+    dout = t(rng.standard_normal((n, 1, 128)))
+    before = (target_attention_flash.launches, target_attention_flash_backward.launches)
+    out = target_attention_flash(q, seq, mask)
+    dq, dseq = target_attention_flash_backward(dout, q, seq, mask, out)
+    torch.cuda.synchronize()
+    assert (target_attention_flash.launches, target_attention_flash_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+    rq, rseq = target_attention_flash_backward_ref(dout, q, seq, mask, out)
+    torch.testing.assert_close(dq, rq, **FP32)
+    torch.testing.assert_close(dseq, rseq, **FP32)
+    torch.testing.assert_close(out[0, 0], seq[0].mean(0), **FP32)
+
+
+def _interest_inputs(kind, R, rng, dev, B=4, C=16, L=256, d=128):
+    """q, seq (hash-screened against R), a ragged mask with user 1 fully
+    masked, and category ids, on the CPU and on ``dev``."""
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    lengths = rng.integers(L // 4, L + 1, B)
+    lengths[1] = 0
+    mask = (np.arange(L)[None] >= (L - lengths[:, None])).astype(np.float32)
+    seq_cat = rng.integers(0, 8, (B, L)).astype(np.int32)
+    q_cat = rng.integers(0, 8, (B, C)).astype(np.int32)
+    host = [torch.from_numpy(x) for x in (q, seq, mask, seq_cat, q_cat)]
+    return host, [x.to(dev) for x in host]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["avg", "sim_hard", "eta", "ubr4ctr", "din_mlp",
+                                  "sdim_expected"])
+def test_interest_kind_on_cuda_matches_cpu(kind, dev):
+    """Each new interest kind on the card (the retrieval kinds through
+    target_attention_flash and its backward kernel) against the same
+    module on the CPU (plain versions): the output and the gradients in q
+    and seq, at d = 128, L = 256, C = 16, k = 32. ETA's inputs clear the
+    hash margin; ubr4ctr's top-k boundaries are apart (``topk_clear``)."""
+    from repro_torch.core.interest import InterestConfig, InterestModule
+    from repro_torch.kernels.screen import topk_clear
+
+    cfg = InterestConfig(kind=kind, d=128, m=48, tau=3, top_k=32)
+    cpu = InterestModule(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = InterestModule(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    R = (cpu.R if kind == "eta" else torch.randn(48, 128)).numpy()
+    for _ in range(100):
+        host, card = _interest_inputs(kind, R, rng, dev)
+        if kind != "ubr4ctr":
+            break
+        with torch.no_grad():
+            q, seq, mask = host[:3]
+            s = torch.einsum("bcp,blp->bcl", cpu.ubr.wq(q), cpu.ubr.wk(seq)).double()
+            s = torch.where(mask[:, None] > 0, s, float("-inf"))
+        if topk_clear(s.numpy(), cfg.top_k).all():
+            break
+    retrieval = kind in ("sim_hard", "eta", "ubr4ctr")
+    before = (target_attention_flash.launches, target_attention_flash_backward.launches)
+    w = torch.from_numpy(rng.standard_normal((4, 16, 128)).astype(np.float32))
+    grads = []
+    for mod, (q, seq, mask, seq_cat, q_cat), ww in ((cpu, host, w), (gpu, card, w.to(dev))):
+        q, seq = q.clone().requires_grad_(True), seq.clone().requires_grad_(True)
+        out = mod(q, seq, mask, seq_cat=seq_cat, q_cat=q_cat)
+        (out * ww).sum().backward()
+        dq = torch.zeros_like(q) if q.grad is None else q.grad      # avg: q only broadcasts
+        grads.append((out.detach().cpu(), dq.cpu(), seq.grad.cpu()))
+    torch.cuda.synchronize()
+    assert (target_attention_flash.launches > before[0]) == retrieval
+    assert (target_attention_flash_backward.launches > before[1]) == retrieval
+    for name, ours, ref in zip(("out", "dq", "dseq"), grads[1], grads[0]):
+        torch.testing.assert_close(ours, ref, msg=name, **ATOMIC)
+
+
+@pytest.mark.cuda
+def test_srht_sdim_runs_kernels_1_and_4(dev):
+    """An sdim engine of the SRHT family on the card: the same dense R as on
+    the CPU, ``attend`` through bse_encode and sdim_query (and their
+    backward kernels) against the CPU's plain versions."""
+    from repro_torch.core.engine import EngineConfig, SDIMEngine
+
+    cfg = EngineConfig(m=48, tau=3, d=128, family="srht")
+    cpu, gpu = SDIMEngine(cfg, device="cpu"), SDIMEngine(cfg, device=dev)
+    assert torch.equal(gpu.R.cpu(), cpu.R)
+    rng = np.random.default_rng(2)
+    host, card = _interest_inputs("sdim", cpu.R.numpy(), rng, dev, C=32)
+    counts = {f: f.launches for f in (bse_encode, sdim_query, bse_encode_backward,
+                                      sdim_query_backward)}
+    res = []
+    for eng, (q, seq, mask, _, _) in ((cpu, host), (gpu, card)):
+        seq = seq.clone().requires_grad_(True)
+        out = eng.attend(q, seq, mask)
+        out.sum().backward()
+        res.append((out.detach().cpu(), seq.grad.cpu()))
+    torch.cuda.synchronize()
+    assert all(f.launches == n + 1 for f, n in counts.items())
+    torch.testing.assert_close(res[1][0], res[0][0], **ATOMIC)
+    torch.testing.assert_close(res[1][1], res[0][1], **ATOMIC)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "avg", "sim_hard", "eta", "ubr4ctr", "din_mlp",
+                                  "sdim", "target"])
+def test_table23_protocol_on_cuda_matches_cpu(kind, dev):
+    """Five AdamW steps of the Table 2/3 protocol (``bench.common.train``,
+    batch 128, L = 256) from one initialization on the card and on the CPU:
+    the same losses at fp32 tolerance, then the same eval scores on one
+    batch of 1,024. Rows that a hash or a top-k decides are screened on
+    the CPU model first (the eval batch's too)."""
+    from repro_torch.bench import common, table23_auc
+    from repro_torch.data.pipeline import DeterministicStream
+    from repro_torch.data.synthetic import generate_batch_graded
+    from repro_torch.kernels.screen import screen_topk_rows
+
+    kw = dict(table23_auc.BASELINES).get(kind, {})
+    dcfg, cfg = common.paper_data_config(256), common.paper_model_config(kind, **kw)
+    cpu = CTRModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    seeds = DeterministicStream(None, base_seed=0)          # bench.common.train's stream
+    stream = [generate_batch_graded(dcfg, 128, seeds.seed_for(i)) for i in range(5)]
+    stream.append(generate_batch_graded(dcfg, common.EVAL_BATCH, common.EVAL_SEED0))
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in stream]
+    if kind in ("eta", "sdim"):
+        screen_item_rows(cpu, batches, torch.Generator().manual_seed(1))
+    if kind == "ubr4ctr":
+        screen_topk_rows(cpu, batches, torch.Generator().manual_seed(1))
+    gpu = CTRModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    runs = [common.train(m, dcfg, 5, 128, seed=0, lr=5e-3) for m in (cpu, gpu)]
+    torch.testing.assert_close(torch.from_numpy(runs[1]["losses"]),
+                               torch.from_numpy(runs[0]["losses"]), **FP32)
+    scores = [common.evaluate(m, dcfg, common.EVAL_BATCH)[1] for m in (cpu, gpu)]
+    torch.testing.assert_close(torch.from_numpy(scores[1]), torch.from_numpy(scores[0]), **FP32)

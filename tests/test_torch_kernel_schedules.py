@@ -189,6 +189,24 @@ def test_target_attention_schedule_matches_jax(shape, layout, S):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape,S", [((64, 32, 1, 32), 1), ((2, 40, 8, 32), 2),
+                                     ((3, 70, 5, 32), 3)],
+                         ids=["folded-retrieval", "two-tiles", "three-tiles"])
+def test_target_attention_schedule_at_short_histories(shape, S, layout):
+    """Below 8 row tiles the launch takes one CTA per tile (S = number of
+    tiles): the retrieval kinds' folded shape (users of one candidate over
+    k = 32 rows) runs S = 1."""
+    B, L, C, d = shape
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((B, C, d)).astype(np.float32)
+    seq = rng.standard_normal((B, L, d)).astype(np.float32)
+    mask = _mask(rng, B, L, layout)
+    out = target_attention_schedule(q, seq, mask, S=S)
+    ref = np.asarray(jtarget_attention_ref(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
+    np.testing.assert_allclose(out, ref, **FP32)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("shape", [
     (2, 40, 8, 32, 12, 2, 4),        # G = 6 over S = 4: ranges 1, 2, 1, 2
     (3, 300, 70, 64, 24, 4, 4),      # G = 6, U = 16 over S = 4
