@@ -17,8 +17,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    of a 32-user event burst), with ragged masks, ragged C and L and fully
    masked users where a kernel takes them; times of kernel and plain
    version at the main paths' shapes (CUDA events, median of 30 after 3
-   warm-up calls, wrapper included), each kernel's device time per launch
-   there (torch.profiler over 20 launches), the bound from the bytes and
+   warm-up calls, wrapper included), the device time per call of each
+   kernel, its plain version and the library call there (torch.profiler
+   over 20 calls), the bound from the bytes and
    FLOP this run's data needs, and for target attention the time of
    PyTorch's ``scaled_dot_product_attention`` on the same inputs (a
    yardstick only). All six kernels split or share their work without
@@ -74,10 +75,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    boundary are redrawn until the k-th and (k+1)-th scores are apart.
    sdim_expected has no kernel and its gradient is not finite (ROADMAP.md
    §C, C2): it runs last, and its non-finite gradient is reported, not
-   failed. (b) The protocol: ``repro_torch.bench.table23_auc`` at its
-   ``quick`` depth (600 steps, batch 128, L = 256, 4,096 eval examples)
-   for all eight kinds: AUC, us/step and the two derived claims; every
-   kind but sdim_expected must train with finite losses.
+   failed. (b) The protocol: first each of its kinds that runs a kernel
+   (sim_hard, ubr4ctr, eta, sdim, target), built as the protocol builds it
+   (d = 32, L = 256, k = 16) and screened, is held against the plain
+   versions on the protocol's first batch of 128 and first eval batch of
+   1,024 (logits, and step 1's gradients on the batch of 128); then
+   ``repro_torch.bench.table23_auc`` at its ``quick`` depth (600 steps,
+   batch 128, L = 256, 4,096 eval examples) for all eight kinds: AUC,
+   us/step and the two derived claims; every kind but sdim_expected must
+   train with finite losses.
 
 Every launch count is set to 0 just before each of phases 4-8 and read
 just after it; each phase fails if one of its kernels never launched
@@ -166,6 +172,15 @@ def device_ms(fn, n: int = 20):
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA)
     return us / n / 1e3 if us > 0 else None
+
+
+def device_line(dt: dict) -> str:
+    """Device times per call of kernel, plain version and library call."""
+    show = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    parts = [f"device {show(dt['device_ms'])}", f"plain {show(dt['plain_device_ms'])}"]
+    if dt["library_device_ms"] is not None:
+        parts.append(f"library {show(dt['library_device_ms'])}")
+    return ", ".join(parts)
 
 
 def same_bits(name, fn) -> None:
@@ -403,15 +418,15 @@ def kernel_phase(torch, dev):
         # kernel, plain, plain, kernel: both seen under the same clocks
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
-        dev_ms = device_ms(kernel)
+        dt = dict(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                   library_device_ms=None if library is None else device_ms(library))
         timed.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                          max_abs_err=err, ms=min(k1, k2), device_ms=dev_ms,
-                          plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms))
-        print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, plain "
+                          max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, **dt))
+        print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
+              f"max abs err {err:.3g}")
     folded = folded_retrieval(torch, dev, rng, t)
     for k in timed:
         if k["name"] in folded:
@@ -464,15 +479,16 @@ def folded_retrieval(torch, dev, rng, t):
     for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
-        dev_ms = device_ms(kernel)
-        info[name] = dict(shape=dict(users=n, L=l, C=1, d=D), ms=min(k1, k2), device_ms=dev_ms,
+        dt = dict(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                   library_device_ms=None if library is None else device_ms(library))
+        info[name] = dict(shape=dict(users=n, L=l, C=1, d=D), ms=min(k1, k2),
                           plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms, max_abs_err=err)
+                          library_ms=lib_ms, max_abs_err=err, **dt)
         print(f"kernel {name} at the folded retrieval shape ({n} users, L={l}, C=1): "
-              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, plain "
-              f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, max abs err {err:.3g}")
+              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain {min(p1, p2):.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
+              f"max abs err {err:.3g}")
     return info
 
 
@@ -1013,9 +1029,11 @@ def comparison_phase(torch, dev, wrappers):
     the burst's long branch and of step 1's gradients. Returns the launch
     counts of phase 8 (a) and (b) together."""
     from repro_torch.configs import sdim_paper
+    from repro_torch.core.interest import InterestModule
     from repro_torch.kernels.screen import MARGIN, screen_item_rows, screen_topk_rows
     from repro_torch.launch.train import recsys_setup
     from repro_torch.models.ctr import CTRModel
+    from repro_torch.nn.layers import MLP
     from repro_torch.serve.ctr_server import CTRServer
     from repro_torch.train.loop import make_train_step
 
@@ -1031,15 +1049,20 @@ def comparison_phase(torch, dev, wrappers):
     burst["cand_cat"] = torch.as_tensor(np.stack([r[3] for r in requests]), device=dev)
 
     reset(wrappers)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    base = CTRModel(full, device=dev, generator=gen)      # the one draw of the tables
-    for name in COMPARE_KINDS:
+    # the one draw of the tables; each kind swaps in its own interest module
+    # and head, drawn from a generator of its own
+    model = CTRModel(full, device=dev, generator=torch.Generator(device=dev).manual_seed(2))
+    for i, name in enumerate(COMPARE_KINDS):
         kind = "sdim" if name == "sdim-srht" else name
         extra = dict(family="srht") if name == "sdim-srht" else {}
         cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, kind=kind,
                                                                      **extra))
-        model = CTRModel(cfg, device=dev, generator=gen)
-        model.item_emb, model.cat_emb = base.item_emb, base.cat_emb
+        gen = torch.Generator(device=dev).manual_seed(20 + i)
+        model.cfg = cfg
+        model.interest = InterestModule(dataclasses.replace(cfg.interest, d=cfg.behavior_dim),
+                                        device=dev, generator=gen)
+        model.head = MLP(model._head_in_dim(), [*cfg.mlp_hidden, 1], "relu", device=dev,
+                         generator=gen)
         torch.cuda.empty_cache()
         if kind in ("sdim", "eta"):
             n = screen_item_rows(model, [burst, batches[0]], gen)
@@ -1086,21 +1109,73 @@ def comparison_phase(torch, dev, wrappers):
               f"{times[1]:.2f} ms/step (second step; first {times[0]:.2f})"
               + ("" if finite else "; a non-finite loss here follows step 1's non-finite "
                  "gradient (ROADMAP.md C2), a fault of the JAX reference, not of the port"))
-        del state, model, server
+        del state, server
         torch.cuda.empty_cache()
-    del base
+    del model
     torch.cuda.empty_cache()
-    table23_protocol(dev)
+    table23_protocol(torch, dev)
     launches = read_launches(wrappers, ("bse_encode", "sdim_query", "target_attention_flash",
                                         "bse_encode_backward", "sdim_query_backward",
                                         "target_attention_flash_backward"), "comparison")
     return launches
 
 
-def table23_protocol(dev) -> None:
-    """Phase 8 (b): the Table 2/3 protocol at its quick depth on the card."""
+def protocol_checks(torch, dev) -> None:
+    """Phase 8 (b), before the protocol trains: each kind of it that runs a
+    kernel, built as ``bench.common.train_and_eval`` builds it (its
+    configuration at the protocol's shapes: d = 32, L = 256, k = 16; seed
+    0) on the card, held against the plain versions on the protocol's first
+    training batch (128) and first eval batch (1,024): the logits of
+    ``model.apply`` on both (FP32; ATOMIC for sdim) and step 1's gradients
+    on the training batch (GRAD_TOL). Rows that a hash or a top-k decides
+    are screened on both batches first."""
+    from repro_torch.bench import common, table23_auc
+    from repro_torch.data.pipeline import DeterministicStream
+    from repro_torch.data.synthetic import generate_batch_graded
+    from repro_torch.kernels.screen import screen_item_rows, screen_topk_rows
+    from repro_torch.models.ctr import CTRModel
+
+    refs = plain_refs()
+    dcfg = common.paper_data_config(256)
+    seeds = DeterministicStream(None, base_seed=0)          # bench.common.train's stream
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+               for b in (generate_batch_graded(dcfg, 128, seeds.seed_for(0)),
+                         generate_batch_graded(dcfg, common.EVAL_BATCH, common.EVAL_SEED0))]
+    for kind, kw in table23_auc.BASELINES:
+        if kind not in ("sim_hard", "ubr4ctr", "eta", "sdim", "target"):
+            print(f"table23 {kind}: no kernel on its path; nothing to hold against a plain version")
+            continue
+        model = CTRModel(common.paper_model_config(kind, **kw), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        redrawn = 0
+        if kind in ("sdim", "eta"):
+            redrawn = screen_item_rows(model, batches, gen)
+        if kind == "ubr4ctr":
+            redrawn = screen_topk_rows(model, batches, gen)
+        errs = []
+        for b in batches:
+            with torch.no_grad():
+                with uncounted():
+                    ours = model.apply(b)
+                with plain_long_branch(model, refs):
+                    ref = model.apply(b)
+            errs.append(check_close(f"table23 {kind} logits of {len(ours)}", ours, ref,
+                                    **(ATOMIC if kind == "sdim" else FP32)))
+        print(f"table23 {kind}: {redrawn} item rows redrawn; logits, kernels vs plain max abs "
+              f"err {errs[0]:.3g} (batch 128), {errs[1]:.3g} (eval batch {common.EVAL_BATCH})")
+        step1_gradients(torch, model, batches[0], refs, f"table23 {kind}")
+        del model
+    torch.cuda.empty_cache()
+
+
+def table23_protocol(torch, dev) -> None:
+    """Phase 8 (b): the kernels held against their plain versions at the
+    protocol's shapes, then the Table 2/3 protocol at its quick depth on
+    the card."""
     from repro_torch.bench import table23_auc
 
+    protocol_checks(torch, dev)
     t0 = time.perf_counter()
     rows = table23_auc.run(quick=True, device=dev)
     print(f"table23 (quick: 600 steps, batch 128, L=256, 4096 eval examples) in "

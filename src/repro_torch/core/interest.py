@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core import retrieval, sdim, simhash
-from repro_torch.core.engine import EngineConfig, SDIMEngine
+from repro_torch.core import retrieval, sdim
+from repro_torch.core.engine import EngineConfig, SDIMEngine, make_hash_family
 from repro_torch.core.target_attention import DinActivationUnit
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.target_attn.target_attn import target_attention_flash
@@ -66,8 +66,8 @@ class InterestModule(nn.Module):
                 hash_seed=cfg.hash_seed), device=dev)
             self.register_buffer("R", self.engine.R)
         elif cfg.kind == "eta":
-            self.register_buffer("R", simhash.make_hashes(
-                torch.Generator().manual_seed(cfg.hash_seed), cfg.m, cfg.d).to(dev))
+            self.register_buffer("R", make_hash_family(EngineConfig(
+                m=cfg.m, tau=cfg.tau, d=cfg.d, hash_seed=cfg.hash_seed), dev))
         elif cfg.kind == "din_mlp":
             self.din = DinActivationUnit(cfg.d, device=dev, generator=generator)
         elif cfg.kind == "ubr4ctr":

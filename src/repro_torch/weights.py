@@ -84,9 +84,7 @@ def export_params(model: CTRModel, grad: bool = False) -> dict:
         node = interest
         for key in path:
             node = node.setdefault(key, {})
-        # a buffer (R) has no gradient: zeros, as jax.grad gives it
-        node[leaf] = (np.zeros(tuple(t.shape), np.float32) if grad and not t.requires_grad
-                      else arr(t, transpose))
+        node[leaf] = arr(t, transpose)      # R, a buffer, has no .grad: zeros
     head = {}
     for i in range(model.head.n_layers):
         layer = getattr(model.head, f"fc{i}")
