@@ -84,13 +84,44 @@ Phases, each of which raises (exit code != 0) when it fails:
    batch 128, L = 256, 4,096 eval examples) for all eight kinds: AUC,
    us/step and the two derived claims; every kind but sdim_expected must
    train with finite losses.
+9. production path — ``sdim-paper`` FULL (seeded random weights) through
+   the production serving runtime: ``CTRServer.build`` with the tiered
+   store (hot 1,024 users = 64 MiB of fp32 rows, warm 2,048, cold
+   segments under ``build/``, CLOCK), async ingest (a writer thread on its
+   own CUDA stream), admission (concurrency 4, a token bucket) and a
+   tracer, three times: fp32 fused, int8 fused, int8 unfused. Traffic:
+   4,096 users in bursts of 16 requests of 128 candidates (missing users'
+   histories enqueued), an event burst of 32 single events after every
+   fourth burst, then the first 256 users again (warm and cold
+   promotions); the item rows this traffic hashes are screened first.
+   Checks, each failing the phase: each kernel the path called, held
+   against its plain version on copies of the inputs of its first and
+   widest call in the run (``KernelInputs``: history and event folds
+   through bse_encode, the event fold on a clone of the hot tier, fused
+   reads off a committed view's store and scales, unfused reads of
+   fetched wire tables); after ``flush()`` a
+   check burst across the tiers scores bit for bit as a synchronous,
+   untiered server fed the same folds in the same order (the writer's
+   folds are logged and replayed); reads during a fold held on the host
+   and on the writer stream return the previous committed version, and
+   a view held across folds keeps its bits; snapshot -> restore into a
+   new server answers the check burst bit for bit (fp32); every residency
+   pass keeps the batched bound (one hot gather, two hot scatters); the
+   health probe is live and ready; the writer stops cleanly; no request
+   is shed; all four kernels of the path launch. Prints ms/request,
+   ``ctr.request_ms`` p50/p95/p99, the ingest stats, tier sizes, hit rate
+   and moved bytes, the admission summary, the copy-on-write clone's
+   time and ``tracer.report(5)``.
 
-Every launch count is set to 0 just before each of phases 4-8 and read
+Every launch count is set to 0 just before each of phases 4-9 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
-target_attention_flash and its backward kernel; phase 8 the same six).
+target_attention_flash and its backward kernel; phase 8 the same six;
+phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query).
 Launches made only to hold a kernel against its plain version (step 1's
-gradient checks, phase 8's long-branch checks) are not counted. After the
+gradient checks, phase 8's long-branch checks, phase 9's kernel checks)
+or by a server that only serves as a comparison (phase 9's synchronous
+reference and its restored server) are not counted. After the
 counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
@@ -130,6 +161,13 @@ COMPARE_KINDS = ("avg", "sim_hard", "eta", "ubr4ctr", "din_mlp", "sdim-srht", "s
 GRAD_TOL = 1e-4                       # phase 7: kernel vs plain gradients / largest gradient
 WIRE_TOL = 5e-2                       # fused vs unfused: bf16 wire tables
 INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
+# phase 9: hot and warm tier capacities, users (64 KiB a fp32 row: a 64 MiB
+# hot tier, and at least 1,024 users spill to cold), single events per event
+# burst, one event burst after every PROD_EV_EVERY request bursts, early
+# users served again
+PROD_HOT, PROD_WARM, PROD_USERS = 1024, 2048, 4096
+PROD_EV, PROD_EV_EVERY, PROD_REVISIT = 32, 4, 256
+PROD_QUEUE = 4 * PROD_USERS   # ingest queue bound: the first pass drops nothing
 
 
 def card_line() -> str:
@@ -1192,6 +1230,372 @@ def table23_protocol(torch, dev) -> None:
             raise AssertionError(f"table23 {kind}: non-finite loss or gradient at step {first}")
 
 
+def production_traffic(cfg):
+    """Phase 9's traffic: PROD_USERS users (history L = 1024 each, C
+    candidates a request), and for every PROD_EV_EVERY-th burst an event
+    burst of PROD_EV single events on users already served."""
+    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
+
+    dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items, n_cats=cfg.n_cats)
+    h = generate_batch(dcfg, PROD_USERS, 9)
+    rng = np.random.default_rng(9)
+    ci = rng.integers(0, cfg.n_items, (PROD_USERS, C)).astype(np.int32)
+    cc = rng.integers(0, cfg.n_cats, (PROD_USERS, C)).astype(np.int32)
+    ctx = np.zeros((C, cfg.ctx_dim), np.float32)
+    requests = [(f"p{u}", {k: h[k][u:u + 1] for k in ("hist_items", "hist_cats", "hist_mask")},
+                 ci[u], cc[u], ctx) for u in range(PROD_USERS)]
+    events = {}
+    for b in range(PROD_EV_EVERY - 1, PROD_USERS // BURST, PROD_EV_EVERY):
+        users = rng.integers(0, (b + 1) * BURST, PROD_EV)
+        events[b] = ([f"p{u}" for u in users],
+                     rng.integers(0, cfg.n_items, PROD_EV).astype(np.int32),
+                     rng.integers(0, cfg.n_cats, PROD_EV).astype(np.int32))
+    # the event burst folded across a held view: two events a check user
+    k = np.arange(2 * BURST, dtype=np.int32)
+    held_events = (k * 7919 % cfg.n_items, k % cfg.n_cats)
+    return requests, events, held_events, h, ci, cc
+
+
+def screen_production(torch, model, traffic) -> int:
+    """Redraw the item rows that phase 9's traffic hashes (valid history
+    rows, candidates, events) until each clears the hash margin, so that
+    the kernels and their plain versions put every behavior in the same
+    bucket (``kernels.screen.screen_item_rows``). Returns the rows
+    redrawn."""
+    from repro_torch.kernels.screen import screen_item_rows
+
+    _, events, held_events, h, ci, cc = traffic
+    dev = model.item_emb.weight.device
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+    ev_items = np.concatenate([e[1] for e in events.values()] + [held_events[0]])
+    ev_cats = np.concatenate([e[2] for e in events.values()] + [held_events[1]])
+    none = np.zeros(0, np.int32)
+    batches = [{"hist_items": t(h["hist_items"]), "hist_cats": t(h["hist_cats"]),
+                "hist_mask": t(h["hist_mask"]), "cand_item": t(ci), "cand_cat": t(cc)},
+               {"hist_items": t(ev_items[:, None]), "hist_cats": t(ev_cats[:, None]),
+                "hist_mask": t(np.ones((len(ev_items), 1), np.float32)),
+                "cand_item": t(none), "cand_cat": t(none)}]
+    redrawn = screen_item_rows(model, batches, torch.Generator(device=dev).manual_seed(9))
+    del batches
+    torch.cuda.empty_cache()
+    return redrawn
+
+
+class KernelInputs:
+    """An ``SDIMEngine.profiler`` that launches every kernel as the path
+    asks and keeps copies of the inputs of each kernel's first call and of
+    its widest one (most users or events), taken before the launch (the
+    event fold writes its store in place), so that phase 9 can hold its
+    kernels against their plain versions on the path's own tensors."""
+
+    def __init__(self, torch):
+        import threading
+        self.torch, self.lock, self.calls = torch, threading.Lock(), {}
+
+    def _copy(self, x):
+        return x.clone() if self.torch.is_tensor(x) else x
+
+    def profile(self, kernel, fn, args, kwargs):
+        rows = (args[1] if kernel in ("serve_fused", "update") else args[0]).shape[0]
+        with self.lock:
+            seen = self.calls.setdefault(kernel, {})
+            keep = [k for k in ("first", "widest") if k not in seen
+                    or (k == "widest" and rows > seen[k][0])]
+            if keep:
+                snap = (rows, fn, tuple(map(self._copy, args)),
+                        {k: self._copy(v) for k, v in kwargs.items()})
+                for k in keep:
+                    seen[k] = snap
+        return fn(*args, **kwargs)
+
+
+def record_folds(ingestor) -> list:
+    """Wrap ``ingestor``'s two fold entry points so that each outermost call
+    (the writer loop's, or an inline forced drain's) is logged with copies
+    of its arguments, in fold order: what a synchronous server must be fed
+    to reach the same state."""
+    log, depth = [], [0]
+    for name in ("ingest_histories", "ingest_events"):
+        def wrapped(*args, _inner=getattr(ingestor, name), _name=name):
+            if not depth[0]:
+                log.append((_name, tuple(list(a) if isinstance(a, list) else
+                                         None if a is None else np.array(a) for a in args)))
+            depth[0] += 1
+            try:
+                return _inner(*args)
+            finally:
+                depth[0] -= 1
+        setattr(ingestor, name, wrapped)
+    return log
+
+
+def bound_tier_moves(store) -> dict:
+    """Make every residency pass of the tiered ``store`` check the batched
+    bound (at most one hot gather and two hot scatters); returns the counts
+    of passes and of passes that moved rows."""
+    counts = {"passes": 0, "moved": 0, "max_gathers": 0, "max_scatters": 0}
+    inner = store._ensure_resident
+
+    def checked(users, create):
+        g, s = store.stats.n_hot_gathers, store.stats.n_hot_scatters
+        inner(users, create)
+        dg, ds = store.stats.n_hot_gathers - g, store.stats.n_hot_scatters - s
+        counts["passes"] += 1
+        counts["moved"] += bool(dg or ds)
+        counts["max_gathers"] = max(counts["max_gathers"], dg)
+        counts["max_scatters"] = max(counts["max_scatters"], ds)
+        if dg > 1 or ds > 2:
+            raise AssertionError(f"a burst of {len(set(users))} users moved tiers in "
+                                 f"{dg} hot gathers and {ds} hot scatters (bound 1 and 2)")
+    store._ensure_resident = checked
+    return counts
+
+
+def same_scores(name, got, want) -> None:
+    """Two lists of per-request scores, bit for bit (None for a shed one)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None or not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            diff = None if a is None or b is None else float(np.abs(a - b).max())
+            raise AssertionError(f"{name}: request {i} differs (max abs diff {diff})")
+
+
+def production_kernel_checks(torch, name, captured, expected) -> None:
+    """Phase 9's kernels against their plain versions on the inputs the
+    path itself gave them (``KernelInputs``): the history and event folds'
+    behaviors through ``bse_encode`` (ATOMIC), the event fold on a clone of
+    the hot tier (FP32), the fused reads off a committed view's store and
+    scales and the unfused reads of fetched wire tables (FP32). Launches
+    made here are not counted."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve_ref
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query_ref
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update_ref
+
+    refs = {"encode": (bse_encode_ref, ATOMIC), "update": (sdim_update_ref, FP32),
+            "serve_fused": (sdim_fused_serve_ref, FP32), "query": (sdim_query_ref, FP32)}
+    if set(captured) != set(expected):
+        raise AssertionError(f"{name}: the path called {sorted(captured)}, expected "
+                             f"{sorted(expected)}")
+    torch.cuda.synchronize()
+    report = []
+    with uncounted():
+        for kernel, seen in sorted(captured.items()):
+            plain, tol = refs[kernel]
+            for rows, fn, args, kwargs in {id(v): v for v in seen.values()}.values():
+                if kernel == "update":
+                    out, ref = args[0].clone(), args[0].clone()
+                    fn(out, *args[1:], **kwargs)
+                    plain(ref, *args[1:], **kwargs)
+                else:
+                    out, ref = fn(*args, **kwargs), plain(*args, **kwargs)
+                shapes = "x".join(str(tuple(a.shape)) + str(a.dtype)[6:]
+                                  for a in args[:2] if torch.is_tensor(a))
+                err = check_close(f"{name} {kernel} {shapes}", out, ref, **tol)
+                report.append(f"{kernel} {shapes}: {err:.3g}")
+    print(f"production {name}: kernels vs plain on the path's own inputs, max abs err: "
+          + "; ".join(report))
+
+
+def production_run(torch, dev, model, traffic, name, table_dtype, fused, tmp, full_checks):
+    """One tiered, async, admission-controlled, traced server of phase 9
+    through the traffic, its checks, and (``full_checks``) the in-flight
+    read and snapshot -> restore checks. Returns ms/request."""
+    import threading
+    from repro_torch.serve.bse_server import BSEServer
+    from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.serve.health import health_snapshot
+    from repro_torch.serve.tracing import Tracer
+
+    requests, events, held_events = traffic[:3]
+    tracer = Tracer()
+    srv = CTRServer.build(model, None, "decoupled", fused=fused, table_dtype=table_dtype,
+                          hot_capacity=PROD_HOT, warm_capacity=PROD_WARM,
+                          store_dir=os.path.join(tmp, name), policy="clock",
+                          async_ingest=True, queue_depth=PROD_QUEUE, max_concurrency=4,
+                          rate_limit=1e6, tracer=tracer, device=dev)
+    bse, rt, store = srv.bse, srv.bse.async_ingest, srv.bse.store
+    log = record_folds(bse.ingestor)
+    moves = bound_tier_moves(store)
+    inputs = KernelInputs(torch)
+    model.engine.profiler = inputs
+    rt.start()
+    t0 = time.perf_counter()
+    for b, i in enumerate(range(0, PROD_USERS, BURST)):
+        srv.handle_requests(requests[i:i + BURST])
+        if b in events:
+            bse.ingest_events(*events[b])
+    for i in range(0, PROD_REVISIT, BURST):            # early users again: warm and cold
+        srv.handle_requests(requests[i:i + BURST])
+    rt.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_served = srv.stats.n_requests
+    # check bursts: users from the cold, warm and hot ranges; a first read
+    # misses and touches them, the writer promotes them, the second hits
+    pick = np.unique(np.concatenate([np.linspace(0, PROD_USERS - 1, BURST - 4).astype(int),
+                                     [1, 2, PROD_REVISIT + 1, PROD_USERS // 2 + 1]]))
+    check = [requests[u] for u in pick]
+    tiers_before = sorted({str(store.tier(r[0])) for r in check})
+    for _ in range(4):        # a promotion may demote another user of the burst
+        misses = bse.stats.n_misses
+        before = srv.handle_requests(check)
+        rt.flush()
+        if bse.stats.n_misses == misses:
+            break
+    else:
+        raise AssertionError(f"{name}: the check burst still missed users after four flushes")
+    for s in before:
+        if s is None or not np.isfinite(s).all():
+            raise AssertionError(f"{name}: shed or non-finite scores in the check burst")
+
+    view = rt.committed
+    held = (view.data.clone(), None if view.scales is None else view.scales.clone())
+    ev_users = [r[0] for r in check] * 2
+    ev = (ev_users, held_events[0][:len(ev_users)], held_events[1][:len(ev_users)])
+    if full_checks:
+        # a fold held on the host (a gate inside the embedding) and on the
+        # device (a sleep ahead of it on the writer stream): reads meanwhile
+        # return the previous committed version
+        gate, stall, entered = threading.Event(), threading.Event(), threading.Event()
+        embed = bse.ingestor.embed_fn
+
+        def gated(params, items, cats):
+            if stall.is_set():
+                torch.cuda._sleep(100_000_000)
+                entered.set()
+                if not gate.wait(60):
+                    raise RuntimeError("the in-flight check never opened its gate")
+            return embed(params, items, cats)
+        bse.ingestor.embed_fn = gated
+        stall.set()
+        bse.ingest_events(*ev)
+        if not entered.wait(60):
+            raise AssertionError(f"{name}: the writer never started the gated fold")
+        during = srv.handle_requests(check)
+        if rt.committed is not view:
+            raise AssertionError(f"{name}: a fold committed while its gate was shut")
+        same_scores(f"{name}: read during an in-flight fold", during, before)
+        gate.set()
+        while rt.committed is view and rt.error is None:
+            time.sleep(0.001)
+        rows_now = view.rows(view.lookup([r[0] for r in check])[0])   # fold still on the device
+        stall.clear()
+        bse.ingestor.embed_fn = embed
+        rt.flush()
+        rows_then = view.rows(view.lookup([r[0] for r in check])[0])
+        if not torch.equal(rows_now, rows_then):
+            raise AssertionError(f"{name}: a held view's rows changed under a fold")
+        print(f"production {name}: reads during an in-flight fold returned the previous "
+              f"version (v{view.version}) bit for bit")
+    else:
+        bse.ingest_events(*ev)
+        rt.flush()
+    if not (torch.equal(view.data.view(torch.uint8), held[0].view(torch.uint8))
+            and (held[1] is None or torch.equal(view.scales, held[1]))):
+        raise AssertionError(f"{name}: the view held across folds changed")
+    after = srv.handle_requests(check)
+    if all(np.array_equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError(f"{name}: the event burst changed no score")
+    health = health_snapshot(srv)
+    if not (health["live"] and health["ready"]):
+        raise AssertionError(f"{name}: health {json.dumps(health, default=str)}")
+    if rt.stop() is not True or rt.error is not None or rt._thread is not None:
+        raise AssertionError(f"{name}: the writer thread did not stop cleanly")
+    if moves["max_gathers"] > 1 or moves["max_scatters"] > 2 or not moves["moved"]:
+        raise AssertionError(f"{name}: tier movement {moves}")
+    model.engine.profiler = None
+    production_kernel_checks(torch, name, inputs.calls,
+                             ("encode", "update", "serve_fused") if table_dtype == "fp32"
+                             else ("encode", "serve_fused" if fused else "query"))
+    del inputs
+
+    # a synchronous, untiered server fed the same folds answers the same
+    # bits (a comparison, not the path: its launches are not counted)
+    with uncounted():
+        ref = CTRServer.build(model, None, "decoupled", fused=fused, table_dtype=table_dtype,
+                              capacity=PROD_USERS, device=dev)
+        for fold, args in log:
+            getattr(ref.bse.ingestor, fold)(*args)
+        same_scores(f"{name} vs a synchronous untiered server", after,
+                    ref.handle_requests(check))
+        del ref
+        if full_checks:
+            snap = bse.snapshot(os.path.join(tmp, f"{name}-snapshot"))
+            back = BSEServer.restore(snap, bse.ingestor.embed_fn, model, model.engine,
+                                     device=dev)
+            restored = CTRServer(model, back, mode="decoupled", fused=fused)
+            same_scores(f"{name} snapshot -> restore", restored.handle_requests(check), after)
+            print(f"production {name}: snapshot -> restore answered the check burst bit "
+                  f"for bit")
+
+    ts, ist, adm = store.stats, rt.stats, srv.admission.stats
+    req = srv.metrics.snapshot()["histograms"]["ctr.request_ms"]
+    spans = tracer.summary()["by_name"]
+    move_ms = {k: spans[k]["total_ms"] / spans[k]["count"]
+               for k in ("tier.promote", "tier.demote", "tier.cold_read") if k in spans}
+    print(f"production {name}: {n_served} requests in {wall:.2f} s "
+          f"({1e3 * srv.stats.total_time_s / max(n_served, 1):.3f} ms/request host), "
+          f"ctr.request_ms p50/p95/p99 {req['p50']:.3f}/{req['p95']:.3f}/{req['p99']:.3f} "
+          f"(n={req['count']}, per burst of {BURST}); check burst before the flush: {tiers_before}")
+    print(f"production {name}: ingest {ist.n_enqueued} enqueued, {ist.n_dropped} dropped, "
+          f"{ist.n_folds} folds (max batch {ist.max_drain_batch}), "
+          f"{ist.n_histories_folded} histories, {ist.n_events_folded} events, "
+          f"{ist.n_touches_folded} touches, {ist.n_forced_drains} forced drains, "
+          f"staleness p95 {ist.staleness_p95():.1f} max {ist.staleness_max()}, "
+          f"fold {1e3 * ist.fold_time_s / max(ist.n_folds, 1):.3f} ms each (host)")
+    print(f"production {name}: tiers {store.tier_sizes()} (hot cap {store.hot_capacity}, "
+          f"{store.cold.n_segments} cold segments), hit rate {ts.hit_rate:.3f}, "
+          f"promote {ts.promote_bytes} B, demote {ts.demote_bytes} B, spill {ts.spill_bytes} B, "
+          f"{ts.warm_promotions} warm + {ts.cold_promotions} cold promotions, "
+          f"{ts.demotions} demotions; residency passes {json.dumps(moves)}; "
+          f"ms per move (host, retained traces) {json.dumps(move_ms)}")
+    if adm.n_shed:
+        raise AssertionError(f"{name}: admission shed {adm.n_shed} requests")
+    print(f"production {name}: admission {adm.n_admitted} admitted, {adm.n_shed} shed of "
+          f"{adm.n_offered} (rate 1e6/s, concurrency 4); health live={health['live']} "
+          f"ready={health['ready']}; {len(log)} folds replayed into the synchronous server")
+    if full_checks:
+        print(tracer.report(5))
+        timed = store.hot.data.clone
+        print(f"production {name}: copy-on-write clone of the "
+              f"{store.hot.data.numel() * store.hot.data.element_size() / 2**20:.0f} MiB hot "
+              f"tier: {time_ms(timed, iters=10, warmup=2):.4f} ms (event-timed)")
+    return 1e3 * srv.stats.total_time_s / max(n_served, 1)
+
+
+def production_phase(torch, dev, wrappers):
+    """Phase 9: sdim-paper FULL through the production runtime (tiered
+    store, async ingest, admission, metrics, tracing): fp32 fused, int8
+    fused and int8 unfused. Returns the phase's launch counts."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import sdim_paper
+    from repro_torch.models.ctr import CTRModel
+
+    model = CTRModel(sdim_paper.FULL, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    traffic = production_traffic(model.cfg)
+    t0 = time.perf_counter()
+    redrawn = screen_production(torch, model, traffic)
+    print(f"production: {redrawn} item rows redrawn to clear the hash margin "
+          f"({time.perf_counter() - t0:.1f} s)")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        reset(wrappers)
+        ms = {}
+        for name, dtype, fused in (("fp32-fused", "fp32", True), ("int8-fused", "int8", True),
+                                   ("int8-unfused", "int8", False)):
+            ms[name] = production_run(torch, dev, model, traffic, name, dtype, fused, tmp,
+                                      full_checks=name == "fp32-fused")
+        launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
+                                            "sdim_query"), "production")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"production ms/request (host, all bursts): {json.dumps(ms)}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1240,6 +1644,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(torch, dev, wrappers + backward)
     by_path["comparison"] = comparison_phase(torch, dev, wrappers + backward)
+    torch.cuda.empty_cache()
+    by_path["production"] = production_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

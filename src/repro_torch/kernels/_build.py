@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -52,6 +53,7 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_load_lock = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -128,11 +130,20 @@ def bind(path: Path) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process."""
+    """The kernel library, built on first use and loaded once per process.
+    A lock serializes the first call, so a writer thread and a request
+    thread launching at once start one build, not two."""
     global _lib
     if _lib is None:
-        _lib = bind(build())
+        with _load_lock:
+            if _lib is None:
+                _lib = bind(build())
     return _lib
+
+
+def loaded() -> bool:
+    """Whether this process has built or loaded the kernel library yet."""
+    return _lib is not None
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -2,20 +2,29 @@
 
     python -m repro_torch.launch.serve --arch sdim-paper --requests N \\
         --candidates C --micro-batch B [--fused-serve] \\
-        [--table-dtype fp32|bf16|int8|fp8] [--device cuda|cpu]
+        [--table-dtype fp32|bf16|int8|fp8] [--hot-capacity K \\
+        [--warm-capacity W --store-dir DIR] [--policy clock|lru] \\
+        [--cold-deadline-ms T]] [--async-ingest [--queue-depth Q] \\
+        [--max-staleness S]] [--rate-limit R [--rate-burst B]] \\
+        [--max-concurrency K] [--trace [--trace-dir DIR] \\
+        [--trace-slow-ms T]] [--device cuda|cpu]
 
 Mirrors the recsys branch of ``repro/launch/serve.py``: the ``SMOKE``
 config, random weights from a seeded ``torch.Generator``, a BSE + CTR
 server pair in the decoupled deployment (an ``sdim`` model) or a CTR server
 that scores raw histories inline (any other interest kind), and a loop over
-synthetic requests (served one by one, or in micro-batches). Runs on the card unless
-``--device cpu`` is given; without CUDA and without that flag it fails.
-Tiers, sharding, async ingest, admission, tracing and profiling are not
-ported yet.
+synthetic requests (served one by one, or in micro-batches). The tiered
+store, async ingest, admission control and tracing are ``CTRServer.build``'s
+(``serve/``); at the end it prints the async-ingest stats, the tier sizes,
+the admission summary, ``health_snapshot``, the metrics summary and the
+trace report. Runs on the card unless ``--device cpu`` is given; without
+CUDA and without that flag it fails. Sharding (``--shards``/``--mesh``) and
+``--profile`` are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -24,7 +33,7 @@ from repro_torch.configs import registry
 from repro_torch.serve.quant import TABLE_DTYPES
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
     p.add_argument("--requests", type=int, default=4)
@@ -38,27 +47,122 @@ def main(argv=None):
     p.add_argument("--table-dtype", default="fp32", choices=sorted(TABLE_DTYPES),
                    help="BSE table STORAGE dtype (int8/fp8 quantize on write "
                         "with per-row scales)")
+    p.add_argument("--hot-capacity", type=int, default=None,
+                   help="tier the BSE store: at most this many users stay "
+                        "device-resident; the rest demote to a host pool "
+                        "(and to --store-dir segments)")
+    p.add_argument("--store-dir", default=None,
+                   help="cold-tier directory for spilled .npz segments "
+                        "(enables the disk tier)")
+    p.add_argument("--policy", default=None, choices=("clock", "lru"),
+                   help="hot-tier eviction policy (default clock)")
+    p.add_argument("--warm-capacity", type=int, default=None,
+                   help="bound the host warm pool; overflow spills to "
+                        "--store-dir")
+    p.add_argument("--async-ingest", action="store_true",
+                   help="run BSE ingestion off the request path: submits "
+                        "enqueue onto a bounded queue drained by a writer "
+                        "thread; reads serve the last committed version")
+    p.add_argument("--queue-depth", type=int, default=1024,
+                   help="async ingest queue bound; submits past it are "
+                        "dropped and counted, never blocked on")
+    p.add_argument("--max-staleness", type=int, default=64,
+                   help="max un-folded entries per user before a submit "
+                        "folds inline")
+    p.add_argument("--rate-limit", type=float, default=None,
+                   help="token-bucket admission: sustained requests/sec; "
+                        "over-budget requests shed with an explicit None "
+                        "score (counted)")
+    p.add_argument("--rate-burst", type=float, default=None,
+                   help="token-bucket burst headroom (defaults to "
+                        "--rate-limit); needs --rate-limit")
+    p.add_argument("--max-concurrency", type=int, default=None,
+                   help="bound concurrent serving bursts; a burst arriving "
+                        "at the bound sheds whole (explicit None scores)")
+    p.add_argument("--cold-deadline-ms", type=float, default=None,
+                   help="cold-tier circuit breaker deadline: cold reads "
+                        "slower than this open the circuit and later cold "
+                        "reads degrade to counted misses (needs the tiered "
+                        "store)")
+    p.add_argument("--trace", action="store_true",
+                   help="per-request span tracing: prints the slowest-5 "
+                        "trace breakdown at the end of the run")
+    p.add_argument("--trace-dir", default=None,
+                   help="write Chrome trace-event JSON to this directory as "
+                        "trace.json (implies --trace)")
+    p.add_argument("--trace-slow-ms", type=float, default=None,
+                   help="always retain traces with root latency >= this "
+                        "(ms) (implies --trace)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = p.parse_args(argv)
+    return p
+
+
+def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
+    """The reference's argument checks (``repro/launch/serve.py``)."""
     if args.fused_serve and args.micro_batch < 2:
         p.error("--fused-serve rides the micro-batched path; give --micro-batch >= 2")
+    if mode != "decoupled":
+        for on, flags in ((args.table_dtype != "fp32" or args.fused_serve,
+                           "--table-dtype/--fused-serve configure"),
+                          (tiered, "--hot-capacity/--store-dir/--policy tier"),
+                          (args.async_ingest, "--async-ingest decouples the write path of")):
+            if on:
+                p.error(f"{flags} the BSE table store, which only the decoupled (sdim) "
+                        f"deployment has; arch {args.arch!r} serves {mode!r}")
+    for name, v, lo in (("--queue-depth", args.queue_depth, 1),
+                        ("--max-staleness", args.max_staleness, 1),
+                        ("--max-concurrency", args.max_concurrency, 1),
+                        ("--hot-capacity", args.hot_capacity, 1)):
+        if v is not None and v < lo:
+            p.error(f"{name} must be >= {lo}, got {v}")
+    for name, v in (("--rate-limit", args.rate_limit), ("--rate-burst", args.rate_burst),
+                    ("--cold-deadline-ms", args.cold_deadline_ms)):
+        if v is not None and v <= 0:
+            p.error(f"{name} must be > 0, got {v}")
+    if args.rate_burst is not None and args.rate_limit is None:
+        p.error("--rate-burst is token-bucket headroom over --rate-limit; "
+                "give --rate-limit too")
+    if args.cold_deadline_ms is not None and not tiered:
+        p.error("--cold-deadline-ms arms the cold-tier circuit breaker, which needs "
+                "the tiered store (give --hot-capacity/--store-dir/--policy/"
+                "--warm-capacity)")
+    if args.trace_slow_ms is not None and args.trace_slow_ms < 0:
+        p.error(f"--trace-slow-ms must be >= 0, got {args.trace_slow_ms}")
+
+
+def main(argv=None):
+    p = _parser()
+    args = p.parse_args(argv)
 
     from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
     from repro_torch.device import resolve_device
     from repro_torch.models.ctr import CTRModel
     from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.serve.health import health_snapshot
+    from repro_torch.serve.tiered_store import is_tiered
+    from repro_torch.serve.tracing import Tracer
 
-    device = resolve_device(args.device)
     cfg = registry.get(args.arch).SMOKE
+    mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
+    tiered = is_tiered(args.hot_capacity, args.store_dir, args.policy, args.warm_capacity)
+    tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
+    _check(p, args, mode, tiered)
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     model = CTRModel(cfg, device=device, generator=gen)
-    mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
-    if mode != "decoupled" and (args.table_dtype != "fp32" or args.fused_serve):
-        p.error(f"--table-dtype/--fused-serve configure the BSE table store, which "
-                f"only the decoupled (sdim) deployment has; arch {args.arch!r} "
-                f"serves {mode!r}")
-    server = CTRServer.build(model, None, mode, table_dtype=args.table_dtype,
-                             fused=args.fused_serve, device=device)
+    tracer = Tracer(slow_ms=args.trace_slow_ms) if tracing else None
+    server = CTRServer.build(
+        model, None, mode, hot_capacity=args.hot_capacity, store_dir=args.store_dir,
+        policy=args.policy, warm_capacity=args.warm_capacity,
+        table_dtype=args.table_dtype, fused=args.fused_serve,
+        async_ingest=args.async_ingest, queue_depth=args.queue_depth,
+        max_staleness=args.max_staleness, max_concurrency=args.max_concurrency,
+        rate_limit=args.rate_limit, rate_burst=args.rate_burst,
+        cold_deadline_s=None if args.cold_deadline_ms is None else args.cold_deadline_ms / 1e3,
+        tracer=tracer, device=device)
+    bse = server.bse
+    if args.async_ingest:
+        bse.async_ingest.start()
     print(f"SDIM engine on {device}"
           f"{' (' + torch.cuda.get_device_name(device) + ')' if device.type == 'cuda' else ''}")
     dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items,
@@ -67,8 +171,11 @@ def main(argv=None):
     pending = []  # micro-batch buffer of (req_id, request tuple)
 
     def report(r, scores):
-        print(f"req {r}: top candidate {int(np.argmax(scores))} "
-              f"(score {float(np.max(scores)):+.3f})")
+        if scores is None:          # shed by admission control, counted
+            print(f"req {r}: SHED (admission control)")
+        else:
+            print(f"req {r}: top candidate {int(np.argmax(scores))} "
+                  f"(score {float(np.max(scores)):+.3f})")
 
     def flush():
         for (r, _), scores in zip(pending, server.handle_requests([q for _, q in pending])):
@@ -89,10 +196,49 @@ def main(argv=None):
         report(r, server.handle_request(*req))
     if pending:
         flush()
-    table = ("" if server.bse is None else
-             f"; table {server.bse.table_bytes()} B ({args.table_dtype} storage)")
-    print(f"{server.stats.ms_per_request:.1f} ms/request"
-          f"{' (fused serve)' if args.fused_serve else ''} ({mode}){table}")
+    if bse is not None and bse.async_ingest is not None:
+        bse.async_ingest.stop(flush=True)          # quiesce before reporting
+        ist = bse.async_ingest.stats
+        print(f"async ingest: {ist.n_enqueued} enqueued, "
+              f"{ist.n_events_folded + ist.n_histories_folded} folded "
+              f"in {ist.n_folds} drains (max batch {ist.max_drain_batch}, "
+              f"max queue {ist.max_queue_depth}), {ist.n_dropped} dropped, "
+              f"staleness p95 {ist.staleness_p95():.1f}")
+    if bse is not None:
+        print(f"{server.stats.ms_per_request:.1f} ms/request"
+              f"{' (fused serve)' if args.fused_serve else ''} ({mode}); "
+              f"table {bse.table_bytes()} B ({args.table_dtype} storage)")
+        if tiered:
+            ts = bse.store.stats
+            print(f"tiered store {bse.store.tier_sizes()} "
+                  f"(hot cap {bse.store.hot_capacity}, policy {bse.store.policy.name}): "
+                  f"hit-rate {ts.hit_rate:.2f}, promote {ts.promote_bytes} B, "
+                  f"demote {ts.demote_bytes} B"
+                  + (f", degraded {ts.n_degraded}" if ts.n_degraded else ""))
+    else:
+        print(f"{server.stats.ms_per_request:.1f} ms/request ({mode})")
+    if server.admission is not None:
+        ast = server.admission.stats
+        print(f"admission: {ast.n_admitted} admitted, {ast.n_shed} shed of "
+              f"{ast.n_offered} offered (rate {args.rate_limit or 'off'}/s, "
+              f"concurrency {args.max_concurrency or 'unbounded'})")
+    h = health_snapshot(server)
+    print(f"health: live={h['live']} ready={h['ready']} ["
+          + " ".join(f"{name}:{'ok' if c['ok'] else 'FAIL'}"
+                     for name, c in sorted(h["checks"].items())) + "]")
+    snap = server.metrics.snapshot()
+    req = snap["histograms"].get("ctr.request_ms")
+    if req and req["count"]:
+        print(f"metrics: ctr.request_ms p50/p95/p99 "
+              f"{req['p50']:.2f}/{req['p95']:.2f}/{req['p99']:.2f} ms (n={req['count']})")
+    if snap["counters"]:
+        print("counters: " + ", ".join(f"{k}={v}" for k, v in sorted(snap["counters"].items())))
+    if tracer is not None:
+        print(tracer.report(5))
+        if args.trace_dir is not None:
+            os.makedirs(args.trace_dir, exist_ok=True)
+            out = tracer.save_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
+            print(f"chrome trace written to {out} (load in Perfetto / chrome://tracing)")
 
 
 if __name__ == "__main__":

@@ -751,3 +751,123 @@ def test_table23_protocol_on_cuda_matches_cpu(kind, dev):
                                torch.from_numpy(runs[0]["losses"]), **FP32)
     scores = [common.evaluate(m, dcfg, common.EVAL_BATCH)[1] for m in (cpu, gpu)]
     torch.testing.assert_close(torch.from_numpy(scores[1]), torch.from_numpy(scores[0]), **FP32)
+
+
+# ---------------------------------------------------------------------------
+# the production runtime on the card: async ingest, copy on write, streams
+# ---------------------------------------------------------------------------
+RT_D, RT_M, RT_TAU, RT_ITEMS = 32, 12, 2, 64
+
+
+def _runtime_parts(dev, seed=0):
+    """(engine on ``dev``, embed_fn on ``dev``) over one margin-screened
+    behavior table of RT_ITEMS rows (cats ignored)."""
+    from repro_torch.core.engine import EngineConfig, SDIMEngine
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((RT_M, RT_D)).astype(np.float32)
+    table = torch.from_numpy(screened_normal(rng, (RT_ITEMS, RT_D), R)).to(dev)
+    engine = SDIMEngine(EngineConfig(m=RT_M, tau=RT_TAU, d=RT_D), R=torch.from_numpy(R).to(dev),
+                        device=dev)
+
+    def embed(params, items, cats):
+        return table[torch.as_tensor(np.asarray(items) % RT_ITEMS, device=dev)]
+    return engine, embed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["fp32", "int8"])
+def test_read_during_inflight_fold_returns_previous_version(table_dtype, dev):
+    """A fold held up on the writer's stream (a device sleep ahead of it)
+    and on the host (a gate inside the embedding): reads of the held view
+    and fetches through the server return the previous committed bits
+    meanwhile; after the commit the new version holds the fold."""
+    import threading
+    from repro_torch.serve.bse_server import BSEServer
+
+    engine, embed = _runtime_parts(dev)
+    gate, stall = threading.Event(), threading.Event()
+
+    def slow_embed(params, items, cats):
+        if stall.is_set():
+            torch.cuda._sleep(200_000_000)        # ~0.1 s of the writer stream
+            assert gate.wait(30)
+        return embed(params, items, cats)
+
+    srv = BSEServer(slow_embed, None, engine, wire_dtype=torch.float32,
+                    table_dtype=table_dtype, async_ingest=True, device=dev)
+    rt = srv.async_ingest
+    users = [f"u{i}" for i in range(8)]
+    srv.ingest_histories(users, np.arange(8 * 16).reshape(8, 16) % RT_ITEMS, np.zeros((8, 16)))
+    rt.flush()
+    before = srv.fetch_many(users).clone()
+    view = rt.committed
+    stall.set()
+    srv.ingest_events(users * 4, np.arange(32) % RT_ITEMS, np.zeros(32))
+    rt.start()                                    # one drain takes all 32
+    while rt._q:                                  # until the writer holds them
+        threading.Event().wait(0.001)
+    during = srv.fetch_many(users)
+    assert rt.committed is view
+    assert torch.equal(during, before)
+    gate.set()
+    while rt.committed is view:                   # host side of the fold done
+        threading.Event().wait(0.001)
+    held = view.rows(view.lookup(users)[0])       # the device fold may still run
+    assert torch.equal(held, before)
+    assert rt.stop() is True and rt.error is None
+    after = srv.fetch_many(users)
+    assert not torch.equal(after, before)
+    stall.clear()
+    sync = BSEServer(embed, None, engine, wire_dtype=torch.float32, table_dtype=table_dtype,
+                     device=dev)
+    sync.ingest_histories(users, np.arange(8 * 16).reshape(8, 16) % RT_ITEMS, np.zeros((8, 16)))
+    sync.ingest_events(users * 4, np.arange(32) % RT_ITEMS, np.zeros(32))
+    assert torch.equal(after, sync.fetch_many(users))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["fp32", "bf16", "int8", "fp8"])
+def test_tiered_store_on_card_matches_cpu(table_dtype, dev, tmp_path):
+    """One sequence through a tiered store (hot 4, warm 2, cold) on the card
+    and on the CPU: the same tiers, TierStats and misses; rows within
+    bse_encode's tolerance (fp32) or one storage step; a snapshot taken on
+    the card restores on the CPU bit for bit."""
+    from repro_torch.serve.bse_server import BSEServer
+
+    servers = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        engine, embed = _runtime_parts(d)
+        servers[name] = BSEServer(embed, None, engine, wire_dtype=torch.float32,
+                                  table_dtype=table_dtype, hot_capacity=4, warm_capacity=2,
+                                  store_dir=str(tmp_path / name), device=d)
+    rng = np.random.default_rng(1)
+    users = [f"u{i}" for i in range(10)]
+    hist = rng.integers(0, RT_ITEMS, (10, 24))
+    ev_users = [users[int(i)] for i in rng.integers(0, 10, 12)]
+    ev = rng.integers(0, RT_ITEMS, (12, 3))
+    outs = {}
+    for name, srv in servers.items():
+        srv.ingest_histories(users, hist, np.zeros_like(hist))
+        srv.ingest_events(ev_users, ev, np.zeros_like(ev))
+        outs[name] = [srv.fetch_many(users[:4]).cpu(), srv.fetch_many(users[4:8]).cpu()]
+        srv.evict("u3")
+        outs[name].append(srv.fetch_many(users).cpu())
+    a, b = servers["cuda"].store, servers["cpu"].store
+    assert {u: a.tier(u) for u in users} == {u: b.tier(u) for u in users}
+    assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
+    tol = {"fp32": ATOMIC, "bf16": dict(atol=5e-2, rtol=2e-2)}.get(table_dtype)
+    for x, y in zip(outs["cuda"], outs["cpu"]):
+        if tol is None:                            # int8 / fp8: one storage step
+            step = (1 / 127 if table_dtype == "int8" else 32 / 448) * 1.01
+            assert torch.all((x - y).abs() <= step * y.abs().amax(-1, keepdim=True) + 1e-6)
+        else:
+            torch.testing.assert_close(x, y, **tol)
+    snap = servers["cuda"].snapshot(str(tmp_path / "snap"))
+    engine, embed = _runtime_parts(torch.device("cpu"))
+    back = BSEServer.restore(snap, embed, None, engine, device="cpu",
+                             store_dir=str(tmp_path / "restored"))
+    for u in users:
+        x, y = a.row(u), back.store.row(u)
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8)), u
