@@ -33,7 +33,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    same bits on two launches and are timed at C=1. target_attention_flash
    and its backward are also held and timed at the retrieval kinds' folded
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
-   retrieved; some with fewer valid rows, some with none).
+   retrieved; some with fewer valid rows, some with none). Then the seven
+   kernels phase 10 runs at dien's behavior width d = 36 (bse_encode and
+   its backward, sdim_update, sdim_fused_serve in four store dtypes,
+   sdim_query and its backward, bse_serve) at the same main-path shapes,
+   with bf16 rows of 72 bytes (an odd L, odd E) and int8 / fp8 rows of 36
+   bytes: against their plain versions, the same bits on two launches,
+   timed (the ``d36`` entry of each kernel's JSON).
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -113,20 +119,45 @@ Phases, each of which raises (exit code != 0) when it fails:
    and moved bytes, the admission summary, the copy-on-write clone's
    time and ``tracer.report(5)``.
 
-Every launch count is set to 0 just before each of phases 4-9 and read
+10. archs path — wide_deep, bst, dien and bert4rec at their FULL configs
+   (seeded random weights from the port's init), one after another, the
+   card freed between them; the item rows each burst, its events and
+   step 1 hash are screened first. bst, dien and bert4rec serve a burst
+   of 16 requests of 128 candidates through ``CTRServer`` decoupled
+   unfused (bf16 wire), fused off an fp32 and an int8 store, and inline;
+   32 single events fold between the burst and its repeat. wide_deep
+   scores through ``score_candidates_many(..., sparse_ids=...,
+   bucket_tables=...)`` on the bf16 wire and inline. Each arch then takes
+   3 Adagrad steps at batch 32. Checks, each failing the phase: each kernel
+   a server called, held against its plain version on copies of its own
+   inputs (phase 9's ``KernelInputs`` seam); the burst's long branch and a
+   batch's logits through the kernels against the plain versions;
+   inline against decoupled on an fp32 wire (max |d score| <= 1e-4);
+   fused against unfused (the wire tolerance); the event fold moves the
+   scores; step 1's gradients (GRAD_TOL); finite losses; every kernel of
+   the arch launched (bse_encode, sdim_query, bse_serve and both backward
+   kernels; sdim_update and sdim_fused_serve for the CTRServer archs).
+   Prints ms/request (second burst) and ms/step per arch, one profiled
+   fused burst of each CTRServer arch, one profiled training step of each
+   arch (after the launch counts were read) and peak training memory.
+
+Every launch count is set to 0 just before each of phases 4-10 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
-phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query).
+phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
+10 all seven SDIM kernels).
 Launches made only to hold a kernel against its plain version (step 1's
-gradient checks, phase 8's long-branch checks, phase 9's kernel checks)
-or by a server that only serves as a comparison (phase 9's synchronous
-reference and its restored server) are not counted. After the
+gradient checks, phase 8's and 10's long-branch checks, phase 9's and
+10's kernel checks) or by a server that only serves as a comparison
+(phase 9's synchronous reference and its restored server, phase 10's
+fp32-wire server) are not counted. After the
 counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
-path; ``launches_by_path``: every phase), then as the last line
+path; ``launches_by_path``: every phase, phase 10 as ``archs``), then as
+the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -168,6 +199,13 @@ INLINE_TOL = 1e-4                     # inline vs decoupled over an fp32 wire
 PROD_HOT, PROD_WARM, PROD_USERS = 1024, 2048, 4096
 PROD_EV, PROD_EV_EVERY, PROD_REVISIT = 32, 4, 256
 PROD_QUEUE = 4 * PROD_USERS   # ingest queue bound: the first pass drops nothing
+# phase 10: the four other CTR archs at FULL width, each on its own card-
+# resident model; ARCH_EV single events folded between two bursts, ARCH_STEPS
+# Adagrad steps. Phase 3 also times the seven kernels these archs widen at
+# dien's behavior width D36 = 2 * 18.
+ARCHS = ("wide_deep", "bst", "dien", "bert4rec")
+ARCH_EV, ARCH_STEPS = 32, 3
+D36 = 36
 
 
 def card_line() -> str:
@@ -630,6 +668,190 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
                  bound(needed * D * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
                        10 * D * needed), None))
     return rows
+
+
+def width36_phase(torch, dev) -> dict:
+    """Phase 3 at dien FULL's behavior width d = D36 (m = 48, tau = 3):
+    the five forward kernels the archs run and the two backward kernels of
+    the sdim long branch, against their plain versions at the main paths'
+    shapes (the 16-request burst, the 32-user event fold, the training step
+    at C = 1) with the dtypes phase 10 gives them and the others each takes
+    (bf16 behaviors, 72-byte bf16 rows; int8 and fp8 stores of 36-byte
+    rows), the same bits on two launches, then timed as the main rows are.
+    Returns each kernel's measurements by name."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (
+        bse_encode, bse_encode_backward, bse_encode_backward_ref, bse_encode_ref)
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
+        sdim_fused_serve, sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import (
+        sdim_query, sdim_query_backward, sdim_query_backward_ref, sdim_query_ref)
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+    from repro_torch.serve.quant import quantize_rows
+
+    d = D36
+    rng = np.random.default_rng(36)
+    Rn = rng.standard_normal((M, d)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    R = t(Rn)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    hash_flop = 2 * M * d + G * d
+
+    def history(b, l, dtype=torch.float32, masked_user=False):
+        seq = t(screened_normal(rng, (b, l, d), Rn, dtype)).to(dtype)
+        lengths = rng.integers(l // 4, l + 1, b)
+        if masked_user:
+            lengths[1] = 0
+        return seq, t((np.arange(l)[None] >= (l - lengths[:, None])).astype(np.float32))
+
+    out = {}
+
+    def measure(name, shape, err, kernel, plain, bound_):
+        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        out[name] = dict(d=d, shape=shape, ms=min(k1, k2), plain_ms=min(p1, p2),
+                         device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                         bound_ms=bound_[0], bound_by=bound_[1], max_abs_err=err)
+        print(f"kernel {name} at d = {d} {shape}: {min(k1, k2):.4f} ms (runs {k1:.4f}/"
+              f"{k2:.4f}), plain {min(p1, p2):.4f} ms, bound {bound_[0]:.4f} ms ({bound_[1]}); "
+              f"device {out[name]['device_ms']} ms, plain device "
+              f"{out[name]['plain_device_ms']} ms; max abs err {err:.3g}")
+
+    # bse_encode: the burst in fp32 with a fully masked user, in bf16 with
+    # L - 1 rows (an odd user's 72-byte rows start off a 16-byte boundary),
+    # the event fold; timed at the burst in fp32
+    err = 0.0
+    for b, l, dtype, masked in ((BURST, L, torch.float32, True), (BURST, L - 1, torch.bfloat16, False),
+                                (EV_USERS, E, torch.float32, False), (BURST, L, torch.float32, False)):
+        seq, mask = history(b, l, dtype, masked)
+        got = bse_encode(seq, mask, R, TAU)
+        err = max(err, check_close(f"bse_encode d={d} {(b, l)} {dtype}", got,
+                                   bse_encode_ref(seq, mask, R, TAU), **ATOMIC))
+        if masked and bool(got[1].any()):
+            raise AssertionError("bse_encode: a fully masked user has a non-zero table")
+    same_bits("bse_encode d36", partial(bse_encode, seq, mask, R, TAU))
+    valid = float(mask.sum())
+    measure("bse_encode", [BURST, L, d], err, partial(bse_encode, seq, mask, R, TAU),
+            partial(bse_encode_ref, seq, mask, R, TAU),
+            bound(valid * d * 4 + mask.numel() * 4 + R.numel() * 4 + BURST * G * U * d * 4,
+                  valid * hash_flop))
+
+    # sdim_query: bf16 wire tables (72-byte rows) and fp32, a zero table;
+    # timed on the bf16 wire
+    table = bse_encode_ref(*history(BURST, L, masked_user=True), R, TAU)
+    q = t(screened_normal(rng, (BURST, C, d), Rn))
+    wire, err = table.to(torch.bfloat16), 0.0
+    for tb in (wire, table):
+        got = sdim_query(q, tb, R, TAU)
+        err = max(err, check_close(f"sdim_query d={d} {tb.dtype}", got,
+                                   sdim_query_ref(q, tb, R, TAU), **FP32))
+        same_bits(f"sdim_query d36 {tb.dtype}", partial(sdim_query, q, tb, R, TAU))
+        if bool(got[1].any()):
+            raise AssertionError("sdim_query: a zero table read non-zero interest")
+    measure("sdim_query", [BURST, C, d, "bf16"], err, partial(sdim_query, q, wire, R, TAU),
+            partial(sdim_query_ref, q, wire, R, TAU),
+            bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4,
+                  BURST * C * hash_flop + BURST * G * U * 3 * d))
+
+    # sdim_fused_serve: fp32, bf16, int8 and fp8 stores (16-byte loads that
+    # straddle rows take each value's own scale), absent users; timed fp32
+    store = torch.cat([table, torch.zeros_like(table)])
+    slots = torch.randperm(2 * BURST, generator=torch.Generator().manual_seed(36))[:BURST].to(
+        dev, torch.int32)
+    present = torch.ones(BURST, device=dev)
+    present[3::4] = 0
+    err = 0.0
+    for name, st, sc in (("fp32", store, None), ("bf16", store.to(torch.bfloat16), None),
+                         ("int8", *quantize_rows(store, dtype=torch.int8)),
+                         ("fp8", *quantize_rows(store, dtype=torch.float8_e4m3fn))):
+        fn = partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present)
+        err = max(err, check_close(f"sdim_fused_serve d={d} {name}", fn(),
+                                   sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc,
+                                                        present=present), **FP32))
+        same_bits(f"sdim_fused_serve d36 {name}", fn)
+    n_present = int(present.sum())
+    measure("sdim_fused_serve", [BURST, C, d, "fp32"], err,
+            partial(sdim_fused_serve, store, slots, q, R, TAU, present=present),
+            partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
+            bound(n_present * (G * U * d * 4 + C * d * 4) + q.numel() * 4 + R.numel() * 4
+                  + BURST * 8, n_present * C * hash_flop + n_present * G * U * 3 * d))
+
+    # sdim_update: the event fold in fp32 and in bf16 with E = 5 (72-byte
+    # rows on 8-byte boundaries), duplicate slots; timed in fp32
+    base = torch.randn((2 * EV_USERS, G, U, d), generator=gen, device=dev)
+    ev_slots = torch.tensor(np.r_[0, rng.integers(1, EV_USERS // 2, EV_USERS - 1)],
+                            dtype=torch.int32, device=dev)
+    err = 0.0
+    for e, dtype in ((5, torch.bfloat16), (E, torch.float32)):
+        events = t(screened_normal(rng, (EV_USERS, e, d), Rn, dtype)).to(dtype)
+        ev_mask = t((rng.random((EV_USERS, e)) > 0.2).astype(np.float32))
+        a, b = base.clone(), base.clone()
+        sdim_update(a, ev_slots, events, ev_mask, R, TAU)
+        sdim_update_ref(b, ev_slots, events, ev_mask, R, TAU)
+        err = max(err, check_close(f"sdim_update d={d} E={e} {dtype}", a, b, **FP32))
+        same_bits(f"sdim_update d36 {dtype}",
+                  lambda: sdim_update(base.clone(), ev_slots, events, ev_mask, R, TAU))
+    touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
+    ev_valid = float(ev_mask.sum())
+    measure("sdim_update", [EV_USERS, E, d], err,
+            partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
+            partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
+            bound(2 * touched * G * U * d * 4 + ev_valid * d * 4 + ev_mask.numel() * 4
+                  + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop))
+
+    # bse_serve: fp32 with a fully masked user, bf16 (rows staged in 8-byte
+    # pieces); timed in fp32
+    err = 0.0
+    for dtype, masked in ((torch.bfloat16, False), (torch.float32, True), (torch.float32, False)):
+        seq, mask = history(BURST, L, dtype, masked)
+        got = bse_serve(q, seq, mask, R, TAU)
+        err = max(err, check_close(f"bse_serve d={d} {dtype}", got,
+                                   bse_serve_ref(q, seq, mask, R, TAU), **FP32))
+        if masked and bool(got[1].any()):
+            raise AssertionError("bse_serve: a fully masked user read non-zero interest")
+    same_bits("bse_serve d36", partial(bse_serve, q, seq, mask, R, TAU))
+    valid = float(mask.sum())
+    measure("bse_serve", [BURST, L, C, d], err, partial(bse_serve, q, seq, mask, R, TAU),
+            partial(bse_serve_ref, q, seq, mask, R, TAU),
+            bound(valid * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
+                  (valid + BURST * C) * hash_flop + BURST * G * U * 3 * d))
+
+    # bse_encode_backward at the training step (TRAIN_B users, L), bf16 and
+    # fp32; timed in fp32
+    dT = torch.randn((TRAIN_B, G, U, d), generator=gen, device=dev)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        seq, mask = history(TRAIN_B, L, dtype)
+        err = max(err, check_close(f"bse_encode_backward d={d} {dtype}",
+                                   bse_encode_backward(dT, seq, mask, R, TAU),
+                                   bse_encode_backward_ref(dT, seq, mask, R, TAU),
+                                   **(FP32 if dtype == torch.float32 else BF16_OUT)))
+    same_bits("bse_encode_backward d36", partial(bse_encode_backward, dT, seq, mask, R, TAU))
+    valid = float(mask.sum())
+    measure("bse_encode_backward", [TRAIN_B, L, d], err,
+            partial(bse_encode_backward, dT, seq, mask, R, TAU),
+            partial(bse_encode_backward_ref, dT, seq, mask, R, TAU),
+            bound(valid * d * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
+                  + dT.numel() * 4, valid * (hash_flop + d)))
+
+    # sdim_query_backward at C = 1 (the training step) and C, compared
+    # times each row's n (a zero row's gradient is g / 1e-6); timed at C = 1
+    table = bse_encode_ref(*history(TRAIN_B, L, masked_user=True), R, TAU)
+    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+    err = 0.0
+    for c in (C, 1):
+        qc = t(screened_normal(rng, (TRAIN_B, c, d), Rn))
+        dout = torch.randn((TRAIN_B, c, d), generator=gen, device=dev)
+        err = max(err, check_close(f"sdim_query_backward d={d} C={c} (times n)",
+                                   sdim_query_backward(dout, qc, table, R, TAU) * n,
+                                   sdim_query_backward_ref(dout, qc, table, R, TAU) * n, **FP32))
+    same_bits("sdim_query_backward d36", partial(sdim_query_backward, dout, qc, table, R, TAU))
+    measure("sdim_query_backward", [TRAIN_B, 1, d], err,
+            partial(sdim_query_backward, dout, qc, table, R, TAU),
+            partial(sdim_query_backward_ref, dout, qc, table, R, TAU),
+            bound(2 * qc.numel() * 4 + 2 * table.numel() * 4 + R.numel() * 4,
+                  TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d))
+    return out
 
 
 def request_stream(n_requests: int, cfg):
@@ -1369,10 +1591,12 @@ def production_kernel_checks(torch, name, captured, expected) -> None:
     from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve_ref
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query_ref
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve_ref
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update_ref
 
     refs = {"encode": (bse_encode_ref, ATOMIC), "update": (sdim_update_ref, FP32),
-            "serve_fused": (sdim_fused_serve_ref, FP32), "query": (sdim_query_ref, FP32)}
+            "serve_fused": (sdim_fused_serve_ref, FP32), "query": (sdim_query_ref, FP32),
+            "serve": (bse_serve_ref, FP32)}
     if set(captured) != set(expected):
         raise AssertionError(f"{name}: the path called {sorted(captured)}, expected "
                              f"{sorted(expected)}")
@@ -1596,6 +1820,214 @@ def production_phase(torch, dev, wrappers):
     return launches
 
 
+def arch_burst(torch, dev, requests) -> dict:
+    """A burst of requests as tensors: hist_* (n, L), cand_* (n, C), ctx."""
+    burst = {k: torch.as_tensor(np.concatenate([r[1][k] for r in requests]), device=dev)
+             for k in ("hist_items", "hist_cats", "hist_mask")}
+    for i, k in ((2, "cand_item"), (3, "cand_cat"), (4, "ctx")):
+        burst[k] = torch.as_tensor(np.stack([r[i] for r in requests]), device=dev)
+    return burst
+
+
+def arch_checks(torch, model, burst, batch, refs, label) -> None:
+    """The burst's long branch and the training batch's logits through the
+    kernels against the same through the plain versions on the card
+    (ATOMIC: bse_encode's row-order sums)."""
+    with torch.no_grad():
+        target_e = model._embed_behaviors(burst["cand_item"], burst["cand_cat"])
+        long_e = model._embed_behaviors(burst["hist_items"], burst["hist_cats"])
+        branch = lambda: model.interest(target_e, long_e, burst["hist_mask"])
+        with uncounted():
+            ours, logits = branch(), model.apply(batch)
+        with plain_long_branch(model, refs):
+            ref, ref_logits = branch(), model.apply(batch)
+    e1 = check_close(f"{label} burst long branch", ours, ref, **ATOMIC)
+    e2 = check_close(f"{label} logits of a training batch", logits, ref_logits, **ATOMIC)
+    print(f"{label}: kernels vs plain, burst long branch max abs err {e1:.3g}, "
+          f"logits of {TRAIN_B} max abs err {e2:.3g}")
+
+
+def arch_serving(torch, dev, wrappers, model, requests, events, label) -> dict:
+    """bst, dien and bert4rec through ``CTRServer``: decoupled unfused on the
+    bf16 wire, fused off an fp32 and an int8 store, inline; each serves the
+    burst, folds the events (decoupled) and serves it again. Each kernel a
+    server called is held against its plain version on the server's own
+    inputs; inline against a decoupled server with an fp32 wire (INLINE_TOL),
+    fused against unfused (WIRE_TOL). Returns ms/request of the second
+    burst by setup."""
+    from repro_torch.serve.ctr_server import CTRServer
+
+    setups = {"unfused": (dict(mode="decoupled"), {"encode", "update", "query"}),
+              "fused": (dict(mode="decoupled", fused=True), {"encode", "update", "serve_fused"}),
+              "fused-int8": (dict(mode="decoupled", fused=True, table_dtype="int8"),
+                             {"encode", "serve_fused"}),   # an int8 store folds by encode
+              "inline": (dict(mode="inline"), {"serve"})}
+    scores, ms = {}, {}
+    for name, (kw, expected) in setups.items():
+        srv = CTRServer.build(model, None, device=dev, **kw)
+        caps = KernelInputs(torch)
+        model.engine.profiler = caps
+        try:
+            first, _ = serve_all(torch, f"{label} {name}", srv, requests, wrappers)
+            if srv.bse is not None:
+                srv.bse.ingest_events(*events)
+            again, _ = serve_all(torch, f"{label} {name}, again"
+                                 + (f" after {ARCH_EV} events" if srv.bse else ""),
+                                 srv, requests, wrappers)
+        finally:
+            model.engine.profiler = None
+        scores[name], ms[name] = (first, again), srv.stats.ms_per_request
+        production_kernel_checks(torch, f"{label} {name}", caps.calls, expected)
+        if name == "fused":
+            with uncounted():
+                profile_burst(torch, f"{label} fused", srv, requests)
+        del srv
+    with uncounted():                       # a comparison server: its launches are not the path's
+        ref_srv = CTRServer.build(model, None, "decoupled", wire_dtype=torch.float32, device=dev)
+        ref, _ = serve_all(torch, f"{label} decoupled, fp32 wire", ref_srv, requests, wrappers)
+        del ref_srv
+    for what, got, want, tol in (
+            ("inline - decoupled fp32 wire", scores["inline"][0], ref, INLINE_TOL),
+            ("fused - unfused", scores["fused"][1], scores["unfused"][1], WIRE_TOL),
+            ("fused-int8 - unfused", scores["fused-int8"][1], scores["unfused"][1], WIRE_TOL)):
+        diff = float(np.abs(got - want).max())
+        print(f"{label}: |{what}| max {diff:.3g} (tolerance {tol})")
+        if diff > tol:
+            raise AssertionError(f"{label}: {what} differ by {diff} (> {tol})")
+    if float(np.abs(scores["unfused"][1] - scores["unfused"][0]).max()) == 0.0:
+        raise AssertionError(f"{label}: the event fold changed no score")
+    return ms
+
+
+def wide_deep_serving(torch, dev, wrappers, model, burst, sparse_ids, label) -> dict:
+    """wide_deep, whose fields ``CTRServer`` does not take, through
+    ``score_candidates_many(..., sparse_ids=..., bucket_tables=...)`` on
+    the bf16 wire and inline, each burst timed on the host clock; each
+    kernel held against its plain version on the path's inputs, inline
+    against fp32 tables (INLINE_TOL) and the bf16 wire (WIRE_TOL)."""
+    users = {k: burst[k] for k in ("hist_items", "hist_cats", "hist_mask")}
+    args = (users, burst["cand_item"], burst["cand_cat"], burst["ctx"])
+    caps = KernelInputs(torch)
+    model.engine.profiler = caps
+    ms, scores = {}, {}
+    try:
+        with torch.no_grad():
+            for name in ("decoupled", "inline", "decoupled, again", "inline, again"):
+                t0 = time.perf_counter()
+                kw = {}
+                if name.startswith("decoupled"):
+                    kw["bucket_tables"] = model.encode_bse_table(users).to(torch.bfloat16)
+                out = model.score_candidates_many(*args, sparse_ids=sparse_ids, **kw).cpu().numpy()
+                ms[name] = 1e3 * (time.perf_counter() - t0) / len(out)
+                if out.shape != (BURST, C) or not np.isfinite(out).all():
+                    raise AssertionError(f"{label} {name}: scores {out.shape}, finite "
+                                         f"{np.isfinite(out).all()}")
+                scores[name] = out
+                print(f"serve {label} {name}: {ms[name]:.3f} ms/request over {BURST} requests")
+    finally:
+        model.engine.profiler = None
+    production_kernel_checks(torch, label, caps.calls, {"encode", "query", "serve"})
+    with torch.no_grad(), uncounted():
+        ref = model.score_candidates_many(*args, sparse_ids=sparse_ids,
+                                          bucket_tables=model.encode_bse_table(users))
+        ref = ref.cpu().numpy()
+    for what, want, tol in (("decoupled fp32 tables", ref, INLINE_TOL),
+                            ("decoupled bf16 wire", scores["decoupled"], WIRE_TOL)):
+        diff = float(np.abs(scores["inline"] - want).max())
+        print(f"{label}: |inline - {what}| max {diff:.3g} (tolerance {tol})")
+        if diff > tol:
+            raise AssertionError(f"{label}: inline vs {what} differ by {diff} (> {tol})")
+    return {"decoupled": ms["decoupled, again"], "inline": ms["inline, again"]}
+
+
+def archs_phase(torch, dev, wrappers):
+    """Phase 10: wide_deep, bst, dien and bert4rec at their FULL configs
+    (seeded random weights from the port's init), one after another, the
+    card freed between them. Each: a burst of BURST requests of C
+    candidates served (``arch_serving``; wide_deep ``wide_deep_serving``),
+    the burst's long branch and a batch's logits held against the plain
+    versions, step 1's gradients against the plain versions' (GRAD_TOL),
+    and ARCH_STEPS Adagrad steps at TRAIN_B. The item rows the burst, its
+    events and step 1 hash are margin-screened first. Returns the phase's
+    launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.screen import screen_item_rows
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.train.loop import make_train_step
+
+    refs = plain_refs()
+    reset(wrappers)
+    summary = {}
+    need = {"bse_encode", "sdim_query", "bse_serve", "bse_encode_backward",
+            "sdim_query_backward"}
+    for i, arch in enumerate(ARCHS):
+        cfg = registry.get(arch.replace("_", "-")).FULL
+        label = f"archs {arch}"
+        before = {w.__name__: w.launches for w in wrappers}
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        model = CTRModel(cfg, device=dev, generator=gen)
+        torch.cuda.synchronize()
+        print(f"{label}: FULL (embed_dim {cfg.embed_dim}, behavior d {cfg.behavior_dim}, "
+              f"short_len {cfg.short_len}), {sum(p.numel() for p in model.parameters()) / 1e6:.1f} "
+              f"M parameters, init {time.perf_counter() - t0:.2f} s")
+        requests = request_stream(BURST, cfg)
+        burst = arch_burst(torch, dev, requests)
+        loss_fn, stream, opt = recsys_setup(cfg, TRAIN_B)
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(stream).items()}
+                   for _ in range(ARCH_STEPS)]
+        ev_rng = np.random.default_rng(10 + i)
+        events = ([r[0] for r in requests[:ARCH_EV // 2]] * 2,
+                  ev_rng.integers(0, cfg.n_items, (ARCH_EV, 1)).astype(np.int32),
+                  ev_rng.integers(0, cfg.n_cats, (ARCH_EV, 1)).astype(np.int32))
+        ev_batch = {"hist_items": torch.as_tensor(events[1], device=dev),
+                    "hist_cats": torch.as_tensor(events[2], device=dev),
+                    "hist_mask": torch.ones((ARCH_EV, 1), device=dev),
+                    "cand_item": burst["cand_item"][:0], "cand_cat": burst["cand_cat"][:0]}
+        n = screen_item_rows(model, [burst, ev_batch, batches[0]], gen)
+        print(f"{label}: {n} item rows redrawn to clear the hash margin")
+
+        if arch == "wide_deep":
+            sids = torch.as_tensor(np.random.default_rng(7).integers(
+                0, cfg.field_vocab, (BURST, C, cfg.n_sparse)).astype(np.int32), device=dev)
+            ms = wide_deep_serving(torch, dev, wrappers, model, burst, sids, label)
+        else:
+            ms = arch_serving(torch, dev, wrappers, model, requests, events, label)
+        arch_checks(torch, model, burst, batches[0], refs, label)
+        step1_gradients(torch, model, batches[0], refs, label)
+
+        init, step = make_train_step(loss_fn, opt)
+        state, losses, times = init(model), [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"].item())          # waits for the card
+            times.append(1e3 * (time.perf_counter() - t0))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{label}: {ARCH_STEPS} Adagrad steps of {TRAIN_B}, losses {losses}, "
+              f"ms/step {json.dumps([round(x, 2) for x in times])} (host clock ending in "
+              f"loss.item()); peak device memory {peak:.2f} GiB")
+        delta = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+        with uncounted():
+            profile_window(torch, f"{label}, one training step",
+                           partial(step, state, batches[0]))
+        own = need if arch == "wide_deep" else need | {"sdim_update", "sdim_fused_serve"}
+        missing = sorted(k for k in own if delta[k] == 0)
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        summary[arch] = {"ms_per_request": ms, "ms_per_step": times[1:],
+                         "peak_train_gib": round(peak, 2)}
+        del state, model, burst, batches
+        torch.cuda.empty_cache()
+    print(f"archs ms/request (host, second burst) and ms/step (steps 2..{ARCH_STEPS}): "
+          f"{json.dumps(summary)}")
+    return read_launches(wrappers, sorted(need | {"sdim_update", "sdim_fused_serve"}), "archs")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1625,6 +2057,10 @@ def main() -> int:
             print("  " + line.strip())
 
     timed = kernel_phase(torch, dev)
+    width36 = width36_phase(torch, dev)
+    for k in timed:
+        if k["name"] in width36:
+            k["d36"] = width36[k["name"]]
     wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
@@ -1646,6 +2082,8 @@ def main() -> int:
     by_path["comparison"] = comparison_phase(torch, dev, wrappers + backward)
     torch.cuda.empty_cache()
     by_path["production"] = production_phase(torch, dev, wrappers)
+    torch.cuda.empty_cache()
+    by_path["archs"] = archs_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -1,12 +1,14 @@
-"""Architecture registry of the port: ``--arch <id>`` resolves here. Only
-the paper's own model is ported so far."""
+"""Architecture registry of the port: ``--arch <id>`` resolves here. The
+recsys archs of the reference's registry (``repro/configs/registry.py``)
+and the paper's own model; the LM and GNN archs are not ported yet."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["sdim-paper"]
+ARCH_IDS = ["wide-deep", "bst", "dien", "bert4rec", "sdim-paper"]
 
-_MODULES = {"sdim-paper": "sdim_paper"}
+_MODULES = {"wide-deep": "wide_deep", "bst": "bst", "dien": "dien", "bert4rec": "bert4rec",
+            "sdim-paper": "sdim_paper"}
 
 
 def get(arch_id: str):

@@ -29,7 +29,14 @@
 //   batches ahead of the one it works on, each with one bulk copy of its
 //   contiguous rows completing on an mbarrier (16-byte cp.async copies
 //   reached only ~13 bytes a cycle an SM on the H100, phase_clocks.py);
-// - hash: eight lanes share two rows, each over every eighth float4 column,
+//   a bulk copy moves whole 16-byte pieces between 16-byte boundaries, so
+//   where rows are 8-byte multiples only (bf16 at d % 8 == 4) the last 8
+//   bytes of an odd-sized tail batch are copied by the issuing lane itself
+//   before it arrives, and a user whose rows start on an 8-byte boundary
+//   only (an odd user at odd L) has each batch copied by its warp with
+//   8-byte loads and stores, lane 0 arriving after a warp barrier;
+// - hash: eight lanes share two rows, each over every eighth float4 column
+//   (at d = 36, nine columns: lane 0 of the eight takes columns 0 and 8),
 //   for all of the CTA's ng * tau projections at once (one float4 of a row
 //   feeds ng * tau * 4 FMAs, one float4 of R 2 * 4), and a butterfly over
 //   the eight lanes adds the partial sums; ballots give each row's bucket;
@@ -41,7 +48,7 @@
 // shared memory and written once. Every sum has a fixed order, so two
 // launches agree bit for bit. A user with every behavior masked lists no
 // batch and writes a zero slice. Each CTA reads its user's valid rows itself
-// (from L2 after the first CTA); tau <= 4, d a multiple of 8 up to 128,
+// (from L2 after the first CTA); tau <= 4, d a multiple of 4 up to 128,
 // ceil(G/S) * 2^tau <= kCells and L up to 32768 (the batch list lives in
 // shared memory; the wrapper checks).
 #include "tile_staging.cuh"
@@ -126,6 +133,7 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
 
   const int ldr = staged_ld<float>(d), nq = d / 4;
   const T* x = seq + (size_t)b * L * d;
+  const bool bulk = (reinterpret_cast<size_t>(x) & 15) == 0;  // batches on 16-byte boundaries
   const float* w = mask + (size_t)b * L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   PHASE_BEGIN();
@@ -149,9 +157,21 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
 
   auto stage = [&](int it, int buf) {  // list entry it; its weights into lanes 0..7
     const int l0 = list_s[1 + it] * kBatch, n = min(kBatch, L - l0);
-    if (lane == 0)  // the batch's n rows are contiguous: one bulk copy
-      bulk_load(xw + buf * kBatch * d, x + (size_t)l0 * d, (unsigned)(n * d * sizeof(T)),
-                bars + buf);
+    unsigned char* dst = reinterpret_cast<unsigned char*>(xw + buf * kBatch * d);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(x + (size_t)l0 * d);
+    const unsigned bytes = n * d * sizeof(T), whole = bytes & ~15u;
+    if (bulk) {
+      if (lane == 0) {  // the batch's n rows are contiguous: one bulk copy
+        if (whole < bytes)  // an 8-byte tail, stored before the arrival that publishes it
+          *reinterpret_cast<uint2*>(dst + whole) = *reinterpret_cast<const uint2*>(src + whole);
+        bulk_load(dst, src, whole, bars + buf);
+      }
+    } else {  // 8 bytes a lane, then a plain arrival
+      for (unsigned k = lane; k < bytes / 8; k += 32)
+        reinterpret_cast<uint2*>(dst)[k] = __ldg(reinterpret_cast<const uint2*>(src) + k);
+      __syncwarp();
+      if (lane == 0) mbar_expect(bars + buf, 0);
+    }
     return lane < n ? w[l0 + lane] : 0.f;
   };
 
@@ -247,7 +267,7 @@ template <typename T, int TAU>
 static cudaError_t launch(const void* seq, const float* mask, const float* R, float* out, int B,
                           int L, int G, int d, int S, cudaStream_t stream) {
   const int gmax = S > 0 ? (G + S - 1) / S : 0;
-  if (d <= 0 || d % 8 != 0 || d > 128 || S < 1 || S > G || gmax * (1 << TAU) > kCells)
+  if (d <= 0 || d % 4 != 0 || d > 128 || S < 1 || S > G || gmax * (1 << TAU) > kCells)
     return cudaErrorInvalidValue;
   const size_t smem = encode_layout<T>(d, gmax, TAU, (L + kBatch - 1) / kBatch).total;
   const void* fn = reinterpret_cast<const void*>(bse_encode_kernel<T, TAU>);

@@ -31,7 +31,8 @@
 //   rows of dT in group order, times the mask, and writes it in seq's type
 //   (bf16 rounded to nearest even).
 // The wrapper picks S so that the B*S CTAs fill the card in one wave at two
-// CTAs an SM. d a multiple of 8 up to 128, tau 1..4, and the user's table
+// CTAs an SM. d a multiple of 4 up to 128 (at d = 36 lane part 0 of a
+// group holds float4 columns 0 and 8, the others one), tau 1..4, and the user's table
 // and R within shared memory (the wrapper checks).
 #include "tile_staging.cuh"
 
@@ -140,7 +141,7 @@ template <typename T>
 static cudaError_t launch_backward(const float* dT, const void* seq, const float* mask,
                                    const float* R, void* dseq, int B, int L, int G, int U, int d,
                                    int m, int tau, int S, cudaStream_t stream) {
-  if (d <= 0 || d % 8 != 0 || d > 128 || tau < 1 || tau > 4 || S < 1) return cudaErrorInvalidValue;
+  if (d <= 0 || d % 4 != 0 || d > 128 || tau < 1 || tau > 4 || S < 1) return cudaErrorInvalidValue;
   const size_t smem = encode_bwd_layout(G, U, d, m).total;
   const void* fn = reinterpret_cast<const void*>(bse_encode_backward_kernel<T>);
   cudaError_t err = allow_smem(fn, smem);

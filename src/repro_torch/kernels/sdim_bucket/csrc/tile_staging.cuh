@@ -4,11 +4,14 @@
 // phase clocks, and on the host the launch of a grid of thread-block
 // clusters. The float4 reads and fp32 FMA steps are in sdim_common.cuh.
 //
-// Staged rows are d elements plus 16 bytes: every row stays 16-byte aligned
-// for cp.async and float4 reads, and consecutive rows start 4 banks apart, so
-// eight threads that read one float4 of eight different rows hit 32 banks.
-// The copies need d * sizeof(T) to be a multiple of 16 and 16-byte aligned
-// sources (the wrappers check both).
+// Staged rows are d elements plus 16 bytes: where a row is a whole number of
+// 16-byte pieces every staged row stays 16-byte aligned for cp.async and
+// float4 reads, and consecutive rows start 4 banks apart, so eight threads
+// that read one float4 of eight different rows hit 32 banks. A row of
+// 8-byte multiples only (bf16 at d % 8 == 4, e.g. d = 36: 72 bytes) is
+// copied in 8-byte pieces, and its staged rows are 8-byte aligned, which
+// the bf16 load4 needs. The copies need d * sizeof(T) to be a multiple of 8
+// and 16-byte aligned sources (the wrappers check both).
 //
 // Numerics: plain IEEE fp32, as sdim_common.cuh.
 #pragma once
@@ -36,6 +39,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
+// The same for 8 bytes (cp.async.ca: .cg takes 16-byte copies only).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -51,6 +62,16 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T>
 __device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ x, int n, int rows,
                                                  int d) {
+  if ((d * sizeof(T)) % 16 != 0) {  // rows of whole 8-byte pieces only
+    constexpr int kPer8 = 8 / sizeof(T);
+    const int per_row = d / kPer8, ld = staged_ld<T>(d);
+    for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = i % per_row;
+      const T* src = r < n ? x + (size_t)r * d + c * kPer8 : x;
+      cp_async8(dst + (size_t)r * ld + c * kPer8, src, r < n ? 8 : 0);
+    }
+    return;
+  }
   constexpr int kPer16 = 16 / sizeof(T);
   const int per_row = d / kPer16, ld = staged_ld<T>(d);
   if (blockDim.x % per_row == 0) {  // each thread keeps one 16-byte column: no division per copy

@@ -92,8 +92,8 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
         raise ValueError(f"bse_encode: shapes seq {tuple(seq.shape)} mask "
                          f"{tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= 4 or d % 8 or d > 128 or L > MAX_L:
-        raise ValueError(f"bse_encode: the kernel takes tau 1..4, d a multiple of 8 "
+    if not 1 <= tau <= 4 or d % 4 or d > 128 or L > MAX_L:
+        raise ValueError(f"bse_encode: the kernel takes tau 1..4, d a multiple of 4 "
                          f"up to 128 and L up to {MAX_L}; got tau {tau}, d {d}, L {L}")
     code = _build.dtype_code("bse_encode", seq, (torch.float32, torch.bfloat16))
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
@@ -160,8 +160,8 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
         raise ValueError(f"bse_encode_backward: shapes dT {tuple(dT.shape)} seq "
                          f"{tuple(seq.shape)} mask {tuple(mask.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if not 1 <= tau <= 4 or d % 8 or d > 128 or 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM:
-        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..4, d a multiple of 8 "
+    if not 1 <= tau <= 4 or d % 4 or d > 128 or 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM:
+        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..4, d a multiple of 4 "
                          f"up to 128 and a user's table and R within {MAX_BWD_SMEM} bytes of "
                          f"shared memory; got tau {tau}, d {d}, m {m}")
     code = _build.dtype_code("bse_encode_backward", seq, (torch.float32, torch.bfloat16))

@@ -20,9 +20,10 @@
 // Design. Each user gets a thread-block cluster of S CTAs, S the largest of
 // 8..2 for which every cluster of the launch fits the card at once. CTA j
 // of user b loads its own slot (the TPU's block index map), then
-// - reads its ceil(G*U/S) of the user's (g, u) rows (16 of 128 at S = 8)
-//   with 16-byte loads in the storage type (fp32 4 values, bf16 8, int8
-//   and fp8 e4m3 16), multiplies by the row's scale in registers and
+// - reads its ceil(G*U/S) of the user's (g, u) rows (16 of 128 at S = 8;
+//   rounded up to whole 16-byte loads, below) with 16-byte loads in the
+//   storage type (fp32 4 values, bf16 8, int8 and fp8 e4m3 16), multiplies
+//   by the row's scale in registers and
 //   l2-normalizes the rows in its own shared memory (t / sqrt(ss + 1e-12),
 //   a warp a row): every stored byte crosses device memory once per user
 //   and every row is normalized once;
@@ -39,9 +40,14 @@
 //   order 0..G-1, then / G * present. A split cluster barrier (arrive once
 //   a CTA's copy is complete, wait before exit) keeps every CTA's rows
 //   alive until the others have them.
-// An absent user (present[b] == 0) writes zeros and reads no row. Any C,
-// 0 included; d a multiple of 4 whose row takes whole 16-byte loads, and
-// 16-byte aligned operands (the wrappers check). The kernel and its launch
+// A CTA's rows are a multiple of the fewest rows that fill whole 16-byte
+// loads (1 where a row does; at d = 36, 2 bf16 rows of 72 bytes, 4 int8 or
+// fp8 rows of 36 bytes), so every CTA reads its rows with 16-byte loads
+// from a 16-byte boundary even where one load straddles two rows; the
+// per-row scale is then taken value by value. An absent user (present[b]
+// == 0) writes zeros and reads no row. Any C, 0 included; d a multiple of
+// 4 whose user table (G*U*d values) takes whole 16-byte loads, and 16-byte
+// aligned operands (the wrappers check). The kernel and its launch
 // are static: each entry point's translation unit has its own copy (and its
 // own phase clocks, tile_staging.cuh).
 #pragma once
@@ -235,8 +241,10 @@ static __global__ void __launch_bounds__(kThreads, 2)
   coop::cluster_group cluster = coop::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.y, tid = threadIdx.x, nq = d / 4, GU = G * U, m = G * TAU;
-  const int per_row = (GU + S - 1) / S, lo = min(GU, rank * per_row),
-            nrows = min(GU, lo + per_row) - lo;
+  int align = 1;  // rows whose bytes fill whole 16-byte loads
+  while ((align * d * (int)sizeof(TS)) % 16 != 0) ++align;
+  const int per_row = ((GU + S - 1) / S + align - 1) / align * align,
+            lo = min(GU, rank * per_row), nrows = min(GU, lo + per_row) - lo;
   const int per_c = (C + S - 1) / S, c_lo = min(C, rank * per_c), nc = min(C, c_lo + per_c) - c_lo;
   PHASE_BEGIN();
   const float pres = present == nullptr ? 1.f : present[b];
@@ -274,13 +282,24 @@ static __global__ void __launch_bounds__(kThreads, 2)
   for (int i = tid; i < nrows * d / V; i += blockDim.x) {
     const int e = i * V;
     const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + e));
-    const float s = sc == nullptr ? 1.f : __ldg(sc + e / d);
     float v[V];
     unpack16<TS>(raw, v);
+    if (sc != nullptr) {  // value k is in row (e + k) / d
+      int r = e / d, next = (r + 1) * d - e;
+      float s = __ldg(sc + r);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (k == next) {
+          s = __ldg(sc + ++r);
+          next += d;
+        }
+        v[k] *= s;
+      }
+    }
 #pragma unroll
     for (int k = 0; k < V / 4; ++k)
       *reinterpret_cast<float4*>(own_s + e + 4 * k) =
-          make_float4(v[4 * k] * s, v[4 * k + 1] * s, v[4 * k + 2] * s, v[4 * k + 3] * s);
+          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
   }
   PHASE_MARK(0);  // the row's loads issued and stored
   __syncthreads();         // the rows stored, the mbarriers initialized
@@ -342,8 +361,9 @@ template <typename TS, int TAU>
 static cudaError_t launch_fused(const void* store, const float* scales, const int* slots,
                                 const float* present, const float* q, const float* R, float* out,
                                 int B, int C, int G, int d, cudaStream_t stream) {
-  if (d <= 0 || d % 4 != 0 || (d * sizeof(TS)) % 16 != 0) return cudaErrorInvalidValue;
   const int U = 1 << TAU, m = G * TAU;
+  if (d <= 0 || d % 4 != 0 || ((size_t)G * U * d * sizeof(TS)) % 16 != 0)
+    return cudaErrorInvalidValue;
   // the largest cluster of 8..2 whose B clusters all fit at once
   return launch_clusters(fused_query_kernel<TS, TAU>, kMaxCluster, kMinCluster, 1, B,
                          fused_layout(G, U, d, m).total, stream, static_cast<const TS*>(store),

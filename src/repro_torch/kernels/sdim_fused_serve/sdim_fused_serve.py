@@ -61,10 +61,10 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     code = _build.dtype_code("sdim_fused_serve", store,
                              (torch.float32, torch.bfloat16, torch.int8,
                               torch.float8_e4m3fn))
-    if not 1 <= tau <= 4 or d % 4 or d * store.element_size() % 16:
-        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..4 and rows of d "
-                         f"values in whole 16-byte loads (d a multiple of 4, 8 for bf16, "
-                         f"16 for int8 and fp8); got tau {tau}, d {d}, {store.dtype}")
+    if not 1 <= tau <= 4 or d % 4 or G * U * d * store.element_size() % 16:
+        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..4, d a multiple of 4 "
+                         f"and a user's table of G*U*d values in whole 16-byte loads; got "
+                         f"tau {tau}, G {G}, U {U}, d {d}, {store.dtype}")
     if is_quantized(store.dtype) != (scales is not None):
         raise ValueError("sdim_fused_serve: int8 and fp8 stores need scales; "
                          "other stores take none")

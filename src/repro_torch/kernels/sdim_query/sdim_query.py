@@ -77,10 +77,10 @@ def _query(q, table, R, tau):
         raise ValueError(f"sdim_query: shapes q {tuple(q.shape)} table "
                          f"{tuple(table.shape)} R {tuple(R.shape)} tau {tau}")
     code = _build.dtype_code("sdim_query", table, (torch.float32, torch.bfloat16))
-    if not 1 <= tau <= 4 or d % 4 or d * table.element_size() % 16:
-        raise ValueError(f"sdim_query: the kernel takes tau 1..4 and rows of d values "
-                         f"in whole 16-byte loads (d a multiple of 4, 8 for bf16); got "
-                         f"tau {tau}, d {d}, {table.dtype}")
+    if not 1 <= tau <= 4 or d % 4 or G * U * d * table.element_size() % 16:
+        raise ValueError(f"sdim_query: the kernel takes tau 1..4, d a multiple of 4 and a "
+                         f"user's table of G*U*d values in whole 16-byte loads; got tau "
+                         f"{tau}, G {G}, U {U}, d {d}, {table.dtype}")
     if q.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("sdim_query: q and R must be float32")
     dev = _build.require_cuda("sdim_query", q, table, R)

@@ -46,8 +46,11 @@
 // Each CTA reads the user's rows itself (from L2 after the first); a TMA
 // multicast to the cluster would read them once. A user with every behavior
 // masked has a zero table and gets zero output (the eps inside the sqrt
-// keeps 0/0 out). Any C and L, 0 included; tau <= 4, d a multiple of 8 up
-// to 128 and (groups per CTA) * d <= 512 (the wrapper checks).
+// keeps 0/0 out). Any C and L, 0 included; tau <= 4, d a multiple of 4 up
+// to 128 and (groups per CTA) * d <= 512 (the wrapper checks). At d % 8 ==
+// 4 (dien's d = 36) bf16 rows are staged in 8-byte pieces
+// (stage_rows_async), and the two threads of a hash split nine float4
+// columns four and five.
 #include <cooperative_groups.h>
 
 #include "tile_staging.cuh"
@@ -337,7 +340,7 @@ template <typename T, int TAU>
 static cudaError_t launch(const float* q, const void* seq, const float* mask, const float* R,
                           float* out, int B, int L, int C, int G, int d, cudaStream_t stream) {
   const int S = min(kMaxCluster, G), gmax = (G + S - 1) / S;
-  if (d <= 0 || d % 8 != 0 || d > 128 || gmax * d > kMaxCells * kThreads)
+  if (d <= 0 || d % 4 != 0 || d > 128 || gmax * d > kMaxCells * kThreads)
     return cudaErrorInvalidValue;
   const size_t smem = serve_layout<T>(d, gmax, TAU, (L + kRows - 1) / kRows).total;
   return launch_clusters(bse_serve_kernel<T, TAU>, S, S, 1, B, smem, stream, q,

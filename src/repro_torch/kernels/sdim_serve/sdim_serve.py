@@ -39,8 +39,8 @@ def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"bse_serve: shapes q {tuple(q.shape)} seq {tuple(seq.shape)} "
                          f"mask {tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= 4 or d % 8 or d > 128 or -(-G // min(8, G)) * d > 512:
-        raise ValueError(f"bse_serve: the kernel takes tau 1..4, d a multiple of 8 up "
+    if not 1 <= tau <= 4 or d % 4 or d > 128 or -(-G // min(8, G)) * d > 512:
+        raise ValueError(f"bse_serve: the kernel takes tau 1..4, d a multiple of 4 up "
                          f"to 128 and ceil(G / min(8, G)) * d <= 512; got tau {tau}, "
                          f"d {d}, G {G}")
     code = _build.dtype_code("bse_serve", seq, (torch.float32, torch.bfloat16))

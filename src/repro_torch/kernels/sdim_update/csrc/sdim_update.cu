@@ -35,7 +35,13 @@
 //   copies of the R rows of the CTA's groups and of row b's events (one
 //   contiguous copy a row) at the start, and of the CTA's slice of the
 //   store row (contiguous, ng*U*d*4 bytes) as soon as the slot is known;
-//   the slot scan runs while they travel. The mask is read with plain
+//   the slot scan runs while they travel. A bulk copy moves whole 16-byte
+//   pieces from 16-byte aligned addresses, so where an event row is an
+//   8-byte multiple only (bf16 at d % 8 == 4, e.g. d = 36: 72 bytes, rows
+//   starting at any 8-byte boundary) warp 0 copies a unit's rows itself
+//   with 8-byte loads and stores, and lane 0 arrives on the buffer's
+//   mbarrier after a warp barrier: the same buffers and waits, with no
+//   copy in flight. The mask is read with plain
 //   loads (a row of E floats need not be 16-byte aligned) when its unit is
 //   staged.
 // - Hash only the CTA's groups: eight lanes share two events, each over
@@ -54,7 +60,7 @@
 //   end it writes, with 16-byte stores, only the cells that some event
 //   with a nonzero weight reached: a row whose mask is all zero writes
 //   nothing, and an untouched cell keeps its bits (-0.0 included).
-// Takes tau 1..4, d a multiple of 8 up to 128 and ceil(G/S) * 2^tau <=
+// Takes tau 1..4, d a multiple of 4 up to 128 and ceil(G/S) * 2^tau <=
 // kItems * (kThreads / (d/4)) cells a CTA, events fp32 or bf16 and 16-byte
 // aligned operands (the wrapper checks); E of any size.
 #include "tile_staging.cuh"
@@ -215,17 +221,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   // this thread's event of a unit: row st of it, event et of that row
   const int st = E <= kEv ? tid / E : 0, et = E <= kEv ? tid % E : tid;
+  const bool bulk = (d * sizeof(T)) % 16 == 0;  // event rows of whole 16-byte pieces
   // rows [s_lo, nr) of unit un into buffer x (one bulk copy a row, lane s
-  // of warp 0 issuing row s's, counted on bar with one arrival); returns
-  // this thread's weight in those rows (0 elsewhere)
+  // of warp 0 issuing row s's, counted on bar with one arrival; without
+  // bulk copies warp 0 copies the rows, then lane 0 arrives); returns this
+  // thread's weight in those rows (0 elsewhere)
   auto stage = [&](const Unit& un, int s_lo, T* x, unsigned long long* bar) {
-    if (warp == 0) {
+    if (warp == 0 && bulk) {
       if (lane == 0) mbar_expect(bar, (un.nr - s_lo) * un.ne * d * sizeof(T));
       __syncwarp();
       if (lane >= s_lo && lane < un.nr)
         bulk_copy(x + (size_t)lane * un.ne * d,
                   events + ((size_t)list_s[un.r0 + lane] * E + un.e0) * d,
                   un.ne * d * sizeof(T), bar);
+    } else if (warp == 0) {
+      const int pieces = un.ne * d * sizeof(T) / 8;
+      for (int i = lane; i < (un.nr - s_lo) * pieces; i += 32) {
+        const int s = s_lo + i / pieces, k = i % pieces;
+        reinterpret_cast<uint2*>(x + (size_t)s * un.ne * d)[k] = __ldg(
+            reinterpret_cast<const uint2*>(events + ((size_t)list_s[un.r0 + s] * E + un.e0) * d) +
+            k);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_expect(bar, 0);  // a plain arrival, after the rows' stores
     }
     return st >= s_lo && st < un.nr && et < un.ne
                ? mask[(size_t)list_s[un.r0 + st] * E + un.e0 + et]
@@ -236,7 +254,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int k = 0; k < 2 + kBufs; ++k) mbar_init(bar_s + k);
     mbar_init(first_bar, 2);
     bulk_load(r_s, R + (size_t)g0 * TAU * d, ng * TAU * d * sizeof(float), bar_s);
-    bulk_load(x_s, events + (size_t)b * E * d, min(E, kEv) * d * sizeof(T), first_bar);
+    if (bulk) bulk_load(x_s, events + (size_t)b * E * d, min(E, kEv) * d * sizeof(T), first_bar);
+  }
+  if (!bulk && warp == 0) {  // row b's first events, copied by warp 0 (contiguous)
+    const uint2* src = reinterpret_cast<const uint2*>(events + (size_t)b * E * d);
+    for (int k = lane; k < min(E, kEv) * d * (int)sizeof(T) / 8; k += 32)
+      reinterpret_cast<uint2*>(x_s)[k] = __ldg(src + k);
+    __syncwarp();
+    if (lane == 0) mbar_expect(first_bar, 0);  // after tid 0 initialized it
   }
   const float w_b = tid < min(E, kEv) ? mask[(size_t)b * E + tid] : 0.f;
 
@@ -410,7 +435,7 @@ static cudaError_t launch(float* store, const int* slots, const void* events, co
                           const float* R, int B, int E, int G, int d, int S,
                           cudaStream_t stream) {
   const int U = 1 << TAU, gmax = S > 0 ? (G + S - 1) / S : 0;
-  if (d <= 0 || d % 8 != 0 || d > 128 || S < 1 || S > G ||
+  if (d <= 0 || d % 4 != 0 || d > 128 || S < 1 || S > G ||
       gmax * U > kItems * (kThreads / (d / 4)))
     return cudaErrorInvalidValue;
   if (B == 0 || E == 0) return cudaSuccess;

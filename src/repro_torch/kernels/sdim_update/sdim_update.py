@@ -74,8 +74,8 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise ValueError(f"sdim_update: shapes store {tuple(store.shape)} "
                          f"events {tuple(events.shape)} slots "
                          f"{tuple(slots.shape)} mask {tuple(mask.shape)}")
-    if not 1 <= tau <= 4 or d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"sdim_update: the kernel takes tau 1..4 and d a multiple of 8 "
+    if not 1 <= tau <= 4 or d % 4 or not 4 <= d <= 128:
+        raise ValueError(f"sdim_update: the kernel takes tau 1..4 and d a multiple of 4 "
                          f"up to 128; got tau {tau}, d {d}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:

@@ -1,6 +1,6 @@
 """Serving launcher of the port:
 
-    python -m repro_torch.launch.serve --arch sdim-paper --requests N \\
+    python -m repro_torch.launch.serve --arch ARCH --requests N \\
         --candidates C --micro-batch B [--fused-serve] \\
         [--table-dtype fp32|bf16|int8|fp8] [--hot-capacity K \\
         [--warm-capacity W --store-dir DIR] [--policy clock|lru] \\
@@ -17,8 +17,13 @@ synthetic requests (served one by one, or in micro-batches). The tiered
 store, async ingest, admission control and tracing are ``CTRServer.build``'s
 (``serve/``); at the end it prints the async-ingest stats, the tier sizes,
 the admission summary, ``health_snapshot``, the metrics summary and the
-trace report. Runs on the card unless ``--device cpu`` is given; without
-CUDA and without that flag it fails. Sharding (``--shards``/``--mesh``) and
+trace report. ARCH is any id of ``configs.registry.ARCH_IDS``
+(``wide-deep``, ``bst``, ``dien``, ``bert4rec``, ``sdim-paper``); as in
+the reference, ``wide-deep`` (whose fields ``CTRServer`` does not take)
+is scored by ``model.apply`` over the user's history broadcast to the
+candidates, with field ids drawn from the request stream's generator.
+Runs on the card unless ``--device cpu`` is given; without CUDA and
+without that flag it fails. Sharding (``--shards``/``--mesh``) and
 ``--profile`` are not ported yet.
 """
 from __future__ import annotations
@@ -130,6 +135,18 @@ def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
         p.error(f"--trace-slow-ms must be >= 0, got {args.trace_slow_ms}")
 
 
+@torch.no_grad()
+def _score_fields(model, req, sparse_ids: np.ndarray, device) -> np.ndarray:
+    """wide_deep's scores of one request: ``model.apply`` over the user's
+    history broadcast to the C candidates, with their field ids."""
+    _, user, ci, cc, ctx = req
+    C = len(ci)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device)
+    batch = {k: t(np.broadcast_to(v, (C, v.shape[-1]))) for k, v in user.items()}
+    batch.update(cand_item=t(ci), cand_cat=t(cc), ctx=t(ctx), sparse_ids=t(sparse_ids))
+    return model.apply(batch).cpu().numpy()
+
+
 def main(argv=None):
     p = _parser()
     args = p.parse_args(argv)
@@ -188,6 +205,11 @@ def main(argv=None):
         ci = rng.integers(0, cfg.n_items, args.candidates).astype(np.int32)
         cc = rng.integers(0, cfg.n_cats, args.candidates).astype(np.int32)
         req = (f"u{r}", user, ci, cc, np.zeros((args.candidates, cfg.ctx_dim), np.float32))
+        if cfg.arch == "wide_deep":
+            sids = rng.integers(0, cfg.field_vocab,
+                                (args.candidates, cfg.n_sparse)).astype(np.int32)
+            report(r, _score_fields(model, req, sids, device))
+            continue
         if args.micro_batch > 1:
             pending.append((r, req))
             if len(pending) == args.micro_batch:

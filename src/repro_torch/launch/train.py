@@ -1,13 +1,16 @@
 """Training launcher of the port:
 
-    python -m repro_torch.launch.train --arch sdim-paper [--full] [--steps N]
+    python -m repro_torch.launch.train --arch ARCH [--full] [--steps N]
         [--batch B] [--ckpt DIR] [--compress {int8,bf16}] [--device {cuda,cpu}]
 
 Trains the arch's SMOKE configuration (``--full``: FULL) from a seeded
 initialization through the whole loop: the deterministic restartable
 stream, the optimizer, checkpoints and the watchdog. The recsys settings
-are the JAX launcher's: batches of ``generate_batch_graded``, Adagrad with
-lr 0.05 and global-norm clipping at 10. ``--device`` defaults to cuda,
+are the JAX launcher's: batches of ``generate_batch_graded`` (for
+``wide-deep`` with field ids from ``np.random.default_rng(seed + 7)``),
+Adagrad with lr 0.05 and global-norm clipping at 10. ARCH is any id of
+``configs.registry.ARCH_IDS``: ``wide-deep``, ``bst``, ``dien``,
+``bert4rec`` or ``sdim-paper``. ``--device`` defaults to cuda,
 where the kernels and their backward kernels run; ``--device cpu`` runs
 their plain PyTorch versions. Interest kinds other than the config's
 (any of ``core.interest.INTEREST_KINDS``) are trained by building the
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch.configs import registry
@@ -32,9 +36,18 @@ from repro_torch.train.optimizer import OptimizerConfig
 
 def recsys_setup(cfg, batch: int):
     """(loss_fn, stream, optimizer config) of the JAX launcher's recsys
-    training (``repro/launch/train.py:66-78``)."""
+    training (``repro/launch/train.py:60-78``)."""
     dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items, n_cats=cfg.n_cats)
-    stream = DeterministicStream(lambda seed: generate_batch_graded(dcfg, batch, seed), 0)
+
+    def make(seed):
+        b = generate_batch_graded(dcfg, batch, seed)
+        if cfg.arch == "wide_deep":
+            rng = np.random.default_rng(seed + 7)
+            b["sparse_ids"] = rng.integers(0, cfg.field_vocab,
+                                           (batch, cfg.n_sparse)).astype(np.int32)
+        return b
+
+    stream = DeterministicStream(make, 0)
     opt = OptimizerConfig(kind="adagrad", lr=0.05, clip_norm=10.0)
     return (lambda model, b: model.loss(b)[0]), stream, opt
 

@@ -1,4 +1,4 @@
-"""Dense layers: Linear, Embedding, MLP as ``nn.Module``s.
+"""Dense layers: Linear, LayerNorm, Embedding, MLP as ``nn.Module``s.
 
 Counterpart of ``repro/nn/layers.py``. Initialisation follows the JAX
 package's distributions (Linear: LeCun normal truncated at ±2σ, zero bias;
@@ -11,6 +11,7 @@ package's ``w``.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
@@ -19,6 +20,8 @@ from torch.nn import functional as F
 
 ACTIVATIONS = {
     "relu": F.relu,
+    # jax.nn.gelu defaults to the tanh approximation; PyTorch's to erf
+    "gelu": partial(F.gelu, approximate="tanh"),
     "identity": lambda x: x,
 }
 
@@ -33,6 +36,23 @@ class Linear(nn.Linear):
                                   generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis with params ``scale`` (ones) and
+    ``bias`` (zeros): computed in fp32 and cast back to the input's dtype,
+    eps 1e-5, as the JAX package's ``LayerNorm``."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mu).mean(-1, keepdim=True)
+        return ((xf - mu) * torch.rsqrt(var + 1e-5) * self.scale + self.bias).to(x.dtype)
 
 
 class Embedding(nn.Embedding):

@@ -3,14 +3,20 @@ back out.
 
 ``params_np`` is ``repro.models.ctr.CTRModel.init``'s pytree with every leaf
 converted to a numpy array (``jax.tree_util.tree_map(np.asarray, params)``):
-``item_emb.table``, ``cat_emb.table``, ``head.fc{i}.{w,b}`` and the interest
-kind's own: ``interest.buffers.R`` (kinds ``sdim``, either family, and
-``eta``), ``interest.mlp.fc{i}.{w,b}`` (``din_mlp``) and
-``interest.{wq,wk}.w`` (``ubr4ctr``). JAX's ``Linear.w`` is (in, out);
-``nn.Linear.weight`` is (out, in), so it is transposed. ``export_params`` is the inverse of
-``load_jax_params``; with ``grad=True`` it exports the parameters'
-gradients in the same tree (zeros for R, a buffer, as ``jax.grad`` gives
-it), so tests compare whole gradient trees.
+``item_emb.table``, ``cat_emb.table``, ``head.fc{i}.{w,b}``, the interest
+kind's own (``interest.buffers.R`` for kinds ``sdim``, either family, and
+``eta``; ``interest.mlp.fc{i}.{w,b}`` for ``din_mlp``;
+``interest.{wq,wk}.w`` for ``ubr4ctr``) and the arch's own:
+``field_tables.f{i}``, ``wide.f{i}`` and ``wide_bias`` (wide_deep, rows of
+the port's stacked tables); ``pos_emb`` and the list ``blocks`` of
+``{attn.{wq,wk,wv,wo}.{w,b}, ln1.{scale,bias}, mlp.fc{0,1}.{w,b},
+ln2.{scale,bias}}`` (bst, bert4rec); ``in_proj.{w,b}`` (bert4rec);
+``gru.{wx,wh,b}``, ``augru.{wx,wh,b}`` and ``att_proj.w`` (dien). JAX's
+``Linear.w`` is (in, out); ``nn.Linear.weight`` is (out, in), so it is
+transposed; the GRU matrices keep the JAX layout. ``export_params`` is the
+inverse of ``load_jax_params``; with ``grad=True`` it exports the
+parameters' gradients in the same tree (zeros for R, a buffer, as
+``jax.grad`` gives it), so tests compare whole gradient trees.
 """
 from __future__ import annotations
 
@@ -28,67 +34,104 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(src)
 
 
-@torch.no_grad()
-def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
-    """Copy ``params_np`` into ``model`` in place; returns the model."""
-    _copy(model.item_emb.weight, params_np["item_emb"]["table"], "item_emb.table")
-    _copy(model.cat_emb.weight, params_np["cat_emb"]["table"], "cat_emb.table")
-    for name, (t, transpose) in _interest_tensors(model).items():
-        src = params_np["interest"]
-        for key in name.split("."):
-            src = src[key]
-        _copy(t, np.asarray(src).T if transpose else src, f"interest.{name}")
-    head = params_np["head"]
-    if len(head) != model.head.n_layers:
-        raise ValueError(f"head has {len(head)} layers, the model "
-                         f"{model.head.n_layers}")
-    for i in range(model.head.n_layers):
-        layer = getattr(model.head, f"fc{i}")
-        _copy(layer.weight, np.asarray(head[f"fc{i}"]["w"]).T, f"head.fc{i}.w")
-        _copy(layer.bias, head[f"fc{i}"]["b"], f"head.fc{i}.b")
-    return model
+def _linear(out: dict, path: str, layer) -> None:
+    out[f"{path}.w"] = (layer.weight, None, True)
+    if layer.bias is not None:
+        out[f"{path}.b"] = (layer.bias, None, False)
 
 
-def _interest_tensors(model: CTRModel) -> dict:
-    """The interest module's tensors by their name in the JAX package's
-    ``interest`` subtree (dot-separated) -> (tensor, transposed there)."""
+def _mlp(out: dict, path: str, mlp) -> None:
+    for i in range(mlp.n_layers):
+        _linear(out, f"{path}.fc{i}", getattr(mlp, f"fc{i}"))
+
+
+def _leaves(model: CTRModel) -> dict:
+    """Every tensor of ``model`` by its path in the JAX package's tree
+    (dot-separated; a list index is a number) -> (tensor, row of its first
+    axis or None, transposed there)."""
+    out = {"item_emb.table": (model.item_emb.weight, None, False),
+           "cat_emb.table": (model.cat_emb.weight, None, False)}
     interest, kind = model.interest, model.cfg.interest.kind
     if kind in ("sdim", "eta"):
-        return {"buffers.R": (interest.R, False)}
-    if kind == "din_mlp":
-        mlp = interest.din.mlp
-        out = {}
-        for i in range(mlp.n_layers):
-            layer = getattr(mlp, f"fc{i}")
-            out[f"mlp.fc{i}.w"] = (layer.weight, True)
-            out[f"mlp.fc{i}.b"] = (layer.bias, False)
-        return out
-    if kind == "ubr4ctr":
-        return {"wq.w": (interest.ubr.wq.weight, True), "wk.w": (interest.ubr.wk.weight, True)}
-    return {}
+        out["interest.buffers.R"] = (interest.R, None, False)
+    elif kind == "din_mlp":
+        _mlp(out, "interest.mlp", interest.din.mlp)
+    elif kind == "ubr4ctr":
+        _linear(out, "interest.wq", interest.ubr.wq)
+        _linear(out, "interest.wk", interest.ubr.wk)
+    _mlp(out, "head", model.head)
+    arch = model.cfg.arch
+    if arch == "wide_deep":
+        for i in range(model.cfg.n_sparse):
+            out[f"field_tables.f{i}"] = (model.field_tables, i, False)
+            out[f"wide.f{i}"] = (model.wide, i, False)
+        out["wide_bias"] = (model.wide_bias, None, False)
+    elif arch in ("bst", "bert4rec"):
+        out["pos_emb"] = (model.pos_emb, None, False)
+        if arch == "bert4rec":
+            _linear(out, "in_proj", model.in_proj)
+        for j, block in enumerate(model.blocks):
+            for name in ("wq", "wk", "wv", "wo"):
+                _linear(out, f"blocks.{j}.attn.{name}", getattr(block.attn, name))
+            for ln in ("ln1", "ln2"):
+                norm = getattr(block, ln)
+                out[f"blocks.{j}.{ln}.scale"] = (norm.scale, None, False)
+                out[f"blocks.{j}.{ln}.bias"] = (norm.bias, None, False)
+            _mlp(out, f"blocks.{j}.mlp", block.mlp)
+    elif arch == "dien":
+        for rnn in ("gru", "augru"):
+            for name in ("wx", "wh", "b"):
+                out[f"{rnn}.{name}"] = (getattr(getattr(model, rnn), name), None, False)
+        _linear(out, "att_proj", model.att_proj)
+    return out
+
+
+def _get(tree, path: str):
+    for key in path.split("."):
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else tree[key]
+    return tree
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_n_leaves(v) for v in tree)
+    return 1
+
+
+@torch.no_grad()
+def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
+    """Copy ``params_np`` into ``model`` in place; returns the model. Raises
+    where a leaf is missing, does not fit, or the tree holds leaves the
+    model does not."""
+    leaves = _leaves(model)
+    for path, (t, row, transpose) in leaves.items():
+        src = np.asarray(_get(params_np, path))
+        _copy(t if row is None else t[row], src.T if transpose else src, path)
+    if _n_leaves(params_np) != len(leaves):
+        raise ValueError(f"params hold {_n_leaves(params_np)} leaves, the model "
+                         f"{len(leaves)}")
+    return model
 
 
 def export_params(model: CTRModel, grad: bool = False) -> dict:
     """The JAX package's params pytree of ``model`` as numpy arrays (its
     ``.grad``s with ``grad=True``; zeros where a parameter has none),
     copied: later updates of the model do not reach them."""
-    def arr(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+    def arr(t: torch.Tensor, row, transpose: bool) -> np.ndarray:
         if grad:
             t = torch.zeros_like(t) if t.grad is None else t.grad
-        x = t.detach().float().cpu().numpy()
+        x = (t if row is None else t[row]).detach().float().cpu().numpy()
         return np.array(x.T if transpose else x, order="C")    # a copy, never a view
 
-    interest: dict = {}
-    for name, (t, transpose) in _interest_tensors(model).items():
-        *path, leaf = name.split(".")
-        node = interest
-        for key in path:
+    tree: dict = {"interest": {}}
+    for path, (t, row, transpose) in _leaves(model).items():
+        *keys, leaf = path.split(".")
+        node = tree
+        for key in keys:
             node = node.setdefault(key, {})
-        node[leaf] = arr(t, transpose)      # R, a buffer, has no .grad: zeros
-    head = {}
-    for i in range(model.head.n_layers):
-        layer = getattr(model.head, f"fc{i}")
-        head[f"fc{i}"] = {"w": arr(layer.weight, transpose=True), "b": arr(layer.bias)}
-    return {"item_emb": {"table": arr(model.item_emb.weight)},
-            "cat_emb": {"table": arr(model.cat_emb.weight)},
-            "interest": interest, "head": head}
+        node[leaf] = arr(t, row, transpose)    # R, a buffer, has no .grad: zeros
+    if "blocks" in tree:                       # the reference keeps the blocks in a list
+        tree["blocks"] = [tree["blocks"][str(j)] for j in range(len(tree["blocks"]))]
+    return tree

@@ -359,37 +359,38 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """bse_encode takes tau 1..4, d a multiple of 8 up to 128 (one float4
+    """bse_encode takes tau 1..4, d a multiple of 4 up to 128 (one float4
     column a lane) and L up to MAX_L (its batch list lives in shared
-    memory); sdim_fused_serve and sdim_query take tau 1..4, rows in whole
-    16-byte loads and 16-byte aligned operands; sdim_update takes tau 1..4,
-    d a multiple of 8 up to 128, 1..G group slices that keep a CTA at
-    update_cells(d) cells, and 16-byte aligned operands."""
+    memory); sdim_fused_serve and sdim_query take tau 1..4, a user's table
+    in whole 16-byte loads and 16-byte aligned operands; sdim_update takes
+    tau 1..4, d a multiple of 4 up to 128, 1..G group slices that keep a
+    CTA at update_cells(d) cells, and 16-byte aligned operands."""
     seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
-    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
         bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
     with pytest.raises(ValueError, match="tau 1..4"):
         bse_encode(seq[..., :128].contiguous(), mask, R[:, :128].contiguous(), 5)
-    with pytest.raises(ValueError, match="d a multiple of 8"):
-        bse_encode(seq[..., :12].contiguous(), mask, R[:8, :12].contiguous(), 2)
+    with pytest.raises(ValueError, match="d a multiple of 4"):
+        bse_encode(seq[..., :10].contiguous(), mask, R[:8, :10].contiguous(), 2)
     long_seq = torch.zeros((1, MAX_L + 8, 16), device=dev)
     with pytest.raises(ValueError, match="L up to"):
         bse_encode(long_seq, torch.ones((1, MAX_L + 8), device=dev), R[:8, :16].contiguous(), 2)
     rows = torch.randn((3, 4, 4, 8), device=dev)
-    store, scales = quantize_rows(rows, dtype=torch.int8)      # d = 8: 8 bytes a row
     slots = torch.tensor([0, 2], dtype=torch.int32, device=dev)
     q8 = q[:, :, :8].contiguous()
-    with pytest.raises(ValueError, match="16-byte loads"):
-        sdim_fused_serve(store, slots, q8, R[:8, :8].contiguous(), 2, scales=scales)
+    store, scales = quantize_rows(rows[:, :1, :2, :4].contiguous(), dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte loads"):     # G = 1, U = 2, d = 4: 8 bytes
+        sdim_fused_serve(store, slots, q[:, :, :4].contiguous(), R[:1, :4].contiguous(), 1,
+                         scales=scales)
     shifted = torch.empty(q8.numel() + 1, device=dev)[1:].view(q8.shape)
     shifted.copy_(q8)                           # contiguous, 4 bytes past a boundary
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_fused_serve(rows, slots, shifted, R[:8, :8].contiguous(), 2)
-    # sdim_query: bf16 rows of d = 4 are 8 bytes; tau 5; a shifted table
+    # sdim_query: d = 6 (not a multiple of 4); tau 5; a shifted table
     with pytest.raises(ValueError, match="16-byte loads"):
-        sdim_query(q[:2, :, :4].contiguous(), torch.zeros((2, 4, 4, 4), device=dev,
+        sdim_query(q[:2, :, :6].contiguous(), torch.zeros((2, 4, 4, 6), device=dev,
                                                           dtype=torch.bfloat16),
-                   R[:8, :4].contiguous(), 2)
+                   R[:8, :6].contiguous(), 2)
     with pytest.raises(ValueError, match="tau 1..4"):
         sdim_query(q[:2, :, :8].contiguous(), torch.zeros((2, 2, 32, 8), device=dev),
                    R[:10, :8].contiguous(), 5)
@@ -397,14 +398,14 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted_t = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_query(q8, shifted_t, R[:8, :8].contiguous(), 2)
-    # sdim_update: d = 12 and d = 136, tau 5, too few or too many slices, a shifted store
+    # sdim_update: d = 10 and d = 136, tau 5, too few or too many slices, a shifted store
     ev = torch.zeros((2, 3, 8), device=dev)
     ev_mask = torch.ones((2, 3), device=dev)
     store8 = torch.zeros((4, 4, 4, 8), device=dev)
-    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
-        sdim_update(torch.zeros((4, 4, 4, 12), device=dev), slots, ev[..., :4].repeat(1, 1, 3),
-                    ev_mask, R[:8, :12].contiguous(), 2)
-    with pytest.raises(ValueError, match="d a multiple of 8 up to 128"):
+    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
+        sdim_update(torch.zeros((4, 4, 4, 10), device=dev), slots,
+                    torch.zeros((2, 3, 10), device=dev), ev_mask, R[:8, :10].contiguous(), 2)
+    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
         sdim_update(torch.zeros((4, 4, 4, 136), device=dev), slots,
                     torch.zeros((2, 3, 136), device=dev), ev_mask, R[:8].contiguous(), 2)
     with pytest.raises(ValueError, match="tau 1..4"):
@@ -420,6 +421,134 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted_s = torch.empty(store8.numel() + 1, device=dev)[1:].view(store8.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_update(shifted_s, slots, ev, ev_mask, R[:8, :8].contiguous(), 2)
+
+
+# ---------------------------------------------------------------------------
+# dien's behavior width, d = 2 * 18 = 36: rows of 144 bytes in fp32, 72 in
+# bf16 and 36 in int8 and fp8
+# ---------------------------------------------------------------------------
+D36_SHAPES = [
+    (16, 1024, 128, 36, 48, 3),   # dien FULL: a 16-request burst (G = 16, U = 8)
+    (3, 301, 70, 36, 10, 2),      # L = 301 (a 5-row tail batch), G = 5: uneven splits
+    (4, 67, 33, 36, 24, 4),       # tau = 4, G = 6
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D36_SHAPES)
+def test_bse_encode_and_its_backward_at_d36(shape, dtype, layout, dev):
+    """bse_encode (a bf16 batch of an odd number of 72-byte rows ends in an
+    8-byte tail) and its backward against the plain versions, the same bits
+    on two launches; (B > 1) a fully masked last user."""
+    seq, _, mask, R, rng = _inputs(shape, dev, dtype, seed=11)
+    B, tau = shape[0], shape[-1]
+    mask = _layout(mask, layout, rng)
+    out = bse_encode(seq, mask, R, tau)
+    torch.testing.assert_close(out, bse_encode_ref(seq, mask, R, tau), **ATOMIC)
+    assert torch.equal(out, bse_encode(seq, mask, R, tau))
+    if B > 1:
+        assert not out[-1].any()
+    dT = torch.randn(out.shape, device=dev)
+    grad = bse_encode_backward(dT, seq, mask, R, tau)
+    assert grad.dtype == dtype and torch.equal(grad, bse_encode_backward(dT, seq, mask, R, tau))
+    torch.testing.assert_close(grad.float(),
+                               bse_encode_backward_ref(dT, seq, mask, R, tau).float(),
+                               **(FP32 if dtype == torch.float32 else BF16_OUT))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dups", "two-slots"])
+@pytest.mark.parametrize("E", [5, 16, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D36_SHAPES)
+def test_sdim_update_at_d36(shape, dtype, E, case, dev):
+    """bf16 event rows of 72 bytes start on 8-byte boundaries (E = 5: every
+    other row), where the kernel stages them itself instead of by bulk
+    copy; the same bits on two launches."""
+    store, slots, events, mask, R = _update_case(shape, case, dev, dtype, E, seed=12)
+    tau = shape[-1]
+    a, b = store.clone(), store.clone()
+    sdim_update(a, slots, events, mask, R, tau)
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    _check_update(store, a, b, slots, events, mask, R)
+    again = sdim_update(store.clone(), slots, events, mask, R, tau)
+    assert torch.equal(a.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D36_SHAPES)
+def test_bse_serve_at_d36(shape, dtype, layout, dev):
+    """bf16 rows staged in 8-byte pieces; (B > 1) a fully masked last user
+    reads zero; the same bits on two launches."""
+    seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=13)
+    mask = _layout(mask, layout, rng)
+    out = bse_serve(q, seq, mask, R, shape[-1])
+    torch.testing.assert_close(out, bse_serve_ref(q, seq, mask, R, shape[-1]), **FP32)
+    assert torch.equal(out, bse_serve(q, seq, mask, R, shape[-1]))
+    if shape[0] > 1:
+        assert not out[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D36_SHAPES)
+def test_sdim_query_and_its_backward_at_d36(shape, table_dtype, dev):
+    """Tables of 72-byte bf16 rows (the default wire): a CTA's rows are an
+    even number, so its 16-byte loads start on a 16-byte boundary; the
+    backward (fp32) at C and at C = 1, the training step's, compared times
+    each row's n as test_sdim_query_backward_kernel does (a zero row's
+    gradient is g / 1e-6)."""
+    seq, q, mask, R, rng = _inputs(shape, dev, seed=14)
+    tau = shape[-1]
+    mask = _layout(mask, "random", rng)
+    table = bse_encode_ref(seq, mask, R, tau).to(table_dtype)
+    out = sdim_query(q, table, R, tau)
+    torch.testing.assert_close(out, sdim_query_ref(q, table, R, tau), **FP32)
+    assert torch.equal(out, sdim_query(q, table, R, tau))
+    if shape[0] > 1:
+        assert not out[-1].any()
+    t32 = table.float()
+    n = torch.sqrt(torch.sum(t32 * t32, -1, keepdim=True) + 1e-12)
+    for qq in (q, q[:, :1].contiguous()):
+        dout = torch.randn(qq.shape, device=dev)
+        torch.testing.assert_close(sdim_query_backward(dout, qq, t32, R, tau) * n,
+                                   sdim_query_backward_ref(dout, qq, t32, R, tau) * n, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", D36_SHAPES)
+def test_sdim_fused_serve_at_d36(shape, store_dtype, dev):
+    """Rows of 144 / 72 / 36 / 36 bytes: 16-byte loads that straddle two
+    rows take each value's own row scale; absent users and a zero row read
+    zero; the same bits on two launches."""
+    B, L, C, d, m, tau = shape
+    _, q, _, R, rng = _inputs(shape, dev, seed=15)
+    N = 2 * B + 1
+    rows = torch.from_numpy(rng.standard_normal((N, m // tau, 1 << tau, d)).astype(
+        np.float32)).to(dev)
+    rows *= torch.from_numpy(rng.uniform(0.1, 10.0, (N, m // tau, 1 << tau, 1)).astype(
+        np.float32)).to(dev)                        # rows of unlike scales
+    rows[0] = 0
+    scales = None
+    if store_dtype in ("int8", "fp8"):
+        store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[store_dtype])
+    else:
+        store = rows.to(torch.bfloat16 if store_dtype == "bf16" else torch.float32)
+    slots = torch.tensor(rng.integers(0, N, B), dtype=torch.int32, device=dev)
+    slots[-1] = 0
+    present = torch.ones(B, device=dev)
+    present[1::3] = 0
+    run = lambda: sdim_fused_serve(store, slots, q, R, tau, scales=scales, present=present)
+    out = run()
+    torch.testing.assert_close(out, sdim_fused_serve_ref(store, slots, q, R, tau, scales=scales,
+                                                         present=present), **FP32)
+    assert torch.equal(out, run())
+    assert not out[1::3].any() and not out[-1].any()
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,10 @@ run here; this pins the algebra they implement.
   order and the CTA writes its slice of the table once;
 - sdim_fused_serve and sdim_query (one body, fused_query.cuh): each of S
   ranks dequantizes and l2-normalizes its ceil(G*U/S) rows of the user's
-  table (the store row slots[b], or row b of a fetched table), hashes its
+  table (the store row slots[b], or row b of a fetched table), rounded up
+  to the fewest rows that fill whole 16-byte loads (at d = 36: 2 bf16
+  rows, 4 int8 or fp8 rows), reading them 16 bytes at a time, a load that
+  straddles two rows taking each value's own row scale; it hashes its
   ceil(C/S) candidates for all G groups, and answers them by summing the
   owners' rows in g order, then / G * present; absent users read no row;
 - sdim_update: the first batch row of each slot owns it; each of S CTAs
@@ -39,6 +42,10 @@ run here; this pins the algebra they implement.
   with an online max and denominator each, merged in group order, then
   dS * seq summed per row group and merged in order: dq) and a CTA per 32
   rows that loops over the candidates in order (dseq).
+
+Each kernel is also emulated at dien's behavior width d = 36 (the
+``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
+72 in bf16 and 36 in int8 or fp8.
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
@@ -212,7 +219,9 @@ def test_target_attention_schedule_at_short_histories(shape, S, layout):
     (3, 300, 70, 64, 24, 4, 4),      # G = 6, U = 16 over S = 4
     (2, 1024, 128, 128, 48, 3, 8),   # the main shape: G = 16, 2 groups a rank
     (2, 1000, 100, 128, 36, 3, 8),   # G = 12 over S = 8: ranges 1 or 2
-], ids=["G6-S4", "G6-U16-S4", "full-width", "G12-S8"])
+    (2, 1024, 128, 36, 48, 3, 8),    # dien FULL: d = 36, 2 groups a rank
+    (3, 301, 70, 36, 10, 2, 5),      # d = 36, G = 5: a group a rank
+], ids=["G6-S4", "G6-U16-S4", "full-width", "G12-S8", "dien-d36", "G5-d36"])
 def test_bse_serve_schedule_matches_jax(shape, layout):
     B, L, C, d, m, tau, S = shape
     rng = np.random.default_rng(12)
@@ -268,7 +277,9 @@ def bse_encode_schedule(seq, mask, R, tau, S, batch=8, warps=16):
     (3, 300, 64, 24, 4),         # G = 6, U = 16: at least 3 slices
     (2, 1024, 128, 48, 3),       # the main shape: G = 16
     (2, 1000, 128, 36, 3),       # G = 12: uneven slices at S = 8
-], ids=["G6", "G6-U16", "full-width", "G12"])
+    (2, 1024, 36, 48, 3),        # dien FULL: d = 36
+    (3, 301, 36, 10, 2),         # d = 36, G = 5, a 5-row tail batch
+], ids=["G6", "G6-U16", "full-width", "G12", "dien-d36", "G5-d36"])
 def test_bse_encode_schedule_matches_jax(shape, layout, S):
     """S = 8 or 16 slices, capped as the wrapper caps them (at most G, at
     least enough for MAX_CELLS sums a CTA): every element is written once,
@@ -303,15 +314,36 @@ def test_encode_splits_fill_one_wave(B, G, U, want):
     assert B * S <= 132 or S == -(-G // (MAX_CELLS // U))
 
 
-def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32):
+def _dequantize_by_loads(vals, scale, d, V):
+    """fused_query.cuh's dequantizing read of a rank's rows, flattened
+    (n * d values): V values a 16-byte load; value k of the load at e is in
+    row (e + k) // d, tracked as the kernel tracks it."""
+    out = np.empty_like(vals)
+    for e in range(0, len(vals), V):
+        r = e // d
+        nxt, s = (r + 1) * d - e, scale[r]
+        for k in range(V):
+            if k == nxt:
+                r, nxt = r + 1, nxt + d
+                s = scale[r]
+            out[e + k] = vals[e + k] * s
+    return out
+
+
+def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32,
+                              itemsize=4):
     """fused_query.cuh's schedule in numpy fp32: a cluster of S ranks per
     user splits the (g, u) rows and the candidates. ``slots`` None: user b
-    reads row b (sdim_query); ``present`` None: every user present."""
+    reads row b (sdim_query); ``present`` None: every user present;
+    ``itemsize``: the stored dtype's bytes a value."""
     B, C, d = q.shape
     G, U = R.shape[0] // tau, 1 << tau
     GU = G * U
     Rg = R.reshape(G, tau, d)
-    per_row, per_c = -(-GU // S), -(-C // S)
+    V = 16 // itemsize                            # values a 16-byte load
+    align = next(a for a in range(1, 17) if a * d * itemsize % 16 == 0)
+    assert GU * d * itemsize % 16 == 0            # the wrappers' check
+    per_row, per_c = -(-(-(-GU // S)) // align) * align, -(-C // S)
     out = np.full((B, C, d), np.nan, np.float32)
     for b in range(B):
         pres = np.float32(1.0) if present is None else present[b]
@@ -325,7 +357,9 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
         slices = []
         for rank in range(S):                     # each rank: its rows, normalized
             lo, hi = min(GU, rank * per_row), min(GU, (rank + 1) * per_row)
-            t = row[lo:hi] * scale[lo:hi, None]
+            start = (slot * GU + lo) * d * itemsize
+            assert start % 16 == 0 and (hi - lo) * d * itemsize % 16 == 0  # whole loads
+            t = _dequantize_by_loads(row[lo:hi].reshape(-1), scale[lo:hi], d, V).reshape(-1, d)
             norm = np.sqrt((t * t).sum(-1, keepdims=True) + np.float32(1e-12))
             slices.append(t / norm)
         for rank in range(S):                     # each rank: its candidates
@@ -351,7 +385,9 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
     (2, 128, 128, 48, 3, 8),     # the main shape: 16 rows and 16 candidates a rank
     (3, 100, 128, 36, 3, 8),     # G = 12 over 8 ranks, C = 100
     (2, 5, 128, 48, 3, 7),       # 7 ranks: uneven rows, ranks without candidates
-], ids=["small", "U16", "full-width", "G12", "S7-C5"])
+    (3, 128, 36, 48, 3, 8),      # dien FULL: d = 36, 16 rows a rank
+    (3, 70, 36, 10, 2, 8),       # d = 36, G*U = 20: 3 rows a rank rounded up to the loads
+], ids=["small", "U16", "full-width", "G12", "S7-C5", "dien-d36", "G5-d36"])
 def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
     """The fused store read, and (``query-*``) sdim_query's identity slots:
     user b reads row b of a fetched fp32 or bf16 table, held against JAX's
@@ -367,7 +403,8 @@ def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
         jtable = jnp.asarray(tables, jnp.bfloat16 if store_dtype == "query-bf16"
                              else jnp.float32)
         table = np.asarray(jtable).astype(np.float32)  # the fetched values, exactly
-        out = sdim_fused_serve_schedule(table, None, None, None, q, R, tau, S)
+        out = sdim_fused_serve_schedule(table, None, None, None, q, R, tau, S,
+                                        itemsize=jtable.dtype.itemsize)
         # the kernel reads a bf16 table exactly into fp32; the oracle would
         # keep it in bf16, so it gets the same values in fp32
         ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R),
@@ -377,6 +414,7 @@ def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
         return
     N = 2 * B + 1
     rows = rng.standard_normal((N, G, U, d)).astype(np.float32)
+    rows *= rng.uniform(0.1, 10.0, (N, G, U, 1)).astype(np.float32)  # unlike row scales
     rows[0] = 0.0                                 # a fully masked user's zero table
     slots = rng.permutation(N)[:B].astype(np.int32)
     slots[0] = 0
@@ -390,7 +428,8 @@ def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
         jstore = jnp.asarray(rows, jnp.bfloat16 if store_dtype == "bf16" else jnp.float32)
     store = np.asarray(jstore).astype(np.float32)  # the stored values, exactly
     scales = None if jscales is None else np.asarray(jscales)
-    out = sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S)
+    out = sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S,
+                                    itemsize=jstore.dtype.itemsize)
     ref = np.asarray(jsdim_fused_serve_ref(jstore, jnp.asarray(slots), jnp.asarray(q),
                                            jnp.asarray(R), tau, scales=jscales,
                                            present=jnp.asarray(present)))
@@ -467,7 +506,9 @@ def _update_inputs(rng, B, E, d, m, tau, case, N=None):
     (6, 16, 128, 48, 3, 4),      # the main path's width: 4 groups a CTA, E = 16
     (5, 16, 128, 36, 3, 8),      # G = 12 over S = 8: slices of 1 or 2
     (4, 80, 64, 24, 4, 2),       # U = 16, E = 80: two event batches a row
-], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80"])
+    (6, 16, 36, 48, 3, 3),       # dien FULL: d = 36, the fewest slices (6 groups a CTA)
+    (6, 5, 36, 10, 2, 4),        # d = 36, E = 5: bf16 rows on 8-byte boundaries
+], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80", "dien-d36", "G5-E5-d36"])
 def test_sdim_update_schedule_matches_jax(shape, case, dtype):
     """Against JAX's segment-sum oracle and the Pallas kernel in interpret
     mode: every element is written at most once, a zero-mask row and an
@@ -518,6 +559,8 @@ def test_sdim_update_schedule_no_events_writes_nothing():
     (64, 6, 4, 32, 4),           # as many as one wave allows
     (16, 6, 4, 32, 6),           # never more than G
     (0, 16, 8, 128, 16),         # no batch row
+    (32, 16, 8, 36, 8),          # d = 36: 28 cells a pass of the block, 56 a CTA
+    (1024, 16, 8, 36, 3),        # d = 36, a large batch: the fewest slices, 6 groups each
 ])
 def test_update_splits_fill_one_wave(B, G, U, d, want):
     S = update_splits(B, G, U, d, n_sm=132)
@@ -651,7 +694,8 @@ def _jax_sdim_backward(dout, q, seq, mask, R, tau):
     (2, 40, 3, 32, 12, 2),
     (3, 100, 40, 64, 24, 4),     # U = 16; two candidate passes
     (2, 64, 1, 128, 48, 3),      # the main shape, C = 1 (pointwise CTR)
-], ids=["G6", "G6-U16", "full-width"])
+    (2, 64, 1, 36, 48, 3),       # dien FULL's width, C = 1
+], ids=["G6", "G6-U16", "full-width", "dien-d36"])
 def test_sdim_backward_schedules_match_jax(shape, layout):
     """bse_encode_backward and sdim_query_backward split as the wrappers
     split them on a 132-SM card (and with fewer, uneven slices): every
