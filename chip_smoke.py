@@ -33,13 +33,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    same bits on two launches and are timed at C=1. target_attention_flash
    and its backward are also held and timed at the retrieval kinds' folded
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
-   retrieved; some with fewer valid rows, some with none). Then the seven
-   kernels phase 10 runs at dien's behavior width d = 36 (bse_encode and
-   its backward, sdim_update, sdim_fused_serve in four store dtypes,
-   sdim_query and its backward, bse_serve) at the same main-path shapes,
-   with bf16 rows of 72 bytes (an odd L, odd E) and int8 / fp8 rows of 36
-   bytes: against their plain versions, the same bits on two launches,
-   timed (the ``d36`` entry of each kernel's JSON).
+   retrieved; some with fewer valid rows, some with none). Then the same
+   checks and timings (one function, ``kernel_phase``, at a width) for
+   the seven kernels phase 10 runs at dien's behavior width d = 36
+   (bse_encode and its backward, sdim_update, sdim_fused_serve in four
+   store dtypes, sdim_query and its backward, bse_serve), where bf16 rows
+   are 72 bytes (an odd L, odd E) and int8 / fp8 rows 36 (the ``d36`` entry
+   of each kernel's JSON); target_attention_flash takes d % 8 == 0 only.
+   sdim_fused_serve's int8 store is timed beside its fp32 one at both
+   widths.
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -122,13 +124,14 @@ Phases, each of which raises (exit code != 0) when it fails:
 10. archs path — wide_deep, bst, dien and bert4rec at their FULL configs
    (seeded random weights from the port's init), one after another, the
    card freed between them; the item rows each burst, its events and
-   step 1 hash are screened first. bst, dien and bert4rec serve a burst
-   of 16 requests of 128 candidates through ``CTRServer`` decoupled
-   unfused (bf16 wire), fused off an fp32 and an int8 store, and inline;
-   32 single events fold between the burst and its repeat. wide_deep
-   scores through ``score_candidates_many(..., sparse_ids=...,
+   step 1 hash are screened first. bst, dien and bert4rec serve 64
+   requests of 128 candidates in bursts of 16 through ``CTRServer``
+   decoupled unfused (bf16 wire), fused off an fp32 and an int8 store, and
+   inline; 32 single events fold after the first pass, then the requests
+   are served twice more. wide_deep scores the same bursts three times
+   through ``score_candidates_many(..., sparse_ids=...,
    bucket_tables=...)`` on the bf16 wire and inline. Each arch then takes
-   3 Adagrad steps at batch 32. Checks, each failing the phase: each kernel
+   8 Adagrad steps at batch 32. Checks, each failing the phase: each kernel
    a server called, held against its plain version on copies of its own
    inputs (phase 9's ``KernelInputs`` seam); the burst's long branch and a
    batch's logits through the kernels against the plain versions;
@@ -137,7 +140,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    scores; step 1's gradients (GRAD_TOL); finite losses; every kernel of
    the arch launched (bse_encode, sdim_query, bse_serve and both backward
    kernels; sdim_update and sdim_fused_serve for the CTRServer archs).
-   Prints ms/request (second burst) and ms/step per arch, one profiled
+   Prints per arch the median, min and max ms/request of the 8 bursts
+   after the fold (each setup) and ms/step of steps 2-8, one profiled
    fused burst of each CTRServer arch, one profiled training step of each
    arch (after the launch counts were read) and peak training memory.
 
@@ -200,11 +204,12 @@ PROD_HOT, PROD_WARM, PROD_USERS = 1024, 2048, 4096
 PROD_EV, PROD_EV_EVERY, PROD_REVISIT = 32, 4, 256
 PROD_QUEUE = 4 * PROD_USERS   # ingest queue bound: the first pass drops nothing
 # phase 10: the four other CTR archs at FULL width, each on its own card-
-# resident model; ARCH_EV single events folded between two bursts, ARCH_STEPS
-# Adagrad steps. Phase 3 also times the seven kernels these archs widen at
-# dien's behavior width D36 = 2 * 18.
+# resident model; ARCH_REQUESTS requests served in bursts of BURST, ARCH_EV
+# single events folded, the requests served twice more (the timed bursts);
+# ARCH_STEPS Adagrad steps (step 1 untimed). Phase 3 also times the seven
+# kernels these archs widen at dien's behavior width D36 = 2 * 18.
 ARCHS = ("wide_deep", "bst", "dien", "bert4rec")
-ARCH_EV, ARCH_STEPS = 32, 3
+ARCH_REQUESTS, ARCH_EV, ARCH_STEPS = 64, 32, 8
 D36 = 36
 
 
@@ -280,7 +285,14 @@ def check_close(name, out, ref, atol, rtol) -> float:
     return float(err.max())
 
 
-def kernel_phase(torch, dev):
+def kernel_phase(torch, dev, d: int = D):
+    """Phase 3 at behavior width ``d`` (m = M, tau = TAU): each kernel
+    against its plain version at B = 32 and at every shape the main paths
+    give it, the same bits on two launches, then timed at the main path's
+    shape. At d = D the nine kernels (kernel 6 and its backward also at the
+    folded retrieval shape); at dien's D36 the seven SDIM kernels
+    (target_attention_flash and its backward take d % 8 == 0 only).
+    Returns each kernel's row of the JSON line."""
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket.sdim_bucket import (
         bse_encode, bse_encode_cuda, bse_encode_ref)
@@ -289,44 +301,46 @@ def kernel_phase(torch, dev):
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
     from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
-    from repro_torch.kernels.target_attn.target_attn import (
-        target_attention_flash, target_attention_flash_ref)
     from repro_torch.serve.quant import quantize_rows
 
-    rng = np.random.default_rng(0)
-    Rn = rng.standard_normal((M, D)).astype(np.float32)
+    rng = np.random.default_rng(0 if d == D else d)
+    Rn = rng.standard_normal((M, d)).astype(np.float32)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     R = t(Rn)
 
     def history(b, l, dtype=torch.float32, masked_user=False):
-        """Margin-screened behaviors (b, l, D) with front-padded ragged masks;
+        """Margin-screened behaviors (b, l, d) with front-padded ragged masks;
         with ``masked_user`` user 1 has every behavior masked."""
-        seq = t(screened_normal(rng, (b, l, D), Rn, dtype)).to(dtype)
+        seq = t(screened_normal(rng, (b, l, d), Rn, dtype)).to(dtype)
         lengths = rng.integers(l // 4, l + 1, b)
         if masked_user:
             lengths[1] = 0
         return seq, t((np.arange(l)[None] >= (l - lengths[:, None])).astype(np.float32))
 
     rows = []
-    hash_flop = 2 * M * D + G * D          # per hashed row: projection + bucket add
+    hash_flop = 2 * M * d + G * d          # per hashed row: projection + bucket add
+    at = "" if d == D else f" at d = {d}"
 
-    # bse_encode at B=32 (fp32, bf16), at the main path's int8 event fold
-    # (EV_USERS users, E events), at the burst with a fully masked user
-    # (zero table) and at the main path's history burst (BURST users, L
-    # behaviors); timed at the burst, also at 8 and 16 group slices per user.
+    # bse_encode at B=32 (fp32, bf16), bf16 at the burst with L - 1 rows (at
+    # d % 8 == 4 an odd user's rows start off a 16-byte boundary), at the
+    # main path's int8 event fold (EV_USERS users, E events), at the burst
+    # with a fully masked user (zero table) and at the main path's history
+    # burst (BURST users, L behaviors); timed at the burst, at d = D also at
+    # 8 and 16 group slices per user.
     err = 0.0
     for b, l, dtype, masked in ((B, L, torch.float32, False), (B, L, torch.bfloat16, False),
+                                (BURST, L - 1, torch.bfloat16, False),
                                 (EV_USERS, E, torch.float32, False),
                                 (BURST, L, torch.float32, True),
                                 (BURST, L, torch.float32, False)):
         seq, mask = history(b, l, dtype, masked)
         out = bse_encode(seq, mask, R, TAU)
-        err = max(err, check_close(f"bse_encode {(b, l, D)} {dtype}", out,
+        err = max(err, check_close(f"bse_encode {(b, l, d)} {dtype}", out,
                                    bse_encode_ref(seq, mask, R, TAU), **ATOMIC))
         if masked and bool(out[1].any()):
             raise AssertionError("bse_encode: a fully masked user has a non-zero table")
     same_bits("bse_encode", partial(bse_encode, seq, mask, R, TAU))
-    for splits in (8, 16):
+    for splits in (8, 16) if d == D else ():
         fn = partial(bse_encode_cuda, seq, mask, R, TAU, splits)
         check_close(f"bse_encode, {splits} group slices", fn(),
                     bse_encode_ref(seq, mask, R, TAU), **ATOMIC)
@@ -338,8 +352,8 @@ def kernel_phase(torch, dev):
                  "src/repro/kernels/sdim_bucket/sdim_bucket.py:117", err,
                  partial(bse_encode, seq, mask, R, TAU),
                  partial(bse_encode_ref, seq, mask, R, TAU),
-                 bound(valid * D * 4 + mask.numel() * 4 + R.numel() * 4
-                       + BURST * G * U * D * 4, valid * hash_flop), None))
+                 bound(valid * d * 4 + mask.numel() * 4 + R.numel() * 4
+                       + BURST * G * U * d * 4, valid * hash_flop), None))
 
     # sdim_query (unfused decoupled path: bf16 wire tables, and fp32) at
     # B=32 with a fully masked user (a zero table, read as zero) and at the
@@ -348,16 +362,16 @@ def kernel_phase(torch, dev):
     for b in (B, BURST):
         table = bse_encode_ref(*history(b, L, masked_user=b == B), R, TAU)
         wire = table.to(torch.bfloat16)
-        q = t(screened_normal(rng, (b, C, D), Rn))
+        q = t(screened_normal(rng, (b, C, d), Rn))
         for tb in (wire, table):
             out = sdim_query(q, tb, R, TAU)
-            err = max(err, check_close(f"sdim_query {(b, C, D)} {tb.dtype}", out,
+            err = max(err, check_close(f"sdim_query {(b, C, d)} {tb.dtype}", out,
                                        sdim_query_ref(q, tb, R, TAU), **FP32))
             if b == B and bool(out[1].any()):
                 raise AssertionError("sdim_query: a zero table read non-zero interest")
     for tb in (wire, table):
         same_bits(f"sdim_query {tb.dtype}", partial(sdim_query, q, tb, R, TAU))
-    query_flop = BURST * C * hash_flop + BURST * G * U * 3 * D
+    query_flop = BURST * C * hash_flop + BURST * G * U * 3 * d
     rows.append(("sdim_query", "src/repro_torch/kernels/sdim_query/csrc/sdim_query.cu",
                  "src/repro/kernels/sdim_query/sdim_query.py:52", err,
                  partial(sdim_query, q, wire, R, TAU),
@@ -367,11 +381,11 @@ def kernel_phase(torch, dev):
     # sdim_fused_serve (fused path): fp32 / bf16 / int8 / fp8 stores at B=32
     # with a ragged present; fp32 / int8 / fp8 at the main path's burst,
     # every user present, user 1's history fully masked (a zero row); timed
-    # at the burst on the fp32 store
+    # at the burst on the fp32 store, the int8 store's time printed beside
     errs = {}
     for b, ragged in ((B, True), (BURST, False)):
         table = bse_encode_ref(*history(b, L, masked_user=not ragged), R, TAU)
-        q = t(screened_normal(rng, (b, C, D), Rn))
+        q = t(screened_normal(rng, (b, C, d), Rn))
         store = torch.cat([table, torch.zeros_like(table)])
         slots = torch.randperm(2 * b, generator=torch.Generator().manual_seed(b))[:b].to(
             dev, torch.int32)
@@ -384,7 +398,7 @@ def kernel_phase(torch, dev):
             stores.insert(1, ("bf16", store.to(torch.bfloat16), None))
         for name, st, sc in stores:
             errs[name] = max(errs.get(name, 0.0), check_close(
-                f"sdim_fused_serve {(b, C, D)} {name}",
+                f"sdim_fused_serve {(b, C, d)} {name}",
                 sdim_fused_serve(st, slots, q, R, TAU, scales=sc, present=present),
                 sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc, present=present),
                 **FP32))
@@ -392,43 +406,55 @@ def kernel_phase(torch, dev):
     for name, st, sc in stores:
         same_bits(f"sdim_fused_serve {name}",
                   partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present))
+    _, st, sc = stores[1]
+    fn = partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present)
+    k1, k2 = time_ms(fn), time_ms(fn)
+    print(f"sdim_fused_serve{at}, int8 store: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), "
+          f"device {device_ms(fn)} ms")
     n_present = int(present.sum())          # an absent user needs only its zero write
     rows.append(("sdim_fused_serve",
                  "src/repro_torch/kernels/sdim_fused_serve/csrc/sdim_fused_serve.cu",
                  "src/repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86", max(errs.values()),
                  partial(sdim_fused_serve, store, slots, q, R, TAU, present=present),
                  partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
-                 bound(n_present * (G * U * D * 4 + C * D * 4) + q.numel() * 4
+                 bound(n_present * (G * U * d * 4 + C * d * 4) + q.numel() * 4
                        + R.numel() * 4 + BURST * 8,
-                       n_present * C * hash_flop + n_present * G * U * 3 * D), None))
+                       n_present * C * hash_flop + n_present * G * U * 3 * d), None))
 
-    # sdim_update (event ingest, the main path's EV_USERS x E burst):
-    # a duplicate-heavy burst (every row on one of two slots), then
+    # sdim_update (event ingest, the main path's EV_USERS x E burst): bf16
+    # events with E = 5 (at d % 8 == 4 rows on 8-byte boundaries), a
+    # duplicate-heavy burst (every row on one of two slots), then
     # duplicate slots and a zero-mask row at slot 0; timed on the latter
-    events = t(screened_normal(rng, (EV_USERS, E, D), Rn))
+    ev5 = t(screened_normal(rng, (EV_USERS, 5, d), Rn, torch.bfloat16)).to(torch.bfloat16)
+    mask5 = t((rng.random((EV_USERS, 5)) > 0.2).astype(np.float32))
+    events = t(screened_normal(rng, (EV_USERS, E, d), Rn))
     ev_mask = t((rng.random((EV_USERS, E)) > 0.2).astype(np.float32))
     ev_mask[0] = 0
     ev_slots = torch.tensor(np.r_[0, rng.integers(1, EV_USERS // 2, EV_USERS - 1)],
                             dtype=torch.int32, device=dev)
     two_slots = torch.tensor(np.where(rng.random(EV_USERS) > 0.5, 3, 5), dtype=torch.int32,
                              device=dev)
-    base = torch.randn((2 * EV_USERS, G, U, D), device=dev)
+    base = torch.randn((2 * EV_USERS, G, U, d), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(d))
     err = 0.0
-    for name, sl in (("two slots", two_slots), ("duplicate slots", ev_slots)):
+    for name, sl, ev, em in (("bf16, E = 5", ev_slots, ev5, mask5),
+                             ("two slots", two_slots, events, ev_mask),
+                             ("duplicate slots", ev_slots, events, ev_mask)):
         a, b = base.clone(), base.clone()
-        sdim_update(a, sl, events, ev_mask, R, TAU)
-        sdim_update_ref(b, sl, events, ev_mask, R, TAU)
-        err = max(err, check_close(f"sdim_update {name}", a, b, **FP32))
+        sdim_update(a, sl, ev, em, R, TAU)
+        sdim_update_ref(b, sl, ev, em, R, TAU)
+        err = max(err, check_close(f"sdim_update d = {d}, {name}", a, b, **FP32))
     if not torch.equal(a[0], base[0]):
         raise AssertionError("sdim_update: a zero-mask row at slot 0 wrote to slot 0")
-    same_bits("sdim_update", lambda: sdim_update(base.clone(), ev_slots, events, ev_mask, R, TAU))
+    for ev, em in ((ev5, mask5), (events, ev_mask)):
+        same_bits("sdim_update", lambda: sdim_update(base.clone(), ev_slots, ev, em, R, TAU))
     touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
     ev_valid = float(ev_mask.sum())
     rows.append(("sdim_update", "src/repro_torch/kernels/sdim_update/csrc/sdim_update.cu",
                  "src/repro/kernels/sdim_update/sdim_update.py:77", err,
                  partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
                  partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
-                 bound(2 * touched * G * U * D * 4 + ev_valid * D * 4 + ev_mask.numel() * 4
+                 bound(2 * touched * G * U * d * 4 + ev_valid * d * 4 + ev_mask.numel() * 4
                        + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop), None))
 
     # bse_serve (inline path): B=32 and the main path's burst in fp32 and
@@ -440,9 +466,9 @@ def kernel_phase(torch, dev):
                                 (BURST, 100, torch.float32, True),
                                 (BURST, C, torch.float32, False)):
         seq, mask = history(b, L, dtype, masked)
-        q = t(screened_normal(rng, (b, c, D), Rn))
+        q = t(screened_normal(rng, (b, c, d), Rn))
         out = bse_serve(q, seq, mask, R, TAU)
-        err = max(err, check_close(f"bse_serve {(b, L, c, D)} {dtype}", out,
+        err = max(err, check_close(f"bse_serve {(b, L, c, d)} {dtype}", out,
                                    bse_serve_ref(q, seq, mask, R, TAU), **FP32))
         if masked and bool(out[1].any()):
             raise AssertionError("bse_serve: a fully masked user read non-zero interest")
@@ -452,42 +478,11 @@ def kernel_phase(torch, dev):
                  "src/repro/kernels/sdim_serve/sdim_serve.py:68", err,
                  partial(bse_serve, q, seq, mask, R, TAU),
                  partial(bse_serve_ref, q, seq, mask, R, TAU),
-                 bound(valid * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
-                       (valid + BURST * C) * hash_flop + BURST * G * U * 3 * D), None))
-
-    # target_attention_flash (target path): B=32 in fp32 and bf16, the burst
-    # with L=1000, C=100 and a fully masked user (uniform over all L rows),
-    # then the main path's burst; timed there. library_ms: PyTorch's
-    # scaled_dot_product_attention on the same inputs with an additive
-    # 0 / -1e30 mask, in fp32 (never called by the port)
-    import torch.nn.functional as F
-    err = 0.0
-    for b, c, l, dtype, masked in ((B, C, L, torch.float32, False),
-                                   (B, C, L, torch.bfloat16, False),
-                                   (BURST, 100, 1000, torch.float32, True),
-                                   (BURST, C, L, torch.float32, False)):
-        seq, mask = history(b, l, dtype, masked)
-        q = torch.randn((b, c, D), generator=torch.Generator(device=dev).manual_seed(c),
-                        device=dev)
-        err = max(err, check_close(f"target_attention_flash {(b, l, c, D)} {dtype}",
-                                   target_attention_flash(q, seq, mask),
-                                   target_attention_flash_ref(q, seq, mask), **FP32))
-    same_bits("target_attention_flash", partial(target_attention_flash, q, seq, mask))
-    additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
-    library = partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
-    print(f"target attention: |sdpa - plain| max "
-          f"{float((library() - target_attention_flash_ref(q, seq, mask)).abs().max()):.3g}")
-    # a user with a valid row needs only its valid rows (masked ones weigh
-    # exactly 0); a fully masked user needs all L
-    needed = float(sum(L if n == 0 else n for n in mask.sum(1).tolist()))
-    rows.append(("target_attention_flash", "src/repro_torch/kernels/target_attn/csrc/target_attn.cu",
-                 "src/repro/kernels/target_attn/target_attn.py:59", err,
-                 partial(target_attention_flash, q, seq, mask),
-                 partial(target_attention_flash_ref, q, seq, mask),
-                 bound(needed * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4,
-                       4 * C * D * needed), library))
-
-    rows += backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop)
+                 bound(valid * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
+                       (valid + BURST * C) * hash_flop + BURST * G * U * 3 * d), None))
+    if d % 8 == 0:
+        rows.append(target_row(torch, dev, history, d))
+    rows += backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d)
 
     timed = []
     for name, source, replaces, err, kernel, plain, (bound_ms, bound_by), library in rows:
@@ -499,15 +494,54 @@ def kernel_phase(torch, dev):
         timed.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, **dt))
-        print(f"kernel {name}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
+        print(f"kernel {name}{at}: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain "
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
               f"max abs err {err:.3g}")
-    folded = folded_retrieval(torch, dev, rng, t)
-    for k in timed:
-        if k["name"] in folded:
-            k["folded"] = folded[k["name"]]
+    if d == D:
+        folded = folded_retrieval(torch, dev, rng, t)
+        for k in timed:
+            if k["name"] in folded:
+                k["folded"] = folded[k["name"]]
     return timed
+
+
+def target_row(torch, dev, history, d):
+    """Phase 3's row of target_attention_flash at width ``d``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.target_attn.target_attn import (
+        target_attention_flash, target_attention_flash_ref)
+
+    # target_attention_flash (target path): B=32 in fp32 and bf16, the burst
+    # with L=1000, C=100 and a fully masked user (uniform over all L rows),
+    # then the main path's burst; timed there. library_ms: PyTorch's
+    # scaled_dot_product_attention on the same inputs with an additive
+    # 0 / -1e30 mask, in fp32 (never called by the port)
+    err = 0.0
+    for b, c, l, dtype, masked in ((B, C, L, torch.float32, False),
+                                   (B, C, L, torch.bfloat16, False),
+                                   (BURST, 100, 1000, torch.float32, True),
+                                   (BURST, C, L, torch.float32, False)):
+        seq, mask = history(b, l, dtype, masked)
+        q = torch.randn((b, c, d), generator=torch.Generator(device=dev).manual_seed(c),
+                        device=dev)
+        err = max(err, check_close(f"target_attention_flash {(b, l, c, d)} {dtype}",
+                                   target_attention_flash(q, seq, mask),
+                                   target_attention_flash_ref(q, seq, mask), **FP32))
+    same_bits("target_attention_flash", partial(target_attention_flash, q, seq, mask))
+    additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
+    library = partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
+    print(f"target attention: |sdpa - plain| max "
+          f"{float((library() - target_attention_flash_ref(q, seq, mask)).abs().max()):.3g}")
+    # a user with a valid row needs only its valid rows (masked ones weigh
+    # exactly 0); a fully masked user needs all L
+    needed = float(sum(L if n == 0 else n for n in mask.sum(1).tolist()))
+    return ("target_attention_flash", "src/repro_torch/kernels/target_attn/csrc/target_attn.cu",
+            "src/repro/kernels/target_attn/target_attn.py:59", err,
+            partial(target_attention_flash, q, seq, mask),
+            partial(target_attention_flash_ref, q, seq, mask),
+            bound(needed * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4, 4 * C * d * needed),
+            library)
 
 
 def folded_retrieval(torch, dev, rng, t):
@@ -568,12 +602,13 @@ def folded_retrieval(torch, dev, rng, t):
     return info
 
 
-def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
+def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
     """Phase 3 for the three backward kernels (no TPU kernel corresponds to
-    them: the JAX package differentiates the XLA formulation), at the
-    training step's shapes (B = TRAIN_B users, L, C = 1) and at C, against
-    their closed-form plain versions; each timed at the training shape.
-    ``history`` is kernel_phase's maker of screened, ragged behaviors."""
+    them: the JAX package differentiates the XLA formulation), at width d,
+    at the training step's shapes (B = TRAIN_B users, L, C = 1) and at C,
+    against their closed-form plain versions; each timed at the training
+    shape (target_attention_flash_backward at d % 8 == 0 only). ``history``
+    is kernel_phase's maker of screened, ragged behaviors."""
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket import sdim_bucket as kb
     from repro_torch.kernels.sdim_query import sdim_query as kq
@@ -587,18 +622,18 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
 
     # bse_encode_backward: fp32 and bf16 behaviors, a fully masked user,
     # L = 0; timed on fp32 behaviors with ragged front-padded masks
-    err, dT = 0.0, randn(TRAIN_B, G, U, D)
+    err, dT = 0.0, randn(TRAIN_B, G, U, d)
     for dtype, masked in ((torch.bfloat16, False), (torch.float32, True),
                           (torch.float32, False)):
         seq, mask = history(TRAIN_B, L, dtype, masked)
         out = k["bse_encode_backward"](dT, seq, mask, R, TAU)
-        err = max(err, check_close(f"bse_encode_backward {(TRAIN_B, L, D)} {dtype}", out,
+        err = max(err, check_close(f"bse_encode_backward {(TRAIN_B, L, d)} {dtype}", out,
                                    k["bse_encode_backward_ref"](dT, seq, mask, R, TAU),
                                    **(FP32 if dtype == torch.float32 else BF16_OUT)))
         if masked and bool(out[1].any()):
             raise AssertionError("bse_encode_backward: a fully masked user got a gradient")
     empty = k["bse_encode_backward"](dT, seq[:, :0].contiguous(), mask[:, :0].contiguous(), R, TAU)
-    if empty.shape != (TRAIN_B, 0, D):
+    if empty.shape != (TRAIN_B, 0, d):
         raise AssertionError(f"bse_encode_backward at L = 0: shape {tuple(empty.shape)}")
     same_bits("bse_encode_backward", partial(k["bse_encode_backward"], dT, seq, mask, R, TAU))
     valid = float(mask.sum())
@@ -607,8 +642,8 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
                  "none (gradient of src/repro/kernels/sdim_bucket/sdim_bucket.py:117)", err,
                  partial(k["bse_encode_backward"], dT, seq, mask, R, TAU),
                  partial(k["bse_encode_backward_ref"], dT, seq, mask, R, TAU),
-                 bound(valid * D * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
-                       + dT.numel() * 4, valid * (hash_flop + D)), None))
+                 bound(valid * d * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
+                       + dT.numel() * 4, valid * (hash_flop + d)), None))
 
     # sdim_query_backward: C = 1 (the training step) and C = 128, a fully
     # masked user (a zero table: its gradient is g / 1e-6, so the rows are
@@ -618,10 +653,10 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
     table = k["bse_encode_ref"](*history(TRAIN_B, L, masked_user=True), R, TAU)
     n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
     for c in (C, 0, 1):
-        q = t(screened_normal(rng, (TRAIN_B, c, D), Rn))
-        dout = randn(TRAIN_B, c, D)
+        q = t(screened_normal(rng, (TRAIN_B, c, d), Rn))
+        dout = randn(TRAIN_B, c, d)
         out = k["sdim_query_backward"](dout, q, table, R, TAU)
-        err = max(err, check_close(f"sdim_query_backward {(TRAIN_B, c, D)} (times n)", out * n,
+        err = max(err, check_close(f"sdim_query_backward {(TRAIN_B, c, d)} (times n)", out * n,
                                    k["sdim_query_backward_ref"](dout, q, table, R, TAU) * n,
                                    **FP32))
         if c == 0 and bool(out.any()):
@@ -633,7 +668,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
                  partial(k["sdim_query_backward"], dout, q, table, R, TAU),
                  partial(k["sdim_query_backward_ref"], dout, q, table, R, TAU),
                  bound(2 * q.numel() * 4 + 2 * table.numel() * 4 + R.numel() * 4,
-                       TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * D), None))
+                       TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d), None))
+    if d % 8:
+        return rows
 
     # target_attention_flash_backward: C = 1 and C = 128 in fp32, bf16
     # behaviors, a fully masked user (uniform weights), C = 0 and L = 0;
@@ -642,13 +679,13 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
     for c, dtype, masked in ((C, torch.float32, False), (1, torch.bfloat16, False),
                              (1, torch.float32, True), (1, torch.float32, False)):
         seq, mask = history(TRAIN_B, L, dtype, masked)
-        q, dout = randn(TRAIN_B, c, D), randn(TRAIN_B, c, D)
+        q, dout = randn(TRAIN_B, c, d), randn(TRAIN_B, c, d)
         out = k["target_attention_flash"](q, seq, mask)
         got = k["target_attention_flash_backward"](dout, q, seq, mask, out)
         ref = k["target_attention_flash_backward_ref"](dout, q, seq, mask, out)
         for name, a, b in (("dq", got[0], ref[0]), ("dseq", got[1], ref[1])):
             err = max(err, check_close(f"target_attention_flash_backward {name} "
-                                       f"{(TRAIN_B, L, c, D)} {dtype}", a, b,
+                                       f"{(TRAIN_B, L, c, d)} {dtype}", a, b,
                                        **(FP32 if a.dtype == torch.float32 else BF16_OUT)))
         if masked and bool(got[0][1].any()):
             raise AssertionError("target_attention_flash_backward: a fully masked user's "
@@ -665,193 +702,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop):
                  "src/repro_torch/kernels/target_attn/csrc/target_attn_backward.cu",
                  "none (gradient of src/repro/kernels/target_attn/target_attn.py:59)", err, fn,
                  partial(k["target_attention_flash_backward_ref"], dout, q, seq, mask, out),
-                 bound(needed * D * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
-                       10 * D * needed), None))
+                 bound(needed * d * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
+                       10 * d * needed), None))
     return rows
-
-
-def width36_phase(torch, dev) -> dict:
-    """Phase 3 at dien FULL's behavior width d = D36 (m = 48, tau = 3):
-    the five forward kernels the archs run and the two backward kernels of
-    the sdim long branch, against their plain versions at the main paths'
-    shapes (the 16-request burst, the 32-user event fold, the training step
-    at C = 1) with the dtypes phase 10 gives them and the others each takes
-    (bf16 behaviors, 72-byte bf16 rows; int8 and fp8 stores of 36-byte
-    rows), the same bits on two launches, then timed as the main rows are.
-    Returns each kernel's measurements by name."""
-    from repro_torch.kernels.screen import screened_normal
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import (
-        bse_encode, bse_encode_backward, bse_encode_backward_ref, bse_encode_ref)
-    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
-        sdim_fused_serve, sdim_fused_serve_ref)
-    from repro_torch.kernels.sdim_query.sdim_query import (
-        sdim_query, sdim_query_backward, sdim_query_backward_ref, sdim_query_ref)
-    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
-    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
-    from repro_torch.serve.quant import quantize_rows
-
-    d = D36
-    rng = np.random.default_rng(36)
-    Rn = rng.standard_normal((M, d)).astype(np.float32)
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    R = t(Rn)
-    gen = torch.Generator(device=dev).manual_seed(36)
-    hash_flop = 2 * M * d + G * d
-
-    def history(b, l, dtype=torch.float32, masked_user=False):
-        seq = t(screened_normal(rng, (b, l, d), Rn, dtype)).to(dtype)
-        lengths = rng.integers(l // 4, l + 1, b)
-        if masked_user:
-            lengths[1] = 0
-        return seq, t((np.arange(l)[None] >= (l - lengths[:, None])).astype(np.float32))
-
-    out = {}
-
-    def measure(name, shape, err, kernel, plain, bound_):
-        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
-        out[name] = dict(d=d, shape=shape, ms=min(k1, k2), plain_ms=min(p1, p2),
-                         device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
-                         bound_ms=bound_[0], bound_by=bound_[1], max_abs_err=err)
-        print(f"kernel {name} at d = {d} {shape}: {min(k1, k2):.4f} ms (runs {k1:.4f}/"
-              f"{k2:.4f}), plain {min(p1, p2):.4f} ms, bound {bound_[0]:.4f} ms ({bound_[1]}); "
-              f"device {out[name]['device_ms']} ms, plain device "
-              f"{out[name]['plain_device_ms']} ms; max abs err {err:.3g}")
-
-    # bse_encode: the burst in fp32 with a fully masked user, in bf16 with
-    # L - 1 rows (an odd user's 72-byte rows start off a 16-byte boundary),
-    # the event fold; timed at the burst in fp32
-    err = 0.0
-    for b, l, dtype, masked in ((BURST, L, torch.float32, True), (BURST, L - 1, torch.bfloat16, False),
-                                (EV_USERS, E, torch.float32, False), (BURST, L, torch.float32, False)):
-        seq, mask = history(b, l, dtype, masked)
-        got = bse_encode(seq, mask, R, TAU)
-        err = max(err, check_close(f"bse_encode d={d} {(b, l)} {dtype}", got,
-                                   bse_encode_ref(seq, mask, R, TAU), **ATOMIC))
-        if masked and bool(got[1].any()):
-            raise AssertionError("bse_encode: a fully masked user has a non-zero table")
-    same_bits("bse_encode d36", partial(bse_encode, seq, mask, R, TAU))
-    valid = float(mask.sum())
-    measure("bse_encode", [BURST, L, d], err, partial(bse_encode, seq, mask, R, TAU),
-            partial(bse_encode_ref, seq, mask, R, TAU),
-            bound(valid * d * 4 + mask.numel() * 4 + R.numel() * 4 + BURST * G * U * d * 4,
-                  valid * hash_flop))
-
-    # sdim_query: bf16 wire tables (72-byte rows) and fp32, a zero table;
-    # timed on the bf16 wire
-    table = bse_encode_ref(*history(BURST, L, masked_user=True), R, TAU)
-    q = t(screened_normal(rng, (BURST, C, d), Rn))
-    wire, err = table.to(torch.bfloat16), 0.0
-    for tb in (wire, table):
-        got = sdim_query(q, tb, R, TAU)
-        err = max(err, check_close(f"sdim_query d={d} {tb.dtype}", got,
-                                   sdim_query_ref(q, tb, R, TAU), **FP32))
-        same_bits(f"sdim_query d36 {tb.dtype}", partial(sdim_query, q, tb, R, TAU))
-        if bool(got[1].any()):
-            raise AssertionError("sdim_query: a zero table read non-zero interest")
-    measure("sdim_query", [BURST, C, d, "bf16"], err, partial(sdim_query, q, wire, R, TAU),
-            partial(sdim_query_ref, q, wire, R, TAU),
-            bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4,
-                  BURST * C * hash_flop + BURST * G * U * 3 * d))
-
-    # sdim_fused_serve: fp32, bf16, int8 and fp8 stores (16-byte loads that
-    # straddle rows take each value's own scale), absent users; timed fp32
-    store = torch.cat([table, torch.zeros_like(table)])
-    slots = torch.randperm(2 * BURST, generator=torch.Generator().manual_seed(36))[:BURST].to(
-        dev, torch.int32)
-    present = torch.ones(BURST, device=dev)
-    present[3::4] = 0
-    err = 0.0
-    for name, st, sc in (("fp32", store, None), ("bf16", store.to(torch.bfloat16), None),
-                         ("int8", *quantize_rows(store, dtype=torch.int8)),
-                         ("fp8", *quantize_rows(store, dtype=torch.float8_e4m3fn))):
-        fn = partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present)
-        err = max(err, check_close(f"sdim_fused_serve d={d} {name}", fn(),
-                                   sdim_fused_serve_ref(st, slots, q, R, TAU, scales=sc,
-                                                        present=present), **FP32))
-        same_bits(f"sdim_fused_serve d36 {name}", fn)
-    n_present = int(present.sum())
-    measure("sdim_fused_serve", [BURST, C, d, "fp32"], err,
-            partial(sdim_fused_serve, store, slots, q, R, TAU, present=present),
-            partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
-            bound(n_present * (G * U * d * 4 + C * d * 4) + q.numel() * 4 + R.numel() * 4
-                  + BURST * 8, n_present * C * hash_flop + n_present * G * U * 3 * d))
-
-    # sdim_update: the event fold in fp32 and in bf16 with E = 5 (72-byte
-    # rows on 8-byte boundaries), duplicate slots; timed in fp32
-    base = torch.randn((2 * EV_USERS, G, U, d), generator=gen, device=dev)
-    ev_slots = torch.tensor(np.r_[0, rng.integers(1, EV_USERS // 2, EV_USERS - 1)],
-                            dtype=torch.int32, device=dev)
-    err = 0.0
-    for e, dtype in ((5, torch.bfloat16), (E, torch.float32)):
-        events = t(screened_normal(rng, (EV_USERS, e, d), Rn, dtype)).to(dtype)
-        ev_mask = t((rng.random((EV_USERS, e)) > 0.2).astype(np.float32))
-        a, b = base.clone(), base.clone()
-        sdim_update(a, ev_slots, events, ev_mask, R, TAU)
-        sdim_update_ref(b, ev_slots, events, ev_mask, R, TAU)
-        err = max(err, check_close(f"sdim_update d={d} E={e} {dtype}", a, b, **FP32))
-        same_bits(f"sdim_update d36 {dtype}",
-                  lambda: sdim_update(base.clone(), ev_slots, events, ev_mask, R, TAU))
-    touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
-    ev_valid = float(ev_mask.sum())
-    measure("sdim_update", [EV_USERS, E, d], err,
-            partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
-            partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
-            bound(2 * touched * G * U * d * 4 + ev_valid * d * 4 + ev_mask.numel() * 4
-                  + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop))
-
-    # bse_serve: fp32 with a fully masked user, bf16 (rows staged in 8-byte
-    # pieces); timed in fp32
-    err = 0.0
-    for dtype, masked in ((torch.bfloat16, False), (torch.float32, True), (torch.float32, False)):
-        seq, mask = history(BURST, L, dtype, masked)
-        got = bse_serve(q, seq, mask, R, TAU)
-        err = max(err, check_close(f"bse_serve d={d} {dtype}", got,
-                                   bse_serve_ref(q, seq, mask, R, TAU), **FP32))
-        if masked and bool(got[1].any()):
-            raise AssertionError("bse_serve: a fully masked user read non-zero interest")
-    same_bits("bse_serve d36", partial(bse_serve, q, seq, mask, R, TAU))
-    valid = float(mask.sum())
-    measure("bse_serve", [BURST, L, C, d], err, partial(bse_serve, q, seq, mask, R, TAU),
-            partial(bse_serve_ref, q, seq, mask, R, TAU),
-            bound(valid * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
-                  (valid + BURST * C) * hash_flop + BURST * G * U * 3 * d))
-
-    # bse_encode_backward at the training step (TRAIN_B users, L), bf16 and
-    # fp32; timed in fp32
-    dT = torch.randn((TRAIN_B, G, U, d), generator=gen, device=dev)
-    err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        seq, mask = history(TRAIN_B, L, dtype)
-        err = max(err, check_close(f"bse_encode_backward d={d} {dtype}",
-                                   bse_encode_backward(dT, seq, mask, R, TAU),
-                                   bse_encode_backward_ref(dT, seq, mask, R, TAU),
-                                   **(FP32 if dtype == torch.float32 else BF16_OUT)))
-    same_bits("bse_encode_backward d36", partial(bse_encode_backward, dT, seq, mask, R, TAU))
-    valid = float(mask.sum())
-    measure("bse_encode_backward", [TRAIN_B, L, d], err,
-            partial(bse_encode_backward, dT, seq, mask, R, TAU),
-            partial(bse_encode_backward_ref, dT, seq, mask, R, TAU),
-            bound(valid * d * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
-                  + dT.numel() * 4, valid * (hash_flop + d)))
-
-    # sdim_query_backward at C = 1 (the training step) and C, compared
-    # times each row's n (a zero row's gradient is g / 1e-6); timed at C = 1
-    table = bse_encode_ref(*history(TRAIN_B, L, masked_user=True), R, TAU)
-    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
-    err = 0.0
-    for c in (C, 1):
-        qc = t(screened_normal(rng, (TRAIN_B, c, d), Rn))
-        dout = torch.randn((TRAIN_B, c, d), generator=gen, device=dev)
-        err = max(err, check_close(f"sdim_query_backward d={d} C={c} (times n)",
-                                   sdim_query_backward(dout, qc, table, R, TAU) * n,
-                                   sdim_query_backward_ref(dout, qc, table, R, TAU) * n, **FP32))
-    same_bits("sdim_query_backward d36", partial(sdim_query_backward, dout, qc, table, R, TAU))
-    measure("sdim_query_backward", [TRAIN_B, 1, d], err,
-            partial(sdim_query_backward, dout, qc, table, R, TAU),
-            partial(sdim_query_backward_ref, dout, qc, table, R, TAU),
-            bound(2 * qc.numel() * 4 + 2 * table.numel() * 4 + R.numel() * 4,
-                  TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d))
-    return out
 
 
 def request_stream(n_requests: int, cfg):
@@ -869,14 +722,18 @@ def request_stream(n_requests: int, cfg):
     return out
 
 
-def serve_all(torch, name, srv, requests, wrappers):
+def serve_all(torch, name, srv, requests, wrappers, times=None):
     """Serve ``requests`` in bursts of BURST; returns the (n, C) scores and
-    each kernel's launches per burst."""
+    each kernel's launches per burst. ``times``, a list, gets each burst's
+    ms/request (the server's own clock)."""
     before = {w.__name__: w.launches for w in wrappers}
     srv.stats = type(srv.stats)()
     out = []
     for i in range(0, len(requests), BURST):
+        spent = srv.stats.total_time_s
         out.extend(srv.handle_requests(requests[i:i + BURST]))
+        if times is not None:
+            times.append(1e3 * (srv.stats.total_time_s - spent) / len(requests[i:i + BURST]))
     torch.cuda.synchronize()
     scores = np.stack(out)
     if scores.shape != (len(requests), C) or not np.isfinite(scores).all():
@@ -1847,14 +1704,21 @@ def arch_checks(torch, model, burst, batch, refs, label) -> None:
           f"logits of {TRAIN_B} max abs err {e2:.3g}")
 
 
+def steady(times) -> dict:
+    """Median and range of steady bursts' ms/request or steps' ms."""
+    return {"median": statistics.median(times), "min": min(times), "max": max(times),
+            "n": len(times)}
+
+
 def arch_serving(torch, dev, wrappers, model, requests, events, label) -> dict:
     """bst, dien and bert4rec through ``CTRServer``: decoupled unfused on the
     bf16 wire, fused off an fp32 and an int8 store, inline; each serves the
-    burst, folds the events (decoupled) and serves it again. Each kernel a
-    server called is held against its plain version on the server's own
-    inputs; inline against a decoupled server with an fp32 wire (INLINE_TOL),
-    fused against unfused (WIRE_TOL). Returns ms/request of the second
-    burst by setup."""
+    requests in bursts of BURST, folds the events (decoupled) and serves
+    them twice more. Each kernel a server called is held against its plain
+    version on the server's own inputs; inline against a decoupled server
+    with an fp32 wire (INLINE_TOL), fused against unfused (WIRE_TOL).
+    Returns by setup the ms/request of the bursts after the fold
+    (``steady``)."""
     from repro_torch.serve.ctr_server import CTRServer
 
     setups = {"unfused": (dict(mode="decoupled"), {"encode", "update", "query"}),
@@ -1867,20 +1731,22 @@ def arch_serving(torch, dev, wrappers, model, requests, events, label) -> dict:
         srv = CTRServer.build(model, None, device=dev, **kw)
         caps = KernelInputs(torch)
         model.engine.profiler = caps
+        times = []
         try:
             first, _ = serve_all(torch, f"{label} {name}", srv, requests, wrappers)
             if srv.bse is not None:
                 srv.bse.ingest_events(*events)
             again, _ = serve_all(torch, f"{label} {name}, again"
                                  + (f" after {ARCH_EV} events" if srv.bse else ""),
-                                 srv, requests, wrappers)
+                                 srv, requests, wrappers, times)
+            serve_all(torch, f"{label} {name}, a third time", srv, requests, wrappers, times)
         finally:
             model.engine.profiler = None
-        scores[name], ms[name] = (first, again), srv.stats.ms_per_request
+        scores[name], ms[name] = (first, again), steady(times)
         production_kernel_checks(torch, f"{label} {name}", caps.calls, expected)
         if name == "fused":
             with uncounted():
-                profile_burst(torch, f"{label} fused", srv, requests)
+                profile_burst(torch, f"{label} fused", srv, requests[:BURST])
         del srv
     with uncounted():                       # a comparison server: its launches are not the path's
         ref_srv = CTRServer.build(model, None, "decoupled", wire_dtype=torch.float32, device=dev)
@@ -1902,50 +1768,65 @@ def arch_serving(torch, dev, wrappers, model, requests, events, label) -> dict:
 def wide_deep_serving(torch, dev, wrappers, model, burst, sparse_ids, label) -> dict:
     """wide_deep, whose fields ``CTRServer`` does not take, through
     ``score_candidates_many(..., sparse_ids=..., bucket_tables=...)`` on
-    the bf16 wire and inline, each burst timed on the host clock; each
-    kernel held against its plain version on the path's inputs, inline
-    against fp32 tables (INLINE_TOL) and the bf16 wire (WIRE_TOL)."""
-    users = {k: burst[k] for k in ("hist_items", "hist_cats", "hist_mask")}
-    args = (users, burst["cand_item"], burst["cand_cat"], burst["ctx"])
+    the bf16 wire and inline, in bursts of BURST, three times; each burst
+    timed on the host clock; each kernel held against its plain version on
+    the path's inputs, inline against fp32 tables (INLINE_TOL) and the bf16
+    wire (WIRE_TOL). Returns by setup the ms/request of the second and
+    third passes' bursts (``steady``)."""
+    n = len(burst["cand_item"])
+
+    def score(i, tables=None):
+        part = {k: v[i:i + BURST] for k, v in burst.items()}
+        users = {k: part[k] for k in ("hist_items", "hist_cats", "hist_mask")}
+        kw = {} if tables is None else {
+            "bucket_tables": model.encode_bse_table(users).to(tables)}
+        return model.score_candidates_many(users, part["cand_item"], part["cand_cat"],
+                                           part["ctx"], sparse_ids=sparse_ids[i:i + BURST],
+                                           **kw).cpu().numpy()
+
     caps = KernelInputs(torch)
     model.engine.profiler = caps
-    ms, scores = {}, {}
+    ms, scores = {"decoupled": [], "inline": []}, {}
     try:
         with torch.no_grad():
-            for name in ("decoupled", "inline", "decoupled, again", "inline, again"):
-                t0 = time.perf_counter()
-                kw = {}
-                if name.startswith("decoupled"):
-                    kw["bucket_tables"] = model.encode_bse_table(users).to(torch.bfloat16)
-                out = model.score_candidates_many(*args, sparse_ids=sparse_ids, **kw).cpu().numpy()
-                ms[name] = 1e3 * (time.perf_counter() - t0) / len(out)
-                if out.shape != (BURST, C) or not np.isfinite(out).all():
-                    raise AssertionError(f"{label} {name}: scores {out.shape}, finite "
-                                         f"{np.isfinite(out).all()}")
-                scores[name] = out
-                print(f"serve {label} {name}: {ms[name]:.3f} ms/request over {BURST} requests")
+            for rnd in range(3):
+                for name, tables in (("decoupled", torch.bfloat16), ("inline", None)):
+                    out, times = [], []
+                    for i in range(0, n, BURST):
+                        t0 = time.perf_counter()
+                        out.append(score(i, tables))
+                        times.append(1e3 * (time.perf_counter() - t0) / len(out[-1]))
+                    out = np.concatenate(out)
+                    if out.shape != (n, C) or not np.isfinite(out).all():
+                        raise AssertionError(f"{label} {name}: scores {out.shape}, finite "
+                                             f"{np.isfinite(out).all()}")
+                    scores.setdefault(name, out)
+                    if rnd:
+                        ms[name] += times
+                    print(f"serve {label} {name} (pass {rnd + 1}): "
+                          f"{statistics.median(times):.3f} ms/request median over "
+                          f"{len(times)} bursts of {BURST}")
     finally:
         model.engine.profiler = None
     production_kernel_checks(torch, label, caps.calls, {"encode", "query", "serve"})
     with torch.no_grad(), uncounted():
-        ref = model.score_candidates_many(*args, sparse_ids=sparse_ids,
-                                          bucket_tables=model.encode_bse_table(users))
-        ref = ref.cpu().numpy()
+        ref = np.concatenate([score(i, torch.float32) for i in range(0, n, BURST)])
     for what, want, tol in (("decoupled fp32 tables", ref, INLINE_TOL),
                             ("decoupled bf16 wire", scores["decoupled"], WIRE_TOL)):
         diff = float(np.abs(scores["inline"] - want).max())
         print(f"{label}: |inline - {what}| max {diff:.3g} (tolerance {tol})")
         if diff > tol:
             raise AssertionError(f"{label}: inline vs {what} differ by {diff} (> {tol})")
-    return {"decoupled": ms["decoupled, again"], "inline": ms["inline, again"]}
+    return {k: steady(v) for k, v in ms.items()}
 
 
 def archs_phase(torch, dev, wrappers):
     """Phase 10: wide_deep, bst, dien and bert4rec at their FULL configs
     (seeded random weights from the port's init), one after another, the
-    card freed between them. Each: a burst of BURST requests of C
-    candidates served (``arch_serving``; wide_deep ``wide_deep_serving``),
-    the burst's long branch and a batch's logits held against the plain
+    card freed between them. Each: ARCH_REQUESTS requests of C candidates
+    served in bursts of BURST (``arch_serving``; wide_deep
+    ``wide_deep_serving``), their long branch and a batch's logits held
+    against the plain
     versions, step 1's gradients against the plain versions' (GRAD_TOL),
     and ARCH_STEPS Adagrad steps at TRAIN_B. The item rows the burst, its
     events and step 1 hash are margin-screened first. Returns the phase's
@@ -1972,7 +1853,7 @@ def archs_phase(torch, dev, wrappers):
         print(f"{label}: FULL (embed_dim {cfg.embed_dim}, behavior d {cfg.behavior_dim}, "
               f"short_len {cfg.short_len}), {sum(p.numel() for p in model.parameters()) / 1e6:.1f} "
               f"M parameters, init {time.perf_counter() - t0:.2f} s")
-        requests = request_stream(BURST, cfg)
+        requests = request_stream(ARCH_REQUESTS, cfg)
         burst = arch_burst(torch, dev, requests)
         loss_fn, stream, opt = recsys_setup(cfg, TRAIN_B)
         batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(stream).items()}
@@ -1990,7 +1871,8 @@ def archs_phase(torch, dev, wrappers):
 
         if arch == "wide_deep":
             sids = torch.as_tensor(np.random.default_rng(7).integers(
-                0, cfg.field_vocab, (BURST, C, cfg.n_sparse)).astype(np.int32), device=dev)
+                0, cfg.field_vocab, (ARCH_REQUESTS, C, cfg.n_sparse)).astype(np.int32),
+                device=dev)
             ms = wide_deep_serving(torch, dev, wrappers, model, burst, sids, label)
         else:
             ms = arch_serving(torch, dev, wrappers, model, requests, events, label)
@@ -2019,12 +1901,12 @@ def archs_phase(torch, dev, wrappers):
         missing = sorted(k for k in own if delta[k] == 0)
         if missing:
             raise AssertionError(f"{label}: kernels never launched: {missing}")
-        summary[arch] = {"ms_per_request": ms, "ms_per_step": times[1:],
+        summary[arch] = {"ms_per_request": ms, "ms_per_step": steady(times[1:]),
                          "peak_train_gib": round(peak, 2)}
         del state, model, burst, batches
         torch.cuda.empty_cache()
-    print(f"archs ms/request (host, second burst) and ms/step (steps 2..{ARCH_STEPS}): "
-          f"{json.dumps(summary)}")
+    print(f"archs ms/request (host; the {2 * ARCH_REQUESTS // BURST} bursts after the event "
+          f"fold) and ms/step (steps 2..{ARCH_STEPS}), median/min/max: {json.dumps(summary)}")
     return read_launches(wrappers, sorted(need | {"sdim_update", "sdim_fused_serve"}), "archs")
 
 
@@ -2057,10 +1939,10 @@ def main() -> int:
             print("  " + line.strip())
 
     timed = kernel_phase(torch, dev)
-    width36 = width36_phase(torch, dev)
-    for k in timed:
-        if k["name"] in width36:
-            k["d36"] = width36[k["name"]]
+    by_name = {k["name"]: k for k in timed}
+    for k in kernel_phase(torch, dev, D36):
+        by_name[k["name"]]["d36"] = {"d": D36, **{key: v for key, v in k.items() if key not in
+                                                  ("name", "route", "source", "replaces")}}
     wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,

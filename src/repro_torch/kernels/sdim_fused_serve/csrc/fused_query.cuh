@@ -44,7 +44,8 @@
 // loads (1 where a row does; at d = 36, 2 bf16 rows of 72 bytes, 4 int8 or
 // fp8 rows of 36 bytes), so every CTA reads its rows with 16-byte loads
 // from a 16-byte boundary even where one load straddles two rows; the
-// per-row scale is then taken value by value. An absent user (present[b]
+// per-row scale is then taken value by value (where a row fills whole
+// loads, once a load, as at d = 128). An absent user (present[b]
 // == 0) writes zeros and reads no row. Any C, 0 included; d a multiple of
 // 4 whose user table (G*U*d values) takes whole 16-byte loads, and 16-byte
 // aligned operands (the wrappers check). The kernel and its launch
@@ -284,7 +285,11 @@ static __global__ void __launch_bounds__(kThreads, 2)
     const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + e));
     float v[V];
     unpack16<TS>(raw, v);
-    if (sc != nullptr) {  // value k is in row (e + k) / d
+    if (sc != nullptr && align == 1) {  // the load lies within one row
+      const float s = __ldg(sc + e / d);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] *= s;
+    } else if (sc != nullptr) {  // value k is in row (e + k) / d
       int r = e / d, next = (r + 1) * d - e;
       float s = __ldg(sc + r);
 #pragma unroll

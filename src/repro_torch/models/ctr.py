@@ -61,7 +61,6 @@ class CTRConfig:
     n_blocks: int = 1
     # dien
     gru_dim: int = 108
-    unroll_scans: bool = False  # the reference's scan lowering; kept for parity of the config
     emb_init: float = 0.01      # embedding init std
 
     @property

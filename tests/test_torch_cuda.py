@@ -424,21 +424,28 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
-# dien's behavior width, d = 2 * 18 = 36: rows of 144 bytes in fp32, 72 in
-# bf16 and 36 in int8 and fp8
+# widths d % 8 == 4, where a bf16 row is not a whole number of 16-byte
+# pieces: dien's behavior width d = 2 * 18 = 36 (rows of 144 bytes in fp32,
+# 72 in bf16 and 36 in int8 and fp8), d = 4 (one 16-byte int8 load spans
+# four rows; one float4 column, so most hash lanes hold none), d = 20 and
+# d = 44 (int8 rows of 20 and 44 bytes: loads straddle rows at offsets
+# d = 36 never gives; 44 has eleven float4 columns)
 # ---------------------------------------------------------------------------
-D36_SHAPES = [
+D4MOD8_SHAPES = [
     (16, 1024, 128, 36, 48, 3),   # dien FULL: a 16-request burst (G = 16, U = 8)
     (3, 301, 70, 36, 10, 2),      # L = 301 (a 5-row tail batch), G = 5: uneven splits
     (4, 67, 33, 36, 24, 4),       # tau = 4, G = 6
+    (5, 77, 9, 4, 12, 2),         # d = 4, G * U = 24: 3 rows a rank rounded up to 4
+    (3, 130, 40, 20, 24, 3),      # d = 20, G = 8
+    (2, 95, 17, 44, 16, 4),       # d = 44, tau = 4, G = 4
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", D36_SHAPES)
-def test_bse_encode_and_its_backward_at_d36(shape, dtype, layout, dev):
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES)
+def test_bse_encode_and_its_backward_at_d4mod8(shape, dtype, layout, dev):
     """bse_encode (a bf16 batch of an odd number of 72-byte rows ends in an
     8-byte tail) and its backward against the plain versions, the same bits
     on two launches; (B > 1) a fully masked last user."""
@@ -462,8 +469,8 @@ def test_bse_encode_and_its_backward_at_d36(shape, dtype, layout, dev):
 @pytest.mark.parametrize("case", ["dups", "two-slots"])
 @pytest.mark.parametrize("E", [5, 16, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", D36_SHAPES)
-def test_sdim_update_at_d36(shape, dtype, E, case, dev):
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES)
+def test_sdim_update_at_d4mod8(shape, dtype, E, case, dev):
     """bf16 event rows of 72 bytes start on 8-byte boundaries (E = 5: every
     other row), where the kernel stages them itself instead of by bulk
     copy; the same bits on two launches."""
@@ -480,8 +487,8 @@ def test_sdim_update_at_d36(shape, dtype, E, case, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", D36_SHAPES)
-def test_bse_serve_at_d36(shape, dtype, layout, dev):
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES)
+def test_bse_serve_at_d4mod8(shape, dtype, layout, dev):
     """bf16 rows staged in 8-byte pieces; (B > 1) a fully masked last user
     reads zero; the same bits on two launches."""
     seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=13)
@@ -495,8 +502,8 @@ def test_bse_serve_at_d36(shape, dtype, layout, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", D36_SHAPES)
-def test_sdim_query_and_its_backward_at_d36(shape, table_dtype, dev):
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES)
+def test_sdim_query_and_its_backward_at_d4mod8(shape, table_dtype, dev):
     """Tables of 72-byte bf16 rows (the default wire): a CTA's rows are an
     even number, so its 16-byte loads start on a 16-byte boundary; the
     backward (fp32) at C and at C = 1, the training step's, compared times
@@ -521,8 +528,8 @@ def test_sdim_query_and_its_backward_at_d36(shape, table_dtype, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
-@pytest.mark.parametrize("shape", D36_SHAPES)
-def test_sdim_fused_serve_at_d36(shape, store_dtype, dev):
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES)
+def test_sdim_fused_serve_at_d4mod8(shape, store_dtype, dev):
     """Rows of 144 / 72 / 36 / 36 bytes: 16-byte loads that straddle two
     rows take each value's own row scale; absent users and a zero row read
     zero; the same bits on two launches."""

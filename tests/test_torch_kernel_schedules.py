@@ -45,7 +45,9 @@ run here; this pins the algebra they implement.
 
 Each kernel is also emulated at dien's behavior width d = 36 (the
 ``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
-72 in bf16 and 36 in int8 or fp8.
+72 in bf16 and 36 in int8 or fp8; and at the other widths d % 8 == 4
+that the wrappers take (``*-d4``, ``*-d20``, ``*-d44``): one, five and
+eleven float4 columns, int8 rows of 4, 20 and 44 bytes.
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
@@ -221,7 +223,11 @@ def test_target_attention_schedule_at_short_histories(shape, S, layout):
     (2, 1000, 100, 128, 36, 3, 8),   # G = 12 over S = 8: ranges 1 or 2
     (2, 1024, 128, 36, 48, 3, 8),    # dien FULL: d = 36, 2 groups a rank
     (3, 301, 70, 36, 10, 2, 5),      # d = 36, G = 5: a group a rank
-], ids=["G6-S4", "G6-U16-S4", "full-width", "G12-S8", "dien-d36", "G5-d36"])
+    (3, 77, 9, 4, 12, 2, 6),         # d = 4: one float4 column, a group a rank
+    (2, 130, 40, 20, 24, 3, 8),      # d = 20: five float4 columns, split 2 and 3
+    (2, 95, 17, 44, 16, 4, 4),       # d = 44, U = 16: eleven float4 columns
+], ids=["G6-S4", "G6-U16-S4", "full-width", "G12-S8", "dien-d36", "G5-d36", "G6-d4",
+        "G8-d20", "U16-d44"])
 def test_bse_serve_schedule_matches_jax(shape, layout):
     B, L, C, d, m, tau, S = shape
     rng = np.random.default_rng(12)
@@ -279,7 +285,11 @@ def bse_encode_schedule(seq, mask, R, tau, S, batch=8, warps=16):
     (2, 1000, 128, 36, 3),       # G = 12: uneven slices at S = 8
     (2, 1024, 36, 48, 3),        # dien FULL: d = 36
     (3, 301, 36, 10, 2),         # d = 36, G = 5, a 5-row tail batch
-], ids=["G6", "G6-U16", "full-width", "G12", "dien-d36", "G5-d36"])
+    (3, 77, 4, 12, 2),           # d = 4, a 5-row tail batch
+    (2, 130, 20, 24, 3),         # d = 20, G = 8, a 2-row tail batch
+    (2, 95, 44, 16, 4),          # d = 44, U = 16
+], ids=["G6", "G6-U16", "full-width", "G12", "dien-d36", "G5-d36", "G6-d4", "G8-d20",
+        "U16-d44"])
 def test_bse_encode_schedule_matches_jax(shape, layout, S):
     """S = 8 or 16 slices, capped as the wrapper caps them (at most G, at
     least enough for MAX_CELLS sums a CTA): every element is written once,
@@ -387,7 +397,11 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
     (2, 5, 128, 48, 3, 7),       # 7 ranks: uneven rows, ranks without candidates
     (3, 128, 36, 48, 3, 8),      # dien FULL: d = 36, 16 rows a rank
     (3, 70, 36, 10, 2, 8),       # d = 36, G*U = 20: 3 rows a rank rounded up to the loads
-], ids=["small", "U16", "full-width", "G12", "S7-C5", "dien-d36", "G5-d36"])
+    (3, 33, 4, 12, 2, 8),        # d = 4: an int8 load spans 4 rows, 3 rows a rank -> 4
+    (3, 40, 20, 12, 2, 8),       # d = 20: int8 loads straddle rows at offsets 4, 8, 12
+    (2, 16, 44, 48, 3, 8),       # d = 44: int8 rows of 44 bytes, 16 rows a rank
+], ids=["small", "U16", "full-width", "G12", "S7-C5", "dien-d36", "G5-d36", "G6-d4",
+        "G6-d20", "d44"])
 def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
     """The fused store read, and (``query-*``) sdim_query's identity slots:
     user b reads row b of a fetched fp32 or bf16 table, held against JAX's
@@ -508,7 +522,11 @@ def _update_inputs(rng, B, E, d, m, tau, case, N=None):
     (4, 80, 64, 24, 4, 2),       # U = 16, E = 80: two event batches a row
     (6, 16, 36, 48, 3, 3),       # dien FULL: d = 36, the fewest slices (6 groups a CTA)
     (6, 5, 36, 10, 2, 4),        # d = 36, E = 5: bf16 rows on 8-byte boundaries
-], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80", "dien-d36", "G5-E5-d36"])
+    (6, 5, 4, 12, 2, 3),         # d = 4, E = 5: bf16 event rows of 8 bytes
+    (6, 16, 20, 24, 3, 8),       # d = 20: a group a CTA
+    (5, 40, 44, 16, 4, 2),       # d = 44, U = 16, E = 40: two event batches a row
+], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80", "dien-d36", "G5-E5-d36", "G6-E5-d4",
+        "G8-d20", "U16-E40-d44"])
 def test_sdim_update_schedule_matches_jax(shape, case, dtype):
     """Against JAX's segment-sum oracle and the Pallas kernel in interpret
     mode: every element is written at most once, a zero-mask row and an
@@ -695,7 +713,10 @@ def _jax_sdim_backward(dout, q, seq, mask, R, tau):
     (3, 100, 40, 64, 24, 4),     # U = 16; two candidate passes
     (2, 64, 1, 128, 48, 3),      # the main shape, C = 1 (pointwise CTR)
     (2, 64, 1, 36, 48, 3),       # dien FULL's width, C = 1
-], ids=["G6", "G6-U16", "full-width", "dien-d36"])
+    (2, 40, 3, 4, 12, 2),        # d = 4
+    (3, 64, 1, 20, 24, 3),       # d = 20, C = 1
+    (2, 50, 33, 44, 16, 4),      # d = 44, U = 16, two candidate passes
+], ids=["G6", "G6-U16", "full-width", "dien-d36", "G6-d4", "G8-d20", "U16-d44"])
 def test_sdim_backward_schedules_match_jax(shape, layout):
     """bse_encode_backward and sdim_query_backward split as the wrappers
     split them on a 132-SM card (and with fewer, uneven slices): every
