@@ -35,13 +35,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
    retrieved; some with fewer valid rows, some with none). Then the same
    checks and timings (one function, ``kernel_phase``, at a width) for
-   the seven kernels phase 10 runs at dien's behavior width d = 36
-   (bse_encode and its backward, sdim_update, sdim_fused_serve in four
-   store dtypes, sdim_query and its backward, bse_serve), where bf16 rows
-   are 72 bytes (an odd L, odd E) and int8 / fp8 rows 36 (the ``d36`` entry
-   of each kernel's JSON); target_attention_flash takes d % 8 == 0 only.
-   sdim_fused_serve's int8 store is timed beside its fp32 one at both
-   widths.
+   all nine kernels at dien's behavior width d = 36, kernel 6 and its
+   backward at the main and the folded shape too, where bf16 rows are 72
+   bytes (an odd L, odd E) and int8 / fp8 rows 36 (the ``d36`` entry of
+   each kernel's JSON). sdim_fused_serve's int8 store is timed beside its
+   fp32 one at both widths. The bounds of the five kernels the engine
+   dispatches are ``kernels/cost.py``'s counts, the ones the profiler of
+   phase 11 predicts with.
 4. decoupled path — ``sdim-paper`` FULL (10M x 64 item table) with random
    weights from a seeded generator, served through ``CTRServer.
    handle_requests``: 64 requests of 128 candidates in bursts of 16,
@@ -144,13 +144,32 @@ Phases, each of which raises (exit code != 0) when it fails:
    after the fold (each setup) and ms/step of steps 2-8, one profiled
    fused burst of each CTRServer arch, one profiled training step of each
    arch (after the launch counts were read) and peak training memory.
+   Then dien FULL (d = 36) with interest kind ``"target"``: one burst of
+   16 x 128 through ``mode="target_attention"`` and two Adagrad steps;
+   its scores against the same server on the plain version (<= 1e-4),
+   step 1's gradients (GRAD_TOL), finite losses.
+11. profile path — the serve launcher with ``--profile --profile-dir`` on
+   ``sdim-paper`` FULL, in process (``launch.serve.build`` with the FULL
+   config, this script's traffic, ``launch.serve.report``): fused, tiered
+   (hot 128 users below 256 served, warm 64, a cold directory under
+   ``build/``), once fp32 synchronous and once int8 with
+   ``--async-ingest``; 32 single events after every fourth burst of 16 x
+   128. Checks: finite scores; ``ledger.verify()`` empty; the written
+   ``profile.json`` passes ``tools/bench_check.py::check_profile``;
+   encode, serve_fused and (fp32) update each timed and compiled at least
+   once; no record's unclamped predicted / measured time above 1.05 (a
+   count in ``kernels/cost.py`` would be wrong); the ledger's hot bytes
+   those of the hot store's tensors. Prints each record (calls, compiles,
+   measured and predicted ms, bottleneck), the ledger, and ms/request of 8
+   steady bursts of 16 with the profiler and 8 without, alternating
+   (median and range).
 
-Every launch count is set to 0 just before each of phases 4-10 and read
+Every launch count is set to 0 just before each of phases 4-11 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
 phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
-10 all seven SDIM kernels).
+10 all nine; phase 11 bse_encode, sdim_update and sdim_fused_serve).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's and
 10's kernel checks) or by a server that only serves as a comparison
@@ -160,7 +179,8 @@ counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
-path; ``launches_by_path``: every phase, phase 10 as ``archs``), then as
+path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
+11 as ``profile``), then as
 the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -180,8 +200,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 B, L, C, D, M, TAU, E = 32, 1024, 128, 128, 48, 3, 16
 BURST, EV_USERS = 16, 32      # main path: requests per burst, users per event burst
 G, U = M // TAU, 1 << TAU
@@ -209,8 +227,17 @@ PROD_QUEUE = 4 * PROD_USERS   # ingest queue bound: the first pass drops nothing
 # ARCH_STEPS Adagrad steps (step 1 untimed). Phase 3 also times the seven
 # kernels these archs widen at dien's behavior width D36 = 2 * 18.
 ARCHS = ("wide_deep", "bst", "dien", "bert4rec")
+TARGET_KERNELS = {"target_attention_flash", "target_attention_flash_backward"}
 ARCH_REQUESTS, ARCH_EV, ARCH_STEPS = 64, 32, 8
 D36 = 36
+# phase 11: the serve launcher's --profile at FULL: hot and warm tier
+# capacities and users (hot below the users, so rows demote, and spill to
+# cold), single events after every PROF_EV_EVERY bursts, steady bursts timed
+# with and without the profiler, the most a prediction may exceed a
+# measurement
+PROF_HOT, PROF_WARM, PROF_USERS = 128, 64, 256
+PROF_EV, PROF_EV_EVERY, PROF_STEADY = 32, 4, 8
+PROF_RATIO = 1.05
 
 
 def card_line() -> str:
@@ -270,9 +297,14 @@ def same_bits(name, fn) -> None:
         raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(c) -> tuple[float, str]:
+    """The least time, in ms, the card takes for the work counted in ``c``
+    (``kernels.cost.Cost``: fp32 operations and bytes moved): the roofline
+    of ``distributed/roofline.py`` (3.35 TB/s HBM, 67 TFLOP/s fp32), and
+    which of the two sets it."""
+    from repro_torch.distributed import roofline
+    r = roofline.analyze("bound", c.flops, c.bytes)
+    return 1e3 * r.roofline_time, ("bytes" if r.t_memory >= r.t_compute else "operations")
 
 
 def check_close(name, out, ref, atol, rtol) -> float:
@@ -289,10 +321,11 @@ def kernel_phase(torch, dev, d: int = D):
     """Phase 3 at behavior width ``d`` (m = M, tau = TAU): each kernel
     against its plain version at B = 32 and at every shape the main paths
     give it, the same bits on two launches, then timed at the main path's
-    shape. At d = D the nine kernels (kernel 6 and its backward also at the
-    folded retrieval shape); at dien's D36 the seven SDIM kernels
-    (target_attention_flash and its backward take d % 8 == 0 only).
-    Returns each kernel's row of the JSON line."""
+    shape: the nine kernels, kernel 6 and its backward also at the folded
+    retrieval shape. The five the engine dispatches take their bounds from
+    ``kernels/cost.py``, the profiler's counts. Returns each kernel's row
+    of the JSON line."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket.sdim_bucket import (
         bse_encode, bse_encode_cuda, bse_encode_ref)
@@ -347,13 +380,11 @@ def kernel_phase(torch, dev, d: int = D):
         k1, k2, dev_ms = time_ms(fn), time_ms(fn), device_ms(fn)
         print(f"bse_encode at {splits} group slices per user ({BURST * splits} CTAs): "
               f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device {dev_ms} ms")
-    valid = float(mask.sum())               # only valid rows need reading and hashing
     rows.append(("bse_encode", "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode.cu",
                  "src/repro/kernels/sdim_bucket/sdim_bucket.py:117", err,
                  partial(bse_encode, seq, mask, R, TAU),
                  partial(bse_encode_ref, seq, mask, R, TAU),
-                 bound(valid * d * 4 + mask.numel() * 4 + R.numel() * 4
-                       + BURST * G * U * d * 4, valid * hash_flop), None))
+                 bound(cost.encode(seq, mask, R, tau=TAU)), None))
 
     # sdim_query (unfused decoupled path: bf16 wire tables, and fp32) at
     # B=32 with a fully masked user (a zero table, read as zero) and at the
@@ -371,12 +402,11 @@ def kernel_phase(torch, dev, d: int = D):
                 raise AssertionError("sdim_query: a zero table read non-zero interest")
     for tb in (wire, table):
         same_bits(f"sdim_query {tb.dtype}", partial(sdim_query, q, tb, R, TAU))
-    query_flop = BURST * C * hash_flop + BURST * G * U * 3 * d
     rows.append(("sdim_query", "src/repro_torch/kernels/sdim_query/csrc/sdim_query.cu",
                  "src/repro/kernels/sdim_query/sdim_query.py:52", err,
                  partial(sdim_query, q, wire, R, TAU),
                  partial(sdim_query_ref, q, wire, R, TAU),
-                 bound(wire.numel() * 2 + 2 * q.numel() * 4 + R.numel() * 4, query_flop), None))
+                 bound(cost.query(q, wire, R, tau=TAU)), None))
 
     # sdim_fused_serve (fused path): fp32 / bf16 / int8 / fp8 stores at B=32
     # with a ragged present; fp32 / int8 / fp8 at the main path's burst,
@@ -411,15 +441,12 @@ def kernel_phase(torch, dev, d: int = D):
     k1, k2 = time_ms(fn), time_ms(fn)
     print(f"sdim_fused_serve{at}, int8 store: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), "
           f"device {device_ms(fn)} ms")
-    n_present = int(present.sum())          # an absent user needs only its zero write
     rows.append(("sdim_fused_serve",
                  "src/repro_torch/kernels/sdim_fused_serve/csrc/sdim_fused_serve.cu",
                  "src/repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86", max(errs.values()),
                  partial(sdim_fused_serve, store, slots, q, R, TAU, present=present),
                  partial(sdim_fused_serve_ref, store, slots, q, R, TAU, present=present),
-                 bound(n_present * (G * U * d * 4 + C * d * 4) + q.numel() * 4
-                       + R.numel() * 4 + BURST * 8,
-                       n_present * C * hash_flop + n_present * G * U * 3 * d), None))
+                 bound(cost.serve_fused(store, slots, q, R, tau=TAU, present=present)), None))
 
     # sdim_update (event ingest, the main path's EV_USERS x E burst): bf16
     # events with E = 5 (at d % 8 == 4 rows on 8-byte boundaries), a
@@ -448,14 +475,11 @@ def kernel_phase(torch, dev, d: int = D):
         raise AssertionError("sdim_update: a zero-mask row at slot 0 wrote to slot 0")
     for ev, em in ((ev5, mask5), (events, ev_mask)):
         same_bits("sdim_update", lambda: sdim_update(base.clone(), ev_slots, ev, em, R, TAU))
-    touched = len(set(ev_slots[ev_mask.sum(1) > 0].tolist()))
-    ev_valid = float(ev_mask.sum())
     rows.append(("sdim_update", "src/repro_torch/kernels/sdim_update/csrc/sdim_update.cu",
                  "src/repro/kernels/sdim_update/sdim_update.py:77", err,
                  partial(sdim_update, a, ev_slots, events, ev_mask, R, TAU),
                  partial(sdim_update_ref, b, ev_slots, events, ev_mask, R, TAU),
-                 bound(2 * touched * G * U * d * 4 + ev_valid * d * 4 + ev_mask.numel() * 4
-                       + EV_USERS * 4 + R.numel() * 4, ev_valid * hash_flop), None))
+                 bound(cost.update(a, ev_slots, events, ev_mask, R, tau=TAU)), None))
 
     # bse_serve (inline path): B=32 and the main path's burst in fp32 and
     # bf16, then a burst with C=100 and a fully masked user (zero output);
@@ -473,15 +497,12 @@ def kernel_phase(torch, dev, d: int = D):
         if masked and bool(out[1].any()):
             raise AssertionError("bse_serve: a fully masked user read non-zero interest")
     same_bits("bse_serve", partial(bse_serve, q, seq, mask, R, TAU))
-    valid = float(mask.sum())
     rows.append(("bse_serve", "src/repro_torch/kernels/sdim_serve/csrc/bse_serve.cu",
                  "src/repro/kernels/sdim_serve/sdim_serve.py:68", err,
                  partial(bse_serve, q, seq, mask, R, TAU),
                  partial(bse_serve_ref, q, seq, mask, R, TAU),
-                 bound(valid * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4 + R.numel() * 4,
-                       (valid + BURST * C) * hash_flop + BURST * G * U * 3 * d), None))
-    if d % 8 == 0:
-        rows.append(target_row(torch, dev, history, d))
+                 bound(cost.serve(q, seq, mask, R, tau=TAU)), None))
+    rows.append(target_row(torch, dev, history, d))
     rows += backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d)
 
     timed = []
@@ -498,17 +519,17 @@ def kernel_phase(torch, dev, d: int = D):
               f"{min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
               f"max abs err {err:.3g}")
-    if d == D:
-        folded = folded_retrieval(torch, dev, rng, t)
-        for k in timed:
-            if k["name"] in folded:
-                k["folded"] = folded[k["name"]]
+    folded = folded_retrieval(torch, dev, rng, t, d)
+    for k in timed:
+        if k["name"] in folded:
+            k["folded"] = folded[k["name"]]
     return timed
 
 
 def target_row(torch, dev, history, d):
     """Phase 3's row of target_attention_flash at width ``d``."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import Cost
     from repro_torch.kernels.target_attn.target_attn import (
         target_attention_flash, target_attention_flash_ref)
 
@@ -540,31 +561,33 @@ def target_row(torch, dev, history, d):
             "src/repro/kernels/target_attn/target_attn.py:59", err,
             partial(target_attention_flash, q, seq, mask),
             partial(target_attention_flash_ref, q, seq, mask),
-            bound(needed * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4, 4 * C * d * needed),
+            bound(Cost(flops=4 * C * d * needed,
+                       bytes=needed * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4)),
             library)
 
 
-def folded_retrieval(torch, dev, rng, t):
+def folded_retrieval(torch, dev, rng, t, d):
     """target_attention_flash and its backward at the retrieval kinds'
-    folded shape: BURST * C users of one candidate each over the FOLD_L
+    folded shape at width d: BURST * C users of one candidate each over the FOLD_L
     rows it retrieved, valid rows first (top-k order), some with fewer and
     some with none (uniform over all FOLD_L). Held against the plain
     versions, same bits on two launches, timed like the rows above (SDPA
     on the same inputs as the forward's yardstick). Returns {kernel name:
     its numbers at this shape}."""
     import torch.nn.functional as F
+    from repro_torch.kernels.cost import Cost
     from repro_torch.kernels.target_attn.target_attn import (
         target_attention_flash, target_attention_flash_backward,
         target_attention_flash_backward_ref, target_attention_flash_ref)
 
     n, l = BURST * C, FOLD_L
     f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
-    q, seq, dout = f32(n, 1, D), f32(n, l, D), f32(n, 1, D)
+    q, seq, dout = f32(n, 1, d), f32(n, l, d), f32(n, 1, d)
     found = rng.integers(0, l + 1, n)
     found[:2] = (0, l)
     mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
     out = target_attention_flash(q, seq, mask)
-    err_f = check_close(f"target_attention_flash folded {(n, l, 1, D)}", out,
+    err_f = check_close(f"target_attention_flash folded {(n, l, 1, d)}", out,
                         target_attention_flash_ref(q, seq, mask), **FP32)
     got = target_attention_flash_backward(dout, q, seq, mask, out)
     ref = target_attention_flash_backward_ref(dout, q, seq, mask, out)
@@ -578,23 +601,24 @@ def folded_retrieval(torch, dev, rng, t):
     needed = float(sum(l if f == 0 else f for f in found.tolist()))
     additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
     cases = (("target_attention_flash", fwd, partial(target_attention_flash_ref, q, seq, mask),
-              err_f, bound(needed * D * 4 + mask.numel() * 4 + 2 * q.numel() * 4,
-                           4 * D * needed),
+              err_f, bound(Cost(flops=4 * d * needed,
+                                bytes=needed * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4)),
               partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)),
              ("target_attention_flash_backward", bwd,
               partial(target_attention_flash_backward_ref, dout, q, seq, mask, out), err_b,
-              bound(needed * D * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
-                    10 * D * needed), None))
+              bound(Cost(flops=10 * d * needed,
+                         bytes=needed * d * 4 + seq.numel() * 4 + mask.numel() * 4
+                         + 5 * q.numel() * 4)), None))
     info = {}
     for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
         dt = dict(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
                    library_device_ms=None if library is None else device_ms(library))
-        info[name] = dict(shape=dict(users=n, L=l, C=1, d=D), ms=min(k1, k2),
+        info[name] = dict(shape=dict(users=n, L=l, C=1, d=d), ms=min(k1, k2),
                           plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=lib_ms, max_abs_err=err, **dt)
-        print(f"kernel {name} at the folded retrieval shape ({n} users, L={l}, C=1): "
+        print(f"kernel {name} at the folded retrieval shape ({n} users, L={l}, C=1, d={d}): "
               f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain {min(p1, p2):.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
@@ -607,8 +631,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
     them: the JAX package differentiates the XLA formulation), at width d,
     at the training step's shapes (B = TRAIN_B users, L, C = 1) and at C,
     against their closed-form plain versions; each timed at the training
-    shape (target_attention_flash_backward at d % 8 == 0 only). ``history``
-    is kernel_phase's maker of screened, ragged behaviors."""
+    shape. ``history`` is kernel_phase's maker of screened, ragged
+    behaviors."""
+    from repro_torch.kernels.cost import Cost
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket import sdim_bucket as kb
     from repro_torch.kernels.sdim_query import sdim_query as kq
@@ -642,8 +667,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
                  "none (gradient of src/repro/kernels/sdim_bucket/sdim_bucket.py:117)", err,
                  partial(k["bse_encode_backward"], dT, seq, mask, R, TAU),
                  partial(k["bse_encode_backward_ref"], dT, seq, mask, R, TAU),
-                 bound(valid * d * 4 + seq.numel() * 4 + mask.numel() * 4 + R.numel() * 4
-                       + dT.numel() * 4, valid * (hash_flop + d)), None))
+                 bound(Cost(flops=valid * (hash_flop + d),
+                            bytes=valid * d * 4 + seq.numel() * 4 + mask.numel() * 4
+                            + R.numel() * 4 + dT.numel() * 4)), None))
 
     # sdim_query_backward: C = 1 (the training step) and C = 128, a fully
     # masked user (a zero table: its gradient is g / 1e-6, so the rows are
@@ -667,10 +693,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
                  "none (gradient of src/repro/kernels/sdim_query/sdim_query.py:52)", err,
                  partial(k["sdim_query_backward"], dout, q, table, R, TAU),
                  partial(k["sdim_query_backward_ref"], dout, q, table, R, TAU),
-                 bound(2 * q.numel() * 4 + 2 * table.numel() * 4 + R.numel() * 4,
-                       TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d), None))
-    if d % 8:
-        return rows
+                 bound(Cost(flops=TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d,
+                            bytes=2 * q.numel() * 4 + 2 * table.numel() * 4
+                            + R.numel() * 4)), None))
 
     # target_attention_flash_backward: C = 1 and C = 128 in fp32, bf16
     # behaviors, a fully masked user (uniform weights), C = 0 and L = 0;
@@ -702,8 +727,9 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
                  "src/repro_torch/kernels/target_attn/csrc/target_attn_backward.cu",
                  "none (gradient of src/repro/kernels/target_attn/target_attn.py:59)", err, fn,
                  partial(k["target_attention_flash_backward_ref"], dout, q, seq, mask, out),
-                 bound(needed * d * 4 + seq.numel() * 4 + mask.numel() * 4 + 5 * q.numel() * 4,
-                       10 * d * needed), None))
+                 bound(Cost(flops=10 * d * needed,
+                            bytes=needed * d * 4 + seq.numel() * 4 + mask.numel() * 4
+                            + 5 * q.numel() * 4)), None))
     return rows
 
 
@@ -1898,16 +1924,197 @@ def archs_phase(torch, dev, wrappers):
             profile_window(torch, f"{label}, one training step",
                            partial(step, state, batches[0]))
         own = need if arch == "wide_deep" else need | {"sdim_update", "sdim_fused_serve"}
+        summary[arch] = {"ms_per_request": ms, "ms_per_step": steady(times[1:]),
+                         "peak_train_gib": round(peak, 2)}
+        del state, model, burst
+        torch.cuda.empty_cache()
+        if arch == "dien":
+            summary["dien-target"] = dien_target(torch, dev, cfg, requests, batches, refs)
+            own = own | TARGET_KERNELS
+            delta = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
         missing = sorted(k for k in own if delta[k] == 0)
         if missing:
             raise AssertionError(f"{label}: kernels never launched: {missing}")
-        summary[arch] = {"ms_per_request": ms, "ms_per_step": steady(times[1:]),
-                         "peak_train_gib": round(peak, 2)}
-        del state, model, burst, batches
+        del batches
         torch.cuda.empty_cache()
     print(f"archs ms/request (host; the {2 * ARCH_REQUESTS // BURST} bursts after the event "
           f"fold) and ms/step (steps 2..{ARCH_STEPS}), median/min/max: {json.dumps(summary)}")
-    return read_launches(wrappers, sorted(need | {"sdim_update", "sdim_fused_serve"}), "archs")
+    return read_launches(wrappers, sorted(need | TARGET_KERNELS
+                                          | {"sdim_update", "sdim_fused_serve"}), "archs")
+
+
+def dien_target(torch, dev, cfg, requests, batches, refs) -> dict:
+    """dien FULL (d = 36) with interest kind "target": one burst of BURST
+    requests through ``mode="target_attention"`` (target_attention_flash)
+    and two Adagrad steps (its backward too); the burst's scores through
+    the kernel against the same server on the plain version (INLINE_TOL),
+    step 1's gradients against the plain version's (GRAD_TOL), finite
+    losses. Returns the burst's ms/request and the steps' ms."""
+    from repro_torch.launch.train import recsys_setup
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.train.loop import make_train_step
+
+    label = "archs dien, kind target"
+    cfg = dataclasses.replace(cfg, interest=dataclasses.replace(cfg.interest, kind="target"))
+    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(104))
+    srv = CTRServer.build(model, None, "target_attention", device=dev)
+    burst = requests[:BURST]
+    t0 = time.perf_counter()
+    scores = np.stack(srv.handle_requests(burst))
+    ms_request = 1e3 * (time.perf_counter() - t0) / len(burst)
+    if scores.shape != (BURST, C) or not np.isfinite(scores).all():
+        raise AssertionError(f"{label}: scores {scores.shape}, finite {np.isfinite(scores).all()}")
+    with plain_long_branch(model, refs):
+        plain = np.stack(srv.handle_requests(burst))
+    diff = float(np.abs(scores - plain).max())
+    print(f"{label}: a burst of {BURST} x {C} at d = {cfg.behavior_dim}, {ms_request:.3f} "
+          f"ms/request (host, first burst); |kernel - plain| scores max {diff:.3g} "
+          f"(tolerance {INLINE_TOL})")
+    if diff > INLINE_TOL:
+        raise AssertionError(f"{label}: scores through the kernel differ from the plain "
+                             f"version's by {diff} (> {INLINE_TOL})")
+    step1_gradients(torch, model, batches[0], refs, label)
+    loss_fn, _, opt = recsys_setup(cfg, TRAIN_B)
+    init, step = make_train_step(loss_fn, opt)
+    state, losses, times = init(model), [], []
+    for b in batches[:2]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(metrics["loss"].item())
+        times.append(1e3 * (time.perf_counter() - t0))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    print(f"{label}: 2 Adagrad steps of {TRAIN_B}, losses {losses}, ms/step "
+          f"{json.dumps([round(x, 2) for x in times])} (host clock ending in loss.item())")
+    return {"ms_per_request_first_burst": ms_request, "ms_per_step": times}
+
+
+def profile_run(torch, dev, tmp, name, dtype, async_ingest, requests, events) -> dict:
+    """One run of phase 11: ``launch.serve.build`` at FULL with ``--profile
+    --profile-dir`` (fused, tiered hot PROF_HOT / warm PROF_WARM / a cold
+    directory, storage ``dtype``, async ingest or not), the requests in
+    bursts of BURST with PROF_EV events folded after every PROF_EV_EVERY
+    bursts, then PROF_STEADY steady bursts of hot users with the profiler
+    and PROF_STEADY without, alternating; ``launch.serve.report`` last. The
+    checks: finite scores; an empty ``ledger.verify()``; a ``profile.json``
+    that ``tools/bench_check.py::check_profile`` accepts; encode,
+    serve_fused and (fp32, whose events fold through sdim_update; int8
+    folds by encode) update each with calls > 0 and compiles >= 1; no
+    record's predicted time above PROF_RATIO times its measured time; the
+    ledger's hot bytes those of the hot store's tensors. Returns the
+    run's numbers."""
+    import importlib.util
+
+    from repro_torch.configs import sdim_paper
+    from repro_torch.launch import serve as launcher
+
+    pdir = os.path.join(tmp, name)
+    argv = ["--arch", "sdim-paper", "--candidates", str(C), "--micro-batch", str(BURST),
+            "--fused-serve", "--table-dtype", dtype, "--hot-capacity", str(PROF_HOT),
+            "--warm-capacity", str(PROF_WARM), "--store-dir", os.path.join(pdir, "cold"),
+            "--profile", "--profile-dir", pdir] + (["--async-ingest"] if async_ingest else [])
+    launch = launcher.build(argv, cfg=sdim_paper.FULL)
+    server, bse, profiler = launch.server, launch.server.bse, launch.profiler
+
+    def burst(reqs):
+        t0 = time.perf_counter()
+        scores = server.handle_requests(reqs)
+        ms = 1e3 * (time.perf_counter() - t0) / len(reqs)
+        if any(x is None or not np.isfinite(x).all() for x in scores):
+            raise AssertionError(f"profile {name}: a shed or non-finite score")
+        return ms
+
+    for i in range(0, len(requests), BURST):
+        burst(requests[i:i + BURST])
+        if (i // BURST + 1) % PROF_EV_EVERY == 0:
+            users, items, cats = events(requests[i:i + BURST])
+            bse.ingest_events(users, items, cats)
+    if bse.async_ingest is not None:
+        bse.async_ingest.flush()
+    hot_reqs = requests[-PROF_HOT:][:PROF_STEADY * BURST]
+    burst(hot_reqs[:BURST])                                   # their committed view
+    times = {"with": [], "without": []}
+    for i in range(PROF_STEADY):
+        reqs = hot_reqs[i * BURST:(i + 1) * BURST]
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            bse.engine.profiler = profiler if on else None
+            times["with" if on else "without"].append(burst(reqs))
+    bse.engine.profiler = profiler
+    profile = launcher.report(launch)                         # stops async ingest
+
+    errs = launch.ledger.verify()
+    if errs:
+        raise AssertionError(f"profile {name}: the ledger missed events: {errs}")
+    spec = importlib.util.spec_from_file_location(
+        "bench_check", os.path.join(ROOT, "tools", "bench_check.py"))
+    bench_check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_check)
+    with open(os.path.join(pdir, "profile.json")) as f:
+        print(f"profile {name}: {bench_check.check_profile(json.load(f))}")
+    pk = profile["per_kernel"]
+    need = {"encode", "serve_fused"} | ({"update"} if dtype == "fp32" else set())
+    bad = sorted(k for k in need if k not in pk or pk[k]["calls"] < 1 or pk[k]["compiles"] < 1)
+    if bad:
+        raise AssertionError(f"profile {name}: kernels without a timed call and a compile: "
+                             f"{bad} in {json.dumps({k: (v['calls'], v['compiles']) for k, v in pk.items()})}")
+    ratios = {k: v["predicted"]["roofline_ms"] / v["time_ms"] for k, v in pk.items()}
+    over = {k: r for k, r in ratios.items() if r > PROF_RATIO}
+    if over:
+        raise AssertionError(f"profile {name}: predicted above {PROF_RATIO} x measured: {over} "
+                             f"(a count in kernels/cost.py is wrong)")
+    hot = bse.store.hot
+    hot_bytes = hot.data.numel() * hot.data.element_size() + (
+        0 if hot.scales is None else hot.scales.numel() * hot.scales.element_size())
+    if profile["mem"]["hot_bytes"] != hot_bytes:
+        raise AssertionError(f"profile {name}: ledger hot bytes {profile['mem']['hot_bytes']} "
+                             f"!= the hot store's {hot_bytes}")
+    for k, v in pk.items():
+        print(f"profile {name} {k}: {v['calls']} calls, {v['compiles']} compiles, measured "
+              f"{v['time_ms']:.4f} ms (min {v['min_ms']:.4f}, max {v['max_ms']:.4f}), predicted "
+              f"{v['predicted']['roofline_ms']:.6f} ms ({v['predicted']['bottleneck']}), "
+              f"predicted / measured {ratios[k]:.4g}")
+    overhead = {k: steady(v) for k, v in times.items()}
+    print(f"profile {name}: ms/request of {PROF_STEADY} steady bursts of {BURST} (host), "
+          f"with --profile {json.dumps(overhead['with'])}, without {json.dumps(overhead['without'])}; "
+          f"mem {json.dumps({k: profile['mem'][k] for k in ('hot_bytes', 'warm_bytes', 'cold_bytes', 'events', 'moved_bytes')})}")
+    del launch, server, bse
+    return {"per_kernel": pk, "mem": profile["mem"], "ms_per_request": overhead,
+            "ratios": ratios}
+
+
+def profile_phase(torch, dev, wrappers):
+    """Phase 11: the serve launcher with --profile --profile-dir on
+    sdim-paper at FULL, in process (``profile_run``): fp32 synchronous, then
+    int8 with --async-ingest. Returns the phase's launch counts."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import sdim_paper
+
+    cfg = sdim_paper.FULL
+    requests = request_stream(PROF_USERS, cfg)
+    rng = np.random.default_rng(11)
+
+    def events(reqs):
+        users = [r[0] for r in reqs] * (PROF_EV // len(reqs))
+        return (users, rng.integers(0, cfg.n_items, (len(users), 1)).astype(np.int32),
+                rng.integers(0, cfg.n_cats, (len(users), 1)).astype(np.int32))
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    summary = {}
+    try:
+        reset(wrappers)
+        for name, dtype, async_ingest in (("fp32", "fp32", False), ("int8-async", "int8", True)):
+            summary[name] = profile_run(torch, dev, tmp, name, dtype, async_ingest, requests,
+                                        events)
+            torch.cuda.empty_cache()
+        launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve"),
+                                 "profile")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"profile: {json.dumps(summary)}")
+    return launches
 
 
 def main() -> int:
@@ -1966,6 +2173,8 @@ def main() -> int:
     by_path["production"] = production_phase(torch, dev, wrappers)
     torch.cuda.empty_cache()
     by_path["archs"] = archs_phase(torch, dev, wrappers + backward)
+    torch.cuda.empty_cache()
+    by_path["profile"] = profile_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

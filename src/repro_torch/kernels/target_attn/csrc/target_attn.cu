@@ -44,7 +44,16 @@
 // its weights are e^(-1e30 - m) = 0 exactly, so the result is unchanged. A
 // fully masked user skips nothing: the uniform mean needs every row. Rows
 // past L are never scored, so padding stays out of that mean. Any C and L,
-// 0 included; d a multiple of 8 up to 256 (the wrapper checks).
+// 0 included; d a multiple of 4 up to 256 (the wrapper checks).
+//
+// Widths d % 8 == 4 (dien's d = 36). Every row is whole float4 columns
+// (nq = d / 4; a thread's columns lr + 16 j past nq are skipped), so the
+// candidates and fp32 behaviors (rows of 16-byte multiples, 144 bytes at
+// d = 36) stage and load 16 bytes at a time as at d = 128. bf16 rows are
+// 8-byte multiples only (72 bytes at d = 36, 8 at d = 4), and a user's
+// rows start off a 16-byte boundary where (b L d) is odd: stage_rows_async
+// copies them in 8-byte pieces to 8-byte aligned staged rows, which the
+// bf16 load4 (8 bytes) reads. The output is fp32 float4 columns.
 #include <cooperative_groups.h>
 
 #include "tile_staging.cuh"
@@ -315,7 +324,7 @@ static cudaError_t launch(const float* q, const void* seq, const float* mask, fl
 template <typename T>
 static cudaError_t launch_d(const float* q, const void* seq, const float* mask, float* out, int B,
                             int L, int C, int d, float scale, cudaStream_t stream) {
-  if (d <= 0 || d % 8 != 0) return cudaErrorInvalidValue;
+  if (d <= 0 || d % 4 != 0) return cudaErrorInvalidValue;
   if (d <= 64) return launch<T, 1>(q, seq, mask, out, B, L, C, d, scale, stream);
   if (d <= 128) return launch<T, 2>(q, seq, mask, out, B, L, C, d, scale, stream);
   if (d <= 256) return launch<T, 4>(q, seq, mask, out, B, L, C, d, scale, stream);

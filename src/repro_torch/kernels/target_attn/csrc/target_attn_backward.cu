@@ -34,8 +34,11 @@
 //    dseq once, in seq's type.
 // No atomics: two launches give the same bits. Loops have the same trip
 // count in every lane (shuffles take all 32). Any C and L >= 1 (the wrapper
-// handles C = 0 and L = 0); d a multiple of 8 up to 256 (the wrapper
-// checks).
+// handles C = 0 and L = 0); d a multiple of 4 up to 256 (the wrapper
+// checks). A row is nq = d / 4 float4 columns, lanes past nq hold zeros:
+// fp32 rows and every candidate row are 16-byte multiples, bf16 behavior
+// rows (72 bytes at d = 36) are read and written 8 bytes at a time, on
+// the 8-byte boundaries any row of d % 4 == 0 starts on.
 #include "tile_staging.cuh"
 
 namespace sdim {
@@ -213,7 +216,7 @@ static cudaError_t launch_ta_backward_d(const float* dout, const float* q, const
                                         const float* mask, const float* out, float* stats,
                                         float* dq, void* dseq, int B, int L, int C, int d,
                                         float scale, cudaStream_t stream) {
-  if (d <= 0 || d % 8 != 0) return cudaErrorInvalidValue;
+  if (d <= 0 || d % 4 != 0) return cudaErrorInvalidValue;
   if (d <= 32)
     return launch_ta_backward<T, 1>(dout, q, seq, mask, out, stats, dq, dseq, B, L, C, d, scale,
                                     stream);

@@ -75,10 +75,10 @@ def _attend(q, seq, mask):
         return target_attention_flash_ref(q, seq, mask)
     B, C, d = q.shape
     L = seq.shape[1]
-    if seq.shape != (B, L, d) or mask.shape != (B, L) or d % 8 or d > 256:
+    if seq.shape != (B, L, d) or mask.shape != (B, L) or d % 4 or d > 256:
         raise ValueError(f"target_attention_flash: shapes q {tuple(q.shape)} seq "
                          f"{tuple(seq.shape)} mask {tuple(mask.shape)} (the kernel "
-                         f"takes d a multiple of 8 up to 256)")
+                         f"takes d a multiple of 4 up to 256)")
     code = _build.dtype_code("target_attention_flash", seq, (torch.float32, torch.bfloat16))
     if q.dtype != torch.float32 or mask.dtype != torch.float32:
         raise TypeError("target_attention_flash: q and mask must be float32")
@@ -130,11 +130,11 @@ def target_attention_flash_backward(
     B, C, d = q.shape
     L = seq.shape[1]
     if (seq.shape != (B, L, d) or mask.shape != (B, L) or dout.shape != (B, C, d)
-            or out.shape != (B, C, d) or d % 8 or d > 256):
+            or out.shape != (B, C, d) or d % 4 or d > 256):
         raise ValueError(f"target_attention_flash_backward: shapes dout {tuple(dout.shape)} "
                          f"q {tuple(q.shape)} seq {tuple(seq.shape)} mask "
                          f"{tuple(mask.shape)} out {tuple(out.shape)} (the kernel takes d a "
-                         f"multiple of 8 up to 256)")
+                         f"multiple of 4 up to 256)")
     code = _build.dtype_code("target_attention_flash_backward", seq,
                              (torch.float32, torch.bfloat16))
     for name, t in (("dout", dout), ("q", q), ("mask", mask), ("out", out)):

@@ -7,7 +7,8 @@
         [--cold-deadline-ms T]] [--async-ingest [--queue-depth Q] \\
         [--max-staleness S]] [--rate-limit R [--rate-burst B]] \\
         [--max-concurrency K] [--trace [--trace-dir DIR] \\
-        [--trace-slow-ms T]] [--device cuda|cpu]
+        [--trace-slow-ms T]] [--profile [--profile-dir DIR]] \\
+        [--device cuda|cpu]
 
 Mirrors the recsys branch of ``repro/launch/serve.py``: the ``SMOKE``
 config, random weights from a seeded ``torch.Generator``, a BSE + CTR
@@ -16,20 +17,32 @@ that scores raw histories inline (any other interest kind), and a loop over
 synthetic requests (served one by one, or in micro-batches). The tiered
 store, async ingest, admission control and tracing are ``CTRServer.build``'s
 (``serve/``); at the end it prints the async-ingest stats, the tier sizes,
-the admission summary, ``health_snapshot``, the metrics summary and the
-trace report. ARCH is any id of ``configs.registry.ARCH_IDS``
-(``wide-deep``, ``bst``, ``dien``, ``bert4rec``, ``sdim-paper``); as in
-the reference, ``wide-deep`` (whose fields ``CTRServer`` does not take)
+the admission summary, ``health_snapshot``, the metrics summary, the
+trace report and, with ``--profile``, the measured roofline of the SDIM
+engine's dispatches and the memory ledger of the BSE store
+(``serve/profiler.py``; ``--profile-dir`` writes them as
+``profile.json``, which ``tools/profile_report.py`` renders). ARCH is
+any id of ``configs.registry.ARCH_IDS`` (``wide-deep``, ``bst``,
+``dien``, ``bert4rec``, ``sdim-paper``); as in the reference,
+``wide-deep`` (whose fields ``CTRServer`` does not take)
 is scored by ``model.apply`` over the user's history broadcast to the
 candidates, with field ids drawn from the request stream's generator.
 Runs on the card unless ``--device cpu`` is given; without CUDA and
-without that flag it fails. Sharding (``--shards``/``--mesh``) and
-``--profile`` are not ported yet.
+without that flag it fails. Sharding (``--shards``/``--mesh``) is not
+ported yet.
+
+``main`` is ``build`` (arguments, model, servers, profiler), ``run`` (the
+synthetic requests) and ``report`` (the printout); a caller that drives
+its own traffic, as ``chip_smoke.py`` does at FULL, calls ``build`` with
+a config and ``report`` after it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -98,14 +111,29 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-slow-ms", type=float, default=None,
                    help="always retain traces with root latency >= this "
                         "(ms) (implies --trace)")
+    p.add_argument("--profile", action="store_true",
+                   help="measured kernel profiling (serve/profiler.py): per-dispatch "
+                        "time and analytical flops/bytes against the roofline, plus "
+                        "the memory ledger of the BSE store; prints the measured "
+                        "roofline at the end of the run")
+    p.add_argument("--profile-dir", default=None,
+                   help="write the profile as profile.json to this directory "
+                        "(tools/profile_report.py renders it; implies --profile)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p
 
 
-def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
+def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool, family: str) -> None:
     """The reference's argument checks (``repro/launch/serve.py``)."""
     if args.fused_serve and args.micro_batch < 2:
         p.error("--fused-serve rides the micro-batched path; give --micro-batch >= 2")
+    if family != "recsys" and _profiling(args):
+        p.error(f"--profile/--profile-dir profile the SDIM serving kernels (recsys "
+                f"serving only); arch {args.arch!r} is family {family!r}")
+    if mode != "decoupled" and _profiling(args):
+        p.error(f"--profile/--profile-dir wrap the SDIM engine dispatch sites, which "
+                f"only the decoupled (sdim) deployment has; arch {args.arch!r} serves "
+                f"{mode!r}")
     if mode != "decoupled":
         for on, flags in ((args.table_dtype != "fp32" or args.fused_serve,
                            "--table-dtype/--fused-serve configure"),
@@ -135,6 +163,10 @@ def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
         p.error(f"--trace-slow-ms must be >= 0, got {args.trace_slow_ms}")
 
 
+def _profiling(args) -> bool:
+    return args.profile or args.profile_dir is not None
+
+
 @torch.no_grad()
 def _score_fields(model, req, sparse_ids: np.ndarray, device) -> np.ndarray:
     """wide_deep's scores of one request: ``model.apply`` over the user's
@@ -147,23 +179,42 @@ def _score_fields(model, req, sparse_ids: np.ndarray, device) -> np.ndarray:
     return model.apply(batch).cpu().numpy()
 
 
-def main(argv=None):
-    p = _parser()
-    args = p.parse_args(argv)
+@dataclasses.dataclass
+class Launch:
+    """What ``build`` made of the arguments."""
 
-    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
+    args: argparse.Namespace
+    cfg: Any
+    mode: str
+    tiered: bool
+    device: torch.device
+    model: Any
+    server: Any
+    tracer: Any = None
+    profiler: Any = None
+    ledger: Any = None
+
+
+def build(argv=None, cfg=None) -> Launch:
+    """Parse ``argv`` and build the model (seeded random weights) and the
+    servers on the device, with the profiler and the ledger attached under
+    ``--profile``; async ingest is started. ``cfg`` replaces the arch's
+    ``SMOKE`` config."""
     from repro_torch.device import resolve_device
     from repro_torch.models.ctr import CTRModel
     from repro_torch.serve.ctr_server import CTRServer
-    from repro_torch.serve.health import health_snapshot
+    from repro_torch.serve.profiler import KernelProfiler, MemoryLedger
     from repro_torch.serve.tiered_store import is_tiered
     from repro_torch.serve.tracing import Tracer
 
-    cfg = registry.get(args.arch).SMOKE
+    p = _parser()
+    args = p.parse_args(argv)
+    mod = registry.get(args.arch)
+    cfg = mod.SMOKE if cfg is None else cfg
     mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
     tiered = is_tiered(args.hot_capacity, args.store_dir, args.policy, args.warm_capacity)
     tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
-    _check(p, args, mode, tiered)
+    _check(p, args, mode, tiered, mod.FAMILY)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     model = CTRModel(cfg, device=device, generator=gen)
@@ -177,17 +228,31 @@ def main(argv=None):
         rate_limit=args.rate_limit, rate_burst=args.rate_burst,
         cold_deadline_s=None if args.cold_deadline_ms is None else args.cold_deadline_ms / 1e3,
         tracer=tracer, device=device)
-    bse = server.bse
+    launch = Launch(args, cfg, mode, tiered, device, model, server, tracer)
+    if _profiling(args):
+        launch.profiler = KernelProfiler(metrics=server.metrics, tracer=tracer)
+        launch.profiler.attach(server.bse.engine)
+        launch.ledger = MemoryLedger(metrics=server.metrics)
+        launch.ledger.attach(server.bse.store)
     if args.async_ingest:
-        bse.async_ingest.start()
+        server.bse.async_ingest.start()
     print(f"SDIM engine on {device}"
           f"{' (' + torch.cuda.get_device_name(device) + ')' if device.type == 'cuda' else ''}")
+    return launch
+
+
+def run(launch: Launch) -> None:
+    """Serve ``--requests`` synthetic requests of ``--candidates`` each,
+    one by one or in micro-batches, printing each one's top candidate."""
+    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
+
+    args, cfg, server = launch.args, launch.cfg, launch.server
     dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items,
                               n_cats=cfg.n_cats)
     rng = np.random.default_rng(0)
     pending = []  # micro-batch buffer of (req_id, request tuple)
 
-    def report(r, scores):
+    def show(r, scores):
         if scores is None:          # shed by admission control, counted
             print(f"req {r}: SHED (admission control)")
         else:
@@ -196,7 +261,7 @@ def main(argv=None):
 
     def flush():
         for (r, _), scores in zip(pending, server.handle_requests([q for _, q in pending])):
-            report(r, scores)
+            show(r, scores)
         pending.clear()
 
     for r in range(args.requests):
@@ -208,16 +273,29 @@ def main(argv=None):
         if cfg.arch == "wide_deep":
             sids = rng.integers(0, cfg.field_vocab,
                                 (args.candidates, cfg.n_sparse)).astype(np.int32)
-            report(r, _score_fields(model, req, sids, device))
+            show(r, _score_fields(launch.model, req, sids, launch.device))
             continue
         if args.micro_batch > 1:
             pending.append((r, req))
             if len(pending) == args.micro_batch:
                 flush()
             continue
-        report(r, server.handle_request(*req))
+        show(r, server.handle_request(*req))
     if pending:
         flush()
+
+
+def report(launch: Launch) -> Optional[dict]:
+    """Stop async ingest (flushing it), then print its stats, ms/request,
+    the tiers, admission, health, metrics, the trace report and, under
+    ``--profile``, the measured roofline and the ledger (a ledger mismatch
+    is printed, not raised); with ``--profile-dir`` write ``profile.json``.
+    Returns the profile (``{"per_kernel": ..., "mem": ...}``) or None."""
+    from repro_torch.serve.health import health_snapshot
+
+    args, server, tracer = launch.args, launch.server, launch.tracer
+    mode, tiered = launch.mode, launch.tiered
+    bse = server.bse
     if bse is not None and bse.async_ingest is not None:
         bse.async_ingest.stop(flush=True)          # quiesce before reporting
         ist = bse.async_ingest.stats
@@ -261,6 +339,27 @@ def main(argv=None):
             os.makedirs(args.trace_dir, exist_ok=True)
             out = tracer.save_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
             print(f"chrome trace written to {out} (load in Perfetto / chrome://tracing)")
+    if launch.profiler is None:
+        return None
+    print(launch.profiler.roofline_report())
+    print(launch.ledger.report())
+    errs = launch.ledger.verify()
+    if errs:   # surfaced, not raised: a broken ledger must not mask the serve output
+        print("memory ledger MISMATCH: " + "; ".join(errs))
+    profile = {"per_kernel": launch.profiler.to_dict(), "mem": launch.ledger.snapshot()}
+    if args.profile_dir is not None:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        out = os.path.join(args.profile_dir, "profile.json")
+        with open(out, "w") as f:
+            json.dump(profile, f, indent=2)
+        print(f"profile written to {out} (render with tools/profile_report.py)")
+    return profile
+
+
+def main(argv=None):
+    launch = build(argv)
+    run(launch)
+    report(launch)
 
 
 if __name__ == "__main__":

@@ -73,6 +73,11 @@ def from_host(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.
 
 
 class TableStore:
+    # accounting seam: a serve/profiler.MemoryLedger sets both on attach;
+    # the event sites below report allocation deltas and traffic through it
+    ledger = None
+    _ledger_key = None
+
     def __init__(self, n_groups: int, n_buckets: int, d: int, capacity: int = 64,
                  dtype: Any = torch.float32, device: DeviceLike = "cuda"):
         assert capacity >= 1
@@ -96,6 +101,14 @@ class TableStore:
         # False = copy-on-write writes (async ingest's committed views)
         self.donate_writes = True
         self._shared = False        # a committed view holds data/scales
+
+    def _nbytes(self) -> int:
+        """Bytes this store holds on its device right now (the ledger's
+        ground truth)."""
+        n = self.data.numel() * self.data.element_size()
+        if self.quantized:
+            n += self.scales.numel() * self.scales.element_size()
+        return n
 
     def _use(self, *tensors: Optional[torch.Tensor]) -> None:
         """Under copy on write on CUDA: mark ``tensors`` as read on the
@@ -199,6 +212,7 @@ class TableStore:
 
     def _grow(self) -> None:
         cap = self.capacity
+        old = self._nbytes()
         self._use(self.data, self.scales)
         self.data = torch.cat([self.data, torch.zeros_like(self.data)])
         if self.quantized:
@@ -206,6 +220,8 @@ class TableStore:
         self._free[:0] = range(2 * cap - 1, cap - 1, -1)
         self._shared = False
         self.n_grows += 1
+        if self.ledger is not None:
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "grow")
 
     def evict(self, user: Any) -> bool:
         """Drop a user; the zeroed slot is recycled by the next allocation."""
@@ -226,6 +242,8 @@ class TableStore:
             del self._user_of[s]
             self._free.append(s)
         self.n_evictions += len(known)
+        if self.ledger is not None:
+            self.ledger.count("evict", len(known))
         return len(known)
 
     def clear(self) -> None:
@@ -241,6 +259,8 @@ class TableStore:
         self._shared = False
         self.n_grows = 0
         self.n_evictions = 0
+        if self.ledger is not None:   # same-shape zeroing: the allocation keeps
+            self.ledger.count("clear")
 
     # ------------------------------------------------------------------
     # rows
@@ -271,6 +291,8 @@ class TableStore:
             data, scales = self.writable()
             data[idx] = payload
             scales[idx] = row_scales
+            if self.ledger is not None:
+                self.ledger.count("quantize", len(idx))
             return
         if self._check_range:
             rows, n = saturate_cast(rows, dtype=self.dtype)
@@ -328,6 +350,7 @@ class TableStore:
         data = np.asarray(state["data"])
         if tuple(data.shape[1:]) != self.row_shape:
             raise ValueError(f"host state rows {data.shape[1:]}, store rows {self.row_shape}")
+        old = self._nbytes()
         self.data = from_host(data, self.dtype, self.device)
         if self.quantized:
             self.scales = from_host(np.asarray(state["scales"], np.float32),
@@ -337,3 +360,5 @@ class TableStore:
         self._user_of = {s: u for u, s in self._slot_of.items()}
         self._free = [s for s in range(self.capacity - 1, -1, -1)
                       if s not in self._user_of]
+        if self.ledger is not None:   # wholesale replace: the shape may differ
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "restore")

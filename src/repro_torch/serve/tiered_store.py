@@ -298,6 +298,10 @@ class WarmPool:
     host form of it (raw bits for bf16/fp8), and a quantized tier adds a
     parallel (N, G, U) fp32 ``scales`` array."""
 
+    # accounting seam: a serve/profiler.MemoryLedger sets both on attach
+    ledger = None
+    _ledger_key = None
+
     def __init__(self, row_shape, dtype: torch.dtype, capacity: int = 64,
                  quantized: bool = False):
         self.row_shape = tuple(row_shape)
@@ -308,6 +312,10 @@ class WarmPool:
                                 np.float32) if quantized else None)
         self._slot_of: dict[Any, int] = {}
         self._free = list(range(self.data.shape[0] - 1, -1, -1))
+
+    def _nbytes(self) -> int:
+        """Host bytes this pool holds right now (the ledger's ground truth)."""
+        return self.data.nbytes + (self.scales.nbytes if self.quantized else 0)
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -323,12 +331,15 @@ class WarmPool:
         assert len(users) == len(rows), (len(users), rows.shape)
         assert (scales is not None) == self.quantized
         assert rows.dtype == self.data.dtype, (rows.dtype, self.data.dtype)
+        old = self._nbytes()
         while len(self._free) < len(users):
             n = self.data.shape[0]
             self.data = np.concatenate([self.data, np.zeros_like(self.data)])
             if self.quantized:
                 self.scales = np.concatenate([self.scales, np.zeros_like(self.scales)])
             self._free[:0] = range(2 * n - 1, n - 1, -1)
+        if self.ledger is not None and self._nbytes() != old:
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "grow")
         for i, (u, row) in enumerate(zip(users, rows)):
             assert u not in self._slot_of, f"user {u!r} already warm"
             s = self._free.pop()
@@ -362,6 +373,8 @@ class WarmPool:
         self.data[:] = 0
         if self.quantized:
             self.scales[:] = 0
+        if self.ledger is not None:   # in-place zeroing: the allocation keeps
+            self.ledger.count("clear")
 
     # ---- snapshot seam -------------------------------------------------
     def host_state(self) -> dict:
@@ -375,6 +388,7 @@ class WarmPool:
         data = np.asarray(state["data"])
         assert data.shape[1:] == self.row_shape, (data.shape, self.row_shape)
         assert data.dtype == self.data.dtype, (data.dtype, self.data.dtype)
+        old = self._nbytes()
         self.data = np.array(data)
         if self.quantized:
             self.scales = np.array(np.asarray(state["scales"]), np.float32)
@@ -382,6 +396,8 @@ class WarmPool:
         used = set(self._slot_of.values())
         self._free = [s for s in range(self.data.shape[0] - 1, -1, -1)
                       if s not in used]
+        if self.ledger is not None:   # wholesale replace: the shape may differ
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "restore")
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +411,10 @@ class ColdStore:
     eviction go dead in place; a segment whose live count hits zero is
     unlinked."""
 
+    # accounting seam: a serve/profiler.MemoryLedger sets both on attach
+    ledger = None
+    _ledger_key = None
+
     def __init__(self, dir: str):
         self.dir = dir
         os.makedirs(dir, exist_ok=True)
@@ -403,6 +423,12 @@ class ColdStore:
         existing = [int(os.path.basename(p)[4:-4])
                     for p in glob.glob(os.path.join(dir, "seg_*.npz"))]
         self._next = max(existing, default=-1) + 1
+
+    def _seg_nbytes(self, seg: int) -> int:
+        try:
+            return os.path.getsize(self._path(seg))
+        except OSError:
+            return 0
 
     def _path(self, seg: int) -> str:
         return os.path.join(self.dir, f"seg_{seg:08d}.npz")
@@ -437,6 +463,8 @@ class ColdStore:
             assert u not in self._seg_of, f"user {u!r} already cold"
             self._seg_of[u] = (seg, i)
         self._live[seg] = len(users)
+        if self.ledger is not None:
+            self.ledger.add(self._ledger_key, self._seg_nbytes(seg), "spill")
 
     def read(self, user) -> tuple[np.ndarray, Optional[np.ndarray]]:
         """One user's stored row (payload, scales or None), no removal."""
@@ -474,6 +502,10 @@ class ColdStore:
             self._live[seg] -= 1
             if self._live[seg] == 0:
                 del self._live[seg]
+                # size BEFORE the unlink; the segment leaves the live set
+                # either way, so the ledger drops it either way
+                if self.ledger is not None:
+                    self.ledger.add(self._ledger_key, -self._seg_nbytes(seg), "unlink")
                 try:
                     os.remove(self._path(seg))
                 except OSError:
@@ -481,6 +513,8 @@ class ColdStore:
 
     def clear(self) -> None:
         for seg in list(self._live):
+            if self.ledger is not None:
+                self.ledger.add(self._ledger_key, -self._seg_nbytes(seg), "unlink")
             try:
                 os.remove(self._path(seg))
             except OSError:
@@ -501,6 +535,9 @@ class ColdStore:
             assert os.path.exists(self._path(seg)), \
                 f"cold index references missing segment {self._path(seg)}"
         self._next = max(self._live, default=self._next - 1) + 1
+        if self.ledger is not None:   # wholesale index replace: resync
+            self.ledger.set_total(self._ledger_key,
+                                  sum(self._seg_nbytes(seg) for seg in self._live), "restore")
 
 
 # ---------------------------------------------------------------------------
@@ -594,6 +631,9 @@ class TieredTableStore:
         self.breaker = breaker
         self.metrics = metrics
         self.tracer = tracer
+        # accounting seam: serve/profiler.MemoryLedger.attach registers
+        # every tier and sets this for the tier-movement traffic events
+        self.ledger = None
 
     # ------------------------------------------------------------------
     # delegated surface
@@ -765,6 +805,8 @@ class TieredTableStore:
                 self.stats.warm_promotions += len(warm_u)
                 self.stats.cold_promotions += len(cold_u)
                 self.stats.promote_bytes += _nbytes(rows, scales)
+                if self.ledger is not None:
+                    self.ledger.count("promote", len(promote), moved=_nbytes(rows, scales))
                 if self.metrics is not None:
                     self.metrics.counter("tier.promotions").inc(len(promote))
         if new_u:
@@ -804,6 +846,8 @@ class TieredTableStore:
             self.warm.put(victims, vrows, vscales)
             self.stats.demotions += k
             self.stats.demote_bytes += _nbytes(vrows, vscales)
+            if self.ledger is not None:
+                self.ledger.count("demote", k, moved=_nbytes(vrows, vscales))
             if self.metrics is not None:
                 self.metrics.counter("tier.demotions").inc(k)
 

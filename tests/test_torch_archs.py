@@ -319,6 +319,46 @@ def test_score_candidates_many_matches_jax(arch_case, mode):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
 
 
+@pytest.fixture(scope="module")
+def dien_target_case():
+    """(port config, JAX model, params as numpy, batch): dien at its FULL
+    behavior width d = 36 with interest kind "target" (the long branch is
+    target attention, kernel 6 on the card), from the JAX init."""
+    cfg, jcfg, _ = _configs("dien-d36")
+    cfg, jcfg = (dataclasses.replace(c, interest=dataclasses.replace(c.interest, kind="target"))
+                 for c in (cfg, jcfg))
+    jmodel = JCTRModel(jcfg)
+    params_np = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    batch, _, _ = _inputs(cfg, 5)
+    assert cfg.behavior_dim == 36
+    return cfg, jmodel, params_np, batch
+
+
+def test_dien_d36_with_kind_target_logits_match_jax(dien_target_case):
+    cfg, jmodel, params_np, batch = dien_target_case
+    want = jmodel.apply(_jparams(params_np), {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got = _model(cfg, params_np).apply({k: _t(v) for k, v in batch.items()})
+    assert got.shape == (B,) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+
+
+def test_dien_d36_with_kind_target_gradient_tree_matches_jax(dien_target_case):
+    """The loss and every parameter's gradient through target attention at
+    d = 36 (user 0 has no behavior: uniform weights) against jax.grad."""
+    cfg, jmodel, params_np, batch = dien_target_case
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jmodel.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(_jparams(params_np))
+    model = _model(cfg, params_np)
+    loss, _ = model.loss({k: _t(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **FP32)
+    grads = export_params(model, grad=True)
+    _assert_trees_close(grads, jax.tree_util.tree_map(np.asarray, jgrads), **FP32)
+    assert np.abs(grads["item_emb"]["table"]).max() > 0      # through the long branch too
+
+
 def test_wide_deep_refuses_to_score_without_fields():
     cfg, _, _ = _configs("wide-deep")
     model = CTRModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0))

@@ -349,8 +349,13 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
         bse_serve(q.bfloat16(), seq, mask, R, 2)                # candidates are fp32
     with pytest.raises(ValueError):
         target_attention_flash(q, seq, mask[:, :-1].contiguous())
-    with pytest.raises(ValueError):                             # d not a multiple of 8
-        target_attention_flash(q[..., :12].contiguous(), seq[..., :12].contiguous(), mask)
+    for d in (6, 260):                          # d not a multiple of 4, or above 256
+        qd = torch.zeros((*q.shape[:2], d), device=dev)
+        sd = torch.zeros((*seq.shape[:2], d), device=dev)
+        with pytest.raises(ValueError):
+            target_attention_flash(qd, sd, mask)
+        with pytest.raises(ValueError):
+            target_attention_flash_backward(qd, qd, sd, mask, qd)
     shifted = torch.empty(seq.numel() + 1, device=dev)[1:].view(seq.shape)
     shifted.copy_(seq)                          # contiguous, 4 bytes past a boundary
     with pytest.raises(ValueError):
@@ -463,6 +468,39 @@ def test_bse_encode_and_its_backward_at_d4mod8(shape, dtype, layout, dev):
     torch.testing.assert_close(grad.float(),
                                bse_encode_backward_ref(dT, seq, mask, R, tau).float(),
                                **(FP32 if dtype == torch.float32 else BF16_OUT))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D4MOD8_SHAPES + [(2048, 32, 1, 36, 12, 2)],
+                         ids=[str(s) for s in D4MOD8_SHAPES] + ["folded-d36"])
+def test_target_attention_flash_and_its_backward_at_d4mod8(shape, dtype, layout, dev):
+    """target_attention_flash and its backward at d % 8 == 4 (bf16 rows of
+    72, 8, 40 and 88 bytes, a user's rows off a 16-byte boundary where b L
+    is odd) and at the retrieval kinds' folded shape at d = 36 (2,048 users
+    of one candidate over 32 rows), against the plain versions at FP32
+    (BF16_OUT for a bf16 dseq), the same bits on two launches; (B > 1) a
+    fully masked last user attends uniformly and its candidates get no
+    gradient."""
+    seq, q, mask, _, rng = _inputs(shape, dev, dtype, seed=13)
+    mask = _layout(mask, layout, rng)
+    out = target_attention_flash(q, seq, mask)
+    torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+    assert torch.equal(out, target_attention_flash(q, seq, mask))
+    if shape[0] > 1:
+        uniform = seq[-1].float().mean(0).expand(shape[2], -1)
+        torch.testing.assert_close(out[-1], uniform, **FP32)
+    dout = torch.randn(q.shape, device=dev)
+    dq, dseq = target_attention_flash_backward(dout, q, seq, mask, out)
+    again = target_attention_flash_backward(dout, q, seq, mask, out)
+    assert torch.equal(dq, again[0]) and torch.equal(dseq, again[1]) and dseq.dtype == dtype
+    rq, rseq = target_attention_flash_backward_ref(dout, q, seq, mask, out)
+    torch.testing.assert_close(dq, rq, **FP32)
+    torch.testing.assert_close(dseq.float(), rseq.float(),
+                               **(FP32 if dtype == torch.float32 else BF16_OUT))
+    if shape[0] > 1:
+        assert not dq[-1].any()
 
 
 @pytest.mark.cuda

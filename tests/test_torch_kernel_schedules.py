@@ -47,7 +47,8 @@ Each kernel is also emulated at dien's behavior width d = 36 (the
 ``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
 72 in bf16 and 36 in int8 or fp8; and at the other widths d % 8 == 4
 that the wrappers take (``*-d4``, ``*-d20``, ``*-d44``): one, five and
-eleven float4 columns, int8 rows of 4, 20 and 44 bytes.
+eleven float4 columns, int8 rows of 4, 20 and 44 bytes. Target attention
+and its backward are emulated at d = 4, 12, 36 and 44.
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
@@ -180,11 +181,16 @@ def bse_serve_schedule(q, seq, mask, R, tau, S, TL=64, TC=64):
 
 @pytest.mark.parametrize("S", [8, 7])
 @pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [(2, 40, 8, 32), (3, 300, 70, 64), (2, 1024, 128, 128)],
-                         ids=["L-below-a-tile-per-rank", "ragged", "full-width"])
+@pytest.mark.parametrize("shape", [(2, 40, 8, 32), (3, 300, 70, 64), (2, 1024, 128, 128),
+                                   (2, 77, 9, 4), (3, 130, 40, 12), (2, 1024, 128, 36),
+                                   (2, 95, 17, 44)],
+                         ids=["L-below-a-tile-per-rank", "ragged", "full-width", "d4", "d12",
+                              "dien-d36", "d44"])
 def test_target_attention_schedule_matches_jax(shape, layout, S):
     """S = 8 chunks, and S = 7 (the kernel's cluster at a 16-user burst on
-    the H100): uneven chunks and candidate slices."""
+    the H100): uneven chunks and candidate slices; also at the widths
+    d % 8 == 4 the kernel takes (one, three, nine and eleven float4
+    columns)."""
     B, L, C, d = shape
     rng = np.random.default_rng(11)
     q = rng.standard_normal((B, C, d)).astype(np.float32)
@@ -742,11 +748,13 @@ def test_sdim_backward_schedules_match_jax(shape, layout):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [(2, 40, 3, 32), (3, 70, 5, 64), (2, 96, 1, 128)])
+@pytest.mark.parametrize("shape", [(2, 40, 3, 32), (3, 70, 5, 64), (2, 96, 1, 128),
+                                   (2, 40, 3, 4), (3, 70, 5, 12), (2, 96, 1, 36),
+                                   (2, 50, 3, 44)])
 def test_target_attention_backward_schedule_matches_jax(shape, layout):
     """L not a multiple of 32 (row groups with one row more than others),
     C = 1, and a fully masked last user (uniform weights: its rows get
-    sum_c dout / L, its candidates nothing)."""
+    sum_c dout / L, its candidates nothing); d = 4, 12, 36 and 44 too."""
     B, L, C, d = shape
     rng = np.random.default_rng(22)
     seq = rng.standard_normal((B, L, d)).astype(np.float32)
