@@ -157,10 +157,13 @@ Phases, each of which raises (exit code != 0) when it fails:
    128. Checks: finite scores; ``ledger.verify()`` empty; the written
    ``profile.json`` passes ``tools/bench_check.py::check_profile``;
    encode, serve_fused and (fp32) update each timed and compiled at least
-   once; no record's unclamped predicted / measured time above 1.05 (a
-   count in ``kernels/cost.py`` would be wrong); the ledger's hot bytes
-   those of the hot store's tensors. Prints each record (calls, compiles,
-   measured and predicted ms, bottleneck), the ledger, and ms/request of 8
+   once; no record's unclamped predicted / measured time above 1.05,
+   per kernel and per signature (the profiler counts every timed call on
+   its own data; a ratio above would mean a count in ``kernels/cost.py``
+   is wrong); the ledger's hot bytes those of the hot store's tensors.
+   Prints each record and each signature's record (calls, compiles,
+   measured and predicted ms, bottleneck, the ratio), how far the
+   largest ratio lies below 1.05, the ledger, and ms/request of 8
    steady bursts of 16 with the profiler and 8 without, alternating
    (median and range).
 
@@ -2059,7 +2062,10 @@ def profile_run(torch, dev, tmp, name, dtype, async_ingest, requests, events) ->
         raise AssertionError(f"profile {name}: kernels without a timed call and a compile: "
                              f"{bad} in {json.dumps({k: (v['calls'], v['compiles']) for k, v in pk.items()})}")
     ratios = {k: v["predicted"]["roofline_ms"] / v["time_ms"] for k, v in pk.items()}
-    over = {k: r for k, r in ratios.items() if r > PROF_RATIO}
+    by_sig = {f"{k} {sig_label(sig)}": rec for (k, sig), rec in profiler.signatures.items()
+              if rec.n_calls}
+    sig_ratios = {k: rec.predicted.roofline_time / rec.mean_s for k, rec in by_sig.items()}
+    over = {k: r for k, r in {**ratios, **sig_ratios}.items() if r > PROF_RATIO}
     if over:
         raise AssertionError(f"profile {name}: predicted above {PROF_RATIO} x measured: {over} "
                              f"(a count in kernels/cost.py is wrong)")
@@ -2074,13 +2080,26 @@ def profile_run(torch, dev, tmp, name, dtype, async_ingest, requests, events) ->
               f"{v['time_ms']:.4f} ms (min {v['min_ms']:.4f}, max {v['max_ms']:.4f}), predicted "
               f"{v['predicted']['roofline_ms']:.6f} ms ({v['predicted']['bottleneck']}), "
               f"predicted / measured {ratios[k]:.4g}")
+    for k, rec in by_sig.items():
+        print(f"profile {name} {k}: {rec.n_calls} calls, measured {rec.time_ms:.4f} ms, "
+              f"predicted {1e3 * rec.predicted.roofline_time:.6f} ms "
+              f"({rec.predicted.bottleneck}), predicted / measured {sig_ratios[k]:.4g}")
+    print(f"profile {name}: the largest predicted / measured, {max(sig_ratios.values()):.4g}, "
+          f"is {PROF_RATIO / max(sig_ratios.values()):.4g} x below the {PROF_RATIO} limit")
     overhead = {k: steady(v) for k, v in times.items()}
     print(f"profile {name}: ms/request of {PROF_STEADY} steady bursts of {BURST} (host), "
           f"with --profile {json.dumps(overhead['with'])}, without {json.dumps(overhead['without'])}; "
           f"mem {json.dumps({k: profile['mem'][k] for k in ('hot_bytes', 'warm_bytes', 'cold_bytes', 'events', 'moved_bytes')})}")
     del launch, server, bse
     return {"per_kernel": pk, "mem": profile["mem"], "ms_per_request": overhead,
-            "ratios": ratios}
+            "ratios": ratios, "signature_ratios": sig_ratios}
+
+
+def sig_label(sig) -> str:
+    """A dispatch signature (``serve/profiler.py``'s ``_signature``) as the
+    shapes and dtypes of its tensor arguments."""
+    return " ".join("x".join(map(str, a[0])) + ":" + str(a[1]).removeprefix("torch.")
+                    for a in sig[0] if isinstance(a, tuple) and len(a) == 3)
 
 
 def profile_phase(torch, dev, wrappers):

@@ -4,11 +4,11 @@ memory rate and its operations over the fp32 peak.
 
 Counterpart of ``repro/distributed/roofline.py``, cut to what the kernel
 profiler (``serve/profiler.py``) needs: ``RooflineRecord`` and
-``analyze(name, flops, bytes, n_chips)``. The JAX package reads flops and
-bytes from XLA's ``cost_analysis()`` and collective bytes from the HLO;
+``analyze(name, flops, bytes)``. The JAX package reads flops and bytes
+from XLA's ``cost_analysis()`` and adds a collective term from the HLO;
 the port has neither, so the caller hands in the analytical counts of
-``kernels/cost.py``, and the collective term is 0: the dispatches it
-profiles run on one card.
+``kernels/cost.py``, and the profiled dispatches run on one card with no
+collective.
 
 Hardware: NVIDIA H100 SXM data sheet, 3.35 TB/s HBM3 and 67 TFLOP/s fp32
 outside the tensor cores (the kernels compute in IEEE fp32, no TF32).
@@ -24,37 +24,28 @@ PEAK_FLOPS = 67e12      # fp32 FLOP/s per card
 @dataclasses.dataclass
 class RooflineRecord:
     name: str
-    n_chips: int
-    flops_per_chip: float
-    hbm_bytes_per_chip: float
+    flops: float
+    hbm_bytes: float
 
     @property
     def t_compute(self) -> float:
-        return self.flops_per_chip / PEAK_FLOPS
+        return self.flops / PEAK_FLOPS
 
     @property
     def t_memory(self) -> float:
-        return self.hbm_bytes_per_chip / HBM_BW
-
-    @property
-    def t_collective(self) -> float:
-        return 0.0          # the profiled dispatches run on one card
+        return self.hbm_bytes / HBM_BW
 
     @property
     def bottleneck(self) -> str:
-        terms = {"compute": self.t_compute, "memory": self.t_memory,
-                 "collective": self.t_collective}
-        return max(terms, key=terms.get)
+        return "compute" if self.t_compute > self.t_memory else "memory"
 
     @property
     def roofline_time(self) -> float:
         """Lower bound on the dispatch's time (the terms overlap perfectly)."""
-        return max(self.t_compute, self.t_memory, self.t_collective)
+        return max(self.t_compute, self.t_memory)
 
 
-def analyze(name: str, flops: float, bytes: float, n_chips: int = 1) -> RooflineRecord:
+def analyze(name: str, flops: float, bytes: float) -> RooflineRecord:
     """The roofline of a dispatch that does ``flops`` fp32 operations and
-    moves ``bytes`` over HBM in all, split evenly over ``n_chips`` cards."""
-    return RooflineRecord(name=name, n_chips=n_chips,
-                          flops_per_chip=float(flops) / n_chips,
-                          hbm_bytes_per_chip=float(bytes) / n_chips)
+    moves ``bytes`` over HBM."""
+    return RooflineRecord(name=name, flops=float(flops), hbm_bytes=float(bytes))

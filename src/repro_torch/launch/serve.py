@@ -123,13 +123,10 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool, family: str) -> None:
+def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
     """The reference's argument checks (``repro/launch/serve.py``)."""
     if args.fused_serve and args.micro_batch < 2:
         p.error("--fused-serve rides the micro-batched path; give --micro-batch >= 2")
-    if family != "recsys" and _profiling(args):
-        p.error(f"--profile/--profile-dir profile the SDIM serving kernels (recsys "
-                f"serving only); arch {args.arch!r} is family {family!r}")
     if mode != "decoupled" and _profiling(args):
         p.error(f"--profile/--profile-dir wrap the SDIM engine dispatch sites, which "
                 f"only the decoupled (sdim) deployment has; arch {args.arch!r} serves "
@@ -214,7 +211,7 @@ def build(argv=None, cfg=None) -> Launch:
     mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
     tiered = is_tiered(args.hot_capacity, args.store_dir, args.policy, args.warm_capacity)
     tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
-    _check(p, args, mode, tiered, mod.FAMILY)
+    _check(p, args, mode, tiered)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     model = CTRModel(cfg, device=device, generator=gen)

@@ -16,10 +16,16 @@ check_profile`` checks either).
     dispatch of each (kernel, argument shapes and dtypes) counts as a
     compile and stays out of the sample: it carries the first-use ``nvcc``
     build of ``kernels/_build.py``, as a JAX dispatch that grew its jit
-    cache carries the compile. Per kernel it captures flops and bytes once,
-    from ``kernels/cost.py``'s count of the first call's arguments, before
-    that call runs and outside its timed window, with the roofline
-    prediction of ``distributed/roofline.py`` for the same counts.
+    cache carries the compile. Before every dispatch, outside its timed
+    window, it counts the call's flops and bytes with ``kernels/cost.py``
+    (the work this call's data needs: valid rows, present users, touched
+    slots), and adds them up over the timed calls as it adds up their
+    time, per kernel and per signature: a record's ``flops`` and ``bytes``
+    are the mean over the calls its mean time is taken over, and its
+    roofline prediction (``distributed/roofline.py``) is that of those
+    means. The JAX package counts from shapes (XLA's ``cost_analysis()``)
+    once per kernel; a data-dependent count taken once would depend on
+    which call came first.
 
 ``MemoryLedger``
     Byte accounting keyed by ``(store, tier, dtype)`` over every grow /
@@ -43,7 +49,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -64,7 +69,8 @@ TIER_LOCATION = {"hot": "device", "warm": "host", "cold": "disk"}
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class KernelRecord:
-    """Measured and modeled profile of one named dispatch site."""
+    """Measured and modeled profile of one named dispatch site (or of one
+    signature of it)."""
 
     name: str
     n_calls: int = 0            # timed dispatches
@@ -72,9 +78,8 @@ class KernelRecord:
     total_s: float = 0.0
     min_s: float = math.inf
     max_s: float = 0.0
-    flops: float = 0.0          # kernels/cost.py, captured once per kernel
-    bytes: float = 0.0
-    predicted: Optional[roofline.RooflineRecord] = None
+    total_flops: float = 0.0    # kernels/cost.py, summed over the timed calls
+    total_bytes: float = 0.0
 
     @property
     def mean_s(self) -> float:
@@ -86,30 +91,43 @@ class KernelRecord:
         return 1e3 * self.mean_s
 
     @property
+    def flops(self) -> float:
+        """Mean counted operations per timed dispatch."""
+        return self.total_flops / self.n_calls if self.n_calls else 0.0
+
+    @property
+    def bytes(self) -> float:
+        """Mean counted bytes moved per timed dispatch."""
+        return self.total_bytes / self.n_calls if self.n_calls else 0.0
+
+    @property
     def ai(self) -> float:
         """Arithmetic intensity (flops per byte moved)."""
         return self.flops / self.bytes if self.bytes > 0 else 0.0
 
     @property
+    def predicted(self) -> Optional[roofline.RooflineRecord]:
+        """The roofline of the mean counts; None until a call was timed."""
+        if not self.n_calls:
+            return None
+        return roofline.analyze(self.name, self.flops, self.bytes)
+
+    @property
     def pct_peak(self) -> float:
         """Predicted least time over measured time, clamped to [0, 1]; 0.0
-        until both a timed call and a prediction exist."""
-        if self.predicted is None or not self.n_calls:
+        until a call was timed."""
+        p = self.predicted
+        if p is None or self.mean_s <= 0.0:
             return 0.0
-        ideal = self.predicted.roofline_time
-        if ideal <= 0.0 or self.mean_s <= 0.0:
-            return 0.0
-        return min(1.0, ideal / self.mean_s)
+        return min(1.0, p.roofline_time / self.mean_s)
 
-    def add(self, dt: float) -> None:
+    def add(self, dt: float, c: cost.Cost) -> None:
         self.n_calls += 1
         self.total_s += dt
         self.min_s = min(self.min_s, dt)
         self.max_s = max(self.max_s, dt)
-
-    def capture_cost(self, c: cost.Cost, n_chips: int) -> None:
-        self.flops, self.bytes = float(c.flops), float(c.bytes)
-        self.predicted = roofline.analyze(self.name, c.flops, c.bytes, n_chips)
+        self.total_flops += float(c.flops)
+        self.total_bytes += float(c.bytes)
 
     def to_dict(self) -> dict:
         d = {
@@ -123,12 +141,11 @@ class KernelRecord:
             "ai": self.ai,
             "pct_peak": self.pct_peak,
         }
-        if self.predicted is not None:
-            p = self.predicted
+        p = self.predicted
+        if p is not None:
             d["predicted"] = {
                 "t_compute_ms": 1e3 * p.t_compute,
                 "t_memory_ms": 1e3 * p.t_memory,
-                "t_collective_ms": 1e3 * p.t_collective,
                 "roofline_ms": 1e3 * p.roofline_time,
                 "bottleneck": p.bottleneck,
             }
@@ -152,20 +169,20 @@ class KernelProfiler:
     ``attach(engine)`` sets ``engine.profiler``; every later engine
     dispatch goes through ``profile``. ``clock`` is any monotonic ``() ->
     seconds`` (None: CUDA events on the card, ``time.perf_counter`` on the
-    CPU); ``n_chips`` feeds the roofline; ``metrics`` gets
-    ``kernel.<name>_ms`` histograms and a ``kernel.compiles`` counter;
-    ``tracer`` a ``kernel.<name>`` span per dispatch carrying ``flops`` /
-    ``bytes`` / ``ai``."""
+    CPU); ``metrics`` gets ``kernel.<name>_ms`` histograms and a
+    ``kernel.compiles`` counter; ``tracer`` a ``kernel.<name>`` span per
+    dispatch carrying the call's ``flops`` / ``bytes`` / ``ai``.
+    ``records`` holds one ``KernelRecord`` per kernel, ``signatures`` one
+    per (kernel, signature) with the same fields."""
 
-    def __init__(self, clock: Optional[Callable[[], float]] = None, n_chips: int = 1,
+    def __init__(self, clock: Optional[Callable[[], float]] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
         self.clock = clock
-        self.n_chips = n_chips
         self.metrics = metrics
         self.tracer = tracer
         self.records: dict[str, KernelRecord] = {}
-        self._seen: set = set()          # (name, signature) dispatched before
+        self.signatures: dict[tuple, KernelRecord] = {}      # (name, signature)
         self._lock = threading.Lock()
 
     def attach(self, engine) -> Any:
@@ -192,36 +209,36 @@ class KernelProfiler:
         return out, clock() - t0
 
     def profile(self, name: str, fn, args: tuple, kwargs: dict):
-        """Run one dispatch under measurement: the cost of the kernel on
-        its first sight (before the call: ``update`` writes its store in
-        place), the timed call, and the first dispatch of a signature kept
-        out of the sample."""
+        """Run one dispatch under measurement: the call's cost (before the
+        call: ``update`` writes its store in place), the timed call, and
+        the first dispatch of a signature kept out of the sample."""
         key = (name, _signature(args, kwargs))
         with self._lock:
             rec = self.records.get(name)
             if rec is None:
                 rec = self.records[name] = KernelRecord(name)
-            compiled_now = key not in self._seen
-            self._seen.add(key)
-            capture = rec.predicted is None and name in cost.DISPATCH
-        if capture:
-            c = cost.DISPATCH[name](*args, **kwargs)
-            with self._lock:
-                rec.capture_cost(c, self.n_chips)
+            sig = self.signatures.get(key)
+            compiled_now = sig is None
+            if compiled_now:
+                sig = self.signatures[key] = KernelRecord(name)
+        c = cost.DISPATCH[name](*args, **kwargs)
         with maybe_span(self.tracer, f"kernel.{name}") as sp:
             out, dt = self._timed(fn, args, kwargs)
             with self._lock:
                 if compiled_now:
                     rec.n_compiles += 1
+                    sig.n_compiles += 1
                 else:
-                    rec.add(dt)
+                    rec.add(dt, c)
+                    sig.add(dt, c)
             if compiled_now:
                 sp.set(compile=True)
                 if self.metrics is not None:
                     self.metrics.counter("kernel.compiles").inc()
             else:
                 observe_ms(self.metrics, f"kernel.{name}_ms", dt)
-            sp.set(time_ms=1e3 * dt, flops=rec.flops, bytes=rec.bytes, ai=rec.ai)
+            sp.set(time_ms=1e3 * dt, flops=c.flops, bytes=c.bytes,
+                   ai=c.flops / c.bytes if c.bytes > 0 else 0.0)
         return out
 
     # ------------------------------------------------------------------
@@ -267,18 +284,6 @@ def _dtype_key(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def cold_bytes(cold) -> int:
-    """Bytes of a ``ColdStore``'s live segment files (the cold tier's
-    ground truth; the hot and warm tiers report theirs, ``_nbytes``)."""
-    total = 0
-    for seg in cold._live:
-        try:
-            total += os.path.getsize(cold._path(seg))
-        except OSError:
-            pass
-    return total
-
-
 class MemoryLedger:
     """Event-driven byte accounting over the serving stores.
 
@@ -322,8 +327,7 @@ class MemoryLedger:
             self._register(store.hot, (name, "hot", dt), store.hot._nbytes)
             self._register(store.warm, (name, "warm", dt), store.warm._nbytes)
             if store.cold is not None:
-                self._register(store.cold, (name, "cold", dt),
-                               lambda c=store.cold: cold_bytes(c))
+                self._register(store.cold, (name, "cold", dt), store.cold._nbytes)
         else:
             self._register(store, (name, "hot", dt), store._nbytes)
         return store

@@ -430,6 +430,10 @@ class ColdStore:
         except OSError:
             return 0
 
+    def _nbytes(self) -> int:
+        """Bytes of the live segment files (the ledger's ground truth)."""
+        return sum(self._seg_nbytes(seg) for seg in self._live)
+
     def _path(self, seg: int) -> str:
         return os.path.join(self.dir, f"seg_{seg:08d}.npz")
 
@@ -537,7 +541,7 @@ class ColdStore:
         self._next = max(self._live, default=self._next - 1) + 1
         if self.ledger is not None:   # wholesale index replace: resync
             self.ledger.set_total(self._ledger_key,
-                                  sum(self._seg_nbytes(seg) for seg in self._live), "restore")
+                                  self._nbytes(), "restore")
 
 
 # ---------------------------------------------------------------------------

@@ -100,14 +100,44 @@ def test_cost_capture_and_report_render():
     assert d["ai"] == pytest.approx(d["flops"] / d["bytes"])
     assert 0.0 <= d["pct_peak"] <= 1.0
     pred = d["predicted"]
-    assert pred["roofline_ms"] >= 0 and pred["bottleneck"] in ("compute", "memory",
-                                                               "collective")
-    assert pred["t_collective_ms"] == 0.0
+    assert pred["roofline_ms"] >= 0 and pred["bottleneck"] in ("compute", "memory")
+    assert pred["roofline_ms"] == pytest.approx(max(pred["t_compute_ms"], pred["t_memory_ms"]))
     report = prof.roofline_report()
     assert "encode" in report and "pct_peak" in report
     q = torch.randn((3, D), generator=torch.Generator().manual_seed(9))
     eng.query(q, table)                       # a second kernel is its own row
     assert "query" in prof.roofline_report()
+
+
+def test_cost_is_summed_over_the_timed_calls_per_kernel_and_signature():
+    """Each timed call is counted on its own data: a record's flops and
+    bytes are the mean over the calls its mean time covers, per kernel and
+    per signature, and the first dispatch of a signature adds no cost."""
+    from repro_torch.kernels import cost
+
+    eng = _engine()
+    prof = KernelProfiler(clock=StepClock(0.25)).attach(eng).profiler
+    seq, _ = _batch(l=11)
+    masks = [torch.ones((3, 11)), (torch.arange(11) < 4).float().expand(3, 11).contiguous(),
+             torch.zeros((3, 11))]
+    for mask in masks:
+        eng.encode(seq, mask)
+    short, short_mask = _batch(b=2, l=5, seed=1)
+    for _ in range(3):
+        eng.encode(short, short_mask)
+    counts = [cost.encode(seq, m, eng.R, tau=eng.cfg.tau) for m in masks[1:]]
+    counts += [cost.encode(short, short_mask, eng.R, tau=eng.cfg.tau)] * 2
+    assert counts[0].flops != counts[1].flops != counts[2].flops
+    rec = prof.records["encode"]
+    assert (rec.n_calls, rec.n_compiles) == (4, 2)
+    assert rec.flops == pytest.approx(sum(c.flops for c in counts) / 4)
+    assert rec.bytes == pytest.approx(sum(c.bytes for c in counts) / 4)
+    assert rec.predicted.t_memory == pytest.approx(rec.bytes / 3.35e12)
+    long_sig, short_sig = prof.signatures.values()
+    assert (long_sig.n_calls, short_sig.n_calls) == (2, 2)
+    assert long_sig.flops == pytest.approx((counts[0].flops + counts[1].flops) / 2)
+    assert short_sig.bytes == pytest.approx(counts[2].bytes)
+    assert long_sig.time_ms == short_sig.time_ms == rec.time_ms == pytest.approx(250.0)
 
 
 def test_profiled_dispatch_output_parity():
@@ -128,7 +158,14 @@ def test_profiled_dispatch_output_parity():
     assert torch.equal(store_p, store_n)
     records = eng_p.profiler.records
     assert set(records) == {"encode", "query", "serve", "serve_fused", "update"}
-    assert all(r.predicted is not None and r.bytes > 0 for r in records.values())
+    assert all(r.n_compiles == 1 and r.predicted is None for r in records.values())
+    eng_p.encode(seq, mask)                   # a second, timed dispatch of each
+    eng_p.query(q, t_p)
+    eng_p.serve(q, seq, mask)
+    eng_p.serve_fused(store_p, slots, q)
+    eng_p.update(store_p, slots, seq, mask)
+    assert all(r.n_calls == 1 and r.predicted is not None and r.bytes > 0
+               for r in records.values())
 
 
 def test_kernel_spans_carry_cost_attrs():
