@@ -87,8 +87,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    (sim_hard, ubr4ctr, eta, sdim, target), built as the protocol builds it
    (d = 32, L = 256, k = 16) and screened, is held against the plain
    versions on the protocol's first batch of 128 and first eval batch of
-   1,024 (logits, and step 1's gradients on the batch of 128); then
-   ``repro_torch.bench.table23_auc`` at its ``quick`` depth (600 steps,
+   1,024 (logits, and step 1's gradients on the batch of 128); every kind
+   trained twice for 5 AdamW steps from one seed at the protocol's shapes
+   must end with parameters of the same bits (fault C5; sdim_expected's
+   where finite); then ``repro_torch.bench.table23_auc`` at its ``quick``
+   depth (600 steps,
    batch 128, L = 256, 4,096 eval examples) for all eight kinds: AUC,
    us/step and the two derived claims; every kind but sdim_expected must
    train with finite losses.
@@ -166,24 +169,48 @@ Phases, each of which raises (exit code != 0) when it fails:
    largest ratio lies below 1.05, the ledger, and ms/request of 8
    steady bursts of 16 with the profiler and 8 without, alternating
    (median and range).
+12. sharded path — ``sdim-paper`` FULL (the seeded model of phases 4-5)
+   with its BSE table store over 8 shards on this one card
+   (``CTRServer.build(mesh=MeshCtx((cuda:0,) * 8))``), each run beside a
+   single-device server fed the same traffic (a comparison: its launches
+   are not counted): the store starts at 512 slots and ingests 4,096 users
+   of L = 1024 in bursts of 512 (every shard doubles three times: 256 MiB
+   of fp32 rows, 64 MiB of int8); 64 requests of 128 candidates, twice, in
+   bursts of 16, the events of 32 users (E = 16) after every fourth burst;
+   fp32 fused, int8 fused and unfused (bf16 wire); ``serve_sharded``
+   against ``serve`` on a burst; then a sharded tiered store (hot 1,024,
+   warm 2,048, cold) with async ingest, single events. Checks, each
+   failing the phase: scores within 1e-5 of the single-device server's
+   (the measured max printed; the masked launches add exact zeros, so it
+   reads 0); ``serve_sharded`` within 1e-5 of ``serve``; ``shard_load()``
+   balanced within 1 and three doublings; ``ledger.verify()`` empty;
+   sdim_update and sdim_fused_serve as one shard's launch took them (the
+   widest call; foreign rows masked out) against their plain versions
+   (FP32); the tiered check burst bit for bit as a synchronous untiered
+   single-device server replaying the same folds and after snapshot ->
+   restore onto 8 shards. Prints launches per burst and per event fold,
+   ms/request sharded beside single-device (8 launches a dispatch on one
+   card: not a speed across GPUs), the card's name and power limit.
 
-Every launch count is set to 0 just before each of phases 4-11 and read
+Every launch count is set to 0 just before each of phases 4-12 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
 phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
-10 all nine; phase 11 bse_encode, sdim_update and sdim_fused_serve).
+10 all nine; phase 11 bse_encode, sdim_update and sdim_fused_serve; phase
+12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve).
 Launches made only to hold a kernel against its plain version (step 1's
-gradient checks, phase 8's and 10's long-branch checks, phase 9's and
-10's kernel checks) or by a server that only serves as a comparison
-(phase 9's synchronous reference and its restored server, phase 10's
-fp32-wire server) are not counted. After the
+gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
+and 12's kernel checks, phase 8's repeated trainings) or by a server that
+only serves as a comparison (phase 9's and 12's synchronous references
+and restored servers, phase 10's fp32-wire server, phase 12's
+single-device servers) are not counted. After the
 counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
-11 as ``profile``), then as
+11 as ``profile``, phase 12 as ``sharded``), then as
 the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -241,6 +268,15 @@ D36 = 36
 PROF_HOT, PROF_WARM, PROF_USERS = 128, 64, 256
 PROF_EV, PROF_EV_EVERY, PROF_STEADY = 32, 4, 8
 PROF_RATIO = 1.05
+C5_STEPS = 5            # phase 8 (b): AdamW steps of each of the two trainings a kind
+# phase 12: the sharded path: SHARDS shards of the BSE store on this one
+# card, starting at SHARD_CAP slots and ingesting SHARD_USERS users (L =
+# 1024) in bursts of SHARD_INGEST, so every shard doubles three times; the
+# first SHARD_REQUESTS users' requests, twice, in bursts of BURST, EV_USERS
+# users' events after every PROD_EV_EVERY-th burst; scores against a
+# single-device server within SHARD_TOL (the reference's sharded tolerance)
+SHARDS, SHARD_CAP, SHARD_USERS, SHARD_INGEST = 8, 512, 4096, 512
+SHARD_REQUESTS, SHARD_TOL = 64, 1e-5
 
 
 def card_line() -> str:
@@ -1315,13 +1351,35 @@ def protocol_checks(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def reproducible_training(torch, dev) -> None:
+    """Phase 8 (b), fault C5: every kind of the protocol trained twice for
+    C5_STEPS AdamW steps from one seed at its shapes (``bench.common.
+    trained_params``); every parameter's bits must match
+    (``bit_differences``: sdim_expected's where they are finite, C2).
+    Launches made here are not counted."""
+    from repro_torch.bench import common, table23_auc
+
+    t0 = time.perf_counter()
+    for kind, kw in table23_auc.BASELINES:
+        with uncounted():
+            runs = [common.trained_params(kind, C5_STEPS, device=dev, **kw) for _ in range(2)]
+        differ = common.bit_differences(*runs)
+        if differ:
+            raise AssertionError(f"table23 {kind}: two trainings from one seed differ in "
+                                 f"{differ} (fault C5)")
+    print(f"table23: each of the {len(table23_auc.BASELINES)} kinds trained twice for "
+          f"{C5_STEPS} AdamW steps from one seed: every parameter bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def table23_protocol(torch, dev) -> None:
     """Phase 8 (b): the kernels held against their plain versions at the
-    protocol's shapes, then the Table 2/3 protocol at its quick depth on
-    the card."""
+    protocol's shapes, the repeated trainings of fault C5, then the Table
+    2/3 protocol at its quick depth on the card."""
     from repro_torch.bench import table23_auc
 
     protocol_checks(torch, dev)
+    reproducible_training(torch, dev)
     t0 = time.perf_counter()
     rows = table23_auc.run(quick=True, device=dev)
     print(f"table23 (quick: 600 steps, batch 128, L=256, 4096 eval examples) in "
@@ -1401,10 +1459,13 @@ class KernelInputs:
         self.torch, self.lock, self.calls = torch, threading.Lock(), {}
 
     def _copy(self, x):
+        if isinstance(x, tuple):                  # a sharded store's blocks
+            return tuple(map(self._copy, x))
         return x.clone() if self.torch.is_tensor(x) else x
 
     def profile(self, kernel, fn, args, kwargs):
-        rows = (args[1] if kernel in ("serve_fused", "update") else args[0]).shape[0]
+        rows = (args[1] if kernel in ("serve_fused", "update", "serve_fused_sharded",
+                                      "update_sharded") else args[0]).shape[0]
         with self.lock:
             seen = self.calls.setdefault(kernel, {})
             keep = [k for k in ("first", "widest") if k not in seen
@@ -2136,6 +2197,315 @@ def profile_phase(torch, dev, wrappers):
     return launches
 
 
+def sharded_traffic(cfg):
+    """Phase 12's traffic: SHARD_USERS users' histories (L = 1024), the
+    first SHARD_REQUESTS users' requests of C candidates, and for every
+    PROD_EV_EVERY-th burst of the two passes an event burst: EV_USERS users
+    with E events each (the synchronous runs) or one each (the async run,
+    whose queue holds single events)."""
+    from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
+
+    dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items, n_cats=cfg.n_cats)
+    h = generate_batch(dcfg, SHARD_USERS, 12)
+    rng = np.random.default_rng(12)
+    ci = rng.integers(0, cfg.n_items, (SHARD_REQUESTS, C)).astype(np.int32)
+    cc = rng.integers(0, cfg.n_cats, (SHARD_REQUESTS, C)).astype(np.int32)
+    ctx = np.zeros((C, cfg.ctx_dim), np.float32)
+    users = [f"s{u}" for u in range(SHARD_USERS)]
+    requests = [(users[u], {k: h[k][u:u + 1] for k in ("hist_items", "hist_cats", "hist_mask")},
+                 ci[u], cc[u], ctx) for u in range(SHARD_REQUESTS)]
+    n_bursts = 2 * SHARD_REQUESTS // BURST
+    events = {}
+    for b in range(PROD_EV_EVERY - 1, n_bursts, PROD_EV_EVERY):
+        ev_users = [users[u] for u in rng.integers(0, SHARD_REQUESTS, EV_USERS)]
+        events[b] = (ev_users, rng.integers(0, cfg.n_items, (EV_USERS, E)).astype(np.int32),
+                     rng.integers(0, cfg.n_cats, (EV_USERS, E)).astype(np.int32))
+    return users, h, requests, events
+
+
+def screen_sharded(torch, model, requests, events) -> int:
+    """Redraw the item rows that the kernels phase 12 holds against their
+    plain versions hash (the candidates for sdim_fused_serve, the events
+    for sdim_update) until they clear the hash margin. Returns the rows
+    redrawn."""
+    from repro_torch.kernels.screen import screen_item_rows
+
+    dev = model.item_emb.weight.device
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+    none = t(np.zeros(0, np.int32))
+    rows = [(np.stack([r[2] for r in requests]), np.stack([r[3] for r in requests])),
+            (np.concatenate([e[1] for e in events.values()]),
+             np.concatenate([e[2] for e in events.values()]))]
+    batches = [{"hist_items": t(i), "hist_cats": t(c), "hist_mask": t(np.ones(i.shape, np.float32)),
+                "cand_item": none, "cand_cat": none} for i, c in rows]
+    return screen_item_rows(model, batches, torch.Generator(device=dev).manual_seed(12))
+
+
+def ingest_all(bse, users, h) -> None:
+    for lo in range(0, len(users), SHARD_INGEST):
+        bse.ingest_histories(users[lo:lo + SHARD_INGEST], h["hist_items"][lo:lo + SHARD_INGEST],
+                             h["hist_cats"][lo:lo + SHARD_INGEST],
+                             h["hist_mask"][lo:lo + SHARD_INGEST])
+
+
+def sharded_kernel_checks(torch, name, captured) -> None:
+    """Kernels 2 and 3 as the sharded dispatches launched them on one
+    shard: the shard that owns the most rows of the widest call, whose
+    launch also held foreign rows (masked out: mask 0, present 0, slot 0),
+    each against its plain version on the same per-shard arguments
+    (``core.engine.shard_update_args`` / ``shard_serve_fused_args``, the
+    ones the path built). Launches made here are not counted."""
+    from repro_torch.core.engine import shard_serve_fused_args, shard_update_args
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
+                                                                       sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+
+    report = []
+    with uncounted():
+        for kernel, seen in sorted(captured.items()):
+            if kernel not in ("update_sharded", "serve_fused_sharded"):
+                continue
+            _, _, args, kwargs = seen["widest"]
+            handles = args[1]
+            k = int(np.bincount(handles[:, 0].numpy(), minlength=SHARDS).argmax())
+            if kernel == "update_sharded":
+                block, slots, ev, mk, R = shard_update_args(k, *args)
+                foreign = int((mk.sum(1) == 0).sum())
+                out, ref = block.clone(), block.clone()
+                sdim_update(out, slots, ev, mk, R, TAU)
+                sdim_update_ref(ref, slots, ev, mk, R, TAU)
+            else:
+                a, kw = shard_serve_fused_args(k, args[0], handles, args[2], args[3],
+                                               kwargs["scales"], kwargs["present"])
+                foreign = int((kw["present"] == 0).sum())
+                out, ref = sdim_fused_serve(*a, TAU, **kw), sdim_fused_serve_ref(*a, TAU, **kw)
+            if not foreign:
+                raise AssertionError(f"sharded {name} {kernel}: shard {k}'s launch held no "
+                                     f"foreign row")
+            err = check_close(f"sharded {name} {kernel} shard {k}", out, ref, **FP32)
+            report.append(f"{kernel} shard {k} ({len(handles)} rows, {foreign} foreign): "
+                          f"{err:.3g}")
+    torch.cuda.synchronize()
+    print(f"sharded {name}: kernels vs plain on one shard's launch, max abs err: "
+          + "; ".join(report))
+
+
+def sharded_run(torch, dev, model, mesh, traffic, name, dtype, fused, wrappers) -> dict:
+    """One synchronous run of phase 12: a sharded server and a
+    single-device one (a comparison: its launches are not counted), both
+    starting at SHARD_CAP slots, fed the same ingest and traffic; the
+    checks of the phase on it. Returns ms/request of both."""
+    from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.serve.profiler import MemoryLedger
+
+    users, h, requests, events = traffic
+    srv = CTRServer.build(model, None, "decoupled", mesh=mesh, capacity=SHARD_CAP, fused=fused,
+                          table_dtype=dtype, device=dev)
+    store = srv.bse.store
+    ledger = MemoryLedger()
+    ledger.attach(store)
+    inputs = KernelInputs(torch)
+    model.engine.profiler = inputs
+    t0 = time.perf_counter()
+    ingest_all(srv.bse, users, h)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    model.engine.profiler = None
+    with uncounted():
+        ref = CTRServer.build(model, None, "decoupled", capacity=SHARD_CAP, fused=fused,
+                              table_dtype=dtype, device=dev)
+        ingest_all(ref.bse, users, h)
+    load = store.shard_load()
+    if max(load) - min(load) > 1 or sum(load) != SHARD_USERS or store.n_grows < 3:
+        raise AssertionError(f"sharded {name}: shard load {load}, {store.n_grows} grows")
+    model.engine.profiler = inputs
+    got, want, times, launches = [], [], {"sharded": [], "single": []}, []
+    bursts = [requests[i:i + BURST] for i in range(0, SHARD_REQUESTS, BURST)] * 2
+    for b, burst in enumerate(bursts):
+        before = {w.__name__: w.launches for w in wrappers}
+        t0 = time.perf_counter()
+        got.extend(srv.handle_requests(burst))
+        times["sharded"].append(1e3 * (time.perf_counter() - t0) / len(burst))
+        launches.append({w.__name__: w.launches - before[w.__name__] for w in wrappers})
+        with uncounted():
+            t0 = time.perf_counter()
+            want.extend(ref.handle_requests(burst))
+            times["single"].append(1e3 * (time.perf_counter() - t0) / len(burst))
+        if b in events:
+            before = {w.__name__: w.launches for w in wrappers}
+            srv.bse.ingest_events(*events[b])
+            fold = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+            with uncounted():
+                ref.bse.ingest_events(*events[b])
+    model.engine.profiler = None
+    torch.cuda.synchronize()
+    a, b = np.stack(got), np.stack(want)
+    if a.shape != (len(got), C) or not np.isfinite(a).all():
+        raise AssertionError(f"sharded {name}: scores {a.shape}, finite {np.isfinite(a).all()}")
+    diff = float(np.abs(a - b).max())
+    print(f"sharded {name}: {len(got)} requests, max |sharded - single-device| score "
+          f"{diff:.3g} (limit {SHARD_TOL})")
+    if diff > SHARD_TOL:
+        raise AssertionError(f"sharded {name}: scores differ from the single-device server's "
+                             f"by {diff}")
+    moved = float(np.abs(a[SHARD_REQUESTS:] - a[:SHARD_REQUESTS]).max())
+    if moved == 0.0:
+        raise AssertionError(f"sharded {name}: the event burst changed no score")
+    errs = ledger.verify()
+    if errs:
+        raise AssertionError(f"sharded {name}: the ledger missed events: {errs}")
+    sharded_kernel_checks(torch, name, inputs.calls)
+    per_burst = {k: statistics.mean(l[k] for l in launches) for k in launches[0]}
+    print(f"sharded {name}: {SHARDS} shards on one card, {store.per_shard_capacity} slots each "
+          f"after {store.n_grows} doublings, users per shard {load}; ingest of "
+          f"{SHARD_USERS} users in {t_ingest:.2f} s; launches per {BURST}-request burst "
+          f"{json.dumps(per_burst)}; per event fold of {EV_USERS} users {json.dumps(fold)}; "
+          f"ledger {ledger.report()}")
+    ms = {k: steady(v) for k, v in times.items()}
+    print(f"sharded {name}: ms/request (host) sharded {json.dumps(ms['sharded'])}, "
+          f"single-device {json.dumps(ms['single'])} — {SHARDS} launches a dispatch on one "
+          f"card, not a speed across GPUs")
+    del srv, ref, inputs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def sharded_tiered_run(torch, dev, model, mesh, traffic, tmp) -> None:
+    """Phase 12's tiered run: a sharded hot tier (hot PROD_HOT users over
+    SHARDS shards, warm PROD_WARM, cold segments) with async ingest, fused
+    fp32; the histories and single events go through the queue. After a
+    flush, a check burst across the tiers scores bit for bit as a
+    synchronous, untiered single-device server fed the same folds, and as
+    the server restored from a snapshot onto SHARDS shards; the ledger
+    verifies; the shards stay balanced."""
+    from repro_torch.serve.bse_server import BSEServer
+    from repro_torch.serve.ctr_server import CTRServer
+    from repro_torch.serve.profiler import MemoryLedger
+
+    users, h, requests, events = traffic
+    srv = CTRServer.build(model, None, "decoupled", mesh=mesh, fused=True,
+                          hot_capacity=PROD_HOT, warm_capacity=PROD_WARM,
+                          store_dir=os.path.join(tmp, "cold"), async_ingest=True,
+                          queue_depth=4 * SHARD_USERS, device=dev)
+    bse, rt, store = srv.bse, srv.bse.async_ingest, srv.bse.store
+    ledger = MemoryLedger()
+    ledger.attach(store)
+    log = record_folds(bse.ingestor)
+    rt.start()
+    ingest_all(bse, users, h)
+    bursts = [requests[i:i + BURST] for i in range(0, SHARD_REQUESTS, BURST)] * 2
+    for b, burst in enumerate(bursts):
+        scores = srv.handle_requests(burst)
+        if any(x is None or not np.isfinite(x).all() for x in scores):
+            raise AssertionError("sharded tiered: a shed or non-finite score")
+        if b in events:
+            ev_users, ev_i, ev_c = events[b]
+            bse.ingest_events(ev_users, ev_i[:, 0], ev_c[:, 0])
+    rt.flush()
+    pick = np.unique(np.linspace(0, SHARD_USERS - 1, BURST).astype(int))
+    check = [(users[u], {k: h[k][u:u + 1] for k in ("hist_items", "hist_cats", "hist_mask")},
+              requests[0][2], requests[0][3], requests[0][4]) for u in pick]
+    tiers = sorted({str(store.tier(r[0])) for r in check})
+    for _ in range(4):        # a promotion may demote another user of the burst
+        misses = bse.stats.n_misses
+        before = srv.handle_requests(check)
+        rt.flush()
+        if bse.stats.n_misses == misses:
+            break
+    else:
+        raise AssertionError("sharded tiered: the check burst still missed users after four "
+                             "flushes")
+    if rt.stop() is not True or rt.error is not None:
+        raise AssertionError("sharded tiered: the writer thread did not stop cleanly")
+    errs = ledger.verify()
+    load = store.hot.shard_load()
+    if errs or max(load) - min(load) > 1:
+        raise AssertionError(f"sharded tiered: ledger {errs}, hot shard load {load}")
+    with uncounted():
+        ref = CTRServer.build(model, None, "decoupled", fused=True, capacity=SHARD_USERS,
+                              device=dev)
+        for fold, args in log:
+            getattr(ref.bse.ingestor, fold)(*args)
+        same_scores("sharded tiered vs a synchronous untiered single-device server", before,
+                    ref.handle_requests(check))
+        del ref
+        snap = bse.snapshot(os.path.join(tmp, "snapshot"))
+        back = BSEServer.restore(snap, bse.ingestor.embed_fn, model, model.engine, mesh=mesh,
+                                 device=dev)
+        if not (back.store.sharded and back.store.n_shards == SHARDS):
+            raise AssertionError("sharded tiered: the restored store is not sharded")
+        restored = CTRServer(model, back, mode="decoupled", fused=True)
+        same_scores("sharded tiered snapshot -> restore", restored.handle_requests(check),
+                    before)
+    ts = store.stats
+    print(f"sharded tiered: check burst across tiers {tiers} bit for bit as a synchronous "
+          f"untiered single-device server replaying {len(log)} folds, and after snapshot -> "
+          f"restore onto {SHARDS} shards; tiers {store.tier_sizes()} (hot cap "
+          f"{store.hot_capacity}), hot users per shard {load}, {ts.demotions} demotions, "
+          f"{ts.warm_promotions} warm + {ts.cold_promotions} cold promotions; "
+          f"{ledger.report()}")
+
+
+def sharded_phase(torch, dev, wrappers):
+    """Phase 12: sdim-paper FULL (the seeded model of phases 4-5) with its
+    BSE store over SHARDS shards on this one card (``MeshCtx((dev,) *
+    SHARDS)``): fp32 fused, int8 fused and unfused (bf16 wire) against
+    single-device servers, ``serve_sharded`` against ``serve``, then a
+    tiered async run with snapshot -> restore. Returns the phase's launch
+    counts."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import sdim_paper
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    from repro_torch.models.ctr import CTRModel
+
+    model = CTRModel(sdim_paper.FULL, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    mesh = MeshCtx((dev,) * SHARDS)
+    traffic = sharded_traffic(model.cfg)
+    users, h, requests, events = traffic
+    t0 = time.perf_counter()
+    redrawn = screen_sharded(torch, model, requests, events)
+    print(f"sharded: {redrawn} item rows redrawn to clear the hash margin "
+          f"({time.perf_counter() - t0:.1f} s); {SHARDS} shards on {mesh.devices[0]} "
+          f"({torch.cuda.get_device_name(dev)}; {card_line()})")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        reset(wrappers)
+        ms = {}
+        for name, dtype, fused in (("fp32-fused", "fp32", True), ("int8-fused", "int8", True),
+                                   ("unfused", "fp32", False)):
+            ms[name] = sharded_run(torch, dev, model, mesh, traffic, name, dtype, fused,
+                                   wrappers)
+        # serve_sharded: the first burst's users split over the shards
+        burst = requests[:BURST]
+        with torch.no_grad():
+            t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+            q = model._embed_behaviors(t(np.stack([r[2] for r in burst])),
+                                       t(np.stack([r[3] for r in burst])))
+            seq = model._embed_behaviors(t(h["hist_items"][:BURST]), t(h["hist_cats"][:BURST]))
+            mask = t(h["hist_mask"][:BURST])
+            got = model.engine.serve_sharded(q, seq, mask, mesh=mesh)
+            with uncounted():
+                want = model.engine.serve(q, seq, mask)
+        diff = float((got - want).abs().max())
+        print(f"sharded: serve_sharded ({BURST} users over {SHARDS} shards) vs serve, max abs "
+              f"diff {diff:.3g} (limit {SHARD_TOL})")
+        if diff > SHARD_TOL:
+            raise AssertionError(f"sharded: serve_sharded differs from serve by {diff}")
+        sharded_tiered_run(torch, dev, model, mesh, traffic, tmp)
+        launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
+                                            "sdim_query", "bse_serve"), "sharded")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sharded ms/request (host, median [min-max] of {2 * SHARD_REQUESTS // BURST} "
+          f"bursts): {json.dumps(ms)}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -2194,6 +2564,8 @@ def main() -> int:
     by_path["archs"] = archs_phase(torch, dev, wrappers + backward)
     torch.cuda.empty_cache()
     by_path["profile"] = profile_phase(torch, dev, wrappers)
+    torch.cuda.empty_cache()
+    by_path["sharded"] = sharded_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -111,6 +111,33 @@ def train(model: CTRModel, dcfg: SyntheticCTRConfig, steps: int, batch: int,
             "first_nonfinite": int(bad[0]) if bad.size else None}
 
 
+def trained_params(kind: str, steps: int, batch: int = 128, long_len: int = 256,
+                   seed: int = 0, lr: float = 5e-3, device: DeviceLike = "cuda",
+                   **interest_kw) -> dict:
+    """The parameters of the protocol's model of ``kind`` after ``steps``
+    AdamW steps of ``train`` from ``seed``: two calls must give the same
+    bits (``bit_differences``)."""
+    dev = resolve_device(device)
+    model = CTRModel(paper_model_config(kind, long_len, **interest_kw), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    train(model, paper_data_config(long_len), steps, batch, seed, lr)
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def bit_differences(a: dict, b: dict) -> list:
+    """Names of the tensors of ``a`` and ``b`` whose raw bits differ where
+    they are finite, or which are not finite at the same places (a NaN's
+    payload is not compared)."""
+    differ = []
+    for name, x in a.items():
+        y = b[name]
+        fx, fy = torch.isfinite(x), torch.isfinite(y)
+        bits = lambda t: torch.where(fx, t, 0).view(torch.int32)
+        if not torch.equal(fx, fy) or not torch.equal(bits(x), bits(y)):
+            differ.append(name)
+    return differ
+
+
 @torch.no_grad()
 def evaluate(model: CTRModel, dcfg: SyntheticCTRConfig, eval_examples: int):
     """(labels, logits) of ``model`` on the held-out seeds, as numpy."""

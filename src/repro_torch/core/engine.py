@@ -27,6 +27,23 @@ operation         what it computes (paper §3.3 / §4)           kernel
                   into store rows by slot, IN PLACE
 ================  ===========================================  ======================
 
+The sharded entry points take the per-shard blocks of a
+``ShardedTableStore`` (``serve/table_store.py``) and (B, 2) ``[shard,
+local]`` handles, and launch one kernel per shard, as the reference's
+``shard_map`` bodies run one per device:
+
+=======================  ============================================  ===================
+``update_sharded``       each shard folds the whole event batch into   ``sdim_update``
+                         its block; foreign rows get mask 0 and slot   × S
+                         0, so they write nothing
+``serve_fused_sharded``  each shard serves the whole batch, present 0  ``sdim_fused_serve``
+                         and slot 0 for foreign users (zero            × S
+                         interest); the sum over the shards, on the
+                         candidates' device, is the batch
+``serve_sharded``        the batch padded to a multiple of S and       ``bse_serve`` × S
+                         split over the shards; the padding cut off
+=======================  ============================================  ===================
+
 ``encode`` and ``query`` are differentiable (``attend`` is the training
 forward): their wrappers record an autograd Function whose backward is a
 CUDA kernel of its own on the card (``bse_encode_backward``,
@@ -39,8 +56,7 @@ wrappers refuse to run where autograd would record them.
 Hash families: ``dense`` (plain GEMM SimHash, paper-faithful) | ``srht``
 (subsampled randomized Hadamard transform). The SRHT family is densified
 once at construction (``SRHTHashes.dense_matrix``), so both feed the
-kernels one dense (m, d) operand. The sharded entry points are not ported
-yet.
+kernels one dense (m, d) operand.
 """
 from __future__ import annotations
 
@@ -52,6 +68,7 @@ import torch
 
 from repro_torch.core import simhash
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh_ctx import MeshCtx, owned
 from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode
 from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
 from repro_torch.kernels.sdim_query.sdim_query import sdim_query
@@ -100,6 +117,87 @@ def _host_slots(slots, n_rows: int, device: torch.device) -> torch.Tensor:
     if s.size and (s.min() < 0 or s.max() >= n_rows):
         raise IndexError(f"slots outside [0, {n_rows}): {s.min()}..{s.max()}")
     return torch.as_tensor(s, dtype=torch.int32, device=device)
+
+
+def _host_handles(slots, blocks, mesh) -> torch.Tensor:
+    """(B, 2) ``[shard, local]`` handles from the host, range-checked
+    against ``blocks`` (one per shard of ``mesh``), as an int64 CPU tensor."""
+    n_shards = MeshCtx.wrap(mesh).n_shards
+    if len(blocks) != n_shards:
+        raise ValueError(f"{len(blocks)} blocks for a mesh of {n_shards} shards")
+    h = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots,
+                   np.int64).reshape(-1, 2)
+    rows = blocks[0].shape[0]
+    if h.size and (h[:, 0].min() < 0 or h[:, 0].max() >= n_shards
+                   or h[:, 1].min() < 0 or h[:, 1].max() >= rows):
+        raise IndexError(f"handles outside [0, {n_shards}) x [0, {rows})")
+    return torch.from_numpy(h)
+
+
+def shard_update_args(k: int, blocks, handles: torch.Tensor, events: torch.Tensor,
+                      mask: torch.Tensor, R: torch.Tensor) -> tuple:
+    """The arguments shard ``k``'s ``sdim_update`` launch of
+    ``update_sharded`` takes, on its block's device: its block, the local
+    slots with foreign rows clamped to 0, the events, the mask with foreign
+    rows zeroed, R."""
+    block = blocks[k]
+    dev = block.device
+    mine, local = owned(handles.numpy(), k)
+    mine_t = torch.as_tensor(mine, dtype=mask.dtype, device=mask.device)
+    return (block, torch.as_tensor(local, device=dev), events.to(dev),
+            (mask * mine_t[:, None]).to(dev), R.to(dev))
+
+
+def shard_serve_fused_args(k: int, blocks, handles: torch.Tensor, q: torch.Tensor,
+                           R: torch.Tensor, scales=None,
+                           present: Optional[torch.Tensor] = None) -> tuple:
+    """(args, kwargs) of shard ``k``'s ``sdim_fused_serve`` launch of
+    ``serve_fused_sharded``, on its block's device: foreign users get slot
+    0 and present 0 (``present``: a (B,) bool CPU tensor)."""
+    block = blocks[k]
+    dev = block.device
+    mine, local = owned(handles.numpy(), k)
+    here = mine if present is None else mine & present.numpy()
+    return ((block, torch.as_tensor(local, device=dev), q.to(dev), R.to(dev)),
+            dict(scales=None if scales is None else scales[k],
+                 present=torch.as_tensor(here.astype(np.float32), device=dev)))
+
+
+def _update_sharded(blocks, handles, events, mask, R, *, tau):
+    for k in range(len(blocks)):
+        sdim_update(*shard_update_args(k, blocks, handles, events, mask, R), tau)
+    return blocks
+
+
+def _serve_fused_sharded(blocks, handles, q, R, *, tau, scales=None, present=None):
+    out = None
+    for k in range(len(blocks)):
+        args, kw = shard_serve_fused_args(k, blocks, handles, q, R, scales, present)
+        part = sdim_fused_serve(*args, tau, **kw).to(q.device)
+        out = part if out is None else out + part       # one shard owns each row
+    return out
+
+
+def serve_shards(B: int, n_shards: int) -> list[tuple[int, int]]:
+    """The row range [lo, hi) of the (padded) batch each shard serves in
+    ``serve_sharded``: B padded to a multiple of ``n_shards``, split evenly."""
+    per = -(-B // n_shards)
+    return [(k * per, (k + 1) * per) for k in range(n_shards)]
+
+
+def _rows(t: torch.Tensor, lo: int, hi: int, dev: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of ``t`` on ``dev``, starting on a 16-byte boundary
+    (the kernels stage rows 16 bytes at a time)."""
+    part = t[lo:hi].to(dev)
+    return part if part.data_ptr() % 16 == 0 else part.clone()
+
+
+def _serve_sharded(q, seq, mask, R, *, tau, devices):
+    parts = []
+    for dev, (lo, hi) in zip(devices, serve_shards(q.shape[0], len(devices))):
+        parts.append(bse_serve(_rows(q, lo, hi, dev), _rows(seq, lo, hi, dev),
+                               _rows(mask, lo, hi, dev), R.to(dev), tau).to(q.device))
+    return torch.cat(parts)
 
 
 class SDIMEngine:
@@ -205,3 +303,63 @@ class SDIMEngine:
             (store, slots_t, events.contiguous(), mask.float().contiguous(),
              self._R(R)),
             dict(tau=self.cfg.tau))
+
+    # ------------------------------------------------------------------
+    # sharded entry points (ShardedTableStore; one launch per shard)
+    # ------------------------------------------------------------------
+    def update_sharded(self, blocks, slots, events: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       R: Optional[torch.Tensor] = None, *, mesh) -> tuple:
+        """``update`` against the fp32 blocks of a sharded store (one per
+        shard of ``mesh``, a ``MeshCtx`` or a device list), IN PLACE:
+        ``slots`` are (B, 2) ``[shard, local]`` handles; each shard's
+        ``sdim_update`` folds the whole batch with foreign rows masked out,
+        so it writes only the rows it owns. Semantics (duplicate
+        accumulation, fp32 sums) are ``update``'s. Returns ``blocks``."""
+        if mask is None:
+            mask = torch.ones(events.shape[:2], dtype=torch.float32, device=events.device)
+        return self._dispatch(
+            "update_sharded", _update_sharded,
+            (tuple(blocks), _host_handles(slots, blocks, mesh), events.contiguous(),
+             mask.float().contiguous(), self._R(R)),
+            dict(tau=self.cfg.tau))
+
+    def serve_fused_sharded(self, blocks, slots, q: torch.Tensor, present=None,
+                            scales=None, R: Optional[torch.Tensor] = None, *,
+                            mesh) -> torch.Tensor:
+        """``serve_fused`` off the blocks (and, int8/fp8, scale blocks) of a
+        sharded store: ``slots`` are (B, 2) ``[shard, local]`` handles; each
+        shard's ``sdim_fused_serve`` serves the whole batch with ``present``
+        0 for the users it does not own, and the sum over the shards on
+        q's device is the batch. Semantics match ``serve_fused``. Returns
+        (B, C, d) fp32."""
+        handles = _host_handles(slots, blocks, mesh)
+        present = torch.as_tensor(np.ones(handles.shape[0], bool) if present is None
+                                  else np.asarray(present, bool))
+        return self._dispatch(
+            "serve_fused_sharded", _serve_fused_sharded,
+            (tuple(blocks), handles, q.float().contiguous(), self._R(R)),
+            dict(tau=self.cfg.tau, scales=None if scales is None else tuple(scales),
+                 present=present))
+
+    def serve_sharded(self, q: torch.Tensor, seq: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      R: Optional[torch.Tensor] = None, *, mesh) -> torch.Tensor:
+        """``serve`` with the request batch split over the mesh's model
+        axis: B is padded to a multiple of S, shard k serves rows
+        ``serve_shards(B, S)[k]`` on its device in one ``bse_serve``, and
+        the padded rows are cut off. Returns (B, C, d) in seq's dtype."""
+        devices = MeshCtx.wrap(mesh).devices
+        B = q.shape[0]
+        if mask is None:
+            mask = torch.ones(seq.shape[:2], dtype=torch.float32, device=seq.device)
+        pad = -B % len(devices)
+        qf, mf = q.float(), mask.float()
+        if pad:
+            zeros = lambda x: x.new_zeros((pad, *x.shape[1:]))
+            qf, seq, mf = torch.cat([qf, zeros(qf)]), torch.cat([seq, zeros(seq)]), \
+                torch.cat([mf, zeros(mf)])
+        out = self._dispatch("serve_sharded", _serve_sharded,
+                             (qf.contiguous(), seq.contiguous(), mf.contiguous(), self._R(R)),
+                             dict(tau=self.cfg.tau, devices=devices))
+        return out[:B].to(seq.dtype)

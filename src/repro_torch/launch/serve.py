@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.serve --arch ARCH --requests N \\
         --candidates C --micro-batch B [--fused-serve] \\
+        [--shards N | --mesh DxM] \\
         [--table-dtype fp32|bf16|int8|fp8] [--hot-capacity K \\
         [--warm-capacity W --store-dir DIR] [--policy clock|lru] \\
         [--cold-deadline-ms T]] [--async-ingest [--queue-depth Q] \\
@@ -28,8 +29,16 @@ any id of ``configs.registry.ARCH_IDS`` (``wide-deep``, ``bst``,
 is scored by ``model.apply`` over the user's history broadcast to the
 candidates, with field ids drawn from the request stream's generator.
 Runs on the card unless ``--device cpu`` is given; without CUDA and
-without that flag it fails. Sharding (``--shards``/``--mesh``) is not
-ported yet.
+without that flag it fails.
+
+``--shards N`` (or ``--mesh DxM``: a data axis of D and a model axis of M)
+shards the BSE table store over the model axis (``ShardedTableStore``);
+``--shards 1`` serves unsharded. One departure from the reference, which
+refuses a mesh larger than its devices: the port places the shards
+round-robin over the visible CUDA devices (the CPU under ``--device cpu``)
+and prints the placement, so ``--shards 8`` runs the whole sharded path on
+one card, as eight faked host devices do for the JAX package. It holds one
+copy of each shard: the data axis is recorded, not replicated.
 
 ``main`` is ``build`` (arguments, model, servers, profiler), ``run`` (the
 synthetic requests) and ``report`` (the printout); a caller that drives
@@ -59,6 +68,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--micro-batch", type=int, default=1,
                    help="serve requests in bursts of this size: one "
                         "fetch_many + one scoring pass per burst")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard the BSE table store over this many shards, placed "
+                        "round-robin over the visible devices (model-axis mesh)")
+    p.add_argument("--mesh", default=None,
+                   help='explicit mesh shape "DxM" (data x model); overrides --shards')
     p.add_argument("--fused-serve", action="store_true",
                    help="serve micro-batches through the fused "
                         "gather+dequant+query kernel")
@@ -123,6 +137,41 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_mesh(shards: int, mesh_spec: Optional[str] = None, err=None,
+               device: Any = "cuda"):
+    """``--mesh "DxM"`` ((data, model) axes) or ``--shards N`` ((model,)
+    only) -> a ``MeshCtx`` whose model axis places its shards round-robin
+    over the visible CUDA devices (the CPU for a CPU ``device``); ``None``
+    when serving unsharded. Flag errors go through ``err`` (``parser.error``
+    from ``build``) or raise ``SystemExit``, as in the reference."""
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed.mesh_ctx import MeshCtx, place
+
+    def fail(msg: str):
+        if err is not None:
+            err(msg)                       # parser.error raises SystemExit
+        raise SystemExit(f"error: {msg}")
+
+    if mesh_spec:
+        try:
+            dims = tuple(int(x) for x in mesh_spec.lower().split("x"))
+        except ValueError:
+            dims = ()
+        if len(dims) != 2 or min(dims) < 1:
+            fail(f'--mesh wants "DxM" (two positive ints, e.g. "2x4"), got {mesh_spec!r}')
+        data, model = dims
+    else:
+        if shards < 1:
+            fail(f"--shards must be a positive device count, got {shards}")
+        if shards == 1:
+            return None
+        data, model = 1, shards
+    dev = resolve_device(device)
+    pool = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [dev])
+    return MeshCtx(place(model, pool), data=data)
+
+
 def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
     """The reference's argument checks (``repro/launch/serve.py``)."""
     if args.fused_serve and args.micro_batch < 2:
@@ -132,7 +181,8 @@ def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
                 f"only the decoupled (sdim) deployment has; arch {args.arch!r} serves "
                 f"{mode!r}")
     if mode != "decoupled":
-        for on, flags in ((args.table_dtype != "fp32" or args.fused_serve,
+        for on, flags in ((args.mesh or args.shards > 1, "--shards/--mesh shard"),
+                          (args.table_dtype != "fp32" or args.fused_serve,
                            "--table-dtype/--fused-serve configure"),
                           (tiered, "--hot-capacity/--store-dir/--policy tier"),
                           (args.async_ingest, "--async-ingest decouples the write path of")):
@@ -213,11 +263,13 @@ def build(argv=None, cfg=None) -> Launch:
     tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
     _check(p, args, mode, tiered)
     device = resolve_device(args.device)
+    mesh = (build_mesh(args.shards, args.mesh, err=p.error, device=device)
+            if mode == "decoupled" else None)
     gen = torch.Generator(device=device).manual_seed(0)
     model = CTRModel(cfg, device=device, generator=gen)
     tracer = Tracer(slow_ms=args.trace_slow_ms) if tracing else None
     server = CTRServer.build(
-        model, None, mode, hot_capacity=args.hot_capacity, store_dir=args.store_dir,
+        model, None, mode, mesh=mesh, hot_capacity=args.hot_capacity, store_dir=args.store_dir,
         policy=args.policy, warm_capacity=args.warm_capacity,
         table_dtype=args.table_dtype, fused=args.fused_serve,
         async_ingest=args.async_ingest, queue_depth=args.queue_depth,
@@ -235,6 +287,10 @@ def build(argv=None, cfg=None) -> Launch:
         server.bse.async_ingest.start()
     print(f"SDIM engine on {device}"
           f"{' (' + torch.cuda.get_device_name(device) + ')' if device.type == 'cuda' else ''}")
+    if mesh is not None:
+        print(f"BSE table store sharded over {mesh.n_shards} shards (mesh {mesh.shape}) on "
+              f"{mesh.n_devices} device(s): "
+              + ", ".join(f"shard {k} -> {d}" for k, d in enumerate(mesh.devices)))
     return launch
 
 
@@ -305,6 +361,10 @@ def report(launch: Launch) -> Optional[dict]:
         print(f"{server.stats.ms_per_request:.1f} ms/request"
               f"{' (fused serve)' if args.fused_serve else ''} ({mode}); "
               f"table {bse.table_bytes()} B ({args.table_dtype} storage)")
+        if bse.store.sharded:
+            hot = bse.store.hot if tiered else bse.store
+            print(f"sharded store: {hot.n_shards} shards of {hot.per_shard_capacity} slots, "
+                  f"users per shard {hot.shard_load()}")
         if tiered:
             ts = bse.store.stats
             print(f"tiered store {bse.store.tier_sizes()} "

@@ -36,7 +36,7 @@ from repro_torch.core.interest import InterestConfig, InterestModule
 from repro_torch.core.target_attention import target_attention
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn.attention import GQAttention
-from repro_torch.nn.layers import MLP, Embedding, LayerNorm, Linear
+from repro_torch.nn.layers import MLP, Embedding, LayerNorm, Linear, embedding
 from repro_torch.nn.rnn import AUGRU, GRU
 
 ARCHS = ("din", "wide_deep", "bst", "dien", "bert4rec")
@@ -184,9 +184,8 @@ class CTRModel(nn.Module):
             raise ValueError("wide_deep needs sparse_ids (one id per field)")
         ids = sparse_ids.long() + cfg.field_vocab * torch.arange(cfg.n_sparse,
                                                                  device=sparse_ids.device)
-        fields = torch.nn.functional.embedding(
-            ids, self.field_tables.view(-1, cfg.embed_dim)).flatten(1)
-        wide = torch.nn.functional.embedding(ids, self.wide.view(-1, 1)).sum(1) + self.wide_bias
+        fields = embedding(ids, self.field_tables.view(-1, cfg.embed_dim)).flatten(1)
+        wide = embedding(ids, self.wide.view(-1, 1)).sum(1) + self.wide_bias
         return fields, wide[..., 0]
 
     def _logits(self, feats: list, ctx: torch.Tensor, sparse_ids) -> torch.Tensor:

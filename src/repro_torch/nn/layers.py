@@ -7,6 +7,14 @@ the numbers differ from ``jax.random``'s, so parity tests load the JAX
 package's weights (``repro_torch.weights.load_jax_params``). Weights keep
 PyTorch's layout: ``Linear.weight`` is (out, in), the transpose of the JAX
 package's ``w``.
+
+``embedding`` is every embedding lookup of the port. Its gradient on the
+card must give the same bits on every run: PyTorch's own embedding backward
+on CUDA does not once an id repeats often (thousands of lookups of 80
+categories: a batch of long histories), so on CUDA the gradient rows of one
+id are summed by ``index_put_(accumulate=True)``, which sorts the ids and
+gives each id one owner that adds its rows in order. On the CPU the native
+backward already does that.
 """
 from __future__ import annotations
 
@@ -55,12 +63,43 @@ class LayerNorm(nn.Module):
         return ((xf - mu) * torch.rsqrt(var + 1e-5) * self.scale + self.bias).to(x.dtype)
 
 
+class _EmbeddingFn(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient is summed per id by
+    ``index_put_(accumulate=True)``: one owner per id, rows in order."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.n_rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        dim = grad.shape[-1]
+        gw = torch.zeros((ctx.n_rows, dim), dtype=grad.dtype, device=grad.device)
+        gw.index_put_((ids.reshape(-1).long(),), grad.reshape(-1, dim), accumulate=True)
+        return gw, None
+
+
+def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Rows ``weight[ids]`` with a gradient that has the same bits on every
+    run: ``_EmbeddingFn`` on CUDA under autograd, ``F.embedding`` otherwise
+    (the CPU's native backward gives each id one owner already)."""
+    if weight.is_cuda and torch.is_grad_enabled() and weight.requires_grad:
+        return _EmbeddingFn.apply(weight, ids)
+    return F.embedding(ids, weight)
+
+
 class Embedding(nn.Embedding):
     def __init__(self, vocab: int, dim: int, init_std: float = 0.02, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__(vocab, dim, device=device)
         with torch.no_grad():
             nn.init.normal_(self.weight, std=init_std, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embedding(ids, self.weight)
 
 
 class MLP(nn.Module):

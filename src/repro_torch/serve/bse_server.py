@@ -1,11 +1,13 @@
 """BSE server (paper §4.4): user-wise behavior-sequence hashing, decoupled
 from the CTR server.
 
-Counterpart of ``repro/serve/bse_server.py`` on one device. Per-user bucket
-tables (the L-free (G, U, d) serving state) live in a ``TableStore`` or,
-given any of ``hot_capacity``/``store_dir``/``policy``/``warm_capacity``, a
-``TieredTableStore`` (device-hot / host-warm / disk-cold,
-``serve/tiered_store.py``) whose ``snapshot``/``restore`` round-trip the
+Counterpart of ``repro/serve/bse_server.py``. Per-user bucket tables (the
+L-free (G, U, d) serving state) live in a ``TableStore``, a
+``ShardedTableStore`` over the model axis of ``mesh`` (``serve/
+table_store.py``) or, given any of ``hot_capacity``/``store_dir``/
+``policy``/``warm_capacity``, a ``TieredTableStore`` (device-hot /
+host-warm / disk-cold, ``serve/tiered_store.py``, its hot tier sharded
+when ``mesh`` is given too) whose ``snapshot``/``restore`` round-trip the
 full serving state. The server is split along the paper's own seam into
 two halves that share only the store and the stats:
 
@@ -13,7 +15,8 @@ two halves that share only the store and the stats:
     params and folds them into the store. ``ingest_histories`` encodes a
     burst of histories in one ``bse_encode`` launch; ``ingest_events``
     folds a burst of events into an fp32 store in one ``sdim_update``
-    launch (duplicate users accumulate in batch order); bf16/int8/fp8
+    launch (duplicate users accumulate in batch order; a sharded store
+    launches once per shard, ``SDIMEngine.update_sharded``); bf16/int8/fp8
     stores encode the events (``bse_encode``), sum them per slot in batch
     order (``slot_sums``: no atomics, the same bits every run) and
     read-modify-write the touched rows. Bursts wider than a tiered store's
@@ -22,9 +25,10 @@ two halves that share only the store and the stats:
     the wire dtype, default bf16, the paper's 8 KB figure, with exact byte
     accounting; ``sdim_query`` then runs on the CTR side) and
     ``serve_candidates`` (one ``sdim_fused_serve`` launch straight off the
-    store). With an ``AsyncIngestor`` attached (``serve/ingest.py``), reads
-    resolve against the last COMMITTED version of the hot state and never
-    observe a fold in flight; their misses enqueue promotion touches.
+    store, one per shard off a sharded store). With an ``AsyncIngestor``
+    attached (``serve/ingest.py``), reads resolve against the last
+    COMMITTED version of the hot state and never observe a fold in flight;
+    their misses enqueue promotion touches.
 
 ``async_ingest=True`` inserts the queue + writer-loop runtime between the
 halves; ``ingest_*`` then enqueue and return the accepted count. A user no
@@ -37,8 +41,6 @@ read path (``bse.fetch_many`` / ``bse.serve_candidates`` spans and
 so the whole store is invalidated and re-encoded lazily. ``embed_fn(params,
 items, cats)`` reads the embedding weights from ``params`` (``CTRServer.
 build`` passes the model itself).
-
-The sharded store is not ported yet.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from repro_torch.core.engine import SDIMEngine
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.admission import CircuitBreaker
 from repro_torch.serve.metrics import MetricsRegistry, observe_ms
-from repro_torch.serve.table_store import TableStore
+from repro_torch.serve.table_store import ShardedTableStore, TableStore
 from repro_torch.serve.tiered_store import (TieredTableStore, _atomic_json, _atomic_npz,
                                             burst_cap, burst_chunks, is_tiered)
 from repro_torch.serve.tracing import NOOP_SPAN, Tracer
@@ -201,8 +203,14 @@ class BSEIngestor:
         slots = self.store.assign(users)
         if self.store.dtype != torch.float32:
             deltas = self.engine.encode(ev_e, m, R=self.R)          # (B, G, U, d)
-            uniq, inv = np.unique(slots, return_inverse=True)
+            uniq, inv = np.unique(slots, axis=0 if self.store.sharded else None,
+                                  return_inverse=True)
             self.store.write(uniq, self.store.rows(uniq) + slot_sums(deltas, inv, len(uniq)))
+        elif self.store.sharded:
+            # copy on write clones only the shards whose rows the fold writes
+            blocks, _ = self.store.writable(self.store.shards_of(slots))
+            self.engine.update_sharded(blocks, slots, ev_e, m, R=self.R,
+                                       mesh=self.store.mesh_ctx)
         else:
             self.engine.update(self.store.writable()[0], slots, ev_e, m, R=self.R)
         self.stats.n_updates += int(items.size if mask is None else np.sum(mask > 0))
@@ -333,8 +341,13 @@ class BSEFetcher:
                                           for lo, hi in chunks])
                 slots, present = self.store.lookup(users)
                 data, scales = self.store.data, self.store.scales
-            out = self.engine.serve_fused(data, slots, q, present=present, scales=scales,
-                                          R=self.R if R is None else R)
+            if self.store.sharded:
+                out = self.engine.serve_fused_sharded(
+                    data, slots, q, present=present, scales=scales,
+                    R=self.R if R is None else R, mesh=self.store.mesh_ctx)
+            else:
+                out = self.engine.serve_fused(data, slots, q, present=present, scales=scales,
+                                              R=self.R if R is None else R)
             wire = out.to(self.wire_dtype)
             misses = len(users) - int(present.sum())
             self._account(wire, len(users), misses)
@@ -347,7 +360,8 @@ class BSEServer:
     def __init__(self, embed_fn: Callable, params: Any, engine: SDIMEngine,
                  R: Optional[torch.Tensor] = None,
                  wire_dtype: torch.dtype = torch.bfloat16, capacity: int = 64,
-                 hot_capacity: Optional[int] = None, store_dir: Optional[str] = None,
+                 mesh: Any = None, hot_capacity: Optional[int] = None,
+                 store_dir: Optional[str] = None,
                  policy: Optional[str] = None, warm_capacity: Optional[int] = None,
                  store: Any = None, table_dtype: Any = torch.float32,
                  async_ingest: bool = False, queue_depth: int = 1024,
@@ -362,10 +376,17 @@ class BSEServer:
         what ``fetch``/``fetch_many``/``serve_candidates`` hand the CTR
         server.
 
+        ``mesh`` (a ``MeshCtx`` or a list of devices, which may repeat)
+        shards the table store over its model axis (``ShardedTableStore``):
+        capacity scales with the shards, reads assemble on ``device``, event
+        folds go through ``SDIMEngine.update_sharded`` and fused reads
+        through ``serve_fused_sharded``. ``None`` keeps one ``TableStore``.
+
         Any of ``hot_capacity`` (device-tier user bound), ``store_dir``
         (cold-tier segment directory), ``policy`` (``"clock"``/``"lru"``)
         or ``warm_capacity`` selects the ``TieredTableStore``. An explicit
         ``store`` (e.g. from ``TieredTableStore.restore``) overrides them.
+        With ``mesh`` the tiered store's hot tier is sharded.
 
         ``async_ingest=True`` decouples the write path: ``ingest_*`` enqueue
         onto a bounded queue (depth ``queue_depth``, drops counted) drained
@@ -407,13 +428,17 @@ class BSEServer:
             self.store = TieredTableStore(
                 cfg.n_groups, cfg.n_buckets, cfg.d,
                 hot_capacity=capacity if hot_capacity is None else hot_capacity,
-                policy=policy or "clock", store_dir=store_dir,
+                mesh=mesh, policy=policy or "clock", store_dir=store_dir,
                 warm_capacity=warm_capacity, dtype=table_dtype,
                 cold_deadline_s=cold_deadline_s, clock=clock,
                 metrics=self.metrics, tracer=tracer, device=resolve_device(device))
-        else:
+        elif mesh is None:
             self.store = TableStore(cfg.n_groups, cfg.n_buckets, cfg.d, capacity=capacity,
                                     dtype=table_dtype, device=device)
+        else:
+            self.store = ShardedTableStore(cfg.n_groups, cfg.n_buckets, cfg.d, mesh,
+                                           capacity=capacity, dtype=table_dtype,
+                                           device=device)
         self.tables = _TablesView(self.store)
         self.stats = BSEStats()
         self.ingestor = BSEIngestor(embed_fn, params, engine, self.R, self.store,
@@ -535,12 +560,14 @@ class BSEServer:
 
     @classmethod
     def restore(cls, dir: str, embed_fn: Callable, params: Any, engine: SDIMEngine,
-                store_dir: Optional[str] = None, device: DeviceLike = "cuda") -> "BSEServer":
+                mesh: Any = None, store_dir: Optional[str] = None,
+                device: DeviceLike = "cuda") -> "BSEServer":
         """Rebuild a server from ``snapshot(dir)`` on ``device``: tiers,
         indices, policy state, stats and ``R`` come from disk; the embed fn,
-        params and engine (code, not state) from the caller."""
+        params and engine (code, not state) from the caller. A sharded
+        snapshot needs a ``mesh`` with the same shard count."""
         dev = resolve_device(device)
-        store = TieredTableStore.restore(dir, store_dir=store_dir, device=dev)
+        store = TieredTableStore.restore(dir, mesh=mesh, store_dir=store_dir, device=dev)
         with np.load(os.path.join(dir, "server.npz")) as z:
             R = torch.as_tensor(z["R"], device=dev)
         with open(os.path.join(dir, "server.json")) as f:

@@ -84,7 +84,7 @@ def _embed(model: CTRModel, items, cats) -> torch.Tensor:
 class CTRServer:
     @classmethod
     def build(cls, model: CTRModel, params: Optional[dict] = None,
-              mode: str = "decoupled", *, capacity: int = 64,
+              mode: str = "decoupled", *, mesh: Any = None, capacity: int = 64,
               wire_dtype: torch.dtype = torch.bfloat16,
               hot_capacity: Optional[int] = None, store_dir: Optional[str] = None,
               policy: Optional[str] = None, warm_capacity: Optional[int] = None,
@@ -101,7 +101,8 @@ class CTRServer:
         (the other modes have none). ``params`` (the JAX package's CTR
         params pytree as numpy arrays) is loaded into the model first when
         given (``weights.load_jax_params``); ``None`` serves the model's own
-        weights.
+        weights. ``mesh`` (a ``MeshCtx`` or a list of devices) shards the
+        BSE table store over its model axis (decoupled mode only).
 
         ``table_dtype`` is the BSE storage dtype (fp32 | bf16 | int8 |
         fp8); ``fused=True`` serves micro-batches through
@@ -120,6 +121,7 @@ class CTRServer:
         tiered = is_tiered(hot_capacity, store_dir, policy, warm_capacity)
         metrics = MetricsRegistry() if metrics is None else metrics
         for flag, what in ((async_ingest, "async ingestion feeds"),
+                           (mesh is not None, "mesh shards"),
                            (tiered, "hot_capacity/store_dir/policy tier"),
                            (fused, "fused serving reads")):
             if mode != "decoupled" and flag:
@@ -137,7 +139,7 @@ class CTRServer:
         bse = None
         if mode == "decoupled":
             bse = BSEServer(_embed, model, model.engine, R=model.interest.R,
-                            wire_dtype=wire_dtype, capacity=capacity,
+                            wire_dtype=wire_dtype, capacity=capacity, mesh=mesh,
                             hot_capacity=hot_capacity, store_dir=store_dir,
                             policy=policy, warm_capacity=warm_capacity,
                             table_dtype=table_dtype, async_ingest=async_ingest,

@@ -37,6 +37,10 @@ Design rules, each load-bearing:
     the read runs. A fold made for a caller on another stream (``flush``,
     ``evict``, a forced drain) starts after that stream's work and makes
     it wait for the fold's end.
+    A sharded store's blocks on the runtime's device fold on its stream,
+    those on other cards on their current streams, where reads launched
+    after the commit come after the fold in stream order; copy on write
+    clones only the blocks of the shards a fold writes to.
   * **Staleness is bounded on the write path.** Per-user un-folded entries
     are counted (``staleness``); a submit that would push a user past
     ``max_staleness`` first folds queue batches inline on the SUBMITTING
@@ -69,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.quant import dequantize_rows
+from repro_torch.serve.table_store import gather_rows
 from repro_torch.serve.tiered_store import TieredTableStore, burst_cap, burst_chunks
 from repro_torch.serve.tracing import NOOP_SPAN
 
@@ -129,12 +134,15 @@ class IngestStats:
 
 class CommittedView:
     """Immutable snapshot of the HOT serving state at one commit: the hot
-    tier's tensors (never written again: copy on write), a frozen copy of
-    the user→slot index and, on CUDA, the event recorded after the fold it
-    publishes. Same miss contract as the store's ``lookup``: unknown users
-    get slot 0 and ``present=False``."""
+    tier's tensors (never written again: copy on write; a sharded hot
+    tier's per-shard blocks), a frozen copy of the user→slot index and, on
+    CUDA, the event recorded after the fold it publishes. Same miss contract
+    as the store's ``lookup``: unknown users get slot 0 (handle (0, 0) on a
+    sharded store) and ``present=False``; ``rows`` of a sharded view gather
+    from the held blocks onto the store's device."""
 
-    __slots__ = ("version", "data", "scales", "quantized", "event", "_index")
+    __slots__ = ("version", "data", "scales", "quantized", "sharded", "device", "event",
+                 "_index")
 
     def __init__(self, version: int, store: Any,
                  event: Optional["torch.cuda.Event"] = None):
@@ -142,6 +150,8 @@ class CommittedView:
         self.version = version
         self.data, self.scales = hot.share()
         self.quantized = hot.quantized
+        self.sharded = hot.sharded
+        self.device = hot.device
         self.event = event
         self._index = dict(hot._slot_of)
 
@@ -153,24 +163,32 @@ class CommittedView:
 
     def lookup(self, users: Sequence[Any]) -> tuple[np.ndarray, np.ndarray]:
         present = np.asarray([u in self._index for u in users], bool)
-        slots = np.asarray([self._index.get(u, 0) for u in users], np.int32)
+        if self.sharded:
+            slots = np.asarray([self._index.get(u, (0, 0)) for u in users],
+                               np.int32).reshape(-1, 2)
+        else:
+            slots = np.asarray([self._index.get(u, 0) for u in users], np.int32)
         return slots, present
 
-    def tensors(self) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def tensors(self):
         """(data, scales) for a read on the current stream: on CUDA the
         stream waits for this commit's event, and the caching allocator
-        learns that the stream reads both tensors."""
-        if self.data.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.data.device)
-            if self.event is not None:
-                stream.wait_event(self.event)
-            self.data.record_stream(stream)
-            if self.scales is not None:
-                self.scales.record_stream(stream)
+        learns that the stream reads each tensor (every block of a sharded
+        view)."""
+        if self.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.event)
+        held = [*self.data, *(self.scales or ())] if self.sharded else [self.data, self.scales]
+        for t in held:
+            if t is not None and t.device.type == "cuda":
+                t.record_stream(torch.cuda.current_stream(t.device))
         return self.data, self.scales
 
     def rows(self, slots) -> torch.Tensor:
         data, scales = self.tensors()
+        if self.sharded:
+            payload, row_scales = gather_rows(data, scales, np.asarray(slots, np.int64)
+                                              .reshape(-1, 2), self.device)
+            return dequantize_rows(payload, row_scales) if self.quantized else payload
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=data.device)
         if self.quantized:
             return dequantize_rows(data[idx], scales[idx])

@@ -7,10 +7,12 @@ check_profile`` checks either).
 
 ``KernelProfiler``
     Wraps ``SDIMEngine``'s dispatch sites (encode / query / serve /
-    serve_fused / update: the engine routes every kernel call through
-    ``profiler.profile`` when one is attached). Per dispatch it records the
-    time of the call: on the card, a pair of CUDA events on the stream the
-    dispatch runs on, the host waiting on the end event; with an injected
+    serve_fused / update and their sharded variants: the engine routes
+    every kernel call through ``profiler.profile`` when one is attached).
+    Per dispatch it records the time of the call: on the card, a pair of
+    CUDA events on the stream the dispatch runs on, the host waiting on
+    the end event (a dispatch over shards on several cards: the host clock
+    around it, each card's stream synchronized); with an injected
     ``clock`` (``StepClock`` in the tests), that clock around the call and
     a wait for the stream; on the CPU, ``time.perf_counter``. The first
     dispatch of each (kernel, argument shapes and dtypes) counts as a
@@ -19,13 +21,18 @@ check_profile`` checks either).
     cache carries the compile. Before every dispatch, outside its timed
     window, it counts the call's flops and bytes with ``kernels/cost.py``
     (the work this call's data needs: valid rows, present users, touched
-    slots), and adds them up over the timed calls as it adds up their
-    time, per kernel and per signature: a record's ``flops`` and ``bytes``
-    are the mean over the calls its mean time is taken over, and its
-    roofline prediction (``distributed/roofline.py``) is that of those
-    means. The JAX package counts from shapes (XLA's ``cost_analysis()``)
-    once per kernel; a data-dependent count taken once would depend on
-    which call came first.
+    slots; a sharded dispatch sums its shards' launches), and adds them up
+    over the timed calls as it adds up their time, per kernel and per
+    signature: a record's ``flops`` and ``bytes`` are the mean over the
+    calls its mean time is taken over, and its roofline prediction
+    (``distributed/roofline.py``) is that of those means, with the bytes a
+    sharded dispatch moves between distinct devices as its collective term.
+    The counts stay on the device (no wait for the card before a dispatch)
+    until a record is read, or 1,024 of them are pending, and are then read
+    at once.
+    The JAX package counts from shapes (XLA's ``cost_analysis()``) once per
+    kernel; a data-dependent count taken once would depend on which call
+    came first.
 
 ``MemoryLedger``
     Byte accounting keyed by ``(store, tier, dtype)`` over every grow /
@@ -80,6 +87,29 @@ class KernelRecord:
     max_s: float = 0.0
     total_flops: float = 0.0    # kernels/cost.py, summed over the timed calls
     total_bytes: float = 0.0
+    total_collective: float = 0.0   # bytes moved between distinct devices
+    n_chips: int = 1                # distinct devices of the dispatch
+    _pending: list = dataclasses.field(default_factory=list, repr=False)
+    SETTLE_EVERY = 1024             # pending counts read at once at the latest
+
+    def _settle(self) -> None:
+        """Add the pending counts of the timed calls to the totals: each
+        device's counts read in one copy to the host."""
+        if not self._pending:
+            return
+        vals = [v for c in self._pending for v in c]
+        got = [None if torch.is_tensor(v) else float(v) for v in vals]
+        by_dev: dict = {}
+        for i, v in enumerate(vals):
+            if torch.is_tensor(v):
+                by_dev.setdefault(v.device, []).append(i)
+        for idx in by_dev.values():
+            for i, x in zip(idx, torch.stack([vals[i].double() for i in idx]).tolist()):
+                got[i] = x
+        for flops, nbytes in zip(got[::2], got[1::2]):
+            self.total_flops += flops
+            self.total_bytes += nbytes
+        self._pending.clear()
 
     @property
     def mean_s(self) -> float:
@@ -93,12 +123,19 @@ class KernelRecord:
     @property
     def flops(self) -> float:
         """Mean counted operations per timed dispatch."""
+        self._settle()
         return self.total_flops / self.n_calls if self.n_calls else 0.0
 
     @property
     def bytes(self) -> float:
         """Mean counted bytes moved per timed dispatch."""
+        self._settle()
         return self.total_bytes / self.n_calls if self.n_calls else 0.0
+
+    @property
+    def collective(self) -> float:
+        """Mean bytes moved between distinct devices per timed dispatch."""
+        return self.total_collective / self.n_calls if self.n_calls else 0.0
 
     @property
     def ai(self) -> float:
@@ -110,7 +147,8 @@ class KernelRecord:
         """The roofline of the mean counts; None until a call was timed."""
         if not self.n_calls:
             return None
-        return roofline.analyze(self.name, self.flops, self.bytes)
+        return roofline.analyze(self.name, self.flops, self.bytes, self.collective,
+                                self.n_chips)
 
     @property
     def pct_peak(self) -> float:
@@ -121,13 +159,16 @@ class KernelRecord:
             return 0.0
         return min(1.0, p.roofline_time / self.mean_s)
 
-    def add(self, dt: float, c: cost.Cost) -> None:
+    def add(self, dt: float, c: cost.Cost, collective: int = 0, n_chips: int = 1) -> None:
         self.n_calls += 1
         self.total_s += dt
         self.min_s = min(self.min_s, dt)
         self.max_s = max(self.max_s, dt)
-        self.total_flops += float(c.flops)
-        self.total_bytes += float(c.bytes)
+        self._pending.append(c)
+        if len(self._pending) >= self.SETTLE_EVERY:     # bound what the card holds
+            self._settle()
+        self.total_collective += collective
+        self.n_chips = max(self.n_chips, n_chips)
 
     def to_dict(self) -> dict:
         d = {
@@ -146,21 +187,39 @@ class KernelRecord:
             d["predicted"] = {
                 "t_compute_ms": 1e3 * p.t_compute,
                 "t_memory_ms": 1e3 * p.t_memory,
+                "t_collective_ms": 1e3 * p.t_collective,
                 "roofline_ms": 1e3 * p.roofline_time,
                 "bottleneck": p.bottleneck,
             }
         return d
 
 
+def _sig(x):
+    if torch.is_tensor(x):
+        return tuple(x.shape), x.dtype, x.device.type
+    if isinstance(x, (tuple, list)):       # a sharded store's blocks
+        return tuple(map(_sig, x))
+    return x
+
+
 def _signature(args: tuple, kwargs: dict) -> tuple:
     """What makes a dispatch new: each tensor argument's shape, dtype and
-    device, and every other argument's value."""
-    sig = lambda x: ((tuple(x.shape), x.dtype, x.device.type) if torch.is_tensor(x) else x)
-    return (tuple(map(sig, args)), tuple((k, sig(v)) for k, v in sorted(kwargs.items())))
+    device (of each block, for a sharded store), and every other argument's
+    value."""
+    return (tuple(map(_sig, args)), tuple((k, _sig(v)) for k, v in sorted(kwargs.items())))
 
 
-def _device(args: tuple) -> torch.device:
-    return next(a.device for a in args if torch.is_tensor(a))
+def _cuda_devices(args: tuple, kwargs: dict) -> list:
+    """The CUDA devices the tensors of a dispatch (blocks included) lie on."""
+    found = []
+    stack = [*args, *kwargs.values()]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif torch.is_tensor(x) and x.is_cuda and x.device not in found:
+            found.append(x.device)
+    return found
 
 
 class KernelProfiler:
@@ -191,9 +250,9 @@ class KernelProfiler:
         return engine
 
     def _timed(self, fn, args: tuple, kwargs: dict):
-        dev = _device(args)
-        if self.clock is None and dev.type == "cuda":
-            stream = torch.cuda.current_stream(dev)
+        devs = _cuda_devices(args, kwargs)
+        if self.clock is None and len(devs) == 1:
+            stream = torch.cuda.current_stream(devs[0])
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record(stream)
@@ -204,7 +263,7 @@ class KernelProfiler:
         clock = time.perf_counter if self.clock is None else self.clock
         t0 = clock()
         out = fn(*args, **kwargs)
-        if dev.type == "cuda":
+        for dev in devs:
             torch.cuda.current_stream(dev).synchronize()
         return out, clock() - t0
 
@@ -222,6 +281,8 @@ class KernelProfiler:
             if compiled_now:
                 sig = self.signatures[key] = KernelRecord(name)
         c = cost.DISPATCH[name](*args, **kwargs)
+        moved = cost.collective_bytes(name, args, kwargs)
+        chips = cost.n_devices(name, args, kwargs)
         with maybe_span(self.tracer, f"kernel.{name}") as sp:
             out, dt = self._timed(fn, args, kwargs)
             with self._lock:
@@ -229,16 +290,18 @@ class KernelProfiler:
                     rec.n_compiles += 1
                     sig.n_compiles += 1
                 else:
-                    rec.add(dt, c)
-                    sig.add(dt, c)
+                    rec.add(dt, c, moved, chips)
+                    sig.add(dt, c, moved, chips)
             if compiled_now:
                 sp.set(compile=True)
                 if self.metrics is not None:
                     self.metrics.counter("kernel.compiles").inc()
             else:
                 observe_ms(self.metrics, f"kernel.{name}_ms", dt)
-            sp.set(time_ms=1e3 * dt, flops=c.flops, bytes=c.bytes,
-                   ai=c.flops / c.bytes if c.bytes > 0 else 0.0)
+            if self.tracer is not None and self.tracer.enabled:
+                c = cost.settle(c)          # the timed call has synchronized
+                sp.set(time_ms=1e3 * dt, flops=c.flops, bytes=c.bytes,
+                       ai=c.flops / c.bytes if c.bytes > 0 else 0.0)
         return out
 
     # ------------------------------------------------------------------
@@ -258,18 +321,18 @@ class KernelProfiler:
                f"{'bytes':>10} {'AI':>7} {'pct_peak':>8} {'pred_ms':>9} "
                f"{'bound':<10}")
         lines = ["measured roofline (per dispatch; warmup excluded):", hdr, "-" * len(hdr)]
-        with self._lock:
+        with self._lock:        # a record's counts settle as they are read
             records = sorted(self.records.items())
-        for name, rec in records:
-            if rec.predicted is not None:
-                pred = f"{1e3 * rec.predicted.roofline_time:>9.4f}"
-                bound = rec.predicted.bottleneck
-            else:
-                pred, bound = f"{'-':>9}", "-"
-            lines.append(
-                f"{name:<20} {rec.n_calls:>5} {rec.time_ms:>9.4f} "
-                f"{rec.flops:>10.3g} {rec.bytes:>10.3g} {rec.ai:>7.3f} "
-                f"{rec.pct_peak:>8.3f} {pred} {bound:<10}")
+            for name, rec in records:
+                if rec.predicted is not None:
+                    pred = f"{1e3 * rec.predicted.roofline_time:>9.4f}"
+                    bound = rec.predicted.bottleneck
+                else:
+                    pred, bound = f"{'-':>9}", "-"
+                lines.append(
+                    f"{name:<20} {rec.n_calls:>5} {rec.time_ms:>9.4f} "
+                    f"{rec.flops:>10.3g} {rec.bytes:>10.3g} {rec.ai:>7.3f} "
+                    f"{rec.pct_peak:>8.3f} {pred} {bound:<10}")
         if not records:
             lines.append("(no profiled dispatches)")
         return "\n".join(lines)

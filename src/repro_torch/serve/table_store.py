@@ -27,7 +27,13 @@ Host copies. numpy has no bf16 or fp8, so ``host_state``/``load_host_state``
 and the tiered store's host tiers hold such payloads as their raw bits
 (int16 / uint8; ``to_host`` / ``from_host``); fp32 and int8 stay as they are.
 
-The sharded store is not ported yet.
+``ShardedTableStore`` is the same contract partitioned by slot over the
+model axis of a ``MeshCtx`` (``distributed/mesh_ctx.py``): shard k keeps a
+``(C, G, U, d)`` block (and ``(C, G, U)`` scales) on the mesh's device k, a
+slot handle is a ``(shard, local)`` pair, new users go to the shard with
+the most free slots, and every shard doubles at once. Its rows assemble on
+the store's ``device`` (the server's); the engine's sharded dispatches
+(``core/engine.py``) launch one kernel per shard.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh_ctx import MeshCtx, canonical, owned
 from repro_torch.serve.quant import (_range, dequantize_rows, is_quantized,
                                      quantize_rows_checked, resolve_table_dtype,
                                      saturate_cast)
@@ -73,6 +80,7 @@ def from_host(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.
 
 
 class TableStore:
+    sharded = False
     # accounting seam: a serve/profiler.MemoryLedger sets both on attach;
     # the event sites below report allocation deltas and traffic through it
     ledger = None
@@ -324,7 +332,7 @@ class TableStore:
 
     def row_nbytes(self) -> int:
         """Stored bytes per user row: payload + (quantized) its scales."""
-        n = int(np.prod(self.row_shape)) * self.data.element_size()
+        n = int(np.prod(self.row_shape)) * self.dtype.itemsize
         if self.quantized:
             n += int(np.prod(self.row_shape[:-1])) * 4
         return n
@@ -360,5 +368,378 @@ class TableStore:
         self._user_of = {s: u for u, s in self._slot_of.items()}
         self._free = [s for s in range(self.capacity - 1, -1, -1)
                       if s not in self._user_of]
+        if self.ledger is not None:   # wholesale replace: the shape may differ
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "restore")
+
+
+# ---------------------------------------------------------------------------
+# sharded store: one (C, G, U, d) block per shard of the mesh's model axis
+# ---------------------------------------------------------------------------
+def gather_rows(blocks: Sequence[torch.Tensor], scale_blocks: Optional[Sequence[torch.Tensor]],
+                handles: np.ndarray, device: torch.device
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The rows of (B, 2) ``[shard, local]`` handles out of per-shard
+    blocks, assembled on ``device`` in the STORAGE dtype (with their scales
+    for a quantized store). Each row is copied from the one shard that owns
+    it: the reference sums the masked rows of every shard (a psum; integer
+    payloads in int32), which gives the same values."""
+    B = handles.shape[0]
+    out = torch.empty((B, *blocks[0].shape[1:]), dtype=blocks[0].dtype, device=device)
+    sc = (None if scale_blocks is None else
+          torch.empty((B, *scale_blocks[0].shape[1:]), dtype=torch.float32, device=device))
+    for k, block in enumerate(blocks):
+        mine, local = owned(handles, k)
+        if not mine.any():
+            continue
+        pos = torch.as_tensor(np.flatnonzero(mine), device=device)
+        lo = torch.as_tensor(local[mine], dtype=torch.int64, device=block.device)
+        out[pos] = block[lo].to(device)
+        if sc is not None:
+            sc[pos] = scale_blocks[k][lo].to(device)
+    return out, sc
+
+
+class ShardedTableStore:
+    """``TableStore`` partitioned by slot over the model axis of a mesh
+    (``MeshCtx`` or a sequence of devices). Same contract, two changes of
+    representation, as in the reference:
+
+      * shard k keeps its own ``(C, G, U, d)`` block on model device k
+        (``blocks``; ``data`` is the tuple of them), plus ``(C, G, U)`` fp32
+        scales for int8/fp8 (``scale_blocks``); global capacity is ``S·C``
+        and grows by doubling every shard's ``C`` at once;
+      * a slot handle is a ``(shard, local)`` pair: ``assign``/``slots``/
+        ``lookup`` return a (B, 2) int32 array that ``rows``/``write`` and
+        ``SDIMEngine.update_sharded``/``serve_fused_sharded`` take. New users
+        go to the shard with the most free slots (the first such shard), so
+        occupancy stays balanced within ±1; each shard recycles its own
+        evicted slots.
+
+    Rows gathered by ``rows``/``rows_raw`` assemble on ``device`` (default:
+    shard 0's). Copy on write (``donate_writes=False``) is per shard: after
+    ``share()``, a write clones only the blocks it writes to.
+    """
+
+    sharded = True
+    # accounting seam: a serve/profiler.MemoryLedger sets both on attach
+    ledger = None
+    _ledger_key = None
+
+    def __init__(self, n_groups: int, n_buckets: int, d: int, mesh, capacity: int = 64,
+                 dtype: Any = torch.float32, device: DeviceLike = None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.mesh_ctx = MeshCtx.wrap(mesh)
+        if self.mesh_ctx is None:
+            raise ValueError("a sharded store needs a mesh (a MeshCtx or a device list)")
+        self.devices = tuple(resolve_device(dev) for dev in self.mesh_ctx.devices)
+        self.device = self.devices[0] if device is None else canonical(resolve_device(device))
+        self.row_shape = (n_groups, n_buckets, d)
+        self.dtype = resolve_table_dtype(dtype)
+        self.quantized = is_quantized(self.dtype)
+        self._check_range = not self.quantized and _range(self.dtype) is not None
+        S = self.n_shards
+        per = max(1, -(-capacity // S))                     # ceil; >= 1 a shard
+        self.blocks = [torch.zeros((per, *self.row_shape), dtype=self.dtype, device=dev)
+                       for dev in self.devices]
+        self.scale_blocks = ([torch.zeros((per, n_groups, n_buckets), dtype=torch.float32,
+                                          device=dev) for dev in self.devices]
+                             if self.quantized else None)
+        self._slot_of: dict[Any, tuple[int, int]] = {}
+        self._user_of: dict[tuple[int, int], Any] = {}
+        self._free = [list(range(per - 1, -1, -1)) for _ in range(S)]
+        self.n_grows = 0
+        self.n_evictions = 0
+        self.n_saturated = 0
+        self.n_nonfinite = 0
+        self.donate_writes = True
+        self._shared = [False] * S      # a committed view holds shard k's block
+
+    _note_saturation = TableStore._note_saturation
+    _note_nonfinite = TableStore._note_nonfinite
+    row_nbytes = TableStore.row_nbytes
+
+    def _nbytes(self) -> int:
+        """Bytes the blocks (and scales) hold on their devices right now."""
+        n = sum(b.numel() * b.element_size() for b in self.blocks)
+        if self.quantized:
+            n += sum(s.numel() * s.element_size() for s in self.scale_blocks)
+        return n
+
+    def _use(self, tensors) -> None:
+        """Under copy on write, mark CUDA ``tensors`` as read on their
+        device's current stream (see ``TableStore._use``)."""
+        if self.donate_writes:
+            return
+        for t in tensors:
+            if t.device.type == "cuda":
+                t.record_stream(torch.cuda.current_stream(t.device))
+
+    def _tensors(self, k: int) -> list:
+        return [self.blocks[k]] + ([self.scale_blocks[k]] if self.quantized else [])
+
+    @property
+    def data(self) -> tuple:
+        return tuple(self.blocks)
+
+    @property
+    def scales(self) -> Optional[tuple]:
+        return None if self.scale_blocks is None else tuple(self.scale_blocks)
+
+    def share(self) -> tuple[tuple, Optional[tuple]]:
+        """The (blocks, scale blocks) a committed view holds from now on.
+        Under copy on write, a later write clones each block it writes to
+        once."""
+        self._shared = [not self.donate_writes] * self.n_shards
+        return self.data, self.scales
+
+    def writable(self, shards: Optional[Sequence[int]] = None) -> tuple[list, Optional[list]]:
+        """The blocks (and scale blocks) a write goes into in place: the
+        store's own, with each of ``shards`` (default: every shard) that a
+        view holds cloned and rebound first."""
+        for k in range(self.n_shards) if shards is None else shards:
+            if self._shared[k]:
+                self._use(self._tensors(k))
+                self.blocks[k] = self.blocks[k].clone()
+                if self.quantized:
+                    self.scale_blocks[k] = self.scale_blocks[k].clone()
+                self._shared[k] = False
+        return self.blocks, self.scale_blocks
+
+    # ------------------------------------------------------------------
+    # index
+    # ------------------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        return self.mesh_ctx.n_shards
+
+    @property
+    def per_shard_capacity(self) -> int:
+        return self.blocks[0].shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.n_shards * self.per_shard_capacity
+
+    def __len__(self) -> int:
+        return len(self._slot_of)
+
+    def __contains__(self, user: Any) -> bool:
+        return user in self._slot_of
+
+    def users(self) -> Iterator[Any]:
+        return iter(self._slot_of)
+
+    def slot(self, user: Any) -> Optional[tuple[int, int]]:
+        return self._slot_of.get(user)
+
+    def shard_load(self) -> list[int]:
+        """Live users per shard (balanced within ±1 by ``assign``)."""
+        per = self.per_shard_capacity
+        return [per - len(f) for f in self._free]
+
+    def shards_of(self, handles) -> list[int]:
+        """The shards that own at least one of (B, 2) ``handles``."""
+        return sorted({int(k) for k in np.asarray(handles).reshape(-1, 2)[:, 0]})
+
+    def slots(self, users: Sequence[Any]) -> np.ndarray:
+        """(B, 2) [shard, local] handles; KeyError names unknown users."""
+        missing = [u for u in users if u not in self._slot_of]
+        if missing:
+            raise KeyError(f"users not in table store: {missing}")
+        return np.asarray([self._slot_of[u] for u in users], np.int32).reshape(-1, 2)
+
+    def lookup(self, users: Sequence[Any]) -> tuple[np.ndarray, np.ndarray]:
+        """Miss-tolerant ``slots``: unknown users get handle (0, 0) and
+        ``present=False``."""
+        present = np.asarray([u in self._slot_of for u in users], bool)
+        slots = np.asarray([self._slot_of.get(u, (0, 0)) for u in users],
+                           np.int32).reshape(-1, 2)
+        return slots, present
+
+    def assign(self, users: Sequence[Any]) -> np.ndarray:
+        """(B, 2) handles for ``users``, allocating unknown ones on the
+        shard with the most free slots (doubling every shard when all free
+        lists are empty). Duplicate users share one handle; fresh slots
+        read all-zero."""
+        for u in users:
+            if u in self._slot_of:
+                continue
+            k = max(range(self.n_shards), key=lambda i: len(self._free[i]))
+            if not self._free[k]:
+                self.grow()
+            s = (k, self._free[k].pop())
+            self._slot_of[u] = s
+            self._user_of[s] = u
+        return np.asarray([self._slot_of[u] for u in users], np.int32).reshape(-1, 2)
+
+    def assign_fresh(self, users: Sequence[Any]) -> np.ndarray:
+        """``assign`` for full-overwrite callers (see ``TableStore``)."""
+        return self.assign(users)
+
+    def grow(self) -> None:
+        """Double every shard's block at once (no rows move between
+        shards, so every handle stays valid)."""
+        per = self.per_shard_capacity
+        old = self._nbytes()
+        for k in range(self.n_shards):
+            self._use(self._tensors(k))
+        self.blocks = [torch.cat([b, torch.zeros_like(b)]) for b in self.blocks]
+        if self.quantized:
+            self.scale_blocks = [torch.cat([s, torch.zeros_like(s)])
+                                 for s in self.scale_blocks]
+        for f in self._free:
+            f[:0] = range(2 * per - 1, per - 1, -1)
+        self._shared = [False] * self.n_shards
+        self.n_grows += 1
+        if self.ledger is not None:
+            self.ledger.add(self._ledger_key, self._nbytes() - old, "grow")
+
+    def evict(self, user: Any) -> bool:
+        """Drop a user; the zeroed slot is recycled by its shard."""
+        return self.evict_many([user]) == 1
+
+    def evict_many(self, users: Sequence[Any]) -> int:
+        """Batched evict: known users' slots zeroed in one write and
+        recycled; unknown users ignored, duplicates deduped. Returns the
+        evicted count."""
+        known = [u for u in dict.fromkeys(users) if u in self._slot_of]
+        if not known:
+            return 0
+        self.write(self.slots(known),
+                   torch.zeros((len(known), *self.row_shape), dtype=torch.float32,
+                               device=self.device))
+        for u in known:
+            s = self._slot_of.pop(u)
+            del self._user_of[s]
+            self._free[s[0]].append(s[1])
+        self.n_evictions += len(known)
+        if self.ledger is not None:
+            self.ledger.count("evict", len(known))
+        return len(known)
+
+    def clear(self) -> None:
+        """Invalidate everything (model push): index emptied, blocks
+        replaced by zeros (a committed view keeps the old ones), growth and
+        eviction counters reset."""
+        per = self.per_shard_capacity
+        self._slot_of.clear()
+        self._user_of.clear()
+        self._free = [list(range(per - 1, -1, -1)) for _ in range(self.n_shards)]
+        self.blocks = [torch.zeros_like(b) for b in self.blocks]
+        if self.quantized:
+            self.scale_blocks = [torch.zeros_like(s) for s in self.scale_blocks]
+        self._shared = [False] * self.n_shards
+        self.n_grows = 0
+        self.n_evictions = 0
+        if self.ledger is not None:   # same-shape zeroing: the allocation keeps
+            self.ledger.count("clear")
+
+    # ------------------------------------------------------------------
+    # rows
+    # ------------------------------------------------------------------
+    def _handles(self, slots) -> np.ndarray:
+        """(B, 2) handles from the host, range-checked there."""
+        h = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots,
+                       np.int64).reshape(-1, 2)
+        if h.size and (h[:, 0].min() < 0 or h[:, 0].max() >= self.n_shards
+                       or h[:, 1].min() < 0 or h[:, 1].max() >= self.per_shard_capacity):
+            raise IndexError(f"handles outside [0, {self.n_shards}) x "
+                             f"[0, {self.per_shard_capacity})")
+        return h
+
+    def rows_raw(self, slots) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(B, 2) handles -> (payload in the STORAGE dtype, scales or None)
+        on ``device``."""
+        h = self._handles(slots)
+        for k in self.shards_of(h):
+            self._use(self._tensors(k))
+        return gather_rows(self.blocks, self.scale_blocks, h, self.device)
+
+    def rows(self, slots) -> torch.Tensor:
+        """(B, 2) handles -> (B, G, U, d) on ``device``; quantized stores
+        dequantize, so callers see fp32 rows."""
+        payload, scales = self.rows_raw(slots)
+        return dequantize_rows(payload, scales) if self.quantized else payload
+
+    def row(self, user: Any) -> Optional[torch.Tensor]:
+        s = self._slot_of.get(user)
+        return None if s is None else self.rows(np.asarray([s], np.int32))[0]
+
+    def _scatter(self, h: np.ndarray, payload: torch.Tensor,
+                 scales: Optional[torch.Tensor]) -> None:
+        """Write each row of ``payload`` (and ``scales``) into the block of
+        the shard that owns its handle; only owned rows are written."""
+        for k in self.shards_of(h):
+            mine, local = owned(h, k)
+            blocks, scale_blocks = self.writable([k])
+            dev = blocks[k].device
+            pos = torch.as_tensor(np.flatnonzero(mine), device=payload.device)
+            lo = torch.as_tensor(local[mine], dtype=torch.int64, device=dev)
+            blocks[k][lo] = payload[pos].to(dev)
+            if scales is not None:
+                scale_blocks[k][lo] = scales[pos].to(dev, torch.float32)
+
+    def write(self, slots, rows: torch.Tensor) -> None:
+        """Overwrite (B, 2) handles with rows (B, G, U, d): quantize on
+        write for int8/fp8, a saturating cast for bf16, as ``TableStore``."""
+        h = self._handles(slots)
+        if self.quantized:
+            payload, row_scales, n_bad = quantize_rows_checked(rows, dtype=self.dtype)
+            self._note_nonfinite(int(n_bad))
+            self._scatter(h, payload, row_scales)
+            if self.ledger is not None:
+                self.ledger.count("quantize", len(h))
+            return
+        if self._check_range:
+            rows, n = saturate_cast(rows, dtype=self.dtype)
+            self._note_saturation(int(n))
+        self._scatter(h, rows.to(self.dtype), None)
+
+    def write_raw(self, slots, payload: torch.Tensor,
+                  scales: Optional[torch.Tensor] = None) -> None:
+        """Inverse of ``rows_raw``: stored bytes written back verbatim."""
+        if payload.dtype != self.dtype:
+            raise TypeError(f"write_raw: payload {payload.dtype} into a {self.dtype} store")
+        if self.quantized != (scales is not None):
+            raise ValueError("write_raw: scales go with quantized stores only")
+        self._scatter(self._handles(slots), payload, scales)
+
+    # ------------------------------------------------------------------
+    # serialization seam (tiered snapshot/restore)
+    # ------------------------------------------------------------------
+    def host_state(self) -> dict:
+        """Full store state as host objects: the (S, C, G, U, d) payload
+        (bf16/fp8 as raw bits) plus the user → (shard, local) index as
+        json-able pairs (quantized stores add the (S, C, G, U) scales)."""
+        for k in range(self.n_shards):
+            self._use(self._tensors(k))
+        state = {"data": np.stack([to_host(b) for b in self.blocks]),
+                 "index": [[u, [int(s[0]), int(s[1])]] for u, s in self._slot_of.items()]}
+        if self.quantized:
+            state["scales"] = np.stack([to_host(s) for s in self.scale_blocks])
+        return state
+
+    def load_host_state(self, state: dict) -> None:
+        """Inverse of ``host_state``: blocks and index replaced wholesale.
+        The payload must have this store's shard count; each shard's free
+        list is rebuilt as the complement of its indexed handles."""
+        data = np.asarray(state["data"])
+        if data.ndim != 5 or data.shape[0] != self.n_shards \
+                or tuple(data.shape[2:]) != self.row_shape:
+            raise ValueError(f"host state {data.shape}, store of {self.n_shards} shards of "
+                             f"rows {self.row_shape}")
+        old = self._nbytes()
+        self.blocks = [from_host(data[k], self.dtype, dev) for k, dev in enumerate(self.devices)]
+        if self.quantized:
+            scales = np.asarray(state["scales"], np.float32)
+            self.scale_blocks = [from_host(scales[k], torch.float32, dev)
+                                 for k, dev in enumerate(self.devices)]
+        self._shared = [False] * self.n_shards
+        self._slot_of = {u: (int(s[0]), int(s[1])) for u, s in state["index"]}
+        self._user_of = {s: u for u, s in self._slot_of.items()}
+        per = self.per_shard_capacity
+        self._free = [[l for l in range(per - 1, -1, -1) if (k, l) not in self._user_of]
+                      for k in range(self.n_shards)]
         if self.ledger is not None:   # wholesale replace: the shape may differ
             self.ledger.add(self._ledger_key, self._nbytes() - old, "restore")

@@ -5,10 +5,11 @@ Counterpart of ``repro/serve/tiered_store.py``. "Millions of users" cannot
 fit one card's memory, and a restart must not lose serving state, so the
 BSE state lives in three tiers:
 
-  * **hot tier** — the device ``TableStore``, but *bounded*: capacity is
-    fixed at ``hot_capacity`` users and never grows. A pluggable
-    ``EvictionPolicy`` (``"clock"`` — one-bit second chance — or ``"lru"``)
-    decides who stays hot;
+  * **hot tier** — the device ``TableStore`` (a ``ShardedTableStore`` when
+    a ``mesh`` is given), but *bounded*: capacity is fixed at
+    ``hot_capacity`` users (rounded up to ``S·⌈hot_capacity/S⌉`` over S
+    shards) and never grows. A pluggable ``EvictionPolicy`` (``"clock"`` —
+    one-bit second chance — or ``"lru"``) decides who stays hot;
   * **warm tier** — a host numpy pool (``WarmPool``) with its own slot
     index and amortized-doubling growth. Demoted rows land here;
   * **cold tier** — on-disk ``.npz`` segments (``ColdStore``), written
@@ -37,7 +38,7 @@ reference's; the arrays are the port's raw-bit host form.
 
 The store is compute-free, like the store it fronts. User keys must be
 JSON-serializable scalars (int or str): they are persisted in segment files
-and manifests. The sharded hot tier is not ported yet.
+and manifests.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.admission import CircuitBreaker
 from repro_torch.serve.metrics import observe_ms
 from repro_torch.serve.quant import TABLE_DTYPES, dequantize_rows, resolve_table_dtype
-from repro_torch.serve.table_store import TableStore, from_host, host_dtype, to_host
+from repro_torch.serve.table_store import (ShardedTableStore, TableStore, from_host, host_dtype,
+                                           to_host)
 from repro_torch.serve.tracing import maybe_span
 
 
@@ -581,9 +583,10 @@ def _nbytes(rows: np.ndarray, scales: Optional[np.ndarray]) -> int:
 # the tiered store
 # ---------------------------------------------------------------------------
 class TieredTableStore:
-    """Bounded hot ``TableStore`` + ``WarmPool`` + ``ColdStore``, presenting
-    the surface the ``BSEServer`` speaks (``assign``/``lookup``/``rows``/
-    ``write``/``data``/…), so the serving stack routes through it unchanged.
+    """Bounded hot ``TableStore``/``ShardedTableStore`` + ``WarmPool`` +
+    ``ColdStore``, presenting the surface the ``BSEServer`` speaks
+    (``assign``/``lookup``/``rows``/``write``/``data``/…), so the serving
+    stack routes through it unchanged.
 
     Residency protocol: every batched op first calls ``_ensure_resident``,
     which partitions the burst's unique users by tier, demotes victims
@@ -598,7 +601,7 @@ class TieredTableStore:
 
     def __init__(self, n_groups: int, n_buckets: int, d: int,
                  hot_capacity: int = DEFAULT_HOT_CAPACITY,
-                 dtype: Any = torch.float32, policy="clock",
+                 dtype: Any = torch.float32, mesh: Any = None, policy="clock",
                  store_dir: Optional[str] = None,
                  warm_capacity: Optional[int] = None,
                  cold_deadline_s: Optional[float] = None,
@@ -614,13 +617,20 @@ class TieredTableStore:
         virtual clock for tests, ``metrics`` receives the tier counters and
         the cold-read latency, ``tracer`` gets ``tier.cold_read`` /
         ``tier.promote`` / ``tier.demote`` spans on actual tier movement
-        and flags degraded requests' traces."""
+        and flags degraded requests' traces. ``mesh`` (a ``MeshCtx`` or a
+        device list) shards the hot tier over its model axis; its rows then
+        assemble on ``device``."""
         if hot_capacity < 1:
             raise ValueError(
                 f"hot_capacity must be >= 1, got {hot_capacity} — a tiered "
                 "store needs at least one device-resident slot")
-        self.hot = TableStore(n_groups, n_buckets, d, capacity=hot_capacity,
-                              dtype=dtype, device=resolve_device(device))
+        if mesh is None:
+            self.hot = TableStore(n_groups, n_buckets, d, capacity=hot_capacity,
+                                  dtype=dtype, device=resolve_device(device))
+        else:
+            self.hot = ShardedTableStore(n_groups, n_buckets, d, mesh, capacity=hot_capacity,
+                                         dtype=dtype, device=device)
+        # sharded capacity rounds up to S * ceil(hot_capacity / S)
         self.hot_capacity = self.hot.capacity
         self.warm = WarmPool(self.hot.row_shape, self.hot.dtype,
                              capacity=self.hot_capacity,
@@ -645,6 +655,21 @@ class TieredTableStore:
     @property
     def device(self) -> torch.device:
         return self.hot.device
+
+    @property
+    def sharded(self) -> bool:
+        return self.hot.sharded
+
+    @property
+    def mesh_ctx(self):
+        return self.hot.mesh_ctx          # sharded hot tier only
+
+    @property
+    def n_shards(self) -> int:
+        return self.hot.n_shards          # sharded hot tier only
+
+    def shards_of(self, handles) -> list[int]:
+        return self.hot.shards_of(handles)
 
     @property
     def row_shape(self):
@@ -689,8 +714,10 @@ class TieredTableStore:
     def share(self):
         return self.hot.share()
 
-    def writable(self):
-        return self.hot.writable()
+    def writable(self, shards=None):
+        """The hot tier's writable tensors (``shards``: a sharded hot
+        tier's shards to clone, default every one)."""
+        return self.hot.writable() if shards is None else self.hot.writable(shards)
 
     @property
     def capacity(self) -> int:
@@ -989,8 +1016,8 @@ class TieredTableStore:
             "row_shape": list(self.row_shape),
             "dtype": dtype_name(self.dtype),
             "host_dtype": str(self.warm.data.dtype),
-            "sharded": False,
-            "n_shards": 1,
+            "sharded": self.sharded,
+            "n_shards": self.hot.n_shards if self.sharded else 1,
             "hot_capacity": self.hot_capacity,
             "warm_capacity": self.warm_capacity,
             "has_cold": self.cold is not None,
@@ -1004,17 +1031,19 @@ class TieredTableStore:
         return dir
 
     @classmethod
-    def restore(cls, dir: str, store_dir: Optional[str] = None,
+    def restore(cls, dir: str, mesh: Any = None, store_dir: Optional[str] = None,
                 device: DeviceLike = "cuda") -> "TieredTableStore":
-        """Rebuild a store from ``snapshot(dir)`` on ``device``. By default
+        """Rebuild a store from ``snapshot(dir)`` on ``device``. A sharded
+        snapshot needs a ``mesh`` with the same shard count. By default
         the snapshot's own ``cold/`` directory becomes the live cold store
         (the snapshot IS the durable state); pass ``store_dir`` to relocate
         (segments copied)."""
         with open(os.path.join(dir, "manifest.json")) as f:
             man = json.load(f)
-        if man["sharded"]:
-            raise ValueError("snapshot is of a sharded store, which the port "
-                             "does not have yet")
+        if man["sharded"] and mesh is None:
+            raise ValueError("snapshot was sharded; restore needs a mesh")
+        if not man["sharded"] and mesh is not None:
+            raise ValueError("snapshot was single-device; mesh given")
         G, U, d = man["row_shape"]
         dtype = resolve_table_dtype(man["dtype"])
         if man["host_dtype"] != str(host_dtype(dtype)):
@@ -1035,9 +1064,12 @@ class TieredTableStore:
                         os.replace(tmp, dst)
         elif store_dir is not None:
             target = store_dir
-        store = cls(G, U, d, hot_capacity=man["hot_capacity"], dtype=dtype,
+        store = cls(G, U, d, hot_capacity=man["hot_capacity"], dtype=dtype, mesh=mesh,
                     policy=man["policy"]["name"], store_dir=target,
                     warm_capacity=man["warm_capacity"], device=device)
+        if man["sharded"] and store.hot.n_shards != man["n_shards"]:
+            raise ValueError(f"snapshot has {man['n_shards']} shards, mesh "
+                             f"has {store.hot.n_shards}")
         with np.load(os.path.join(dir, "tiers.npz")) as z:
             hot_state = {"data": z["hot"], "index": man["hot_index"]}
             warm_state = {"data": z["warm"], "index": man["warm_index"]}

@@ -234,3 +234,30 @@ def test_engine_attend_gradient_matches_jax():
     torch.sum(out * torch.from_numpy(dout[:, 0])).backward()
     jdseq, _, _ = _jax_sdim_grads(seq, q, mask, R, dout, 3)
     np.testing.assert_allclose(sa.grad.numpy(), jdseq, **FP32)
+
+
+@pytest.mark.parametrize("vocab, n", [(80, 4096), (8000, 4096), (6, 0)])
+def test_embedding_gradient_is_summed_per_id(vocab, n):
+    """The embedding lookup's backward of the card (``nn.layers.
+    _EmbeddingFn``: gradient rows summed per id by ``index_put_(accumulate=
+    True)``, one owner per id), run on the CPU, against autograd of
+    ``F.embedding`` and ``jax.grad`` of the JAX package's ``table[ids]``,
+    with ids repeated thousands of times (80 categories) and not (8,000
+    items), and no lookup at all. FP32 tolerance: the same sums in another
+    order."""
+    from repro_torch.nn.layers import Embedding, _EmbeddingFn, embedding
+
+    rng = np.random.default_rng(vocab)
+    table = rng.standard_normal((vocab, 16)).astype(np.float32)
+    ids = rng.integers(0, vocab, (n // 64, 64)) if n else np.zeros((0, 64), np.int64)
+    dout = rng.standard_normal((*ids.shape, 16)).astype(np.float32)
+    w = torch.tensor(table, requires_grad=True)
+    (_EmbeddingFn.apply(w, torch.as_tensor(ids)) * torch.as_tensor(dout)).sum().backward()
+    ours, w.grad = w.grad, None
+    (torch.nn.functional.embedding(torch.as_tensor(ids), w) * torch.as_tensor(dout)).sum().backward()
+    want = jax.grad(lambda t: jnp.sum(t[jnp.asarray(ids)] * dout))(jnp.asarray(table))
+    torch.testing.assert_close(ours, w.grad, **FP32)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), **FP32)
+    # the CPU lookup keeps the native backward (one owner per id there too)
+    assert embedding(torch.as_tensor(ids), w).grad_fn.name() == "EmbeddingBackward0"
+    assert Embedding(vocab, 16)(torch.as_tensor(ids)).shape == (*ids.shape, 16)

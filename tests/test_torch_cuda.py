@@ -1045,3 +1045,80 @@ def test_tiered_store_on_card_matches_cpu(table_dtype, dev, tmp_path):
         assert (x is None) == (y is None)
         if x is not None:
             assert torch.equal(x.cpu().view(torch.uint8), y.view(torch.uint8)), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["fp32", "int8"])
+def test_sharded_store_on_card_matches_single_device(table_dtype, dev):
+    """Eight shards on one card (``(cuda:0,) * 8``) against one store on
+    it, fed the same random ingest / event / evict sequence (the fp32 event
+    fold through ``update_sharded``, one ``sdim_update`` a shard; int8
+    through the read-modify-write), then fused reads with a miss through
+    ``serve_fused_sharded`` (one ``sdim_fused_serve`` a shard): rows and
+    interest bit for bit, since a masked launch adds nothing."""
+    from repro_torch.serve.bse_server import BSEServer
+    from torch_sharded_parity import ASK_MISS, apply, random_ops
+
+    engine, embed = _runtime_parts(dev)
+    mesh = (torch.device("cuda", torch.cuda.current_device()),) * 8
+    single, sharded = (BSEServer(embed, None, engine, wire_dtype=torch.float32, capacity=4,
+                                 table_dtype=table_dtype, mesh=m, device=dev)
+                       for m in (None, mesh))
+    ops, order = random_ops(0)
+    apply(single, ops)
+    before = sdim_update.launches
+    apply(sharded, ops)
+    folds = sum(op[0] == "events" for op in ops)
+    if table_dtype == "fp32":
+        assert sdim_update.launches - before == 8 * folds
+    assert torch.equal(single.fetch_many(order), sharded.fetch_many(order))
+    q = embed(None, np.random.default_rng(2).integers(0, RT_ITEMS, (5, 7)), None)
+    ask = [order[3], ASK_MISS, order[-1], order[0], order[3]]
+    before = sdim_fused_serve.launches
+    got = sharded.serve_candidates(ask, q)
+    assert sdim_fused_serve.launches - before == 8
+    assert torch.equal(got, single.serve_candidates(ask, q)) and not got[1].any()
+    assert max(sharded.store.shard_load()) - min(sharded.store.shard_load()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "avg", "sim_hard", "ubr4ctr", "eta", "sdim",
+                                  "sdim_expected", "target", "din_mlp"])
+def test_training_on_the_card_is_bit_reproducible(kind, dev):
+    """Fault C5, closed: two runs of 5 AdamW steps of the Table 2/3
+    protocol's model (d = 32, L = 256, batch 128) from one seed end with
+    parameters of equal bits; sdim_expected's where they are finite (its
+    gradient is not, fault C2). The fault was PyTorch's embedding backward
+    on CUDA, whose sums over an id repeated thousands of times (80
+    categories in a batch of long histories) came out in another order
+    from run to run."""
+    from repro_torch.bench.common import bit_differences, trained_params
+    from repro_torch.bench.table23_auc import BASELINES
+
+    kw = dict(BASELINES).get(kind, {})
+    a, b = (trained_params(kind, 5, device=dev, **kw) for _ in range(2))
+    assert bit_differences(a, b) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [80, 8000])
+def test_embedding_backward_on_card_is_deterministic(vocab, dev):
+    """The port's embedding lookup (``nn.layers.embedding``) at a batch of
+    long histories' shape, 128 x 256 ids of a vocabulary of 80 (each id
+    ~400 times) or 8,000: four backward passes give the same bits, within
+    FP32 of the CPU's."""
+    from repro_torch.nn.layers import embedding
+
+    g = torch.Generator(device=dev).manual_seed(vocab)
+    ids = torch.randint(0, vocab, (128, 256), device=dev, generator=g)
+    dout = torch.randn((128, 256, 16), device=dev, generator=g)
+    w = torch.randn((vocab, 16), device=dev, generator=g, requires_grad=True)
+    grads = []
+    for _ in range(4):
+        w.grad = None
+        (embedding(ids, w) * dout).sum().backward()
+        grads.append(w.grad.clone())
+    assert all(torch.equal(grads[0].view(torch.int32), x.view(torch.int32)) for x in grads[1:])
+    wc = w.detach().cpu().requires_grad_()
+    (embedding(ids.cpu(), wc) * dout.cpu()).sum().backward()
+    torch.testing.assert_close(grads[0].cpu(), wc.grad, atol=1e-4, rtol=1e-5)

@@ -198,7 +198,8 @@ def test_port_imports_neither_jax_nor_repro():
              for f in fs if f.endswith(".py")]
     files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "phase_clocks.py")]
     assert len(files) > 20
-    assert {"profiler.py", "cost.py", "roofline.py"} <= {os.path.basename(f) for f in files}
+    assert {"profiler.py", "cost.py", "roofline.py", "mesh_ctx.py"} <= \
+        {os.path.basename(f) for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
