@@ -191,26 +191,51 @@ Phases, each of which raises (exit code != 0) when it fails:
    restore onto 8 shards. Prints launches per burst and per event fold,
    ms/request sharded beside single-device (8 launches a dispatch on one
    card: not a speed across GPUs), the card's name and power limit.
+13. LM path — the dense GQA LM stack: ``qwen3-8b`` FULL (8,190,735,360
+   parameters, fp32, built on the card from the port's init with seed 0,
+   R from seed 1234), after the earlier phases' memory is freed; prints
+   init seconds and ``max_memory_allocated``. (a) a prefill of 2,048
+   random tokens on the query-chunked path (q_chunk 1,024) against the
+   masked path (q_chunk above T): last-position logits within 1e-4 of the
+   largest |logit|; (b) 256 tokens of exact decode from an empty fp32
+   cache against the forward pass over the same tokens, every position's
+   logits within the same tolerance; (c) the same tokens through
+   ``sdim_decode_step`` from an empty SDIM cache: finite logits, layer 0's
+   count table equal to ``encode_sdim_cache_from_kv`` of (b)'s cache (layer
+   0 sees the same key bits on both paths) and its value table within
+   1e-4, the offline encode the same bits twice; the exact-vs-SDIM
+   next-token overlap and top-10 overlap are printed (an approximation: no
+   limit); (d) sdim_query at the path's call, (8 kv heads, 4 query heads,
+   128) against the last layer's table, held against its plain version
+   (FP32), the same bits twice, timed beside its plain version and bound
+   (the ``lm`` entry of sdim_query's JSON); (e) ms/token (host clock to
+   ``.item()``, median of 16 after 4 warm-ups) of exact decode at cache_len
+   1,024 and 32,767 of a 32,768-row cache of random values and of SDIM
+   decode, each beside its bound (every weight read once but the token
+   embedding, of which one row, and the cache read, over 3.35 TB/s) and one
+   step of each under torch.profiler (device-busy share, top five ops);
+   the cache bytes of both paths; the card's name and power limit.
 
-Every launch count is set to 0 just before each of phases 4-12 and read
+Every launch count is set to 0 just before each of phases 4-13 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
 phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 10 all nine; phase 11 bse_encode, sdim_update and sdim_fused_serve; phase
-12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve).
+12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve;
+phase 13 sdim_query).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
 only serves as a comparison (phase 9's and 12's synchronous references
 and restored servers, phase 10's fp32-wire server, phase 12's
-single-device servers) are not counted. After the
+single-device servers, phase 13's kernel check) are not counted. After the
 counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
-11 as ``profile``, phase 12 as ``sharded``), then as
+11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``), then as
 the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -277,6 +302,16 @@ C5_STEPS = 5            # phase 8 (b): AdamW steps of each of the two trainings 
 # single-device server within SHARD_TOL (the reference's sharded tolerance)
 SHARDS, SHARD_CAP, SHARD_USERS, SHARD_INGEST = 8, 512, 4096, 512
 SHARD_REQUESTS, SHARD_TOL = 64, 1e-5
+# phase 13: the dense GQA LM stack, qwen3-8b FULL in fp32: an LM_PREFILL-
+# token prefill, LM_DECODE tokens of exact and SDIM-compressed decode, logits
+# within LM_TOL of the largest |logit|; ms/token at each of LM_CACHE_LENS in
+# an LM_MAX_LEN-row exact cache and of the SDIM path, median of LM_TIMED
+# steps after LM_WARM; HBM the card's memory rate (bytes/s)
+LM_PREFILL, LM_DECODE, LM_MAX_LEN = 2048, 256, 32768
+LM_CACHE_LENS = (1024, 32767)
+LM_TIMED, LM_WARM, LM_TOL = 16, 4, 1e-4
+LM_PARAMS = 8_190_735_360
+HBM = 3.35e12
 
 
 def card_line() -> str:
@@ -830,7 +865,7 @@ def profile_window(torch, label, fn):
                    if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     if not spans:
         print(f"profiler {label}: no device time (not measured); wall {wall_us / 1e3:.3f} ms")
-        return
+        return None
     busy, end, by_name = 0.0, float("-inf"), {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
@@ -842,6 +877,7 @@ def profile_window(torch, label, fn):
           f"{len(spans)} device ops; top 5 by device time:")
     for name, us in top:
         print(f"  {us / 1e3:8.4f} ms  {100 * us / wall_us:5.1f}%  {name[:100]}")
+    return dict(device_ops=len(spans), busy_ms=busy / 1e3, wall_ms=wall_us / 1e3)
 
 
 def profile_burst(torch, path, srv, burst):
@@ -2506,6 +2542,251 @@ def sharded_phase(torch, dev, wrappers):
     return launches
 
 
+def token_ms(step) -> dict:
+    """ms per token of ``step()`` (which returns logits): host clock around
+    one step ending in ``.item()`` of its argmax, median [min, max] of
+    LM_TIMED steps after LM_WARM; and ``issue_ms``, the median host time
+    until ``step()`` returns, before the wait: the time the host takes to
+    issue the step's work (the whole step where the card keeps up with
+    it)."""
+    for _ in range(LM_WARM):
+        step().argmax().item()
+    times, issue = [], []
+    for _ in range(LM_TIMED):
+        t0 = time.perf_counter()
+        out = step()
+        issue.append(1e3 * (time.perf_counter() - t0))
+        out.argmax().item()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dict(ms=statistics.median(times), min=min(times), max=max(times),
+                issue_ms=statistics.median(issue))
+
+
+def logits_close(torch, name, got, want) -> float:
+    """max |got - want| / max |want|; fails above LM_TOL or where not finite."""
+    rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    if not bool(torch.isfinite(got).all()) or not rel <= LM_TOL:
+        raise AssertionError(f"lm {name}: logits differ by {rel:.3g} of the largest "
+                             f"(limit {LM_TOL})")
+    print(f"lm {name}: max |d logit| / max |logit| = {rel:.3g} (limit {LM_TOL})")
+    return rel
+
+
+def exact_layouts(torch, cache, g, Gq: int, layer_row_bytes: int) -> dict:
+    """One layer's exact decode read at the longest cache length (scores,
+    fp32 softmax, weighted sum of values, for one token's query heads): the
+    port's (head-major (B, Hkv, S, D), the sum split over rows by
+    ``nn/attention._weighted_values``) against the head-major layout with
+    one product over all rows and the reference's token-major (B, S, Hkv,
+    D) einsums, on the same rows; CUDA event ms (each timed twice, in
+    mirrored order; the least of each pair) beside the bound of reading the
+    rows once."""
+    import math
+    from repro_torch.nn.attention import _weighted_values
+    n = LM_CACHE_LENS[-1] + 1
+    kh, vh = cache["stack"]["k"][0, :, :, :n], cache["stack"]["v"][0, :, :, :n]
+    B, Hkv, _, D = kh.shape
+    kt, vt = kh.transpose(1, 2).contiguous(), vh.transpose(1, 2).contiguous()
+    q = torch.randn((B, 1, Hkv, Gq, D), generator=g, device=kh.device)
+
+    def head_major(weighted):
+        def read():
+            scores = torch.matmul(q.reshape(B, Hkv, Gq, D), kh.transpose(-1, -2)) / math.sqrt(D)
+            return weighted(torch.softmax(scores, -1), vh).reshape(B, 1, Hkv * Gq * D)
+        return read
+
+    def token_major():
+        scores = torch.einsum("btkgd,bskd->bkgts", q, kt) / math.sqrt(D)
+        out = torch.einsum("bkgts,bskd->btkgd", torch.softmax(scores, -1), vt)
+        return out.reshape(B, 1, Hkv * Gq * D)
+
+    reads = {"port": head_major(_weighted_values), "head_major_one_product":
+             head_major(torch.matmul), "token_major": token_major}
+    want = token_major()
+    out = dict(cache_len=n - 1, bound_ms=1e3 * n * layer_row_bytes / HBM)
+    for name, read in reads.items():
+        rel = float((read() - want).abs().max() / want.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"lm exact read: {name} and token-major differ by {rel:.3g}")
+        out[f"{name}_max_rel_diff"] = rel
+    order = list(reads) + list(reads)[::-1]
+    for name, ms in zip(order, [time_ms(reads[k], iters=10) for k in order]):
+        out[f"{name}_ms"] = min(ms, out.get(f"{name}_ms", ms))
+    print(f"lm exact read, one layer at cache_len {n - 1} (CUDA events): the port's "
+          f"{out['port_ms']:.4f} ms, head-major one product {out['head_major_one_product_ms']:.4f} "
+          f"ms, token-major {out['token_major_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms (the "
+          f"rows read once)")
+    del kt, vt
+    return out
+
+
+def lm_phase(torch, dev, wrappers):
+    """Phase 13: qwen3-8b FULL (8,190,735,360 parameters, fp32) on the card
+    with the port's init (seed 0) and R (seed 1234): (a) a prefill of
+    LM_PREFILL tokens on the chunked path against the masked path; (b)
+    LM_DECODE tokens of exact decode from an empty cache against the
+    forward pass over the same tokens; (c) the same tokens through the
+    SDIM-compressed path (layer 0's count table equal to the offline
+    encode of (b)'s cache, its value table within 1e-4; finite logits;
+    the next-token overlaps printed); (d) sdim_query at the path's call
+    against its plain version; (e) ms/token and the bound of each. Returns
+    the path's launch counts and sdim_query's timing at the LM shape."""
+    import gc
+    from repro_torch.configs import qwen3_8b
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+    from repro_torch.models.lm import LMModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"lm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+          f"({torch.cuda.get_device_name(dev)}; {card_line()})")
+    cfg = qwen3_8b.FULL
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm: qwen3-8b FULL init {time.perf_counter() - t0:.2f} s, {n_params:,} parameters "
+          f"({4 * n_params / 2**30:.2f} GiB fp32), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"lm: qwen3-8b FULL has {n_params} parameters, not {LM_PARAMS}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_PREFILL), generator=g, device=dev)
+    reset(wrappers)
+    with torch.no_grad():
+        # (a) the chunked prefill (T >= 2 * q_chunk) against the masked path
+        for label, q_chunk in (("chunked", 1024), ("masked", LM_PREFILL + 1)):
+            for block in model.stack:
+                block.attn.q_chunk = q_chunk
+            t0 = time.perf_counter()
+            out = model.prefill(tokens)
+            torch.cuda.synchronize()
+            print(f"lm prefill {LM_PREFILL} tokens, {label} path: "
+                  f"{time.perf_counter() - t0:.3f} s (first call)")
+            if label == "chunked":
+                chunked = out
+        logits_close(torch, f"(a) prefill chunked vs masked at T = {LM_PREFILL}", chunked, out)
+        for block in model.stack:
+            block.attn.q_chunk = 1024
+        # (b) exact decode of the first LM_DECODE tokens from an empty cache
+        cache = model.init_cache(1, LM_DECODE, torch.float32)
+        exact = torch.cat([model.decode_step(tokens[:, i:i + 1], cache, i)[0][0]
+                           for i in range(LM_DECODE)])
+        hidden, _ = model(tokens[:, :LM_DECODE])
+        logits_close(torch, f"(b) exact decode of {LM_DECODE} tokens vs their forward",
+                     exact, model._logits(hidden)[0])
+        del hidden
+        # (c) the same tokens through the SDIM-compressed KV
+        sc = model.init_sdim_cache(1)
+        compressed = torch.cat([model.sdim_decode_step(tokens[:, i:i + 1], sc)[0][0]
+                                for i in range(LM_DECODE)])
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(compressed).all()):
+            raise AssertionError("lm (c): SDIM decode gave non-finite logits")
+        enc = model.encode_sdim_cache_from_kv(cache)
+        again = model.encode_sdim_cache_from_kv(cache)
+        if not (enc["vt"].equal(again["vt"]) and enc["ct"].equal(again["ct"])):
+            raise AssertionError("lm (c): two offline encodes of one cache differ")
+        if not sc["ct"][0].equal(enc["ct"][0]):
+            raise AssertionError(f"lm (c): layer 0's count table differs from the offline "
+                                 f"encode in {int((sc['ct'][0] != enc['ct'][0]).sum())} cells")
+        vt_err = float((sc["vt"][0] - enc["vt"][0]).abs().max())
+        if not vt_err <= 1e-4:
+            raise AssertionError(f"lm (c): layer 0's value table differs by {vt_err:.3g}")
+        pe, ps = torch.softmax(exact[-1], -1), torch.softmax(compressed[-1], -1)
+        overlap = float(torch.minimum(pe, ps).sum())
+        top10 = len(set(torch.topk(pe, 10).indices.tolist())
+                    & set(torch.topk(ps, 10).indices.tolist()))
+        print(f"lm (c) SDIM decode of {LM_DECODE} tokens: finite; layer 0 count table equals "
+              f"the offline encode ({int(sc['ct'][0].sum())} keys), value table within "
+              f"{vt_err:.3g}; next-token overlap exact vs SDIM {overlap:.4f}, top-10 overlap "
+              f"{top10}/10 (an approximation: no limit)")
+        del enc, again
+    launches = read_launches(wrappers, ("sdim_query",), "lm")
+    per_step = launches["sdim_query"] / LM_DECODE
+    print(f"lm: sdim_query launches per SDIM step {per_step:g} ({cfg.n_layers} layers)")
+
+    # (d) kernel 4 at the path's call: (B * Hkv, Gq, head_dim) against the
+    # last layer's table, on screened queries
+    Rn = model.R.cpu().numpy()
+    Gq = cfg.n_heads // cfg.n_kv_heads
+    q = torch.from_numpy(screened_normal(np.random.default_rng(13), (cfg.n_kv_heads, Gq,
+                                                                     cfg.head_dim), Rn)).to(dev)
+    table = sc["vt"][-1].reshape(cfg.n_kv_heads, *sc["vt"].shape[3:]).contiguous()
+    tau = cfg.sdim_tau
+    with uncounted():
+        err = check_close(f"sdim_query lm {tuple(q.shape)}", sdim_query(q, table, model.R, tau),
+                          sdim_query_ref(q, table, model.R, tau), **FP32)
+        same_bits("sdim_query lm", partial(sdim_query, q, table, model.R, tau))
+        kernel, plain = (partial(sdim_query, q, table, model.R, tau),
+                         partial(sdim_query_ref, q, table, model.R, tau))
+        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        c = cost.settle(cost.query(q, table, model.R, tau=tau))
+        bound_ms, bound_by = bound(c)
+        sel_rows = (c.bytes - 2 * q.numel() * 4 - model.R.numel() * 4) / (cfg.head_dim * 4)
+        kq = dict(shape=list(q.shape), table=list(table.shape), max_abs_err=err,
+                  ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                  device_ms=device_ms(kernel), plain_device_ms=device_ms(plain))
+    print(f"lm (d) sdim_query {tuple(q.shape)} x table {tuple(table.shape)}: {kq['ms']:.4f} ms, "
+          f"plain {kq['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; the "
+          f"{int(sel_rows)} of {table.shape[0] * table.shape[1] * table.shape[2]} table rows "
+          f"its queries select), {kq['ms'] / bound_ms:.0f}x the bound; device "
+          f"{kq['device_ms']} / plain {kq['plain_device_ms']} ms; max abs err {err:.3g}")
+
+    # (e) ms/token: exact at each cache length of an LM_MAX_LEN-row cache of
+    # random values, and SDIM; each beside its bound (bytes: every weight
+    # read once, one row of the token embedding, the cache rows attended)
+    del cache
+    torch.cuda.empty_cache()
+    cache = model.init_cache(1, LM_MAX_LEN, torch.float32)
+    for t in cache["stack"].values():
+        t.normal_(generator=g)
+    exact_bytes = sum(t.numel() * t.element_size() for t in cache["stack"].values())
+    sdim_bytes = {k: sc[k].numel() * sc[k].element_size() for k in ("vt", "ct")}
+    w_bytes = 4 * (n_params - cfg.vocab * cfg.d_model + cfg.d_model)
+    row_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
+    print(f"lm cache bytes: exact at {LM_MAX_LEN} rows {exact_bytes:,} B; SDIM "
+          f"{sdim_bytes['vt']:,} + {sdim_bytes['ct']:,} B (vt + ct, any length)")
+    tok = tokens[:, :1]
+    timed = {}
+    with torch.no_grad():
+        for n in LM_CACHE_LENS:
+            step = lambda n=n: model.decode_step(tok, cache, n)[0]
+            timed[f"exact@{n}"] = dict(token_ms(step),
+                                       bound_ms=1e3 * (w_bytes + (n + 1) * row_bytes) / HBM,
+                                       all_params_bound_ms=1e3 * (4 * n_params + (n + 1) *
+                                                                  row_bytes) / HBM)
+            timed[f"exact@{n}"]["profile"] = profile_window(
+                torch, f"lm exact decode step at cache_len {n}", step)
+        step = lambda: model.sdim_decode_step(tok, sc)[0]
+        timed["sdim"] = dict(token_ms(step),
+                             bound_ms=1e3 * (w_bytes + sum(sdim_bytes.values())) / HBM,
+                             all_params_bound_ms=1e3 * (4 * n_params
+                                                        + sum(sdim_bytes.values())) / HBM)
+        timed["sdim"]["profile"] = profile_window(torch, "lm SDIM decode step", step)
+        layout = exact_layouts(torch, cache, g, Gq, row_bytes // cfg.n_layers)
+    for name, r in timed.items():
+        ops = r["profile"]["device_ops"] if r["profile"] else None
+        per_op = "not measured" if not ops else f"{1e3 * r['issue_ms'] / ops:.1f} us"
+        print(f"lm ms/token {name}: {r['ms']:.3f} [{r['min']:.3f}-{r['max']:.3f}] (host clock to "
+              f".item(), median of {LM_TIMED} after {LM_WARM}); host issue {r['issue_ms']:.3f} "
+              f"ms a step ({ops} device ops: {per_op} an op); bound {r['bound_ms']:.3f} ms "
+              f"(every weight once, one embedding row, the cache read), "
+              f"{r['all_params_bound_ms']:.3f} ms counting the whole embedding table; "
+              f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+    print(f"lm: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{card_line()}")
+    print(f"lm ms/token: {json.dumps(timed)}")
+    print(f"lm exact read layouts: {json.dumps(layout)}")
+    del model, cache, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, kq
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -2566,6 +2847,7 @@ def main() -> int:
     by_path["profile"] = profile_phase(torch, dev, wrappers)
     torch.cuda.empty_cache()
     by_path["sharded"] = sharded_phase(torch, dev, wrappers)
+    by_path["lm"], by_name["sdim_query"]["lm"] = lm_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -9,7 +9,13 @@ Counterpart of ``repro/core/sdim.py``:
 * ``sdim_attention_gather`` — the literal Eq. 9/11/12 collision gather, an
   oracle equal to the bucket form (the same linear operator);
 * ``sdim_expected_attention`` — the closed-form expectation of Eq. 14 (the
-  m/τ → ∞ limit), the interest kind ``sdim_expected``. It has no kernel.
+  m/τ → ∞ limit), the interest kind ``sdim_expected``. It has no kernel;
+* the paper's technique applied to LM decode: ``kv_bucket_table`` (an
+  exact KV cache folded into per-head bucket tables of values keyed on the
+  keys' signatures, ``kv_signatures``), ``kv_bucket_fold`` (one new row
+  folded in place) and
+  ``sdim_decode_attention`` (queries read their kv head's buckets; the ℓ2
+  form through the ``sdim_query`` kernel).
 
 All bucket arithmetic in fp32.
 """
@@ -123,3 +129,91 @@ def sdim_expected_attention(q: torch.Tensor, seq: torch.Tensor,
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-12)
     out = torch.einsum("bl,bld->bd" if single else "bcl,bld->bcd", w, seq.float())
     return out.to(seq.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SDIM-compressed KV attention (the paper's technique applied to LM decode)
+# ---------------------------------------------------------------------------
+def kv_signatures(k: torch.Tensor, R: torch.Tensor, tau: int) -> torch.Tensor:
+    """Keys (..., dk) -> bucket ids (..., G), bit = [r·k >= 0] with the
+    projection in fp64: the products of fp32 values are exact there and the
+    sum's rounding (~1e-16 of its terms) flips no sign that matters, so a
+    key gets the same ids whether hashed alone (a decode step's fold) or
+    among a cache's rows (the offline encode), whichever GEMM the two
+    shapes select. An fp32 projection of 128 terms rounds at ~1e-7 and its
+    order depends on the GEMM: at full width ~1 key in 10^5 could change
+    bucket between the two paths. Against the reference's fp32 hash a key
+    differs only where its fp32 projection is within rounding of 0. R may
+    be given in fp64 (``LMModel.R64``), which saves its cast a call."""
+    proj = torch.einsum("...d,md->...m", k.double(), R.double())
+    return simhash.pack_signatures((proj >= 0).to(torch.int32), tau)
+
+
+def kv_bucket_table(k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+                    R: torch.Tensor, tau: int):
+    """Per-head bucket sums of values keyed on the keys' signatures: k (B,
+    S, H, dk), v (B, S, H, dv), mask (B, S) or None -> (value table (B, H,
+    G, U, dv), count table (B, H, G, U)), fp32. O(G·U·dv) state a head
+    instead of O(S·dv). A one-hot contraction over S, as the reference
+    (``repro/core/sdim.py:157-175``): one GEMM a (b, h), the same bits on
+    every run (no ``index_add_``, whose CUDA sums are not)."""
+    U = 1 << tau
+    onehot = F.one_hot(kv_signatures(k, R, tau).long(), U).float()       # (B, S, H, G, U)
+    if mask is not None:
+        onehot = onehot * mask[:, :, None, None, None].float()
+    vt = torch.einsum("bshgu,bshd->bhgud", onehot, v.float())
+    ct = torch.einsum("bshgu->bhgu", onehot)
+    return vt, ct
+
+
+def kv_bucket_fold(value_table: torch.Tensor, count_table: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, R: torch.Tensor, tau: int) -> None:
+    """Fold one new row per (b, h) into the tables in place: k (B, H, dk),
+    v (B, H, dv); value_table (B, H, G, U, dv) and count_table (B, H, G, U)
+    contiguous fp32. The reference adds ``kv_bucket_table`` of the row
+    (``repro/models/lm.py:277-278``), a one-hot product with one hit per
+    (b, h, g); here each hit cell gets ``+= v`` and ``+= 1`` through an
+    indexed write whose B·H·G indices are all distinct, so the same bits
+    as the reference's sum and deterministic on the card."""
+    B, H, G, U, dv = value_table.shape
+    sig = kv_signatures(k, R, tau).reshape(-1).long()                     # (B·H·G,)
+    cells = torch.arange(B * H * G, device=sig.device) * U + sig
+    vt, ct = value_table.view(-1, dv), count_table.view(-1)
+    vt[cells] += v.float()[:, :, None, :].expand(B, H, G, dv).reshape(-1, dv)
+    ct[cells] += 1.0
+
+
+def sdim_decode_attention(q: torch.Tensor, value_table: torch.Tensor,
+                          count_table: torch.Tensor, R: torch.Tensor, tau: int,
+                          normalize: str = "l2") -> torch.Tensor:
+    """Queries q (B, T, H, dk) read the buckets of their key/value head:
+    value_table (B, Hkv, G, U, dv), count_table (B, Hkv, G, U), Hkv
+    dividing H (query head h reads kv head h // (H / Hkv); Hkv = H is the
+    reference's layout after its ``jnp.repeat``) -> (B, T, H, dv) fp32.
+
+    ``"l2"`` (the paper's Eq. 12): each group's own bucket ℓ2-normalized,
+    averaged over the groups, through ``kernels/sdim_query.sdim_query``
+    (the Pallas ``sdim_query``'s counterpart) with one table row per (b,
+    kv head) and its T·H/Hkv queries as the candidates; the tables are
+    never repeated per query head. ``"count"``: each bucket's value sum over
+    its count (+1e-9), averaged over the groups, in plain PyTorch."""
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+
+    B, T, H, dk = q.shape
+    Hkv, G, U, dv = value_table.shape[1:]
+    if H % Hkv or value_table.shape[0] != B or count_table.shape != value_table.shape[:-1]:
+        raise ValueError(f"sdim_decode_attention: q {tuple(q.shape)}, value table "
+                         f"{tuple(value_table.shape)}, count table {tuple(count_table.shape)}")
+    Gq = H // Hkv
+    if normalize == "l2":
+        qk = q.float().reshape(B, T, Hkv, Gq, dk).transpose(1, 2).reshape(B * Hkv, T * Gq, dk)
+        out = sdim_query(qk.contiguous(), value_table.reshape(B * Hkv, G, U, dv), R, tau)
+        return out.reshape(B, Hkv, T, Gq, dv).transpose(1, 2).reshape(B, T, H, dv)
+    if normalize != "count":
+        raise ValueError(f"normalize {normalize!r} not in ('l2', 'count')")
+    sig_q = simhash.signatures(q, R, tau).reshape(B, T, Hkv, Gq, G)
+    onehot = F.one_hot(sig_q.long(), U).to(value_table.dtype)           # (B, T, Hkv, Gq, G, U)
+    per_group = torch.einsum("btkqgu,bkgud->btkqgd", onehot, value_table)
+    cnt = torch.einsum("btkqgu,bkgu->btkqg", onehot, count_table)
+    out = torch.mean(per_group / (cnt[..., None] + 1e-9), dim=-2)
+    return out.reshape(B, T, H, dv)

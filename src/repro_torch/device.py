@@ -12,10 +12,11 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` (default ``"cuda"``) as a ``torch.device``. Raises when
     CUDA is asked for and missing: the kernels only run on the card, and the
-    plain PyTorch versions run only for a caller that passes ``"cpu"``."""
+    plain PyTorch versions run only for a caller that passes ``"cpu"``.
+    ``"meta"`` builds a model's shapes without memory; nothing runs there."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on 'cuda' or 'cpu', not {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the port runs on 'cuda' or 'cpu' (shapes on 'meta'), not {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA was requested but torch.cuda.is_available() is False; "

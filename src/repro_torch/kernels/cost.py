@@ -5,10 +5,11 @@ the port has no compiler to ask, so each function here counts, from the
 dispatch's own arguments (those ``core/engine.py`` hands the kernel
 wrapper), the fp32 operations the kernel must do and the bytes it must
 move: each input read once, each output written once, and only the work
-this call's data needs (valid rows, present users, touched slots). The
-kernel profiler (``serve/profiler.py``) turns them into a roofline
-prediction (``distributed/roofline.py``), and ``chip_smoke.py`` phase 3
-into each kernel's bound.
+this call's data needs (valid rows, present users, touched slots, the
+table rows the candidates select). The kernel profiler
+(``serve/profiler.py``) turns them into a roofline prediction
+(``distributed/roofline.py``), and ``chip_smoke.py`` phase 3 into each
+kernel's bound.
 
 Per hashed row (behavior, event or candidate) of width d, a hash family
 R (m, d) in G = m / tau groups costs 2 m d operations for the projections
@@ -16,7 +17,7 @@ plus G d for the bucket add or read; the query's bucket read costs 3 d a
 (group, bucket) row (its l2 normalization and the sum).
 
 Each function returns ``Cost(flops, bytes)``. A count that depends on the
-data (valid rows, present users, touched slots) is a 0-dim int64 tensor on
+data (valid rows, present users, touched slots, selected rows) is a 0-dim int64 tensor on
 the data's device, computed without waiting for the device; the profiler
 reads its records' counts once, when it reports. ``settle`` reads a cost
 as two numbers.
@@ -35,6 +36,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import simhash
 from repro_torch.core.engine import serve_shards
 from repro_torch.distributed.mesh_ctx import owned
 
@@ -80,11 +82,19 @@ def encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor, *, tau: int) 
 
 
 def query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor, *, tau: int) -> Cost:
-    """``sdim_query``: q (B, C, d) fp32, table (B, G, U, d) -> (B, C, d) fp32."""
+    """``sdim_query``: q (B, C, d) fp32, table (B, G, U, d) -> (B, C, d)
+    fp32. Only the (user, group, bucket) rows the candidates hash to are
+    read and normalized: at most B·G·min(C, U) of the B·G·U."""
     B, C, d = q.shape
     G, U = table.shape[1:3]
-    return Cost(B * C * _hash_flops(R, tau) + B * G * U * 3 * d,
-                _nbytes(table) + 2 * _nbytes(q) + _nbytes(R))
+    sig = simhash.signatures(q.float(), R.float(), tau).long()              # (B, C, G)
+    rows = (torch.arange(B, device=q.device)[:, None, None] * G
+            + torch.arange(G, device=q.device)) * U + sig
+    hit = torch.zeros(B * G * U, dtype=torch.bool, device=q.device)
+    hit[rows.reshape(-1)] = True
+    n = hit.sum()
+    return Cost(B * C * _hash_flops(R, tau) + n * 3 * d,
+                n * d * table.element_size() + 2 * _nbytes(q) + _nbytes(R))
 
 
 def serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor, *,

@@ -10,6 +10,8 @@
         [--max-concurrency K] [--trace [--trace-dir DIR] \\
         [--trace-slow-ms T]] [--profile [--profile-dir DIR]] \\
         [--device cuda|cpu]
+    python -m repro_torch.launch.serve --arch qwen3-8b --tokens N [--sdim-kv] \
+        [--device cuda|cpu]
 
 Mirrors the recsys branch of ``repro/launch/serve.py``: the ``SMOKE``
 config, random weights from a seeded ``torch.Generator``, a BSE + CTR
@@ -23,8 +25,9 @@ trace report and, with ``--profile``, the measured roofline of the SDIM
 engine's dispatches and the memory ledger of the BSE store
 (``serve/profiler.py``; ``--profile-dir`` writes them as
 ``profile.json``, which ``tools/profile_report.py`` renders). ARCH is
-any id of ``configs.registry.ARCH_IDS`` (``wide-deep``, ``bst``,
-``dien``, ``bert4rec``, ``sdim-paper``); as in the reference,
+any recsys id of ``configs.registry.ARCH_IDS`` (``wide-deep``, ``bst``,
+``dien``, ``bert4rec``, ``sdim-paper``) or an LM id (below); as in the
+reference,
 ``wide-deep`` (whose fields ``CTRServer`` does not take)
 is scored by ``model.apply`` over the user's history broadcast to the
 candidates, with field ids drawn from the request stream's generator.
@@ -40,10 +43,17 @@ and prints the placement, so ``--shards 8`` runs the whole sharded path on
 one card, as eight faked host devices do for the JAX package. It holds one
 copy of each shard: the data axis is recorded, not replicated.
 
+An LM arch (``granite-3-2b``, ``qwen3-8b``, ``command-r-plus-104b``)
+mirrors the reference's LM branch: the ``SMOKE`` config with seeded random
+weights decodes ``--tokens`` tokens greedily from a zero start token, with
+an exact KV cache or, under ``--sdim-kv``, the SDIM bucket-compressed one,
+and prints the last token id. As in the reference, the BSE-store, request-
+path and profiling flags are refused for it.
+
 ``main`` is ``build`` (arguments, model, servers, profiler), ``run`` (the
-synthetic requests) and ``report`` (the printout); a caller that drives
-its own traffic, as ``chip_smoke.py`` does at FULL, calls ``build`` with
-a config and ``report`` after it.
+synthetic requests, or the LM's decode loop) and ``report`` (the
+printout); a caller that drives its own traffic, as ``chip_smoke.py`` does
+at FULL, calls ``build`` with a config and ``report`` after it.
 """
 from __future__ import annotations
 
@@ -133,6 +143,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write the profile as profile.json to this directory "
                         "(tools/profile_report.py renders it; implies --profile)")
+    p.add_argument("--tokens", type=int, default=32, help="LM decode steps")
+    p.add_argument("--sdim-kv", action="store_true",
+                   help="LM: SDIM bucket-compressed KV decode")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p
 
@@ -210,6 +223,29 @@ def _check(p: argparse.ArgumentParser, args, mode: str, tiered: bool) -> None:
         p.error(f"--trace-slow-ms must be >= 0, got {args.trace_slow_ms}")
 
 
+def _check_family(p: argparse.ArgumentParser, args, family: str, tiered: bool) -> None:
+    """The reference's refusals of the recsys-only flags for another
+    family (``repro/launch/serve.py:204-263``)."""
+    if family == "recsys":
+        return
+    tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
+    for on, msg in (
+            (args.mesh or args.shards > 1, "--shards/--mesh shard the BSE table store"),
+            (tiered, "--hot-capacity/--store-dir/--policy tier the BSE table store"),
+            (args.table_dtype != "fp32" or args.fused_serve,
+             "--table-dtype/--fused-serve configure the BSE table store"),
+            (args.async_ingest, "--async-ingest decouples the BSE write path"),
+            (args.rate_limit is not None or args.max_concurrency is not None
+             or args.cold_deadline_ms is not None,
+             "--rate-limit/--max-concurrency/--cold-deadline-ms harden the CTR request path"),
+            (tracing, "--trace/--trace-dir/--trace-slow-ms trace the CTR request path"),
+            (_profiling(args), "--profile/--profile-dir profile the SDIM serving kernels")):
+        if on:
+            p.error(f"{msg} (recsys serving only); arch {args.arch!r} is family {family!r}")
+    if args.tokens < 1:
+        p.error(f"--tokens must be >= 1, got {args.tokens}")
+
+
 def _profiling(args) -> bool:
     return args.profile or args.profile_dir is not None
 
@@ -258,8 +294,17 @@ def build(argv=None, cfg=None) -> Launch:
     args = p.parse_args(argv)
     mod = registry.get(args.arch)
     cfg = mod.SMOKE if cfg is None else cfg
-    mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
     tiered = is_tiered(args.hot_capacity, args.store_dir, args.policy, args.warm_capacity)
+    _check_family(p, args, mod.FAMILY, tiered)
+    if mod.FAMILY == "lm":
+        from repro_torch.models.lm import LMModel
+
+        device = resolve_device(args.device)
+        model = LMModel(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+        print(f"{args.arch} [lm] {cfg.name} on {device}")
+        return Launch(args, cfg, "lm", False, device, model, None)
+    mode = "decoupled" if cfg.interest.kind == "sdim" else "inline"
     tracing = args.trace or args.trace_dir is not None or args.trace_slow_ms is not None
     _check(p, args, mode, tiered)
     device = resolve_device(args.device)
@@ -296,9 +341,13 @@ def build(argv=None, cfg=None) -> Launch:
 
 def run(launch: Launch) -> None:
     """Serve ``--requests`` synthetic requests of ``--candidates`` each,
-    one by one or in micro-batches, printing each one's top candidate."""
+    one by one or in micro-batches, printing each one's top candidate; for
+    an LM arch, decode (``decode``)."""
     from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch
 
+    if launch.mode == "lm":
+        decode(launch)
+        return
     args, cfg, server = launch.args, launch.cfg, launch.server
     dcfg = SyntheticCTRConfig(hist_len=cfg.long_len, n_items=cfg.n_items,
                               n_cats=cfg.n_cats)
@@ -338,6 +387,30 @@ def run(launch: Launch) -> None:
         flush()
 
 
+@torch.no_grad()
+def decode(launch: Launch) -> int:
+    """The LM branch of the reference (``repro/launch/serve.py:461-481``):
+    ``--tokens`` greedy steps from a zero start token against an exact fp32
+    KV cache (``--tokens + 1`` rows) or, under ``--sdim-kv``, the SDIM
+    bucket tables; prints and returns the last token id."""
+    args, model = launch.args, launch.model
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=launch.device)
+    if args.sdim_kv:
+        cache = model.init_sdim_cache(1)
+        for _ in range(args.tokens):
+            logits, cache = model.sdim_decode_step(tok, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+    else:
+        cache = model.init_cache(1, args.tokens + 1, torch.float32)
+        for i in range(args.tokens):
+            logits, cache = model.decode_step(tok, cache, i)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+    last = int(tok[0, 0])
+    print(f"decoded {args.tokens} tokens "
+          f"({'SDIM-compressed' if args.sdim_kv else 'exact'} KV); last token id {last}")
+    return last
+
+
 def report(launch: Launch) -> Optional[dict]:
     """Stop async ingest (flushing it), then print its stats, ms/request,
     the tiers, admission, health, metrics, the trace report and, under
@@ -346,6 +419,8 @@ def report(launch: Launch) -> Optional[dict]:
     Returns the profile (``{"per_kernel": ..., "mem": ...}``) or None."""
     from repro_torch.serve.health import health_snapshot
 
+    if launch.mode == "lm":
+        return None
     args, server, tracer = launch.args, launch.server, launch.tracer
     mode, tiered = launch.mode, launch.tiered
     bse = server.bse

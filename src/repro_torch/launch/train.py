@@ -66,7 +66,8 @@ def main(argv=None) -> dict:
     mod = registry.get(args.arch)
     cfg = mod.FULL if args.full else mod.SMOKE
     if mod.FAMILY != "recsys":
-        raise NotImplementedError(f"family {mod.FAMILY!r} is not ported (see ROADMAP.md)")
+        raise NotImplementedError(f"training family {mod.FAMILY!r} is not ported (LM training "
+                                  f"waits for ROADMAP.md, A3b)")
     from repro_torch.models.ctr import CTRModel
 
     dev = resolve_device(args.device)

@@ -1,18 +1,45 @@
-"""Bidirectional multi-head attention of the CTR encoder blocks (BST,
-BERT4Rec).
+"""Grouped-query attention: the CTR encoder blocks' bidirectional attention
+(BST, BERT4Rec) and the dense LM family's causal attention with a KV cache.
 
-Counterpart of the parts of ``repro/nn/attention.py`` that
-``models/ctr.py``'s ``EncoderBlock`` uses: ``rope_frequencies``,
-``apply_rope``, ``masked_softmax`` and ``GQAttention.apply`` with
-``causal=False``, ``use_bias=True`` and as many key/value heads as query
-heads. As there, RoPE rotates q and k (positions ``arange(T)``) even where
-the model also adds a learned position embedding, and a masked score is
-replaced by -1e30 before an fp32 softmax, so a query whose keys are all
-masked attends uniformly to every key (a user with no recent behavior in
-BERT4Rec's front-padded window). ``scaled_dot_product_attention`` with a
-boolean mask gives NaN there, so the scores go through the plain einsum
-and softmax. The LM parts (KV caches, query chunking, MLA, grouped heads)
-belong to the LM stack, which the port has not taken up.
+Counterpart of ``repro/nn/attention.py``: ``rope_frequencies``,
+``apply_rope``, ``_causal_mask``, ``masked_softmax`` and ``GQAttention``
+(``n_kv_heads``, ``qk_norm``, ``use_bias``, ``rope_theta``, ``causal``; the
+masked ``_attend``, the query-chunked ``_attend_chunked``, ``init_cache``
+and ``decode_step``). The CTR encoder (``models/ctr.py``) builds it with the
+defaults here: bidirectional, biased, as many key/value heads as query
+heads; the LM blocks (``nn/transformer.py``) pass the reference's LM
+settings. As there, RoPE rotates q and k (positions ``arange(T)`` unless
+given) even where a model also adds a learned position embedding, and a
+masked score is replaced by -1e30 before an fp32 softmax, so a query whose
+keys are all masked attends uniformly to every key (a user with no recent
+behavior in BERT4Rec's front-padded window).
+``scaled_dot_product_attention`` with a boolean mask gives NaN there, so
+the scores go through the plain einsum and softmax.
+
+Three departures in layout, none in the function:
+
+* Each query head reads its own key/value head in place (q viewed as
+  ``(B, T, n_kv_heads, group, D)``): the reference repeats k and v to
+  ``n_heads`` heads (``jnp.repeat``), which at a 32k cache is 4 × 537 MB a
+  layer and step.
+* The cache is head-major, (B, n_kv_heads, S, D) where the reference's is
+  (B, S, n_kv_heads, D): each (b, kv head) owns a contiguous (S, D) slab,
+  so a decode step's scores and its weighted sum of values are batched
+  matrix products over B·n_kv_heads slabs, and a run of rows is a view.
+  From 2 · ``DECODE_ROW_CHUNK`` rows on, the weighted sum is split over
+  the rows (``_weighted_values``): one product over all S rows gives
+  cuBLAS a few long, thin GEMMs that it runs on a few SMs, far slower than
+  one read of the cache at 32k rows (PERF.md §6).
+* The cache is written in place (the new row at ``cache_len``) where the
+  reference returns an updated copy, and a decode step reads the cache's
+  first ``cache_len + 1`` rows only: the rows the reference masks with
+  -1e30 have a softmax weight of exactly 0. The chunked prefill reads, for
+  the query chunk ending at position p, the keys up to p, for the same
+  reason. Sums run in another order than the reference's, so results agree
+  to fp32 rounding.
+
+MLA (``MLAttention``) and the sequence-parallel decode attention wait for
+later slices (ROADMAP.md, A3b and A5).
 """
 from __future__ import annotations
 
@@ -22,7 +49,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.nn.layers import Linear
+from repro_torch.nn.layers import Linear, RMSNorm
 
 
 def rope_frequencies(head_dim: int, positions: torch.Tensor, theta: float = 10000.0):
@@ -43,6 +70,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _causal_mask(q_len: int, kv_len: int, q_offset: int = 0, device=None) -> torch.Tensor:
+    """Boolean (q_len, kv_len), True = attend: query i sits at absolute
+    position q_offset + i and sees the keys at positions <= its own."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    return torch.arange(kv_len, device=device)[None, :] <= q_pos
+
+
+DECODE_ROW_CHUNK = 1024       # cache rows a partial product of a decode step sums
+
+
+def _weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p (B, Hkv, G, n) @ v (B, Hkv, n, D) -> (B, Hkv, G, D). From two
+    chunks of ``DECODE_ROW_CHUNK`` rows on, one batched product a chunk
+    (the chunks' partial sums added, then the rows left over), so the work
+    spreads over B·Hkv·chunks GEMMs instead of B·Hkv."""
+    B, Hkv, G, n = p.shape
+    s = DECODE_ROW_CHUNK
+    c = n // s
+    if c < 2:
+        return torch.matmul(p, v)
+    m = c * s
+    out = torch.matmul(p[..., :m].reshape(B, Hkv, G, c, s).transpose(2, 3),
+                       v[:, :, :m].reshape(B, Hkv, c, s, -1)).sum(2)
+    if m < n:
+        out = out + torch.matmul(p[..., m:], v[:, :, m:])
+    return out
+
+
 def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Softmax over the last axis in fp32; where ``mask`` is False the
     score is -1e30 (a row with no True attends uniformly)."""
@@ -53,29 +108,122 @@ def masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
 
 
 class GQAttention(nn.Module):
-    """Bidirectional multi-head self-attention with biased projections
-    ``wq``, ``wk``, ``wv``, ``wo`` and RoPE (theta 10,000) on q and k."""
+    """Multi-head attention with ``n_kv_heads`` key/value heads shared by
+    groups of ``n_heads / n_kv_heads`` query heads (query head h reads
+    key/value head h // group), projections ``wq``, ``wk``, ``wv``, ``wo``,
+    optional per-head ``q_norm``/``k_norm`` (RMSNorm before RoPE) and RoPE
+    at ``rope_theta``. Causal attention over T >= 2 * ``q_chunk`` without an
+    explicit mask runs query chunk by query chunk."""
 
-    def __init__(self, d_model: int, n_heads: int, head_dim: int, *, device=None,
+    def __init__(self, d_model: int, n_heads: int, head_dim: int, *,
+                 n_kv_heads: Optional[int] = None, qk_norm: bool = False,
+                 use_bias: bool = True, rope_theta: float = 10000.0, causal: bool = False,
+                 q_chunk: int = 1024, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.n_heads, self.head_dim = n_heads, head_dim
-        inner = n_heads * head_dim
-        for name, (i, o) in (("wq", (d_model, inner)), ("wk", (d_model, inner)),
-                             ("wv", (d_model, inner)), ("wo", (inner, d_model))):
-            self.add_module(name, Linear(i, o, True, device=device, generator=generator))
+        n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
+        if n_heads % n_kv_heads:
+            raise ValueError(f"n_heads {n_heads} is not a multiple of n_kv_heads {n_kv_heads}")
+        self.n_heads, self.n_kv_heads, self.head_dim = n_heads, n_kv_heads, head_dim
+        self.rope_theta, self.causal, self.q_chunk = rope_theta, causal, q_chunk
+        kw = dict(device=device, generator=generator)
+        self.wq = Linear(d_model, n_heads * head_dim, use_bias, **kw)
+        self.wk = Linear(d_model, n_kv_heads * head_dim, use_bias, **kw)
+        self.wv = Linear(d_model, n_kv_heads * head_dim, use_bias, **kw)
+        self.wo = Linear(n_heads * head_dim, d_model, use_bias, **kw)
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.q_norm = RMSNorm(head_dim, device=device)
+            self.k_norm = RMSNorm(head_dim, device=device)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (B, T, d_model), mask (B, T, T) bool (True: attend) -> (B, T,
-        d_model)."""
+    @property
+    def n_groups(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, T, d_model), positions (B, T) -> q (B, T, H, D) and k, v
+        (B, T, Hkv, D), q and k normed (qk_norm) and rotated."""
         B, T, _ = x.shape
-        H, D = self.n_heads, self.head_dim
-        q = self.wq(x).reshape(B, T, H, D)
-        k = self.wk(x).reshape(B, T, H, D)
-        v = self.wv(x).reshape(B, T, H, D)
-        cos, sin = rope_frequencies(D, torch.arange(T, device=x.device)[None])
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(D)
-        probs = masked_softmax(scores, mask[:, None])
-        out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
-        return self.wo(out.reshape(B, T, H * D))
+        D = self.head_dim
+        q = self.wq(x).reshape(B, T, self.n_heads, D)
+        k = self.wk(x).reshape(B, T, self.n_kv_heads, D)
+        v = self.wv(x).reshape(B, T, self.n_kv_heads, D)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        cos, sin = rope_frequencies(D, positions, self.rope_theta)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def _attend(self, q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """q (B, T, H, D), k/v (B, S, Hkv, D), mask (B, T, S) or (T, S) bool
+        or None -> (B, T, H * D); each query head against its own kv head."""
+        B, T, H, D = q.shape
+        Hkv = k.shape[2]
+        qg = q.reshape(B, T, Hkv, H // Hkv, D)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) / math.sqrt(D)
+        if mask is not None:
+            mask = mask[:, None, None] if mask.ndim == 3 else mask
+        probs = masked_softmax(scores, mask)
+        out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
+        return out.reshape(B, T, H * D)
+
+    def _attend_chunked(self, q, k, v) -> torch.Tensor:
+        """Causal attention over query chunks of ``q_chunk`` rows (q
+        positions 0..T-1 against k/v of the same length): the score slab
+        is (B, H, chunk, keys up to the chunk's end), never (B, H, T, T)."""
+        B, T, H, D = q.shape
+        c = self.q_chunk
+        if T % c:
+            raise ValueError(f"chunked attention needs T % q_chunk == 0, got T {T}, "
+                             f"q_chunk {c}")
+        outs = []
+        for i in range(T // c):
+            end = (i + 1) * c
+            mask = _causal_mask(c, end, i * c, device=q.device)
+            outs.append(self._attend(q[:, i * c:end], k[:, :end], v[:, :end], mask))
+        return torch.cat(outs, dim=1)
+
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention. x (B, T, d_model); positions (B, T)
+        (default ``arange(T)``); mask (B, T, T) bool, True: attend (default
+        causal where ``causal``) -> (B, T, d_model)."""
+        B, T, _ = x.shape
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None]
+        q, k, v = self.qkv(x, positions)
+        if mask is None and self.causal and T >= 2 * self.q_chunk:
+            out = self._attend_chunked(q, k, v)
+        else:
+            if mask is None and self.causal:
+                mask = _causal_mask(T, T, device=x.device)
+            out = self._attend(q, k, v, mask)
+        return self.wo(out)
+
+    # -- serving ------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """Zero k and v caches (batch, n_kv_heads, max_len, head_dim)."""
+        shape = (batch, self.n_kv_heads, max_len, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def decode_step(self, x: torch.Tensor, cache: dict, cache_len: int):
+        """x (B, 1, d_model) at position ``cache_len``, where ``cache`` holds
+        ``cache_len`` valid rows. Writes the new key and value into row
+        ``cache_len`` of ``cache`` in place; returns (out (B, 1, d_model),
+        cache). Each kv head's query heads attend to its first
+        ``cache_len + 1`` rows: scores (B, Hkv, group, n) and their
+        weighted sum of values (``_weighted_values``), batched products
+        over the (n, D) slabs."""
+        B, Hkv, S, D = cache["k"].shape
+        if not 0 <= cache_len < S:
+            raise ValueError(f"decode at position {cache_len} of a cache of {S} rows")
+        positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = self.qkv(x, positions)
+        cache["k"][:, :, cache_len] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, :, cache_len] = v_new[:, 0].to(cache["v"].dtype)
+        n = cache_len + 1
+        k, v = cache["k"][:, :, :n], cache["v"][:, :, :n]
+        qg = q.reshape(B, Hkv, self.n_groups, D).float()
+        scores = torch.matmul(qg, k.float().transpose(-1, -2)) / math.sqrt(D)
+        out = _weighted_values(masked_softmax(scores, None).to(v.dtype), v)   # (B, Hkv, group, D)
+        return self.wo(out.reshape(B, 1, self.n_heads * D)), cache

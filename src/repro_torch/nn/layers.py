@@ -1,4 +1,5 @@
-"""Dense layers: Linear, LayerNorm, Embedding, MLP as ``nn.Module``s.
+"""Dense layers: Linear, LayerNorm, RMSNorm, Embedding, MLP, GatedMLP as
+``nn.Module``s.
 
 Counterpart of ``repro/nn/layers.py``. Initialisation follows the JAX
 package's distributions (Linear: LeCun normal truncated at ±2σ, zero bias;
@@ -30,6 +31,7 @@ ACTIVATIONS = {
     "relu": F.relu,
     # jax.nn.gelu defaults to the tanh approximation; PyTorch's to erf
     "gelu": partial(F.gelu, approximate="tanh"),
+    "silu": F.silu,
     "identity": lambda x: x,
 }
 
@@ -61,6 +63,22 @@ class LayerNorm(nn.Module):
         mu = xf.mean(-1, keepdim=True)
         var = torch.square(xf - mu).mean(-1, keepdim=True)
         return ((xf - mu) * torch.rsqrt(var + 1e-5) * self.scale + self.bias).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """x / sqrt(mean(x²) + eps) · ``scale`` (ones) over the last axis,
+    computed in fp32 and cast back to the input's dtype, eps 1e-6, as the
+    JAX package's ``RMSNorm``."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        ms = torch.square(xf).mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + self.eps) * self.scale).to(x.dtype)
 
 
 class _EmbeddingFn(torch.autograd.Function):
@@ -101,6 +119,10 @@ class Embedding(nn.Embedding):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return embedding(ids, self.weight)
 
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits: x (..., dim) @ table.T -> (..., vocab)."""
+        return F.linear(x, self.weight)
+
 
 class MLP(nn.Module):
     """Linear layers ``fc0``, ``fc1``, … with ``activation`` between them."""
@@ -123,3 +145,20 @@ class MLP(nn.Module):
             if i < self.n_layers - 1:
                 x = self.act(x)
         return self.final_act(x)
+
+
+class GatedMLP(nn.Module):
+    """The LM family's SwiGLU/GeGLU FFN: ``wo(act(wi_gate x) * wi_up x)``."""
+
+    def __init__(self, d_model: int, d_ff: int, activation: str = "silu",
+                 use_bias: bool = False, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.wi_gate = Linear(d_model, d_ff, use_bias, **kw)
+        self.wi_up = Linear(d_model, d_ff, use_bias, **kw)
+        self.wo = Linear(d_ff, d_model, use_bias, **kw)
+        self.act = ACTIVATIONS[activation]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.wo(self.act(self.wi_gate(x)) * self.wi_up(x))

@@ -17,6 +17,16 @@ transposed; the GRU matrices keep the JAX layout. ``export_params`` is the
 inverse of ``load_jax_params``; with ``grad=True`` it exports the
 parameters' gradients in the same tree (zeros for R, a buffer, as
 ``jax.grad`` gives it), so tests compare whole gradient trees.
+
+``load_jax_lm_params`` / ``export_lm_params`` do the same for
+``repro.models.lm.LMModel.init``'s pytree and the port's ``LMModel``:
+``embed.table``, ``final_norm.{scale[,bias]}``, ``lm_head.w`` (untied
+embeddings only) and ``stack.{ln1,ln2}.{scale[,bias]}``,
+``stack.attn.{wq,wk,wv,wo}.{w[,b]}``, ``stack.attn.{q_norm,k_norm}.scale``
+(qk_norm) and ``stack.ffn.{wi_gate,wi_up,wo}.{w[,b]}``, whose leaves carry
+a leading n_layers axis (the reference's vmapped init), row i for block i.
+The hash matrix R is no parameter there (``LMModel._sdim_R`` draws it from
+``PRNGKey(1234)``), so the loader takes it beside the tree.
 """
 from __future__ import annotations
 
@@ -134,4 +144,80 @@ def export_params(model: CTRModel, grad: bool = False) -> dict:
         node[leaf] = arr(t, row, transpose)    # R, a buffer, has no .grad: zeros
     if "blocks" in tree:                       # the reference keeps the blocks in a list
         tree["blocks"] = [tree["blocks"][str(j)] for j in range(len(tree["blocks"]))]
+    return tree
+
+
+def _lm_leaves(model) -> dict:
+    """Every parameter of an ``LMModel`` by its path in the reference's
+    tree -> (tensor, or one tensor a layer for the stack's leaves;
+    transposed there)."""
+    out = {"embed.table": (model.embed.weight, False)}
+    for name in ("scale", "bias"):
+        if hasattr(model.final_norm, name):
+            out[f"final_norm.{name}"] = (getattr(model.final_norm, name), False)
+    if not model.cfg.tie_embeddings:
+        out["lm_head.w"] = (model.lm_head.weight, True)
+    per_layer: dict = {}
+    for block in model.stack:
+        leaves = {}
+        for ln in ("ln1", "ln2"):
+            for name in ("scale", "bias"):
+                if hasattr(getattr(block, ln), name):
+                    leaves[f"{ln}.{name}"] = (getattr(getattr(block, ln), name), False)
+        for path, mod in (("attn", block.attn), ("ffn", block.ffn)):
+            names = ("wq", "wk", "wv", "wo") if path == "attn" else ("wi_gate", "wi_up", "wo")
+            for name in names:
+                lin = getattr(mod, name)
+                leaves[f"{path}.{name}.w"] = (lin.weight, True)
+                if lin.bias is not None:
+                    leaves[f"{path}.{name}.b"] = (lin.bias, False)
+        if block.attn.qk_norm:
+            leaves["attn.q_norm.scale"] = (block.attn.q_norm.scale, False)
+            leaves["attn.k_norm.scale"] = (block.attn.k_norm.scale, False)
+        for path, (t, transpose) in leaves.items():
+            per_layer.setdefault(f"stack.{path}", ([], transpose))[0].append(t)
+    out.update(per_layer)
+    return out
+
+
+@torch.no_grad()
+def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
+    """Copy ``params_np`` (the reference's LM params as numpy arrays) and
+    the hash matrix ``R`` (sdim_m, head_dim) into ``model`` in place;
+    returns the model. Raises where a leaf is missing, does not fit, or the
+    tree holds leaves the model does not."""
+    leaves = _lm_leaves(model)
+    for path, (t, transpose) in leaves.items():
+        src = np.asarray(_get(params_np, path))
+        if isinstance(t, list):
+            if src.shape[0] != len(t):
+                raise ValueError(f"{path}: {src.shape[0]} layers for a stack of {len(t)}")
+            for i, ti in enumerate(t):
+                _copy(ti, src[i].T if transpose else src[i], f"{path}[{i}]")
+        else:
+            _copy(t, src.T if transpose else src, path)
+    if _n_leaves(params_np) != len(leaves):
+        raise ValueError(f"params hold {_n_leaves(params_np)} leaves, the model "
+                         f"{len(leaves)}")
+    _copy(model.R, R, "R")
+    model.R64.copy_(model.R)
+    return model
+
+
+def export_lm_params(model) -> dict:
+    """The reference's params pytree of an ``LMModel`` as numpy arrays
+    (copies; the stack's leaves stacked on a leading n_layers axis), the
+    inverse of ``load_jax_lm_params``. R is not in it."""
+    def arr(t: torch.Tensor, transpose: bool) -> np.ndarray:
+        x = t.detach().float().cpu().numpy()
+        return np.array(x.T if transpose else x, order="C")
+
+    tree: dict = {}
+    for path, (t, transpose) in _lm_leaves(model).items():
+        *keys, leaf = path.split(".")
+        node = tree
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[leaf] = (np.stack([arr(ti, transpose) for ti in t]) if isinstance(t, list)
+                      else arr(t, transpose))
     return tree

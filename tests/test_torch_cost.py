@@ -27,10 +27,24 @@ def test_encode_counts_valid_rows_only():
 
 
 def test_query_counts_every_candidate_and_table_row():
-    c = cost.query(Q, torch.zeros((2, 3, 4, 8), dtype=torch.bfloat16), R, tau=TAU)
-    # 6 candidates hashed, 24 table rows normalized and summed (3 d each);
-    # the bf16 tables, q read and the output written, R
-    assert c == (6 * 120 + 24 * 3 * 8, 2 * 96 * 2 + 2 * 192 + 192)
+    c = cost.settle(cost.query(Q, torch.zeros((2, 3, 4, 8), dtype=torch.bfloat16), R, tau=TAU))
+    # 6 candidates hashed; every projection is 0, so each candidate selects
+    # bucket 2^tau - 1 of each group: 2 x 3 of the 24 table rows read (bf16)
+    # and normalized and summed (3 d each); q read and the output written, R
+    assert c == (6 * 120 + 6 * 3 * 8, 6 * 8 * 2 + 2 * 192 + 192)
+
+
+def test_query_counts_only_the_rows_its_candidates_select():
+    """R's rows pick q's first six coordinates, so a candidate's signs there
+    set its bucket in each of the 3 groups. User 0's three candidates are
+    one vector (3 rows); user 1's are all +, all - and (+, -) per group,
+    three buckets in every group (9 rows)."""
+    Rp = torch.eye(6, 8)
+    signs = torch.tensor([[1., 1., 1., 1., 1., 1.]] * 3
+                         + [[1., 1., 1., 1., 1., 1.], [-1.] * 6, [1., -1.] * 3])
+    q = torch.cat([signs, torch.ones(6, 2)], 1).reshape(2, 3, 8)
+    c = cost.settle(cost.query(q, torch.zeros((2, 3, 4, 8)), Rp, tau=TAU))
+    assert c == (6 * 120 + 12 * 3 * 8, 12 * 8 * 4 + 2 * 192 + 192)
 
 
 def test_serve_counts_rows_candidates_and_the_table_in_shared_memory():

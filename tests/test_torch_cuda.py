@@ -1122,3 +1122,128 @@ def test_embedding_backward_on_card_is_deterministic(vocab, dev):
     wc = w.detach().cpu().requires_grad_()
     (embedding(ids.cpu(), wc) * dout.cpu()).sum().backward()
     torch.testing.assert_close(grads[0].cpu(), wc.grad, atol=1e-4, rtol=1e-5)
+
+
+# the SDIM-KV read of LM decode: kernel 4 with one table row per (b, kv
+# head) and that head's query heads as the candidates (B*Hkv, Gq, head_dim)
+LM_LAYOUTS = [  # (B, Hkv, Gq, head_dim, S)
+    (1, 8, 4, 128, 256),      # qwen3-8b
+    (4, 8, 4, 128, 64),
+    (2, 8, 4, 64, 64),        # granite-3-2b
+    (1, 8, 12, 128, 64),      # command-r-plus-104b
+]
+# numpy seed per LM arch at SMOKE (weights, R and tokens; ``_numpy_lm``):
+# every key and query the CPU run hashes over 8 tokens (B = 2) clears 1e-4
+# (asserted)
+LM_CARD_SEEDS = {"granite-3-2b": 24, "qwen3-8b": 23, "command-r-plus-104b": 29}
+
+
+@torch.no_grad()
+def _numpy_lm(model, seed: int):
+    """Redraw every matrix of an LM and its R from numpy's generator, whose
+    numbers do not depend on the torch build: N(0, 1/fan_in) for
+    projections, N(0, 0.02²) for the embedding, N(0, 1) for R; norm scales
+    stay ones."""
+    rng = np.random.default_rng(seed)
+    for name, p in model.named_parameters():
+        if p.ndim == 2:
+            std = 0.02 if name.startswith("embed") else 1 / np.sqrt(p.shape[1])
+            p.copy_(torch.from_numpy((rng.standard_normal(p.shape) * std).astype(np.float32)))
+    model.R.copy_(torch.from_numpy(rng.standard_normal(model.R.shape).astype(np.float32)))
+    model.R64.copy_(model.R)
+    return rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LM_LAYOUTS)
+def test_sdim_query_at_the_lm_decode_layout(layout, dev):
+    """Kernel 4 against its plain version on tables folded from screened
+    keys (``core/sdim.kv_bucket_table``), through ``sdim_decode_attention``
+    (the kernel layout) against the tables repeated per query head on the
+    plain version; the same bits on two launches."""
+    from repro_torch.core import sdim
+
+    B, Hkv, Gq, d, S = layout
+    m, tau = 48, 3
+    rng = np.random.default_rng(S + d)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    k = torch.from_numpy(screened_normal(rng, (B, S, Hkv, d), R)).to(dev)
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(screened_normal(rng, (B, 1, Hkv * Gq, d), R)).to(dev)
+    Rt = torch.from_numpy(R).to(dev)
+    vt, ct = sdim.kv_bucket_table(k, v, None, Rt, tau)
+    before = sdim_query.launches
+    out = sdim.sdim_decode_attention(q, vt, ct, Rt, tau)
+    torch.cuda.synchronize()
+    assert sdim_query.launches == before + 1 and out.shape == (B, 1, Hkv * Gq, d)
+    qk = q.reshape(B, Hkv, Gq, d).reshape(B * Hkv, Gq, d).contiguous()
+    table = vt.reshape(B * Hkv, m // tau, 1 << tau, d)
+    torch.testing.assert_close(sdim_query(qk, table, Rt, tau),
+                               sdim_query_ref(qk, table, Rt, tau), **FP32)
+    assert torch.equal(sdim_query(qk, table, Rt, tau), sdim_query(qk, table, Rt, tau))
+    rep = vt.repeat_interleave(Gq, dim=1).reshape(B * Hkv * Gq, m // tau, 1 << tau, d)
+    want = sdim_query_ref(q.reshape(B * Hkv * Gq, 1, d), rep, Rt, tau)
+    torch.testing.assert_close(out.reshape(-1, 1, d), want, **FP32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", list(LM_CARD_SEEDS))
+def test_lm_smoke_decode_on_the_card_matches_the_cpu(arch_id, dev, monkeypatch):
+    """An LM arch at SMOKE (weights and R from numpy, the same on both
+    devices): 8 tokens (B = 2) of exact and SDIM-compressed decode on
+    the card against the CPU, logits within 1e-4 at every step, caches
+    within FP32, the count tables equal; the card's SDIM path launches
+    sdim_query once a layer and step."""
+    from repro_torch.configs import registry
+    from repro_torch.core import sdim
+    from repro_torch.kernels.screen import clears_margin
+    from repro_torch.models.lm import LMModel
+
+    seed = LM_CARD_SEEDS[arch_id]
+    cfg = registry.get(arch_id).SMOKE
+    cpu = LMModel(cfg, device="cpu")
+    rng = _numpy_lm(cpu, seed)
+    card = LMModel(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))
+    hashed = []
+    fold, attend = sdim.kv_bucket_fold, sdim.sdim_decode_attention
+
+    def rec_fold(vt, ct, k, v, R, tau):
+        if k.device.type == "cpu":
+            hashed.append(k.numpy().reshape(-1, k.shape[-1]))
+        fold(vt, ct, k, v, R, tau)
+
+    def rec_attend(q, *args, **kw):
+        if q.device.type == "cpu":
+            hashed.append(q.numpy().reshape(-1, q.shape[-1]))
+        return attend(q, *args, **kw)
+
+    monkeypatch.setattr(sdim, "kv_bucket_fold", rec_fold)
+    monkeypatch.setattr(sdim, "sdim_decode_attention", rec_attend)
+    runs = {}
+    with torch.no_grad():
+        for name, model in (("cpu", cpu), ("card", card)):
+            t = toks.to(model.device)
+            cache, scache = model.init_cache(2, 8, torch.float32), model.init_sdim_cache(2)
+            logits, slogits = [], []
+            before = sdim_query.launches
+            for i in range(8):
+                logits.append(model.decode_step(t[:, i:i + 1], cache, i)[0].cpu())
+                slogits.append(model.sdim_decode_step(t[:, i:i + 1], scache)[0].cpu())
+            runs[name] = (logits, slogits, cache, scache, sdim_query.launches - before)
+    assert clears_margin(np.concatenate(hashed), cpu.R.numpy(), 1e-4).all()
+    assert clears_margin(runs["cpu"][2]["stack"]["k"].reshape(-1, cfg.head_dim).numpy(),
+                         cpu.R.numpy(), 1e-4).all()
+    (lc, sc, cc, scc, _), (lg, sg, cg, scg, launched) = runs["cpu"], runs["card"]
+    for i in range(8):
+        torch.testing.assert_close(lg[i], lc[i], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(sg[i], sc[i], atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cg["stack"][name].cpu(), cc["stack"][name], **FP32)
+    assert torch.equal(scg["ct"].cpu(), scc["ct"])
+    torch.testing.assert_close(scg["vt"].cpu(), scc["vt"], **FP32)
+    assert launched == 8 * cfg.n_layers
+    enc = card.encode_sdim_cache_from_kv(cg)
+    assert torch.equal(enc["ct"], card.encode_sdim_cache_from_kv(cg)["ct"])
+    assert torch.equal(enc["vt"], card.encode_sdim_cache_from_kv(cg)["vt"])
