@@ -207,36 +207,67 @@ Phases, each of which raises (exit code != 0) when it fails:
    next-token overlap and top-10 overlap are printed (an approximation: no
    limit); (d) sdim_query at the path's call, (8 kv heads, 4 query heads,
    128) against the last layer's table, held against its plain version
-   (FP32), the same bits twice, timed beside its plain version and bound
-   (the ``lm`` entry of sdim_query's JSON); (e) ms/token (host clock to
+   (FP32), the same bits twice, timed beside its plain version and bound,
+   with the kernel's per-launch device times warm and cold (the ``lm``
+   entry of sdim_query's JSON); (e) ms/token (host clock to
    ``.item()``, median of 16 after 4 warm-ups) of exact decode at cache_len
    1,024 and 32,767 of a 32,768-row cache of random values and of SDIM
    decode, each beside its bound (every weight read once but the token
    embedding, of which one row, and the cache read, over 3.35 TB/s) and one
    step of each under torch.profiler (device-busy share, top five ops);
    the cache bytes of both paths; the card's name and power limit.
+14. MoE and latent attention path — ``deepseek-moe-16b`` FULL (28 layers,
+   16,375,728,128 parameters, fp32) and ``deepseek-v2-236b`` at full width
+   cut to 2 layers (its first dense block and one MoE layer with MLA,
+   5,358,679,040 parameters), one after the other on the card freed by
+   phase 13, each built from the port's init (seed 0), B = 1: (a) a prefill
+   of 2,048 random tokens on the chunked path against the masked path
+   (LM_TOL); (b) 64 tokens of exact decode against the forward pass over
+   the same tokens within 1e-5 of the largest |logit|, every MoELayer's
+   capacity_factor set to n_experts / top_k for this check only (at the
+   default the forward's experts would drop tokens that single-token steps
+   never drop); (c) the same tokens through ``sdim_decode_step``: finite
+   logits, the overlap with exact printed, sdim_query launched once a
+   scanned layer and token (27 and 1; for MLA on its wide path, the latent
+   being 512 wide), and the first scanned layer's count table equal to the
+   offline encode of an exact cache decoded with the dense block's output
+   projections zeroed (the SDIM path skips the dense blocks, fault C6 of
+   the reference: only then does that layer see the same inputs on both
+   paths), its value table within 1e-4; (d) sdim_query at each arch's call
+   against the first scanned layer's table on screened queries, as phase
+   13's (d): deepseek-moe-16b's (16 kv heads, 1 query head, 128) on the
+   fused body (the ``moe`` entry of sdim_query's JSON), deepseek-v2's (1,
+   128, 512) on the wide path and at B = 8 against random tables (the
+   ``mla`` entry); (e) ms/token and host issue
+   time of exact decode at cache_len 1,024 and of SDIM decode, one profiled
+   step of each, peak memory, and each step's bound: every weight read once
+   but the unread embedding rows (the MoE runs every expert over its
+   capacity buffer, as the reference), plus the cache read, over 3.35 TB/s.
+   Prints the phase's wall time.
 
-Every launch count is set to 0 just before each of phases 4-13 and read
+Every launch count is set to 0 just before each of phases 4-14 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
 phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 10 all nine; phase 11 bse_encode, sdim_update and sdim_fused_serve; phase
 12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve;
-phase 13 sdim_query).
+phases 13 and 14 sdim_query; phase 14's counts are read after each
+arch's SDIM decode and summed, so they count decode tokens only, as
+phase 13's).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
 only serves as a comparison (phase 9's and 12's synchronous references
 and restored servers, phase 10's fp32-wire server, phase 12's
-single-device servers, phase 13's kernel check) are not counted. After the
+single-device servers, phase 13's and 14's kernel checks) are not counted. After the
 counts are read, each of phases 4-7 runs one more steady burst
 or step under ``torch.profiler`` and prints the device-busy share of its
 wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
-11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``), then as
-the last line
+11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
+as ``moe_mla``), then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -312,6 +343,16 @@ LM_CACHE_LENS = (1024, 32767)
 LM_TIMED, LM_WARM, LM_TOL = 16, 4, 1e-4
 LM_PARAMS = 8_190_735_360
 HBM = 3.35e12
+# phase 14: deepseek-moe-16b FULL and deepseek-v2-236b at full width cut to
+# MOE_V2_LAYERS layers (each arch's parameter count in MOE_PARAMS): an
+# LM_PREFILL-token prefill, MOE_DECODE tokens of exact and SDIM decode,
+# ms/token of exact decode at cache_len MOE_CACHE_LEN and of SDIM decode;
+# exact decode against the forward within MOE_TOL of the largest |logit|
+MOE_DECODE, MOE_CACHE_LEN, MOE_V2_LAYERS, MOE_TOL = 64, 1024, 2, 1e-5
+MOE_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "deepseek-v2-236b": 5_358_679_040}
+# the widest table row (at m = 48, tau = 3) whose sdim_query fits
+# fused_query.cuh's shared memory on the H100; wider rows take the wide path
+FUSED_MAX_D = 256
 
 
 def card_line() -> str:
@@ -369,6 +410,85 @@ def same_bits(name, fn) -> None:
     """Two launches on the same inputs must agree bit for bit."""
     if not fn().equal(fn()):
         raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
+def kernel_spread(torch, fn, n: int = 20) -> dict:
+    """Per-launch device times of the sdim_query kernel that fn launches,
+    warm (calls back to back) and cold (each call after a 128 MB write,
+    more than the card's 50 MB L2), n calls each under torch.profiler:
+    ``ms`` [min, median, max] over the kernel events recorded, ``seen`` of
+    ``n`` how many it recorded, ``per_call`` every device event's time over
+    n (``device_ms``'s figure; the flush's too when cold)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    out = {}
+    for label, before in (("warm", lambda: None), ("cold", flush.zero_)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                before()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ms = sorted((e.time_range.end - e.time_range.start) / 1e3 for e in dev
+                    if "query_kernel" in e.name)
+        out[label] = dict(ms=[ms[0], ms[len(ms) // 2], ms[-1]] if ms else None, seen=len(ms),
+                          of=n, per_call=sum(e.time_range.end - e.time_range.start
+                                             for e in dev) / n / 1e3)
+    return out
+
+
+def query_at_call(torch, label, q, table, R, tau, extra=()) -> dict:
+    """sdim_query at a path's call: q (B, C, d) against table (B, G, U, d)
+    within FP32 of its plain version with the same bits twice (and on each
+    (name, q, table) of ``extra``), timed beside its plain version and its
+    bound (the rows its queries select), with the kernel's device times:
+    under torch.profiler, and ``back_to_back_ms``, CUDA events around 200
+    launches in a row over 200 (the kernel's time where it outlasts the
+    host's issue of a launch)."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+
+    d = table.shape[-1]
+    with uncounted():
+        err = 0.0
+        for name, qq, tt in ((str(tuple(q.shape)), q, table), *extra):
+            err = max(err, check_close(f"sdim_query {label} {name}", sdim_query(qq, tt, R, tau),
+                                       sdim_query_ref(qq, tt, R, tau), **FP32))
+            same_bits(f"sdim_query {label} {name}", partial(sdim_query, qq, tt, R, tau))
+        kernel, plain = (partial(sdim_query, q, table, R, tau),
+                         partial(sdim_query_ref, q, table, R, tau))
+        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        c = cost.settle(cost.query(q, table, R, tau=tau))
+        bound_ms, bound_by = bound(c)
+        kernel()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(200):
+            kernel()
+        b.record()
+        b.synchronize()
+        sel_rows = ((c.bytes - 2 * q.numel() * 4 - R.numel() * 4)
+                    / (d * table.element_size()))
+        kq = dict(shape=list(q.shape), table=list(table.shape),
+                  path="wide" if d > FUSED_MAX_D else "fused", max_abs_err=err,
+                  ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None, device_ms=device_ms(kernel),
+                  plain_device_ms=device_ms(plain), device_spread=kernel_spread(torch, kernel),
+                  back_to_back_ms=a.elapsed_time(b) / 200)
+    print(f"{label} (d) sdim_query {tuple(q.shape)} x table {tuple(table.shape)} on its "
+          f"{kq['path']} path: {kq['ms']:.4f} ms, plain {kq['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}; the {int(sel_rows)} of "
+          f"{table.shape[0] * table.shape[1] * table.shape[2]} table rows its queries "
+          f"select), {kq['ms'] / bound_ms:.0f}x the bound; device {kq['device_ms']} / plain "
+          f"{kq['plain_device_ms']} ms; back to back {kq['back_to_back_ms']:.4f} ms a "
+          f"launch; the kernel's launches under the profiler "
+          f"{json.dumps(kq['device_spread'])}; max abs err {err:.3g}"
+          f"{''.join(f', also at {name}' for name, *_ in extra)}; the same bits twice")
+    return kq
 
 
 def bound(c) -> tuple[float, str]:
@@ -2562,14 +2682,23 @@ def token_ms(step) -> dict:
                 issue_ms=statistics.median(issue))
 
 
-def logits_close(torch, name, got, want) -> float:
-    """max |got - want| / max |want|; fails above LM_TOL or where not finite."""
+def logits_close(torch, name, got, want, tol=LM_TOL) -> float:
+    """max |got - want| / max |want|; fails above ``tol`` or where not finite."""
     rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
-    if not bool(torch.isfinite(got).all()) or not rel <= LM_TOL:
+    if not bool(torch.isfinite(got).all()) or not rel <= tol:
         raise AssertionError(f"lm {name}: logits differ by {rel:.3g} of the largest "
-                             f"(limit {LM_TOL})")
-    print(f"lm {name}: max |d logit| / max |logit| = {rel:.3g} (limit {LM_TOL})")
+                             f"(limit {tol})")
+    print(f"lm {name}: max |d logit| / max |logit| = {rel:.3g} (limit {tol})")
     return rel
+
+
+def next_token_overlap(torch, exact, compressed) -> tuple:
+    """The overlap of the last next-token distributions of the exact and
+    SDIM paths, and of their top 10 (an approximation: no limit)."""
+    pe, ps = torch.softmax(exact[-1], -1), torch.softmax(compressed[-1], -1)
+    top10 = len(set(torch.topk(pe, 10).indices.tolist())
+                & set(torch.topk(ps, 10).indices.tolist()))
+    return float(torch.minimum(pe, ps).sum()), top10
 
 
 def exact_layouts(torch, cache, g, Gq: int, layer_row_bytes: int) -> dict:
@@ -2633,9 +2762,7 @@ def lm_phase(torch, dev, wrappers):
     the path's launch counts and sdim_query's timing at the LM shape."""
     import gc
     from repro_torch.configs import qwen3_8b
-    from repro_torch.kernels import cost
     from repro_torch.kernels.screen import screened_normal
-    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
     from repro_torch.models.lm import LMModel
 
     gc.collect()
@@ -2696,10 +2823,7 @@ def lm_phase(torch, dev, wrappers):
         vt_err = float((sc["vt"][0] - enc["vt"][0]).abs().max())
         if not vt_err <= 1e-4:
             raise AssertionError(f"lm (c): layer 0's value table differs by {vt_err:.3g}")
-        pe, ps = torch.softmax(exact[-1], -1), torch.softmax(compressed[-1], -1)
-        overlap = float(torch.minimum(pe, ps).sum())
-        top10 = len(set(torch.topk(pe, 10).indices.tolist())
-                    & set(torch.topk(ps, 10).indices.tolist()))
+        overlap, top10 = next_token_overlap(torch, exact, compressed)
         print(f"lm (c) SDIM decode of {LM_DECODE} tokens: finite; layer 0 count table equals "
               f"the offline encode ({int(sc['ct'][0].sum())} keys), value table within "
               f"{vt_err:.3g}; next-token overlap exact vs SDIM {overlap:.4f}, top-10 overlap "
@@ -2711,30 +2835,12 @@ def lm_phase(torch, dev, wrappers):
 
     # (d) kernel 4 at the path's call: (B * Hkv, Gq, head_dim) against the
     # last layer's table, on screened queries
-    Rn = model.R.cpu().numpy()
     Gq = cfg.n_heads // cfg.n_kv_heads
     q = torch.from_numpy(screened_normal(np.random.default_rng(13), (cfg.n_kv_heads, Gq,
-                                                                     cfg.head_dim), Rn)).to(dev)
+                                                                     cfg.head_dim),
+                                         model.R.cpu().numpy())).to(dev)
     table = sc["vt"][-1].reshape(cfg.n_kv_heads, *sc["vt"].shape[3:]).contiguous()
-    tau = cfg.sdim_tau
-    with uncounted():
-        err = check_close(f"sdim_query lm {tuple(q.shape)}", sdim_query(q, table, model.R, tau),
-                          sdim_query_ref(q, table, model.R, tau), **FP32)
-        same_bits("sdim_query lm", partial(sdim_query, q, table, model.R, tau))
-        kernel, plain = (partial(sdim_query, q, table, model.R, tau),
-                         partial(sdim_query_ref, q, table, model.R, tau))
-        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
-        c = cost.settle(cost.query(q, table, model.R, tau=tau))
-        bound_ms, bound_by = bound(c)
-        sel_rows = (c.bytes - 2 * q.numel() * 4 - model.R.numel() * 4) / (cfg.head_dim * 4)
-        kq = dict(shape=list(q.shape), table=list(table.shape), max_abs_err=err,
-                  ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
-                  device_ms=device_ms(kernel), plain_device_ms=device_ms(plain))
-    print(f"lm (d) sdim_query {tuple(q.shape)} x table {tuple(table.shape)}: {kq['ms']:.4f} ms, "
-          f"plain {kq['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; the "
-          f"{int(sel_rows)} of {table.shape[0] * table.shape[1] * table.shape[2]} table rows "
-          f"its queries select), {kq['ms'] / bound_ms:.0f}x the bound; device "
-          f"{kq['device_ms']} / plain {kq['plain_device_ms']} ms; max abs err {err:.3g}")
+    kq = query_at_call(torch, "lm", q, table, model.R, cfg.sdim_tau)
 
     # (e) ms/token: exact at each cache length of an LM_MAX_LEN-row cache of
     # random values, and SDIM; each beside its bound (bytes: every weight
@@ -2784,6 +2890,204 @@ def lm_phase(torch, dev, wrappers):
     del model, cache, sc
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, kq
+
+
+def set_capacity_factor(model, factor) -> None:
+    """Every MoELayer's capacity factor (None: each one's n_experts / top_k,
+    the factor at which no expert can drop a token)."""
+    from repro_torch.nn.moe import MoELayer
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            m.capacity_factor = m.n_experts / m.top_k if factor is None else factor
+
+
+def cache_row_bytes(cfg) -> int:
+    """Bytes of one position's exact cache over every layer (fp32)."""
+    per_layer = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.attention == "mla"
+                 else 2 * cfg.n_kv_heads * cfg.head_dim)
+    return 4 * cfg.n_layers * per_layer
+
+
+def moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g) -> tuple[dict, dict]:
+    """Phase 14 for one arch (module docstring, (a)-(e)); returns its
+    checks and timings, with sdim_query's at its call under ``kq``, and the
+    launch counts of its path, read after its SDIM decode."""
+    import gc
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.models.lm import LMModel
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"moe_mla {arch_id} ({cfg.n_layers} layers, first_k_dense {cfg.first_k_dense}, "
+          f"{cfg.attention}, {cfg.moe['n_experts']} experts top-{cfg.moe['top_k']}): init "
+          f"{time.perf_counter() - t0:.2f} s, {n_params:,} parameters "
+          f"({4 * n_params / 2**30:.2f} GiB fp32)")
+    if n_params != MOE_PARAMS[arch_id]:
+        raise AssertionError(f"moe_mla: {arch_id} has {n_params} parameters, not "
+                             f"{MOE_PARAMS[arch_id]}")
+    blocks = [*model.dense_blocks, *model.stack]
+    tokens = torch.randint(0, cfg.vocab, (1, LM_PREFILL), generator=g, device=dev)
+    out = {}
+    reset(wrappers)
+    with torch.no_grad():
+        # (a) the chunked prefill (T >= 2 * q_chunk) against the masked path
+        for label, q_chunk in (("chunked", 1024), ("masked", LM_PREFILL + 1)):
+            for block in blocks:
+                block.attn.q_chunk = q_chunk
+            t0 = time.perf_counter()
+            logits = model.prefill(tokens)
+            torch.cuda.synchronize()
+            print(f"moe_mla {arch_id} prefill {LM_PREFILL} tokens, {label} path: "
+                  f"{time.perf_counter() - t0:.3f} s")
+            if label == "chunked":
+                chunked = logits
+        out["prefill_rel"] = logits_close(torch, f"{arch_id} (a) prefill chunked vs masked",
+                                          chunked, logits)
+        for block in blocks:
+            block.attn.q_chunk = 1024
+        # (b) exact decode against the forward, no expert dropping a token
+        toks = tokens[:, :MOE_DECODE]
+        cache = model.init_cache(1, MOE_DECODE, torch.float32)
+        exact = torch.cat([model.decode_step(toks[:, i:i + 1], cache, i)[0][0]
+                           for i in range(MOE_DECODE)])
+        set_capacity_factor(model, None)
+        hidden, aux = model(toks)
+        set_capacity_factor(model, 1.25)
+        out["decode_rel"] = logits_close(
+            torch, f"{arch_id} (b) exact decode of {MOE_DECODE} tokens vs their forward "
+            f"(capacity factor n_experts / top_k)", exact, model._logits(hidden)[0], MOE_TOL)
+        del hidden, cache
+        # (c) the same tokens through the SDIM-compressed KV
+        before = sdim_query.launches
+        sc = model.init_sdim_cache(1)
+        compressed = torch.cat([model.sdim_decode_step(toks[:, i:i + 1], sc)[0][0]
+                                for i in range(MOE_DECODE)])
+        torch.cuda.synchronize()
+        launched = sdim_query.launches - before
+        launches = read_launches(wrappers, ("sdim_query",), f"moe_mla {arch_id}")
+        if not bool(torch.isfinite(compressed).all()):
+            raise AssertionError(f"moe_mla {arch_id} (c): SDIM decode gave non-finite logits")
+        if launched != MOE_DECODE * cfg.n_scan_layers:
+            raise AssertionError(f"moe_mla {arch_id} (c): {launched} sdim_query launches, not "
+                                 f"{cfg.n_scan_layers} a token")
+        overlap, top10 = next_token_overlap(torch, exact, compressed)
+        out.update(sdim_query_per_token=launched / MOE_DECODE, overlap=overlap, top10=top10)
+    # (d) kernel 4 at the path's call against the first scanned layer's
+    # table, on screened queries: (Hkv, Gq, head_dim), or for MLA all H heads
+    # against the one latent table, (1, H, kv_lora_rank), and at B = 8
+    rng = np.random.default_rng(14)
+    Rn, tau = model.R.cpu().numpy(), cfg.sdim_tau
+    if cfg.attention == "mla":
+        table = sc["vt"][0].reshape(1, *sc["vt"].shape[3:]).contiguous()
+        q = torch.from_numpy(screened_normal(rng, (1, cfg.n_heads, cfg.kv_lora_rank),
+                                             Rn)).to(dev)
+        q8 = torch.from_numpy(screened_normal(rng, (8, cfg.n_heads, cfg.kv_lora_rank),
+                                              Rn)).to(dev)
+        t8 = torch.from_numpy(rng.standard_normal((8, *table.shape[1:])).astype(
+            np.float32)).to(dev)
+        extra = (("B = 8", q8, t8),)
+    else:
+        table = sc["vt"][0].reshape(cfg.n_kv_heads, *sc["vt"].shape[3:]).contiguous()
+        q = torch.from_numpy(screened_normal(
+            rng, (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim), Rn)).to(dev)
+        extra = ()
+    out["kq"] = query_at_call(torch, f"moe_mla {arch_id}", q, table, model.R, tau, extra)
+    path = out["kq"]["path"]
+    # (e) ms/token: exact at MOE_CACHE_LEN of a cache of random values, and SDIM
+    with torch.no_grad():
+        cache = model.init_cache(1, MOE_CACHE_LEN + 1, torch.float32)
+        for t in [*cache["stack"].values(), *(v for c in cache.get("dense", ()) for v in
+                                              c.values())]:
+            t.normal_(generator=g)
+        w_bytes = 4 * (n_params - cfg.vocab * cfg.d_model + cfg.d_model)
+        sdim_bytes = sum(sc[k].numel() * sc[k].element_size() for k in ("vt", "ct"))
+        tok = toks[:, :1]
+        timing_sc = {k: v.clone() if torch.is_tensor(v) else v for k, v in sc.items()}
+        steps = {f"exact@{MOE_CACHE_LEN}": (lambda: model.decode_step(tok, cache,
+                                                                      MOE_CACHE_LEN)[0],
+                                            (MOE_CACHE_LEN + 1) * cache_row_bytes(cfg)),
+                 "sdim": (lambda: model.sdim_decode_step(tok, timing_sc)[0], sdim_bytes)}
+        timed = {}
+        for name, (step, read) in steps.items():
+            timed[name] = dict(token_ms(step), bound_ms=1e3 * (w_bytes + read) / HBM,
+                               weight_bytes=w_bytes, cache_bytes=read)
+            timed[name]["profile"] = profile_window(torch, f"moe_mla {arch_id} {name} step",
+                                                    step)
+        del cache, timing_sc
+        # (c) the first scanned layer's tables against the offline encode of an
+        # exact cache decoded with the dense blocks passing their input through
+        for block in model.dense_blocks:
+            block.attn.wo.weight.zero_()
+            block.ffn.wo.weight.zero_()
+        cache = model.init_cache(1, MOE_DECODE, torch.float32)
+        for i in range(MOE_DECODE):
+            model.decode_step(toks[:, i:i + 1], cache, i)
+        enc = model.encode_sdim_cache_from_kv(cache)
+        if not sc["ct"][0].equal(enc["ct"][0]):
+            raise AssertionError(f"moe_mla {arch_id} (c): the first scanned layer's count "
+                                 f"table differs from the offline encode in "
+                                 f"{int((sc['ct'][0] != enc['ct'][0]).sum())} cells")
+        vt_err = float((sc["vt"][0] - enc["vt"][0]).abs().max())
+        if not vt_err <= 1e-4:
+            raise AssertionError(f"moe_mla {arch_id} (c): the first scanned layer's value "
+                                 f"table differs by {vt_err:.3g}")
+        del cache, enc
+    print(f"moe_mla {arch_id} (c) SDIM decode of {MOE_DECODE} tokens: finite; sdim_query "
+          f"{out['sdim_query_per_token']:g} launches a token on its {path} path; the first "
+          f"scanned layer's count table equals the offline encode "
+          f"({int(sc['ct'][0].sum())} keys), value table within {vt_err:.3g}; next-token "
+          f"overlap exact vs SDIM {overlap:.4f}, top-10 {top10}/10 (an approximation: no "
+          f"limit)")
+    for name, r in timed.items():
+        ops = r["profile"]["device_ops"] if r["profile"] else None
+        per_op = "not measured" if not ops else f"{1e3 * r['issue_ms'] / ops:.1f} us"
+        print(f"moe_mla {arch_id} ms/token {name}: {r['ms']:.3f} [{r['min']:.3f}-"
+              f"{r['max']:.3f}] (host clock to .item(), median of {LM_TIMED} after "
+              f"{LM_WARM}); host issue {r['issue_ms']:.3f} ms a step ({ops} device ops: "
+              f"{per_op} an op); bound {r['bound_ms']:.3f} ms ({r['weight_bytes']:,} B of "
+              f"weights, every expert, + {r['cache_bytes']:,} B of cache); "
+              f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+    out.update(timed=timed, vt_err=vt_err,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"moe_mla {arch_id}: max_memory_allocated {out['peak_gib']:.2f} GiB; {card_line()}")
+    return out, launches
+
+
+def moe_mla_phase(torch, dev, wrappers):
+    """Phase 14: deepseek-moe-16b FULL and deepseek-v2-236b at full width,
+    MOE_V2_LAYERS layers (module docstring). Returns the path's launch
+    counts (each arch's SDIM decode, summed) and sdim_query's timings at
+    the two calls, ``moe`` and ``mla``."""
+    from repro_torch.configs import deepseek_moe_16b, deepseek_v2_236b
+
+    t_phase = time.perf_counter()
+    print(f"moe_mla: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the "
+          f"phase ({torch.cuda.get_device_name(dev)}; {card_line()})")
+    g = torch.Generator(device=dev).manual_seed(1)
+    runs, launches = {}, {}
+    for arch_id, cfg in (("deepseek-moe-16b", deepseek_moe_16b.FULL),
+                         ("deepseek-v2-236b", dataclasses.replace(deepseek_v2_236b.FULL,
+                                                                  n_layers=MOE_V2_LAYERS))):
+        runs[arch_id], counts = moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"moe_mla path launches (both archs' SDIM decode): {json.dumps(launches)}")
+    kq = {"moe": runs["deepseek-moe-16b"].pop("kq"), "mla": runs["deepseek-v2-236b"].pop("kq")}
+    summary = {arch: {k: v for k, v in r.items() if k != "timed"} for arch, r in runs.items()}
+    print(f"moe_mla checks: {json.dumps(summary)}")
+    print(f"moe_mla ms/token: {json.dumps({a: r['timed'] for a, r in runs.items()})}")
+    del runs
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe_mla: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
     return launches, kq
 
 
@@ -2848,6 +3152,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["sharded"] = sharded_phase(torch, dev, wrappers)
     by_path["lm"], by_name["sdim_query"]["lm"] = lm_phase(torch, dev, wrappers)
+    by_path["moe_mla"], moe_mla_query = moe_mla_phase(torch, dev, wrappers)
+    by_name["sdim_query"].update(moe_mla_query)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

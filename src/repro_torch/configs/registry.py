@@ -1,23 +1,22 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here. The
 recsys archs of the reference's registry (``repro/configs/registry.py``),
-the paper's own model and the dense GQA LM archs; the LM shape set
-``LM_SHAPES`` as data. ``deepseek-v2-236b`` (MLA) and ``deepseek-moe-16b``
-(MoE) wait for the MoE/MLA slice; ``gatedgcn`` for the GNN slice."""
+the paper's own model and the LM archs (dense GQA, MoE and MLA); the LM
+shape set ``LM_SHAPES`` as data. ``gatedgcn`` waits for the GNN slice."""
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["granite-3-2b", "command-r-plus-104b", "qwen3-8b",
+            "deepseek-v2-236b", "deepseek-moe-16b",
             "wide-deep", "bst", "dien", "bert4rec", "sdim-paper"]
 
 _MODULES = {"granite-3-2b": "granite_3_2b", "command-r-plus-104b": "command_r_plus_104b",
-            "qwen3-8b": "qwen3_8b",
+            "qwen3-8b": "qwen3_8b", "deepseek-v2-236b": "deepseek_v2_236b",
+            "deepseek-moe-16b": "deepseek_moe_16b",
             "wide-deep": "wide_deep", "bst": "bst", "dien": "dien", "bert4rec": "bert4rec",
             "sdim-paper": "sdim_paper"}
 
-_WAITING = {"deepseek-v2-236b": "the MoE/MLA slice (MLAttention)",
-            "deepseek-moe-16b": "the MoE/MLA slice (nn/moe.py)",
-            "gatedgcn": "the GNN slice"}
+_WAITING = {"gatedgcn": "the GNN slice"}
 
 # the LM family's shape set (``repro/configs/registry.py:46-52``)
 LM_SHAPES = {

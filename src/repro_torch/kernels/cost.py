@@ -84,7 +84,10 @@ def encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor, *, tau: int) 
 def query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor, *, tau: int) -> Cost:
     """``sdim_query``: q (B, C, d) fp32, table (B, G, U, d) -> (B, C, d)
     fp32. Only the (user, group, bucket) rows the candidates hash to are
-    read and normalized: at most B·G·min(C, U) of the B·G·U."""
+    read and normalized: at most B·G·min(C, U) of the B·G·U. The count is
+    the function's, whichever path launches it: at MLA's latent width (d =
+    512, the wide path) the 128 heads of one token select every row of the
+    table."""
     B, C, d = q.shape
     G, U = table.shape[1:3]
     sig = simhash.signatures(q.float(), R.float(), tau).long()              # (B, C, G)

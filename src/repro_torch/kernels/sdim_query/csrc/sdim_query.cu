@@ -16,7 +16,14 @@
 // G*U*d*2 bytes of bf16 wire table plus 2*C*d*4 bytes of candidates in and
 // interest out, and 2*C*m*d FLOP of hashing; memory bound (~0.8 us for a
 // 16-user burst).
+//
+// Where that body's shared memory (R, the user's whole normalized table and
+// 32 staged candidates) does not fit a CTA, as at MLA's latent width d = 512,
+// the entry launches the wide path instead (wide_query.cuh: the cluster
+// splits the columns and merges partial sums in rank order). Every width
+// that fits (d <= 256 at m = 48, tau = 3 on the H100) keeps the fused body.
 #include "../../sdim_fused_serve/csrc/fused_query.cuh"
+#include "wide_query.cuh"
 
 PHASE_READER(sdim_query_phases)
 
@@ -26,13 +33,21 @@ extern "C" int sdim_query(const void* table, int table_dtype, const float* q, co
                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const bool wide = sdim::fused_layout(G, U, d, m).total > static_cast<size_t>(optin);
   switch (table_dtype) {
     case sdim::kF32:
-      return sdim::launch_fused_tau<float>(table, nullptr, nullptr, nullptr, q, R, out, B, C, G,
-                                           d, tau, s);
+      return wide ? sdim::launch_wide_tau<float>(table, q, R, out, B, C, G, d, tau, s)
+                  : sdim::launch_fused_tau<float>(table, nullptr, nullptr, nullptr, q, R, out,
+                                                  B, C, G, d, tau, s);
     case sdim::kBF16:
-      return sdim::launch_fused_tau<__nv_bfloat16>(table, nullptr, nullptr, nullptr, q, R, out,
-                                                   B, C, G, d, tau, s);
+      return wide ? sdim::launch_wide_tau<__nv_bfloat16>(table, q, R, out, B, C, G, d, tau, s)
+                  : sdim::launch_fused_tau<__nv_bfloat16>(table, nullptr, nullptr, nullptr, q,
+                                                          R, out, B, C, G, d, tau, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,7 +7,12 @@ tensors only; for CUDA tensors it launches the kernel or raises.
 ``sdim_query.launches`` counts kernel launches. The kernel is
 ``sdim_fused_serve``'s body with user b reading table row b: a thread-block
 cluster per user splits the table's rows and the candidates, so each row is
-read from device memory and normalized once.
+read from device memory and normalized once. That body keeps R, the user's
+whole normalized table and 32 candidates in a CTA's shared memory; where
+they do not fit (MLA's latent, d = 512: 416 KB against 227 KB) the kernel's
+entry point launches the wide path instead (``csrc/wide_query.cuh``: the
+cluster splits the columns and merges its partial sums in rank order); a
+shape neither launches raises.
 
 Where autograd records the call (grad mode on, the table requiring grad)
 the wrapper goes through ``SDIMQueryFn``, whose backward is

@@ -10,7 +10,7 @@
         [--max-concurrency K] [--trace [--trace-dir DIR] \\
         [--trace-slow-ms T]] [--profile [--profile-dir DIR]] \\
         [--device cuda|cpu]
-    python -m repro_torch.launch.serve --arch qwen3-8b --tokens N [--sdim-kv] \
+    python -m repro_torch.launch.serve --arch LM_ARCH --tokens N [--sdim-kv] \
         [--device cuda|cpu]
 
 Mirrors the recsys branch of ``repro/launch/serve.py``: the ``SMOKE``
@@ -43,8 +43,9 @@ and prints the placement, so ``--shards 8`` runs the whole sharded path on
 one card, as eight faked host devices do for the JAX package. It holds one
 copy of each shard: the data axis is recorded, not replicated.
 
-An LM arch (``granite-3-2b``, ``qwen3-8b``, ``command-r-plus-104b``)
-mirrors the reference's LM branch: the ``SMOKE`` config with seeded random
+An LM arch (``granite-3-2b``, ``qwen3-8b``, ``command-r-plus-104b``,
+``deepseek-moe-16b``, ``deepseek-v2-236b``) mirrors the reference's LM
+branch: the ``SMOKE`` config with seeded random
 weights decodes ``--tokens`` tokens greedily from a zero start token, with
 an exact KV cache or, under ``--sdim-kv``, the SDIM bucket-compressed one,
 and prints the last token id. As in the reference, the BSE-store, request-

@@ -67,7 +67,7 @@ def main(argv=None) -> dict:
     cfg = mod.FULL if args.full else mod.SMOKE
     if mod.FAMILY != "recsys":
         raise NotImplementedError(f"training family {mod.FAMILY!r} is not ported (LM training "
-                                  f"waits for ROADMAP.md, A3b)")
+                                  f"waits for ROADMAP.md, A3c)")
     from repro_torch.models.ctr import CTRModel
 
     dev = resolve_device(args.device)

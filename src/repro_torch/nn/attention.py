@@ -38,8 +38,15 @@ Three departures in layout, none in the function:
   reason. Sums run in another order than the reference's, so results agree
   to fp32 rounding.
 
-MLA (``MLAttention``) and the sequence-parallel decode attention wait for
-later slices (ROADMAP.md, A3b and A5).
+``MLAttention`` is the counterpart of the reference's multi-head latent
+attention (DeepSeek-V2): keys and values are compressed into a
+``kv_lora_rank`` latent c_kv plus one shared RoPE key, and attention runs
+in the absorbed form (the query through ``wk_b`` into latent space, the
+output through ``wv_b`` out of it), so its cache holds c_kv (B, S, r) and
+k_rope (B, S, dr) only, in the reference's layout. Its decode writes the
+cache in place, reads the first ``cache_len + 1`` rows and splits long
+weighted sums over rows, as ``GQAttention``'s. The sequence-parallel decode
+attention waits for the tooling slice (ROADMAP.md, A5).
 """
 from __future__ import annotations
 
@@ -227,3 +234,144 @@ class GQAttention(nn.Module):
         scores = torch.matmul(qg, k.float().transpose(-1, -2)) / math.sqrt(D)
         out = _weighted_values(masked_softmax(scores, None).to(v.dtype), v)   # (B, Hkv, group, D)
         return self.wo(out.reshape(B, 1, self.n_heads * D)), cache
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention with decoupled RoPE. Projections (each a
+    bias-free ``Linear``): ``wq_a`` (d_model -> q_lora_rank), ``q_a_norm``,
+    ``wq_b`` (-> H·(dn + dr)), ``wkv_a`` (d_model -> r + dr), ``kv_a_norm``
+    (on c_kv), ``wk_b`` (r -> H·dn), ``wv_b`` (r -> H·dv), ``wo`` (H·dv ->
+    d_model). Scores are q_nope·wk_b against c_kv plus q_rope·k_rope, scaled
+    by 1/√(dn + dr); causal attention over T >= 2·``q_chunk`` without an
+    explicit mask runs query chunk by query chunk."""
+
+    def __init__(self, d_model: int, n_heads: int, kv_lora_rank: int = 512,
+                 q_lora_rank: int = 1536, nope_head_dim: int = 128, rope_head_dim: int = 64,
+                 v_head_dim: int = 128, rope_theta: float = 10000.0, causal: bool = True,
+                 q_chunk: int = 1024, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H, dn, dr, dv = n_heads, nope_head_dim, rope_head_dim, v_head_dim
+        self.n_heads, self.kv_lora_rank, self.nope_head_dim = H, kv_lora_rank, dn
+        self.rope_head_dim, self.v_head_dim = dr, dv
+        self.rope_theta, self.causal, self.q_chunk = rope_theta, causal, q_chunk
+        kw = dict(device=device, generator=generator)
+        self.wq_a = Linear(d_model, q_lora_rank, False, **kw)
+        self.q_a_norm = RMSNorm(q_lora_rank, device=device)
+        self.wq_b = Linear(q_lora_rank, H * (dn + dr), False, **kw)
+        self.wkv_a = Linear(d_model, kv_lora_rank + dr, False, **kw)
+        self.kv_a_norm = RMSNorm(kv_lora_rank, device=device)
+        self.wk_b = Linear(kv_lora_rank, H * dn, False, **kw)
+        self.wv_b = Linear(kv_lora_rank, H * dv, False, **kw)
+        self.wo = Linear(H * dv, d_model, False, **kw)
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.nope_head_dim + self.rope_head_dim)
+
+    def q(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, T, d_model), positions (B, T) -> q_nope (B, T, H, dn) and
+        q_rope (B, T, H, dr), rotated."""
+        B, T, _ = x.shape
+        H, dn, dr = self.n_heads, self.nope_head_dim, self.rope_head_dim
+        q = self.wq_b(self.q_a_norm(self.wq_a(x))).reshape(B, T, H, dn + dr)
+        cos, sin = rope_frequencies(dr, positions, self.rope_theta)
+        return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+    def kv_latent(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, T, d_model) -> c_kv (B, T, r), normed, and the shared k_rope
+        (B, T, dr), rotated."""
+        r = self.kv_lora_rank
+        kv = self.wkv_a(x)
+        cos, sin = rope_frequencies(self.rope_head_dim, positions, self.rope_theta)
+        return self.kv_a_norm(kv[..., :r]), apply_rope(kv[..., None, r:], cos, sin)[..., 0, :]
+
+    def absorb_q(self, q_nope: torch.Tensor) -> torch.Tensor:
+        """q_nope (B, T, H, dn) -> its latent form q_nope·wk_b (B, T, H, r)."""
+        wk_b = self.wk_b.weight.view(self.n_heads, self.nope_head_dim, self.kv_lora_rank)
+        return torch.einsum("bthd,hdr->bthr", q_nope, wk_b)
+
+    def up_values(self, out_lat: torch.Tensor) -> torch.Tensor:
+        """out_lat (B, T, H, r) -> (B, T, H·dv) through ``wv_b``."""
+        B, T, H, r = out_lat.shape
+        wv_b = self.wv_b.weight.view(H, self.v_head_dim, r)
+        return torch.einsum("bthr,hdr->bthd", out_lat, wv_b).reshape(B, T, H * self.v_head_dim)
+
+    def _attend(self, q_nope, q_rope, c_kv, k_rope, mask: Optional[torch.Tensor]):
+        """q_nope (B, T, H, dn), q_rope (B, T, H, dr) against c_kv (B, S, r)
+        and k_rope (B, S, dr); mask (B, T, S) or (T, S) bool or None -> (B,
+        T, H·dv), the scores and the output in latent space."""
+        q_lat = self.absorb_q(q_nope)
+        scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
+                  + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) * self.scale
+        if mask is not None:
+            mask = mask[:, None] if mask.ndim == 3 else mask
+        probs = masked_softmax(scores, mask)
+        out_lat = torch.einsum("bhts,bsr->bthr", probs.to(c_kv.dtype), c_kv)
+        return self.up_values(out_lat)
+
+    def _attend_chunked(self, q_nope, q_rope, c_kv, k_rope) -> torch.Tensor:
+        """Causal latent attention over query chunks of ``q_chunk`` rows,
+        each against the latent rows up to its end."""
+        T = q_nope.shape[1]
+        c = self.q_chunk
+        if T % c:
+            raise ValueError(f"chunked attention needs T % q_chunk == 0, got T {T}, "
+                             f"q_chunk {c}")
+        outs = []
+        for i in range(T // c):
+            end = (i + 1) * c
+            mask = _causal_mask(c, end, i * c, device=q_nope.device)
+            outs.append(self._attend(q_nope[:, i * c:end], q_rope[:, i * c:end],
+                                     c_kv[:, :end], k_rope[:, :end], mask))
+        return torch.cat(outs, dim=1)
+
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention. x (B, T, d_model); positions (B, T)
+        (default ``arange(T)``); mask (B, T, T) bool, True: attend (default
+        causal where ``causal``) -> (B, T, d_model)."""
+        B, T, _ = x.shape
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None]
+        q_nope, q_rope = self.q(x, positions)
+        c_kv, k_rope = self.kv_latent(x, positions)
+        if mask is None and self.causal and T >= 2 * self.q_chunk:
+            out = self._attend_chunked(q_nope, q_rope, c_kv, k_rope)
+        else:
+            if mask is None and self.causal:
+                mask = _causal_mask(T, T, device=x.device)
+            out = self._attend(q_nope, q_rope, c_kv, k_rope, mask)
+        return self.wo(out)
+
+    # -- serving ------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """Zero latent caches ``ckv`` (batch, max_len, kv_lora_rank) and
+        ``krope`` (batch, max_len, rope_head_dim)."""
+        return {"ckv": torch.zeros((batch, max_len, self.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((batch, max_len, self.rope_head_dim), dtype=dtype,
+                                     device=device)}
+
+    def decode_step(self, x: torch.Tensor, cache: dict, cache_len: int):
+        """x (B, 1, d_model) at position ``cache_len``, where ``cache`` holds
+        ``cache_len`` valid rows. Writes the new latent and RoPE key into row
+        ``cache_len`` in place; returns (out (B, 1, d_model), cache). The H
+        query heads attend to the first ``cache_len + 1`` rows: scores (B,
+        1, H, n) and their weighted sum of latent rows
+        (``_weighted_values``), batched products over the (n, r) slab."""
+        B, S, r = cache["ckv"].shape
+        if not 0 <= cache_len < S:
+            raise ValueError(f"decode at position {cache_len} of a cache of {S} rows")
+        positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+        q_nope, q_rope = self.q(x, positions)
+        c_new, kr_new = self.kv_latent(x, positions)
+        cache["ckv"][:, cache_len] = c_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][:, cache_len] = kr_new[:, 0].to(cache["krope"].dtype)
+        n = cache_len + 1
+        ckv, krope = cache["ckv"][:, None, :n], cache["krope"][:, None, :n]  # (B, 1, n, .)
+        q_lat = self.absorb_q(q_nope)                                         # (B, 1, H, r)
+        scores = (torch.matmul(q_lat.float(), ckv.float().transpose(-1, -2))
+                  + torch.matmul(q_rope.float(), krope.float().transpose(-1, -2))) * self.scale
+        out_lat = _weighted_values(masked_softmax(scores, None).to(ckv.dtype), ckv)
+        return self.wo(self.up_values(out_lat)), cache

@@ -21,12 +21,18 @@ parameters' gradients in the same tree (zeros for R, a buffer, as
 ``load_jax_lm_params`` / ``export_lm_params`` do the same for
 ``repro.models.lm.LMModel.init``'s pytree and the port's ``LMModel``:
 ``embed.table``, ``final_norm.{scale[,bias]}``, ``lm_head.w`` (untied
-embeddings only) and ``stack.{ln1,ln2}.{scale[,bias]}``,
-``stack.attn.{wq,wk,wv,wo}.{w[,b]}``, ``stack.attn.{q_norm,k_norm}.scale``
-(qk_norm) and ``stack.ffn.{wi_gate,wi_up,wo}.{w[,b]}``, whose leaves carry
-a leading n_layers axis (the reference's vmapped init), row i for block i.
-The hash matrix R is no parameter there (``LMModel._sdim_R`` draws it from
-``PRNGKey(1234)``), so the loader takes it beside the tree.
+embeddings only), the ``stack.*`` leaves, which carry a leading n_layers
+axis (the reference's vmapped init), row i for block i, and the list
+``dense_blocks`` (``first_k_dense``) of the same leaves without it. A
+block's leaves: ``{ln1,ln2}.{scale[,bias]}``; grouped-query attention
+``attn.{wq,wk,wv,wo}.{w[,b]}`` and ``attn.{q_norm,k_norm}.scale``
+(qk_norm); latent attention ``attn.{wq_a,wq_b,wkv_a,wk_b,wv_b,wo}.w`` and
+``attn.{q_a_norm,kv_a_norm}.scale``; a dense FFN
+``ffn.{wi_gate,wi_up,wo}.{w[,b]}``; a mixture of experts ``ffn.router.w``
+(d, E), ``ffn.experts.{wi_gate,wi_up,wo}`` and ``ffn.shared.*``, kept in
+the reference's layout (not transposed). The hash matrix R (sdim_m,
+head_dim; kv_lora_rank for MLA) is no parameter there (``LMModel._sdim_R``
+draws it from ``PRNGKey(1234)``), so the loader takes it beside the tree.
 """
 from __future__ import annotations
 
@@ -147,6 +153,49 @@ def export_params(model: CTRModel, grad: bool = False) -> dict:
     return tree
 
 
+MLA_LINEARS = ("wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "wo")
+
+
+def _block_leaves(block) -> dict:
+    """One LM block's tensors by their path within the reference's block
+    -> (tensor, transposed there)."""
+    from repro_torch.nn.attention import MLAttention
+    from repro_torch.nn.moe import MoELayer
+
+    leaves = {}
+    for ln in ("ln1", "ln2"):
+        for name in ("scale", "bias"):
+            if hasattr(getattr(block, ln), name):
+                leaves[f"{ln}.{name}"] = (getattr(getattr(block, ln), name), False)
+
+    def linear(path, lin):
+        leaves[f"{path}.w"] = (lin.weight, True)
+        if lin.bias is not None:
+            leaves[f"{path}.b"] = (lin.bias, False)
+
+    attn, ffn = block.attn, block.ffn
+    if isinstance(attn, MLAttention):
+        for name in MLA_LINEARS:
+            linear(f"attn.{name}", getattr(attn, name))
+        for name in ("q_a_norm", "kv_a_norm"):
+            leaves[f"attn.{name}.scale"] = (getattr(attn, name).scale, False)
+    else:
+        for name in ("wq", "wk", "wv", "wo"):
+            linear(f"attn.{name}", getattr(attn, name))
+        if attn.qk_norm:
+            leaves["attn.q_norm.scale"] = (attn.q_norm.scale, False)
+            leaves["attn.k_norm.scale"] = (attn.k_norm.scale, False)
+    if isinstance(ffn, MoELayer):
+        leaves["ffn.router.w"] = (ffn.router.w, False)
+        for part in ("experts", "shared") if ffn.n_shared else ("experts",):
+            for name in ("wi_gate", "wi_up", "wo"):
+                leaves[f"ffn.{part}.{name}"] = (getattr(getattr(ffn, part), name), False)
+    else:
+        for name in ("wi_gate", "wi_up", "wo"):
+            linear(f"ffn.{name}", getattr(ffn, name))
+    return leaves
+
+
 def _lm_leaves(model) -> dict:
     """Every parameter of an ``LMModel`` by its path in the reference's
     tree -> (tensor, or one tensor a layer for the stack's leaves;
@@ -157,24 +206,12 @@ def _lm_leaves(model) -> dict:
             out[f"final_norm.{name}"] = (getattr(model.final_norm, name), False)
     if not model.cfg.tie_embeddings:
         out["lm_head.w"] = (model.lm_head.weight, True)
+    for i, block in enumerate(model.dense_blocks):
+        for path, leaf in _block_leaves(block).items():
+            out[f"dense_blocks.{i}.{path}"] = leaf
     per_layer: dict = {}
     for block in model.stack:
-        leaves = {}
-        for ln in ("ln1", "ln2"):
-            for name in ("scale", "bias"):
-                if hasattr(getattr(block, ln), name):
-                    leaves[f"{ln}.{name}"] = (getattr(getattr(block, ln), name), False)
-        for path, mod in (("attn", block.attn), ("ffn", block.ffn)):
-            names = ("wq", "wk", "wv", "wo") if path == "attn" else ("wi_gate", "wi_up", "wo")
-            for name in names:
-                lin = getattr(mod, name)
-                leaves[f"{path}.{name}.w"] = (lin.weight, True)
-                if lin.bias is not None:
-                    leaves[f"{path}.{name}.b"] = (lin.bias, False)
-        if block.attn.qk_norm:
-            leaves["attn.q_norm.scale"] = (block.attn.q_norm.scale, False)
-            leaves["attn.k_norm.scale"] = (block.attn.k_norm.scale, False)
-        for path, (t, transpose) in leaves.items():
+        for path, (t, transpose) in _block_leaves(block).items():
             per_layer.setdefault(f"stack.{path}", ([], transpose))[0].append(t)
     out.update(per_layer)
     return out
@@ -183,7 +220,8 @@ def _lm_leaves(model) -> dict:
 @torch.no_grad()
 def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
     """Copy ``params_np`` (the reference's LM params as numpy arrays) and
-    the hash matrix ``R`` (sdim_m, head_dim) into ``model`` in place;
+    the hash matrix ``R`` (sdim_m, head_dim or kv_lora_rank) into ``model``
+    in place;
     returns the model. Raises where a leaf is missing, does not fit, or the
     tree holds leaves the model does not."""
     leaves = _lm_leaves(model)
@@ -220,4 +258,7 @@ def export_lm_params(model) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = (np.stack([arr(ti, transpose) for ti in t]) if isinstance(t, list)
                       else arr(t, transpose))
+    if "dense_blocks" in tree:                 # the reference keeps them in a list
+        tree["dense_blocks"] = [tree["dense_blocks"][str(i)]
+                                for i in range(len(tree["dense_blocks"]))]
     return tree

@@ -47,6 +47,27 @@ def test_query_counts_only_the_rows_its_candidates_select():
     assert c == (6 * 120 + 12 * 3 * 8, 12 * 8 * 4 + 2 * 192 + 192)
 
 
+def test_query_counts_the_rows_selected_at_the_mla_width():
+    """Kernel 4 at deepseek-v2's SDIM-KV read (its wide path): one latent
+    table (1, 16, 8, 512) read by 128 absorbed head queries. Only the
+    (group, bucket) rows they hash to count, at most 16 x min(128, 8) =
+    128 of them; each costs 3 d to normalize and sum."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    m, tau, d, C = 48, 3, 512, 128
+    Rn = rng.standard_normal((m, d)).astype(np.float32)
+    qn = rng.standard_normal((1, C, d)).astype(np.float32)
+    bits = (qn[0] @ Rn.T >= 0).reshape(C, m // tau, tau).astype(np.int64)
+    sig = (bits << np.arange(tau)).sum(-1)                          # (C, G)
+    n = len({(g, int(u)) for g in range(m // tau) for u in sig[:, g]})
+    assert 16 <= n <= 128
+    c = cost.settle(cost.query(torch.from_numpy(qn), torch.zeros((1, 16, 8, d)),
+                               torch.from_numpy(Rn), tau=tau))
+    assert c == (C * (2 * m * d + 16 * d) + n * 3 * d,
+                 n * d * 4 + 2 * C * d * 4 + m * d * 4)
+
+
 def test_serve_counts_rows_candidates_and_the_table_in_shared_memory():
     c = cost.serve(Q, torch.zeros((2, 5, 8)), MASK, R, tau=TAU)
     assert c == ((7 + 6) * 120 + 24 * 3 * 8, 7 * 32 + 40 + 2 * 192 + 192)

@@ -1135,19 +1135,23 @@ LM_LAYOUTS = [  # (B, Hkv, Gq, head_dim, S)
 # numpy seed per LM arch at SMOKE (weights, R and tokens; ``_numpy_lm``):
 # every key and query the CPU run hashes over 8 tokens (B = 2) clears 1e-4
 # (asserted)
-LM_CARD_SEEDS = {"granite-3-2b": 24, "qwen3-8b": 23, "command-r-plus-104b": 29}
+LM_CARD_SEEDS = {"granite-3-2b": 24, "qwen3-8b": 23, "command-r-plus-104b": 29,
+                 "deepseek-moe-16b": 20, "deepseek-v2-236b": 38}
 
 
 @torch.no_grad()
 def _numpy_lm(model, seed: int):
     """Redraw every matrix of an LM and its R from numpy's generator, whose
     numbers do not depend on the torch build: N(0, 1/fan_in) for
-    projections, N(0, 0.02²) for the embedding, N(0, 1) for R; norm scales
-    stay ones."""
+    projections (the experts' (E, d_in, d_out) stacks too), N(0, 0.02²) for
+    the embedding, N(0, 1) for R; norm scales stay ones."""
     rng = np.random.default_rng(seed)
     for name, p in model.named_parameters():
         if p.ndim == 2:
             std = 0.02 if name.startswith("embed") else 1 / np.sqrt(p.shape[1])
+            p.copy_(torch.from_numpy((rng.standard_normal(p.shape) * std).astype(np.float32)))
+        elif p.ndim == 3:
+            std = 1 / np.sqrt(p.shape[1])
             p.copy_(torch.from_numpy((rng.standard_normal(p.shape) * std).astype(np.float32)))
     model.R.copy_(torch.from_numpy(rng.standard_normal(model.R.shape).astype(np.float32)))
     model.R64.copy_(model.R)
@@ -1233,17 +1237,93 @@ def test_lm_smoke_decode_on_the_card_matches_the_cpu(arch_id, dev, monkeypatch):
                 slogits.append(model.sdim_decode_step(t[:, i:i + 1], scache)[0].cpu())
             runs[name] = (logits, slogits, cache, scache, sdim_query.launches - before)
     assert clears_margin(np.concatenate(hashed), cpu.R.numpy(), 1e-4).all()
-    assert clears_margin(runs["cpu"][2]["stack"]["k"].reshape(-1, cfg.head_dim).numpy(),
-                         cpu.R.numpy(), 1e-4).all()
+    keys = runs["cpu"][2]["stack"].get("ckv", runs["cpu"][2]["stack"].get("k"))
+    assert clears_margin(keys.reshape(-1, keys.shape[-1]).numpy(), cpu.R.numpy(), 1e-4).all()
     (lc, sc, cc, scc, _), (lg, sg, cg, scg, launched) = runs["cpu"], runs["card"]
     for i in range(8):
         torch.testing.assert_close(lg[i], lc[i], atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(sg[i], sc[i], atol=1e-4, rtol=1e-4)
-    for name in ("k", "v"):
+    for name in cc["stack"]:
         torch.testing.assert_close(cg["stack"][name].cpu(), cc["stack"][name], **FP32)
+    for got, want in zip(cg.get("dense", []), cc.get("dense", [])):
+        for name in want:
+            torch.testing.assert_close(got[name].cpu(), want[name], **FP32)
     assert torch.equal(scg["ct"].cpu(), scc["ct"])
     torch.testing.assert_close(scg["vt"].cpu(), scc["vt"], **FP32)
-    assert launched == 8 * cfg.n_layers
+    assert launched == 8 * cfg.n_scan_layers
     enc = card.encode_sdim_cache_from_kv(cg)
     assert torch.equal(enc["ct"], card.encode_sdim_cache_from_kv(cg)["ct"])
     assert torch.equal(enc["vt"], card.encode_sdim_cache_from_kv(cg)["vt"])
+
+
+# kernel 4's wide path (csrc/wide_query.cuh): (B, C, d, m, tau); the
+# kernel's entry point takes it wherever the fused body's shared memory does
+# not fit a CTA (every width here; d <= 256 at m = 48 keeps the fused body)
+WIDE_SHAPES = [
+    (1, 128, 512, 48, 3),     # deepseek-v2's SDIM-KV read: one table, 128 heads
+    (8, 128, 512, 48, 3),     # B = 8
+    (3, 300, 516, 48, 3),     # d % 8 == 4, ragged C (3 passes of 128, the last of 44)
+    (2, 33, 1024, 48, 3),     # 32 float4 columns a CTA
+    (4, 70, 512, 36, 3),      # G = 12
+    (2, 5, 512, 48, 4),       # U = 16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_sdim_query_wide_path(shape, table_dtype, dev):
+    """The wide path against the plain version on screened candidates, a
+    zero table (a user with no keys) reading zero, the same bits on two
+    launches; C = 0 launches nothing."""
+    B, C, d, m, tau = shape
+    rng = np.random.default_rng(d + C)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    q = torch.from_numpy(screened_normal(rng, (B, C, d), R)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((B, m // tau, 1 << tau, d)).astype(
+        np.float32)).to(dev).to(table_dtype)
+    table[-1, :, 1] = 0                       # some empty buckets
+    if B > 1:
+        table[0] = 0
+    Rt = torch.from_numpy(R).to(dev)
+    before = sdim_query.launches
+    out = sdim_query(q, table, Rt, tau)
+    torch.cuda.synchronize()
+    assert sdim_query.launches == before + 1
+    torch.testing.assert_close(out, sdim_query_ref(q, table, Rt, tau), **FP32)
+    if B > 1:
+        assert not out[0].any()
+    assert torch.equal(out, sdim_query(q, table, Rt, tau))
+    empty = sdim_query(q[:, :0].contiguous(), table, Rt, tau)
+    assert empty.shape == (B, 0, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [36, 128, 256])
+def test_sdim_query_fused_path_is_kernel_3s_body(d, dev):
+    """At every fused width kernel 4 takes the fused body unchanged: its
+    output equals kernel 3's (sdim_fused_serve with user b on slot b, every
+    user present) bit for bit, and the plain version within FP32."""
+    B, C, m, tau = 4, 128, 48, 3
+    rng = np.random.default_rng(d)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    q = torch.from_numpy(screened_normal(rng, (B, C, d), R)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((B, m // tau, 1 << tau, d)).astype(
+        np.float32)).to(dev)
+    Rt = torch.from_numpy(R).to(dev)
+    out = sdim_query(q, table, Rt, tau)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    assert torch.equal(out, sdim_fused_serve(table, slots, q, Rt, tau))
+    torch.testing.assert_close(out, sdim_query_ref(q, table, Rt, tau), **FP32)
+
+
+@pytest.mark.cuda
+def test_sdim_query_raises_where_no_path_launches(dev):
+    """A width whose column slices overflow a CTA even on the wide path (d =
+    8,192: 512 KB of table columns a CTA) raises; it never falls back to
+    the plain version."""
+    B, C, d, m, tau = 1, 4, 8192, 48, 3
+    q = torch.zeros((B, C, d), device=dev)
+    table = torch.zeros((B, m // tau, 1 << tau, d), device=dev)
+    with pytest.raises(RuntimeError, match="sdim_query: CUDA error"):
+        sdim_query(q, table, torch.ones((m, d), device=dev), tau)

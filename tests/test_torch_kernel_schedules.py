@@ -26,6 +26,16 @@ run here; this pins the algebra they implement.
   straddles two rows taking each value's own row scale; it hashes its
   ceil(C/S) candidates for all G groups, and answers them by summing the
   owners' rows in g order, then / G * present; absent users read no row;
+- sdim_query's wide path (wide_query.cuh, where fused_query.cuh's shared
+  memory does not fit: MLA's latent, d = 512): each of S = 8 ranks owns
+  ceil(d/4 / S) float4 columns of R, of every table row and of each pass
+  of 128 candidates; a row's sum of squares over a rank's columns is a
+  warp's (float4 columns dealt to the 32 lanes, then a butterfly), a
+  candidate's projection a thread's (columns in order); both are summed
+  over the ranks in rank order by every rank (each reading the others'
+  partials), so every rank gets the same norms and signatures; each rank
+  writes its own columns of every answer, the G rows summed in g order,
+  then / G;
 - sdim_update: the first batch row of each slot owns it; each of S CTAs
   (``update_splits``) takes a slice of its signature groups, starts from
   the stored slice, adds each batch row of the slot in b order (the row's
@@ -781,3 +791,80 @@ def test_backward_splits_fill_one_wave(B, L, G, want_rows, want_groups):
     assert backward_splits(B, L, n_sm=132) == want_rows
     assert query_backward_splits(B, G, n_sm=132) == want_groups
     assert B * want_rows <= 2 * 132 or want_rows == 1
+
+
+def _dot4(a, b, acc):
+    """sdim_common.cuh's dot4 over whole float4 columns, in column order:
+    acc + a . b one fp32 FMA step at a time (rows of a against rows of b)."""
+    for k in range(a.shape[-1]):
+        acc = (acc + a[..., k] * b[..., k]).astype(np.float32)
+    return acc
+
+
+def _warp_sum_of_squares(t):
+    """normalize-style row sums of squares by a warp: lane l sums float4
+    columns l, l + 32, ... (dot4), then a butterfly (xor 16, ..., 1)."""
+    rows, n = t.shape
+    cols = t.reshape(rows, n // 4, 4)
+    lanes = np.zeros((32, rows), np.float32)
+    for k in range(n // 4):
+        lanes[k % 32] = _dot4(cols[:, k], cols[:, k], lanes[k % 32])
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ o]).astype(np.float32)
+    return lanes[0]
+
+
+def sdim_query_wide_schedule(q, table, R, tau, S=8, TC=128):
+    """wide_query.cuh's schedule in numpy fp32: S ranks split the float4
+    columns; partial sums of squares and projections merged in rank order."""
+    B, C, d = q.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    nq, GU, m = d // 4, G * U, R.shape[0]
+    K = -(-nq // S)                                      # float4 columns a rank
+    cols = [slice(4 * min(nq, r * K), 4 * min(nq, (r + 1) * K)) for r in range(S)]
+    out = np.full((B, C, d), np.nan, np.float32)
+    for b in range(B):
+        t = table[b].reshape(GU, d).astype(np.float32)
+        ss = [_warp_sum_of_squares(t[:, c]) for c in cols]
+        total = np.zeros(GU, np.float32)
+        for part in ss:                                  # rank order
+            total = (total + part).astype(np.float32)
+        tn = t / np.sqrt(total + np.float32(1e-12))[:, None]
+        for c0 in range(0, C, TC):
+            qc = q[b, c0:c0 + TC]
+            proj = np.zeros((len(qc), m), np.float32)
+            for c in cols:                               # rank order
+                proj = (proj + _dot4(qc[:, None, c], R[None, :, c],
+                                     np.zeros((len(qc), m), np.float32))).astype(np.float32)
+            bits = (proj.reshape(len(qc), G, tau) >= 0).astype(np.int64)
+            sig = (bits << np.arange(tau)).sum(-1)       # (n, G)
+            acc = np.zeros((len(qc), d), np.float32)
+            for g in range(G):                           # g order
+                acc = (acc + tn[g * U + sig[:, g]]).astype(np.float32)
+            out[b, c0:c0 + len(qc)] = acc / np.float32(G)
+    return out
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 128, 512, 48, 3),        # deepseek-v2's SDIM-KV read: 16 float4 columns a rank
+    (2, 300, 516, 48, 3),        # d % 8 == 4: 17 columns a rank, 10 on the last; 3 passes
+    (2, 33, 512, 36, 3),         # G = 12
+    (2, 5, 512, 48, 4),          # U = 16
+], ids=["mla", "d516", "G12", "U16"])
+def test_sdim_query_wide_schedule_matches_jax(shape):
+    """The wide path against JAX's sdim_query oracle, a zero table reading
+    zero."""
+    B, C, d, m, tau = shape
+    G, U = m // tau, 1 << tau
+    rng = np.random.default_rng(d + C)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    q = screened_normal(rng, (B, C, d), R)
+    table = rng.standard_normal((B, G, U, d)).astype(np.float32)
+    table[0, :, 1] = 0.0                          # empty buckets
+    if B > 1:
+        table[-1] = 0.0                           # a user with no keys
+    out = sdim_query_wide_schedule(q, table, R, tau)
+    ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R), tau))
+    np.testing.assert_allclose(out, ref, **FP32)
+    if B > 1:
+        assert not out[-1].any()

@@ -1,19 +1,23 @@
-"""Port parity, the dense GQA LM stack: ``repro_torch``'s layers, attention,
-blocks and ``LMModel`` (granite-3-2b, qwen3-8b, command-r-plus-104b)
+"""Port parity, the LM stack: ``repro_torch``'s layers, attention, blocks
+and ``LMModel`` (the dense GQA archs granite-3-2b, qwen3-8b,
+command-r-plus-104b; deepseek-moe-16b, MoE; deepseek-v2-236b, MLA and MoE)
 against the JAX package on the CPU.
 
 The layers first (RMSNorm, SiLU and the gated FFN, tied logits, RoPE at
 θ = 1e6), then ``GQAttention`` with grouped kv heads and qk-norm on its
 masked path, its query-chunked causal path (a small ``q_chunk``) and
 ``decode_step`` against a cache, then ``Block``, ``Stack`` and the model's
-``forward``, ``prefill`` and ``loss`` for each of the three dense archs at
-SMOKE, all from the JAX package's own init carried across by
-``weights.load_jax_lm_params``. FULL is checked by shapes only: the port's
-parameters on ``device="meta"`` against ``jax.eval_shape`` of the
-reference's init (qwen3-8b: 8,190,735,360 parameters). Last: the params
-round trip, the registry, the serve launcher's LM branch and its
-refusals (the same flags the JAX launcher refuses), the train launcher's
-refusal and the example. Decode with SDIM-compressed KV is in
+``forward`` (with the MoE aux loss), ``prefill`` and ``loss`` for each of
+the five archs at SMOKE, all from the JAX package's own init carried
+across by ``weights.load_jax_lm_params``. FULL is checked by shapes only:
+the port's parameters on ``device="meta"`` against ``jax.eval_shape`` of
+the reference's init (qwen3-8b: 8,190,735,360 parameters;
+deepseek-moe-16b: 16,375,728,128; deepseek-v2-236b cut to 2 layers, as
+chip_smoke.py runs it: 5,358,679,040). Last: the params round trip, the
+registry, the serve launcher's LM branch and its refusals (the same flags
+the JAX launcher refuses), the train launcher's refusal and the example.
+The MoE FFN and MLA are held module by module in
+``tests/test_torch_{moe,mla}.py``; decode with SDIM-compressed KV is in
 ``tests/test_torch_lm_decode.py``.
 
 Tolerances: fp32 atol 1e-5 / rtol 1e-5 per module (the reference's own,
@@ -44,13 +48,15 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models.lm import LMModel
 from repro_torch.nn import attention
 from repro_torch.nn.layers import ACTIVATIONS, Embedding, GatedMLP, RMSNorm
-from repro_torch.nn.transformer import Block, BlockConfig, Stack
+from repro_torch.nn.transformer import Block, Stack
 from repro_torch.weights import _lm_leaves, export_lm_params, load_jax_lm_params
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MODEL = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=1e-2, rtol=2e-2)
-LM_IDS = ("granite-3-2b", "qwen3-8b", "command-r-plus-104b")
+LM_IDS = ("granite-3-2b", "qwen3-8b", "command-r-plus-104b", "deepseek-moe-16b",
+          "deepseek-v2-236b")
+FULL_PARAMS = {"qwen3-8b": 8_190_735_360, "deepseek-moe-16b": 16_375_728_128}
 
 
 def _t(x):
@@ -258,13 +264,6 @@ def test_encoder_defaults_are_bidirectional_and_biased():
 # ---------------------------------------------------------------------------
 # blocks, stack, model
 # ---------------------------------------------------------------------------
-def test_block_config_refuses_mla_and_moe():
-    with pytest.raises(NotImplementedError, match="MoE/MLA slice"):
-        BlockConfig(64, 4, 4, 16, 128, attention="mla")
-    with pytest.raises(NotImplementedError, match="MoE/MLA slice"):
-        BlockConfig(64, 4, 4, 16, 128, moe=dict(n_experts=4, top_k=2, d_ff=32))
-
-
 @pytest.mark.parametrize("arch_id", LM_IDS)
 def test_block_and_stack_match_jax(arch_id):
     jm, params, model = _model(arch_id, seed=1)
@@ -272,29 +271,38 @@ def test_block_and_stack_match_jax(arch_id):
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 6, jcfg.d_model)).astype(np.float32)
     lp = jax.tree_util.tree_map(lambda a: a[0], params["stack"])
-    want, _ = jtransformer.Block(jcfg).apply(lp, jnp.asarray(x))
+    want, jaux = jtransformer.Block(jcfg).apply(lp, jnp.asarray(x))
     with torch.no_grad():
         got, aux = model.stack[0](_t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
-    assert float(aux) == 0.0
-    want, _ = jtransformer.Stack(jcfg, jm.cfg.n_layers).apply(params["stack"], jnp.asarray(x))
+    np.testing.assert_allclose(float(aux), float(jaux), **FP32)    # 0 for a dense FFN
+    want, jaux = jtransformer.Stack(jcfg, jm.cfg.n_scan_layers).apply(params["stack"],
+                                                                       jnp.asarray(x))
     with torch.no_grad():
-        got, _ = model.stack(_t(x))
+        got, aux = model.stack(_t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
-    assert isinstance(model.stack, Stack) and isinstance(model.stack[1], Block)
+    np.testing.assert_allclose(float(aux), float(jaux), **FP32)
+    for i, lp in enumerate(params.get("dense_blocks", [])):          # first_k_dense
+        want, _ = jm.dense_block.apply(lp, jnp.asarray(x))
+        with torch.no_grad():
+            got, aux = model.dense_blocks[i](_t(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+        assert float(aux) == 0.0
+    assert isinstance(model.stack, Stack) and isinstance(model.stack[-1], Block)
 
 
 @pytest.mark.parametrize("arch_id", LM_IDS)
 def test_forward_prefill_and_loss_match_jax(arch_id):
     jm, params, model = _model(arch_id, seed=2)
     toks = np.random.default_rng(10).integers(0, jm.cfg.vocab, (2, 12)).astype(np.int32)
-    jh, _ = jm.forward(params, jnp.asarray(toks))
+    jh, jaux = jm.forward(params, jnp.asarray(toks))
     with torch.no_grad():
         h, aux = model(_t(toks))
         logits = model.prefill(_t(toks))
         loss = model.loss(_t(toks[:, :-1]), _t(toks[:, 1:]))
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **MODEL)
-    assert float(aux) == 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), **FP32)      # 0 for a dense stack
+    assert (float(aux) > 0.0) == (jm.cfg.moe is not None)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jm.prefill(params, jnp.asarray(toks))),
                                **MODEL)
     want = jm.loss(params, jnp.asarray(toks[:, :-1]), jnp.asarray(toks[:, 1:]))
@@ -319,6 +327,14 @@ def test_loss_in_bf16_compute_matches_jax():
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
+def _flat_shapes(shapes) -> dict:
+    """jax.eval_shape's tree as {dotted path: shape} (a list index is a
+    number)."""
+    key = lambda k: getattr(k, "key", getattr(k, "idx", None))
+    return {".".join(str(key(k)) for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+
+
 def _port_shapes(model) -> dict:
     out = {}
     for path, (t, transpose) in _lm_leaves(model).items():
@@ -333,16 +349,26 @@ def test_full_parameter_shapes_match_jax(arch_id):
     """FULL on ``device="meta"`` (no memory) against ``jax.eval_shape`` of
     the reference's init: every leaf's shape and the parameter count."""
     jm = JLMModel(_jmod(arch_id).FULL)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
-    flat = {".".join(str(k.key) for k in path): tuple(leaf.shape)
-            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    flat = _flat_shapes(jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
     model = LMModel(registry.get(arch_id).FULL, device="meta")
     assert _port_shapes(model) == flat
     n = sum(p.numel() for p in model.parameters())
     assert n == sum(int(np.prod(s)) for s in flat.values())
-    assert model.R.shape == (jm.cfg.sdim_m, jm.cfg.head_dim)
-    if arch_id == "qwen3-8b":
-        assert n == 8_190_735_360
+    dk = jm.cfg.kv_lora_rank if jm.cfg.attention == "mla" else jm.cfg.head_dim
+    assert model.R.shape == (jm.cfg.sdim_m, dk)
+    if arch_id in FULL_PARAMS:
+        assert n == FULL_PARAMS[arch_id]
+
+
+def test_deepseek_v2_at_two_layers_has_the_shapes_chip_smoke_runs():
+    """deepseek-v2-236b at full width cut to 2 layers (first_k_dense 1 and
+    one MoE layer), on ``device="meta"`` against ``jax.eval_shape``."""
+    jcfg = dataclasses.replace(_jmod("deepseek-v2-236b").FULL, n_layers=2)
+    flat = _flat_shapes(jax.eval_shape(JLMModel(jcfg).init, jax.random.PRNGKey(0)))
+    model = LMModel(dataclasses.replace(registry.get("deepseek-v2-236b").FULL, n_layers=2),
+                    device="meta")
+    assert _port_shapes(model) == flat
+    assert sum(p.numel() for p in model.parameters()) == 5_358_679_040
 
 
 @pytest.mark.parametrize("arch_id", LM_IDS)
@@ -357,7 +383,11 @@ def test_lm_params_round_trip(arch_id):
     np.testing.assert_array_equal(model.R.numpy(), np.asarray(jm._sdim_R()))
     assert model.R64.equal(model.R.double())                # the keys' fp64 copy follows
     bad = _np_tree(params)
-    bad["stack"]["ffn"]["wo"]["w"] = bad["stack"]["ffn"]["wo"]["w"][:1]
+    ffn = bad["stack"]["ffn"]                                 # one layer short
+    if "experts" in ffn:                                      # a mixture of experts
+        ffn["experts"]["wo"] = ffn["experts"]["wo"][:-1]
+    else:
+        ffn["wo"]["w"] = ffn["wo"]["w"][:-1]
     with pytest.raises(ValueError, match="layers"):
         load_jax_lm_params(model, bad, np.asarray(jm._sdim_R()))
     extra = _np_tree(params)
@@ -377,9 +407,8 @@ def test_registry_holds_the_dense_lm_archs():
             assert dataclasses.asdict(getattr(mod, name)) == \
                 dataclasses.asdict(getattr(_jmod(arch_id), name))
     assert registry.LM_SHAPES == jregistry.LM_SHAPES
-    for arch_id in ("deepseek-v2-236b", "deepseek-moe-16b"):
-        with pytest.raises(KeyError, match="MoE/MLA slice"):
-            registry.get(arch_id)
+    with pytest.raises(KeyError, match="GNN slice"):
+        registry.get("gatedgcn")
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("gpt-5")
 
@@ -416,9 +445,24 @@ def test_serve_launcher_refuses_recsys_flags_for_an_lm_arch_as_jax_does(flags, m
     assert theirs.value.code == 2 and "is family 'lm'" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flags", REFUSED[::2], ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("arch_id", ["deepseek-moe-16b", "deepseek-v2-236b"])
+def test_serve_launcher_refuses_recsys_flags_for_the_moe_and_mla_archs(arch_id, flags,
+                                                                       monkeypatch, capsys):
+    argv = ["--arch", arch_id, "--tokens", "2"] + flags
+    with pytest.raises(SystemExit) as ours:
+        launch_serve.main(argv + ["--device", "cpu"])
+    assert ours.value.code == 2 and "is family 'lm'" in capsys.readouterr().err
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    with pytest.raises(SystemExit) as theirs:
+        jlaunch_serve.main()
+    assert theirs.value.code == 2 and "is family 'lm'" in capsys.readouterr().err
+
+
 def test_train_launcher_refuses_an_lm_arch():
-    with pytest.raises(NotImplementedError, match="'lm'"):
-        launch_train.main(["--arch", "granite-3-2b", "--steps", "1", "--device", "cpu"])
+    for arch_id in ("granite-3-2b", "deepseek-moe-16b"):
+        with pytest.raises(NotImplementedError, match="'lm'.*A3c"):
+            launch_train.main(["--arch", arch_id, "--steps", "1", "--device", "cpu"])
 
 
 def test_example_state_is_constant_in_the_context(capsys):

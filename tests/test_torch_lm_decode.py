@@ -8,11 +8,20 @@ own q, k and v drawn with ``kernels/screen.py::screened_normal``, so that
 both frameworks hash every row to the same bucket; the port's kernel
 layout (one table a kv head, its query heads as the candidates) against
 the reference's ``jnp.repeat`` layout. Model level, for granite-3-2b,
-qwen3-8b and command-r-plus-104b at SMOKE from the JAX init: 8 tokens
-(B = 2) through ``decode_step`` and ``sdim_decode_step``, logits at every
-step and the final caches, and ``encode_sdim_cache_from_kv`` of the exact
-cache. q and k come out of different GEMMs in the two frameworks, so a
-projection within rounding of 0 could hash to another bucket: each case's
+qwen3-8b, command-r-plus-104b, deepseek-moe-16b (MoE) and deepseek-v2-236b
+(MLA and MoE) at SMOKE from the JAX init: 8 tokens (B = 2) through
+``decode_step`` and ``sdim_decode_step``, logits at every step and the
+final caches (the dense blocks' too), and ``encode_sdim_cache_from_kv`` of
+the exact cache. For MLA the SDIM tables hold the latent c_kv (key and
+value), one table a layer, read by the absorbed queries of all heads.
+The reference's SDIM functions skip the ``first_k_dense`` blocks
+(ROADMAP.md, fault C6), and so do the port's:
+``test_sdim_decode_skips_the_dense_blocks_c6`` pins it in both packages,
+and the incremental tables of the first scanned layer equal the offline
+encode of an exact cache only where the dense blocks pass their input
+through (their output projections zeroed). q and k come out of different
+GEMMs in the two frameworks, so a projection within rounding of 0 could
+hash to another bucket: each case's
 seed (named in ``SEEDS``) was chosen so that every key and query the
 port hashes clears ``screen.clears_margin`` at 1e-4 (asserted; the two
 frameworks' q and k differ by ~1e-6 relative at SMOKE), and the count
@@ -43,7 +52,8 @@ MODEL = dict(atol=1e-4, rtol=1e-4)
 HASH_MARGIN = 1e-4
 # JAX init key and token seed per arch: every key and query the port hashes
 # over the 8 tokens (both paths) clears HASH_MARGIN
-SEEDS = {"granite-3-2b": 69, "qwen3-8b": 18, "command-r-plus-104b": 9}
+SEEDS = {"granite-3-2b": 69, "qwen3-8b": 18, "command-r-plus-104b": 9,
+         "deepseek-moe-16b": 0, "deepseek-v2-236b": 5}
 B, N_TOKENS = 2, 8
 
 
@@ -164,6 +174,34 @@ def _port(case):
     return load_jax_lm_params(model, case["params"], case["R"])
 
 
+def _port_cache(cache: dict) -> dict:
+    """The port's layout of one exact cache of the reference: GQA's k and v
+    head-major (its head axis before the rows), MLA's ckv and krope as
+    they are."""
+    if "ckv" in cache:
+        return cache
+    return {k: v.swapaxes(-2, -3) for k, v in cache.items()}
+
+
+def _keys(cache: dict) -> np.ndarray:
+    """The rows an exact cache's keys hash: GQA's k, MLA's latent."""
+    t = cache["ckv"] if "ckv" in cache else cache["k"]
+    return np.asarray(t).reshape(-1, t.shape[-1])
+
+
+@torch.no_grad()
+def _pass_through_dense_blocks(model) -> None:
+    """Zero the dense blocks' output projections: each then adds nothing to
+    the residual, so the first scanned layer sees the embeddings, as it
+    does on the SDIM path (which skips the dense blocks, C6)."""
+    from repro_torch.nn.moe import MoELayer
+
+    for block in model.dense_blocks:
+        block.attn.wo.weight.zero_()
+        assert not isinstance(block.ffn, MoELayer)
+        block.ffn.wo.weight.zero_()
+
+
 def _recording(monkeypatch, hashed: list):
     """Record every key the SDIM path folds and every query it reads with."""
     fold, attend = sdim.kv_bucket_fold, sdim.sdim_decode_attention
@@ -184,15 +222,20 @@ def _recording(monkeypatch, hashed: list):
 def test_decode_step_matches_jax(case):
     model = _port(case)
     cache = model.init_cache(B, N_TOKENS, torch.float32)
-    k_buf = cache["stack"]["k"]
+    k_buf = next(iter(cache["stack"].values()))
     for i in range(N_TOKENS):
         logits, cache = model.decode_step(_t(case["toks"][:, i:i + 1]), cache, i)
         np.testing.assert_allclose(logits.numpy(), case["logits"][i], **MODEL,
                                    err_msg=f"step {i}")
-    assert cache["stack"]["k"] is k_buf                       # written in place
-    for name in ("k", "v"):                   # the port's cache is head-major
-        np.testing.assert_allclose(cache["stack"][name].numpy(),
-                                   case["cache"]["stack"][name].swapaxes(2, 3), **FP32)
+    assert next(iter(cache["stack"].values())) is k_buf      # written in place
+    want = _port_cache(case["cache"]["stack"])                # GQA: head-major
+    assert set(cache["stack"]) == set(want)
+    for name, t in cache["stack"].items():
+        np.testing.assert_allclose(t.numpy(), want[name], **FP32)
+    assert len(cache.get("dense", [])) == len(case["cache"].get("dense", []))
+    for got, jc in zip(cache.get("dense", []), case["cache"].get("dense", [])):
+        for name, t in got.items():
+            np.testing.assert_allclose(t.numpy(), _port_cache(jc)[name], **FP32)
 
 
 @torch.no_grad()
@@ -208,7 +251,8 @@ def test_sdim_decode_step_matches_jax(case, monkeypatch):
                                    err_msg=f"step {i}")
     hashed = np.concatenate(hashed)
     cfg = model.cfg
-    assert len(hashed) == N_TOKENS * cfg.n_layers * B * (cfg.n_kv_heads + cfg.n_heads)
+    key_heads = 1 if cfg.attention == "mla" else cfg.n_kv_heads    # MLA: the latent
+    assert len(hashed) == N_TOKENS * cfg.n_scan_layers * B * (key_heads + cfg.n_heads)
     assert clears_margin(hashed, case["R"], HASH_MARGIN).all(), f"seed {case['seed']}"
     assert scache["len"] == N_TOKENS == int(case["scache"]["len"])
     np.testing.assert_array_equal(scache["ct"].numpy(), case["scache"]["ct"])
@@ -218,12 +262,14 @@ def test_sdim_decode_step_matches_jax(case, monkeypatch):
 @torch.no_grad()
 def test_encode_sdim_cache_from_kv_matches_jax(case):
     """The offline pass over the exact cache (whose keys clear the margin
-    too), with and without a mask; its layer 0 equals the incremental
-    path's (the same keys: layer 0 sees the same inputs on both paths)."""
+    too), with and without a mask; its first scanned layer equals the
+    incremental path's where that layer sees the same inputs on both paths
+    (with ``first_k_dense``, after the dense blocks are made to pass their
+    input through: the SDIM path skips them, C6)."""
     model = _port(case)
-    cache = {"stack": {k: _t(v.swapaxes(2, 3)) for k, v in case["cache"]["stack"].items()}}
-    assert clears_margin(case["cache"]["stack"]["k"].reshape(-1, model.cfg.head_dim),
-                         case["R"], HASH_MARGIN).all(), f"seed {case['seed']}"
+    cache = {"stack": {k: _t(v) for k, v in _port_cache(case["cache"]["stack"]).items()}}
+    assert clears_margin(_keys(case["cache"]["stack"]), case["R"], HASH_MARGIN).all(), \
+        f"seed {case['seed']}"
     for mask, want in ((None, case["encoded"]), (case["mask"], case["encoded_masked"])):
         got = model.encode_sdim_cache_from_kv(cache, None if mask is None else _t(mask))
         np.testing.assert_array_equal(got["ct"].numpy(), want["ct"])
@@ -231,8 +277,55 @@ def test_encode_sdim_cache_from_kv_matches_jax(case):
     full = model.encode_sdim_cache_from_kv(cache)
     again = model.encode_sdim_cache_from_kv(cache)
     assert again["vt"].equal(full["vt"]) and again["ct"].equal(full["ct"])   # same bits twice
+    if model.cfg.first_k_dense:
+        _pass_through_dense_blocks(model)
+        cache = model.init_cache(B, N_TOKENS, torch.float32)
+        for i in range(N_TOKENS):
+            model.decode_step(_t(case["toks"][:, i:i + 1]), cache, i)
+        assert clears_margin(_keys({k: v.numpy() for k, v in cache["stack"].items()}),
+                             case["R"], HASH_MARGIN).all(), f"seed {case['seed']}"
+        full = model.encode_sdim_cache_from_kv(cache)
     scache = model.init_sdim_cache(B)
     for i in range(N_TOKENS):
         model.sdim_decode_step(_t(case["toks"][:, i:i + 1]), scache)
     np.testing.assert_array_equal(scache["ct"][0].numpy(), full["ct"][0].numpy())
     np.testing.assert_allclose(scache["vt"][0].numpy(), full["vt"][0].numpy(), **FP32)
+
+
+@pytest.mark.parametrize("arch_id", ["deepseek-moe-16b", "deepseek-v2-236b"])
+def test_sdim_decode_skips_the_dense_blocks_c6(arch_id):
+    """Fault C6 of the reference, copied on purpose: with every parameter
+    of the ``first_k_dense`` blocks set to 1.7, SDIM decode gives the same
+    logits in both packages (the blocks are never run) while exact decode
+    moves; the port's logits match the reference's either way."""
+    seed = SEEDS[arch_id]
+    jm = JLMModel(jregistry.get(arch_id).SMOKE)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(seed)))
+    moved = dict(params, dense_blocks=jax.tree_util.tree_map(lambda a: np.full_like(a, 1.7),
+                                                             params["dense_blocks"]))
+    toks = np.random.default_rng(seed).integers(0, jm.cfg.vocab, (B, 4)).astype(np.int32)
+    R = np.asarray(jm._sdim_R())
+    exact, compressed = jax.jit(jm.decode_step), jax.jit(jm.sdim_decode_step)
+    out = {}
+    for name, p in (("original", params), ("moved", moved)):
+        model = load_jax_lm_params(LMModel(registry.get(arch_id).SMOKE, device="cpu"), p, R)
+        jc, jsc = jm.init_cache(B, 4, jnp.float32), jm.init_sdim_cache(B)
+        c, sc = model.init_cache(B, 4, torch.float32), model.init_sdim_cache(B)
+        runs = {k: [] for k in ("jexact", "jsdim", "exact", "sdim")}
+        for i in range(4):
+            t = toks[:, i:i + 1]
+            lg, jc = exact(p, jnp.asarray(t), jc, i)
+            slg, jsc = compressed(p, jnp.asarray(t), jsc)
+            runs["jexact"].append(np.asarray(lg))
+            runs["jsdim"].append(np.asarray(slg))
+            with torch.no_grad():
+                runs["exact"].append(model.decode_step(_t(t), c, i)[0].numpy())
+                runs["sdim"].append(model.sdim_decode_step(_t(t), sc)[0].numpy())
+        out[name] = {k: np.stack(v) for k, v in runs.items()}
+        np.testing.assert_allclose(out[name]["exact"], out[name]["jexact"], **MODEL)
+        np.testing.assert_allclose(out[name]["sdim"], out[name]["jsdim"], **MODEL)
+    a, b = out["original"], out["moved"]
+    for key in ("jsdim", "sdim"):
+        np.testing.assert_array_equal(a[key], b[key])        # unchanged: C6
+    for key in ("jexact", "exact"):
+        assert np.isfinite(b[key]).all() and np.abs(a[key] - b[key]).max() > 0.1
