@@ -19,7 +19,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    version at the main paths' shapes (CUDA events, median of 30 after 3
    warm-up calls, wrapper included), the device time per call of each
    kernel, its plain version and the library call there (torch.profiler
-   over 20 calls), the bound from the bytes and
+   over 20 calls, with the device launches it recorded of those the calls
+   made: ``*_device_launches``; where it recorded fewer, the time per call
+   comes from the calls they make up), the bound from the bytes and
    FLOP this run's data needs, and for target attention the time of
    PyTorch's ``scaled_dot_product_attention`` on the same inputs (a
    yardstick only). All six kernels split or share their work without
@@ -244,8 +246,34 @@ Phases, each of which raises (exit code != 0) when it fails:
    but the unread embedding rows (the MoE runs every expert over its
    capacity buffer, as the reference), plus the cache read, over 3.35 TB/s.
    Prints the phase's wall time.
+15. LM training path — ``lm_train``, on the card freed by phase 14, each
+   model from the port's init (seed 0), fp32 with TF32 off, trained through
+   ``launch.train.lm_setup`` and ``train.loop.run`` (AdamW 3e-4,
+   warmup-cosine, clip 1) on ``lm_stream``'s batches. LM training launches
+   none of the port's kernels (the reference's reaches no Pallas kernel):
+   its counts are read and all are 0. (a) granite-3-2b FULL (40 layers,
+   2,533,531,648 parameters, remat "full") at B = 2 x 4,096 tokens
+   (LM_SHAPES' train_4k length; its global batch of 256 cut to 2): 4 AdamW
+   steps, every loss finite; ms/step (median after the first), tokens/s,
+   ``launch/flops.py``'s model flops over 67 TFLOP/s, peak memory beside
+   the prediction; one more step under torch.profiler; then one batch
+   repeated for 4 steps, whose last loss must lie below its first. (b)
+   granite-3-2b at full width cut to 4 layers, B = 1 x 4,096: the loss and
+   every gradient under remat "full", "dots" and "dots_no_batch" equal
+   "none"'s bit for bit. (c) Two trainings of 3 AdamW steps from one seed
+   end with parameters of the same bits: granite-3-2b at 4 layers (tied
+   embedding), deepseek-moe-16b at 4 layers (the MoE dispatch). (d)
+   deepseek-moe-16b at full width cut to 4 layers (1 dense, 3 MoE;
+   2,267,039,744 parameters), B = 1 x 4,096, remat "full": the first of
+   (c)'s trainings, with ms/step, peak memory and each step's aux loss, and
+   one profiled forward and backward pass. (e) deepseek-v2-236b at full
+   width cut to 2 layers, B = 1 x 2,048: one forward and backward pass and
+   no optimizer step (its AdamW state does not fit one card), every
+   gradient finite; the dense block's MLAttention forward and backward on
+   its chunked path (CUDA events) and peak memory. Prints the phase's wall
+   time.
 
-Every launch count is set to 0 just before each of phases 4-14 and read
+Every launch count is set to 0 just before each of phases 4-15 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -254,7 +282,7 @@ phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve;
 phases 13 and 14 sdim_query; phase 14's counts are read after each
 arch's SDIM decode and summed, so they count decode tokens only, as
-phase 13's).
+phase 13's; phase 15 none).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -267,7 +295,7 @@ wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
-as ``moe_mla``), then as the last line
+as ``moe_mla``, phase 15 as ``lm_train``), then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -350,6 +378,21 @@ HBM = 3.35e12
 # exact decode against the forward within MOE_TOL of the largest |logit|
 MOE_DECODE, MOE_CACHE_LEN, MOE_V2_LAYERS, MOE_TOL = 64, 1024, 2, 1e-5
 MOE_PARAMS = {"deepseek-moe-16b": 16_375_728_128, "deepseek-v2-236b": 5_358_679_040}
+# phase 15: LM training. (a) granite-3-2b FULL (LMT_GRANITE_PARAMS
+# parameters) at LMT_B x LMT_SEQ tokens (LM_SHAPES["train_4k"]'s length, its
+# global batch cut), LMT_STEPS AdamW steps timed, then LMT_REPEAT on one
+# batch; peak memory against LMT_PEAK_PREDICTED (GiB); model flops over the
+# card's fp32 peak FP32_PEAK (TF32 off). (b), (c) granite-3-2b cut to
+# LMT_CUT_LAYERS layers; (c), (d) deepseek-moe-16b cut to LMT_MOE_LAYERS
+# (LMT_MOE_PARAMS parameters), each trained twice for LMT_REPRO_STEPS steps;
+# (e) deepseek-v2-236b at LMT_V2_LAYERS layers, one backward at LMT_V2_SEQ
+LMT_B, LMT_SEQ, LMT_STEPS, LMT_REPEAT = 2, 4096, 4, 4
+LMT_GRANITE_PARAMS = 2_533_531_648
+LMT_PEAK_PREDICTED = (45, 60)
+FP32_PEAK = 67e12
+LMT_CUT_LAYERS, LMT_REPRO_STEPS = 4, 3
+LMT_MOE_LAYERS, LMT_MOE_PARAMS = 4, 2_267_039_744
+LMT_V2_LAYERS, LMT_V2_SEQ = 2, 2048
 # the widest table row (at m = 48, tau = 3) whose sdim_query fits
 # fused_query.cuh's shared memory on the H100; wider rows take the wide path
 FUSED_MAX_D = 256
@@ -378,10 +421,20 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# the host calls that put one operation on the card; torch.profiler records
+# each of them on the host, beside the device operation it starts
+LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"})
+
+
 def device_ms(fn, n: int = 20):
-    """Device time per call: the summed durations of the device operations
-    of n calls under torch.profiler, over n; None where the profiler sees no
-    device time."""
+    """Device time per call of ``fn`` under torch.profiler over n calls,
+    and the device launches it was taken over: (ms, {"seen": device
+    operations recorded, "of": launches the host made}). Late in a long run
+    the profiler has recorded only some of the launches made back to back
+    (4 of 20): then it says so, and the time per call is the recorded
+    operations' summed durations over the calls they make up (seen / (of /
+    n)), not over n. (None, ...) where it recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,17 +445,42 @@ def device_ms(fn, n: int = 20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / n / 1e3 if us > 0 else None
+    events = prof.events()
+    dev = [e.time_range.end - e.time_range.start for e in events
+           if e.device_type == DeviceType.CUDA]
+    made = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS)
+    seen = dict(seen=len(dev), of=made)
+    if not dev or sum(dev) <= 0:
+        return None, seen
+    calls = n * min(1.0, len(dev) / made) if made else n
+    if len(dev) < made:
+        print(f"device_ms: the profiler recorded {len(dev)} of the {made} device launches of "
+              f"{n} calls; the time per call is over the {calls:.4g} calls they make up")
+    return sum(dev) / calls / 1e3, seen
+
+
+def device_times(kernel, plain, library=None) -> dict:
+    """``device_ms`` of a kernel, its plain version and the library call (if
+    any), each beside the launches it was taken over."""
+    out = {}
+    for key, fn in (("device", kernel), ("plain_device", plain), ("library_device", library)):
+        ms, seen = (None, None) if fn is None else device_ms(fn)
+        out[f"{key}_ms"], out[f"{key}_launches"] = ms, seen
+    return out
 
 
 def device_line(dt: dict) -> str:
-    """Device times per call of kernel, plain version and library call."""
-    show = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    parts = [f"device {show(dt['device_ms'])}", f"plain {show(dt['plain_device_ms'])}"]
-    if dt["library_device_ms"] is not None:
-        parts.append(f"library {show(dt['library_device_ms'])}")
+    """Device times per call of kernel, plain version and library call,
+    with the launches each was taken over."""
+    def show(key):
+        ms, seen = dt[f"{key}_ms"], dt[f"{key}_launches"]
+        if ms is None:
+            return "not measured"
+        return f"{ms:.4f} ms ({seen['seen']} of {seen['of']} launches recorded)"
+
+    parts = [f"device {show('device')}", f"plain {show('plain_device')}"]
+    if dt["library_device_launches"] is not None:
+        parts.append(f"library {show('library_device')}")
     return ", ".join(parts)
 
 
@@ -476,15 +554,15 @@ def query_at_call(torch, label, q, table, R, tau, extra=()) -> dict:
         kq = dict(shape=list(q.shape), table=list(table.shape),
                   path="wide" if d > FUSED_MAX_D else "fused", max_abs_err=err,
                   ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=None, device_ms=device_ms(kernel),
-                  plain_device_ms=device_ms(plain), device_spread=kernel_spread(torch, kernel),
+                  library_ms=None, **device_times(kernel, plain),
+                  device_spread=kernel_spread(torch, kernel),
                   back_to_back_ms=a.elapsed_time(b) / 200)
     print(f"{label} (d) sdim_query {tuple(q.shape)} x table {tuple(table.shape)} on its "
           f"{kq['path']} path: {kq['ms']:.4f} ms, plain {kq['plain_ms']:.4f} ms, bound "
           f"{bound_ms:.6f} ms ({bound_by}; the {int(sel_rows)} of "
           f"{table.shape[0] * table.shape[1] * table.shape[2]} table rows its queries "
-          f"select), {kq['ms'] / bound_ms:.0f}x the bound; device {kq['device_ms']} / plain "
-          f"{kq['plain_device_ms']} ms; back to back {kq['back_to_back_ms']:.4f} ms a "
+          f"select), {kq['ms'] / bound_ms:.0f}x the bound; {device_line(kq)}; back to back "
+          f"{kq['back_to_back_ms']:.4f} ms a "
           f"launch; the kernel's launches under the profiler "
           f"{json.dumps(kq['device_spread'])}; max abs err {err:.3g}"
           f"{''.join(f', also at {name}' for name, *_ in extra)}; the same bits twice")
@@ -571,9 +649,10 @@ def kernel_phase(torch, dev, d: int = D):
         fn = partial(bse_encode_cuda, seq, mask, R, TAU, splits)
         check_close(f"bse_encode, {splits} group slices", fn(),
                     bse_encode_ref(seq, mask, R, TAU), **ATOMIC)
-        k1, k2, dev_ms = time_ms(fn), time_ms(fn), device_ms(fn)
+        k1, k2, (dev_ms, seen) = time_ms(fn), time_ms(fn), device_ms(fn)
         print(f"bse_encode at {splits} group slices per user ({BURST * splits} CTAs): "
-              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device {dev_ms} ms")
+              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), device {dev_ms} ms "
+              f"({seen['seen']} of {seen['of']} launches recorded)")
     rows.append(("bse_encode", "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode.cu",
                  "src/repro/kernels/sdim_bucket/sdim_bucket.py:117", err,
                  partial(bse_encode, seq, mask, R, TAU),
@@ -633,8 +712,9 @@ def kernel_phase(torch, dev, d: int = D):
     _, st, sc = stores[1]
     fn = partial(sdim_fused_serve, st, slots, q, R, TAU, scales=sc, present=present)
     k1, k2 = time_ms(fn), time_ms(fn)
+    dev_ms, seen = device_ms(fn)
     print(f"sdim_fused_serve{at}, int8 store: {min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), "
-          f"device {device_ms(fn)} ms")
+          f"device {dev_ms} ms ({seen['seen']} of {seen['of']} launches recorded)")
     rows.append(("sdim_fused_serve",
                  "src/repro_torch/kernels/sdim_fused_serve/csrc/sdim_fused_serve.cu",
                  "src/repro/kernels/sdim_fused_serve/sdim_fused_serve.py:86", max(errs.values()),
@@ -704,8 +784,7 @@ def kernel_phase(torch, dev, d: int = D):
         # kernel, plain, plain, kernel: both seen under the same clocks
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
-        dt = dict(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
-                   library_device_ms=None if library is None else device_ms(library))
+        dt = device_times(kernel, plain, library)
         timed.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, **dt))
@@ -807,8 +886,7 @@ def folded_retrieval(torch, dev, rng, t, d):
     for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
-        dt = dict(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
-                   library_device_ms=None if library is None else device_ms(library))
+        dt = device_times(kernel, plain, library)
         info[name] = dict(shape=dict(users=n, L=l, C=1, d=d), ms=min(k1, k2),
                           plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=lib_ms, max_abs_err=err, **dt)
@@ -3091,6 +3169,251 @@ def moe_mla_phase(torch, dev, wrappers):
     return launches, kq
 
 
+def free_card(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def lm_model(torch, dev, cfg, arch_id, params=None):
+    """An LMModel of ``cfg`` on the card from the port's init (seed 0),
+    its parameter count checked against ``params``."""
+    from repro_torch.models.lm import LMModel
+
+    t0 = time.perf_counter()
+    model = LMModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"lm_train {arch_id} ({cfg.n_layers} layers, remat {cfg.remat!r}): init "
+          f"{time.perf_counter() - t0:.2f} s, {n:,} parameters ({4 * n / 2**30:.2f} GiB fp32)")
+    if params is not None and n != params:
+        raise AssertionError(f"lm_train: {arch_id} has {n} parameters, not {params}")
+    return model
+
+
+def lm_train_run(model, batch, seq, steps, stream=None):
+    """``steps`` AdamW steps of ``launch.train.lm_setup`` through
+    ``train.loop.run`` (``stream``: its own unless given); fails on a
+    non-finite loss. Returns (run's output, the losses, the step times in
+    ms)."""
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.train.loop import LoopConfig, run
+
+    loss_fn, own, opt = lm_setup(model.cfg, batch, seq, steps)
+    out = run(loss_fn, model, stream or own, opt, LoopConfig(n_steps=steps, log_every=1))
+    losses = [m["loss"] for _, m in out["history"]]
+    times = [1e3 * m["step_time_s"] for _, m in out["history"]]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train {model.cfg.name}: losses {losses}")
+    return out, losses, times
+
+
+def same_trained_bits(torch, label, first, second) -> None:
+    """Two trained models' parameters must be equal bit for bit."""
+    differ = [n for (n, a), (_, b) in zip(first.named_parameters(), second.named_parameters())
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"lm_train (c) {label}: two trainings from one seed differ in "
+                             f"{len(differ)} parameters, first {differ[:3]}")
+    print(f"lm_train (c) {label}: two trainings of {LMT_REPRO_STEPS} AdamW steps from one seed "
+          f"end with the same bits in all {len(list(first.parameters()))} parameters")
+
+
+def lm_train_granite(torch, dev) -> dict:
+    """Phase 15 (a): granite-3-2b FULL trained at LMT_B x LMT_SEQ."""
+    from repro_torch.configs import granite_3_2b, registry
+    from repro_torch.data.pipeline import DeterministicStream
+    from repro_torch.launch import flops
+    from repro_torch.launch.train import lm_setup, lm_stream
+    from repro_torch.train.loop import make_train_step
+
+    free_card(torch)
+    cfg = granite_3_2b.FULL
+    model = lm_model(torch, dev, cfg, "granite-3-2b", LMT_GRANITE_PARAMS)
+    out, losses, times = lm_train_run(model, LMT_B, LMT_SEQ, LMT_STEPS)
+    ms = statistics.median(times[1:])
+    shape = registry.LM_SHAPES["train_4k"]
+    work = flops.model_flops("granite-3-2b", "train_4k") * LMT_B / shape["global_batch"]
+    r = dict(losses=losses, step_ms=times, ms_per_step=ms,
+             tokens_per_s=LMT_B * LMT_SEQ / (ms / 1e3), model_flops=work,
+             flop_share=work / (ms / 1e3) / FP32_PEAK,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"lm_train (a) granite-3-2b FULL, B = {LMT_B} x {LMT_SEQ} tokens (train_4k's length; "
+          f"its global batch of {shape['global_batch']} cut to {LMT_B}), remat 'full', fp32, "
+          f"AdamW: losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
+          f"{', '.join(f'{t:.1f}' for t in times)}; {ms:.1f} ms/step (median after the first), "
+          f"{r['tokens_per_s']:.0f} tokens/s; model flops {work:.4g} a step "
+          f"(launch/flops.py: 6 N D + attention) = {r['flop_share']:.1%} of {FP32_PEAK / 1e12:g} "
+          f"TFLOP/s fp32 (no TF32); max_memory_allocated {r['peak_gib']:.2f} GiB (predicted "
+          f"{LMT_PEAK_PREDICTED[0]}-{LMT_PEAK_PREDICTED[1]} GiB); {card_line()}")
+    # one more step under torch.profiler, then one batch repeated
+    loss_fn, _, opt = lm_setup(cfg, LMT_B, LMT_SEQ, LMT_STEPS)
+    _, step = make_train_step(loss_fn, opt)
+    state = out["state"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in lm_stream(cfg, LMT_B, LMT_SEQ)(LMT_STEPS).items()}
+    r["profile"] = profile_window(torch, "lm_train granite-3-2b step",
+                                  lambda: step(state, batch))
+    del out, state
+    free_card(torch)
+    fixed = lm_stream(cfg, LMT_B, LMT_SEQ)(0)
+    _, repeated, _ = lm_train_run(model, LMT_B, LMT_SEQ, LMT_REPEAT,
+                                  stream=DeterministicStream(lambda s: fixed, 0))
+    if not repeated[-1] < repeated[0]:
+        raise AssertionError(f"lm_train (a): the loss on one batch repeated did not fall: "
+                             f"{repeated}")
+    r["repeated_losses"] = repeated
+    print(f"lm_train (a) one batch repeated for {LMT_REPEAT} steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in repeated)} (falls)")
+    return r
+
+
+def lm_train_remat_and_repro(torch, dev) -> dict:
+    """Phase 15 (b) and (c) for granite-3-2b cut to LMT_CUT_LAYERS layers."""
+    from repro_torch.configs import granite_3_2b
+
+    free_card(torch)
+    g = torch.Generator(device=dev).manual_seed(15)
+    tokens = torch.randint(0, granite_3_2b.FULL.vocab, (1, LMT_SEQ + 1), generator=g, device=dev)
+    runs, ms = {}, {}
+    for remat in ("none", "full", "dots", "dots_no_batch"):
+        cfg = dataclasses.replace(granite_3_2b.FULL, n_layers=LMT_CUT_LAYERS, remat=remat)
+        model = lm_model(torch, dev, cfg, f"granite-3-2b at {LMT_CUT_LAYERS} layers")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(tokens[:, :-1], tokens[:, 1:])
+        loss.backward()
+        torch.cuda.synchronize()
+        ms[remat] = dict(ms=1e3 * (time.perf_counter() - t0),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        runs[remat] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()})
+        del model, loss
+    loss, grads = runs.pop("none")
+    for remat, (r_loss, r_grads) in runs.items():
+        differ = [n for n, gr in grads.items() if not torch.equal(r_grads[n], gr)]
+        if not torch.equal(r_loss, loss) or differ:
+            raise AssertionError(f"lm_train (b): remat {remat!r} differs from 'none' (loss "
+                                 f"{float(r_loss)} vs {float(loss)}; gradients {differ[:3]})")
+    print(f"lm_train (b) granite-3-2b at {LMT_CUT_LAYERS} layers, B = 1 x {LMT_SEQ}: the loss "
+          f"({float(loss):.6f}) and all {len(grads)} gradients under remat 'full', 'dots' and "
+          f"'dots_no_batch' equal 'none' bit for bit; fwd+bwd ms and peak GiB (first call "
+          f"each): {json.dumps(ms)}")
+    del runs, grads
+    # (c) two trainings from one seed
+    cfg = dataclasses.replace(granite_3_2b.FULL, n_layers=LMT_CUT_LAYERS)
+    trained = []
+    for _ in range(2):
+        model = lm_model(torch, dev, cfg, f"granite-3-2b at {LMT_CUT_LAYERS} layers")
+        out, _, _ = lm_train_run(model, 1, LMT_SEQ, LMT_REPRO_STEPS)
+        del out
+        trained.append(model)
+    same_trained_bits(torch, f"granite-3-2b at {LMT_CUT_LAYERS} layers", *trained)
+    return dict(remat=ms)
+
+
+def lm_train_moe(torch, dev) -> dict:
+    """Phase 15 (c) and (d): deepseek-moe-16b at full width cut to
+    LMT_MOE_LAYERS layers, trained twice from one seed (the first timed and
+    profiled, with each step's aux loss)."""
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.launch.train import lm_setup, lm_stream
+
+    free_card(torch)
+    cfg = dataclasses.replace(deepseek_moe_16b.FULL, n_layers=LMT_MOE_LAYERS)
+    label = f"deepseek-moe-16b at {LMT_MOE_LAYERS} layers"
+    first = lm_model(torch, dev, cfg, label, LMT_MOE_PARAMS)
+    aux = []
+    hook = first.register_forward_hook(lambda m, i, o: aux.append(float(o[1].detach())))
+    out, losses, times = lm_train_run(first, 1, LMT_SEQ, LMT_REPRO_STEPS)
+    hook.remove()
+    r = dict(losses=losses, aux=aux, step_ms=times, ms_per_step=statistics.median(times[1:]),
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"lm_train (d) {label} (1 dense, {cfg.n_scan_layers} MoE; 28 layers cut), B = 1 x "
+          f"{LMT_SEQ}, remat 'full', fp32, AdamW: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"aux loss a step {', '.join(f'{x:.6f}' for x in aux)}; step ms "
+          f"{', '.join(f'{t:.1f}' for t in times)}; {r['ms_per_step']:.1f} ms/step (median after "
+          f"the first); max_memory_allocated {r['peak_gib']:.2f} GiB")
+    loss_fn = lm_setup(cfg, 1, LMT_SEQ, LMT_REPRO_STEPS)[0]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in lm_stream(cfg, 1, LMT_SEQ)(LMT_REPRO_STEPS).items()}
+
+    def fwd_bwd():
+        loss_fn(first, batch).backward()
+        for p in first.parameters():
+            p.grad = None
+
+    r["profile"] = profile_window(torch, f"lm_train {label} forward and backward", fwd_bwd)
+    del out
+    free_card(torch)
+    second = lm_model(torch, dev, cfg, label)
+    lm_train_run(second, 1, LMT_SEQ, LMT_REPRO_STEPS)
+    same_trained_bits(torch, label, first, second)
+    return r
+
+
+def lm_train_mla(torch, dev) -> dict:
+    """Phase 15 (e): deepseek-v2-236b at full width cut to LMT_V2_LAYERS
+    layers, one forward and backward pass (its AdamW state does not fit)."""
+    from repro_torch.configs import deepseek_v2_236b
+
+    free_card(torch)
+    cfg = dataclasses.replace(deepseek_v2_236b.FULL, n_layers=LMT_V2_LAYERS)
+    label = f"deepseek-v2-236b at {LMT_V2_LAYERS} layers"
+    model = lm_model(torch, dev, cfg, label, MOE_PARAMS["deepseek-v2-236b"])
+    g = torch.Generator(device=dev).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab, (1, LMT_V2_SEQ + 1), generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(tokens[:, :-1], tokens[:, 1:])
+    loss.backward()
+    torch.cuda.synchronize()
+    r = dict(loss=float(loss.detach()), fwd_bwd_ms=1e3 * (time.perf_counter() - t0))
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(r["loss"]) or bad:
+        raise AssertionError(f"lm_train (e) {label}: loss {r['loss']}, gradients missing or "
+                             f"not finite: {bad[:3]}")
+    for p in model.parameters():
+        p.grad = None
+    # the latent attention's chunked path (T >= 2 q_chunk), forward and backward
+    attn = model.dense_blocks[0].attn
+    x = torch.randn((1, LMT_V2_SEQ, cfg.d_model), generator=g, device=dev, requires_grad=True)
+    w = torch.randn((1, LMT_V2_SEQ, cfg.d_model), generator=g, device=dev)
+    r["mla_chunked_ms"] = time_ms(lambda: (attn(x) * w).sum().backward(), iters=5, warmup=1)
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"lm_train (e) {label}, B = 1 x {LMT_V2_SEQ}, remat 'full', fp32: loss "
+          f"{r['loss']:.4f}, all {len(list(model.parameters()))} gradients finite, no optimizer "
+          f"step; forward and backward {r['fwd_bwd_ms']:.1f} ms (first call); one MLAttention's "
+          f"chunked path ({LMT_V2_SEQ // attn.q_chunk} chunks of {attn.q_chunk}) forward and "
+          f"backward {r['mla_chunked_ms']:.2f} ms (CUDA events, median of 5); "
+          f"max_memory_allocated {r['peak_gib']:.2f} GiB")
+    del model, x, w
+    return r
+
+
+def lm_train_phase(torch, dev, wrappers):
+    """Phase 15 (module docstring): LM training on the card. Returns the
+    path's launch counts (none of the port's kernels: LM training reaches
+    none of them) and the phase's figures."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    print(f"lm_train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the "
+          f"phase ({torch.cuda.get_device_name(dev)}; {card_line()}); LM training launches none "
+          f"of the port's kernels (the reference's reaches no Pallas kernel)")
+    reset(wrappers)
+    out = dict(granite=lm_train_granite(torch, dev))
+    out["granite_cut"] = lm_train_remat_and_repro(torch, dev)
+    out["moe"] = lm_train_moe(torch, dev)
+    out["mla"] = lm_train_mla(torch, dev)
+    launches = read_launches(wrappers, (), "lm_train")
+    print(f"lm_train figures: {json.dumps(out)}")
+    free_card(torch)
+    print(f"lm_train: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -3154,6 +3477,7 @@ def main() -> int:
     by_path["lm"], by_name["sdim_query"]["lm"] = lm_phase(torch, dev, wrappers)
     by_path["moe_mla"], moe_mla_query = moe_mla_phase(torch, dev, wrappers)
     by_name["sdim_query"].update(moe_mla_query)
+    by_path["lm_train"] = lm_train_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

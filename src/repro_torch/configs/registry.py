@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here. The
 recsys archs of the reference's registry (``repro/configs/registry.py``),
-the paper's own model and the LM archs (dense GQA, MoE and MLA); the LM
-shape set ``LM_SHAPES`` as data. ``gatedgcn`` waits for the GNN slice."""
+the paper's own model and the LM archs (dense GQA, MoE and MLA); the
+family shape sets ``LM_SHAPES``, ``GNN_SHAPES`` and ``RECSYS_SHAPES`` as
+data (``launch/flops.py`` reads them). ``gatedgcn`` waits for the GNN
+slice."""
 from __future__ import annotations
 
 import importlib
@@ -18,7 +20,7 @@ _MODULES = {"granite-3-2b": "granite_3_2b", "command-r-plus-104b": "command_r_pl
 
 _WAITING = {"gatedgcn": "the GNN slice"}
 
-# the LM family's shape set (``repro/configs/registry.py:46-52``)
+# the LM family's shape set (``repro/configs/registry.py:41-48``)
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, global_batch=256),
     "prefill_32k": dict(kind="prefill", seq=32768, global_batch=32),
@@ -27,6 +29,30 @@ LM_SHAPES = {
     # the "sdim" variant is the paper's technique (bucket-compressed KV)
     "long_500k": dict(kind="decode", seq=524288, global_batch=1),
 }
+
+# the GNN family's shape set (``repro/configs/registry.py:50-60``), for the
+# GNN slice
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="full_graph", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_classes=7),
+    "minibatch_lg": dict(kind="sampled", n_nodes=232965, n_edges=114_615_892,
+                         batch_nodes=1024, fanout=(15, 10), d_feat=602,
+                         n_classes=41),
+    "ogb_products": dict(kind="full_graph", n_nodes=2_449_029, n_edges=61_859_140,
+                         d_feat=100, n_classes=47),
+    "molecule": dict(kind="graph_batch", n_nodes=30, n_edges=64, batch=128,
+                     d_feat=16, d_edge=4, n_classes=1),
+}
+
+# the recsys family's shape set (``repro/configs/registry.py:62-67``)
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", global_batch=65536),
+    "serve_p99": dict(kind="serve", global_batch=512),
+    "serve_bulk": dict(kind="serve", global_batch=262144),
+    "retrieval_cand": dict(kind="retrieval", global_batch=1, n_candidates=1_000_000),
+}
+
+FAMILY_SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
 
 
 def get(arch_id: str):
@@ -37,3 +63,11 @@ def get(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def family(arch_id: str) -> str:
+    return get(arch_id).FAMILY
+
+
+def shapes_for(arch_id: str) -> dict[str, dict]:
+    return FAMILY_SHAPES[family(arch_id)]

@@ -1,23 +1,34 @@
 """Training launcher of the port:
 
     python -m repro_torch.launch.train --arch ARCH [--full] [--steps N]
-        [--batch B] [--ckpt DIR] [--compress {int8,bf16}] [--device {cuda,cpu}]
+        [--batch B] [--seq S] [--ckpt DIR] [--compress {int8,bf16}]
+        [--device {cuda,cpu}]
 
 Trains the arch's SMOKE configuration (``--full``: FULL) from a seeded
 initialization through the whole loop: the deterministic restartable
-stream, the optimizer, checkpoints and the watchdog. The recsys settings
-are the JAX launcher's: batches of ``generate_batch_graded`` (for
-``wide-deep`` with field ids from ``np.random.default_rng(seed + 7)``),
-Adagrad with lr 0.05 and global-norm clipping at 10. ARCH is any id of
-``configs.registry.ARCH_IDS``: ``wide-deep``, ``bst``, ``dien``,
-``bert4rec`` or ``sdim-paper``. ``--device`` defaults to cuda,
-where the kernels and their backward kernels run; ``--device cpu`` runs
-their plain PyTorch versions. Interest kinds other than the config's
-(any of ``core.interest.INTEREST_KINDS``) are trained by building the
-model from a ``dataclasses.replace`` of the config's ``interest``; the
-launcher has no flag for them (``repro_torch.bench.table23_auc`` trains
-them all). Arch families the port has not ported raise
-NotImplementedError (ROADMAP.md lists them).
+stream, the optimizer, checkpoints and the watchdog, with the JAX
+launcher's settings (``repro/launch/train.py``). ARCH is any id of
+``configs.registry.ARCH_IDS``:
+
+* the LM archs ``granite-3-2b``, ``command-r-plus-104b``, ``qwen3-8b``,
+  ``deepseek-v2-236b`` and ``deepseek-moe-16b``: next-token cross entropy
+  (plus the MoE aux loss) on ``lm_stream``'s batches of ``--batch`` rows of
+  ``--seq`` uniform random tokens, AdamW with lr 3e-4 on a warmup-cosine
+  schedule (10 warmup steps, ``--steps`` in all) and global-norm clipping
+  at 1; the config's ``remat`` checkpoints each scanned block (FULL:
+  ``"full"``) and its ``compute_dtype`` may run the loss off a bf16 cast;
+* the recsys archs ``wide-deep``, ``bst``, ``dien``, ``bert4rec`` and
+  ``sdim-paper``: batches of ``generate_batch_graded`` (for ``wide-deep``
+  with field ids from ``np.random.default_rng(seed + 7)``), Adagrad with lr
+  0.05 and global-norm clipping at 10. Interest kinds other than the
+  config's (any of ``core.interest.INTEREST_KINDS``) are trained by
+  building the model from a ``dataclasses.replace`` of the config's
+  ``interest``; the launcher has no flag for them
+  (``repro_torch.bench.table23_auc`` trains them all).
+
+``--device`` defaults to cuda, where the kernels and their backward kernels
+run; ``--device cpu`` runs their plain PyTorch versions. ``gatedgcn`` is not
+in the registry yet (ROADMAP.md, A4).
 """
 from __future__ import annotations
 
@@ -52,12 +63,34 @@ def recsys_setup(cfg, batch: int):
     return (lambda model, b: model.loss(b)[0]), stream, opt
 
 
+def lm_stream(cfg, batch: int, seq: int):
+    """The JAX launcher's ``_lm_stream``: the batch of seed s is
+    ``np.random.default_rng(s).integers(0, vocab, (batch, seq + 1))`` int32,
+    ``tokens`` its first ``seq`` columns and ``targets`` its last ``seq``."""
+    def make(seed):
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, seq + 1),
+                                                    dtype=np.int32)
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    return make
+
+
+def lm_setup(cfg, batch: int, seq: int, steps: int):
+    """(loss_fn, stream, optimizer config) of the JAX launcher's LM
+    training (``repro/launch/train.py:48-56``)."""
+    stream = DeterministicStream(lm_stream(cfg, batch, seq), 0)
+    opt = OptimizerConfig(kind="adamw", lr=3e-4, schedule="warmup_cosine", warmup_steps=10,
+                          total_steps=steps)
+    return (lambda model, b: model.loss(b["tokens"], b["targets"])), stream, opt
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
     p.add_argument("--full", action="store_true", help="the FULL config (default SMOKE)")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--seq", type=int, default=64, help="LM sequence length")
     p.add_argument("--ckpt", default=None, help="checkpoint directory (restart from it)")
     p.add_argument("--compress", default=None, choices=["int8", "bf16"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -65,14 +98,18 @@ def main(argv=None) -> dict:
 
     mod = registry.get(args.arch)
     cfg = mod.FULL if args.full else mod.SMOKE
-    if mod.FAMILY != "recsys":
-        raise NotImplementedError(f"training family {mod.FAMILY!r} is not ported (LM training "
-                                  f"waits for ROADMAP.md, A3c)")
-    from repro_torch.models.ctr import CTRModel
-
     dev = resolve_device(args.device)
-    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    loss_fn, stream, opt = recsys_setup(cfg, args.batch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mod.FAMILY == "lm":
+        from repro_torch.models.lm import LMModel
+
+        model = LMModel(cfg, device=dev, generator=gen)
+        loss_fn, stream, opt = lm_setup(cfg, args.batch, args.seq, args.steps)
+    else:
+        from repro_torch.models.ctr import CTRModel
+
+        model = CTRModel(cfg, device=dev, generator=gen)
+        loss_fn, stream, opt = recsys_setup(cfg, args.batch)
     n_params = sum(t.numel() for t in model.parameters())
     print(f"{args.arch} [{mod.FAMILY}] {'FULL' if args.full else 'SMOKE'} on {dev}: "
           f"{n_params / 1e6:.2f}M params")

@@ -4,12 +4,16 @@ transformer, grouped-query or latent attention (MLA), dense or
 mixture-of-experts FFNs, ``first_k_dense`` leading dense blocks before a
 MoE stack.
 
-Counterpart of ``repro/models/lm.py``'s serving path:
+Counterpart of ``repro/models/lm.py``'s training and serving paths:
 
 * ``forward`` (hidden states and the MoE aux loss), ``loss`` (next-token
-  cross entropy plus the aux loss, its value; with
-  ``compute_dtype="bfloat16"`` off a bf16 cast of the parameters, as the
-  reference's ``_cast_compute``) and ``prefill`` (last-position logits);
+  cross entropy plus the aux loss; with ``compute_dtype="bfloat16"`` off a
+  bf16 cast of the parameters, as the reference's ``_cast_compute``, whose
+  gradients reach the fp32 parameters through the cast) and ``prefill``
+  (last-position logits). ``loss.backward()`` gives the reference's
+  ``jax.grad`` of its loss; the stack's blocks run under the config's
+  ``remat`` (``nn/transformer.py``), which moves memory, not bits.
+  ``launch/train.py`` trains it;
 * exact KV decode: ``init_cache`` and ``decode_step``, one token against
   the caches of the dense blocks and the stack, written in place
   (``nn/attention.py``);
@@ -40,9 +44,8 @@ beside its fp64 copy ``R64`` for hashing keys. Torch cannot replay the
 reference's ``jax.random.PRNGKey(1234)``, so parity tests load the
 reference's R (``weights.load_jax_lm_params``, which sets both).
 
-Not here yet: LM training (ROADMAP.md, A3c) and the sequence-parallel
-``sp_decode_step`` (A5). The model runs on the card unless ``device="cpu"``
-is given.
+Not here yet: the sequence-parallel ``sp_decode_step`` (ROADMAP.md, A5).
+The model runs on the card unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 

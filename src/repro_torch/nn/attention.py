@@ -302,8 +302,9 @@ class MLAttention(nn.Module):
         and k_rope (B, S, dr); mask (B, T, S) or (T, S) bool or None -> (B,
         T, H·dv), the scores and the output in latent space."""
         q_lat = self.absorb_q(q_nope)
+        # the reference scales by an fp32 array: its bf16 scores become fp32
         scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
-                  + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)) * self.scale
+                  + torch.einsum("bthd,bsd->bhts", q_rope, k_rope)).float() * self.scale
         if mask is not None:
             mask = mask[:, None] if mask.ndim == 3 else mask
         probs = masked_softmax(scores, mask)

@@ -1,5 +1,5 @@
-"""Dense layers: Linear, LayerNorm, RMSNorm, Embedding, MLP, GatedMLP as
-``nn.Module``s.
+"""Dense layers: Linear, LayerNorm, RMSNorm, Embedding, PReLU, MLP,
+GatedMLP as ``nn.Module``s.
 
 Counterpart of ``repro/nn/layers.py``. Initialisation follows the JAX
 package's distributions (Linear: LeCun normal truncated at ±2σ, zero bias;
@@ -122,6 +122,19 @@ class Embedding(nn.Embedding):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding logits: x (..., dim) @ table.T -> (..., vocab)."""
         return F.linear(x, self.weight)
+
+
+class PReLU(nn.Module):
+    """x where x >= 0, else ``alpha`` · x, one slope a feature (``alpha``
+    of ``dim``, 0.25), as the JAX package's ``PReLU`` of the DIN-family
+    towers; neither package's models call it."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((dim,), 0.25, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha * x)
 
 
 class MLP(nn.Module):

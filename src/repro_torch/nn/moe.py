@@ -140,8 +140,11 @@ class MoELayer(nn.Module):
 
     def _route(self, x: torch.Tensor):
         """x (B, T, d) -> probs (B, T, E), topk_idx (B, T, k) int32,
-        topk_w (B, T, k) and the switch-style aux loss, all fp32."""
-        probs = torch.softmax(torch.einsum("btd,de->bte", x.float(), self.router.w), dim=-1)
+        topk_w (B, T, k) and the switch-style aux loss, all fp32. The logits
+        are fp32 whatever the compute dtype: the reference's ``jnp.einsum``
+        promotes a bf16 router weight to x's fp32, so the weight is
+        promoted here too (a product of two dimensions, not a batched one)."""
+        probs = torch.softmax(torch.matmul(x.float(), self.router.w.float()), dim=-1)
         topk_w, topk_idx = top_k(probs, self.top_k)            # lax.top_k's tie order
         if self.norm_topk_prob:
             topk_w = topk_w / (torch.sum(topk_w, dim=-1, keepdim=True) + 1e-20)

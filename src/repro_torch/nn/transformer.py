@@ -8,22 +8,42 @@ mixture of experts (``moe``: ``MoELayer``, whose aux loss ``Block``
 returns and ``Stack`` sums). The reference runs the stack as a
 ``lax.scan`` over parameters stacked on a leading layer axis, optionally
 rematerialized or unrolled; here it is an ``nn.ModuleList`` run in a loop,
-the same math. ``remat`` and ``scan_unroll`` are accepted and change
-nothing in serving.
+the same math (``scan_unroll``, the reference's roofline lowering, changes
+nothing). ``remat`` is the reference's activation checkpointing of each
+scanned block (``REMAT_POLICIES``): under autograd, ``"full"`` keeps only a
+block's input and runs the block again in the backward pass; ``"dots"``
+keeps the outputs of its matrix products too and ``"dots_no_batch"`` those
+of its products without a batch dimension, recomputing the rest;
+``"none"`` keeps everything. Outside autograd (serving, decode) blocks run
+plainly. The policies move memory and time, never the bits of the loss or
+a gradient.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.nn.attention import GQAttention, MLAttention
 from repro_torch.nn.layers import GatedMLP, LayerNorm, RMSNorm
 from repro_torch.nn.moe import MoELayer
 
-REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+_mm = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_bmm = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# remat -> the ops whose outputs a checkpointed block keeps (None: no
+# checkpoint), as the reference's jax.checkpoint_policies: nothing_saveable,
+# checkpoint_dots, checkpoint_dots_with_no_batch_dims. A Linear is an mm, an
+# einsum over a batch axis (attention's scores, the experts) a bmm.
+REMAT_POLICIES = {"none": None, "full": (), "dots": _mm + _bmm, "dots_no_batch": _mm}
+
+
+def _save_only(ops, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,18 +143,44 @@ class Stack(nn.ModuleList):
                  unroll: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
         if remat not in REMAT_POLICIES:
-            raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
+            raise ValueError(f"remat {remat!r} not in {tuple(REMAT_POLICIES)}")
         super().__init__([Block(cfg, device=device, generator=generator)
                           for _ in range(n_layers)])
         self.cfg, self.remat, self.unroll = cfg, remat, unroll
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None):
+        """x (B, T, d_model) -> (x, the blocks' summed aux loss); each block
+        checkpointed under ``remat`` where autograd records."""
         aux = torch.zeros((), device=x.device)
+        remat = REMAT_POLICIES[self.remat] is not None and torch.is_grad_enabled()
         for block in self:
-            x, aux_l = block(x, positions=positions, mask=mask)
+            if remat:
+                x, aux_l = self._checkpointed(block, x, positions, mask)
+            else:
+                x, aux_l = block(x, positions=positions, mask=mask)
             aux = aux + aux_l
         return x, aux
+
+    def _checkpointed(self, block: Block, x, positions, mask):
+        """``block(x)`` under ``torch.utils.checkpoint`` with the remat
+        policy. The block's parameters go in as explicit inputs and the block
+        runs on them (``functional_call``): the backward pass runs it again
+        after any outer ``functional_call`` (the bf16 cast of
+        ``LMModel.loss``) has put the model's own parameters back, and must
+        see the tensors the forward saw, through which the gradients reach
+        the parameters."""
+        names, tensors = zip(*block.named_parameters())
+
+        def run(x, *tensors):
+            return torch.func.functional_call(block, dict(zip(names, tensors)),
+                                              (x, positions, mask))
+
+        ops = REMAT_POLICIES[self.remat]
+        context = (functools.partial(create_selective_checkpoint_contexts,
+                                     functools.partial(_save_only, ops)) if ops
+                   else noop_context_fn)
+        return checkpoint(run, x, *tensors, use_reentrant=False, context_fn=context)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
         one = self[0].attn.init_cache(batch, max_len, dtype, device="meta")

@@ -242,11 +242,15 @@ def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
     return model
 
 
-def export_lm_params(model) -> dict:
+def export_lm_params(model, grad: bool = False) -> dict:
     """The reference's params pytree of an ``LMModel`` as numpy arrays
     (copies; the stack's leaves stacked on a leading n_layers axis), the
-    inverse of ``load_jax_lm_params``. R is not in it."""
+    inverse of ``load_jax_lm_params``; with ``grad=True`` the parameters'
+    ``.grad``s in the same tree (zeros where a parameter has none), the tree
+    ``jax.grad`` of the reference's loss gives. R is not in it."""
     def arr(t: torch.Tensor, transpose: bool) -> np.ndarray:
+        if grad:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
         x = t.detach().float().cpu().numpy()
         return np.array(x.T if transpose else x, order="C")
 

@@ -1256,6 +1256,116 @@ def test_lm_smoke_decode_on_the_card_matches_the_cpu(arch_id, dev, monkeypatch):
     assert torch.equal(enc["vt"], card.encode_sdim_cache_from_kv(cg)["vt"])
 
 
+# LM training at SMOKE (numpy-drawn weights, the same on both devices): the
+# MoE archs' seeds put every token's top_k-th and (top_k + 1)-th router
+# probabilities more than ROUTE_GAP apart in fp32 and bf16 compute, so the
+# two devices route alike (asserted on the CPU)
+LM_TRAIN_SEEDS = {"granite-3-2b": 24, "qwen3-8b": 23, "command-r-plus-104b": 29,
+                  "deepseek-moe-16b": 3, "deepseek-v2-236b": 33}
+ROUTE_GAP = 1e-2
+
+
+def _lm_train_pair(arch_id, dev, **over):
+    """(CPU model, card model) of an LM arch at SMOKE with ``over`` replaced,
+    on numpy-drawn weights, and the numpy generator after the draw."""
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LMModel
+
+    cfg = dataclasses.replace(registry.get(arch_id).SMOKE, **over)
+    cpu = LMModel(cfg, device="cpu")
+    rng = _numpy_lm(cpu, LM_TRAIN_SEEDS[arch_id])
+    card = LMModel(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, rng
+
+
+def _loss_and_grads(model, toks):
+    for p in model.parameters():
+        p.grad = None
+    t = toks.to(model.device)
+    loss = model.loss(t[:, :-1], t[:, 1:])
+    loss.backward()
+    return loss.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch_id", list(LM_TRAIN_SEEDS))
+def test_lm_smoke_loss_and_gradients_on_the_card_match_the_cpu(arch_id, compute_dtype, dev,
+                                                               monkeypatch):
+    """An LM arch's loss and every parameter's gradient (remat "full") on
+    the card against the CPU: fp32 within atol 1e-5 of the largest gradient
+    and rtol 1e-5, bf16 compute within 2e-2 of the largest and rtol 2e-2;
+    the MoE archs' routes apart by ROUTE_GAP on the CPU."""
+    from repro_torch.nn.moe import MoELayer
+
+    cpu, card, rng = _lm_train_pair(arch_id, dev, compute_dtype=compute_dtype, remat="full")
+    toks = torch.from_numpy(rng.integers(0, cpu.cfg.vocab, (2, 9)).astype(np.int32))
+    gaps, route = [], MoELayer._route
+
+    def recorded(self, x):
+        out = route(self, x)
+        if x.device.type == "cpu":
+            top = torch.sort(out[0].detach(), dim=-1, descending=True).values
+            gaps.append(float((top[..., self.top_k - 1] - top[..., self.top_k]).min()))
+        return out
+
+    monkeypatch.setattr(MoELayer, "_route", recorded)
+    loss, grads = _loss_and_grads(cpu, toks)
+    card_loss, card_grads = _loss_and_grads(card, toks)
+    assert (len(gaps) > 0) == (cpu.cfg.moe is not None) and min(gaps, default=1.0) > ROUTE_GAP
+    rel = 1e-5 if compute_dtype == "float32" else 2e-2
+    torch.testing.assert_close(card_loss, loss, atol=rel * float(loss.abs()), rtol=rel)
+    atol = rel * max(float(g.abs().max()) for g in grads.values())
+    for name, g in grads.items():
+        assert bool(torch.isfinite(card_grads[name]).all()), name
+        torch.testing.assert_close(card_grads[name], g, atol=atol, rtol=rel, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", list(LM_TRAIN_SEEDS))
+def test_lm_remat_gives_the_same_bits_on_the_card(arch_id, dev):
+    """Each remat policy's loss and gradients equal "none"'s bit for bit on
+    the card, in fp32 and bf16 compute."""
+    for compute_dtype in ("float32", "bfloat16"):
+        runs = {}
+        for remat in ("none", "full", "dots", "dots_no_batch"):
+            _, card, rng = _lm_train_pair(arch_id, dev, compute_dtype=compute_dtype,
+                                          remat=remat)
+            toks = torch.from_numpy(rng.integers(0, card.cfg.vocab, (2, 33)).astype(np.int32))
+            runs[remat] = _loss_and_grads(card, toks)
+        loss, grads = runs.pop("none")
+        for remat, (r_loss, r_grads) in runs.items():
+            assert torch.equal(r_loss, loss), (remat, compute_dtype)
+            for name, g in grads.items():
+                assert torch.equal(r_grads[name], g), (remat, compute_dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", list(LM_TRAIN_SEEDS))
+def test_lm_training_on_the_card_is_bit_reproducible(arch_id, dev):
+    """Two trainings of 3 AdamW steps (``launch.train.lm_setup`` through
+    ``train.loop.run``, remat "full", batches of 4 x 64 tokens of a
+    128-token vocabulary: every id repeats) from the same weights end with
+    parameters and moments of the same bits."""
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.train.loop import LoopConfig, run
+
+    states = []
+    for _ in range(2):
+        _, card, _ = _lm_train_pair(arch_id, dev, remat="full")
+        loss_fn, stream, opt = lm_setup(card.cfg, 4, 64, 3)
+        out = run(loss_fn, card, stream, opt, LoopConfig(n_steps=3, log_every=1))
+        assert all(np.isfinite(m["loss"]) for _, m in out["history"])
+        states.append(out["state"])
+    a, b = states
+    for (name, x), (_, y) in zip(a["model"].state_dict().items(), b["model"].state_dict().items()):
+        assert torch.equal(x, y), name
+    for moment in ("m", "v"):
+        for name, x in a["opt"][moment].items():
+            assert torch.equal(x, b["opt"][moment][name]), (moment, name)
+
+
 # kernel 4's wide path (csrc/wide_query.cuh): (B, C, d, m, tau); the
 # kernel's entry point takes it wherever the fused body's shared memory does
 # not fit a CTA (every width here; d <= 256 at m = 48 keeps the fused body)

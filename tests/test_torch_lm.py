@@ -15,7 +15,8 @@ the reference's init (qwen3-8b: 8,190,735,360 parameters;
 deepseek-moe-16b: 16,375,728,128; deepseek-v2-236b cut to 2 layers, as
 chip_smoke.py runs it: 5,358,679,040). Last: the params round trip, the
 registry, the serve launcher's LM branch and its refusals (the same flags
-the JAX launcher refuses), the train launcher's refusal and the example.
+the JAX launcher refuses) and the example. Training (the gradient, remat,
+the train launcher) is held in ``tests/test_torch_lm_train.py``.
 The MoE FFN and MLA are held module by module in
 ``tests/test_torch_{moe,mla}.py``; decode with SDIM-compressed KV is in
 ``tests/test_torch_lm_decode.py``.
@@ -44,7 +45,6 @@ from repro.nn import transformer as jtransformer
 from repro_torch.configs import registry
 from repro_torch.examples import lm_decode_sdim
 from repro_torch.launch import serve as launch_serve
-from repro_torch.launch import train as launch_train
 from repro_torch.models.lm import LMModel
 from repro_torch.nn import attention
 from repro_torch.nn.layers import ACTIVATIONS, Embedding, GatedMLP, RMSNorm
@@ -457,12 +457,6 @@ def test_serve_launcher_refuses_recsys_flags_for_the_moe_and_mla_archs(arch_id, 
     with pytest.raises(SystemExit) as theirs:
         jlaunch_serve.main()
     assert theirs.value.code == 2 and "is family 'lm'" in capsys.readouterr().err
-
-
-def test_train_launcher_refuses_an_lm_arch():
-    for arch_id in ("granite-3-2b", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError, match="'lm'.*A3c"):
-            launch_train.main(["--arch", arch_id, "--steps", "1", "--device", "cpu"])
 
 
 def test_example_state_is_constant_in_the_context(capsys):
