@@ -217,7 +217,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    decode, each beside its bound (every weight read once but the token
    embedding, of which one row, and the cache read, over 3.35 TB/s) and one
    step of each under torch.profiler (device-busy share, top five ops);
-   the cache bytes of both paths; the card's name and power limit.
+   the cache bytes of both paths; the card's name and power limit; (f)
+   split-KV decode (``sp_decode_step``) over 8 sequence shards on this one
+   card (``MeshCtx((cuda:0,) * 8, seq_axes=("model",))``) on (e)'s cache
+   at cache_len 1,024 and 32,767 against ``decode_step``'s logits at the
+   same position (within 1e-4 of the largest |logit|), the new token's k
+   and v against the rows ``decode_step`` writes (the first layer's bit for
+   bit, every layer's within 1e-4 of the largest), and its ms/token beside
+   exact decode's (8 shards on one card: not a speed across GPUs).
 14. MoE and latent attention path — ``deepseek-moe-16b`` FULL (28 layers,
    16,375,728,128 parameters, fp32) and ``deepseek-v2-236b`` at full width
    cut to 2 layers (its first dense block and one MoE layer with MLA,
@@ -244,8 +251,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    time of exact decode at cache_len 1,024 and of SDIM decode, one profiled
    step of each, peak memory, and each step's bound: every weight read once
    but the unread embedding rows (the MoE runs every expert over its
-   capacity buffer, as the reference), plus the cache read, over 3.35 TB/s.
-   Prints the phase's wall time.
+   capacity buffer, as the reference), plus the cache read, over 3.35 TB/s;
+   (f) split-KV decode as phase 13's (f) at cache_len 1,024, over 8
+   sequence shards with the experts over 8 expert shards (64 and 160: 8
+   and 20 a shard), every MoELayer's capacity_factor n_experts / top_k as
+   in the reference's test; for deepseek-moe-16b also one MoE layer's
+   forward at B = 2 x 64 tokens over ``MeshCtx((cuda:0,) * 4, data=2)``
+   (two data groups, 16 experts a shard) against the one-device path
+   within 1e-5 of the largest output. Prints the phase's wall time.
 15. LM training path — ``lm_train``, on the card freed by phase 14, each
    model from the port's init (seed 0), fp32 with TF32 off, trained through
    ``launch.train.lm_setup`` and ``train.loop.run`` (AdamW 3e-4,
@@ -272,8 +285,34 @@ Phases, each of which raises (exit code != 0) when it fails:
    gradient finite; the dense block's MLAttention forward and backward on
    its chunked path (CUDA events) and peak memory. Prints the phase's wall
    time.
+16. GNN path — ``gnn``: gatedgcn FULL (16 layers, d_hidden 70, remat on)
+   with ``registry.gnn_config_for_shape`` at three of its GNN_SHAPES, each
+   from the port's init (seed 0), fp32 with TF32 off, trained with the
+   launcher's AdamW (lr 1e-3) through ``train.loop.run`` on one graph
+   resident on the card: ``full_graph_sm`` (``cora_like(0)``), ``molecule``
+   (``molecule_batch(128, 30, 64, 16, 4)``, graph readout) and
+   ``minibatch_lg`` (``NeighborSampler`` of fanout (15, 10) over
+   ``random_graph(232,965, 114,615,892, 602)``, 1,024 seeds, flattened into
+   its union subgraph with ``edge_mask`` by ``data/graph.flatten_block``;
+   ogb_products, 17 GB an edge tensor and 277 GB of remat state, does not
+   fit one card). (a) 4 steps each, every loss finite; ms/step (host clock
+   to the loss's ``float``, median after the first), ``launch/flops.py``'s
+   model flops over 67 TFLOP/s, peak memory and the graph's sizes; at
+   minibatch_lg one more step under torch.profiler and then 4 more steps
+   on its one batch, whose last loss must lie below its first. (b) At
+   minibatch_lg remat on and off give the loss and every gradient with the
+   same bits. (c) Two trainings of 3 steps from one seed end with
+   parameters of the same bits (the gathers and segment sums add without
+   atomics). (d) The edge-sharded loss and gradients (``loss(graph,
+   mesh=MeshCtx((cuda:0,) * 4, data=2), axes=...)``) against the
+   one-device path, the loss within 1e-5 and every gradient within 1e-4 of
+   the largest: minibatch_lg over 8 blocks (``("data", "model")``) and
+   full_graph_sm over 4 (``("model",)``; 10,556 edges do not divide by
+   8). (e) The GNN reaches none of the port's kernels (the reference's
+   reaches no Pallas kernel): its counts are read and all are 0. Prints
+   the phase's wall time.
 
-Every launch count is set to 0 just before each of phases 4-15 and read
+Every launch count is set to 0 just before each of phases 4-16 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -282,7 +321,7 @@ phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve;
 phases 13 and 14 sdim_query; phase 14's counts are read after each
 arch's SDIM decode and summed, so they count decode tokens only, as
-phase 13's; phase 15 none).
+phase 13's; phases 15 and 16 none).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -295,7 +334,8 @@ wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
-as ``moe_mla``, phase 15 as ``lm_train``), then as the last line
+as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``), then as the
+last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -393,6 +433,19 @@ FP32_PEAK = 67e12
 LMT_CUT_LAYERS, LMT_REPRO_STEPS = 4, 3
 LMT_MOE_LAYERS, LMT_MOE_PARAMS = 4, 2_267_039_744
 LMT_V2_LAYERS, LMT_V2_SEQ = 2, 2048
+# phases 13 (f) and 14 (f): split-KV decode over SP_SHARDS sequence shards
+# on this one card (phase 14: the experts over SP_SHARDS expert shards),
+# timed over SP_TIMED steps after SP_WARM; phase 14's expert-parallel MoE
+# layer at EP_B x EP_T tokens over a (2, 4) mesh, within EP_TOL
+SP_SHARDS, SP_TIMED, SP_WARM = 8, 8, 2
+EP_B, EP_T, EP_TOL = 2, 64, 1e-5
+# phase 16: gatedgcn FULL at the GNN_TRAINED shapes, GNN_STEPS AdamW steps
+# each, GNN_REPEAT more on minibatch_lg's batch, GNN_REPRO_STEPS twice from
+# one seed; the edge-sharded loss within GNN_LOSS_TOL, its gradients within
+# GNN_GRAD_TOL of the largest (the reference's test_distributed.py:90)
+GNN_TRAINED = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_STEPS, GNN_REPEAT, GNN_REPRO_STEPS = 4, 4, 3
+GNN_LOSS_TOL, GNN_GRAD_TOL = 1e-5, 1e-4
 # the widest table row (at m = 48, tau = 3) whose sdim_query fits
 # fused_query.cuh's shared memory on the H100; wider rows take the wide path
 FUSED_MAX_D = 256
@@ -2740,17 +2793,17 @@ def sharded_phase(torch, dev, wrappers):
     return launches
 
 
-def token_ms(step) -> dict:
+def token_ms(step, timed: int = LM_TIMED, warm: int = LM_WARM) -> dict:
     """ms per token of ``step()`` (which returns logits): host clock around
     one step ending in ``.item()`` of its argmax, median [min, max] of
-    LM_TIMED steps after LM_WARM; and ``issue_ms``, the median host time
+    ``timed`` steps after ``warm``; and ``issue_ms``, the median host time
     until ``step()`` returns, before the wait: the time the host takes to
     issue the step's work (the whole step where the card keeps up with
     it)."""
-    for _ in range(LM_WARM):
+    for _ in range(warm):
         step().argmax().item()
     times, issue = [], []
-    for _ in range(LM_TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         out = step()
         issue.append(1e3 * (time.perf_counter() - t0))
@@ -2827,6 +2880,49 @@ def exact_layouts(torch, cache, g, Gq: int, layer_row_bytes: int) -> dict:
     return out
 
 
+SEQ_AXIS = {"k": 3, "v": 3, "ckv": 2, "krope": 2}     # S in a stack cache (L, B, ...)
+
+
+def sp_decode_check(torch, phase, arch_id, model, cache, tok, n: int, ctx) -> dict:
+    """Phases 13 and 14 (f): ``sp_decode_step`` at position ``n`` of
+    ``cache`` (only read) against ``decode_step``'s logits there (which
+    writes row n) within LM_TOL of the largest; the new token's rows
+    against the rows ``decode_step`` writes, the first block's bit for bit
+    (it sees the same input on both paths) and every block's within LM_TOL
+    of the largest; then ms/token of the split-KV step."""
+    shards = ctx.axis_size(ctx.seq_axes)
+    with torch.no_grad():
+        logits, new = model.sp_decode_step(tok, cache, n, ctx)
+        exact, _ = model.decode_step(tok, cache, n)
+        rel = logits_close(torch, f"{arch_id} (f) split-KV decode over {shards} sequence "
+                           f"shards at cache_len {n} vs exact", logits, exact)
+        pairs = []                                # (the first block's, got, written)
+        for i, rows in enumerate(new.get("dense", [])):
+            for name, r in rows.items():
+                pairs.append((i == 0, r[:, 0], cache["dense"][i][name].select(
+                    SEQ_AXIS[name] - 1, n)))
+        for name, r in new["stack"].items():
+            written = cache["stack"][name].select(SEQ_AXIS[name], n)
+            pairs.append((False, r[:, :, 0], written))
+            if "dense" not in new:
+                pairs.append((True, r[0, :, 0], written[0]))
+        kv_rel = 0.0
+        for first, got, want in pairs:
+            err = float((got - want).abs().max() / want.abs().max())
+            kv_rel = max(kv_rel, err)
+            if (first and not torch.equal(got, want)) or not err <= LM_TOL:
+                raise AssertionError(f"{phase} {arch_id} (f): the new token's rows differ from "
+                                     f"those decode_step writes by {err:.3g} of the largest")
+        timed = token_ms(lambda: model.sp_decode_step(tok, cache, n, ctx)[0], SP_TIMED, SP_WARM)
+    print(f"{phase} {arch_id} (f) split-KV decode, cache_len {n}: the new k/v rows equal "
+          f"decode_step's (first block bit for bit; all within {kv_rel:.3g} of the largest); "
+          f"ms/token "
+          f"{timed['ms']:.3f} [{timed['min']:.3f}-{timed['max']:.3f}] (median of {SP_TIMED} "
+          f"after {SP_WARM}), host issue {timed['issue_ms']:.3f} ms ({shards} shards on one "
+          f"card: not a speed across GPUs)")
+    return dict(rel=rel, kv_rel=kv_rel, **timed)
+
+
 def lm_phase(torch, dev, wrappers):
     """Phase 13: qwen3-8b FULL (8,190,735,360 parameters, fp32) on the card
     with the port's init (seed 0) and R (seed 1234): (a) a prefill of
@@ -2836,7 +2932,8 @@ def lm_phase(torch, dev, wrappers):
     SDIM-compressed path (layer 0's count table equal to the offline
     encode of (b)'s cache, its value table within 1e-4; finite logits;
     the next-token overlaps printed); (d) sdim_query at the path's call
-    against its plain version; (e) ms/token and the bound of each. Returns
+    against its plain version; (e) ms/token and the bound of each; (f)
+    split-KV decode over SP_SHARDS sequence shards against exact. Returns
     the path's launch counts and sdim_query's timing at the LM shape."""
     import gc
     from repro_torch.configs import qwen3_8b
@@ -2961,6 +3058,13 @@ def lm_phase(torch, dev, wrappers):
               f"(every weight once, one embedding row, the cache read), "
               f"{r['all_params_bound_ms']:.3f} ms counting the whole embedding table; "
               f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+    # (f) split-KV decode over SP_SHARDS sequence shards on this card
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    ctx = MeshCtx((dev,) * SP_SHARDS, data_axes=None, seq_axes=("model",))
+    for n in LM_CACHE_LENS:
+        timed[f"sp@{n}"] = sp_decode_check(torch, "lm", "qwen3-8b", model, cache, tok, n, ctx)
+        print(f"lm (f) ms/token at cache_len {n}: split-KV {timed[f'sp@{n}']['ms']:.3f}, exact "
+              f"{timed[f'exact@{n}']['ms']:.3f}")
     print(f"lm: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{card_line()}")
     print(f"lm ms/token: {json.dumps(timed)}")
@@ -2988,10 +3092,11 @@ def cache_row_bytes(cfg) -> int:
 
 
 def moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g) -> tuple[dict, dict]:
-    """Phase 14 for one arch (module docstring, (a)-(e)); returns its
+    """Phase 14 for one arch (module docstring, (a)-(f)); returns its
     checks and timings, with sdim_query's at its call under ``kq``, and the
     launch counts of its path, read after its SDIM decode."""
     import gc
+    from repro_torch.distributed.mesh_ctx import MeshCtx
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.models.lm import LMModel
     from repro_torch.kernels.sdim_query.sdim_query import sdim_query
@@ -3080,7 +3185,8 @@ def moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g) -> tuple[dict, dict]:
     path = out["kq"]["path"]
     # (e) ms/token: exact at MOE_CACHE_LEN of a cache of random values, and SDIM
     with torch.no_grad():
-        cache = model.init_cache(1, MOE_CACHE_LEN + 1, torch.float32)
+        # rows for cache_len MOE_CACHE_LEN, in a length SP_SHARDS divides
+        cache = model.init_cache(1, MOE_CACHE_LEN + SP_SHARDS, torch.float32)
         for t in [*cache["stack"].values(), *(v for c in cache.get("dense", ()) for v in
                                               c.values())]:
             t.normal_(generator=g)
@@ -3098,6 +3204,14 @@ def moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g) -> tuple[dict, dict]:
                                weight_bytes=w_bytes, cache_bytes=read)
             timed[name]["profile"] = profile_window(torch, f"moe_mla {arch_id} {name} step",
                                                     step)
+        # (f) split-KV decode, the experts expert-parallel, nothing dropped
+        set_capacity_factor(model, None)
+        ctx = MeshCtx((dev,) * SP_SHARDS, data_axes=None, seq_axes=("model",))
+        out["sp"] = sp_decode_check(torch, "moe_mla", arch_id, model, cache, tok,
+                                    MOE_CACHE_LEN, ctx)
+        if arch_id == "deepseek-moe-16b":
+            out["ep_layer"] = ep_layer_check(torch, dev, model.stack[0].ffn, g)
+        set_capacity_factor(model, 1.25)
         del cache, timing_sc
         # (c) the first scanned layer's tables against the offline encode of an
         # exact cache decoded with the dense blocks passing their input through
@@ -3132,10 +3246,35 @@ def moe_mla_arch(torch, dev, wrappers, arch_id, cfg, g) -> tuple[dict, dict]:
               f"{per_op} an op); bound {r['bound_ms']:.3f} ms ({r['weight_bytes']:,} B of "
               f"weights, every expert, + {r['cache_bytes']:,} B of cache); "
               f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+    print(f"moe_mla {arch_id} (f) ms/token at cache_len {MOE_CACHE_LEN}: split-KV "
+          f"{out['sp']['ms']:.3f}, exact {timed[f'exact@{MOE_CACHE_LEN}']['ms']:.3f}")
     out.update(timed=timed, vt_err=vt_err,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"moe_mla {arch_id}: max_memory_allocated {out['peak_gib']:.2f} GiB; {card_line()}")
     return out, launches
+
+
+def ep_layer_check(torch, dev, layer, g) -> dict:
+    """Phase 14 (f): one MoE layer at EP_B x EP_T tokens over
+    ``MeshCtx((cuda:0,) * 4, data=2)`` (two data groups of EP_B / 2 rows,
+    the experts over 4 shards) against the one-device path, the output
+    within EP_TOL of the largest, the aux loss equal."""
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+
+    mesh = MeshCtx((dev,) * 4, data=2)
+    x = torch.randn((EP_B, EP_T, layer.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        y, aux = layer(x)
+        y_ep, aux_ep = layer(x, mesh=mesh)
+        rel = float((y_ep - y).abs().max() / y.abs().max())
+    if not rel <= EP_TOL or not torch.equal(aux, aux_ep):
+        raise AssertionError(f"moe_mla (f): the expert-parallel MoE layer differs from one "
+                             f"device by {rel:.3g} of the largest (limit {EP_TOL}); aux "
+                             f"{float(aux_ep)} vs {float(aux)}")
+    print(f"moe_mla (f) one MoE layer, B = {EP_B} x {EP_T} tokens over {mesh.dp} data groups "
+          f"and {mesh.ep} expert shards ({layer.n_experts // mesh.ep} experts each): within "
+          f"{rel:.3g} of the one-device output (limit {EP_TOL}), aux loss equal")
+    return dict(rel=rel, dp=mesh.dp, ep=mesh.ep)
 
 
 def moe_mla_phase(torch, dev, wrappers):
@@ -3414,6 +3553,186 @@ def lm_train_phase(torch, dev, wrappers):
     return launches
 
 
+def gnn_graph(shape_name: str) -> dict:
+    """Phase 16's graph of one GNN shape, as numpy (host set-up)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.graph import (NeighborSampler, cora_like, flatten_block,
+                                        molecule_batch, random_graph)
+
+    if shape_name == "full_graph_sm":
+        return cora_like(0)
+    if shape_name == "molecule":
+        return molecule_batch(128, 30, 64, 16, 4)
+    s = registry.GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    big = random_graph(s["n_nodes"], s["n_edges"], s["d_feat"], seed=0,
+                       n_classes=s["n_classes"])
+    t1 = time.perf_counter()
+    sampler = NeighborSampler(big["edge_index"], s["n_nodes"], list(s["fanout"]), seed=0)
+    t2 = time.perf_counter()
+    g = flatten_block(big, sampler.sample(np.arange(s["batch_nodes"])))
+    print(f"gnn minibatch_lg host set-up: random_graph({s['n_nodes']:,}, {s['n_edges']:,}, "
+          f"{s['d_feat']}) {t1 - t0:.1f} s, CSR {t2 - t1:.1f} s, sample + flatten "
+          f"{time.perf_counter() - t2:.1f} s")
+    return g
+
+
+def gnn_on_card(torch, dev, g: dict) -> dict:
+    """A numpy graph on the card (``n_graphs`` stays an int)."""
+    return {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray) else v
+            for k, v in g.items()}
+
+
+def gnn_model(torch, dev, shape_name: str, **over):
+    """gatedgcn FULL at a shape (``gnn_config_for_shape``), the port's init
+    (seed 0)."""
+    from repro_torch.configs import gatedgcn, registry
+    from repro_torch.models.gnn import GatedGCN
+
+    cfg = dataclasses.replace(registry.gnn_config_for_shape(
+        gatedgcn.FULL, registry.GNN_SHAPES[shape_name]), **over)
+    return GatedGCN(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def gnn_train_run(model, graph, steps):
+    """``steps`` steps of the launcher's AdamW (``launch.train.gnn_setup``)
+    on ``graph`` every step, through ``train.loop.run``; fails on a
+    non-finite loss. Returns (run's output, losses, step ms)."""
+    from repro_torch.data.pipeline import DeterministicStream
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train.loop import LoopConfig, run
+
+    loss_fn, _, opt = gnn_setup(model.cfg)
+    out = run(loss_fn, model, DeterministicStream(lambda seed: graph, 0), opt,
+              LoopConfig(n_steps=steps, log_every=1))
+    losses = [m["loss"] for _, m in out["history"]]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"gnn: losses {losses}")
+    return out, losses, [1e3 * m["step_time_s"] for _, m in out["history"]]
+
+
+def gnn_loss_and_grads(model, graph, **kw):
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(graph, **kw)
+    loss.backward()
+    return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def gnn_phase(torch, dev, wrappers):
+    """Phase 16 (module docstring): gatedgcn on the card. Returns the
+    path's launch counts (none of the port's kernels)."""
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    from repro_torch.launch import flops
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    print(f"gnn: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+          f"({torch.cuda.get_device_name(dev)}; {card_line()}); the GNN launches none of the "
+          f"port's kernels (the reference's reaches no Pallas kernel)")
+    reset(wrappers)
+    graphs, runs = {}, {}
+    # (a) each shape trained from the port's init
+    for name in GNN_TRAINED:
+        free_card(torch)
+        graphs[name] = gnn_on_card(torch, dev, gnn_graph(name))
+        g = graphs[name]
+        model = gnn_model(torch, dev, name)
+        out, losses, times = gnn_train_run(model, g, GNN_STEPS)
+        ms = statistics.median(times[1:])
+        work = flops.model_flops("gatedgcn", name)
+        n_nodes, n_edges = g["x"].shape[0], g["edge_index"].shape[1]
+        r = dict(losses=losses, step_ms=times, ms_per_step=ms, model_flops=work,
+                 flop_share=work / (ms / 1e3) / FP32_PEAK, flop_bound_ms=1e3 * work / FP32_PEAK,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, nodes=n_nodes,
+                 edges=n_edges, params=sum(p.numel() for p in model.parameters()))
+        print(f"gnn (a) {name}: {n_nodes:,} nodes, {n_edges:,} edges, {r['params']:,} "
+              f"parameters, readout {model.cfg.readout!r}; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+              f"{', '.join(f'{t:.1f}' for t in times)}; {ms:.2f} ms/step (median after the "
+              f"first); model flops {work:.4g} (launch/flops.py) = {r['flop_share']:.2%} of "
+              f"{FP32_PEAK / 1e12:g} TFLOP/s fp32 (bound {r['flop_bound_ms']:.3f} ms); "
+              f"max_memory_allocated {r['peak_gib']:.3f} GiB")
+        if name == "minibatch_lg":
+            loss_fn, _, opt = gnn_setup(model.cfg)
+            _, step = make_train_step(loss_fn, opt)
+            state = out["state"]
+            r["profile"] = profile_window(torch, "gnn minibatch_lg step",
+                                          lambda: step(state, g))
+            repeated = [float(step(state, g)[1]["loss"]) for _ in range(GNN_REPEAT)]
+            if not repeated[-1] < repeated[0]:
+                raise AssertionError(f"gnn (a): the loss on one batch repeated did not fall: "
+                                     f"{repeated}")
+            r["repeated_losses"] = repeated
+            print(f"gnn (a) minibatch_lg, its batch {GNN_REPEAT} more steps: losses "
+                  f"{', '.join(f'{x:.4f}' for x in repeated)} (falls)")
+            del state
+        runs[name] = r
+        del model, out
+    # (b) remat on and off at minibatch_lg
+    free_card(torch)
+    big = graphs["minibatch_lg"]
+    on = gnn_loss_and_grads(gnn_model(torch, dev, "minibatch_lg", remat=True), big)
+    peak_on = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    off = gnn_loss_and_grads(gnn_model(torch, dev, "minibatch_lg", remat=False), big)
+    peak_off = torch.cuda.max_memory_allocated() / 2**30
+    differ = [n for n, gr in off[1].items() if not torch.equal(on[1][n], gr)]
+    if not torch.equal(on[0], off[0]) or differ:
+        raise AssertionError(f"gnn (b): remat on differs from off (loss {float(on[0])} vs "
+                             f"{float(off[0])}; gradients {differ[:3]})")
+    print(f"gnn (b) minibatch_lg: the loss ({float(off[0]):.6f}) and all {len(off[1])} "
+          f"gradients with remat on equal remat off bit for bit; peak {peak_on:.3f} GiB on, "
+          f"{peak_off:.3f} GiB off")
+    del on, off
+    # (c) two trainings from one seed
+    trained = []
+    for _ in range(2):
+        model = gnn_model(torch, dev, "minibatch_lg")
+        gnn_train_run(model, big, GNN_REPRO_STEPS)
+        trained.append(model)
+    differ = [n for (n, a), (_, b) in zip(trained[0].named_parameters(),
+                                          trained[1].named_parameters()) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"gnn (c): two trainings from one seed differ in {len(differ)} "
+                             f"parameters, first {differ[:3]}")
+    print(f"gnn (c) minibatch_lg: two trainings of {GNN_REPRO_STEPS} AdamW steps from one seed "
+          f"end with the same bits in all {len(list(trained[0].parameters()))} parameters")
+    del trained
+    # (d) the edge-sharded path against one device
+    mesh = MeshCtx((dev,) * 4, data=2)
+    sharded = {}
+    for name, axes in (("minibatch_lg", ("data", "model")), ("full_graph_sm", ("model",))):
+        model = gnn_model(torch, dev, name)
+        loss, grads = gnn_loss_and_grads(model, graphs[name])
+        s_loss, s_grads = gnn_loss_and_grads(model, graphs[name], mesh=mesh, axes=axes)
+        top = max(float(v.abs().max()) for v in grads.values())
+        err = max(float((s_grads[n] - v).abs().max()) for n, v in grads.items()) / top
+        d_loss = abs(float(s_loss) - float(loss))
+        blocks = mesh.axis_size(axes)
+        if not d_loss <= GNN_LOSS_TOL or not err <= GNN_GRAD_TOL:
+            raise AssertionError(f"gnn (d) {name} over {blocks} edge blocks: loss differs by "
+                                 f"{d_loss:.3g} (limit {GNN_LOSS_TOL}), gradients by {err:.3g} "
+                                 f"of the largest (limit {GNN_GRAD_TOL})")
+        sharded[name] = dict(blocks=blocks, loss_diff=d_loss, grad_rel=err)
+        print(f"gnn (d) {name}, {graphs[name]['edge_index'].shape[1]:,} edges over {blocks} "
+              f"blocks ({'/'.join(axes)}) on this one card: loss within {d_loss:.3g} (limit "
+              f"{GNN_LOSS_TOL}), gradients within {err:.3g} of the largest (limit "
+              f"{GNN_GRAD_TOL})")
+        del model
+    # (e) no kernel of the port on the path
+    launches = read_launches(wrappers, (), "gnn")
+    if any(launches.values()):
+        raise AssertionError(f"gnn: the GNN launched kernels of the port: {launches}")
+    del graphs, big
+    print(f"gnn figures: {json.dumps(dict(runs=runs, sharded=sharded))}")
+    free_card(torch)
+    print(f"gnn: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -3478,6 +3797,7 @@ def main() -> int:
     by_path["moe_mla"], moe_mla_query = moe_mla_phase(torch, dev, wrappers)
     by_name["sdim_query"].update(moe_mla_query)
     by_path["lm_train"] = lm_train_phase(torch, dev, wrappers + backward)
+    by_path["gnn"] = gnn_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -1,10 +1,12 @@
-"""MeshCtx: the devices a sharded BSE table store lives on.
+"""MeshCtx: the devices a sharded run lives on, and how it maps onto the
+mesh's ``data`` and ``model`` axes.
 
 Counterpart of ``repro/distributed/mesh_ctx.py::MeshCtx`` together with
 ``repro/distributed/sharding.py::table_store_spec``, cut to what the
-sharded store needs. The JAX package drives its mesh from one process
-(``shard_map`` under one controller) and row-shards the ``(S, C, G, U,
-d)`` store over the mesh's model axis. The port does the same from one
+sharded store and the model code's ``shard_map`` paths need. The JAX
+package drives its mesh from one process (``shard_map`` under one
+controller) and row-shards the ``(S, C, G, U, d)`` store over the mesh's
+model axis. The port does the same from one
 process: the model axis is an ordered tuple of ``torch.device``s, one per
 shard, and shard ``k``'s ``(C, G, U, d)`` block lives on ``devices[k]``.
 Devices may repeat: ``(cuda:0,) * 8`` runs the whole sharded path on one
@@ -12,6 +14,21 @@ card, ``(cpu,) * 8`` on the host, as the JAX tests fake eight host devices.
 A CUDA device named without an index is the current one.
 The data axis only records its size: the store is replicated over it, and
 one process holds one copy of each shard.
+
+The model code's sharded paths read the reference's fields: ``data_axes``
+(the axes a batch is split over; None: tokens replicated, as in decode),
+``model_axis`` (the axis the experts are split over, into ``ep`` groups),
+``seq_axes`` (the axes a KV cache's sequence is split over in split-KV
+decode), ``dp``, ``ep`` and ``for_decode``. A tuple of axis names splits an
+array into ``prod(axis sizes)`` blocks in row-major order over the axes
+(the reference's ``_combined_axis_index``: over ``("data", "model")``,
+block ``data_idx * model + model_idx``); ``axis_devices`` gives block k the
+device ``devices[k % n_shards]``, as ``place`` does, which puts every block
+of one model index on that index's device. Partial results are summed in
+block order on the first block's device, so a ``psum`` gives the same bits
+on every run. Not here (ROADMAP.md, A5): ``act_seq_shard``, ``manual_tp``
+and ``constrain``/``constrain_residual``, which steer GSPMD's parameter and
+activation sharding of a training step.
 
 ``owned`` is the masking rule every sharded operation shares: a handle
 ``(shard, local)`` belongs to one shard, and the other shards see its row
@@ -21,7 +38,8 @@ bodies do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Union
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +49,9 @@ import torch
 class MeshCtx:
     devices: tuple          # the model axis: shard k's device
     data: int = 1           # the data axis' size (replicas of every shard)
+    data_axes: Optional[Tuple[str, ...]] = ("data",)   # None: tokens replicated
+    model_axis: str = "model"
+    seq_axes: Optional[Tuple[str, ...]] = None         # split-KV decode's cache axes
 
     def __post_init__(self):
         devices = tuple(canonical(d) for d in self.devices)
@@ -39,6 +60,10 @@ class MeshCtx:
         if self.data < 1:
             raise ValueError(f"the data axis needs a size >= 1, got {self.data}")
         object.__setattr__(self, "devices", devices)
+        for axes in (self.data_axes or (), (self.model_axis,), self.seq_axes or ()):
+            for a in axes:
+                if a not in ("data", "model"):
+                    raise ValueError(f"unknown mesh axis {a!r}: the axes are 'data' and 'model'")
 
     @staticmethod
     def wrap(m: Union["MeshCtx", Sequence, None]) -> "MeshCtx | None":
@@ -59,6 +84,28 @@ class MeshCtx:
     def n_devices(self) -> int:
         """Distinct devices the shards occupy (one card: 1)."""
         return len(set(self.devices))
+
+    def for_decode(self) -> "MeshCtx":
+        """This mesh with tokens replicated (``data_axes`` None)."""
+        return dataclasses.replace(self, data_axes=None)
+
+    def axis_size(self, axes) -> int:
+        """The number of blocks a tuple of axis names splits into (None or
+        (): 1)."""
+        return math.prod(self.shape[a] for a in axes or ())
+
+    @property
+    def dp(self) -> int:
+        return self.axis_size(self.data_axes)
+
+    @property
+    def ep(self) -> int:
+        return self.shape[self.model_axis]
+
+    def axis_devices(self, axes) -> tuple:
+        """The device of each block of the row-major split over ``axes``:
+        block k on ``devices[k % n_shards]``."""
+        return tuple(self.devices[k % self.n_shards] for k in range(self.axis_size(axes)))
 
 
 def canonical(device) -> torch.device:
@@ -84,3 +131,20 @@ def owned(handles: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     ones clamped to 0 (B,) int32."""
     mine = handles[:, 0] == k
     return mine, np.where(mine, handles[:, 1], 0).astype(np.int32)
+
+
+def block_size(n: int, n_blocks: int, what: str) -> int:
+    """``n / n_blocks``; raises where ``n_blocks`` does not divide ``n``, as
+    the reference's ``shard_map`` does for an axis it splits."""
+    if n % n_blocks:
+        raise ValueError(f"{what} of {n} does not split into {n_blocks} equal blocks")
+    return n // n_blocks
+
+
+def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of per-block partials in block order, on the first block's
+    device: the reference's ``psum``, with the same bits on every run."""
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part.to(out.device)
+    return out

@@ -9,12 +9,13 @@ The port's counterpart of ``repro/launch/flops.py``, the same counts:
   4·B·L·H·S·r for MLA); the SDIM-KV variant reads G·U buckets instead of S
   rows;
 * recsys:     6·B·N_dense + the SDIM / target-attention interest op's flops
-  (embedding lookups are gathers, not flops).
+  (embedding lookups are gathers, not flops);
+* GNN train:  3 × (L·2·d²·(4E + N) + 2·N·(d_feat·d + d²)) over the step's
+  N nodes and E edges (a sampled block's union sizes, a graph batch's
+  sums).
 
-The GNN family's count waits for the GNN slice: ``registry`` raises for
-``gatedgcn``. Configs and shapes come from the port's registry
-(``configs/registry.py``: FULL configs, ``LM_SHAPES`` and
-``RECSYS_SHAPES``).
+Configs and shapes come from the port's registry (``configs/registry.py``:
+FULL configs, ``LM_SHAPES``, ``GNN_SHAPES`` and ``RECSYS_SHAPES``).
 """
 from __future__ import annotations
 
@@ -117,7 +118,18 @@ def model_flops(arch: str, shape_name: str, variant: str = "baseline") -> float:
         width = cfg.kv_lora_rank if cfg.attention == "mla" else cfg.head_dim
         return base + 4.0 * B * cfg.n_layers * cfg.n_heads * S * width
 
-    # recsys (the registry has no other family yet)
+    if fam == "gnn":
+        gcfg = registry.gnn_config_for_shape(cfg, shape)
+        d = gcfg.d_hidden
+        if shape["kind"] == "sampled":
+            N, E = registry.sampled_subgraph_sizes(shape)
+        elif shape["kind"] == "graph_batch":
+            N, E = shape["n_nodes"] * shape["batch"], shape["n_edges"] * shape["batch"]
+        else:
+            N, E = shape["n_nodes"], shape["n_edges"]
+        fwd = cfg.n_layers * 2.0 * d * d * (4 * E + N) + 2.0 * N * (gcfg.d_feat * d + d * d)
+        return 3.0 * fwd
+
     nd = _recsys_dense_params(cfg)
     if shape["kind"] == "train":
         B = shape["global_batch"]

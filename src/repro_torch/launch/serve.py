@@ -49,7 +49,8 @@ branch: the ``SMOKE`` config with seeded random
 weights decodes ``--tokens`` tokens greedily from a zero start token, with
 an exact KV cache or, under ``--sdim-kv``, the SDIM bucket-compressed one,
 and prints the last token id. As in the reference, the BSE-store, request-
-path and profiling flags are refused for it.
+path and profiling flags are refused for it. ``gatedgcn`` has no serving
+mode: it exits with the reference's message.
 
 ``main`` is ``build`` (arguments, model, servers, profiler), ``run`` (the
 synthetic requests, or the LM's decode loop) and ``report`` (the
@@ -297,6 +298,8 @@ def build(argv=None, cfg=None) -> Launch:
     cfg = mod.SMOKE if cfg is None else cfg
     tiered = is_tiered(args.hot_capacity, args.store_dir, args.policy, args.warm_capacity)
     _check_family(p, args, mod.FAMILY, tiered)
+    if mod.FAMILY == "gnn":
+        raise SystemExit("gatedgcn has no serving mode (node classification)")
     if mod.FAMILY == "lm":
         from repro_torch.models.lm import LMModel
 

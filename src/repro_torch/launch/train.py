@@ -24,11 +24,13 @@ launcher's settings (``repro/launch/train.py``). ARCH is any id of
   config's (any of ``core.interest.INTEREST_KINDS``) are trained by
   building the model from a ``dataclasses.replace`` of the config's
   ``interest``; the launcher has no flag for them
-  (``repro_torch.bench.table23_auc`` trains them all).
+  (``repro_torch.bench.table23_auc`` trains them all);
+* the GNN arch ``gatedgcn``: node classification on one full-batch
+  ``random_graph(256, 2048, d_feat)`` every step, AdamW with lr 1e-3
+  (``gnn_setup``).
 
 ``--device`` defaults to cuda, where the kernels and their backward kernels
-run; ``--device cpu`` runs their plain PyTorch versions. ``gatedgcn`` is not
-in the registry yet (ROADMAP.md, A4).
+run; ``--device cpu`` runs their plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.data.graph import random_graph
 from repro_torch.data.pipeline import DeterministicStream
 from repro_torch.data.synthetic import SyntheticCTRConfig, generate_batch_graded
 from repro_torch.device import resolve_device
@@ -84,6 +87,15 @@ def lm_setup(cfg, batch: int, seq: int, steps: int):
     return (lambda model, b: model.loss(b["tokens"], b["targets"])), stream, opt
 
 
+def gnn_setup(cfg):
+    """(loss_fn, stream, optimizer config) of the JAX launcher's GNN
+    training (``repro/launch/train.py:76-89``): the same full-batch graph
+    every step."""
+    g = random_graph(256, 2048, cfg.d_feat, seed=0, n_classes=cfg.n_classes)
+    stream = DeterministicStream(lambda seed: dict(g), 0)
+    return (lambda model, b: model.loss(b)), stream, OptimizerConfig(kind="adamw", lr=1e-3)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
@@ -105,6 +117,11 @@ def main(argv=None) -> dict:
 
         model = LMModel(cfg, device=dev, generator=gen)
         loss_fn, stream, opt = lm_setup(cfg, args.batch, args.seq, args.steps)
+    elif mod.FAMILY == "gnn":
+        from repro_torch.models.gnn import GatedGCN
+
+        model = GatedGCN(cfg, device=dev, generator=gen)
+        loss_fn, stream, opt = gnn_setup(cfg)
     else:
         from repro_torch.models.ctr import CTRModel
 

@@ -44,7 +44,14 @@ beside its fp64 copy ``R64`` for hashing keys. Torch cannot replay the
 reference's ``jax.random.PRNGKey(1234)``, so parity tests load the
 reference's R (``weights.load_jax_lm_params``, which sets both).
 
-Not here yet: the sequence-parallel ``sp_decode_step`` (ROADMAP.md, A5).
+* split-KV sequence-parallel decode: ``sp_decode_step``, the reference's
+  flash-decoding across the mesh (``lm.py:332-432``): the exact cache stays
+  split on its sequence axis over ``ctx.seq_axes`` and is only read; each
+  layer combines per-shard partial softmaxes (``nn/attention.py``'s
+  ``gqa_sp_decode_attention`` / ``mla_sp_decode_attention``), the MoE FFNs
+  run expert-parallel with tokens replicated (``ctx.for_decode()``), and
+  the new token's keys and values are returned for the caller to append.
+
 The model runs on the card unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
@@ -57,6 +64,9 @@ from torch import nn
 
 from repro_torch.core import sdim, simhash
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh_ctx import MeshCtx
+from repro_torch.nn.attention import (MLAttention, gqa_sp_decode_attention,
+                                      mla_sp_decode_attention)
 from repro_torch.nn.layers import Embedding, LayerNorm, RMSNorm
 from repro_torch.nn.transformer import Block, BlockConfig, Stack
 
@@ -220,6 +230,67 @@ class LMModel(nn.Module):
             x, _ = block.decode_step(x, cache, cache_len)
         x, caches["stack"] = self.stack.decode_step(x, caches["stack"], cache_len)
         return self._logits(self.final_norm(x)), caches
+
+    # ---------------- serving: split-KV sequence-parallel decode ----------------
+    def _sp_attention(self, block, x, cache: dict, cache_len: int, ctx: MeshCtx):
+        """x + one block's attention in split-KV form -> (x, the new
+        token's {"k", "v"} (B, 1, Hkv, D) or {"ckv", "krope"} (B, 1, r / dr))."""
+        attn = block.attn
+        h_in = block.ln1(x)
+        B = x.shape[0]
+        positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+        if isinstance(attn, MLAttention):
+            q_nope, q_rope = attn.q(h_in, positions)
+            c_new, kr_new = attn.kv_latent(h_in, positions)
+            out_lat = mla_sp_decode_attention(attn.absorb_q(q_nope), q_rope, cache["ckv"],
+                                              cache["krope"], c_new, kr_new, cache_len, ctx,
+                                              ctx.seq_axes, ctx.data_axes, attn.scale)
+            h, new = attn.up_values(out_lat.to(x.dtype)), {"ckv": c_new, "krope": kr_new}
+        else:
+            q, k_new, v_new = attn.qkv(h_in, positions)
+            h = gqa_sp_decode_attention(q, cache["k"], cache["v"], k_new, v_new, cache_len, ctx,
+                                        ctx.seq_axes, ctx.data_axes).to(x.dtype)
+            new = {"k": k_new, "v": v_new}
+        return x + attn.wo(h), new
+
+    @staticmethod
+    def _layer(caches: dict, i: int) -> dict:
+        """Layer i of the stack's caches: a row of each tensor, or of each
+        shard of a list of shards (``nn/attention.shard_seq``)."""
+        return {name: [blk[i] for blk in t] if isinstance(t, (list, tuple)) else t[i]
+                for name, t in caches.items()}
+
+    def sp_decode_step(self, token: torch.Tensor, caches: dict, cache_len: int, ctx: MeshCtx):
+        """One token (B, 1) at position ``cache_len`` against exact caches
+        (``init_cache``'s, holding ``cache_len`` valid rows) whose sequence
+        axis is split over ``ctx.seq_axes`` (a cache tensor, or a list of its
+        shards split on that axis), the batch over ``ctx.data_axes``. The
+        dense blocks, then the stack; MoE FFNs expert-parallel under
+        ``ctx.for_decode()``. Returns (logits (B, 1, V), new_kv):
+        ``{"stack": {name: (n_scan_layers, B, 1, ...)}}`` of the new token's
+        k and v (GQA, (B, 1, Hkv, D) a layer) or ckv and krope (MLA), and
+        ``"dense"``, one such dict a dense block; ``caches`` is not written."""
+        if not isinstance(ctx, MeshCtx) or not ctx.seq_axes:
+            raise ValueError("sp_decode_step needs a MeshCtx with seq_axes")
+        ffn_ctx = ctx.for_decode()
+        x = self.embed(token)
+        dense_new = []
+        for block, cache in zip(self.dense_blocks, caches.get("dense", ())):
+            x, new = self._sp_attention(block, x, cache, cache_len, ctx)
+            x = x + block._ffn(block.ln2(x))[0]
+            dense_new.append(new)
+        stack_new = []
+        for i, block in enumerate(self.stack):
+            x, new = self._sp_attention(block, x, self._layer(caches["stack"], i), cache_len, ctx)
+            ffn_in = block.ln2(x)
+            x = x + (block.ffn(ffn_in, mesh=ffn_ctx)[0] if block.cfg.moe is not None
+                     else block.ffn(ffn_in))
+            stack_new.append(new)
+        new_kv = {"stack": {name: torch.stack([n[name] for n in stack_new])
+                            for name in stack_new[0]}}
+        if dense_new:
+            new_kv["dense"] = dense_new
+        return self._logits(self.final_norm(x)), new_kv
 
     # ---------------- serving: SDIM-compressed KV ----------------
     def init_sdim_cache(self, batch: int) -> dict:

@@ -45,8 +45,23 @@ in the absorbed form (the query through ``wk_b`` into latent space, the
 output through ``wv_b`` out of it), so its cache holds c_kv (B, S, r) and
 k_rope (B, S, dr) only, in the reference's layout. Its decode writes the
 cache in place, reads the first ``cache_len + 1`` rows and splits long
-weighted sums over rows, as ``GQAttention``'s. The sequence-parallel decode
-attention waits for the tooling slice (ROADMAP.md, A5).
+weighted sums over rows, as ``GQAttention``'s.
+
+``gqa_sp_decode_attention`` and ``mla_sp_decode_attention`` are the
+reference's split-KV decode (flash-decoding on the mesh,
+``attention.py:395-537``): the cache's sequence axis is split into
+``prod(seq_axes sizes)`` shards in row-major order over ``seq_axes``
+(``MeshCtx.axis_devices``), the batch optionally into groups over
+``batch_axes``; each shard computes a partial softmax (m, l, acc) in fp32
+over its rows, the partials are combined in shard order on the first
+shard's device (a max, then sums rescaled to it), and the current token,
+always visible to itself, is merged on top (``_online_combine``), over
+``l + 1e-30``. The cache is never gathered: only the partials move. A shard
+reads its rows below ``cache_len`` only and one past it contributes l = 0,
+the same math as the reference's -1e30 mask, whose weights are exactly 0.
+A cache is a tensor whose shards are slices of its sequence axis (views on
+one device), or the list of its shards, each on its shard's device
+(``shard_seq``). The sequence and batch must divide by their shard counts.
 """
 from __future__ import annotations
 
@@ -56,6 +71,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.mesh_ctx import MeshCtx, block_size, psum
 from repro_torch.nn.layers import Linear, RMSNorm
 
 
@@ -376,3 +392,120 @@ class MLAttention(nn.Module):
                   + torch.matmul(q_rope.float(), krope.float().transpose(-1, -2))) * self.scale
         out_lat = _weighted_values(masked_softmax(scores, None).to(ckv.dtype), ckv)
         return self.wo(self.up_values(out_lat)), cache
+
+
+# ---------------------------------------------------------------------------
+# split-KV sequence-parallel decode (flash-decoding on the mesh)
+# ---------------------------------------------------------------------------
+def _online_combine(m_a, l_a, acc_a, m_b, l_b, acc_b):
+    """Merge two (max, denominator, accumulator) partial-softmax states."""
+    m = torch.maximum(m_a, m_b)
+    sa, sb = torch.exp(m_a - m), torch.exp(m_b - m)
+    return m, l_a * sa + l_b * sb, acc_a * sa[..., None] + acc_b * sb[..., None]
+
+
+def shard_seq(cache: torch.Tensor, ctx: MeshCtx, seq_axes, axis: int) -> list:
+    """``cache``'s sequence axis ``axis`` split row-major over ``seq_axes``,
+    each shard on its device (views where it is the cache's own)."""
+    devices = ctx.axis_devices(seq_axes)
+    S_loc = block_size(cache.shape[axis], len(devices),
+                       f"the cache's sequence over seq_axes {tuple(seq_axes)}: S")
+    return [cache.narrow(axis, j * S_loc, S_loc).to(dev) for j, dev in enumerate(devices)]
+
+
+def _split_kv(ctx: MeshCtx, seq_axes, batch_axes, B: int, cache_len: int, shards, S_loc: int,
+              local, s_new, v_new):
+    """The split-KV read. ``local(j, rows, n)`` gives shard j's scores (Bl,
+    K, G, n) and values (Bl, K, n, D), fp32, for its batch rows and its
+    first n rows; ``s_new`` (B, K, G) and ``v_new`` (B, K, 1, D) are the
+    current token's. Returns the attention output (B, K, G, D)."""
+    if not seq_axes:
+        raise ValueError("split-KV decode needs seq_axes")
+    if not 0 <= cache_len <= S_loc * len(shards):
+        raise ValueError(f"cache_len {cache_len} outside a cache of {S_loc * len(shards)} rows")
+    n_groups = ctx.axis_size(batch_axes)
+    Bl = block_size(B, n_groups, f"the batch over batch_axes {batch_axes}: B")
+    states = []
+    for g in range(n_groups):
+        rows = slice(g * Bl, (g + 1) * Bl)
+        ms, ls, accs = [], [], []
+        for j in range(len(shards)):
+            n = min(max(cache_len - j * S_loc, 0), S_loc)
+            s, v = local(j, rows, n)
+            if n:
+                m = s.amax(-1)
+                p = torch.exp(s - m[..., None])
+                l, acc = p.sum(-1), _weighted_values(p, v)
+            else:                                          # every row masked
+                m = s.new_full(s.shape[:-1], -1e30)
+                l, acc = s.new_zeros(s.shape[:-1]), s.new_zeros((*s.shape[:-1], v.shape[-1]))
+            ms.append(m)
+            ls.append(l)
+            accs.append(acc)
+        dev = ms[0].device
+        m_g = torch.stack([m.to(dev) for m in ms]).amax(0)
+        sc = [torch.exp(m.to(dev) - m_g) for m in ms]
+        states.append((m_g, psum([l * c.to(l.device) for l, c in zip(ls, sc)]),
+                       psum([a * c.to(a.device)[..., None] for a, c in zip(accs, sc)])))
+    m_g, l_g, acc_g = (torch.cat([st[i].to(s_new.device) for st in states]) for i in range(3))
+    acc_n = v_new.expand(*s_new.shape, v_new.shape[-1])
+    _, l_f, acc_f = _online_combine(m_g, l_g, acc_g, s_new, torch.ones_like(s_new), acc_n)
+    return acc_f / (l_f[..., None] + 1e-30)
+
+
+def _shards_of(cache, ctx: MeshCtx, seq_axes, axis: int):
+    """(the shards of a cache tensor or list, their rows)."""
+    shards = list(cache) if isinstance(cache, (list, tuple)) else shard_seq(cache, ctx, seq_axes,
+                                                                            axis)
+    if len(shards) != ctx.axis_size(seq_axes):
+        raise ValueError(f"{len(shards)} cache shards for {ctx.axis_size(seq_axes)} seq shards")
+    return shards, shards[0].shape[axis]
+
+
+def gqa_sp_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len: int, ctx: MeshCtx,
+                            seq_axes, batch_axes=None) -> torch.Tensor:
+    """Exact decode attention with the head-major cache (B, Hkv, S, D)
+    split on S over ``seq_axes``. q (B, 1, H, D) at position ``cache_len``;
+    k_new, v_new (B, 1, Hkv, D), the current token's (the cache holds
+    ``cache_len`` valid rows and is only read) -> (B, 1, H·D) fp32."""
+    B, _, H, D = q.shape
+    Hkv = k_new.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    ks, S_loc = _shards_of(k_cache, ctx, seq_axes, 2)
+    vs, _ = _shards_of(v_cache, ctx, seq_axes, 2)
+
+    def local(j, rows, n):
+        k, v = ks[j][rows, :, :n].float(), vs[j][rows, :, :n].float()
+        return torch.matmul(qg[rows].to(k.device), k.transpose(-1, -2)) * scale, v
+
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float()) * scale   # (B, Hkv, G)
+    out = _split_kv(ctx, seq_axes, batch_axes, B, cache_len, ks, S_loc, local, s_new,
+                    v_new[:, 0, :, None].float())
+    return out.reshape(B, 1, H * D)
+
+
+def mla_sp_decode_attention(q_lat, q_rope, ckv_cache, krope_cache, c_new, kr_new, cache_len: int,
+                            ctx: MeshCtx, seq_axes, batch_axes=None,
+                            score_scale: float = 1.0) -> torch.Tensor:
+    """Split-KV decode for MLA over the latent cache (B, S, r) and its RoPE
+    keys (B, S, dr), split on S over ``seq_axes``. q_lat (B, 1, H, r)
+    absorbed queries, q_rope (B, 1, H, dr); c_new (B, 1, r), kr_new (B, 1,
+    dr) the current token's -> the latent-space output (B, 1, H, r) fp32."""
+    B, _, H, r = q_lat.shape
+    ql, qr = q_lat.float(), q_rope.float()                  # (B, 1, H, .): K = 1, G = H
+    cs, S_loc = _shards_of(ckv_cache, ctx, seq_axes, 1)
+    krs, _ = _shards_of(krope_cache, ctx, seq_axes, 1)
+
+    def local(j, rows, n):
+        c, kr = cs[j][rows, None, :n].float(), krs[j][rows, None, :n].float()
+        dev = c.device
+        s = (torch.matmul(ql[rows].to(dev), c.transpose(-1, -2))
+             + torch.matmul(qr[rows].to(dev), kr.transpose(-1, -2))) * score_scale
+        return s, c
+
+    s_new = (torch.einsum("bkgr,bkr->bkg", ql, c_new.float())
+             + torch.einsum("bkgd,bkd->bkg", qr, kr_new.float())) * score_scale  # (B, 1, H)
+    out = _split_kv(ctx, seq_axes, batch_axes, B, cache_len, cs, S_loc, local, s_new,
+                    c_new[:, :, None].float())
+    return out.reshape(B, 1, H, r)

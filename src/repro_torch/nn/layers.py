@@ -16,6 +16,14 @@ categories: a batch of long histories), so on CUDA the gradient rows of one
 id are summed by ``index_put_(accumulate=True)``, which sorts the ids and
 gives each id one owner that adds its rows in order. On the CPU the native
 backward already does that.
+
+``segment_sum`` is the GNN's scatter, the counterpart of
+``jax.ops.segment_sum``, with the same bits on every run: on CUDA the rows
+of one segment are summed by ``index_put_(accumulate=True)``, the same
+sort-and-own rule (CUDA's ``index_add_`` adds with atomics); on the CPU by
+``index_add_``, which adds them in order (the CPU's accumulating
+``index_put_`` does not give the same bits twice). Its gradient is a
+gather.
 """
 from __future__ import annotations
 
@@ -107,6 +115,16 @@ def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if weight.is_cuda and torch.is_grad_enabled() and weight.requires_grad:
         return _EmbeddingFn.apply(weight, ids)
     return F.embedding(ids, weight)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """(n_segments, *data.shape[1:]): row s the sum of the rows of ``data``
+    whose id is s; ids in any order, each in [0, n_segments); an empty
+    segment is 0."""
+    out = data.new_zeros((n_segments, *data.shape[1:]))
+    if data.is_cuda:
+        return out.index_put((segment_ids.long(),), data, accumulate=True)
+    return out.index_add(0, segment_ids.long(), data)
 
 
 class Embedding(nn.Embedding):

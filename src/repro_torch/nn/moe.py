@@ -1,14 +1,24 @@
 """Mixture-of-Experts FFN (DeepSeek style: shared + fine-grained routed
 experts).
 
-Counterpart of ``repro/nn/moe.py``'s one-device path (``mesh=None``):
-``dispatch_combine`` and ``MoELayer`` with the reference's fields and
-parameter tree, ``router.w`` (d, E), ``experts.{wi_gate, wi_up}`` (E, d,
-f), ``experts.wo`` (E, f, d) and ``shared.*`` (1, d, f·n_shared) /
-(1, f·n_shared, d), in the reference's layout (no transpose). Its
-expert-parallel ``shard_map`` path waits for the tooling slice (ROADMAP.md,
-A5); ``dispatch_combine`` takes ``e0`` and E_loc < E so that path can call
-it per shard.
+Counterpart of ``repro/nn/moe.py``: ``dispatch_combine`` and ``MoELayer``
+with the reference's fields and parameter tree, ``router.w`` (d, E),
+``experts.{wi_gate, wi_up}`` (E, d, f), ``experts.wo`` (E, f, d) and
+``shared.*`` (1, d, f·n_shared) / (1, f·n_shared, d), in the reference's
+layout (no transpose), on one device (``mesh=None``) or expert-parallel.
+
+The expert-parallel path (``forward(x, mesh=ctx)``, the reference's
+``shard_map`` of ``moe.py:173-207``) splits the E experts over the mesh's
+model axis, ``E_loc = E / ep`` a shard, and the batch over ``data_axes``
+(none in decode, ``MeshCtx.for_decode``). Each of the ``dp`` data groups
+of ``B / dp`` rows is dispatched on its own with the capacity of one data
+shard's tokens, as the reference does, so where tokens overflow the output
+is the reference's EP output, not its one-device one. Shard k runs
+``dispatch_combine`` over experts [k·E_loc, (k+1)·E_loc) (``e0 = k·E_loc``)
+on its device, with its block of the expert tensors (views on one device,
+placed on the shard's device otherwise), and the partial outputs are summed
+in shard order (``mesh_ctx.psum``); the shared experts are added once. Only
+tokens and partial outputs cross devices.
 
 Dispatch is sort-based, step for step as the reference: flatten the
 (token, choice) pairs, a stable sort by owned expert id (unowned ids sort
@@ -35,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.retrieval import top_k
+from repro_torch.distributed.mesh_ctx import MeshCtx, block_size, psum
 from repro_torch.nn.layers import ACTIVATIONS
 
 
@@ -137,6 +148,7 @@ class MoELayer(nn.Module):
         self.experts = ExpertFFN(n_experts, d_model, d_ff, activation, **kw)
         if n_shared:
             self.shared = ExpertFFN(1, d_model, d_ff * n_shared, activation, **kw)
+        self._placed: dict = {}       # (weight, shard, device) -> (stamp, placed block)
 
     def _route(self, x: torch.Tensor):
         """x (B, T, d) -> probs (B, T, E), topk_idx (B, T, k) int32,
@@ -160,14 +172,56 @@ class MoELayer(nn.Module):
         cap = int(tokens * self.top_k / self.n_experts * self.capacity_factor) + 1
         return max(8, ((cap + 7) // 8) * 8)                    # a multiple of 8
 
-    def forward(self, x: torch.Tensor):
-        """x (B, T, d) -> (out (B, T, d), aux loss)."""
+    def _shard_experts(self, k: int, E_loc: int, device: torch.device) -> dict:
+        """Shard k's experts [k·E_loc, (k+1)·E_loc) on ``device``: views on
+        the weights' own device; elsewhere a copy placed once and kept until
+        the weights change (under autograd a differentiable copy a call)."""
+        out = {}
+        for name, w in self.experts.weights().items():
+            blk = w[k * E_loc:(k + 1) * E_loc]
+            if blk.device == device or (torch.is_grad_enabled() and w.requires_grad):
+                out[name] = blk.to(device)
+                continue
+            stamp = (w.data_ptr(), w._version)
+            hit = self._placed.get((name, k, device))
+            if hit is None or hit[0] != stamp:
+                hit = self._placed[(name, k, device)] = (stamp, blk.detach().to(device))
+            out[name] = hit[1]
+        return out
+
+    def _expert_parallel(self, x, topk_idx, topk_w, ctx: MeshCtx) -> torch.Tensor:
+        """The routed experts' output (B, T, d) over ``ctx``'s shards."""
+        B, T, d = x.shape
+        ep, dp = ctx.ep, ctx.dp
+        E_loc = block_size(self.n_experts, ep, f"the experts over {ep} model shards: E")
+        Bl = block_size(B, dp, f"the batch over {dp} data shards: B")
+        cap = self._capacity(Bl * T)
+        devices = ctx.axis_devices((ctx.model_axis,))
+        experts = [self._shard_experts(k, E_loc, dev) for k, dev in enumerate(devices)]
+        groups = []
+        for g in range(dp):
+            rows = slice(g * Bl, (g + 1) * Bl)
+            tok = x[rows].reshape(Bl * T, d)
+            idx = topk_idx[rows].reshape(Bl * T, self.top_k)
+            w = topk_w[rows].reshape(Bl * T, self.top_k).to(x.dtype)
+            groups.append(psum([dispatch_combine(tok.to(dev), idx.to(dev), w.to(dev),
+                                                 experts[k], k * E_loc, cap, self.activation)
+                                for k, dev in enumerate(devices)]).to(x.device))
+        return torch.cat(groups).reshape(B, T, d)
+
+    def forward(self, x: torch.Tensor, mesh=None):
+        """x (B, T, d) -> (out (B, T, d), aux loss); ``mesh`` (a
+        ``MeshCtx``) runs the experts expert-parallel."""
         B, T, d = x.shape
         _, topk_idx, topk_w, aux = self._route(x)
-        out = dispatch_combine(x.reshape(B * T, d), topk_idx.reshape(B * T, self.top_k),
-                               topk_w.reshape(B * T, self.top_k).to(x.dtype),
-                               self.experts.weights(), 0, self._capacity(B * T),
-                               self.activation).reshape(B, T, d)
+        ctx = MeshCtx.wrap(mesh)
+        if ctx is None:
+            out = dispatch_combine(x.reshape(B * T, d), topk_idx.reshape(B * T, self.top_k),
+                                   topk_w.reshape(B * T, self.top_k).to(x.dtype),
+                                   self.experts.weights(), 0, self._capacity(B * T),
+                                   self.activation).reshape(B, T, d)
+        else:
+            out = self._expert_parallel(x, topk_idx, topk_w, ctx)
         if self.n_shared:
             out = out + self.shared(x.reshape(1, B * T, d)).reshape(B, T, d)
         return out, aux

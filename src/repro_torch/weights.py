@@ -33,6 +33,13 @@ block's leaves: ``{ln1,ln2}.{scale[,bias]}``; grouped-query attention
 the reference's layout (not transposed). The hash matrix R (sdim_m,
 head_dim; kv_lora_rank for MLA) is no parameter there (``LMModel._sdim_R``
 draws it from ``PRNGKey(1234)``), so the loader takes it beside the tree.
+
+``load_jax_gnn_params`` / ``export_gnn_params`` do the same for
+``repro.models.gnn.GatedGCN.init``'s pytree and the port's ``GatedGCN``:
+``node_enc.{w,b}``, ``edge_enc.{w,b}``, ``out.fc{0,1}.{w,b}`` and the
+``layers.*`` leaves (``{A,B,C,U,V}.{w,b}``, ``{ln_h,ln_e}.{scale,bias}``),
+which carry a leading n_layers axis (the reference's vmapped init), row i
+for layer i; Linear weights transposed as everywhere here.
 """
 from __future__ import annotations
 
@@ -217,14 +224,11 @@ def _lm_leaves(model) -> dict:
     return out
 
 
-@torch.no_grad()
-def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
-    """Copy ``params_np`` (the reference's LM params as numpy arrays) and
-    the hash matrix ``R`` (sdim_m, head_dim or kv_lora_rank) into ``model``
-    in place;
-    returns the model. Raises where a leaf is missing, does not fit, or the
-    tree holds leaves the model does not."""
-    leaves = _lm_leaves(model)
+def _load_tree(leaves: dict, params_np: dict) -> None:
+    """Copy ``params_np`` into the tensors of ``leaves`` (path -> (tensor,
+    or one tensor a layer for a leaf stacked on a layer axis; transposed
+    there)); raises where a leaf is missing, does not fit, or the tree holds
+    leaves ``leaves`` does not."""
     for path, (t, transpose) in leaves.items():
         src = np.asarray(_get(params_np, path))
         if isinstance(t, list):
@@ -237,6 +241,37 @@ def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
     if _n_leaves(params_np) != len(leaves):
         raise ValueError(f"params hold {_n_leaves(params_np)} leaves, the model "
                          f"{len(leaves)}")
+
+
+def _export_tree(leaves: dict, grad: bool) -> dict:
+    """The tree of ``leaves`` (as ``_load_tree``'s) as numpy copies, a
+    stacked leaf's layers on a leading axis; with ``grad`` the ``.grad``s
+    (zeros where a tensor has none)."""
+    def arr(t: torch.Tensor, transpose: bool) -> np.ndarray:
+        if grad:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
+        x = t.detach().float().cpu().numpy()
+        return np.array(x.T if transpose else x, order="C")
+
+    tree: dict = {}
+    for path, (t, transpose) in leaves.items():
+        *keys, leaf = path.split(".")
+        node = tree
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[leaf] = (np.stack([arr(ti, transpose) for ti in t]) if isinstance(t, list)
+                      else arr(t, transpose))
+    return tree
+
+
+@torch.no_grad()
+def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
+    """Copy ``params_np`` (the reference's LM params as numpy arrays) and
+    the hash matrix ``R`` (sdim_m, head_dim or kv_lora_rank) into ``model``
+    in place;
+    returns the model. Raises where a leaf is missing, does not fit, or the
+    tree holds leaves the model does not."""
+    _load_tree(_lm_leaves(model), params_np)
     _copy(model.R, R, "R")
     model.R64.copy_(model.R)
     return model
@@ -248,21 +283,44 @@ def export_lm_params(model, grad: bool = False) -> dict:
     inverse of ``load_jax_lm_params``; with ``grad=True`` the parameters'
     ``.grad``s in the same tree (zeros where a parameter has none), the tree
     ``jax.grad`` of the reference's loss gives. R is not in it."""
-    def arr(t: torch.Tensor, transpose: bool) -> np.ndarray:
-        if grad:
-            t = torch.zeros_like(t) if t.grad is None else t.grad
-        x = t.detach().float().cpu().numpy()
-        return np.array(x.T if transpose else x, order="C")
-
-    tree: dict = {}
-    for path, (t, transpose) in _lm_leaves(model).items():
-        *keys, leaf = path.split(".")
-        node = tree
-        for key in keys:
-            node = node.setdefault(key, {})
-        node[leaf] = (np.stack([arr(ti, transpose) for ti in t]) if isinstance(t, list)
-                      else arr(t, transpose))
+    tree = _export_tree(_lm_leaves(model), grad)
     if "dense_blocks" in tree:                 # the reference keeps them in a list
         tree["dense_blocks"] = [tree["dense_blocks"][str(i)]
                                 for i in range(len(tree["dense_blocks"]))]
     return tree
+
+
+def _gnn_leaves(model) -> dict:
+    """Every parameter of a ``GatedGCN`` by its path in the reference's
+    tree -> (tensor, or one tensor a layer for ``layers.*``; transposed
+    there)."""
+    out = {}
+    for path, lin in (("node_enc", model.node_enc), ("edge_enc", model.edge_enc),
+                      ("out.fc0", model.out.fc0), ("out.fc1", model.out.fc1)):
+        out[f"{path}.w"], out[f"{path}.b"] = (lin.weight, True), (lin.bias, False)
+    for layer in model.layers:
+        per_layer = {f"{n}.{leaf}": (getattr(getattr(layer, n), attr), leaf == "w")
+                     for n in ("A", "B", "C", "U", "V")
+                     for leaf, attr in (("w", "weight"), ("b", "bias"))}
+        per_layer.update({f"{n}.{leaf}": (getattr(getattr(layer, n), leaf), False)
+                          for n in ("ln_h", "ln_e") for leaf in ("scale", "bias")})
+        for path, (t, transpose) in per_layer.items():
+            out.setdefault(f"layers.{path}", ([], transpose))[0].append(t)
+    return out
+
+
+@torch.no_grad()
+def load_jax_gnn_params(model, params_np: dict):
+    """Copy ``params_np`` (the reference's GatedGCN params as numpy arrays)
+    into ``model`` in place; returns the model. Raises where a leaf is
+    missing, does not fit, or the tree holds leaves the model does not."""
+    _load_tree(_gnn_leaves(model), params_np)
+    return model
+
+
+def export_gnn_params(model, grad: bool = False) -> dict:
+    """The reference's params pytree of a ``GatedGCN`` as numpy arrays
+    (copies; ``layers.*`` stacked on a leading n_layers axis), the inverse of
+    ``load_jax_gnn_params``; with ``grad=True`` the parameters' ``.grad``s in
+    the same tree (zeros where a parameter has none)."""
+    return _export_tree(_gnn_leaves(model), grad)

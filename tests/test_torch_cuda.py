@@ -1437,3 +1437,114 @@ def test_sdim_query_raises_where_no_path_launches(dev):
     table = torch.zeros((B, m // tau, 1 << tau, d), device=dev)
     with pytest.raises(RuntimeError, match="sdim_query: CUDA error"):
         sdim_query(q, table, torch.ones((m, d), device=dev), tau)
+
+
+# the GNN at SMOKE widths on the card (fp32): 4,096 edges over 512 nodes, so
+# every node id repeats in the gathers and the segment sums
+GNN_NODES, GNN_EDGES = 512, 4096
+
+
+def _gnn_card(dev, remat=False, seed=0):
+    """(GatedGCN at SMOKE on the card, seeded init; its full graph)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.graph import random_graph
+    from repro_torch.models.gnn import GatedGCN
+
+    cfg = dataclasses.replace(registry.get("gatedgcn").SMOKE, remat=remat)
+    model = GatedGCN(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    g = random_graph(GNN_NODES, GNN_EDGES, cfg.d_feat, seed=seed, n_classes=cfg.n_classes)
+    g["edge_mask"] = (np.random.default_rng(seed).uniform(size=GNN_EDGES) > 0.2).astype(
+        np.float32)
+    return model, {k: torch.as_tensor(v, device=dev) for k, v in g.items()}
+
+
+def _gnn_loss_and_grads(model, g, **kw):
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(g, **kw)
+    loss.backward()
+    return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_gnn_training_on_the_card_is_bit_reproducible(dev):
+    """Two trainings of 3 AdamW steps of GatedGCN (SMOKE widths, ids
+    repeating) from one seed end with parameters of the same bits (the
+    gathers' and segment sums' gradients add without atomics); remat gives
+    the loss and gradients of no remat bit for bit."""
+    from repro_torch.data.pipeline import DeterministicStream
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train.loop import LoopConfig, run
+
+    states = []
+    for _ in range(2):
+        model, g = _gnn_card(dev)
+        loss_fn, _, opt = gnn_setup(model.cfg)
+        batch = {k: v.cpu().numpy() for k, v in g.items()}
+        out = run(loss_fn, model, DeterministicStream(lambda seed: dict(batch), 0), opt,
+                  LoopConfig(n_steps=3, log_every=1))
+        assert all(np.isfinite(m["loss"]) for _, m in out["history"])
+        states.append(out["state"]["model"].state_dict())
+    for name, x in states[0].items():
+        assert torch.equal(x, states[1][name]), name
+    off = _gnn_loss_and_grads(*_gnn_card(dev, remat=False))
+    on = _gnn_loss_and_grads(*_gnn_card(dev, remat=True))
+    assert torch.equal(on[0], off[0])
+    for name, g in off[1].items():
+        assert torch.equal(on[1][name], g), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", [("data", "model"), ("model",)])
+def test_gnn_edge_sharded_on_the_card_matches_one_device(axes, dev):
+    """The edges over 8 (4) blocks on this one card against the one-device
+    path: the loss within 1e-5, every gradient within 1e-4 of the
+    largest."""
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+
+    model, g = _gnn_card(dev)
+    mesh = MeshCtx((dev,) * 4, data=2)
+    loss, grads = _gnn_loss_and_grads(model, g)
+    s_loss, s_grads = _gnn_loss_and_grads(model, g, mesh=mesh, axes=axes)
+    assert abs(float(s_loss) - float(loss)) < 1e-5
+    atol = 1e-4 * max(float(v.abs().max()) for v in grads.values())
+    for name, v in grads.items():
+        torch.testing.assert_close(s_grads[name], v, atol=atol, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["qwen3-8b", "deepseek-v2-236b"])
+def test_sp_decode_on_the_card_matches_decode_step(arch_id, dev):
+    """``sp_decode_step`` at SMOKE (numpy-drawn weights) over 8 sequence
+    shards on this one card, the MoE experts over 4 expert shards, against
+    ``decode_step`` at the same position after 11 steps: logits within 1e-4
+    of the largest; the new rows within 1e-5 of what ``decode_step``
+    writes; the cache untouched."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    from repro_torch.models.lm import LMModel
+
+    cfg = registry.get(arch_id).SMOKE
+    cpu = LMModel(cfg, device="cpu")
+    rng = _numpy_lm(cpu, LM_TRAIN_SEEDS[arch_id])
+    model = LMModel(cfg, device=dev)
+    model.load_state_dict(cpu.state_dict())
+    for layer in model.modules():
+        if hasattr(layer, "capacity_factor"):          # nothing drops
+            layer.capacity_factor = layer.n_experts / layer.top_k
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)).to(dev)
+    ctx = MeshCtx((dev,) * 4, data=2, data_axes=None, seq_axes=("data", "model"))
+    with torch.no_grad():
+        cache = model.init_cache(4, 16, torch.float32)
+        for i in range(11):
+            model.decode_step(toks[:, i:i + 1], cache, i)
+        before = {k: v.clone() for k, v in cache["stack"].items()}
+        logits, new = model.sp_decode_step(toks[:, 11:], cache, 11, ctx)
+        for k, v in before.items():
+            assert torch.equal(cache["stack"][k], v), k
+        exact, cache = model.decode_step(toks[:, 11:], cache, 11)
+    assert float((logits - exact).abs().max()) < 1e-4 * float(exact.abs().max())
+    for name, rows in new["stack"].items():
+        written = cache["stack"][name][:, :, :, 11] if name in ("k", "v") else \
+            cache["stack"][name][:, :, 11]
+        torch.testing.assert_close(rows[:, :, 0], written, **FP32)
