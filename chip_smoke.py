@@ -311,8 +311,41 @@ Phases, each of which raises (exit code != 0) when it fails:
    8). (e) The GNN reaches none of the port's kernels (the reference's
    reaches no Pallas kernel): its counts are read and all are 0. Prints
    the phase's wall time.
+17. mesh path — ``mesh``: the sharded LM training state on
+   ``MeshCtx((cuda:0,) * 4, data=2)`` (a (2, 4) data x model mesh on this
+   one card), fp32 with TF32 off, from the port's init (seed 0). (a)
+   granite-3-2b at full width cut to 4 layers, B = 2 x 4,096, remat
+   "full": ``loss(mesh=)`` with ``act_seq_shard`` gives the loss and every
+   gradient within 1e-5 of the largest of ``mesh=None`` (the same bits
+   expected; printed), with ``manual_tp`` within 2e-2 (the reference's
+   bf16 tolerance); remat "none" under the mesh gives remat "full"'s bits;
+   ms per forward and backward (host clock to a synchronize, median of 3
+   after the checked call) and peak memory of each beside each other. (b)
+   deepseek-moe-16b at full width cut to 4 layers (1 dense, 3 MoE), B = 2
+   x 2,048: the first MoE block under the mesh equals the one-device block
+   run on each data shard's tokens alone within 1e-5 of the largest (one
+   data shard's capacity); the model's loss under the mesh is finite and
+   its distance from the one-device loss printed; with the capacity factor
+   at n_experts / top_k (nothing drops) the loss and gradients under the
+   mesh lie within 1e-5 of one device. (c) (b)'s model, B = 2: a
+   256-token prefill under the mesh against one device (nothing dropping)
+   within 1e-5 of the largest logit, the exact cache of those tokens, its
+   offline SDIM encode, then 16 tokens of ``decode_step(mesh=)`` and
+   ``sdim_decode_step(mesh=)`` against ``mesh=None`` within 1e-5 of the
+   largest logit; kernel 4's launches in the SDIM tokens under the mesh are
+   the path's count (3 a token), the ``mesh=None`` references uncounted.
+   (d) (a)'s parameters exported (``export_lm_params``), saved
+   (``train/checkpoint.save``) and restored by ``restore_on_mesh`` onto
+   ``data=2, model=4`` and ``data=4, model=2``: every gathered leaf equals
+   the saved one bit for bit, every spec equals ``valid_for_mesh(
+   param_spec("lm", ...))``, the bytes one card of each mesh holds against
+   the whole tree printed, and a model loaded from the gathered leaves
+   gives (a)'s loss with the same bits. (e) ``compressed_psum`` over the
+   gradient trees of (a)'s two data halves: every leaf within one int8
+   step (the shared max|g| / 127) of the halves' mean, the same bits on
+   two calls. Prints the phase's wall time.
 
-Every launch count is set to 0 just before each of phases 4-16 and read
+Every launch count is set to 0 just before each of phases 4-17 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -321,7 +354,8 @@ phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 12 bse_encode, sdim_update, sdim_fused_serve, sdim_query and bse_serve;
 phases 13 and 14 sdim_query; phase 14's counts are read after each
 arch's SDIM decode and summed, so they count decode tokens only, as
-phase 13's; phases 15 and 16 none).
+phase 13's; phases 15 and 16 none; phase 17 sdim_query, counted over the
+SDIM tokens under the mesh).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -334,7 +368,8 @@ wall time and its five costliest device operations (fused server for
 phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
-as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``), then as the
+as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
+as ``mesh``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -446,6 +481,15 @@ EP_B, EP_T, EP_TOL = 2, 64, 1e-5
 GNN_TRAINED = ("full_graph_sm", "molecule", "minibatch_lg")
 GNN_STEPS, GNN_REPEAT, GNN_REPRO_STEPS = 4, 4, 3
 GNN_LOSS_TOL, GNN_GRAD_TOL = 1e-5, 1e-4
+# phase 17: the sharded LM training state on MESH_SHAPE (data, model) blocks
+# of this one card: (a) granite-3-2b cut to MESH_LAYERS layers at MESH_B x
+# MESH_SEQ, each forward and backward timed MESH_TIMED times after its
+# checked call; (b) deepseek-moe-16b cut to MESH_LAYERS layers at MESH_B x
+# MESH_MOE_SEQ; (c) its decode, MESH_DECODE tokens after MESH_PREFILL;
+# fp32 within MESH_TOL of the largest, manual_tp within MESH_TP_TOL
+MESH_SHAPE, MESH_LAYERS, MESH_B, MESH_SEQ, MESH_MOE_SEQ = (2, 4), 4, 2, 4096, 2048
+MESH_PREFILL, MESH_DECODE, MESH_TIMED = 256, 16, 3
+MESH_TOL, MESH_TP_TOL = 1e-5, 2e-2
 # the widest table row (at m = 48, tau = 3) whose sdim_query fits
 # fused_query.cuh's shared memory on the H100; wider rows take the wide path
 FUSED_MAX_D = 256
@@ -3733,6 +3777,331 @@ def gnn_phase(torch, dev, wrappers):
     return launches
 
 
+def mesh_ctx(dev, data: int = MESH_SHAPE[0], model: int = MESH_SHAPE[1], **kw):
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    return MeshCtx((dev,) * model, data=data, **kw)
+
+
+def rel_to_largest(got: dict, want: dict) -> float:
+    """The largest |got - want| over every entry, over the largest |want|."""
+    err = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    return err / max(float(w.abs().max()) for w in want.values())
+
+
+def loss_and_grads(torch, model, a, b, mesh=None) -> tuple:
+    """(loss, {name: grad}, ms, peak GiB) of one forward and backward."""
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(a, b, mesh=mesh)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_granite(torch, dev) -> tuple:
+    """Phase 17 (a): granite-3-2b at MESH_LAYERS layers under the mesh.
+    Returns (model, tokens, one-device loss and gradients, figures)."""
+    from repro_torch.configs import granite_3_2b
+
+    free_card(torch)
+    cfg = dataclasses.replace(granite_3_2b.FULL, n_layers=MESH_LAYERS, remat="full")
+    model = lm_model(torch, dev, cfg, f"granite-3-2b at {MESH_LAYERS} layers")
+    g = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (MESH_B, MESH_SEQ + 1), generator=g, device=dev)
+    a, b = tokens[:, :-1], tokens[:, 1:]
+    seq = mesh_ctx(dev, act_seq_shard=True)
+    tp = dataclasses.replace(seq, manual_tp=True)
+    runs = {}
+    for label, mesh in (("one device", None), ("mesh", seq), ("manual_tp", tp)):
+        loss, grads, first_ms, peak = loss_and_grads(torch, model, a, b, mesh)
+        ms = statistics.median(loss_and_grads(torch, model, a, b, mesh)[2]
+                               for _ in range(MESH_TIMED))
+        runs[label] = dict(loss=loss, grads=grads, ms=ms, first_ms=first_ms, peak_gib=peak)
+    base = runs["one device"]
+    out = {}
+    for label, tol in (("mesh", MESH_TOL), ("manual_tp", MESH_TP_TOL)):
+        r = runs[label]
+        rel = rel_to_largest(r["grads"], base["grads"])
+        loss_rel = abs(float(r["loss"] - base["loss"])) / abs(float(base["loss"]))
+        bits = torch.equal(r["loss"], base["loss"]) and all(
+            torch.equal(r["grads"][n], gr) for n, gr in base["grads"].items())
+        if not (rel <= tol and loss_rel <= tol and bool(torch.isfinite(r["loss"]))):
+            raise AssertionError(f"mesh (a) {label}: loss {float(r['loss'])} vs "
+                                 f"{float(base['loss'])}, gradients within {rel:.3g} of the "
+                                 f"largest (limit {tol})")
+        out[label] = dict(grad_rel=rel, loss_rel=loss_rel, same_bits=bits)
+    # remat "none" under the mesh: remat "full"'s bits
+    model.stack.remat = "none"
+    loss, grads, out["remat_none_ms"], out["remat_none_peak_gib"] = loss_and_grads(
+        torch, model, a, b, seq)
+    model.stack.remat = "full"
+    mesh_run = runs["mesh"]
+    differ = [n for n, gr in mesh_run["grads"].items() if not torch.equal(grads[n], gr)]
+    if not torch.equal(loss, mesh_run["loss"]) or differ:
+        raise AssertionError(f"mesh (a): remat 'none' under the mesh differs from 'full' (loss "
+                             f"{float(loss)} vs {float(mesh_run['loss'])}; {differ[:3]})")
+    times = {label: dict(ms=r["ms"], first_ms=r["first_ms"], peak_gib=r["peak_gib"])
+             for label, r in runs.items()}
+    out["times"] = times
+    out["loss"] = float(base["loss"])
+    print(f"mesh (a) granite-3-2b at {MESH_LAYERS} layers (d {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"GQA {cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab:,}), B = {MESH_B} x {MESH_SEQ}, "
+          f"remat 'full', over a {MESH_SHAPE} (data, model) mesh of {dev}: loss "
+          f"{out['loss']:.6f}; act_seq_shard "
+          f"within {out['mesh']['grad_rel']:.3g} of the largest gradient (limit {MESH_TOL}; "
+          f"same bits: {out['mesh']['same_bits']}); manual_tp (bf16) loss within "
+          f"{out['manual_tp']['loss_rel']:.3g}, gradients within "
+          f"{out['manual_tp']['grad_rel']:.3g} of the largest (limit {MESH_TP_TOL}); remat "
+          f"'none' under the mesh: remat 'full''s bits")
+    print(f"mesh (a) ms per forward and backward (host clock to a synchronize, median of "
+          f"{MESH_TIMED} after the checked call) and max_memory_allocated: "
+          + "; ".join(f"{label} {t['ms']:.1f} ms ({t['peak_gib']:.2f} GiB)"
+                      for label, t in times.items())
+          + f"; mesh with remat 'none' {out['remat_none_ms']:.1f} ms "
+          f"({out['remat_none_peak_gib']:.2f} GiB, first call); {card_line()}")
+    base = {"loss": base["loss"]}
+    del runs, mesh_run, grads
+    return model, (a, b), base, out
+
+
+def mesh_moe(torch, dev) -> tuple:
+    """Phase 17 (b): deepseek-moe-16b at MESH_LAYERS layers under the mesh.
+    Returns (model, figures)."""
+    from repro_torch.configs import deepseek_moe_16b
+
+    free_card(torch)
+    cfg = dataclasses.replace(deepseek_moe_16b.FULL, n_layers=MESH_LAYERS)
+    model = lm_model(torch, dev, cfg, f"deepseek-moe-16b at {MESH_LAYERS} layers",
+                     LMT_MOE_PARAMS)
+    g = torch.Generator(device=dev).manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab, (MESH_B, MESH_MOE_SEQ + 1), generator=g, device=dev)
+    a, b = tokens[:, :-1], tokens[:, 1:]
+    ctx = mesh_ctx(dev)
+    out = {}
+    with torch.no_grad():
+        x = model.embed(a)
+        for block in model.dense_blocks:
+            x = block(x)[0]
+        block = model.stack[0]
+        y = block(x, mesh=ctx)[0]
+        per_shard = torch.cat([block(x[i:i + 1])[0] for i in range(MESH_B)])
+        out["block_rel"] = float((y - per_shard).abs().max() / per_shard.abs().max())
+        whole = block(x)[0]
+        out["block_vs_whole_batch"] = float((y - whole).abs().max() / whole.abs().max())
+        del x, y, per_shard, whole
+        loss_mesh = float(model.loss(a, b, mesh=ctx))
+        loss_one = float(model.loss(a, b))
+    if not out["block_rel"] <= MESH_TOL:
+        raise AssertionError(f"mesh (b): the first MoE block under the mesh differs from the "
+                             f"per-shard one-device block by {out['block_rel']:.3g}")
+    if not np.isfinite(loss_mesh):
+        raise AssertionError(f"mesh (b): the loss under the mesh is {loss_mesh}")
+    out.update(loss_mesh=loss_mesh, loss_one=loss_one)
+    set_capacity_factor(model, None)
+    loss0, grads0, _, _ = loss_and_grads(torch, model, a, b)
+    loss1, grads1, _, peak = loss_and_grads(torch, model, a, b, ctx)
+    set_capacity_factor(model, 1.25)
+    out["nodrop_grad_rel"] = rel_to_largest(grads1, grads0)
+    out["nodrop_loss_rel"] = abs(float(loss1 - loss0)) / abs(float(loss0))
+    out["nodrop_peak_gib"] = peak
+    if not (out["nodrop_grad_rel"] <= MESH_TOL and out["nodrop_loss_rel"] <= MESH_TOL):
+        raise AssertionError(f"mesh (b): nothing dropping, the mesh's loss {float(loss1)} vs "
+                             f"{float(loss0)}, gradients within {out['nodrop_grad_rel']:.3g}")
+    del grads0, grads1
+    print(f"mesh (b) deepseek-moe-16b at {MESH_LAYERS} layers (1 dense, 3 MoE; full width), "
+          f"B = {MESH_B} x {MESH_MOE_SEQ}: the first MoE block under the mesh within "
+          f"{out['block_rel']:.3g} of the one-device block on each data shard's tokens alone "
+          f"(limit {MESH_TOL}; {out['block_vs_whole_batch']:.3g} from the block on the whole "
+          f"batch); loss at capacity factor 1.25 under the mesh {loss_mesh:.6f}, one device "
+          f"{loss_one:.6f} ({abs(loss_mesh - loss_one):.3g} apart); nothing dropping (factor "
+          f"n_experts / top_k): loss within {out['nodrop_loss_rel']:.3g}, gradients within "
+          f"{out['nodrop_grad_rel']:.3g} of the largest (limit {MESH_TOL}); max_memory_allocated "
+          f"{peak:.2f} GiB")
+    return model, out
+
+
+def mesh_decode(torch, dev, wrappers, model) -> tuple:
+    """Phase 17 (c): prefill, exact and SDIM decode of (b)'s model under
+    the mesh against one device. Returns (the launch counts of the SDIM
+    tokens under the mesh, figures)."""
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query
+
+    cfg = model.cfg
+    ctx = mesh_ctx(dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    toks = torch.randint(0, cfg.vocab, (MESH_B, MESH_PREFILL + MESH_DECODE), generator=g,
+                         device=dev)
+    out = {}
+    with torch.no_grad():
+        set_capacity_factor(model, None)
+        out["prefill_rel"] = logits_close(
+            torch, "mesh (c) prefill under the mesh vs one device (nothing dropping)",
+            model.prefill(toks[:, :MESH_PREFILL], mesh=ctx), model.prefill(toks[:, :MESH_PREFILL]),
+            MESH_TOL)
+        set_capacity_factor(model, 1.25)
+        cache = model.init_cache(MESH_B, MESH_PREFILL + MESH_DECODE, torch.float32)
+        for i in range(MESH_PREFILL):
+            model.decode_step(toks[:, i:i + 1], cache, i)
+        mask = torch.zeros((MESH_B, MESH_PREFILL + MESH_DECODE), device=dev)
+        mask[:, :MESH_PREFILL] = 1
+        sc = dict(model.encode_sdim_cache_from_kv(cache, mask), len=MESH_PREFILL)
+        exact = {"mesh": cache, "one": {"stack": {k: v.clone() for k, v in cache["stack"].items()},
+                                        "dense": [{k: v.clone() for k, v in c.items()}
+                                                  for c in cache["dense"]]}}
+        sdim = {"mesh": sc, "one": {k: v.clone() if torch.is_tensor(v) else v
+                                    for k, v in sc.items()}}
+        got = {"exact": [], "sdim": []}
+        want = {"exact": [], "sdim": []}
+        reset(wrappers)
+        for i in range(MESH_DECODE):
+            pos = MESH_PREFILL + i
+            tok = toks[:, pos:pos + 1]
+            got["exact"].append(model.decode_step(tok, exact["mesh"], pos, mesh=ctx)[0])
+            with uncounted():
+                want["exact"].append(model.decode_step(tok, exact["one"], pos)[0])
+                want["sdim"].append(model.sdim_decode_step(tok, sdim["one"])[0])
+            got["sdim"].append(model.sdim_decode_step(tok, sdim["mesh"], mesh=ctx)[0])
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, ("sdim_query",), "mesh")
+    if launches["sdim_query"] != MESH_DECODE * cfg.n_scan_layers:
+        raise AssertionError(f"mesh (c): {launches['sdim_query']} sdim_query launches, not "
+                             f"{cfg.n_scan_layers} a token")
+    for path in ("exact", "sdim"):
+        out[f"{path}_rel"] = logits_close(
+            torch, f"mesh (c) {path} decode of {MESH_DECODE} tokens under the mesh vs one device",
+            torch.cat(got[path]), torch.cat(want[path]), MESH_TOL)
+    print(f"mesh (c) deepseek-moe-16b, B = {MESH_B}: {MESH_DECODE} tokens after a "
+          f"{MESH_PREFILL}-token prefill; exact and SDIM decode under the mesh (experts over "
+          f"{ctx.ep} shards, tokens replicated) within {out['exact_rel']:.3g} and "
+          f"{out['sdim_rel']:.3g} of the largest logit (limit {MESH_TOL}); prefill within "
+          f"{out['prefill_rel']:.3g}; sdim_query {launches['sdim_query']} launches under the "
+          f"mesh ({cfg.n_scan_layers} a token)")
+    del exact, sdim, cache
+    return launches, out
+
+
+def mesh_elastic(torch, dev, model, batch, base) -> dict:
+    """Phase 17 (d): (a)'s parameters saved whole and restored onto two
+    meshes; the loss of a model loaded from the gathered leaves."""
+    import tempfile
+    from repro_torch.distributed.sharding import (flatten, gather_tree, map_tree, param_spec,
+                                                  shard_bytes, spec_tree, valid_for_mesh)
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import restore_on_mesh
+    from repro_torch.weights import export_lm_params, load_jax_lm_params
+
+    params = export_lm_params(model)
+    flat = flatten({"params": params})
+    whole = sum(v.nbytes for v in flat.values())
+    out = {"whole_bytes": whole}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ck.save(d, 0, {"params": params})
+        out["save_s"] = time.perf_counter() - t0
+        for data, n_model in ((2, 4), (4, 2)):
+            mesh = mesh_ctx(dev, data, n_model)
+
+            def rules(path, shape, mesh=mesh):
+                return valid_for_mesh(param_spec("lm", path, shape), shape, mesh)
+
+            t0 = time.perf_counter()
+            restored, _ = restore_on_mesh(d, {"params": params}, mesh, rules)
+            restore_s = time.perf_counter() - t0
+            specs = spec_tree(restored)
+            wrong = [p for p, v in flat.items() if specs[p] != rules(p, v.shape)]
+            gathered = gather_tree(restored, dev)
+            differ = [path for path, t in flatten(gathered).items()
+                      if not torch.equal(t, torch.from_numpy(flat[path]).to(dev))]
+            on_card = all(blk.device == dev for leaf in flatten(restored).values()
+                          for blk in leaf.blocks)
+            if wrong or differ or not on_card:
+                raise AssertionError(f"mesh (d) data={data}, model={n_model}: specs differ "
+                                     f"{wrong[:3]}, gathered leaves differ {differ[:3]}, "
+                                     f"blocks on the card {on_card}")
+            held = shard_bytes(restored)
+            out[f"{data}x{n_model}"] = dict(restore_s=restore_s, card_bytes=held,
+                                            sharded=sum(1 for s in specs.values() if s))
+            print(f"mesh (d) restore onto data={data}, model={n_model}: {restore_s:.2f} s; "
+                  f"every gathered leaf equals the saved one bit for bit, every spec "
+                  f"valid_for_mesh(param_spec('lm', ...)) ({out[f'{data}x{n_model}']['sharded']} "
+                  f"of {len(specs)} leaves split; the tied embed.table "
+                  f"{specs['params/embed/table']!r}); "
+                  f"one card of the mesh holds {held:,} B of the tree's {whole:,} B "
+                  f"({held / whole:.1%})")
+            del restored
+        numpy_tree = map_tree(lambda _, t: t.cpu().numpy(), gathered)
+    loaded = LMModel(model.cfg, device=dev)
+    load_jax_lm_params(loaded, numpy_tree["params"], model.R.cpu().numpy())
+    with torch.no_grad():
+        loss = loaded.loss(*batch)
+    if not torch.equal(loss, base["loss"]):
+        raise AssertionError(f"mesh (d): the model loaded from the gathered leaves gives loss "
+                             f"{float(loss)}, not (a)'s {float(base['loss'])}")
+    print(f"mesh (d) a model loaded from the gathered leaves gives (a)'s loss bit for bit "
+          f"({float(loss):.6f}); save {out['save_s']:.2f} s")
+    del loaded, gathered, numpy_tree
+    return out
+
+
+def mesh_compressed(torch, dev, model, batch) -> dict:
+    """Phase 17 (e): compressed_psum over the gradient trees of (a)'s two
+    data halves."""
+    from repro_torch.train.compression import compressed_psum
+
+    a, b = batch
+    halves = [loss_and_grads(torch, model, a[i:i + 1], b[i:i + 1])[1] for i in range(2)]
+    first, second = compressed_psum(halves), compressed_psum(halves)
+    worst, bits = 0.0, True
+    for n in halves[0]:
+        mean = (halves[0][n] + halves[1][n]) / 2
+        step = max(float(h[n].abs().max()) for h in halves) / 127
+        err = float((first[0][n] - mean).abs().max())
+        worst = max(worst, err / step if step else 0.0)
+        bits = bits and all(torch.equal(x[n], y[n]) for x, y in zip(first, second)) and \
+            torch.equal(first[0][n], first[1][n])
+        if not err <= step:
+            raise AssertionError(f"mesh (e): compressed_psum's {n} lies {err:.3g} from the "
+                                 f"halves' mean, more than one int8 step {step:.3g}")
+    if not bits:
+        raise AssertionError("mesh (e): two compressed_psum calls differ, or its blocks do")
+    print(f"mesh (e) compressed_psum over the gradient trees of (a)'s 2 data halves "
+          f"({len(halves[0])} leaves): every leaf within {worst:.3f} of one int8 step (the "
+          f"shared max|g| / 127) of the halves' mean; two calls and both blocks the same bits")
+    return dict(worst_step_share=worst)
+
+
+def mesh_phase(torch, dev, wrappers):
+    """Phase 17 (module docstring): the sharded LM training state. Returns
+    the path's launch counts (kernel 4 in (c)'s SDIM tokens under the
+    mesh)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    print(f"mesh: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+          f"({torch.cuda.get_device_name(dev)}; {card_line()}); mesh {MESH_SHAPE} (data, model) "
+          f"blocks, all on {dev}")
+    reset(wrappers)
+    model, batch, base, out = mesh_granite(torch, dev)
+    figures = {"granite": out}
+    figures["elastic"] = mesh_elastic(torch, dev, model, batch, base)
+    figures["compressed"] = mesh_compressed(torch, dev, model, batch)
+    del model, base
+    moe, figures["moe"] = mesh_moe(torch, dev)
+    launches, figures["decode"] = mesh_decode(torch, dev, wrappers, moe)
+    del moe
+    free_card(torch)
+    print(f"mesh figures: {json.dumps(figures)}")
+    print(f"mesh: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -3798,6 +4167,7 @@ def main() -> int:
     by_name["sdim_query"].update(moe_mla_query)
     by_path["lm_train"] = lm_train_phase(torch, dev, wrappers + backward)
     by_path["gnn"] = gnn_phase(torch, dev, wrappers + backward)
+    by_path["mesh"] = mesh_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -1,19 +1,17 @@
 """MeshCtx: the devices a sharded run lives on, and how it maps onto the
 mesh's ``data`` and ``model`` axes.
 
-Counterpart of ``repro/distributed/mesh_ctx.py::MeshCtx`` together with
-``repro/distributed/sharding.py::table_store_spec``, cut to what the
-sharded store and the model code's ``shard_map`` paths need. The JAX
-package drives its mesh from one process (``shard_map`` under one
+Counterpart of ``repro/distributed/mesh_ctx.py::MeshCtx``. The JAX
+package drives its mesh from one process (``shard_map`` and GSPMD under one
 controller) and row-shards the ``(S, C, G, U, d)`` store over the mesh's
-model axis. The port does the same from one
-process: the model axis is an ordered tuple of ``torch.device``s, one per
-shard, and shard ``k``'s ``(C, G, U, d)`` block lives on ``devices[k]``.
-Devices may repeat: ``(cuda:0,) * 8`` runs the whole sharded path on one
-card, ``(cpu,) * 8`` on the host, as the JAX tests fake eight host devices.
-A CUDA device named without an index is the current one.
-The data axis only records its size: the store is replicated over it, and
-one process holds one copy of each shard.
+model axis (``distributed/sharding.py::table_store_spec``). The port does
+the same from one process: the model axis is an ordered tuple of
+``torch.device``s, one per shard, and shard ``k``'s ``(C, G, U, d)`` block
+lives on ``devices[k]``. Devices may repeat: ``(cuda:0,) * 8`` runs the
+whole sharded path on one card, ``(cpu,) * 8`` on the host, as the JAX
+tests fake eight host devices. A CUDA device named without an index is the
+current one. The data axis only records its size: the store is replicated
+over it, and one process holds one copy of each shard.
 
 The model code's sharded paths read the reference's fields: ``data_axes``
 (the axes a batch is split over; None: tokens replicated, as in decode),
@@ -26,9 +24,19 @@ block ``data_idx * model + model_idx``); ``axis_devices`` gives block k the
 device ``devices[k % n_shards]``, as ``place`` does, which puts every block
 of one model index on that index's device. Partial results are summed in
 block order on the first block's device, so a ``psum`` gives the same bits
-on every run. Not here (ROADMAP.md, A5): ``act_seq_shard``, ``manual_tp``
-and ``constrain``/``constrain_residual``, which steer GSPMD's parameter and
-activation sharding of a training step.
+on every run.
+
+A training step's fields: ``act_seq_shard`` (the residual stream split B
+over the data axes and T over the model axis between blocks,
+``constrain_residual``) and ``manual_tp`` (the dense FFN as the Megatron
+column/row split of ``distributed/manual_tp.py``). The reference's
+``constrain`` is GSPMD's ``with_sharding_constraint``: a placement hint
+that changes no value. The port computes on whole tensors, so
+``constrain`` and ``constrain_residual`` check the spec against the mesh
+and the array and return the array itself. Under ``jit``, where the
+reference's model runs, a spec whose axes do not divide a dimension (a
+vocab of 130 over 4) passes, GSPMD padding the blocks; so it passes here.
+Where parameters live as blocks, ``distributed/sharding.py`` places them.
 
 ``owned`` is the masking rule every sharded operation shares: a handle
 ``(shard, local)`` belongs to one shard, and the other shards see its row
@@ -52,6 +60,8 @@ class MeshCtx:
     data_axes: Optional[Tuple[str, ...]] = ("data",)   # None: tokens replicated
     model_axis: str = "model"
     seq_axes: Optional[Tuple[str, ...]] = None         # split-KV decode's cache axes
+    act_seq_shard: bool = False     # residual: B over data_axes, T over model_axis
+    manual_tp: bool = False         # the dense FFN through manual_tp_gated_ffn
 
     def __post_init__(self):
         devices = tuple(canonical(d) for d in self.devices)
@@ -64,6 +74,27 @@ class MeshCtx:
             for a in axes:
                 if a not in ("data", "model"):
                     raise ValueError(f"unknown mesh axis {a!r}: the axes are 'data' and 'model'")
+
+    def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """The reference's ``with_sharding_constraint(x, P(*spec))``: ``x``
+        itself (a placement hint changes no value). Raises where the spec
+        names an axis the mesh lacks or has more entries than ``x`` has
+        dimensions, as ``PartitionSpec`` does; an axis that does not divide
+        its dimension passes, as under ``jit``."""
+        if len(spec) > x.dim():
+            raise ValueError(f"a spec of {len(spec)} entries for an array of rank {x.dim()}")
+        for entry in spec:
+            for a in (entry,) if isinstance(entry, str) else entry or ():
+                if a not in self.shape:
+                    raise ValueError(f"unknown mesh axis {a!r}: the axes are 'data' and 'model'")
+        return x
+
+    def constrain_residual(self, x: torch.Tensor) -> torch.Tensor:
+        """A (B, T, d) residual: B over the data axes, T over the model axis,
+        where ``act_seq_shard`` is on and T > 1; ``x`` itself."""
+        if not self.act_seq_shard or x.shape[1] == 1:
+            return x
+        return self.constrain(x, self.data_axes, self.model_axis, None)
 
     @staticmethod
     def wrap(m: Union["MeshCtx", Sequence, None]) -> "MeshCtx | None":

@@ -52,6 +52,18 @@ reference's R (``weights.load_jax_lm_params``, which sets both).
   run expert-parallel with tokens replicated (``ctx.for_decode()``), and
   the new token's keys and values are returned for the caller to append.
 
+* under a mesh (``mesh=``, a ``MeshCtx``; the reference's
+  ``lm.py:121-233``): ``forward``, ``loss`` and ``prefill`` run each block
+  under it (``nn/transformer.Block``: the residual constrained with
+  ``act_seq_shard``, MoE FFNs expert-parallel with one data shard's
+  capacity, with ``manual_tp`` the dense FFN as ``distributed/manual_tp``'s
+  bf16 Megatron split), ``loss`` constrains the logits (B over data, V over
+  model); ``decode_step`` and ``sdim_decode_step`` run their MoE FFNs
+  expert-parallel with tokens replicated (``ctx.for_decode()``), so the
+  SDIM path runs kernel 4 beside expert-parallel experts. The port
+  computes on whole tensors: a constraint changes no value, and the
+  parameters' placement as blocks is ``distributed/sharding.py``'s.
+
 The model runs on the card unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
@@ -128,8 +140,8 @@ class _Loss(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, tokens, targets):
-        return self.model._loss(tokens, targets)
+    def forward(self, tokens, targets, mesh=None):
+        return self.model._loss(tokens, targets, mesh)
 
 
 class LMModel(nn.Module):
@@ -172,20 +184,24 @@ class LMModel(nn.Module):
         return self.lm_head(x)
 
     # ---------------- forward / loss ----------------
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, mesh=None):
         """tokens (B, T) -> (hidden (B, T, d_model) after the final norm,
-        the summed MoE aux loss (0 for dense blocks))."""
+        the summed MoE aux loss (0 for dense blocks)); ``mesh`` (a
+        ``MeshCtx``) runs the blocks under it (``nn/transformer.Block``)."""
         x = self.embed(tokens)
         aux = torch.zeros((), device=x.device)
         for block in self.dense_blocks:
-            x, aux_i = block(x)
+            x, aux_i = block(x, mesh=mesh)
             aux = aux + aux_i
-        x, aux_s = self.stack(x)
+        x, aux_s = self.stack(x, mesh=mesh)
         return self.final_norm(x), aux + aux_s
 
-    def _loss(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        x, aux = self(tokens)
+    def _loss(self, tokens: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
+        ctx = mesh if isinstance(mesh, MeshCtx) else None
+        x, aux = self(tokens, mesh=mesh)
         logits = self._logits(x)
+        if ctx is not None:       # vocab-split logits: B over data, V over model
+            logits = ctx.constrain(logits, ctx.data_axes, None, ctx.model_axis)
         logz = torch.logsumexp(logits.float(), dim=-1)
         gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
         return torch.mean(logz - gold.float()) + aux
@@ -195,12 +211,15 @@ class LMModel(nn.Module):
         return {f"model.{n}": p.to(torch.bfloat16) if p.is_floating_point() else p
                 for n, p in self.named_parameters()}
 
-    def loss(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def loss(self, tokens: torch.Tensor, targets: torch.Tensor, mesh=None) -> torch.Tensor:
         """Next-token cross entropy (targets: tokens shifted by the caller),
-        a scalar; the log-sum-exp in fp32 over the compute dtype's logits."""
+        a scalar; the log-sum-exp in fp32 over the compute dtype's logits.
+        ``mesh``: a ``MeshCtx``, as ``forward``'s; the logits constrained B
+        over the data axes, V over the model axis."""
         if self.cfg.compute_dtype == "float32":
-            return self._loss(tokens, targets)
-        return torch.func.functional_call(_Loss(self), self._cast_compute(), (tokens, targets))
+            return self._loss(tokens, targets, mesh)
+        return torch.func.functional_call(_Loss(self), self._cast_compute(), (tokens, targets),
+                                          {"mesh": mesh})
 
     # ---------------- serving: exact KV ----------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
@@ -216,19 +235,23 @@ class LMModel(nn.Module):
                                for block in self.dense_blocks]
         return caches
 
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
         """Full-sequence forward; returns the last position's logits (B, 1, V)."""
-        x, _ = self(tokens)
+        x, _ = self(tokens, mesh=mesh)
         return self._logits(x[:, -1:, :])
 
-    def decode_step(self, token: torch.Tensor, caches: dict, cache_len: int):
+    def decode_step(self, token: torch.Tensor, caches: dict, cache_len: int, mesh=None):
         """token (B, 1) at position ``cache_len`` -> (logits (B, 1, V),
         caches), exact attention against the cache's first ``cache_len``
-        rows and the new one, which is written into the caches in place."""
+        rows and the new one, which is written into the caches in place.
+        ``mesh``: MoE FFNs expert-parallel with tokens replicated
+        (``MeshCtx.for_decode``)."""
+        ctx = MeshCtx.wrap(mesh)
+        mesh = ctx.for_decode() if ctx is not None else None
         x = self.embed(token)
         for block, cache in zip(self.dense_blocks, caches.get("dense", ())):
-            x, _ = block.decode_step(x, cache, cache_len)
-        x, caches["stack"] = self.stack.decode_step(x, caches["stack"], cache_len)
+            x, _ = block.decode_step(x, cache, cache_len, mesh)
+        x, caches["stack"] = self.stack.decode_step(x, caches["stack"], cache_len, mesh)
         return self._logits(self.final_norm(x)), caches
 
     # ---------------- serving: split-KV sequence-parallel decode ----------------
@@ -327,15 +350,19 @@ class LMModel(nn.Module):
         o = sdim.sdim_decode_attention(q, vt, ct, self.R, cfg.sdim_tau)
         return o.reshape(B, 1, cfg.n_heads * cfg.head_dim).to(h_in.dtype)
 
-    def sdim_decode_step(self, token: torch.Tensor, sdim_cache: dict):
+    def sdim_decode_step(self, token: torch.Tensor, sdim_cache: dict, mesh=None):
         """One token (B, 1) against the bucket-compressed KV. Per scanned
         layer: hash the new key and fold (k, v) into the layer's tables in
         place (``core/sdim.kv_bucket_fold``), then each query head reads its
         kv head's buckets with the ℓ2 combine (``sdim_decode_attention``, the
         ``sdim_query`` kernel on the card). The cost does not depend on the
         context length. The ``first_k_dense`` blocks are not run (the
-        reference's C6). Returns (logits (B, 1, V), sdim_cache), the cache
-        updated in place and its ``len`` advanced by one."""
+        reference's C6). ``mesh``: MoE FFNs expert-parallel with tokens
+        replicated (``MeshCtx.for_decode``). Returns (logits (B, 1, V),
+        sdim_cache), the cache updated in place and its ``len`` advanced by
+        one."""
+        ctx = MeshCtx.wrap(mesh)
+        mesh = ctx.for_decode() if ctx is not None else None
         B = token.shape[0]
         positions = torch.full((B, 1), sdim_cache["len"], dtype=torch.int32, device=token.device)
         x = self.embed(token)
@@ -343,7 +370,7 @@ class LMModel(nn.Module):
             h = self._sdim_attention(block.attn, block.ln1(x), positions,
                                      sdim_cache["vt"][i], sdim_cache["ct"][i])
             x = x + block.attn.wo(h)
-            x = x + block._ffn(block.ln2(x))[0]
+            x = x + block._ffn(block.ln2(x), mesh)[0]
         sdim_cache["len"] += 1
         return self._logits(self.final_norm(x)), sdim_cache
 

@@ -17,6 +17,13 @@ of its products without a batch dimension, recomputing the rest;
 ``"none"`` keeps everything. Outside autograd (serving, decode) blocks run
 plainly. The policies move memory and time, never the bits of the loss or
 a gradient.
+
+``mesh=`` (a ``MeshCtx``) runs a block as the reference's ``Block.apply``
+under a mesh: the residual constrained after each add
+(``MeshCtx.constrain_residual``, no value changed), a MoE FFN expert-parallel
+with one data shard's capacity, and with ``manual_tp`` a bias-free dense
+FFN through ``distributed/manual_tp.py`` (aux loss 0). In decode only a MoE
+FFN reads the mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch.distributed.manual_tp import manual_tp_gated_ffn
+from repro_torch.distributed.mesh_ctx import MeshCtx
 from repro_torch.nn.attention import GQAttention, MLAttention
 from repro_torch.nn.layers import GatedMLP, LayerNorm, RMSNorm
 from repro_torch.nn.moe import MoELayer
@@ -107,24 +116,37 @@ class Block(nn.Module):
         self.ln2 = cfg.norm_module(device)
         self.ffn = cfg.ffn_module(device, generator)
 
-    def _ffn(self, x: torch.Tensor):
-        """(ffn(x), aux loss): a dense FFN's aux loss is 0."""
+    def _ffn(self, x: torch.Tensor, mesh=None):
+        """(ffn(x), aux loss): a dense FFN's aux loss is 0; a MoE FFN runs
+        expert-parallel over ``mesh``."""
         if self.cfg.moe is not None:
-            return self.ffn(x)
+            return self.ffn(x, mesh=mesh)
         return self.ffn(x), torch.zeros((), device=x.device)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, mesh=None):
         """Returns (x, aux_loss)."""
+        ctx = mesh if isinstance(mesh, MeshCtx) else None
         x = x + self.attn(self.ln1(x), positions=positions, mask=mask)
-        h, aux = self._ffn(self.ln2(x))
-        return x + h, aux
+        if ctx is not None:
+            x = ctx.constrain_residual(x)
+        ffn_in = self.ln2(x)
+        if (self.cfg.moe is None and ctx is not None and ctx.manual_tp
+                and not self.cfg.use_bias):
+            h = manual_tp_gated_ffn(ffn_in, self.ffn, ctx, self.cfg.activation)
+            aux = torch.zeros((), device=x.device)
+        else:
+            h, aux = self._ffn(ffn_in, mesh)
+        x = x + h
+        if ctx is not None:
+            x = ctx.constrain_residual(x)
+        return x, aux
 
-    def decode_step(self, x: torch.Tensor, cache: dict, cache_len: int):
+    def decode_step(self, x: torch.Tensor, cache: dict, cache_len: int, mesh=None):
         """One token against this layer's cache (written in place)."""
         h, cache = self.attn.decode_step(self.ln1(x), cache, cache_len)
         x = x + h
-        return x + self._ffn(self.ln2(x))[0], cache
+        return x + self._ffn(self.ln2(x), mesh)[0], cache
 
 
 class Stack(nn.ModuleList):
@@ -149,20 +171,20 @@ class Stack(nn.ModuleList):
         self.cfg, self.remat, self.unroll = cfg, remat, unroll
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, mesh=None):
         """x (B, T, d_model) -> (x, the blocks' summed aux loss); each block
         checkpointed under ``remat`` where autograd records."""
         aux = torch.zeros((), device=x.device)
         remat = REMAT_POLICIES[self.remat] is not None and torch.is_grad_enabled()
         for block in self:
             if remat:
-                x, aux_l = self._checkpointed(block, x, positions, mask)
+                x, aux_l = self._checkpointed(block, x, positions, mask, mesh)
             else:
-                x, aux_l = block(x, positions=positions, mask=mask)
+                x, aux_l = block(x, positions=positions, mask=mask, mesh=mesh)
             aux = aux + aux_l
         return x, aux
 
-    def _checkpointed(self, block: Block, x, positions, mask):
+    def _checkpointed(self, block: Block, x, positions, mask, mesh=None):
         """``block(x)`` under ``torch.utils.checkpoint`` with the remat
         policy. The block's parameters go in as explicit inputs and the block
         runs on them (``functional_call``): the backward pass runs it again
@@ -174,7 +196,7 @@ class Stack(nn.ModuleList):
 
         def run(x, *tensors):
             return torch.func.functional_call(block, dict(zip(names, tensors)),
-                                              (x, positions, mask))
+                                              (x, positions, mask), {"mesh": mesh})
 
         ops = REMAT_POLICIES[self.remat]
         context = (functools.partial(create_selective_checkpoint_contexts,
@@ -187,7 +209,8 @@ class Stack(nn.ModuleList):
         return {name: torch.zeros((len(self), *t.shape), dtype=dtype, device=device)
                 for name, t in one.items()}
 
-    def decode_step(self, x: torch.Tensor, caches: dict, cache_len: int):
+    def decode_step(self, x: torch.Tensor, caches: dict, cache_len: int, mesh=None):
         for i, block in enumerate(self):
-            x, _ = block.decode_step(x, {name: t[i] for name, t in caches.items()}, cache_len)
+            x, _ = block.decode_step(x, {name: t[i] for name, t in caches.items()}, cache_len,
+                                     mesh)
         return x, caches

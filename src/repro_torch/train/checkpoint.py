@@ -12,21 +12,31 @@ guarantees:
   step, the time and a manifest of every array's shape; ``latest_step``
   finds the newest step for a restart.
 
-A state is a nested dict of ``nn.Module``s (stored through their
-``state_dict``, buffers included), tensors and ints, flattened to numpy
-arrays under the port's names joined by ``/`` (``model/item_emb.weight``,
-``opt/v/head.fc0.bias``, ``opt/count``). ``restore`` loads them back into a
-template of the same structure: modules in place, tensors onto the
-template's devices. The JAX package's ``sharding_fn`` (restore onto another
-mesh) waits for the port's multi-device slice.
+A state is a nested dict (or list) of ``nn.Module``s (stored through their
+``state_dict``, buffers included), tensors, numpy arrays and ints,
+flattened to numpy arrays under the port's names joined by ``/``
+(``model/item_emb.weight``, ``opt/v/head.fc0.bias``, ``opt/count``; a list
+index is a name). ``restore`` loads them back into a template of the same
+structure: modules in place, tensors onto the template's devices, arrays as
+arrays. It also reads a checkpoint the JAX package wrote, whose names are
+keystrs (``['params']['item_emb']['table']``), into a template of the
+reference's tree (``weights.export_params``' layout).
+
+Elastic restore (``train/elastic.py``): ``restore``'s ``sharding_fn(path,
+shape)`` gives each tensor or array leaf a placement
+(``distributed/sharding.Placement``) or None. A placed leaf comes back as
+its blocks on the placement's mesh (``ShardedLeaf``), so a checkpoint
+written whole restores onto any mesh. A module's leaves are loaded in
+place, never placed: a ``sharding_fn`` that places one raises.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -38,17 +48,30 @@ SEP = "/"
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     """Every leaf of ``tree`` as a host numpy array (copied off the
     device), by its path."""
-    items = tree.state_dict().items() if isinstance(tree, nn.Module) else tree.items()
     out = {}
-    for key, leaf in items:
+    for key, leaf in _items(tree):
         path = f"{prefix}{key}"
-        if isinstance(leaf, (dict, nn.Module)):
+        if isinstance(leaf, (dict, list, nn.Module)):
             out.update(_flatten(leaf, path + SEP))
         elif isinstance(leaf, torch.Tensor):
             out[path] = leaf.detach().to("cpu", copy=True).numpy()
         else:
             out[path] = np.asarray(leaf)
     return out
+
+
+def _items(tree: Any):
+    if isinstance(tree, nn.Module):
+        return tree.state_dict().items()
+    return enumerate(tree) if isinstance(tree, list) else tree.items()
+
+
+def _name(key: str) -> str:
+    """A checkpoint's array name in the port's form: a JAX keystr
+    ``['params']['blocks'][0]`` -> ``params/blocks/0``; the port's own
+    names unchanged."""
+    parts = re.findall(r"\['?([^'\]]+)'?\]", key)
+    return SEP.join(parts) if parts else key
 
 
 def _checked(flat: Dict[str, np.ndarray], path: str, shape: tuple) -> np.ndarray:
@@ -61,20 +84,31 @@ def _checked(flat: Dict[str, np.ndarray], path: str, shape: tuple) -> np.ndarray
     return arr
 
 
-def _unflatten_into(tree: Any, flat: Dict[str, np.ndarray], prefix: str = "") -> Any:
+def _unflatten_into(tree: Any, flat: Dict[str, np.ndarray], prefix: str = "",
+                    sharding_fn: Optional[Callable] = None) -> Any:
     if isinstance(tree, nn.Module):
         sd = tree.state_dict()
+        for k, v in sd.items():
+            if sharding_fn is not None and sharding_fn(prefix + k, tuple(v.shape)) is not None:
+                raise ValueError(f"restore loads the module leaf {prefix + k} in place and "
+                                 f"places none: restore it in a tree of tensors to shard it")
         tree.load_state_dict({k: torch.from_numpy(_checked(flat, prefix + k, v.shape))
                               for k, v in sd.items()})
         return tree
-    out = {}
-    for key, leaf in tree.items():
+    out = [None] * len(tree) if isinstance(tree, list) else {}
+    for key, leaf in _items(tree):
         path = f"{prefix}{key}"
-        if isinstance(leaf, (dict, nn.Module)):
-            out[key] = _unflatten_into(leaf, flat, path + SEP)
-        elif isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (dict, list, nn.Module)):
+            out[key] = _unflatten_into(leaf, flat, path + SEP, sharding_fn)
+        elif isinstance(leaf, (torch.Tensor, np.ndarray)):
             arr = _checked(flat, path, leaf.shape)
-            out[key] = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+            placement = sharding_fn(path, tuple(arr.shape)) if sharding_fn is not None else None
+            if isinstance(leaf, torch.Tensor):
+                arr = torch.from_numpy(arr).to(dtype=leaf.dtype)
+                out[key] = arr.to(leaf.device) if placement is None else placement.place(arr)
+            else:
+                arr = arr.astype(leaf.dtype, copy=False)
+                out[key] = np.array(arr) if placement is None else placement.place(arr)
         else:
             out[key] = type(leaf)(_checked(flat, path, ()))
     return out
@@ -122,15 +156,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            sharding_fn: Optional[Callable] = None):
     """(state, step): checkpoint ``step`` (default the latest) loaded into
-    ``template``'s structure; modules are loaded in place."""
+    ``template``'s structure; modules are loaded in place. ``sharding_fn
+    (path, shape)`` (path ``/``-joined) places a tensor or array leaf where
+    it returns a placement (``distributed/sharding.Placement``): the leaf
+    comes back as its blocks; a module leaf it places raises."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     with np.load(_path(ckpt_dir, step, ".npz")) as data:
-        flat = {k: data[k] for k in data.files}
-    return _unflatten_into(template, flat), step
+        flat = {_name(k): data[k] for k in data.files}
+    return _unflatten_into(template, flat, sharding_fn=sharding_fn), step
 
 
 class AsyncCheckpointer:

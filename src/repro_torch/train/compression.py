@@ -5,13 +5,20 @@ quantized to int8 (one absmax scale per tensor) or rounded to bf16 before
 it would cross the interconnect, and the quantization residual is carried
 in an error-feedback buffer, so the compression bias vanishes over steps
 [Seide et al. 2014; Karimireddy et al. 2019]. The train loop applies it
-around the optimizer (``LoopConfig.compress``). The JAX package's
-``compressed_psum`` (int8 on the data-parallel wire) waits for the port's
-multi-device slice.
+around the optimizer (``LoopConfig.compress``). ``compress_tree_int8`` /
+``decompress_tree_int8`` do a whole tensor dict at once.
+
+``compressed_psum`` is the reference's int8 mean over the data axis, run
+over the data blocks' gradient dicts in one process: one scale shared by
+all blocks (the largest ``max|g|`` of any block, / 127, + 1e-12), each
+block rounded half to even and clipped to int8 (the payload a link would
+carry, a quarter of fp32's bytes), the payloads summed as int32 in block
+order on the first block's device, and the sum times the scale over the
+number of blocks handed back to every block on its own device.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -29,6 +36,38 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compress_tree_int8(tree: Tensors) -> Tuple[Tensors, Tensors]:
+    """Every tensor of ``tree`` -> (int8 values by name, scales by name)."""
+    qs = {k: quantize_int8(t) for k, t in tree.items()}
+    return {k: q for k, (q, _) in qs.items()}, {k: s for k, (_, s) in qs.items()}
+
+
+def decompress_tree_int8(q: Tensors, s: Tensors) -> Tensors:
+    return {k: dequantize_int8(q[k], s[k]) for k in q}
+
+
+def compressed_psum(blocks: List[Tensors]) -> List[Tensors]:
+    """The int8 mean of the data blocks' gradient dicts (one dict a
+    block, each on its block's device) -> one dict a block, each the mean
+    on its block's device."""
+    n = len(blocks)
+    out: List[Tensors] = [{} for _ in blocks]
+    for k in blocks[0]:
+        gs = [b[k].float() for b in blocks]
+        home = gs[0].device
+        scale = torch.max(torch.stack([torch.max(torch.abs(g)).to(home) for g in gs]))
+        scale = scale / 127.0 + 1e-12
+        qs = [torch.clamp(torch.round(g / scale.to(g.device)), -127, 127).to(torch.int8)
+              for g in gs]
+        qsum = qs[0].to(torch.int32)
+        for q in qs[1:]:
+            qsum = qsum + q.to(home, torch.int32)
+        mean = qsum.float() * scale / float(n)
+        for b, g in zip(out, gs):
+            b[k] = mean.to(g.device, copy=True)
+    return out
 
 
 def init_error_feedback(tensors: Tensors) -> Tensors:

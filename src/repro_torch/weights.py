@@ -40,6 +40,12 @@ draws it from ``PRNGKey(1234)``), so the loader takes it beside the tree.
 ``layers.*`` leaves (``{A,B,C,U,V}.{w,b}``, ``{ln_h,ln_e}.{scale,bias}``),
 which carry a leading n_layers axis (the reference's vmapped init), row i
 for layer i; Linear weights transposed as everywhere here.
+
+``reference_shapes`` lists a CTR, LM or GNN model's leaves by their paths
+in the reference's tree with the reference's shapes (transposed, stacked,
+per field), from the tensors' shapes only: on a model built on
+``device="meta"`` it reads no data. ``distributed/sharding.py``'s rules
+take these paths and shapes.
 """
 from __future__ import annotations
 
@@ -324,3 +330,35 @@ def export_gnn_params(model, grad: bool = False) -> dict:
     ``load_jax_gnn_params``; with ``grad=True`` the parameters' ``.grad``s in
     the same tree (zeros where a parameter has none)."""
     return _export_tree(_gnn_leaves(model), grad)
+
+
+def _model_leaves(model) -> dict:
+    """path -> (tensor or per-layer list, row or None, transposed) of a
+    CTR, LM or GNN model."""
+    from repro_torch.models.gnn import GatedGCN
+    from repro_torch.models.lm import LMModel
+
+    if isinstance(model, CTRModel):
+        return _leaves(model)
+    if isinstance(model, LMModel):
+        leaves = _lm_leaves(model)
+    elif isinstance(model, GatedGCN):
+        leaves = _gnn_leaves(model)
+    else:
+        raise TypeError(f"no reference tree for {type(model).__name__}")
+    return {path: (t, None, transpose) for path, (t, transpose) in leaves.items()}
+
+
+def reference_shapes(model) -> dict:
+    """{dotted path in the reference's tree (a list index is a number):
+    the leaf's shape there} for a ``CTRModel``, ``LMModel`` or
+    ``GatedGCN``; no tensor is read."""
+    out = {}
+    for path, (t, row, transpose) in _model_leaves(model).items():
+        if isinstance(t, list):
+            one = tuple(t[0].shape)
+            out[path] = (len(t), *(one[::-1] if transpose else one))
+        else:
+            one = tuple(t.shape if row is None else t.shape[1:])
+            out[path] = one[::-1] if transpose else one
+    return out

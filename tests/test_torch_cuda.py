@@ -1548,3 +1548,75 @@ def test_sp_decode_on_the_card_matches_decode_step(arch_id, dev):
         written = cache["stack"][name][:, :, :, 11] if name in ("k", "v") else \
             cache["stack"][name][:, :, 11]
         torch.testing.assert_close(rows[:, :, 0], written, **FP32)
+
+
+@pytest.mark.cuda
+def test_manual_tp_ffn_at_granite_width_on_the_card(dev):
+    """``manual_tp_gated_ffn`` at granite-3-2b's FFN width (d 2048, d_ff
+    8192) over a (2, 4) mesh of this card against the plain FFN: within
+    2e-2 of the largest output (bf16 products and sums); its gradients
+    reach x and every weight."""
+    from repro_torch.distributed.manual_tp import manual_tp_gated_ffn
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    from repro_torch.nn.layers import GatedMLP
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    ffn = GatedMLP(2048, 8192, device=dev, generator=g)
+    x = torch.randn((2, 256, 2048), generator=g, device=dev, requires_grad=True)
+    mesh = MeshCtx((dev,) * 4, data=2)
+    y = manual_tp_gated_ffn(x, ffn, mesh)
+    ref = ffn(x)
+    assert y.dtype == torch.float32 and y.device == x.device
+    scale = float(ref.detach().abs().max())
+    assert float((y - ref).detach().abs().max()) < 2e-2 * scale
+    y.sum().backward()
+    assert x.grad is not None and all(p.grad is not None for p in ffn.parameters())
+
+
+@pytest.mark.cuda
+def test_compressed_psum_on_card_blocks(dev):
+    """``compressed_psum`` over two data blocks on the card: every block
+    of the result on the card, equal, within one int8 step of the mean."""
+    from repro_torch.train.compression import compressed_psum
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = [{"w": torch.randn((64, 48), generator=g, device=dev),
+               "b": torch.randn(48, generator=g, device=dev)} for _ in range(2)]
+    out = compressed_psum(blocks)
+    for k in blocks[0]:
+        mean = (blocks[0][k] + blocks[1][k]) / 2
+        step = max(float(b[k].abs().max()) for b in blocks) / 127
+        for o in out:
+            assert o[k].device.type == "cuda"
+            assert float((o[k] - mean).abs().max()) <= step
+        assert torch.equal(out[0][k], out[1][k])
+        assert out[0][k].data_ptr() != out[1][k].data_ptr()
+
+
+@pytest.mark.cuda
+def test_restore_on_mesh_places_card_blocks(dev, tmp_path):
+    """An LM SMOKE tree saved whole restores onto a (2, 4) mesh of this
+    card: every block on the card (no host copy left), every gathered
+    leaf equal to the saved one."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.mesh_ctx import MeshCtx
+    from repro_torch.distributed.sharding import flatten, gather, param_spec, valid_for_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import restore_on_mesh
+    from repro_torch.weights import export_lm_params
+
+    params = export_lm_params(LMModel(registry.get("deepseek-v2-236b").SMOKE, device="cpu",
+                                      generator=torch.Generator().manual_seed(0)))
+    ck.save(str(tmp_path), 0, {"params": params})
+    mesh = MeshCtx((dev,) * 4, data=2)
+    restored, _ = restore_on_mesh(
+        str(tmp_path), {"params": params}, mesh,
+        lambda path, shape: valid_for_mesh(param_spec("lm", path, shape), shape, mesh))
+    placed, saved = flatten(restored), flatten({"params": params})
+    assert placed.keys() == saved.keys()
+    assert any(len(leaf.blocks) == 4 for leaf in placed.values())
+    for path, leaf in placed.items():
+        want = saved[path]
+        assert all(b.device.type == "cuda" for b in leaf.blocks)
+        assert torch.equal(gather(leaf).cpu(), torch.from_numpy(want))
