@@ -344,8 +344,42 @@ Phases, each of which raises (exit code != 0) when it fails:
    gradient trees of (a)'s two data halves: every leaf within one int8
    step (the shared max|g| / 127) of the halves' mean, the same bits on
    two calls. Prints the phase's wall time.
-
-Every launch count is set to 0 just before each of phases 4-17 and read
+18. dry run, examples, embedding — ``dryrun`` and ``examples``: the
+   port's last modules. (a) ``launch/dryrun.run_cell`` for the 40 cells on
+   the (16, 16) and (2, 16, 16) production meshes and the single-pod
+   variant cells (LM train x amp/opt/bf16params/manual_tp, LM decode x
+   sdim_kv, recsys x bf16emb/target_attention): the count of cells, the
+   time, the largest counted ``hbm_total_per_chip_gib`` per family and
+   mesh. (No (b): allocating each cell's card-0 blocks only repeats the
+   count, which ``tests/test_torch_dryrun.py`` holds against the
+   reference's ``shard_shape``.) (c) Real steps on one card from
+   ``specs.materialize`` (seed 0) under the cell's one-card ``MeshCtx``
+   (every block on cuda:0): the four recsys archs' ``serve_p99`` (B = 512)
+   and bst's ``target_attention`` serve cell at FULL; gatedgcn
+   ``full_graph_sm`` and ``molecule`` at FULL; granite-3-2b ``train_4k`` at
+   full width cut to 2 layers and B = 2 (the cuts are printed). Each output
+   is finite; a serve cell's (kind sdim: the item rows it hashes redrawn
+   in the tree until they clear the hash margin, the count printed) is
+   held against the same step with the
+   model's long branch on the kernels' plain versions (``plain_long_branch``,
+   uncounted; ATOMIC for kind sdim, FP32 for target), so bse_encode,
+   sdim_query and target_attention_flash are held at this path's shapes,
+   and must launch; a train cell's updated parameters are finite and its
+   update counted once (no kernel there). (d) The
+   four examples at their reference defaults (``train_ctr`` at 20 steps,
+   then killed at step 10 by its preemption event and resumed to 20: the
+   same parameters, bit for bit, as the run never stopped): wall seconds
+   and each kernel's launches; serving_bse must launch bse_encode,
+   sdim_update, sdim_query and bse_serve, tiered_serving bse_encode and
+   sdim_update, train_ctr bse_encode and sdim_query. (e) The embedding
+   functions at wide-deep's FULL field layout (40 one-hot fields of
+   1,000,000 x 32): ``EmbeddingCollection.apply``, ``bag_lookup`` (sum,
+   mean, max, weighted, an empty bag), ``multihot_lookup`` and
+   ``qr_embedding`` on the card against the same on the CPU within atol
+   1e-6, the same bits on two calls, and a bag sum's table gradient the
+   same bits twice and within 1e-6 of the CPU's. Prints the phase's wall
+   time.
+Every launch count is set to 0 just before each of phases 4-18 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -355,7 +389,8 @@ phase 9 bse_encode, sdim_update, sdim_fused_serve and sdim_query; phase
 phases 13 and 14 sdim_query; phase 14's counts are read after each
 arch's SDIM decode and summed, so they count decode tokens only, as
 phase 13's; phases 15 and 16 none; phase 17 sdim_query, counted over the
-SDIM tokens under the mesh).
+SDIM tokens under the mesh; phase 18 as its (c) and (d) say, (c) read as
+``dryrun`` and (d) as ``examples``).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -369,7 +404,7 @@ phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
-as ``mesh``), then as the
+as ``mesh``, phase 18 as ``dryrun`` and ``examples``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -4102,6 +4137,285 @@ def mesh_phase(torch, dev, wrappers):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run, the examples, the embedding functions
+# ---------------------------------------------------------------------------
+CARD_SERVE = ("wide-deep", "bst", "dien", "bert4rec")
+TARGET_SERVE = "bst"                  # its serve_p99 with the target_attention variant
+GRANITE_CUT = dict(depth=2, batch=2)  # granite-3-2b train_4k at full width
+DRYRUN_KERNELS = ("bse_encode", "sdim_query", "target_attention_flash")
+EXAMPLE_KERNELS = {"quickstart": (),
+                   "serving_bse": ("bse_encode", "sdim_update", "sdim_query", "bse_serve"),
+                   "tiered_serving": ("bse_encode", "sdim_update"),
+                   "train_ctr": ("bse_encode", "sdim_query")}
+TRAIN_CTR_STEPS, TRAIN_CTR_KILL = 20, 10
+EMB_B, EMB_HOT, EMB_BAGS = 512, 8, 512
+
+
+def dryrun_cells() -> list:
+    """(multi_pod, arch, shape, variant) of every dry-run cell: the 40 on
+    both meshes, then the single-pod variant cells."""
+    from repro_torch.configs import registry
+
+    lm = [a for a in registry.ARCH_IDS if registry.family(a) == "lm"]
+    recsys = list(dict.fromkeys(a for a, _ in registry.cells()
+                                if registry.family(a) == "recsys"))
+    variants = ([(a, "train_4k", v) for a in lm for v in ("amp", "opt", "bf16params", "manual_tp")]
+                + [(a, s, "sdim_kv") for a in lm for s in ("decode_32k", "long_500k")]
+                + [(a, s, v) for a in recsys for s in registry.RECSYS_SHAPES
+                   for v in ("bf16emb", "target_attention")])
+    return ([(mp, a, s, "baseline") for mp in (False, True) for a, s in registry.cells()]
+            + [(False, a, s, v) for a, s, v in variants])
+
+
+def dryrun_counts() -> dict:
+    """18 (a): every cell counted; the largest per-chip total per family
+    and mesh."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rows = [dryrun.run_cell(a, s, mp, v, verbose=False) for mp, a, s, v in dryrun_cells()]
+    dt = time.perf_counter() - t0
+    largest = {}
+    for r in rows:
+        key = f"{registry.family(r['arch'])}/{r['mesh']}"
+        if r["hbm_total_per_chip_gib"] > largest.get(key, (0, ""))[0]:
+            largest[key] = (r["hbm_total_per_chip_gib"], r["name"])
+    out = {"cells": len(rows), "seconds": dt, "largest_gib": largest,
+           "fit_80gib": sum(r["fits_80gib"] for r in rows),
+           "bottlenecks": {b: sum(r["bottleneck"] == b for r in rows)
+                           for b in ("compute", "memory", "collective")}}
+    print(f"dryrun (a): {len(rows)} cells counted in {dt:.2f} s; largest per-chip HBM (GiB, "
+          f"temporaries not counted): {json.dumps(largest)}; {out['fit_80gib']} fit 80 GiB; "
+          f"bottlenecks {out['bottlenecks']}")
+    return out
+
+
+def card_step(torch, dev, cell, label) -> dict:
+    """One real step of ``cell`` on the card from ``materialize`` (seed 0):
+    finite; an inference cell's output held against the same step with the
+    model's long branch on the kernels' plain versions (uncounted; ATOMIC
+    for kind sdim, FP32 for target); a train cell's updated state finite,
+    its update applied once."""
+    from repro_torch.distributed.sharding import flatten
+    from repro_torch.kernels.screen import screen_item_rows
+    from repro_torch.launch.specs import materialize, tree_leaves
+
+    t0 = time.perf_counter()
+    args = materialize(cell, dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_mat = time.perf_counter() - t0
+    redrawn = 0
+    if cell.kind != "train" and cell.runner.bind(args[0]).cfg.interest.kind == "sdim":
+        model = cell.runner.model          # kernel and plain hash alike off the margin
+        redrawn = screen_item_rows(model, [args[1]], torch.Generator(device=dev).manual_seed(1))
+        args[0]["item_emb"]["table"].copy_(model.item_emb.weight)
+    t0 = time.perf_counter()
+    out = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    if cell.kind == "train":
+        state, got = out
+        bad = [k for k, t in flatten(state["params"]).items() if not bool(torch.isfinite(t).all())]
+        if bad or int(state["opt"]["count"]) != 1:
+            raise AssertionError(f"dryrun (c) {label}: non-finite parameters {bad[:3]} or "
+                                 f"{int(state['opt']['count'])} updates after the step")
+        check = "the updated parameters finite, one update counted (no kernel on this path)"
+    else:
+        got = out
+        model = cell.runner.model
+        tol = FP32 if model.cfg.interest.kind == "target" else ATOMIC
+        with uncounted(), plain_long_branch(model, plain_refs()):
+            ref = cell.step_fn(*args)
+        err = check_close(f"dryrun (c) {label} output", got, ref, **tol)
+        check = (f"{redrawn} item rows redrawn to clear the hash margin; against the same "
+                 f"step on the plain versions max abs err {err:.3g} (atol {tol['atol']}, "
+                 f"rtol {tol['rtol']})")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"dryrun (c) {label}: non-finite output")
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(args))
+    r = dict(shape=list(got.shape), argument_gib=n_bytes / 2**30, materialize_s=t_mat,
+             step_s=t_step, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             out=float(got.float().mean()))
+    if cell.kind != "train":
+        r.update(max_abs_err=err, redrawn=redrawn)
+    print(f"dryrun (c) {label}: output {tuple(got.shape)} finite; {check}; arguments "
+          f"{r['argument_gib']:.2f} GiB materialized in {t_mat:.2f} s; step {t_step:.3f} s "
+          f"(first call: the model built and loaded); peak {r['peak_gib']:.2f} GiB")
+    return r
+
+
+def card_steps(torch, dev, wrappers) -> tuple:
+    """18 (c); returns (launch counts, figures)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import build_cell
+
+    mesh = make_production_mesh()
+    print(f"dryrun (c): steps on {dev} under the (16, 16) cells' one-card MeshCtx (every "
+          f"block on {dev}); cuts: granite-3-2b train_4k to {GRANITE_CUT['depth']} layers and "
+          f"B = {GRANITE_CUT['batch']} (full width, S = 4,096); none elsewhere")
+    reset(wrappers)
+    figures = {}
+    todo = ([(a, "serve_p99", "baseline", {}) for a in CARD_SERVE]
+            + [(TARGET_SERVE, "serve_p99", "target_attention", {}),
+               ("gatedgcn", "full_graph_sm", "baseline", {}),
+               ("gatedgcn", "molecule", "baseline", {}),
+               ("granite-3-2b", "train_4k", "baseline",
+                dict(depth_override=GRANITE_CUT["depth"],
+                     overrides=dict(global_batch=GRANITE_CUT["batch"])))])
+    for arch, shape, variant, kw in todo:
+        free_card(torch)
+        cell = build_cell(arch, shape, mesh, variant=variant, **kw)
+        figures[cell.name] = card_step(torch, dev, cell, cell.name)
+        del cell
+    free_card(torch)
+    return read_launches(wrappers, DRYRUN_KERNELS, "dryrun"), figures
+
+
+def run_examples(torch, dev, wrappers) -> tuple:
+    """18 (d); returns (launch counts summed over the examples, figures)."""
+    import tempfile
+
+    from repro_torch.examples import quickstart, serving_bse, tiered_serving, train_ctr
+
+    total = {w.__name__: 0 for w in wrappers}
+    figures = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-examples-")
+    runs = [("quickstart", quickstart, []), ("serving_bse", serving_bse, []),
+            ("tiered_serving", tiered_serving, []),
+            ("train_ctr", train_ctr, ["--steps", str(TRAIN_CTR_STEPS), "--ckpt",
+                                      os.path.join(tmp, "whole")])]
+    try:
+        for name, mod, argv in runs:
+            free_card(torch)
+            reset(wrappers)
+            t0 = time.perf_counter()
+            out = mod.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name == "train_ctr":            # killed at step 10, resumed to 20
+                cut = ["--steps", str(TRAIN_CTR_STEPS), "--ckpt", os.path.join(tmp, "cut")]
+                first = mod.main(cut, stop_after=TRAIN_CTR_KILL)
+                second = mod.main(cut)
+                torch.cuda.synchronize()
+                if (first["stopped_at"], second["stopped_at"]) != (TRAIN_CTR_KILL,
+                                                                   TRAIN_CTR_STEPS):
+                    raise AssertionError(f"examples train_ctr: stopped at "
+                                         f"{first['stopped_at']}, {second['stopped_at']}")
+                for (pn, a), (_, b) in zip(out["model"].named_parameters(),
+                                           second["model"].named_parameters()):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"examples train_ctr: {pn} after the resume "
+                                             f"differs from the run never stopped")
+                out = {"stopped_at": out["stopped_at"], "params": out["params"],
+                       "last_loss": out["history"][-1][1]["loss"], "resumed_bits": "equal"}
+                del first, second
+            counts = read_launches(wrappers, EXAMPLE_KERNELS[name], f"examples {name}")
+            for k, v in counts.items():
+                total[k] += v
+            figures[name] = dict(seconds=dt, launches=counts,
+                                 **{k: v for k, v in out.items() if isinstance(v, (int, float, str))})
+            print(f"examples (d) {name}: {dt:.2f} s wall (first run; train_ctr's kill and "
+                  f"resume after it); {json.dumps(figures[name])}")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, figures
+
+
+def embedding_on_card(torch, dev) -> dict:
+    """18 (e) (module docstring)."""
+    from repro_torch.configs import wide_deep
+    from repro_torch.embedding import embedding_bag as eb
+    from repro_torch.embedding.sharded import EmbeddingCollection, FieldSpec
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    cfg = wide_deep.FULL
+    g = torch.Generator(device=dev).manual_seed(0)
+    fields = [FieldSpec(f"f{i}", cfg.field_vocab, cfg.embed_dim) for i in range(cfg.n_sparse)]
+    coll = EmbeddingCollection(fields, device=dev, generator=g)
+    ids = {f.name: torch.randint(0, f.vocab, (EMB_B,), generator=g, device=dev) for f in fields}
+    n_idx = EMB_BAGS * EMB_HOT
+    idx = torch.randint(0, cfg.field_vocab, (n_idx,), generator=g, device=dev)
+    seg = torch.randint(0, EMB_BAGS - 1, (n_idx,), generator=g, device=dev)
+    seg = seg + (seg >= 7).long()                     # bag 7 stays empty
+    w = torch.rand((n_idx,), generator=g, device=dev) + 0.5
+    hot = torch.randint(0, cfg.field_vocab, (EMB_B, EMB_HOT), generator=g, device=dev)
+    hmask = (torch.rand((EMB_B, EMB_HOT), generator=g, device=dev) < 0.7).float()
+    buckets = 1000
+
+    def calls(tables, coll_, to):
+        t0_, t1_ = tables
+        out = {"collection": coll_.apply({k: to(v) for k, v in ids.items()})}
+        for mode in ("sum", "mean", "max"):
+            out[f"bag_{mode}"] = eb.bag_lookup(t0_, to(idx), to(seg), EMB_BAGS, mode, to(w))
+        out["multihot_mean"] = eb.multihot_lookup(t0_, to(hot), to(hmask), "mean")
+        out["multihot_sum"] = eb.multihot_lookup(t0_, to(hot), None, "sum")
+        for comb in ("add", "mul"):
+            out[f"qr_{comb}"] = eb.qr_embedding(t0_, t1_[:buckets], to(hot), buckets, comb)
+        return out
+
+    def grad(table, to):
+        t = table.detach().clone().requires_grad_(True)
+        torch.sum(eb.bag_lookup(t, to(idx), to(seg), EMB_BAGS, "sum", to(w))).backward()
+        return t.grad
+
+    tables = (coll.tables["f0"], coll.tables["f1"])
+    with torch.no_grad():
+        card = calls(tables, coll, lambda x: x)
+        again = calls(tables, coll, lambda x: x)
+    g1, g2 = grad(tables[0], lambda x: x), grad(tables[0], lambda x: x)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    for k in card:
+        if not torch.equal(card[k], again[k]):
+            raise AssertionError(f"embedding (e) {k}: two calls differ on the card")
+    if not torch.equal(g1, g2):
+        raise AssertionError("embedding (e): the bag sum's gradient differs between two runs")
+    if not bool(torch.all(card["bag_max"][7] == float("-inf"))):
+        raise AssertionError("embedding (e): an empty max bag is not -inf")
+    coll.cpu()
+    cpu = lambda x: x.cpu()
+    tables_cpu = (coll.tables["f0"], coll.tables["f1"])
+    with torch.no_grad():
+        host = calls(tables_cpu, coll, cpu)
+    g_host = grad(tables_cpu[0], cpu)
+    errs = {k: float(torch.nan_to_num((card[k].cpu() - host[k]).abs(), nan=0.0).max())
+            for k in card}
+    errs["bag_sum_grad"] = float((g1.cpu() - g_host).abs().max())
+    for k, e in errs.items():
+        if not e <= 1e-6:
+            raise AssertionError(f"embedding (e) {k}: card against CPU {e:.3g} > 1e-6")
+    out = dict(fields=cfg.n_sparse, vocab=cfg.field_vocab, dim=cfg.embed_dim,
+               table_gib=cfg.n_sparse * cfg.field_vocab * cfg.embed_dim * 4 / 2**30,
+               max_abs_err=errs, card_s=t_card, seconds=time.perf_counter() - t0)
+    print(f"embedding (e): wide-deep's layout ({cfg.n_sparse} fields of {cfg.field_vocab:,} x "
+          f"{cfg.embed_dim}, {out['table_gib']:.2f} GiB), B = {EMB_B}, {n_idx} bag indices over "
+          f"{EMB_BAGS} bags: the card's results the same bits on two calls (the bag sum's "
+          f"gradient too), against the CPU {json.dumps(errs)}; {out['seconds']:.1f} s")
+    del coll
+    free_card(torch)
+    return out
+
+
+def dryrun_examples_phase(torch, dev, wrappers) -> tuple:
+    """Phase 18 (module docstring). Returns the launch counts of (c), the
+    ``dryrun`` path, and of (d), the ``examples`` path."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    print(f"dryrun: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the phase "
+          f"({torch.cuda.get_device_name(dev)}; {card_line()})")
+    figures = {"counts": dryrun_counts()}
+    dry, figures["steps"] = card_steps(torch, dev, wrappers)
+    examples, figures["examples"] = run_examples(torch, dev, wrappers)
+    figures["embedding"] = embedding_on_card(torch, dev)
+    print(f"dryrun figures: {json.dumps(figures)}")
+    print(f"dryrun: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return dry, examples
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -4168,6 +4482,8 @@ def main() -> int:
     by_path["lm_train"] = lm_train_phase(torch, dev, wrappers + backward)
     by_path["gnn"] = gnn_phase(torch, dev, wrappers + backward)
     by_path["mesh"] = mesh_phase(torch, dev, wrappers + backward)
+    by_path["dryrun"], by_path["examples"] = dryrun_examples_phase(torch, dev,
+                                                                   wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

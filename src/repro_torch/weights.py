@@ -41,6 +41,10 @@ draws it from ``PRNGKey(1234)``), so the loader takes it beside the tree.
 which carry a leading n_layers axis (the reference's vmapped init), row i
 for layer i; Linear weights transposed as everywhere here.
 
+All of them go through one walk, ``load_tree`` / ``export_tree``, which
+take and give the same trees with tensors as leaves (``launch/specs.py``'s
+cells hold them so); the numpy functions above convert at the ends.
+
 ``reference_shapes`` lists a CTR, LM or GNN model's leaves by their paths
 in the reference's tree with the reference's shapes (transposed, stacked,
 per field), from the tensors' shapes only: on a model built on
@@ -129,40 +133,21 @@ def _n_leaves(tree) -> int:
     return 1
 
 
-@torch.no_grad()
 def load_jax_params(model: CTRModel, params_np: dict) -> CTRModel:
     """Copy ``params_np`` into ``model`` in place; returns the model. Raises
     where a leaf is missing, does not fit, or the tree holds leaves the
     model does not."""
-    leaves = _leaves(model)
-    for path, (t, row, transpose) in leaves.items():
-        src = np.asarray(_get(params_np, path))
-        _copy(t if row is None else t[row], src.T if transpose else src, path)
-    if _n_leaves(params_np) != len(leaves):
-        raise ValueError(f"params hold {_n_leaves(params_np)} leaves, the model "
-                         f"{len(leaves)}")
+    load_tree(model, params_np)
     return model
 
 
 def export_params(model: CTRModel, grad: bool = False) -> dict:
     """The JAX package's params pytree of ``model`` as numpy arrays (its
-    ``.grad``s with ``grad=True``; zeros where a parameter has none),
-    copied: later updates of the model do not reach them."""
-    def arr(t: torch.Tensor, row, transpose: bool) -> np.ndarray:
-        if grad:
-            t = torch.zeros_like(t) if t.grad is None else t.grad
-        x = (t if row is None else t[row]).detach().float().cpu().numpy()
-        return np.array(x.T if transpose else x, order="C")    # a copy, never a view
-
-    tree: dict = {"interest": {}}
-    for path, (t, row, transpose) in _leaves(model).items():
-        *keys, leaf = path.split(".")
-        node = tree
-        for key in keys:
-            node = node.setdefault(key, {})
-        node[leaf] = arr(t, row, transpose)    # R, a buffer, has no .grad: zeros
-    if "blocks" in tree:                       # the reference keeps the blocks in a list
-        tree["blocks"] = [tree["blocks"][str(j)] for j in range(len(tree["blocks"]))]
+    ``.grad``s with ``grad=True``; zeros where a parameter has none, R a
+    buffer among them, as ``jax.grad`` gives it), copied: later updates of
+    the model do not reach them."""
+    tree = _numpy(export_tree(model, grad))
+    tree.setdefault("interest", {})            # kind "none" keeps an empty node
     return tree
 
 
@@ -230,56 +215,15 @@ def _lm_leaves(model) -> dict:
     return out
 
 
-def _load_tree(leaves: dict, params_np: dict) -> None:
-    """Copy ``params_np`` into the tensors of ``leaves`` (path -> (tensor,
-    or one tensor a layer for a leaf stacked on a layer axis; transposed
-    there)); raises where a leaf is missing, does not fit, or the tree holds
-    leaves ``leaves`` does not."""
-    for path, (t, transpose) in leaves.items():
-        src = np.asarray(_get(params_np, path))
-        if isinstance(t, list):
-            if src.shape[0] != len(t):
-                raise ValueError(f"{path}: {src.shape[0]} layers for a stack of {len(t)}")
-            for i, ti in enumerate(t):
-                _copy(ti, src[i].T if transpose else src[i], f"{path}[{i}]")
-        else:
-            _copy(t, src.T if transpose else src, path)
-    if _n_leaves(params_np) != len(leaves):
-        raise ValueError(f"params hold {_n_leaves(params_np)} leaves, the model "
-                         f"{len(leaves)}")
-
-
-def _export_tree(leaves: dict, grad: bool) -> dict:
-    """The tree of ``leaves`` (as ``_load_tree``'s) as numpy copies, a
-    stacked leaf's layers on a leading axis; with ``grad`` the ``.grad``s
-    (zeros where a tensor has none)."""
-    def arr(t: torch.Tensor, transpose: bool) -> np.ndarray:
-        if grad:
-            t = torch.zeros_like(t) if t.grad is None else t.grad
-        x = t.detach().float().cpu().numpy()
-        return np.array(x.T if transpose else x, order="C")
-
-    tree: dict = {}
-    for path, (t, transpose) in leaves.items():
-        *keys, leaf = path.split(".")
-        node = tree
-        for key in keys:
-            node = node.setdefault(key, {})
-        node[leaf] = (np.stack([arr(ti, transpose) for ti in t]) if isinstance(t, list)
-                      else arr(t, transpose))
-    return tree
-
-
-@torch.no_grad()
 def load_jax_lm_params(model, params_np: dict, R) -> "LMModel":
     """Copy ``params_np`` (the reference's LM params as numpy arrays) and
     the hash matrix ``R`` (sdim_m, head_dim or kv_lora_rank) into ``model``
-    in place;
-    returns the model. Raises where a leaf is missing, does not fit, or the
-    tree holds leaves the model does not."""
-    _load_tree(_lm_leaves(model), params_np)
-    _copy(model.R, R, "R")
-    model.R64.copy_(model.R)
+    in place; returns the model. Raises where a leaf is missing, does not
+    fit, or the tree holds leaves the model does not."""
+    load_tree(model, params_np)
+    with torch.no_grad():
+        _copy(model.R, R, "R")
+        model.R64.copy_(model.R)
     return model
 
 
@@ -289,11 +233,7 @@ def export_lm_params(model, grad: bool = False) -> dict:
     inverse of ``load_jax_lm_params``; with ``grad=True`` the parameters'
     ``.grad``s in the same tree (zeros where a parameter has none), the tree
     ``jax.grad`` of the reference's loss gives. R is not in it."""
-    tree = _export_tree(_lm_leaves(model), grad)
-    if "dense_blocks" in tree:                 # the reference keeps them in a list
-        tree["dense_blocks"] = [tree["dense_blocks"][str(i)]
-                                for i in range(len(tree["dense_blocks"]))]
-    return tree
+    return _numpy(export_tree(model, grad))
 
 
 def _gnn_leaves(model) -> dict:
@@ -315,12 +255,11 @@ def _gnn_leaves(model) -> dict:
     return out
 
 
-@torch.no_grad()
 def load_jax_gnn_params(model, params_np: dict):
     """Copy ``params_np`` (the reference's GatedGCN params as numpy arrays)
     into ``model`` in place; returns the model. Raises where a leaf is
     missing, does not fit, or the tree holds leaves the model does not."""
-    _load_tree(_gnn_leaves(model), params_np)
+    load_tree(model, params_np)
     return model
 
 
@@ -329,7 +268,7 @@ def export_gnn_params(model, grad: bool = False) -> dict:
     (copies; ``layers.*`` stacked on a leading n_layers axis), the inverse of
     ``load_jax_gnn_params``; with ``grad=True`` the parameters' ``.grad``s in
     the same tree (zeros where a parameter has none)."""
-    return _export_tree(_gnn_leaves(model), grad)
+    return _numpy(export_tree(model, grad))
 
 
 def _model_leaves(model) -> dict:
@@ -362,3 +301,94 @@ def reference_shapes(model) -> dict:
             one = tuple(t.shape if row is None else t.shape[1:])
             out[path] = one[::-1] if transpose else one
     return out
+
+
+def _nest(flat: dict) -> dict:
+    """{dotted path: leaf} -> the reference's tree: a node whose keys are
+    all numbers is a list (``blocks``, ``dense_blocks``)."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *keys, last = path.split(".")
+        node = tree
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(tree)
+
+
+@torch.no_grad()
+def load_tree(model, tree) -> None:
+    """Copy ``tree`` (the reference's params tree of a CTR, LM or GNN model
+    with tensors, on any device, or numpy arrays as leaves, in any float
+    dtype) into ``model`` in place, cast to each parameter's dtype; raises
+    where a leaf is missing or does not fit, or the tree holds leaves the
+    model does not."""
+    leaves = _model_leaves(model)
+    for path, (t, row, transpose) in leaves.items():
+        src = _get(tree, path)
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src, np.float32))
+        if isinstance(t, list):
+            if src.shape[0] != len(t):
+                raise ValueError(f"{path}: {src.shape[0]} layers for a stack of {len(t)}")
+            parts = [(ti, src[i]) for i, ti in enumerate(t)]
+        else:
+            parts = [(t if row is None else t[row], src)]
+        for dst, s in parts:
+            s = s.T if transpose else s
+            if tuple(s.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}: shape {tuple(s.shape)} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(s)
+    if _n_leaves(tree) != len(leaves):
+        raise ValueError(f"the tree holds {_n_leaves(tree)} leaves, the model {len(leaves)}")
+
+
+def export_tree(model, grad: bool = False) -> dict:
+    """The reference's params tree of a CTR, LM or GNN model as tensors on
+    the model's device (copies; a stacked leaf's layers on a leading axis),
+    the inverse of ``load_tree``; with ``grad=True`` the ``.grad``s (zeros
+    where a tensor has none)."""
+    def one(t, row, transpose):
+        if grad:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
+        t = t if row is None else t[row]
+        return (t.T if transpose else t).detach().clone(memory_format=torch.contiguous_format)
+
+    flat = {}
+    for path, (t, row, transpose) in _model_leaves(model).items():
+        flat[path] = (torch.stack([one(ti, None, transpose) for ti in t])
+                      if isinstance(t, list) else one(t, row, transpose))
+    return _nest(flat)
+
+
+def _numpy(tree):
+    """``export_tree``'s tree with its leaves as fp32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    return tree.float().cpu().numpy()
+
+
+@torch.no_grad()
+def load_jax_embedding_collection(collection, params_np: dict):
+    """Copy the reference's ``EmbeddingCollection`` params (``{"tables":
+    {field name: (vocab, dim)}}`` as numpy arrays) into ``collection`` (the
+    port's ``embedding/sharded.EmbeddingCollection``) in place; returns it.
+    Raises where a table is missing or does not fit, or the tree holds
+    tables the collection does not."""
+    tables = params_np["tables"]
+    if set(tables) != set(collection.tables):
+        raise ValueError(f"tables {sorted(tables)} for fields {sorted(collection.tables)}")
+    for name, t in collection.tables.items():
+        _copy(t, tables[name], f"tables.{name}")
+    return collection
