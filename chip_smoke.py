@@ -379,7 +379,28 @@ Phases, each of which raises (exit code != 0) when it fails:
    1e-6, the same bits on two calls, and a bag sum's table gradient the
    same bits twice and within 1e-6 of the CPU's. Prints the phase's wall
    time.
-Every launch count is set to 0 just before each of phases 4-18 and read
+19. bench — ``repro_torch.bench``, the paper's benchmarks, through their
+   normal entry points. (a) ``table5_serving.run(quick=False)``: the
+   decoupled, inline and target-attention ``CTRServer``s at T = 2,000, B =
+   1,024, 20 requests; throughput and fused sections at N = 1,024; AUC
+   parity after 400 AdamW steps; 8 shards x 512 users on this one card;
+   ingest, pressure, SLO, trace and profile sections; each SDIM section
+   also on its ``cpu`` side (the plain versions on the host, at the sizes
+   the reference gives interpret-mode Pallas). Prints every row, the
+   ms/request of each deployment and the share of TA the decoupled path
+   saves, fused against two-dispatch (users/s, p50/p95/p99; fused within
+   1e-5 of two-dispatch or the phase fails), the int8 bytes ratio and AUC
+   gap, the hit rates, under-ingest p95 against read-only beside the
+   reference's 1.2x (a number, not a gate), the SLO shed and degrade rates;
+   then ``tools/bench_check.py`` on the ``results/torch/BENCH_serving.json``
+   it wrote, in a child process (a non-zero exit fails the phase). (b)
+   ``table1_complexity.run(quick=False)``: L up to 16,384, B up to 4,096,
+   with the L-scaling row. (c) Fig. 2, Table 4 and Fig. 5 at smoke depth
+   (AUCs printed, not gated; every tau trains through the kernels, tau 5
+   and 10 through their large-tau paths). (d) each kernel at the phase's shapes
+   against its plain version on screened inputs, uncounted
+   (``bench_kernel_checks``). Prints the phase's wall time.
+Every launch count is set to 0 just before each of phases 4-19 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -390,7 +411,8 @@ phases 13 and 14 sdim_query; phase 14's counts are read after each
 arch's SDIM decode and summed, so they count decode tokens only, as
 phase 13's; phases 15 and 16 none; phase 17 sdim_query, counted over the
 SDIM tokens under the mesh; phase 18 as its (c) and (d) say, (c) read as
-``dryrun`` and (d) as ``examples``).
+``dryrun`` and (d) as ``examples``; phase 19 all six forward kernels,
+read before its (d)).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -404,7 +426,8 @@ phase 4). Prints the kernels' JSON line (``launches``: the kernel's own
 path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
-as ``mesh``, phase 18 as ``dryrun`` and ``examples``), then as the
+as ``mesh``, phase 18 as ``dryrun`` and ``examples``, phase 19 as
+``bench``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -4416,6 +4439,265 @@ def dryrun_examples_phase(torch, dev, wrappers) -> tuple:
     return dry, examples
 
 
+BENCH_KERNELS = ("bse_encode", "sdim_update", "sdim_fused_serve", "sdim_query", "bse_serve",
+                 "target_attention_flash")
+BENCH_FUSED_TOL = 1e-5      # phase 19: fused against two-dispatch, fp32 wire
+BENCH_INGEST_BOUND = 1.2    # the reference's under-ingest / read-only p95 bound (printed)
+
+
+def bench_rows(label, rows) -> dict:
+    """Print ``rows`` as ``run.py``'s CSV under ``label``; returns them by
+    name."""
+    for r in rows:
+        print(f"bench {label}: {r['name']},{r['us_per_call']:.1f},{r.get('shards', '-')},"
+              f"{r['derived']}")
+    return {r["name"]: r for r in rows}
+
+
+def bench_table5(torch, dev) -> dict:
+    """19 (a): ``table5_serving.run`` at full size on the card (and its
+    ``cpu`` sides on the host), then ``tools/bench_check.py`` on the file it
+    wrote, in a child process. Returns the figures."""
+    from repro_torch.bench import table5_serving
+
+    t0 = time.perf_counter()
+    rows = bench_rows("table5", table5_serving.run(quick=False, device=dev))
+    seconds = time.perf_counter() - t0
+    path = os.path.join(table5_serving.RESULTS_DIR, "BENCH_serving.json")
+    with open(path) as f:
+        bench = json.load(f)
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "bench_check.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    print(check.stdout + check.stderr, end="")
+    if check.returncode:
+        raise AssertionError(f"bench: tools/bench_check.py rejects {path} "
+                             f"(exit {check.returncode})")
+    ms = {tag: rows[f"table5/{tag}"]["us_per_call"] / 1e3
+          for tag in ("decoupled[cuda]", "inline[cuda]", "target_attention",
+                      "decoupled[cpu]", "inline[cpu]")}
+    cuda = bench["backends"]["cuda"]
+    err = cuda["max_abs_err_fused_vs_two_dispatch"]
+    if not err <= BENCH_FUSED_TOL:
+        raise AssertionError(f"bench: fused against two-dispatch {err:.3g} > {BENCH_FUSED_TOL}")
+    ing, slo, q = bench["ingest"], bench["slo"], bench["quantization"]
+    figures = dict(
+        seconds=seconds, ms_per_request=ms,
+        decoupled_saves_of_ta=1 - ms["decoupled[cuda]"] / ms["target_attention"],
+        fused={v: cuda[v] for v in ("fused", "two_dispatch", "fused_int8")},
+        speedup_fused_vs_two_dispatch=cuda["speedup_fused_vs_two_dispatch"],
+        max_abs_err_fused_vs_two_dispatch=err,
+        max_abs_err_int8_vs_fp32=cuda["max_abs_err_int8_vs_fp32"],
+        bytes_ratio=q["bytes_ratio"], auc_gap=q["auc_gap"], roofline_bytes=bench["roofline"],
+        hit_rate=bench["hit_rate"],
+        ingest_p95_ms=dict(read_only=ing["read_only"]["p95_ms"],
+                           under_ingest=ing["under_ingest"]["p95_ms"],
+                           ratio=ing["p95_ratio"], reference_bound=BENCH_INGEST_BOUND),
+        slo=dict(p50_ms=slo["p50_ms"], p95_ms=slo["p95_ms"], p99_ms=slo["p99_ms"],
+                 shed_rate=slo["shed_rate"], degrade_rate=slo["degrade_rate"],
+                 offered_rps=slo["offered_rps"]),
+        span_coverage=bench["trace"]["span_coverage"],
+        profile_serve_fused_ms=bench["profile"]["per_kernel"].get("serve_fused", {})
+        .get("time_ms"))
+    print(f"bench (a) Table 5 at T = 2,000, B = 1,024, 20 requests: ms/request decoupled "
+          f"{ms['decoupled[cuda]']:.2f}, inline {ms['inline[cuda]']:.2f}, target attention "
+          f"{ms['target_attention']:.2f} (cpu side: decoupled {ms['decoupled[cpu]']:.2f}, "
+          f"inline {ms['inline[cpu]']:.2f}); decoupled saves "
+          f"{100 * figures['decoupled_saves_of_ta']:.1f}% of TA (paper: 95%)")
+    print(f"bench (a) fused {cuda['fused']['users_per_sec']:.0f} users/s (p50/p95/p99 "
+          f"{cuda['fused']['p50_ms']}/{cuda['fused']['p95_ms']}/{cuda['fused']['p99_ms']} ms) "
+          f"against two-dispatch {cuda['two_dispatch']['users_per_sec']:.0f} users/s "
+          f"({cuda['two_dispatch']['p50_ms']}/{cuda['two_dispatch']['p95_ms']}/"
+          f"{cuda['two_dispatch']['p99_ms']} ms), N = {cuda['n_users']}; max |fused - "
+          f"two-dispatch| {err:.3g} (<= {BENCH_FUSED_TOL}); int8 bytes ratio "
+          f"{q['bytes_ratio']}x, AUC gap {q['auc_gap']:.3g} (bound 1e-3)")
+    print(f"bench (a) hot-tier hit rate {json.dumps(bench['hit_rate'])}; under-ingest p95 "
+          f"{ing['under_ingest']['p95_ms']} ms against read-only {ing['read_only']['p95_ms']} "
+          f"ms: {ing['p95_ratio']}x (the reference's bound {BENCH_INGEST_BOUND}x; printed, "
+          f"not a gate); SLO p50/p95/p99 {slo['p50_ms']}/{slo['p95_ms']}/{slo['p99_ms']} ms, "
+          f"shed {100 * slo['shed_rate']:.1f}%, degraded {100 * slo['degrade_rate']:.1f}%; "
+          f"{seconds:.1f} s ({card_line()})")
+    return figures
+
+
+def bench_kernel_checks(torch, dev) -> dict:
+    """19 (d): each kernel the phase runs, at the phase's own shapes, against
+    its plain version on margin-screened inputs (uncounted): Table 5's
+    request (one user of T = 2,000 behaviors, d = 64, against 1,024
+    candidates: bse_encode, sdim_query off the bf16 wire, bse_serve,
+    target_attention_flash), Table 1's eta (target_attention_flash over
+    4,096 users of one candidate and the k = 48 rows retrieved, d = 128),
+    the fused section's burst (sdim_fused_serve, 256 of 1,024 rows, fp32
+    and int8), the throughput section's chunk at m = 24 (bse_encode over
+    256 users of 256 behaviors, sdim_query of 8 candidates off the bf16
+    wire, sdim_update of 256 events into 1,024 rows) and the sharded
+    section's fold into one shard (16 events into 64 rows); the training
+    shapes at d = 32 (bse_encode, sdim_query and both backward kernels, C =
+    1): Table 4 and Fig. 5's (B = 128, L = 256) at every tau of Table 4
+    (m = 48, 48, 48, 45, 40 for tau 1, 2, 3, 5, 10: tau 5 and 10 run the
+    large-tau paths) and the AUC section's (B = 128, L = 64, m = 24, tau =
+    3). At Table 4's tau 3, 5 and 10 it also times the four kernels and
+    their plain versions (CUDA events, median of 10) beside the bound of
+    their bytes and operations. Returns the max abs errors."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode, bse_encode_backward,
+                                                             bse_encode_backward_ref,
+                                                             bse_encode_ref)
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
+                                                                       sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import (sdim_query, sdim_query_backward,
+                                                           sdim_query_backward_ref,
+                                                           sdim_query_ref)
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+    from repro_torch.kernels.target_attn.target_attn import (target_attention_flash,
+                                                             target_attention_flash_ref)
+    from repro_torch.serve.quant import quantize_rows
+
+    rng = np.random.default_rng(19)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    front = lambda b, l: t((np.arange(l)[None] >= rng.integers(0, l // 2, b)[:, None])
+                           .astype(np.float32))
+    errs = {}
+
+    def close(name, out, ref, tol):
+        errs[name] = check_close(f"bench (d) {name}", out, ref, **tol)
+
+    with uncounted():
+        R = rng.standard_normal((48, 64)).astype(np.float32)
+        seq, q = t(screened_normal(rng, (1, 2000, 64), R)), t(screened_normal(rng, (1, 1024, 64), R))
+        mask, Rt = front(1, 2000), t(R)
+        close("bse_encode T=2000", bse_encode(seq, mask, Rt, 3), bse_encode_ref(seq, mask, Rt, 3),
+              ATOMIC)
+        wire = bse_encode_ref(seq, mask, Rt, 3).to(torch.bfloat16)
+        close("sdim_query B=1024 bf16 wire", sdim_query(q, wire, Rt, 3),
+              sdim_query_ref(q, wire, Rt, 3), FP32)
+        close("bse_serve T=2000 B=1024", bse_serve(q, seq, mask, Rt, 3),
+              bse_serve_ref(q, seq, mask, Rt, 3), FP32)
+        close("target_attention_flash T=2000 B=1024", target_attention_flash(q, seq, mask),
+              target_attention_flash_ref(q, seq, mask), FP32)
+        fq, fs = t(rng.standard_normal((4096, 1, 128)).astype(np.float32)), \
+            t(rng.standard_normal((4096, 48, 128)).astype(np.float32))
+        fm = torch.ones((4096, 48), device=dev)
+        close("target_attention_flash eta 4096 x k=48", target_attention_flash(fq, fs, fm),
+              target_attention_flash_ref(fq, fs, fm), FP32)
+
+        R = rng.standard_normal((24, 32)).astype(np.float32)
+        Rt = t(R)
+        store = t(rng.standard_normal((1024, 8, 8, 32)).astype(np.float32))
+        slots = torch.arange(256, dtype=torch.int32, device=dev)
+        fq = t(screened_normal(rng, (256, 8, 32), R))
+        close("sdim_fused_serve fp32 256 of 1024", sdim_fused_serve(store, slots, fq, Rt, 3),
+              sdim_fused_serve_ref(store, slots, fq, Rt, 3), FP32)
+        payload, scales = quantize_rows(store, dtype=torch.int8)
+        close("sdim_fused_serve int8 256 of 1024",
+              sdim_fused_serve(payload, slots, fq, Rt, 3, scales=scales),
+              sdim_fused_serve_ref(payload, slots, fq, Rt, 3, scales=scales), FP32)
+        ev_slots = t(rng.choice(1024, 256, replace=False).astype(np.int32))
+        events = t(screened_normal(rng, (256, 1, 32), R))
+        ev_mask = torch.ones((256, 1), device=dev)
+        a, b = store.clone(), store.clone()
+        sdim_update(a, ev_slots, events, ev_mask, Rt, 3)
+        sdim_update_ref(b, ev_slots, events, ev_mask, Rt, 3)
+        close("sdim_update 256 events into 1024 rows", a, b, FP32)
+        shard_slots = t(rng.choice(64, 16, replace=False).astype(np.int32))
+        a, b = store[:64].clone(), store[:64].clone()
+        shard_events, shard_mask = events[:16].contiguous(), ev_mask[:16].contiguous()
+        sdim_update(a, shard_slots, shard_events, shard_mask, Rt, 3)
+        sdim_update_ref(b, shard_slots, shard_events, shard_mask, Rt, 3)
+        close("sdim_update shard 16 events into 64 rows", a, b, FP32)
+        seq = t(screened_normal(rng, (256, 256, 32), R))
+        mask = front(256, 256)
+        table = bse_encode_ref(seq, mask, Rt, 3)
+        close("bse_encode m=24 256 users", bse_encode(seq, mask, Rt, 3), table, ATOMIC)
+        wire, q = table.to(torch.bfloat16), t(screened_normal(rng, (256, 8, 32), R))
+        close("sdim_query m=24 C=8 bf16 wire", sdim_query(q, wire, Rt, 3),
+              sdim_query_ref(q, wire, Rt, 3), FP32)
+
+        def timed(label, kernel, plain, c, args):
+            ms, plain_ms = time_ms(lambda: kernel(*args), 10), time_ms(lambda: plain(*args), 10)
+            b_ms, b_by = bound(c)
+            times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+        def training(label, B, L, m, tau, time_it=False):
+            R = rng.standard_normal((m, 32)).astype(np.float32)
+            Rt = t(R)
+            seq = t(screened_normal(rng, (B, L, 32), R))
+            q = t(screened_normal(rng, (B, 1, 32), R))
+            mask = front(B, L)
+            table = bse_encode_ref(seq, mask, Rt, tau)
+            close(f"bse_encode {label}", bse_encode(seq, mask, Rt, tau), table, ATOMIC)
+            close(f"sdim_query {label}", sdim_query(q, table, Rt, tau),
+                  sdim_query_ref(q, table, Rt, tau), FP32)
+            dout = t(rng.standard_normal((B, 1, 32)).astype(np.float32))
+            dT = sdim_query_backward_ref(dout, q, table, Rt, tau)
+            close(f"sdim_query_backward {label}", sdim_query_backward(dout, q, table, Rt, tau),
+                  dT, FP32)
+            close(f"bse_encode_backward {label}", bse_encode_backward(dT, seq, mask, Rt, tau),
+                  bse_encode_backward_ref(dT, seq, mask, Rt, tau), FP32)
+            if not time_it:
+                return
+            G, U, d, hash_flops = m // tau, 1 << tau, 32, 2 * m * 32 + (m // tau) * 32
+            valid, bwd_bytes = float(mask.sum()), 4 * (2 * B * G * U * d + 2 * B * d + m * d)
+            timed(f"bse_encode {label}", bse_encode, bse_encode_ref,
+                  cost.settle(cost.encode(seq, mask, Rt, tau=tau)), (seq, mask, Rt, tau))
+            timed(f"sdim_query {label}", sdim_query, sdim_query_ref,
+                  cost.settle(cost.query(q, table, Rt, tau=tau)), (q, table, Rt, tau))
+            timed(f"sdim_query_backward {label}", sdim_query_backward, sdim_query_backward_ref,
+                  cost.Cost(B * hash_flops + 8.0 * B * G * U * d, float(bwd_bytes)),
+                  (dout, q, table, Rt, tau))
+            timed(f"bse_encode_backward {label}", bse_encode_backward, bse_encode_backward_ref,
+                  cost.Cost(valid * (hash_flops + G * d),
+                            4 * (valid * (G + 1) * d + B * L * (d + 1) + m * d)),
+                  (dT, seq, mask, Rt, tau))
+
+        times = {}
+        for tau in (1, 2, 3, 5, 10):
+            m = tau * (48 // tau)
+            training(f"tau={tau} m={m}", 128, 256, m, tau, time_it=tau >= 3)
+        training("auc m=24 L=64", 128, 64, 24, 3)
+    print(f"bench (d) each kernel at the phase's shapes against its plain version "
+          f"(screened inputs, uncounted): max abs err {json.dumps(errs)}")
+    print(f"bench (d) Table 4's training shape (B = 128, L = 256, d = 32, C = 1), ms of the "
+          f"kernel, its plain version and the bound: {json.dumps(times)}")
+    return errs
+
+
+def bench_phase(torch, dev, wrappers):
+    """Phase 19 (module docstring). Returns the launch counts."""
+    from repro_torch.bench import (fig2_attention_patterns, fig5_m_sweep, table1_complexity,
+                                   table4_tau)
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    reset(wrappers)
+    figures = {"table5": bench_table5(torch, dev)}
+    free_card(torch)
+    t0 = time.perf_counter()
+    rows = bench_rows("table1", table1_complexity.run(quick=False, device=dev))
+    scaling = rows["table1/bse_query_L_scaling"]["derived"]
+    figures["table1"] = dict(seconds=time.perf_counter() - t0, L_scaling=scaling,
+                             us={n: r["us_per_call"] for n, r in rows.items()})
+    print(f"bench (b) Table 1 at L up to 16,384 and B up to 4,096: {scaling}; "
+          f"{figures['table1']['seconds']:.1f} s")
+    free_card(torch)
+    t0 = time.perf_counter()
+    smoke = {"fig2": fig2_attention_patterns.run(),
+             "table4": table4_tau.run(quick=True, smoke=True, device=dev),
+             "fig5": fig5_m_sweep.run(quick=True, smoke=True, device=dev)}
+    for name, r in smoke.items():
+        bench_rows(name, r)
+    figures["smoke"] = dict(seconds=time.perf_counter() - t0)
+    print(f"bench (c) Fig. 2, Table 4, Fig. 5 at smoke depth (AUCs printed, not gated): "
+          f"{figures['smoke']['seconds']:.1f} s")
+    launches = read_launches(wrappers, BENCH_KERNELS, "bench")
+    figures["launches"] = launches
+    figures["max_abs_err"] = bench_kernel_checks(torch, dev)
+    print(f"bench figures: {json.dumps(figures)}")
+    print(f"bench: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -4484,6 +4766,7 @@ def main() -> int:
     by_path["mesh"] = mesh_phase(torch, dev, wrappers + backward)
     by_path["dryrun"], by_path["examples"] = dryrun_examples_phase(torch, dev,
                                                                    wrappers + backward)
+    by_path["bench"] = bench_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

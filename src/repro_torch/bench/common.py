@@ -1,10 +1,11 @@
-"""The paper's offline protocol on the port: AUC, the data and model
-configurations of Tables 2/3, and the train-then-evaluate loop.
+"""The paper's offline protocol on the port: AUC, timing, the data and
+model configurations of Tables 2/3, and the train-then-evaluate loop.
 
-Counterpart of ``benchmarks/common.py`` (its ``auc``, ``paper_data_config``,
-``paper_model_config`` and ``train_and_eval``; a copy, not an import): the
-same planted-structure data (``generate_batch_graded`` through the port's
-``DeterministicStream``), the same AdamW (clip 1.0, constant schedule with
+Counterpart of ``benchmarks/common.py`` (its ``auc``, ``time_fn``,
+``paper_data_config``, ``paper_model_config`` and ``train_and_eval``; a
+copy, not an import): the same planted-structure data
+(``generate_batch_graded`` through the port's ``DeterministicStream``),
+the same AdamW (clip 1.0, constant schedule with
 100 warm-up steps), the same step counts, and evaluation on the seeds
 ``10_000_000 + i`` in batches of 1,024. Every interest kind shares the
 embeddings, the short-term branch and the head; they differ only in the
@@ -52,6 +53,36 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 
+def block(out) -> None:
+    """Wait for the card's work on every CUDA tensor in ``out`` (a tensor,
+    or lists, tuples and dicts of them): the counterpart of
+    ``jax.block_until_ready``. Nothing to wait for on the CPU."""
+    stack, done = [out], set()
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda and x.device not in done:
+                done.add(x.device)
+                torch.cuda.synchronize(x.device)
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+
+
+def time_fn(fn, *args, warmup: int = 2, iters: int = 10) -> float:
+    """Median wall time per call in microseconds, each call ending in a
+    synchronize of the devices its result lies on (``block``)."""
+    for _ in range(warmup):
+        block(fn(*args))
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        block(fn(*args))
+        ts.append(time.perf_counter() - t0)
+    return 1e6 * float(np.median(ts))
+
+
 def paper_data_config(long_len: int = 256) -> SyntheticCTRConfig:
     return SyntheticCTRConfig(
         n_items=8000, n_cats=80, hist_len=long_len, short_len=16,
@@ -73,7 +104,9 @@ def _to(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for the card's work on ``device`` (nothing to wait for on the
+    CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -96,13 +129,13 @@ def train(model: CTRModel, dcfg: SyntheticCTRConfig, steps: int, batch: int,
     state, metrics = step_fn(state, _to(next(stream), device))
     losses.append(metrics["loss"])
     norms.append(metrics["grad_norm"])
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(steps - 1):
         state, metrics = step_fn(state, _to(next(stream), device))
         losses.append(metrics["loss"])
         norms.append(metrics["grad_norm"])
-    _sync(device)
+    sync(device)
     train_s = time.perf_counter() - t0
     losses = torch.stack(losses).cpu().numpy()
     norms = torch.stack(norms).cpu().numpy()

@@ -48,10 +48,10 @@
 // shared memory and written once. Every sum has a fixed order, so two
 // launches agree bit for bit. A user with every behavior masked lists no
 // batch and writes a zero slice. Each CTA reads its user's valid rows itself
-// (from L2 after the first CTA); tau <= 4, d a multiple of 4 up to 128,
+// (from L2 after the first CTA); tau <= 4 (5..10: large_tau.cuh), d a multiple of 4 up to 128,
 // ceil(G/S) * 2^tau <= kCells and L up to 32768 (the batch list lives in
 // shared memory; the wrapper checks).
-#include "tile_staging.cuh"
+#include "large_tau.cuh"
 
 namespace sdim {
 
@@ -295,12 +295,15 @@ static cudaError_t launch_tau(const void* seq, const float* mask, const float* R
 PHASE_READER(sdim_bse_encode_phases)
 
 // seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d) fp32 -> out (B, G*U, d)
-// fp32, every element written; S signature-group slices per user.
+// fp32, every element written; S signature-group slices per user (tau 1..4;
+// tau 5..10 launch the large-tau path, which ignores S).
 extern "C" int sdim_bse_encode(const void* seq, int seq_dtype, const float* mask, const float* R,
                                float* out, int B, int L, int G, int U, int d, int m, int tau,
                                int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_encode_large_tau(seq, seq_dtype, mask, R, out, B, L, G, U, d, tau, s);
   switch (seq_dtype) {
     case sdim::kF32:
       return sdim::launch_tau<float>(seq, mask, R, out, B, L, G, d, tau, S, s);

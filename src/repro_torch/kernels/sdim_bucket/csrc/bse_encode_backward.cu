@@ -32,9 +32,9 @@
 //   (bf16 rounded to nearest even).
 // The wrapper picks S so that the B*S CTAs fill the card in one wave at two
 // CTAs an SM. d a multiple of 4 up to 128 (at d = 36 lane part 0 of a
-// group holds float4 columns 0 and 8, the others one), tau 1..4, and the user's table
+// group holds float4 columns 0 and 8, the others one), tau 1..4 (5..10: large_tau.cuh), and the user's table
 // and R within shared memory (the wrapper checks).
-#include "tile_staging.cuh"
+#include "large_tau.cuh"
 
 namespace sdim {
 
@@ -155,13 +155,16 @@ static cudaError_t launch_backward(const float* dT, const void* seq, const float
 
 // dT (B, G*U, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d)
 // fp32 -> dseq (B, L, d) in seq's type, every element written; S row chunks
-// per user.
+// per user (tau 1..4; tau 5..10 launch the large-tau path, which ignores S).
 extern "C" int sdim_bse_encode_backward(const float* dT, const void* seq, int seq_dtype,
                                         const float* mask, const float* R, void* dseq, int B,
                                         int L, int G, int U, int d, int m, int tau, int S,
                                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_encode_backward_large_tau(dT, seq, seq_dtype, mask, R, dseq, B, L, G, U,
+                                                  d, tau, s);
   switch (seq_dtype) {
     case sdim::kF32:
       return sdim::launch_backward<float>(dT, seq, mask, R, dseq, B, L, G, U, d, m, tau, S, s);

@@ -7,7 +7,9 @@ PyTorch version ``bse_encode_ref``. The wrapper runs the plain version for
 CPU tensors only; for CUDA tensors it launches the kernel or raises.
 ``bse_encode.launches`` counts kernel launches. The kernel splits each
 user's signature groups over ``encode_splits`` CTAs, each of which writes
-its slice of the table once (no atomics, no zero-filled output).
+its slice of the table once (no atomics, no zero-filled output). tau 5..10
+(32..1,024 buckets a group, more than a CTA's registers hold) launch the
+large-tau path (``csrc/bse_encode_large_tau.cu``), as the backward does.
 
 Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
@@ -30,7 +32,8 @@ from repro_torch.kernels import _build
 
 MAX_CELLS = 16      # (group, bucket) sums a CTA holds in registers (bse_encode.cu kCells)
 MAX_L = 32768       # behaviors a user: the kernel's list of 8-row batches lives in shared memory
-MAX_BWD_SMEM = 200 * 1024   # the backward's shared copy of a user's table and of R
+MAX_BWD_SMEM = 200 * 1024   # the backward's shared copy of a user's table and of R (tau <= 4)
+MAX_TAU = 10        # tau 5..MAX_TAU: the large-tau path (csrc/large_tau.cuh), d up to 128
 
 
 def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -92,16 +95,16 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
         raise ValueError(f"bse_encode: shapes seq {tuple(seq.shape)} mask "
                          f"{tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= 4 or d % 4 or d > 128 or L > MAX_L:
-        raise ValueError(f"bse_encode: the kernel takes tau 1..4, d a multiple of 4 "
+    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128 or L > MAX_L:
+        raise ValueError(f"bse_encode: the kernel takes tau 1..{MAX_TAU}, d a multiple of 4 "
                          f"up to 128 and L up to {MAX_L}; got tau {tau}, d {d}, L {L}")
     code = _build.dtype_code("bse_encode", seq, (torch.float32, torch.bfloat16))
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("bse_encode: mask and R must be float32")
     dev = _build.require_cuda("bse_encode", seq, mask, R)
     _build.require_aligned("bse_encode", seq, R)
-    if splits is None:
-        splits = encode_splits(B, G, U, _build.sm_count(dev))
+    if splits is None:      # the large-tau path takes no slices
+        splits = encode_splits(B, G, U, _build.sm_count(dev)) if tau <= 4 else 1
     if B == 0 or L == 0:
         return torch.zeros((B, G, U, d), dtype=torch.float32, device=dev)
     out = R.new_empty((B, G, U, d))         # fp32 on R's device
@@ -160,10 +163,11 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
         raise ValueError(f"bse_encode_backward: shapes dT {tuple(dT.shape)} seq "
                          f"{tuple(seq.shape)} mask {tuple(mask.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if not 1 <= tau <= 4 or d % 4 or d > 128 or 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM:
-        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..4, d a multiple of 4 "
-                         f"up to 128 and a user's table and R within {MAX_BWD_SMEM} bytes of "
-                         f"shared memory; got tau {tau}, d {d}, m {m}")
+    if (not 1 <= tau <= MAX_TAU or d % 4 or d > 128
+            or tau <= 4 and 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM):
+        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..{MAX_TAU}, d a multiple "
+                         f"of 4 up to 128 and, at tau <= 4, a user's table and R within "
+                         f"{MAX_BWD_SMEM} bytes of shared memory; got tau {tau}, d {d}, m {m}")
     code = _build.dtype_code("bse_encode_backward", seq, (torch.float32, torch.bfloat16))
     for name, t in (("dT", dT), ("mask", mask), ("R", R)):
         if t.dtype != torch.float32:

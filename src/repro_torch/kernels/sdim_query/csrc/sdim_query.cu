@@ -22,8 +22,10 @@
 // the entry launches the wide path instead (wide_query.cuh: the cluster
 // splits the columns and merges partial sums in rank order). Every width
 // that fits (d <= 256 at m = 48, tau = 3 on the H100) keeps the fused body.
+// tau 5..10 (up to 1,024 buckets a group) launch large_tau.cuh's path.
 #include "../../sdim_fused_serve/csrc/fused_query.cuh"
 #include "wide_query.cuh"
+#include "large_tau.cuh"
 
 PHASE_READER(sdim_query_phases)
 
@@ -33,6 +35,8 @@ extern "C" int sdim_query(const void* table, int table_dtype, const float* q, co
                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_query_large_tau(table, table_dtype, q, R, out, B, C, G, U, d, tau, s);
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)

@@ -25,9 +25,11 @@
 // and each (g, u, float4 column) of the CTA has one owner thread that adds
 // dout / G of the candidates that hit it, in c order, into shared memory.
 // Then one warp a row: n with the forward's order (normalize_rows4), t^ . g
-// by a warp sum, and the row of dT written once. tau 1..4, d a multiple of
-// 4, 16-byte aligned operands (the wrapper checks).
+// by a warp sum, and the row of dT written once. tau 1..4 (5..10:
+// large_tau.cuh), d a multiple of 4, 16-byte aligned operands (the wrapper
+// checks).
 #include "../../sdim_fused_serve/csrc/fused_query.cuh"
+#include "large_tau.cuh"
 
 namespace sdim {
 
@@ -148,12 +150,14 @@ static cudaError_t launch_query_backward(const float* dout, const float* q, cons
 
 // dout (B, C, d) fp32, q (B, C, d) fp32, table (B, G*U, d) fp32, R (m, d)
 // fp32 -> dT (B, G*U, d) fp32, every element written; S group slices per
-// user.
+// user (tau 1..4; tau 5..10 launch the large-tau path, which ignores S).
 extern "C" int sdim_query_backward(const float* dout, const float* q, const float* table,
                                    const float* R, float* dT, int B, int C, int G, int U, int d,
                                    int m, int tau, int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_query_backward_large_tau(dout, q, table, R, dT, B, C, G, U, d, tau, s);
   switch (tau) {
     case 1: return sdim::launch_query_backward<1>(dout, q, table, R, dT, B, C, G, d, S, s);
     case 2: return sdim::launch_query_backward<2>(dout, q, table, R, dT, B, C, G, d, S, s);

@@ -12,7 +12,9 @@ whole normalized table and 32 candidates in a CTA's shared memory; where
 they do not fit (MLA's latent, d = 512: 416 KB against 227 KB) the kernel's
 entry point launches the wide path instead (``csrc/wide_query.cuh``: the
 cluster splits the columns and merges its partial sums in rank order); a
-shape neither launches raises.
+shape neither launches raises. tau 5..10 (32..1,024 buckets a group) launch
+the large-tau path (``csrc/sdim_query_large_tau.cu``: each candidate reads
+and normalizes only the G rows it selects), as the backward does.
 
 Where autograd records the call (grad mode on, the table requiring grad)
 the wrapper goes through ``SDIMQueryFn``, whose backward is
@@ -35,6 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU
+
+MAX_BWD_CANDS = 16384   # the large-tau backward's candidate buckets in shared memory
 
 
 def sdim_query_ref(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor,
@@ -82,10 +87,12 @@ def _query(q, table, R, tau):
         raise ValueError(f"sdim_query: shapes q {tuple(q.shape)} table "
                          f"{tuple(table.shape)} R {tuple(R.shape)} tau {tau}")
     code = _build.dtype_code("sdim_query", table, (torch.float32, torch.bfloat16))
-    if not 1 <= tau <= 4 or d % 4 or G * U * d * table.element_size() % 16:
-        raise ValueError(f"sdim_query: the kernel takes tau 1..4, d a multiple of 4 and a "
-                         f"user's table of G*U*d values in whole 16-byte loads; got tau "
-                         f"{tau}, G {G}, U {U}, d {d}, {table.dtype}")
+    if (not 1 <= tau <= MAX_TAU or d % 4 or G * U * d * table.element_size() % 16
+            or tau > 4 and d > 128):
+        raise ValueError(f"sdim_query: the kernel takes tau 1..{MAX_TAU} (d up to 128 above "
+                         f"tau 4), d a multiple of 4 and a user's table of G*U*d values in "
+                         f"whole 16-byte loads; got tau {tau}, G {G}, U {U}, d {d}, "
+                         f"{table.dtype}")
     if q.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("sdim_query: q and R must be float32")
     dev = _build.require_cuda("sdim_query", q, table, R)
@@ -147,9 +154,10 @@ def sdim_query_backward_cuda(dout: torch.Tensor, q: torch.Tensor, table: torch.T
         raise ValueError(f"sdim_query_backward: shapes dout {tuple(dout.shape)} q "
                          f"{tuple(q.shape)} table {tuple(table.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if not 1 <= tau <= 4 or d % 4:
-        raise ValueError(f"sdim_query_backward: the kernel takes tau 1..4 and d a multiple "
-                         f"of 4; got tau {tau}, d {d}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or tau > 4 and (d > 128 or C > MAX_BWD_CANDS):
+        raise ValueError(f"sdim_query_backward: the kernel takes tau 1..{MAX_TAU} and d a "
+                         f"multiple of 4 (above tau 4: d up to 128 and C up to "
+                         f"{MAX_BWD_CANDS}); got tau {tau}, d {d}, C {C}")
     for name, t in (("dout", dout), ("q", q), ("table", table), ("R", R)):
         if t.dtype != torch.float32:
             raise TypeError(f"sdim_query_backward: {name} must be float32")

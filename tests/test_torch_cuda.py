@@ -100,6 +100,53 @@ def _layout(mask, layout, rng):
     return mask
 
 
+LARGE_TAU_SHAPES = [  # (B, L, C, d, m, tau): the large-tau paths (large_tau.cuh)
+    (2, 40, 3, 32, 10, 5),
+    (128, 256, 1, 32, 45, 5),    # Table 4's tau = 5 training shape
+    (128, 256, 1, 32, 40, 10),   # Table 4's tau = 10: U = 1,024, two slices a group
+    (2, 1100, 70, 16, 12, 6),    # two passes of rows; three CTAs of candidates
+    (3, 60, 40, 128, 20, 10),    # d = 128: eight slices a group
+    (2, 50, 2, 36, 14, 7),       # dien's width d = 36
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LARGE_TAU_SHAPES)
+def test_large_tau_kernels(shape, dtype, layout, dev):
+    """tau 5..10: bse_encode (fp32|bf16 behaviors), sdim_query (off the
+    fp32 table and its bf16 wire copy) and both backward kernels against
+    their plain versions; two launches give the same bits; a fully masked
+    user gets a zero table and gradient."""
+    B, L, C, d, m, tau = shape
+    seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=tau)
+    mask = _layout(mask, layout, rng)
+    before = (bse_encode.launches, sdim_query.launches, bse_encode_backward.launches,
+              sdim_query_backward.launches)
+    table = bse_encode(seq, mask, R, tau)
+    torch.testing.assert_close(table, bse_encode_ref(seq, mask, R, tau), **ATOMIC)
+    assert torch.equal(table, bse_encode(seq, mask, R, tau))
+    for wire in (table, table.to(torch.bfloat16)):
+        out = sdim_query(q, wire, R, tau)
+        torch.testing.assert_close(out, sdim_query_ref(q, wire, R, tau), **FP32)
+        assert torch.equal(out, sdim_query(q, wire, R, tau))
+    dout = torch.from_numpy(rng.standard_normal((B, C, d)).astype(np.float32)).to(dev)
+    dT = sdim_query_backward(dout, q, table, R, tau)
+    torch.testing.assert_close(dT, sdim_query_backward_ref(dout, q, table, R, tau), **FP32)
+    assert torch.equal(dT, sdim_query_backward(dout, q, table, R, tau))
+    dseq = bse_encode_backward(dT, seq, mask, R, tau)
+    tol = BF16_OUT if dtype == torch.bfloat16 else FP32
+    torch.testing.assert_close(dseq, bse_encode_backward_ref(dT, seq, mask, R, tau), **tol)
+    assert torch.equal(dseq, bse_encode_backward(dT, seq, mask, R, tau))
+    torch.cuda.synchronize()
+    assert (bse_encode.launches, sdim_query.launches, bse_encode_backward.launches,
+            sdim_query_backward.launches) == (before[0] + 2, before[1] + 4, before[2] + 2,
+                                              before[3] + 2)
+    if B > 1:                                   # _layout masks the last user
+        assert not table[-1].any() and not dseq[-1].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
@@ -364,17 +411,18 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """bse_encode takes tau 1..4, d a multiple of 4 up to 128 (one float4
+    """bse_encode takes tau 1..10, d a multiple of 4 up to 128 (one float4
     column a lane) and L up to MAX_L (its batch list lives in shared
-    memory); sdim_fused_serve and sdim_query take tau 1..4, a user's table
-    in whole 16-byte loads and 16-byte aligned operands; sdim_update takes
+    memory); sdim_fused_serve takes tau 1..4 and sdim_query tau 1..10 (d up
+    to 128 above tau 4), a user's table in whole 16-byte loads and 16-byte
+    aligned operands; sdim_update takes
     tau 1..4, d a multiple of 4 up to 128, 1..G group slices that keep a
     CTA at update_cells(d) cells, and 16-byte aligned operands."""
     seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
     with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
         bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
-    with pytest.raises(ValueError, match="tau 1..4"):
-        bse_encode(seq[..., :128].contiguous(), mask, R[:, :128].contiguous(), 5)
+    with pytest.raises(ValueError, match="tau 1..10"):
+        bse_encode(seq[..., :128].contiguous(), mask, torch.zeros((11, 128), device=dev), 11)
     with pytest.raises(ValueError, match="d a multiple of 4"):
         bse_encode(seq[..., :10].contiguous(), mask, R[:8, :10].contiguous(), 2)
     long_seq = torch.zeros((1, MAX_L + 8, 16), device=dev)
@@ -391,14 +439,17 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted.copy_(q8)                           # contiguous, 4 bytes past a boundary
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_fused_serve(rows, slots, shifted, R[:8, :8].contiguous(), 2)
-    # sdim_query: d = 6 (not a multiple of 4); tau 5; a shifted table
+    # sdim_query: d = 6 (not a multiple of 4); tau 11; d = 136 at tau 5; a shifted table
     with pytest.raises(ValueError, match="16-byte loads"):
         sdim_query(q[:2, :, :6].contiguous(), torch.zeros((2, 4, 4, 6), device=dev,
                                                           dtype=torch.bfloat16),
                    R[:8, :6].contiguous(), 2)
-    with pytest.raises(ValueError, match="tau 1..4"):
-        sdim_query(q[:2, :, :8].contiguous(), torch.zeros((2, 2, 32, 8), device=dev),
-                   R[:10, :8].contiguous(), 5)
+    with pytest.raises(ValueError, match="tau 1..10"):
+        sdim_query(q[:2, :, :8].contiguous(), torch.zeros((2, 1, 2048, 8), device=dev),
+                   torch.zeros((11, 8), device=dev), 11)
+    with pytest.raises(ValueError, match="d up to 128 above tau 4"):
+        sdim_query(q[:2, :, :136].contiguous(), torch.zeros((2, 1, 32, 136), device=dev),
+                   R[:5, :136].contiguous(), 5)
     table = torch.zeros((2, 4, 4, 8), device=dev)
     shifted_t = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):

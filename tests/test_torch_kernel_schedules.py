@@ -51,7 +51,14 @@ run here; this pins the algebra they implement.
   g)) / n; target_attn_backward runs a CTA per candidate (32 row groups
   with an online max and denominator each, merged in group order, then
   dS * seq summed per row group and merged in order: dq) and a CTA per 32
-  rows that loops over the candidates in order (dseq).
+  rows that loops over the candidates in order (dseq);
+- the large-tau paths (large_tau.cuh, tau 5..10): bse_encode gives CTA
+  (b, g, j) a slice of group g's buckets, at most 64 KB of them, and adds
+  each pass of 1,024 rows into the slice in row order; its backward
+  gathers a row's G rows of dT in group order; sdim_query sums each
+  candidate's G selected rows, each over its own norm, in g order, then
+  / G; its backward gives CTA (b, g, j) 64 rows of group g and adds
+  dout / G of the candidates that select a row in c order.
 
 Each kernel is also emulated at dien's behavior width d = 36 (the
 ``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
@@ -868,3 +875,136 @@ def test_sdim_query_wide_schedule_matches_jax(shape):
     np.testing.assert_allclose(out, ref, **FP32)
     if B > 1:
         assert not out[-1].any()
+
+
+# ---------------------------------------------------------------------------
+# the large-tau paths (large_tau.cuh: tau 5..10, 32..1,024 buckets a group)
+# ---------------------------------------------------------------------------
+LT_PASS = 1024               # bse_encode_large_tau.cu kPass
+LT_SLICE_BYTES = 64 * 1024   # its kSliceBytes
+LT_BWD_ROWS = 64             # sdim_query_large_tau.cu kBwdRowsPerCta
+
+
+def _lt_slice_buckets(U, d):
+    ut = U
+    while ut > 1 and ut * d * 4 > LT_SLICE_BYTES:
+        ut //= 2
+    return ut
+
+
+def encode_large_tau_schedule(seq, mask, R, tau):
+    """bse_encode_large_tau.cu's forward in numpy fp32: CTA (b, g, j) owns
+    buckets [j*UT, (j+1)*UT) of group g and adds the rows of each pass of
+    kPass whose bucket it owns, in row order. Returns the table and the
+    write counts."""
+    B, L, d = seq.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    UT = _lt_slice_buckets(U, d)
+    Rg = R.reshape(G, tau, d)
+    out = np.full((B, G, U, d), np.nan, np.float32)
+    writes = np.zeros((B, G, U), np.int64)
+    for b in range(B):
+        for g in range(G):
+            for u0 in range(0, U, UT):
+                cells = np.zeros((UT, d), np.float32)
+                for l0 in range(0, L, LT_PASS):
+                    x, w = seq[b, l0:l0 + LT_PASS], mask[b, l0:l0 + LT_PASS]
+                    sig = _signatures(x, Rg[g:g + 1], tau)[:, 0] - u0
+                    for r in np.flatnonzero((w != 0) & (sig >= 0) & (sig < UT)):   # row order
+                        cells[sig[r]] = cells[sig[r]] + w[r] * x[r]
+                out[b, g, u0:u0 + UT] = cells
+                writes[b, g, u0:u0 + UT] += 1
+    return out, writes
+
+
+def encode_backward_large_tau_schedule(dT, seq, mask, R, tau):
+    """The large-tau backward: a row's G selected rows of dT summed in group
+    order, times its mask; a masked row gets zero, unhashed."""
+    B, L, d = seq.shape
+    G = R.shape[0] // tau
+    sig = _signatures(seq.reshape(B * L, d), R.reshape(G, tau, d), tau).reshape(B, L, G)
+    out = np.zeros((B, L, d), np.float32)
+    for b in range(B):
+        for l in np.flatnonzero(mask[b] != 0):
+            acc = np.zeros(d, np.float32)
+            for g in range(G):
+                acc = acc + dT[b, g, sig[b, l, g]]
+            out[b, l] = mask[b, l] * acc
+    return out
+
+
+def query_large_tau_schedule(q, table, R, tau):
+    """sdim_query_large_tau.cu's forward: each candidate adds its G selected
+    rows, each divided by its own norm, in g order, then / G."""
+    B, C, d = q.shape
+    G = R.shape[0] // tau
+    sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
+    out = np.zeros((B, C, d), np.float32)
+    for g in range(G):
+        rows = table[np.arange(B)[:, None], g, sig[..., g]].astype(np.float32)    # (B, C, d)
+        n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
+        out = out + rows / n
+    return out / np.float32(G)
+
+
+def query_backward_large_tau_schedule(dout, q, table, R, tau):
+    """The large-tau backward: CTA (b, g, j) owns rows [64j, 64j + 64) of
+    group g, adds dout / G of each candidate that selects a row in c order,
+    then writes (g - t^ (t^ . g)) / n. Returns dT and the write counts."""
+    B, C, d = q.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
+    out = np.full((B, G, U, d), np.nan, np.float32)
+    writes = np.zeros((B, G, U), np.int64)
+    for b in range(B):
+        for g in range(G):
+            for u0 in range(0, U, LT_BWD_ROWS):
+                u1 = min(U, u0 + LT_BWD_ROWS)
+                gv = np.zeros((u1 - u0, d), np.float32)
+                for c in range(C):                    # c order
+                    if u0 <= sig[b, c, g] < u1:
+                        gv[sig[b, c, g] - u0] += dout[b, c] / np.float32(G)
+                t = table[b, g, u0:u1]
+                n = np.sqrt(np.sum(t * t, -1, keepdims=True) + np.float32(1e-12))
+                th = t / n
+                out[b, g, u0:u1] = (gv - th * np.sum(th * gv, -1, keepdims=True)) / n
+                writes[b, g, u0:u1] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [
+    (2, 40, 3, 32, 10, 5),       # U = 32
+    (2, 256, 1, 32, 45, 5),      # Table 4's tau = 5 training shape (m = 45), two users
+    (2, 256, 1, 32, 40, 10),     # Table 4's tau = 10 (m = 40, U = 1,024): two slices a group
+    (1, 1100, 70, 16, 12, 6),    # two passes of rows; two candidate hash rounds
+    (1, 60, 3, 128, 20, 10),     # d = 128: eight slices of 128 buckets a group
+    (2, 50, 2, 36, 14, 7),       # dien's width d = 36
+], ids=["U32", "table4-tau5", "table4-tau10", "two-passes", "d128", "d36"])
+def test_large_tau_schedules_match_jax(shape, layout):
+    """bse_encode, sdim_query and both backward kernels at tau 5..10 against
+    the JAX package (its bucket table and query oracles, and jax.grad of its
+    XLA formulation): every element written once, a fully masked user's
+    rows and gradient zero."""
+    B, L, C, d, m, tau = shape
+    rng = np.random.default_rng(23 + tau)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    mask = _mask(rng, B, L, layout)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    jtable = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask), jnp.asarray(R), tau))
+    table, writes = encode_large_tau_schedule(seq, mask, R, tau)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(table, jtable, **FP32)
+    out = query_large_tau_schedule(q, jtable, R, tau)
+    ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(jtable), jnp.asarray(R), tau))
+    np.testing.assert_allclose(out, ref, **FP32)
+    _, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
+    dT, writes = query_backward_large_tau_schedule(dout, q, jtable, R, tau)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(dT, jdT, **FP32)
+    dseq = encode_backward_large_tau_schedule(jdT, seq, mask, R, tau)
+    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    if B > 1:
+        assert not table[-1].any() and not dseq[-1].any()
