@@ -400,7 +400,33 @@ Phases, each of which raises (exit code != 0) when it fails:
    and 10 through their large-tau paths). (d) each kernel at the phase's shapes
    against its plain version on screened inputs, uncounted
    (``bench_kernel_checks``). Prints the phase's wall time.
-Every launch count is set to 0 just before each of phases 4-19 and read
+20. large tau serving — ``large_tau``: the large-tau paths of
+   ``sdim_update``, ``sdim_fused_serve`` and ``bse_serve``. (a), run right
+   after phase 3 (where torch.profiler still records the kernels' device
+   launches): each against its plain version on the card (FP32; fp32,
+   bf16, int8 and fp8 stores), the same bits on two launches, at the
+   slice's shapes (B = 16, C = 128, E = 16, L = 1,024, d = 128, tau 5 at m
+   = 45 and tau 10 at m = 40; bse_serve also at tau = 1, m = 48, past its
+   cluster body) and at d = 36, uncounted: event-timed ms of kernel and
+   plain version, device ms (d = 128) and the bound of
+   ``kernels/cost.py``'s counts. (b)
+   ``sdim-paper`` FULL with its interest at tau 5 and 10
+   (``dataclasses.replace``, as ``bench/table4_tau.py``; the item rows the
+   traffic hashes screened), 64 users x 128 candidates (half of them the
+   user's own behaviors, so tau = 10 reads nonempty buckets) in bursts of
+   16: decoupled fused off fp32, bf16, int8 and fp8 stores and fetch off
+   an fp32 store, each over an fp32 wire, and inline, then a 32-user event
+   burst and the requests again; ms/request of each. Decoupled (fused and
+   fetch off the fp32 store) against inline within LT_TOL and the fold
+   moving scores; then,
+   uncounted, every server again through the kernels' plain versions on
+   the card (the engine's dispatches swapped, ``PlainDispatch``): each
+   round's scores within LT_TOL of its plain run (WIRE_TOL for the bf16,
+   int8 and fp8 stores, whose rounding of the encoded table may land a step
+   apart where kernel and plain sums differ in the last bit); the
+   quantized stores against the fp32 store are printed. Prints the phase's
+   wall time.
+Every launch count is set to 0 just before each of phases 4-20 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -412,7 +438,8 @@ arch's SDIM decode and summed, so they count decode tokens only, as
 phase 13's; phases 15 and 16 none; phase 17 sdim_query, counted over the
 SDIM tokens under the mesh; phase 18 as its (c) and (d) say, (c) read as
 ``dryrun`` and (d) as ``examples``; phase 19 all six forward kernels,
-read before its (d)).
+read before its (d); phase 20 bse_encode, sdim_update, sdim_fused_serve,
+sdim_query and bse_serve, read after its (b)'s kernel servers).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -427,7 +454,8 @@ path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
 as ``mesh``, phase 18 as ``dryrun`` and ``examples``, phase 19 as
-``bench``), then as the
+``bench``, phase 20 as ``large_tau``; sdim_update, sdim_fused_serve and
+bse_serve carry phase 20 (a)'s figures as ``large_tau``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -4698,6 +4726,264 @@ def bench_phase(torch, dev, wrappers):
     return launches
 
 
+LT_TAUS = ((5, 45), (10, 40))      # phase 20: (tau, m) of Table 4 (bench/table4_tau.py)
+LT_USERS, LT_EV_USERS = 64, 32     # users served, users of the event burst
+LT_TOL = 1e-5                      # decoupled vs inline (fp32), kernels vs plain versions
+
+
+class PlainDispatch:
+    """An ``SDIMEngine.profiler`` that runs each dispatch's plain PyTorch
+    version instead of its kernel (on the card): a server's scores through
+    the plain long branch."""
+
+    def __init__(self):
+        from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_ref
+        from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (
+            sdim_fused_serve, sdim_fused_serve_ref)
+        from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+        from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
+        from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+        self.plain = {bse_encode: bse_encode_ref, sdim_update: sdim_update_ref,
+                      sdim_fused_serve: sdim_fused_serve_ref, sdim_query: sdim_query_ref,
+                      bse_serve: bse_serve_ref}
+
+    def profile(self, kernel, fn, args, kwargs):
+        return self.plain[fn](*args, **kwargs)
+
+
+def large_tau_kernel_checks(torch, dev) -> dict:
+    """20 (a): the three large-tau serving paths against their plain
+    versions at the slice's shapes, the same bits twice, timed beside their
+    plain versions and bounds (uncounted). Returns each kernel's figures
+    by shape."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
+                                                                       sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+    from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
+
+    rng = np.random.default_rng(20)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    figures = {"sdim_update": {}, "sdim_fused_serve": {}, "bse_serve": {}}
+
+    def record(name, label, kernel, plain, out, ref, c, timed, bits=None):
+        """out against ref, the same bits from two calls of ``bits`` (else
+        ``kernel``); with ``timed``, kernel and plain timed beside the bound
+        of cost ``c`` ("device": with their device times too)."""
+        err = check_close(f"large_tau (a) {name} {label}", out, ref, **FP32)
+        same_bits(f"large_tau (a) {name} {label}", bits or kernel)
+        row = dict(max_abs_err=err, nonzero_rows=float((ref.abs().sum(-1) > 0).float().mean()))
+        if timed:
+            k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+            b_ms, b_by = bound(cost.settle(c))
+            row.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+            if timed == "device":
+                row.update(device_times(kernel, plain))
+        figures[name][label] = row
+
+    with uncounted():
+        for d in (D, D36):
+            timed = "device" if d == D else "events"
+            for tau, m in LT_TAUS + (((1, 48),) if d == D else ()):
+                G_, U_ = m // tau, 1 << tau
+                R = rng.standard_normal((m, d)).astype(np.float32)
+                Rt = t(R)
+                seq = screened_normal(rng, (BURST, L, d), R)
+                mask = (np.arange(L)[None] >= rng.integers(0, L // 2, BURST)[:, None]).astype(
+                    np.float32)
+                mask[-1] = 0.0                      # a fully masked user
+                q = screened_normal(rng, (BURST, C, d), R)
+                for b in range(BURST - 1):          # half the candidates: own behaviors
+                    q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
+                seq, mask, q = t(seq), t(mask), t(q)
+                label = f"tau={tau} m={m} d={d}"
+                record("bse_serve", label, partial(bse_serve, q, seq, mask, Rt, tau),
+                       partial(bse_serve_ref, q, seq, mask, Rt, tau),
+                       bse_serve(q, seq, mask, Rt, tau), bse_serve_ref(q, seq, mask, Rt, tau),
+                       cost.serve(q, seq, mask, Rt, tau=tau), timed)
+                if tau == 1:
+                    continue
+                # the store: LT_USERS users' encoded histories (the burst's first)
+                hist = t(screened_normal(rng, (LT_USERS, L, d), R))
+                hist[:BURST] = seq
+                hmask = torch.ones((LT_USERS, L), device=dev)
+                hmask[:BURST] = mask
+                rows = bse_encode_ref(hist, hmask, Rt, tau)
+                slots = torch.arange(BURST, dtype=torch.int32, device=dev)
+                present = torch.ones(BURST, device=dev)
+                present[1] = 0.0                    # an absent user
+                for dtype in ("fp32", "bf16", "int8", "fp8"):
+                    scales = None
+                    if dtype in ("int8", "fp8"):
+                        store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[dtype])
+                    else:
+                        store = rows.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+                    kw = dict(scales=scales, present=present)
+                    record("sdim_fused_serve", f"{label} {dtype}",
+                           partial(sdim_fused_serve, store, slots, q, Rt, tau, **kw),
+                           partial(sdim_fused_serve_ref, store, slots, q, Rt, tau, **kw),
+                           sdim_fused_serve(store, slots, q, Rt, tau, **kw),
+                           sdim_fused_serve_ref(store, slots, q, Rt, tau, **kw),
+                           cost.serve_fused(store, slots, q, Rt, tau=tau, **kw),
+                           timed if dtype in ("fp32", "int8") else None)
+                    del store, scales
+                ev_slots = t(rng.integers(0, LT_USERS, BURST).astype(np.int32))   # dups
+                events = t(screened_normal(rng, (BURST, E, d), R))
+                ev_mask = t((rng.random((BURST, E)) > 0.2).astype(np.float32))
+                ev_mask[0] = 0.0                    # a zero-mask row
+                # timed in place on one store each (a fold's own work, no clone);
+                # the same bits from two folds of fresh clones
+                a, b_ = rows.clone(), rows.clone()
+                args = (ev_slots, events, ev_mask, Rt, tau)
+                c = cost.update(rows, *args[:-1], tau=tau)
+                record("sdim_update", label, partial(sdim_update, a, *args),
+                       partial(sdim_update_ref, b_, *args), sdim_update(a, *args),
+                       sdim_update_ref(b_, *args), c, timed,
+                       bits=lambda: sdim_update(rows.clone(), *args))
+                del rows, hist, a, b_
+                torch.cuda.empty_cache()
+    for name, rows in figures.items():
+        for label, r in rows.items():
+            timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "
+                      f"{r['bound_ms']:.6f} ms ({r['bound_by']}), {r['ms'] / r['bound_ms']:.0f}x"
+                      if "ms" in r else "")
+            device = f"; {device_line(r)}" if "device_ms" in r else ""
+            print(f"large_tau (a) {name} {label}: max abs err {r['max_abs_err']:.3g}, nonzero "
+                  f"rows {100 * r['nonzero_rows']:.0f}%, the same bits twice{timing}{device}")
+    return figures
+
+
+def large_tau_requests(torch, cfg):
+    """LT_USERS requests of C candidates, the first C/2 of each the user's
+    own valid behaviors (tau = 10 reads almost only empty buckets for
+    random candidates), and an event burst of LT_EV_USERS users whose first
+    event is one of their own candidates."""
+    requests = request_stream(LT_USERS, cfg)
+    rng = np.random.default_rng(21)
+    for _, user, ci, cc, _ in requests:
+        own = rng.choice(np.flatnonzero(user["hist_mask"][0]), C // 2)
+        ci[:C // 2], cc[:C // 2] = user["hist_items"][0, own], user["hist_cats"][0, own]
+    users = rng.choice(LT_USERS, LT_EV_USERS, replace=False)
+    ev_items = rng.integers(0, cfg.n_items, (LT_EV_USERS, E)).astype(np.int32)
+    ev_cats = rng.integers(0, cfg.n_cats, (LT_EV_USERS, E)).astype(np.int32)
+    ev_items[:, 0] = [requests[u][2][C // 2] for u in users]
+    ev_cats[:, 0] = [requests[u][3][C // 2] for u in users]
+    return requests, ([f"u{u}" for u in users], ev_items, ev_cats)
+
+
+# phase 20's servers: every decoupled one hands its interest over an fp32
+# wire (the fused read returns it in the wire dtype, bf16 by default)
+LT_SETUPS = {"fused-fp32": dict(mode="decoupled", fused=True),
+             "fused-bf16": dict(mode="decoupled", fused=True, table_dtype="bf16"),
+             "fused-int8": dict(mode="decoupled", fused=True, table_dtype="int8"),
+             "fused-fp8": dict(mode="decoupled", fused=True, table_dtype="fp8"),
+             "fetch-fp32": dict(mode="decoupled"),
+             "inline": dict(mode="inline")}
+
+
+def large_tau_serving(torch, dev, wrappers, model, requests, events, label, plain=False):
+    """20 (b) at one tau: each of LT_SETUPS serves the requests; the
+    decoupled servers fold the event burst and serve them again. With
+    ``plain`` every dispatch runs its plain version (``PlainDispatch``).
+    Returns the scores by (server, round) and the ms/request of each."""
+    from repro_torch.serve.ctr_server import CTRServer
+
+    scores, ms = {}, {}
+    model.engine.profiler = PlainDispatch() if plain else None
+    try:
+        for name, kw in LT_SETUPS.items():
+            wire = dict(wire_dtype=torch.float32) if kw["mode"] == "decoupled" else {}
+            srv = CTRServer.build(model, None, device=dev, **kw, **wire)
+            tag, times = f"{label} {name}{' through the plain versions' if plain else ''}", []
+            scores[(name, "before")], _ = serve_all(torch, tag, srv, requests, wrappers, times)
+            if srv.bse is not None:
+                srv.bse.ingest_events(*events)
+                scores[(name, "after")], _ = serve_all(torch, f"{tag}, after {LT_EV_USERS} "
+                                                       f"users' events", srv, requests,
+                                                       wrappers, times)
+            ms[name] = steady(times)
+            del srv
+    finally:
+        model.engine.profiler = None
+    return scores, ms
+
+
+def large_tau_phase(torch, dev, wrappers):
+    """Phase 20 (b) (module docstring). Returns the launch counts of its
+    kernel servers."""
+    from repro_torch.configs import sdim_paper
+    from repro_torch.core.interest import InterestModule
+    from repro_torch.kernels.screen import screen_item_rows
+    from repro_torch.models.ctr import CTRModel
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    full = sdim_paper.FULL
+    model = CTRModel(full, device=dev, generator=torch.Generator(device=dev).manual_seed(20))
+    requests, events = large_tau_requests(torch, full)
+    burst = arch_burst(torch, dev, requests)
+    ev_batch = {"hist_items": torch.as_tensor(events[1], device=dev),
+                "hist_cats": torch.as_tensor(events[2], device=dev),
+                "hist_mask": torch.ones(events[1].shape, device=dev),
+                "cand_item": torch.as_tensor(events[1][:, :1], device=dev),
+                "cand_cat": torch.as_tensor(events[2][:, :1], device=dev)}
+    reset(wrappers)
+    checks = {}
+    for tau, m in LT_TAUS:
+        cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, tau=tau,
+                                                                     m=m))
+        model.cfg = cfg
+        model.interest = InterestModule(dataclasses.replace(cfg.interest, d=cfg.behavior_dim),
+                                        device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(tau))
+        n = screen_item_rows(model, [burst, ev_batch],
+                             torch.Generator(device=dev).manual_seed(100 + tau))
+        label = f"large_tau (b) tau={tau} m={m}"
+        print(f"{label}: {n} item rows redrawn to clear the hash margin")
+        sc, ms = large_tau_serving(torch, dev, wrappers, model, requests, events, label)
+        with uncounted():                   # comparison servers: not the path's launches
+            plain, _ = large_tau_serving(torch, dev, wrappers, model, requests, events, label,
+                                         plain=True)
+        gates = [("fused fp32 store - inline", sc[("fused-fp32", "before")],
+                  sc[("inline", "before")], LT_TOL),
+                 ("fetch fp32 wire - inline", sc[("fetch-fp32", "before")],
+                  sc[("inline", "before")], LT_TOL)]
+        for key in sc:                      # each server and round against its plain versions
+            quantized = key[0] in ("fused-bf16", "fused-int8", "fused-fp8")
+            gates.append((f"{key[0]} ({key[1]} events) - its plain versions", sc[key],
+                          plain[key], WIRE_TOL if quantized else LT_TOL))
+        diffs = {}
+        for what, got, want, tol in gates:
+            diff = float(np.abs(got - want).max())
+            diffs[what] = diff
+            if diff > tol:
+                raise AssertionError(f"{label}: {what} differ by {diff} (> {tol})")
+        # the quantized stores against the fp32 store's scores: printed, not gated
+        stores = {f"fused {dt} - fused fp32 ({rnd} events)":
+                  float(np.abs(sc[(f"fused-{dt}", rnd)] - sc[("fused-fp32", rnd)]).max())
+                  for dt in ("bf16", "int8", "fp8") for rnd in ("before", "after")}
+        moved = float(np.abs(sc[("fused-fp32", "after")] - sc[("fused-fp32", "before")]).max())
+        if moved == 0.0:
+            raise AssertionError(f"{label}: the event burst changed no score")
+        checks[tau] = dict(max_abs_diff=diffs, stores=stores, fold_moved=moved,
+                           ms_per_request=ms)
+        print(f"{label}: ms/request (median of the bursts) "
+              f"{json.dumps({k: round(v['median'], 4) for k, v in ms.items()})}; max abs "
+              f"diffs {json.dumps(diffs)}; quantized stores against fp32 (not gated) "
+              f"{json.dumps(stores)}; the fold moved scores by up to {moved:.3g}")
+    launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
+                                        "sdim_query", "bse_serve"), "large_tau")
+    del model
+    free_card(torch)
+    print(f"large_tau figures: {json.dumps(checks)}")
+    print(f"large_tau: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -4731,6 +5017,10 @@ def main() -> int:
     for k in kernel_phase(torch, dev, D36):
         by_name[k["name"]]["d36"] = {"d": D36, **{key: v for key, v in k.items() if key not in
                                                   ("name", "route", "source", "replaces")}}
+    # phase 20 (a) beside phase 3: late in the run torch.profiler records
+    # few of a ctypes-launched kernel's device launches (PERF.md section 7)
+    for name, rows in large_tau_kernel_checks(torch, dev).items():
+        by_name[name]["large_tau"] = rows
     wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
@@ -4767,6 +5057,7 @@ def main() -> int:
     by_path["dryrun"], by_path["examples"] = dryrun_examples_phase(torch, dev,
                                                                    wrappers + backward)
     by_path["bench"] = bench_phase(torch, dev, wrappers + backward)
+    by_path["large_tau"] = large_tau_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -22,6 +22,12 @@ the data's device, computed without waiting for the device; the profiler
 reads its records' counts once, when it reports. ``settle`` reads a cost
 as two numbers.
 
+At tau > 4 (and for ``bse_serve`` wherever its large-tau path runs) the
+kernels read and write only the table rows a call reaches, so the counts
+follow them: ``serve_fused`` reads the rows a present user's candidates
+select, ``update`` reads and writes the (slot, group, bucket) cells its
+valid events reach, and ``serve`` normalizes only the selected rows.
+
 The sharded dispatches (``update_sharded``, ``serve_fused_sharded``,
 ``serve_sharded``) launch one kernel per shard; their cost is the sum over
 those launches, each counted on its own (masked) arguments.
@@ -39,6 +45,7 @@ import torch
 from repro_torch.core import simhash
 from repro_torch.core.engine import serve_shards
 from repro_torch.distributed.mesh_ctx import owned
+from repro_torch.kernels.sdim_serve.sdim_serve import cluster_body_takes
 
 
 class Cost(NamedTuple):
@@ -81,6 +88,29 @@ def encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor, *, tau: int) 
                 + B * G * (1 << tau) * d * 4)
 
 
+def _distinct(ids: torch.Tensor) -> torch.Tensor:
+    """How many distinct values >= 0 ``ids`` holds (-1: none), counted on
+    its device without waiting: sorted, each value at its first place."""
+    s = ids.reshape(-1).sort().values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    return (first & (s >= 0)).sum()
+
+
+def _selected_rows(q: torch.Tensor, R: torch.Tensor, tau: int, U: int,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (user, group, bucket) rows the candidates q (B, C, d) select,
+    each counted once; only users with ``keep`` (B,) true where given."""
+    B = q.shape[0]
+    G = R.shape[0] // tau
+    sig = simhash.signatures(q.float(), R.float(), tau).long()              # (B, C, G)
+    rows = (torch.arange(B, device=q.device)[:, None, None] * G
+            + torch.arange(G, device=q.device)) * U + sig
+    if keep is not None:
+        rows = torch.where(keep.to(q.device)[:, None, None], rows, -1)
+    return _distinct(rows)
+
+
 def query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor, *, tau: int) -> Cost:
     """``sdim_query``: q (B, C, d) fp32, table (B, G, U, d) -> (B, C, d)
     fp32. Only the (user, group, bucket) rows the candidates hash to are
@@ -90,12 +120,7 @@ def query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor, *, tau: int) ->
     table."""
     B, C, d = q.shape
     G, U = table.shape[1:3]
-    sig = simhash.signatures(q.float(), R.float(), tau).long()              # (B, C, G)
-    rows = (torch.arange(B, device=q.device)[:, None, None] * G
-            + torch.arange(G, device=q.device)) * U + sig
-    hit = torch.zeros(B * G * U, dtype=torch.bool, device=q.device)
-    hit[rows.reshape(-1)] = True
-    n = hit.sum()
+    n = _selected_rows(q, R, tau, U)
     return Cost(B * C * _hash_flops(R, tau) + n * 3 * d,
                 n * d * table.element_size() + 2 * _nbytes(q) + _nbytes(R))
 
@@ -103,10 +128,13 @@ def query(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor, *, tau: int) ->
 def serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor, *,
           tau: int) -> Cost:
     """``bse_serve``: q (B, C, d) fp32, seq (B, L, d), mask (B, L) -> (B, C, d)
-    fp32; the table of each user lives in shared memory only."""
+    fp32; the table of each user lives in shared memory only (on the
+    large-tau path only the rows the candidates select are normalized)."""
     B, C, d = q.shape
     G, valid = R.shape[0] // tau, _valid(mask)
-    return Cost((valid + B * C) * _hash_flops(R, tau) + B * G * (1 << tau) * 3 * d,
+    rows = (B * G * (1 << tau) if cluster_body_takes(G, d, tau)
+            else _selected_rows(q, R, tau, 1 << tau))
+    return Cost((valid + B * C) * _hash_flops(R, tau) + rows * 3 * d,
                 valid * d * seq.element_size() + _nbytes(mask) + 2 * _nbytes(q) + _nbytes(R))
 
 
@@ -119,9 +147,13 @@ def serve_fused(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor, R: to
     B, C, d = q.shape
     G, U = store.shape[1:3]
     n = B if present is None else (present > 0).sum()
-    row = G * U * d * store.element_size() + (0 if scales is None else G * U * 4)
+    row = d * store.element_size() + (0 if scales is None else 4)
+    if tau > 4:   # the large-tau path reads the rows present users' candidates select
+        rows = _selected_rows(q, R, tau, U, None if present is None else present > 0)
+        return Cost(n * C * _hash_flops(R, tau) + rows * 3 * d,
+                    rows * row + n * C * d * 4 + _nbytes(q) + _nbytes(R) + B * 8)
     return Cost(n * C * _hash_flops(R, tau) + n * G * U * 3 * d,
-                n * (row + C * d * 4) + _nbytes(q) + _nbytes(R) + B * 8)
+                n * (G * U * row + C * d * 4) + _nbytes(q) + _nbytes(R) + B * 8)
 
 
 def update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
@@ -131,14 +163,17 @@ def update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
     once, only valid events read and hashed."""
     G, U, d = store.shape[1:]
     valid = _valid(mask)
-    # distinct slots among the rows with a valid event: sorted, -1 for the
-    # others, each slot counted at its first place
-    s = torch.where((mask > 0).any(1), slots.long(), -1).sort().values
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[1:] = s[1:] != s[:-1]
-    touched = (first & (s >= 0)).sum()
+    if tau > 4:   # the large-tau path: the (slot, group, bucket) cells valid events reach
+        sig = simhash.signatures(events.float(), R.float(), tau).long()     # (B, E, G)
+        cells = (slots.long().to(sig.device)[:, None, None] * G
+                 + torch.arange(G, device=sig.device)) * U + sig
+        touched = _distinct(torch.where((mask > 0)[..., None], cells, -1))
+        per = d
+    else:         # distinct slots among the rows with a valid event: whole rows
+        touched = _distinct(torch.where((mask > 0).any(1), slots.long(), -1))
+        per = G * U * d
     return Cost(valid * _hash_flops(R, tau),
-                2 * touched * G * U * d * store.element_size() + valid * d * events.element_size()
+                2 * touched * per * store.element_size() + valid * d * events.element_size()
                 + _nbytes(mask) + slots.shape[0] * 4 + _nbytes(R))
 
 

@@ -12,8 +12,12 @@
 // splits the row and the candidates; rows cross the cluster once by bulk
 // copies between shared memories) are in fused_query.cuh, which
 // sdim_query.cu instantiates too. Here each CTA loads its user's slot
-// itself (the TPU's block index map).
+// itself (the TPU's block index map). tau 5..10 (32..1,024 buckets a group:
+// a user's table does not fit shared memory) launch large_tau.cuh's path
+// (sdim_fused_serve_large_tau.cu: each candidate reads, dequantizes and
+// normalizes only the G rows it selects).
 #include "fused_query.cuh"
+#include "large_tau.cuh"
 
 PHASE_READER(sdim_fused_serve_phases)
 
@@ -26,6 +30,9 @@ extern "C" int sdim_fused_serve(const void* store, int store_dtype, const float*
                                 int m, int tau, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_fused_serve_large_tau(store, store_dtype, scales, slots, present, q, R,
+                                              out, B, C, G, U, d, tau, s);
   using sdim::launch_fused_tau;
   switch (store_dtype) {
     case sdim::kF32:

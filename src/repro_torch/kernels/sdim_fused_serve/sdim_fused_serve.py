@@ -8,8 +8,11 @@ or raises. ``sdim_fused_serve.launches`` counts kernel launches. Store
 dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales. The kernel
 gives each user a thread-block cluster that splits the row and the
 candidates, so each present user's row is read from device memory once.
-The kernel has no backward (it serves): on CUDA the wrapper raises where
-autograd would record the call.
+tau 5..10 (32..1,024 buckets a group: a user's table no longer fits a
+CTA) launch the large-tau path (``csrc/sdim_fused_serve_large_tau.cu``:
+each candidate reads, dequantizes and normalizes only the G rows it
+selects; d up to 128). The kernel has no backward (it serves): on CUDA the
+wrapper raises where autograd would record the call.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU
 from repro_torch.serve.quant import is_quantized
 
 def sdim_fused_serve_ref(store: torch.Tensor, slots: torch.Tensor,
@@ -61,10 +65,12 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     code = _build.dtype_code("sdim_fused_serve", store,
                              (torch.float32, torch.bfloat16, torch.int8,
                               torch.float8_e4m3fn))
-    if not 1 <= tau <= 4 or d % 4 or G * U * d * store.element_size() % 16:
-        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..4, d a multiple of 4 "
-                         f"and a user's table of G*U*d values in whole 16-byte loads; got "
-                         f"tau {tau}, G {G}, U {U}, d {d}, {store.dtype}")
+    if (not 1 <= tau <= MAX_TAU or d % 4 or G * U * d * store.element_size() % 16
+            or tau > 4 and d > 128):
+        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..{MAX_TAU} (d up to 128 "
+                         f"above tau 4), d a multiple of 4 and a user's table of G*U*d values "
+                         f"in whole 16-byte loads; got tau {tau}, G {G}, U {U}, d {d}, "
+                         f"{store.dtype}")
     if is_quantized(store.dtype) != (scales is not None):
         raise ValueError("sdim_fused_serve: int8 and fp8 stores need scales; "
                          "other stores take none")

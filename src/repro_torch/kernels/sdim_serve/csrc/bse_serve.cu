@@ -50,10 +50,14 @@
 // to 128 and (groups per CTA) * d <= 512 (the wrapper checks). At d % 8 ==
 // 4 (dien's d = 36) bf16 rows are staged in 8-byte pieces
 // (stage_rows_async), and the two threads of a hash split nine float4
-// columns four and five.
+// columns four and five. tau 5..10, and groups beyond this body's reach
+// (tau = 1 at m = 48: 6 groups a CTA), launch large_tau.cuh's path
+// (bse_serve_large_tau.cu: only the buckets the candidates select are
+// summed).
 #include <cooperative_groups.h>
 
 #include "tile_staging.cuh"
+#include "large_tau.cuh"
 
 namespace sdim {
 
@@ -336,6 +340,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Whether this body takes the shape: tau <= 4 and each CTA's groups within
+// its kMaxCells * kThreads (group, float4 column) sums (gmax * d <= 512).
+inline bool serve_body_takes(int G, int d, int tau) {
+  const int S = min(kMaxCluster, G), gmax = (G + S - 1) / S;
+  return tau <= 4 && gmax * d <= kMaxCells * kThreads;
+}
+
 template <typename T, int TAU>
 static cudaError_t launch(const float* q, const void* seq, const float* mask, const float* R,
                           float* out, int B, int L, int C, int G, int d, cudaStream_t stream) {
@@ -363,12 +374,17 @@ static cudaError_t launch_tau(const float* q, const void* seq, const float* mask
 }  // namespace sdim
 
 // q (B, C, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d) fp32
-// -> out (B, C, d) fp32.
+// -> out (B, C, d) fp32; work: the large-tau path's scratch
+// (serve_large_tau_work_floats in sdim_serve.py), null where this body
+// takes the shape.
 extern "C" int sdim_bse_serve(const float* q, const void* seq, int seq_dtype, const float* mask,
-                              const float* R, float* out, int B, int L, int C, int G, int U, int d,
-                              int m, int tau, void* stream) {
+                              const float* R, float* out, float* work, int B, int L, int C, int G,
+                              int U, int d, int m, int tau, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (!sdim::serve_body_takes(G, d, tau))  // large_tau.cuh
+    return sdim::launch_serve_large_tau(q, seq, seq_dtype, mask, R, out, work, B, L, C, G, U, d,
+                                        tau, s);
   switch (seq_dtype) {
     case sdim::kF32:
       return sdim::launch_tau<float>(q, seq, mask, R, out, B, L, C, G, d, tau, s);

@@ -5,9 +5,14 @@ Wrapper of the CUDA kernel ``csrc/bse_serve.cu`` (which replaces the Pallas
 kernel ``repro/kernels/sdim_serve/sdim_serve.py:68``) and its plain PyTorch
 version ``bse_serve_ref``. The wrapper runs the plain version for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
-``bse_serve.launches`` counts kernel launches. The kernel has no backward
-(it serves): on CUDA the wrapper raises where autograd would record the
-call.
+``bse_serve.launches`` counts kernel launches. Where the kernel's cluster
+body cannot hold the table (tau 5..10, or more groups than its eight CTAs
+spread: tau = 1 at m = 48) the C entry point launches the large-tau path
+(``csrc/bse_serve_large_tau.cu``: only the buckets the candidates select
+are summed, into a scratch of ``serve_large_tau_work_floats`` floats the
+wrapper allocates, and read back in a second kernel). The kernel has no
+backward (it serves): on CUDA the wrapper raises where autograd would
+record the call.
 """
 from __future__ import annotations
 
@@ -15,6 +20,23 @@ import torch
 
 from repro_torch.core import sdim
 from repro_torch.kernels import _build
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU
+
+MAX_CLUSTER = 8           # bse_serve.cu kMaxCluster: CTAs a user, each a slice of the groups
+MAX_GROUP_COLUMNS = 512   # bse_serve.cu kMaxCells * kThreads: (group, column) sums a CTA
+
+
+def cluster_body_takes(G: int, d: int, tau: int) -> bool:
+    """Whether ``bse_serve.cu``'s cluster body takes the shape (tau <= 4 and
+    each CTA's groups within its registers); else the large-tau path runs."""
+    return tau <= 4 and -(-G // min(MAX_CLUSTER, G)) * d <= MAX_GROUP_COLUMNS
+
+
+def serve_large_tau_work_floats(B: int, C: int, G: int, U: int, d: int) -> int:
+    """Scratch of the large-tau path: the selected rows of each (user,
+    group), min(U, C) of d, then each group's bitmap words and their prefix
+    sums (2 * ceil(U / 32) int32)."""
+    return B * G * (min(U, C) * d + 2 * (-(-U // 32)))
 
 
 def bse_serve_ref(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
@@ -39,10 +61,9 @@ def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"bse_serve: shapes q {tuple(q.shape)} seq {tuple(seq.shape)} "
                          f"mask {tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= 4 or d % 4 or d > 128 or -(-G // min(8, G)) * d > 512:
-        raise ValueError(f"bse_serve: the kernel takes tau 1..4, d a multiple of 4 up "
-                         f"to 128 and ceil(G / min(8, G)) * d <= 512; got tau {tau}, "
-                         f"d {d}, G {G}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128:
+        raise ValueError(f"bse_serve: the kernel takes tau 1..{MAX_TAU} and d a multiple "
+                         f"of 4 up to 128; got tau {tau}, d {d}, G {G}")
     code = _build.dtype_code("bse_serve", seq, (torch.float32, torch.bfloat16))
     for name, t in (("q", q), ("mask", mask), ("R", R)):
         if t.dtype != torch.float32:
@@ -52,11 +73,14 @@ def bse_serve(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
+    work = (None if cluster_body_takes(G, d, tau) else
+            torch.empty(serve_large_tau_work_floats(B, C, G, U, d), dtype=torch.float32,
+                        device=dev))
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_bse_serve(q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
-                                 R.data_ptr(), out.data_ptr(), B, L, C, G, U, d, m, tau,
-                                 _build.stream(dev))
+                                 R.data_ptr(), out.data_ptr(), _build.ptr(work), B, L, C, G,
+                                 U, d, m, tau, _build.stream(dev))
     _build.check(err, "bse_serve")
     bse_serve.launches += 1
     return out

@@ -62,8 +62,12 @@
 //   nothing, and an untouched cell keeps its bits (-0.0 included).
 // Takes tau 1..4, d a multiple of 4 up to 128 and ceil(G/S) * 2^tau <=
 // kItems * (kThreads / (d/4)) cells a CTA, events fp32 or bf16 and 16-byte
-// aligned operands (the wrapper checks); E of any size.
+// aligned operands (the wrapper checks); E of any size. tau 5..10 (32..1,024
+// buckets a group) launch large_tau.cuh's path (sdim_update_large_tau.cu:
+// a CTA a (batch row, group) reads and writes only the cells its events
+// reach).
 #include "tile_staging.cuh"
+#include "large_tau.cuh"
 
 namespace sdim {
 
@@ -466,13 +470,17 @@ static cudaError_t launch_tau(float* store, const int* slots, const void* events
 PHASE_READER(sdim_update_phases)
 
 // store (N, G*U, d) fp32 updated in place; slots (B,) int32 in [0, N);
-// events (B, E, d) fp32|bf16; mask (B, E) fp32; R (m, d) fp32; S group
-// slices per batch row.
+// events (B, E, d) fp32|bf16; mask (B, E) fp32; R (m, d) fp32; work (B, E,
+// G) int32 scratch of the tau > 4 path (null below); S group slices per
+// batch row (tau <= 4).
 extern "C" int sdim_update(float* store, const int* slots, const void* events, int ev_dtype,
-                           const float* mask, const float* R, int B, int E, int G, int U, int d,
-                           int m, int tau, int S, void* stream) {
+                           const float* mask, const float* R, void* work, int B, int E, int G,
+                           int U, int d, int m, int tau, int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
+  if (tau > 4)  // large_tau.cuh
+    return sdim::launch_update_large_tau(store, slots, events, ev_dtype, mask, R,
+                                         static_cast<int*>(work), B, E, G, U, d, tau, s);
   switch (ev_dtype) {
     case sdim::kF32:
       return sdim::launch_tau<float>(store, slots, events, mask, R, B, E, G, d, tau, S, s);

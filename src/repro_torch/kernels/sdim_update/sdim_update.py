@@ -11,7 +11,11 @@ tensors only; for CUDA tensors it launches the kernel or raises.
 batch row's signature groups over ``update_splits`` CTAs; the first batch
 row of each slot owns it and folds every batch row of that slot in b order,
 so no two CTAs write one element (no atomics) and two launches agree bit
-for bit. The kernel has no backward (it ingests): on CUDA the wrapper
+for bit. tau 5..10 (32..1,024 buckets a group) launch the large-tau path
+(``csrc/sdim_update_large_tau.cu``: a CTA a (batch row, group) reads and
+writes only the cells its slot's events reach, with the same contracts),
+which takes a scratch of the events' buckets (B, E, G) int32 from the
+wrapper. The kernel has no backward (it ingests): on CUDA the wrapper
 raises where autograd would record the call.
 """
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, bse_encode_ref
 
 ITEMS = 2           # (cell, float4 column) sums a thread holds (sdim_update.cu kItems)
 THREADS = 256       # threads a CTA (sdim_common.cuh kThreads)
@@ -63,7 +67,8 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
                      mask: torch.Tensor, R: torch.Tensor, tau: int,
                      splits: Optional[int] = None) -> torch.Tensor:
     """The kernel launch of ``sdim_update`` with ``splits`` signature-group
-    slices per batch row (None: ``update_splits`` for this device)."""
+    slices per batch row (None: ``update_splits`` for this device; tau <= 4
+    only, the large-tau path gives each group a CTA)."""
     _build.refuse_grad("sdim_update", store, events, mask, R)
     N, G, U, d = store.shape
     B, E, _ = events.shape
@@ -74,9 +79,9 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise ValueError(f"sdim_update: shapes store {tuple(store.shape)} "
                          f"events {tuple(events.shape)} slots "
                          f"{tuple(slots.shape)} mask {tuple(mask.shape)}")
-    if not 1 <= tau <= 4 or d % 4 or not 4 <= d <= 128:
-        raise ValueError(f"sdim_update: the kernel takes tau 1..4 and d a multiple of 4 "
-                         f"up to 128; got tau {tau}, d {d}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or not 4 <= d <= 128:
+        raise ValueError(f"sdim_update: the kernel takes tau 1..{MAX_TAU} and d a multiple "
+                         f"of 4 up to 128; got tau {tau}, d {d}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:
         raise TypeError("sdim_update: the store must be float32")
@@ -86,9 +91,17 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise TypeError("sdim_update: mask and R must be float32")
     dev = _build.require_cuda("sdim_update", store, slots, events, mask, R)
     _build.require_aligned("sdim_update", store, events, R)
-    if splits is None:
+    work = None
+    if tau > 4:
+        if splits is not None:
+            raise ValueError("sdim_update: group slices are the tau <= 4 kernel's; the "
+                             "large-tau path gives each (batch row, group) a CTA")
+        splits = 1
+        if B and E:
+            work = torch.empty(B * E * G, dtype=torch.int32, device=dev)
+    elif splits is None:
         splits = update_splits(B, G, U, d, _build.sm_count(dev))
-    if not 1 <= splits <= G or -(-G // splits) * U > update_cells(d):
+    if tau <= 4 and (not 1 <= splits <= G or -(-G // splits) * U > update_cells(d)):
         raise ValueError(f"sdim_update: {splits} group slices of G = {G} groups; the kernel "
                          f"takes 1..G slices of at most {update_cells(d)} cells at d = {d}")
     if B == 0 or E == 0:
@@ -97,8 +110,8 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
     with _build.on_device(dev):
         err = lib.sdim_update(store.data_ptr(), slots.data_ptr(),
                               events.data_ptr(), code, mask.data_ptr(),
-                              R.data_ptr(), B, E, G, U, d, m, tau, splits,
-                              _build.stream(dev))
+                              R.data_ptr(), _build.ptr(work), B, E, G, U, d, m, tau,
+                              splits, _build.stream(dev))
     _build.check(err, "sdim_update")
     sdim_update.launches += 1
     return store

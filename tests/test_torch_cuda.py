@@ -147,6 +147,124 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
         assert not table[-1].any() and not dseq[-1].any()
 
 
+# bse_serve's large-tau path also takes tau <= 4 where its cluster body
+# cannot hold the groups: Table 4's tau = 1 row (m = 48, G = 48)
+WIDE_G_SHAPES = [(4, 1024, 128, 128, 48, 1), (3, 100, 20, 36, 48, 1)]
+
+
+def _store_case(shape, store_dtype, dev, seed):
+    """A store of 2B + 1 random rows (slot 0 zero: a fully masked user's
+    table) in ``store_dtype`` with its scales, slots with the last user on
+    slot 0, and every other user absent."""
+    B, L, C, d, m, tau = shape
+    rng = np.random.default_rng(seed)
+    N = 2 * B + 1
+    rows = torch.from_numpy(rng.standard_normal((N, m // tau, 1 << tau, d)).astype(
+        np.float32)).to(dev)
+    rows[0] = 0
+    scales = None
+    if store_dtype in ("int8", "fp8"):
+        store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[store_dtype])
+    else:
+        store = rows.to(torch.bfloat16 if store_dtype == "bf16" else torch.float32)
+    slots = torch.tensor(rng.integers(0, N, B), dtype=torch.int32, device=dev)
+    slots[-1] = 0
+    present = torch.ones(B, device=dev)
+    present[::2] = 0
+    return store, scales, slots, present
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LARGE_TAU_SHAPES + WIDE_G_SHAPES)
+def test_large_tau_bse_serve(shape, dtype, layout, dev):
+    """tau 5..10, and tau = 1 at G = 48: bse_serve's large-tau path against
+    its plain version on ragged masks; candidates half drawn from the users'
+    own behaviors, so most select a nonempty bucket; the same bits on two
+    launches; a fully masked user reads zero; C = 0 launches nothing."""
+    B, L, C, d, m, tau = shape
+    seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=30 + tau)
+    mask = _layout(mask, layout, rng)
+    own = torch.from_numpy(rng.integers(0, L, (B, C // 2))).to(dev)
+    q[:, :C // 2] = torch.gather(seq.float(), 1, own[..., None].expand(-1, -1, d))
+    before = bse_serve.launches
+    out = bse_serve(q, seq, mask, R, tau)
+    torch.testing.assert_close(out, bse_serve_ref(q, seq, mask, R, tau), **FP32)
+    assert torch.equal(out, bse_serve(q, seq, mask, R, tau))
+    torch.cuda.synchronize()
+    assert bse_serve.launches == before + 2
+    if B > 1:
+        assert not out[-1].any()
+    empty = bse_serve(q[:, :0].contiguous(), seq, mask, R, tau)
+    assert empty.shape == (B, 0, d) and bse_serve.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", LARGE_TAU_SHAPES)
+def test_large_tau_sdim_fused_serve(shape, store_dtype, dev):
+    """tau 5..10: the fused read off fp32, bf16, int8 and fp8 stores (at d =
+    36 int8 and fp8 rows are 36 bytes: 4-byte loads) against its plain
+    version; absent users and the zero row read zero; the same bits twice."""
+    B, L, C, d, m, tau = shape
+    _, q, _, R, _ = _inputs(shape, dev, seed=40 + tau)
+    store, scales, slots, present = _store_case(shape, store_dtype, dev, seed=tau)
+    before = sdim_fused_serve.launches
+    run = lambda: sdim_fused_serve(store, slots, q, R, tau, scales=scales, present=present)
+    out = run()
+    ref = sdim_fused_serve_ref(store, slots, q, R, tau, scales=scales, present=present)
+    torch.testing.assert_close(out, ref, **FP32)
+    assert torch.equal(out, run())
+    torch.cuda.synchronize()
+    assert sdim_fused_serve.launches == before + 2
+    assert not out[::2].any() and not out[-1].any()
+    on_rows = (present > 0) & (slots != 0)                  # present users on random rows
+    assert out[on_rows].abs().sum(-1).gt(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dups", "two-slots"])
+@pytest.mark.parametrize("E", [1, 5, 16, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LARGE_TAU_SHAPES)
+def test_large_tau_sdim_update(shape, dtype, E, case, dev):
+    """tau 5..10: duplicate slots fold in b order (one owner a slot), a
+    zero-mask row writes nothing, only reached cells are written (-0.0
+    elsewhere keeps its bits); the same bits on two launches; E = 0 leaves
+    the store as it was."""
+    store, slots, events, mask, R = _update_case(shape, case, dev, dtype, E, seed=50)
+    tau = shape[-1]
+    a, b, c = store.clone(), store.clone(), store.clone()
+    before = sdim_update.launches
+    assert sdim_update(a, slots, events, mask, R, tau) is a
+    sdim_update(c, slots, events, mask, R, tau)
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    torch.cuda.synchronize()
+    assert sdim_update.launches == before + 2
+    _check_update(store, a, b, slots, events, mask, R)
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    if case == "dups":                                       # only row 0 aims at slot 0
+        assert torch.equal(a[0].view(torch.int32), store[0].view(torch.int32))
+    d = store.clone()
+    sdim_update(d, slots, events[:, :0].contiguous(), mask[:, :0].contiguous(), R, tau)
+    assert torch.equal(d.view(torch.int32), store.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_large_tau_sdim_update_many_rows(dev):
+    """B = 1200 batch rows on 40 slots at tau = 7: each owner lists its rows
+    over five windows of 256, and a later window starts from the cells the
+    earlier one wrote."""
+    shape = (600, 16, 8, 36, 21, 7)
+    store, slots, events, mask, R = _update_case(shape, "dups", dev)
+    slots = slots % 40
+    a, b = store.clone(), store.clone()
+    sdim_update(a, slots, events, mask, R, 7)
+    sdim_update_ref(b, slots, events, mask, R, 7)
+    _check_update(store, a, b, slots, events, mask, R)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
@@ -413,11 +531,13 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """bse_encode takes tau 1..10, d a multiple of 4 up to 128 (one float4
     column a lane) and L up to MAX_L (its batch list lives in shared
-    memory); sdim_fused_serve takes tau 1..4 and sdim_query tau 1..10 (d up
+    memory); sdim_fused_serve and sdim_query take tau 1..10 (d up
     to 128 above tau 4), a user's table in whole 16-byte loads and 16-byte
     aligned operands; sdim_update takes
-    tau 1..4, d a multiple of 4 up to 128, 1..G group slices that keep a
-    CTA at update_cells(d) cells, and 16-byte aligned operands."""
+    tau 1..10, d a multiple of 4 up to 128, at tau <= 4 1..G group slices
+    that keep a CTA at update_cells(d) cells (above, none), and 16-byte
+    aligned operands; sdim_fused_serve and bse_serve take tau 1..10, d up to
+    128 above tau 4."""
     seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
     with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
         bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
@@ -464,9 +584,25 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
         sdim_update(torch.zeros((4, 4, 4, 136), device=dev), slots,
                     torch.zeros((2, 3, 136), device=dev), ev_mask, R[:8].contiguous(), 2)
-    with pytest.raises(ValueError, match="tau 1..4"):
-        sdim_update(torch.zeros((4, 2, 32, 8), device=dev), slots, ev, ev_mask,
-                    R[:10, :8].contiguous(), 5)
+    with pytest.raises(ValueError, match="tau 1..10"):
+        sdim_update(torch.zeros((4, 1, 2048, 8), device=dev), slots, ev, ev_mask,
+                    torch.zeros((11, 8), device=dev), 11)
+    with pytest.raises(ValueError, match="group slices"):  # the large-tau path takes none
+        sdim_update_cuda(torch.zeros((4, 2, 32, 8), device=dev), slots, ev, ev_mask,
+                         R[:10, :8].contiguous(), 5, 1)
+    # sdim_fused_serve and bse_serve: tau 11; d = 136 at tau 5
+    with pytest.raises(ValueError, match="tau 1..10"):
+        sdim_fused_serve(torch.zeros((3, 1, 2048, 8), device=dev), slots, q8,
+                         torch.zeros((11, 8), device=dev), 11)
+    with pytest.raises(ValueError, match="d up to 128 above tau 4"):
+        sdim_fused_serve(torch.zeros((3, 1, 32, 136), device=dev), slots,
+                         q[:2, :, :136].contiguous(), R[:5, :136].contiguous(), 5)
+    with pytest.raises(ValueError, match="tau 1..10"):
+        bse_serve(q8, torch.zeros((2, 64, 8), device=dev), mask, torch.zeros((11, 8), device=dev),
+                  11)
+    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
+        bse_serve(q[:2, :, :136].contiguous(), seq[:2, :, :136].contiguous(), mask,
+                  R[:5, :136].contiguous(), 5)
     for splits in (0, 5):
         with pytest.raises(ValueError, match="group slices"):
             sdim_update_cuda(store8, slots, ev, ev_mask, R[:8, :8].contiguous(), 2, splits)

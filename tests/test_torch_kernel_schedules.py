@@ -58,7 +58,17 @@ run here; this pins the algebra they implement.
   gathers a row's G rows of dT in group order; sdim_query sums each
   candidate's G selected rows, each over its own norm, in g order, then
   / G; its backward gives CTA (b, g, j) 64 rows of group g and adds
-  dout / G of the candidates that select a row in c order.
+  dout / G of the candidates that select a row in c order; sdim_update
+  gives CTA (b, g) group g of its slot (first batch row its owner), lists
+  the cells the owned rows' weighted events reach in u order, and folds
+  each from the stored cell, row by row in b order, events in e order;
+  sdim_fused_serve sums each candidate's G selected rows of its slot, each
+  scaled by its own scale and over its own norm, in g order, then / G *
+  present; bse_serve ranks the buckets a user's candidates select in each
+  group (u order), sums only the rows of nonzero weight landing in them,
+  in l order, a chunk of ranks a CTA, then each candidate reads its G
+  ranked rows, each over its norm, in g order, then / G (also at tau = 1,
+  G = 48).
 
 Each kernel is also emulated at dien's behavior width d = 36 (the
 ``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
@@ -1008,3 +1018,180 @@ def test_large_tau_schedules_match_jax(shape, layout):
     np.testing.assert_allclose(dseq, jdseq, **FP32)
     if B > 1:
         assert not table[-1].any() and not dseq[-1].any()
+
+
+# the three serving paths at tau 5..10 (sdim_update_large_tau.cu,
+# sdim_fused_serve_large_tau.cu, bse_serve_large_tau.cu)
+LT_UPDATE_ROWS = 256         # sdim_update_large_tau.cu kUpdateRows (a window)
+LT_SERVE_SLICE_BYTES = 64 * 1024   # bse_serve_large_tau.cu kServeSliceBytes
+
+
+def update_large_tau_schedule(store, slots, events, mask, R, tau):
+    """sdim_update_large_tau.cu in numpy fp32: CTA (b, g) exits unless b is
+    its slot's first batch row; per window of 256 batch rows it lists the
+    owned rows in b order, hashes their events for group g (-1 at weight 0),
+    lists the reached buckets in u order, and folds each reached cell: from
+    the stored cell, each owned row's events of the cell summed in e order,
+    the row's sum added to the running total, the cell written once a
+    window. Returns the store and the write counts."""
+    N, G, U, d = store.shape
+    B, E, _ = events.shape
+    Rg = R.reshape(G, tau, d)
+    out = store.copy()
+    writes = np.zeros((N, G, U), np.int64)
+    for b in range(B):
+        slot = slots[b]
+        if (slots[:b] == slot).any():
+            continue
+        for g in range(G):
+            for p in range(b, B, LT_UPDATE_ROWS):
+                owned = [i for i in range(p, min(B, p + LT_UPDATE_ROWS)) if slots[i] == slot]
+                if not owned:
+                    continue
+                x = events[owned].astype(np.float32)                     # (n, E, d)
+                sig = _signatures(x.reshape(-1, d), Rg[g:g + 1], tau)[:, 0].reshape(len(owned), E)
+                sig = np.where(mask[owned] != 0, sig, -1)
+                for u in np.unique(sig[sig >= 0]):                       # u order
+                    acc = out[slot, g, u].copy()
+                    for s in range(len(owned)):                          # b order
+                        delta = np.zeros(d, np.float32)
+                        for e in np.flatnonzero(sig[s] == u):            # e order
+                            delta = delta + mask[owned[s], e] * x[s, e]
+                        acc = acc + delta
+                    out[slot, g, u] = acc
+                    writes[slot, g, u] += 1
+    return out, writes
+
+
+def fused_serve_large_tau_schedule(store, scales, slots, present, q, R, tau):
+    """sdim_fused_serve_large_tau.cu in numpy fp32: each candidate, for each
+    group in order, reads the row it selects of its user's slot, scales it
+    by the row's own scale, divides it by its norm and adds it; then / G *
+    present. An absent user reads no row."""
+    B, C, d = q.shape
+    G = R.shape[0] // tau
+    sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
+    out = np.zeros((B, C, d), np.float32)
+    for b in range(B):
+        if present[b] == 0:
+            continue
+        acc = np.zeros((C, d), np.float32)
+        for g in range(G):
+            rows = store[slots[b], g, sig[b, :, g]].astype(np.float32)     # (C, d)
+            if scales is not None:
+                rows = rows * scales[slots[b], g, sig[b, :, g]][:, None]
+            n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
+            acc = acc + rows / n
+        out[b] = acc / np.float32(G) * present[b]
+    return out
+
+
+def serve_large_tau_schedule(q, seq, mask, R, tau, K=None):
+    """bse_serve_large_tau.cu in numpy fp32. Kernel 1: CTA (b, g, j) ranks
+    the buckets user b's candidates select in group g (u order), owns ranks
+    [jK, (j+1)K), and adds the rows of nonzero weight in those buckets in l
+    order; the rows go to a scratch by rank. Kernel 2: each candidate, for
+    each group in order, reads the row of its bucket's rank, divides it by
+    its norm and adds it; then / G. ``K`` None: the kernel's (min(U, C)
+    within 64 KB of d floats). Returns the output and each scratch row's
+    write count."""
+    B, C, d = q.shape
+    L = seq.shape[1]
+    G, U = R.shape[0] // tau, 1 << tau
+    Rg = R.reshape(G, tau, d)
+    every = min(U, C)
+    K = K or min(every, LT_SERVE_SLICE_BYTES // (4 * d))
+    qsig = _signatures(q.reshape(B * C, d), Rg, tau).reshape(B, C, G)
+    ssig = _signatures(seq.reshape(B * L, d), Rg, tau).reshape(B, L, G)
+    tab = np.full((B, G, every, d), np.nan, np.float32)
+    writes = np.zeros((B, G, every), np.int64)
+    for b in range(B):
+        for g in range(G):
+            selected = np.unique(qsig[b, :, g])                          # u order = rank order
+            rank = {u: k for k, u in enumerate(selected)}
+            for j in range(-(-every // K)):
+                lo, hi = j * K, min(len(selected), (j + 1) * K)
+                if lo >= hi:
+                    continue
+                rows = np.zeros((hi - lo, d), np.float32)
+                for l in range(L):                                       # l order
+                    k = rank.get(ssig[b, l, g], -1)
+                    if mask[b, l] != 0 and lo <= k < hi:
+                        rows[k - lo] = rows[k - lo] + mask[b, l] * seq[b, l].astype(np.float32)
+                tab[b, g, lo:hi] = rows
+                writes[b, g, lo:hi] += 1
+    out = np.zeros((B, C, d), np.float32)
+    for g in range(G):                                                   # g order
+        ranks = np.array([[np.searchsorted(np.unique(qsig[b, :, g]), qsig[b, c, g])
+                           for c in range(C)] for b in range(B)])
+        rows = tab[np.arange(B)[:, None], g, ranks]                     # (B, C, d)
+        n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
+        out = out + rows / n
+    return out / np.float32(G), writes
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", [
+    (3, 40, 8, 32, 10, 5, None),     # U = 32, one chunk of min(U, C) = 8 ranks
+    (3, 90, 40, 16, 20, 10, 16),     # tau = 10: chunks of 16 ranks over 40 candidates
+    (3, 50, 12, 36, 14, 7, 5),       # dien's width d = 36, ragged chunks of 5
+    (2, 60, 20, 128, 48, 1, None),   # tau = 1 at G = 48 (the cluster body's reach)
+    (3, 1100, 6, 16, 12, 6, None),   # two passes of behavior rows
+], ids=["U32", "tau10-chunks", "d36-chunks", "tau1-G48", "two-passes"])
+def test_large_tau_serving_schedules_match_jax(shape, layout):
+    """bse_serve, sdim_fused_serve and sdim_update at tau 5..10 (bse_serve
+    also at tau = 1, G = 48) against the JAX package (its SDIM attention,
+    its fused-serve and update oracles and the Pallas update in interpret
+    mode): half the candidates are users' own valid behaviors, so outputs
+    are not all zero; every scratch row and store cell is written once; a
+    fully masked user and an absent one read zero."""
+    B, L, C, d, m, tau, K = shape
+    G, U = m // tau, 1 << tau
+    rng = np.random.default_rng(29 + tau)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    mask = _mask(rng, B, L, layout)
+    for b in range(B - 1):
+        q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
+    out, writes = serve_large_tau_schedule(q, seq, mask, R, tau, K)
+    ref = np.asarray(jsdim_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask),
+                                     jnp.asarray(R), tau))
+    np.testing.assert_allclose(out, ref, **FP32)
+    selected = [len(np.unique(_signatures(q[b], R.reshape(G, tau, d), tau)[:, g]))
+                for b in range(B) for g in range(G)]
+    assert writes.sum() == sum(selected) and writes.max() == 1
+    assert not out[-1].any() and np.abs(out[:-1]).sum(-1).astype(bool).mean() >= 0.5
+    if tau == 1:
+        return
+    N = 2 * B + 1                                 # the fused read of encoded users
+    store = rng.standard_normal((N, G, U, d)).astype(np.float32)
+    slots = rng.permutation(np.arange(1, N))[:B].astype(np.int32)
+    store[slots] = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask),
+                                              jnp.asarray(R), tau))
+    present = np.ones(B, np.float32)
+    present[0] = 0.0
+    jstore, jscales = jquant.quantize_rows(jnp.asarray(store), dtype=jnp.int8)
+    for st, sc in ((store, None), (np.asarray(jstore).astype(np.float32), np.asarray(jscales))):
+        fused = fused_serve_large_tau_schedule(st, sc, slots, present, q, R, tau)
+        fref = np.asarray(jsdim_fused_serve_ref(
+            jstore if sc is not None else jnp.asarray(st), jnp.asarray(slots), jnp.asarray(q),
+            jnp.asarray(R), tau, scales=None if sc is None else jscales,
+            present=jnp.asarray(present)))
+        np.testing.assert_allclose(fused, fref, **FP32)
+        assert not fused[0].any() and not fused[-1].any()
+        assert np.abs(fused[1:-1]).sum(-1).astype(bool).mean() >= 0.5
+    E = 5                                         # the event fold into those rows
+    events = screened_normal(rng, (2 * B, E, d), R)
+    ev_mask = (rng.random((2 * B, E)) > 0.25).astype(np.float32)
+    ev_slots = np.r_[slots, slots[::-1]].astype(np.int32)   # every slot twice
+    ev_mask[0] = 0.0                              # a zero-mask row
+    folded, fw = update_large_tau_schedule(store, ev_slots, events, ev_mask, R, tau)
+    args = (jnp.asarray(store), jnp.asarray(ev_slots), jnp.asarray(events),
+            jnp.asarray(ev_mask), jnp.asarray(R), tau)
+    np.testing.assert_allclose(folded, np.asarray(jsdim_update_ref(*args)), **FP32)
+    np.testing.assert_allclose(folded, np.asarray(jsdim_update(*args, interpret=True)), **FP32)
+    assert fw.max() == 1
+    untouched = np.repeat((fw == 0)[..., None], d, -1)
+    np.testing.assert_array_equal(folded.view(np.uint32)[untouched],
+                                  store.view(np.uint32)[untouched])
