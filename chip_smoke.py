@@ -409,7 +409,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    = 45 and tau 10 at m = 40; bse_serve also at tau = 1, m = 48, past its
    cluster body) and at d = 36, uncounted: event-timed ms of kernel and
    plain version, device ms (d = 128) and the bound of
-   ``kernels/cost.py``'s counts. (b)
+   ``kernels/cost.py``'s counts; then the large-tau paths of
+   ``bse_encode``, ``sdim_query`` and both backward kernels at Table 4's
+   training shape (B = 128, L = 256, d = 32, C = 1, tau 5 and 10) the
+   same way, device ms included. (b)
    ``sdim-paper`` FULL with its interest at tau 5 and 10
    (``dataclasses.replace``, as ``bench/table4_tau.py``; the item rows the
    traffic hashes screened), 64 users x 128 candidates (half of them the
@@ -454,8 +457,9 @@ path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
 as ``mesh``, phase 18 as ``dryrun`` and ``examples``, phase 19 as
-``bench``, phase 20 as ``large_tau``; sdim_update, sdim_fused_serve and
-bse_serve carry phase 20 (a)'s figures as ``large_tau``), then as the
+``bench``, phase 20 as ``large_tau``; sdim_update, sdim_fused_serve,
+bse_serve, bse_encode, sdim_query and both SDIM backward kernels carry
+phase 20 (a)'s figures as ``large_tau``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -4547,6 +4551,27 @@ def bench_table5(torch, dev) -> dict:
     return figures
 
 
+def training_costs(seq, mask, q, table, R, tau) -> dict:
+    """The bytes and operations of the four training kernels at one
+    training step's shapes (kernels/cost.py's for bse_encode and
+    sdim_query; the backward kernels: each valid row gathers G rows of dT,
+    the query backward reads and writes the whole table)."""
+    from repro_torch.kernels import cost
+
+    B, L, d = seq.shape
+    m = R.shape[0]
+    G, U = m // tau, 1 << tau
+    hash_flops = 2 * m * d + G * d
+    valid, bwd_bytes = float(mask.sum()), 4 * (2 * B * G * U * d + 2 * B * d + m * d)
+    return {"bse_encode": cost.settle(cost.encode(seq, mask, R, tau=tau)),
+            "sdim_query": cost.settle(cost.query(q, table, R, tau=tau)),
+            "sdim_query_backward": cost.Cost(B * hash_flops + 8.0 * B * G * U * d,
+                                             float(bwd_bytes)),
+            "bse_encode_backward": cost.Cost(valid * (hash_flops + G * d),
+                                             4 * (valid * (G + 1) * d + B * L * (d + 1)
+                                                  + m * d))}
+
+
 def bench_kernel_checks(torch, dev) -> dict:
     """19 (d): each kernel the phase runs, at the phase's own shapes, against
     its plain version on margin-screened inputs (uncounted): Table 5's
@@ -4566,7 +4591,6 @@ def bench_kernel_checks(torch, dev) -> dict:
     3). At Table 4's tau 3, 5 and 10 it also times the four kernels and
     their plain versions (CUDA events, median of 10) beside the bound of
     their bytes and operations. Returns the max abs errors."""
-    from repro_torch.kernels import cost
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode, bse_encode_backward,
                                                              bse_encode_backward_ref,
@@ -4665,19 +4689,15 @@ def bench_kernel_checks(torch, dev) -> dict:
                   bse_encode_backward_ref(dT, seq, mask, Rt, tau), FP32)
             if not time_it:
                 return
-            G, U, d, hash_flops = m // tau, 1 << tau, 32, 2 * m * 32 + (m // tau) * 32
-            valid, bwd_bytes = float(mask.sum()), 4 * (2 * B * G * U * d + 2 * B * d + m * d)
-            timed(f"bse_encode {label}", bse_encode, bse_encode_ref,
-                  cost.settle(cost.encode(seq, mask, Rt, tau=tau)), (seq, mask, Rt, tau))
-            timed(f"sdim_query {label}", sdim_query, sdim_query_ref,
-                  cost.settle(cost.query(q, table, Rt, tau=tau)), (q, table, Rt, tau))
-            timed(f"sdim_query_backward {label}", sdim_query_backward, sdim_query_backward_ref,
-                  cost.Cost(B * hash_flops + 8.0 * B * G * U * d, float(bwd_bytes)),
-                  (dout, q, table, Rt, tau))
-            timed(f"bse_encode_backward {label}", bse_encode_backward, bse_encode_backward_ref,
-                  cost.Cost(valid * (hash_flops + G * d),
-                            4 * (valid * (G + 1) * d + B * L * (d + 1) + m * d)),
-                  (dT, seq, mask, Rt, tau))
+            costs = training_costs(seq, mask, q, table, Rt, tau)
+            for name, kernel, plain, args in (
+                    ("bse_encode", bse_encode, bse_encode_ref, (seq, mask, Rt, tau)),
+                    ("sdim_query", sdim_query, sdim_query_ref, (q, table, Rt, tau)),
+                    ("sdim_query_backward", sdim_query_backward, sdim_query_backward_ref,
+                     (dout, q, table, Rt, tau)),
+                    ("bse_encode_backward", bse_encode_backward, bse_encode_backward_ref,
+                     (dT, seq, mask, Rt, tau))):
+                timed(f"{name} {label}", kernel, plain, costs[name], args)
 
         times = {}
         for tau in (1, 2, 3, 5, 10):
@@ -4754,26 +4774,35 @@ class PlainDispatch:
 def large_tau_kernel_checks(torch, dev) -> dict:
     """20 (a): the three large-tau serving paths against their plain
     versions at the slice's shapes, the same bits twice, timed beside their
-    plain versions and bounds (uncounted). Returns each kernel's figures
-    by shape."""
+    plain versions and bounds; then the four large-tau training kernels
+    (bse_encode, sdim_query and both backward kernels) at Table 4's
+    training shape, checked and timed the same way on the device
+    (uncounted). Returns each kernel's figures by shape."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.screen import screened_normal
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode, bse_encode_backward,
+                                                             bse_encode_backward_ref,
+                                                             bse_encode_ref)
     from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
                                                                        sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import (sdim_query, sdim_query_backward,
+                                                           sdim_query_backward_ref,
+                                                           sdim_query_ref)
     from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
     from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
     from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
 
     rng = np.random.default_rng(20)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    figures = {"sdim_update": {}, "sdim_fused_serve": {}, "bse_serve": {}}
+    figures = {"sdim_update": {}, "sdim_fused_serve": {}, "bse_serve": {}, "bse_encode": {},
+               "sdim_query": {}, "sdim_query_backward": {}, "bse_encode_backward": {}}
 
-    def record(name, label, kernel, plain, out, ref, c, timed, bits=None):
-        """out against ref, the same bits from two calls of ``bits`` (else
-        ``kernel``); with ``timed``, kernel and plain timed beside the bound
-        of cost ``c`` ("device": with their device times too)."""
-        err = check_close(f"large_tau (a) {name} {label}", out, ref, **FP32)
+    def record(name, label, kernel, plain, out, ref, c, timed, bits=None, tol=FP32):
+        """out against ref (within ``tol``), the same bits from two calls of
+        ``bits`` (else ``kernel``); with ``timed``, kernel and plain timed
+        beside the bound of cost ``c`` ("device": with their device times
+        too)."""
+        err = check_close(f"large_tau (a) {name} {label}", out, ref, **tol)
         same_bits(f"large_tau (a) {name} {label}", bits or kernel)
         row = dict(max_abs_err=err, nonzero_rows=float((ref.abs().sum(-1) > 0).float().mean()))
         if timed:
@@ -4846,6 +4875,29 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                        bits=lambda: sdim_update(rows.clone(), *args))
                 del rows, hist, a, b_
                 torch.cuda.empty_cache()
+        # the large-tau training kernels at Table 4's
+        # training shape (B = 128, L = 256, d = 32, C = 1), timed on the device
+        for tau, m in LT_TAUS:
+            R = rng.standard_normal((m, 32)).astype(np.float32)
+            Rt = t(R)
+            seq = t(screened_normal(rng, (128, 256, 32), R))
+            q = t(screened_normal(rng, (128, 1, 32), R))
+            mask = t((np.arange(256)[None] >= rng.integers(0, 128, 128)[:, None]).astype(
+                np.float32))
+            table = bse_encode_ref(seq, mask, Rt, tau)
+            dout = t(rng.standard_normal((128, 1, 32)).astype(np.float32))
+            dT = sdim_query_backward_ref(dout, q, table, Rt, tau)
+            costs = training_costs(seq, mask, q, table, Rt, tau)
+            for name, kernel, plain, args, tol in (
+                    ("bse_encode", bse_encode, bse_encode_ref, (seq, mask, Rt, tau), ATOMIC),
+                    ("sdim_query", sdim_query, sdim_query_ref, (q, table, Rt, tau), FP32),
+                    ("sdim_query_backward", sdim_query_backward, sdim_query_backward_ref,
+                     (dout, q, table, Rt, tau), FP32),
+                    ("bse_encode_backward", bse_encode_backward, bse_encode_backward_ref,
+                     (dT, seq, mask, Rt, tau), FP32)):
+                record(name, f"table4 tau={tau} m={m} d=32", partial(kernel, *args),
+                       partial(plain, *args), kernel(*args), plain(*args), costs[name],
+                       "device", tol=tol)
     for name, rows in figures.items():
         for label, r in rows.items():
             timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "

@@ -8,8 +8,11 @@ Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
 cycles of each phase that ``PHASE_MARK`` delimits in ``bse_encode.cu``,
 ``fused_query.cuh`` (``sdim_fused_serve`` and ``sdim_query``, each with
-its own clocks) and ``sdim_update.cu`` (the phase ends after the barrier
-that closes it, so it includes the wait for the slowest thread) and stamps
+its own clocks), ``sdim_update.cu`` (the phase ends after the barrier
+that closes it, so it includes the wait for the slowest thread) and the
+large-tau serving paths (``bse_serve_large_tau.cu``'s two kernels and
+``sdim_fused_serve_large_tau.cu``, at chip_smoke.py phase 20 (a)'s
+shapes: tau 5 and 10, and tau = 1 at m = 48 for bse_serve) and stamps
 %globaltimer at the CTA's start and end. Runs each kernel at the main
 path's burst shape of ``chip_smoke.py`` (B = 16, L = 1024 with front-padded
 lengths uniform on [L/4, L], C = 128, d = 128, m = 48, tau = 3; fp32, and
@@ -45,15 +48,25 @@ PHASES = {
     "sdim_query": FUSED,
     "sdim_update": ["slot scan", "wait slice, R, events", "hash + cell masks", "sums",
                     "write", "stage next"],
+    # the large-tau serving paths (bse_serve_large_tau.cu's two kernels,
+    # sdim_fused_serve_large_tau.cu)
+    "bse_serve_lt_table": ["staging (R, list, tile waits)", "hash (candidates, rows)",
+                           "bucketing (bitmap, ranks, row masks)", "sums", "store",
+                           "tile barriers"],
+    "bse_serve_lt_gather": ["staging (none)", "rank reads", "row loads + norms",
+                            "sums (+ barriers)", "store"],
+    "sdim_fused_serve_lt": ["staging (candidates)", "hash", "row loads + norms",
+                            "sums (+ barriers)", "store"],
 }
+LT_SHAPES = ((5, 45), (10, 40), (1, 48))    # chip_smoke.py phase 20 (a): (tau, m) at d = 128
 
 
-def read_phases(lib, reader: str, n_cta: int) -> np.ndarray:
+def read_phases(lib, reader: str, n_cta: int, first: int = 0) -> np.ndarray:
     rows = np.zeros((CTAS, SLOTS + 2), np.uint64)
     err = getattr(lib, reader)(ctypes.c_void_p(rows.ctypes.data), ctypes.c_int(rows.nbytes))
     if err != 0:
         raise RuntimeError(f"{reader}: CUDA error {err}")
-    return rows[:n_cta].astype(np.int64)
+    return rows[first:first + n_cta].astype(np.int64)
 
 
 def report(name: str, rows: np.ndarray) -> None:
@@ -193,12 +206,66 @@ def main() -> int:
             clock(lib, plain, f"sdim_update S={s} B={bu} {name}",
                   partial(sdim_update_cuda, store, ev_slots, events, ev_mask, R, TAU, s),
                   "sdim_update_phases", bu * s)
+    large_tau(lib, plain, dev, rng, n_sm)
     return 0
 
 
-def clock(lib, plain, name, fn, reader, n_cta) -> None:
-    """Phase cycles of one launch after three warm-up launches, the device
-    time a launch without the clocks, and the wrapper's host time a call."""
+def large_tau(lib, plain, dev, rng, n_sm) -> None:
+    """The large-tau serving paths at chip_smoke.py phase 20 (a)'s shapes
+    (B = 16, L = 1024 with L/2..L valid rows, the last user masked, C = 128
+    with half of each user's candidates its own behaviors, d = 128):
+    bse_serve at tau 5, 10 and tau = 1, m = 48 (both kernels: kernel 2's
+    rows from CTAS / 2 on), sdim_fused_serve at tau 5 and 10 off fp32 and
+    int8 stores of the users' encoded histories (user 1 absent)."""
+    import torch
+    from functools import partial
+
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import sdim_fused_serve
+    from repro_torch.kernels.sdim_serve.sdim_serve import (bse_serve, gather_shape,
+                                                           serve_large_tau_splits)
+    from repro_torch.serve.quant import quantize_rows
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    gather_ctas = lambda G: B * -(-C // gather_shape(B, C, G, n_sm)[0])
+    for tau, m in LT_SHAPES:
+        G, U = m // tau, 1 << tau
+        Rn = rng.standard_normal((m, D)).astype(np.float32)
+        R = t(Rn)
+        seq = screened_normal(rng, (B, L, D), Rn)
+        mask = (np.arange(L)[None] >= rng.integers(0, L // 2, B)[:, None]).astype(np.float32)
+        mask[-1] = 0.0
+        q = screened_normal(rng, (B, C, D), Rn)
+        for b in range(B - 1):
+            q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
+        seq, mask, q = t(seq), t(mask), t(q)
+        Gs, slices, K, chunks = serve_large_tau_splits(B, G, U, C, D, tau, n_sm)
+        name = f"tau={tau} m={m} d={D}"
+        print(f"bse_serve large tau {name}: kernel 1 Gs = {Gs}, {slices} slices, K = {K}, "
+              f"{chunks} chunks")
+        fn = partial(bse_serve, q, seq, mask, R, tau)
+        clock(lib, plain, f"bse_serve_lt_table {name}", fn,
+              "sdim_bse_serve_large_tau_phases", B * slices * chunks,
+              also=[(f"bse_serve_lt_gather {name}", gather_ctas(G), CTAS // 2)])
+        if tau < 5:
+            continue
+        rows = bse_encode_ref(seq, mask, R, tau)
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        present = torch.ones(B, device=dev)
+        present[1] = 0.0
+        int8, scales = quantize_rows(rows, dtype=torch.int8)
+        for label, store, sc in (("fp32", rows, None), ("int8", int8, scales)):
+            clock(lib, plain, f"sdim_fused_serve_lt {name} {label}",
+                  partial(sdim_fused_serve, store, slots, q, R, tau, scales=sc, present=present),
+                  "sdim_fused_serve_large_tau_phases", gather_ctas(G))
+
+
+def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
+    """Phase cycles of one launch after three warm-up launches (``also``:
+    (name, CTAs, first row) of a second kernel the call launches, reported
+    from the same reader), the device time a launch without the clocks, and
+    the wrapper's host time a call."""
     import torch
     from repro_torch.kernels import _build
 
@@ -208,6 +275,8 @@ def clock(lib, plain, name, fn, reader, n_cta) -> None:
     fn()
     torch.cuda.synchronize()
     report(name, read_phases(lib, reader, n_cta))
+    for other, n, first in also:
+        report(other, read_phases(lib, reader, n, first))
     _build._lib = plain          # the port's library: device time, no clocks
     print(f"  device time a launch without the clocks: {device_ms(fn):.4f} ms")
     _build._lib = lib

@@ -18,13 +18,23 @@
 // ../../sdim_fused_serve/csrc/sdim_fused_serve_large_tau.cu and
 // ../../sdim_serve/csrc/bse_serve_large_tau.cu.
 //
-// Every kernel here hashes a row with bucket_of (below): eight lanes a row,
-// so a forward and its backward compute the same bits, and the history
-// ingest (bse_encode), the event fold (sdim_update) and both serving reads
-// bucket one behavior alike: decoupled scores follow inline ones. d a
-// multiple of 4 up to 128 (each of the eight lanes holds at most four float4
-// columns). No atomics; every sum has a fixed order, so two launches agree
-// bit for bit.
+// Every kernel here hashes a row with bucket_of (below), or with
+// bucket_rows, the same operations in the same order on columns the lanes
+// already hold: eight lanes a row, so a forward and its backward compute
+// the same bits, and the history ingest (bse_encode), the event fold
+// (sdim_update) and both serving reads bucket one behavior alike: decoupled
+// scores follow inline ones. d a multiple of 4 up to 128 (each of the eight
+// lanes holds at most four float4 columns). No atomics; every sum has a
+// fixed order, so two launches agree bit for bit.
+//
+// The two serving reads share the gather body below (gather_shape,
+// gather_row, gather_sum): a team of eight lanes for each (candidate,
+// group) of a pass, so a candidate's hashes or rank reads and its row
+// loads run at once (sdim_fused_serve hashes against R read through L1;
+// bse_serve's kernel 1 has written the ranks), each row normalized into
+// shared memory, then summed in g order by a thread a (candidate, float4
+// column). sdim_query_large_tau.cu's forward keeps its own loop (a group
+// at a time: hash, dependent row load, norm).
 #pragma once
 
 #include "tile_staging.cuh"
@@ -78,6 +88,199 @@ __device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
   }
   return make_float4(v[0], v[1], v[2], v[3]);
 }
+
+// ---------------------------------------------------------------------------
+// The serving reads (bse_serve_large_tau.cu, sdim_fused_serve_large_tau.cu)
+// ---------------------------------------------------------------------------
+constexpr int kGatherThreads = 512;   // the most threads a gather CTA has
+constexpr int kGatherTeams = kGatherThreads / kEncodeHashLanes;  // eight-lane teams
+constexpr int kGatherMinTeams = 4;    // teams a candidate: 32 lanes, one a float4 column
+
+// Copy 4 bytes from global to shared memory asynchronously (zeros where
+// src_bytes is 0).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The float4 columns part, part + 8, ... (part = lane % 8) of a row of d
+// values, zeros past d (and everywhere where `live` is false).
+template <typename T>
+__device__ __forceinline__ void load_cols(float4 (&x)[kLargeTauCols], const T* row, int nq,
+                                          bool live) {
+  const int part = threadIdx.x % kEncodeHashLanes;
+#pragma unroll
+  for (int j = 0; j < kLargeTauCols; ++j) {
+    const int k4 = part + j * kEncodeHashLanes;
+    x[j] = live && k4 < nq ? load4(row + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// bucket_of for N rows at once whose columns the eight lanes hold
+// (load_cols): every projection's partial sum first (one float4 of R feeds
+// the N rows), then the butterflies, so the N * TAU chains overlap. The
+// same operations in the same order as bucket_of, so the same bits. Every
+// lane of the warp calls it.
+template <int TAU, int N>
+__device__ __forceinline__ void bucket_rows(const float4 (&x)[N][kLargeTauCols], const float* r,
+                                            int d, int (&u)[N]) {
+  const int part = threadIdx.x % kEncodeHashLanes, nq = d / 4;
+  float a[N][TAU];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int t = 0; t < TAU; ++t) a[n][t] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLargeTauCols; ++j) {
+    const int k4 = part + j * kEncodeHashLanes;
+    if (k4 < nq) {
+#pragma unroll
+      for (int t = 0; t < TAU; ++t) {
+        const float4 rv = load4(r + (size_t)t * d + 4 * k4);
+#pragma unroll
+        for (int n = 0; n < N; ++n) a[n][t] = dot4(rv, x[n][j], a[n][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    u[n] = 0;
+#pragma unroll
+    for (int t = 0; t < TAU; ++t)
+      u[n] |= (lane_group_sum<kEncodeHashLanes>(a[n][t]) >= 0.f ? 1 : 0) << t;
+  }
+}
+
+// bucket_rows for N rows in shared memory (rows[n], hashed where live[n]):
+// the same operations in the same order, a float4 column of the N rows
+// loaded at a time, in a loop that is not unrolled, so the code stays
+// small inside a kernel's hot loop.
+template <int TAU, int N, typename T>
+__device__ __forceinline__ void bucket_rows_at(const T* const (&rows)[N], const bool (&live)[N],
+                                               const float* r, int d, int (&u)[N]) {
+  const int part = threadIdx.x % kEncodeHashLanes, nq = d / 4;
+  float a[N][TAU];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int t = 0; t < TAU; ++t) a[n][t] = 0.f;
+#pragma unroll 1
+  for (int k4 = part; k4 < nq; k4 += kEncodeHashLanes) {
+    float4 xv[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      xv[n] = live[n] ? load4(rows[n] + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < TAU; ++t) {
+      const float4 rv = load4(r + (size_t)t * d + 4 * k4);
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n][t] = dot4(rv, xv[n], a[n][t]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    u[n] = 0;
+#pragma unroll
+    for (int t = 0; t < TAU; ++t)
+      u[n] |= (lane_group_sum<kEncodeHashLanes>(a[n][t]) >= 0.f ? 1 : 0) << t;
+  }
+}
+
+// The gather body. A CTA answers `cands` candidates of one user with a team
+// of eight lanes for each (candidate, group) of a chunk of `teams` groups
+// (at least kGatherMinTeams, so the CTA has a thread for each (candidate,
+// float4 column); teams past G idle).
+// gather_row: the team reads its group's selected row (lane part: float4
+// columns part, part + 8, ...; `sc` its scale where `scaled`), and writes
+// row * sc / n, n = sqrt(|row * sc|^2 + 1e-12) (a butterfly over the
+// eight lanes), to its slot of norm_s (cands * teams, d); a team past G or
+// past C writes nothing (`live` false), but takes part in the butterfly.
+template <typename TS>
+__device__ __forceinline__ void gather_row(float* norm_s, const TS* row, float sc, bool scaled,
+                                           int nq, bool live) {
+  const int part = threadIdx.x % kEncodeHashLanes;
+  float4 v[kLargeTauCols];
+  load_cols(v, row, nq, live);
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLargeTauCols; ++j) {
+    if (scaled) v[j] = scale4(v[j], sc);
+    ss = dot4(v[j], v[j], ss);
+  }
+  const float norm = sqrtf(lane_group_sum<kEncodeHashLanes>(ss) + 1e-12f);
+  if (!live) return;
+  float* o = norm_s + (size_t)(threadIdx.x / kEncodeHashLanes) * nq * 4;
+#pragma unroll
+  for (int j = 0; j < kLargeTauCols; ++j) {
+    const int k4 = part + j * kEncodeHashLanes;
+    if (k4 < nq)
+      store4(o + 4 * k4, make_float4(v[j].x / norm, v[j].y / norm, v[j].z / norm,
+                                     v[j].w / norm));
+  }
+}
+
+// gather_sum: thread i < cands * nq owns (candidate, float4 column) i and
+// adds the chunk's `ng` normalized rows of its candidate to run, in g
+// order (the caller syncs before and after).
+__device__ __forceinline__ void gather_sum(float4& run, const float* norm_s, int teams, int ng,
+                                           int nq) {
+  const int i = threadIdx.x;
+  const float* p = norm_s + (size_t)(i / nq) * teams * nq * 4 + 4 * (i % nq);
+  for (int g = 0; g < ng; ++g) {
+    const float4 v = load4(p + (size_t)g * nq * 4);
+    run = make_float4(run.x + v.x, run.y + v.y, run.z + v.z, run.w + v.w);
+  }
+}
+
+// The current device's SMs, asked once per device.
+inline int sm_count() {
+  static std::mutex mu;
+  static int counts[64] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 0 || device >= 64) return 1;
+  if (counts[device] == 0 &&
+      cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    cudaGetLastError();  // a query the device refuses is no launch error
+    counts[device] = 1;
+  }
+  return counts[device];
+}
+
+// A gather CTA's shape: `teams` groups at a time and as many candidates as
+// fill kGatherThreads, halved while B users' C candidates would launch
+// fewer CTAs than the card has SMs. The teams take G in as few even passes
+// as keep B * C * teams eight-lane teams within kGatherWaveThreads an SM
+// (one wave at full occupancy), at least kGatherMinTeams and at most
+// kGatherTeams a candidate.
+constexpr int kGatherWaveThreads = 2048;
+struct GatherShape {
+  int cands, teams;
+};
+inline GatherShape gather_shape(int B, int C, int G) {
+  const long long fit = (long long)sm_count() * kGatherWaveThreads /
+                        ((long long)kEncodeHashLanes * (B > 0 ? B : 1) * (C > 0 ? C : 1));
+  const int most = fit < kGatherMinTeams ? kGatherMinTeams
+                   : fit > kGatherTeams  ? kGatherTeams
+                                         : static_cast<int>(fit);
+  const int passes = (G + most - 1) / most, even = (G + passes - 1) / passes;
+  const int teams = even < kGatherMinTeams ? kGatherMinTeams : even;
+  int cands = kGatherTeams / teams;
+  while (cands > 1 && (long long)B * ((C + cands - 1) / cands) < sm_count()) cands /= 2;
+  return GatherShape{cands, teams};
+}
+
+// The gather grid: x the user, (y, z) the block of `cands` candidates
+// (y < 65535, so any C), and a CTA's block index.
+inline dim3 gather_grid(int B, int C, int cands) {
+  const int blocks = (C + cands - 1) / cands, y = blocks < 65535 ? blocks : 65535;
+  return dim3(B, y, (blocks + y - 1) / y);
+}
+__device__ __forceinline__ int gather_block() { return blockIdx.z * gridDim.y + blockIdx.y; }
 
 // seq (B, L, d) fp32|bf16 -> table (B, G, U, d) fp32 (bse_encode.cu's function).
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,

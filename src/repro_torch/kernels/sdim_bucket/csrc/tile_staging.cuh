@@ -148,9 +148,11 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
 // previous mark to slot k of a register array (PHASE_MARK(k), k <
 // kPhaseSlots, k a constant), and thread 0 of each CTA writes the slots
 // and the %globaltimer (ns) of PHASE_BEGIN and PHASE_END to its CTA's row
-// of phase_cycles at PHASE_END, so a mark costs no memory access; a C
-// entry point made by PHASE_READER copies the rows out. Built without it
-// (the port's library), the marks compile to nothing.
+// of phase_cycles at PHASE_END (PHASE_END_AT(first): at row first + the
+// CTA's index, for a second kernel of one translation unit), so a mark
+// costs no memory access; a C entry point made by PHASE_READER copies the
+// rows out. Built without it (the port's library), the marks compile to
+// nothing.
 #ifdef SDIM_PHASE_CLOCKS
 constexpr int kPhaseSlots = 7, kPhaseCTAs = 8192;
 static __device__ unsigned long long phase_cycles[kPhaseCTAs][kPhaseSlots + 2];
@@ -161,8 +163,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-__device__ __forceinline__ void phase_write(const long long* acc, unsigned long long t0) {
-  const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+__device__ __forceinline__ void phase_write(const long long* acc, unsigned long long t0,
+                                            int first = 0) {
+  const int cta = first + blockIdx.y * gridDim.x + blockIdx.x;
   if (threadIdx.x != 0 || cta >= kPhaseCTAs) return;
   for (int k = 0; k < kPhaseSlots; ++k) phase_cycles[cta][k] = acc[k];
   phase_cycles[cta][kPhaseSlots] = t0;
@@ -180,6 +183,7 @@ __device__ __forceinline__ void phase_write(const long long* acc, unsigned long 
     phase_t = phase_now;                                \
   } while (0)
 #define PHASE_END() phase_write(phase_acc, phase_t0)
+#define PHASE_END_AT(first) phase_write(phase_acc, phase_t0, first)
 #define PHASE_READER(name)                                                          \
   extern "C" int name(void* host, int bytes) {                                      \
     return cudaMemcpyFromSymbol(host, sdim::phase_cycles,                           \
@@ -190,6 +194,7 @@ __device__ __forceinline__ void phase_write(const long long* acc, unsigned long 
 #define PHASE_BEGIN()
 #define PHASE_MARK(k)
 #define PHASE_END()
+#define PHASE_END_AT(first)
 #define PHASE_READER(name)
 #endif
 

@@ -10,8 +10,9 @@ gives each user a thread-block cluster that splits the row and the
 candidates, so each present user's row is read from device memory once.
 tau 5..10 (32..1,024 buckets a group: a user's table no longer fits a
 CTA) launch the large-tau path (``csrc/sdim_fused_serve_large_tau.cu``:
-each candidate reads, dequantizes and normalizes only the G rows it
-selects; d up to 128). The kernel has no backward (it serves): on CUDA the
+each candidate hashes itself for every group, then reads, dequantizes and
+normalizes only the G rows it selects, eight rows' loads in flight at
+once; d up to 128). The kernel has no backward (it serves): on CUDA the
 wrapper raises where autograd would record the call.
 """
 from __future__ import annotations

@@ -9,7 +9,8 @@ tensors only; for CUDA tensors it launches the kernel or raises.
 body cannot hold the table (tau 5..10, or more groups than its eight CTAs
 spread: tau = 1 at m = 48) the C entry point launches the large-tau path
 (``csrc/bse_serve_large_tau.cu``: only the buckets the candidates select
-are summed, into a scratch of ``serve_large_tau_work_floats`` floats the
+are summed, by CTAs of ``serve_large_tau_splits`` group slices and rank
+chunks, into a scratch of ``serve_large_tau_work_floats`` floats the
 wrapper allocates, and read back in a second kernel). The kernel has no
 backward (it serves): on CUDA the wrapper raises where autograd would
 record the call.
@@ -32,11 +33,56 @@ def cluster_body_takes(G: int, d: int, tau: int) -> bool:
     return tau <= 4 and -(-G // min(MAX_CLUSTER, G)) * d <= MAX_GROUP_COLUMNS
 
 
+SERVE_CELLS = 4           # bse_serve_large_tau.cu kServeCells: (row, float4 column) sums a thread
+SERVE_THREADS = 512       # kServeThreads
+SERVE_MAX_PLANES = 10     # kServeMaxPlanes: projections a kernel-1 CTA hashes a row
+
+
 def serve_large_tau_work_floats(B: int, C: int, G: int, U: int, d: int) -> int:
     """Scratch of the large-tau path: the selected rows of each (user,
-    group), min(U, C) of d, then each group's bitmap words and their prefix
-    sums (2 * ceil(U / 32) int32)."""
-    return B * G * (min(U, C) * d + 2 * (-(-U // 32)))
+    group), min(U, C) of d, then each candidate's rank in each group
+    (B, C, G) int32."""
+    return B * G * min(U, C) * d + B * C * G
+
+
+def serve_large_tau_splits(B: int, G: int, U: int, C: int, d: int, tau: int,
+                           n_sm: int) -> tuple[int, int, int, int]:
+    """(Gs, slices, K, chunks) of the large-tau path's first kernel
+    (``serve_split`` in ``csrc/bse_serve_large_tau.cu``): a CTA holds Gs
+    groups x K ranks of d / 4 float4 sums, at most SERVE_CELLS a thread,
+    and hashes Gs * tau <= SERVE_MAX_PLANES projections a row; as many
+    group slices as B * slices * chunks CTAs, one an SM, fit in ``n_sm``,
+    each slice as even as it goes."""
+    every, nq = min(U, C), d // 4
+    cap = SERVE_CELLS * SERVE_THREADS // nq
+    chunks = -(-every // cap)
+    K = -(-every // chunks)
+    gs_max = min(G, SERVE_MAX_PLANES // tau, max(1, cap // K))
+    per_user = max(1, B * chunks)
+    slices = max(-(-G // gs_max), min(G, n_sm // per_user), 1)
+    Gs = -(-G // slices)
+    return Gs, -(-G // Gs), K, chunks
+
+
+GATHER_TEAMS = 64         # large_tau.cuh kGatherTeams: eight-lane teams a gather CTA
+GATHER_WAVE = 2048        # kGatherWaveThreads: threads an SM holds at once
+
+
+def gather_shape(B: int, C: int, G: int, n_sm: int) -> tuple[int, int]:
+    """(candidates, teams) of a CTA of the large-tau gather body
+    (``gather_shape`` in ``kernels/sdim_bucket/csrc/large_tau.cuh``, which
+    the large-tau paths of this kernel and of ``sdim_fused_serve`` run): a
+    team of eight lanes a (candidate, group), the groups in as few even
+    passes as keep the burst's teams within one wave, 4..64 teams a
+    candidate; as many candidates as fill 64 teams, halved while the CTAs
+    would number fewer than the SMs."""
+    most = min(GATHER_TEAMS, max(4, n_sm * GATHER_WAVE // (8 * max(B, 1) * max(C, 1))))
+    passes = -(-G // most)
+    teams = max(4, -(-G // passes))
+    cands = GATHER_TEAMS // teams
+    while cands > 1 and B * -(-C // cands) < n_sm:
+        cands //= 2
+    return cands, teams
 
 
 def bse_serve_ref(q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,

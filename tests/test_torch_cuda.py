@@ -149,7 +149,8 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
 
 # bse_serve's large-tau path also takes tau <= 4 where its cluster body
 # cannot hold the groups: Table 4's tau = 1 row (m = 48, G = 48)
-WIDE_G_SHAPES = [(4, 1024, 128, 128, 48, 1), (3, 100, 20, 36, 48, 1)]
+WIDE_G_SHAPES = [(4, 1024, 128, 128, 48, 1), (3, 100, 20, 36, 48, 1),
+                 (2, 100, 20, 128, 80, 1)]   # G = 80: the gather's teams take 64 groups a pass
 
 
 def _store_case(shape, store_dtype, dev, seed):
@@ -221,6 +222,98 @@ def test_large_tau_sdim_fused_serve(shape, store_dtype, dev):
     assert not out[::2].any() and not out[-1].any()
     on_rows = (present > 0) & (slots != 0)                  # present users on random rows
     assert out[on_rows].abs().sum(-1).gt(0).all()
+
+
+# chip_smoke.py phase 20 (a)'s shapes (B, L, C, d, m, tau): a 16-user burst
+# of 128 candidates against 1,024 behaviors at Table 4's tau 5 and 10 and
+# tau = 1 at m = 48, at d = 128 and dien's d = 36
+LT_TOL = 1e-5                       # decoupled against inline (chip_smoke.py LT_TOL)
+PHASE20_SHAPES = [(16, 1024, 128, d, m, tau) for d in (128, 36)
+                  for tau, m in ((5, 45), (10, 40), (1, 48))]
+PHASE20_IDS = [f"tau{s[5]}-m{s[4]}-d{s[3]}" for s in PHASE20_SHAPES]
+
+
+def _phase20_inputs(shape, dev, dtype, seed):
+    """Phase 20 (a)'s inputs: front-padded histories of L/2..L valid rows,
+    the last user fully masked, half of each other user's candidates its
+    own valid behaviors."""
+    B, L, C, d, m, tau = shape
+    seq, q, _, R, rng = _inputs(shape, dev, dtype, seed=seed)
+    mask = (torch.arange(L)[None] >= torch.from_numpy(rng.integers(0, L // 2, B))[:, None])
+    mask = mask.float().to(dev)
+    mask[-1] = 0
+    for b in range(B - 1):
+        own = torch.from_numpy(rng.choice(np.flatnonzero(mask[b].cpu().numpy()), C // 2))
+        q[b, :C // 2] = seq[b, own.to(dev)].float()
+    return seq, q, mask, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PHASE20_SHAPES, ids=PHASE20_IDS)
+def test_large_tau_bse_serve_at_phase20_shapes(shape, dtype, dev):
+    """bse_serve's redesigned large-tau path (group slices, staged tiles,
+    the gather body) at phase 20's shapes against its plain version: the
+    same bits on two launches, the fully masked user zero, C = 0 and L = 0;
+    at tau 5 and 10 inline against decoupled (bse_encode's table read by
+    sdim_fused_serve off an fp32 store) within LT_TOL."""
+    B, L, C, d, m, tau = shape
+    seq, q, mask, R = _phase20_inputs(shape, dev, dtype, seed=60 + tau)
+    before = bse_serve.launches
+    out = bse_serve(q, seq, mask, R, tau)
+    ref = bse_serve_ref(q, seq, mask, R, tau)
+    torch.testing.assert_close(out, ref, **FP32)
+    assert torch.equal(out, bse_serve(q, seq, mask, R, tau))
+    torch.cuda.synchronize()
+    assert bse_serve.launches == before + 2
+    assert not out[-1].any() and ref[:-1].abs().sum(-1).gt(0).float().mean() >= 0.5
+    assert bse_serve(q[:, :0].contiguous(), seq, mask, R, tau).shape == (B, 0, d)
+    none = bse_serve(q, seq[:, :0].contiguous(), mask[:, :0].contiguous(), R, tau)
+    torch.cuda.synchronize()
+    assert none.shape == (B, C, d) and not none.any()
+    if tau >= 5:
+        table = bse_encode(seq, mask, R, tau)
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        decoupled = sdim_fused_serve(table, slots, q, R, tau)
+        assert (decoupled - out).abs().max().item() <= LT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", [s for s in PHASE20_SHAPES if s[5] >= 5],
+                         ids=[i for s, i in zip(PHASE20_SHAPES, PHASE20_IDS) if s[5] >= 5])
+def test_large_tau_sdim_fused_serve_at_phase20_shapes(shape, store_dtype, dev):
+    """sdim_fused_serve's redesigned large-tau path (the gather body) at
+    phase 20's shapes, off a store of 64 users' encoded histories in four
+    dtypes (int8 and fp8 rows of 36 bytes at d = 36), against its plain
+    version: an absent user and the fully masked one read zero, the same
+    bits on two launches, C = 0 launches nothing."""
+    B, L, C, d, m, tau = shape
+    seq, q, mask, R = _phase20_inputs(shape, dev, torch.float32, seed=70 + tau)
+    users = 64
+    hist = torch.cat([seq, torch.randn((users - B, L, d), device=dev)])
+    hmask = torch.cat([mask, torch.ones((users - B, L), device=dev)])
+    rows = bse_encode_ref(hist, hmask, R, tau)
+    scales = None
+    if store_dtype in ("int8", "fp8"):
+        store, scales = quantize_rows(rows, dtype=TABLE_DTYPES[store_dtype])
+    else:
+        store = rows.to(torch.bfloat16 if store_dtype == "bf16" else torch.float32)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    present = torch.ones(B, device=dev)
+    present[1] = 0
+    run = lambda qq: sdim_fused_serve(store, slots, qq, R, tau, scales=scales, present=present)
+    before = sdim_fused_serve.launches
+    out = run(q)
+    ref = sdim_fused_serve_ref(store, slots, q, R, tau, scales=scales, present=present)
+    torch.testing.assert_close(out, ref, **FP32)
+    assert torch.equal(out, run(q))
+    torch.cuda.synchronize()
+    assert sdim_fused_serve.launches == before + 2
+    assert not out[1].any() and not out[-1].any()
+    assert ref[2:-1].abs().sum(-1).gt(0).float().mean() >= 0.5
+    assert run(q[:, :0].contiguous()).shape == (B, 0, d)
+    assert sdim_fused_serve.launches == before + 2
 
 
 @pytest.mark.cuda

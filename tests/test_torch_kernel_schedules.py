@@ -62,13 +62,18 @@ run here; this pins the algebra they implement.
   gives CTA (b, g) group g of its slot (first batch row its owner), lists
   the cells the owned rows' weighted events reach in u order, and folds
   each from the stored cell, row by row in b order, events in e order;
-  sdim_fused_serve sums each candidate's G selected rows of its slot, each
-  scaled by its own scale and over its own norm, in g order, then / G *
-  present; bse_serve ranks the buckets a user's candidates select in each
-  group (u order), sums only the rows of nonzero weight landing in them,
-  in l order, a chunk of ranks a CTA, then each candidate reads its G
-  ranked rows, each over its norm, in g order, then / G (also at tau = 1,
-  G = 48).
+  sdim_fused_serve runs the gather body of large_tau.cuh: a team of eight
+  lanes a (candidate, group), a pass of ``teams`` groups at a time, hashes
+  the candidate, reads the selected row of its slot scaled by its own
+  scale and stores it over its norm; the rows are summed in g order, then
+  / G * present; bse_serve's first kernel gives CTA (b, s, j) a slice of
+  Gs groups and a chunk of K ranks (``serve_large_tau_splits``), ranks
+  the buckets the candidates select (each warp's bits ORed, then the
+  warps' in order; u order), walks the tiles of 128 rows that hold a
+  nonzero weight, each warp writing its eight rows' byte of every slice
+  row's row mask, and sums each mask's rows lowest bit first (l order);
+  its second kernel is the gather body on the ranks (also at tau = 1, G =
+  48, and G = 80, where the teams take the groups in passes).
 
 Each kernel is also emulated at dien's behavior width d = 36 (the
 ``*-d36`` cases): nine float4 columns a row, rows of 144 bytes in fp32,
@@ -103,6 +108,7 @@ from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update
                                                          update_splits)
 from repro_torch.kernels.sdim_bucket.sdim_bucket import backward_splits
 from repro_torch.kernels.sdim_query.sdim_query import query_backward_splits
+from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape, serve_large_tau_splits
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MASKED = np.float32(-1e30)
@@ -1023,7 +1029,7 @@ def test_large_tau_schedules_match_jax(shape, layout):
 # the three serving paths at tau 5..10 (sdim_update_large_tau.cu,
 # sdim_fused_serve_large_tau.cu, bse_serve_large_tau.cu)
 LT_UPDATE_ROWS = 256         # sdim_update_large_tau.cu kUpdateRows (a window)
-LT_SERVE_SLICE_BYTES = 64 * 1024   # bse_serve_large_tau.cu kServeSliceBytes
+SERVE_TILE = 128             # bse_serve_large_tau.cu kServeTile: 8 rows a warp
 
 
 def update_large_tau_schedule(store, slots, events, mask, R, tau):
@@ -1063,105 +1069,231 @@ def update_large_tau_schedule(store, slots, events, mask, R, tau):
     return out, writes
 
 
+def _gather_large_tau(sel, row_of, G, d, teams):
+    """large_tau.cuh's gather body for one candidate: a team of eight lanes
+    a group, ``teams`` groups at a time, each reads its selected row
+    (``row_of(g, sel[g])``, scaled) and stores it over its norm; then the
+    chunk's rows are added in g order. Returns the sum."""
+    acc = np.zeros(d, np.float32)
+    for g0 in range(0, G, teams):
+        chunk = []
+        for g in range(g0, min(G, g0 + teams)):                       # the teams, at once
+            row = row_of(g, sel[g])
+            chunk.append(row / np.sqrt(np.sum(row * row) + np.float32(1e-12)))
+        for row in chunk:                                              # g order
+            acc = acc + row
+    return acc
+
+
 def fused_serve_large_tau_schedule(store, scales, slots, present, q, R, tau):
-    """sdim_fused_serve_large_tau.cu in numpy fp32: each candidate, for each
-    group in order, reads the row it selects of its user's slot, scales it
-    by the row's own scale, divides it by its norm and adds it; then / G *
-    present. An absent user reads no row."""
+    """sdim_fused_serve_large_tau.cu in numpy fp32: the team of each
+    (candidate, group) hashes the candidate for its group and reads the
+    selected row of its user's slot, scaled by its own scale; the gather
+    body sums the rows over their norms in g order; then / G * present. An
+    absent user reads no row."""
     B, C, d = q.shape
     G = R.shape[0] // tau
+    _, teams = gather_shape(B, C, G, n_sm=132)
     sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
     out = np.zeros((B, C, d), np.float32)
     for b in range(B):
         if present[b] == 0:
             continue
-        acc = np.zeros((C, d), np.float32)
-        for g in range(G):
-            rows = store[slots[b], g, sig[b, :, g]].astype(np.float32)     # (C, d)
-            if scales is not None:
-                rows = rows * scales[slots[b], g, sig[b, :, g]][:, None]
-            n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
-            acc = acc + rows / n
-        out[b] = acc / np.float32(G) * present[b]
+        slot = slots[b]
+
+        def row_of(g, u):
+            row = store[slot, g, u].astype(np.float32)
+            return row if scales is None else row * scales[slot, g, u]
+
+        for c in range(C):
+            out[b, c] = (_gather_large_tau(sig[b, c], row_of, G, d, teams) / np.float32(G)
+                         * present[b])
     return out
 
 
-def serve_large_tau_schedule(q, seq, mask, R, tau, K=None):
-    """bse_serve_large_tau.cu in numpy fp32. Kernel 1: CTA (b, g, j) ranks
-    the buckets user b's candidates select in group g (u order), owns ranks
-    [jK, (j+1)K), and adds the rows of nonzero weight in those buckets in l
-    order; the rows go to a scratch by rank. Kernel 2: each candidate, for
-    each group in order, reads the row of its bucket's rank, divides it by
-    its norm and adds it; then / G. ``K`` None: the kernel's (min(U, C)
-    within 64 KB of d floats). Returns the output and each scratch row's
-    write count."""
+def serve_large_tau_schedule(q, seq, mask, R, tau, n_sm=132, Gs=None, K=None):
+    """bse_serve_large_tau.cu in numpy fp32. Kernel 1: CTA (b, s, j) holds
+    the Gs groups of slice s and ranks [jK, (j+1)K) of each
+    (``serve_large_tau_splits``, or the ``Gs`` and ``K`` given). Its 16
+    warps hash user b's candidates, eight a warp, 128 a round, each warp
+    ORing its candidates' buckets into its own bitmap words; the warps'
+    words are ORed in warp order and ranked (u order), and chunk 0 writes
+    each candidate's rank. Then, a tile of SERVE_TILE staged rows at a
+    time (only tiles with a nonzero weight), warp w keys its rows 8w..8w+7
+    of nonzero weight to their slice rows in each group (or -1) and
+    writes, for every slice row, the byte of its rows among them: byte w
+    of the slice row's row mask; each cell adds the rows of its mask in
+    row order (lowest bit first) into its sums, which go to a scratch by
+    rank. Kernel 2: the gather body
+    on the candidate's ranks; then / G. Returns the output, each scratch
+    row's and rank's write count, and how many buckets had rows in two
+    tiles or more."""
     B, C, d = q.shape
     L = seq.shape[1]
     G, U = R.shape[0] // tau, 1 << tau
     Rg = R.reshape(G, tau, d)
-    every = min(U, C)
-    K = K or min(every, LT_SERVE_SLICE_BYTES // (4 * d))
+    every, warps, per_warp = min(U, C), SERVE_TILE // 8, 8
+    split = serve_large_tau_splits(B, G, U, C, d, tau, n_sm)
+    Gs, K = Gs or split[0], K or split[2]
     qsig = _signatures(q.reshape(B * C, d), Rg, tau).reshape(B, C, G)
     ssig = _signatures(seq.reshape(B * L, d), Rg, tau).reshape(B, L, G)
     tab = np.full((B, G, every, d), np.nan, np.float32)
     writes = np.zeros((B, G, every), np.int64)
+    ranks = np.full((B, C, G), -1, np.int64)
+    rank_writes = np.zeros((B, C, G), np.int64)
+    split_buckets = 0
     for b in range(B):
-        for g in range(G):
-            selected = np.unique(qsig[b, :, g])                          # u order = rank order
-            rank = {u: k for k, u in enumerate(selected)}
+        for g0 in range(0, G, Gs):
+            groups = range(g0, min(G, g0 + Gs))
+            selected = {}
+            for g in groups:                                           # the bitmap
+                warp_bits = [set() for _ in range(warps)]
+                for base in range(0, C, SERVE_TILE):
+                    for c in range(base, min(C, base + SERVE_TILE)):
+                        warp_bits[(c - base) // per_warp].add(qsig[b, c, g])
+                selected[g] = sorted(set().union(*warp_bits))          # u order = rank
+            rank = {g: {u: k for k, u in enumerate(selected[g])} for g in groups}
             for j in range(-(-every // K)):
-                lo, hi = j * K, min(len(selected), (j + 1) * K)
-                if lo >= hi:
+                lo = j * K
+                if j == 0:
+                    for g in groups:
+                        ranks[b, :, g] = [rank[g][u] for u in qsig[b, :, g]]
+                        rank_writes[b, :, g] += 1
+                if all(lo >= len(selected[g]) for g in groups):
                     continue
-                rows = np.zeros((hi - lo, d), np.float32)
-                for l in range(L):                                       # l order
-                    k = rank.get(ssig[b, l, g], -1)
-                    if mask[b, l] != 0 and lo <= k < hi:
-                        rows[k - lo] = rows[k - lo] + mask[b, l] * seq[b, l].astype(np.float32)
-                tab[b, g, lo:hi] = rows
-                writes[b, g, lo:hi] += 1
+                sums = {g: np.zeros((K, d), np.float32) for g in groups}
+                tiles_of = {}
+                for l0 in range(0, L, SERVE_TILE):
+                    x = seq[b, l0:l0 + SERVE_TILE].astype(np.float32)
+                    w = mask[b, l0:l0 + SERVE_TILE]
+                    if not w.any():                                    # not listed
+                        continue
+                    for g in groups:
+                        keys = [rank[g].get(ssig[b, l0 + r, g], -1) - lo
+                                if w[r] != 0 else -1 for r in range(len(w))]
+                        keys = [k if 0 <= k < K else -1 for k in keys]
+                        masks = np.zeros(K, object)                    # 128-bit masks
+                        for wp in range(warps):                        # byte wp: warp wp's rows
+                            for k in range(K):
+                                byte = sum(1 << i for i in range(per_warp)
+                                           if wp * per_warp + i < len(keys)
+                                           and keys[wp * per_warp + i] == k)
+                                masks[k] |= byte << (per_warp * wp)
+                        for k in range(K):
+                            m = int(masks[k])
+                            if m:
+                                tiles_of.setdefault((g, k), set()).add(l0)
+                            while m:                                   # four rows at a time
+                                batch = []
+                                for _ in range(4):
+                                    if m:
+                                        batch.append((m & -m).bit_length() - 1)
+                                        m &= m - 1
+                                for r in batch:                        # lowest bit first
+                                    sums[g][k] = sums[g][k] + w[r] * x[r]
+                split_buckets += sum(len(t) > 1 for t in tiles_of.values())
+                for g in groups:
+                    hi = min(len(selected[g]), lo + K)
+                    tab[b, g, lo:hi] = sums[g][:hi - lo]
+                    writes[b, g, lo:hi] += 1
+    _, teams = gather_shape(B, C, G, n_sm)
     out = np.zeros((B, C, d), np.float32)
-    for g in range(G):                                                   # g order
-        ranks = np.array([[np.searchsorted(np.unique(qsig[b, :, g]), qsig[b, c, g])
-                           for c in range(C)] for b in range(B)])
-        rows = tab[np.arange(B)[:, None], g, ranks]                     # (B, C, d)
-        n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
-        out = out + rows / n
-    return out / np.float32(G), writes
+    for b in range(B):
+        for c in range(C):
+            out[b, c] = _gather_large_tau(ranks[b, c], lambda g, k: tab[b, g, k], G, d,
+                                          teams) / np.float32(G)
+    return out, writes, rank_writes, split_buckets
+
+
+@pytest.mark.parametrize("B, G, U, C, d, tau, want", [
+    (16, 9, 32, 128, 128, 5, (2, 5, 32, 1)),     # phase 20's tau 5: 80 CTAs (144 pass 132)
+    (16, 4, 1024, 128, 128, 10, (1, 4, 64, 2)),  # tau 10: 128 ranks in two chunks of 64
+    (16, 48, 2, 128, 128, 1, (6, 8, 2, 1)),      # tau = 1, m = 48: 128 CTAs of 6 groups
+    (16, 4, 1024, 128, 36, 10, (1, 4, 128, 1)),  # d = 36: 227 slice rows a CTA, one chunk
+    (1, 48, 2, 128, 128, 1, (1, 48, 2, 1)),      # one user: a group a CTA
+    (4096, 48, 2, 128, 128, 1, (10, 5, 2, 1)),   # a large batch: 10 projections a row
+    (4096, 12, 1024, 1, 128, 10, (1, 12, 1, 1)),  # one candidate, tau 10: a group a CTA
+    (4096, 24, 4, 4, 36, 2, (5, 5, 4, 1)),       # tau 2: 5 groups of 10 projections
+])
+def test_serve_large_tau_splits_fill_one_wave(B, G, U, C, d, tau, want):
+    """bse_serve's large-tau kernel 1: a CTA's sums fit its threads'
+    registers (SERVE_CELLS each), it hashes at most 10 projections a row,
+    and the grid, one CTA an SM, fits the 132 SMs in one wave where the
+    groups and ranks allow."""
+    Gs, slices, K, chunks = serve_large_tau_splits(B, G, U, C, d, tau, n_sm=132)
+    assert (Gs, slices, K, chunks) == want
+    assert Gs * K * (d // 4) <= 4 * 512 and Gs * tau <= 10
+    assert (slices - 1) * Gs < G <= slices * Gs and K * chunks >= min(U, C)
+    # one wave, or as few slices as the registers and projections allow
+    gs_max = min(G, 10 // tau, max(1, 2048 // (d // 4) // K))
+    assert B * slices * chunks <= 132 or slices == -(-G // gs_max)
+
+
+@pytest.mark.parametrize("B, C, G, want", [
+    (16, 128, 9, (7, 9)),        # phase 20's tau 5: all nine groups in one pass
+    (16, 128, 4, (8, 4)),        # tau 10: 16 candidates a CTA would leave SMs idle
+    (16, 128, 48, (4, 16)),      # tau = 1, m = 48: three passes keep one wave
+    (1, 128, 48, (1, 48)),       # one user: one pass
+    (16, 128, 2, (8, 4)),        # G < 4: four teams a candidate (one a float4 column)
+])
+def test_gather_shape_fits_one_wave(B, C, G, want):
+    """The large-tau gather body's CTA: at most 64 teams, a thread for each
+    (candidate, float4 column), all the burst's teams on the 132 SMs at
+    once (2,048 threads an SM), and the CTAs at least one an SM."""
+    cands, teams = gather_shape(B, C, G, n_sm=132)
+    assert (cands, teams) == want
+    assert cands * teams <= 64 and 8 * teams >= 32
+    assert 8 * B * C * teams <= 132 * 2048 or teams == 4
+    assert B * -(-C // cands) >= 132 or cands == 1
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("shape", [
-    (3, 40, 8, 32, 10, 5, None),     # U = 32, one chunk of min(U, C) = 8 ranks
-    (3, 90, 40, 16, 20, 10, 16),     # tau = 10: chunks of 16 ranks over 40 candidates
-    (3, 50, 12, 36, 14, 7, 5),       # dien's width d = 36, ragged chunks of 5
-    (2, 60, 20, 128, 48, 1, None),   # tau = 1 at G = 48 (the cluster body's reach)
-    (3, 1100, 6, 16, 12, 6, None),   # two passes of behavior rows
-], ids=["U32", "tau10-chunks", "d36-chunks", "tau1-G48", "two-passes"])
+    (3, 40, 8, 32, 10, 5, {}, "random"),            # U = 32, one chunk of min(U, C) = 8 ranks
+    (3, 90, 40, 16, 20, 10, dict(K=16), "random"),  # tau = 10: chunks of 16 ranks over 40
+    (3, 50, 12, 36, 14, 7, dict(K=5), "random"),    # dien's width d = 36, ragged chunks of 5
+    (2, 60, 20, 128, 48, 1, dict(n_sm=16), "random"),   # tau = 1 at G = 48: slices of Gs = 6
+    (3, 1100, 6, 16, 12, 6, {}, "random"),          # 18 tiles of rows, the last one partial
+    (3, 70, 16, 16, 45, 5, dict(n_sm=4), "random"),     # Gs = 5 over G = 9: a short last slice
+    (3, 150, 8, 16, 20, 5, {}, "one-bucket"),       # every valid row in one selected bucket
+    (3, 200, 8, 32, 10, 5, {}, "tile-split"),       # buckets whose rows span tiles
+    (3, 40, 8, 128, 80, 1, {}, "random"),           # G = 80: gather teams take 64 groups a pass
+], ids=["U32", "tau10-chunks", "d36-chunks", "tau1-G48", "two-passes", "Gs-ragged",
+        "one-bucket", "tile-split", "G80-team-passes"])
 def test_large_tau_serving_schedules_match_jax(shape, layout):
     """bse_serve, sdim_fused_serve and sdim_update at tau 5..10 (bse_serve
     also at tau = 1, G = 48) against the JAX package (its SDIM attention,
     its fused-serve and update oracles and the Pallas update in interpret
     mode): half the candidates are users' own valid behaviors, so outputs
-    are not all zero; every scratch row and store cell is written once; a
-    fully masked user and an absent one read zero."""
-    B, L, C, d, m, tau, K = shape
+    are not all zero; every scratch row, rank and store cell is written
+    once; a fully masked user and an absent one read zero. ``one-bucket``
+    makes each user's behaviors positive multiples of one row, so every
+    valid row lands in one bucket of each group (the longest l-order
+    chain, across tiles); ``tile-split`` checks that buckets' rows span
+    tile boundaries."""
+    B, L, C, d, m, tau, split, case = shape
     G, U = m // tau, 1 << tau
     rng = np.random.default_rng(29 + tau)
     R = rng.standard_normal((m, d)).astype(np.float32)
     seq = screened_normal(rng, (B, L, d), R)
+    if case == "one-bucket":
+        seq = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, L, 1))).astype(np.float32)
     q = screened_normal(rng, (B, C, d), R)
     mask = _mask(rng, B, L, layout)
     for b in range(B - 1):
         q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
-    out, writes = serve_large_tau_schedule(q, seq, mask, R, tau, K)
+    out, writes, rank_writes, split_buckets = serve_large_tau_schedule(q, seq, mask, R, tau,
+                                                                      **split)
     ref = np.asarray(jsdim_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask),
                                      jnp.asarray(R), tau))
     np.testing.assert_allclose(out, ref, **FP32)
     selected = [len(np.unique(_signatures(q[b], R.reshape(G, tau, d), tau)[:, g]))
                 for b in range(B) for g in range(G)]
     assert writes.sum() == sum(selected) and writes.max() == 1
+    assert (rank_writes == 1).all()
     assert not out[-1].any() and np.abs(out[:-1]).sum(-1).astype(bool).mean() >= 0.5
+    if case != "random" and layout == "random":
+        assert split_buckets > 0
     if tau == 1:
         return
     N = 2 * B + 1                                 # the fused read of encoded users

@@ -235,7 +235,7 @@ def test_large_tau_costs_count_the_rows_reached():
     seq = events
     c = cost.settle(cost.serve(q, seq, mask, R, tau=tau))
     assert c.flops == (3 + 6) * hash_flops + 2 * 2 * G * 3 * d      # 2 rows a (user, group)
-    assert serve_large_tau_work_floats(2, 3, G, U, d) == 2 * G * (3 * d + 2)
+    assert serve_large_tau_work_floats(2, 3, G, U, d) == 2 * G * 3 * d + 2 * 3 * G
 
 
 # ---------------------------------------------------------------------------
