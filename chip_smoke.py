@@ -397,7 +397,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``table1_complexity.run(quick=False)``: L up to 16,384, B up to 4,096,
    with the L-scaling row. (c) Fig. 2, Table 4 and Fig. 5 at smoke depth
    (AUCs printed, not gated; every tau trains through the kernels, tau 5
-   and 10 through their large-tau paths). (d) each kernel at the phase's shapes
+   and 10 through their large-tau paths; Table 4's launches printed by
+   tau). (d) each kernel at the phase's shapes
    against its plain version on screened inputs, uncounted
    (``bench_kernel_checks``). Prints the phase's wall time.
 20. large tau serving — ``large_tau``: the large-tau paths of
@@ -409,7 +410,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    = 45 and tau 10 at m = 40; bse_serve also at tau = 1, m = 48, past its
    cluster body) and at d = 36, uncounted: event-timed ms of kernel and
    plain version, device ms (d = 128) and the bound of
-   ``kernels/cost.py``'s counts; then the large-tau paths of
+   ``kernels/cost.py``'s counts, with ``bse_encode`` at the history
+   ingest's shape (the burst's users, d = 128); then the large-tau paths of
    ``bse_encode``, ``sdim_query`` and both backward kernels at Table 4's
    training shape (B = 128, L = 256, d = 32, C = 1, tau 5 and 10) the
    same way, device ms included. (b)
@@ -419,7 +421,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    user's own behaviors, so tau = 10 reads nonempty buckets) in bursts of
    16: decoupled fused off fp32, bf16, int8 and fp8 stores and fetch off
    an fp32 store, each over an fp32 wire, and inline, then a 32-user event
-   burst and the requests again; ms/request of each. Decoupled (fused and
+   burst and the requests again; ms/request of each, and the launches of
+   each tau. Decoupled (fused and
    fetch off the fp32 store) against inline within LT_TOL and the fold
    moving scores; then,
    uncounted, every server again through the kernels' plain versions on
@@ -4554,19 +4557,22 @@ def bench_table5(torch, dev) -> dict:
 def training_costs(seq, mask, q, table, R, tau) -> dict:
     """The bytes and operations of the four training kernels at one
     training step's shapes (kernels/cost.py's for bse_encode and
-    sdim_query; the backward kernels: each valid row gathers G rows of dT,
-    the query backward reads and writes the whole table)."""
+    sdim_query; the backward kernels: each valid row gathers G rows of dT;
+    the query backward writes the whole of dT and reads dout, q, R and the
+    rows its candidates select: a row no candidate selects is +0 and needs
+    no read)."""
     from repro_torch.kernels import cost
 
     B, L, d = seq.shape
-    m = R.shape[0]
+    C, m = q.shape[1], R.shape[0]
     G, U = m // tau, 1 << tau
     hash_flops = 2 * m * d + G * d
-    valid, bwd_bytes = float(mask.sum()), 4 * (2 * B * G * U * d + 2 * B * d + m * d)
+    valid, selected = float(mask.sum()), float(cost._selected_rows(q, R, tau, U))
+    bwd_bytes = 4 * (B * G * U * d + selected * d + 2 * B * C * d + m * d)
+    bwd_flops = B * C * (2 * m * d + 2 * G * d) + 8.0 * selected * d
     return {"bse_encode": cost.settle(cost.encode(seq, mask, R, tau=tau)),
             "sdim_query": cost.settle(cost.query(q, table, R, tau=tau)),
-            "sdim_query_backward": cost.Cost(B * hash_flops + 8.0 * B * G * U * d,
-                                             float(bwd_bytes)),
+            "sdim_query_backward": cost.Cost(float(bwd_flops), float(bwd_bytes)),
             "bse_encode_backward": cost.Cost(valid * (hash_flops + G * d),
                                              4 * (valid * (G + 1) * d + B * L * (d + 1)
                                                   + m * d))}
@@ -4730,9 +4736,25 @@ def bench_phase(torch, dev, wrappers):
           f"{figures['table1']['seconds']:.1f} s")
     free_card(torch)
     t0 = time.perf_counter()
-    smoke = {"fig2": fig2_attention_patterns.run(),
-             "table4": table4_tau.run(quick=True, smoke=True, device=dev),
-             "fig5": fig5_m_sweep.run(quick=True, smoke=True, device=dev)}
+    # Table 4's launches split by tau: each tau's train_and_eval counted apart
+    table4_by_tau, train_and_eval = {}, table4_tau.train_and_eval
+
+    def counted(*args, **kwargs):
+        before = {w.__name__: w.launches for w in wrappers}
+        result = train_and_eval(*args, **kwargs)
+        table4_by_tau[kwargs["tau"]] = {w.__name__: w.launches - before[w.__name__]
+                                        for w in wrappers}
+        return result
+
+    table4_tau.train_and_eval = counted
+    try:
+        smoke = {"fig2": fig2_attention_patterns.run(),
+                 "table4": table4_tau.run(quick=True, smoke=True, device=dev),
+                 "fig5": fig5_m_sweep.run(quick=True, smoke=True, device=dev)}
+    finally:
+        table4_tau.train_and_eval = train_and_eval
+    figures["table4_launches_by_tau"] = table4_by_tau
+    print(f"bench (c) Table 4's launches by tau: {json.dumps(table4_by_tau)}")
     for name, r in smoke.items():
         bench_rows(name, r)
     figures["smoke"] = dict(seconds=time.perf_counter() - t0)
@@ -4774,8 +4796,9 @@ class PlainDispatch:
 def large_tau_kernel_checks(torch, dev) -> dict:
     """20 (a): the three large-tau serving paths against their plain
     versions at the slice's shapes, the same bits twice, timed beside their
-    plain versions and bounds; then the four large-tau training kernels
-    (bse_encode, sdim_query and both backward kernels) at Table 4's
+    plain versions and bounds, with bse_encode at the history ingest's
+    shape (the burst's users, d = 128); then the four large-tau training
+    kernels (bse_encode, sdim_query and both backward kernels) at Table 4's
     training shape, checked and timed the same way on the device
     (uncounted). Returns each kernel's figures by shape."""
     from repro_torch.kernels import cost
@@ -4836,6 +4859,12 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                        cost.serve(q, seq, mask, Rt, tau=tau), timed)
                 if tau == 1:
                     continue
+                if d == D:                          # the decoupled deployment's history ingest
+                    record("bse_encode", f"ingest {label}",
+                           partial(bse_encode, seq, mask, Rt, tau),
+                           partial(bse_encode_ref, seq, mask, Rt, tau),
+                           bse_encode(seq, mask, Rt, tau), bse_encode_ref(seq, mask, Rt, tau),
+                           cost.encode(seq, mask, Rt, tau=tau), timed, tol=ATOMIC)
                 # the store: LT_USERS users' encoded histories (the burst's first)
                 hist = t(screened_normal(rng, (LT_USERS, L, d), R))
                 hist[:BURST] = seq
@@ -4984,8 +5013,9 @@ def large_tau_phase(torch, dev, wrappers):
                 "cand_item": torch.as_tensor(events[1][:, :1], device=dev),
                 "cand_cat": torch.as_tensor(events[2][:, :1], device=dev)}
     reset(wrappers)
-    checks = {}
+    checks, by_tau = {}, {}
     for tau, m in LT_TAUS:
+        before = {w.__name__: w.launches for w in wrappers}
         cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, tau=tau,
                                                                      m=m))
         model.cfg = cfg
@@ -5021,8 +5051,9 @@ def large_tau_phase(torch, dev, wrappers):
         moved = float(np.abs(sc[("fused-fp32", "after")] - sc[("fused-fp32", "before")]).max())
         if moved == 0.0:
             raise AssertionError(f"{label}: the event burst changed no score")
+        by_tau[tau] = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
         checks[tau] = dict(max_abs_diff=diffs, stores=stores, fold_moved=moved,
-                           ms_per_request=ms)
+                           ms_per_request=ms, launches=by_tau[tau])
         print(f"{label}: ms/request (median of the bursts) "
               f"{json.dumps({k: round(v['median'], 4) for k, v in ms.items()})}; max abs "
               f"diffs {json.dumps(diffs)}; quantized stores against fp32 (not gated) "

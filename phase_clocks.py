@@ -3,6 +3,7 @@
 NVIDIA GPU (written for the H100):
 
     python3 phase_clocks.py
+    python3 phase_clocks.py table4 [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -12,7 +13,10 @@ its own clocks), ``sdim_update.cu`` (the phase ends after the barrier
 that closes it, so it includes the wait for the slowest thread) and the
 large-tau serving paths (``bse_serve_large_tau.cu``'s two kernels and
 ``sdim_fused_serve_large_tau.cu``, at chip_smoke.py phase 20 (a)'s
-shapes: tau 5 and 10, and tau = 1 at m = 48 for bse_serve) and stamps
+shapes: tau 5 and 10, and tau = 1 at m = 48 for bse_serve), and the
+large-tau training paths (``bse_encode_large_tau.cu``'s forward at Table
+4's training shape and at the history ingest's, ``sdim_query_large_tau.cu``'s
+backward at Table 4's; tau 5 and 10) and stamps
 %globaltimer at the CTA's start and end. Runs each kernel at the main
 path's burst shape of ``chip_smoke.py`` (B = 16, L = 1024 with front-padded
 lengths uniform on [L/4, L], C = 128, d = 128, m = 48, tau = 3; fp32, and
@@ -26,6 +30,13 @@ the spread of CTA start times.
 The clocks change the code they time a little (a clock read per mark),
 so each run also prints the device time of the port's own library, which
 never has them (torch.profiler over 20 launches). Imports nothing of JAX.
+
+``table4`` instead trains Table 4's model (``bench/table4_tau.py``: sdim,
+batch 128, L = 256, d = 32) at tau 3, 5 and 10 with the port of ``--src``
+(default this checkout's ``src``; another checkout's, to compare two trees
+in one run) and prints ms/step (host clock over 20 steps, after 3
+warm-up steps) and the device-busy share of 6 steps under torch.profiler
+(the union of the device operations' intervals over the host's wall time).
 """
 from __future__ import annotations
 
@@ -57,8 +68,17 @@ PHASES = {
                             "sums (+ barriers)", "store"],
     "sdim_fused_serve_lt": ["staging (candidates)", "hash", "row loads + norms",
                             "sums (+ barriers)", "store"],
+    # the large-tau training paths (bse_encode_large_tau.cu's forward,
+    # sdim_query_large_tau.cu's backward)
+    "bse_encode_lt": ["staging (R)", "hash", "ranking (+ barrier)", "sums + stores"],
+    "sdim_query_backward_lt": ["staging (R, rows)", "hash", "ranking (+ barriers)",
+                               "selected rows", "zero stores"],
 }
 LT_SHAPES = ((5, 45), (10, 40), (1, 48))    # chip_smoke.py phase 20 (a): (tau, m) at d = 128
+# the large-tau training kernels' shapes (B, L, C, d): Table 4's training
+# step and the decoupled deployment's history ingest (chip_smoke.py phase
+# 20 (a)), each at (tau, m) of LT_SHAPES[:2]
+LT_TRAIN_SHAPES = {"table4": (128, 256, 1, 32), "ingest": (B, L, C, D)}
 
 
 def read_phases(lib, reader: str, n_cta: int, first: int = 0) -> np.ndarray:
@@ -207,7 +227,54 @@ def main() -> int:
                   partial(sdim_update_cuda, store, ev_slots, events, ev_mask, R, TAU, s),
                   "sdim_update_phases", bu * s)
     large_tau(lib, plain, dev, rng, n_sm)
+    large_tau_training(lib, plain, dev, rng, n_sm)
     return 0
+
+
+def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
+    """The large-tau training kernels at LT_TRAIN_SHAPES: bse_encode's
+    forward (front-padded histories, as chip_smoke.py phase 20 (a): Table
+    4's with 0..L/2 leading rows masked, the ingest's L/2..L valid rows and
+    its last user masked) and, at Table 4's shape only (training), the
+    backward of sdim_query in the table (one candidate a user)."""
+    import torch
+    from functools import partial
+
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode_cuda, bse_encode_ref,
+                                                             encode_large_tau_splits)
+    from repro_torch.kernels.sdim_query.sdim_query import (query_backward_large_tau_splits,
+                                                           sdim_query_backward)
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for shape, (b, l, c, d) in LT_TRAIN_SHAPES.items():
+        for tau, m in LT_SHAPES[:2]:
+            G, U = m // tau, 1 << tau
+            Rn = rng.standard_normal((m, d)).astype(np.float32)
+            R = t(Rn)
+            seq = t(screened_normal(rng, (b, l, d), Rn))
+            lo = (rng.integers(0, l // 2, b) if shape == "table4"
+                  else l - rng.integers(l // 2, l + 1, b))
+            mask = (np.arange(l)[None] >= lo[:, None]).astype(np.float32)
+            if shape == "ingest":
+                mask[-1] = 0.0
+            mask = t(mask)
+            Gs, slices, threads = encode_large_tau_splits(b, G, U, l, d, tau, n_sm)
+            name = f"tau={tau} m={m} {shape} (B={b}, L={l}, d={d})"
+            print(f"bse_encode large tau {name}: Gs = {Gs}, {slices} slices, {threads} threads")
+            clock(lib, plain, f"bse_encode_lt {name}", partial(bse_encode_cuda, seq, mask, R, tau),
+                  "sdim_bse_encode_large_tau_phases", b * slices)
+            if shape != "table4":
+                continue
+            q = t(screened_normal(rng, (b, c, d), Rn))
+            table = bse_encode_ref(seq, mask, R, tau)
+            dout = t(rng.standard_normal((b, c, d)).astype(np.float32))
+            Gs, slices, threads = query_backward_large_tau_splits(b, G, U, c, d, tau, n_sm)
+            print(f"sdim_query_backward large tau {name}, C = {c}: Gs = {Gs}, {slices} slices, "
+                  f"{threads} threads")
+            clock(lib, plain, f"sdim_query_backward_lt {name}",
+                  partial(sdim_query_backward, dout, q, table, R, tau),
+                  "sdim_query_backward_large_tau_phases", b * slices)
 
 
 def large_tau(lib, plain, dev, rng, n_sm) -> None:
@@ -289,5 +356,55 @@ def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
     print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
 
 
+def table4(src: str, steps: int = 20) -> int:
+    """``table4`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.abspath(src))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench.common import paper_data_config, paper_model_config, train
+    from repro_torch.models.ctr import CTRModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dcfg = paper_data_config(256)
+    print(f"table4 steps with the port at {os.path.abspath(src)}")
+    for tau in (3, 5, 10):
+        m = 48 if 48 % tau == 0 else tau * (48 // tau)
+        model = CTRModel(paper_model_config("sdim", 256, m=m, tau=tau), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+        train(model, dcfg, 3, 128, 0, 5e-3)
+        ms = 1e3 * train(model, dcfg, steps + 1, 128, 1, 5e-3)["train_s"] / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train(model, dcfg, 6, 128, 2, 5e-3)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+        busy, end, by_name = 0.0, float("-inf"), {}
+        for a, b, name in spans:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"table4 tau={tau} m={m}: {ms:.3f} ms/step ({steps} steps, host clock); "
+              f"6 steps under torch.profiler: wall {wall / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), {len(spans)} device ops; top 5:")
+        for name, us in top:
+            print(f"  {us / 1e3:8.4f} ms  {100 * us / wall:5.1f}%  {name[:90]}")
+        del model
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["table4"]:
+        args = sys.argv[2:]
+        sys.exit(table4(args[args.index("--src") + 1] if "--src" in args
+                        else os.path.join(ROOT, "src")))
     sys.exit(main())

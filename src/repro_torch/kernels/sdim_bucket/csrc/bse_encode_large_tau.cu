@@ -13,18 +13,33 @@
 // 2*L*m*d FLOP a user of hashing. The backward reads the G rows of dT each
 // valid row selects and writes the gradient: ~0.006 ms.
 //
-// Forward design (simple first). The grid is (B, G, U / UT): CTA (b, g, j)
-// owns buckets [j*UT, (j+1)*UT) of user b's group g, UT*d*4 <= 64 KB of
-// shared memory, so no two CTAs write one element and the slice is written
-// once, zeros included. It walks the user's rows in passes of kPass:
-// - hash: eight lanes a row (bucket_of), 32 rows at a time; each row's
-//   bucket (or -1: masked, or outside the slice) and weight go to shared
-//   memory;
-// - scatter: thread t owns float4 column t % nq of every bucket c with
-//   c % ncls = t / nq (ncls = 256 / nq owner classes) and adds the pass's
-//   rows into its cells in row order, so every cell sums in l order.
-// Where U*d*4 exceeds 64 KB (tau = 10 at d = 128) a group's buckets are
-// split over U / UT CTAs, each hashing the rows again.
+// Forward design. The grid is (B, slices): CTA (b, s) owns the Gs groups
+// of slice s of user b whole, so no two CTAs write one element; list_split
+// (large_tau.cuh) takes as few slices as give every SM a CTA (each slice
+// reads the user's rows) and 256, 512 or 1,024 threads, as many as keep
+// the grid in one wave.
+// - hash: Q lanes a row (Q = 1 up to d = 32, 8 for a handful of rows),
+//   every row of a round loaded into registers at once, the first round
+//   before the barrier that stages R; each row is hashed once for each of
+//   the CTA's groups (bucket_regs: bucket_of's partial sums added in its
+//   butterfly's order, so its bits); a row of zero weight gets no bucket,
+//   and a warp whose rows all have zero weight hashes nothing;
+// - ranking: link_round over the (group, round of 32 rows) pairs, a warp
+//   each, then link_heads, a warp a group: one list a bucket, in l order
+//   (__match_any_sync, no atomics);
+// - sums: thread i owns the cells (bucket, float4 column) i, i + threads,
+//   ... of its groups (consecutive threads, consecutive 16 bytes of the
+//   table), walks its bucket's list four rows at a time (the rows from L1 or
+//   L2, where the hash left them) and adds w * x into registers from +0 in l
+//   order (axpy4), then stores the cell, zeros included: 16-byte coalesced
+//   stores, each element written once, evict-first where the table exceeds
+//   the L2 (stream_stores: at Table 4's tau = 10, 64 MiB, write-back of the
+//   kept lines delayed the next launch's row loads).
+// So every cell is an fmaf chain from +0 over its rows in l order, and
+// bse_serve_large_tau.cu's kernel 1, which sums each bucket the same way,
+// stays bit-equal to it (decoupled against inline scores: 0).
+// Phase clocks (phase_clocks.py): staging (R; the first round's row loads
+// land there), hash, ranking (+ its barriers), sums + stores.
 //
 // Backward design. The grid is (B, ceil(L / 32)): eight lanes a row, 32
 // rows a CTA; the eight lanes hash the row for each group in order with
@@ -33,67 +48,101 @@
 // A masked row is not hashed and gets a zero gradient.
 #include "large_tau.cuh"
 
+PHASE_READER(sdim_bse_encode_large_tau_phases)
+
 namespace sdim {
 
-constexpr int kPass = 1024;                   // rows hashed a pass of the forward
-constexpr size_t kSliceBytes = 64 * 1024;     // a forward CTA's slice of a group's table
-
-// Buckets a forward CTA owns: U halved until UT*d*4 <= kSliceBytes.
-inline int slice_buckets(int U, int d) {
-  int ut = U;
-  while (ut > 1 && static_cast<size_t>(ut) * d * sizeof(float) > kSliceBytes) ut >>= 1;
-  return ut;
-}
-
-// Dynamic shared memory of the forward: the slice (UT, d), the group's rows
-// of R (tau, d), a pass's buckets and weights.
-inline size_t encode_large_tau_smem(int UT, int d, int tau) {
-  return sizeof(float) * ((size_t)UT * d + (size_t)tau * d) + (sizeof(int) + sizeof(float)) * kPass;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLargeTauThreads)
+template <typename T, int TAU, int Q>
+__global__ void __launch_bounds__(kListThreads, 1)
     encode_large_tau_kernel(const T* __restrict__ seq, const float* __restrict__ mask,
                             const float* __restrict__ R, float* __restrict__ out, int L, int G,
-                            int U, int d, int tau, int UT) {
+                            int d, int Gs, bool evict_first) {
+  constexpr int U = 1 << TAU;
   extern __shared__ float4 smem4[];
-  float* slice_s = reinterpret_cast<float*>(smem4);    // (UT, d)
-  float* r_s = slice_s + (size_t)UT * d;               // (tau, d)
-  int* sig_s = reinterpret_cast<int*>(r_s + tau * d);  // a pass's slice-relative buckets
-  float* w_s = reinterpret_cast<float*>(sig_s + kPass);
-  const int b = blockIdx.x, g = blockIdx.y, u0 = blockIdx.z * UT;
-  const int tid = threadIdx.x, nq = d / 4, rows = blockDim.x / kEncodeHashLanes;
-  const int ncls = blockDim.x / nq, cls = tid / nq, k4 = tid % nq;
+  char* smem = reinterpret_cast<char*>(smem4);
+  const ListLayout lay = list_layout(Gs, U, L, d, TAU);
+  float* r_s = reinterpret_cast<float*>(smem);                   // (ng*TAU, d)
+  short* head_s = reinterpret_cast<short*>(smem + lay.head);     // (ng, U)
+  short* list_s = reinterpret_cast<short*>(smem + lay.list);     // (ng, ceil8(L))
+  short* keys_s = reinterpret_cast<short*>(smem + lay.keys);     // (ng, ceil8(L))
+  const int b = blockIdx.x, g0 = blockIdx.y * Gs, ng = min(Gs, G - g0), Lp = ceil8(L);
+  const int tid = threadIdx.x, warp = tid / 32, warps = blockDim.x / 32, nq = d / 4;
   const T* x = seq + (size_t)b * L * d;
   const float* w = mask + (size_t)b * L;
-  for (int i = tid; i < UT * d; i += blockDim.x) slice_s[i] = 0.f;
-  for (int i = tid; i < tau * d; i += blockDim.x) r_s[i] = R[(size_t)g * tau * d + i];
+  const int per_round = blockDim.x / Q;
+  PHASE_BEGIN();
+  float4 xr[8 / Q][Q];  // the first round's rows load across the barrier
+  row_cols<Q>(xr, x + (size_t)min(tid / Q, L - 1) * d, nq, tid / Q < L);
+  float wr = tid / Q < L ? w[tid / Q] : 0.f;
+  for (int i = tid; i < ng * TAU * d; i += blockDim.x) r_s[i] = R[(size_t)g0 * TAU * d + i];
+  for (int i = tid; i < ng * U; i += blockDim.x) head_s[i] = -1;
   __syncthreads();
-  for (int l0 = 0; l0 < L; l0 += kPass) {
-    const int n = min(kPass, L - l0);
-    for (int base = 0; base < n; base += rows) {  // the same trip count for every warp
-      const int r = base + tid / kEncodeHashLanes;
-      const float wr = r < n ? w[l0 + r] : 0.f;
-      const int u = bucket_of(x + (size_t)(l0 + min(r, n - 1)) * d, r_s, d, tau, wr != 0.f);
-      if (r < n && tid % kEncodeHashLanes == 0) {
-        sig_s[r] = wr != 0.f && u >= u0 && u < u0 + UT ? u - u0 : -1;
-        w_s[r] = wr;
-      }
+  PHASE_MARK(0);
+
+  // hash: Q lanes a row, threads / Q rows a round; a row's columns are
+  // loaded once (with its weight, not after it) for all the CTA's groups,
+  // and a warp whose rows all have zero weight hashes nothing
+  for (int base = 0; base < L; base += per_round) {  // the same trip count for every warp
+    const int r = base + tid / Q;
+    if (base > 0) {
+      row_cols<Q>(xr, x + (size_t)min(r, L - 1) * d, nq, r < L);
+      wr = r < L ? w[r] : 0.f;
     }
-    __syncthreads();
-    if (cls < ncls) {
-      for (int r = 0; r < n; ++r) {
-        const int c = sig_s[r];
-        if (c >= 0 && c % ncls == cls) {
-          float* p = slice_s + (size_t)c * d + 4 * k4;
-          store4(p, axpy4(w_s[r], load4(x + (size_t)(l0 + r) * d + 4 * k4), load4(p)));
+    const bool live = wr != 0.f;
+    const bool hashed = __any_sync(0xffffffffu, live);
+    for (int gi = 0; gi < ng; ++gi) {
+      const int u = hashed ? bucket_regs<TAU, Q>(xr, r_s + (size_t)gi * TAU * d, d) : 0;
+      if (tid % Q == 0 && r < L) keys_s[(size_t)gi * Lp + r] = static_cast<short>(live ? u : -1);
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(1);
+
+  // ranking: each group's rows into one list a bucket, l order
+  const int rounds = (L + 31) / 32;
+  for (int k = warp; k < ng * rounds; k += warps)  // (group, round) k
+    link_round(keys_s + (size_t)(k / rounds) * Lp, list_s + (size_t)(k / rounds) * Lp, L,
+               k % rounds * 32);
+  __syncthreads();
+  for (int gi = warp; gi < ng; gi += warps)
+    link_heads(keys_s + (size_t)gi * Lp, list_s + (size_t)gi * Lp, L, head_s + gi * U);
+  __syncthreads();
+  PHASE_MARK(2);
+
+  // sums: cell i = (slice row i / nq, float4 column i % nq), i = tid, tid +
+  // threads, ...; a slice row is (group gi, bucket u), gi * U + u
+  float* o = out + ((size_t)b * G + g0) * U * d;
+  const int rows = ng * U, drow = blockDim.x / nq, dk = blockDim.x % nq;
+  for (int row = tid / nq, k4 = tid % nq; row < rows;) {
+    const short* next = list_s + (size_t)(row >> TAU) * Lp;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = head_s[row]; r >= 0;) {  // four rows' loads, then their adds in l order
+      int rr[4];
+      float wv[4];
+      float4 xv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        rr[k] = r;
+        if (r >= 0) {
+          xv[k] = load4(x + (size_t)r * d + 4 * k4);
+          wv[k] = w[r];
+          r = next[r];
         }
       }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (rr[k] >= 0) acc = axpy4(wv[k], xv[k], acc);
     }
-    __syncthreads();  // the pass's cells summed before its buckets are overwritten
+    store4(o + (size_t)row * d + 4 * k4, acc, evict_first);
+    row += drow;
+    k4 += dk;
+    if (k4 >= nq) {
+      k4 -= nq;
+      ++row;
+    }
   }
-  float* o = out + (((size_t)b * G + g) * U + u0) * d;
-  for (int i = tid; i < UT * nq; i += blockDim.x) store4(o + 4 * i, load4(slice_s + 4 * i));
+  PHASE_MARK(3);
+  PHASE_END();
 }
 
 template <typename T>
@@ -136,29 +185,61 @@ static bool large_tau_shape_ok(int B, int G, int U, int d, int tau) {
          d > 0 && d % 4 == 0 && d <= 128;
 }
 
-template <typename T>
+template <typename T, int TAU, int Q>
 static cudaError_t encode_large_tau(const void* seq, const float* mask, const float* R,
-                                    float* out, int B, int L, int G, int U, int d, int tau,
+                                    float* out, int B, int L, int G, int d,
                                     cudaStream_t stream) {
-  const int UT = slice_buckets(U, d);
-  const size_t smem = encode_large_tau_smem(UT, d, tau);
-  const void* fn = reinterpret_cast<const void*>(encode_large_tau_kernel<T>);
-  cudaError_t err = allow_smem(fn, smem);
+  constexpr int U = 1 << TAU;
+  const ListSplit sp = list_split(B, G, U, L, d, TAU, sm_count(), true);
+  const size_t smem = list_layout(sp.Gs, U, L, d, TAU).total;
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(encode_large_tau_kernel<T, TAU, Q>), smem);
   if (err != cudaSuccess) return err;
-  encode_large_tau_kernel<T><<<dim3(B, G, U / UT), kLargeTauThreads, smem, stream>>>(
-      static_cast<const T*>(seq), mask, R, out, L, G, U, d, tau, UT);
+  encode_large_tau_kernel<T, TAU, Q><<<dim3(B, sp.slices), sp.threads, smem, stream>>>(
+      static_cast<const T*>(seq), mask, R, out, L, G, d, sp.Gs,
+      stream_stores(sizeof(float) * B * G * U * d));
   return cudaGetLastError();
+}
+
+template <typename T, int TAU>
+static cudaError_t encode_lanes(const void* seq, const float* mask, const float* R, float* out,
+                                int B, int L, int G, int d, cudaStream_t stream) {
+  switch (row_lanes(L, d)) {
+    case 8: return encode_large_tau<T, TAU, 8>(seq, mask, R, out, B, L, G, d, stream);
+    case 1: return encode_large_tau<T, TAU, 1>(seq, mask, R, out, B, L, G, d, stream);
+    case 2: return encode_large_tau<T, TAU, 2>(seq, mask, R, out, B, L, G, d, stream);
+    default: return encode_large_tau<T, TAU, 4>(seq, mask, R, out, B, L, G, d, stream);
+  }
+}
+
+template <typename T>
+static cudaError_t encode_tau(const void* seq, const float* mask, const float* R, float* out,
+                              int B, int L, int G, int d, int tau, cudaStream_t stream) {
+  switch (tau) {
+#define SDIM_ENCODE_TAU(t) \
+  case t:                  \
+    return encode_lanes<T, t>(seq, mask, R, out, B, L, G, d, stream);
+    SDIM_ENCODE_TAU(5)
+    SDIM_ENCODE_TAU(6)
+    SDIM_ENCODE_TAU(7)
+    SDIM_ENCODE_TAU(8)
+    SDIM_ENCODE_TAU(9)
+    SDIM_ENCODE_TAU(10)
+#undef SDIM_ENCODE_TAU
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,
                                     const float* R, float* out, int B, int L, int G, int U,
                                     int d, int tau, cudaStream_t stream) {
-  if (!large_tau_shape_ok(B, G, U, d, tau) || L < 1 || G > 65535) return cudaErrorInvalidValue;
+  if (!large_tau_shape_ok(B, G, U, d, tau) || L < 1 || L > kListMaxRows || G > 65535)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   switch (seq_dtype) {
-    case kF32: return encode_large_tau<float>(seq, mask, R, out, B, L, G, U, d, tau, stream);
-    case kBF16:
-      return encode_large_tau<__nv_bfloat16>(seq, mask, R, out, B, L, G, U, d, tau, stream);
+    case kF32: return encode_tau<float>(seq, mask, R, out, B, L, G, d, tau, stream);
+    case kBF16: return encode_tau<__nv_bfloat16>(seq, mask, R, out, B, L, G, d, tau, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,13 +19,15 @@
 // ../../sdim_serve/csrc/bse_serve_large_tau.cu.
 //
 // Every kernel here hashes a row with bucket_of (below), or with
-// bucket_rows, the same operations in the same order on columns the lanes
-// already hold: eight lanes a row, so a forward and its backward compute
-// the same bits, and the history ingest (bse_encode), the event fold
-// (sdim_update) and both serving reads bucket one behavior alike: decoupled
-// scores follow inline ones. d a multiple of 4 up to 128 (each of the eight
-// lanes holds at most four float4 columns). No atomics; every sum has a
-// fixed order, so two launches agree bit for bit.
+// bucket_rows or bucket_regs, the same operations in the same order on
+// columns the lanes already hold (bucket_regs: fewer lanes a row, each
+// adding in the thread what bucket_of's butterfly adds across lanes), so
+// a forward and its backward compute the same bits, and the history
+// ingest (bse_encode), the event fold (sdim_update) and both serving reads
+// bucket one behavior alike: decoupled scores follow inline ones. d a
+// multiple of 4 up to 128 (each of the eight lanes holds at most four
+// float4 columns). No atomics; every sum has a fixed order, so two
+// launches agree bit for bit.
 //
 // The two serving reads share the gather body below (gather_shape,
 // gather_row, gather_sum): a team of eight lanes for each (candidate,
@@ -251,6 +253,31 @@ inline int sm_count() {
   return counts[device];
 }
 
+// Whether a kernel's output of `bytes` should be stored evict-first
+// (st.global.cs): where it exceeds the L2 cache of the current device, its
+// lines cannot stay there, and stores that keep them (write-back) leave
+// the next kernel's reads queued behind their write-back.
+inline bool stream_stores(size_t bytes) {
+  static std::mutex mu;
+  static int l2[64] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 0 || device >= 64) return false;
+  if (l2[device] == 0 &&
+      cudaDeviceGetAttribute(&l2[device], cudaDevAttrL2CacheSize, device) != cudaSuccess) {
+    cudaGetLastError();  // a query the device refuses is no launch error
+    l2[device] = -1;
+  }
+  return l2[device] > 0 && bytes > static_cast<size_t>(l2[device]);
+}
+
+// Four floats to a 16-byte aligned address, evict-first where `evict_first`.
+__device__ __forceinline__ void store4(float* p, float4 v, bool evict_first) {
+  if (evict_first) __stcs(reinterpret_cast<float4*>(p), v);
+  else store4(p, v);
+}
+
 // A gather CTA's shape: `teams` groups at a time and as many candidates as
 // fill kGatherThreads, halved while B users' C candidates would launch
 // fewer CTAs than the card has SMs. The teams take G in as few even passes
@@ -281,6 +308,181 @@ inline dim3 gather_grid(int B, int C, int cands) {
   return dim3(B, y, (blocks + y - 1) / y);
 }
 __device__ __forceinline__ int gather_block() { return blockIdx.z * gridDim.y + blockIdx.y; }
+
+// ---------------------------------------------------------------------------
+// The training kernels' bucket lists (bse_encode_large_tau.cu's forward,
+// sdim_query_large_tau.cu's backward)
+// ---------------------------------------------------------------------------
+// A CTA of 256, 512 or 1,024 threads owns Gs whole groups of one user: it
+// hashes the user's n rows (behaviors or candidates) once for each of its
+// groups (row_cols, bucket_regs), links each group's rows into one list a
+// bucket in row order (link_round, link_heads), and then writes every
+// (bucket, float4 column) of its groups once. Shared memory a CTA, for each
+// group: its rows of R (tau*d floats), a list head a bucket and a slot a
+// bucket for the list of selected buckets (the backward's; U shorts each),
+// and a link and a key a row (ceil8(n) shorts each; n <= 32,768).
+constexpr int kListThreads = 1024;              // the most threads a CTA has (64 registers each)
+constexpr size_t kListSmemBudget = 48 * 1024;   // a CTA's shared memory when it picks Gs
+constexpr int kListMaxRows = 32768;             // rows a CTA lists (short indices)
+
+__host__ __device__ inline int ceil8(int n) { return (n + 7) / 8 * 8; }
+
+inline size_t list_group_bytes(int U, int n, int d, int tau) {
+  return sizeof(float) * tau * d + sizeof(short) * (2 * U + 2 * ceil8(n));
+}
+
+// Byte offsets of the parts (R at 0); each a multiple of 16 bytes (d % 4 ==
+// 0, U >= 32).
+struct ListLayout {
+  size_t head, sel, list, keys, total;
+};
+__host__ __device__ inline ListLayout list_layout(int Gs, int U, int n, int d, int tau) {
+  ListLayout s;
+  s.head = sizeof(float) * Gs * tau * d;
+  s.sel = s.head + sizeof(short) * Gs * U;
+  s.list = s.sel + sizeof(short) * Gs * U;
+  s.keys = s.list + sizeof(short) * Gs * ceil8(n);
+  s.total = s.keys + sizeof(short) * Gs * ceil8(n);
+  return s;
+}
+
+// Gs groups a CTA of `threads`, `slices` CTAs a user, at least as many
+// slices as keep a CTA's groups within kListSmemBudget (one group at
+// least), each slice as even as it goes.
+// - reread (the forward: each slice reads the user's rows again): as few
+//   slices as give every SM a CTA, and threads 256 * k for the largest k <=
+//   4 for which the B * slices CTAs fit one wave (4 / k CTAs an SM at 64
+//   registers a thread);
+// - else (the backward: a user's few candidates, hashed by a team a
+//   (candidate, group) pair): 256 threads and as many slices as fit B * slices CTAs in
+//   one wave of four an SM, so a CTA's chain of hashes and selected rows
+//   stays short.
+// sdim_bucket.py's encode_large_tau_splits and sdim_query.py's
+// query_backward_large_tau_splits are the same function.
+struct ListSplit {
+  int Gs, slices, threads;
+};
+inline ListSplit list_split(int B, int G, int U, int n, int d, int tau, int n_sm, bool reread) {
+  const long long per = static_cast<long long>(list_group_bytes(U, n, d, tau));
+  const long long fit = static_cast<long long>(kListSmemBudget) / per;
+  const int gs_max = fit < 1 ? 1 : fit > G ? G : static_cast<int>(fit);
+  const long long users = B > 0 ? B : 1;
+  int slices = (G + gs_max - 1) / gs_max, k = 1;
+  if (reread) {
+    while (slices < G && users * slices < n_sm) ++slices;
+  } else {
+    const long long want = (long long)n_sm * 4 / users;
+    if (want > slices) slices = want < G ? static_cast<int>(want) : G;
+  }
+  const int Gs = (G + slices - 1) / slices;
+  slices = (G + Gs - 1) / Gs;
+  if (reread)
+    for (k = 4; k > 1 && users * slices * k > (long long)n_sm * 4;) k /= 2;
+  return ListSplit{Gs, slices, 256 * k};
+}
+
+// Lanes a row (Q) of the hash of n rows at width d: eight (bucket_of's
+// team) where all n fit one round of 32 teams, else as few as keep a row's
+// float4 columns within eight float4 registers a lane (1 up to d = 32, 2
+// up to 64, 4 up to 128), so a round hashes threads / Q rows.
+inline int row_lanes(int n, int d) {
+  return n <= 32 ? 8 : d <= 32 ? 1 : d <= 64 ? 2 : 4;
+}
+
+// A row's columns in the registers of a team of Q aligned lanes: lane q
+// holds bucket_of's parts q, q + Q, ... (8 / Q of them; part p is the
+// float4 columns p, p + 8, ... of the row, at most Q of them up to d =
+// 32 * Q): x[s][j] is column (q + s*Q) + 8j, zero past d and where `live`
+// is false.
+template <int Q, typename T>
+__device__ __forceinline__ void row_cols(float4 (&x)[8 / Q][Q], const T* row, int nq,
+                                         bool live) {
+  const int q = threadIdx.x % Q;
+#pragma unroll
+  for (int s = 0; s < 8 / Q; ++s)
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int k4 = q + s * Q + 8 * j;
+      x[s][j] = live && k4 < nq ? load4(row + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+}
+
+// bucket_of's id of the row whose columns the Q-lane team holds (row_cols)
+// in one group (TAU rows r of R, fp32): each lane sums its parts' columns
+// in order from +0 as bucket_of's lane `part` does (dot4), then the parts
+// are added in the order of bucket_of's butterfly (xor 4, 2, 1): the steps
+// between parts one lane holds in the thread, the others by shuffles over
+// the team. The same additions of the same partials (an fp32 sum does not
+// depend on the order of its two operands), so the same bits, with
+// log2(Q) shuffles a projection instead of three (none at d <= 32). Every
+// lane of the warp calls it.
+template <int TAU, int Q>
+__device__ __forceinline__ int bucket_regs(const float4 (&x)[8 / Q][Q], const float* r, int d) {
+  constexpr int P = 8 / Q;
+  const int q = threadIdx.x % Q, nq = d / 4;
+  int u = 0;
+#pragma unroll
+  for (int t = 0; t < TAU; ++t) {
+    float v[P];
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      v[s] = 0.f;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const int k4 = q + s * Q + 8 * j;
+        if (k4 < nq) v[s] = dot4(load4(r + (size_t)t * d + 4 * k4), x[s][j], v[s]);
+      }
+    }
+#pragma unroll
+    for (int h = P / 2; h >= 1; h /= 2)      // xor 4, 2, 1 within the lane: slot s + h
+#pragma unroll
+      for (int s = 0; s < h; ++s) v[s] = v[s] + v[s + h];
+#pragma unroll
+    for (int o = Q / 2; o >= 1; o /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    u |= (v[0] >= 0.f ? 1 : 0) << t;
+  }
+  return u;
+}
+
+// A warp a group, after the CTA has written keys[i] (a bucket, or -1: none)
+// for its rows i < n: one list a bucket, in increasing i: head[u] the first
+// row of bucket u (-1: none), list[i] the row after i in its bucket (-1:
+// the last). Two steps, no atomics:
+// - link_round (a warp a round of 32 rows, the CTA's rounds over its
+//   warps): the lanes of a round with one key find each other with
+//   __match_any_sync; each writes the next lane of its key to list[i] (-1:
+//   none in the round) and the lowest marks its key with kFirstOfRound;
+// - link_heads (one warp, the rounds from the last to the first, the heads
+//   set to -1 before): the round's last row of each key links to the key's
+//   head so far, and its first row becomes the head; each head has one
+//   writer at a time.
+constexpr short kFirstOfRound = 0x4000;   // keys are < 1,024
+
+__device__ __forceinline__ void link_round(short* keys, short* list, int n, int base) {
+  const int lane = threadIdx.x % 32, i = base + lane;
+  const int key = i < n ? keys[i] : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const unsigned higher = peers & ~((2u << lane) - 1u);   // 2u << 31 is 0
+  if (key >= 0) {
+    list[i] = static_cast<short>(higher != 0u ? base + __ffs(higher) - 1 : -1);
+    if ((peers & ((1u << lane) - 1u)) == 0u) keys[i] = static_cast<short>(key | kFirstOfRound);
+  }
+}
+
+__device__ __forceinline__ void link_heads(const short* keys, short* list, int n, short* head) {
+  const int lane = threadIdx.x % 32;
+  for (int base = (n - 1) / 32 * 32; base >= 0; base -= 32) {
+    const int i = base + lane;
+    const int k = i < n ? keys[i] : -1;
+    const int next = i < n ? list[i] : -1;
+    const int key = k & (kFirstOfRound - 1);
+    const int link = k >= 0 && next < 0 ? head[key] : next;  // the round's last row of its key
+    __syncwarp();  // every head read before one is written
+    if (k >= 0 && next < 0) list[i] = static_cast<short>(link);
+    if (k >= 0 && (k & kFirstOfRound)) head[key] = static_cast<short>(i);
+    __syncwarp();
+  }
+}
 
 // seq (B, L, d) fp32|bf16 -> table (B, G, U, d) fp32 (bse_encode.cu's function).
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,

@@ -9,7 +9,9 @@ CPU tensors only; for CUDA tensors it launches the kernel or raises.
 user's signature groups over ``encode_splits`` CTAs, each of which writes
 its slice of the table once (no atomics, no zero-filled output). tau 5..10
 (32..1,024 buckets a group, more than a CTA's registers hold) launch the
-large-tau path (``csrc/bse_encode_large_tau.cu``), as the backward does.
+large-tau path (``csrc/bse_encode_large_tau.cu``: a CTA a slice of
+``encode_large_tau_splits`` whole groups lists the user's rows by bucket
+and writes each cell once), as the backward does.
 
 Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
@@ -50,6 +52,48 @@ def encode_splits(B: int, G: int, U: int, n_sm: int) -> int:
     ``MAX_CELLS`` (group, bucket) sums."""
     s_min = -(-G // (MAX_CELLS // U))
     return max(s_min, min(G, n_sm // max(B, 1)))
+
+
+LIST_SMEM_BUDGET = 48 * 1024   # large_tau.cuh kListSmemBudget: a CTA's shared memory for its groups
+
+
+def large_tau_list_splits(B: int, G: int, U: int, n: int, d: int, tau: int, n_sm: int,
+                          reread: bool) -> tuple[int, int, int]:
+    """(Gs, slices, threads) of the large-tau training kernels that list a
+    user's n rows by bucket (``list_split`` in ``csrc/large_tau.cuh``): a CTA
+    owns Gs whole groups of one user, with their rows of R (tau * d floats a
+    group), a list head and a selected-row slot a bucket and a link and a
+    key a row (shorts) in shared memory, at least as many slices as keep a
+    CTA's groups within ``LIST_SMEM_BUDGET``, each as even as it goes.
+    ``reread`` (the forward, whose every slice reads the user's rows): as
+    few slices as give each of the ``n_sm`` SMs a CTA, and 256 * k threads
+    for the largest k <= 4 that keeps the CTAs within one wave (4 / k an SM);
+    else (the backward) 256 threads and as many slices as fit one wave of
+    four CTAs an SM."""
+    per = 4 * tau * d + 2 * (2 * U + 2 * (-(-n // 8) * 8))
+    gs_max = max(1, min(G, LIST_SMEM_BUDGET // per))
+    users = max(B, 1)
+    slices = -(-G // gs_max)
+    if reread:
+        while slices < G and users * slices < n_sm:
+            slices += 1
+    else:
+        slices = max(slices, min(G, n_sm * 4 // users))
+    Gs = -(-G // slices)
+    slices, k = -(-G // Gs), 1
+    if reread:
+        k = 4
+        while k > 1 and users * slices * k > n_sm * 4:
+            k //= 2
+    return Gs, slices, 256 * k
+
+
+def encode_large_tau_splits(B: int, G: int, U: int, L: int, d: int, tau: int,
+                            n_sm: int) -> tuple[int, int, int]:
+    """(Gs, slices, threads) of the large-tau forward
+    (``csrc/bse_encode_large_tau.cu``): ``large_tau_list_splits`` over the
+    user's L behaviors, which each slice reads."""
+    return large_tau_list_splits(B, G, U, L, d, tau, n_sm, reread=True)
 
 
 def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,

@@ -13,7 +13,8 @@
 // candidate selects (a user's whole table is 512 KB at this shape, a
 // candidate reads 512 bytes of it) and writes its answer: well under a
 // microsecond of bytes, so launch latency sets its time. The backward
-// writes every row of dT and reads the table: 2 * 64 MiB, ~0.04 ms.
+// must write every row of dT (64 MiB, ~0.020 ms); it reads from the table
+// only the rows the candidates select (G a user at C = 1).
 //
 // Forward design (simple first). The grid is (B, ceil(C / 32)): eight lanes
 // a candidate, 32 candidates a CTA. For each group in order the eight lanes
@@ -22,20 +23,43 @@
 // butterfly, and add row / n; then / G. A row selected by several
 // candidates is read and normalized once by each.
 //
-// Backward design. The grid is (B, G, ceil(U / 64)): CTA (b, g, j) hashes
-// every candidate of user b for group g into shared memory (bucket_of, the
-// forward's bits), then eight lanes take each of its 64 rows of the group,
-// 32 rows at a time (lane part: float4 columns part, part + 8, ...): they
-// sum dout / G over the candidates whose bucket is the row's, in c order,
-// and write the row of dT once, with n and t^ . g summed by butterflies
-// over the eight lanes. C up to kMaxBwdCands (the buckets live in shared
-// memory).
+// Backward design. A row no candidate selects
+// has g = 0, so its gradient is +0 for a finite table: it is written
+// without reading the table. The grid is (B, slices) of 256 threads: CTA
+// (b, s) owns the Gs groups of slice s of user b whole (list_split,
+// large_tau.cuh: as many slices as fit one wave of four CTAs an SM), so no
+// two CTAs write one element.
+// - hash: Q lanes a (candidate, group) pair (Q = 8 for up to 32
+//   candidates, so a few candidates' groups hash at once; bucket_regs:
+//   bucket_of's partial sums added in its butterfly's order, the forward's
+//   bits); the candidate rows of the first round load before the barrier
+//   that stages R; where they fit kStageBytes, the user's dout rows and each
+//   pair's selected table row are copied to shared memory (cp.async) as soon
+//   as they are known;
+// - ranking: link_round over the (group, round of 32 candidates) pairs, then
+//   link_heads a warp a group: one list a bucket, in c order
+//   (__match_any_sync, no atomics); a bucket with a list is a selected row,
+//   and the selected rows are listed in order (a ballot a warp, the warps'
+//   counts added in warp order);
+// - selected rows: a team of eight lanes each (lane part: float4 columns
+//   part, part + 8, ...): the table row read once, n and t^ . g summed by
+//   butterflies over the eight lanes and g by a walk of the row's list in c
+//   order, dout / G at a time; a zero dividend
+//   skips the division (div_nz: the IEEE division's slow path, which empty
+//   buckets' zero rows took, held most of a row's time);
+// - zeros: thread i writes +0 to the cells (row, float4 column) i, i + 256,
+//   ... of the unselected rows, 16-byte coalesced stores, evict-first where
+//   dT exceeds the L2 (stream_stores).
+// C up to kMaxBwdCands (the lists live in shared memory).
+// Phase clocks (phase_clocks.py): staging (R, the first rows), hash,
+// ranking (+ its barriers), selected rows, zero stores.
 #include "large_tau.cuh"
+
+PHASE_READER(sdim_query_backward_large_tau_phases)
 
 namespace sdim {
 
-constexpr int kBwdRowsPerCta = 64;
-constexpr int kMaxBwdCands = 16384;
+constexpr int kMaxBwdCands = 16384;   // the lists hold short candidate indices
 
 template <typename TS>
 __global__ void __launch_bounds__(kLargeTauThreads)
@@ -77,67 +101,182 @@ __global__ void __launch_bounds__(kLargeTauThreads)
   }
 }
 
-__global__ void __launch_bounds__(kLargeTauThreads)
+// a / b for b > 0 (or NaN), as IEEE division rounds it, with a zero a
+// returned as it is (its quotient): the division's slow path, which a zero
+// dividend takes, costs more than the rest of a selected row (empty buckets
+// of the table are zero rows). The final dT is the same for any input.
+__device__ __forceinline__ float div_nz(float a, float b) { return a == 0.f ? a : a / b; }
+
+constexpr size_t kStageBytes = 8 * 1024;   // the backward's staged dout and table rows
+
+// Bytes of the backward's staging (its dout rows and the table row each
+// (group, candidate) selects), or 0 where they exceed kStageBytes.
+__host__ __device__ inline size_t stage_bytes(int Gs, int C, int d) {
+  const size_t bytes = sizeof(float) * (size_t)(Gs + 1) * C * d;
+  return bytes <= kStageBytes ? bytes : 0;
+}
+
+constexpr int kBwdThreads = 256, kBwdWarps = kBwdThreads / 32;   // list_split's threads at !reread
+
+template <int TAU, int Q>
+__global__ void __launch_bounds__(kBwdThreads, 4)
     query_backward_large_tau_kernel(const float* __restrict__ dout, const float* __restrict__ q,
                                     const float* __restrict__ table, const float* __restrict__ R,
-                                    float* __restrict__ dT, int C, int G, int U, int d, int tau) {
-  extern __shared__ int sig_s[];  // (C,) bucket of each candidate in group g
-  const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x, nq = d / 4;
-  const int part = tid % kEncodeHashLanes, lanes8 = blockDim.x / kEncodeHashLanes;
-  const float* r = R + (size_t)g * tau * d;
-  for (int base = 0; base < C; base += lanes8) {  // the same trip count for every warp
-    const int c = base + tid / kEncodeHashLanes;
-    const int u = bucket_of(q + ((size_t)b * C + min(c, C - 1)) * d, r, d, tau, c < C);
-    if (c < C && part == 0) sig_s[c] = u;
-  }
+                                    float* __restrict__ dT, int C, int G, int d, int Gs,
+                                    bool evict_first) {
+  constexpr int U = 1 << TAU;
+  extern __shared__ float4 smem4[];
+  __shared__ int count_s[kBwdWarps];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const ListLayout lay = list_layout(Gs, U, C, d, TAU);
+  float* r_s = reinterpret_cast<float*>(smem);                   // (ng*TAU, d)
+  short* head_s = reinterpret_cast<short*>(smem + lay.head);     // (ng, U)
+  short* sel_s = reinterpret_cast<short*>(smem + lay.sel);       // the selected slice rows
+  short* list_s = reinterpret_cast<short*>(smem + lay.list);     // (ng, ceil8(C))
+  short* keys_s = reinterpret_cast<short*>(smem + lay.keys);     // (ng, ceil8(C))
+  // where they fit kStageBytes (few candidates), the candidates' dout rows
+  // and each (group, candidate)'s selected table row are copied to shared
+  // memory as soon as they are known, so the selected rows need no wait on
+  // device memory (stage_s: (C, d) of dout, then (ng, C, d) of the table)
+  const bool staged = stage_bytes(Gs, C, d) > 0;
+  float* stage_s = reinterpret_cast<float*>(smem + lay.total);
+  const int b = blockIdx.x, g0 = blockIdx.y * Gs, ng = min(Gs, G - g0), Cp = ceil8(C);
+  const int tid = threadIdx.x, part = tid % kEncodeHashLanes, lane = tid % 32, warp = tid / 32;
+  const int team = tid / kEncodeHashLanes, teams = blockDim.x / kEncodeHashLanes, nq = d / 4;
+  const float* qb = q + (size_t)b * C * d;
+  const float* doutb = dout + (size_t)b * C * d;
+  const size_t slab = ((size_t)b * G + g0) * U * d;
+  const int per_round = blockDim.x / Q, rows = ng * U;
+  PHASE_BEGIN();
+  float4 xc[8 / Q][Q];  // the first round's candidates load across the barrier
+  row_cols<Q>(xc, qb + (size_t)min(tid / Q / ng, C - 1) * d, nq, tid / Q / ng < C);
+  if (staged)
+    for (int i = tid; i < C * nq; i += blockDim.x) cp_async16(stage_s + 4 * i, doutb + 4 * i, 16);
+  for (int i = tid; i < ng * TAU * d; i += blockDim.x) r_s[i] = R[(size_t)g0 * TAU * d + i];
+  for (int i = tid; i < rows; i += blockDim.x) head_s[i] = -1;
   __syncthreads();
+  PHASE_MARK(0);
+
+  // hash: Q lanes a (candidate, group) pair, threads / Q pairs a round
+  // (pair p: candidate p / ng of group p % ng), so the groups of a few
+  // candidates hash at once
+  for (int base = 0; base < C * ng; base += per_round) {  // the same trip count for every warp
+    const int p = base + tid / Q, c = p / ng, gi = p % ng;
+    if (base > 0) row_cols<Q>(xc, qb + (size_t)min(c, C - 1) * d, nq, c < C);
+    const int u = bucket_regs<TAU, Q>(xc, r_s + (size_t)gi * TAU * d, d);
+    if (c < C) {
+      if (tid % Q == 0) keys_s[(size_t)gi * Cp + c] = static_cast<short>(u);
+      if (staged)
+        for (int k4 = tid % Q; k4 < nq; k4 += Q)
+          cp_async16(stage_s + ((size_t)(1 + gi) * C + c) * d + 4 * k4,
+                     table + slab + ((size_t)gi * U + u) * d + 4 * k4, 16);
+    }
+  }
+  cp_async_commit();
+  __syncthreads();
+  PHASE_MARK(1);
+
+
+  // ranking: each group's candidates into one list a bucket, c order; then
+  // the selected slice rows listed in order: a ballot a warp, the warps'
+  // counts added in warp order
+  const int rounds = (C + 31) / 32;
+  for (int k = warp; k < ng * rounds; k += kBwdWarps)  // (group, round) k
+    link_round(keys_s + (size_t)(k / rounds) * Cp, list_s + (size_t)(k / rounds) * Cp, C,
+               k % rounds * 32);
+  __syncthreads();
+  for (int gi = warp; gi < ng; gi += kBwdWarps)
+    link_heads(keys_s + (size_t)gi * Cp, list_s + (size_t)gi * Cp, C, head_s + gi * U);
+  cp_async_wait<0>();  // the staged rows land before the barrier that publishes them
+  __syncthreads();
+  int n_sel = 0;
+  for (int base = 0; base < rows; base += blockDim.x) {  // the same trip count for every warp
+    const int row = base + tid;
+    const bool sel = row < rows && head_s[row] >= 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, sel);
+    if (lane == 0) count_s[warp] = __popc(ballot);
+    __syncthreads();
+    int at = n_sel;
+    for (int v = 0; v < kBwdWarps; ++v) {
+      if (v < warp) at += count_s[v];
+      n_sel += count_s[v];
+    }
+    if (sel) sel_s[at + __popc(ballot & ((1u << lane) - 1u))] = static_cast<short>(row);
+    __syncthreads();
+  }
+  PHASE_MARK(2);
+
+  // the selected rows: a team of eight lanes each (lane part: float4
+  // columns part, part + 8, ...)
   const float fG = static_cast<float>(G);
-  const int u0 = blockIdx.z * kBwdRowsPerCta, u_end = min(U, u0 + kBwdRowsPerCta);
-  for (int ub = u0; ub < u_end; ub += lanes8) {  // the same trip count for every warp
-    const int u = ub + tid / kEncodeHashLanes;
-    const bool on = u < u_end;
-    const size_t off = (((size_t)b * G + g) * U + min(u, U - 1)) * d;
+  for (int k0 = 0; k0 < n_sel; k0 += teams) {  // the same trip count for every warp
+    const bool on = k0 + team < n_sel;
+    const int row = on ? sel_s[k0 + team] : 0;
+    const int first = on ? head_s[row] : -1;   // the row's first candidate
+    const float* trow = staged ? stage_s + ((size_t)(1 + (row >> TAU)) * C + max(first, 0)) * d
+                               : table + slab + (size_t)row * d;
     float4 gv[kLargeTauCols], t[kLargeTauCols];
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < kLargeTauCols; ++j) {
       const int k4 = part + j * kEncodeHashLanes;
       gv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-      t[j] = on && k4 < nq ? load4(table + off + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      t[j] = on && k4 < nq ? load4(trow + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
       ss = dot4(t[j], t[j], ss);
     }
-    if (on)
-      for (int c = 0; c < C; ++c)
-        if (sig_s[c] == u) {
-          const float* dv = dout + ((size_t)b * C + c) * d;
+    const short* next = list_s + (size_t)(row >> TAU) * Cp;
+    for (int c = first; c >= 0; c = next[c]) {  // the row's candidates, c order
+      const float* dv = (staged ? stage_s : doutb) + (size_t)c * d;
 #pragma unroll
-          for (int j = 0; j < kLargeTauCols; ++j) {
-            const int k4 = part + j * kEncodeHashLanes;
-            if (k4 < nq) {
-              const float4 v = load4(dv + 4 * k4);
-              gv[j] = make_float4(gv[j].x + v.x / fG, gv[j].y + v.y / fG, gv[j].z + v.z / fG,
-                                  gv[j].w + v.w / fG);
-            }
-          }
+      for (int j = 0; j < kLargeTauCols; ++j) {
+        const int k4 = part + j * kEncodeHashLanes;
+        if (k4 < nq) {
+          const float4 v = load4(dv + 4 * k4);
+          gv[j] = make_float4(gv[j].x + div_nz(v.x, fG), gv[j].y + div_nz(v.y, fG),
+                              gv[j].z + div_nz(v.z, fG), gv[j].w + div_nz(v.w, fG));
         }
+      }
+    }
     const float norm = sqrtf(lane_group_sum<kEncodeHashLanes>(ss) + 1e-12f);
     float dot = 0.f;
 #pragma unroll
     for (int j = 0; j < kLargeTauCols; ++j) {
-      t[j] = make_float4(t[j].x / norm, t[j].y / norm, t[j].z / norm, t[j].w / norm);  // t^
+      t[j] = make_float4(div_nz(t[j].x, norm), div_nz(t[j].y, norm), div_nz(t[j].z, norm),
+                         div_nz(t[j].w, norm));  // t^
       dot = dot4(t[j], gv[j], dot);
     }
     dot = lane_group_sum<kEncodeHashLanes>(dot);
-    if (!on) continue;
+    if (on) {
 #pragma unroll
-    for (int j = 0; j < kLargeTauCols; ++j) {
-      const int k4 = part + j * kEncodeHashLanes;
-      if (k4 < nq)
-        store4(dT + off + 4 * k4,
-               make_float4((gv[j].x - t[j].x * dot) / norm, (gv[j].y - t[j].y * dot) / norm,
-                           (gv[j].z - t[j].z * dot) / norm, (gv[j].w - t[j].w * dot) / norm));
+      for (int j = 0; j < kLargeTauCols; ++j) {
+        const int k4 = part + j * kEncodeHashLanes;
+        if (k4 < nq)
+          store4(dT + slab + (size_t)row * d + 4 * k4,
+                 make_float4(div_nz(gv[j].x - t[j].x * dot, norm),
+                             div_nz(gv[j].y - t[j].y * dot, norm),
+                             div_nz(gv[j].z - t[j].z * dot, norm),
+                             div_nz(gv[j].w - t[j].w * dot, norm)));
+      }
     }
   }
+  PHASE_MARK(3);
+
+  // zeros: cell i = (slice row i / nq, float4 column i % nq), i = tid, tid +
+  // 256, ...: +0 where the row (gi * U + u) is not selected, with no table
+  // read
+  const int drow = blockDim.x / nq, dk = blockDim.x % nq;
+  for (int row = tid / nq, k4 = tid % nq; row < rows;) {
+    if (head_s[row] < 0)
+      store4(dT + slab + (size_t)row * d + 4 * k4, make_float4(0.f, 0.f, 0.f, 0.f), evict_first);
+    row += drow;
+    k4 += dk;
+    if (k4 >= nq) {
+      k4 -= nq;
+      ++row;
+    }
+  }
+  PHASE_MARK(4);
+  PHASE_END();
 }
 
 static bool large_tau_query_ok(int B, int C, int G, int U, int d, int tau) {
@@ -170,20 +309,53 @@ cudaError_t launch_query_large_tau(const void* table, int table_dtype, const flo
   }
 }
 
+template <int TAU, int Q>
+static cudaError_t query_backward_large_tau(const float* dout, const float* q,
+                                            const float* table, const float* R, float* dT,
+                                            int B, int C, int G, int d, cudaStream_t stream) {
+  constexpr int U = 1 << TAU;
+  const ListSplit sp = list_split(B, G, U, C, d, TAU, sm_count(), false);
+  const size_t smem = list_layout(sp.Gs, U, C, d, TAU).total + stage_bytes(sp.Gs, C, d);
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(query_backward_large_tau_kernel<TAU, Q>), smem);
+  if (err != cudaSuccess) return err;
+  query_backward_large_tau_kernel<TAU, Q><<<dim3(B, sp.slices), kBwdThreads, smem, stream>>>(
+      dout, q, table, R, dT, C, G, d, sp.Gs, stream_stores(sizeof(float) * B * G * U * d));
+  return cudaGetLastError();
+}
+
+template <int TAU>
+static cudaError_t query_backward_lanes(const float* dout, const float* q, const float* table,
+                                        const float* R, float* dT, int B, int C, int G, int d,
+                                        cudaStream_t stream) {
+  switch (row_lanes(C, d)) {
+    case 8: return query_backward_large_tau<TAU, 8>(dout, q, table, R, dT, B, C, G, d, stream);
+    case 1: return query_backward_large_tau<TAU, 1>(dout, q, table, R, dT, B, C, G, d, stream);
+    case 2: return query_backward_large_tau<TAU, 2>(dout, q, table, R, dT, B, C, G, d, stream);
+    default: return query_backward_large_tau<TAU, 4>(dout, q, table, R, dT, B, C, G, d, stream);
+  }
+}
+
 cudaError_t launch_query_backward_large_tau(const float* dout, const float* q,
                                             const float* table, const float* R, float* dT,
                                             int B, int C, int G, int U, int d, int tau,
                                             cudaStream_t stream) {
   if (!large_tau_query_ok(B, C, G, U, d, tau) || C > kMaxBwdCands) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const size_t smem = sizeof(int) * (C > 0 ? C : 1);
-  const void* fn = reinterpret_cast<const void*>(query_backward_large_tau_kernel);
-  cudaError_t err = allow_smem(fn, smem);
-  if (err != cudaSuccess) return err;
-  query_backward_large_tau_kernel<<<dim3(B, G, (U + kBwdRowsPerCta - 1) / kBwdRowsPerCta),
-                                    kLargeTauThreads, smem, stream>>>(dout, q, table, R, dT, C,
-                                                                      G, U, d, tau);
-  return cudaGetLastError();
+  switch (tau) {
+#define SDIM_QUERY_BWD_TAU(t) \
+  case t:                     \
+    return query_backward_lanes<t>(dout, q, table, R, dT, B, C, G, d, stream);
+    SDIM_QUERY_BWD_TAU(5)
+    SDIM_QUERY_BWD_TAU(6)
+    SDIM_QUERY_BWD_TAU(7)
+    SDIM_QUERY_BWD_TAU(8)
+    SDIM_QUERY_BWD_TAU(9)
+    SDIM_QUERY_BWD_TAU(10)
+#undef SDIM_QUERY_BWD_TAU
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sdim

@@ -14,7 +14,9 @@ entry point launches the wide path instead (``csrc/wide_query.cuh``: the
 cluster splits the columns and merges its partial sums in rank order); a
 shape neither launches raises. tau 5..10 (32..1,024 buckets a group) launch
 the large-tau path (``csrc/sdim_query_large_tau.cu``: each candidate reads
-and normalizes only the G rows it selects), as the backward does.
+and normalizes only the G rows it selects), as the backward does (a CTA a
+slice of ``query_backward_large_tau_splits`` whole groups lists the
+candidates by bucket, reads only the selected rows and writes the rest +0).
 
 Where autograd records the call (grad mode on, the table requiring grad)
 the wrapper goes through ``SDIMQueryFn``, whose backward is
@@ -37,9 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
-from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, large_tau_list_splits
 
-MAX_BWD_CANDS = 16384   # the large-tau backward's candidate buckets in shared memory
+MAX_BWD_CANDS = 16384   # the large-tau backward's candidate lists in shared memory
 
 
 def sdim_query_ref(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor,
@@ -130,6 +132,14 @@ def query_backward_splits(B: int, G: int, n_sm: int) -> int:
     of shared memory): as many as fill the ``n_sm`` SMs in one wave at two
     CTAs an SM, at most G."""
     return max(1, min(G, 2 * n_sm // max(B, 1)))
+
+
+def query_backward_large_tau_splits(B: int, G: int, U: int, C: int, d: int, tau: int,
+                                    n_sm: int) -> tuple[int, int, int]:
+    """(Gs, slices, threads) of the large-tau backward
+    (``csrc/sdim_query_large_tau.cu``): ``large_tau_list_splits`` over the
+    user's C candidates."""
+    return large_tau_list_splits(B, G, U, C, d, tau, n_sm, reread=False)
 
 
 def sdim_query_backward(dout: torch.Tensor, q: torch.Tensor, table: torch.Tensor,

@@ -107,6 +107,8 @@ LARGE_TAU_SHAPES = [  # (B, L, C, d, m, tau): the large-tau paths (large_tau.cuh
     (2, 1100, 70, 16, 12, 6),    # two passes of rows; three CTAs of candidates
     (3, 60, 40, 128, 20, 10),    # d = 128: eight slices a group
     (2, 50, 2, 36, 14, 7),       # dien's width d = 36
+    (16, 1024, 128, 128, 40, 10),  # the decoupled deployment's history ingest at tau = 10
+    (3, 300, 2000, 36, 14, 7),   # C = 2,000 over U = 128: candidates share buckets
 ]
 
 
@@ -118,7 +120,9 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
     """tau 5..10: bse_encode (fp32|bf16 behaviors), sdim_query (off the
     fp32 table and its bf16 wire copy) and both backward kernels against
     their plain versions; two launches give the same bits; a fully masked
-    user gets a zero table and gradient."""
+    user gets a zero table and gradient; the rows of dT that no candidate
+    selects are +0 and equal the plain version's (which holds -0 there
+    where a product with a negative dout was not summed with +0)."""
     B, L, C, d, m, tau = shape
     seq, q, mask, R, rng = _inputs(shape, dev, dtype, seed=tau)
     mask = _layout(mask, layout, rng)
@@ -133,8 +137,13 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
         assert torch.equal(out, sdim_query(q, wire, R, tau))
     dout = torch.from_numpy(rng.standard_normal((B, C, d)).astype(np.float32)).to(dev)
     dT = sdim_query_backward(dout, q, table, R, tau)
-    torch.testing.assert_close(dT, sdim_query_backward_ref(dout, q, table, R, tau), **FP32)
+    dT_ref = sdim_query_backward_ref(dout, q, table, R, tau)
+    torch.testing.assert_close(dT, dT_ref, **FP32)
     assert torch.equal(dT, sdim_query_backward(dout, q, table, R, tau))
+    hits = torch.nn.functional.one_hot(simhash.signatures(q, R, tau).long(), 1 << tau)
+    unselected = hits.sum(1) == 0                          # (B, G, U)
+    assert torch.equal(dT[unselected], dT_ref[unselected])  # the plain version's -0 is 0
+    assert not dT[unselected].view(torch.int32).any()      # +0: no sign bit
     dseq = bse_encode_backward(dT, seq, mask, R, tau)
     tol = BF16_OUT if dtype == torch.bfloat16 else FP32
     torch.testing.assert_close(dseq, bse_encode_backward_ref(dT, seq, mask, R, tau), **tol)

@@ -53,12 +53,18 @@ run here; this pins the algebra they implement.
   dS * seq summed per row group and merged in order: dq) and a CTA per 32
   rows that loops over the candidates in order (dseq);
 - the large-tau paths (large_tau.cuh, tau 5..10): bse_encode gives CTA
-  (b, g, j) a slice of group g's buckets, at most 64 KB of them, and adds
-  each pass of 1,024 rows into the slice in row order; its backward
-  gathers a row's G rows of dT in group order; sdim_query sums each
-  candidate's G selected rows, each over its own norm, in g order, then
-  / G; its backward gives CTA (b, g, j) 64 rows of group g and adds
-  dout / G of the candidates that select a row in c order; sdim_update
+  (b, s) the Gs whole groups of slice s (``encode_large_tau_splits``),
+  hashes each valid row once for each of them, links each group's rows
+  into one list a bucket in row order (link_round, then link_heads) and
+  writes every cell once, its list's rows added in order from zero; its
+  backward gathers a row's G rows of dT in group order; sdim_query sums
+  each candidate's G selected rows, each over its own norm, in g order,
+  then / G; its backward gives CTA (b, s) the Gs groups of slice s
+  (``query_backward_large_tau_splits``), lists the candidates by bucket
+  the same way, reads each selected row once and adds dout / G of its
+  list in c order, and writes the unselected rows +0 without reading the
+  table (``test_large_tau_training_schedules_at_the_list_edges``: every
+  row in one bucket, each in its own, C > U, L = 0, C = 0); sdim_update
   gives CTA (b, g) group g of its slot (first batch row its owner), lists
   the cells the owned rows' weighted events reach in u order, and folds
   each from the stored cell, row by row in b order, events in e order;
@@ -103,11 +109,13 @@ from repro.kernels.sdim_update.sdim_update import sdim_update as jsdim_update
 from repro.kernels.target_attn.ref import target_attention_ref as jtarget_attention_ref
 from repro.serve import quant as jquant
 from repro_torch.kernels.screen import screened_normal
-from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_CELLS, encode_splits
+from repro_torch.kernels.sdim_bucket.sdim_bucket import (MAX_CELLS, encode_large_tau_splits,
+                                                         encode_splits)
 from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
                                                          update_splits)
 from repro_torch.kernels.sdim_bucket.sdim_bucket import backward_splits
-from repro_torch.kernels.sdim_query.sdim_query import query_backward_splits
+from repro_torch.kernels.sdim_query.sdim_query import (query_backward_large_tau_splits,
+                                                       query_backward_splits)
 from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape, serve_large_tau_splits
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
@@ -896,41 +904,85 @@ def test_sdim_query_wide_schedule_matches_jax(shape):
 # ---------------------------------------------------------------------------
 # the large-tau paths (large_tau.cuh: tau 5..10, 32..1,024 buckets a group)
 # ---------------------------------------------------------------------------
-LT_PASS = 1024               # bse_encode_large_tau.cu kPass
-LT_SLICE_BYTES = 64 * 1024   # its kSliceBytes
-LT_BWD_ROWS = 64             # sdim_query_large_tau.cu kBwdRowsPerCta
+def _link_lists(keys, U):
+    """large_tau.cuh's link_rounds and link_heads in numpy. link_rounds, a
+    round of 32 keys (a lane each) at a time: each keyed lane links to the
+    next lane of its key in the round (-1: none) and the lowest lane of a
+    key is marked first. link_heads, the rounds from the last to the first:
+    every lane reads first (a round's last lane of a key reads the key's
+    head so far), then the last lane writes that as its link and the first
+    lane becomes the key's head. Returns head (U,) and the links (n,) (-1:
+    none)."""
+    n = len(keys)
+    link = np.full(n, -1, np.int64)
+    first = np.zeros(n, bool)
+    for base in range(0, n, 32):                     # link_rounds
+        lanes = range(base, min(base + 32, n))
+        for i in lanes:
+            if keys[i] >= 0:
+                peers = [j for j in lanes if keys[j] == keys[i]]
+                link[i] = next((j for j in peers if j > i), -1)
+                first[i] = peers[0] == i
+    head = np.full(U, -1, np.int64)
+    for base in range(max(n - 1, 0) // 32 * 32, -1, -32):   # link_heads
+        lanes = [i for i in range(base, min(base + 32, n)) if keys[i] >= 0]
+        read = {i: head[keys[i]] for i in lanes if link[i] < 0}
+        for i, nxt in read.items():                  # after every read
+            link[i] = nxt
+        for i in lanes:
+            if first[i]:
+                head[keys[i]] = i
+    return head, link
 
 
-def _lt_slice_buckets(U, d):
-    ut = U
-    while ut > 1 and ut * d * 4 > LT_SLICE_BYTES:
-        ut //= 2
-    return ut
+def _walk(head, link, u):
+    """The rows of bucket u's list, in list order."""
+    rows, r = [], head[u]
+    while r >= 0:
+        rows.append(int(r))
+        r = link[r]
+    return rows
 
 
-def encode_large_tau_schedule(seq, mask, R, tau):
-    """bse_encode_large_tau.cu's forward in numpy fp32: CTA (b, g, j) owns
-    buckets [j*UT, (j+1)*UT) of group g and adds the rows of each pass of
-    kPass whose bucket it owns, in row order. Returns the table and the
-    write counts."""
+def encode_large_tau_schedule(seq, mask, R, tau, n_sm=132):
+    """bse_encode_large_tau.cu's forward in numpy fp32: CTA (b, s) owns the
+    Gs groups of slice s (``encode_large_tau_splits``); it hashes each row
+    of nonzero weight once for each of its groups, links each group's rows
+    into one list a bucket (``_link_lists``), and each cell adds its
+    bucket's rows in list order from zero and is written once, zeros
+    included. L = 0 launches nothing (the wrapper returns zeros). Returns
+    the table, the write counts of its rows and the hash count of each
+    (row, group)."""
     B, L, d = seq.shape
     G, U = R.shape[0] // tau, 1 << tau
-    UT = _lt_slice_buckets(U, d)
     Rg = R.reshape(G, tau, d)
     out = np.full((B, G, U, d), np.nan, np.float32)
     writes = np.zeros((B, G, U), np.int64)
+    hashes = np.zeros((B, L, G), np.int64)
+    if L == 0:
+        return np.zeros((B, G, U, d), np.float32), writes + 1, hashes
+    Gs, slices, _ = encode_large_tau_splits(B, G, U, L, d, tau, n_sm)
+    assert (slices - 1) * Gs < G <= slices * Gs
     for b in range(B):
-        for g in range(G):
-            for u0 in range(0, U, UT):
-                cells = np.zeros((UT, d), np.float32)
-                for l0 in range(0, L, LT_PASS):
-                    x, w = seq[b, l0:l0 + LT_PASS], mask[b, l0:l0 + LT_PASS]
-                    sig = _signatures(x, Rg[g:g + 1], tau)[:, 0] - u0
-                    for r in np.flatnonzero((w != 0) & (sig >= 0) & (sig < UT)):   # row order
-                        cells[sig[r]] = cells[sig[r]] + w[r] * x[r]
-                out[b, g, u0:u0 + UT] = cells
-                writes[b, g, u0:u0 + UT] += 1
-    return out, writes
+        x, w = seq[b].astype(np.float32), mask[b]
+        live = w != 0
+        for s in range(slices):
+            for g in range(s * Gs, min(G, (s + 1) * Gs)):
+                keys = np.where(live, _signatures(x, Rg[g:g + 1], tau)[:, 0], -1)
+                hashes[b, live, g] += 1
+                head, link = _link_lists(keys, U)
+                listed = []
+                for u in range(U):
+                    rows = _walk(head, link, u)
+                    assert rows == sorted(rows) and (keys[rows] == u).all()   # l order
+                    listed += rows
+                    acc = np.zeros(d, np.float32)
+                    for r in rows:
+                        acc = acc + w[r] * x[r]
+                    out[b, g, u] = acc
+                    writes[b, g, u] += 1
+                assert sorted(listed) == np.flatnonzero(live).tolist()
+    return out, writes, hashes
 
 
 def encode_backward_large_tau_schedule(dT, seq, mask, R, tau):
@@ -963,38 +1015,93 @@ def query_large_tau_schedule(q, table, R, tau):
     return out / np.float32(G)
 
 
-def query_backward_large_tau_schedule(dout, q, table, R, tau):
-    """The large-tau backward: CTA (b, g, j) owns rows [64j, 64j + 64) of
-    group g, adds dout / G of each candidate that selects a row in c order,
-    then writes (g - t^ (t^ . g)) / n. Returns dT and the write counts."""
+def query_backward_large_tau_schedule(dout, q, table, R, tau, n_sm=132):
+    """sdim_query_large_tau.cu's backward in numpy fp32: CTA (b, s) owns the
+    Gs groups of slice s (``query_backward_large_tau_splits``); it hashes
+    each candidate once for each of its groups and links them into one list
+    a bucket; a bucket without a list is written +0 without a table read,
+    a selected one reads its table row once, adds dout / G of its list's
+    candidates in list order and writes (g - t^ (t^ . g)) / n. Returns dT,
+    the write counts of its rows and the table rows' read counts."""
     B, C, d = q.shape
     G, U = R.shape[0] // tau, 1 << tau
+    Gs, slices, _ = query_backward_large_tau_splits(B, G, U, C, d, tau, n_sm)
+    assert (slices - 1) * Gs < G <= slices * Gs
     sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
     out = np.full((B, G, U, d), np.nan, np.float32)
     writes = np.zeros((B, G, U), np.int64)
+    reads = np.zeros((B, G, U), np.int64)
+    for b in range(B):
+        for s in range(slices):
+            for g in range(s * Gs, min(G, (s + 1) * Gs)):
+                head, link = _link_lists(sig[b, :, g], U)
+                for u in range(U):
+                    writes[b, g, u] += 1
+                    cands = _walk(head, link, u)
+                    if not cands:
+                        out[b, g, u] = 0.0
+                        continue
+                    assert cands == sorted(cands) and (sig[b, cands, g] == u).all()   # c order
+                    gv = np.zeros(d, np.float32)
+                    for c in cands:
+                        gv = gv + dout[b, c] / np.float32(G)
+                    t = table[b, g, u]
+                    reads[b, g, u] += 1
+                    n = np.sqrt(np.sum(t * t) + np.float32(1e-12))
+                    th = t / n
+                    out[b, g, u] = (gv - th * np.sum(th * gv)) / n
+    return out, writes, reads
+
+
+def _selected(q, R, tau):
+    """(B, G, U) bool: the buckets the candidates select."""
+    B, C, d = q.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
+    sel = np.zeros((B, G, U), bool)
     for b in range(B):
         for g in range(G):
-            for u0 in range(0, U, LT_BWD_ROWS):
-                u1 = min(U, u0 + LT_BWD_ROWS)
-                gv = np.zeros((u1 - u0, d), np.float32)
-                for c in range(C):                    # c order
-                    if u0 <= sig[b, c, g] < u1:
-                        gv[sig[b, c, g] - u0] += dout[b, c] / np.float32(G)
-                t = table[b, g, u0:u1]
-                n = np.sqrt(np.sum(t * t, -1, keepdims=True) + np.float32(1e-12))
-                th = t / n
-                out[b, g, u0:u1] = (gv - th * np.sum(th * gv, -1, keepdims=True)) / n
-                writes[b, g, u0:u1] += 1
-    return out, writes
+            sel[b, g, sig[b, :, g]] = True
+    return sel
+
+
+def _check_large_tau_training(seq, q, mask, R, tau, dout):
+    """The four large-tau training schedules against the JAX package: the
+    encode against its bucket-table oracle, every cell written once and every
+    valid (row, group) hashed once; the query against its oracle; both
+    backward schedules against jax.grad of its XLA formulation, every row
+    of dT written once, only the selected rows read, the others +0."""
+    B, L, d = seq.shape
+    C = q.shape[1]
+    jtable = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask), jnp.asarray(R), tau))
+    table, writes, hashes = encode_large_tau_schedule(seq, mask, R, tau)
+    assert (writes == 1).all()
+    assert (hashes == (mask != 0)[..., None]).all()
+    np.testing.assert_allclose(table, jtable, **FP32)
+    if C:
+        out = query_large_tau_schedule(q, jtable, R, tau)
+        ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(jtable), jnp.asarray(R),
+                                         tau))
+        np.testing.assert_allclose(out, ref, **FP32)
+    _, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
+    dT, writes, reads = query_backward_large_tau_schedule(dout, q, jtable, R, tau)
+    assert (writes == 1).all()
+    sel = _selected(q, R, tau)
+    assert (reads == sel).all()
+    assert not dT[~sel].any() and not np.signbit(dT[~sel]).any()    # +0, unread
+    np.testing.assert_allclose(dT, jdT, **FP32)
+    dseq = encode_backward_large_tau_schedule(jdT, seq, mask, R, tau)
+    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    return table, dT, dseq
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("shape", [
     (2, 40, 3, 32, 10, 5),       # U = 32
     (2, 256, 1, 32, 45, 5),      # Table 4's tau = 5 training shape (m = 45), two users
-    (2, 256, 1, 32, 40, 10),     # Table 4's tau = 10 (m = 40, U = 1,024): two slices a group
-    (1, 1100, 70, 16, 12, 6),    # two passes of rows; two candidate hash rounds
-    (1, 60, 3, 128, 20, 10),     # d = 128: eight slices of 128 buckets a group
+    (2, 256, 1, 32, 40, 10),     # Table 4's tau = 10 (m = 40, U = 1,024)
+    (1, 1100, 70, 16, 12, 6),    # 35 rounds of links; two candidate hash rounds
+    (1, 60, 3, 128, 20, 10),     # d = 128
     (2, 50, 2, 36, 14, 7),       # dien's width d = 36
 ], ids=["U32", "table4-tau5", "table4-tau10", "two-passes", "d128", "d36"])
 def test_large_tau_schedules_match_jax(shape, layout):
@@ -1009,21 +1116,96 @@ def test_large_tau_schedules_match_jax(shape, layout):
     q = screened_normal(rng, (B, C, d), R)
     mask = _mask(rng, B, L, layout)
     dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    jtable = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask), jnp.asarray(R), tau))
-    table, writes = encode_large_tau_schedule(seq, mask, R, tau)
-    assert (writes == 1).all()
-    np.testing.assert_allclose(table, jtable, **FP32)
-    out = query_large_tau_schedule(q, jtable, R, tau)
-    ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(jtable), jnp.asarray(R), tau))
-    np.testing.assert_allclose(out, ref, **FP32)
-    _, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
-    dT, writes = query_backward_large_tau_schedule(dout, q, jtable, R, tau)
-    assert (writes == 1).all()
-    np.testing.assert_allclose(dT, jdT, **FP32)
-    dseq = encode_backward_large_tau_schedule(jdT, seq, mask, R, tau)
-    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    table, _, dseq = _check_large_tau_training(seq, q, mask, R, tau, dout)
     if B > 1:
         assert not table[-1].any() and not dseq[-1].any()
+
+
+def _distinct_rows(rng, n, R, tau):
+    """n margin-screened rows of R's width whose buckets in group 0 differ."""
+    d = R.shape[1]
+    pool = screened_normal(rng, (64 * n, d), R)
+    sig = _signatures(pool, R[:tau].reshape(1, tau, d), tau)[:, 0]
+    _, first = np.unique(sig, return_index=True)
+    assert len(first) >= n
+    return pool[np.sort(first)[:n]]
+
+
+@pytest.mark.parametrize("case", ["one-bucket", "distinct", "C>U", "L0", "C0"])
+def test_large_tau_training_schedules_at_the_list_edges(case):
+    """The two list-building schedules where the lists are extreme: every
+    valid row (and candidate) in one bucket of each group (one list of all
+    of them, in order); every row and candidate in a bucket of its own (G =
+    1, tau = 10: lists of one); C > U, so candidates repeat buckets (tau =
+    5, C = 100); L = 0 (no launch: a zero table, a zero gradient) and C = 0
+    (every row of dT +0, no table row read)."""
+    rng = np.random.default_rng(31)
+    B, L, C, d, m, tau = dict(distinct=(2, 40, 40, 32, 10, 10), L0=(2, 0, 8, 32, 10, 5),
+                              C0=(2, 40, 0, 32, 40, 10)).get(case, (2, 120, 100, 32, 10, 5))
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    mask = _mask(rng, B, L, "random")
+    if case == "distinct":
+        seq = np.stack([_distinct_rows(rng, L, R, tau) for _ in range(B)])
+        q = seq[:, rng.permutation(L)[:C]].copy()
+    else:
+        seq = screened_normal(rng, (B, L, d), R)
+        q = screened_normal(rng, (B, C, d), R)
+    if case == "one-bucket":                     # positive multiples of one row
+        seq = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, L, 1))).astype(np.float32)
+        q = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, C, 1))).astype(np.float32)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    table, dT, _ = _check_large_tau_training(seq, q, mask, R, tau, dout)
+    G, U = m // tau, 1 << tau
+    sel = _selected(q, R, tau)
+    nonzero = np.abs(table).sum(-1) > 0
+    if case == "one-bucket":
+        assert (nonzero[:-1].sum(-1) == 1).all() and (sel.sum(-1) == 1).all()
+    if case == "distinct":
+        assert (nonzero[:-1].sum(-1) == (mask[:-1] != 0).sum(-1)[:, None]).all()
+        assert (sel.sum(-1) == C).all()
+    if case == "C>U":
+        assert C > U and (sel.sum(-1) < C).all()
+    if case in ("L0", "C0"):
+        assert not table.any() if case == "L0" else not dT.any()
+
+
+@pytest.mark.parametrize("kernel, B, G, U, n, d, tau, want", [
+    # the forward (n = L): as few slices as give the 132 SMs a CTA each
+    ("encode", 128, 9, 32, 256, 32, 5, (5, 2, 512)),       # Table 4's tau 5: 256 CTAs
+    ("encode", 128, 4, 1024, 256, 32, 10, (2, 2, 512)),    # Table 4's tau 10: 256 CTAs
+    ("encode", 16, 4, 1024, 1024, 128, 10, (1, 4, 1024)),  # the ingest at tau 10: 64 CTAs
+    ("encode", 16, 9, 32, 1024, 128, 5, (1, 9, 512)),      # the ingest at tau 5: 144 CTAs
+    ("encode", 4096, 12, 1024, 256, 128, 10, (4, 3, 256)),  # a large batch: 4 groups in 48 KB
+    ("encode", 1, 4, 1024, 32768, 128, 10, (1, 4, 1024)),   # the longest history
+    ("encode", 0, 9, 32, 256, 32, 5, (1, 9, 1024)),        # no user
+    # the backward (n = C): as many slices as fit one wave of 256 threads
+    ("query_backward", 128, 9, 32, 1, 32, 5, (3, 3, 256)),     # Table 4's tau 5: 384 CTAs
+    ("query_backward", 128, 4, 1024, 1, 32, 10, (1, 4, 256)),  # Table 4's tau 10: 512 CTAs
+    ("query_backward", 3, 2, 128, 2000, 36, 7, (1, 2, 256)),   # C = 2,000: 16 KB of lists a group
+    ("query_backward", 1, 4, 1024, 16384, 128, 10, (1, 4, 256)),  # the most candidates
+    ("query_backward", 4096, 12, 1024, 1, 128, 10, (4, 3, 256)),  # a large batch
+])
+def test_large_tau_list_splits_fill_one_wave(kernel, B, G, U, n, d, tau, want):
+    """The large-tau training kernels' split (large_tau.cuh list_split): a
+    CTA's groups within 48 KB of shared memory (one group at least), each
+    slice as even as it goes, the CTAs within one wave of the 132 SMs
+    (1,024 / threads * 4 CTAs of 64 registers a thread an SM) where the
+    groups allow; the forward with as few slices (re-reads of a user's rows)
+    as give every SM a CTA, the backward with as many as fill the wave."""
+    split = (encode_large_tau_splits(B, G, U, n, d, tau, n_sm=132) if kernel == "encode" else
+             query_backward_large_tau_splits(B, G, U, n, d, tau, n_sm=132))
+    Gs, slices, threads = split
+    assert split == want
+    assert (slices - 1) * Gs < G <= slices * Gs and threads in (256, 512, 1024)
+    per = 4 * tau * d + 2 * (2 * U + 2 * (-(-n // 8) * 8))
+    gs_max = max(1, min(G, 48 * 1024 // per))
+    assert Gs <= gs_max
+    wave = 132 * 4 * 256 // threads
+    assert max(B, 1) * slices <= wave or slices == -(-G // gs_max)
+    if kernel == "encode":      # fewer slices would leave an SM without a CTA
+        assert slices == -(-G // gs_max) or max(B, 1) * (slices - 1) < 132
+    else:                       # more slices would overflow the wave
+        assert slices == G or max(B, 1) * -(-G // max(Gs - 1, 1)) > 132 * 4 or Gs == 1
 
 
 # the three serving paths at tau 5..10 (sdim_update_large_tau.cu,
