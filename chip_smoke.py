@@ -32,7 +32,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    target_attention_flash_backward) are held against their closed-form
    plain versions at the training step's shapes (B=32, L=1024, C=1) and at
    C=128, with bf16 behaviors, fully masked users and C=0 / L=0, give the
-   same bits on two launches and are timed at C=1. target_attention_flash
+   same bits on two launches and are timed at C=1 (the target backward
+   beside SDPA's efficient-attention backward plus dk + dv, its library
+   yardstick; bse_encode_backward's buckets of unscreened rows checked
+   against bse_encode's at the width). target_attention_flash
    and its backward are also held and timed at the retrieval kinds' folded
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
    retrieved; some with fewer valid rows, some with none). Then the same
@@ -400,7 +403,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    and 10 through their large-tau paths; Table 4's launches printed by
    tau). (d) each kernel at the phase's shapes
    against its plain version on screened inputs, uncounted
-   (``bench_kernel_checks``). Prints the phase's wall time.
+   (``bench_kernel_checks``); target_attention_flash_backward at the Table
+   2/3 protocol's ``target`` step (128, 1, 256, 32) and at its retrieval
+   kinds' folded one (128 users of one candidate, L = k = 16, d = 32),
+   each timed beside its plain version, SDPA's backward and its least-work
+   bound (the ``protocol`` entry of its JSON row; bse_encode_backward's
+   ``sdim`` step is Table 4's tau 3 row); bse_encode_backward's buckets of
+   unscreened rows equal bse_encode's at tau 2, 3 and 4 (with dT[b, g, u,
+   k] = u + 1 at k = g, dseq[b, l, g] is the bucket + 1 exactly). Prints
+   the phase's wall time.
 20. large tau serving — ``large_tau``: the large-tau paths of
    ``sdim_update``, ``sdim_fused_serve`` and ``bse_serve``. (a), run right
    after phase 3 (where torch.profiler still records the kernels' device
@@ -779,6 +790,65 @@ def check_close(name, out, ref, atol, rtol) -> float:
     return float(err.max())
 
 
+def sdpa_backward(torch, dout, q, seq, mask):
+    """PyTorch's memory-efficient attention backward of the function
+    target_attention_flash_backward computes (one head; seq is key and
+    value; an additive 0 / -1e30 mask; scale 1/sqrt(d)): the forward's
+    output and logsumexp are computed here, outside any timing, and the
+    returned call runs the backward and the one add dk + dv, giving (dq,
+    dseq). The library yardstick of the kernel, never called by the port.
+    Returns (call, None), or (None, why) where the installed torch refuses
+    the shape."""
+    from repro_torch.kernels.target_attn.target_attn import _scale
+
+    aten = torch.ops.aten
+    B, C, d = q.shape
+    L = seq.shape[1]
+    qh, kv, g = q[:, None], seq[:, None], dout[:, None]
+    bias = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :].expand(B, 1, C, L).contiguous()
+    scale = _scale(d)
+    try:
+        out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qh, kv, kv, bias, True, 0.0, False, scale=scale)
+
+        def call():
+            dq, dk, dv, _ = aten._scaled_dot_product_efficient_attention_backward(
+                g, qh, kv, kv, bias, out, lse, seed, offset, 0.0, [True, True, True, False],
+                False, scale=scale)
+            return dq[:, 0], (dk + dv)[:, 0]
+
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except Exception as e:  # the library's own refusal: no yardstick at this shape
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def bucket_check(torch, seq, R, tau) -> int:
+    """bse_encode_backward hashes each row of seq (B, L, d), unscreened, into
+    the bucket bse_encode puts it in, for every group: with dT[b, g, u, k] =
+    u + 1 where k = g and 0 elsewhere (d >= G), dseq[b, l, g] must equal
+    the forward's bucket + 1 exactly, the forward's bucket of group g being
+    the nonzero cell of bse_encode over one-row users. Raises if any
+    differs; returns the rows checked."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_backward
+
+    B, L, d = seq.shape
+    G, U = R.shape[0] // tau, 1 << tau
+    mask = torch.ones((B, L), device=seq.device)
+    dT = torch.zeros((B, G, U, d), device=seq.device)
+    g = torch.arange(G, device=seq.device)
+    dT[:, g, :, g] = torch.arange(1, U + 1, dtype=torch.float32, device=seq.device)
+    grad = bse_encode_backward(dT, seq, mask, R, tau)[..., :G]
+    table = bse_encode(seq.reshape(B * L, 1, d), mask.reshape(B * L, 1), R, tau)
+    bucket = table.abs().sum(-1).argmax(-1).reshape(B, L, G)
+    wrong = int((grad != (bucket + 1).float()).any(-1).sum())
+    if wrong:
+        raise AssertionError(f"bse_encode_backward: {wrong} of {B * L} unscreened rows at "
+                             f"{(B, L, d)}, tau {tau}, fall in another bucket than bse_encode's")
+    return B * L
+
+
 def kernel_phase(torch, dev, d: int = D):
     """Phase 3 at behavior width ``d`` (m = M, tau = TAU): each kernel
     against its plain version at B = 32 and at every shape the main paths
@@ -1062,6 +1132,10 @@ def folded_retrieval(torch, dev, rng, t, d):
     same_bits("target_attention_flash_backward folded",
               lambda: torch.cat([g.reshape(-1) for g in bwd()]))
     needed = float(sum(l if f == 0 else f for f in found.tolist()))
+    lib_bwd, why = sdpa_backward(torch, dout, q, seq, mask)
+    print(f"target_attention_flash_backward folded at d = {d}: library (SDPA's "
+          f"efficient-attention backward + dk + dv) "
+          f"{'timed' if lib_bwd else f'refused, none recorded: {why}'}")
     additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
     cases = (("target_attention_flash", fwd, partial(target_attention_flash_ref, q, seq, mask),
               err_f, bound(Cost(flops=4 * d * needed,
@@ -1071,7 +1145,7 @@ def folded_retrieval(torch, dev, rng, t, d):
               partial(target_attention_flash_backward_ref, dout, q, seq, mask, out), err_b,
               bound(Cost(flops=10 * d * needed,
                          bytes=needed * d * 4 + seq.numel() * 4 + mask.numel() * 4
-                         + 5 * q.numel() * 4)), None))
+                         + 5 * q.numel() * 4)), lib_bwd))
     info = {}
     for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
@@ -1123,6 +1197,11 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
     if empty.shape != (TRAIN_B, 0, d):
         raise AssertionError(f"bse_encode_backward at L = 0: shape {tuple(empty.shape)}")
     same_bits("bse_encode_backward", partial(k["bse_encode_backward"], dT, seq, mask, R, TAU))
+    with uncounted():
+        checked = bucket_check(torch, t(rng.standard_normal((TRAIN_B, L, d)).astype(np.float32)),
+                               R, TAU)
+    print(f"bse_encode_backward at d = {d}: every group's bucket of {checked} unscreened rows "
+          f"equals bse_encode's")
     valid = float(mask.sum())
     rows.append(("bse_encode_backward",
                  "src/repro_torch/kernels/sdim_bucket/csrc/bse_encode_backward.cu",
@@ -1185,13 +1264,17 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
     fn = partial(k["target_attention_flash_backward"], dout, q, seq, mask, out)
     same_bits("target_attention_flash_backward", lambda: torch.cat([g.reshape(-1) for g in fn()]))
     needed = float(sum(L if n == 0 else n for n in mask.sum(1).tolist()))
+    library, why = sdpa_backward(torch, dout, q, seq, mask)
+    print(f"target_attention_flash_backward at {(TRAIN_B, L, 1, d)}: library (SDPA's "
+          f"efficient-attention backward + dk + dv) "
+          f"{'timed' if library else f'refused, none recorded: {why}'}")
     rows.append(("target_attention_flash_backward",
                  "src/repro_torch/kernels/target_attn/csrc/target_attn_backward.cu",
                  "none (gradient of src/repro/kernels/target_attn/target_attn.py:59)", err, fn,
                  partial(k["target_attention_flash_backward_ref"], dout, q, seq, mask, out),
                  bound(Cost(flops=10 * d * needed,
                             bytes=needed * d * 4 + seq.numel() * 4 + mask.numel() * 4
-                            + 5 * q.numel() * 4)), None))
+                            + 5 * q.numel() * 4)), library))
     return rows
 
 
@@ -4557,10 +4640,13 @@ def bench_table5(torch, dev) -> dict:
 def training_costs(seq, mask, q, table, R, tau) -> dict:
     """The bytes and operations of the four training kernels at one
     training step's shapes (kernels/cost.py's for bse_encode and
-    sdim_query; the backward kernels: each valid row gathers G rows of dT;
-    the query backward writes the whole of dT and reads dout, q, R and the
-    rows its candidates select: a row no candidate selects is +0 and needs
-    no read)."""
+    sdim_query); the least work of the backward kernels: the encode
+    backward reads the valid rows once, the mask, each user's dT once and R,
+    writes dseq once and hashes each valid row (2 m d FLOP) and adds its G
+    rows of dT (G d; the gathered rows come from on-chip memory, so they
+    count as operations, not bytes); the query backward writes the whole of
+    dT and reads dout, q, R and the rows its candidates select: a row no
+    candidate selects is +0 and needs no read."""
     from repro_torch.kernels import cost
 
     B, L, d = seq.shape
@@ -4573,9 +4659,9 @@ def training_costs(seq, mask, q, table, R, tau) -> dict:
     return {"bse_encode": cost.settle(cost.encode(seq, mask, R, tau=tau)),
             "sdim_query": cost.settle(cost.query(q, table, R, tau=tau)),
             "sdim_query_backward": cost.Cost(float(bwd_flops), float(bwd_bytes)),
-            "bse_encode_backward": cost.Cost(valid * (hash_flops + G * d),
-                                             4 * (valid * (G + 1) * d + B * L * (d + 1)
-                                                  + m * d))}
+            "bse_encode_backward": cost.Cost(valid * hash_flops,
+                                             4 * (valid * d + B * L * (d + 1)
+                                                  + B * G * U * d + m * d))}
 
 
 def bench_kernel_checks(torch, dev) -> dict:
@@ -4596,7 +4682,8 @@ def bench_kernel_checks(torch, dev) -> dict:
     large-tau paths) and the AUC section's (B = 128, L = 64, m = 24, tau =
     3). At Table 4's tau 3, 5 and 10 it also times the four kernels and
     their plain versions (CUDA events, median of 10) beside the bound of
-    their bytes and operations. Returns the max abs errors."""
+    their bytes and operations. Returns the max abs errors and
+    ``protocol_backward_checks``' rows."""
     from repro_torch.kernels.screen import screened_normal
     from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode, bse_encode_backward,
                                                              bse_encode_backward_ref,
@@ -4695,6 +4782,8 @@ def bench_kernel_checks(torch, dev) -> dict:
                   bse_encode_backward_ref(dT, seq, mask, Rt, tau), FP32)
             if not time_it:
                 return
+            same_bits(f"bse_encode_backward {label}",
+                      partial(bse_encode_backward, dT, seq, mask, Rt, tau))
             costs = training_costs(seq, mask, q, table, Rt, tau)
             for name, kernel, plain, args in (
                     ("bse_encode", bse_encode, bse_encode_ref, (seq, mask, Rt, tau)),
@@ -4710,15 +4799,81 @@ def bench_kernel_checks(torch, dev) -> dict:
             m = tau * (48 // tau)
             training(f"tau={tau} m={m}", 128, 256, m, tau, time_it=tau >= 3)
         training("auc m=24 L=64", 128, 64, 24, 3)
+        protocol = protocol_backward_checks(torch, dev, rng, t, front)
     print(f"bench (d) each kernel at the phase's shapes against its plain version "
           f"(screened inputs, uncounted): max abs err {json.dumps(errs)}")
     print(f"bench (d) Table 4's training shape (B = 128, L = 256, d = 32, C = 1), ms of the "
           f"kernel, its plain version and the bound: {json.dumps(times)}")
-    return errs
+    return errs, protocol
+
+
+def protocol_backward_checks(torch, dev, rng, t, front) -> dict:
+    """19 (d): target_attention_flash_backward at the Table 2/3 protocol's
+    `target` step (B = 128, C = 1, L = 256, d = 32, front-padded) and at its
+    retrieval kinds' folded one (the 128 users' one candidate each over the
+    k = 16 rows retrieved, valid rows first, some none): each against its
+    plain version (FP32), the same bits twice, timed beside its plain
+    version (CUDA events, median of 10), device times, its least-work bound
+    and SDPA's backward; then bse_encode_backward's buckets of unscreened
+    rows against bse_encode's at tau 2, 3 and 4 (G <= d). Runs uncounted
+    (the caller's context). Returns the target backward's rows by shape
+    label, for the ``protocol`` entry of its JSON row."""
+    from repro_torch.kernels.cost import Cost
+    from repro_torch.kernels.target_attn.target_attn import (
+        target_attention_flash, target_attention_flash_backward,
+        target_attention_flash_backward_ref)
+
+    out_rows = {}
+    f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
+
+    def record(label, shape, err, kernel, plain, c, library):
+        b_ms, b_by = bound(c)
+        row = dict(shape=shape, max_abs_err=err, ms=time_ms(kernel, 10),
+                   plain_ms=time_ms(plain, 10), bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None if library is None else time_ms(library, 10),
+                   **device_times(kernel, plain, library))
+        out_rows[label] = row
+        lib = "none" if library is None else f"{row['library_ms']:.4f} ms"
+        print(f"bench (d) target_attention_flash_backward at the protocol's {label} {shape}: "
+              f"{row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib}; "
+              f"{device_line(row)}; max abs err {err:.3g}; the same bits twice")
+
+    for label, n, l in (("target", 128, 256), ("folded", 128, 16)):
+        q, seq, dout = f32(n, 1, 32), f32(n, l, 32), f32(n, 1, 32)
+        if label == "target":
+            mask = front(n, l)
+        else:
+            found = rng.integers(0, l + 1, n)
+            found[:2] = (0, l)
+            mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+        out = target_attention_flash(q, seq, mask)
+        kernel = partial(target_attention_flash_backward, dout, q, seq, mask, out)
+        plain = partial(target_attention_flash_backward_ref, dout, q, seq, mask, out)
+        got, ref = kernel(), plain()
+        err = max(check_close(f"bench (d) target_attention_flash_backward {label} {name}", a, b,
+                              **FP32) for name, a, b in zip(("dq", "dseq"), got, ref))
+        same_bits(f"target_attention_flash_backward {label}",
+                  lambda: torch.cat([g.reshape(-1) for g in kernel()]))
+        needed = float(sum(l if v == 0 else v for v in mask.sum(1).tolist()))
+        library, why = sdpa_backward(torch, dout, q, seq, mask)
+        if library is None:
+            print(f"bench (d) target_attention_flash_backward {label}: SDPA refused ({why})")
+        record(label, [n, l, 1, 32], err, kernel, plain,
+               Cost(flops=10 * 32 * needed, bytes=needed * 32 * 4 + seq.numel() * 4
+                    + mask.numel() * 4 + 5 * q.numel() * 4), library)
+
+    for tau in (2, 3, 4):
+        Rb = t(rng.standard_normal((tau * (48 // tau), 32)).astype(np.float32))
+        rows = bucket_check(torch, f32(128, 256, 32), Rb, tau)
+        print(f"bench (d) bse_encode_backward at tau {tau}: every group's bucket of {rows} "
+              f"unscreened rows (B = 128, L = 256, d = 32) equals bse_encode's")
+    return out_rows
 
 
 def bench_phase(torch, dev, wrappers):
-    """Phase 19 (module docstring). Returns the launch counts."""
+    """Phase 19 (module docstring). Returns the launch counts and the target
+    backward's rows at the protocol's shapes."""
     from repro_torch.bench import (fig2_attention_patterns, fig5_m_sweep, table1_complexity,
                                    table4_tau)
 
@@ -4762,10 +4917,10 @@ def bench_phase(torch, dev, wrappers):
           f"{figures['smoke']['seconds']:.1f} s")
     launches = read_launches(wrappers, BENCH_KERNELS, "bench")
     figures["launches"] = launches
-    figures["max_abs_err"] = bench_kernel_checks(torch, dev)
+    figures["max_abs_err"], protocol = bench_kernel_checks(torch, dev)
     print(f"bench figures: {json.dumps(figures)}")
     print(f"bench: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
-    return launches
+    return launches, protocol
 
 
 LT_TAUS = ((5, 45), (10, 40))      # phase 20: (tau, m) of Table 4 (bench/table4_tau.py)
@@ -5139,7 +5294,8 @@ def main() -> int:
     by_path["mesh"] = mesh_phase(torch, dev, wrappers + backward)
     by_path["dryrun"], by_path["examples"] = dryrun_examples_phase(torch, dev,
                                                                    wrappers + backward)
-    by_path["bench"] = bench_phase(torch, dev, wrappers + backward)
+    by_path["bench"], by_name["target_attention_flash_backward"]["protocol"] = bench_phase(
+        torch, dev, wrappers + backward)
     by_path["large_tau"] = large_tau_phase(torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]

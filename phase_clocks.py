@@ -4,6 +4,7 @@ NVIDIA GPU (written for the H100):
 
     python3 phase_clocks.py
     python3 phase_clocks.py table4 [--src DIR]
+    python3 phase_clocks.py table23 [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -16,7 +17,13 @@ large-tau serving paths (``bse_serve_large_tau.cu``'s two kernels and
 shapes: tau 5 and 10, and tau = 1 at m = 48 for bse_serve), and the
 large-tau training paths (``bse_encode_large_tau.cu``'s forward at Table
 4's training shape and at the history ingest's, ``sdim_query_large_tau.cu``'s
-backward at Table 4's; tau 5 and 10) and stamps
+backward at Table 4's; tau 5 and 10) and the two backward kernels of
+the training steps (``target_attn_backward.cu``'s one launch at C = 1 and
+``bse_encode_backward.cu`` at tau 3: chip_smoke.py phase 3's shapes, and
+the Table 2/3 protocol's and Table 4's: B = 128, L = 256, d = 32, and the
+retrieval kinds' 128 folded users of k = 16 rows, where it also times
+each split of the target backward: 1, 2, 4 and 8 users a CTA and the
+two-launch path) and stamps
 %globaltimer at the CTA's start and end. Runs each kernel at the main
 path's burst shape of ``chip_smoke.py`` (B = 16, L = 1024 with front-padded
 lengths uniform on [L/4, L], C = 128, d = 128, m = 48, tau = 3; fp32, and
@@ -37,6 +44,10 @@ batch 128, L = 256, d = 32) at tau 3, 5 and 10 with the port of ``--src``
 in one run) and prints ms/step (host clock over 20 steps, after 3
 warm-up steps) and the device-busy share of 6 steps under torch.profiler
 (the union of the device operations' intervals over the host's wall time).
+``table23`` does the same for the Table 2/3 protocol's ``target``,
+``sim_hard`` (top-k 16: 128 folded users of 16 rows) and ``sdim`` (m = 48,
+tau = 3) kinds (``bench/table23_auc.py``: batch 128, L = 256, AdamW lr 5e-3),
+with the device ms of each of the two backward kernels per 6 steps.
 """
 from __future__ import annotations
 
@@ -73,7 +84,24 @@ PHASES = {
     "bse_encode_lt": ["staging (R)", "hash", "ranking (+ barrier)", "sums + stores"],
     "sdim_query_backward_lt": ["staging (R, rows)", "hash", "ranking (+ barriers)",
                                "selected rows", "zero stores"],
+    # the backward kernels of the training steps (target_attn_backward.cu's
+    # one launch, bse_encode_backward.cu at tau <= 4)
+    "target_attention_backward": ["staging (mask scan, copies issued)",
+                                  "logits (+ waits for rows)", "max/den exchange",
+                                  "dS + dseq stores + dq sums", "dq exchange + store"],
+    "bse_encode_backward": ["staging (rows, multicast wait)", "hash (warp 0)",
+                            "gather + stores (warp 0)"],
 }
+# the backward kernels' shapes: (B, L, d) of chip_smoke.py phase 3 (the
+# training step, its folded retrieval shape, both at dien's d = 36 too) and
+# of the Table 2/3 protocol and Table 4 (B = 128, L = 256, d = 32; the
+# retrieval kinds' 128 users of one candidate over k = 16 rows)
+BWD_TARGET_SHAPES = {"main": (32, 1024, 128), "folded": (2048, 32, 128),
+                     "main d=36": (32, 1024, 36), "folded d=36": (2048, 32, 36),
+                     "protocol target": (128, 256, 32), "protocol folded": (128, 16, 32)}
+BWD_ENCODE_SHAPES = {"main": (32, 1024, 128), "main d=36": (32, 1024, 36),
+                     "protocol": (128, 256, 32)}
+BWD_SPLITS = ((1, 1), (2, 1), (4, 1), (8, 1), (0, 0))  # the protocol folded shape's candidates
 LT_SHAPES = ((5, 45), (10, 40), (1, 48))    # chip_smoke.py phase 20 (a): (tau, m) at d = 128
 # the large-tau training kernels' shapes (B, L, C, d): Table 4's training
 # step and the decoupled deployment's history ingest (chip_smoke.py phase
@@ -228,7 +256,76 @@ def main() -> int:
                   "sdim_update_phases", bu * s)
     large_tau(lib, plain, dev, rng, n_sm)
     large_tau_training(lib, plain, dev, rng, n_sm)
+    backward_kernels(lib, plain, dev, rng)
     return 0
+
+
+def backward_kernels(lib, plain, dev, rng) -> None:
+    """target_attn_backward.cu's one launch (C = 1) and bse_encode_backward.cu
+    (tau = 3, m = 48) at BWD_TARGET_SHAPES and BWD_ENCODE_SHAPES: front-padded
+    histories with L/4..L valid rows (user 1 fully masked) as chip_smoke.py
+    phase 3, the folded users' valid rows first (0..k of them, as the
+    retrieval kinds' top-k). At the protocol's folded shape also the device
+    time of each split the target backward could take there."""
+    import torch
+    from functools import partial
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode_backward,
+                                                             launch_splits)
+    from repro_torch.kernels.target_attn.target_attn import (
+        _scale, launch_split, target_attention_flash, target_attention_flash_backward)
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def front_mask(b, l):
+        lengths = rng.integers(l // 4, l + 1, b)
+        lengths[1] = 0
+        return t((np.arange(l)[None] >= l - lengths[:, None]).astype(np.float32))
+
+    for name, (b, l, d) in BWD_TARGET_SHAPES.items():
+        seq = t(rng.standard_normal((b, l, d)).astype(np.float32))
+        q, dout = (t(rng.standard_normal((b, 1, d)).astype(np.float32)) for _ in range(2))
+        if name.startswith("folded") or name == "protocol folded":
+            found = rng.integers(0, l + 1, b)
+            mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+        else:
+            mask = front_mask(b, l)
+        out = target_attention_flash(q, seq, mask)
+        upc, S = launch_split(b, l, 1, d, seq.dtype, dev)
+        print(f"target_attention_flash_backward {name} (B={b}, L={l}, d={d}, C=1): "
+              f"{upc} users a CTA, clusters of {S}")
+        clock(lib, plain, f"target_attention_backward {name}",
+              partial(target_attention_flash_backward, dout, q, seq, mask, out),
+              "sdim_target_attention_backward_phases", S * -(-b // upc))
+        if name == "protocol folded":
+            dq, dseq = torch.empty_like(q), torch.empty_like(seq)
+            stats = torch.empty((b, 1, 4), device=dev)
+
+            def split_call(upc, S):
+                err = plain.sdim_target_attention_backward(
+                    dout.data_ptr(), q.data_ptr(), seq.data_ptr(), 0, mask.data_ptr(),
+                    out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dseq.data_ptr(), b, l, 1,
+                    d, _scale(d), upc, S, _build.stream(dev))
+                _build.check(err, "target_attention_flash_backward")
+
+            times = {f"{u},{s}": [] for u, s in BWD_SPLITS}
+            for _ in range(3):  # the splits in turn, three times
+                for u, s in BWD_SPLITS:
+                    times[f"{u},{s}"].append(device_ms(partial(split_call, u, s)))
+            print(f"  device ms a launch by (users a CTA, CTAs a user; 0,0: two launches), "
+                  f"three rounds: {times}")
+    for name, (b, l, d) in BWD_ENCODE_SHAPES.items():
+        Rn = rng.standard_normal((M, d)).astype(np.float32)
+        seq = t(screened_normal(rng, (b, l, d), Rn))
+        mask = front_mask(b, l)
+        dT = torch.randn((b, M // TAU, 1 << TAU, d), device=dev)
+        S = launch_splits(b, l, M // TAU, d, TAU, seq.dtype, dev)
+        print(f"bse_encode_backward {name} (B={b}, L={l}, d={d}, tau={TAU}): clusters of {S}")
+        clock(lib, plain, f"bse_encode_backward {name}",
+              partial(bse_encode_backward, dT, seq, mask, t(Rn), TAU),
+              "sdim_bse_encode_backward_phases", S * b)
 
 
 def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
@@ -356,8 +453,17 @@ def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
     print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
 
 
-def table4(src: str, steps: int = 20) -> int:
-    """``table4`` mode (module docstring)."""
+# training-step modes: (label, interest kind, interest settings) of each model
+TABLE4_CASES = tuple((f"table4 tau={tau} m={m}", "sdim", dict(m=m, tau=tau))
+                     for tau, m in ((3, 48), (5, 45), (10, 40)))
+TABLE23_CASES = (("table23 target", "target", {}),
+                 ("table23 sim_hard", "sim_hard", dict(top_k=16)),
+                 ("table23 sdim", "sdim", dict(m=48, tau=3)))
+BACKWARD_KERNELS = ("ta_bwd", "bse_encode_backward")   # device op names, table23's column
+
+
+def train_steps(src: str, mode: str, cases, steps: int = 20) -> int:
+    """``table4`` and ``table23`` modes (module docstring)."""
     import torch
     if not torch.cuda.is_available():
         print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
@@ -372,10 +478,9 @@ def table4(src: str, steps: int = 20) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     dcfg = paper_data_config(256)
-    print(f"table4 steps with the port at {os.path.abspath(src)}")
-    for tau in (3, 5, 10):
-        m = 48 if 48 % tau == 0 else tau * (48 // tau)
-        model = CTRModel(paper_model_config("sdim", 256, m=m, tau=tau), device=dev,
+    print(f"{mode} steps with the port at {os.path.abspath(src)}")
+    for label, kind, interest in cases:
+        model = CTRModel(paper_model_config(kind, 256, **interest), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(0))
         train(model, dcfg, 3, 128, 0, 5e-3)
         ms = 1e3 * train(model, dcfg, steps + 1, 128, 1, 5e-3)["train_s"] / steps
@@ -393,9 +498,12 @@ def table4(src: str, steps: int = 20) -> int:
             end = max(end, b)
             by_name[name] = by_name.get(name, 0.0) + (b - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        print(f"table4 tau={tau} m={m}: {ms:.3f} ms/step ({steps} steps, host clock); "
+        backward = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
+                    for k in BACKWARD_KERNELS}
+        print(f"{label}: {ms:.3f} ms/step ({steps} steps, host clock); "
               f"6 steps under torch.profiler: wall {wall / 1e3:.3f} ms, device busy "
-              f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), {len(spans)} device ops; top 5:")
+              f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), {len(spans)} device ops; "
+              f"backward kernels' device ms {backward}; top 5:")
         for name, us in top:
             print(f"  {us / 1e3:8.4f} ms  {100 * us / wall:5.1f}%  {name[:90]}")
         del model
@@ -403,8 +511,11 @@ def table4(src: str, steps: int = 20) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["table4"]:
-        args = sys.argv[2:]
-        sys.exit(table4(args[args.index("--src") + 1] if "--src" in args
-                        else os.path.join(ROOT, "src")))
+    mode = sys.argv[1] if len(sys.argv) > 1 else ""
+    args = sys.argv[2:]
+    src = args[args.index("--src") + 1] if "--src" in args else os.path.join(ROOT, "src")
+    if mode == "table4":
+        sys.exit(train_steps(src, "table4", TABLE4_CASES))
+    if mode == "table23":
+        sys.exit(train_steps(src, "table23", TABLE23_CASES))
     sys.exit(main())

@@ -49,7 +49,10 @@ SIGNATURES = {
     "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_query_backward": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 4
-                                      + [_F, _P],
+                                      + [_F, _I, _I, _P],
+    # cluster capacity queries: clusters of a launch the device holds at once
+    "sdim_target_attention_backward_clusters": [_I] * 5,
+    "sdim_bse_encode_backward_clusters": [_I] * 5,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -202,6 +205,27 @@ def sm_count(device: torch.device) -> int:
     n = _SM_COUNT.get(device.index)
     if n is None:
         n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+_CLUSTERS: dict = {}
+
+
+def clusters(entry: str, device: torch.device, *args: int) -> int:
+    """The clusters of a kernel's launch that ``device`` holds at once, by
+    the kernel's own capacity query, the C entry point ``entry`` (its
+    launch's shared memory through cudaOccupancyMaxActiveClusters; 0 where
+    a CTA does not fit), asked once per library, device and arguments
+    (another build of the kernel, as ``phase_clocks.py``'s, may fit fewer)."""
+    lib = load()
+    key = (entry, id(lib), device.index) + args
+    n = _CLUSTERS.get(key)
+    if n is None:
+        with on_device(device):
+            n = getattr(lib, entry)(*args)
+        if n < 0:
+            raise ValueError(f"{entry}: arguments {args} not taken by the kernel")
+        _CLUSTERS[key] = n
     return n
 
 

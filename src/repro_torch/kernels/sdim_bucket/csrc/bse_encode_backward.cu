@@ -11,151 +11,381 @@
 //
 // Bound on the H100 (per user at full width d=128, m=48, tau=3, L=1024):
 // reads the valid rows (L*d*4 bytes at most), the mask, R and the user's
-// G*U*d*4 = 64 KB of dT, writes L*d*4 bytes of gradient, and does 2*m*d
-// FLOP of hashing plus G*d adds per valid row (~14 KFLOP): about equally
-// bound by bytes and fp32 operations (~10 us for 32 users).
+// G*U*d*4 = 64 KB of dT once, writes L*d*4 bytes of gradient, and does
+// 2*m*d FLOP of hashing plus G*d adds per valid row (~14 KFLOP): about
+// equally bound by bytes and fp32 operations (~8 us for 32 users). Inside
+// the SMs the gather reads G rows of dT from shared memory per row (8 KB
+// at d = 128), which takes about as long as the hash's FMAs.
 //
-// Design (simple first). The grid is (S, B): CTA (j, b) owns user b's rows
-// [j*L/S, (j+1)*L/S), so every output element is written once, with no
-// atomics. It copies the user's dT (G*U rows) and R into shared memory,
-// then each of its 8 warps takes four rows at a time, one per 8-lane group:
-// - group h recomputes its row's m projections exactly as bse_encode.cu
-//   does (IEEE fp32, no TF32): lane part sums the float4 columns part,
-//   part + 8, ... with dot4 in column order, lane_group_sum<kEncodeHashLanes>
-//   adds the partials, bit = [r . x >= 0], packed little-endian inside each
-//   group; a ballot per projection gives the four rows' bits at once, and
-//   four rows' loads are in flight together;
-// - a row whose mask is 0 is not read and gets a zero gradient; four rows
-//   that are all masked are not hashed;
-// - then, row by row, lane k sums float4 column k of the row's G gathered
-//   rows of dT in group order, times the mask, and writes it in seq's type
-//   (bf16 rounded to nearest even).
-// The wrapper picks S so that the B*S CTAs fill the card in one wave at two
-// CTAs an SM. d a multiple of 4 up to 128 (at d = 36 lane part 0 of a
-// group holds float4 columns 0 and 8, the others one), tau 1..4 (5..10: large_tau.cuh), and the user's table
-// and R within shared memory (the wrapper checks).
+// Design (tau 1..4). A user's rows are split over a thread-block cluster of
+// S CTAs (backward_splits in sdim_bucket.py: as many as put two CTAs on each
+// SM, at most 8 and one a 32 rows, shrunk to the largest whose clusters all
+// fit the card at once, as sdim_bse_encode_backward_clusters reports; the
+// launch takes S as given); CTA rank r owns rows [r*L/S, (r+1)*L/S), so
+// every output element is written once, with no atomics.
+// - staging: each CTA arms one mbarrier for the user's dT (G*U dense rows)
+//   and R (m dense rows), a cluster barrier, then rank r multicasts its 1/S
+//   share of both to every CTA of the cluster with bulk copies: dT and R
+//   come from device memory (or L2) once a user, not once a CTA. The first
+//   round's rows load into registers meanwhile.
+// - hash: a team of Q lanes a row, lane q holding float4 columns q + Q s +
+//   8 j (j < J = ceil(d/32)) in registers, N rows a team hashed at once, so
+//   a float4 of R read from shared memory feeds N rows (one float4 per
+//   dot4 held the hash to the shared-memory rate, four cycles an LDS.128 a
+//   warp): Q = 4, N = 2 up to d = 64, Q = 8, N = 4 above (the fastest of
+//   the (Q, N) tried on the H100; a warp's round is 16 rows either way).
+//   Each group's bucket as large_tau.cuh's bucket_regs<TAU, Q> makes it:
+//   bucket_of's partial sums added in its butterfly's order, so the bits
+//   of bse_encode.cu, whose eight lanes a row add them as bucket_of does.
+//   The ids go to shared memory, 4 bits a group. A masked row is not hashed
+//   (a warp whose rows are all masked hashes nothing) and gets a zero
+//   gradient.
+// - gather: the warp's round of 16 rows, lanes over its (row, float4
+//   column) pairs in order (all 32 busy at d = 32 as at d = 128), each
+//   summing the G selected rows of dT in g order from +0, times the mask,
+//   written once with 16-byte (bf16: 8-byte) stores.
+// d a multiple of 4 up to 128, tau 1..4 (5..10: large_tau.cuh), the
+// user's dT and R within shared memory (the wrapper checks). No minimum
+// of CTAs an SM is asked of ptxas (CUDA 12.9): with one (two CTAs an SM,
+// 128 registers) it built kernels of this loop that never finished on the
+// H100, or crashed. Phase clocks (phase_clocks.py): staging (the first
+// rows' loads and the multicast wait), hash, gather + stores.
+#include <cooperative_groups.h>
+
 #include "large_tau.cuh"
+
+PHASE_READER(sdim_bse_encode_backward_phases)
 
 namespace sdim {
 
+namespace coop = cooperative_groups;
+
 constexpr int kBwdWarps = 8, kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdMaxCluster = 8;
+
+// A team of Q lanes holds N rows (lane q of a row: float4 columns q + Q s +
+// 8 j, s < 8/Q, j < J = ceil(d/32)) and hashes them at once; a warp's round
+// is 32/Q teams' rows, 16 (sdim_bucket.py BWD_ROUND).
+template <int J>
+__host__ __device__ constexpr int bwd_lanes() { return J == 4 ? 8 : 4; }
+template <int J>
+__host__ __device__ constexpr int bwd_team_rows() { return J == 4 ? 4 : 2; }
+
+// The columns of the N rows of a team (zeros past d and where a row is not
+// live), as row_cols<Q> holds one row.
+template <int Q, int J, int N, typename T>
+__device__ __forceinline__ void team_rows(float4 (&x)[N][8 / Q][J], const T* const (&rows)[N],
+                                          const bool (&live)[N], int nq) {
+  const int q = threadIdx.x % Q;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int s = 0; s < 8 / Q; ++s)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k4 = q + Q * s + 8 * j;
+        x[n][s][j] = live[n] && k4 < nq ? load4(rows[n] + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+}
+
+// bucket_regs<TAU, Q> of N rows at once (one float4 of R feeds the N rows):
+// lane q sums each of its parts q + Q s over their columns in order from +0
+// (dot4), adds its parts in the order of bucket_of's butterfly (xor 4, 2,
+// 1: the steps within a lane first) and shuffles add the team's: bucket_of's
+// operations in its order, so its bits.
+template <int TAU, int Q, int J, int N>
+__device__ __forceinline__ void bucket_team_rows(const float4 (&x)[N][8 / Q][J], const float* r,
+                                                 int nq, int (&u)[N]) {
+  constexpr int P = 8 / Q;
+  const int q = threadIdx.x % Q;
+#pragma unroll
+  for (int n = 0; n < N; ++n) u[n] = 0;
+#pragma unroll
+  for (int t = 0; t < TAU; ++t) {
+    float v[N][P];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int s = 0; s < P; ++s) v[n][s] = 0.f;
+#pragma unroll
+    for (int s = 0; s < P; ++s)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k4 = q + Q * s + 8 * j;
+        if (k4 < nq) {
+          const float4 rv = load4(r + (size_t)t * 4 * nq + 4 * k4);
+#pragma unroll
+          for (int n = 0; n < N; ++n) v[n][s] = dot4(rv, x[n][s][j], v[n][s]);
+        }
+      }
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int h = P / 2; h >= 1; h /= 2)  // xor 4, 2, 1 within the lane: part s + h
+#pragma unroll
+        for (int s = 0; s < h; ++s) v[n][s] = v[n][s] + v[n][s + h];
+#pragma unroll
+      for (int o = Q / 2; o >= 1; o /= 2) v[n][0] += __shfl_xor_sync(0xffffffffu, v[n][0], o);
+      u[n] |= (v[n][0] >= 0.f ? 1 : 0) << t;
+    }
+  }
+}
 
 struct EncodeBwdLayout {
-  size_t t, r, bits, total;
+  size_t t, r, keys, w, bar, total;
 };
 
-// Dynamic shared memory: the user's dT (G*U dense rows), R (rows padded to
-// staged_ld, as bse_encode stages it) and each warp's signature bits, a
-// byte a projection (bit h: the warp's row h).
-__host__ __device__ inline EncodeBwdLayout encode_bwd_layout(int G, int U, int d, int m) {
+// Dynamic shared memory: the user's dT (G*U dense rows), R (m dense rows),
+// each warp's bucket ids (ceil(G/8) words a row, 4 bits a group) and row
+// weights for a round of `rows` rows, and the staging mbarrier.
+__host__ __device__ inline EncodeBwdLayout encode_bwd_layout(int G, int U, int d, int m,
+                                                             int rows) {
   EncodeBwdLayout s;
+  const int words = (G + 7) / 8;
   size_t o = 0;
   s.t = o;
-  o += align16(sizeof(float) * G * U * d);
+  o += align16(sizeof(float) * (size_t)G * U * d);
   s.r = o;
-  o += align16(sizeof(float) * m * staged_ld<float>(d));
-  s.bits = o;
-  o += align16(kBwdWarps * m);
+  o += align16(sizeof(float) * (size_t)m * d);
+  s.keys = o;
+  o += align16(sizeof(unsigned) * kBwdWarps * rows * words);
+  s.w = o;
+  o += align16(sizeof(float) * kBwdWarps * rows);
+  s.bar = o;
+  o += sizeof(unsigned long long);
   s.total = o;
   return s;
 }
 
-template <typename T>
+template <typename T, int TAU, int J>
 __global__ void __launch_bounds__(kBwdThreads)
     bse_encode_backward_kernel(const float* __restrict__ dT, const T* __restrict__ seq,
                                const float* __restrict__ mask, const float* __restrict__ R,
-                               T* __restrict__ dseq, int L, int G, int U, int d, int m, int tau) {
+                               T* __restrict__ dseq, int L, int G, int d) {
+  constexpr int U = 1 << TAU, Q = bwd_lanes<J>(), N = bwd_team_rows<J>();
+  constexpr int TW = 32 / Q, RW = TW * N;  // teams a warp, rows a warp's round
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const EncodeBwdLayout lay = encode_bwd_layout(G, U, d, m);
+  const int m = G * TAU, words = (G + 7) / 8;
+  const EncodeBwdLayout lay = encode_bwd_layout(G, U, d, m, RW);
   float* t_s = reinterpret_cast<float*>(smem + lay.t);  // (G*U, d)
-  float* r_s = reinterpret_cast<float*>(smem + lay.r);  // (m, ldr)
-  const int S = gridDim.x, b = blockIdx.y;
-  const int l_lo = (int)((long long)blockIdx.x * L / S);
-  const int l_hi = (int)((long long)(blockIdx.x + 1) * L / S);
-  const int nq = d / 4, ldr = staged_ld<float>(d), tid = threadIdx.x;
+  float* r_s = reinterpret_cast<float*>(smem + lay.r);  // (m, d)
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem + lay.bar);
+  coop::cluster_group cluster = coop::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / S;
+  const int lo = static_cast<int>((long long)rank * L / S);
+  const int n = static_cast<int>((long long)(rank + 1) * L / S) - lo;  // this CTA's rows
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nq = d / 4;
+  const T* x = seq + ((size_t)b * L + lo) * d;
+  const float* w = mask + (size_t)b * L + lo;
+  T* o = dseq + ((size_t)b * L + lo) * d;
+  unsigned* keys = reinterpret_cast<unsigned*>(smem + lay.keys) + warp * RW * words;
+  float* w_s = reinterpret_cast<float*>(smem + lay.w) + warp * RW;
+  PHASE_BEGIN();
 
-  const float4* t_src = reinterpret_cast<const float4*>(dT + (size_t)b * G * U * d);
-#pragma unroll 4
-  for (int i = tid; i < G * U * nq; i += blockDim.x)
-    reinterpret_cast<float4*>(t_s)[i] = __ldg(t_src + i);
-#pragma unroll 4
-  for (int i = tid; i < m * nq; i += blockDim.x) {
-    const int j = i / nq, k4 = i % nq;
-    *reinterpret_cast<float4*>(r_s + j * ldr + 4 * k4) =
-        __ldg(reinterpret_cast<const float4*>(R + (size_t)j * d) + k4);
+  const unsigned t_bytes = sizeof(float) * G * U * d, r_bytes = sizeof(float) * m * d;
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_expect(bar, t_bytes + r_bytes);  // the bytes every CTA of the cluster receives
   }
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32, n_rows = l_hi - l_lo;
-  const int h = lane / kEncodeHashLanes, part = lane % kEncodeHashLanes;
-  unsigned char* bits = smem + lay.bits + warp * m;
-  for (int r0 = 4 * warp; r0 < n_rows; r0 += 4 * kBwdWarps) {  // warp-uniform
-    const bool in = r0 + h < n_rows;
-    const size_t row = (size_t)b * L + l_lo + (in ? r0 + h : 0);  // group h's row
-    const float w = in ? mask[row] : 0.f;
-    if (rows_of(__ballot_sync(0xffffffffu, w != 0.f)) != 0u) {  // a row to hash
-      float4 xv[4];  // this lane's columns part, part + 8, part + 16, part + 24 (d <= 128)
+  // the first round's rows, loaded while the cluster gathers: team lane / Q
+  // of the warp holds rows base + TW k + lane / Q, k < N
+  const int team = lane / Q;
+  float4 xr[N][8 / Q][J];
+  float wr[N];
+  const T* rows[N];
+  bool live[N];
+  auto load_round = [&](int base) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k4 = part + kEncodeHashLanes * i;
-        xv[i] = w != 0.f && k4 < nq ? load4(seq + row * d + 4 * k4)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll 4
-      for (int j = 0; j < m; ++j) {
-        float a = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int k4 = part + kEncodeHashLanes * i;
-          if (k4 < nq) a = dot4(load4(r_s + j * ldr + 4 * k4), xv[i], a);
-        }
-        a = lane_group_sum<kEncodeHashLanes>(a);
-        const unsigned ballot = __ballot_sync(0xffffffffu, a >= 0.f);
-        if (lane == 0) bits[j] = static_cast<unsigned char>(rows_of(ballot));
-      }
+    for (int k = 0; k < N; ++k) {
+      const int i = base + TW * k + team;
+      wr[k] = i < n ? w[i] : 0.f;
+      live[k] = wr[k] != 0.f;
+      rows[k] = x + (size_t)(i < n ? i : 0) * d;
     }
-    __syncwarp();  // the rows' bits written
-    for (int hh = 0; hh < 4 && r0 + hh < n_rows; ++hh) {  // warp-uniform
-      const float wr = __shfl_sync(0xffffffffu, w, hh * kEncodeHashLanes);
-      T* o = dseq + ((size_t)b * L + l_lo + r0 + hh) * d;
-      if (lane < nq) {
-        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (wr != 0.f) {  // a masked row has no gradient
-          for (int g = 0; g < G; ++g) {
-            int u = 0;
-            for (int t = 0; t < tau; ++t) u |= ((bits[g * tau + t] >> hh) & 1) << t;
-            const float4 v = load4(t_s + (size_t)(g * U + u) * d + 4 * lane);
-            s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+    team_rows<Q, J, N>(xr, rows, live, nq);
+  };
+  load_round(warp * RW);
+  cluster.sync();  // every CTA's barrier armed before any copy lands
+  if (tid == 0) {  // this rank's share of dT and of R, to every CTA of the cluster
+    const float* src_t = dT + (size_t)b * G * U * d;
+    const unsigned per_t = (t_bytes / S + 15) & ~15u, per_r = (r_bytes / S + 15) & ~15u;
+    const unsigned short all = static_cast<unsigned short>((1u << S) - 1u);
+    const unsigned t0 = min(t_bytes, rank * per_t), t1 = min(t_bytes, t0 + per_t);
+    const unsigned r0 = min(r_bytes, rank * per_r), r1 = min(r_bytes, r0 + per_r);
+    unsigned char* ts = reinterpret_cast<unsigned char*>(t_s);
+    unsigned char* rs = reinterpret_cast<unsigned char*>(r_s);
+    const unsigned char* gt = reinterpret_cast<const unsigned char*>(src_t);
+    const unsigned char* gr = reinterpret_cast<const unsigned char*>(R);
+    if (S == 1) {
+      bulk_copy(ts, gt, t_bytes, bar);
+      bulk_copy(rs, gr, r_bytes, bar);
+    } else {
+      if (t1 > t0) bulk_copy_multicast(ts + t0, gt + t0, t1 - t0, bar, all);
+      if (r1 > r0) bulk_copy_multicast(rs + r0, gr + r0, r1 - r0, bar, all);
+    }
+  }
+  mbar_wait(bar, 0);
+  PHASE_MARK(0);
+
+  for (int base = warp * RW; base < n; base += kBwdWarps * RW) {  // warp-uniform
+    if (base != warp * RW) load_round(base);  // (the first was loaded before the wait)
+
+    // hash: each group's bucket of the team's rows, 4 bits a group
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < N; ++k) any |= live[k];
+    if (__any_sync(0xffffffffu, any)) {
+      unsigned word[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) word[k] = 0u;
+      for (int g = 0; g < G; ++g) {
+        int u[N];
+        bucket_team_rows<TAU, Q, J, N>(xr, r_s + (size_t)g * TAU * d, nq, u);
+#pragma unroll
+        for (int k = 0; k < N; ++k) word[k] |= static_cast<unsigned>(u[k]) << (4 * (g & 7));
+        if ((g & 7) == 7 || g == G - 1) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            if (lane % Q == 0) keys[(TW * k + team) * words + g / 8] = word[k];
+            word[k] = 0u;
           }
-          s = make_float4(wr * s.x, wr * s.y, wr * s.z, wr * s.w);
         }
-        store4(o + 4 * lane, s);
       }
     }
-    __syncwarp();  // the bits read before the next rows write theirs
+    if (lane % Q == 0) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) w_s[TW * k + team] = wr[k];
+    }
+    __syncwarp();
+    PHASE_MARK(1);
+
+    // gather: the round's (row, float4 column) pairs over the lanes, in order
+    const int nr = min(RW, n - base);
+    for (int j = lane; j < nr * nq; j += 32) {
+      const int r = j / nq, k = j % nq;
+      const float wv = w_s[r];
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (wv != 0.f) {  // a masked row has no gradient
+        const unsigned* kr = keys + r * words;
+        const float* tk = t_s + 4 * k;
+        for (int g0 = 0; g0 < G; g0 += 8) {
+          const unsigned word = kr[g0 / 8];
+          const int ng = min(8, G - g0);
+#pragma unroll
+          for (int gg = 0; gg < 8; ++gg) {
+            if (gg < ng) {
+              const int u = (word >> (4 * gg)) & 15u;
+              const float4 v = load4(tk + (size_t)((g0 + gg) * U + u) * d);
+              s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+            }
+          }
+        }
+        s = make_float4(s.x * wv, s.y * wv, s.z * wv, s.w * wv);
+      }
+      store4(o + (size_t)(base + r) * d + 4 * k, s);
+    }
+    __syncwarp();  // the round's ids and weights read before the next round writes its own
+    PHASE_MARK(2);
   }
+  if (S > 1) cluster.sync();  // every multicast into this cluster landed before a CTA leaves
+  PHASE_END();
+}
+
+template <typename T, int TAU, int J>
+static cudaError_t launch_backward_j(const float* dT, const void* seq, const float* mask,
+                                     const float* R, void* dseq, int B, int L, int G, int d, int S,
+                                     cudaStream_t stream) {
+  const size_t smem =
+      encode_bwd_layout(G, 1 << TAU, d, G * TAU, 32 / bwd_lanes<J>() * bwd_team_rows<J>()).total;
+  void (*kernel)(const float*, const T*, const float*, const float*, T*, int, int, int) =
+      bse_encode_backward_kernel<T, TAU, J>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * B);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, dT, static_cast<const T*>(seq), mask, R,
+                           static_cast<T*>(dseq), L, G, d);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of S CTAs the card holds at once (0 where a CTA's shared memory
+// does not fit).
+template <typename T, int TAU, int J>
+static int backward_clusters_j(int G, int d, int S) {
+  const size_t smem =
+      encode_bwd_layout(G, 1 << TAU, d, G * TAU, 32 / bwd_lanes<J>() * bwd_team_rows<J>()).total;
+  void (*kernel)(const float*, const T*, const float*, const float*, T*, int, int, int) =
+      bse_encode_backward_kernel<T, TAU, J>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  if (allow_smem(fn, smem) != cudaSuccess) {
+    cudaGetLastError();  // a refused size is an answer, not a launch error
+    return 0;
+  }
+  return max_active_clusters(fn, smem, S, kBwdThreads);
+}
+
+template <typename T, int TAU>
+static int backward_clusters_tau(int G, int d, int S) {
+  if (d <= 32) return backward_clusters_j<T, TAU, 1>(G, d, S);
+  if (d <= 64) return backward_clusters_j<T, TAU, 2>(G, d, S);
+  return backward_clusters_j<T, TAU, 4>(G, d, S);
+}
+
+template <typename T>
+static int backward_clusters(int G, int d, int tau, int S) {
+  switch (tau) {
+    case 1: return backward_clusters_tau<T, 1>(G, d, S);
+    case 2: return backward_clusters_tau<T, 2>(G, d, S);
+    case 3: return backward_clusters_tau<T, 3>(G, d, S);
+    case 4: return backward_clusters_tau<T, 4>(G, d, S);
+    default: return -1;
+  }
+}
+
+template <typename T, int TAU>
+static cudaError_t launch_backward_tau(const float* dT, const void* seq, const float* mask,
+                                       const float* R, void* dseq, int B, int L, int G, int d,
+                                       int S, cudaStream_t stream) {
+  if (d <= 32) return launch_backward_j<T, TAU, 1>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  if (d <= 64) return launch_backward_j<T, TAU, 2>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  return launch_backward_j<T, TAU, 4>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
 }
 
 template <typename T>
 static cudaError_t launch_backward(const float* dT, const void* seq, const float* mask,
-                                   const float* R, void* dseq, int B, int L, int G, int U, int d,
-                                   int m, int tau, int S, cudaStream_t stream) {
-  if (d <= 0 || d % 4 != 0 || d > 128 || tau < 1 || tau > 4 || S < 1) return cudaErrorInvalidValue;
-  const size_t smem = encode_bwd_layout(G, U, d, m).total;
-  const void* fn = reinterpret_cast<const void*>(bse_encode_backward_kernel<T>);
-  cudaError_t err = allow_smem(fn, smem);
-  if (err != cudaSuccess) return err;
-  bse_encode_backward_kernel<T><<<dim3(S, B), kBwdThreads, smem, stream>>>(
-      dT, static_cast<const T*>(seq), mask, R, static_cast<T*>(dseq), L, G, U, d, m, tau);
-  return cudaGetLastError();
+                                   const float* R, void* dseq, int B, int L, int G, int d,
+                                   int tau, int S, cudaStream_t stream) {
+  if (d <= 0 || d % 4 != 0 || d > 128 || S < 1 || S > kBwdMaxCluster || B <= 0 || L <= 0)
+    return cudaErrorInvalidValue;
+  switch (tau) {
+    case 1: return launch_backward_tau<T, 1>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+    case 2: return launch_backward_tau<T, 2>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+    case 3: return launch_backward_tau<T, 3>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+    case 4: return launch_backward_tau<T, 4>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sdim
 
 // dT (B, G*U, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d)
-// fp32 -> dseq (B, L, d) in seq's type, every element written; S row chunks
-// per user (tau 1..4; tau 5..10 launch the large-tau path, which ignores S).
+// fp32 -> dseq (B, L, d) in seq's type, every element written; clusters of
+// S CTAs (1..8) a user (tau 1..4; tau 5..10 launch the large-tau path,
+// which ignores S).
 extern "C" int sdim_bse_encode_backward(const float* dT, const void* seq, int seq_dtype,
                                         const float* mask, const float* R, void* dseq, int B,
                                         int L, int G, int U, int d, int m, int tau, int S,
@@ -167,11 +397,28 @@ extern "C" int sdim_bse_encode_backward(const float* dT, const void* seq, int se
                                                   d, tau, s);
   switch (seq_dtype) {
     case sdim::kF32:
-      return sdim::launch_backward<float>(dT, seq, mask, R, dseq, B, L, G, U, d, m, tau, S, s);
+      return sdim::launch_backward<float>(dT, seq, mask, R, dseq, B, L, G, d, tau, S, s);
     case sdim::kBF16:
-      return sdim::launch_backward<__nv_bfloat16>(dT, seq, mask, R, dseq, B, L, G, U, d, m,
-                                                  tau, S, s);
+      return sdim::launch_backward<__nv_bfloat16>(dT, seq, mask, R, dseq, B, L, G, d, tau, S,
+                                                  s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The clusters of S CTAs (1..8) of the tau <= 4 backward at (G, d) that the
+// current device holds at once (0 where a CTA's shared memory does not fit;
+// -1 for arguments the kernel does not take): backward_splits in
+// sdim_bucket.py picks S from it.
+extern "C" int sdim_bse_encode_backward_clusters(int seq_dtype, int G, int d, int tau, int S) {
+  if (G <= 0 || d <= 0 || d % 4 != 0 || d > 128 || S < 1 || S > sdim::kBwdMaxCluster)
+    return -1;
+  switch (seq_dtype) {
+    case sdim::kF32:
+      return sdim::backward_clusters<float>(G, d, tau, S);
+    case sdim::kBF16:
+      return sdim::backward_clusters<__nv_bfloat16>(G, d, tau, S);
+    default:
+      return -1;
   }
 }

@@ -1,6 +1,7 @@
-// Code shared by the cluster kernels (target_attn, bse_serve): tiles of rows
-// staged into shared memory with asynchronous copies (cp.async, so the next
-// tile lands while the current one is computed), bulk copies on mbarriers,
+// Code shared by the cluster kernels (target_attn, bse_serve, the backward
+// kernels): tiles of rows staged into shared memory with asynchronous copies
+// (cp.async, so the next tile lands while the current one is computed), bulk
+// copies on mbarriers (multicast to a cluster's CTAs too),
 // phase clocks, and on the host the launch of a grid of thread-block
 // clusters. The float4 reads and fp32 FMA steps are in sdim_common.cuh.
 //
@@ -122,6 +123,22 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// One thread: bulk_copy of `bytes` to the same offset `dst` of the shared
+// memory of each CTA of the cluster whose bit is set in `cta_mask`, counted
+// on the mbarrier at `bar`'s offset in each of them (each expects the bytes
+// it receives, and its barrier was initialized before: a cluster barrier
+// between the two).
+__device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src, unsigned bytes,
+                                                    unsigned long long* bar,
+                                                    unsigned short cta_mask) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n\t"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(cta_mask)
+      : "memory");
+}
+
 // One thread: bulk_copy of a single block, arriving on `bar` for it.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
                                           unsigned long long* bar) {
@@ -227,10 +244,10 @@ inline cudaError_t allow_smem(const void* fn, size_t smem) {
   return cudaSuccess;
 }
 
-// How many clusters of s CTAs of `fn` (kThreads threads, `smem` bytes of
+// How many clusters of s CTAs of `fn` (`threads` threads, `smem` bytes of
 // dynamic shared memory) the current device holds at once; asked once per
 // (device, kernel, smem, s) and remembered.
-inline int max_active_clusters(const void* fn, size_t smem, int s) {
+inline int max_active_clusters(const void* fn, size_t smem, int s, int threads = kThreads) {
   struct Fit {
     int device;
     const void* fn;
@@ -249,7 +266,7 @@ inline int max_active_clusters(const void* fn, size_t smem, int s) {
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(s);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

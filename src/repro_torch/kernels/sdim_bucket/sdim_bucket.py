@@ -17,7 +17,9 @@ Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
 ``bse_encode_backward``: the CUDA kernel ``csrc/bse_encode_backward.cu`` on
 the card (no TPU kernel corresponds to it: the JAX package differentiates
-the XLA formulation), its closed-form plain version on the CPU. Signatures
+the XLA formulation; at tau <= 4 a cluster of ``backward_splits`` CTAs a
+user shares one multicast copy of its dT and R), its closed-form plain
+version on the CPU. Signatures
 are comparisons and carry no gradient, so the gradient of the table
 T[b,g,u] = sum_l [sig_g(s_bl) = u] mask_bl s_bl is a gather,
 d seq[b,l] = mask[b,l] * sum_g dT[b, g, sig_g(s_bl)]; R is a buffer, and a
@@ -25,7 +27,7 @@ mask that requires grad is refused.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -177,12 +179,35 @@ def bse_encode_backward_ref(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Ten
     return (acc * mask.float()[..., None]).to(seq.dtype)
 
 
-def backward_splits(B: int, L: int, n_sm: int) -> int:
-    """Row chunks per user, one CTA each (8 warps, four rows a warp at a
-    time, ~90 KB of shared memory at full width: two CTAs an SM): as many
-    as fit the ``n_sm`` SMs in one wave at two CTAs an SM, at least one,
-    at most one per 32 rows."""
-    return max(1, min(-(-L // 32), 2 * n_sm // max(B, 1)))
+BWD_MAX_CLUSTER = 8   # csrc/bse_encode_backward.cu kBwdMaxCluster: CTAs a user
+BWD_WARPS = 8         # warps a CTA of the backward (kBwdWarps)
+BWD_ROUND = 16        # rows a warp hashes and gathers at once: two a team of four lanes
+
+
+def backward_splits(B: int, L: int, n_sm: int, clusters: Callable[[int], int]) -> int:
+    """CTAs a user that the backward launches at tau <= 4 (a thread-block
+    cluster that shares one multicast copy of the user's dT and R): as many
+    as put two CTAs on each of the ``n_sm`` SMs, at most
+    ``BWD_MAX_CLUSTER`` and one a 32 rows, at least one, shrunk to the
+    largest cluster whose B copies all fit the card at once (kept where
+    none does; each row's gradient does not depend on it).
+    ``clusters(S)``: the clusters of S CTAs the card holds at once
+    (``launch_splits`` asks the card)."""
+    S = max(1, min(BWD_MAX_CLUSTER, -(-2 * n_sm // max(B, 1)), -(-L // 32)))
+    for s in range(S, 1, -1):
+        if B <= clusters(s):
+            return s
+    return S
+
+
+def launch_splits(B: int, L: int, G: int, d: int, tau: int, seq_dtype: torch.dtype,
+                  dev: torch.device) -> int:
+    """``backward_splits`` with ``dev``'s SM count and cluster capacity at
+    (G, d, tau): the CTAs a user ``bse_encode_backward`` launches there."""
+    code = _build.DTYPE_CODES[seq_dtype]
+    return backward_splits(
+        B, L, _build.sm_count(dev),
+        lambda S: _build.clusters("sdim_bse_encode_backward_clusters", dev, code, G, d, tau, S))
 
 
 def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
@@ -197,8 +222,9 @@ def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
 def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
                              R: torch.Tensor, tau: int,
                              splits: Optional[int] = None) -> torch.Tensor:
-    """The kernel launch of ``bse_encode_backward`` with ``splits`` row
-    chunks per user (None: ``backward_splits`` for this device)."""
+    """The kernel launch of ``bse_encode_backward`` with ``splits`` CTAs a
+    user, 1..8, each a chunk of its rows (None: ``launch_splits`` for this
+    device; tau 5..10 ignore it)."""
     B, L, d = seq.shape
     m = R.shape[0]
     G, U = m // tau, 1 << tau
@@ -208,7 +234,7 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
                          f"{tuple(seq.shape)} mask {tuple(mask.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
     if (not 1 <= tau <= MAX_TAU or d % 4 or d > 128
-            or tau <= 4 and 4 * (G * U * d + m * (d + 4)) > MAX_BWD_SMEM):
+            or tau <= 4 and 4 * (G * U * d + m * d) > MAX_BWD_SMEM):
         raise ValueError(f"bse_encode_backward: the kernel takes tau 1..{MAX_TAU}, d a multiple "
                          f"of 4 up to 128 and, at tau <= 4, a user's table and R within "
                          f"{MAX_BWD_SMEM} bytes of shared memory; got tau {tau}, d {d}, m {m}")
@@ -219,7 +245,10 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
     dev = _build.require_cuda("bse_encode_backward", dT, seq, mask, R)
     _build.require_aligned("bse_encode_backward", dT, seq, R)
     if splits is None:
-        splits = backward_splits(B, L, _build.sm_count(dev))
+        splits = launch_splits(B, L, G, d, tau, seq.dtype, dev) if tau <= 4 else 1
+    if not 1 <= splits <= BWD_MAX_CLUSTER:
+        raise ValueError(f"bse_encode_backward: {splits} CTAs a user; the kernel's cluster "
+                         f"takes 1..{BWD_MAX_CLUSTER}")
     out = torch.empty_like(seq)
     if B == 0 or L == 0:
         return out

@@ -18,12 +18,15 @@ P = softmax(s), s = scale q seq^T (masked logits -1e30, constants):
   dq   = scale dS seq
   dseq = P^T dout + scale dS^T q.
 A fully masked user attends uniformly (P = 1/L), so its rows get dout / L
-and its candidates no gradient. A mask that requires grad is refused.
+and its candidates no gradient. A mask that requires grad is refused. At
+C = 1 the backward is one launch that reads seq once (``backward_split``
+picks its CTAs: a cluster of CTAs a long history, several users a CTA for
+short ones); at C > 1 two launches.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -100,6 +103,58 @@ def _attend(q, seq, mask):
 target_attention_flash.launches = 0
 
 
+TA_BWD_ROWS = 64 * 1024        # rows a CTA of the one-launch backward stages
+TA_BWD_MAX_ROWS = 192 * 1024   # the most rows a CTA of a cluster stages (one CTA an SM)
+TA_BWD_MAX_CLUSTER = 8         # CTAs of a cluster (the portable most)
+
+
+def backward_split(B: int, L: int, C: int, d: int, elem_bytes: int, n_sm: int,
+                   clusters: Callable[[int, int, int], int]) -> Tuple[int, int]:
+    """(users a CTA, CTAs a user) that the backward launches at C = 1, or
+    (0, 0): the two-launch path (C > 1, or a user whose rows exceed 8 CTAs
+    of ``TA_BWD_MAX_ROWS``). Short histories: the most users a CTA (2, 4 or
+    8) whose rows stay within ``TA_BWD_ROWS`` while the grid keeps a CTA
+    for each of the ``n_sm`` SMs. Else one user a CTA, in a cluster of the
+    fewest CTAs that keep each CTA's rows within ``TA_BWD_ROWS`` (more CTAs
+    of fewer rows were slower on the H100: every CTA pays the staging and
+    exchange latency), shrunk to the largest cluster whose B clusters all
+    fit the card at once (a second wave doubles the time) with each CTA's
+    rows within ``TA_BWD_MAX_ROWS``, kept where none does. ``clusters(upc,
+    cap, S)``: the clusters of S CTAs, ``cap`` rows a slot, that the card
+    holds at once (``launch_split`` asks the card)."""
+    if C != 1 or B <= 0 or L <= 0:
+        return 0, 0
+    user = -(-L * d * elem_bytes // 16) * 16
+    upc = 8
+    while upc > 1 and (upc * user > TA_BWD_ROWS or -(-B // upc) < n_sm):
+        upc //= 2
+    if upc > 1:
+        return upc, 1
+    S = -(-user // TA_BWD_ROWS)
+    if S > TA_BWD_MAX_CLUSTER:
+        if -(-L // TA_BWD_MAX_CLUSTER) * d * elem_bytes > TA_BWD_MAX_ROWS:
+            return 0, 0
+        S = TA_BWD_MAX_CLUSTER
+    for s in range(S, 1, -1):
+        cap = -(-L // s)
+        if cap * d * elem_bytes > TA_BWD_MAX_ROWS:
+            break
+        if B <= clusters(1, cap, s):
+            return 1, s
+    return 1, S
+
+
+def launch_split(B: int, L: int, C: int, d: int, seq_dtype: torch.dtype,
+                 dev: torch.device) -> Tuple[int, int]:
+    """``backward_split`` with ``dev``'s SM count and cluster capacity: the
+    split ``target_attention_flash_backward`` launches there."""
+    code = _build.DTYPE_CODES[seq_dtype]
+    return backward_split(
+        B, L, C, d, seq_dtype.itemsize, _build.sm_count(dev),
+        lambda upc, cap, S: _build.clusters("sdim_target_attention_backward_clusters", dev,
+                                            code, d, upc, cap, S))
+
+
 def target_attention_flash_backward_ref(
         dout: torch.Tensor, q: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
         out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,13 +202,14 @@ def target_attention_flash_backward(
                 torch.zeros_like(seq))
     dq = torch.empty((B, C, d), dtype=torch.float32, device=dev)
     dseq = torch.empty_like(seq)
-    stats = torch.empty((B, C, 4), dtype=torch.float32, device=dev)
+    upc, S = launch_split(B, L, C, d, seq.dtype, dev)
+    stats = None if S else torch.empty((B, C, 4), dtype=torch.float32, device=dev)
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_target_attention_backward(
             dout.data_ptr(), q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
-            out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dseq.data_ptr(),
-            B, L, C, d, _scale(d), _build.stream(dev))
+            out.data_ptr(), _build.ptr(stats), dq.data_ptr(), dseq.data_ptr(),
+            B, L, C, d, _scale(d), upc, S, _build.stream(dev))
     _build.check(err, "target_attention_flash_backward")
     target_attention_flash_backward.launches += 1
     return dq, dseq

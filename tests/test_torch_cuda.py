@@ -44,6 +44,7 @@ from repro_torch.kernels.sdim_update.sdim_update import (
 from repro_torch.kernels.target_attn.target_attn import (
     target_attention_flash, target_attention_flash_backward,
     target_attention_flash_backward_ref, target_attention_flash_ref)
+from repro_torch.kernels.target_attn.target_attn import launch_split as ta_launch_split
 from repro_torch.models.ctr import CTRModel
 from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
 
@@ -894,15 +895,16 @@ def test_sdim_fused_serve_at_d4mod8(shape, store_dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", CLUSTER_SHAPES)
 def test_bse_encode_backward_kernel(shape, dtype, layout, splits, dev):
-    """Against the plain version: the wrapper's row chunks, one chunk a
-    user and one per 8 rows; wholly masked leading rows, valid rows only at
-    the end, and (B > 1) a fully masked last user, whose gradient is 0."""
+    """Against the plain version: the wrapper's cluster, one CTA a user and
+    the largest cluster (8 CTAs, or one per 8 rows where fewer); wholly
+    masked leading rows, valid rows only at the end, and (B > 1) a fully
+    masked last user, whose gradient is 0."""
     seq, _, mask, R, rng = _inputs(shape, dev, dtype, seed=7)
     B, L, tau = shape[0], shape[1], shape[-1]
     mask = _layout(mask, layout, rng)
     G, U, d = shape[4] // tau, 1 << tau, shape[3]
     dT = torch.randn((B, G, U, d), device=dev)
-    S = {"auto": None, "one": 1, "rows": -(-L // 8)}[splits]
+    S = {"auto": None, "one": 1, "rows": min(8, -(-L // 8))}[splits]
     before = bse_encode_backward.launches
     out = bse_encode_backward_cuda(dT, seq, mask, R, tau, S)
     torch.cuda.synchronize()
@@ -964,6 +966,79 @@ def test_target_attention_flash_backward_kernel(shape, dtype, layout, dev):
                                    **(FP32 if dtype == torch.float32 else BF16_OUT))
         if shape[0] > 1:
             assert not dq[-1].any()
+
+
+# the one-launch target attention backward (C = 1) at each way it splits a
+# user: clusters of up to 8 (64 KB of rows a CTA; 128 KB at d = 256; 3 at
+# d = 36), one user a CTA (the protocol's target kind), and 2, 4 or 8 users
+# a CTA (folded retrieval; B = 2,049 leaves the last CTA short of users);
+# bf16 at d = 36 with odd L: odd users' rows start off a 16-byte boundary
+# and are copied 8 bytes at a time, an odd row count ends in an 8-byte tail
+ONE_LAUNCH_SHAPES = [(32, 1024, 128), (128, 256, 32), (2048, 32, 128), (2049, 16, 32),
+                     (512, 8, 32), (4, 1024, 256), (7, 301, 36), (2048, 33, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["front", "prefix"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ONE_LAUNCH_SHAPES, ids=[str(s) for s in ONE_LAUNCH_SHAPES])
+def test_target_attention_flash_backward_one_launch(shape, dtype, layout, dev):
+    """The one-launch backward against the plain version at FP32 (BF16_OUT
+    for a bf16 dseq), the same bits on two launches, at the split the
+    wrapper takes: valid rows last (front-padded) or first (the retrieval
+    kinds' top-k order), some users with one valid row, some with none
+    (uniform weights, no gradient in the candidate)."""
+    B, L, d = shape
+    rng = np.random.default_rng(14)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    seq = t(rng.standard_normal((B, L, d)).astype(np.float32)).to(dtype)
+    q, dout = (t(rng.standard_normal((B, 1, d)).astype(np.float32)) for _ in range(2))
+    n = rng.integers(0, L + 1, B)
+    n[:3] = (0, 1, L)
+    rows = np.arange(L)[None]
+    mask = t(((rows >= L - n[:, None]) if layout == "front" else (rows < n[:, None]))
+             .astype(np.float32))
+    out = target_attention_flash(q, seq, mask)
+    assert ta_launch_split(B, L, 1, d, seq.dtype, dev)[1] > 0
+    before = target_attention_flash_backward.launches
+    dq, dseq = target_attention_flash_backward(dout, q, seq, mask, out)
+    again = target_attention_flash_backward(dout, q, seq, mask, out)
+    torch.cuda.synchronize()
+    assert target_attention_flash_backward.launches == before + 2
+    assert torch.equal(dq, again[0]) and torch.equal(dseq, again[1]) and dseq.dtype == dtype
+    rq, rseq = target_attention_flash_backward_ref(dout, q, seq, mask, out)
+    torch.testing.assert_close(dq, rq, **FP32)
+    torch.testing.assert_close(dseq.float(), rseq.float(),
+                               **(FP32 if dtype == torch.float32 else BF16_OUT))
+    assert not dq[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, tau", [((32, 1024, 128), 1), ((32, 1024, 128), 2),
+                                        ((32, 1024, 128), 3), ((32, 1024, 128), 4),
+                                        ((128, 256, 32), 2), ((128, 256, 32), 3),
+                                        ((128, 256, 32), 4), ((32, 1024, 36), 3)])
+def test_bse_encode_backward_buckets_match_the_forward(shape, tau, dev):
+    """On unscreened rows, the backward hashes every row into the bucket
+    bse_encode puts it in, for every group: with dT[b, g, u, k] = u + 1
+    where k = g (else 0), dseq[b, l, g] is the row's bucket in group g plus
+    one, exactly (d >= G); the forward's bucket is the nonzero cell of
+    bse_encode over one-row users."""
+    B, L, d = shape
+    m = tau * (48 // tau)
+    G, U = m // tau, 1 << tau
+    rng = np.random.default_rng(15)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    R = t(rng.standard_normal((m, d)).astype(np.float32))
+    seq = t(rng.standard_normal((B, L, d)).astype(np.float32))
+    mask = torch.ones((B, L), device=dev)
+    dT = torch.zeros((B, G, U, d), device=dev)
+    g = torch.arange(G, device=dev)
+    dT[:, g, :, g] = torch.arange(1, U + 1, dtype=torch.float32, device=dev)
+    grad = bse_encode_backward(dT, seq, mask, R, tau)
+    table = bse_encode(seq.reshape(B * L, 1, d), mask.reshape(B * L, 1), R, tau)
+    bucket = table.abs().sum(-1).argmax(-1).reshape(B, L, G)
+    assert torch.equal(grad[..., :G], (bucket + 1).float())
 
 
 @pytest.mark.cuda

@@ -91,6 +91,8 @@ and its backward are emulated at d = 4, 12, 36 and 44.
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,7 +115,9 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import (MAX_CELLS, encode_large
                                                          encode_splits)
 from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
                                                          update_splits)
-from repro_torch.kernels.sdim_bucket.sdim_bucket import backward_splits
+from repro_torch.kernels.sdim_bucket.sdim_bucket import BWD_ROUND, backward_splits
+from repro_torch.kernels.target_attn.target_attn import TA_BWD_MAX_ROWS, TA_BWD_ROWS
+from repro_torch.kernels.target_attn.target_attn import backward_split as ta_backward_split
 from repro_torch.kernels.sdim_query.sdim_query import (query_backward_large_tau_splits,
                                                        query_backward_splits)
 from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape, serve_large_tau_splits
@@ -121,6 +125,16 @@ from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape, serve_large_
 FP32 = dict(atol=1e-5, rtol=1e-5)
 MASKED = np.float32(-1e30)
 LAYOUTS = ["random", "front", "last"]
+GPCS = (18,) * 7 + (6,)   # the model card's groups of SMs (132): a cluster stays in one
+
+
+def card_clusters(per_sm: int = 2):
+    """Stands in on the CPU for a backward kernel's cluster-capacity query:
+    the clusters of S CTAs (its last argument) that a model 132-SM card
+    holds at once, each SM holding ``per_sm`` of the kernel's CTAs and each
+    cluster within one of ``GPCS``. At two CTAs an SM it holds 29 clusters
+    of 8 and 36 of 7, so 32 users take clusters of 7, as on the H100."""
+    return lambda *args: sum(g * per_sm // args[-1] for g in GPCS)
 
 
 def _mask(rng, B, L, layout):
@@ -638,31 +652,37 @@ def test_update_splits_fill_one_wave(B, G, U, d, want):
 # the backward kernels
 # ---------------------------------------------------------------------------
 def bse_encode_backward_schedule(dT, seq, mask, R, tau, S, warps=8):
-    """bse_encode_backward.cu's schedule in numpy fp32: CTA j of user b owns
-    rows [j*L/S, (j+1)*L/S); warp w of it takes four rows at a time, lo +
-    4w .. lo + 4w + 3, then 32 rows on; a masked row writes zero unhashed.
-    Returns d seq and the write counts."""
+    """bse_encode_backward.cu's schedule in numpy fp32: a cluster of S CTAs
+    a user, rank r owning rows [r*L/S, (r+1)*L/S) (every CTA receives the
+    user's dT and R whole); a team of four lanes hashes two rows at once,
+    warp w taking the rounds of BWD_ROUND rows w, w + warps, ...; a round's (row, float4 column) pairs dealt to the lanes in order,
+    each the sum of the row's G gathered rows of dT in group order from +0,
+    times its mask; a masked row writes zero unhashed. Returns d seq and
+    the write counts of each (row, float4 column)."""
     B, L, d = seq.shape
     G = R.shape[0] // tau
     Rg = R.reshape(G, tau, d)
+    nq = d // 4
     out = np.full((B, L, d), np.nan, np.float32)
-    writes = np.zeros((B, L), np.int64)
+    writes = np.zeros((B, L, nq), np.int64)
+    rw = BWD_ROUND
     for b in range(B):
-        for j in range(S):
-            lo, hi = j * L // S, (j + 1) * L // S
+        for r in range(S):
+            lo, hi = r * L // S, (r + 1) * L // S
             for w in range(warps):
-                mine = [lo + r0 + h for r0 in range(4 * w, hi - lo, 4 * warps)
-                        for h in range(4) if r0 + h < hi - lo]
-                for l in mine:
-                    writes[b, l] += 1
-                    if mask[b, l] == 0:
-                        out[b, l] = 0.0
-                        continue
-                    sig = _signatures(seq[b, l][None], Rg, tau)[0]
-                    acc = np.zeros(d, np.float32)
-                    for g in range(G):                # group order
-                        acc = acc + dT[b, g, sig[g]]
-                    out[b, l] = mask[b, l] * acc
+                for base in range(w * rw, hi - lo, warps * rw):
+                    rows = np.arange(lo + base, min(hi, lo + base + rw))
+                    live = mask[b, rows] != 0
+                    sig = _signatures(seq[b, rows], Rg, tau)      # the teams' ids
+                    for j in range(len(rows) * nq):                # lanes over (row, column)
+                        rr, k = divmod(j, nq)
+                        l, cols = rows[rr], slice(4 * k, 4 * k + 4)
+                        writes[b, l, k] += 1
+                        acc = np.zeros(4, np.float32)
+                        if live[rr]:
+                            for g in range(G):                     # group order
+                                acc = acc + dT[b, g, sig[rr, g], cols]
+                        out[b, l, cols] = acc * mask[b, l] if live[rr] else 0.0
     return out, writes
 
 
@@ -693,11 +713,100 @@ def sdim_query_backward_schedule(dout, q, table, R, tau, S, TC=32):
     return out, writes
 
 
-def target_attention_backward_schedule(dout, q, seq, mask, out, groups=32):
-    """target_attn_backward.cu's schedule in numpy fp32: a CTA per candidate
-    (row group r takes rows r, r + 32, ...: an online max and denominator
-    each, merged in group order; then dS * seq per row group, merged in
-    order) and a CTA per 32-row tile looping over the candidates."""
+def _merge_stats(m, den, mo, deno):
+    """target_attn_backward.cu merge_stats: the online-softmax merge of two
+    (max, denominator) pairs, in fp32."""
+    mn = np.maximum(m, mo)
+    return mn, (den * np.exp(m - mn) + deno * np.exp(mo - mn)).astype(np.float32)
+
+
+def target_attention_backward_schedule(dout, q, seq, mask, out, upc, S):
+    """target_attn_backward.cu's one launch (C = 1) in numpy fp32: upc users
+    a CTA of 8 warps (8 / upc warps, nt threads, a user) or a cluster of S
+    CTAs a user, rank r owning rows [r*cap, (r+1)*cap), cap = ceil(L/S).
+    A cluster's slot stages only its rows from the first valid one (rounded
+    down to an even row) to the last, the rest getting the masked logit
+    unread; a CTA of whole users (S = 1) stages every row. Logits
+    and dp a row; each thread's rows t, t + nt, ... merged online, a warp's
+    by a butterfly (xor 16, ..., 1), the slot's warps in warp order and the
+    ranks in rank order (M, DEN); dS and P a row; dseq = P dout + scale dS
+    q a (row, float4 column); dq partials of RP row phases over the
+    staged rows (the least RP with RP^2 >= 4 rows, at most nt // nq),
+    added in phase order, then the ranks' in rank order, times scale. Returns dq, dseq and each (row, float4 column)'s write
+    count."""
+    B, C, d = q.shape
+    assert C == 1
+    L = seq.shape[1]
+    nq = d // 4
+    nt = 32 * (8 // upc)
+    cap = -(-L // S)
+    scale = np.float32(1.0) / np.sqrt(np.float32(d))
+    dq = np.zeros((B, C, d), np.float32)
+    dseq = np.full((B, L, d), np.nan, np.float32)
+    writes = np.zeros((B, L, nq), np.int64)
+    for b in range(B):
+        qv, dv = q[b, 0], dout[b, 0]
+        Dc = np.float32(np.dot(dv, out[b, 0]))
+        ranks = []
+        for r in range(S):
+            lo = r * cap
+            n = max(0, min(cap, L - lo))
+            x, valid = seq[b, lo:lo + n], mask[b, lo:lo + n] > 0
+            live = np.flatnonzero(valid)
+            if S == 1:                                # whole users: every row staged
+                f0, e0 = 0, n
+            else:
+                f0, e0 = (int(live[0]) & ~1, int(live[-1]) + 1) if len(live) else (0, 0)
+            a = np.full(n, MASKED, np.float32)
+            dp = np.zeros(n, np.float32)
+            a[f0:e0] = np.where(valid[f0:e0], (x[f0:e0] @ qv) * scale, MASKED)
+            dp[f0:e0] = x[f0:e0] @ dv
+            # each thread's rows online, then a warp's butterfly, then warps in order
+            k_rows = -(-n // nt)
+            pad = np.full(k_rows * nt, MASKED, np.float32)
+            pad[:n] = a
+            m = np.full(nt, MASKED, np.float32)
+            den = np.zeros(nt, np.float32)
+            for k in range(k_rows):
+                row = pad[k * nt:(k + 1) * nt]
+                has = np.arange(k * nt, (k + 1) * nt) < n
+                mm, dd = _merge_stats(m, den, row, np.float32(1))
+                m, den = np.where(has, mm, m), np.where(has, dd, den)
+            m, den = m.reshape(-1, 32), den.reshape(-1, 32)
+            for o in (16, 8, 4, 2, 1):
+                m, den = _merge_stats(m, den, m[:, np.arange(32) ^ o], den[:, np.arange(32) ^ o])
+            ms, ds = m[0, 0], den[0, 0]
+            for wi in range(1, len(m)):
+                ms, ds = _merge_stats(ms, ds, m[wi, 0], den[wi, 0])
+            ranks.append((ms, ds, lo, n, x, valid, a, dp, f0, e0))
+        M = max(rk[0] for rk in ranks)
+        DEN = np.float32(0)
+        for rk in ranks:                                          # rank order
+            DEN = np.float32(DEN + rk[1] * np.exp(rk[0] - M))
+        total = np.zeros(d, np.float32)
+        for ms, ds, lo, n, x, valid, a, dp, f0, e0 in ranks:
+            P = (np.exp(a - M) / DEN).astype(np.float32)
+            dS = np.where(valid, P * (dp - Dc), 0).astype(np.float32)
+            dseq[b, lo:lo + n] = P[:, None] * dv + (scale * dS)[:, None] * qv
+            writes[b, lo:lo + n] += 1
+            part = np.zeros(d, np.float32)
+            RP = min(math.isqrt(max(4 * (e0 - f0), 1) - 1) + 1, nt // nq if nt >= nq else 1)
+            for r0 in range(RP):                                  # row phase order
+                acc = np.zeros(d, np.float32)
+                for rr in range(f0 + r0, e0, RP):
+                    acc = acc + dS[rr] * x[rr]
+                part = part + acc
+            total = total + part                                  # rank order
+        dq[b, 0] = scale * total
+    return dq, dseq, writes
+
+
+def target_attention_backward_two_launch_schedule(dout, q, seq, mask, out, groups=32):
+    """target_attn_backward.cu's two-launch path (C > 1) in numpy fp32: a
+    CTA per candidate (row group r takes rows r, r + 32, ...: an online max
+    and denominator each, merged in group order; then dS * seq per row
+    group, merged in order) and a CTA per 32-row tile looping over the
+    candidates."""
     B, C, d = q.shape
     L = seq.shape[1]
     scale = np.float32(1.0) / np.sqrt(np.float32(d))
@@ -781,11 +890,47 @@ def test_sdim_backward_schedules_match_jax(shape, layout):
         dT, writes = sdim_query_backward_schedule(dout, q, table, R, tau, S)
         assert (writes == 1).all()
         np.testing.assert_allclose(dT, jdT, **FP32)
-    for S in (backward_splits(B, L, 132), 3):
+    for S in (backward_splits(B, L, 132, card_clusters()), 3):
         dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
         assert (writes == 1).all()
         np.testing.assert_allclose(dseq, jdseq, **FP32)
         assert not dseq[-1].any()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("tau", [1, 3, 4])
+def test_sdim_backward_schedules_at_the_protocol_shape(tau, layout):
+    """The Table 2/3 protocol's and Table 4's training step (B = 128, L =
+    256, d = 32, C = 1, m = 48): the splits the wrappers take for 128 users
+    on a 132-SM card (bse_encode_backward: clusters of 3 where it holds
+    four CTAs an SM), emulated for the first three users."""
+    B, L, C, d, m = 3, 256, 1, 32, 48
+    G = m // tau
+    rng = np.random.default_rng(23 + tau)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    mask = _mask(rng, B, L, layout)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    table, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
+    S = backward_splits(128, L, 132, card_clusters(4))
+    assert S == 3
+    dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    dT, writes = sdim_query_backward_schedule(dout, q, table, R, tau,
+                                              query_backward_splits(128, G, 132))
+    assert (writes == 1).all()
+    np.testing.assert_allclose(dT, jdT, **FP32)
+
+
+def _jax_target_backward(dout, q, seq, mask):
+    """(out, dq, d seq) of <dout, target_attention(q, seq)> by jax.grad."""
+    out = np.asarray(jtarget_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
+    jdq, jdseq = jax.grad(lambda a, b: jnp.sum(jtarget_attention(a, b, jnp.asarray(mask))
+                                               * jnp.asarray(dout)), argnums=(0, 1))(
+        jnp.asarray(q), jnp.asarray(seq))
+    return out, np.asarray(jdq), np.asarray(jdseq)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -795,33 +940,112 @@ def test_sdim_backward_schedules_match_jax(shape, layout):
 def test_target_attention_backward_schedule_matches_jax(shape, layout):
     """L not a multiple of 32 (row groups with one row more than others),
     C = 1, and a fully masked last user (uniform weights: its rows get
-    sum_c dout / L, its candidates nothing); d = 4, 12, 36 and 44 too."""
+    sum_c dout / L, its candidates nothing); d = 4, 12, 36 and 44 too. C >
+    1 takes the two-launch path; the first candidate alone (C = 1) the one
+    launch, at the split the wrapper takes and at a cluster of 2."""
     B, L, C, d = shape
     rng = np.random.default_rng(22)
     seq = rng.standard_normal((B, L, d)).astype(np.float32)
     q = rng.standard_normal((B, C, d)).astype(np.float32)
     mask = _mask(rng, B, L, layout)
     dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    out = np.asarray(jtarget_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
-    dq, dseq = target_attention_backward_schedule(dout, q, seq, mask, out)
-    jdq, jdseq = jax.grad(lambda a, b: jnp.sum(jtarget_attention(a, b, jnp.asarray(mask))
-                                               * jnp.asarray(dout)), argnums=(0, 1))(
-        jnp.asarray(q), jnp.asarray(seq))
-    np.testing.assert_allclose(dq, np.asarray(jdq), **FP32)
-    np.testing.assert_allclose(dseq, np.asarray(jdseq), **FP32)
-    assert not dq[-1].any()
+    if C > 1:
+        assert ta_backward_split(B, L, C, d, 4, 132, card_clusters()) == (0, 0)
+        out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
+        dq, dseq = target_attention_backward_two_launch_schedule(dout, q, seq, mask, out)
+        np.testing.assert_allclose(dq, jdq, **FP32)
+        np.testing.assert_allclose(dseq, jdseq, **FP32)
+        assert not dq[-1].any()
+        q, dout = q[:, :1].copy(), dout[:, :1].copy()
+    out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
+    for upc, S in (ta_backward_split(B, L, 1, d, 4, 132, card_clusters()), (1, 2)):
+        dq, dseq, writes = target_attention_backward_schedule(dout, q, seq, mask, out, upc, S)
+        assert (writes == 1).all()
+        np.testing.assert_allclose(dq, jdq, **FP32)
+        np.testing.assert_allclose(dseq, jdseq, **FP32)
+        assert not dq[-1].any()
 
 
-@pytest.mark.parametrize("B, L, G, want_rows, want_groups", [
-    (32, 1024, 16, 8, 8),        # the training step: 256 CTAs each, one wave at two an SM
-    (1, 1024, 16, 32, 16),       # one user: a chunk per 32 rows (capped), one group a CTA
-    (4096, 1024, 16, 1, 1),      # a large batch: one CTA a user
-    (2, 40, 6, 2, 6),            # short histories: at most one chunk per 32 rows
+@pytest.mark.parametrize("shape", [
+    (128, 16, 32, 24),        # the protocol's folded retrieval kinds: 128 users, k = 16
+    (2048, 32, 128, 24),      # chip_smoke's folded shape: 16 x 128 candidates, k = 32
+    (2048, 32, 36, 24),       # dien's width
+    (128, 256, 32, 3),        # the protocol's target kind (B = 128, L = 256, d = 32)
+    (32, 1024, 128, 2),       # the training step (B = 32, L = 1,024, d = 128)
+], ids=["folded-L16-d32", "folded-L32-d128", "folded-L32-d36", "protocol-target",
+        "train-main"])
+def test_target_attention_backward_schedule_at_the_training_shapes(shape):
+    """The one launch at the shapes its launches on record use, with the
+    split the wrapper takes for all B users on a 132-SM card (users packed
+    a CTA, or a cluster a user), emulated for the first `n` users. Folded
+    users hold their valid rows first (top-k order), some fewer than k and
+    some none (uniform weights, no gradient in the candidate)."""
+    B, L, d, n = shape
+    rng = np.random.default_rng(24)
+    seq = rng.standard_normal((n, L, d)).astype(np.float32)
+    q = rng.standard_normal((n, 1, d)).astype(np.float32)
+    dout = rng.standard_normal((n, 1, d)).astype(np.float32)
+    if L <= 32:
+        found = rng.integers(0, L + 1, n)
+        found[:2] = (0, L)
+        mask = (np.arange(L)[None] < found[:, None]).astype(np.float32)
+    else:
+        mask = _mask(rng, n, L, "front")
+    upc, S = ta_backward_split(B, L, 1, d, 4, 132, card_clusters())
+    assert (upc, S) == {2048: (4, 1) if d == 128 else (8, 1), 32: (1, 7)}.get(B, (1, 1))
+    out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
+    dq, dseq, writes = target_attention_backward_schedule(dout, q, seq, mask, out, upc, S)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(dq, jdq, **FP32)
+    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    assert not dq[mask.sum(1) == 0].any()
+
+
+@pytest.mark.parametrize("B, L, G, per_sm, want_rows, want_groups", [
+    (32, 1024, 16, 2, 7, 8),     # the training step: 29 clusters of 8 fit, 32 of 7: 224 CTAs
+    (24, 1024, 16, 2, 8, 11),    # 24 users: clusters of 8 fit
+    (1, 1024, 16, 2, 8, 16),     # one user: the largest cluster, one group a CTA
+    (4096, 1024, 16, 2, 1, 1),   # a large batch: one CTA a user
+    (2, 40, 6, 2, 2, 6),         # short histories: at most one CTA per 32 rows
+    (128, 256, 16, 4, 3, 2),     # the protocol's step, four CTAs an SM: clusters of 3
 ])
-def test_backward_splits_fill_one_wave(B, L, G, want_rows, want_groups):
-    assert backward_splits(B, L, n_sm=132) == want_rows
+def test_backward_splits_fill_one_wave(B, L, G, per_sm, want_rows, want_groups):
+    fit = card_clusters(per_sm)
+    assert backward_splits(B, L, 132, fit) == want_rows
     assert query_backward_splits(B, G, n_sm=132) == want_groups
-    assert B * want_rows <= 2 * 132 or want_rows == 1
+    assert want_rows == 1 or B * (want_rows - 1) < 2 * 132        # two CTAs an SM at most
+    assert want_rows == 1 or B <= fit(want_rows)                  # one wave
+
+
+@pytest.mark.parametrize("B, L, C, d, elem, per_sm, want", [
+    (32, 1024, 1, 128, 4, 2, (1, 7)),     # the training step: 29 clusters of 8 fit, 36 of 7
+    (24, 1024, 1, 128, 4, 2, (1, 8)),     # 24 users: 64 KB a CTA in clusters of 8
+    (32, 1024, 1, 36, 4, 2, (1, 3)),      # dien's width: 48 KB a CTA
+    (32, 1024, 1, 128, 2, 2, (1, 4)),     # bf16 rows
+    (128, 256, 1, 32, 4, 2, (1, 1)),      # the protocol's target kind: 32 KB, one CTA a user
+    (2048, 32, 1, 128, 4, 2, (4, 1)),     # folded retrieval: four users a CTA (64 KB)
+    (2048, 16, 1, 32, 4, 2, (8, 1)),      # 2,048 users of 16 rows
+    (128, 16, 1, 32, 4, 2, (1, 1)),       # the protocol's folded kinds: a CTA a user
+    (2048, 32, 1, 36, 4, 2, (8, 1)),      # folded at dien's width
+    (600, 32, 1, 128, 4, 2, (4, 1)),      # 150 CTAs of four: a CTA for each SM
+    (400, 32, 1, 128, 4, 2, (2, 1)),      # four would leave SMs idle
+    (100, 16, 1, 32, 4, 2, (1, 1)),       # few short users: one a CTA
+    (32, 1024, 1, 256, 4, 1, (1, 8)),     # d = 256, one CTA an SM: no cluster of <= 192 KB fits
+    (32, 4096, 1, 256, 4, 1, (0, 0)),     # past 8 CTAs' shared memory: two launches
+    (32, 1024, 128, 128, 4, 2, (0, 0)),   # C > 1: two launches
+])
+def test_target_attention_backward_split(B, L, C, d, elem, per_sm, want):
+    """(users a CTA, CTAs a user) that the target attention backward
+    launches on the model card."""
+    fit = card_clusters(per_sm)
+    upc, S = ta_backward_split(B, L, C, d, elem, 132, fit)
+    assert (upc, S) == want
+    if S:
+        cap = -(-L // S)
+        assert upc * cap * d * elem <= (TA_BWD_ROWS if upc > 1 else TA_BWD_MAX_ROWS)
+        assert S == 1 or (S - 1) * TA_BWD_ROWS < L * d * elem     # the fewest CTAs
+        assert S in (1, 8) or B <= fit(upc, cap, S)               # shrunk to one wave
+        assert -(-B // upc) >= 132 or upc == 1
 
 
 def _dot4(a, b, acc):
