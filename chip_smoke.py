@@ -35,7 +35,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    same bits on two launches and are timed at C=1 (the target backward
    beside SDPA's efficient-attention backward plus dk + dv, its library
    yardstick; bse_encode_backward's buckets of unscreened rows checked
-   against bse_encode's at the width). target_attention_flash
+   against bse_encode's at the width; sdim_query_backward, bound by the
+   least work, also at the Table 2/3 protocol's step, B=128, L=256, d=32:
+   its JSON's ``protocol``). target_attention_flash
    and its backward are also held and timed at the retrieval kinds' folded
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
    retrieved; some with fewer valid rows, some with none). Then the same
@@ -422,7 +424,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    cluster body) and at d = 36, uncounted: event-timed ms of kernel and
    plain version, device ms (d = 128) and the bound of
    ``kernels/cost.py``'s counts, with ``bse_encode`` at the history
-   ingest's shape (the burst's users, d = 128); then the large-tau paths of
+   ingest's shape (the burst's users, d = 128) and ``sdim_query`` off the
+   burst's fetched fp32 (timed) and bf16 tables; decoupled (sdim_query and
+   sdim_fused_serve off bse_encode's table) must equal inline (bse_serve)
+   bit for bit; then the large-tau paths of
    ``bse_encode``, ``sdim_query`` and both backward kernels at Table 4's
    training shape (B = 128, L = 256, d = 32, C = 1, tau 5 and 10) the
    same way, device ms included. (b)
@@ -1056,7 +1061,43 @@ def kernel_phase(torch, dev, d: int = D):
     for k in timed:
         if k["name"] in folded:
             k["folded"] = folded[k["name"]]
+        if k["name"] == "sdim_query_backward" and d == D:
+            k["protocol"] = query_backward_protocol(torch, rng, t)
     return timed
+
+
+def query_backward_protocol(torch, rng, t) -> dict:
+    """Phase 3: sdim_query_backward at the Table 2/3 protocol's and Table
+    4's step (B = 128, L = 256, d = 32, C = 1, m = M, tau = TAU) against its
+    plain version (compared times each row's n), the same bits twice, timed
+    (CUDA events, wrapper included, and device times) beside its least-work
+    bound: the ``protocol`` entry of its JSON row."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_query.sdim_query import (sdim_query_backward,
+                                                           sdim_query_backward_ref)
+
+    b, d = 128, 32
+    Rn = rng.standard_normal((M, d)).astype(np.float32)
+    R = t(Rn)
+    mask = t((np.arange(256)[None] >= rng.integers(0, 128, b)[:, None]).astype(np.float32))
+    table = bse_encode_ref(t(screened_normal(rng, (b, 256, d), Rn)), mask, R, TAU)
+    q = t(screened_normal(rng, (b, 1, d), Rn))
+    dout = t(rng.standard_normal((b, 1, d)).astype(np.float32))
+    kernel = partial(sdim_query_backward, dout, q, table, R, TAU)
+    plain = partial(sdim_query_backward_ref, dout, q, table, R, TAU)
+    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+    err = check_close(f"sdim_query_backward protocol {(b, 1, d)} (times n)", kernel() * n,
+                      plain() * n, **FP32)
+    same_bits("sdim_query_backward protocol", kernel)
+    k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+    b_ms, b_by = bound(query_backward_cost(q, table, R, TAU))
+    row = dict(shape=[b, 1, d], max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, **device_times(kernel, plain))
+    print(f"kernel sdim_query_backward at the protocol's step {(b, 1, d)}: {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {device_line(row)}; "
+          f"max abs err {err:.3g}; the same bits twice")
+    return row
 
 
 def target_row(torch, dev, history, d):
@@ -1234,9 +1275,7 @@ def backward_rows(torch, dev, rng, t, Rn, R, history, hash_flop, d):
                  "none (gradient of src/repro/kernels/sdim_query/sdim_query.py:52)", err,
                  partial(k["sdim_query_backward"], dout, q, table, R, TAU),
                  partial(k["sdim_query_backward_ref"], dout, q, table, R, TAU),
-                 bound(Cost(flops=TRAIN_B * hash_flop + TRAIN_B * G * U * 8 * d,
-                            bytes=2 * q.numel() * 4 + 2 * table.numel() * 4
-                            + R.numel() * 4)), None))
+                 bound(query_backward_cost(q, table, R, TAU)), None))
 
     # target_attention_flash_backward: C = 1 and C = 128 in fp32, bf16
     # behaviors, a fully masked user (uniform weights), C = 0 and L = 0;
@@ -4637,6 +4676,21 @@ def bench_table5(torch, dev) -> dict:
     return figures
 
 
+def query_backward_cost(q, table, R, tau):
+    """The least work of sdim_query_backward: write the whole of dT once and
+    read dout, q, R and the rows the candidates select (a row no candidate
+    selects is +0 and needs no read); hash each candidate (2 m d FLOP, G d
+    to pack) and form each selected row (8 d)."""
+    from repro_torch.kernels import cost
+
+    B, C, d = q.shape
+    m = R.shape[0]
+    G, U = m // tau, 1 << tau
+    selected = float(cost._selected_rows(q, R, tau, U))
+    return cost.Cost(float(B * C * (2 * m * d + 2 * G * d) + 8.0 * selected * d),
+                     float(4 * (table.numel() + selected * d + 2 * B * C * d + m * d)))
+
+
 def training_costs(seq, mask, q, table, R, tau) -> dict:
     """The bytes and operations of the four training kernels at one
     training step's shapes (kernels/cost.py's for bse_encode and
@@ -4644,21 +4698,18 @@ def training_costs(seq, mask, q, table, R, tau) -> dict:
     backward reads the valid rows once, the mask, each user's dT once and R,
     writes dseq once and hashes each valid row (2 m d FLOP) and adds its G
     rows of dT (G d; the gathered rows come from on-chip memory, so they
-    count as operations, not bytes); the query backward writes the whole of
-    dT and reads dout, q, R and the rows its candidates select: a row no
-    candidate selects is +0 and needs no read."""
+    count as operations, not bytes); the query backward's is
+    ``query_backward_cost``'s."""
     from repro_torch.kernels import cost
 
     B, L, d = seq.shape
-    C, m = q.shape[1], R.shape[0]
+    m = R.shape[0]
     G, U = m // tau, 1 << tau
     hash_flops = 2 * m * d + G * d
-    valid, selected = float(mask.sum()), float(cost._selected_rows(q, R, tau, U))
-    bwd_bytes = 4 * (B * G * U * d + selected * d + 2 * B * C * d + m * d)
-    bwd_flops = B * C * (2 * m * d + 2 * G * d) + 8.0 * selected * d
+    valid = float(mask.sum())
     return {"bse_encode": cost.settle(cost.encode(seq, mask, R, tau=tau)),
             "sdim_query": cost.settle(cost.query(q, table, R, tau=tau)),
-            "sdim_query_backward": cost.Cost(float(bwd_flops), float(bwd_bytes)),
+            "sdim_query_backward": query_backward_cost(q, table, R, tau),
             "bse_encode_backward": cost.Cost(valid * hash_flops,
                                              4 * (valid * d + B * L * (d + 1)
                                                   + B * G * U * d + m * d))}
@@ -5014,6 +5065,19 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                        cost.serve(q, seq, mask, Rt, tau=tau), timed)
                 if tau == 1:
                     continue
+                # decoupled (bse_encode's table read by sdim_query, fetched,
+                # and by sdim_fused_serve) equals inline (bse_serve) bit for bit
+                encoded, inline = bse_encode(seq, mask, Rt, tau), bse_serve(q, seq, mask, Rt, tau)
+                slots = torch.arange(BURST, dtype=torch.int32, device=dev)
+                for name, got in (("sdim_query", sdim_query(q, encoded, Rt, tau)),
+                                  ("sdim_fused_serve",
+                                   sdim_fused_serve(encoded, slots, q, Rt, tau))):
+                    if not torch.equal(got, inline):
+                        raise AssertionError(f"large_tau (a) {label}: {name} off bse_encode's "
+                                             f"table differs from bse_serve (inline)")
+                print(f"large_tau (a) {label}: decoupled (sdim_query and sdim_fused_serve off "
+                      f"bse_encode's table) equals inline (bse_serve) bit for bit")
+                del encoded, inline
                 if d == D:                          # the decoupled deployment's history ingest
                     record("bse_encode", f"ingest {label}",
                            partial(bse_encode, seq, mask, Rt, tau),
@@ -5026,7 +5090,15 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                 hmask = torch.ones((LT_USERS, L), device=dev)
                 hmask[:BURST] = mask
                 rows = bse_encode_ref(hist, hmask, Rt, tau)
-                slots = torch.arange(BURST, dtype=torch.int32, device=dev)
+                # the unfused decoupled read: the burst's fetched tables
+                fetched = rows[:BURST].contiguous()
+                for wire in (fetched, fetched.to(torch.bfloat16)):
+                    record("sdim_query", f"{label} fetched {str(wire.dtype)[6:]}",
+                           partial(sdim_query, q, wire, Rt, tau),
+                           partial(sdim_query_ref, q, wire, Rt, tau), sdim_query(q, wire, Rt, tau),
+                           sdim_query_ref(q, wire, Rt, tau), cost.query(q, wire, Rt, tau=tau),
+                           timed if wire.dtype == torch.float32 else None)
+                del fetched
                 present = torch.ones(BURST, device=dev)
                 present[1] = 0.0                    # an absent user
                 for dtype in ("fp32", "bf16", "int8", "fp8"):

@@ -5,6 +5,7 @@ NVIDIA GPU (written for the H100):
     python3 phase_clocks.py
     python3 phase_clocks.py table4 [--src DIR]
     python3 phase_clocks.py table23 [--src DIR]
+    python3 phase_clocks.py query [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -23,8 +24,11 @@ the training steps (``target_attn_backward.cu``'s one launch at C = 1 and
 the Table 2/3 protocol's and Table 4's: B = 128, L = 256, d = 32, and the
 retrieval kinds' 128 folded users of k = 16 rows, where it also times
 each split of the target backward: 1, 2, 4 and 8 users a CTA and the
-two-launch path) and stamps
-%globaltimer at the CTA's start and end. Runs each kernel at the main
+two-launch path), and kernel 4's ``sdim_query_backward.cu`` (tau 3 at
+chip_smoke.py phase 3's training step, at d = 36, at C = 128 and at the
+protocol's step) and large-tau forward (``sdim_query_large_tau.cu``:
+Table 4's training step and phase 20's burst), and stamps %globaltimer
+at the CTA's start and end. Runs each kernel at the main
 path's burst shape of ``chip_smoke.py`` (B = 16, L = 1024 with front-padded
 lengths uniform on [L/4, L], C = 128, d = 128, m = 48, tau = 3; fp32, and
 a bf16 table for sdim_query), bse_encode at 8 and 16 group slices per user,
@@ -46,8 +50,14 @@ warm-up steps) and the device-busy share of 6 steps under torch.profiler
 (the union of the device operations' intervals over the host's wall time).
 ``table23`` does the same for the Table 2/3 protocol's ``target``,
 ``sim_hard`` (top-k 16: 128 folded users of 16 rows) and ``sdim`` (m = 48,
-tau = 3) kinds (``bench/table23_auc.py``: batch 128, L = 256, AdamW lr 5e-3),
-with the device ms of each of the two backward kernels per 6 steps.
+tau = 3) kinds (``bench/table23_auc.py``: batch 128, L = 256, AdamW lr 5e-3);
+both print the device ms per 6 steps of the SDIM backward kernels, the
+target backward and sdim_query's large-tau forward (``STEP_KERNELS``).
+``query`` prints the device ms (three rounds of 20 launches under
+torch.profiler) of ``sdim_query_backward`` at ``BWD_QUERY_SHAPES`` and of
+``sdim_query`` at ``LT_QUERY_SHAPES`` with the port of ``--src``, each with
+its max abs error against its plain version, on inputs drawn from one seed,
+so two trees run in one chip call see the same data.
 """
 from __future__ import annotations
 
@@ -84,6 +94,8 @@ PHASES = {
     "bse_encode_lt": ["staging (R)", "hash", "ranking (+ barrier)", "sums + stores"],
     "sdim_query_backward_lt": ["staging (R, rows)", "hash", "ranking (+ barriers)",
                                "selected rows", "zero stores"],
+    "sdim_query_lt": ["staging (candidates)", "hash", "row loads + norms",
+                      "sums (+ barriers)", "store"],
     # the backward kernels of the training steps (target_attn_backward.cu's
     # one launch, bse_encode_backward.cu at tau <= 4)
     "target_attention_backward": ["staging (mask scan, copies issued)",
@@ -91,6 +103,8 @@ PHASES = {
                                   "dS + dseq stores + dq sums", "dq exchange + store"],
     "bse_encode_backward": ["staging (rows, multicast wait)", "hash (warp 0)",
                             "gather + stores (warp 0)"],
+    "sdim_query_backward": ["staging (R, q, dout)", "hash (+ barrier)",
+                            "passes after the first (+ barriers)", "rows (selected, zeros)"],
 }
 # the backward kernels' shapes: (B, L, d) of chip_smoke.py phase 3 (the
 # training step, its folded retrieval shape, both at dien's d = 36 too) and
@@ -102,6 +116,17 @@ BWD_TARGET_SHAPES = {"main": (32, 1024, 128), "folded": (2048, 32, 128),
 BWD_ENCODE_SHAPES = {"main": (32, 1024, 128), "main d=36": (32, 1024, 36),
                      "protocol": (128, 256, 32)}
 BWD_SPLITS = ((1, 1), (2, 1), (4, 1), (8, 1), (0, 0))  # the protocol folded shape's candidates
+# sdim_query_backward at tau 3 (m = 48), (B, C, d): chip_smoke.py phase 3's
+# training step (and at dien's d = 36, and its check at C = 128) and the
+# Table 2/3 protocol's and Table 4's step
+BWD_QUERY_SHAPES = {"train": (32, 1, 128), "train d=36": (32, 1, 36),
+                    "protocol": (128, 1, 32), "C=128": (32, 128, 128)}
+BWD_QUERY_SPLITS = (2, 4, 8, 16)   # the group slices a user the query mode also times
+# sdim_query's large-tau forward, (B, C, d, tau, m): Table 4's training step
+# and chip_smoke.py phase 20's burst (the decoupled read of fetched tables)
+LT_QUERY_SHAPES = {"table4 tau=5": (128, 1, 32, 5, 45), "table4 tau=10": (128, 1, 32, 10, 40),
+                   "phase20 tau=5": (16, 128, 128, 5, 45),
+                   "phase20 tau=10": (16, 128, 128, 10, 40)}
 LT_SHAPES = ((5, 45), (10, 40), (1, 48))    # chip_smoke.py phase 20 (a): (tau, m) at d = 128
 # the large-tau training kernels' shapes (B, L, C, d): Table 4's training
 # step and the decoupled deployment's history ingest (chip_smoke.py phase
@@ -257,6 +282,7 @@ def main() -> int:
     large_tau(lib, plain, dev, rng, n_sm)
     large_tau_training(lib, plain, dev, rng, n_sm)
     backward_kernels(lib, plain, dev, rng)
+    query_kernels(lib, plain, dev, rng, n_sm)
     return 0
 
 
@@ -328,6 +354,98 @@ def backward_kernels(lib, plain, dev, rng) -> None:
               "sdim_bse_encode_backward_phases", S * b)
 
 
+def query_inputs(torch, dev, rng, b, c, d, tau, m, own=False):
+    """Candidates q (b, c, d), the table of b users' encoded histories (L =
+    256, front-padded, 1..L valid rows, the last user fully masked), R and
+    dout, margin-screened; with ``own`` half of each other user's
+    candidates are its own valid behaviors (phase 20's burst)."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    l = 256
+    Rn = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (b, l, d), Rn)
+    mask = (np.arange(l)[None] >= rng.integers(0, l, b)[:, None]).astype(np.float32)
+    mask[-1] = 0.0
+    q = screened_normal(rng, (b, c, d), Rn)
+    if own:
+        for u in range(b - 1):
+            q[u, :c // 2] = seq[u, rng.choice(np.flatnonzero(mask[u]), c // 2)]
+    R = t(Rn)
+    table = bse_encode_ref(t(seq), t(mask), R, tau)
+    return t(q), table, R, t(rng.standard_normal((b, c, d)).astype(np.float32))
+
+
+def query_kernels(lib, plain, dev, rng, n_sm) -> None:
+    """sdim_query_backward (tau 3, m = 48) at BWD_QUERY_SHAPES and
+    sdim_query's large-tau forward at LT_QUERY_SHAPES (fp32 tables)."""
+    import torch
+    from functools import partial
+
+    from repro_torch.kernels.sdim_query.sdim_query import (query_backward_splits, sdim_query,
+                                                           sdim_query_backward)
+    from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape
+
+    for name, (b, c, d) in BWD_QUERY_SHAPES.items():
+        q, table, R, dout = query_inputs(torch, dev, rng, b, c, d, TAU, M)
+        S = query_backward_splits(b, M // TAU, n_sm)
+        print(f"sdim_query_backward {name} (B={b}, C={c}, d={d}, tau={TAU}): {S} slices")
+        clock(lib, plain, f"sdim_query_backward {name}",
+              partial(sdim_query_backward, dout, q, table, R, TAU),
+              "sdim_query_backward_phases", b * S)
+    for name, (b, c, d, tau, m) in LT_QUERY_SHAPES.items():
+        q, table, R, _ = query_inputs(torch, dev, rng, b, c, d, tau, m,
+                                      own=name.startswith("phase20"))
+        cands, teams = gather_shape(b, c, m // tau, n_sm)
+        print(f"sdim_query large tau {name} (B={b}, C={c}, d={d}): {cands} candidates and "
+              f"{teams} groups a CTA")
+        clock(lib, plain, f"sdim_query_lt {name}", partial(sdim_query, q, table, R, tau),
+              "sdim_query_large_tau_phases", b * -(-c // cands))
+
+
+def query_times(src: str) -> int:
+    """``query`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.abspath(src))
+    from functools import partial
+
+    from repro_torch.kernels.sdim_query.sdim_query import (sdim_query, sdim_query_backward,
+                                                           sdim_query_backward_cuda,
+                                                           sdim_query_backward_ref,
+                                                           sdim_query_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"query kernels with the port at {os.path.abspath(src)}")
+    runs = [(f"sdim_query_backward {name} (B={b}, C={c}, d={d}, tau={TAU})", TAU, M, b, c, d,
+             False, sdim_query_backward, sdim_query_backward_ref)
+            for name, (b, c, d) in BWD_QUERY_SHAPES.items()]
+    runs += [(f"sdim_query {name} (B={b}, C={c}, d={d})", tau, m, b, c, d,
+              name.startswith("phase20"), sdim_query, sdim_query_ref)
+             for name, (b, c, d, tau, m) in LT_QUERY_SHAPES.items()]
+    for label, tau, m, b, c, d, own, kernel, ref in runs:
+        q, table, R, dout = query_inputs(torch, dev, np.random.default_rng(33), b, c, d, tau, m,
+                                         own)
+        args = (dout, q, table, R, tau) if kernel is sdim_query_backward else (q, table, R, tau)
+        # the backward's rows compared times their n (a zero row's gradient is g / 1e-6)
+        n = (torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+             if kernel is sdim_query_backward else 1.0)
+        err = float(((kernel(*args) - ref(*args)) * n).abs().max())
+        ms = [device_ms(partial(kernel, *args)) for _ in range(3)]
+        print(f"{label}: device ms a launch {ms[0]:.4f} {ms[1]:.4f} {ms[2]:.4f} (median "
+              f"{sorted(ms)[1]:.4f}); max abs err {err:.3g}")
+        if kernel is sdim_query_backward:   # each split the wrapper could take
+            by_split = {S: device_ms(partial(sdim_query_backward_cuda, *args, S))
+                        for S in BWD_QUERY_SPLITS if S <= m // tau}
+            print(f"  device ms a launch by group slices a user: "
+                  f"{ {S: round(v, 4) for S, v in by_split.items()} }")
+    return 0
+
+
 def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
     """The large-tau training kernels at LT_TRAIN_SHAPES: bse_encode's
     forward (front-padded histories, as chip_smoke.py phase 20 (a): Table
@@ -371,7 +489,7 @@ def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
                   f"{threads} threads")
             clock(lib, plain, f"sdim_query_backward_lt {name}",
                   partial(sdim_query_backward, dout, q, table, R, tau),
-                  "sdim_query_backward_large_tau_phases", b * slices)
+                  "sdim_query_large_tau_phases", b * slices)
 
 
 def large_tau(lib, plain, dev, rng, n_sm) -> None:
@@ -459,7 +577,10 @@ TABLE4_CASES = tuple((f"table4 tau={tau} m={m}", "sdim", dict(m=m, tau=tau))
 TABLE23_CASES = (("table23 target", "target", {}),
                  ("table23 sim_hard", "sim_hard", dict(top_k=16)),
                  ("table23 sdim", "sdim", dict(m=48, tau=3)))
-BACKWARD_KERNELS = ("ta_bwd", "bse_encode_backward")   # device op names, table23's column
+# device op names (substrings) whose device ms a step table4 and table23 print:
+# the SDIM backward kernels, the target backward and sdim_query's large-tau forward
+STEP_KERNELS = ("ta_bwd", "bse_encode_backward", "sdim_query_backward_kernel",
+                "query_large_tau_kernel")
 
 
 def train_steps(src: str, mode: str, cases, steps: int = 20) -> int:
@@ -498,12 +619,12 @@ def train_steps(src: str, mode: str, cases, steps: int = 20) -> int:
             end = max(end, b)
             by_name[name] = by_name.get(name, 0.0) + (b - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        backward = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
-                    for k in BACKWARD_KERNELS}
+        kernels = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
+                   for k in STEP_KERNELS}
         print(f"{label}: {ms:.3f} ms/step ({steps} steps, host clock); "
               f"6 steps under torch.profiler: wall {wall / 1e3:.3f} ms, device busy "
               f"{busy / 1e3:.3f} ms ({100 * busy / wall:.1f}%), {len(spans)} device ops; "
-              f"backward kernels' device ms {backward}; top 5:")
+              f"device ms of {kernels}; top 5:")
         for name, us in top:
             print(f"  {us / 1e3:8.4f} ms  {100 * us / wall:5.1f}%  {name[:90]}")
         del model
@@ -518,4 +639,6 @@ if __name__ == "__main__":
         sys.exit(train_steps(src, "table4", TABLE4_CASES))
     if mode == "table23":
         sys.exit(train_steps(src, "table23", TABLE23_CASES))
+    if mode == "query":
+        sys.exit(query_times(src))
     sys.exit(main())

@@ -29,14 +29,14 @@
 // float4 columns). No atomics; every sum has a fixed order, so two
 // launches agree bit for bit.
 //
-// The two serving reads share the gather body below (gather_shape,
+// The three query reads share the gather body below (gather_shape,
 // gather_row, gather_sum): a team of eight lanes for each (candidate,
 // group) of a pass, so a candidate's hashes or rank reads and its row
-// loads run at once (sdim_fused_serve hashes against R read through L1;
-// bse_serve's kernel 1 has written the ranks), each row normalized into
-// shared memory, then summed in g order by a thread a (candidate, float4
-// column). sdim_query_large_tau.cu's forward keeps its own loop (a group
-// at a time: hash, dependent row load, norm).
+// loads run at once (sdim_fused_serve and sdim_query hash against R read
+// through L1, in one kernel, ../../sdim_fused_serve/csrc/
+// fused_query_large_tau.cuh; bse_serve's kernel 1 has written the ranks),
+// each row normalized into shared memory, then summed in g order by a
+// thread a (candidate, float4 column).
 #pragma once
 
 #include "tile_staging.cuh"
@@ -92,7 +92,7 @@ __device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
 }
 
 // ---------------------------------------------------------------------------
-// The serving reads (bse_serve_large_tau.cu, sdim_fused_serve_large_tau.cu)
+// The query reads (bse_serve_large_tau.cu, fused_query_large_tau.cuh)
 // ---------------------------------------------------------------------------
 constexpr int kGatherThreads = 512;   // the most threads a gather CTA has
 constexpr int kGatherTeams = kGatherThreads / kEncodeHashLanes;  // eight-lane teams

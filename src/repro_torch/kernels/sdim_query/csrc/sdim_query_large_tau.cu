@@ -16,12 +16,12 @@
 // must write every row of dT (64 MiB, ~0.020 ms); it reads from the table
 // only the rows the candidates select (G a user at C = 1).
 //
-// Forward design (simple first). The grid is (B, ceil(C / 32)): eight lanes
-// a candidate, 32 candidates a CTA. For each group in order the eight lanes
-// hash the candidate (bucket_of), load the selected row (lane part: float4
-// columns part, part + 8, ...), sum its squares over the eight lanes by a
-// butterfly, and add row / n; then / G. A row selected by several
-// candidates is read and normalized once by each.
+// Forward design: fused_query_large_tau.cuh's body (large_tau.cuh's gather
+// body), the one sdim_fused_serve runs at these tau, with user b reading
+// table row b, no scales and every user present: a team of eight lanes a
+// (candidate, group) hashes the candidate and loads the selected row at
+// once, the rows over their norms summed in g order by a thread a
+// (candidate, float4 column), then / G. The same bits as the fused read.
 //
 // Backward design. A row no candidate selects
 // has g = 0, so its gradient is +0 for a finite table: it is written
@@ -51,55 +51,16 @@
 //   ... of the unselected rows, 16-byte coalesced stores, evict-first where
 //   dT exceeds the L2 (stream_stores).
 // C up to kMaxBwdCands (the lists live in shared memory).
-// Phase clocks (phase_clocks.py): staging (R, the first rows), hash,
-// ranking (+ its barriers), selected rows, zero stores.
-#include "large_tau.cuh"
+// Phase clocks (phase_clocks.py; one reader for both kernels): the
+// forward's as fused_query_large_tau.cuh's; the backward's staging (R, the
+// first rows), hash, ranking (+ its barriers), selected rows, zero stores.
+#include "../../sdim_fused_serve/csrc/fused_query_large_tau.cuh"
 
-PHASE_READER(sdim_query_backward_large_tau_phases)
+PHASE_READER(sdim_query_large_tau_phases)
 
 namespace sdim {
 
 constexpr int kMaxBwdCands = 16384;   // the lists hold short candidate indices
-
-template <typename TS>
-__global__ void __launch_bounds__(kLargeTauThreads)
-    query_large_tau_kernel(const TS* __restrict__ table, const float* __restrict__ q,
-                           const float* __restrict__ R, float* __restrict__ out, int C, int G,
-                           int U, int d, int tau) {
-  const int b = blockIdx.x, tid = threadIdx.x, part = tid % kEncodeHashLanes, nq = d / 4;
-  const int c = blockIdx.y * (blockDim.x / kEncodeHashLanes) + tid / kEncodeHashLanes;
-  const bool on = c < C;
-  const float* x = q + ((size_t)b * C + min(c, C - 1)) * d;
-  float4 s[kLargeTauCols];
-#pragma unroll
-  for (int j = 0; j < kLargeTauCols; ++j) s[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int g = 0; g < G; ++g) {  // the same trip count for every lane
-    const int u = bucket_of(x, R + (size_t)g * tau * d, d, tau, on);
-    const TS* row = table + (((size_t)b * G + g) * U + u) * d;
-    float4 v[kLargeTauCols];
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLargeTauCols; ++j) {
-      const int k4 = part + j * kEncodeHashLanes;
-      v[j] = on && k4 < nq ? load4(row + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      ss = dot4(v[j], v[j], ss);
-    }
-    const float norm = sqrtf(lane_group_sum<kEncodeHashLanes>(ss) + 1e-12f);
-#pragma unroll
-    for (int j = 0; j < kLargeTauCols; ++j)
-      s[j] = make_float4(s[j].x + v[j].x / norm, s[j].y + v[j].y / norm, s[j].z + v[j].z / norm,
-                         s[j].w + v[j].w / norm);
-  }
-  if (!on) return;
-  float* o = out + ((size_t)b * C + c) * d;
-  const float inv = static_cast<float>(G);
-#pragma unroll
-  for (int j = 0; j < kLargeTauCols; ++j) {
-    const int k4 = part + j * kEncodeHashLanes;
-    if (k4 < nq)
-      store4(o + 4 * k4, make_float4(s[j].x / inv, s[j].y / inv, s[j].z / inv, s[j].w / inv));
-  }
-}
 
 // a / b for b > 0 (or NaN), as IEEE division rounds it, with a zero a
 // returned as it is (its quotient): the division's slow path, which a zero
@@ -284,28 +245,20 @@ static bool large_tau_query_ok(int B, int C, int G, int U, int d, int tau) {
          tau <= kLargeTauMax && U == (1 << tau) && d > 0 && d % 4 == 0 && d <= 128;
 }
 
-template <typename TS>
-static cudaError_t query_large_tau(const void* table, const float* q, const float* R, float* out,
-                                   int B, int C, int G, int U, int d, int tau,
-                                   cudaStream_t stream) {
-  const int cands = kLargeTauThreads / kEncodeHashLanes;
-  query_large_tau_kernel<TS><<<dim3(B, (C + cands - 1) / cands), kLargeTauThreads, 0, stream>>>(
-      static_cast<const TS*>(table), q, R, out, C, G, U, d, tau);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_query_large_tau(const void* table, int table_dtype, const float* q,
                                    const float* R, float* out, int B, int C, int G, int U, int d,
                                    int tau, cudaStream_t stream) {
-  const int cands = kLargeTauThreads / kEncodeHashLanes;
-  if (!large_tau_query_ok(B, C, G, U, d, tau) || (C + cands - 1) / cands > 65535)
-    return cudaErrorInvalidValue;
+  if (!large_tau_query_ok(B, C, G, U, d, tau)) return cudaErrorInvalidValue;
   if (B == 0 || C == 0) return cudaSuccess;
   switch (table_dtype) {
-    case kF32: return query_large_tau<float>(table, q, R, out, B, C, G, U, d, tau, stream);
+    case kF32:
+      return launch_fused_query_large_tau<float>(table, nullptr, nullptr, nullptr, q, R, out, B,
+                                                 C, G, d, tau, stream);
     case kBF16:
-      return query_large_tau<__nv_bfloat16>(table, q, R, out, B, C, G, U, d, tau, stream);
-    default: return cudaErrorInvalidValue;
+      return launch_fused_query_large_tau<__nv_bfloat16>(table, nullptr, nullptr, nullptr, q, R,
+                                                         out, B, C, G, d, tau, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -13,16 +13,19 @@ they do not fit (MLA's latent, d = 512: 416 KB against 227 KB) the kernel's
 entry point launches the wide path instead (``csrc/wide_query.cuh``: the
 cluster splits the columns and merges its partial sums in rank order); a
 shape neither launches raises. tau 5..10 (32..1,024 buckets a group) launch
-the large-tau path (``csrc/sdim_query_large_tau.cu``: each candidate reads
-and normalizes only the G rows it selects), as the backward does (a CTA a
-slice of ``query_backward_large_tau_splits`` whole groups lists the
-candidates by bucket, reads only the selected rows and writes the rest +0).
+the large-tau path (``csrc/sdim_query_large_tau.cu``: sdim_fused_serve's
+large-tau body, a team of eight lanes a (candidate, group) hashing and
+reading only the row it selects), as the backward does (a CTA a slice of
+``query_backward_large_tau_splits`` whole groups lists the candidates by
+bucket, reads only the selected rows and writes the rest +0).
 
 Where autograd records the call (grad mode on, the table requiring grad)
 the wrapper goes through ``SDIMQueryFn``, whose backward is
 ``sdim_query_backward``: the CUDA kernel ``csrc/sdim_query_backward.cu`` on
-the card (no TPU kernel corresponds to it: the JAX package differentiates
-the XLA formulation), its closed-form plain version on the CPU. The
+the card (a CTA a slice of ``query_backward_splits`` groups: a team of
+eight lanes a row reads a selected row once and writes the rest +0 unread;
+no TPU kernel corresponds to it: the JAX package differentiates the XLA
+formulation), its closed-form plain version on the CPU. The
 candidates reach the output only through their signatures, comparisons
 with no gradient, so q (like the buffer R) gets none; the table's is, with
 t = T[b,g,u] and n = sqrt(|t|^2 + 1e-12) (eps inside the sqrt, as
@@ -42,6 +45,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, large_tau_list_splits
 
 MAX_BWD_CANDS = 16384   # the large-tau backward's candidate lists in shared memory
+MAX_BWD_D = 2048        # the backward's rows in a warp's registers (tau <= 4)
 
 
 def sdim_query_ref(q: torch.Tensor, table: torch.Tensor, R: torch.Tensor,
@@ -128,9 +132,9 @@ def sdim_query_backward_ref(dout: torch.Tensor, q: torch.Tensor, table: torch.Te
 
 
 def query_backward_splits(B: int, G: int, n_sm: int) -> int:
-    """Signature-group slices per user, one CTA each (256 threads, a few KB
-    of shared memory): as many as fill the ``n_sm`` SMs in one wave at two
-    CTAs an SM, at most G."""
+    """Signature-group slices per user, one CTA each (a team of eight lanes
+    a row, up to 256 threads; a few KB of shared memory at C <= 32): as many
+    as give the ``n_sm`` SMs two CTAs each, at most G."""
     return max(1, min(G, 2 * n_sm // max(B, 1)))
 
 
@@ -164,10 +168,11 @@ def sdim_query_backward_cuda(dout: torch.Tensor, q: torch.Tensor, table: torch.T
         raise ValueError(f"sdim_query_backward: shapes dout {tuple(dout.shape)} q "
                          f"{tuple(q.shape)} table {tuple(table.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if not 1 <= tau <= MAX_TAU or d % 4 or tau > 4 and (d > 128 or C > MAX_BWD_CANDS):
+    if (not 1 <= tau <= MAX_TAU or d % 4 or d > MAX_BWD_D
+            or tau > 4 and (d > 128 or C > MAX_BWD_CANDS)):
         raise ValueError(f"sdim_query_backward: the kernel takes tau 1..{MAX_TAU} and d a "
-                         f"multiple of 4 (above tau 4: d up to 128 and C up to "
-                         f"{MAX_BWD_CANDS}); got tau {tau}, d {d}, C {C}")
+                         f"multiple of 4 up to {MAX_BWD_D} (above tau 4: d up to 128 and C "
+                         f"up to {MAX_BWD_CANDS}); got tau {tau}, d {d}, C {C}")
     for name, t in (("dout", dout), ("q", q), ("table", table), ("R", R)):
         if t.dtype != torch.float32:
             raise TypeError(f"sdim_query_backward: {name} must be float32")

@@ -942,6 +942,106 @@ def test_sdim_query_backward_kernel(shape, C, dev):
         assert not out.any()
 
 
+# sdim_query_backward's tau <= 4 body at the shapes its launches use and at
+# its edges (B, L, C, d, m, tau, case): the training step (d = 128 and
+# dien's 36), the Table 2/3 protocol's and Table 4's step, d = 4 and 20,
+# U = 16 with C = 33 and 40 (two candidate passes), C = 0, every candidate
+# in one bucket, d = 512 (a warp a row) and a fully masked user
+QUERY_BWD_CASES = [(32, 256, 1, 128, 48, 3, "random"), (128, 256, 1, 32, 48, 3, "random"),
+                   (32, 256, 1, 36, 48, 3, "random"), (4, 60, 3, 4, 12, 2, "random"),
+                   (4, 60, 5, 20, 24, 3, "random"), (3, 60, 33, 32, 48, 4, "random"),
+                   (3, 60, 40, 36, 48, 4, "random"), (3, 60, 0, 32, 48, 3, "random"),
+                   (3, 60, 20, 32, 48, 3, "one-bucket"), (2, 60, 40, 512, 24, 3, "random"),
+                   (3, 60, 8, 128, 48, 1, "masked")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QUERY_BWD_CASES, ids=[f"{c[0]}x{c[2]}-d{c[3]}-tau{c[5]}-{c[6]}"
+                                                       for c in QUERY_BWD_CASES])
+def test_sdim_query_backward_at_its_shapes(case, dev):
+    """The redesigned tau <= 4 backward against its plain version (times
+    each row's n: a zero row's gradient is g / 1e-6): the same bits on two
+    launches, one launch a call, and the rows no candidate selects exactly
+    +0 (the plain version may hold -0 there)."""
+    B, L, C, d, m, tau, kind = case
+    seq, q, mask, R, rng = _inputs((B, L, max(C, 1), d, m, tau), dev, seed=17)
+    q = q[:, :C].contiguous()
+    if kind == "one-bucket":                    # positive multiples of one candidate
+        q = (q[:, :1] * torch.rand((B, C, 1), device=dev) + 0.5 * q[:, :1]).contiguous()
+    if kind == "masked":
+        mask[-1] = 0
+    table = bse_encode_ref(seq, mask, R, tau)
+    dout = torch.randn(q.shape, device=dev)
+    before = sdim_query_backward.launches
+    dT = sdim_query_backward(dout, q, table, R, tau)
+    torch.cuda.synchronize()
+    assert sdim_query_backward.launches == before + 1
+    ref = sdim_query_backward_ref(dout, q, table, R, tau)
+    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+    torch.testing.assert_close(dT * n, ref * n, **FP32)
+    assert torch.equal(dT, sdim_query_backward(dout, q, table, R, tau))
+    hits = torch.nn.functional.one_hot(simhash.signatures(q, R, tau).long(), 1 << tau)
+    unselected = hits.sum(1) == 0                          # (B, G, U)
+    assert not dT[unselected].view(torch.int32).any()      # +0: no sign bit
+    if kind == "one-bucket":
+        assert (hits.sum(1).gt(0).sum(-1) == 1).all()
+    if kind == "masked":
+        assert not table[-1].any() and dT[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [1, 2, 3, 4])
+def test_sdim_query_backward_selects_the_forwards_buckets(tau, dev):
+    """Unscreened candidates (two passes of them): the rows of dT the
+    backward writes nonzero are exactly the buckets the forward kernel
+    reads. A table whose row (g, u) is the unit vector e_{g U + u} (d >= G
+    U) makes each answer of sdim_query show the candidate's bucket in every
+    group (its nonzero columns)."""
+    B, C, m = 32, 40, 48
+    G, U = m // tau, 1 << tau
+    d = max(128, G * U)
+    gen = torch.Generator(device=dev).manual_seed(tau)
+    q = torch.randn((B, C, d), generator=gen, device=dev)
+    R = torch.randn((m, d), generator=gen, device=dev)
+    dout = torch.randn((B, C, d), generator=gen, device=dev)
+    table = torch.zeros((B, G, U, d), device=dev)
+    k = torch.arange(G * U, device=dev)
+    table.view(B, G * U, d)[:, k, k] = 1.0
+    read = sdim_query(q, table, R, tau)[..., :G * U].reshape(B, C, G, U) > 0
+    assert (read.sum(-1) == 1).all()
+    dT = sdim_query_backward(dout, q, table, R, tau)
+    assert torch.equal(dT.abs().sum(-1) > 0, read.any(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3, 128])
+@pytest.mark.parametrize("tau, m", [(5, 45), (10, 40)])
+def test_sdim_query_large_tau_at_its_shapes(tau, m, C, dtype, dev):
+    """sdim_query's tau 5..10 forward (sdim_fused_serve's gather body) at
+    Table 4's width (d = 32) and phase 20's (d = 128) against its plain
+    version, off fp32 and bf16 tables: the same bits on two launches and the
+    same bits as sdim_fused_serve reading the same rows; with fp32 tables,
+    decoupled (bse_encode's table read by sdim_query) equals inline
+    (bse_serve) bit for bit."""
+    for B, d in ((128, 32), (16, 128)):
+        seq, q, mask, R = _phase20_inputs((B, 256, max(C, 2), d, m, tau), dev,
+                                          torch.float32, seed=80 + tau)
+        q = q[:, :C].contiguous()
+        encoded = bse_encode(seq, mask, R, tau)
+        table = encoded.to(dtype)
+        before = sdim_query.launches
+        out = sdim_query(q, table, R, tau)
+        torch.testing.assert_close(out, sdim_query_ref(q, table, R, tau), **FP32)
+        assert torch.equal(out, sdim_query(q, table, R, tau))
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        assert torch.equal(out, sdim_fused_serve(table, slots, q, R, tau))
+        torch.cuda.synchronize()
+        assert sdim_query.launches == before + 2
+        if dtype == torch.float32:
+            assert torch.equal(out, bse_serve(q, seq, mask, R, tau))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

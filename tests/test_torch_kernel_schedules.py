@@ -48,7 +48,8 @@ run here; this pins the algebra they implement.
   order, times its mask; sdim_query_backward gives each of S CTAs a slice
   of a user's groups, walks the candidates in passes of 32, adds dout / G
   of each hit into its (g, u) rows in c order, then forms (g - t^ (t^ .
-  g)) / n; target_attn_backward runs a CTA per candidate (32 row groups
+  g)) / n, reading only the selected rows and writing the others +0;
+  target_attn_backward runs a CTA per candidate (32 row groups
   with an online max and denominator each, merged in group order, then
   dS * seq summed per row group and merged in order: dq) and a CTA per 32
   rows that loops over the candidates in order (dseq);
@@ -57,9 +58,9 @@ run here; this pins the algebra they implement.
   hashes each valid row once for each of them, links each group's rows
   into one list a bucket in row order (link_round, then link_heads) and
   writes every cell once, its list's rows added in order from zero; its
-  backward gathers a row's G rows of dT in group order; sdim_query sums
-  each candidate's G selected rows, each over its own norm, in g order,
-  then / G; its backward gives CTA (b, s) the Gs groups of slice s
+  backward gathers a row's G rows of dT in group order; sdim_query runs
+  sdim_fused_serve's gather body (below) with user b reading table row b;
+  its backward gives CTA (b, s) the Gs groups of slice s
   (``query_backward_large_tau_splits``), lists the candidates by bucket
   the same way, reads each selected row once and adds dout / G of its
   list in c order, and writes the unselected rows +0 without reading the
@@ -686,31 +687,47 @@ def bse_encode_backward_schedule(dT, seq, mask, R, tau, S, warps=8):
     return out, writes
 
 
-def sdim_query_backward_schedule(dout, q, table, R, tau, S, TC=32):
-    """sdim_query_backward.cu's schedule in numpy fp32: CTA j of user b owns
-    groups [j*G/S, (j+1)*G/S); candidates in passes of TC, each hit adds
-    dout / G into its row in c order; then the row formula. Returns dT and
-    the write counts."""
+def sdim_query_backward_schedule(dout, q, table, R, tau, S, P=32):
+    """sdim_query_backward.cu's schedule (tau <= 4) in numpy fp32: CTA j of
+    user b owns groups [j*G/S, (j+1)*G/S); the candidates go in passes of
+    P (kCands), each hashed for the CTA's groups; a team a row adds dout /
+    G of each candidate that selects the row, in c order (pass after
+    pass); a selected row reads its table row once and writes (g - t^
+    (t^ . g)) / n as products with 1 / n, n summed in normalize_rows4's
+    order (``_warp_sum_of_squares``); an unselected row is written +0
+    unread. Returns dT, the write counts and the table rows' read counts."""
     B, C, d = q.shape
     G, U = R.shape[0] // tau, 1 << tau
     Rg = R.reshape(G, tau, d)
+    fG = np.float32(G)
     out = np.full((B, G, U, d), np.nan, np.float32)
     writes = np.zeros((B, G, U), np.int64)
+    reads = np.zeros((B, G, U), np.int64)
     for b in range(B):
         for j in range(S):
             g0, g1 = j * G // S, (j + 1) * G // S
             g = np.zeros((g1 - g0, U, d), np.float32)
-            for c0 in range(0, C, TC):
-                sig = _signatures(q[b, c0:c0 + TC], Rg[g0:g1], tau)    # (n, ng)
-                for c in range(len(sig)):
-                    for gl in range(g1 - g0):
-                        g[gl, sig[c, gl]] += dout[b, c0 + c] / np.float32(G)
-            t = table[b, g0:g1]
-            n = np.sqrt(np.sum(t * t, -1, keepdims=True) + np.float32(1e-12))
-            th = t / n
-            out[b, g0:g1] = (g - th * np.sum(th * g, -1, keepdims=True)) / n
-            writes[b, g0:g1] += 1
-    return out, writes
+            hit = np.zeros((g1 - g0, U), bool)
+            for c0 in range(0, C, P):                                   # passes
+                sig = _signatures(q[b, c0:c0 + P], Rg[g0:g1], tau)     # (n, ng)
+                for gi in range(g1 - g0):
+                    for u in range(U):                                  # a team a row
+                        for c in np.flatnonzero(sig[:, gi] == u):       # c order
+                            g[gi, u] = g[gi, u] + dout[b, c0 + c] / fG
+                            hit[gi, u] = True
+            for gi in range(g1 - g0):
+                for u in range(U):
+                    writes[b, g0 + gi, u] += 1
+                    if not hit[gi, u]:
+                        out[b, g0 + gi, u] = 0.0                        # +0, unread
+                        continue
+                    t = table[b, g0 + gi, u]
+                    reads[b, g0 + gi, u] += 1
+                    inv = np.float32(1) / np.sqrt(_warp_sum_of_squares(t[None])[0]
+                                                  + np.float32(1e-12))
+                    th = t * inv
+                    out[b, g0 + gi, u] = (g[gi, u] - th * np.sum(th * g[gi, u])) * inv
+    return out, writes, reads
 
 
 def _merge_stats(m, den, mo, deno):
@@ -887,8 +904,8 @@ def test_sdim_backward_schedules_match_jax(shape, layout):
     dout = rng.standard_normal((B, C, d)).astype(np.float32)
     table, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
     for S in (query_backward_splits(B, G, 132), max(1, G // 4 + 1)):
-        dT, writes = sdim_query_backward_schedule(dout, q, table, R, tau, S)
-        assert (writes == 1).all()
+        dT, writes, reads = sdim_query_backward_schedule(dout, q, table, R, tau, S)
+        assert (writes == 1).all() and (reads == _selected(q, R, tau)).all()
         np.testing.assert_allclose(dT, jdT, **FP32)
     for S in (backward_splits(B, L, 132, card_clusters()), 3):
         dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
@@ -918,9 +935,9 @@ def test_sdim_backward_schedules_at_the_protocol_shape(tau, layout):
     dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
     assert (writes == 1).all()
     np.testing.assert_allclose(dseq, jdseq, **FP32)
-    dT, writes = sdim_query_backward_schedule(dout, q, table, R, tau,
-                                              query_backward_splits(128, G, 132))
-    assert (writes == 1).all()
+    dT, writes, reads = sdim_query_backward_schedule(dout, q, table, R, tau,
+                                                     query_backward_splits(128, G, 132))
+    assert (writes == 1).all() and (reads == _selected(q, R, tau)).all()
     np.testing.assert_allclose(dT, jdT, **FP32)
 
 
@@ -1226,17 +1243,14 @@ def encode_backward_large_tau_schedule(dT, seq, mask, R, tau):
 
 
 def query_large_tau_schedule(q, table, R, tau):
-    """sdim_query_large_tau.cu's forward: each candidate adds its G selected
-    rows, each divided by its own norm, in g order, then / G."""
-    B, C, d = q.shape
-    G = R.shape[0] // tau
-    sig = _signatures(q.reshape(B * C, d), R.reshape(G, tau, d), tau).reshape(B, C, G)
-    out = np.zeros((B, C, d), np.float32)
-    for g in range(G):
-        rows = table[np.arange(B)[:, None], g, sig[..., g]].astype(np.float32)    # (B, C, d)
-        n = np.sqrt(np.sum(rows * rows, -1, keepdims=True) + np.float32(1e-12))
-        out = out + rows / n
-    return out / np.float32(G)
+    """sdim_query_large_tau.cu's forward: sdim_fused_serve's large-tau body
+    (``fused_serve_large_tau_schedule``: the gather body's teams a
+    (candidate, group), ``teams`` groups a pass, the rows over their norms
+    in g order, then / G) with user b reading table row b, no scale, every
+    user present."""
+    B = q.shape[0]
+    return fused_serve_large_tau_schedule(table, None, np.arange(B), np.ones(B, np.float32),
+                                          q, R, tau)
 
 
 def query_backward_large_tau_schedule(dout, q, table, R, tau, n_sm=132):
