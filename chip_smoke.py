@@ -411,9 +411,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    each timed beside its plain version, SDPA's backward and its least-work
    bound (the ``protocol`` entry of its JSON row; bse_encode_backward's
    ``sdim`` step is Table 4's tau 3 row); bse_encode_backward's buckets of
-   unscreened rows equal bse_encode's at tau 2, 3 and 4 (with dT[b, g, u,
-   k] = u + 1 at k = g, dseq[b, l, g] is the bucket + 1 exactly). Prints
-   the phase's wall time.
+   unscreened rows equal bse_encode's at tau 2, 3 and 4 and, on the
+   large-tau path, at tau 5 (m = 45) and 10 (m = 40) (with dT[b, g, u, k]
+   = u + 1 at k = g, dseq[b, l, g] is the bucket + 1 exactly; every row of
+   the 128 users checked, the forward's one-row users in chunks of users at
+   tau 10). Prints the phase's wall time.
 20. large tau serving — ``large_tau``: the large-tau paths of
    ``sdim_update``, ``sdim_fused_serve`` and ``bse_serve``. (a), run right
    after phase 3 (where torch.profiler still records the kernels' device
@@ -829,13 +831,18 @@ def sdpa_backward(torch, dout, q, seq, mask):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
 
 
+BUCKET_CHECK_BYTES = 2 << 30    # the forward's table of one-row users a chunk of bucket_check
+
+
 def bucket_check(torch, seq, R, tau) -> int:
     """bse_encode_backward hashes each row of seq (B, L, d), unscreened, into
     the bucket bse_encode puts it in, for every group: with dT[b, g, u, k] =
     u + 1 where k = g and 0 elsewhere (d >= G), dseq[b, l, g] must equal
     the forward's bucket + 1 exactly, the forward's bucket of group g being
-    the nonzero cell of bse_encode over one-row users. Raises if any
-    differs; returns the rows checked."""
+    the nonzero cell of bse_encode over one-row users, run on chunks of
+    users whose tables stay within BUCKET_CHECK_BYTES (at tau 10, d = 32, a
+    one-row user's table is 512 KB: 16 users a chunk; every row is
+    checked). Raises if any differs; returns the rows checked."""
     from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_backward
 
     B, L, d = seq.shape
@@ -845,9 +852,14 @@ def bucket_check(torch, seq, R, tau) -> int:
     g = torch.arange(G, device=seq.device)
     dT[:, g, :, g] = torch.arange(1, U + 1, dtype=torch.float32, device=seq.device)
     grad = bse_encode_backward(dT, seq, mask, R, tau)[..., :G]
-    table = bse_encode(seq.reshape(B * L, 1, d), mask.reshape(B * L, 1), R, tau)
-    bucket = table.abs().sum(-1).argmax(-1).reshape(B, L, G)
-    wrong = int((grad != (bucket + 1).float()).any(-1).sum())
+    users = max(1, BUCKET_CHECK_BYTES // (4 * G * U * d * L))
+    wrong = 0
+    for b0 in range(0, B, users):
+        x = seq[b0:b0 + users].reshape(-1, 1, d)
+        table = bse_encode(x, mask[b0:b0 + users].reshape(-1, 1), R, tau)
+        bucket = table.abs().sum(-1).argmax(-1).reshape(-1, L, G)
+        wrong += int((grad[b0:b0 + users] != (bucket + 1).float()).any(-1).sum())
+        del table
     if wrong:
         raise AssertionError(f"bse_encode_backward: {wrong} of {B * L} unscreened rows at "
                              f"{(B, L, d)}, tau {tau}, fall in another bucket than bse_encode's")
@@ -4691,28 +4703,40 @@ def query_backward_cost(q, table, R, tau):
                      float(4 * (table.numel() + selected * d + 2 * B * C * d + m * d)))
 
 
-def training_costs(seq, mask, q, table, R, tau) -> dict:
-    """The bytes and operations of the four training kernels at one
-    training step's shapes (kernels/cost.py's for bse_encode and
-    sdim_query); the least work of the backward kernels: the encode
-    backward reads the valid rows once, the mask, each user's dT once and R,
-    writes dseq once and hashes each valid row (2 m d FLOP) and adds its G
-    rows of dT (G d; the gathered rows come from on-chip memory, so they
-    count as operations, not bytes); the query backward's is
-    ``query_backward_cost``'s."""
-    from repro_torch.kernels import cost
+def encode_backward_cost(seq, mask, R, tau):
+    """The least work of bse_encode_backward: read the valid rows, the mask
+    and R once and write dseq once; read each row of dT that a user's valid
+    rows select once (at most the user's whole dT: at Table 4's shape tau
+    5 selects nearly all 288 rows of a user, tau 10 about 700 of 4,096);
+    hash each valid row (2 m d FLOP) and add its G rows (G d)."""
+    import torch
+    from repro_torch.core import simhash
+    from repro_torch.kernels.cost import Cost
 
     B, L, d = seq.shape
     m = R.shape[0]
     G, U = m // tau, 1 << tau
-    hash_flops = 2 * m * d + G * d
-    valid = float(mask.sum())
+    valid = mask != 0
+    sig = simhash.signatures(seq, R, tau).long() + U * torch.arange(G, device=seq.device)
+    users = torch.arange(B, device=seq.device)[:, None].expand(B, L)[valid]
+    hit = torch.zeros((B, G * U), dtype=torch.bool, device=seq.device)
+    hit[users[:, None].expand(-1, G).reshape(-1), sig[valid].reshape(-1)] = True
+    n, rows = float(valid.sum()), float(hit.sum())
+    return Cost(n * (2 * m * d + G * d),
+                seq.element_size() * (n + B * L) * d + 4 * (B * L + m * d + rows * d))
+
+
+def training_costs(seq, mask, q, table, R, tau) -> dict:
+    """The bytes and operations of the four training kernels at one
+    training step's shapes (kernels/cost.py's for bse_encode and
+    sdim_query); the least work of the backward kernels
+    (``encode_backward_cost``, ``query_backward_cost``)."""
+    from repro_torch.kernels import cost
+
     return {"bse_encode": cost.settle(cost.encode(seq, mask, R, tau=tau)),
             "sdim_query": cost.settle(cost.query(q, table, R, tau=tau)),
             "sdim_query_backward": query_backward_cost(q, table, R, tau),
-            "bse_encode_backward": cost.Cost(valid * hash_flops,
-                                             4 * (valid * d + B * L * (d + 1)
-                                                  + B * G * U * d + m * d))}
+            "bse_encode_backward": encode_backward_cost(seq, mask, R, tau)}
 
 
 def bench_kernel_checks(torch, dev) -> dict:
@@ -4866,7 +4890,7 @@ def protocol_backward_checks(torch, dev, rng, t, front) -> dict:
     plain version (FP32), the same bits twice, timed beside its plain
     version (CUDA events, median of 10), device times, its least-work bound
     and SDPA's backward; then bse_encode_backward's buckets of unscreened
-    rows against bse_encode's at tau 2, 3 and 4 (G <= d). Runs uncounted
+    rows against bse_encode's at tau 2, 3, 4, 5 and 10 (G <= d). Runs uncounted
     (the caller's context). Returns the target backward's rows by shape
     label, for the ``protocol`` entry of its JSON row."""
     from repro_torch.kernels.cost import Cost
@@ -4914,7 +4938,7 @@ def protocol_backward_checks(torch, dev, rng, t, front) -> dict:
                Cost(flops=10 * 32 * needed, bytes=needed * 32 * 4 + seq.numel() * 4
                     + mask.numel() * 4 + 5 * q.numel() * 4), library)
 
-    for tau in (2, 3, 4):
+    for tau in (2, 3, 4, 5, 10):
         Rb = t(rng.standard_normal((tau * (48 // tau), 32)).astype(np.float32))
         rows = bucket_check(torch, f32(128, 256, 32), Rb, tau)
         print(f"bench (d) bse_encode_backward at tau {tau}: every group's bucket of {rows} "

@@ -6,6 +6,7 @@ NVIDIA GPU (written for the H100):
     python3 phase_clocks.py table4 [--src DIR]
     python3 phase_clocks.py table23 [--src DIR]
     python3 phase_clocks.py query [--src DIR]
+    python3 phase_clocks.py bwd_wide [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -57,7 +58,14 @@ target backward and sdim_query's large-tau forward (``STEP_KERNELS``).
 torch.profiler) of ``sdim_query_backward`` at ``BWD_QUERY_SHAPES`` and of
 ``sdim_query`` at ``LT_QUERY_SHAPES`` with the port of ``--src``, each with
 its max abs error against its plain version, on inputs drawn from one seed,
-so two trees run in one chip call see the same data.
+so two trees run in one chip call see the same data. ``bwd_wide`` does the
+same for ``bse_encode_backward`` at Table 4's tau 5 and 10 (B = 128, L =
+256, d = 32, m = 45 and 40) and ``sdim_query``'s wide path at
+``WIDE_SHAPES``, and, where the port under ``--src`` has them, times each
+layout of the first (dT staged or gathered) and each tile of the second
+(``WIDE_TILES``). The default run also clocks both (the large-tau
+backward beside the large-tau training kernels, the wide path beside
+kernel 4's other paths).
 """
 from __future__ import annotations
 
@@ -103,6 +111,12 @@ PHASES = {
                                   "dS + dseq stores + dq sums", "dq exchange + store"],
     "bse_encode_backward": ["staging (rows, multicast wait)", "hash (warp 0)",
                             "gather + stores (warp 0)"],
+    # the large-tau backward (bse_encode_large_tau.cu) and kernel 4's wide
+    # path (wide_query.cuh)
+    "bse_encode_backward_lt": ["staging (R; first rows)", "hash", "wait for staged dT",
+                               "gather + stores"],
+    "sdim_query_wide": ["stage (R, candidates)", "hash + bits + first rows' copy",
+                        "rows' copy waits", "norms + answers"],
     "sdim_query_backward": ["staging (R, q, dout)", "hash (+ barrier)",
                             "passes after the first (+ barriers)", "rows (selected, zeros)"],
 }
@@ -132,6 +146,10 @@ LT_SHAPES = ((5, 45), (10, 40), (1, 48))    # chip_smoke.py phase 20 (a): (tau, 
 # step and the decoupled deployment's history ingest (chip_smoke.py phase
 # 20 (a)), each at (tau, m) of LT_SHAPES[:2]
 LT_TRAIN_SHAPES = {"table4": (128, 256, 1, 32), "ingest": (B, L, C, D)}
+# kernel 4's wide path, (B, C, d): deepseek-v2's SDIM-KV read (the MLA
+# latent, 128 heads) and chip_smoke.py phase 14's B = 8 check (m = 48, tau 3)
+WIDE_SHAPES = {"mla": (1, 128, 512), "B=8": (8, 128, 512)}
+WIDE_TILES = (1, 2, 4, 8)     # the candidates a CTA the bwd_wide mode also times
 
 
 def read_phases(lib, reader: str, n_cta: int, first: int = 0) -> np.ndarray:
@@ -377,13 +395,110 @@ def query_inputs(torch, dev, rng, b, c, d, tau, m, own=False):
     return t(q), table, R, t(rng.standard_normal((b, c, d)).astype(np.float32))
 
 
+def wide_inputs(torch, dev, rng, b, c, d):
+    """Screened candidates q (b, c, d) against random fp32 tables (b, 16, 8,
+    d) with some empty buckets, and R (48, d): the wide path's inputs, as
+    chip_smoke.py phase 14's B = 8 check."""
+    from repro_torch.kernels.screen import screened_normal
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    Rn = rng.standard_normal((M, d)).astype(np.float32)
+    table = rng.standard_normal((b, M // TAU, 1 << TAU, d)).astype(np.float32)
+    table[:, :, 1] = 0.0
+    return t(screened_normal(rng, (b, c, d), Rn)), t(table), t(Rn)
+
+
+def encode_backward_inputs(torch, dev, rng, tau, m):
+    """Table 4's large-tau backward at (tau, m): dT from sdim_query_backward's
+    plain version over one candidate a user (B = 128, L = 256, d = 32, up
+    to L/2 leading rows masked, as chip_smoke.py phase 20 (a)), seq, mask
+    and R."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode_ref
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query_backward_ref
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    b, l, d = 128, 256, 32
+    Rn = rng.standard_normal((m, d)).astype(np.float32)
+    R = t(Rn)
+    seq, q = t(screened_normal(rng, (b, l, d), Rn)), t(screened_normal(rng, (b, 1, d), Rn))
+    mask = t((np.arange(l)[None] >= rng.integers(0, l // 2, b)[:, None]).astype(np.float32))
+    dout = t(rng.standard_normal((b, 1, d)).astype(np.float32))
+    dT = sdim_query_backward_ref(dout, q, bse_encode_ref(seq, mask, R, tau), R, tau)
+    return dT, seq, mask, R
+
+
+def bwd_wide_times(src: str) -> int:
+    """``bwd_wide`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.abspath(src))
+    from functools import partial
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sdim_bucket import sdim_bucket
+    from repro_torch.kernels.sdim_query import sdim_query as kq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"bse_encode_backward (large tau) and sdim_query (wide path) with the port at "
+          f"{os.path.abspath(src)}")
+    rounds = lambda fn: [device_ms(fn) for _ in range(3)]
+    line = lambda ms: (f"{ms[0]:.4f} {ms[1]:.4f} {ms[2]:.4f} (median {sorted(ms)[1]:.4f})")
+    for tau, m in LT_SHAPES[:2]:
+        args = encode_backward_inputs(torch, dev, np.random.default_rng(34), tau, m)
+        err = float((sdim_bucket.bse_encode_backward(*args, tau)
+                     - sdim_bucket.bse_encode_backward_ref(*args, tau)).abs().max())
+        ms = rounds(partial(sdim_bucket.bse_encode_backward, *args, tau))
+        print(f"bse_encode_backward table4 tau={tau} m={m} (B=128, L=256, d=32): device ms a "
+              f"launch {line(ms)}; max abs err {err:.3g}")
+        if hasattr(sdim_bucket, "launch_large_tau_split"):   # each layout and split
+            dT, seq = args[0], args[1]
+            G = m // tau
+            staged, S = sdim_bucket.launch_large_tau_split(128, 256, G, 32, tau, seq.dtype, dev)
+            fits = _build.clusters("sdim_bse_encode_backward_large_tau_ctas", dev, 0, G, 32,
+                                   tau, 256, 1) > 0
+            by = {f"{'staged' if st else 'gathered'} S={s_}": sorted(rounds(partial(
+                sdim_bucket.bse_encode_backward_cuda, *args, tau, s_, st)))[1]
+                for st in ((True, False) if fits else (False,)) for s_ in (1, 2)}
+            print(f"  the wrapper's choice: {'staged' if staged else 'gathered'}, S = {S}; "
+                  f"device ms by layout and CTAs a user: { {k: round(v, 4) for k, v in by.items()} }")
+    for name, (b, c, d) in WIDE_SHAPES.items():
+        q, table, R = wide_inputs(torch, dev, np.random.default_rng(35), b, c, d)
+        err = float((kq.sdim_query(q, table, R, TAU) - kq.sdim_query_ref(q, table, R, TAU))
+                    .abs().max())
+        ms = rounds(partial(kq.sdim_query, q, table, R, TAU))
+        print(f"sdim_query wide path {name} (B={b}, C={c}, d={d}, m={M}, tau={TAU}): device ms "
+              f"a launch {line(ms)}; max abs err {err:.3g}")
+        if hasattr(kq, "wide_tile"):                         # each tile
+            lib = _build.load()
+            out = torch.empty_like(q)
+            G = M // TAU
+
+            def tiled(tile):
+                err = lib.sdim_query(table.data_ptr(), 0, q.data_ptr(), R.data_ptr(),
+                                     out.data_ptr(), b, c, G, 1 << TAU, d, M, TAU, tile,
+                                     _build.stream(dev))
+                _build.check(err, "sdim_query")
+
+            choice = kq.launch_wide_tile(b, c, G, d, TAU, table.dtype, dev)
+            by = {tile: sorted(rounds(partial(tiled, tile)))[1] for tile in WIDE_TILES}
+            print(f"  the wrapper's tile: {choice}; device ms by candidates a CTA: "
+                  f"{ {k: round(v, 4) for k, v in by.items()} }")
+    return 0
+
+
 def query_kernels(lib, plain, dev, rng, n_sm) -> None:
-    """sdim_query_backward (tau 3, m = 48) at BWD_QUERY_SHAPES and
-    sdim_query's large-tau forward at LT_QUERY_SHAPES (fp32 tables)."""
+    """sdim_query_backward (tau 3, m = 48) at BWD_QUERY_SHAPES, sdim_query's
+    large-tau forward at LT_QUERY_SHAPES and its wide path at WIDE_SHAPES
+    (fp32 tables)."""
     import torch
     from functools import partial
 
-    from repro_torch.kernels.sdim_query.sdim_query import (query_backward_splits, sdim_query,
+    from repro_torch.kernels.sdim_query.sdim_query import (launch_wide_tile,
+                                                           query_backward_splits, sdim_query,
                                                            sdim_query_backward)
     from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape
 
@@ -402,6 +517,12 @@ def query_kernels(lib, plain, dev, rng, n_sm) -> None:
               f"{teams} groups a CTA")
         clock(lib, plain, f"sdim_query_lt {name}", partial(sdim_query, q, table, R, tau),
               "sdim_query_large_tau_phases", b * -(-c // cands))
+    for name, (b, c, d) in WIDE_SHAPES.items():
+        q, table, R = wide_inputs(torch, dev, rng, b, c, d)
+        tile = launch_wide_tile(b, c, M // TAU, d, TAU, table.dtype, dev)
+        print(f"sdim_query wide path {name} (B={b}, C={c}, d={d}): {tile} candidates a CTA")
+        clock(lib, plain, f"sdim_query_wide {name}", partial(sdim_query, q, table, R, TAU),
+              "sdim_query_phases", b * -(-c // tile))
 
 
 def query_times(src: str) -> int:
@@ -451,15 +572,19 @@ def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
     forward (front-padded histories, as chip_smoke.py phase 20 (a): Table
     4's with 0..L/2 leading rows masked, the ingest's L/2..L valid rows and
     its last user masked) and, at Table 4's shape only (training), the
-    backward of sdim_query in the table (one candidate a user)."""
+    backward of sdim_query in the table (one candidate a user) and
+    bse_encode_backward's large-tau path on that gradient."""
     import torch
     from functools import partial
 
     from repro_torch.kernels.screen import screened_normal
-    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode_cuda, bse_encode_ref,
-                                                             encode_large_tau_splits)
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (bse_encode_backward,
+                                                             bse_encode_cuda, bse_encode_ref,
+                                                             encode_large_tau_splits,
+                                                             launch_large_tau_split)
     from repro_torch.kernels.sdim_query.sdim_query import (query_backward_large_tau_splits,
-                                                           sdim_query_backward)
+                                                           sdim_query_backward,
+                                                           sdim_query_backward_ref)
 
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     for shape, (b, l, c, d) in LT_TRAIN_SHAPES.items():
@@ -490,6 +615,13 @@ def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
             clock(lib, plain, f"sdim_query_backward_lt {name}",
                   partial(sdim_query_backward, dout, q, table, R, tau),
                   "sdim_query_large_tau_phases", b * slices)
+            dT = sdim_query_backward_ref(dout, q, table, R, tau)
+            staged, S = launch_large_tau_split(b, l, G, d, tau, seq.dtype, dev)
+            print(f"bse_encode_backward large tau {name}: dT {'staged' if staged else 'gathered'}"
+                  f", {S} CTAs a user")
+            clock(lib, plain, f"bse_encode_backward_lt {name}",
+                  partial(bse_encode_backward, dT, seq, mask, R, tau),
+                  "sdim_bse_encode_large_tau_phases", b * S)
 
 
 def large_tau(lib, plain, dev, rng, n_sm) -> None:
@@ -641,4 +773,6 @@ if __name__ == "__main__":
         sys.exit(train_steps(src, "table23", TABLE23_CASES))
     if mode == "query":
         sys.exit(query_times(src))
+    if mode == "bwd_wide":
+        sys.exit(bwd_wide_times(src))
     sys.exit(main())

@@ -42,17 +42,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_update": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
-    "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
     "sdim_query_backward": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 4
                                       + [_F, _I, _I, _P],
     # cluster capacity queries: clusters of a launch the device holds at once
     "sdim_target_attention_backward_clusters": [_I] * 5,
     "sdim_bse_encode_backward_clusters": [_I] * 5,
+    # CTA capacity queries: CTAs of a launch one SM holds at once
+    "sdim_bse_encode_backward_large_tau_ctas": [_I] * 6,
+    "sdim_query_wide_ctas": [_I] * 5,
+    "sdim_query_takes_wide": [_I] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -212,11 +216,13 @@ _CLUSTERS: dict = {}
 
 
 def clusters(entry: str, device: torch.device, *args: int) -> int:
-    """The clusters of a kernel's launch that ``device`` holds at once, by
-    the kernel's own capacity query, the C entry point ``entry`` (its
-    launch's shared memory through cudaOccupancyMaxActiveClusters; 0 where
-    a CTA does not fit), asked once per library, device and arguments
-    (another build of the kernel, as ``phase_clocks.py``'s, may fit fewer)."""
+    """The clusters of a kernel's launch that ``device`` holds at once (or,
+    for a ``*_ctas`` entry, the CTAs one SM holds), by the kernel's own
+    capacity query, the C entry point ``entry`` (its launch's shared memory
+    through cudaOccupancyMaxActiveClusters or
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 where a CTA does not
+    fit), asked once per library, device and arguments (another build of
+    the kernel, as ``phase_clocks.py``'s, may fit fewer)."""
     lib = load()
     key = (entry, id(lib), device.index) + args
     n = _CLUSTERS.get(key)

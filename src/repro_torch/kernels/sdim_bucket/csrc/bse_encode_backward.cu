@@ -384,17 +384,18 @@ static cudaError_t launch_backward(const float* dT, const void* seq, const float
 
 // dT (B, G*U, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d)
 // fp32 -> dseq (B, L, d) in seq's type, every element written; clusters of
-// S CTAs (1..8) a user (tau 1..4; tau 5..10 launch the large-tau path,
-// which ignores S).
+// S CTAs (1..8) a user (tau 1..4; `staged` ignored). tau 5..10 launch the
+// large-tau path (bse_encode_large_tau.cu): S CTAs a user (1..L), each a
+// chunk of its rows, with the user's dT in shared memory where `staged`.
 extern "C" int sdim_bse_encode_backward(const float* dT, const void* seq, int seq_dtype,
                                         const float* mask, const float* R, void* dseq, int B,
                                         int L, int G, int U, int d, int m, int tau, int S,
-                                        void* stream) {
+                                        int staged, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
   if (tau > 4)  // large_tau.cuh
     return sdim::launch_encode_backward_large_tau(dT, seq, seq_dtype, mask, R, dseq, B, L, G, U,
-                                                  d, tau, s);
+                                                  d, tau, S, staged != 0, s);
   switch (seq_dtype) {
     case sdim::kF32:
       return sdim::launch_backward<float>(dT, seq, mask, R, dseq, B, L, G, d, tau, S, s);
@@ -421,4 +422,15 @@ extern "C" int sdim_bse_encode_backward_clusters(int seq_dtype, int G, int d, in
     default:
       return -1;
   }
+}
+
+// The CTAs of the large-tau backward (tau 5..10) at (G, d, tau, L) with the
+// user's dT staged in shared memory (staged = 1) or gathered from device
+// memory (0) that one SM of the current device holds at once (0 where a
+// CTA's shared memory does not fit; -1 for arguments the kernel does not
+// take): encode_backward_large_tau_split in sdim_bucket.py picks the
+// layout and the CTAs a user from it.
+extern "C" int sdim_bse_encode_backward_large_tau_ctas(int seq_dtype, int G, int d, int tau, int L,
+                                                       int staged) {
+  return sdim::encode_backward_large_tau_ctas(seq_dtype, G, d, tau, L, staged != 0);
 }

@@ -489,11 +489,18 @@ cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float*
                                     const float* R, float* out, int B, int L, int G, int U,
                                     int d, int tau, cudaStream_t stream);
 
-// dT (B, G, U, d) fp32 -> dseq (B, L, d) in seq's type (bse_encode_backward.cu's).
+// dT (B, G, U, d) fp32 -> dseq (B, L, d) in seq's type (bse_encode_backward.cu's):
+// S CTAs a user (1..L), each a chunk of its rows; the user's dT copied into
+// shared memory where `staged`, else gathered from device memory.
 cudaError_t launch_encode_backward_large_tau(const float* dT, const void* seq, int seq_dtype,
                                              const float* mask, const float* R, void* dseq,
-                                             int B, int L, int G, int U, int d, int tau,
-                                             cudaStream_t stream);
+                                             int B, int L, int G, int U, int d, int tau, int S,
+                                             bool staged, cudaStream_t stream);
+
+// The CTAs of that backward one SM holds at once at (G, d, tau, L), dT
+// staged or not (0: a CTA's shared memory does not fit; -1: a shape it
+// does not take).
+int encode_backward_large_tau_ctas(int seq_dtype, int G, int d, int tau, int L, bool staged);
 
 // table (B, G, U, d) fp32|bf16, q (B, C, d) -> out (B, C, d) fp32 (sdim_query.cu's).
 cudaError_t launch_query_large_tau(const void* table, int table_dtype, const float* q,

@@ -284,6 +284,40 @@ inline int max_active_clusters(const void* fn, size_t smem, int s, int threads =
   return clusters;
 }
 
+// How many CTAs of `fn` (`threads` threads, `smem` bytes of dynamic shared
+// memory) one SM of the current device holds at once: 0 where `smem`
+// exceeds a CTA's opt-in maximum; asked once per (device, kernel, smem,
+// threads) and remembered.
+inline int max_active_ctas(const void* fn, size_t smem, int threads) {
+  struct Fit {
+    int device;
+    const void* fn;
+    size_t smem;
+    int threads, ctas;
+  };
+  static std::mutex mu;
+  static Fit cache[64];
+  static int n_cached = 0;
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cached; ++i) {
+    const Fit& f = cache[i];
+    if (f.device == device && f.fn == fn && f.smem == smem && f.threads == threads)
+      return f.ctas;
+  }
+  int ctas = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess ||
+      smem > static_cast<size_t>(optin) || allow_smem(fn, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads, smem) != cudaSuccess) {
+    cudaGetLastError();  // a query the device refuses is no launch error
+    ctas = 0;
+  }
+  if (n_cached < 64) cache[n_cached++] = Fit{device, fn, smem, threads, ctas};
+  return ctas;
+}
+
 // Launch `kernel` with kThreads threads and `smem` bytes of dynamic shared
 // memory on a (s * gx, gy) grid in clusters of s CTAs along x, and return
 // the launch's error. s is the largest of s_max, s_max - 1, ..., s_min for

@@ -11,7 +11,11 @@ its slice of the table once (no atomics, no zero-filled output). tau 5..10
 (32..1,024 buckets a group, more than a CTA's registers hold) launch the
 large-tau path (``csrc/bse_encode_large_tau.cu``: a CTA a slice of
 ``encode_large_tau_splits`` whole groups lists the user's rows by bucket
-and writes each cell once), as the backward does.
+and writes each cell once); so does the backward (``csrc/bse_encode_large_tau.cu``:
+``encode_backward_large_tau_split`` CTAs a user, each a chunk of its rows,
+hashing each valid row once with the forward's arithmetic and gathering its
+G rows of dT from a copy of the user's dT in shared memory where it fits,
+else from device memory).
 
 Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
@@ -210,6 +214,50 @@ def launch_splits(B: int, L: int, G: int, d: int, tau: int, seq_dtype: torch.dty
         lambda S: _build.clusters("sdim_bse_encode_backward_clusters", dev, code, G, d, tau, S))
 
 
+BWD_LT_ROUND = 256    # csrc/bse_encode_large_tau.cu kBwdLtThreads: a large-tau backward
+                      # CTA's threads, so its round of rows is 256 / row_lanes(L, d)
+
+
+def row_lanes(n: int, d: int) -> int:
+    """Lanes a row of the large-tau kernels' hash (``row_lanes`` in
+    ``csrc/large_tau.cuh``): eight where all n rows fit one round of 32
+    teams, else 1 up to d = 32, 2 up to 64, 4 up to 128."""
+    return 8 if n <= 32 else 1 if d <= 32 else 2 if d <= 64 else 4
+
+
+def encode_backward_large_tau_split(B: int, L: int, d: int, n_sm: int,
+                                    ctas: Callable[[bool], int]) -> tuple[bool, int]:
+    """(staged, S) of the large-tau backward (``csrc/bse_encode_large_tau.cu``):
+    ``staged`` where a CTA holds the user's whole dT beside R and a round's
+    bucket ids (``ctas(True)`` > 0; else each row's G rows of dT are
+    gathered from device memory), and S CTAs a user, each a chunk of its
+    rows: as many as the ``n_sm`` SMs hold in one wave (``ctas(staged)`` a
+    SM), at most one a round of ``BWD_LT_ROUND / row_lanes(L, d)`` rows, at
+    least one. ``ctas(staged)``: the CTAs an SM holds at once
+    (``launch_large_tau_split`` asks the card; 0 where a CTA's shared memory
+    does not fit)."""
+    staged = ctas(True) > 0
+    per_sm = ctas(staged)
+    rounds = -(-L // (BWD_LT_ROUND // row_lanes(L, d)))
+    return staged, max(1, min(rounds, n_sm * per_sm // max(B, 1)))
+
+
+def launch_large_tau_split(B: int, L: int, G: int, d: int, tau: int, seq_dtype: torch.dtype,
+                           dev: torch.device) -> tuple[bool, int]:
+    """``encode_backward_large_tau_split`` with ``dev``'s SM count and
+    capacity at (G, d, tau, L): the layout and CTAs a user
+    ``bse_encode_backward`` launches there at tau 5..10. Raises where no
+    layout fits a CTA (R and a round's ids alone exceed its shared
+    memory)."""
+    code = _build.DTYPE_CODES[seq_dtype]
+    fit = lambda staged: _build.clusters("sdim_bse_encode_backward_large_tau_ctas", dev, code,
+                                         G, d, tau, L, int(staged))
+    if fit(False) == 0:
+        raise ValueError(f"bse_encode_backward: R ({G * tau} x {d}) and a round's bucket ids "
+                         f"do not fit a CTA's shared memory at tau {tau}")
+    return encode_backward_large_tau_split(B, L, d, _build.sm_count(dev), fit)
+
+
 def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
                         R: torch.Tensor, tau: int) -> torch.Tensor:
     """Gradient of ``bse_encode`` in seq: dT (B, G, U, d) fp32 -> d seq
@@ -220,11 +268,13 @@ def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
 
 
 def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
-                             R: torch.Tensor, tau: int,
-                             splits: Optional[int] = None) -> torch.Tensor:
+                             R: torch.Tensor, tau: int, splits: Optional[int] = None,
+                             staged: Optional[bool] = None) -> torch.Tensor:
     """The kernel launch of ``bse_encode_backward`` with ``splits`` CTAs a
-    user, 1..8, each a chunk of its rows (None: ``launch_splits`` for this
-    device; tau 5..10 ignore it)."""
+    user, each a chunk of its rows: 1..8 at tau <= 4 (None:
+    ``launch_splits`` for this device), 1..L at tau 5..10, where ``staged``
+    says whether a CTA copies the user's dT into shared memory (None for
+    either: ``launch_large_tau_split``)."""
     B, L, d = seq.shape
     m = R.shape[0]
     G, U = m // tau, 1 << tau
@@ -244,19 +294,27 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
             raise TypeError(f"bse_encode_backward: {name} must be float32")
     dev = _build.require_cuda("bse_encode_backward", dT, seq, mask, R)
     _build.require_aligned("bse_encode_backward", dT, seq, R)
-    if splits is None:
-        splits = launch_splits(B, L, G, d, tau, seq.dtype, dev) if tau <= 4 else 1
-    if not 1 <= splits <= BWD_MAX_CLUSTER:
-        raise ValueError(f"bse_encode_backward: {splits} CTAs a user; the kernel's cluster "
-                         f"takes 1..{BWD_MAX_CLUSTER}")
+    if tau <= 4:
+        if splits is None:
+            splits = launch_splits(B, L, G, d, tau, seq.dtype, dev)
+        if not 1 <= splits <= BWD_MAX_CLUSTER:
+            raise ValueError(f"bse_encode_backward: {splits} CTAs a user; the kernel's cluster "
+                             f"takes 1..{BWD_MAX_CLUSTER}")
     out = torch.empty_like(seq)
     if B == 0 or L == 0:
         return out
+    if tau > 4:
+        if splits is None or staged is None:
+            fits, S = launch_large_tau_split(B, L, G, d, tau, seq.dtype, dev)
+            staged = fits if staged is None else staged
+            splits = S if splits is None else splits
+        if not 1 <= splits <= L:
+            raise ValueError(f"bse_encode_backward: {splits} CTAs a user of {L} rows")
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_bse_encode_backward(dT.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
                                            R.data_ptr(), out.data_ptr(), B, L, G, U, d, m, tau,
-                                           splits, _build.stream(dev))
+                                           splits, int(bool(staged)), _build.stream(dev))
     _build.check(err, "bse_encode_backward")
     bse_encode_backward.launches += 1
     return out

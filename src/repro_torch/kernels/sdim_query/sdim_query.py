@@ -10,10 +10,11 @@ cluster per user splits the table's rows and the candidates, so each row is
 read from device memory and normalized once. That body keeps R, the user's
 whole normalized table and 32 candidates in a CTA's shared memory; where
 they do not fit (MLA's latent, d = 512: 416 KB against 227 KB) the kernel's
-entry point launches the wide path instead (``csrc/wide_query.cuh``: the
-cluster splits the columns and merges its partial sums in rank order); a
-shape neither launches raises. tau 5..10 (32..1,024 buckets a group) launch
-the large-tau path (``csrc/sdim_query_large_tau.cu``: sdim_fused_serve's
+entry point launches the wide path instead (``csrc/wide_query.cuh``: a CTA
+of 256 threads a tile of ``wide_tile`` candidates of one user, R and the
+tile staged by one bulk copy, each selected row's norm summed in one fixed
+order by whichever CTA reads it); a shape neither launches raises. tau
+5..10 (32..1,024 buckets a group) launch the large-tau path (``csrc/sdim_query_large_tau.cu``: sdim_fused_serve's
 large-tau body, a team of eight lanes a (candidate, group) hashing and
 reading only the row it selects), as the backward does (a CTA a slice of
 ``query_backward_large_tau_splits`` whole groups lists the candidates by
@@ -35,7 +36,7 @@ t = T[b,g,u] and n = sqrt(|t|^2 + 1e-12) (eps inside the sqrt, as
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, large_tau_list_splits
 
 MAX_BWD_CANDS = 16384   # the large-tau backward's candidate lists in shared memory
+WIDE_MAX_CANDS = 8      # csrc/wide_query.cuh kWideMaxCands: candidates a CTA of the wide path
 MAX_BWD_D = 2048        # the backward's rows in a warp's registers (tau <= 4)
 
 
@@ -83,6 +85,32 @@ class SDIMQueryFn(torch.autograd.Function):
         return None, dT, None, None
 
 
+def wide_tile(B: int, C: int, n_sm: int, ctas: Callable[[int], int]) -> int:
+    """Candidates a CTA of the wide path (``csrc/wide_query.cuh``): the
+    fewest, 1..``WIDE_MAX_CANDS``, whose B * ceil(C / tile) CTAs the
+    ``n_sm`` SMs hold in one wave (``ctas(tile)`` an SM: every CTA stages
+    all of R, so more CTAs than fit one wave only queue), else the most.
+    ``ctas(tile)``: the CTAs of ``tile`` candidates an SM holds at once
+    (``launch_wide_tile`` asks the card; 0 where a CTA does not fit)."""
+    for tile in range(1, WIDE_MAX_CANDS + 1):
+        if B * -(-C // tile) <= n_sm * ctas(tile):
+            return tile
+    return WIDE_MAX_CANDS
+
+
+def launch_wide_tile(B: int, C: int, G: int, d: int, tau: int, table_dtype: torch.dtype,
+                     dev: torch.device) -> int:
+    """``wide_tile`` with ``dev``'s SM count and capacity where (G, d, tau)
+    takes the wide path there (its entry point launches it where the fused
+    body's shared memory does not fit a CTA), else 0 (the argument is then
+    ignored)."""
+    if tau > 4 or not _build.clusters("sdim_query_takes_wide", dev, G, d, tau):
+        return 0
+    code = _build.DTYPE_CODES[table_dtype]
+    fit = lambda tile: _build.clusters("sdim_query_wide_ctas", dev, code, G, d, tau, tile)
+    return wide_tile(B, C, _build.sm_count(dev), fit)
+
+
 def _query(q, table, R, tau):
     if q.device.type == "cpu":
         return sdim_query_ref(q, table, R, tau)
@@ -106,10 +134,11 @@ def _query(q, table, R, tau):
     out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
+    tile = launch_wide_tile(B, C, G, d, tau, table.dtype, dev)
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_query(table.data_ptr(), code, q.data_ptr(), R.data_ptr(),
-                             out.data_ptr(), B, C, G, U, d, m, tau,
+                             out.data_ptr(), B, C, G, U, d, m, tau, tile,
                              _build.stream(dev))
     _build.check(err, "sdim_query")
     sdim_query.launches += 1

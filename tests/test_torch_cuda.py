@@ -157,6 +157,54 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
         assert not table[-1].any() and not dseq[-1].any()
 
 
+# the large-tau backward's two layouts of dT, (B, L, d, m, tau): staged in
+# a CTA's shared memory where the user's dT fits beside R, else gathered
+# from device memory (csrc/bse_encode_large_tau.cu)
+LT_BWD_CASES = [
+    ((128, 256, 32, 45, 5), True), ((128, 256, 32, 45, 5), False),    # Table 4's tau 5
+    ((128, 256, 32, 40, 10), False),                                   # Table 4's tau 10
+    ((4, 300, 32, 42, 7), True), ((4, 300, 32, 42, 7), False),        # 96 KB; two rounds
+    ((3, 1100, 128, 45, 5), True), ((3, 1100, 128, 45, 5), False),    # 144 KB; d = 128
+    ((2, 50, 36, 14, 7), True), ((2, 50, 36, 14, 7), False),          # dien's width
+    ((3, 20, 64, 40, 10), False),                                      # L <= 32: eight lanes a row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, staged", LT_BWD_CASES)
+def test_large_tau_backward_at_both_layouts(shape, staged, dtype, dev):
+    """bse_encode_backward at tau 5..10 with the user's dT staged and
+    gathered, fp32 and bf16 rows, against its plain version on a dT whose
+    every row is nonzero: ragged masks with a fully masked last user (+0
+    everywhere, no sign bit), the same bits twice, every split of rows the
+    wrapper could take (1, 2 and its own CTAs a user); L = 0 launches
+    nothing."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import launch_large_tau_split
+
+    B, L, d, m, tau = shape
+    G, U = m // tau, 1 << tau
+    seq, _, mask, R, rng = _inputs((B, L, 1, d, m, tau), dev, dtype, seed=50 + tau)
+    mask = _layout(mask, "random", rng)
+    dT = torch.from_numpy(rng.standard_normal((B, G, U, d)).astype(np.float32)).to(dev)
+    fits, S = launch_large_tau_split(B, L, G, d, tau, dtype, dev)
+    assert fits == staged or not staged
+    ref = bse_encode_backward_ref(dT, seq, mask, R, tau)
+    tol = BF16_OUT if dtype == torch.bfloat16 else FP32
+    before = bse_encode_backward.launches
+    for splits in sorted({1, 2, S}):
+        out = bse_encode_backward_cuda(dT, seq, mask, R, tau, splits, staged)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        assert out.dtype == dtype
+        assert torch.equal(out, bse_encode_backward_cuda(dT, seq, mask, R, tau, splits, staged))
+        assert not out[-1].any() and not out[mask == 0].float().view(torch.int32).any()
+    torch.cuda.synchronize()
+    assert bse_encode_backward.launches == before + 2 * len({1, 2, S})
+    empty = bse_encode_backward_cuda(dT, seq[:, :0].contiguous(), mask[:, :0].contiguous(), R,
+                                     tau, 1, staged)
+    assert empty.shape == (B, 0, d) and bse_encode_backward.launches == before + 2 * len({1, 2, S})
+
+
 # bse_serve's large-tau path also takes tau <= 4 where its cluster body
 # cannot hold the groups: Table 4's tau = 1 row (m = 48, G = 48)
 WIDE_G_SHAPES = [(4, 1024, 128, 128, 48, 1), (3, 100, 20, 36, 48, 1),
@@ -1893,9 +1941,9 @@ def test_sdim_query_fused_path_is_kernel_3s_body(d, dev):
 
 @pytest.mark.cuda
 def test_sdim_query_raises_where_no_path_launches(dev):
-    """A width whose column slices overflow a CTA even on the wide path (d =
-    8,192: 512 KB of table columns a CTA) raises; it never falls back to
-    the plain version."""
+    """A width that overflows a CTA even on the wide path (d = 8,192: R
+    alone is 1.5 MB, past a CTA's 227 KB of shared memory) raises; it never
+    falls back to the plain version."""
     B, C, d, m, tau = 1, 4, 8192, 48, 3
     q = torch.zeros((B, C, d), device=dev)
     table = torch.zeros((B, m // tau, 1 << tau, d), device=dev)

@@ -116,11 +116,15 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import (MAX_CELLS, encode_large
                                                          encode_splits)
 from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
                                                          update_splits)
-from repro_torch.kernels.sdim_bucket.sdim_bucket import BWD_ROUND, backward_splits
+from repro_torch.kernels.sdim_bucket.sdim_bucket import (BWD_LT_ROUND, BWD_ROUND,
+                                                         backward_splits,
+                                                         encode_backward_large_tau_split,
+                                                         row_lanes)
 from repro_torch.kernels.target_attn.target_attn import TA_BWD_MAX_ROWS, TA_BWD_ROWS
 from repro_torch.kernels.target_attn.target_attn import backward_split as ta_backward_split
-from repro_torch.kernels.sdim_query.sdim_query import (query_backward_large_tau_splits,
-                                                       query_backward_splits)
+from repro_torch.kernels.sdim_query.sdim_query import (WIDE_MAX_CANDS,
+                                                       query_backward_large_tau_splits,
+                                                       query_backward_splits, wide_tile)
 from repro_torch.kernels.sdim_serve.sdim_serve import gather_shape, serve_large_tau_splits
 
 FP32 = dict(atol=1e-5, rtol=1e-5)
@@ -880,6 +884,17 @@ def _jax_sdim_backward(dout, q, seq, mask, R, tau):
     return np.array(table), np.array(dT), np.array(vjp(dT)[0])
 
 
+def _jax_encode_vjp(dT, seq, mask, R, tau):
+    """d seq of <dT, encode(seq)> by jax.vjp of the JAX package's XLA
+    formulation, for any dT."""
+    R = jnp.asarray(R)
+
+    def encode(s):
+        return jsdim.bucket_table(s, jsimhash.signatures(s, R, tau), jnp.asarray(mask), 1 << tau)
+
+    return np.array(jax.vjp(encode, jnp.asarray(seq))[1](jnp.asarray(dT))[0])
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("shape", [
     (2, 40, 3, 32, 12, 2),
@@ -1086,46 +1101,100 @@ def _warp_sum_of_squares(t):
     return lanes[0]
 
 
-def sdim_query_wide_schedule(q, table, R, tau, S=8, TC=128):
-    """wide_query.cuh's schedule in numpy fp32: S ranks split the float4
-    columns; partial sums of squares and projections merged in rank order."""
+def _warp_dot(x, y):
+    """A warp's dot products of rows x (..., d) with y (..., d), broadcast:
+    lane l sums the float4 columns l, l + 32, ... in order (dot4), then a
+    butterfly (xor 16, ..., 1)."""
+    n = np.broadcast_shapes(x.shape, y.shape)[:-1]
+    xc = x.reshape(*x.shape[:-1], -1, 4)
+    yc = y.reshape(*y.shape[:-1], -1, 4)
+    lanes = np.zeros((32,) + n, np.float32)
+    for k in range(xc.shape[-2]):
+        lanes[k % 32] = _dot4(xc[..., k, :], yc[..., k, :], lanes[k % 32])
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ o]).astype(np.float32)
+    return lanes[0]
+
+
+SMEM_OPTIN, SMEM_SM = 232448, 233472   # the H100's shared memory: a CTA's opt-in, an SM's
+
+
+def _a16(n):
+    return -(-n // 16) * 16
+
+
+def card_ctas(smem, per_sm=4):
+    """Stands in on the CPU for a kernel's CTA-capacity query: the CTAs of
+    ``smem`` bytes of shared memory one SM of a model H100 holds (1 KB of
+    the SM's 228 KB reserved a CTA), at most ``per_sm`` (registers); 0
+    where a CTA's opt-in 227 KB does not hold them."""
+    return 0 if smem > SMEM_OPTIN else min(per_sm, SMEM_SM // (smem + 1024))
+
+
+def wide_smem(G, d, m, tile, elem=4):
+    """wide_query.cuh's wide_layout: the tile's candidates; one region
+    for R, then for two buffers of a candidate's G rows (``elem`` bytes a
+    value) and its G normalized rows; the projections, signatures, the
+    mbarrier."""
+    return (_a16(4 * tile * d) + max(_a16(4 * m * d), 2 * _a16(elem * G * d) + _a16(4 * G * d))
+            + _a16(4 * tile * m) + _a16(4 * tile * G) + 8)
+
+
+def sdim_query_wide_schedule(q, table, R, tau, tile=None, n_sm=132):
+    """wide_query.cuh's schedule in numpy fp32: CTA (x, b) answers the tile
+    of candidates [x * tile, (x + 1) * tile) of user b (``wide_tile`` on
+    the model card, or ``tile``); a warp a projection row sums it over the
+    float4 columns in a warp's order (``_warp_dot``) for each candidate;
+    the signatures select a row a group; a warp a selected row sums its
+    squares in the same order (``_warp_sum_of_squares``), so every CTA that
+    reads a row gets the same norm; a thread a (candidate, float4 column)
+    adds the G rows times 1 / norm in g order from +0, then / G. Returns
+    the answers, the write counts of each (candidate, float4 column) and
+    the tile."""
     B, C, d = q.shape
-    G, U = R.shape[0] // tau, 1 << tau
-    nq, GU, m = d // 4, G * U, R.shape[0]
-    K = -(-nq // S)                                      # float4 columns a rank
-    cols = [slice(4 * min(nq, r * K), 4 * min(nq, (r + 1) * K)) for r in range(S)]
+    G, U, m = R.shape[0] // tau, 1 << tau, R.shape[0]
+    nq = d // 4
+    if tile is None:
+        tile = wide_tile(B, C, n_sm, lambda t: card_ctas(wide_smem(G, d, m, t)))
     out = np.full((B, C, d), np.nan, np.float32)
+    writes = np.zeros((B, C, nq), np.int64)
+    norms = {}                                            # (b, g, u) -> the norm each CTA got
     for b in range(B):
-        t = table[b].reshape(GU, d).astype(np.float32)
-        ss = [_warp_sum_of_squares(t[:, c]) for c in cols]
-        total = np.zeros(GU, np.float32)
-        for part in ss:                                  # rank order
-            total = (total + part).astype(np.float32)
-        tn = t / np.sqrt(total + np.float32(1e-12))[:, None]
-        for c0 in range(0, C, TC):
-            qc = q[b, c0:c0 + TC]
-            proj = np.zeros((len(qc), m), np.float32)
-            for c in cols:                               # rank order
-                proj = (proj + _dot4(qc[:, None, c], R[None, :, c],
-                                     np.zeros((len(qc), m), np.float32))).astype(np.float32)
-            bits = (proj.reshape(len(qc), G, tau) >= 0).astype(np.int64)
-            sig = (bits << np.arange(tau)).sum(-1)       # (n, G)
-            acc = np.zeros((len(qc), d), np.float32)
-            for g in range(G):                           # g order
-                acc = (acc + tn[g * U + sig[:, g]]).astype(np.float32)
-            out[b, c0:c0 + len(qc)] = acc / np.float32(G)
-    return out
+        for c0 in range(0, C, tile):                      # CTA (c0 / tile, b)
+            qt = q[b, c0:c0 + tile]
+            proj = _warp_dot(qt[:, None], R[None])        # (n, m)
+            bits = (proj.reshape(len(qt), G, tau) >= 0).astype(np.int64)
+            sig = (bits << np.arange(tau)).sum(-1)        # (n, G)
+            rows = table[b, np.arange(G)[None], sig].astype(np.float32)   # (n, G, d)
+            nrm = np.sqrt(_warp_sum_of_squares(rows.reshape(-1, d)).reshape(len(qt), G)
+                          + np.float32(1e-12))
+            for c in range(len(qt)):
+                for g in range(G):
+                    key = (b, g, int(sig[c, g]))
+                    assert norms.setdefault(key, nrm[c, g]) == nrm[c, g]   # one norm a row
+            acc = np.zeros((len(qt), d), np.float32)
+            inv = np.float32(1) / nrm                     # a row's values times 1 / n
+            for g in range(G):                            # g order
+                acc = acc + rows[:, g] * inv[:, g, None]
+            out[b, c0:c0 + len(qt)] = acc / np.float32(G)
+            writes[b, c0:c0 + len(qt)] += 1
+    return out, writes, tile
 
 
 @pytest.mark.parametrize("shape", [
-    (1, 128, 512, 48, 3),        # deepseek-v2's SDIM-KV read: 16 float4 columns a rank
-    (2, 300, 516, 48, 3),        # d % 8 == 4: 17 columns a rank, 10 on the last; 3 passes
+    (1, 128, 512, 48, 3),        # deepseek-v2's SDIM-KV read: 128 CTAs of one candidate
+    (2, 300, 516, 48, 3),        # d % 8 == 4: 129 float4 columns, 5 a lane, the last on one
     (2, 33, 512, 36, 3),         # G = 12
     (2, 5, 512, 48, 4),          # U = 16
-], ids=["mla", "d516", "G12", "U16"])
+    (8, 128, 512, 48, 3),        # B = 8: tiles of 4 (256 CTAs)
+    (8, 70, 512, 48, 3),         # C not a multiple of the tile: 70 = 23 * 3 + 1
+    (2, 0, 512, 48, 3),          # C = 0: no CTA
+    (2, 9, 1024, 48, 3),         # d = 1,024: R alone 192 KB, one CTA an SM
+], ids=["mla", "d516", "G12", "U16", "B8", "C70", "C0", "d1024"])
 def test_sdim_query_wide_schedule_matches_jax(shape):
-    """The wide path against JAX's sdim_query oracle, a zero table reading
-    zero."""
+    """The wide path against JAX's sdim_query oracle, every answer written
+    once, a zero table reading zero, and the tile the model card's one-wave
+    choice."""
     B, C, d, m, tau = shape
     G, U = m // tau, 1 << tau
     rng = np.random.default_rng(d + C)
@@ -1135,11 +1204,37 @@ def test_sdim_query_wide_schedule_matches_jax(shape):
     table[0, :, 1] = 0.0                          # empty buckets
     if B > 1:
         table[-1] = 0.0                           # a user with no keys
-    out = sdim_query_wide_schedule(q, table, R, tau)
+    out, writes, tile = sdim_query_wide_schedule(q, table, R, tau)
+    assert (writes == 1).all()
+    assert tile == {(1, 128): 1, (8, 128): 4, (8, 70): 3}.get((B, C), tile)
     ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R), tau))
     np.testing.assert_allclose(out, ref, **FP32)
     if B > 1:
         assert not out[-1].any()
+
+
+@pytest.mark.parametrize("B, C, d, m, want", [
+    (1, 128, 512, 48, 1),      # the MLA read: 128 CTAs, two an SM
+    (8, 128, 512, 48, 4),      # 256 CTAs of 4 (tiles of 3 need 344)
+    (8, 70, 512, 48, 3),       # 192 CTAs of 3 (tiles of 2 need 280)
+    (3, 300, 516, 48, 4),      # 225 CTAs of 4
+    (2, 33, 1024, 48, 1),      # one CTA an SM: 66 CTAs
+    (64, 128, 1024, 48, 8),    # no tile fits one wave: the most candidates a CTA
+    (1, 1, 512, 48, 1),
+])
+def test_wide_tile_fills_one_wave(B, C, d, m, want):
+    """The wide path's tile (sdim_query.py wide_tile) on the model card:
+    the fewest candidates a CTA whose B * ceil(C / tile) CTAs fit one wave
+    of the 132 SMs, else WIDE_MAX_CANDS; a tile of one candidate fits a
+    CTA's shared memory up to d = 1,184 at m = 48 and not at 1,188."""
+    G = m // 3
+    ctas = lambda t: card_ctas(wide_smem(G, d, m, t))
+    tile = wide_tile(B, C, 132, ctas)
+    assert tile == want and 1 <= tile <= WIDE_MAX_CANDS
+    fits = B * -(-C // tile) <= 132 * ctas(tile)
+    assert fits or tile == WIDE_MAX_CANDS
+    assert tile == 1 or not B * -(-C // (tile - 1)) <= 132 * ctas(tile - 1)
+    assert card_ctas(wide_smem(16, 1184, 48, 1)) > 0 and card_ctas(wide_smem(16, 1188, 48, 1)) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1226,20 +1321,79 @@ def encode_large_tau_schedule(seq, mask, R, tau, n_sm=132):
     return out, writes, hashes
 
 
-def encode_backward_large_tau_schedule(dT, seq, mask, R, tau):
-    """The large-tau backward: a row's G selected rows of dT summed in group
-    order, times its mask; a masked row gets zero, unhashed."""
+def bwd_lt_smem(G, U, d, tau, Q, staged):
+    """bse_encode_large_tau.cu's bwd_lt_layout: the user's dT where staged,
+    R, a round's bucket ids (a short a (row, group)) and weights, two
+    mbarriers."""
+    rows = BWD_LT_ROUND // Q
+    return ((_a16(4 * G * U * d) if staged else 0) + _a16(4 * G * tau * d) + _a16(2 * rows * G)
+            + _a16(4 * rows) + 16)
+
+
+def bwd_lt_ctas(G, U, L, d, tau):
+    """The model card's capacity query of the large-tau backward."""
+    return lambda staged: card_ctas(bwd_lt_smem(G, U, d, tau, row_lanes(L, d), staged))
+
+
+def encode_backward_large_tau_schedule(dT, seq, mask, R, tau, n_sm=132, B_card=None,
+                                       staged=None):
+    """The large-tau backward (bse_encode_large_tau.cu) in numpy fp32: the
+    wrapper's split on the model card for ``B_card`` users (default B):
+    S CTAs a user, CTA (b, s) owning rows [s*L/S, (s+1)*L/S) in rounds of
+    256 / Q rows (Q = row_lanes(L, d) lanes a row), with the user's dT
+    copied into its shared memory where ``staged`` (default: where it
+    fits). Each round hashes its valid rows for every group; warp w takes
+    the round's rows [w * 32/Q, (w+1) * 32/Q), its (row, float4 column)
+    pairs dealt to the lanes in order, each the sum of the row's G rows of
+    dT in g order from
+    +0, then times the mask, from the CTA's copy where staged, else read
+    from device memory; a masked row is neither hashed nor read and gets
+    +0. Returns d seq, the write counts of each (row, float4 column), the
+    hash counts of each (row, group), the device reads of each row of dT
+    (selected rows, or whole copies of a user's dT where staged) and
+    (staged, S)."""
     B, L, d = seq.shape
-    G = R.shape[0] // tau
-    sig = _signatures(seq.reshape(B * L, d), R.reshape(G, tau, d), tau).reshape(B, L, G)
-    out = np.zeros((B, L, d), np.float32)
+    G, U = R.shape[0] // tau, 1 << tau
+    Rg, nq = R.reshape(G, tau, d), d // 4
+    out = np.full((B, L, d), np.nan, np.float32)
+    writes = np.zeros((B, L, nq), np.int64)
+    hashes = np.zeros((B, L, G), np.int64)
+    reads = np.zeros((B, G, U), np.int64)
+    if L == 0:                                       # the wrapper launches nothing
+        return out, writes, hashes, reads, (False, 0)
+    Q = row_lanes(L, d)
+    fit, S = encode_backward_large_tau_split(B_card or B, L, d, n_sm, bwd_lt_ctas(G, U, L, d, tau))
+    staged = fit if staged is None else staged
+    rnd, tw = BWD_LT_ROUND // Q, 32 // Q
+    assert S == 1 or S <= -(-L // rnd)
     for b in range(B):
-        for l in np.flatnonzero(mask[b] != 0):
-            acc = np.zeros(d, np.float32)
-            for g in range(G):
-                acc = acc + dT[b, g, sig[b, l, g]]
-            out[b, l] = mask[b, l] * acc
-    return out
+        for s in range(S):
+            lo, hi = s * L // S, (s + 1) * L // S
+            if staged:
+                reads[b] += 1                        # one copy of the user's dT a CTA
+            for base in range(0, hi - lo, rnd):
+                rows = np.arange(lo + base, min(hi, lo + base + rnd))
+                w = mask[b, rows]
+                live = w != 0
+                keys = np.full((len(rows), G), -1, np.int64)
+                keys[live] = _signatures(seq[b, rows[live]], Rg, tau)
+                hashes[b, rows[live]] += 1
+                for warp in range(8):
+                    r = np.arange(warp * tw, min(len(rows), (warp + 1) * tw))
+                    j = np.arange(len(r) * nq)                 # lanes over (row, column)
+                    rr, k = r[j // nq], j % nq
+                    cols = 4 * k[:, None] + np.arange(4)
+                    acc = np.zeros((len(j), 4), np.float32)
+                    for g in range(G):                         # g order
+                        u = keys[rr, g]
+                        v = dT[b, g, np.maximum(u, 0)[:, None], cols]
+                        acc = acc + np.where(live[rr][:, None], v, np.float32(0))
+                        if not staged:                         # a row's d values once
+                            np.add.at(reads[b, g], u[live[rr] & (k == 0)], 1)
+                    out[b, rows[rr][:, None], cols] = np.where(
+                        live[rr][:, None], acc * w[rr][:, None], np.float32(0))
+                    writes[b, rows[rr], k] += 1
+    return out, writes, hashes, reads, (staged, S)
 
 
 def query_large_tau_schedule(q, table, R, tau):
@@ -1328,8 +1482,13 @@ def _check_large_tau_training(seq, q, mask, R, tau, dout):
     assert (reads == sel).all()
     assert not dT[~sel].any() and not np.signbit(dT[~sel]).any()    # +0, unread
     np.testing.assert_allclose(dT, jdT, **FP32)
-    dseq = encode_backward_large_tau_schedule(jdT, seq, mask, R, tau)
-    np.testing.assert_allclose(dseq, jdseq, **FP32)
+    for layout in (None, True, False):               # the wrapper's choice, then each
+        dseq, writes, hashes, reads, _ = encode_backward_large_tau_schedule(jdT, seq, mask, R,
+                                                                            tau, staged=layout)
+        np.testing.assert_allclose(dseq, jdseq, **FP32)
+        assert L == 0 or (writes == 1).all()
+        assert (hashes == (mask != 0)[..., None]).all()
+        assert not dseq[mask == 0].any() and not np.signbit(dseq[mask == 0]).any()   # +0
     return table, dT, dseq
 
 
@@ -1405,6 +1564,79 @@ def test_large_tau_training_schedules_at_the_list_edges(case):
         assert C > U and (sel.sum(-1) < C).all()
     if case in ("L0", "C0"):
         assert not table.any() if case == "L0" else not dT.any()
+
+
+@pytest.mark.parametrize("case", ["fits", "all-masked"])
+@pytest.mark.parametrize("tau, m, d", [(5, 45, 32), (5, 45, 128), (7, 42, 32), (7, 42, 128),
+                                       (10, 40, 32), (10, 40, 128)])
+def test_large_tau_backward_layouts(tau, m, d, case):
+    """The large-tau backward's two layouts of dT at Table 4's tau 5, 7
+    and 10 (m = 45, 42, 40) at d = 32 and 128, L = 300 (not a multiple of a
+    round: 256 rows at d = 32, 64 at d = 128), split as for Table 4's 128
+    users: the wrapper stages a user's dT where it fits a CTA beside R
+    (tau 5 at both widths: 36 and 144 KB; tau 7 at d = 32: 96 KB) and
+    gathers it from device memory elsewhere; both layouts against jax.grad,
+    every element written once, a staged CTA reading its user's dT once and
+    a gathering one the G rows of each valid row only; "all-masked": no row
+    hashed or read, every gradient +0."""
+    B, L, C = 2, 300, 1
+    G, U = m // tau, 1 << tau
+    rng = np.random.default_rng(40 + tau + d)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    q = screened_normal(rng, (B, C, d), R)
+    mask = _mask(rng, B, L, "random") if case == "fits" else np.zeros((B, L), np.float32)
+    dout = rng.standard_normal((B, C, d)).astype(np.float32)
+    _, jdT, _ = _jax_sdim_backward(dout, q, seq, mask, R, tau)
+    jdT = jdT + rng.standard_normal(jdT.shape).astype(np.float32)   # every row of dT nonzero
+    jdseq = _jax_encode_vjp(jdT, seq, mask, R, tau)
+    fits = bwd_lt_ctas(G, U, L, d, tau)(True) > 0
+    assert fits == ((tau, d) in ((5, 32), (5, 128), (7, 32)))
+    sig = _signatures(seq.reshape(-1, d), R.reshape(G, tau, d), tau).reshape(B, L, G)
+    for layout in (None, not fits):
+        dseq, writes, hashes, reads, (staged, S) = encode_backward_large_tau_schedule(
+            jdT, seq, mask, R, tau, B_card=128, staged=layout)
+        assert staged == (fits if layout is None else layout) and S >= 1
+        assert (writes == 1).all() and (hashes == (mask != 0)[..., None]).all()
+        if staged:
+            assert (reads == S).all()
+        else:
+            want = np.zeros((B, G, U), np.int64)
+            for b in range(B):
+                for g in range(G):
+                    np.add.at(want[b, g], sig[b, mask[b] != 0, g], 1)
+            assert (reads == want).all()
+        np.testing.assert_allclose(dseq, jdseq, **FP32)
+        assert not dseq[mask == 0].any() and not np.signbit(dseq[mask == 0]).any()
+
+
+@pytest.mark.parametrize("B, L, G, U, d, tau, want", [
+    (128, 256, 9, 32, 32, 5, (True, 1)),       # Table 4's tau 5: 36 KB of dT a user, 128 CTAs
+    (128, 256, 4, 1024, 32, 10, (False, 1)),   # Table 4's tau 10: 512 KB a user, gathered
+    (16, 1024, 9, 32, 128, 5, (True, 8)),      # the ingest at tau 5: 144 KB, one CTA an SM
+    (16, 1024, 4, 1024, 128, 10, (False, 16)),  # the ingest at tau 10: a CTA a 64-row round
+    (2, 1100, 2, 64, 16, 6, (True, 5)),        # a round of 256 rows a CTA
+    (1, 32768, 4, 1024, 128, 10, (False, 512)),  # the longest history: 512 rounds, one wave
+    (4096, 256, 9, 32, 32, 5, (True, 1)),      # a large batch: one CTA a user
+    (2, 20, 9, 32, 32, 5, (True, 1)),          # L <= 32: eight lanes a row, one round
+    (2, 256, 80, 1024, 128, 10, (False, 1)),   # R alone past a CTA: refused by the wrapper
+])
+def test_large_tau_backward_split_fills_one_wave(B, L, G, U, d, tau, want):
+    """The large-tau backward's split (sdim_bucket.py
+    encode_backward_large_tau_split) on the model card: dT staged where the
+    user's whole dT fits a CTA beside R, and as many CTAs a user as fit one
+    wave of the 132 SMs, at most one a round of rows."""
+    ctas = bwd_lt_ctas(G, U, L, d, tau)
+    staged, S = encode_backward_large_tau_split(B, L, d, 132, ctas)
+    assert (staged, S) == want
+    assert staged == (ctas(True) > 0)
+    rounds = -(-L // (BWD_LT_ROUND // row_lanes(L, d)))
+    per_sm = ctas(staged)
+    assert 1 <= S <= rounds
+    assert B * S <= 132 * per_sm or S == 1
+    assert S == rounds or B * (S + 1) > 132 * per_sm
+    if want == (False, 1) and G == 80:
+        assert per_sm == 0
 
 
 @pytest.mark.parametrize("kernel, B, G, U, n, d, tau, want", [
