@@ -40,7 +40,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    its JSON's ``protocol``). target_attention_flash
    and its backward are also held and timed at the retrieval kinds' folded
    shape (B*C = 2,048 users of one candidate over the k = 32 rows each
-   retrieved; some with fewer valid rows, some with none). Then the same
+   retrieved; some with fewer valid rows, some with none), the forward on
+   its folded body (a warp a user), also with bf16 rows and at the Table
+   2/3 protocol's folded shape (128 users over k = 16 rows, d = 32: the
+   ``protocol`` entry of its ``folded``). Then the same
    checks and timings (one function, ``kernel_phase``, at a width) for
    all nine kernels at dien's behavior width d = 36, kernel 6 and its
    backward at the main and the folded shape too, where bf16 rows are 72
@@ -429,7 +432,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    ingest's shape (the burst's users, d = 128) and ``sdim_query`` off the
    burst's fetched fp32 (timed) and bf16 tables; decoupled (sdim_query and
    sdim_fused_serve off bse_encode's table) must equal inline (bse_serve)
-   bit for bit; then the large-tau paths of
+   bit for bit; sdim_update's fold must leave every cell no weighted event
+   reached as it was, bit for bit (-0.0 cells planted); then the large-tau paths of
    ``bse_encode``, ``sdim_query`` and both backward kernels at Table 4's
    training shape (B = 128, L = 256, d = 32, C = 1, tau 5 and 10) the
    same way, device ms included. (b)
@@ -508,6 +512,7 @@ ATOMIC = dict(atol=1e-4, rtol=1e-5)   # bse_encode: sums of up to L rows in anot
 BF16_OUT = dict(atol=1e-5, rtol=8e-3)  # a gradient written in bf16: one bf16 step
 TRAIN_B, TRAIN_STEPS = 32, 20          # phase 7: batch, steps of sdim-paper FULL
 FOLD_L = 32                           # rows a retrieval kind retrieves per candidate at FULL
+PROTOCOL_FOLD = (128, 16, 32)         # (users, L, d): the Table 2/3 protocol's folded kinds
 # phase 8: the kinds swapped into sdim-paper FULL; sdim_expected last, since
 # its non-finite gradient (ROADMAP.md, C2) leaves NaN in the tables it trains
 COMPARE_KINDS = ("avg", "sim_hard", "eta", "ubr4ctr", "din_mlp", "sdim-srht", "sdim_expected")
@@ -1156,25 +1161,51 @@ def folded_retrieval(torch, dev, rng, t, d):
     """target_attention_flash and its backward at the retrieval kinds'
     folded shape at width d: BURST * C users of one candidate each over the FOLD_L
     rows it retrieved, valid rows first (top-k order), some with fewer and
-    some with none (uniform over all FOLD_L). Held against the plain
-    versions, same bits on two launches, timed like the rows above (SDPA
-    on the same inputs as the forward's yardstick). Returns {kernel name:
-    its numbers at this shape}."""
+    some with none (uniform over all FOLD_L). The forward runs its folded
+    body there (``forward_split`` users a CTA, a warp a user); it is also
+    held with bf16 rows and, at d = D, at the Table 2/3 protocol's folded
+    shape (PROTOCOL_FOLD: 128 users over k = 16 rows, d = 32). Held against
+    the plain versions, same bits on two launches, timed like the rows
+    above (SDPA on the same inputs as the forward's yardstick). Returns
+    {kernel name: its numbers at this shape}, the forward's protocol shape
+    under "protocol"."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.cost import Cost
     from repro_torch.kernels.target_attn.target_attn import (
-        target_attention_flash, target_attention_flash_backward,
+        forward_split, target_attention_flash, target_attention_flash_backward,
         target_attention_flash_backward_ref, target_attention_flash_ref)
 
+    def folded(n, l, dd):
+        """q (n, 1, dd), seq (n, l, dd), valid rows first (0..l of them, the
+        first user none, the second all) and the rows a user needs."""
+        f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
+        found = rng.integers(0, l + 1, n)
+        found[:2] = (0, l)
+        mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+        return f32(n, 1, dd), f32(n, l, dd), mask, float(sum(l if f == 0 else f
+                                                             for f in found.tolist()))
+
+    def forward_bound(q, mask, needed, dd):
+        return bound(Cost(flops=4 * dd * needed,
+                          bytes=needed * dd * 4 + mask.numel() * 4 + 2 * q.numel() * 4))
+
+    def sdpa(q, seq, mask):
+        additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
+        return partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)
+
     n, l = BURST * C, FOLD_L
-    f32 = lambda *shape: t(rng.standard_normal(shape).astype(np.float32))
-    q, seq, dout = f32(n, 1, d), f32(n, l, d), f32(n, 1, d)
-    found = rng.integers(0, l + 1, n)
-    found[:2] = (0, l)
-    mask = t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+    q, seq, mask, needed = folded(n, l, d)
+    dout = t(rng.standard_normal((n, 1, d)).astype(np.float32))
     out = target_attention_flash(q, seq, mask)
     err_f = check_close(f"target_attention_flash folded {(n, l, 1, d)}", out,
                         target_attention_flash_ref(q, seq, mask), **FP32)
+    seq16 = seq.to(torch.bfloat16)
+    err_f = max(err_f, check_close(f"target_attention_flash folded {(n, l, 1, d)} bf16",
+                                   target_attention_flash(q, seq16, mask),
+                                   target_attention_flash_ref(q, seq16, mask), **FP32))
+    same_bits("target_attention_flash folded bf16",
+              partial(target_attention_flash, q, seq16, mask))
     got = target_attention_flash_backward(dout, q, seq, mask, out)
     ref = target_attention_flash_backward_ref(dout, q, seq, mask, out)
     err_b = max(check_close(f"target_attention_flash_backward folded {name}", a, b, **FP32)
@@ -1184,34 +1215,47 @@ def folded_retrieval(torch, dev, rng, t, d):
     same_bits("target_attention_flash folded", fwd)
     same_bits("target_attention_flash_backward folded",
               lambda: torch.cat([g.reshape(-1) for g in bwd()]))
-    needed = float(sum(l if f == 0 else f for f in found.tolist()))
     lib_bwd, why = sdpa_backward(torch, dout, q, seq, mask)
-    print(f"target_attention_flash_backward folded at d = {d}: library (SDPA's "
-          f"efficient-attention backward + dk + dv) "
+    print(f"target_attention_flash folded at d = {d}: the folded body, "
+          f"{forward_split(n, l, 1, _build.sm_count(dev))} users a CTA; its backward's library "
+          f"(SDPA's efficient-attention backward + dk + dv) "
           f"{'timed' if lib_bwd else f'refused, none recorded: {why}'}")
-    additive = torch.where(mask > 0, 0.0, -1e30)[:, None, :]
-    cases = (("target_attention_flash", fwd, partial(target_attention_flash_ref, q, seq, mask),
-              err_f, bound(Cost(flops=4 * d * needed,
-                                bytes=needed * d * 4 + mask.numel() * 4 + 2 * q.numel() * 4)),
-              partial(F.scaled_dot_product_attention, q, seq, seq, attn_mask=additive)),
-             ("target_attention_flash_backward", bwd,
+    cases = [("target_attention_flash", None, (n, l, d), fwd,
+              partial(target_attention_flash_ref, q, seq, mask), err_f,
+              forward_bound(q, mask, needed, d), sdpa(q, seq, mask)),
+             ("target_attention_flash_backward", None, (n, l, d), bwd,
               partial(target_attention_flash_backward_ref, dout, q, seq, mask, out), err_b,
               bound(Cost(flops=10 * d * needed,
                          bytes=needed * d * 4 + seq.numel() * 4 + mask.numel() * 4
-                         + 5 * q.numel() * 4)), lib_bwd))
+                         + 5 * q.numel() * 4)), lib_bwd)]
+    if d == D:                                  # the protocol's folded kinds' forward
+        pn, pl, pd = PROTOCOL_FOLD
+        pq, pseq, pmask, pneeded = folded(pn, pl, pd)
+        perr = check_close(f"target_attention_flash protocol folded {(pn, pl, 1, pd)}",
+                           target_attention_flash(pq, pseq, pmask),
+                           target_attention_flash_ref(pq, pseq, pmask), **FP32)
+        pfwd = partial(target_attention_flash, pq, pseq, pmask)
+        same_bits("target_attention_flash protocol folded", pfwd)
+        cases.append(("target_attention_flash", "protocol", PROTOCOL_FOLD, pfwd,
+                      partial(target_attention_flash_ref, pq, pseq, pmask), perr,
+                      forward_bound(pq, pmask, pneeded, pd), sdpa(pq, pseq, pmask)))
     info = {}
-    for name, kernel, plain, err, (bound_ms, bound_by), library in cases:
+    for name, label, (un, ul, ud), kernel, plain, err, (bound_ms, bound_by), library in cases:
         k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
         lib_ms = None if library is None else time_ms(library)
         dt = device_times(kernel, plain, library)
-        info[name] = dict(shape=dict(users=n, L=l, C=1, d=d), ms=min(k1, k2),
-                          plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms, max_abs_err=err, **dt)
-        print(f"kernel {name} at the folded retrieval shape ({n} users, L={l}, C=1, d={d}): "
-              f"{min(k1, k2):.4f} ms (runs {k1:.4f}/{k2:.4f}), plain {min(p1, p2):.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; {device_line(dt)}; "
-              f"max abs err {err:.3g}")
+        row = dict(shape=dict(users=un, L=ul, C=1, d=ud), ms=min(k1, k2), plain_ms=min(p1, p2),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, max_abs_err=err,
+                   **dt)
+        if label is None:
+            info[name] = row
+        else:
+            info[name][label] = row
+        print(f"kernel {name} at the {'protocol' if label else 'retrieval'} kinds' folded shape "
+              f"({un} users, L={ul}, C=1, d={ud}): {min(k1, k2):.4f} ms (runs "
+              f"{k1:.4f}/{k2:.4f}), plain {min(p1, p2):.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+              f"{device_line(dt)}; max abs err {err:.3g}")
     return info
 
 
@@ -5144,6 +5188,7 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                 events = t(screened_normal(rng, (BURST, E, d), R))
                 ev_mask = t((rng.random((BURST, E)) > 0.2).astype(np.float32))
                 ev_mask[0] = 0.0                    # a zero-mask row
+                rows[:, :, ::3, :4] = -0.0          # cells an unreached fold leaves as -0.0
                 # timed in place on one store each (a fold's own work, no clone);
                 # the same bits from two folds of fresh clones
                 a, b_ = rows.clone(), rows.clone()
@@ -5153,6 +5198,10 @@ def large_tau_kernel_checks(torch, dev) -> dict:
                        partial(sdim_update_ref, b_, *args), sdim_update(a, *args),
                        sdim_update_ref(b_, *args), c, timed,
                        bits=lambda: sdim_update(rows.clone(), *args))
+                kept = unreached_kept(torch, rows, sdim_update(rows.clone(), *args), *args)
+                figures["sdim_update"][label]["unreached_cells_kept"] = kept
+                print(f"large_tau (a) sdim_update {label}: the {kept} cells no weighted event "
+                      f"reached keep their bits (-0.0 included)")
                 del rows, hist, a, b_
                 torch.cuda.empty_cache()
         # the large-tau training kernels at Table 4's
@@ -5187,6 +5236,22 @@ def large_tau_kernel_checks(torch, dev) -> dict:
             print(f"large_tau (a) {name} {label}: max abs err {r['max_abs_err']:.3g}, nonzero "
                   f"rows {100 * r['nonzero_rows']:.0f}%, the same bits twice{timing}{device}")
     return figures
+
+
+def unreached_kept(torch, before, after, slots, events, mask, R, tau) -> int:
+    """The (row, group, bucket) cells of an event fold (store ``before`` ->
+    ``after``) that no weighted event reached keep their bits, -0.0
+    included; raises otherwise. Returns how many such cells there are."""
+    from repro_torch.core import simhash
+
+    N, G, U, d = before.shape
+    sig = simhash.signatures(events.float(), R, tau)            # (B, E, G)
+    b, e = torch.nonzero(mask != 0, as_tuple=True)
+    reached = torch.zeros((N, G, U), dtype=torch.bool, device=before.device)
+    reached[slots[b].long()[:, None], torch.arange(G, device=before.device), sig[b, e]] = True
+    if not torch.equal(after[~reached].view(torch.int32), before[~reached].view(torch.int32)):
+        raise AssertionError("sdim_update: a cell no weighted event reached changed its bits")
+    return int((~reached).sum())
 
 
 def large_tau_requests(torch, cfg):

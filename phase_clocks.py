@@ -7,6 +7,7 @@ NVIDIA GPU (written for the H100):
     python3 phase_clocks.py table23 [--src DIR]
     python3 phase_clocks.py query [--src DIR]
     python3 phase_clocks.py bwd_wide [--src DIR]
+    python3 phase_clocks.py fold [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -65,7 +66,20 @@ same for ``bse_encode_backward`` at Table 4's tau 5 and 10 (B = 128, L =
 layout of the first (dT staged or gathered) and each tile of the second
 (``WIDE_TILES``). The default run also clocks both (the large-tau
 backward beside the large-tau training kernels, the wide path beside
-kernel 4's other paths).
+kernel 4's other paths). ``fold`` does the same for
+``target_attention_flash`` at the folded shapes of ``FOLD_SHAPES`` (and the
+main path's burst, ``FOLD_MAIN``) and for ``sdim_update``'s large-tau
+fold at chip_smoke.py phase 20 (a)'s event bursts (16 batch rows of E = 16
+events on random slots of 64 users, a zero-mask row; tau 5 and 10, d =
+128 and 36: chip_smoke.py's own draws, replayed, whose duplicate slots
+give one CTA two or three rows to fold, and the same draws with their
+duplicates moved to unused slots), with the event-timed ms of a wrapper
+call (host work included, median of 30, three rounds), and, where the
+port under ``--src`` has them, times each CTA shape of the folded body
+(``FOLD_USERS`` users a CTA, and the cluster body) and prints both
+kernels' phase cycles (``target_attn.cu``'s folded body,
+``sdim_update_large_tau.cu``, whose owners of two rows are also reported
+on their own).
 """
 from __future__ import annotations
 
@@ -119,6 +133,12 @@ PHASES = {
                         "rows' copy waits", "norms + answers"],
     "sdim_query_backward": ["staging (R, q, dout)", "hash (+ barrier)",
                             "passes after the first (+ barriers)", "rows (selected, zeros)"],
+    # kernel 6's folded body (target_attn.cu) and sdim_update's large-tau
+    # fold (sdim_update_large_tau.cu); thread 0 of a CTA: its first user
+    "target_attention_folded": ["mask, q, row list", "row loads + logits", "softmax",
+                                "p x sums", "row-group merge + store"],
+    "sdim_update_lt": ["loads (R, events land)", "owner barrier", "owner list", "hash",
+                       "hash barrier", "sort (+ barrier)", "fold (+ barrier)"],
 }
 # the backward kernels' shapes: (B, L, d) of chip_smoke.py phase 3 (the
 # training step, its folded retrieval shape, both at dien's d = 36 too) and
@@ -150,6 +170,14 @@ LT_TRAIN_SHAPES = {"table4": (128, 256, 1, 32), "ingest": (B, L, C, D)}
 # latent, 128 heads) and chip_smoke.py phase 14's B = 8 check (m = 48, tau 3)
 WIDE_SHAPES = {"mla": (1, 128, 512), "B=8": (8, 128, 512)}
 WIDE_TILES = (1, 2, 4, 8)     # the candidates a CTA the bwd_wide mode also times
+# kernel 6's folded body, (users, L, d): chip_smoke.py phase 3's retrieval
+# shape (2,048 users of one candidate over k = 32 rows) at d = 128 and 36,
+# and the Table 2/3 protocol's (128 users over k = 16 rows, d = 32)
+FOLD_SHAPES = {"folded": (2048, 32, 128), "folded d=36": (2048, 32, 36),
+               "protocol folded": (128, 16, 32)}
+FOLD_MAIN = (16, 1024, 128, 128)   # (B, L, C, d): the main path's burst, the cluster body
+FOLD_USERS = (1, 2, 4, 8)          # users a CTA the fold mode also times (0: cluster body)
+LT_EV = 64                         # chip_smoke.py phase 20 (a): users whose rows the events hit
 
 
 def read_phases(lib, reader: str, n_cta: int, first: int = 0) -> np.ndarray:
@@ -163,6 +191,15 @@ def read_phases(lib, reader: str, n_cta: int, first: int = 0) -> np.ndarray:
 def report(name: str, rows: np.ndarray) -> None:
     begin, end = rows[:, SLOTS], rows[:, SLOTS + 1]
     done = end > 0                       # absent users' CTAs leave early
+    # a CTA that leaves early keeps an earlier launch's row: keep the rows
+    # of the last launch, the CTAs that overlap in time with its last start
+    first = begin[done].max() if done.any() else 0
+    while done.any():
+        nxt = begin[done & (end >= first)].min()
+        if nxt == first:
+            break
+        first = nxt
+    done &= end >= first
     rows, begin, end = rows[done], begin[done], end[done]
     last = int(np.argmax(end))
     cycles = rows[:, :SLOTS].sum(1)
@@ -178,6 +215,25 @@ def report(name: str, rows: np.ndarray) -> None:
         col = rows[:, k]
         print(f"  {phase:18s} mean {col.mean():9.0f}  max {col.max():9d}  "
               f"last CTA {col[last]:9d} cycles")
+
+
+def event_ms(fn, iters: int = 30) -> float:
+    """Median over ``iters`` calls of a call's CUDA-event time, its host
+    work included (chip_smoke.py's ``ms``), after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def device_ms(fn, n: int = 20) -> float:
@@ -675,11 +731,12 @@ def large_tau(lib, plain, dev, rng, n_sm) -> None:
                   "sdim_fused_serve_large_tau_phases", gather_ctas(G))
 
 
-def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
+def clock(lib, plain, name, fn, reader, n_cta, also=(), apart=()) -> None:
     """Phase cycles of one launch after three warm-up launches (``also``:
     (name, CTAs, first row) of a second kernel the call launches, reported
-    from the same reader), the device time a launch without the clocks, and
-    the wrapper's host time a call."""
+    from the same reader; ``apart``: (label, CTA indices) of CTAs also
+    reported on their own), the device time a launch without the clocks,
+    and the wrapper's host time a call."""
     import torch
     from repro_torch.kernels import _build
 
@@ -688,7 +745,10 @@ def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
     torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
-    report(name, read_phases(lib, reader, n_cta))
+    rows = read_phases(lib, reader, n_cta)
+    report(name, rows)
+    for label, ctas in apart:
+        report(f"{name} {label}", rows[ctas])
     for other, n, first in also:
         report(other, read_phases(lib, reader, n, first))
     _build._lib = plain          # the port's library: device time, no clocks
@@ -701,6 +761,144 @@ def clock(lib, plain, name, fn, reader, n_cta, also=()) -> None:
         host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
     print(f"  wrapper host time a call: median {1e6 * np.median(host):.1f} us")
+
+
+def fold_inputs(torch, dev, rng, n, l, d):
+    """Folded users as chip_smoke.py phase 3 draws them: q (n, 1, d), seq
+    (n, l, d), valid rows first (top-k order) with 0..l of them, the first
+    user none and the second all."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    q = t(rng.standard_normal((n, 1, d)).astype(np.float32))
+    seq = t(rng.standard_normal((n, l, d)).astype(np.float32))
+    found = rng.integers(0, l + 1, n)
+    found[:2] = (0, l)
+    return q, seq, t((np.arange(l)[None] < found[:, None]).astype(np.float32))
+
+
+def smoke_bursts() -> dict:
+    """chip_smoke.py phase 20 (a)'s event bursts, replayed: its generator
+    (seed 20) drawn in its order up to each burst (R, the served users'
+    histories and candidates, the store's histories), as numpy arrays
+    {(d, tau): (R, slots, events, mask)}; 16 batch rows of E = 16 screened
+    events on random slots of LT_EV users, 20% of events masked, row 0
+    wholly. The store's rows are not replayed (a fold's time does not
+    depend on them)."""
+    from repro_torch.kernels.screen import screened_normal
+
+    rng, out = np.random.default_rng(20), {}
+    for d in (D, 36):
+        for tau, m in LT_SHAPES if d == D else LT_SHAPES[:2]:
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            screened_normal(rng, (B, L, d), R)                      # the served histories
+            valid = np.arange(L)[None] >= rng.integers(0, L // 2, B)[:, None]
+            screened_normal(rng, (B, C, d), R)                      # the candidates
+            for b in range(B - 1):                                  # half of them own rows
+                rng.choice(np.flatnonzero(valid[b]), C // 2)
+            if tau == 1:
+                continue
+            screened_normal(rng, (LT_EV, L, d), R)                  # the store's histories
+            slots = rng.integers(0, LT_EV, B).astype(np.int32)
+            events = screened_normal(rng, (B, E, d), R)
+            mask = (rng.random((B, E)) > 0.2).astype(np.float32)
+            mask[0] = 0.0
+            out[d, tau] = (R, slots, events, mask)
+    return out
+
+
+def distinct_slots(slots: np.ndarray) -> np.ndarray:
+    """``slots`` with every repeat of a slot moved to a slot no row uses."""
+    out, free = slots.copy(), iter(sorted(set(range(LT_EV)) - set(slots.tolist())))
+    seen = set()
+    for b, s in enumerate(slots.tolist()):
+        if s in seen:
+            out[b] = next(free)
+        seen.add(s)
+    return out
+
+
+def fold_times(src: str) -> int:
+    """``fold`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.abspath(src))
+    from functools import partial
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sdim_update import sdim_update as ku
+    from repro_torch.kernels.target_attn import target_attn as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"target_attention_flash (folded shapes) and sdim_update (large tau) with the port at "
+          f"{os.path.abspath(src)}")
+    rounds = lambda fn: [device_ms(fn) for _ in range(3)]
+    line = lambda ms: (f"{ms[0]:.4f} {ms[1]:.4f} {ms[2]:.4f} (median {sorted(ms)[1]:.4f})")
+    has_fold = hasattr(ta, "forward_split")
+    clocked = []                     # (name, fn, reader, CTAs, apart): the phase cycles
+    for name, (n, l, d) in FOLD_SHAPES.items():
+        q, seq, mask = fold_inputs(torch, dev, np.random.default_rng(35), n, l, d)
+        fn = partial(ta.target_attention_flash, q, seq, mask)
+        err = float((fn() - ta.target_attention_flash_ref(q, seq, mask)).abs().max())
+        print(f"target_attention_flash {name} ({n} users, L={l}, C=1, d={d}): device ms a launch "
+              f"{line(rounds(fn))}; max abs err {err:.3g}")
+        if has_fold:                 # each CTA shape of the folded body, and the cluster body
+            lib, out = _build.load(), torch.empty_like(q)
+
+            def shaped(upc):
+                err = lib.sdim_target_attention(q.data_ptr(), seq.data_ptr(), 0, mask.data_ptr(),
+                                                out.data_ptr(), n, l, 1, d, ta._scale(d), upc,
+                                                _build.stream(dev))
+                _build.check(err, "target_attention_flash")
+
+            upc = ta.forward_split(n, l, 1, _build.sm_count(dev))
+            by = {u: sorted(rounds(partial(shaped, u)))[1] for u in FOLD_USERS + (0,)}
+            print(f"  the wrapper's users a CTA: {upc}; device ms by users a CTA (0: the cluster "
+                  f"body): { {k: round(v, 4) for k, v in by.items()} }")
+            clocked.append((f"target_attention_folded {name}", fn,
+                            "sdim_target_attention_phases", -(-n // upc), ()))
+    b, l, c, d = FOLD_MAIN
+    q = torch.randn((b, c, d), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    seq, mask = fold_inputs(torch, dev, np.random.default_rng(36), b, l, d)[1:]
+    fn = partial(ta.target_attention_flash, q, seq, mask)
+    print(f"target_attention_flash main burst (B={b}, L={l}, C={c}, d={d}): device ms a launch "
+          f"{line(rounds(fn))}; max abs err "
+          f"{float((fn() - ta.target_attention_flash_ref(q, seq, mask)).abs().max()):.3g}")
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    bursts = smoke_bursts()
+    for d in (D, 36):
+        for tau, m in LT_SHAPES[:2]:
+            R, drawn, events, mask = (t(x) for x in bursts[d, tau])
+            G = m // tau
+            store = t(np.random.default_rng(37).standard_normal((LT_EV, G, 1 << tau, d))
+                      .astype(np.float32))
+            for label, slots in (("chip_smoke's draw", bursts[d, tau][1]),
+                                 ("duplicates moved", distinct_slots(bursts[d, tau][1]))):
+                args = (t(slots), events, mask, R, tau)
+                err = float((ku.sdim_update(store.clone(), *args)
+                             - ku.sdim_update_ref(store.clone(), *args)).abs().max())
+                fn = partial(ku.sdim_update, store, *args)
+                rows = {b: int((slots == s).sum()) for b, s in enumerate(slots.tolist())
+                        if s not in slots[:b]}
+                owners = {b: n for b, n in rows.items() if n > 1}
+                print(f"sdim_update large tau tau={tau} m={m} d={d}, {label} (B={B}, E={E}, "
+                      f"{len(rows)} slots; owners of several rows, b: rows {owners}): device ms a "
+                      f"launch {line(rounds(fn))}; event ms a call (host work included) "
+                      f"{line([event_ms(fn) for _ in range(3)])}; max abs err {err:.3g}")
+                if d == D:
+                    apart = tuple((f"owner of {n} rows (b={b})", [g * B + b for g in range(G)])
+                                  for b, n in owners.items())
+                    clocked.append((f"sdim_update_lt tau={tau} m={m} d={d} {label}", fn,
+                                    "sdim_update_large_tau_phases", B * G, apart))
+    if has_fold:                     # the phase cycles (the marks are this port's)
+        plain = _build.load()
+        clocks = _build.bind(_build.build(("-DSDIM_PHASE_CLOCKS",)))
+        for name, fn, reader, n_cta, apart in clocked:
+            _build._lib = clocks
+            clock(clocks, plain, name, fn, reader, n_cta, apart=apart)
+        _build._lib = plain
+    return 0
 
 
 # training-step modes: (label, interest kind, interest settings) of each model
@@ -775,4 +973,6 @@ if __name__ == "__main__":
         sys.exit(query_times(src))
     if mode == "bwd_wide":
         sys.exit(bwd_wide_times(src))
+    if mode == "fold":
+        sys.exit(fold_times(src))
     sys.exit(main())

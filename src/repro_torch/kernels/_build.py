@@ -41,11 +41,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_update": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
     "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _P],
+    "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _I, _P],
     "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
     "sdim_query_backward": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention_backward": [_P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 4

@@ -514,12 +514,11 @@ cudaError_t launch_query_backward_large_tau(const float* dout, const float* q,
                                             cudaStream_t stream);
 
 // events (B, E, d) fp32|bf16 with mask (B, E) folded into the rows slots (B,)
-// of the fp32 store (N, G, U, d) in place; sig (B, E, G) int32 scratch
-// (sdim_update.cu's function).
+// of the fp32 store (N, G, U, d) in place, E up to 8,192 (sdim_update.cu's
+// function).
 cudaError_t launch_update_large_tau(float* store, const int* slots, const void* events,
-                                   int ev_dtype, const float* mask, const float* R, int* sig,
-                                   int B, int E, int G, int U, int d, int tau,
-                                   cudaStream_t stream);
+                                   int ev_dtype, const float* mask, const float* R, int B, int E,
+                                   int G, int U, int d, int tau, cudaStream_t stream);
 
 // store (N, G, U, d) fp32|bf16|int8|fp8 [+ scales (N, G, U)], slots (B,),
 // present (B,) or null, q (B, C, d) -> out (B, C, d) fp32

@@ -10,66 +10,148 @@
 // d in each group, so a fold reads and writes at most E*G rows a batch row
 // (32 KB here, against the 2 MiB of a whole fp32 store row) and reads the
 // events, against 2*E*m*d FLOP of hashing: under a microsecond of bytes, so
-// latency sets its time.
+// latency sets its time: the design keeps a CTA's chain to three waits on
+// device memory (the slots, the events, the cells).
 //
-// Design (simple first). The grid is (B, G): CTA (b, g) works on group g of
-// store row slots[b]. The tau <= 4 contracts hold (sdim_update.cu):
-// - One owner per slot. A CTA exits at once if an earlier batch row has the
-//   same slot; otherwise it lists the batch rows b' >= b with that slot in b
-//   order, a window of kLargeTauThreads rows at a time (a ballot and a count
-//   per warp), and folds them all. No two CTAs write one element; no atomics.
-// - Hash. Eight lanes an event (bucket_of, the bits bse_encode's large-tau
-//   path gives the same behavior), 32 events a round, for group g only; each
-//   event's bucket, or -1 where its weight is 0, goes to the scratch sig
-//   (B, E, G) int32 in device memory, which only this CTA writes at (its
-//   owned rows, g) and reads back after a barrier (the window's events need
-//   not fit shared memory, whatever E).
-// - The cells reached. Thread t < U/32 ORs into its word the bits of the
-//   buckets [32t, 32t + 32) that a weighted event of the window reached; a
-//   warp prefix-sums the words' popcounts and lists the reached buckets in u
-//   order in shared memory (at most min(U, events of the window)).
-// - Fold. Eight lanes a reached cell (lane part: float4 columns part,
-//   part + 8, ...; 32 cells a round): start from the stored cell, and for
-//   each owned row in b order sum that row's events of the cell in e order
-//   (fmaf(w, x, delta), as the tau <= 4 kernel), add the row's sum to the
-//   running total, and write the cell back once. A cell no weighted event
-//   reached is neither read nor written, so it keeps its bits (-0.0
-//   included); a row whose mask is all zero reaches none.
-// - A later window starts from the cells the earlier one wrote: the same
+// Design. The grid is (B, G): CTA (b, g) works on group g of store row
+// slots[b]. The tau <= 4 contracts hold (sdim_update.cu):
+// - One owner per slot. A CTA leaves if an earlier batch row has the same
+//   slot; otherwise it lists the batch rows b' >= b with that slot in b
+//   order, a window of kUpdateRows rows at a time (a ballot and a count per
+//   warp), and folds them all, in sub-windows of W = max(1, kUpdateEvents /
+//   E) owned rows (at most max(E, kUpdateEvents) events). No two CTAs write
+//   one element; no atomics.
+// - Staging. Group g's tau rows of R are copied into shared memory
+//   (cp.async) while the slots (the earlier rows' and the first window's)
+//   and row b's first events and weights (the owner's first row is b
+//   itself; a team's event in registers) are loaded, so the hash does not
+//   wait for the owner list. Two CTAs an SM (at most 128 registers a
+//   thread): phase 20's 144 CTAs at tau 5 run in one wave. (Staging row
+//   b's events, weights and the window's slots by cp.async instead, or
+//   hashing two events a team, was no faster on the H100.)
+// - Hash. Eight lanes an event (bucket_rows: bucket_of's bits, the bits
+//   bse_encode's large-tau path gives the same behavior), 32 events a
+//   round, a warp with no event left skipping it; each event's bucket, or
+//   -1 where its weight is 0, and its weight go to shared memory.
+// - Counting sort (warp 0, 32 events a round, no atomics): __match_any_sync
+//   finds a round's events of one bucket; each event's rank among its
+//   bucket's events is the bucket's count so far plus its lanes below, and
+//   the round's lowest lane of a bucket adds the round's count; a bucket
+//   whose count was 0 is a new cell (cells in order of their first event).
+//   The cells' counts are prefix-summed into starts, and each event is
+//   written to start + rank: every cell's list of events in (b, e) order.
+//   A sub-window of at most 32 events (E = 16: one or two owned rows)
+//   sorts in one round with every count, rank and start in registers, the
+//   same lists (0.0003-0.0006 ms a launch faster on the H100 than the
+//   general rounds at chip_smoke.py phase 20 (a)'s bursts: PERF.md).
+// - Fold. Eight lanes a cell (lane part: float4 columns part, part + 8,
+//   ...; 32 cells a round): the stored cell and up to kUpdateInFlight of
+//   its events are loaded together; each owned row's events of the cell
+//   are summed in e order (fmaf(w, x, delta), as the tau <= 4 kernel), the
+//   row's sum is added to the running total in b order, and the cell is
+//   written back once a sub-window. A cell no weighted event reached is
+//   neither read nor written, so it keeps its bits (-0.0 included); a row
+//   whose mask is all zero reaches none. (A row with no event in a cell
+//   adds +0, which leaves every total but -0.0 as it is, and a reached
+//   cell's -0.0 meets its first row's sum, never -0.0, first: skipping such
+//   rows gives the same bits.)
+// - A later sub-window starts from the cells the earlier one wrote: the same
 //   CTA, ordered by a barrier.
-// Takes tau 5..10, d a multiple of 4 up to 128, events fp32 or bf16, E of
-// any size; the store is updated in place.
+// Takes tau 5..10, d a multiple of 4 up to 128, events fp32 or bf16, E up to
+// kUpdateMaxE (sdim_update.py UPDATE_LT_MAX_E: a sub-window's buckets,
+// weights and lists in shared memory); the store is updated in place.
+// Phase clocks (phase_clocks.py fold): the loads and copies (until R and
+// row b's events land), the owner barrier, the owner list, the hash, its
+// barrier, the sort (+ barrier), the fold (cell and event loads, sums,
+// stores, barrier).
 #include "large_tau.cuh"
 
 namespace sdim {
 
-constexpr int kUpdateRows = kLargeTauThreads;                   // batch rows a window lists
-constexpr int kUpdateCells = kLargeTauThreads / kEncodeHashLanes;  // cells folded a round
+constexpr int kUpdateRows = kLargeTauThreads;    // batch rows a window lists
+constexpr int kUpdateTeams = kLargeTauThreads / kEncodeHashLanes;  // events hashed a round
+constexpr int kUpdateEvents = kLargeTauThreads;  // events a sub-window holds at E <= 256
+constexpr int kUpdateInFlight = 4;               // a cell's event loads issued together
+constexpr int kUpdateMaxE = 8192;                // sdim_update.py UPDATE_LT_MAX_E
 
-template <typename T>
-__global__ void __launch_bounds__(kLargeTauThreads)
+// Dynamic shared memory: R's rows of the group, the window's owned rows,
+// a sub-window's buckets, weights, ranks and sorted events, a count (then a
+// start) a bucket, and each cell's bucket, start and count.
+__host__ __device__ inline int update_cap(int E) {
+  return E > kUpdateEvents ? E : kUpdateEvents;
+}
+__host__ __device__ inline int update_cells(int E, int U) {
+  return update_cap(E) < U ? update_cap(E) : U;
+}
+
+struct UpdateLayout {
+  size_t rows, key, w, rank, sorted, cnt, cell, total;
+};
+__host__ __device__ inline UpdateLayout update_layout(int E, int U, int d, int tau) {
+  const size_t cap = update_cap(E), cells = update_cells(E, U);
+  UpdateLayout s;
+  s.rows = sizeof(float) * tau * d;
+  s.key = s.rows + sizeof(int) * kUpdateRows;
+  s.w = s.key + sizeof(int) * cap;
+  s.rank = s.w + sizeof(float) * cap;
+  s.sorted = s.rank + sizeof(int) * cap;
+  s.cnt = s.sorted + sizeof(int) * cap;
+  s.cell = s.cnt + sizeof(int) * U;
+  s.total = s.cell + sizeof(int) * 3 * cells;
+  return s;
+}
+
+template <typename T, int TAU>
+__global__ void __launch_bounds__(kLargeTauThreads, 2)
     update_large_tau_kernel(float* __restrict__ store, const int* __restrict__ slots,
                             const T* __restrict__ events, const float* __restrict__ mask,
-                            const float* __restrict__ R, int* sig, int B, int E, int G, int U,
-                            int d, int tau) {
-  __shared__ int list_s[kUpdateRows];                    // the window's owned batch rows
+                            const float* __restrict__ R, int B, int E, int G, int d) {
+  constexpr int U = 1 << TAU;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const UpdateLayout lay = update_layout(E, U, d, TAU);
+  float* r_s = reinterpret_cast<float*>(smem);
+  int* rows_s = reinterpret_cast<int*>(smem + lay.rows);  // the window's owned batch rows
+  int* key_s = reinterpret_cast<int*>(smem + lay.key);    // an event's bucket, -1: none
+  float* w_s = reinterpret_cast<float*>(smem + lay.w);
+  int* rank_s = reinterpret_cast<int*>(smem + lay.rank);  // among its bucket's events
+  int* sorted_s = reinterpret_cast<int*>(smem + lay.sorted);
+  int* cnt_s = reinterpret_cast<int*>(smem + lay.cnt);    // a bucket's count, then start
+  int* cell_key = reinterpret_cast<int*>(smem + lay.cell);  // each cell's bucket, start, count
+  int* cell_start = cell_key + update_cells(E, U);
+  int* cell_count = cell_start + update_cells(E, U);
   __shared__ int count_s[kLargeTauThreads / 32];
-  __shared__ int reached_s[1 << kLargeTauMax];           // the reached buckets, in u order
-  __shared__ int n_reached_s;
+  __shared__ int n_cells_s;
   const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x, nq = d / 4;
-  const int part = tid % kEncodeHashLanes, warp = tid / 32, lane = tid % 32;
-  const int n_warps = blockDim.x / 32, words = U / 32;
+  const int part = tid % kEncodeHashLanes, team = tid / kEncodeHashLanes;
+  const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
+  PHASE_BEGIN();
+
+  // R's rows of group g, row b's first events and their weights, the slot
+  // and the slots of the first window, all in flight at once
+  const int n_pre = E < kUpdateTeams ? E : kUpdateTeams;  // row b's events a team holds
+  for (int i = tid; i < TAU * d / 4; i += blockDim.x)
+    cp_async16(r_s + 4 * i, R + (size_t)g * TAU * d + 4 * i, 16);
+  cp_async_commit();
+  float4 xpre[1][kLargeTauCols];
+  load_cols(xpre[0], events + ((size_t)b * E + (team < n_pre ? team : 0)) * d, nq, team < n_pre);
+  const float wpre = team < n_pre ? __ldg(mask + (size_t)b * E + team) : 0.f;
   const int slot = __ldg(slots + b);
+  const int first_slot = b + tid < B ? __ldg(slots + b + tid) : -1;
+  for (int u = tid; u < U; u += blockDim.x) cnt_s[u] = 0;
   bool earlier = false;
   for (int i = tid; i < b; i += blockDim.x) earlier |= __ldg(slots + i) == slot;
+  cp_async_wait<0>();  // R, before the barriers that publish it (or the CTA leaves)
+  PHASE_MARK(0);
   if (__syncthreads_or(earlier)) return;  // an earlier batch row owns the slot
+  PHASE_MARK(1);
 
-  const float* r = R + (size_t)g * tau * d;
   float* row = store + ((size_t)slot * G + g) * U * d;  // group g of the store row
+  const int W = E < kUpdateEvents ? kUpdateEvents / E : 1;  // owned rows a sub-window
   for (int p = b; p < B; p += kUpdateRows) {
     // the window's batch rows with this slot, in b order
     const int i = p + tid;
-    const bool mine = i < B && __ldg(slots + i) == slot;
+    const bool mine = i < B && (p == b ? first_slot : __ldg(slots + i)) == slot;
     const unsigned ballot = __ballot_sync(0xffffffffu, mine);
     if (lane == 0) count_s[warp] = __popc(ballot);
     __syncthreads();
@@ -79,113 +161,222 @@ __global__ void __launch_bounds__(kLargeTauThreads)
       before += v < warp ? c : 0;
       count += c;
     }
-    if (mine) list_s[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+    if (mine) rows_s[before + __popc(ballot & ((1u << lane) - 1u))] = i;
     __syncthreads();
-    if (count == 0) continue;  // the same for every thread
+    PHASE_MARK(2);
+    auto event = [&](int s0, int k) -> const T* {  // event k of a sub-window
+      return events + ((size_t)rows_s[s0 + k / E] * E + k % E) * d;
+    };
 
-    // each owned event's bucket in group g, -1 where its weight is 0
-    const int n = count * E;
-    for (int base = 0; base < n; base += kUpdateCells) {  // the same trip count for all
-      const int k = min(base + tid / kEncodeHashLanes, n - 1);
-      const int bb = list_s[k / E], e = k % E;
-      const bool live = base + tid / kEncodeHashLanes < n;
-      const float w = live ? mask[(size_t)bb * E + e] : 0.f;
-      const int u = bucket_of(events + ((size_t)bb * E + e) * d, r, d, tau, w != 0.f);
-      if (live && part == 0) sig[((size_t)bb * E + e) * G + g] = w != 0.f ? u : -1;
-    }
-    __syncthreads();  // the window's buckets written and visible to the CTA
+    for (int s0 = 0; s0 < count; s0 += W) {  // the same trip counts for every thread
+      const int n = min(W, count - s0) * E;
 
-    // the reached buckets: a word of 32 a thread, then listed in u order
-    unsigned word = 0;
-    if (tid < words)
-      for (int k = 0; k < n; ++k) {
-        const int u = sig[((size_t)list_s[k / E] * E + k % E) * G + g];
-        if (u >= 0 && u / 32 == tid) word |= 1u << (u % 32);
-      }
-    if (warp == 0) {  // words <= 32: all in warp 0
-      const int c = __popc(word);
-      int incl = c;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      int at = incl - c;
-      for (unsigned w = word; w != 0u; w &= w - 1u) reached_s[at++] = lane * 32 + __ffs(w) - 1;
-      if (lane == 31) n_reached_s = incl;
-    }
-    __syncthreads();
-
-    // fold: eight lanes a reached cell, its events row by row in b order
-    const int n_reached = n_reached_s;
-    for (int base = 0; base < n_reached; base += kUpdateCells) {
-      const int k = base + tid / kEncodeHashLanes;
-      if (k >= n_reached) break;
-      const int u = reached_s[k];
-      float* cell = row + (size_t)u * d;
-      float4 acc[kLargeTauCols];
+      // hash: each event's bucket (-1 where its weight is 0) and weight; a
+      // warp with no event left skips the round
+      for (int base = 0; base < n; base += kUpdateTeams) {
+        if (base + 4 * warp >= n) continue;  // the whole warp
+        const int k = base + team;
+        const bool live = k < n;
+        float4 x[1][kLargeTauCols];
+        float w;
+        if (p == b && s0 == 0 && k < n_pre) {  // row b's, loaded at the start
 #pragma unroll
-      for (int j = 0; j < kLargeTauCols; ++j) {
-        const int k4 = part + j * kEncodeHashLanes;
-        acc[j] = k4 < nq ? load4(cell + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int j = 0; j < kLargeTauCols; ++j) x[0][j] = xpre[0][j];
+          w = wpre;
+        } else {
+          load_cols(x[0], event(s0, live ? k : 0), nq, live);
+          w = live ? __ldg(mask + (size_t)rows_s[s0 + k / E] * E + k % E) : 0.f;
+        }
+        int u[1];
+        bucket_rows<TAU, 1>(x, r_s, d, u);
+        if (live && part == 0) {
+          key_s[k] = w != 0.f ? u[0] : -1;
+          w_s[k] = w;
+        }
       }
-      for (int s = 0; s < count; ++s) {
-        const int bb = list_s[s];
-        float4 delta[kLargeTauCols];
+      PHASE_MARK(3);
+      __syncthreads();  // the sub-window's buckets and weights
+      PHASE_MARK(4);
+
+      // counting sort by bucket (warp 0): ranks and counts, the cells in
+      // order of their first event, their starts, the sorted events
+      if (warp == 0 && n <= 32) {  // one round: counts, ranks and starts in registers
+        const unsigned below = (1u << lane) - 1u;
+        const int key = lane < n ? key_s[lane] : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, key);
+        const bool first = key >= 0 && (peers & below) == 0u;
+        const unsigned firsts = __ballot_sync(0xffffffffu, first);
+        const int cnt = first ? __popc(peers) : 0;
+        int incl = cnt;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const int start = __shfl_sync(0xffffffffu, incl - cnt, __ffs(peers) - 1);
+        if (key >= 0) sorted_s[start + __popc(peers & below)] = lane;
+        if (first) {
+          const int c = __popc(firsts & below);
+          cell_key[c] = key;
+          cell_start[c] = start;
+          cell_count[c] = cnt;
+        }
+        if (lane == 0) n_cells_s = __popc(firsts);
+      } else if (warp == 0) {
+        const unsigned below = (1u << lane) - 1u;
+        int nc = 0;
+        for (int k0 = 0; k0 < n; k0 += 32) {
+          const int k = k0 + lane;
+          const int key = k < n ? key_s[k] : -1;
+          const unsigned peers = __match_any_sync(0xffffffffu, key);
+          const bool lead = (peers & below) == 0u;  // the round's lowest lane of its bucket
+          const int had = key >= 0 ? cnt_s[key] : 0;
+          const bool first = key >= 0 && lead && had == 0;
+          const unsigned firsts = __ballot_sync(0xffffffffu, first);
+          if (first) cell_key[nc + __popc(firsts & below)] = key;
+          nc += __popc(firsts);
+          if (k < n) rank_s[k] = had + __popc(peers & below);
+          __syncwarp();  // every count read before the round's writes
+          if (key >= 0 && lead) cnt_s[key] = had + __popc(peers);
+          __syncwarp();
+        }
+        int start = 0;
+        for (int c0 = 0; c0 < nc; c0 += 32) {
+          const int c = c0 + lane;
+          const int key = c < nc ? cell_key[c] : 0;
+          const int cnt = c < nc ? cnt_s[key] : 0;
+          int incl = cnt;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += v;
+          }
+          if (c < nc) {
+            cell_start[c] = start + incl - cnt;
+            cell_count[c] = cnt;
+          }
+          start += __shfl_sync(0xffffffffu, incl, 31);
+        }
+        __syncwarp();
+        for (int c = lane; c < nc; c += 32) cnt_s[cell_key[c]] = cell_start[c];
+        __syncwarp();
+        for (int k = lane; k < n; k += 32) {
+          const int key = key_s[k];
+          if (key >= 0) sorted_s[cnt_s[key] + rank_s[k]] = k;
+        }
+        if (lane == 0) n_cells_s = nc;
+      }
+      __syncthreads();  // the cells and their lists
+      PHASE_MARK(5);
+
+      // fold: eight lanes a cell, its events in (b, e) order
+      const int n_cells = n_cells_s;
+      for (int c0 = 0; c0 < n_cells; c0 += kUpdateTeams) {
+        const int c = c0 + team;
+        if (c >= n_cells) break;
+        const int u = cell_key[c], start = cell_start[c], cnt = cell_count[c];
+        float* cell = row + (size_t)u * d;
+        float4 acc[kLargeTauCols], delta[kLargeTauCols];
+        load_cols(acc, cell, nq, true);
+        int ks[kUpdateInFlight];
+        float4 xs[kUpdateInFlight][kLargeTauCols];
+#pragma unroll
+        for (int v = 0; v < kUpdateInFlight; ++v) {  // the first events, with the cell
+          ks[v] = v < cnt ? sorted_s[start + v] : 0;
+          load_cols(xs[v], event(s0, ks[v]), nq, v < cnt);
+        }
 #pragma unroll
         for (int j = 0; j < kLargeTauCols; ++j) delta[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int e = 0; e < E; ++e) {
-          if (sig[((size_t)bb * E + e) * G + g] != u) continue;
-          const float w = mask[(size_t)bb * E + e];
-          const T* x = events + ((size_t)bb * E + e) * d;
+        int cur = ks[0] / E;  // the owned row whose events delta sums
+        for (int v0 = 0; v0 < cnt; v0 += kUpdateInFlight) {
+          if (v0 > 0) {
 #pragma unroll
-          for (int j = 0; j < kLargeTauCols; ++j) {
-            const int k4 = part + j * kEncodeHashLanes;
-            if (k4 < nq) delta[j] = axpy4(w, load4(x + 4 * k4), delta[j]);
+            for (int v = 0; v < kUpdateInFlight; ++v) {
+              ks[v] = v0 + v < cnt ? sorted_s[start + v0 + v] : 0;
+              load_cols(xs[v], event(s0, ks[v]), nq, v0 + v < cnt);
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < kUpdateInFlight; ++v) {
+            if (v0 + v >= cnt) break;
+            const int s = ks[v] / E;
+            if (s != cur) {  // the row's sum, to the running total
+#pragma unroll
+              for (int j = 0; j < kLargeTauCols; ++j) {
+                acc[j] = make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
+                                     acc[j].z + delta[j].z, acc[j].w + delta[j].w);
+                delta[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+              }
+              cur = s;
+            }
+            const float w = w_s[ks[v]];
+#pragma unroll
+            for (int j = 0; j < kLargeTauCols; ++j) delta[j] = axpy4(w, xs[v][j], delta[j]);
           }
         }
 #pragma unroll
-        for (int j = 0; j < kLargeTauCols; ++j)  // the row's sum, to the running total
-          acc[j] = make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
-                               acc[j].z + delta[j].z, acc[j].w + delta[j].w);
+        for (int j = 0; j < kLargeTauCols; ++j) {
+          const int k4 = part + j * kEncodeHashLanes;
+          if (k4 < nq)
+            store4(cell + 4 * k4,
+                   make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
+                               acc[j].z + delta[j].z, acc[j].w + delta[j].w));
+        }
+        if (part == 0) cnt_s[u] = 0;  // the bucket's count, for the next sub-window
       }
-#pragma unroll
-      for (int j = 0; j < kLargeTauCols; ++j) {
-        const int k4 = part + j * kEncodeHashLanes;
-        if (k4 < nq) store4(cell + 4 * k4, acc[j]);
-      }
+      __syncthreads();  // the cells written, the lists free for the next sub-window
+      PHASE_MARK(6);
     }
-    __syncthreads();  // the cells written, list_s and reached_s free for the next window
   }
+  PHASE_END();
 }
 
-template <typename T>
+template <typename T, int TAU>
 static cudaError_t update_large_tau(float* store, const int* slots, const void* events,
-                                    const float* mask, const float* R, int* sig, int B, int E,
-                                    int G, int U, int d, int tau, cudaStream_t stream) {
-  update_large_tau_kernel<T><<<dim3(B, G), kLargeTauThreads, 0, stream>>>(
-      store, slots, static_cast<const T*>(events), mask, R, sig, B, E, G, U, d, tau);
+                                    const float* mask, const float* R, int B, int E, int G,
+                                    int d, cudaStream_t stream) {
+  const size_t smem = update_layout(E, 1 << TAU, d, TAU).total;
+  const auto kernel = update_large_tau_kernel<T, TAU>;
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B, G), kLargeTauThreads, smem, stream>>>(
+      store, slots, static_cast<const T*>(events), mask, R, B, E, G, d);
   return cudaGetLastError();
 }
 
+template <typename T>
+static cudaError_t update_large_tau_t(float* store, const int* slots, const void* events,
+                                      const float* mask, const float* R, int B, int E, int G,
+                                      int d, int tau, cudaStream_t stream) {
+  switch (tau) {
+    case 5: return update_large_tau<T, 5>(store, slots, events, mask, R, B, E, G, d, stream);
+    case 6: return update_large_tau<T, 6>(store, slots, events, mask, R, B, E, G, d, stream);
+    case 7: return update_large_tau<T, 7>(store, slots, events, mask, R, B, E, G, d, stream);
+    case 8: return update_large_tau<T, 8>(store, slots, events, mask, R, B, E, G, d, stream);
+    case 9: return update_large_tau<T, 9>(store, slots, events, mask, R, B, E, G, d, stream);
+    case 10: return update_large_tau<T, 10>(store, slots, events, mask, R, B, E, G, d, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t launch_update_large_tau(float* store, const int* slots, const void* events,
-                                   int ev_dtype, const float* mask, const float* R, int* sig,
-                                   int B, int E, int G, int U, int d, int tau,
-                                   cudaStream_t stream) {
-  if (B < 0 || E < 0 || G <= 0 || G > 65535 || tau < kLargeTauMin || tau > kLargeTauMax ||
-      U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128)
+                                   int ev_dtype, const float* mask, const float* R, int B, int E,
+                                   int G, int U, int d, int tau, cudaStream_t stream) {
+  if (B < 0 || E < 0 || E > kUpdateMaxE || G <= 0 || G > 65535 || tau < kLargeTauMin ||
+      tau > kLargeTauMax || U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128)
     return cudaErrorInvalidValue;
   if (B == 0 || E == 0) return cudaSuccess;
-  if (sig == nullptr) return cudaErrorInvalidValue;
   switch (ev_dtype) {
     case kF32:
-      return update_large_tau<float>(store, slots, events, mask, R, sig, B, E, G, U, d, tau,
-                                     stream);
+      return update_large_tau_t<float>(store, slots, events, mask, R, B, E, G, d, tau, stream);
     case kBF16:
-      return update_large_tau<__nv_bfloat16>(store, slots, events, mask, R, sig, B, E, G, U, d,
-                                             tau, stream);
+      return update_large_tau_t<__nv_bfloat16>(store, slots, events, mask, R, B, E, G, d, tau,
+                                               stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace sdim
+
+PHASE_READER(sdim_update_large_tau_phases)

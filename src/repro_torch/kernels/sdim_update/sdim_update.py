@@ -12,11 +12,11 @@ batch row's signature groups over ``update_splits`` CTAs; the first batch
 row of each slot owns it and folds every batch row of that slot in b order,
 so no two CTAs write one element (no atomics) and two launches agree bit
 for bit. tau 5..10 (32..1,024 buckets a group) launch the large-tau path
-(``csrc/sdim_update_large_tau.cu``: a CTA a (batch row, group) reads and
-writes only the cells its slot's events reach, with the same contracts),
-which takes a scratch of the events' buckets (B, E, G) int32 from the
-wrapper. The kernel has no backward (it ingests): on CUDA the wrapper
-raises where autograd would record the call.
+(``csrc/sdim_update_large_tau.cu``: a CTA a (batch row, group) sorts its
+slot's events by bucket in shared memory and reads and writes only the
+cells they reach, with the same contracts; E up to ``UPDATE_LT_MAX_E``).
+The kernel has no backward (it ingests): on CUDA the wrapper raises where
+autograd would record the call.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, bse_encode_ref
 
 ITEMS = 2           # (cell, float4 column) sums a thread holds (sdim_update.cu kItems)
 THREADS = 256       # threads a CTA (sdim_common.cuh kThreads)
+UPDATE_LT_MAX_E = 8192   # events a batch row of the large-tau path (kUpdateMaxE)
 
 
 def sdim_update_ref(store: torch.Tensor, slots: torch.Tensor,
@@ -82,6 +83,9 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
     if not 1 <= tau <= MAX_TAU or d % 4 or not 4 <= d <= 128:
         raise ValueError(f"sdim_update: the kernel takes tau 1..{MAX_TAU} and d a multiple "
                          f"of 4 up to 128; got tau {tau}, d {d}")
+    if tau > 4 and E > UPDATE_LT_MAX_E:
+        raise ValueError(f"sdim_update: the large-tau path takes E up to {UPDATE_LT_MAX_E} "
+                         f"events a batch row; got {E}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:
         raise TypeError("sdim_update: the store must be float32")
@@ -91,14 +95,11 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise TypeError("sdim_update: mask and R must be float32")
     dev = _build.require_cuda("sdim_update", store, slots, events, mask, R)
     _build.require_aligned("sdim_update", store, events, R)
-    work = None
     if tau > 4:
         if splits is not None:
             raise ValueError("sdim_update: group slices are the tau <= 4 kernel's; the "
                              "large-tau path gives each (batch row, group) a CTA")
         splits = 1
-        if B and E:
-            work = torch.empty(B * E * G, dtype=torch.int32, device=dev)
     elif splits is None:
         splits = update_splits(B, G, U, d, _build.sm_count(dev))
     if tau <= 4 and (not 1 <= splits <= G or -(-G // splits) * U > update_cells(d)):
@@ -110,8 +111,8 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
     with _build.on_device(dev):
         err = lib.sdim_update(store.data_ptr(), slots.data_ptr(),
                               events.data_ptr(), code, mask.data_ptr(),
-                              R.data_ptr(), _build.ptr(work), B, E, G, U, d, m, tau,
-                              splits, _build.stream(dev))
+                              R.data_ptr(), B, E, G, U, d, m, tau, splits,
+                              _build.stream(dev))
     _build.check(err, "sdim_update")
     sdim_update.launches += 1
     return store

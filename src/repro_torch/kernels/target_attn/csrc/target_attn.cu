@@ -54,6 +54,39 @@
 // rows start off a 16-byte boundary where (b L d) is odd: stage_rows_async
 // copies them in 8-byte pieces to 8-byte aligned staged rows, which the
 // bf16 load4 (8 bytes) reads. The output is fp32 float4 columns.
+//
+// The folded body (C = 1, L <= kFoldMaxL: the retrieval kinds' 2,048
+// folded users of one candidate over k = 16..32 rows). The cluster body
+// spends a 256-thread CTA, a cp.async round trip and a cluster merge on
+// one candidate lane of 64 there, and its time (0.12 ms on the H100
+// against a 0.006 ms bound) is that chain of dependent steps. Bound: the
+// valid rows' bytes, once. Here a warp owns a whole user, `upc` users a
+// CTA (target_attn.py's forward_split), with no cluster and no block
+// barrier in a user's chain:
+// - q's columns and the user's mask are loaded at once; a ballot lists
+//   the rows to attend to in row order in the warp's slice of shared
+//   memory: the valid ones, or all L for a fully masked user (whose
+//   logits are all -1e30: uniform weights). A masked row of a user with a
+//   valid row weighs e^(-1e30 - m) = 0 exactly, so skipping it (and its
+//   bytes) leaves the result as it was; rows past L are never listed;
+// - the listed rows are taken in chunks of 4 K rows, K = 16 / J rows a
+//   lane (lane = 8 row group + part: rows rg, rg + 4, ... of the chunk,
+//   float4 columns part, part + 8, ... of each, J of them), loaded
+//   straight from device memory into registers, 16 (bf16: 8) bytes a
+//   load, all of a chunk's loads issued together: one chunk at the
+//   folded 32 rows up to d = 64, two at d = 128;
+// - logits by eight lanes a row (dot4 in column order, lane_group_sum),
+//   then the online softmax over the chunk: its max and the sum of its
+//   weights by shuffles over the four row groups, acc = acc * alpha + the
+//   sum over the lane's rows (in order) of p x;
+// - the four row groups' accumulators added by shuffles (xor 8, 16), and
+//   lanes 0..7 write acc / (den + 1e-30) once.
+// Any L from 0 to kFoldMaxL, d a multiple of 4 up to 256, fp32 or bf16
+// rows (8-byte loads: bf16 rows at d % 8 == 4 start on 8-byte
+// boundaries only). No atomics: two launches give the same bits.
+// Phase clocks (phase_clocks.py fold): the mask, q and the row list; the
+// chunks' row loads and logits; their softmax; their p x sums; the
+// row groups' merge and the store.
 #include <cooperative_groups.h>
 
 #include "tile_staging.cuh"
@@ -321,29 +354,182 @@ static cudaError_t launch(const float* q, const void* seq, const float* mask, fl
                          list_cap);
 }
 
+// ---------------------------------------------------------------------------
+// C = 1, short histories: the folded body (the header's design)
+// ---------------------------------------------------------------------------
+constexpr int kFoldMaxL = 64;     // rows a user of the folded body (target_attn.py TA_FOLD_MAX_L)
+constexpr int kFoldMaxUsers = kThreads / 32;  // users (warps) a CTA
+constexpr int kFoldRowLanes = 8;  // lanes a row
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kThreads)
+    target_attn_folded_kernel(const float* __restrict__ q, const T* __restrict__ seq,
+                              const float* __restrict__ mask, float* __restrict__ out, int B,
+                              int L, int d, float scale) {
+  constexpr int K = 16 / J;  // rows a lane holds at once (16 float4 registers)
+  __shared__ int list_s[kFoldMaxUsers][kFoldMaxL];  // a warp's rows to attend to, in order
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x * (blockDim.x / 32) + warp;
+  if (b >= B) return;  // the whole warp: no barrier follows
+  const int rg = lane / kFoldRowLanes, part = lane % kFoldRowLanes, nq = d / 4;
+  PHASE_BEGIN();
+
+  // q's columns and the mask, loaded together
+  float4 qv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int k4 = part + kFoldRowLanes * j;
+    qv[j] = k4 < nq ? load4(q + (size_t)b * d + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float* w = mask + (size_t)b * L;
+  float wv[kFoldMaxL / 32];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < kFoldMaxL / 32; ++i) {
+    const int l = 32 * i + lane;
+    wv[i] = l < L ? w[l] : 0.f;
+    any |= wv[i] > 0.f;
+  }
+  const bool none = !__any_sync(0xffffffffu, any);  // fully masked: every row, logits -1e30
+  int* list = list_s[warp];
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < kFoldMaxL / 32; ++i) {
+    const int l = 32 * i + lane;
+    const bool keep = l < L && (none || wv[i] > 0.f);
+    const unsigned kept = __ballot_sync(0xffffffffu, keep);
+    if (keep) list[n + __popc(kept & ((1u << lane) - 1u))] = l;
+    n += __popc(kept);
+  }
+  __syncwarp();
+  PHASE_MARK(0);
+
+  const T* x = seq + (size_t)b * L * d;
+  float m = kMaskedLogit, den = 0.f;
+  float4 acc[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < n; c0 += 4 * K) {  // the same trip count in every lane
+    float4 xv[K][J];
+    bool live[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int pos = c0 + 4 * k + rg;
+      live[k] = pos < n;
+      const T* row = x + (size_t)(live[k] ? list[pos] : 0) * d;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int k4 = part + kFoldRowLanes * j;
+        xv[k][j] = live[k] && k4 < nq ? load4(row + 4 * k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    float a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (part + kFoldRowLanes * j < nq) s = dot4(qv[j], xv[k][j], s);
+      s = lane_group_sum<kFoldRowLanes>(s);
+      a[k] = none ? kMaskedLogit : s * scale;
+    }
+    PHASE_MARK(1);
+    float mx = m;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (live[k]) mx = fmaxf(mx, a[k]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float alpha = expf(m - mx);
+    float p[K], sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      p[k] = live[k] ? expf(a[k] - mx) : 0.f;
+      sum += p[k];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    den = den * alpha + sum;
+    m = mx;
+    PHASE_MARK(2);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      acc[j] = scale4(acc[j], alpha);
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[j] = axpy4(p[k], xv[k][j], acc[j]);
+    }
+    PHASE_MARK(3);
+  }
+
+  // the four row groups' sums (xor 8, then 16), then lanes 0..7 write
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int o = 8; o < 32; o <<= 1) {
+      acc[j].x += __shfl_xor_sync(0xffffffffu, acc[j].x, o);
+      acc[j].y += __shfl_xor_sync(0xffffffffu, acc[j].y, o);
+      acc[j].z += __shfl_xor_sync(0xffffffffu, acc[j].z, o);
+      acc[j].w += __shfl_xor_sync(0xffffffffu, acc[j].w, o);
+    }
+  }
+  const float dn = den + 1e-30f;
+  if (rg == 0) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k4 = part + kFoldRowLanes * j;
+      if (k4 < nq)
+        *reinterpret_cast<float4*>(out + (size_t)b * d + 4 * k4) =
+            make_float4(acc[j].x / dn, acc[j].y / dn, acc[j].z / dn, acc[j].w / dn);
+    }
+  }
+  PHASE_MARK(4);
+  PHASE_END();
+}
+
+template <typename T, int J>
+static cudaError_t launch_folded(const float* q, const void* seq, const float* mask, float* out,
+                                 int B, int L, int C, int d, float scale, int upc,
+                                 cudaStream_t stream) {
+  if (C != 1 || L > kFoldMaxL || upc > kFoldMaxUsers) return cudaErrorInvalidValue;
+  target_attn_folded_kernel<T, J><<<(B + upc - 1) / upc, 32 * upc, 0, stream>>>(
+      q, static_cast<const T*>(seq), mask, out, B, L, d, scale);
+  return cudaGetLastError();
+}
+
+// upc > 0: the folded body, upc users a CTA (J: float4 columns a lane of eight);
+// 0: the cluster body.
 template <typename T>
 static cudaError_t launch_d(const float* q, const void* seq, const float* mask, float* out, int B,
-                            int L, int C, int d, float scale, cudaStream_t stream) {
-  if (d <= 0 || d % 4 != 0) return cudaErrorInvalidValue;
+                            int L, int C, int d, float scale, int upc, cudaStream_t stream) {
+  if (d <= 0 || d % 4 != 0 || d > 256 || upc < 0) return cudaErrorInvalidValue;
+  if (upc > 0) {
+    if (d <= 32) return launch_folded<T, 1>(q, seq, mask, out, B, L, C, d, scale, upc, stream);
+    if (d <= 64) return launch_folded<T, 2>(q, seq, mask, out, B, L, C, d, scale, upc, stream);
+    if (d <= 128) return launch_folded<T, 4>(q, seq, mask, out, B, L, C, d, scale, upc, stream);
+    return launch_folded<T, 8>(q, seq, mask, out, B, L, C, d, scale, upc, stream);
+  }
   if (d <= 64) return launch<T, 1>(q, seq, mask, out, B, L, C, d, scale, stream);
   if (d <= 128) return launch<T, 2>(q, seq, mask, out, B, L, C, d, scale, stream);
-  if (d <= 256) return launch<T, 4>(q, seq, mask, out, B, L, C, d, scale, stream);
-  return cudaErrorInvalidValue;
+  return launch<T, 4>(q, seq, mask, out, B, L, C, d, scale, stream);
 }
 
 }  // namespace sdim
 
+PHASE_READER(sdim_target_attention_phases)
+
 // q (B, C, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32 -> out
-// (B, C, d) fp32; scale is the logit scale (1/sqrt(d) rounded to fp32).
+// (B, C, d) fp32; scale is the logit scale (1/sqrt(d) rounded to fp32);
+// upc > 0 runs the folded body with upc users a CTA (C = 1, L <= 64), 0
+// the cluster body.
 extern "C" int sdim_target_attention(const float* q, const void* seq, int seq_dtype,
                                      const float* mask, float* out, int B, int L, int C, int d,
-                                     float scale, void* stream) {
+                                     float scale, int upc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (seq_dtype) {
     case sdim::kF32:
-      return sdim::launch_d<float>(q, seq, mask, out, B, L, C, d, scale, s);
+      return sdim::launch_d<float>(q, seq, mask, out, B, L, C, d, scale, upc, s);
     case sdim::kBF16:
-      return sdim::launch_d<__nv_bfloat16>(q, seq, mask, out, B, L, C, d, scale, s);
+      return sdim::launch_d<__nv_bfloat16>(q, seq, mask, out, B, L, C, d, scale, upc, s);
     default:
       return cudaErrorInvalidValue;
   }

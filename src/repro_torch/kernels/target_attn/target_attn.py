@@ -22,6 +22,11 @@ and its candidates no gradient. A mask that requires grad is refused. At
 C = 1 the backward is one launch that reads seq once (``backward_split``
 picks its CTAs: a cluster of CTAs a long history, several users a CTA for
 short ones); at C > 1 two launches.
+
+The forward has two bodies: a cluster of CTAs splits a user's rows over
+64-candidate tiles (the main path's C = 128 over L = 1,024), and at C = 1
+with at most ``TA_FOLD_MAX_L`` rows (the retrieval kinds' folded users)
+a warp owns a whole user, ``forward_split`` users a CTA.
 """
 from __future__ import annotations
 
@@ -90,10 +95,11 @@ def _attend(q, seq, mask):
     out = torch.empty((B, C, d), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
+    upc = forward_split(B, L, C, _build.sm_count(dev))
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_target_attention(q.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
-                                        out.data_ptr(), B, L, C, d, _scale(d),
+                                        out.data_ptr(), B, L, C, d, _scale(d), upc,
                                         _build.stream(dev))
     _build.check(err, "target_attention_flash")
     target_attention_flash.launches += 1
@@ -101,6 +107,23 @@ def _attend(q, seq, mask):
 
 
 target_attention_flash.launches = 0
+
+
+TA_FOLD_MAX_L = 64       # rows a user of the forward's folded body (target_attn.cu kFoldMaxL)
+TA_FOLD_MAX_USERS = 8    # users (a warp each) a CTA of the folded body
+
+
+def forward_split(B: int, L: int, C: int, n_sm: int) -> int:
+    """Users a CTA of the forward's folded body (a warp a user) at C = 1
+    and L <= ``TA_FOLD_MAX_L``, or 0: the cluster body (C > 1 or longer
+    histories). The most users a CTA (8, 4 or 2) for which the grid keeps
+    a CTA for each of the ``n_sm`` SMs, else one."""
+    if C != 1 or L > TA_FOLD_MAX_L or B <= 0:
+        return 0
+    upc = TA_FOLD_MAX_USERS
+    while upc > 1 and -(-B // upc) < n_sm:
+        upc //= 2
+    return upc
 
 
 TA_BWD_ROWS = 64 * 1024        # rows a CTA of the one-launch backward stages

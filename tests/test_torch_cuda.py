@@ -40,10 +40,11 @@ from repro_torch.kernels.sdim_query.sdim_query import (
     sdim_query_ref)
 from repro_torch.kernels.sdim_serve.sdim_serve import bse_serve, bse_serve_ref
 from repro_torch.kernels.sdim_update.sdim_update import (
-    sdim_update, sdim_update_cuda, sdim_update_ref, update_cells)
+    UPDATE_LT_MAX_E, sdim_update, sdim_update_cuda, sdim_update_ref, update_cells)
 from repro_torch.kernels.target_attn.target_attn import (
     target_attention_flash, target_attention_flash_backward,
     target_attention_flash_backward_ref, target_attention_flash_ref)
+from repro_torch.kernels.target_attn.target_attn import forward_split as ta_forward_split
 from repro_torch.kernels.target_attn.target_attn import launch_split as ta_launch_split
 from repro_torch.models.ctr import CTRModel
 from repro_torch.serve.quant import TABLE_DTYPES, quantize_rows
@@ -414,6 +415,37 @@ def test_large_tau_sdim_update_many_rows(dev):
     sdim_update(a, slots, events, mask, R, 7)
     sdim_update_ref(b, slots, events, mask, R, 7)
     _check_update(store, a, b, slots, events, mask, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E, tau, B, n_slots", [(1, 5, 300, 1), (300, 10, 20, 5)],
+                         ids=["E1-256-rows-a-sub-window", "E300-one-row-a-sub-window"])
+def test_large_tau_sdim_update_sub_windows(E, tau, B, n_slots, dev):
+    """The large-tau fold's sub-windows of owned rows (max(1, 256 // E) of
+    them): at E = 1, 600 batch rows on one slot fill windows and
+    sub-windows of 256 rows (then 88); at E = 300 each sub-window is one
+    row whose events are hashed in ten rounds and sorted in ten. Against
+    the plain version at FP32, the cells no weighted event reached keep
+    their bits, the same bits twice."""
+    store, slots, events, mask, R = _update_case((B, 16, 8, 36, 10 * tau, tau), "dups", dev,
+                                                 E=E, seed=51)
+    slots = slots % n_slots
+    a, b, c = store.clone(), store.clone(), store.clone()
+    sdim_update(a, slots, events, mask, R, tau)
+    sdim_update(c, slots, events, mask, R, tau)
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    _check_update(store, a, b, slots, events, mask, R)
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_large_tau_sdim_update_refuses_more_events_than_it_sorts(dev):
+    """The large-tau fold sorts a batch row's events in shared memory: the
+    wrapper refuses E past UPDATE_LT_MAX_E at tau > 4 (tau <= 4 takes any E)."""
+    store, slots, events, mask, R = _update_case((2, 16, 8, 4, 10, 5), "dups", dev,
+                                                 E=UPDATE_LT_MAX_E + 1)
+    with pytest.raises(ValueError, match="E up to"):
+        sdim_update(store, slots, events, mask, R, 5)
 
 
 @pytest.mark.cuda
@@ -1318,6 +1350,71 @@ def test_target_attention_flash_at_the_folded_retrieval_shape(L, dev):
     torch.testing.assert_close(dq, rq, **FP32)
     torch.testing.assert_close(dseq, rseq, **FP32)
     torch.testing.assert_close(out[0, 0], seq[0].mean(0), **FP32)
+
+
+# the forward's folded body (C = 1, L <= 64: a warp a user): L 0..33 and
+# 64, fp32 and bf16 rows at d = 128 and 36 (bf16 rows of 72 bytes), users
+# of no, one and every valid row
+FOLDED_LS = [0, 1, 2, 7, 8, 13, 16, 31, 32, 33, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", FOLDED_LS)
+def test_target_attention_flash_folded_body(L, dtype, d, dev):
+    """target_attention_flash's folded body against its plain version at
+    FP32 and against the cluster body (the same C entry point with no users
+    a CTA), the same bits twice; a fully masked user attends uniformly
+    over all L rows (L = 0: zeros)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.target_attn.target_attn import _scale
+
+    n = 600
+    rng = np.random.default_rng(L + d)
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)
+    q = t(rng.standard_normal((n, 1, d)))
+    seq = t(rng.standard_normal((n, L, d))).to(dtype)
+    found = rng.integers(0, L + 1, n)
+    found[:3] = (0, L, min(L, 1))
+    mask = t(np.arange(L)[None] < found[:, None])
+    assert ta_forward_split(n, L, 1, _build.sm_count(q.device)) > 0
+    before = target_attention_flash.launches
+    out = target_attention_flash(q, seq, mask)
+    torch.cuda.synchronize()
+    assert target_attention_flash.launches == before + 1
+    torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+    assert torch.equal(out, target_attention_flash(q, seq, mask))
+    uniform = seq[0].float().mean(0) if L else torch.zeros(d, device=dev)
+    torch.testing.assert_close(out[0, 0], uniform, **FP32)
+    if L:
+        cluster = torch.empty_like(out)
+        err = _build.load().sdim_target_attention(
+            q.data_ptr(), seq.data_ptr(), _build.DTYPE_CODES[dtype], mask.data_ptr(),
+            cluster.data_ptr(), n, L, 1, d, _scale(d), 0, _build.stream(q.device))
+        _build.check(err, "target_attention_flash (cluster body)")
+        torch.testing.assert_close(out, cluster, **FP32)
+
+
+@pytest.mark.cuda
+def test_target_attention_flash_main_shape_keeps_the_cluster_body(dev):
+    """The forward's split: the main path's burst (C = 128 over L = 1,024),
+    the protocol's target kind (C = 1 over L = 256) and C > 1 over short
+    histories run the cluster body; C = 1 over at most 64 rows the folded
+    body; the main shape within FP32 of its plain version, the same bits
+    twice."""
+    from repro_torch.kernels import _build
+
+    n_sm = _build.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    assert ta_forward_split(16, 1024, 128, n_sm) == 0
+    assert ta_forward_split(128, 256, 1, n_sm) == 0
+    assert ta_forward_split(2048, 32, 8, n_sm) == 0
+    assert ta_forward_split(2048, 32, 1, n_sm) == 8 and ta_forward_split(128, 16, 1, n_sm) == 1
+    seq, q, mask, _, rng = _inputs((16, 1024, 128, 128, 48, 3), dev, seed=35)
+    mask = _layout(mask, "front", rng)
+    out = target_attention_flash(q, seq, mask)
+    torch.testing.assert_close(out, target_attention_flash_ref(q, seq, mask), **FP32)
+    assert torch.equal(out, target_attention_flash(q, seq, mask))
 
 
 def _interest_inputs(kind, R, rng, dev, B=4, C=16, L=256, d=128):

@@ -5,10 +5,10 @@ cluster, or a grid of signature-group slices) and merge it, held against
 the JAX package on seeded, margin-screened inputs. The CUDA kernels cannot
 run here; this pins the algebra they implement.
 
-- target attention: each of S ranks (8 or 7) runs the online softmax
-  over its chunk of 32-row tiles, skipping wholly masked tiles unless the
-  user has no valid row, and the partial (m, den, acc) are merged in rank
-  order;
+- target attention's cluster body: each of S ranks (8 or 7) runs the
+  online softmax over its chunk of 32-row tiles, skipping wholly masked
+  tiles unless the user has no valid row, and the partial (m, den, acc)
+  are merged in rank order (its folded body: tests/test_torch_fold_schedules.py);
 - bse_serve: each of S ranks streams 64-row tiles and builds the table of
   its own range of signature groups (uneven where S does not divide G),
   l2-normalizes it and sums its groups' buckets per candidate; the
@@ -65,10 +65,8 @@ run here; this pins the algebra they implement.
   the same way, reads each selected row once and adds dout / G of its
   list in c order, and writes the unselected rows +0 without reading the
   table (``test_large_tau_training_schedules_at_the_list_edges``: every
-  row in one bucket, each in its own, C > U, L = 0, C = 0); sdim_update
-  gives CTA (b, g) group g of its slot (first batch row its owner), lists
-  the cells the owned rows' weighted events reach in u order, and folds
-  each from the stored cell, row by row in b order, events in e order;
+  row in one bucket, each in its own, C > U, L = 0, C = 0); sdim_update's
+  fold is emulated in tests/test_torch_fold_schedules.py;
   sdim_fused_serve runs the gather body of large_tau.cuh: a team of eight
   lanes a (candidate, group), a pass of ``teams`` groups at a time, hashes
   the candidate, reads the selected row of its slot scaled by its own
@@ -269,8 +267,10 @@ def test_target_attention_schedule_matches_jax(shape, layout, S):
                          ids=["folded-retrieval", "two-tiles", "three-tiles"])
 def test_target_attention_schedule_at_short_histories(shape, S, layout):
     """Below 8 row tiles the launch takes one CTA per tile (S = number of
-    tiles): the retrieval kinds' folded shape (users of one candidate over
-    k = 32 rows) runs S = 1."""
+    tiles): users of one candidate over k = 32 rows run S = 1 on the
+    cluster body (the wrapper runs the retrieval kinds' folded users on the
+    folded body, ``target_attention_folded_schedule`` in
+    tests/test_torch_fold_schedules.py)."""
     B, L, C, d = shape
     rng = np.random.default_rng(13)
     q = rng.standard_normal((B, C, d)).astype(np.float32)
@@ -1678,47 +1678,10 @@ def test_large_tau_list_splits_fill_one_wave(kernel, B, G, U, n, d, tau, want):
         assert slices == G or max(B, 1) * -(-G // max(Gs - 1, 1)) > 132 * 4 or Gs == 1
 
 
-# the three serving paths at tau 5..10 (sdim_update_large_tau.cu,
-# sdim_fused_serve_large_tau.cu, bse_serve_large_tau.cu)
-LT_UPDATE_ROWS = 256         # sdim_update_large_tau.cu kUpdateRows (a window)
+# the serving reads at tau 5..10 (sdim_fused_serve_large_tau.cu,
+# bse_serve_large_tau.cu; sdim_update_large_tau.cu's fold:
+# tests/test_torch_fold_schedules.py)
 SERVE_TILE = 128             # bse_serve_large_tau.cu kServeTile: 8 rows a warp
-
-
-def update_large_tau_schedule(store, slots, events, mask, R, tau):
-    """sdim_update_large_tau.cu in numpy fp32: CTA (b, g) exits unless b is
-    its slot's first batch row; per window of 256 batch rows it lists the
-    owned rows in b order, hashes their events for group g (-1 at weight 0),
-    lists the reached buckets in u order, and folds each reached cell: from
-    the stored cell, each owned row's events of the cell summed in e order,
-    the row's sum added to the running total, the cell written once a
-    window. Returns the store and the write counts."""
-    N, G, U, d = store.shape
-    B, E, _ = events.shape
-    Rg = R.reshape(G, tau, d)
-    out = store.copy()
-    writes = np.zeros((N, G, U), np.int64)
-    for b in range(B):
-        slot = slots[b]
-        if (slots[:b] == slot).any():
-            continue
-        for g in range(G):
-            for p in range(b, B, LT_UPDATE_ROWS):
-                owned = [i for i in range(p, min(B, p + LT_UPDATE_ROWS)) if slots[i] == slot]
-                if not owned:
-                    continue
-                x = events[owned].astype(np.float32)                     # (n, E, d)
-                sig = _signatures(x.reshape(-1, d), Rg[g:g + 1], tau)[:, 0].reshape(len(owned), E)
-                sig = np.where(mask[owned] != 0, sig, -1)
-                for u in np.unique(sig[sig >= 0]):                       # u order
-                    acc = out[slot, g, u].copy()
-                    for s in range(len(owned)):                          # b order
-                        delta = np.zeros(d, np.float32)
-                        for e in np.flatnonzero(sig[s] == u):            # e order
-                            delta = delta + mask[owned[s], e] * x[s, e]
-                        acc = acc + delta
-                    out[slot, g, u] = acc
-                    writes[slot, g, u] += 1
-    return out, writes
 
 
 def _gather_large_tau(sel, row_of, G, d, teams):
@@ -1913,12 +1876,13 @@ def test_gather_shape_fits_one_wave(B, C, G, want):
 ], ids=["U32", "tau10-chunks", "d36-chunks", "tau1-G48", "two-passes", "Gs-ragged",
         "one-bucket", "tile-split", "G80-team-passes"])
 def test_large_tau_serving_schedules_match_jax(shape, layout):
-    """bse_serve, sdim_fused_serve and sdim_update at tau 5..10 (bse_serve
-    also at tau = 1, G = 48) against the JAX package (its SDIM attention,
-    its fused-serve and update oracles and the Pallas update in interpret
-    mode): half the candidates are users' own valid behaviors, so outputs
-    are not all zero; every scratch row, rank and store cell is written
-    once; a fully masked user and an absent one read zero. ``one-bucket``
+    """bse_serve and sdim_fused_serve at tau 5..10 (bse_serve also at tau
+    = 1, G = 48) against the JAX package (its SDIM attention and its
+    fused-serve oracle; the event fold into the same stores is
+    ``test_large_tau_update_schedule_matches_jax`` in
+    tests/test_torch_fold_schedules.py): half the candidates are users'
+    own valid behaviors, so outputs are not all zero; every scratch row and
+    rank is written once; a fully masked user and an absent one read zero. ``one-bucket``
     makes each user's behaviors positive multiples of one row, so every
     valid row lands in one bucket of each group (the longest l-order
     chain, across tiles); ``tile-split`` checks that buckets' rows span
@@ -1965,17 +1929,3 @@ def test_large_tau_serving_schedules_match_jax(shape, layout):
         np.testing.assert_allclose(fused, fref, **FP32)
         assert not fused[0].any() and not fused[-1].any()
         assert np.abs(fused[1:-1]).sum(-1).astype(bool).mean() >= 0.5
-    E = 5                                         # the event fold into those rows
-    events = screened_normal(rng, (2 * B, E, d), R)
-    ev_mask = (rng.random((2 * B, E)) > 0.25).astype(np.float32)
-    ev_slots = np.r_[slots, slots[::-1]].astype(np.int32)   # every slot twice
-    ev_mask[0] = 0.0                              # a zero-mask row
-    folded, fw = update_large_tau_schedule(store, ev_slots, events, ev_mask, R, tau)
-    args = (jnp.asarray(store), jnp.asarray(ev_slots), jnp.asarray(events),
-            jnp.asarray(ev_mask), jnp.asarray(R), tau)
-    np.testing.assert_allclose(folded, np.asarray(jsdim_update_ref(*args)), **FP32)
-    np.testing.assert_allclose(folded, np.asarray(jsdim_update(*args, interpret=True)), **FP32)
-    assert fw.max() == 1
-    untouched = np.repeat((fw == 0)[..., None], d, -1)
-    np.testing.assert_array_equal(folded.view(np.uint32)[untouched],
-                                  store.view(np.uint32)[untouched])
