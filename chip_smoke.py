@@ -454,7 +454,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    apart where kernel and plain sums differ in the last bit); the
    quantized stores against the fp32 store are printed. Prints the phase's
    wall time.
-Every launch count is set to 0 just before each of phases 4-20 and read
+21. past the shared-memory limits — ``spill``: (a), beside phase 3, each
+   path the SDIM kernels take past their shared-memory lists and copies
+   against its plain version and timed (``spill_kernel_checks``); (b)
+   after phase 20, a decoupled ``sdim-paper`` FULL server at tau 5
+   ingesting two histories of SPILL_L behaviors and an event block of
+   SPILL_E events a row against the plain versions' server, and training
+   steps through the autograd functions at SPILL_L, SPILL_C and the
+   SPILL_BWD shapes against the plain versions' gradients
+   (``spill_phase``).
+Every launch count is set to 0 just before each of phases 4-21 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -467,7 +476,8 @@ phase 13's; phases 15 and 16 none; phase 17 sdim_query, counted over the
 SDIM tokens under the mesh; phase 18 as its (c) and (d) say, (c) read as
 ``dryrun`` and (d) as ``examples``; phase 19 all six forward kernels,
 read before its (d); phase 20 bse_encode, sdim_update, sdim_fused_serve,
-sdim_query and bse_serve, read after its (b)'s kernel servers).
+sdim_query and bse_serve, read after its (b)'s kernel servers; phase 21
+bse_encode, sdim_update, sdim_query and both SDIM backward kernels).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -482,9 +492,11 @@ path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
 as ``mesh``, phase 18 as ``dryrun`` and ``examples``, phase 19 as
-``bench``, phase 20 as ``large_tau``; sdim_update, sdim_fused_serve,
-bse_serve, bse_encode, sdim_query and both SDIM backward kernels carry
-phase 20 (a)'s figures as ``large_tau``), then as the
+``bench``, phase 20 as ``large_tau``, phase 21 as ``spill``;
+sdim_update, sdim_fused_serve, bse_serve, bse_encode, sdim_query and
+both SDIM backward kernels carry phase 20 (a)'s figures as
+``large_tau``, and sdim_update, bse_encode and both SDIM backward
+kernels phase 21 (a)'s as ``spill``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -5383,6 +5395,275 @@ def large_tau_phase(torch, dev, wrappers):
     return launches
 
 
+SPILL_L = 40000    # phase 21: a long user's behaviors (past MAX_L = 32,768: two spans)
+SPILL_E = 20000    # events a row of an event block (past UPDATE_LT_MAX_E = 8,192: three chunks)
+SPILL_C = 40000    # candidates a user (past MAX_BWD_CANDS = 16,384: three chunks)
+SPILL_BWD = ((96, 4), (192, 3), (500, 4), (500, 5))   # (m, tau), d = 128: dT and R past
+                   # MAX_BWD_SMEM (tau <= 4: "spill", m = 500 "spill_r"), R past a CTA (tau 5)
+SPILL_B, SPILL_BWD_L, SPILL_BWD_C = 4, 1024, 128   # users of SPILL_BWD's shapes
+
+
+def long_users(torch, dev, rng, B, L, d, R):
+    """B users of L screened behaviors whose masks hold wholly masked
+    tiles (rows [1,000, 5,000) and [L - 3,000, L - 1,000) off, the rest
+    valid at random), the last user fully masked."""
+    from repro_torch.kernels.screen import screened_normal
+
+    seq = screened_normal(rng, (B, L, d), R)
+    mask = (rng.random((B, L)) > 0.25).astype(np.float32)
+    mask[:, 1000:5000] = 0.0
+    mask[:, L - 3000:L - 1000] = 0.0
+    mask[-1] = 0.0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return t(seq), t(mask)
+
+
+def spill_kernel_checks(torch, dev) -> dict:
+    """21 (a): each path past the kernels' shared-memory lists and copies
+    at the card tests' shapes against its plain version, the same bits
+    twice, timed beside its plain version and bound (event-timed and on the
+    device; uncounted): sdim_update's chunks (tau 5 and 10, E = SPILL_E,
+    d = 128, four batch rows with a duplicate slot and a zero-mask row; the
+    cells no weighted event reached keep their bits), bse_encode's spans (L
+    = SPILL_L, tau 3, 5 and 10; against the plain version summed in fp64,
+    which the fp32 plain version's own sums over ~27,000 valid rows a user
+    miss by up to 3.8e-3 at tau 3, past ATOMIC), bse_encode_backward past shared memory (SPILL_BWD at B = 4,
+    L = 1,024) and at L = SPILL_L, sdim_query_backward's chunks (tau 5 and
+    10, C = SPILL_C; compared times each row's n). Returns each kernel's
+    figures by label."""
+    from repro_torch.core import simhash
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (backward_layout, bse_encode,
+                                                             bse_encode_backward,
+                                                             bse_encode_backward_ref,
+                                                             bse_encode_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import (sdim_query_backward,
+                                                           sdim_query_backward_ref)
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+
+    rng = np.random.default_rng(21)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    figures = {"sdim_update": {}, "bse_encode": {}, "bse_encode_backward": {},
+               "sdim_query_backward": {}}
+
+    def record(name, label, kernel, plain, out, ref, c, bits=None, tol=FP32):
+        err = check_close(f"spill (a) {name} {label}", out, ref, **tol)
+        same_bits(f"spill (a) {name} {label}", bits or kernel)
+        k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+        b_ms, b_by = bound(cost.settle(c))
+        figures[name][label] = dict(max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                    **device_times(kernel, plain))
+
+    def exact_table(seq, mask, R, tau):
+        """bse_encode's plain version (``core.sdim.bucket_table``'s
+        one-hot product) summed in fp64 (screened rows: the fp32 hash
+        bits), rounded to fp32 once."""
+        onehot = torch.nn.functional.one_hot(simhash.signatures(seq, R, tau).long(), 1 << tau)
+        onehot = onehot.double() * mask.double()[..., None, None]
+        return torch.einsum("blgu,bld->bgud", onehot, seq.double()).float()
+
+    with uncounted():
+        d = D
+        for tau, m in LT_TAUS:                 # sdim_update in chunks
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            Rt = t(R)
+            slots = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=dev)   # a duplicate
+            events = t(screened_normal(rng, (4, SPILL_E, d), R))
+            ev_mask = t((rng.random((4, SPILL_E)) > 0.2).astype(np.float32))
+            ev_mask[0] = 0.0                   # a zero-mask row
+            rows = t(rng.standard_normal((8, m // tau, 1 << tau, d)).astype(np.float32))
+            rows[:, :, ::3, :4] = -0.0
+            a, b_ = rows.clone(), rows.clone()
+            args = (slots, events, ev_mask, Rt, tau)
+            label = f"chunked tau={tau} m={m} d={d} E={SPILL_E}"
+            record("sdim_update", label, partial(sdim_update, a, *args),
+                   partial(sdim_update_ref, b_, *args), sdim_update(rows.clone(), *args),
+                   sdim_update_ref(rows.clone(), *args), cost.update(rows, *args[:-1], tau=tau),
+                   bits=lambda: sdim_update(rows.clone(), *args))
+            kept = unreached_kept(torch, rows, sdim_update(rows.clone(), *args), *args)
+            figures["sdim_update"][label]["unreached_cells_kept"] = kept
+            del rows, a, b_, events
+        for tau, m in ((3, 48),) + LT_TAUS:   # bse_encode in spans, and its backward
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            Rt = t(R)
+            seq, mask = long_users(torch, dev, rng, 2, SPILL_L, d, R)
+            label = f"spans tau={tau} m={m} d={d} L={SPILL_L}"
+            exact = exact_table(seq, mask, Rt, tau)
+            record("bse_encode", label, partial(bse_encode, seq, mask, Rt, tau),
+                   partial(bse_encode_ref, seq, mask, Rt, tau), bse_encode(seq, mask, Rt, tau),
+                   exact, cost.encode(seq, mask, Rt, tau=tau), tol=ATOMIC)
+            figures["bse_encode"][label]["plain_max_abs_err"] = float(
+                (bse_encode_ref(seq, mask, Rt, tau) - exact).abs().max())
+            if tau in (3, 5):
+                dT = t(rng.standard_normal((2, m // tau, 1 << tau, d)).astype(np.float32))
+                args = (dT, seq, mask, Rt, tau)
+                record("bse_encode_backward", f"tau={tau} m={m} d={d} L={SPILL_L}",
+                       partial(bse_encode_backward, *args),
+                       partial(bse_encode_backward_ref, *args), bse_encode_backward(*args),
+                       bse_encode_backward_ref(*args), encode_backward_cost(seq, mask, Rt, tau))
+            del seq, mask
+        for m, tau in SPILL_BWD:               # bse_encode_backward past shared memory
+            G, U = m // tau, 1 << tau
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            Rt = t(R)
+            seq = t(screened_normal(rng, (SPILL_B, SPILL_BWD_L, d), R))
+            mask = t((rng.random((SPILL_B, SPILL_BWD_L)) > 0.25).astype(np.float32))
+            mask[-1] = 0.0
+            dT = t(rng.standard_normal((SPILL_B, G, U, d)).astype(np.float32))
+            args = (dT, seq, mask, Rt, tau)
+            layout = backward_layout(G, U, d, m) if tau <= 4 else "device"
+            record("bse_encode_backward", f"{layout} m={m} tau={tau} d={d}",
+                   partial(bse_encode_backward, *args), partial(bse_encode_backward_ref, *args),
+                   bse_encode_backward(*args), bse_encode_backward_ref(*args),
+                   encode_backward_cost(seq, mask, Rt, tau))
+        for tau, m in LT_TAUS:                 # sdim_query_backward in chunks
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            Rt = t(R)
+            seq = t(screened_normal(rng, (2, SPILL_BWD_L, d), R))
+            mask = t((rng.random((2, SPILL_BWD_L)) > 0.25).astype(np.float32))
+            q = t(screened_normal(rng, (2, SPILL_C, d), R))
+            own = t(rng.integers(0, SPILL_BWD_L, (2, SPILL_C // 2)))
+            q[:, :SPILL_C // 2] = seq[torch.arange(2, device=dev)[:, None], own]
+            table = bse_encode_ref(seq, mask, Rt, tau)
+            dout = t(rng.standard_normal((2, SPILL_C, d)).astype(np.float32))
+            n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+            args = (dout, q, table, Rt, tau)
+            record("sdim_query_backward", f"chunks tau={tau} m={m} d={d} C={SPILL_C}",
+                   partial(sdim_query_backward, *args), partial(sdim_query_backward_ref, *args),
+                   sdim_query_backward(*args) * n, sdim_query_backward_ref(*args) * n,
+                   query_backward_cost(q, table, Rt, tau))
+            del seq, q, table, dout
+        torch.cuda.empty_cache()
+    for name, rows in figures.items():
+        for label, r in rows.items():
+            print(f"spill (a) {name} {label}: max abs err {r['max_abs_err']:.3g}, the same bits "
+                  f"twice; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}); {device_line(r)}"
+                  + (f"; {r['unreached_cells_kept']} unreached cells keep their bits"
+                     if "unreached_cells_kept" in r else "")
+                  + (f"; the fp32 plain version's own max abs err {r['plain_max_abs_err']:.3g}"
+                     if "plain_max_abs_err" in r else ""))
+    return figures
+
+
+def spill_training(torch, dev, B, L, C, m, tau, rng, label, query=True) -> float:
+    """One step through the autograd entry points at a spill shape: seq (B,
+    L, 128) -> bse_encode -> sdim_query (C candidates, half of them the
+    users' own behaviors) -> <dout, out> -> backward, or, without
+    ``query`` (m = 500: at tau 4 sdim_query's forward stages R, 256,000 B,
+    in shared memory and refuses it, ROADMAP A), <dT, table> with a random
+    dT; the
+    gradient in seq against the plain versions' autograd on the card
+    within GRAD_TOL of its largest. Returns that relative difference."""
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_ref
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+
+    d = D
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    Rt = t(R)
+    seq, mask = long_users(torch, dev, rng, B, L, d, R) if L > 5000 else (
+        t(screened_normal(rng, (B, L, d), R)), t((rng.random((B, L)) > 0.25).astype(np.float32)))
+    q = t(screened_normal(rng, (B, C, d), R))
+    own = t(rng.integers(0, L, (B, C // 2)))
+    q[:, :C // 2] = seq[torch.arange(B, device=dev)[:, None], own]
+    dout = t(rng.standard_normal((B, C, d)).astype(np.float32))
+    dT = t(rng.standard_normal((B, m // tau, 1 << tau, d)).astype(np.float32))
+    grads = []
+    for encode, read in ((bse_encode, sdim_query), (bse_encode_ref, sdim_query_ref)):
+        leaf = seq.clone().requires_grad_(True)
+        table = encode(leaf, mask, Rt, tau)
+        ((read(q, table, Rt, tau) * dout).sum() if query else (table * dT).sum()).backward()
+        grads.append(leaf.grad)
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    if not rel <= GRAD_TOL:
+        raise AssertionError(f"spill (b) {label}: the kernels' gradient differs from the plain "
+                             f"versions' by {rel:.3g} of its largest (> {GRAD_TOL})")
+    print(f"spill (b) {label}: gradient in seq within {rel:.3g} of its largest of the plain "
+          f"versions'")
+    return rel
+
+
+def spill_phase(torch, dev, wrappers):
+    """21 (b): the main path past the shared-memory limits, counted: a
+    decoupled server of sdim-paper FULL at tau 5 (m = 45) ingests two
+    users' histories of SPILL_L behaviors (bse_encode in spans) and an
+    event block of four rows of SPILL_E events on an fp32 store (sdim_update
+    in chunks; a duplicate user, a zero-mask row), its store rows against a
+    server whose dispatches run the plain versions (uncounted; ATOMIC);
+    then training steps through bse_encode and sdim_query's autograd
+    (``spill_training``): tau 5 at m = 45 (B = 2, L = SPILL_L, C =
+    SPILL_C: bse_encode in spans, sdim_query_backward in chunks,
+    bse_encode_backward at L = SPILL_L) and SPILL_BWD's shapes at B = 4, L =
+    1,024, C = 128 (bse_encode_backward reading dT, and R at m = 500, from
+    device memory). Returns the launch counts."""
+    from repro_torch.configs import sdim_paper
+    from repro_torch.core.interest import InterestModule
+    from repro_torch.kernels.screen import screen_item_rows
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.serve.ctr_server import CTRServer
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    full = sdim_paper.FULL
+    tau, m = LT_TAUS[0]
+    cfg = dataclasses.replace(full, interest=dataclasses.replace(full.interest, tau=tau, m=m))
+    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(21))
+    rng = np.random.default_rng(121)
+    hist = [rng.integers(0, cfg.n_items, (2, SPILL_L)).astype(np.int32),
+            rng.integers(0, cfg.n_cats, (2, SPILL_L)).astype(np.int32)]
+    hmask = (rng.random((2, SPILL_L)) > 0.25).astype(np.float32)
+    hmask[:, 1000:5000] = 0.0
+    ev = [rng.integers(0, cfg.n_items, (4, SPILL_E)).astype(np.int32),
+          rng.integers(0, cfg.n_cats, (4, SPILL_E)).astype(np.int32)]
+    ev_mask = (rng.random((4, SPILL_E)) > 0.2).astype(np.float32)
+    ev_mask[0] = 0.0                            # a zero-mask row
+    users, ev_users = ["u0", "u1"], ["u0", "u1", "u1", "u2"]   # u1 twice; u2 new
+    on = lambda x: torch.as_tensor(x, device=dev)
+    batches = [{"hist_items": on(h), "hist_cats": on(c), "hist_mask": torch.ones(h.shape,
+                                                                                device=dev),
+                "cand_item": on(h[:, :1]), "cand_cat": on(c[:, :1])}
+               for h, c in (hist, ev)]
+    n = screen_item_rows(model, batches, torch.Generator(device=dev).manual_seed(221))
+    print(f"spill (b): {n} item rows redrawn to clear the hash margin")
+    reset(wrappers)
+    rows = {}
+    for plain in (False, True):                 # the plain versions' server: no launch
+        model.engine.profiler = PlainDispatch() if plain else None
+        try:
+            srv = CTRServer.build(model, None, device=dev, mode="decoupled", fused=True,
+                                  wire_dtype=torch.float32)
+            srv.bse.ingest_histories(users, hist[0], hist[1], hmask)
+            srv.bse.ingest_events(ev_users, ev[0], ev[1], ev_mask)
+            torch.cuda.synchronize()
+            rows[plain] = srv.bse.store.rows(srv.bse.store.slots(["u0", "u1", "u2"])).clone()
+            del srv
+        finally:
+            model.engine.profiler = None
+    err = check_close("spill (b) the store after a long history and an event block", rows[False],
+                      rows[True], **ATOMIC)
+    print(f"spill (b) decoupled server at tau={tau} m={m}: two histories of {SPILL_L} "
+          f"behaviors and an event block of 4 x {SPILL_E} folded; store rows within {err:.3g} "
+          f"of the plain versions' server")
+    del model, rows
+    free_card(torch)
+    spill_training(torch, dev, 2, SPILL_L, SPILL_C, m, tau, rng,
+                   f"tau={tau} m={m} B=2 L={SPILL_L} C={SPILL_C}")
+    for m_, tau_ in SPILL_BWD:
+        query = m_ < 500                        # m = 500: the bse_encode backward alone
+        spill_training(torch, dev, SPILL_B, SPILL_BWD_L, SPILL_BWD_C, m_, tau_, rng,
+                       f"tau={tau_} m={m_} B={SPILL_B} L={SPILL_BWD_L} C={SPILL_BWD_C}"
+                       + ("" if query else ", <dT, table>"), query=query)
+    launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_query",
+                                        "bse_encode_backward", "sdim_query_backward"), "spill")
+    free_card(torch)
+    print(f"spill: phase wall time {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -5420,6 +5701,8 @@ def main() -> int:
     # few of a ctypes-launched kernel's device launches (PERF.md section 7)
     for name, rows in large_tau_kernel_checks(torch, dev).items():
         by_name[name]["large_tau"] = rows
+    for name, rows in spill_kernel_checks(torch, dev).items():
+        by_name[name]["spill"] = rows
     wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
@@ -5458,6 +5741,7 @@ def main() -> int:
     by_path["bench"], by_name["target_attention_flash_backward"]["protocol"] = bench_phase(
         torch, dev, wrappers + backward)
     by_path["large_tau"] = large_tau_phase(torch, dev, wrappers)
+    by_path["spill"] = spill_phase(torch, dev, wrappers + backward)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

@@ -125,7 +125,7 @@ PHASES = {
                                   "dS + dseq stores + dq sums", "dq exchange + store"],
     "bse_encode_backward": ["staging (rows, multicast wait)", "hash (warp 0)",
                             "gather + stores (warp 0)"],
-    # the large-tau backward (bse_encode_large_tau.cu) and kernel 4's wide
+    # the large-tau backward (bse_encode_backward_large_tau.cu) and kernel 4's wide
     # path (wide_query.cuh)
     "bse_encode_backward_lt": ["staging (R; first rows)", "hash", "wait for staged dT",
                                "gather + stores"],
@@ -677,7 +677,7 @@ def large_tau_training(lib, plain, dev, rng, n_sm) -> None:
                   f", {S} CTAs a user")
             clock(lib, plain, f"bse_encode_backward_lt {name}",
                   partial(bse_encode_backward, dT, seq, mask, R, tau),
-                  "sdim_bse_encode_large_tau_phases", b * S)
+                  "sdim_bse_encode_backward_large_tau_phases", b * S)
 
 
 def large_tau(lib, plain, dev, rng, n_sm) -> None:

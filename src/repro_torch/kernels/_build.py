@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_update": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
+    "sdim_update": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],

@@ -49,8 +49,11 @@
 // launches agree bit for bit. A user with every behavior masked lists no
 // batch and writes a zero slice. Each CTA reads its user's valid rows itself
 // (from L2 after the first CTA); tau <= 4 (5..10: large_tau.cuh), d a multiple of 4 up to 128,
-// ceil(G/S) * 2^tau <= kCells and L up to 32768 (the batch list lives in
-// shared memory; the wrapper checks).
+// ceil(G/S) * 2^tau <= kCells, any L: the batch list lives in shared memory,
+// so a user of more than kSpanRows rows is taken in spans of kSpanRows (a
+// multiple of kBatch, so the batches are the same; SPANS), each span's
+// batches listed and dealt to the warps as above, the warps' register sums
+// carried from span to span; at L <= kSpanRows the kernel is as before.
 #include "large_tau.cuh"
 
 namespace sdim {
@@ -59,6 +62,7 @@ constexpr int kWarps = 16, kEncodeThreads = 32 * kWarps;
 constexpr int kBatch = 8;   // rows a warp stages and hashes at once
 constexpr int kBufs = 3;    // batch buffers a warp: two batches in flight while one is used
 constexpr int kCells = 16;  // (group, bucket) sums a CTA holds: ceil(G/S) * 2^tau <= kCells
+constexpr int kSpanRows = 32768;  // rows a batch list covers (sdim_bucket.py MAX_L)
 
 struct EncodeLayout {
   size_t x, r, list, bar, total;
@@ -115,7 +119,7 @@ __device__ __forceinline__ void list_live_batches(int* list_s, const float* __re
   __syncthreads();
 }
 
-template <typename T, int TAU>
+template <typename T, int TAU, bool SPANS>
 __global__ void __launch_bounds__(kEncodeThreads, 1)
     bse_encode_kernel(const T* __restrict__ seq, const float* __restrict__ mask,
                       const float* __restrict__ R, float* __restrict__ out, int L, int G, int d) {
@@ -124,7 +128,7 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   const int S = gridDim.x, rank = blockIdx.x, b = blockIdx.y;
   const int g0 = rank * G / S, ng = (rank + 1) * G / S - g0, gmax = (G + S - 1) / S;
-  const int nb = (L + kBatch - 1) / kBatch;
+  const int nb = ((SPANS ? kSpanRows : L) + kBatch - 1) / kBatch;  // batches a list
   const EncodeLayout lay = encode_layout<T>(d, gmax, TAU, nb);
   T* x_s = reinterpret_cast<T*>(smem + lay.x);            // kWarps x kBufs x (kBatch, d)
   float* r_s = reinterpret_cast<float*>(smem + lay.r);    // (ng * TAU, ldr)
@@ -132,31 +136,40 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
   unsigned long long* bar_s = reinterpret_cast<unsigned long long*>(smem + lay.bar);
 
   const int ldr = staged_ld<float>(d), nq = d / 4;
-  const T* x = seq + (size_t)b * L * d;
-  const bool bulk = (reinterpret_cast<size_t>(x) & 15) == 0;  // batches on 16-byte boundaries
-  const float* w = mask + (size_t)b * L;
+  const T* x0 = seq + (size_t)b * L * d;
+  const bool bulk = (reinterpret_cast<size_t>(x0) & 15) == 0;  // batches on 16-byte boundaries
+  const float* w0 = mask + (size_t)b * L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   PHASE_BEGIN();
 
   stage_rows_async(r_s, R + (size_t)g0 * TAU * d, ng * TAU, ng * TAU, d);
   cp_async_commit();
-  list_live_batches(list_s, w, L);
-  const int n_live = list_s[0];
-  cp_async_wait<0>();
-  __syncthreads();  // R visible to every warp
-  PHASE_MARK(0);    // batch list and R
-
   float4 acc[kCells];
 #pragma unroll
   for (int c = 0; c < kCells; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  unsigned parity = 0;  // bit k: the parity of buffer k's next phase
+  // one span (span0 = 0, all L rows) unless SPANS
+  for (int span0 = 0; SPANS ? span0 < L : span0 == 0; span0 += kSpanRows) {
+  const int Ls = SPANS ? min(kSpanRows, L - span0) : L;
+  const T* x = x0 + (size_t)span0 * d;
+  const float* w = w0 + span0;
+  if (SPANS && span0 > 0) __syncthreads();  // every warp done with the last span's list
+  list_live_batches(list_s, w, Ls);
+  const int n_live = list_s[0];
+  if (span0 == 0) {
+    cp_async_wait<0>();
+    __syncthreads();  // R visible to every warp
+  }
+  PHASE_MARK(0);    // batch list and R
+
   T* xw = x_s + (size_t)warp * kBufs * kBatch * d;  // this warp's buffers
   unsigned long long* bars = bar_s + warp * kBufs;  // and their mbarriers
-  if (lane == 0)
+  if (lane == 0 && span0 == 0)
     for (int k = 0; k < kBufs; ++k) mbar_init(bars + k);
   __syncwarp();
 
   auto stage = [&](int it, int buf) {  // list entry it; its weights into lanes 0..7
-    const int l0 = list_s[1 + it] * kBatch, n = min(kBatch, L - l0);
+    const int l0 = list_s[1 + it] * kBatch, n = min(kBatch, Ls - l0);
     unsigned char* dst = reinterpret_cast<unsigned char*>(xw + buf * kBatch * d);
     const unsigned char* src = reinterpret_cast<const unsigned char*>(x + (size_t)l0 * d);
     const unsigned bytes = n * d * sizeof(T), whole = bytes & ~15u;
@@ -182,7 +195,6 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
   float wv = warp < n_live ? stage(warp, 0) : 0.f;
   float w1 = warp + kWarps < n_live ? stage(warp + kWarps, 1) : 0.f;
   int buf = 0;
-  unsigned parity = 0;  // bit k: the parity of buffer k's next phase
   for (int it = warp; it < n_live; it += kWarps, buf = buf == kBufs - 1 ? 0 : buf + 1) {
     float w2 = 0.f;
     if (it + 2 * kWarps < n_live) w2 = stage(it + 2 * kWarps, buf == 0 ? kBufs - 1 : buf - 1);
@@ -240,6 +252,7 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
     __syncwarp();  // the batch's reads done before its buffer is refilled
     PHASE_MARK(2);  // scatter
   }
+  }  // spans
   __syncthreads();  // every warp done with its buffers
 
   // the warps' partial tables, summed in warp order and written once
@@ -263,19 +276,28 @@ __global__ void __launch_bounds__(kEncodeThreads, 1)
   PHASE_END();
 }
 
-template <typename T, int TAU>
-static cudaError_t launch(const void* seq, const float* mask, const float* R, float* out, int B,
-                          int L, int G, int d, int S, cudaStream_t stream) {
+template <typename T, int TAU, bool SPANS>
+static cudaError_t launch_spans(const void* seq, const float* mask, const float* R, float* out,
+                                int B, int L, int G, int d, int S, cudaStream_t stream) {
   const int gmax = S > 0 ? (G + S - 1) / S : 0;
   if (d <= 0 || d % 4 != 0 || d > 128 || S < 1 || S > G || gmax * (1 << TAU) > kCells)
     return cudaErrorInvalidValue;
-  const size_t smem = encode_layout<T>(d, gmax, TAU, (L + kBatch - 1) / kBatch).total;
-  const void* fn = reinterpret_cast<const void*>(bse_encode_kernel<T, TAU>);
+  const int span = SPANS ? kSpanRows : L;
+  const size_t smem = encode_layout<T>(d, gmax, TAU, (span + kBatch - 1) / kBatch).total;
+  const void* fn = reinterpret_cast<const void*>(bse_encode_kernel<T, TAU, SPANS>);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
-  bse_encode_kernel<T, TAU><<<dim3(S, B), kEncodeThreads, smem, stream>>>(
+  bse_encode_kernel<T, TAU, SPANS><<<dim3(S, B), kEncodeThreads, smem, stream>>>(
       static_cast<const T*>(seq), mask, R, out, L, G, d);
   return cudaGetLastError();
+}
+
+template <typename T, int TAU>
+static cudaError_t launch(const void* seq, const float* mask, const float* R, float* out, int B,
+                          int L, int G, int d, int S, cudaStream_t stream) {
+  if (L > kSpanRows)  // spans of kSpanRows rows
+    return launch_spans<T, TAU, true>(seq, mask, R, out, B, L, G, d, S, stream);
+  return launch_spans<T, TAU, false>(seq, mask, R, out, B, L, G, d, S, stream);
 }
 
 template <typename T>

@@ -44,8 +44,15 @@
 //   column) pairs in order (all 32 busy at d = 32 as at d = 128), each
 //   summing the G selected rows of dT in g order from +0, times the mask,
 //   written once with 16-byte (bf16: 8-byte) stores.
-// d a multiple of 4 up to 128, tau 1..4 (5..10: large_tau.cuh), the
-// user's dT and R within shared memory (the wrapper checks). No minimum
+// - spill (SPILL: where the user's dT and R exceed kBwdMaxSmem of shared
+//   memory, sdim_bucket.py MAX_BWD_SMEM: m = 96 at tau 4 or m = 192 at
+//   tau 3, d = 128): dT stays in device memory and the gather reads each
+//   selected row from there (L2 after its first reader), still summing the
+//   G rows in g order from +0; R is multicast as above where it fits
+//   kBwdMaxSmem alone, else read from device memory by the hash too. The
+//   hash takes Q = 8 lanes and N = 4 rows a team at any d (bucket_of's
+//   bits at any Q).
+// d a multiple of 4 up to 128, tau 1..4 (5..10: large_tau.cuh). No minimum
 // of CTAs an SM is asked of ptxas (CUDA 12.9): with one (two CTAs an SM,
 // 128 registers) it built kernels of this loop that never finished on the
 // H100, or crashed. Phase clocks (phase_clocks.py): staging (the first
@@ -62,6 +69,16 @@ namespace coop = cooperative_groups;
 
 constexpr int kBwdWarps = 8, kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdMaxCluster = 8;
+constexpr size_t kBwdMaxSmem = 200 * 1024;   // sdim_bucket.py MAX_BWD_SMEM
+
+// Whether a user's dT and R exceed the shared copy (the SPILL kernel), and
+// whether R alone fits it.
+__host__ __device__ inline bool bwd_spills(int G, int U, int d, int m) {
+  return sizeof(float) * ((size_t)G * U * d + (size_t)m * d) > kBwdMaxSmem;
+}
+__host__ __device__ inline bool bwd_r_fits(int m, int d) {
+  return sizeof(float) * (size_t)m * d <= kBwdMaxSmem;
+}
 
 // A team of Q lanes holds N rows (lane q of a row: float4 columns q + Q s +
 // 8 j, s < 8/Q, j < J = ceil(d/32)) and hashes them at once; a warp's round
@@ -135,18 +152,20 @@ struct EncodeBwdLayout {
   size_t t, r, keys, w, bar, total;
 };
 
-// Dynamic shared memory: the user's dT (G*U dense rows), R (m dense rows),
+// Dynamic shared memory: the user's dT (G*U dense rows; none where it
+// spills), R (m dense rows; none where it spills and does not fit alone),
 // each warp's bucket ids (ceil(G/8) words a row, 4 bits a group) and row
 // weights for a round of `rows` rows, and the staging mbarrier.
 __host__ __device__ inline EncodeBwdLayout encode_bwd_layout(int G, int U, int d, int m,
                                                              int rows) {
+  const bool spill = bwd_spills(G, U, d, m), r_staged = !spill || bwd_r_fits(m, d);
   EncodeBwdLayout s;
   const int words = (G + 7) / 8;
   size_t o = 0;
   s.t = o;
-  o += align16(sizeof(float) * (size_t)G * U * d);
+  o += spill ? 0 : align16(sizeof(float) * (size_t)G * U * d);
   s.r = o;
-  o += align16(sizeof(float) * (size_t)m * d);
+  o += r_staged ? align16(sizeof(float) * (size_t)m * d) : 0;
   s.keys = o;
   o += align16(sizeof(unsigned) * kBwdWarps * rows * words);
   s.w = o;
@@ -157,7 +176,7 @@ __host__ __device__ inline EncodeBwdLayout encode_bwd_layout(int G, int U, int d
   return s;
 }
 
-template <typename T, int TAU, int J>
+template <typename T, int TAU, int J, bool SPILL>
 __global__ void __launch_bounds__(kBwdThreads)
     bse_encode_backward_kernel(const float* __restrict__ dT, const T* __restrict__ seq,
                                const float* __restrict__ mask, const float* __restrict__ R,
@@ -170,6 +189,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const EncodeBwdLayout lay = encode_bwd_layout(G, U, d, m, RW);
   float* t_s = reinterpret_cast<float*>(smem + lay.t);  // (G*U, d)
   float* r_s = reinterpret_cast<float*>(smem + lay.r);  // (m, d)
+  const bool r_staged = !SPILL || bwd_r_fits(m, d);
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem + lay.bar);
   coop::cluster_group cluster = coop::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
@@ -184,7 +204,10 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* w_s = reinterpret_cast<float*>(smem + lay.w) + warp * RW;
   PHASE_BEGIN();
 
-  const unsigned t_bytes = sizeof(float) * G * U * d, r_bytes = sizeof(float) * m * d;
+  const float* tb = SPILL ? dT + (size_t)b * G * U * d : t_s;  // the user's dT
+  const float* rb = r_staged ? r_s : R;
+  const unsigned t_bytes = SPILL ? 0u : sizeof(float) * G * U * d;
+  const unsigned r_bytes = r_staged ? sizeof(float) * m * d : 0u;
   if (tid == 0) {
     mbar_init(bar);
     mbar_expect(bar, t_bytes + r_bytes);  // the bytes every CTA of the cluster receives
@@ -219,8 +242,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     const unsigned char* gt = reinterpret_cast<const unsigned char*>(src_t);
     const unsigned char* gr = reinterpret_cast<const unsigned char*>(R);
     if (S == 1) {
-      bulk_copy(ts, gt, t_bytes, bar);
-      bulk_copy(rs, gr, r_bytes, bar);
+      if (t_bytes) bulk_copy(ts, gt, t_bytes, bar);
+      if (r_bytes) bulk_copy(rs, gr, r_bytes, bar);
     } else {
       if (t1 > t0) bulk_copy_multicast(ts + t0, gt + t0, t1 - t0, bar, all);
       if (r1 > r0) bulk_copy_multicast(rs + r0, gr + r0, r1 - r0, bar, all);
@@ -242,7 +265,7 @@ __global__ void __launch_bounds__(kBwdThreads)
       for (int k = 0; k < N; ++k) word[k] = 0u;
       for (int g = 0; g < G; ++g) {
         int u[N];
-        bucket_team_rows<TAU, Q, J, N>(xr, r_s + (size_t)g * TAU * d, nq, u);
+        bucket_team_rows<TAU, Q, J, N>(xr, rb + (size_t)g * TAU * d, nq, u);
 #pragma unroll
         for (int k = 0; k < N; ++k) word[k] |= static_cast<unsigned>(u[k]) << (4 * (g & 7));
         if ((g & 7) == 7 || g == G - 1) {
@@ -269,7 +292,7 @@ __global__ void __launch_bounds__(kBwdThreads)
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       if (wv != 0.f) {  // a masked row has no gradient
         const unsigned* kr = keys + r * words;
-        const float* tk = t_s + 4 * k;
+        const float* tk = tb + 4 * k;
         for (int g0 = 0; g0 < G; g0 += 8) {
           const unsigned word = kr[g0 / 8];
           const int ng = min(8, G - g0);
@@ -293,14 +316,14 @@ __global__ void __launch_bounds__(kBwdThreads)
   PHASE_END();
 }
 
-template <typename T, int TAU, int J>
+template <typename T, int TAU, int J, bool SPILL>
 static cudaError_t launch_backward_j(const float* dT, const void* seq, const float* mask,
                                      const float* R, void* dseq, int B, int L, int G, int d, int S,
                                      cudaStream_t stream) {
   const size_t smem =
       encode_bwd_layout(G, 1 << TAU, d, G * TAU, 32 / bwd_lanes<J>() * bwd_team_rows<J>()).total;
   void (*kernel)(const float*, const T*, const float*, const float*, T*, int, int, int) =
-      bse_encode_backward_kernel<T, TAU, J>;
+      bse_encode_backward_kernel<T, TAU, J, SPILL>;
   const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
@@ -324,12 +347,12 @@ static cudaError_t launch_backward_j(const float* dT, const void* seq, const flo
 
 // Clusters of S CTAs the card holds at once (0 where a CTA's shared memory
 // does not fit).
-template <typename T, int TAU, int J>
+template <typename T, int TAU, int J, bool SPILL>
 static int backward_clusters_j(int G, int d, int S) {
   const size_t smem =
       encode_bwd_layout(G, 1 << TAU, d, G * TAU, 32 / bwd_lanes<J>() * bwd_team_rows<J>()).total;
   void (*kernel)(const float*, const T*, const float*, const float*, T*, int, int, int) =
-      bse_encode_backward_kernel<T, TAU, J>;
+      bse_encode_backward_kernel<T, TAU, J, SPILL>;
   const void* fn = reinterpret_cast<const void*>(kernel);
   if (allow_smem(fn, smem) != cudaSuccess) {
     cudaGetLastError();  // a refused size is an answer, not a launch error
@@ -340,9 +363,10 @@ static int backward_clusters_j(int G, int d, int S) {
 
 template <typename T, int TAU>
 static int backward_clusters_tau(int G, int d, int S) {
-  if (d <= 32) return backward_clusters_j<T, TAU, 1>(G, d, S);
-  if (d <= 64) return backward_clusters_j<T, TAU, 2>(G, d, S);
-  return backward_clusters_j<T, TAU, 4>(G, d, S);
+  if (bwd_spills(G, 1 << TAU, d, G * TAU)) return backward_clusters_j<T, TAU, 4, true>(G, d, S);
+  if (d <= 32) return backward_clusters_j<T, TAU, 1, false>(G, d, S);
+  if (d <= 64) return backward_clusters_j<T, TAU, 2, false>(G, d, S);
+  return backward_clusters_j<T, TAU, 4, false>(G, d, S);
 }
 
 template <typename T>
@@ -360,9 +384,13 @@ template <typename T, int TAU>
 static cudaError_t launch_backward_tau(const float* dT, const void* seq, const float* mask,
                                        const float* R, void* dseq, int B, int L, int G, int d,
                                        int S, cudaStream_t stream) {
-  if (d <= 32) return launch_backward_j<T, TAU, 1>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
-  if (d <= 64) return launch_backward_j<T, TAU, 2>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
-  return launch_backward_j<T, TAU, 4>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  if (bwd_spills(G, 1 << TAU, d, G * TAU))  // dT (and R where it does not fit) from memory
+    return launch_backward_j<T, TAU, 4, true>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  if (d <= 32)
+    return launch_backward_j<T, TAU, 1, false>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  if (d <= 64)
+    return launch_backward_j<T, TAU, 2, false>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
+  return launch_backward_j<T, TAU, 4, false>(dT, seq, mask, R, dseq, B, L, G, d, S, stream);
 }
 
 template <typename T>
@@ -384,18 +412,19 @@ static cudaError_t launch_backward(const float* dT, const void* seq, const float
 
 // dT (B, G*U, d) fp32, seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d)
 // fp32 -> dseq (B, L, d) in seq's type, every element written; clusters of
-// S CTAs (1..8) a user (tau 1..4; `staged` ignored). tau 5..10 launch the
-// large-tau path (bse_encode_large_tau.cu): S CTAs a user (1..L), each a
-// chunk of its rows, with the user's dT in shared memory where `staged`.
+// S CTAs (1..8) a user (tau 1..4, spilling dT where bwd_spills; `layout`
+// ignored). tau 5..10 launch the large-tau path (bse_encode_backward_large_tau.cu):
+// S CTAs a user (1..L), each a chunk of its rows, in `layout` (large_tau.cuh
+// kLtBwd*: 0 R in shared memory, 1 dT and R, 2 neither).
 extern "C" int sdim_bse_encode_backward(const float* dT, const void* seq, int seq_dtype,
                                         const float* mask, const float* R, void* dseq, int B,
                                         int L, int G, int U, int d, int m, int tau, int S,
-                                        int staged, void* stream) {
+                                        int layout, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
   if (tau > 4)  // large_tau.cuh
     return sdim::launch_encode_backward_large_tau(dT, seq, seq_dtype, mask, R, dseq, B, L, G, U,
-                                                  d, tau, S, staged != 0, s);
+                                                  d, tau, S, layout, s);
   switch (seq_dtype) {
     case sdim::kF32:
       return sdim::launch_backward<float>(dT, seq, mask, R, dseq, B, L, G, d, tau, S, s);
@@ -424,13 +453,13 @@ extern "C" int sdim_bse_encode_backward_clusters(int seq_dtype, int G, int d, in
   }
 }
 
-// The CTAs of the large-tau backward (tau 5..10) at (G, d, tau, L) with the
-// user's dT staged in shared memory (staged = 1) or gathered from device
-// memory (0) that one SM of the current device holds at once (0 where a
-// CTA's shared memory does not fit; -1 for arguments the kernel does not
-// take): encode_backward_large_tau_split in sdim_bucket.py picks the
-// layout and the CTAs a user from it.
+// The CTAs of the large-tau backward (tau 5..10) at (G, d, tau, L) in
+// `layout` (1: the user's dT and R staged in shared memory; 0: R staged, dT
+// gathered from device memory; 2: neither staged) that one SM of the
+// current device holds at once (0 where a CTA's shared memory does not fit;
+// -1 for arguments the kernel does not take): encode_backward_large_tau_split
+// in sdim_bucket.py picks the layout and the CTAs a user from it.
 extern "C" int sdim_bse_encode_backward_large_tau_ctas(int seq_dtype, int G, int d, int tau, int L,
-                                                       int staged) {
-  return sdim::encode_backward_large_tau_ctas(seq_dtype, G, d, tau, L, staged != 0);
+                                                       int layout) {
+  return sdim::encode_backward_large_tau_ctas(seq_dtype, G, d, tau, L, layout);
 }

@@ -13,7 +13,8 @@
 // sdim_query_backward.cu, sdim_update.cu, sdim_fused_serve.cu, bse_serve.cu)
 // launches these for tau > 4 (bse_serve.cu also where its tau <= 4 body's
 // cluster cannot hold the groups: tau = 1 at m = 48). The kernels are in
-// bse_encode_large_tau.cu, ../../sdim_query/csrc/sdim_query_large_tau.cu,
+// bse_encode_large_tau.cu, bse_encode_backward_large_tau.cu,
+// ../../sdim_query/csrc/sdim_query_large_tau.cu,
 // ../../sdim_update/csrc/sdim_update_large_tau.cu,
 // ../../sdim_fused_serve/csrc/sdim_fused_serve_large_tau.cu and
 // ../../sdim_serve/csrc/bse_serve_large_tau.cu.
@@ -484,23 +485,32 @@ __device__ __forceinline__ void link_heads(const short* keys, short* list, int n
   }
 }
 
+// The shapes the training kernels of bse_encode's large-tau paths take.
+inline bool large_tau_shape_ok(int B, int G, int U, int d, int tau) {
+  return B >= 0 && G > 0 && tau >= kLargeTauMin && tau <= kLargeTauMax && U == (1 << tau) &&
+         d > 0 && d % 4 == 0 && d <= 128;
+}
+
 // seq (B, L, d) fp32|bf16 -> table (B, G, U, d) fp32 (bse_encode.cu's function).
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,
                                     const float* R, float* out, int B, int L, int G, int U,
                                     int d, int tau, cudaStream_t stream);
 
 // dT (B, G, U, d) fp32 -> dseq (B, L, d) in seq's type (bse_encode_backward.cu's):
-// S CTAs a user (1..L), each a chunk of its rows; the user's dT copied into
-// shared memory where `staged`, else gathered from device memory.
+// S CTAs a user (1..L), each a chunk of its rows; `layout` (sdim_bucket.py
+// LT_BWD_*): the user's dT and R copied into shared memory (kLtBwdStaged),
+// R only (kLtBwdR: dT gathered from device memory), or neither
+// (kLtBwdDevice: R read from device memory too).
+constexpr int kLtBwdR = 0, kLtBwdStaged = 1, kLtBwdDevice = 2;
 cudaError_t launch_encode_backward_large_tau(const float* dT, const void* seq, int seq_dtype,
                                              const float* mask, const float* R, void* dseq,
                                              int B, int L, int G, int U, int d, int tau, int S,
-                                             bool staged, cudaStream_t stream);
+                                             int layout, cudaStream_t stream);
 
-// The CTAs of that backward one SM holds at once at (G, d, tau, L), dT
-// staged or not (0: a CTA's shared memory does not fit; -1: a shape it
-// does not take).
-int encode_backward_large_tau_ctas(int seq_dtype, int G, int d, int tau, int L, bool staged);
+// The CTAs of that backward one SM holds at once at (G, d, tau, L) in
+// `layout` (0: a CTA's shared memory does not fit; -1: a shape it does not
+// take).
+int encode_backward_large_tau_ctas(int seq_dtype, int G, int d, int tau, int L, int layout);
 
 // table (B, G, U, d) fp32|bf16, q (B, C, d) -> out (B, C, d) fp32 (sdim_query.cu's).
 cudaError_t launch_query_large_tau(const void* table, int table_dtype, const float* q,
@@ -514,11 +524,12 @@ cudaError_t launch_query_backward_large_tau(const float* dout, const float* q,
                                             cudaStream_t stream);
 
 // events (B, E, d) fp32|bf16 with mask (B, E) folded into the rows slots (B,)
-// of the fp32 store (N, G, U, d) in place, E up to 8,192 (sdim_update.cu's
-// function).
+// of the fp32 store (N, G, U, d) in place, any E; work holds B*G*U*d floats
+// of scratch where E > 8,192 (sdim_update.cu's function).
 cudaError_t launch_update_large_tau(float* store, const int* slots, const void* events,
-                                   int ev_dtype, const float* mask, const float* R, int B, int E,
-                                   int G, int U, int d, int tau, cudaStream_t stream);
+                                   int ev_dtype, const float* mask, const float* R, float* work,
+                                   int B, int E, int G, int U, int d, int tau,
+                                   cudaStream_t stream);
 
 // store (N, G, U, d) fp32|bf16|int8|fp8 [+ scales (N, G, U)], slots (B,),
 // present (B,) or null, q (B, C, d) -> out (B, C, d) fp32

@@ -11,18 +11,23 @@ its slice of the table once (no atomics, no zero-filled output). tau 5..10
 (32..1,024 buckets a group, more than a CTA's registers hold) launch the
 large-tau path (``csrc/bse_encode_large_tau.cu``: a CTA a slice of
 ``encode_large_tau_splits`` whole groups lists the user's rows by bucket
-and writes each cell once); so does the backward (``csrc/bse_encode_large_tau.cu``:
+and writes each cell once); so does the backward (``csrc/bse_encode_backward_large_tau.cu``:
 ``encode_backward_large_tau_split`` CTAs a user, each a chunk of its rows,
 hashing each valid row once with the forward's arithmetic and gathering its
 G rows of dT from a copy of the user's dT in shared memory where it fits,
-else from device memory).
+else from device memory, and reading R from device memory where R does not
+fit a CTA either). Both forward paths take any L: a user of more than
+``MAX_L`` rows is listed in spans of ``MAX_L`` (``encode_spans``), each
+CTA's sums carried from span to span in row order.
 
 Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
 ``bse_encode_backward``: the CUDA kernel ``csrc/bse_encode_backward.cu`` on
 the card (no TPU kernel corresponds to it: the JAX package differentiates
 the XLA formulation; at tau <= 4 a cluster of ``backward_splits`` CTAs a
-user shares one multicast copy of its dT and R), its closed-form plain
+user shares one multicast copy of its dT and R, or, past ``MAX_BWD_SMEM``,
+reads dT, and R where it does not fit alone, from device memory:
+``backward_layout``), its closed-form plain
 version on the CPU. Signatures
 are comparisons and carry no gradient, so the gradient of the table
 T[b,g,u] = sum_l [sig_g(s_bl) = u] mask_bl s_bl is a gather,
@@ -39,7 +44,8 @@ from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
 
 MAX_CELLS = 16      # (group, bucket) sums a CTA holds in registers (bse_encode.cu kCells)
-MAX_L = 32768       # behaviors a user: the kernel's list of 8-row batches lives in shared memory
+MAX_L = 32768       # behaviors a span: the forward's lists (of 8-row batches at tau <= 4, of
+                    # rows at tau 5..10) live in shared memory; longer users go in spans
 MAX_BWD_SMEM = 200 * 1024   # the backward's shared copy of a user's table and of R (tau <= 4)
 MAX_TAU = 10        # tau 5..MAX_TAU: the large-tau path (csrc/large_tau.cuh), d up to 128
 
@@ -49,6 +55,12 @@ def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
     """(B, L, d), (B, L), (m, d) -> bucket table (B, G, U, d) fp32."""
     sig = simhash.signatures(seq, R, tau)
     return sdim.bucket_table(seq, sig, mask, 1 << tau)
+
+
+def encode_spans(L: int) -> int:
+    """The spans of at most ``MAX_L`` rows that the forward lists a user of
+    L rows in, one after another (one at L <= MAX_L, the path as it was)."""
+    return max(1, -(-L // MAX_L))
 
 
 def encode_splits(B: int, G: int, U: int, n_sm: int) -> int:
@@ -98,8 +110,8 @@ def encode_large_tau_splits(B: int, G: int, U: int, L: int, d: int, tau: int,
                             n_sm: int) -> tuple[int, int, int]:
     """(Gs, slices, threads) of the large-tau forward
     (``csrc/bse_encode_large_tau.cu``): ``large_tau_list_splits`` over the
-    user's L behaviors, which each slice reads."""
-    return large_tau_list_splits(B, G, U, L, d, tau, n_sm, reread=True)
+    rows of a span of the user's L behaviors, which each slice reads."""
+    return large_tau_list_splits(B, G, U, min(L, MAX_L), d, tau, n_sm, reread=True)
 
 
 def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -145,9 +157,9 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
         raise ValueError(f"bse_encode: shapes seq {tuple(seq.shape)} mask "
                          f"{tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128 or L > MAX_L:
-        raise ValueError(f"bse_encode: the kernel takes tau 1..{MAX_TAU}, d a multiple of 4 "
-                         f"up to 128 and L up to {MAX_L}; got tau {tau}, d {d}, L {L}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128:
+        raise ValueError(f"bse_encode: the kernel takes tau 1..{MAX_TAU} and d a multiple of 4 "
+                         f"up to 128; got tau {tau}, d {d}")
     code = _build.dtype_code("bse_encode", seq, (torch.float32, torch.bfloat16))
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("bse_encode: mask and R must be float32")
@@ -183,6 +195,18 @@ def bse_encode_backward_ref(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Ten
     return (acc * mask.float()[..., None]).to(seq.dtype)
 
 
+def backward_layout(G: int, U: int, d: int, m: int) -> str:
+    """Where the tau <= 4 backward keeps a user's dT and R
+    (``bwd_spills``/``bwd_r_fits`` in ``csrc/bse_encode_backward.cu``):
+    ``"shared"`` (one multicast copy of both in a CTA's shared memory)
+    while they fit ``MAX_BWD_SMEM``, else ``"spill"`` (dT read from device
+    memory, R shared) while R alone fits, else ``"spill_r"`` (both read
+    from device memory)."""
+    if 4 * (G * U * d + m * d) <= MAX_BWD_SMEM:
+        return "shared"
+    return "spill" if 4 * m * d <= MAX_BWD_SMEM else "spill_r"
+
+
 BWD_MAX_CLUSTER = 8   # csrc/bse_encode_backward.cu kBwdMaxCluster: CTAs a user
 BWD_WARPS = 8         # warps a CTA of the backward (kBwdWarps)
 BWD_ROUND = 16        # rows a warp hashes and gathers at once: two a team of four lanes
@@ -214,8 +238,12 @@ def launch_splits(B: int, L: int, G: int, d: int, tau: int, seq_dtype: torch.dty
         lambda S: _build.clusters("sdim_bse_encode_backward_clusters", dev, code, G, d, tau, S))
 
 
-BWD_LT_ROUND = 256    # csrc/bse_encode_large_tau.cu kBwdLtThreads: a large-tau backward
+BWD_LT_ROUND = 256    # csrc/bse_encode_backward_large_tau.cu kBwdLtThreads: a large-tau backward
                       # CTA's threads, so its round of rows is 256 / row_lanes(L, d)
+# the large-tau backward's layouts (csrc/large_tau.cuh kLtBwd*): R in a CTA's
+# shared memory and dT gathered from device memory; dT and R both there; neither
+LT_BWD_R, LT_BWD_STAGED, LT_BWD_DEVICE = 0, 1, 2
+BWD_LT_DEVICE_Q = 4   # kBwdLtDeviceQ: row lanes of the LT_BWD_DEVICE layout
 
 
 def row_lanes(n: int, d: int) -> int:
@@ -226,35 +254,38 @@ def row_lanes(n: int, d: int) -> int:
 
 
 def encode_backward_large_tau_split(B: int, L: int, d: int, n_sm: int,
-                                    ctas: Callable[[bool], int]) -> tuple[bool, int]:
-    """(staged, S) of the large-tau backward (``csrc/bse_encode_large_tau.cu``):
-    ``staged`` where a CTA holds the user's whole dT beside R and a round's
-    bucket ids (``ctas(True)`` > 0; else each row's G rows of dT are
-    gathered from device memory), and S CTAs a user, each a chunk of its
-    rows: as many as the ``n_sm`` SMs hold in one wave (``ctas(staged)`` a
-    SM), at most one a round of ``BWD_LT_ROUND / row_lanes(L, d)`` rows, at
-    least one. ``ctas(staged)``: the CTAs an SM holds at once
-    (``launch_large_tau_split`` asks the card; 0 where a CTA's shared memory
-    does not fit)."""
-    staged = ctas(True) > 0
-    per_sm = ctas(staged)
-    rounds = -(-L // (BWD_LT_ROUND // row_lanes(L, d)))
-    return staged, max(1, min(rounds, n_sm * per_sm // max(B, 1)))
+                                    ctas: Callable[[int], int]) -> tuple[int, int]:
+    """(layout, S) of the large-tau backward (``csrc/bse_encode_backward_large_tau.cu``):
+    ``LT_BWD_STAGED`` (True) where a CTA holds the user's whole dT beside R
+    and a round's bucket ids (``ctas(True)`` > 0), else ``LT_BWD_R`` (False:
+    each row's G rows of dT gathered from device memory) where R and a
+    round's ids fit (``ctas(False)`` > 0), else ``LT_BWD_DEVICE`` (R read
+    from device memory too, ``BWD_LT_DEVICE_Q`` lanes a row); and S CTAs a
+    user, each a chunk of its rows: as many as the ``n_sm`` SMs hold in one
+    wave (``ctas(layout)`` a SM), at most one a round of ``BWD_LT_ROUND``
+    / lanes rows (``row_lanes(L, d)``), at least one. ``ctas(layout)``: the
+    CTAs an SM holds at once (``launch_large_tau_split`` asks the card; 0
+    where a CTA's shared memory does not fit)."""
+    lanes = row_lanes(L, d)
+    if ctas(True) > 0:
+        layout = True
+    elif ctas(False) > 0:
+        layout = False
+    else:
+        layout, lanes = LT_BWD_DEVICE, BWD_LT_DEVICE_Q
+    per_sm = ctas(layout)
+    rounds = -(-L // (BWD_LT_ROUND // lanes))
+    return layout, max(1, min(rounds, n_sm * per_sm // max(B, 1)))
 
 
 def launch_large_tau_split(B: int, L: int, G: int, d: int, tau: int, seq_dtype: torch.dtype,
-                           dev: torch.device) -> tuple[bool, int]:
+                           dev: torch.device) -> tuple[int, int]:
     """``encode_backward_large_tau_split`` with ``dev``'s SM count and
     capacity at (G, d, tau, L): the layout and CTAs a user
-    ``bse_encode_backward`` launches there at tau 5..10. Raises where no
-    layout fits a CTA (R and a round's ids alone exceed its shared
-    memory)."""
+    ``bse_encode_backward`` launches there at tau 5..10."""
     code = _build.DTYPE_CODES[seq_dtype]
-    fit = lambda staged: _build.clusters("sdim_bse_encode_backward_large_tau_ctas", dev, code,
-                                         G, d, tau, L, int(staged))
-    if fit(False) == 0:
-        raise ValueError(f"bse_encode_backward: R ({G * tau} x {d}) and a round's bucket ids "
-                         f"do not fit a CTA's shared memory at tau {tau}")
+    fit = lambda layout: _build.clusters("sdim_bse_encode_backward_large_tau_ctas", dev, code,
+                                         G, d, tau, L, int(layout))
     return encode_backward_large_tau_split(B, L, d, _build.sm_count(dev), fit)
 
 
@@ -269,12 +300,13 @@ def bse_encode_backward(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
 
 def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Tensor,
                              R: torch.Tensor, tau: int, splits: Optional[int] = None,
-                             staged: Optional[bool] = None) -> torch.Tensor:
+                             staged: Optional[int] = None) -> torch.Tensor:
     """The kernel launch of ``bse_encode_backward`` with ``splits`` CTAs a
     user, each a chunk of its rows: 1..8 at tau <= 4 (None:
     ``launch_splits`` for this device), 1..L at tau 5..10, where ``staged``
-    says whether a CTA copies the user's dT into shared memory (None for
-    either: ``launch_large_tau_split``)."""
+    is the layout (True / ``LT_BWD_STAGED``: the user's dT copied into a
+    CTA's shared memory; False / ``LT_BWD_R``: R only; ``LT_BWD_DEVICE``:
+    neither; None for either: ``launch_large_tau_split``)."""
     B, L, d = seq.shape
     m = R.shape[0]
     G, U = m // tau, 1 << tau
@@ -283,11 +315,9 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
         raise ValueError(f"bse_encode_backward: shapes dT {tuple(dT.shape)} seq "
                          f"{tuple(seq.shape)} mask {tuple(mask.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if (not 1 <= tau <= MAX_TAU or d % 4 or d > 128
-            or tau <= 4 and 4 * (G * U * d + m * d) > MAX_BWD_SMEM):
-        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..{MAX_TAU}, d a multiple "
-                         f"of 4 up to 128 and, at tau <= 4, a user's table and R within "
-                         f"{MAX_BWD_SMEM} bytes of shared memory; got tau {tau}, d {d}, m {m}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128:
+        raise ValueError(f"bse_encode_backward: the kernel takes tau 1..{MAX_TAU} and d a "
+                         f"multiple of 4 up to 128; got tau {tau}, d {d}")
     code = _build.dtype_code("bse_encode_backward", seq, (torch.float32, torch.bfloat16))
     for name, t in (("dT", dT), ("mask", mask), ("R", R)):
         if t.dtype != torch.float32:
@@ -310,11 +340,14 @@ def bse_encode_backward_cuda(dT: torch.Tensor, seq: torch.Tensor, mask: torch.Te
             splits = S if splits is None else splits
         if not 1 <= splits <= L:
             raise ValueError(f"bse_encode_backward: {splits} CTAs a user of {L} rows")
+        if int(staged) not in (LT_BWD_R, LT_BWD_STAGED, LT_BWD_DEVICE):
+            raise ValueError(f"bse_encode_backward: layout {staged} (takes {LT_BWD_R}, "
+                             f"{LT_BWD_STAGED}, {LT_BWD_DEVICE})")
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_bse_encode_backward(dT.data_ptr(), seq.data_ptr(), code, mask.data_ptr(),
                                            R.data_ptr(), out.data_ptr(), B, L, G, U, d, m, tau,
-                                           splits, int(bool(staged)), _build.stream(dev))
+                                           splits, int(staged or 0), _build.stream(dev))
     _build.check(err, "bse_encode_backward")
     bse_encode_backward.launches += 1
     return out

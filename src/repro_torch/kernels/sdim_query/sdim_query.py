@@ -18,7 +18,10 @@ order by whichever CTA reads it); a shape neither launches raises. tau
 large-tau body, a team of eight lanes a (candidate, group) hashing and
 reading only the row it selects), as the backward does (a CTA a slice of
 ``query_backward_large_tau_splits`` whole groups lists the candidates by
-bucket, reads only the selected rows and writes the rest +0).
+bucket, reads only the selected rows and writes the rest +0; more than
+``MAX_BWD_CANDS`` candidates are listed in chunks of that many, each
+selected row's partial gradient carried from chunk to chunk in its own row
+of dT: ``query_backward_large_tau_path``).
 
 Where autograd records the call (grad mode on, the table requiring grad)
 the wrapper goes through ``SDIMQueryFn``, whose backward is
@@ -45,7 +48,7 @@ from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, large_tau_list_splits
 
-MAX_BWD_CANDS = 16384   # the large-tau backward's candidate lists in shared memory
+MAX_BWD_CANDS = 16384   # candidates a chunk of the large-tau backward lists in shared memory
 WIDE_MAX_CANDS = 8      # csrc/wide_query.cuh kWideMaxCands: candidates a CTA of the wide path
 MAX_BWD_D = 2048        # the backward's rows in a warp's registers (tau <= 4)
 
@@ -170,9 +173,17 @@ def query_backward_splits(B: int, G: int, n_sm: int) -> int:
 def query_backward_large_tau_splits(B: int, G: int, U: int, C: int, d: int, tau: int,
                                     n_sm: int) -> tuple[int, int, int]:
     """(Gs, slices, threads) of the large-tau backward
-    (``csrc/sdim_query_large_tau.cu``): ``large_tau_list_splits`` over the
-    user's C candidates."""
-    return large_tau_list_splits(B, G, U, C, d, tau, n_sm, reread=False)
+    (``csrc/sdim_query_large_tau.cu``): ``large_tau_list_splits`` over a
+    chunk of the user's C candidates."""
+    return large_tau_list_splits(B, G, U, min(C, MAX_BWD_CANDS), d, tau, n_sm, reread=False)
+
+
+def query_backward_large_tau_path(C: int) -> str:
+    """The large-tau backward's path for C candidates a user: ``"lists"``
+    (one list a bucket of all C, ``row_lanes(C, d)`` lanes a pair) up to
+    ``MAX_BWD_CANDS``, else ``"chunked"`` (chunks of that many, 4 lanes a
+    pair at any d)."""
+    return "lists" if C <= MAX_BWD_CANDS else "chunked"
 
 
 def sdim_query_backward(dout: torch.Tensor, q: torch.Tensor, table: torch.Tensor,
@@ -197,11 +208,10 @@ def sdim_query_backward_cuda(dout: torch.Tensor, q: torch.Tensor, table: torch.T
         raise ValueError(f"sdim_query_backward: shapes dout {tuple(dout.shape)} q "
                          f"{tuple(q.shape)} table {tuple(table.shape)} R {tuple(R.shape)} "
                          f"tau {tau}")
-    if (not 1 <= tau <= MAX_TAU or d % 4 or d > MAX_BWD_D
-            or tau > 4 and (d > 128 or C > MAX_BWD_CANDS)):
+    if not 1 <= tau <= MAX_TAU or d % 4 or d > MAX_BWD_D or tau > 4 and d > 128:
         raise ValueError(f"sdim_query_backward: the kernel takes tau 1..{MAX_TAU} and d a "
-                         f"multiple of 4 up to {MAX_BWD_D} (above tau 4: d up to 128 and C "
-                         f"up to {MAX_BWD_CANDS}); got tau {tau}, d {d}, C {C}")
+                         f"multiple of 4 up to {MAX_BWD_D} (above tau 4: d up to 128); got "
+                         f"tau {tau}, d {d}, C {C}")
     for name, t in (("dout", dout), ("q", q), ("table", table), ("R", R)):
         if t.dtype != torch.float32:
             raise TypeError(f"sdim_query_backward: {name} must be float32")

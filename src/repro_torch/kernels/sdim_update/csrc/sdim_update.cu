@@ -471,15 +471,16 @@ PHASE_READER(sdim_update_phases)
 
 // store (N, G*U, d) fp32 updated in place; slots (B,) int32 in [0, N);
 // events (B, E, d) fp32|bf16; mask (B, E) fp32; R (m, d) fp32; S group
-// slices per batch row (tau <= 4).
+// slices per batch row (tau <= 4); work: B*G*U*d floats of scratch where
+// tau > 4 and E > 8,192 (the large-tau path's chunks), else unused (null).
 extern "C" int sdim_update(float* store, const int* slots, const void* events, int ev_dtype,
-                           const float* mask, const float* R, int B, int E, int G, int U, int d,
-                           int m, int tau, int S, void* stream) {
+                           const float* mask, const float* R, float* work, int B, int E, int G,
+                           int U, int d, int m, int tau, int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
   if (tau > 4)  // large_tau.cuh
-    return sdim::launch_update_large_tau(store, slots, events, ev_dtype, mask, R, B, E, G, U, d,
-                                         tau, s);
+    return sdim::launch_update_large_tau(store, slots, events, ev_dtype, mask, R, work, B, E, G,
+                                         U, d, tau, s);
   switch (ev_dtype) {
     case sdim::kF32:
       return sdim::launch_tau<float>(store, slots, events, mask, R, B, E, G, d, tau, S, s);

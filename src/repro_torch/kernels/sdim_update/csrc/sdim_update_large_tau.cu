@@ -57,9 +57,19 @@
 //   rows gives the same bits.)
 // - A later sub-window starts from the cells the earlier one wrote: the same
 //   CTA, ordered by a barrier.
-// Takes tau 5..10, d a multiple of 4 up to 128, events fp32 or bf16, E up to
-// kUpdateMaxE (sdim_update.py UPDATE_LT_MAX_E: a sub-window's buckets,
-// weights and lists in shared memory); the store is updated in place.
+// - Rows of more than kUpdateMaxE events (sdim_update.py UPDATE_LT_MAX_E: a
+//   sub-window's buckets, weights and lists live in shared memory) take the
+//   chunked path (CHUNKED): each owned row's events in chunks of kUpdateMaxE,
+//   each chunk hashed and sorted as a sub-window, a cell's partial row sum
+//   carried from chunk to chunk in a device scratch of U * d floats a CTA
+//   (the wrapper's `work`, allocated on this path only; a bucket mark a cell
+//   in shared memory says whether it holds one), the fmaf chain continued
+//   from it in e order; after the row's last chunk every marked cell of the
+//   store gets cell + sum, once, in b order. So the same operations in the
+//   same order as one sub-window of all E events, with the same contracts;
+//   the store is never written with a partial sum.
+// Takes tau 5..10, d a multiple of 4 up to 128, events fp32 or bf16, any E;
+// the store is updated in place.
 // Phase clocks (phase_clocks.py fold): the loads and copies (until R and
 // row b's events land), the owner barrier, the owner list, the hash, its
 // barrier, the sort (+ barrier), the fold (cell and event loads, sums,
@@ -72,7 +82,7 @@ constexpr int kUpdateRows = kLargeTauThreads;    // batch rows a window lists
 constexpr int kUpdateTeams = kLargeTauThreads / kEncodeHashLanes;  // events hashed a round
 constexpr int kUpdateEvents = kLargeTauThreads;  // events a sub-window holds at E <= 256
 constexpr int kUpdateInFlight = 4;               // a cell's event loads issued together
-constexpr int kUpdateMaxE = 8192;                // sdim_update.py UPDATE_LT_MAX_E
+constexpr int kUpdateMaxE = 8192;                // sdim_update.py UPDATE_LT_MAX_E: a chunk
 
 // Dynamic shared memory: R's rows of the group, the window's owned rows,
 // a sub-window's buckets, weights, ranks and sorted events, a count (then a
@@ -87,6 +97,8 @@ __host__ __device__ inline int update_cells(int E, int U) {
 struct UpdateLayout {
   size_t rows, key, w, rank, sorted, cnt, cell, total;
 };
+// E events a sub-window (the chunked path: kUpdateMaxE, and a mark a bucket
+// after `total`).
 __host__ __device__ inline UpdateLayout update_layout(int E, int U, int d, int tau) {
   const size_t cap = update_cap(E), cells = update_cells(E, U);
   UpdateLayout s;
@@ -101,15 +113,22 @@ __host__ __device__ inline UpdateLayout update_layout(int E, int U, int d, int t
   return s;
 }
 
-template <typename T, int TAU>
+__host__ __device__ inline size_t update_smem(int E, int U, int d, int tau, bool chunked) {
+  return chunked ? update_layout(kUpdateMaxE, U, d, tau).total + sizeof(int) * U
+                 : update_layout(E, U, d, tau).total;
+}
+
+template <typename T, int TAU, bool CHUNKED>
 __global__ void __launch_bounds__(kLargeTauThreads, 2)
     update_large_tau_kernel(float* __restrict__ store, const int* __restrict__ slots,
                             const T* __restrict__ events, const float* __restrict__ mask,
-                            const float* __restrict__ R, int B, int E, int G, int d) {
+                            const float* __restrict__ R, float* __restrict__ work, int B, int E,
+                            int G, int d) {
   constexpr int U = 1 << TAU;
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const UpdateLayout lay = update_layout(E, U, d, TAU);
+  const int Ec = CHUNKED ? kUpdateMaxE : E;  // events a sub-window holds
+  const UpdateLayout lay = update_layout(Ec, U, d, TAU);
   float* r_s = reinterpret_cast<float*>(smem);
   int* rows_s = reinterpret_cast<int*>(smem + lay.rows);  // the window's owned batch rows
   int* key_s = reinterpret_cast<int*>(smem + lay.key);    // an event's bucket, -1: none
@@ -118,8 +137,9 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   int* sorted_s = reinterpret_cast<int*>(smem + lay.sorted);
   int* cnt_s = reinterpret_cast<int*>(smem + lay.cnt);    // a bucket's count, then start
   int* cell_key = reinterpret_cast<int*>(smem + lay.cell);  // each cell's bucket, start, count
-  int* cell_start = cell_key + update_cells(E, U);
-  int* cell_count = cell_start + update_cells(E, U);
+  int* cell_start = cell_key + update_cells(Ec, U);
+  int* cell_count = cell_start + update_cells(Ec, U);
+  int* mark_s = reinterpret_cast<int*>(smem + lay.total);  // CHUNKED: a bucket's sum is in work
   __shared__ int count_s[kLargeTauThreads / 32];
   __shared__ int n_cells_s;
   const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x, nq = d / 4;
@@ -139,6 +159,8 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   const int slot = __ldg(slots + b);
   const int first_slot = b + tid < B ? __ldg(slots + b + tid) : -1;
   for (int u = tid; u < U; u += blockDim.x) cnt_s[u] = 0;
+  if (CHUNKED)
+    for (int u = tid; u < U; u += blockDim.x) mark_s[u] = 0;
   bool earlier = false;
   for (int i = tid; i < b; i += blockDim.x) earlier |= __ldg(slots + i) == slot;
   cp_async_wait<0>();  // R, before the barriers that publish it (or the CTA leaves)
@@ -147,6 +169,7 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   PHASE_MARK(1);
 
   float* row = store + ((size_t)slot * G + g) * U * d;  // group g of the store row
+  float* part_row = CHUNKED ? work + ((size_t)b * G + g) * U * d : nullptr;  // the row's sums
   const int W = E < kUpdateEvents ? kUpdateEvents / E : 1;  // owned rows a sub-window
   for (int p = b; p < B; p += kUpdateRows) {
     // the window's batch rows with this slot, in b order
@@ -164,12 +187,14 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
     if (mine) rows_s[before + __popc(ballot & ((1u << lane) - 1u))] = i;
     __syncthreads();
     PHASE_MARK(2);
-    auto event = [&](int s0, int k) -> const T* {  // event k of a sub-window
-      return events + ((size_t)rows_s[s0 + k / E] * E + k % E) * d;
-    };
 
-    for (int s0 = 0; s0 < count; s0 += W) {  // the same trip counts for every thread
-      const int n = min(W, count - s0) * E;
+    for (int s0 = 0; s0 < count; s0 += W)  // the same trip counts for every thread
+    for (int e0 = 0; e0 < E; e0 += Ec) {   // a sub-window; CHUNKED: a chunk of row s0
+      const int n = CHUNKED ? min(Ec, E - e0) : min(W, count - s0) * E;
+      auto flat = [&](int k) -> size_t {    // the event index of event k of the sub-window
+        return CHUNKED ? (size_t)rows_s[s0] * E + e0 + k : (size_t)rows_s[s0 + k / E] * E + k % E;
+      };
+      auto event = [&](int, int k) -> const T* { return events + flat(k) * d; };
 
       // hash: each event's bucket (-1 where its weight is 0) and weight; a
       // warp with no event left skips the round
@@ -179,13 +204,13 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
         const bool live = k < n;
         float4 x[1][kLargeTauCols];
         float w;
-        if (p == b && s0 == 0 && k < n_pre) {  // row b's, loaded at the start
+        if (p == b && s0 == 0 && e0 == 0 && k < n_pre) {  // row b's, loaded at the start
 #pragma unroll
           for (int j = 0; j < kLargeTauCols; ++j) x[0][j] = xpre[0][j];
           w = wpre;
         } else {
           load_cols(x[0], event(s0, live ? k : 0), nq, live);
-          w = live ? __ldg(mask + (size_t)rows_s[s0 + k / E] * E + k % E) : 0.f;
+          w = live ? __ldg(mask + flat(k)) : 0.f;
         }
         int u[1];
         bucket_rows<TAU, 1>(x, r_s, d, u);
@@ -275,6 +300,34 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
         const int c = c0 + team;
         if (c >= n_cells) break;
         const int u = cell_key[c], start = cell_start[c], cnt = cell_count[c];
+        if (CHUNKED) {  // the chunk's events continue the row's sum in work
+          float* psum = part_row + (size_t)u * d;
+          float4 delta[kLargeTauCols];
+          load_cols(delta, psum, nq, mark_s[u] != 0);  // +0 where no earlier chunk reached it
+          for (int v0 = 0; v0 < cnt; v0 += kUpdateInFlight) {
+            int ks[kUpdateInFlight];
+            float4 xs[kUpdateInFlight][kLargeTauCols];
+#pragma unroll
+            for (int v = 0; v < kUpdateInFlight; ++v) {
+              ks[v] = v0 + v < cnt ? sorted_s[start + v0 + v] : 0;
+              load_cols(xs[v], event(s0, ks[v]), nq, v0 + v < cnt);
+            }
+#pragma unroll
+            for (int v = 0; v < kUpdateInFlight; ++v) {
+              if (v0 + v >= cnt) break;
+              const float w = w_s[ks[v]];
+#pragma unroll
+              for (int j = 0; j < kLargeTauCols; ++j) delta[j] = axpy4(w, xs[v][j], delta[j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kLargeTauCols; ++j) {
+            const int k4 = part + j * kEncodeHashLanes;
+            if (k4 < nq) store4(psum + 4 * k4, delta[j]);
+          }
+          if (part == 0) cnt_s[u] = 0;  // the bucket's count, for the next chunk
+          continue;
+        }
         float* cell = row + (size_t)u * d;
         float4 acc[kLargeTauCols], delta[kLargeTauCols];
         load_cols(acc, cell, nq, true);
@@ -326,52 +379,91 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
       }
       __syncthreads();  // the cells written, the lists free for the next sub-window
       PHASE_MARK(6);
+      if (CHUNKED) {
+        for (int c = tid; c < n_cells; c += blockDim.x) mark_s[cell_key[c]] = 1;
+        if (e0 + Ec < E) continue;  // (the next chunk's barriers order these writes)
+        __syncthreads();            // the row's last chunk: every mark set
+        // each marked cell += the row's sum, once, in b order (rows in turn)
+        for (int u0 = 0; u0 < U; u0 += kUpdateTeams) {
+          const int u = u0 + team;
+          if (u >= U || mark_s[u] == 0) continue;
+          float* cell = row + (size_t)u * d;
+          float4 acc[kLargeTauCols], delta[kLargeTauCols];
+          load_cols(acc, cell, nq, true);
+          load_cols(delta, part_row + (size_t)u * d, nq, true);
+#pragma unroll
+          for (int j = 0; j < kLargeTauCols; ++j) {
+            const int k4 = part + j * kEncodeHashLanes;
+            if (k4 < nq)
+              store4(cell + 4 * k4,
+                     make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
+                                 acc[j].z + delta[j].z, acc[j].w + delta[j].w));
+          }
+        }
+        __syncthreads();  // every mark read before it is cleared for the next row
+        for (int u = tid; u < U; u += blockDim.x) mark_s[u] = 0;
+      }
     }
   }
   PHASE_END();
 }
 
-template <typename T, int TAU>
+template <typename T, int TAU, bool CHUNKED>
 static cudaError_t update_large_tau(float* store, const int* slots, const void* events,
-                                    const float* mask, const float* R, int B, int E, int G,
-                                    int d, cudaStream_t stream) {
-  const size_t smem = update_layout(E, 1 << TAU, d, TAU).total;
-  const auto kernel = update_large_tau_kernel<T, TAU>;
+                                    const float* mask, const float* R, float* work, int B, int E,
+                                    int G, int d, cudaStream_t stream) {
+  const size_t smem = update_smem(E, 1 << TAU, d, TAU, CHUNKED);
+  const auto kernel = update_large_tau_kernel<T, TAU, CHUNKED>;
   const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, G), kLargeTauThreads, smem, stream>>>(
-      store, slots, static_cast<const T*>(events), mask, R, B, E, G, d);
+      store, slots, static_cast<const T*>(events), mask, R, work, B, E, G, d);
   return cudaGetLastError();
+}
+
+template <typename T, int TAU>
+static cudaError_t update_large_tau_e(float* store, const int* slots, const void* events,
+                                      const float* mask, const float* R, float* work, int B,
+                                      int E, int G, int d, cudaStream_t stream) {
+  if (E > kUpdateMaxE)
+    return update_large_tau<T, TAU, true>(store, slots, events, mask, R, work, B, E, G, d, stream);
+  return update_large_tau<T, TAU, false>(store, slots, events, mask, R, nullptr, B, E, G, d,
+                                         stream);
 }
 
 template <typename T>
 static cudaError_t update_large_tau_t(float* store, const int* slots, const void* events,
-                                      const float* mask, const float* R, int B, int E, int G,
-                                      int d, int tau, cudaStream_t stream) {
+                                      const float* mask, const float* R, float* work, int B,
+                                      int E, int G, int d, int tau, cudaStream_t stream) {
   switch (tau) {
-    case 5: return update_large_tau<T, 5>(store, slots, events, mask, R, B, E, G, d, stream);
-    case 6: return update_large_tau<T, 6>(store, slots, events, mask, R, B, E, G, d, stream);
-    case 7: return update_large_tau<T, 7>(store, slots, events, mask, R, B, E, G, d, stream);
-    case 8: return update_large_tau<T, 8>(store, slots, events, mask, R, B, E, G, d, stream);
-    case 9: return update_large_tau<T, 9>(store, slots, events, mask, R, B, E, G, d, stream);
-    case 10: return update_large_tau<T, 10>(store, slots, events, mask, R, B, E, G, d, stream);
+#define SDIM_UPDATE_TAU(t) \
+  case t: return update_large_tau_e<T, t>(store, slots, events, mask, R, work, B, E, G, d, stream);
+    SDIM_UPDATE_TAU(5)
+    SDIM_UPDATE_TAU(6)
+    SDIM_UPDATE_TAU(7)
+    SDIM_UPDATE_TAU(8)
+    SDIM_UPDATE_TAU(9)
+    SDIM_UPDATE_TAU(10)
+#undef SDIM_UPDATE_TAU
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t launch_update_large_tau(float* store, const int* slots, const void* events,
-                                   int ev_dtype, const float* mask, const float* R, int B, int E,
-                                   int G, int U, int d, int tau, cudaStream_t stream) {
-  if (B < 0 || E < 0 || E > kUpdateMaxE || G <= 0 || G > 65535 || tau < kLargeTauMin ||
-      tau > kLargeTauMax || U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128)
+                                   int ev_dtype, const float* mask, const float* R, float* work,
+                                   int B, int E, int G, int U, int d, int tau,
+                                   cudaStream_t stream) {
+  if (B < 0 || E < 0 || G <= 0 || G > 65535 || tau < kLargeTauMin || tau > kLargeTauMax ||
+      U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128 || (E > kUpdateMaxE && !work))
     return cudaErrorInvalidValue;
   if (B == 0 || E == 0) return cudaSuccess;
   switch (ev_dtype) {
     case kF32:
-      return update_large_tau_t<float>(store, slots, events, mask, R, B, E, G, d, tau, stream);
+      return update_large_tau_t<float>(store, slots, events, mask, R, work, B, E, G, d, tau,
+                                       stream);
     case kBF16:
-      return update_large_tau_t<__nv_bfloat16>(store, slots, events, mask, R, B, E, G, d, tau,
-                                               stream);
+      return update_large_tau_t<__nv_bfloat16>(store, slots, events, mask, R, work, B, E, G, d,
+                                               tau, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,7 +14,10 @@ so no two CTAs write one element (no atomics) and two launches agree bit
 for bit. tau 5..10 (32..1,024 buckets a group) launch the large-tau path
 (``csrc/sdim_update_large_tau.cu``: a CTA a (batch row, group) sorts its
 slot's events by bucket in shared memory and reads and writes only the
-cells they reach, with the same contracts; E up to ``UPDATE_LT_MAX_E``).
+cells they reach, with the same contracts; any E: rows of more than
+``UPDATE_LT_MAX_E`` events are taken in chunks of that many, each cell's
+partial row sum carried from chunk to chunk in a device scratch that the
+wrapper allocates on that path only, ``update_large_tau_path``).
 The kernel has no backward (it ingests): on CUDA the wrapper raises where
 autograd would record the call.
 """
@@ -29,7 +32,7 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, bse_encode_ref
 
 ITEMS = 2           # (cell, float4 column) sums a thread holds (sdim_update.cu kItems)
 THREADS = 256       # threads a CTA (sdim_common.cuh kThreads)
-UPDATE_LT_MAX_E = 8192   # events a batch row of the large-tau path (kUpdateMaxE)
+UPDATE_LT_MAX_E = 8192   # events a chunk of the large-tau path sorts (kUpdateMaxE)
 
 
 def sdim_update_ref(store: torch.Tensor, slots: torch.Tensor,
@@ -53,6 +56,14 @@ def update_splits(B: int, G: int, U: int, d: int, n_sm: int) -> int:
     ``update_cells(d)`` cells."""
     s_min = -(-G // max(1, update_cells(d) // U))
     return max(s_min, min(G, 2 * n_sm // max(B, 1)))
+
+
+def update_large_tau_path(E: int) -> str:
+    """The large-tau fold's path for rows of E events: ``"sorted"`` (a
+    row's events sorted in shared memory at once, no device scratch) up to
+    ``UPDATE_LT_MAX_E``, else ``"chunked"`` (chunks of that many, each
+    cell's partial sum in a scratch of (B, G, U, d) fp32)."""
+    return "sorted" if E <= UPDATE_LT_MAX_E else "chunked"
 
 
 def sdim_update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
@@ -83,9 +94,6 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
     if not 1 <= tau <= MAX_TAU or d % 4 or not 4 <= d <= 128:
         raise ValueError(f"sdim_update: the kernel takes tau 1..{MAX_TAU} and d a multiple "
                          f"of 4 up to 128; got tau {tau}, d {d}")
-    if tau > 4 and E > UPDATE_LT_MAX_E:
-        raise ValueError(f"sdim_update: the large-tau path takes E up to {UPDATE_LT_MAX_E} "
-                         f"events a batch row; got {E}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:
         raise TypeError("sdim_update: the store must be float32")
@@ -107,12 +115,15 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
                          f"takes 1..G slices of at most {update_cells(d)} cells at d = {d}")
     if B == 0 or E == 0:
         return store
+    work = None
+    if tau > 4 and update_large_tau_path(E) == "chunked":
+        work = torch.empty((B, G, U, d), dtype=torch.float32, device=dev)
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_update(store.data_ptr(), slots.data_ptr(),
                               events.data_ptr(), code, mask.data_ptr(),
-                              R.data_ptr(), B, E, G, U, d, m, tau, splits,
-                              _build.stream(dev))
+                              R.data_ptr(), _build.ptr(work), B, E, G, U, d, m, tau,
+                              splits, _build.stream(dev))
     _build.check(err, "sdim_update")
     sdim_update.launches += 1
     return store

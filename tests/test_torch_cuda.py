@@ -160,7 +160,7 @@ def test_large_tau_kernels(shape, dtype, layout, dev):
 
 # the large-tau backward's two layouts of dT, (B, L, d, m, tau): staged in
 # a CTA's shared memory where the user's dT fits beside R, else gathered
-# from device memory (csrc/bse_encode_large_tau.cu)
+# from device memory (csrc/bse_encode_backward_large_tau.cu)
 LT_BWD_CASES = [
     ((128, 256, 32, 45, 5), True), ((128, 256, 32, 45, 5), False),    # Table 4's tau 5
     ((128, 256, 32, 40, 10), False),                                   # Table 4's tau 10
@@ -440,12 +440,16 @@ def test_large_tau_sdim_update_sub_windows(E, tau, B, n_slots, dev):
 
 @pytest.mark.cuda
 def test_large_tau_sdim_update_refuses_more_events_than_it_sorts(dev):
-    """The large-tau fold sorts a batch row's events in shared memory: the
-    wrapper refuses E past UPDATE_LT_MAX_E at tau > 4 (tau <= 4 takes any E)."""
+    """The large-tau fold sorts a batch row's events in shared memory, at
+    most UPDATE_LT_MAX_E at once: past that it no longer refuses but folds
+    the row in chunks (d = 4), against the plain version, the cells no
+    weighted event reached keeping their bits."""
     store, slots, events, mask, R = _update_case((2, 16, 8, 4, 10, 5), "dups", dev,
                                                  E=UPDATE_LT_MAX_E + 1)
-    with pytest.raises(ValueError, match="E up to"):
-        sdim_update(store, slots, events, mask, R, 5)
+    a, b = store.clone(), store.clone()
+    sdim_update(a, slots, events, mask, R, 5)
+    sdim_update_ref(b, slots, events, mask, R, 5)
+    _check_update(store, a, b, slots, events, mask, R)
 
 
 @pytest.mark.cuda
@@ -713,8 +717,8 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """bse_encode takes tau 1..10, d a multiple of 4 up to 128 (one float4
-    column a lane) and L up to MAX_L (its batch list lives in shared
-    memory); sdim_fused_serve and sdim_query take tau 1..10 (d up
+    column a lane) and any L (past MAX_L its batch list takes the rows in
+    spans: held against the plain version); sdim_fused_serve and sdim_query take tau 1..10 (d up
     to 128 above tau 4), a user's table in whole 16-byte loads and 16-byte
     aligned operands; sdim_update takes
     tau 1..10, d a multiple of 4 up to 128, at tau <= 4 1..G group slices
@@ -728,9 +732,12 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
         bse_encode(seq[..., :128].contiguous(), mask, torch.zeros((11, 128), device=dev), 11)
     with pytest.raises(ValueError, match="d a multiple of 4"):
         bse_encode(seq[..., :10].contiguous(), mask, R[:8, :10].contiguous(), 2)
-    long_seq = torch.zeros((1, MAX_L + 8, 16), device=dev)
-    with pytest.raises(ValueError, match="L up to"):
-        bse_encode(long_seq, torch.ones((1, MAX_L + 8), device=dev), R[:8, :16].contiguous(), 2)
+    R16 = R[:8, :16].contiguous()
+    long_seq = torch.from_numpy(screened_normal(rng, (1, MAX_L + 8, 16),
+                                                R16.cpu().numpy())).to(dev)
+    long_mask = torch.ones((1, MAX_L + 8), device=dev)
+    torch.testing.assert_close(bse_encode(long_seq, long_mask, R16, 2),
+                               bse_encode_ref(long_seq, long_mask, R16, 2), **ATOMIC)
     rows = torch.randn((3, 4, 4, 8), device=dev)
     slots = torch.tensor([0, 2], dtype=torch.int32, device=dev)
     q8 = q[:, :, :8].contiguous()
@@ -2229,3 +2236,183 @@ def test_restore_on_mesh_places_card_blocks(dev, tmp_path):
         want = saved[path]
         assert all(b.device.type == "cuda" for b in leaf.blocks)
         assert torch.equal(gather(leaf).cpu(), torch.from_numpy(want))
+
+
+# ---------------------------------------------------------------------------
+# Every length, event count and table size the Pallas kernels take: the
+# paths past the shared-memory lists and copies (sdim_update's chunks past
+# UPDATE_LT_MAX_E events a row, bse_encode's spans past MAX_L behaviors,
+# bse_encode_backward's spills past MAX_BWD_SMEM and its device-R layout,
+# sdim_query_backward's chunks past MAX_BWD_CANDS candidates)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [UPDATE_LT_MAX_E + 1, 20000])
+@pytest.mark.parametrize("d", [128, 36])
+@pytest.mark.parametrize("tau", [5, 10])
+def test_large_tau_sdim_update_in_chunks(tau, d, E, dtype, dev):
+    """Rows of more than UPDATE_LT_MAX_E events take the chunked fold: four
+    batch rows on two slots (a duplicate slot) and slot 0 (a zero-mask row),
+    against the plain version at FP32; the cells no weighted event reached
+    keep their bits (-0.0 included); slot 0 is untouched; the same bits on
+    two launches, one launch a call."""
+    from repro_torch.kernels.sdim_update.sdim_update import update_large_tau_path
+
+    assert update_large_tau_path(E) == "chunked" and update_large_tau_path(8192) == "sorted"
+    store, slots, events, mask, R = _update_case((2, 16, 8, d, 4 * tau, tau), "dups", dev,
+                                                 dtype, E=E, seed=60 + tau)
+    assert len(set(slots.tolist()[1:])) < 3                 # a slot with two rows
+    a, b, c = store.clone(), store.clone(), store.clone()
+    before = sdim_update.launches
+    sdim_update(a, slots, events, mask, R, tau)
+    sdim_update(c, slots, events, mask, R, tau)
+    torch.cuda.synchronize()
+    assert sdim_update.launches == before + 2
+    sdim_update_ref(b, slots, events, mask, R, tau)
+    _check_update(store, a, b, slots, events, mask, R)
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    assert torch.equal(a[0].view(torch.int32), store[0].view(torch.int32))
+
+
+def _long_history(L, d, m, tau, dev, seed, B=2):
+    """B users of L behaviors (screened, d = 128) whose masks hold wholly
+    masked tiles: rows [1,000, 5,000) and [L - 3,000, L - 1,000) off, the
+    rest valid at random; the last user fully masked."""
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = screened_normal(rng, (B, L, d), R)
+    mask = (rng.random((B, L)) > 0.25).astype(np.float32)
+    mask[:, 1000:5000] = 0
+    mask[:, L - 3000:L - 1000] = 0
+    mask[-1] = 0
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return t(seq), t(mask), t(R), rng
+
+
+def _exact_table(seq, mask, R, tau):
+    """bse_encode's plain version (``core.sdim.bucket_table``'s one-hot
+    product) with its sums in fp64 (the fp32 hash bits: screened rows),
+    rounded to fp32 once. Over ~27,000 valid rows a user the fp32 plain
+    version's own sums miss the fp64 sums past ATOMIC at tau 3 (|T| up to
+    ~1,700), where the kernel's stay within it (chip_smoke's phase 21 (a)
+    prints both)."""
+    onehot = torch.nn.functional.one_hot(simhash.signatures(seq, R, tau).long(), 1 << tau)
+    onehot = onehot.double() * mask.double()[..., None, None]
+    return torch.einsum("blgu,bld->bgud", onehot, seq.double()).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [3, 5, 10])
+@pytest.mark.parametrize("L", [MAX_L + 1, 40000])
+def test_bse_encode_in_spans(L, tau, dev):
+    """Users of more than MAX_L behaviors are listed in spans: the table
+    against the plain version summed in fp64 (ATOMIC; ``_exact_table``),
+    the fully masked user's all +0, the same bits on two launches, one
+    launch a call; the backward takes the same L (FP32, same bits)."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import encode_spans
+
+    assert encode_spans(L) == 2 and encode_spans(MAX_L) == 1
+    m = 48 if tau == 3 else 4 * tau
+    seq, mask, R, rng = _long_history(L, 128, m, tau, dev, seed=70 + tau)
+    before = bse_encode.launches
+    table = bse_encode(seq, mask, R, tau)
+    torch.testing.assert_close(table, _exact_table(seq, mask, R, tau), **ATOMIC)
+    assert torch.equal(table, bse_encode(seq, mask, R, tau))
+    torch.cuda.synchronize()
+    assert bse_encode.launches == before + 2
+    assert not table[-1].view(torch.int32).any()
+    dT = torch.from_numpy(rng.standard_normal(table.shape).astype(np.float32)).to(dev)
+    dseq = bse_encode_backward(dT, seq, mask, R, tau)
+    torch.testing.assert_close(dseq, bse_encode_backward_ref(dT, seq, mask, R, tau), **FP32)
+    assert torch.equal(dseq, bse_encode_backward(dT, seq, mask, R, tau))
+
+
+# bse_encode_backward where a user's dT and R exceed MAX_BWD_SMEM (tau <= 4:
+# dT from device memory, "spill"; R too at m = 500, "spill_r") and where R and
+# a round's ids do not fit a CTA (tau 5, m = 500: R alone is 256,000 B;
+# LT_BWD_DEVICE), (m, tau, d, layout)
+SPILL_CASES = [(96, 4, 128, "spill"), (192, 3, 128, "spill"), (500, 4, 128, "spill_r"),
+               (500, 5, 128, "device")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPILL_CASES, ids=[f"m{c[0]}-tau{c[1]}-{c[3]}"
+                                                   for c in SPILL_CASES])
+def test_bse_encode_backward_past_shared_memory(case, dtype, dev):
+    """The spilled layouts against the plain version (FP32; one bf16 step
+    where dseq is bf16) at every split the wrapper could take, ragged masks
+    with a fully masked last user (+0), the same bits twice; then through
+    autograd (bse_encode's BSEEncodeFn) on the card."""
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import (LT_BWD_DEVICE, backward_layout,
+                                                             launch_large_tau_split,
+                                                             launch_splits)
+
+    m, tau, d, layout = case
+    B, L = 4, 1024
+    G, U = m // tau, 1 << tau
+    seq, _, mask, R, rng = _inputs((B, L, 1, d, m, tau), dev, dtype, seed=80 + m)
+    mask = _layout(mask, "random", rng)
+    dT = torch.from_numpy(rng.standard_normal((B, G, U, d)).astype(np.float32)).to(dev)
+    if tau <= 4:
+        assert backward_layout(G, U, d, m) == layout
+        splits = sorted({1, 2, launch_splits(B, L, G, d, tau, dtype, dev)})
+    else:
+        fits, S = launch_large_tau_split(B, L, G, d, tau, dtype, dev)
+        assert fits == LT_BWD_DEVICE
+        splits = sorted({1, 2, S})
+    ref = bse_encode_backward_ref(dT, seq, mask, R, tau)
+    tol = BF16_OUT if dtype == torch.bfloat16 else FP32
+    for S in splits:
+        before = bse_encode_backward.launches
+        out = bse_encode_backward_cuda(dT, seq, mask, R, tau, S)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        assert torch.equal(out, bse_encode_backward_cuda(dT, seq, mask, R, tau, S))
+        torch.cuda.synchronize()
+        assert bse_encode_backward.launches == before + 2
+        assert not out[-1].view(torch.int16 if dtype == torch.bfloat16 else torch.int32).any()
+    leaf = seq.clone().requires_grad_(True)
+    (bse_encode(leaf, mask, R, tau) * dT).sum().backward()
+    torch.testing.assert_close(leaf.grad.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16385, 40000])
+@pytest.mark.parametrize("tau", [5, 10])
+def test_large_tau_sdim_query_backward_in_chunks(tau, C, dev):
+    """More than MAX_BWD_CANDS candidates a user are listed in chunks: dT
+    against the plain version (times each row's n: a zero row's gradient is
+    g / 1e-6), the same bits twice, one launch a call, the rows no candidate
+    selects exactly +0; half the candidates are the user's own behaviors,
+    so many rows are selected by candidates of several chunks."""
+    from repro_torch.kernels.sdim_query.sdim_query import (MAX_BWD_CANDS,
+                                                           query_backward_large_tau_path)
+
+    assert query_backward_large_tau_path(C) == "chunked"
+    assert query_backward_large_tau_path(MAX_BWD_CANDS) == "lists"
+    B, L, d, m = 2, 1024, 128, 4 * tau
+    seq, q, mask, R, rng = _inputs((B, L, C, d, m, tau), dev, seed=90 + tau)
+    own = torch.from_numpy(rng.integers(0, L, (B, C // 2))).to(dev)
+    q[:, :C // 2] = seq[torch.arange(B, device=dev)[:, None], own]
+    table = bse_encode_ref(seq, mask, R, tau)
+    dout = torch.randn(q.shape, device=dev)
+    before = sdim_query_backward.launches
+    dT = sdim_query_backward(dout, q, table, R, tau)
+    torch.cuda.synchronize()
+    assert sdim_query_backward.launches == before + 1
+    ref = sdim_query_backward_ref(dout, q, table, R, tau)
+    n = torch.sqrt(torch.sum(table * table, -1, keepdim=True) + 1e-12)
+    torch.testing.assert_close(dT * n, ref * n, **FP32)
+    assert torch.equal(dT, sdim_query_backward(dout, q, table, R, tau))
+    hits = torch.nn.functional.one_hot(simhash.signatures(q, R, tau).long(), 1 << tau)
+    unselected = hits.sum(1) == 0                          # (B, G, U)
+    assert not dT[unselected].view(torch.int32).any()      # +0: no sign bit
+    sig = simhash.signatures(q, R, tau).long()             # rows selected in both chunks
+    first, rest = (torch.zeros((B, m // tau, 1 << tau), dtype=torch.bool, device=dev)
+                   for _ in range(2))
+    b_, c_, g_ = torch.meshgrid(torch.arange(B, device=dev), torch.arange(C, device=dev),
+                                torch.arange(m // tau, device=dev), indexing="ij")
+    early = c_ < MAX_BWD_CANDS
+    first[b_[early], g_[early], sig[early]] = True
+    rest[b_[~early], g_[~early], sig[~early]] = True
+    assert (first & rest).any()

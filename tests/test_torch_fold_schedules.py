@@ -24,7 +24,8 @@ cannot run here; this pins the algebra they implement.
   the stored cell: each owned row's events of the cell in e order with
   fmaf, the row's sum added to the running total in b order, the cell
   written once a sub-window. (The first design's emulation and its cases
-  lived in ``tests/test_torch_kernel_schedules.py``.)
+  lived in the schedules file now split by kernel; the shared emulations
+  are in ``tests/torch_schedules.py``.)
 
 Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the same sums in another order),
 as the reference's own tests (tests/test_kernels.py:46-58); cells no
@@ -41,7 +42,7 @@ from repro.kernels.target_attn.ref import target_attention_ref as jtarget_attent
 from repro_torch.kernels.screen import screened_normal
 from repro_torch.kernels.target_attn.target_attn import (TA_FOLD_MAX_L, TA_FOLD_MAX_USERS,
                                                          forward_split)
-from test_torch_kernel_schedules import FP32, LAYOUTS, MASKED, _mask, _signatures
+from torch_schedules import FP32, LAYOUTS, MASKED, _mask, _signatures
 
 
 def _fmaf(a, x, acc):

@@ -1,5 +1,5 @@
 """CPU rehearsal of kernel 4's two redesigned kernels: the numpy emulations
-of ``tests/test_torch_kernel_schedules.py`` (``sdim_query_backward_schedule``:
+of ``tests/torch_schedules.py`` (``sdim_query_backward_schedule``:
 ``sdim_query_backward.cu``'s tau <= 4 body; ``query_large_tau_schedule``:
 ``sdim_query_large_tau.cu``'s forward on sdim_fused_serve's gather body)
 held against the JAX package on seeded, margin-screened inputs, at the
@@ -31,8 +31,8 @@ from repro.kernels.sdim_bucket.ref import bse_encode_ref as jbse_encode_ref
 from repro.kernels.sdim_query.ref import sdim_query_ref as jsdim_query_ref
 from repro_torch.kernels.screen import screened_normal
 from repro_torch.kernels.sdim_query.sdim_query import query_backward_splits
-from test_torch_kernel_schedules import (FP32, _selected, query_large_tau_schedule,
-                                         sdim_query_backward_schedule)
+from torch_schedules import (FP32, _selected, query_large_tau_schedule,
+                             sdim_query_backward_schedule)
 
 
 def _encoded(rng, B, L, d, R, tau, masked_last=False):

@@ -1,4 +1,5 @@
-"""CPU rehearsal of the port's split-work kernels' schedules: a numpy
+"""The numpy emulations of the port's split-work kernels' schedules,
+shared by tests/test_torch_*_schedules.py (one file a kernel). A numpy
 emulation of how ``target_attn.cu``, ``bse_serve.cu``, ``bse_encode.cu``
 and ``sdim_fused_serve.cu`` split their work over CTAs (a thread-block
 cluster, or a grid of signature-group slices) and merge it, held against
@@ -114,7 +115,8 @@ from repro_torch.kernels.sdim_bucket.sdim_bucket import (MAX_CELLS, encode_large
                                                          encode_splits)
 from repro_torch.kernels.sdim_update.sdim_update import (sdim_update_ref, update_cells,
                                                          update_splits)
-from repro_torch.kernels.sdim_bucket.sdim_bucket import (BWD_LT_ROUND, BWD_ROUND,
+from repro_torch.kernels.sdim_bucket.sdim_bucket import (BWD_LT_DEVICE_Q, BWD_LT_ROUND,
+                                                         BWD_ROUND, LT_BWD_DEVICE,
                                                          backward_splits,
                                                          encode_backward_large_tau_split,
                                                          row_lanes)
@@ -237,77 +239,6 @@ def bse_serve_schedule(q, seq, mask, R, tau, S, TL=64, TC=64):
     return out
 
 
-@pytest.mark.parametrize("S", [8, 7])
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [(2, 40, 8, 32), (3, 300, 70, 64), (2, 1024, 128, 128),
-                                   (2, 77, 9, 4), (3, 130, 40, 12), (2, 1024, 128, 36),
-                                   (2, 95, 17, 44)],
-                         ids=["L-below-a-tile-per-rank", "ragged", "full-width", "d4", "d12",
-                              "dien-d36", "d44"])
-def test_target_attention_schedule_matches_jax(shape, layout, S):
-    """S = 8 chunks, and S = 7 (the kernel's cluster at a 16-user burst on
-    the H100): uneven chunks and candidate slices; also at the widths
-    d % 8 == 4 the kernel takes (one, three, nine and eleven float4
-    columns)."""
-    B, L, C, d = shape
-    rng = np.random.default_rng(11)
-    q = rng.standard_normal((B, C, d)).astype(np.float32)
-    seq = rng.standard_normal((B, L, d)).astype(np.float32)
-    mask = _mask(rng, B, L, layout)
-    out = target_attention_schedule(q, seq, mask, S=S)
-    ref = np.asarray(jtarget_attention_ref(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
-    np.testing.assert_allclose(out, ref, **FP32)
-    # the fully masked user attends uniformly over all L rows
-    np.testing.assert_allclose(out[-1], np.broadcast_to(seq[-1].mean(0), (C, d)), **FP32)
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape,S", [((64, 32, 1, 32), 1), ((2, 40, 8, 32), 2),
-                                     ((3, 70, 5, 32), 3)],
-                         ids=["folded-retrieval", "two-tiles", "three-tiles"])
-def test_target_attention_schedule_at_short_histories(shape, S, layout):
-    """Below 8 row tiles the launch takes one CTA per tile (S = number of
-    tiles): users of one candidate over k = 32 rows run S = 1 on the
-    cluster body (the wrapper runs the retrieval kinds' folded users on the
-    folded body, ``target_attention_folded_schedule`` in
-    tests/test_torch_fold_schedules.py)."""
-    B, L, C, d = shape
-    rng = np.random.default_rng(13)
-    q = rng.standard_normal((B, C, d)).astype(np.float32)
-    seq = rng.standard_normal((B, L, d)).astype(np.float32)
-    mask = _mask(rng, B, L, layout)
-    out = target_attention_schedule(q, seq, mask, S=S)
-    ref = np.asarray(jtarget_attention_ref(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
-    np.testing.assert_allclose(out, ref, **FP32)
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [
-    (2, 40, 8, 32, 12, 2, 4),        # G = 6 over S = 4: ranges 1, 2, 1, 2
-    (3, 300, 70, 64, 24, 4, 4),      # G = 6, U = 16 over S = 4
-    (2, 1024, 128, 128, 48, 3, 8),   # the main shape: G = 16, 2 groups a rank
-    (2, 1000, 100, 128, 36, 3, 8),   # G = 12 over S = 8: ranges 1 or 2
-    (2, 1024, 128, 36, 48, 3, 8),    # dien FULL: d = 36, 2 groups a rank
-    (3, 301, 70, 36, 10, 2, 5),      # d = 36, G = 5: a group a rank
-    (3, 77, 9, 4, 12, 2, 6),         # d = 4: one float4 column, a group a rank
-    (2, 130, 40, 20, 24, 3, 8),      # d = 20: five float4 columns, split 2 and 3
-    (2, 95, 17, 44, 16, 4, 4),       # d = 44, U = 16: eleven float4 columns
-], ids=["G6-S4", "G6-U16-S4", "full-width", "G12-S8", "dien-d36", "G5-d36", "G6-d4",
-        "G8-d20", "U16-d44"])
-def test_bse_serve_schedule_matches_jax(shape, layout):
-    B, L, C, d, m, tau, S = shape
-    rng = np.random.default_rng(12)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, layout)
-    out = bse_serve_schedule(q, seq, mask, R, tau, S)
-    ref = np.asarray(jsdim_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask),
-                                     jnp.asarray(R), tau))
-    np.testing.assert_allclose(out, ref, **FP32)
-    assert not out[-1].any()                      # the fully masked user reads zero
-
-
 def bse_encode_schedule(seq, mask, R, tau, S, batch=8, warps=16):
     """bse_encode.cu's schedule in numpy fp32: S CTAs per user over G
     groups. Returns the table and how often each element was written."""
@@ -340,54 +271,6 @@ def bse_encode_schedule(seq, mask, R, tau, S, batch=8, warps=16):
             out[b, g0:g1] = total
             writes[b, g0:g1] += 1
     return out, writes
-
-
-@pytest.mark.parametrize("S", [8, 16])
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [
-    (2, 40, 32, 12, 2),          # G = 6
-    (3, 300, 64, 24, 4),         # G = 6, U = 16: at least 3 slices
-    (2, 1024, 128, 48, 3),       # the main shape: G = 16
-    (2, 1000, 128, 36, 3),       # G = 12: uneven slices at S = 8
-    (2, 1024, 36, 48, 3),        # dien FULL: d = 36
-    (3, 301, 36, 10, 2),         # d = 36, G = 5, a 5-row tail batch
-    (3, 77, 4, 12, 2),           # d = 4, a 5-row tail batch
-    (2, 130, 20, 24, 3),         # d = 20, G = 8, a 2-row tail batch
-    (2, 95, 44, 16, 4),          # d = 44, U = 16
-], ids=["G6", "G6-U16", "full-width", "G12", "dien-d36", "G5-d36", "G6-d4", "G8-d20",
-        "U16-d44"])
-def test_bse_encode_schedule_matches_jax(shape, layout, S):
-    """S = 8 or 16 slices, capped as the wrapper caps them (at most G, at
-    least enough for MAX_CELLS sums a CTA): every element is written once,
-    and a fully masked user gets a zero table."""
-    B, L, d, m, tau = shape
-    G, U = m // tau, 1 << tau
-    S = max(-(-G // (MAX_CELLS // U)), min(G, S))
-    rng = np.random.default_rng(13)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    mask = _mask(rng, B, L, layout)
-    out, writes = bse_encode_schedule(seq, mask, R, tau, S)
-    ref = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask), jnp.asarray(R), tau))
-    assert (writes == 1).all()
-    np.testing.assert_allclose(out, ref, **FP32)
-    assert not out[-1].any()                      # the fully masked user
-
-
-@pytest.mark.parametrize("B, G, U, want", [
-    (16, 16, 8, 8),              # the 16-user burst: 128 CTAs, two groups each
-    (4, 16, 8, 16),              # a small burst: one group a CTA
-    (32, 16, 8, 8),              # the 32-user event fold: 8 slices keep a CTA at 16 sums
-    (1, 6, 16, 6),               # never more slices than groups
-    (4096, 16, 4, 4),            # a large batch, U = 4: 4 groups a CTA
-    (4096, 12, 16, 12),          # U = 16: one group a CTA
-    (0, 16, 8, 16),              # no user
-])
-def test_encode_splits_fill_one_wave(B, G, U, want):
-    S = encode_splits(B, G, U, n_sm=132)
-    assert S == want
-    assert -(-G // S) * U <= MAX_CELLS
-    assert B * S <= 132 or S == -(-G // (MAX_CELLS // U))
 
 
 def _dequantize_by_loads(vals, scale, d, V):
@@ -453,71 +336,6 @@ def sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S, TC=32
     return out
 
 
-@pytest.mark.parametrize("store_dtype", ["fp32", "bf16", "int8", "fp8",
-                                         "query-fp32", "query-bf16"])
-@pytest.mark.parametrize("shape", [
-    (3, 8, 32, 12, 2, 8),        # G*U = 24 rows: 3 a rank; one candidate a rank
-    (3, 70, 64, 24, 4, 8),       # U = 16, ragged C
-    (2, 128, 128, 48, 3, 8),     # the main shape: 16 rows and 16 candidates a rank
-    (3, 100, 128, 36, 3, 8),     # G = 12 over 8 ranks, C = 100
-    (2, 5, 128, 48, 3, 7),       # 7 ranks: uneven rows, ranks without candidates
-    (3, 128, 36, 48, 3, 8),      # dien FULL: d = 36, 16 rows a rank
-    (3, 70, 36, 10, 2, 8),       # d = 36, G*U = 20: 3 rows a rank rounded up to the loads
-    (3, 33, 4, 12, 2, 8),        # d = 4: an int8 load spans 4 rows, 3 rows a rank -> 4
-    (3, 40, 20, 12, 2, 8),       # d = 20: int8 loads straddle rows at offsets 4, 8, 12
-    (2, 16, 44, 48, 3, 8),       # d = 44: int8 rows of 44 bytes, 16 rows a rank
-], ids=["small", "U16", "full-width", "G12", "S7-C5", "dien-d36", "G5-d36", "G6-d4",
-        "G6-d20", "d44"])
-def test_sdim_fused_serve_schedule_matches_jax(shape, store_dtype):
-    """The fused store read, and (``query-*``) sdim_query's identity slots:
-    user b reads row b of a fetched fp32 or bf16 table, held against JAX's
-    sdim_query oracle."""
-    B, C, d, m, tau, S = shape
-    G, U = m // tau, 1 << tau
-    rng = np.random.default_rng(14)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    q = screened_normal(rng, (B, C, d), R)
-    if store_dtype.startswith("query-"):
-        tables = rng.standard_normal((B, G, U, d)).astype(np.float32)
-        tables[0] = 0.0                           # a fully masked user's zero table
-        jtable = jnp.asarray(tables, jnp.bfloat16 if store_dtype == "query-bf16"
-                             else jnp.float32)
-        table = np.asarray(jtable).astype(np.float32)  # the fetched values, exactly
-        out = sdim_fused_serve_schedule(table, None, None, None, q, R, tau, S,
-                                        itemsize=jtable.dtype.itemsize)
-        # the kernel reads a bf16 table exactly into fp32; the oracle would
-        # keep it in bf16, so it gets the same values in fp32
-        ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R),
-                                         tau))
-        np.testing.assert_allclose(out, ref, **FP32)
-        assert not out[0].any()                   # the zero table reads zero
-        return
-    N = 2 * B + 1
-    rows = rng.standard_normal((N, G, U, d)).astype(np.float32)
-    rows *= rng.uniform(0.1, 10.0, (N, G, U, 1)).astype(np.float32)  # unlike row scales
-    rows[0] = 0.0                                 # a fully masked user's zero table
-    slots = rng.permutation(N)[:B].astype(np.int32)
-    slots[0] = 0
-    present = np.ones(B, np.float32)
-    present[-1] = 0.0                             # the last user is absent
-    jscales = None
-    if store_dtype in ("int8", "fp8"):
-        jstore, jscales = jquant.quantize_rows(jnp.asarray(rows),
-                                               dtype=jquant.TABLE_DTYPES[store_dtype])
-    else:
-        jstore = jnp.asarray(rows, jnp.bfloat16 if store_dtype == "bf16" else jnp.float32)
-    store = np.asarray(jstore).astype(np.float32)  # the stored values, exactly
-    scales = None if jscales is None else np.asarray(jscales)
-    out = sdim_fused_serve_schedule(store, scales, slots, present, q, R, tau, S,
-                                    itemsize=jstore.dtype.itemsize)
-    ref = np.asarray(jsdim_fused_serve_ref(jstore, jnp.asarray(slots), jnp.asarray(q),
-                                           jnp.asarray(R), tau, scales=jscales,
-                                           present=jnp.asarray(present)))
-    np.testing.assert_allclose(out, ref, **FP32)
-    assert not out[-1].any()                      # the absent user
-    assert not out[0].any()                       # the zero table reads zero
-
-
 def sdim_update_schedule(store, slots, events, mask, R, tau, S, EV=64):
     """sdim_update.cu's schedule in numpy fp32: the first batch row of each
     slot owns it; each of its S CTAs takes a slice of the signature groups,
@@ -577,80 +395,6 @@ def _update_inputs(rng, B, E, d, m, tau, case, N=None):
     else:
         slots = np.where(rng.random(B) > 0.5, 0, 2).astype(np.int32)
     return store, slots, events, mask, R
-
-
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("case", ["dups", "two-slots"])
-@pytest.mark.parametrize("shape", [
-    (6, 5, 32, 12, 2, 4),        # G = 6 over S = 4: slices 1, 2, 1, 2; E = 5
-    (6, 16, 128, 48, 3, 4),      # the main path's width: 4 groups a CTA, E = 16
-    (5, 16, 128, 36, 3, 8),      # G = 12 over S = 8: slices of 1 or 2
-    (4, 80, 64, 24, 4, 2),       # U = 16, E = 80: two event batches a row
-    (6, 16, 36, 48, 3, 3),       # dien FULL: d = 36, the fewest slices (6 groups a CTA)
-    (6, 5, 36, 10, 2, 4),        # d = 36, E = 5: bf16 rows on 8-byte boundaries
-    (6, 5, 4, 12, 2, 3),         # d = 4, E = 5: bf16 event rows of 8 bytes
-    (6, 16, 20, 24, 3, 8),       # d = 20: a group a CTA
-    (5, 40, 44, 16, 4, 2),       # d = 44, U = 16, E = 40: two event batches a row
-], ids=["G6-S4-E5", "full-width", "G12-S8", "U16-E80", "dien-d36", "G5-E5-d36", "G6-E5-d4",
-        "G8-d20", "U16-E40-d44"])
-def test_sdim_update_schedule_matches_jax(shape, case, dtype):
-    """Against JAX's segment-sum oracle and the Pallas kernel in interpret
-    mode: every element is written at most once, a zero-mask row and an
-    all-masked duplicate write nothing, and untouched cells (signed zeros
-    included) keep their exact bits."""
-    B, E, d, m, tau, S = shape
-    rng = np.random.default_rng(15)
-    store, slots, events, mask, R = _update_inputs(rng, B, E, d, m, tau, case)
-    jev = jnp.asarray(events, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
-    ev = np.asarray(jev).astype(np.float32)       # the event values, exactly
-    out, writes = sdim_update_schedule(store, slots, np.asarray(jev), mask, R, tau, S)
-    args = (jnp.asarray(store), jnp.asarray(slots), jev, jnp.asarray(mask), jnp.asarray(R), tau)
-    np.testing.assert_allclose(out, np.asarray(jsdim_update_ref(*args)), **FP32)
-    np.testing.assert_allclose(out, np.asarray(jsdim_update(*args, interpret=True)), **FP32)
-    assert writes.max() <= 1
-    untouched = writes == 0
-    assert (out.view(np.uint32)[untouched] == store.view(np.uint32)[untouched]).all()
-    if case == "dups":
-        assert not writes[0].any()                # slot 0: only the zero-mask row
-    reached = np.zeros_like(writes, bool)         # cells some weighted event reached
-    G, U = m // tau, 1 << tau
-    sig = _signatures(ev.reshape(-1, d), R.reshape(G, tau, d), tau).reshape(B, E, G)
-    for b, e in zip(*np.nonzero(mask)):
-        reached[slots[b], np.arange(G), sig[b, e]] = True
-    np.testing.assert_array_equal(writes == 1, reached)
-
-
-def test_sdim_update_schedule_no_events_writes_nothing():
-    """E = 0 (against the plain version alone: the Pallas kernel takes no
-    empty block): the store comes back bit for bit."""
-    rng = np.random.default_rng(16)
-    store, slots, events, mask, R = _update_inputs(rng, 6, 0, 32, 12, 2, "dups")
-    out, writes = sdim_update_schedule(store, slots, events, mask, R, 2, 4)
-    plain = sdim_update_ref(torch.from_numpy(store.copy()), torch.from_numpy(slots),
-                            torch.from_numpy(events), torch.from_numpy(mask),
-                            torch.from_numpy(R), 2)
-    np.testing.assert_allclose(out, plain.numpy(), **FP32)
-    assert not writes.any()
-    np.testing.assert_array_equal(out.view(np.uint32), store.view(np.uint32))
-
-
-@pytest.mark.parametrize("B, G, U, d, want", [
-    (32, 16, 8, 128, 8),         # the 32-user event fold: 256 CTAs, two groups each
-    (16, 16, 8, 128, 16),        # a 16-user fold: a group a CTA
-    (1, 16, 8, 128, 16),         # one user: never more slices than groups
-    (1024, 16, 8, 128, 8),       # a large batch: the fewest slices, 2 groups each
-    (1024, 12, 16, 128, 12),     # U = 16: a group a CTA at most
-    (64, 6, 4, 32, 4),           # as many as one wave allows
-    (16, 6, 4, 32, 6),           # never more than G
-    (0, 16, 8, 128, 16),         # no batch row
-    (32, 16, 8, 36, 8),          # d = 36: 28 cells a pass of the block, 56 a CTA
-    (1024, 16, 8, 36, 3),        # d = 36, a large batch: the fewest slices, 6 groups each
-])
-def test_update_splits_fill_one_wave(B, G, U, d, want):
-    S = update_splits(B, G, U, d, n_sm=132)
-    assert S == want
-    assert 1 <= S <= G and -(-G // S) * U <= update_cells(d)
-    assert B * S <= 2 * 132 or S == -(-G // (update_cells(d) // U))
 
 
 # ---------------------------------------------------------------------------
@@ -895,67 +639,6 @@ def _jax_encode_vjp(dT, seq, mask, R, tau):
     return np.array(jax.vjp(encode, jnp.asarray(seq))[1](jnp.asarray(dT))[0])
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [
-    (2, 40, 3, 32, 12, 2),
-    (3, 100, 40, 64, 24, 4),     # U = 16; two candidate passes
-    (2, 64, 1, 128, 48, 3),      # the main shape, C = 1 (pointwise CTR)
-    (2, 64, 1, 36, 48, 3),       # dien FULL's width, C = 1
-    (2, 40, 3, 4, 12, 2),        # d = 4
-    (3, 64, 1, 20, 24, 3),       # d = 20, C = 1
-    (2, 50, 33, 44, 16, 4),      # d = 44, U = 16, two candidate passes
-], ids=["G6", "G6-U16", "full-width", "dien-d36", "G6-d4", "G8-d20", "U16-d44"])
-def test_sdim_backward_schedules_match_jax(shape, layout):
-    """bse_encode_backward and sdim_query_backward split as the wrappers
-    split them on a 132-SM card (and with fewer, uneven slices): every
-    element written once; a fully masked user's rows get zero."""
-    B, L, C, d, m, tau = shape
-    G = m // tau
-    rng = np.random.default_rng(21)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, layout)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    table, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
-    for S in (query_backward_splits(B, G, 132), max(1, G // 4 + 1)):
-        dT, writes, reads = sdim_query_backward_schedule(dout, q, table, R, tau, S)
-        assert (writes == 1).all() and (reads == _selected(q, R, tau)).all()
-        np.testing.assert_allclose(dT, jdT, **FP32)
-    for S in (backward_splits(B, L, 132, card_clusters()), 3):
-        dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
-        assert (writes == 1).all()
-        np.testing.assert_allclose(dseq, jdseq, **FP32)
-        assert not dseq[-1].any()
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("tau", [1, 3, 4])
-def test_sdim_backward_schedules_at_the_protocol_shape(tau, layout):
-    """The Table 2/3 protocol's and Table 4's training step (B = 128, L =
-    256, d = 32, C = 1, m = 48): the splits the wrappers take for 128 users
-    on a 132-SM card (bse_encode_backward: clusters of 3 where it holds
-    four CTAs an SM), emulated for the first three users."""
-    B, L, C, d, m = 3, 256, 1, 32, 48
-    G = m // tau
-    rng = np.random.default_rng(23 + tau)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, layout)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    table, jdT, jdseq = _jax_sdim_backward(dout, q, seq, mask, R, tau)
-    S = backward_splits(128, L, 132, card_clusters(4))
-    assert S == 3
-    dseq, writes = bse_encode_backward_schedule(jdT, seq, mask, R, tau, S)
-    assert (writes == 1).all()
-    np.testing.assert_allclose(dseq, jdseq, **FP32)
-    dT, writes, reads = sdim_query_backward_schedule(dout, q, table, R, tau,
-                                                     query_backward_splits(128, G, 132))
-    assert (writes == 1).all() and (reads == _selected(q, R, tau)).all()
-    np.testing.assert_allclose(dT, jdT, **FP32)
-
-
 def _jax_target_backward(dout, q, seq, mask):
     """(out, dq, d seq) of <dout, target_attention(q, seq)> by jax.grad."""
     out = np.asarray(jtarget_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask)))
@@ -963,121 +646,6 @@ def _jax_target_backward(dout, q, seq, mask):
                                                * jnp.asarray(dout)), argnums=(0, 1))(
         jnp.asarray(q), jnp.asarray(seq))
     return out, np.asarray(jdq), np.asarray(jdseq)
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [(2, 40, 3, 32), (3, 70, 5, 64), (2, 96, 1, 128),
-                                   (2, 40, 3, 4), (3, 70, 5, 12), (2, 96, 1, 36),
-                                   (2, 50, 3, 44)])
-def test_target_attention_backward_schedule_matches_jax(shape, layout):
-    """L not a multiple of 32 (row groups with one row more than others),
-    C = 1, and a fully masked last user (uniform weights: its rows get
-    sum_c dout / L, its candidates nothing); d = 4, 12, 36 and 44 too. C >
-    1 takes the two-launch path; the first candidate alone (C = 1) the one
-    launch, at the split the wrapper takes and at a cluster of 2."""
-    B, L, C, d = shape
-    rng = np.random.default_rng(22)
-    seq = rng.standard_normal((B, L, d)).astype(np.float32)
-    q = rng.standard_normal((B, C, d)).astype(np.float32)
-    mask = _mask(rng, B, L, layout)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    if C > 1:
-        assert ta_backward_split(B, L, C, d, 4, 132, card_clusters()) == (0, 0)
-        out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
-        dq, dseq = target_attention_backward_two_launch_schedule(dout, q, seq, mask, out)
-        np.testing.assert_allclose(dq, jdq, **FP32)
-        np.testing.assert_allclose(dseq, jdseq, **FP32)
-        assert not dq[-1].any()
-        q, dout = q[:, :1].copy(), dout[:, :1].copy()
-    out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
-    for upc, S in (ta_backward_split(B, L, 1, d, 4, 132, card_clusters()), (1, 2)):
-        dq, dseq, writes = target_attention_backward_schedule(dout, q, seq, mask, out, upc, S)
-        assert (writes == 1).all()
-        np.testing.assert_allclose(dq, jdq, **FP32)
-        np.testing.assert_allclose(dseq, jdseq, **FP32)
-        assert not dq[-1].any()
-
-
-@pytest.mark.parametrize("shape", [
-    (128, 16, 32, 24),        # the protocol's folded retrieval kinds: 128 users, k = 16
-    (2048, 32, 128, 24),      # chip_smoke's folded shape: 16 x 128 candidates, k = 32
-    (2048, 32, 36, 24),       # dien's width
-    (128, 256, 32, 3),        # the protocol's target kind (B = 128, L = 256, d = 32)
-    (32, 1024, 128, 2),       # the training step (B = 32, L = 1,024, d = 128)
-], ids=["folded-L16-d32", "folded-L32-d128", "folded-L32-d36", "protocol-target",
-        "train-main"])
-def test_target_attention_backward_schedule_at_the_training_shapes(shape):
-    """The one launch at the shapes its launches on record use, with the
-    split the wrapper takes for all B users on a 132-SM card (users packed
-    a CTA, or a cluster a user), emulated for the first `n` users. Folded
-    users hold their valid rows first (top-k order), some fewer than k and
-    some none (uniform weights, no gradient in the candidate)."""
-    B, L, d, n = shape
-    rng = np.random.default_rng(24)
-    seq = rng.standard_normal((n, L, d)).astype(np.float32)
-    q = rng.standard_normal((n, 1, d)).astype(np.float32)
-    dout = rng.standard_normal((n, 1, d)).astype(np.float32)
-    if L <= 32:
-        found = rng.integers(0, L + 1, n)
-        found[:2] = (0, L)
-        mask = (np.arange(L)[None] < found[:, None]).astype(np.float32)
-    else:
-        mask = _mask(rng, n, L, "front")
-    upc, S = ta_backward_split(B, L, 1, d, 4, 132, card_clusters())
-    assert (upc, S) == {2048: (4, 1) if d == 128 else (8, 1), 32: (1, 7)}.get(B, (1, 1))
-    out, jdq, jdseq = _jax_target_backward(dout, q, seq, mask)
-    dq, dseq, writes = target_attention_backward_schedule(dout, q, seq, mask, out, upc, S)
-    assert (writes == 1).all()
-    np.testing.assert_allclose(dq, jdq, **FP32)
-    np.testing.assert_allclose(dseq, jdseq, **FP32)
-    assert not dq[mask.sum(1) == 0].any()
-
-
-@pytest.mark.parametrize("B, L, G, per_sm, want_rows, want_groups", [
-    (32, 1024, 16, 2, 7, 8),     # the training step: 29 clusters of 8 fit, 32 of 7: 224 CTAs
-    (24, 1024, 16, 2, 8, 11),    # 24 users: clusters of 8 fit
-    (1, 1024, 16, 2, 8, 16),     # one user: the largest cluster, one group a CTA
-    (4096, 1024, 16, 2, 1, 1),   # a large batch: one CTA a user
-    (2, 40, 6, 2, 2, 6),         # short histories: at most one CTA per 32 rows
-    (128, 256, 16, 4, 3, 2),     # the protocol's step, four CTAs an SM: clusters of 3
-])
-def test_backward_splits_fill_one_wave(B, L, G, per_sm, want_rows, want_groups):
-    fit = card_clusters(per_sm)
-    assert backward_splits(B, L, 132, fit) == want_rows
-    assert query_backward_splits(B, G, n_sm=132) == want_groups
-    assert want_rows == 1 or B * (want_rows - 1) < 2 * 132        # two CTAs an SM at most
-    assert want_rows == 1 or B <= fit(want_rows)                  # one wave
-
-
-@pytest.mark.parametrize("B, L, C, d, elem, per_sm, want", [
-    (32, 1024, 1, 128, 4, 2, (1, 7)),     # the training step: 29 clusters of 8 fit, 36 of 7
-    (24, 1024, 1, 128, 4, 2, (1, 8)),     # 24 users: 64 KB a CTA in clusters of 8
-    (32, 1024, 1, 36, 4, 2, (1, 3)),      # dien's width: 48 KB a CTA
-    (32, 1024, 1, 128, 2, 2, (1, 4)),     # bf16 rows
-    (128, 256, 1, 32, 4, 2, (1, 1)),      # the protocol's target kind: 32 KB, one CTA a user
-    (2048, 32, 1, 128, 4, 2, (4, 1)),     # folded retrieval: four users a CTA (64 KB)
-    (2048, 16, 1, 32, 4, 2, (8, 1)),      # 2,048 users of 16 rows
-    (128, 16, 1, 32, 4, 2, (1, 1)),       # the protocol's folded kinds: a CTA a user
-    (2048, 32, 1, 36, 4, 2, (8, 1)),      # folded at dien's width
-    (600, 32, 1, 128, 4, 2, (4, 1)),      # 150 CTAs of four: a CTA for each SM
-    (400, 32, 1, 128, 4, 2, (2, 1)),      # four would leave SMs idle
-    (100, 16, 1, 32, 4, 2, (1, 1)),       # few short users: one a CTA
-    (32, 1024, 1, 256, 4, 1, (1, 8)),     # d = 256, one CTA an SM: no cluster of <= 192 KB fits
-    (32, 4096, 1, 256, 4, 1, (0, 0)),     # past 8 CTAs' shared memory: two launches
-    (32, 1024, 128, 128, 4, 2, (0, 0)),   # C > 1: two launches
-])
-def test_target_attention_backward_split(B, L, C, d, elem, per_sm, want):
-    """(users a CTA, CTAs a user) that the target attention backward
-    launches on the model card."""
-    fit = card_clusters(per_sm)
-    upc, S = ta_backward_split(B, L, C, d, elem, 132, fit)
-    assert (upc, S) == want
-    if S:
-        cap = -(-L // S)
-        assert upc * cap * d * elem <= (TA_BWD_ROWS if upc > 1 else TA_BWD_MAX_ROWS)
-        assert S == 1 or (S - 1) * TA_BWD_ROWS < L * d * elem     # the fewest CTAs
-        assert S in (1, 8) or B <= fit(upc, cap, S)               # shrunk to one wave
-        assert -(-B // upc) >= 132 or upc == 1
 
 
 def _dot4(a, b, acc):
@@ -1181,62 +749,6 @@ def sdim_query_wide_schedule(q, table, R, tau, tile=None, n_sm=132):
     return out, writes, tile
 
 
-@pytest.mark.parametrize("shape", [
-    (1, 128, 512, 48, 3),        # deepseek-v2's SDIM-KV read: 128 CTAs of one candidate
-    (2, 300, 516, 48, 3),        # d % 8 == 4: 129 float4 columns, 5 a lane, the last on one
-    (2, 33, 512, 36, 3),         # G = 12
-    (2, 5, 512, 48, 4),          # U = 16
-    (8, 128, 512, 48, 3),        # B = 8: tiles of 4 (256 CTAs)
-    (8, 70, 512, 48, 3),         # C not a multiple of the tile: 70 = 23 * 3 + 1
-    (2, 0, 512, 48, 3),          # C = 0: no CTA
-    (2, 9, 1024, 48, 3),         # d = 1,024: R alone 192 KB, one CTA an SM
-], ids=["mla", "d516", "G12", "U16", "B8", "C70", "C0", "d1024"])
-def test_sdim_query_wide_schedule_matches_jax(shape):
-    """The wide path against JAX's sdim_query oracle, every answer written
-    once, a zero table reading zero, and the tile the model card's one-wave
-    choice."""
-    B, C, d, m, tau = shape
-    G, U = m // tau, 1 << tau
-    rng = np.random.default_rng(d + C)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    q = screened_normal(rng, (B, C, d), R)
-    table = rng.standard_normal((B, G, U, d)).astype(np.float32)
-    table[0, :, 1] = 0.0                          # empty buckets
-    if B > 1:
-        table[-1] = 0.0                           # a user with no keys
-    out, writes, tile = sdim_query_wide_schedule(q, table, R, tau)
-    assert (writes == 1).all()
-    assert tile == {(1, 128): 1, (8, 128): 4, (8, 70): 3}.get((B, C), tile)
-    ref = np.asarray(jsdim_query_ref(jnp.asarray(q), jnp.asarray(table), jnp.asarray(R), tau))
-    np.testing.assert_allclose(out, ref, **FP32)
-    if B > 1:
-        assert not out[-1].any()
-
-
-@pytest.mark.parametrize("B, C, d, m, want", [
-    (1, 128, 512, 48, 1),      # the MLA read: 128 CTAs, two an SM
-    (8, 128, 512, 48, 4),      # 256 CTAs of 4 (tiles of 3 need 344)
-    (8, 70, 512, 48, 3),       # 192 CTAs of 3 (tiles of 2 need 280)
-    (3, 300, 516, 48, 4),      # 225 CTAs of 4
-    (2, 33, 1024, 48, 1),      # one CTA an SM: 66 CTAs
-    (64, 128, 1024, 48, 8),    # no tile fits one wave: the most candidates a CTA
-    (1, 1, 512, 48, 1),
-])
-def test_wide_tile_fills_one_wave(B, C, d, m, want):
-    """The wide path's tile (sdim_query.py wide_tile) on the model card:
-    the fewest candidates a CTA whose B * ceil(C / tile) CTAs fit one wave
-    of the 132 SMs, else WIDE_MAX_CANDS; a tile of one candidate fits a
-    CTA's shared memory up to d = 1,184 at m = 48 and not at 1,188."""
-    G = m // 3
-    ctas = lambda t: card_ctas(wide_smem(G, d, m, t))
-    tile = wide_tile(B, C, 132, ctas)
-    assert tile == want and 1 <= tile <= WIDE_MAX_CANDS
-    fits = B * -(-C // tile) <= 132 * ctas(tile)
-    assert fits or tile == WIDE_MAX_CANDS
-    assert tile == 1 or not B * -(-C // (tile - 1)) <= 132 * ctas(tile - 1)
-    assert card_ctas(wide_smem(16, 1184, 48, 1)) > 0 and card_ctas(wide_smem(16, 1188, 48, 1)) == 0
-
-
 # ---------------------------------------------------------------------------
 # the large-tau paths (large_tau.cuh: tau 5..10, 32..1,024 buckets a group)
 # ---------------------------------------------------------------------------
@@ -1321,29 +833,37 @@ def encode_large_tau_schedule(seq, mask, R, tau, n_sm=132):
     return out, writes, hashes
 
 
-def bwd_lt_smem(G, U, d, tau, Q, staged):
-    """bse_encode_large_tau.cu's bwd_lt_layout: the user's dT where staged,
-    R, a round's bucket ids (a short a (row, group)) and weights, two
-    mbarriers."""
+def bwd_lt_smem(G, U, d, tau, Q, staged, r_shared=True):
+    """bse_encode_backward_large_tau.cu's bwd_lt_layout: the user's dT where staged,
+    R where ``r_shared``, a round's bucket ids (a short a (row, group)) and
+    weights, two mbarriers."""
     rows = BWD_LT_ROUND // Q
-    return ((_a16(4 * G * U * d) if staged else 0) + _a16(4 * G * tau * d) + _a16(2 * rows * G)
-            + _a16(4 * rows) + 16)
+    return ((_a16(4 * G * U * d) if staged else 0) + (_a16(4 * G * tau * d) if r_shared else 0)
+            + _a16(2 * rows * G) + _a16(4 * rows) + 16)
 
 
 def bwd_lt_ctas(G, U, L, d, tau):
-    """The model card's capacity query of the large-tau backward."""
-    return lambda staged: card_ctas(bwd_lt_smem(G, U, d, tau, row_lanes(L, d), staged))
+    """The model card's capacity query of the large-tau backward, by layout
+    (True: dT and R staged, False: R, ``LT_BWD_DEVICE``: neither, at
+    ``BWD_LT_DEVICE_Q`` lanes a row)."""
+    def ctas(layout):
+        if layout is not True and layout == LT_BWD_DEVICE:
+            return card_ctas(bwd_lt_smem(G, U, d, tau, BWD_LT_DEVICE_Q, False, False))
+        return card_ctas(bwd_lt_smem(G, U, d, tau, row_lanes(L, d), bool(layout)))
+    return ctas
 
 
 def encode_backward_large_tau_schedule(dT, seq, mask, R, tau, n_sm=132, B_card=None,
                                        staged=None):
-    """The large-tau backward (bse_encode_large_tau.cu) in numpy fp32: the
+    """The large-tau backward (bse_encode_backward_large_tau.cu) in numpy fp32: the
     wrapper's split on the model card for ``B_card`` users (default B):
     S CTAs a user, CTA (b, s) owning rows [s*L/S, (s+1)*L/S) in rounds of
-    256 / Q rows (Q = row_lanes(L, d) lanes a row), with the user's dT
-    copied into its shared memory where ``staged`` (default: where it
-    fits). Each round hashes its valid rows for every group; warp w takes
-    the round's rows [w * 32/Q, (w+1) * 32/Q), its (row, float4 column)
+    256 / Q rows (Q = row_lanes(L, d) lanes a row; BWD_LT_DEVICE_Q in the
+    LT_BWD_DEVICE layout, where R is read from device memory), with the
+    user's dT copied into its shared memory where ``staged`` (the layout:
+    True, False or LT_BWD_DEVICE; default: as the split picks it). Each
+    round hashes its valid rows for every group; warp w takes the round's
+    rows [w * 32/Q, (w+1) * 32/Q), its (row, float4 column)
     pairs dealt to the lanes in order, each the sum of the row's G rows of
     dT in g order from
     +0, then times the mask, from the CTA's copy where staged, else read
@@ -1361,9 +881,11 @@ def encode_backward_large_tau_schedule(dT, seq, mask, R, tau, n_sm=132, B_card=N
     reads = np.zeros((B, G, U), np.int64)
     if L == 0:                                       # the wrapper launches nothing
         return out, writes, hashes, reads, (False, 0)
-    Q = row_lanes(L, d)
     fit, S = encode_backward_large_tau_split(B_card or B, L, d, n_sm, bwd_lt_ctas(G, U, L, d, tau))
     staged = fit if staged is None else staged
+    device = staged is not True and staged == LT_BWD_DEVICE
+    Q = BWD_LT_DEVICE_Q if device else row_lanes(L, d)
+    staged = staged is True
     rnd, tw = BWD_LT_ROUND // Q, 32 // Q
     assert S == 1 or S <= -(-L // rnd)
     for b in range(B):
@@ -1492,32 +1014,6 @@ def _check_large_tau_training(seq, q, mask, R, tau, dout):
     return table, dT, dseq
 
 
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [
-    (2, 40, 3, 32, 10, 5),       # U = 32
-    (2, 256, 1, 32, 45, 5),      # Table 4's tau = 5 training shape (m = 45), two users
-    (2, 256, 1, 32, 40, 10),     # Table 4's tau = 10 (m = 40, U = 1,024)
-    (1, 1100, 70, 16, 12, 6),    # 35 rounds of links; two candidate hash rounds
-    (1, 60, 3, 128, 20, 10),     # d = 128
-    (2, 50, 2, 36, 14, 7),       # dien's width d = 36
-], ids=["U32", "table4-tau5", "table4-tau10", "two-passes", "d128", "d36"])
-def test_large_tau_schedules_match_jax(shape, layout):
-    """bse_encode, sdim_query and both backward kernels at tau 5..10 against
-    the JAX package (its bucket table and query oracles, and jax.grad of its
-    XLA formulation): every element written once, a fully masked user's
-    rows and gradient zero."""
-    B, L, C, d, m, tau = shape
-    rng = np.random.default_rng(23 + tau)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, layout)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    table, _, dseq = _check_large_tau_training(seq, q, mask, R, tau, dout)
-    if B > 1:
-        assert not table[-1].any() and not dseq[-1].any()
-
-
 def _distinct_rows(rng, n, R, tau):
     """n margin-screened rows of R's width whose buckets in group 0 differ."""
     d = R.shape[1]
@@ -1526,156 +1022,6 @@ def _distinct_rows(rng, n, R, tau):
     _, first = np.unique(sig, return_index=True)
     assert len(first) >= n
     return pool[np.sort(first)[:n]]
-
-
-@pytest.mark.parametrize("case", ["one-bucket", "distinct", "C>U", "L0", "C0"])
-def test_large_tau_training_schedules_at_the_list_edges(case):
-    """The two list-building schedules where the lists are extreme: every
-    valid row (and candidate) in one bucket of each group (one list of all
-    of them, in order); every row and candidate in a bucket of its own (G =
-    1, tau = 10: lists of one); C > U, so candidates repeat buckets (tau =
-    5, C = 100); L = 0 (no launch: a zero table, a zero gradient) and C = 0
-    (every row of dT +0, no table row read)."""
-    rng = np.random.default_rng(31)
-    B, L, C, d, m, tau = dict(distinct=(2, 40, 40, 32, 10, 10), L0=(2, 0, 8, 32, 10, 5),
-                              C0=(2, 40, 0, 32, 40, 10)).get(case, (2, 120, 100, 32, 10, 5))
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    mask = _mask(rng, B, L, "random")
-    if case == "distinct":
-        seq = np.stack([_distinct_rows(rng, L, R, tau) for _ in range(B)])
-        q = seq[:, rng.permutation(L)[:C]].copy()
-    else:
-        seq = screened_normal(rng, (B, L, d), R)
-        q = screened_normal(rng, (B, C, d), R)
-    if case == "one-bucket":                     # positive multiples of one row
-        seq = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, L, 1))).astype(np.float32)
-        q = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, C, 1))).astype(np.float32)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    table, dT, _ = _check_large_tau_training(seq, q, mask, R, tau, dout)
-    G, U = m // tau, 1 << tau
-    sel = _selected(q, R, tau)
-    nonzero = np.abs(table).sum(-1) > 0
-    if case == "one-bucket":
-        assert (nonzero[:-1].sum(-1) == 1).all() and (sel.sum(-1) == 1).all()
-    if case == "distinct":
-        assert (nonzero[:-1].sum(-1) == (mask[:-1] != 0).sum(-1)[:, None]).all()
-        assert (sel.sum(-1) == C).all()
-    if case == "C>U":
-        assert C > U and (sel.sum(-1) < C).all()
-    if case in ("L0", "C0"):
-        assert not table.any() if case == "L0" else not dT.any()
-
-
-@pytest.mark.parametrize("case", ["fits", "all-masked"])
-@pytest.mark.parametrize("tau, m, d", [(5, 45, 32), (5, 45, 128), (7, 42, 32), (7, 42, 128),
-                                       (10, 40, 32), (10, 40, 128)])
-def test_large_tau_backward_layouts(tau, m, d, case):
-    """The large-tau backward's two layouts of dT at Table 4's tau 5, 7
-    and 10 (m = 45, 42, 40) at d = 32 and 128, L = 300 (not a multiple of a
-    round: 256 rows at d = 32, 64 at d = 128), split as for Table 4's 128
-    users: the wrapper stages a user's dT where it fits a CTA beside R
-    (tau 5 at both widths: 36 and 144 KB; tau 7 at d = 32: 96 KB) and
-    gathers it from device memory elsewhere; both layouts against jax.grad,
-    every element written once, a staged CTA reading its user's dT once and
-    a gathering one the G rows of each valid row only; "all-masked": no row
-    hashed or read, every gradient +0."""
-    B, L, C = 2, 300, 1
-    G, U = m // tau, 1 << tau
-    rng = np.random.default_rng(40 + tau + d)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, "random") if case == "fits" else np.zeros((B, L), np.float32)
-    dout = rng.standard_normal((B, C, d)).astype(np.float32)
-    _, jdT, _ = _jax_sdim_backward(dout, q, seq, mask, R, tau)
-    jdT = jdT + rng.standard_normal(jdT.shape).astype(np.float32)   # every row of dT nonzero
-    jdseq = _jax_encode_vjp(jdT, seq, mask, R, tau)
-    fits = bwd_lt_ctas(G, U, L, d, tau)(True) > 0
-    assert fits == ((tau, d) in ((5, 32), (5, 128), (7, 32)))
-    sig = _signatures(seq.reshape(-1, d), R.reshape(G, tau, d), tau).reshape(B, L, G)
-    for layout in (None, not fits):
-        dseq, writes, hashes, reads, (staged, S) = encode_backward_large_tau_schedule(
-            jdT, seq, mask, R, tau, B_card=128, staged=layout)
-        assert staged == (fits if layout is None else layout) and S >= 1
-        assert (writes == 1).all() and (hashes == (mask != 0)[..., None]).all()
-        if staged:
-            assert (reads == S).all()
-        else:
-            want = np.zeros((B, G, U), np.int64)
-            for b in range(B):
-                for g in range(G):
-                    np.add.at(want[b, g], sig[b, mask[b] != 0, g], 1)
-            assert (reads == want).all()
-        np.testing.assert_allclose(dseq, jdseq, **FP32)
-        assert not dseq[mask == 0].any() and not np.signbit(dseq[mask == 0]).any()
-
-
-@pytest.mark.parametrize("B, L, G, U, d, tau, want", [
-    (128, 256, 9, 32, 32, 5, (True, 1)),       # Table 4's tau 5: 36 KB of dT a user, 128 CTAs
-    (128, 256, 4, 1024, 32, 10, (False, 1)),   # Table 4's tau 10: 512 KB a user, gathered
-    (16, 1024, 9, 32, 128, 5, (True, 8)),      # the ingest at tau 5: 144 KB, one CTA an SM
-    (16, 1024, 4, 1024, 128, 10, (False, 16)),  # the ingest at tau 10: a CTA a 64-row round
-    (2, 1100, 2, 64, 16, 6, (True, 5)),        # a round of 256 rows a CTA
-    (1, 32768, 4, 1024, 128, 10, (False, 512)),  # the longest history: 512 rounds, one wave
-    (4096, 256, 9, 32, 32, 5, (True, 1)),      # a large batch: one CTA a user
-    (2, 20, 9, 32, 32, 5, (True, 1)),          # L <= 32: eight lanes a row, one round
-    (2, 256, 80, 1024, 128, 10, (False, 1)),   # R alone past a CTA: refused by the wrapper
-])
-def test_large_tau_backward_split_fills_one_wave(B, L, G, U, d, tau, want):
-    """The large-tau backward's split (sdim_bucket.py
-    encode_backward_large_tau_split) on the model card: dT staged where the
-    user's whole dT fits a CTA beside R, and as many CTAs a user as fit one
-    wave of the 132 SMs, at most one a round of rows."""
-    ctas = bwd_lt_ctas(G, U, L, d, tau)
-    staged, S = encode_backward_large_tau_split(B, L, d, 132, ctas)
-    assert (staged, S) == want
-    assert staged == (ctas(True) > 0)
-    rounds = -(-L // (BWD_LT_ROUND // row_lanes(L, d)))
-    per_sm = ctas(staged)
-    assert 1 <= S <= rounds
-    assert B * S <= 132 * per_sm or S == 1
-    assert S == rounds or B * (S + 1) > 132 * per_sm
-    if want == (False, 1) and G == 80:
-        assert per_sm == 0
-
-
-@pytest.mark.parametrize("kernel, B, G, U, n, d, tau, want", [
-    # the forward (n = L): as few slices as give the 132 SMs a CTA each
-    ("encode", 128, 9, 32, 256, 32, 5, (5, 2, 512)),       # Table 4's tau 5: 256 CTAs
-    ("encode", 128, 4, 1024, 256, 32, 10, (2, 2, 512)),    # Table 4's tau 10: 256 CTAs
-    ("encode", 16, 4, 1024, 1024, 128, 10, (1, 4, 1024)),  # the ingest at tau 10: 64 CTAs
-    ("encode", 16, 9, 32, 1024, 128, 5, (1, 9, 512)),      # the ingest at tau 5: 144 CTAs
-    ("encode", 4096, 12, 1024, 256, 128, 10, (4, 3, 256)),  # a large batch: 4 groups in 48 KB
-    ("encode", 1, 4, 1024, 32768, 128, 10, (1, 4, 1024)),   # the longest history
-    ("encode", 0, 9, 32, 256, 32, 5, (1, 9, 1024)),        # no user
-    # the backward (n = C): as many slices as fit one wave of 256 threads
-    ("query_backward", 128, 9, 32, 1, 32, 5, (3, 3, 256)),     # Table 4's tau 5: 384 CTAs
-    ("query_backward", 128, 4, 1024, 1, 32, 10, (1, 4, 256)),  # Table 4's tau 10: 512 CTAs
-    ("query_backward", 3, 2, 128, 2000, 36, 7, (1, 2, 256)),   # C = 2,000: 16 KB of lists a group
-    ("query_backward", 1, 4, 1024, 16384, 128, 10, (1, 4, 256)),  # the most candidates
-    ("query_backward", 4096, 12, 1024, 1, 128, 10, (4, 3, 256)),  # a large batch
-])
-def test_large_tau_list_splits_fill_one_wave(kernel, B, G, U, n, d, tau, want):
-    """The large-tau training kernels' split (large_tau.cuh list_split): a
-    CTA's groups within 48 KB of shared memory (one group at least), each
-    slice as even as it goes, the CTAs within one wave of the 132 SMs
-    (1,024 / threads * 4 CTAs of 64 registers a thread an SM) where the
-    groups allow; the forward with as few slices (re-reads of a user's rows)
-    as give every SM a CTA, the backward with as many as fill the wave."""
-    split = (encode_large_tau_splits(B, G, U, n, d, tau, n_sm=132) if kernel == "encode" else
-             query_backward_large_tau_splits(B, G, U, n, d, tau, n_sm=132))
-    Gs, slices, threads = split
-    assert split == want
-    assert (slices - 1) * Gs < G <= slices * Gs and threads in (256, 512, 1024)
-    per = 4 * tau * d + 2 * (2 * U + 2 * (-(-n // 8) * 8))
-    gs_max = max(1, min(G, 48 * 1024 // per))
-    assert Gs <= gs_max
-    wave = 132 * 4 * 256 // threads
-    assert max(B, 1) * slices <= wave or slices == -(-G // gs_max)
-    if kernel == "encode":      # fewer slices would leave an SM without a CTA
-        assert slices == -(-G // gs_max) or max(B, 1) * (slices - 1) < 132
-    else:                       # more slices would overflow the wave
-        assert slices == G or max(B, 1) * -(-G // max(Gs - 1, 1)) > 132 * 4 or Gs == 1
 
 
 # the serving reads at tau 5..10 (sdim_fused_serve_large_tau.cu,
@@ -1818,114 +1164,3 @@ def serve_large_tau_schedule(q, seq, mask, R, tau, n_sm=132, Gs=None, K=None):
             out[b, c] = _gather_large_tau(ranks[b, c], lambda g, k: tab[b, g, k], G, d,
                                           teams) / np.float32(G)
     return out, writes, rank_writes, split_buckets
-
-
-@pytest.mark.parametrize("B, G, U, C, d, tau, want", [
-    (16, 9, 32, 128, 128, 5, (2, 5, 32, 1)),     # phase 20's tau 5: 80 CTAs (144 pass 132)
-    (16, 4, 1024, 128, 128, 10, (1, 4, 64, 2)),  # tau 10: 128 ranks in two chunks of 64
-    (16, 48, 2, 128, 128, 1, (6, 8, 2, 1)),      # tau = 1, m = 48: 128 CTAs of 6 groups
-    (16, 4, 1024, 128, 36, 10, (1, 4, 128, 1)),  # d = 36: 227 slice rows a CTA, one chunk
-    (1, 48, 2, 128, 128, 1, (1, 48, 2, 1)),      # one user: a group a CTA
-    (4096, 48, 2, 128, 128, 1, (10, 5, 2, 1)),   # a large batch: 10 projections a row
-    (4096, 12, 1024, 1, 128, 10, (1, 12, 1, 1)),  # one candidate, tau 10: a group a CTA
-    (4096, 24, 4, 4, 36, 2, (5, 5, 4, 1)),       # tau 2: 5 groups of 10 projections
-])
-def test_serve_large_tau_splits_fill_one_wave(B, G, U, C, d, tau, want):
-    """bse_serve's large-tau kernel 1: a CTA's sums fit its threads'
-    registers (SERVE_CELLS each), it hashes at most 10 projections a row,
-    and the grid, one CTA an SM, fits the 132 SMs in one wave where the
-    groups and ranks allow."""
-    Gs, slices, K, chunks = serve_large_tau_splits(B, G, U, C, d, tau, n_sm=132)
-    assert (Gs, slices, K, chunks) == want
-    assert Gs * K * (d // 4) <= 4 * 512 and Gs * tau <= 10
-    assert (slices - 1) * Gs < G <= slices * Gs and K * chunks >= min(U, C)
-    # one wave, or as few slices as the registers and projections allow
-    gs_max = min(G, 10 // tau, max(1, 2048 // (d // 4) // K))
-    assert B * slices * chunks <= 132 or slices == -(-G // gs_max)
-
-
-@pytest.mark.parametrize("B, C, G, want", [
-    (16, 128, 9, (7, 9)),        # phase 20's tau 5: all nine groups in one pass
-    (16, 128, 4, (8, 4)),        # tau 10: 16 candidates a CTA would leave SMs idle
-    (16, 128, 48, (4, 16)),      # tau = 1, m = 48: three passes keep one wave
-    (1, 128, 48, (1, 48)),       # one user: one pass
-    (16, 128, 2, (8, 4)),        # G < 4: four teams a candidate (one a float4 column)
-])
-def test_gather_shape_fits_one_wave(B, C, G, want):
-    """The large-tau gather body's CTA: at most 64 teams, a thread for each
-    (candidate, float4 column), all the burst's teams on the 132 SMs at
-    once (2,048 threads an SM), and the CTAs at least one an SM."""
-    cands, teams = gather_shape(B, C, G, n_sm=132)
-    assert (cands, teams) == want
-    assert cands * teams <= 64 and 8 * teams >= 32
-    assert 8 * B * C * teams <= 132 * 2048 or teams == 4
-    assert B * -(-C // cands) >= 132 or cands == 1
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("shape", [
-    (3, 40, 8, 32, 10, 5, {}, "random"),            # U = 32, one chunk of min(U, C) = 8 ranks
-    (3, 90, 40, 16, 20, 10, dict(K=16), "random"),  # tau = 10: chunks of 16 ranks over 40
-    (3, 50, 12, 36, 14, 7, dict(K=5), "random"),    # dien's width d = 36, ragged chunks of 5
-    (2, 60, 20, 128, 48, 1, dict(n_sm=16), "random"),   # tau = 1 at G = 48: slices of Gs = 6
-    (3, 1100, 6, 16, 12, 6, {}, "random"),          # 18 tiles of rows, the last one partial
-    (3, 70, 16, 16, 45, 5, dict(n_sm=4), "random"),     # Gs = 5 over G = 9: a short last slice
-    (3, 150, 8, 16, 20, 5, {}, "one-bucket"),       # every valid row in one selected bucket
-    (3, 200, 8, 32, 10, 5, {}, "tile-split"),       # buckets whose rows span tiles
-    (3, 40, 8, 128, 80, 1, {}, "random"),           # G = 80: gather teams take 64 groups a pass
-], ids=["U32", "tau10-chunks", "d36-chunks", "tau1-G48", "two-passes", "Gs-ragged",
-        "one-bucket", "tile-split", "G80-team-passes"])
-def test_large_tau_serving_schedules_match_jax(shape, layout):
-    """bse_serve and sdim_fused_serve at tau 5..10 (bse_serve also at tau
-    = 1, G = 48) against the JAX package (its SDIM attention and its
-    fused-serve oracle; the event fold into the same stores is
-    ``test_large_tau_update_schedule_matches_jax`` in
-    tests/test_torch_fold_schedules.py): half the candidates are users'
-    own valid behaviors, so outputs are not all zero; every scratch row and
-    rank is written once; a fully masked user and an absent one read zero. ``one-bucket``
-    makes each user's behaviors positive multiples of one row, so every
-    valid row lands in one bucket of each group (the longest l-order
-    chain, across tiles); ``tile-split`` checks that buckets' rows span
-    tile boundaries."""
-    B, L, C, d, m, tau, split, case = shape
-    G, U = m // tau, 1 << tau
-    rng = np.random.default_rng(29 + tau)
-    R = rng.standard_normal((m, d)).astype(np.float32)
-    seq = screened_normal(rng, (B, L, d), R)
-    if case == "one-bucket":
-        seq = (seq[:, :1] * rng.uniform(0.5, 2.0, (B, L, 1))).astype(np.float32)
-    q = screened_normal(rng, (B, C, d), R)
-    mask = _mask(rng, B, L, layout)
-    for b in range(B - 1):
-        q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
-    out, writes, rank_writes, split_buckets = serve_large_tau_schedule(q, seq, mask, R, tau,
-                                                                      **split)
-    ref = np.asarray(jsdim_attention(jnp.asarray(q), jnp.asarray(seq), jnp.asarray(mask),
-                                     jnp.asarray(R), tau))
-    np.testing.assert_allclose(out, ref, **FP32)
-    selected = [len(np.unique(_signatures(q[b], R.reshape(G, tau, d), tau)[:, g]))
-                for b in range(B) for g in range(G)]
-    assert writes.sum() == sum(selected) and writes.max() == 1
-    assert (rank_writes == 1).all()
-    assert not out[-1].any() and np.abs(out[:-1]).sum(-1).astype(bool).mean() >= 0.5
-    if case != "random" and layout == "random":
-        assert split_buckets > 0
-    if tau == 1:
-        return
-    N = 2 * B + 1                                 # the fused read of encoded users
-    store = rng.standard_normal((N, G, U, d)).astype(np.float32)
-    slots = rng.permutation(np.arange(1, N))[:B].astype(np.int32)
-    store[slots] = np.asarray(jbse_encode_ref(jnp.asarray(seq), jnp.asarray(mask),
-                                              jnp.asarray(R), tau))
-    present = np.ones(B, np.float32)
-    present[0] = 0.0
-    jstore, jscales = jquant.quantize_rows(jnp.asarray(store), dtype=jnp.int8)
-    for st, sc in ((store, None), (np.asarray(jstore).astype(np.float32), np.asarray(jscales))):
-        fused = fused_serve_large_tau_schedule(st, sc, slots, present, q, R, tau)
-        fref = np.asarray(jsdim_fused_serve_ref(
-            jstore if sc is not None else jnp.asarray(st), jnp.asarray(slots), jnp.asarray(q),
-            jnp.asarray(R), tau, scales=None if sc is None else jscales,
-            present=jnp.asarray(present)))
-        np.testing.assert_allclose(fused, fref, **FP32)
-        assert not fused[0].any() and not fused[-1].any()
-        assert np.abs(fused[1:-1]).sum(-1).astype(bool).mean() >= 0.5
