@@ -463,7 +463,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    steps through the autograd functions at SPILL_L, SPILL_C and the
    SPILL_BWD shapes against the plain versions' gradients
    (``spill_phase``).
-Every launch count is set to 0 just before each of phases 4-21 and read
+22. past d = 128 — ``wide``: (a), beside phase 3, the decoupled
+   deployment's four kernels (bse_encode, sdim_update, sdim_query,
+   sdim_fused_serve) at d = 132 and 256, tau 3, 4, 5 and 10 (the fused
+   body, the wide path, the large-tau gather, the lists' wide variants),
+   and both reads at m = 500 (d = 128 and 256: R read from device memory,
+   the rows in chunks of groups), against their plain versions, the same
+   bits twice, timed beside their plain versions and bounds (at d = 256,
+   and at m = 500 with d = 128); the store rows
+   of an encode plus a fold against the plain versions'; the fused read of
+   an fp32 store equal to sdim_query of its fetched rows bit for bit
+   (``wide_kernel_checks``); (b) after phase 21, ``sdim-paper`` FULL with
+   embed_dim = 128 (d = 256; its item table cut to WIDE_N_ITEMS rows)
+   served decoupled (unfused, fused, fused off int8, fp32 wire), an event
+   block folded and the requests again, against a server of the plain
+   versions (``wide_phase``).
+Every phase prints its wall time on a line of its own (``phase wall
+time: ...``).
+Every launch count is set to 0 just before each of phases 4-22 and read
 just after it; each phase fails if one of its kernels never launched
 (phase 7: bse_encode, sdim_query and both their backward kernels, and
 target_attention_flash and its backward kernel; phase 8 the same six;
@@ -477,7 +494,8 @@ SDIM tokens under the mesh; phase 18 as its (c) and (d) say, (c) read as
 ``dryrun`` and (d) as ``examples``; phase 19 all six forward kernels,
 read before its (d); phase 20 bse_encode, sdim_update, sdim_fused_serve,
 sdim_query and bse_serve, read after its (b)'s kernel servers; phase 21
-bse_encode, sdim_update, sdim_query and both SDIM backward kernels).
+bse_encode, sdim_update, sdim_query and both SDIM backward kernels;
+phase 22 bse_encode, sdim_update, sdim_fused_serve and sdim_query).
 Launches made only to hold a kernel against its plain version (step 1's
 gradient checks, phase 8's and 10's long-branch checks, phase 9's, 10's
 and 12's kernel checks, phase 8's repeated trainings) or by a server that
@@ -492,11 +510,12 @@ path; ``launches_by_path``: every phase, phase 10 as ``archs``, phase
 11 as ``profile``, phase 12 as ``sharded``, phase 13 as ``lm``, phase 14
 as ``moe_mla``, phase 15 as ``lm_train``, phase 16 as ``gnn``, phase 17
 as ``mesh``, phase 18 as ``dryrun`` and ``examples``, phase 19 as
-``bench``, phase 20 as ``large_tau``, phase 21 as ``spill``;
-sdim_update, sdim_fused_serve, bse_serve, bse_encode, sdim_query and
-both SDIM backward kernels carry phase 20 (a)'s figures as
-``large_tau``, and sdim_update, bse_encode and both SDIM backward
-kernels phase 21 (a)'s as ``spill``), then as the
+``bench``, phase 20 as ``large_tau``, phase 21 as ``spill``, phase 22
+as ``wide``; sdim_update, sdim_fused_serve, bse_serve, bse_encode,
+sdim_query and both SDIM backward kernels carry phase 20 (a)'s figures
+as ``large_tau``, sdim_update, bse_encode and both SDIM backward
+kernels phase 21 (a)'s as ``spill``, and bse_encode, sdim_update,
+sdim_query and sdim_fused_serve phase 22 (a)'s as ``wide``), then as the
 last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -5664,6 +5683,246 @@ def spill_phase(torch, dev, wrappers):
     return launches
 
 
+WIDE_DS = (132, 256)            # phase 22: widths past the register paths' d = 128
+WIDE_TAUS = ((3, 48), (4, 48)) + LT_TAUS   # (tau, m): the fused body, the wide path, lists
+WIDE_PAST = ((500, 4, 128), (500, 4, 256))  # (m, tau, d): R alone past a CTA (both reads)
+WIDE_TIMED_D = 256              # phase 22 (a) times d = 256 (and m = 500 at d = 128) only
+WIDE_N_ITEMS = 1_000_000        # phase 22 (b): sdim-paper FULL's item table cut from 10M rows
+WIDE_REQUESTS = 32              # phase 22 (b): requests, in bursts of BURST
+
+
+def wide_kernel_checks(torch, dev) -> dict:
+    """22 (a): the decoupled deployment's four kernels past d = 128 and past
+    the fused read's shared memory, against their plain versions, the same
+    bits twice, timed beside their plain versions and bounds (event-timed
+    and on the device; uncounted; at d = WIDE_TIMED_D and at m = 500, d =
+    128 only, to keep the phase short). At each d of WIDE_DS and (tau, m) of
+    WIDE_TAUS: a burst of BURST users' histories (L = 1,024, ragged front
+    padding, the last user fully masked) encoded (bse_encode, fp32 and
+    bf16 behaviors), an event block of BURST rows of E events (duplicate
+    slots, a zero-mask row) folded into the encoded store (sdim_update), the
+    encode-plus-fold store rows against the plain versions' (ATOMIC: encode
+    and fold bucket every behavior alike), and both reads of the folded
+    store (sdim_query off the fetched fp32 and bf16 rows, sdim_fused_serve
+    off fp32 and int8 stores with an absent user), the fused read of the
+    fp32 store equal to sdim_query of its rows bit for bit. At WIDE_PAST
+    (R alone 256,000 B at m = 500, d = 128: read from device memory) the
+    two reads the same way. Returns each kernel's figures by label."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_bucket.sdim_bucket import bse_encode, bse_encode_ref
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
+                                                                       sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import query_plan, sdim_query, sdim_query_ref
+    from repro_torch.kernels.sdim_update.sdim_update import sdim_update, sdim_update_ref
+    from repro_torch.kernels import _build
+    from repro_torch.serve.quant import quantize_rows
+
+    rng = np.random.default_rng(22)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    figures = {"bse_encode": {}, "sdim_update": {}, "sdim_query": {}, "sdim_fused_serve": {}}
+    optin = _build.smem_optin(dev)
+
+    def record(name, label, kernel, plain, out, ref, c, bits=None, tol=FP32, timed=True):
+        err = check_close(f"wide (a) {name} {label}", out, ref, **tol)
+        same_bits(f"wide (a) {name} {label}", bits or kernel)
+        row = dict(max_abs_err=err)
+        if timed:
+            k1, p1, p2, k2 = time_ms(kernel), time_ms(plain), time_ms(plain), time_ms(kernel)
+            b_ms, b_by = bound(cost.settle(c))
+            row.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, **device_times(kernel, plain))
+        figures[name][label] = row
+
+    def reads(label, q, store, slots, Rt, tau, timed):
+        """Both reads of ``store`` (N, G, U, d) fp32 at ``slots`` (timed where
+        ``timed``)."""
+        B_, G_, U_, d_ = q.shape[0], *store.shape[1:]
+        plan = query_plan(G_, U_, d_, G_ * tau, 4, optin)[:1] if tau <= 4 else ("gather",)
+        label = f"{label} ({plan[0]})"
+        fetched = store[slots.long()].contiguous()
+        for wire in (fetched, fetched.to(torch.bfloat16)):
+            record("sdim_query", f"{label} fetched {str(wire.dtype)[6:]}",
+                   partial(sdim_query, q, wire, Rt, tau), partial(sdim_query_ref, q, wire, Rt, tau),
+                   sdim_query(q, wire, Rt, tau), sdim_query_ref(q, wire, Rt, tau),
+                   cost.query(q, wire, Rt, tau=tau),
+                   timed=timed and wire.dtype == torch.float32)
+        if not torch.equal(sdim_fused_serve(store, slots, q, Rt, tau), sdim_query(q, fetched, Rt,
+                                                                                  tau)):
+            raise AssertionError(f"wide (a) {label}: sdim_fused_serve of the fp32 store differs "
+                                 f"from sdim_query of its fetched rows")
+        present = torch.ones(B_, device=dev)
+        present[-1] = 0.0                       # an absent user
+        for dtype in ("fp32", "int8"):
+            st, kw = store, dict(present=present)
+            if dtype == "int8":
+                st, kw["scales"] = quantize_rows(store, dtype=torch.int8)
+            record("sdim_fused_serve", f"{label} {dtype}",
+                   partial(sdim_fused_serve, st, slots, q, Rt, tau, **kw),
+                   partial(sdim_fused_serve_ref, st, slots, q, Rt, tau, **kw),
+                   sdim_fused_serve(st, slots, q, Rt, tau, **kw),
+                   sdim_fused_serve_ref(st, slots, q, Rt, tau, **kw),
+                   cost.serve_fused(st, slots, q, Rt, tau=tau, **kw), timed=timed)
+        print(f"wide (a) {label}: sdim_fused_serve of the fp32 store equals sdim_query of its "
+              f"fetched rows bit for bit")
+
+    with uncounted():
+        for d in WIDE_DS:
+            for tau, m in WIDE_TAUS:
+                G_, U_ = m // tau, 1 << tau
+                R = rng.standard_normal((m, d)).astype(np.float32)
+                Rt = t(R)
+                # bf16 values: screened as fp32 and as bf16 behaviors
+                seq = screened_normal(rng, (BURST, L, d), R, torch.bfloat16)
+                mask = (np.arange(L)[None] >= rng.integers(0, L // 2, BURST)[:, None]).astype(
+                    np.float32)
+                mask[-1] = 0.0                      # a fully masked user
+                q = screened_normal(rng, (BURST, C, d), R)
+                for b in range(BURST - 1):          # half the candidates: own behaviors
+                    q[b, :C // 2] = seq[b, rng.choice(np.flatnonzero(mask[b]), C // 2)]
+                seq, mask, q = t(seq), t(mask), t(q)
+                label = f"tau={tau} m={m} d={d}"
+                for s in (seq, seq.to(torch.bfloat16)):
+                    record("bse_encode", f"{label} {str(s.dtype)[6:]}",
+                           partial(bse_encode, s, mask, Rt, tau),
+                           partial(bse_encode_ref, s, mask, Rt, tau),
+                           bse_encode(s, mask, Rt, tau), bse_encode_ref(s, mask, Rt, tau),
+                           cost.encode(s, mask, Rt, tau=tau), tol=ATOMIC,
+                           timed=d == WIDE_TIMED_D and s.dtype == torch.float32)
+                N = 2 * BURST
+                slots = torch.arange(0, N, 2, dtype=torch.int32, device=dev)
+                store = torch.zeros((N, G_, U_, d), device=dev)
+                store[slots.long()] = bse_encode(seq, mask, Rt, tau)
+                plain = torch.zeros_like(store)
+                plain[slots.long()] = bse_encode_ref(seq, mask, Rt, tau)
+                ev_slots = slots.clone()
+                ev_slots[1::4] = slots[0::4]        # duplicates: a slot folded twice
+                ev_slots[-1] = 1                    # a slot no history filled
+                events = t(screened_normal(rng, (BURST, E, d), R, torch.bfloat16))
+                ev_mask = t((rng.random((BURST, E)) > 0.2).astype(np.float32))
+                ev_mask[2] = 0.0                    # a zero-mask row
+                a, b_ = store.clone(), store.clone()
+                args = (ev_slots, events, ev_mask, Rt, tau)
+                record("sdim_update", label, partial(sdim_update, a, *args),
+                       partial(sdim_update_ref, b_, *args), sdim_update(store.clone(), *args),
+                       sdim_update_ref(store.clone(), *args), cost.update(store, *args[:-1],
+                                                                          tau=tau),
+                       bits=lambda: sdim_update(store.clone(), *args), timed=d == WIDE_TIMED_D)
+                sdim_update(store, *args)
+                sdim_update_ref(plain, *args)
+                err = check_close(f"wide (a) {label} encode + fold", store, plain, **ATOMIC)
+                print(f"wide (a) {label}: the store rows of an encode and a fold within "
+                      f"{err:.3g} of the plain versions'")
+                reads(label, q, store, slots, Rt, tau, d == WIDE_TIMED_D)
+                del seq, q, store, plain, a, b_, events
+        for m, tau, d in WIDE_PAST:                 # R alone past a CTA's shared memory
+            G_, U_ = m // tau, 1 << tau
+            R = rng.standard_normal((m, d)).astype(np.float32)
+            q = t(screened_normal(rng, (BURST, C, d), R))
+            store = t(rng.standard_normal((2 * BURST, G_, U_, d)).astype(np.float32))
+            store[:, :, 1] = 0.0                    # empty buckets
+            slots = t(rng.permutation(2 * BURST)[:BURST].astype(np.int32))
+            reads(f"tau={tau} m={m} d={d}", q, store, slots, t(R), tau, d == 128)
+            del q, store
+        torch.cuda.empty_cache()
+    for name, rows in figures.items():
+        for label, r in rows.items():
+            timed = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "
+                     f"{r['bound_ms']:.6f} ms ({r['bound_by']}); {device_line(r)}"
+                     if "ms" in r else "")
+            print(f"wide (a) {name} {label}: max abs err {r['max_abs_err']:.3g}, the same bits "
+                  f"twice{timed}")
+    return figures
+
+
+def wide_phase(torch, dev, wrappers):
+    """22 (b): the decoupled deployment at d = 256, counted: sdim-paper FULL
+    with embed_dim = 128 (its item table cut to WIDE_N_ITEMS rows), seeded
+    random weights, the item rows its traffic hashes screened; WIDE_REQUESTS
+    requests of C candidates in bursts of BURST through ``CTRServer``
+    unfused (fetch + sdim_query), fused (sdim_fused_serve, fp32 store) and
+    fused off an int8 store, all with an fp32 wire; an event block of
+    EV_USERS users (sdim_update) folded; the requests again. The fused and
+    unfused scores agree bit for bit; each server's scores match a server
+    whose dispatches run the plain versions (uncounted) within 1e-5 (the
+    int8 store within the wire tolerance). Returns the launch counts."""
+    from repro_torch.configs import sdim_paper
+    from repro_torch.kernels.screen import screen_item_rows
+    from repro_torch.models.ctr import CTRModel
+    from repro_torch.serve.ctr_server import CTRServer
+
+    free_card(torch)
+    cfg = dataclasses.replace(sdim_paper.FULL, embed_dim=128, n_items=WIDE_N_ITEMS)
+    model = CTRModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(22))
+    requests = request_stream(WIDE_REQUESTS, cfg)
+    rng = np.random.default_rng(122)
+    ev_users = [f"u{u}" for u in rng.integers(0, WIDE_REQUESTS, EV_USERS)]
+    ev_items = rng.integers(0, cfg.n_items, (EV_USERS, E)).astype(np.int32)
+    ev_cats = rng.integers(0, cfg.n_cats, (EV_USERS, E)).astype(np.int32)
+    ev_batch = {"hist_items": torch.as_tensor(ev_items, device=dev),
+                "hist_cats": torch.as_tensor(ev_cats, device=dev),
+                "hist_mask": torch.ones(ev_items.shape, device=dev),
+                "cand_item": torch.as_tensor(ev_items[:, :1], device=dev),
+                "cand_cat": torch.as_tensor(ev_cats[:, :1], device=dev)}
+    n = screen_item_rows(model, [arch_burst(torch, dev, requests), ev_batch],
+                         torch.Generator(device=dev).manual_seed(222))
+    print(f"wide (b): sdim-paper FULL at embed_dim 128 (d = {cfg.behavior_dim}, "
+          f"{cfg.n_items} items); {n} item rows redrawn to clear the hash margin")
+    setups = {"unfused": dict(), "fused": dict(fused=True),
+              "fused-int8": dict(fused=True, table_dtype="int8")}
+
+    def run(plain):
+        scores = {}
+        model.engine.profiler = PlainDispatch() if plain else None
+        try:
+            for name, kw in setups.items():
+                srv = CTRServer.build(model, None, "decoupled", wire_dtype=torch.float32,
+                                      device=dev, **kw)
+                tag = f"wide (b) {name}{' through the plain versions' if plain else ''}"
+                scores[(name, "before")], _ = serve_all(torch, tag, srv, requests, wrappers)
+                srv.bse.ingest_events(ev_users, ev_items, ev_cats)
+                scores[(name, "after")], _ = serve_all(torch, f"{tag}, after the events", srv,
+                                                       requests, wrappers)
+                del srv
+        finally:
+            model.engine.profiler = None
+        return scores
+
+    reset(wrappers)
+    sc = run(False)
+    launches = read_launches(wrappers, ("bse_encode", "sdim_update", "sdim_fused_serve",
+                                        "sdim_query"), "wide")
+    with uncounted():
+        plain = run(True)
+    diffs = {}
+    for rnd in ("before", "after"):
+        if not np.array_equal(sc[("fused", rnd)], sc[("unfused", rnd)]):
+            raise AssertionError(f"wide (b): fused and unfused scores differ ({rnd} the events)")
+        for key in [k for k in sc if k[1] == rnd]:
+            diff = float(np.abs(sc[key] - plain[key]).max())
+            diffs[f"{key[0]} ({rnd} the events) - its plain versions"] = diff
+            tol = WIRE_TOL if key[0] == "fused-int8" else LT_TOL
+            if diff > tol:
+                raise AssertionError(f"wide (b): {key[0]} ({rnd} the events) differs from its "
+                                     f"plain versions by {diff} (> {tol})")
+    moved = float(np.abs(sc[("fused", "after")] - sc[("fused", "before")]).max())
+    if moved == 0.0:
+        raise AssertionError("wide (b): the event block changed no score")
+    print(f"wide (b): fused and unfused scores equal bit for bit; max abs diffs "
+          f"{json.dumps(diffs)}; the fold moved scores by up to {moved:.3g}")
+    del model
+    free_card(torch)
+    return launches
+
+
+def timed_phase(label, fn, *args):
+    """``fn(*args)``, with its wall time printed on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase wall time: {label} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -5688,21 +5947,27 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, ROOT)}")
+    print(f"phase wall time: 2 build {time.perf_counter() - t0:.1f} s")
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "Used" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    timed = kernel_phase(torch, dev)
+    timed = timed_phase("3 kernels d=128", kernel_phase, torch, dev)
     by_name = {k["name"]: k for k in timed}
-    for k in kernel_phase(torch, dev, D36):
+    for k in timed_phase("3 kernels d=36", kernel_phase, torch, dev, D36):
         by_name[k["name"]]["d36"] = {"d": D36, **{key: v for key, v in k.items() if key not in
                                                   ("name", "route", "source", "replaces")}}
     # phase 20 (a) beside phase 3: late in the run torch.profiler records
     # few of a ctypes-launched kernel's device launches (PERF.md section 7)
-    for name, rows in large_tau_kernel_checks(torch, dev).items():
+    for name, rows in timed_phase("20 (a) large tau kernels", large_tau_kernel_checks, torch,
+                                  dev).items():
         by_name[name]["large_tau"] = rows
-    for name, rows in spill_kernel_checks(torch, dev).items():
+    for name, rows in timed_phase("21 (a) spill kernels", spill_kernel_checks, torch,
+                                  dev).items():
         by_name[name]["spill"] = rows
+    for name, rows in timed_phase("22 (a) wide kernels", wide_kernel_checks, torch,
+                                  dev).items():
+        by_name[name]["wide"] = rows
     wrappers, backward = all_wrappers()[:6], all_wrappers()[6:]
     t0 = time.perf_counter()
     model = CTRModel(sdim_paper.FULL, device=dev,
@@ -5712,36 +5977,45 @@ def main() -> int:
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
     requests = request_stream(64, model.cfg)
     by_path = {}
-    launches, bf16_wire_scores = decoupled_phase(torch, dev, wrappers, model, requests)
+    launches, bf16_wire_scores = timed_phase("4 decoupled", decoupled_phase, torch, dev,
+                                             wrappers, model, requests)
     by_path["decoupled"] = dict(launches)
-    by_path["inline"] = inline_phase(torch, dev, wrappers, model, requests, bf16_wire_scores)
+    by_path["inline"] = timed_phase("5 inline", inline_phase, torch, dev, wrappers, model,
+                                    requests, bf16_wire_scores)
     launches["bse_serve"] = by_path["inline"]["bse_serve"]
     del model
-    by_path["target"] = target_phase(torch, dev, wrappers, requests)
+    by_path["target"] = timed_phase("6 target", target_phase, torch, dev, wrappers, requests)
     launches["target_attention_flash"] = by_path["target"]["target_attention_flash"]
     torch.cuda.empty_cache()
-    by_path["train"] = train_phase(torch, dev, wrappers + backward)
-    by_path["comparison"] = comparison_phase(torch, dev, wrappers + backward)
+    by_path["train"] = timed_phase("7 train", train_phase, torch, dev, wrappers + backward)
+    by_path["comparison"] = timed_phase("8 comparison", comparison_phase, torch, dev,
+                                        wrappers + backward)
     torch.cuda.empty_cache()
-    by_path["production"] = production_phase(torch, dev, wrappers)
+    by_path["production"] = timed_phase("9 production", production_phase, torch, dev,
+                                        wrappers)
     torch.cuda.empty_cache()
-    by_path["archs"] = archs_phase(torch, dev, wrappers + backward)
+    by_path["archs"] = timed_phase("10 archs", archs_phase, torch, dev, wrappers + backward)
     torch.cuda.empty_cache()
-    by_path["profile"] = profile_phase(torch, dev, wrappers)
+    by_path["profile"] = timed_phase("11 profile", profile_phase, torch, dev, wrappers)
     torch.cuda.empty_cache()
-    by_path["sharded"] = sharded_phase(torch, dev, wrappers)
-    by_path["lm"], by_name["sdim_query"]["lm"] = lm_phase(torch, dev, wrappers)
-    by_path["moe_mla"], moe_mla_query = moe_mla_phase(torch, dev, wrappers)
+    by_path["sharded"] = timed_phase("12 sharded", sharded_phase, torch, dev, wrappers)
+    by_path["lm"], by_name["sdim_query"]["lm"] = timed_phase("13 lm", lm_phase, torch, dev,
+                                                             wrappers)
+    by_path["moe_mla"], moe_mla_query = timed_phase("14 moe_mla", moe_mla_phase, torch, dev,
+                                                    wrappers)
     by_name["sdim_query"].update(moe_mla_query)
-    by_path["lm_train"] = lm_train_phase(torch, dev, wrappers + backward)
-    by_path["gnn"] = gnn_phase(torch, dev, wrappers + backward)
-    by_path["mesh"] = mesh_phase(torch, dev, wrappers + backward)
-    by_path["dryrun"], by_path["examples"] = dryrun_examples_phase(torch, dev,
-                                                                   wrappers + backward)
-    by_path["bench"], by_name["target_attention_flash_backward"]["protocol"] = bench_phase(
-        torch, dev, wrappers + backward)
-    by_path["large_tau"] = large_tau_phase(torch, dev, wrappers)
-    by_path["spill"] = spill_phase(torch, dev, wrappers + backward)
+    by_path["lm_train"] = timed_phase("15 lm_train", lm_train_phase, torch, dev,
+                                      wrappers + backward)
+    by_path["gnn"] = timed_phase("16 gnn", gnn_phase, torch, dev, wrappers + backward)
+    by_path["mesh"] = timed_phase("17 mesh", mesh_phase, torch, dev, wrappers + backward)
+    by_path["dryrun"], by_path["examples"] = timed_phase(
+        "18 dryrun and examples", dryrun_examples_phase, torch, dev, wrappers + backward)
+    by_path["bench"], by_name["target_attention_flash_backward"]["protocol"] = timed_phase(
+        "19 bench", bench_phase, torch, dev, wrappers + backward)
+    by_path["large_tau"] = timed_phase("20 (b) large tau", large_tau_phase, torch, dev,
+                                       wrappers)
+    by_path["spill"] = timed_phase("21 (b) spill", spill_phase, torch, dev, wrappers + backward)
+    by_path["wide"] = timed_phase("22 (b) wide", wide_phase, torch, dev, wrappers)
     for w in backward:
         launches[w.__name__] = by_path["train"][w.__name__]
     for k in timed:

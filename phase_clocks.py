@@ -8,6 +8,9 @@ NVIDIA GPU (written for the H100):
     python3 phase_clocks.py query [--src DIR]
     python3 phase_clocks.py bwd_wide [--src DIR]
     python3 phase_clocks.py fold [--src DIR]
+    python3 phase_clocks.py ta_bwd_err [N]
+    python3 phase_clocks.py reads_past [--src DIR]
+    python3 phase_clocks.py smoke_kernels [--src DIR]
 
 Builds the port's kernels with ``-DSDIM_PHASE_CLOCKS`` (a library beside
 the port's own, under ``build/``): thread 0 of every CTA then adds the SM
@@ -80,6 +83,22 @@ port under ``--src`` has them, times each CTA shape of the folded body
 kernels' phase cycles (``target_attn.cu``'s folded body,
 ``sdim_update_large_tau.cu``, whose owners of two rows are also reported
 on their own).
+``ta_bwd_err`` draws N (default 200) seeded ``dout`` for
+``tests/test_torch_cuda.py``'s ``test_target_attention_flash_backward_kernel``
+at (B, L, C, d) = (32, 16, 128, 128), fp32, front-padded rows (its inputs,
+seed 9), and prints, at C = 1 and C = 128, how often and by how much dseq
+misses the test's fp32 tolerance (atol 1e-5, rtol 1e-5): the kernel
+against the plain version (the test's check), and each of the two against
+the closed form summed in fp64. ``reads_past`` calls ``sdim_query`` and
+``sdim_fused_serve`` (fp32) of the port under ``--src`` at the shapes past
+the fused body's shared memory (``READS_PAST``: m = 500 at d = 128, R
+alone 256,000 B; tau = 4 at d = 256) and prints, for each, its max abs
+error against the plain version or the exception the call raised.
+``smoke_kernels`` runs the kernel checks of the ``chip_smoke.py`` beside
+``--src`` (phases 3, 20 (a), 21 (a) and, where that tree has them, 22
+(a) and (b)) with that tree's port, and prints their figures as one JSON
+line (``SMOKE_KERNELS_JSON``), so two trees' kernels can be compared in
+one chip call (parent, change, change, parent).
 """
 from __future__ import annotations
 
@@ -263,7 +282,8 @@ def host_breakdown(lib, store, slots, q, R) -> None:
     B, C, d = q.shape
     G, U = store.shape[1], store.shape[2]
     args = (store.data_ptr(), 0, None, slots.data_ptr(), None, q.data_ptr(), R.data_ptr(),
-            out.data_ptr(), B, C, G, U, d, R.shape[0], R.shape[0] // G, _build.stream(dev))
+            out.data_ptr(), B, C, G, U, d, R.shape[0], R.shape[0] // G, 0, G, 1,
+            _build.stream(dev))
     pieces = {
         "shape and dtype checks + require_cuda + require_aligned": lambda: (
             _build.dtype_code("x", store, (torch.float32,)),
@@ -535,7 +555,7 @@ def bwd_wide_times(src: str) -> int:
 
             def tiled(tile):
                 err = lib.sdim_query(table.data_ptr(), 0, q.data_ptr(), R.data_ptr(),
-                                     out.data_ptr(), b, c, G, 1 << TAU, d, M, TAU, tile,
+                                     out.data_ptr(), b, c, G, 1 << TAU, d, M, TAU, tile, G, 1,
                                      _build.stream(dev))
                 _build.check(err, "sdim_query")
 
@@ -961,6 +981,134 @@ def train_steps(src: str, mode: str, cases, steps: int = 20) -> int:
     return 0
 
 
+def smoke_kernels(src: str) -> int:
+    """``smoke_kernels`` mode (module docstring)."""
+    import json
+
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    tree = os.path.dirname(os.path.abspath(src))
+    sys.path.insert(0, os.path.abspath(src))
+    sys.path.insert(0, tree)
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"chip_smoke's kernel checks of {tree}; {cs.card_line()}")
+    out = {"d128": cs.kernel_phase(torch, dev), "d36": cs.kernel_phase(torch, dev, cs.D36),
+           "large_tau": cs.large_tau_kernel_checks(torch, dev),
+           "spill": cs.spill_kernel_checks(torch, dev)}
+    if hasattr(cs, "wide_kernel_checks"):
+        out["wide"] = cs.wide_kernel_checks(torch, dev)
+        out["wide_launches"] = cs.wide_phase(torch, dev, cs.all_wrappers()[:6])
+    print("SMOKE_KERNELS_JSON " + json.dumps(out, default=str))
+    return 0
+
+
+READS_PAST = ((500, 4, 128), (48, 4, 256))   # (m, tau, d)
+
+
+def reads_past(src: str) -> int:
+    """``reads_past`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.abspath(src))
+    from functools import partial
+
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.sdim_fused_serve.sdim_fused_serve import (sdim_fused_serve,
+                                                                       sdim_fused_serve_ref)
+    from repro_torch.kernels.sdim_query.sdim_query import sdim_query, sdim_query_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"reads past the fused body with the port at {os.path.abspath(src)}")
+    rng = np.random.default_rng(37)
+    for m, tau, d in READS_PAST:
+        R = rng.standard_normal((m, d)).astype(np.float32)
+        q = torch.from_numpy(screened_normal(rng, (4, 70, d), R)).to(dev)
+        store = torch.from_numpy(rng.standard_normal((6, m // tau, 1 << tau, d))
+                                 .astype(np.float32)).to(dev)
+        slots = torch.tensor([5, 0, 3, 3], dtype=torch.int32, device=dev)
+        Rt = torch.from_numpy(R).to(dev)
+        table = store[slots.long()].contiguous()
+        calls = {"sdim_query": (partial(sdim_query, q, table, Rt, tau),
+                                partial(sdim_query_ref, q, table, Rt, tau)),
+                 "sdim_fused_serve": (partial(sdim_fused_serve, store, slots, q, Rt, tau),
+                                      partial(sdim_fused_serve_ref, store, slots, q, Rt, tau))}
+        for name, (kernel, plain) in calls.items():
+            try:
+                err = float((kernel() - plain()).abs().max())
+                torch.cuda.synchronize()
+                print(f"reads_past {name} m={m} tau={tau} d={d}: max abs err {err:.3g}")
+            except (RuntimeError, ValueError) as e:
+                print(f"reads_past {name} m={m} tau={tau} d={d}: {type(e).__name__}: {e}")
+    return 0
+
+
+def ta_bwd_errors(n_draws: int) -> int:
+    """``ta_bwd_err`` mode (module docstring)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("phase_clocks: torch.cuda.is_available() is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.target_attention import default_scale
+    from repro_torch.kernels.screen import screened_normal
+    from repro_torch.kernels.target_attn.target_attn import (target_attention_flash,
+                                                             target_attention_flash_backward,
+                                                             target_attention_flash_backward_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    Bn, Ln, Cn, d, m = 32, 16, 128, 128, 48
+    rng = np.random.default_rng(9)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    seq = torch.from_numpy(screened_normal(rng, (Bn, Ln, d), R)).to(dev)
+    q = torch.from_numpy(screened_normal(rng, (Bn, Cn, d), R)).to(dev)
+    rng.random((Bn, Ln))                        # the test's random mask, then re-drawn front
+    lengths = torch.from_numpy(rng.integers(1, max(Ln // 3, 1) + 1, Bn))
+    mask = (torch.arange(Ln)[None] >= Ln - lengths[:, None]).float().to(dev)
+    mask[-1] = 0
+    for C_ in (1, Cn):
+        qc = q[:, :C_].contiguous()
+        out = target_attention_flash(qc, seq, mask)
+        x, qf = seq.double(), qc.double()
+        scale = default_scale(d)
+        valid = (mask > 0)[:, None, :]
+        P = torch.softmax(torch.where(valid, torch.einsum("bcd,bld->bcl", qf, x) * scale,
+                                      torch.full((), -1e30, dtype=x.dtype, device=dev)), -1)
+        miss = {"kernel - plain": [], "kernel - fp64": [], "plain - fp64": []}
+        for k in range(n_draws):
+            dout = torch.randn(qc.shape, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(k))
+            _, dseq = target_attention_flash_backward(dout, qc, seq, mask, out)
+            _, rseq = target_attention_flash_backward_ref(dout, qc, seq, mask, out)
+            do = dout.double()
+            dS = torch.where(valid, P * (torch.einsum("bcd,bld->bcl", do, x)
+                                         - torch.sum(do * out.double(), -1, keepdim=True)),
+                             torch.zeros((), dtype=x.dtype, device=dev))
+            exact = (torch.einsum("bcl,bcd->bld", P, do)
+                     + scale * torch.einsum("bcl,bcd->bld", dS, qf))
+            for key, got, want in (("kernel - plain", dseq.double(), rseq.double()),
+                                   ("kernel - fp64", dseq.double(), exact),
+                                   ("plain - fp64", rseq.double(), exact)):
+                excess = float(((got - want).abs() - 1e-5 * want.abs()).max())
+                miss[key].append(excess)
+        torch.cuda.synchronize()
+        for key, ex in miss.items():
+            ex = np.asarray(ex)
+            print(f"ta_bwd_err C={C_} {key}: {int((ex > 1e-5).sum())} of {n_draws} draws past "
+                  f"atol 1e-5 + rtol 1e-5; largest |err| - 1e-5 |ref| {ex.max():.3g}, median "
+                  f"{np.median(ex):.3g}")
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     args = sys.argv[2:]
@@ -975,4 +1123,10 @@ if __name__ == "__main__":
         sys.exit(bwd_wide_times(src))
     if mode == "fold":
         sys.exit(fold_times(src))
+    if mode == "smoke_kernels":
+        sys.exit(smoke_kernels(src))
+    if mode == "reads_past":
+        sys.exit(reads_past(src))
+    if mode == "ta_bwd_err":
+        sys.exit(ta_bwd_errors(int(args[0]) if args else 200))
     sys.exit(main())

@@ -42,8 +42,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sdim_bse_encode": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_update": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 8 + [_P],
-    "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "sdim_query": [_P, _I, _P, _P, _P] + [_I] * 10 + [_P],
+    "sdim_fused_serve": [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "sdim_bse_serve": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "sdim_target_attention": [_P, _P, _I, _P, _P] + [_I] * 4 + [_F, _I, _P],
     "sdim_bse_encode_backward": [_P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
@@ -55,8 +55,10 @@ SIGNATURES = {
     "sdim_bse_encode_backward_clusters": [_I] * 5,
     # CTA capacity queries: CTAs of a launch one SM holds at once
     "sdim_bse_encode_backward_large_tau_ctas": [_I] * 6,
-    "sdim_query_wide_ctas": [_I] * 5,
-    "sdim_query_takes_wide": [_I] * 3,
+    "sdim_query_wide_ctas": [_I] * 7,
+    "sdim_fused_serve_wide_ctas": [_I] * 7,
+    # the device's opt-in shared memory a CTA (bytes)
+    "sdim_smem_optin": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -233,6 +235,12 @@ def clusters(entry: str, device: torch.device, *args: int) -> int:
             raise ValueError(f"{entry}: arguments {args} not taken by the kernel")
         _CLUSTERS[key] = n
     return n
+
+
+def smem_optin(device: torch.device) -> int:
+    """The shared memory a CTA of ``device`` may opt in to (bytes; 232,448
+    on the H100), asked once per device."""
+    return clusters("sdim_smem_optin", device)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

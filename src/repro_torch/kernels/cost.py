@@ -22,11 +22,14 @@ the data's device, computed without waiting for the device; the profiler
 reads its records' counts once, when it reports. ``settle`` reads a cost
 as two numbers.
 
-At tau > 4 (and for ``bse_serve`` wherever its large-tau path runs) the
-kernels read and write only the table rows a call reaches, so the counts
-follow them: ``serve_fused`` reads the rows a present user's candidates
-select, ``update`` reads and writes the (slot, group, bucket) cells its
-valid events reach, and ``serve`` normalizes only the selected rows.
+At tau > 4 (and for ``bse_serve`` wherever its large-tau path runs, for
+``update`` at d > 128, where its list path runs at every tau, and for
+``serve_fused`` where its tau <= 4 read takes the wide path on the H100,
+``sdim_query.query_plan``) the kernels read and write only the table rows
+a call reaches, so the counts follow them: ``serve_fused`` reads the rows
+a present user's candidates select, ``update`` reads and writes the
+(slot, group, bucket) cells its valid events reach, and ``serve``
+normalizes only the selected rows.
 
 The sharded dispatches (``update_sharded``, ``serve_fused_sharded``,
 ``serve_sharded``) launch one kernel per shard; their cost is the sum over
@@ -45,7 +48,11 @@ import torch
 from repro_torch.core import simhash
 from repro_torch.core.engine import serve_shards
 from repro_torch.distributed.mesh_ctx import owned
+from repro_torch.kernels.sdim_query.sdim_query import query_plan
 from repro_torch.kernels.sdim_serve.sdim_serve import cluster_body_takes
+from repro_torch.kernels.sdim_update.sdim_update import update_path
+
+H100_SMEM_OPTIN = 232448   # a CTA's opt-in shared memory on the H100: which read body runs
 
 
 class Cost(NamedTuple):
@@ -148,7 +155,9 @@ def serve_fused(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor, R: to
     G, U = store.shape[1:3]
     n = B if present is None else (present > 0).sum()
     row = d * store.element_size() + (0 if scales is None else 4)
-    if tau > 4:   # the large-tau path reads the rows present users' candidates select
+    wide = tau <= 4 and query_plan(G, U, d, G * tau, store.element_size(),
+                                   H100_SMEM_OPTIN)[0] == "wide"
+    if tau > 4 or wide:   # the large-tau and wide paths read the rows candidates select
         rows = _selected_rows(q, R, tau, U, None if present is None else present > 0)
         return Cost(n * C * _hash_flops(R, tau) + rows * 3 * d,
                     rows * row + n * C * d * 4 + _nbytes(q) + _nbytes(R) + B * 8)
@@ -163,7 +172,7 @@ def update(store: torch.Tensor, slots: torch.Tensor, events: torch.Tensor,
     once, only valid events read and hashed."""
     G, U, d = store.shape[1:]
     valid = _valid(mask)
-    if tau > 4:   # the large-tau path: the (slot, group, bucket) cells valid events reach
+    if update_path(d, tau) == "lists":   # the (slot, group, bucket) cells valid events reach
         sig = simhash.signatures(events.float(), R.float(), tau).long()     # (B, E, G)
         cells = (slots.long().to(sig.device)[:, None, None] * G
                  + torch.arange(G, device=sig.device)) * U + sig

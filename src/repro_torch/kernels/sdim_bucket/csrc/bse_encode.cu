@@ -48,7 +48,12 @@
 // shared memory and written once. Every sum has a fixed order, so two
 // launches agree bit for bit. A user with every behavior masked lists no
 // batch and writes a zero slice. Each CTA reads its user's valid rows itself
-// (from L2 after the first CTA); tau <= 4 (5..10: large_tau.cuh), d a multiple of 4 up to 128,
+// (from L2 after the first CTA); tau <= 4 (5..10: large_tau.cuh), d a multiple of 4 up to 128
+// (a lane's float4 column of each of kCells sums: at d > 128 a lane would
+// hold two, and at tau = 4 one group already needs all kCells, so the
+// registers cannot hold a wider row's sums; the entry launches
+// bse_encode_large_tau.cu's list path there at any tau, which holds no sum
+// in registers and hashes a behavior as bucket_of, as this kernel does),
 // ceil(G/S) * 2^tau <= kCells, any L: the batch list lives in shared memory,
 // so a user of more than kSpanRows rows is taken in spans of kSpanRows (a
 // multiple of kBatch, so the batches are the same; SPANS), each span's
@@ -317,14 +322,15 @@ static cudaError_t launch_tau(const void* seq, const float* mask, const float* R
 PHASE_READER(sdim_bse_encode_phases)
 
 // seq (B, L, d) fp32|bf16, mask (B, L) fp32, R (m, d) fp32 -> out (B, G*U, d)
-// fp32, every element written; S signature-group slices per user (tau 1..4;
-// tau 5..10 launch the large-tau path, which ignores S).
+// fp32, every element written; S signature-group slices per user (tau 1..4
+// at d <= 128; tau 5..10 and d > 128 launch the large-tau path, which
+// ignores S).
 extern "C" int sdim_bse_encode(const void* seq, int seq_dtype, const float* mask, const float* R,
                                float* out, int B, int L, int G, int U, int d, int m, int tau,
                                int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
-  if (tau > 4)  // large_tau.cuh
+  if (tau > 4 || d > 128)  // large_tau.cuh
     return sdim::launch_encode_large_tau(seq, seq_dtype, mask, R, out, B, L, G, U, d, tau, s);
   switch (seq_dtype) {
     case sdim::kF32:

@@ -40,6 +40,15 @@
 //   fmaf chain runs on over the next span's rows in l order (a thread owns
 //   the same cells in every span); Q = 4 lanes a row at any d (bucket_regs
 //   gives bucket_of's bits at any Q).
+// - wide rows (Q = 0: d > 128, any tau 1..10; the entry bse_encode.cu
+//   launches it there at tau <= 4 too, where bse_encode.cu's registers hold
+//   one float4 column a lane): eight lanes a row (bucket_of's team), each
+//   group's projections summed over the row's columns in a loop
+//   (bucket_rows_at: bucket_of's operations in its order, so the bits
+//   sdim_update's fold gives the same behavior), R read from device memory
+//   (through L1: a wide group's R need not fit beside the lists), and any L
+//   in spans of kListMaxRows as SPANS (a user of L <= kListMaxRows is one
+//   span). The sums are the same.
 // So every cell is an fmaf chain from +0 over its rows in l order, and
 // bse_serve_large_tau.cu's kernel 1, which sums each bucket the same way,
 // stays bit-equal to it (decoupled against inline scores: 0).
@@ -59,10 +68,12 @@ __global__ void __launch_bounds__(kListThreads, 1)
                             const float* __restrict__ R, float* __restrict__ out, int L, int G,
                             int d, int Gs, bool evict_first) {
   constexpr int U = 1 << TAU;
+  constexpr bool WIDE = Q == 0, LOOP = SPANS || WIDE;            // LOOP: spans of rows
+  constexpr int QR = WIDE ? kEncodeHashLanes : Q;                // lanes a row
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const int Lmax = SPANS ? kListMaxRows : L;                     // rows a list holds
-  const ListLayout lay = list_layout(Gs, U, Lmax, d, TAU);
+  const int Lmax = WIDE ? encode_span(L) : SPANS ? kListMaxRows : L;   // rows a list holds
+  const ListLayout lay = list_layout(Gs, U, Lmax, WIDE ? 0 : d, TAU);  // WIDE: R not staged
   float* r_s = reinterpret_cast<float*>(smem);                   // (ng*TAU, d)
   short* head_s = reinterpret_cast<short*>(smem + lay.head);     // (ng, U)
   short* list_s = reinterpret_cast<short*>(smem + lay.list);     // (ng, ceil8(Lmax))
@@ -71,23 +82,25 @@ __global__ void __launch_bounds__(kListThreads, 1)
   const int tid = threadIdx.x, warp = tid / 32, warps = blockDim.x / 32, nq = d / 4;
   const T* xu = seq + (size_t)b * L * d;
   const float* wu = mask + (size_t)b * L;
-  const int per_round = blockDim.x / Q;
+  const int per_round = blockDim.x / QR;
   PHASE_BEGIN();
-  float4 xr[8 / Q][Q];  // the first round's rows load across the barrier
-  row_cols<Q>(xr, xu + (size_t)min(tid / Q, L - 1) * d, nq, tid / Q < L);
-  float wr = tid / Q < L ? wu[tid / Q] : 0.f;
-  for (int i = tid; i < ng * TAU * d; i += blockDim.x) r_s[i] = R[(size_t)g0 * TAU * d + i];
+  float4 xr[8 / QR][QR];  // the first round's rows load across the barrier (not WIDE)
+  if (!WIDE) row_cols<QR>(xr, xu + (size_t)min(tid / QR, L - 1) * d, nq, tid / QR < L);
+  float wr = tid / QR < L ? wu[tid / QR] : 0.f;
+  if (!WIDE)
+    for (int i = tid; i < ng * TAU * d; i += blockDim.x) r_s[i] = R[(size_t)g0 * TAU * d + i];
+  const float* r_g = WIDE ? R + (size_t)g0 * TAU * d : r_s;      // the slice's rows of R
   for (int i = tid; i < ng * U; i += blockDim.x) head_s[i] = -1;
   __syncthreads();
   PHASE_MARK(0);
 
   float* o = out + ((size_t)b * G + g0) * U * d;
   // one span (span0 = 0, all L rows) unless SPANS
-  for (int span0 = 0; SPANS ? span0 < L : span0 == 0; span0 += kListMaxRows) {
-  const int Ln = SPANS ? min(kListMaxRows, L - span0) : L;       // the span's rows
+  for (int span0 = 0; LOOP ? span0 < L : span0 == 0; span0 += kListMaxRows) {
+  const int Ln = LOOP ? min(kListMaxRows, L - span0) : L;        // the span's rows
   const T* x = xu + (size_t)span0 * d;
   const float* w = wu + span0;
-  if (SPANS && span0 > 0) {
+  if (LOOP && span0 > 0) {
     __syncthreads();  // the last span's sums done with its lists
     for (int i = tid; i < ng * U; i += blockDim.x) head_s[i] = -1;
   }
@@ -96,16 +109,25 @@ __global__ void __launch_bounds__(kListThreads, 1)
   // loaded once (with its weight, not after it) for all the CTA's groups,
   // and a warp whose rows all have zero weight hashes nothing
   for (int base = 0; base < Ln; base += per_round) {  // the same trip count for every warp
-    const int r = base + tid / Q;
+    const int r = base + tid / QR;
     if (base > 0 || span0 > 0) {
-      row_cols<Q>(xr, x + (size_t)min(r, Ln - 1) * d, nq, r < Ln);
+      if (!WIDE) row_cols<QR>(xr, x + (size_t)min(r, Ln - 1) * d, nq, r < Ln);
       wr = r < Ln ? w[r] : 0.f;
     }
     const bool live = wr != 0.f;
     const bool hashed = __any_sync(0xffffffffu, live);
     for (int gi = 0; gi < ng; ++gi) {
-      const int u = hashed ? bucket_regs<TAU, Q>(xr, r_s + (size_t)gi * TAU * d, d) : 0;
-      if (tid % Q == 0 && r < Ln) keys_s[(size_t)gi * Lp + r] = static_cast<short>(live ? u : -1);
+      int u = 0;
+      if (hashed && WIDE) {  // the row's columns from L1, a loop (any d)
+        const T* const rows[1] = {x + (size_t)min(r, Ln - 1) * d};
+        const bool lv[1] = {live};
+        int us[1];
+        bucket_rows_at<TAU, 1>(rows, lv, r_g + (size_t)gi * TAU * d, d, us);
+        u = us[0];
+      } else if (hashed) {
+        u = bucket_regs<TAU, QR>(xr, r_g + (size_t)gi * TAU * d, d);
+      }
+      if (tid % QR == 0 && r < Ln) keys_s[(size_t)gi * Lp + r] = static_cast<short>(live ? u : -1);
     }
   }
   __syncthreads();
@@ -128,7 +150,7 @@ __global__ void __launch_bounds__(kListThreads, 1)
   for (int row = tid / nq, k4 = tid % nq; row < rows;) {
     const short* next = list_s + (size_t)(row >> TAU) * Lp;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (SPANS && span0 > 0) acc = load4(o + (size_t)row * d + 4 * k4);  // the chain so far
+    if (LOOP && span0 > 0) acc = load4(o + (size_t)row * d + 4 * k4);  // the chain so far
     for (int r = head_s[row]; r >= 0;) {  // four rows' loads, then their adds in l order
       int rr[4];
       float wv[4];
@@ -165,8 +187,9 @@ static cudaError_t encode_large_tau(const void* seq, const float* mask, const fl
                                     cudaStream_t stream) {
   constexpr int U = 1 << TAU;
   const int n = encode_span(L);  // rows a list holds
-  const ListSplit sp = list_split(B, G, U, n, d, TAU, sm_count(), true);
-  const size_t smem = list_layout(sp.Gs, U, n, d, TAU).total;
+  const int dr = Q == 0 ? 0 : d; // the width of the staged R (none where wide)
+  const ListSplit sp = list_split(B, G, U, n, dr, TAU, sm_count(), true);
+  const size_t smem = list_layout(sp.Gs, U, n, dr, TAU).total;
   const auto kernel = encode_large_tau_kernel<T, TAU, Q, SPANS>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
@@ -179,6 +202,8 @@ static cudaError_t encode_large_tau(const void* seq, const float* mask, const fl
 template <typename T, int TAU>
 static cudaError_t encode_lanes(const void* seq, const float* mask, const float* R, float* out,
                                 int B, int L, int G, int d, cudaStream_t stream) {
+  if (d > 4 * kEncodeHashLanes * kLargeTauCols)  // wide rows, any L
+    return encode_large_tau<T, TAU, 0, false>(seq, mask, R, out, B, L, G, d, stream);
   if (L > kListMaxRows)  // spans of kListMaxRows rows
     return encode_large_tau<T, TAU, 4, true>(seq, mask, R, out, B, L, G, d, stream);
   switch (row_lanes(L, d)) {
@@ -196,6 +221,14 @@ static cudaError_t encode_tau(const void* seq, const float* mask, const float* R
 #define SDIM_ENCODE_TAU(t) \
   case t:                  \
     return encode_lanes<T, t>(seq, mask, R, out, B, L, G, d, stream);
+#define SDIM_ENCODE_WIDE_TAU(t) \
+  case t:                       \
+    return encode_large_tau<T, t, 0, false>(seq, mask, R, out, B, L, G, d, stream);
+    SDIM_ENCODE_WIDE_TAU(1)  // tau <= 4 only at d > 128
+    SDIM_ENCODE_WIDE_TAU(2)
+    SDIM_ENCODE_WIDE_TAU(3)
+    SDIM_ENCODE_WIDE_TAU(4)
+#undef SDIM_ENCODE_WIDE_TAU
     SDIM_ENCODE_TAU(5)
     SDIM_ENCODE_TAU(6)
     SDIM_ENCODE_TAU(7)
@@ -211,7 +244,10 @@ static cudaError_t encode_tau(const void* seq, const float* mask, const float* R
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,
                                     const float* R, float* out, int B, int L, int G, int U,
                                     int d, int tau, cudaStream_t stream) {
-  if (!large_tau_shape_ok(B, G, U, d, tau) || L < 1 || G > 65535) return cudaErrorInvalidValue;
+  // tau 5..10 at d <= 128; any tau 1..10 at d > 128 (the wide rows)
+  const bool wide = d > 128 && d % 4 == 0 && tau >= 1 && tau <= kLargeTauMax && U == (1 << tau);
+  if (!(wide || large_tau_shape_ok(B, G, U, d, tau)) || B < 0 || G <= 0 || L < 1 || G > 65535)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   switch (seq_dtype) {
     case kF32: return encode_tau<float>(seq, mask, R, out, B, L, G, d, tau, stream);

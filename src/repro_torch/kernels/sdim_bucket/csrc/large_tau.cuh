@@ -27,8 +27,14 @@
 // ingest (bse_encode), the event fold (sdim_update) and both serving reads
 // bucket one behavior alike: decoupled scores follow inline ones. d a
 // multiple of 4 up to 128 (each of the eight lanes holds at most four
-// float4 columns). No atomics; every sum has a fixed order, so two
-// launches agree bit for bit.
+// float4 columns, kLargeTauCols); the decoupled deployment's kernels
+// (bse_encode, sdim_update, sdim_fused_serve, sdim_query) also take any
+// wider d, at every tau 1..10 for the first two, in variants of their own
+// that hash with bucket_rows_at (bucket_of's operations in its order, the
+// columns in a loop) and read or sum a row's columns in a loop or in
+// passes of 128, so every d <= 128 instance keeps its code and its bits.
+// No atomics; every sum has a fixed order, so two launches agree bit for
+// bit.
 //
 // The three query reads share the gather body below (gather_shape,
 // gather_row, gather_sum): a team of eight lanes for each (candidate,
@@ -491,7 +497,8 @@ inline bool large_tau_shape_ok(int B, int G, int U, int d, int tau) {
          d > 0 && d % 4 == 0 && d <= 128;
 }
 
-// seq (B, L, d) fp32|bf16 -> table (B, G, U, d) fp32 (bse_encode.cu's function).
+// seq (B, L, d) fp32|bf16 -> table (B, G, U, d) fp32 (bse_encode.cu's function):
+// tau 5..10, and any tau 1..10 at d > 128.
 cudaError_t launch_encode_large_tau(const void* seq, int seq_dtype, const float* mask,
                                     const float* R, float* out, int B, int L, int G, int U,
                                     int d, int tau, cudaStream_t stream);
@@ -525,7 +532,8 @@ cudaError_t launch_query_backward_large_tau(const float* dout, const float* q,
 
 // events (B, E, d) fp32|bf16 with mask (B, E) folded into the rows slots (B,)
 // of the fp32 store (N, G, U, d) in place, any E; work holds B*G*U*d floats
-// of scratch where E > 8,192 (sdim_update.cu's function).
+// of scratch where E > 8,192 (sdim_update.cu's function): tau 5..10, and
+// any tau 1..10 at d > 128.
 cudaError_t launch_update_large_tau(float* store, const int* slots, const void* events,
                                    int ev_dtype, const float* mask, const float* R, float* work,
                                    int B, int E, int G, int U, int d, int tau,

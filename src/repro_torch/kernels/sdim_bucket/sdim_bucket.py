@@ -18,7 +18,12 @@ G rows of dT from a copy of the user's dT in shared memory where it fits,
 else from device memory, and reading R from device memory where R does not
 fit a CTA either). Both forward paths take any L: a user of more than
 ``MAX_L`` rows is listed in spans of ``MAX_L`` (``encode_spans``), each
-CTA's sums carried from span to span in row order.
+CTA's sums carried from span to span in row order. Rows wider than
+``MAX_REG_D`` (d > 128: a lane of the tau <= 4 kernel holds one float4
+column of its register sums) take the large-tau path at every tau
+(``encode_path``), whose eight lanes a row hash the columns in a loop, as
+bucket_of, with R read from device memory (``encode_large_tau_splits``
+at d > 128), so a behavior gets the bucket sdim_update's fold gives it.
 
 Where autograd records the call (grad mode on, ``seq`` requiring grad) the
 wrapper goes through ``BSEEncodeFn``, whose backward is
@@ -47,7 +52,17 @@ MAX_CELLS = 16      # (group, bucket) sums a CTA holds in registers (bse_encode.
 MAX_L = 32768       # behaviors a span: the forward's lists (of 8-row batches at tau <= 4, of
                     # rows at tau 5..10) live in shared memory; longer users go in spans
 MAX_BWD_SMEM = 200 * 1024   # the backward's shared copy of a user's table and of R (tau <= 4)
-MAX_TAU = 10        # tau 5..MAX_TAU: the large-tau path (csrc/large_tau.cuh), d up to 128
+MAX_TAU = 10        # tau 5..MAX_TAU: the large-tau path (csrc/large_tau.cuh)
+MAX_REG_D = 128     # the widest row the register paths hold (csrc/large_tau.cuh kLargeTauCols);
+                    # wider rows take the large-tau kernels' wide variants at every tau
+
+
+def encode_path(d: int, tau: int) -> str:
+    """The forward's path: ``"groups"`` (csrc/bse_encode.cu, signature-group
+    slices with register sums) at tau <= 4 and d <= ``MAX_REG_D``, else
+    ``"lists"`` (csrc/bse_encode_large_tau.cu; its wide variant above
+    ``MAX_REG_D``)."""
+    return "groups" if tau <= 4 and d <= MAX_REG_D else "lists"
 
 
 def bse_encode_ref(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -110,8 +125,11 @@ def encode_large_tau_splits(B: int, G: int, U: int, L: int, d: int, tau: int,
                             n_sm: int) -> tuple[int, int, int]:
     """(Gs, slices, threads) of the large-tau forward
     (``csrc/bse_encode_large_tau.cu``): ``large_tau_list_splits`` over the
-    rows of a span of the user's L behaviors, which each slice reads."""
-    return large_tau_list_splits(B, G, U, min(L, MAX_L), d, tau, n_sm, reread=True)
+    rows of a span of the user's L behaviors, which each slice reads (R
+    staged beside the lists up to ``MAX_REG_D``; above, read from device
+    memory: no R in the budget)."""
+    return large_tau_list_splits(B, G, U, min(L, MAX_L), d if d <= MAX_REG_D else 0, tau, n_sm,
+                                 reread=True)
 
 
 def bse_encode(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
@@ -157,16 +175,17 @@ def bse_encode_cuda(seq: torch.Tensor, mask: torch.Tensor, R: torch.Tensor,
         raise ValueError(f"bse_encode: shapes seq {tuple(seq.shape)} mask "
                          f"{tuple(mask.shape)} R {tuple(R.shape)} tau {tau}")
     G, U = m // tau, 1 << tau
-    if not 1 <= tau <= MAX_TAU or d % 4 or d > 128:
-        raise ValueError(f"bse_encode: the kernel takes tau 1..{MAX_TAU} and d a multiple of 4 "
-                         f"up to 128; got tau {tau}, d {d}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or d < 4:
+        raise ValueError(f"bse_encode: the kernel takes tau 1..{MAX_TAU} and d a multiple of 4; "
+                         f"got tau {tau}, d {d}")
     code = _build.dtype_code("bse_encode", seq, (torch.float32, torch.bfloat16))
     if mask.dtype != torch.float32 or R.dtype != torch.float32:
         raise TypeError("bse_encode: mask and R must be float32")
     dev = _build.require_cuda("bse_encode", seq, mask, R)
     _build.require_aligned("bse_encode", seq, R)
     if splits is None:      # the large-tau path takes no slices
-        splits = encode_splits(B, G, U, _build.sm_count(dev)) if tau <= 4 else 1
+        splits = (encode_splits(B, G, U, _build.sm_count(dev))
+                  if encode_path(d, tau) == "groups" else 1)
     if B == 0 or L == 0:
         return torch.zeros((B, G, U, d), dtype=torch.float32, device=dev)
     out = R.new_empty((B, G, U, d))         # fp32 on R's device

@@ -32,6 +32,18 @@
 // normalized once by each. The kernel and its launch are static: each entry
 // point's translation unit has its own copy (and its own phase clocks).
 //
+// WIDE (d > 128, where a team's eight lanes cannot hold a row's float4
+// columns in registers, large_tau.cuh kLargeTauCols): the same operations
+// in the same order, the columns in a loop: a team writes its row times
+// its scale to its slot of shared memory while it sums the squares (each
+// lane's chain in column order, as the registers' version), then divides
+// the slot by the norm in place; the CTA's running sums live in shared
+// memory, (candidate, float4 column) i, i + threads, ... a thread, since a
+// wide row has more float4 columns than a candidate has threads; the shape
+// (gather_shape_wide) halves the candidates, then the teams, of
+// gather_shape's until the CTA's shared memory fits kGatherWideSmem. So
+// the d <= 128 kernels keep their code and bits, and wide rows get the
+// same bits the plain version's arithmetic would in this order.
 // Phase clocks (phase_clocks.py): staging (the candidates), hash, row
 // loads and norms, sums (the barrier included) and store.
 #pragma once
@@ -42,12 +54,51 @@ namespace sdim {
 
 
 // Dynamic shared memory: the normalized rows (cands * teams, d) and the
-// candidates (cands, d).
-inline size_t fused_query_large_tau_smem(int cands, int teams, int d) {
-  return sizeof(float) * d * ((size_t)cands * teams + cands);
+// candidates (cands, d); WIDE, also the running sums (cands, d).
+inline size_t fused_query_large_tau_smem(int cands, int teams, int d, bool wide = false) {
+  return sizeof(float) * d * ((size_t)cands * teams + (wide ? 2 : 1) * cands);
 }
 
-template <typename TS, int TAU>
+// A WIDE gather CTA's shape: gather_shape's, with the candidates halved,
+// then the teams, while its shared memory exceeds kGatherWideSmem (two
+// CTAs an SM); sdim_fused_serve.py gather_shape_wide is the same function.
+constexpr size_t kGatherWideSmem = 96 * 1024;
+inline GatherShape gather_shape_wide(int B, int C, int G, int d) {
+  GatherShape sh = gather_shape(B, C, G);
+  while (fused_query_large_tau_smem(sh.cands, sh.teams, d, true) > kGatherWideSmem) {
+    if (sh.cands > 1) sh.cands /= 2;
+    else if (sh.teams > 1) sh.teams = (sh.teams + 1) / 2;
+    else break;
+  }
+  return sh;
+}
+
+// gather_row for a row of any width (WIDE): the row times its scale to the
+// team's slot of norm_s while each lane sums its squares in column order,
+// the butterfly, then the slot over the norm in place; the same operations
+// in the same order as gather_row, so the same bits.
+template <typename TS>
+__device__ __forceinline__ void gather_row_wide(float* norm_s, const TS* row, float sc,
+                                                bool scaled, int nq, bool live) {
+  const int part = threadIdx.x % kEncodeHashLanes;
+  float* o = norm_s + (size_t)(threadIdx.x / kEncodeHashLanes) * nq * 4;
+  float ss = 0.f;
+  if (live)
+    for (int k4 = part; k4 < nq; k4 += kEncodeHashLanes) {
+      float4 v = load4(row + 4 * k4);
+      if (scaled) v = scale4(v, sc);
+      ss = dot4(v, v, ss);
+      store4(o + 4 * k4, v);
+    }
+  const float norm = sqrtf(lane_group_sum<kEncodeHashLanes>(ss) + 1e-12f);
+  if (!live) return;
+  for (int k4 = part; k4 < nq; k4 += kEncodeHashLanes) {
+    const float4 v = load4(o + 4 * k4);
+    store4(o + 4 * k4, make_float4(v.x / norm, v.y / norm, v.z / norm, v.w / norm));
+  }
+}
+
+template <typename TS, int TAU, bool WIDE>
 static __global__ void __launch_bounds__(kGatherThreads)
     fused_query_large_tau_kernel(const TS* __restrict__ store, const float* __restrict__ scales,
                                  const int* __restrict__ slots, const float* __restrict__ present,
@@ -60,6 +111,7 @@ static __global__ void __launch_bounds__(kGatherThreads)
   const int nq = d / 4;
   float* norm_s = reinterpret_cast<float*>(smem4);        // (cands * teams, d)
   float* cand_s = norm_s + (size_t)cands * teams * d;     // (cands, d)
+  float4* run_s = reinterpret_cast<float4*>(cand_s + (size_t)cands * d);  // WIDE: (cands, d)
   const int b = blockIdx.x, c0 = gather_block() * cands, tid = threadIdx.x;
   const int team = tid / kEncodeHashLanes, cc = team / teams, gc = team % teams;
   const bool on = c0 + cc < C;
@@ -67,9 +119,15 @@ static __global__ void __launch_bounds__(kGatherThreads)
   const float pres = present == nullptr ? 1.f : __ldg(present + b);
   PHASE_BEGIN();
   if (pres == 0.f) {  // the whole CTA: no row read
-    if (tid < cands * nq && c0 + tid / nq < C)
+    if (WIDE) {
+      for (int i = tid; i < cands * nq; i += blockDim.x)
+        if (c0 + i / nq < C)
+          store4(out + ((size_t)b * C + c0 + i / nq) * d + 4 * (i % nq),
+                 make_float4(0.f, 0.f, 0.f, 0.f));
+    } else if (tid < cands * nq && c0 + tid / nq < C) {
       store4(out + ((size_t)b * C + c0 + tid / nq) * d + 4 * (tid % nq),
              make_float4(0.f, 0.f, 0.f, 0.f));
+    }
     return;
   }
   // the CTA's candidates (those below C): one bulk copy on an mbarrier
@@ -87,6 +145,8 @@ static __global__ void __launch_bounds__(kGatherThreads)
   const TS* rows = store + slot * G * U * d;
   const float* row_scales = scales == nullptr ? nullptr : scales + slot * G * U;
   float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (WIDE)
+    for (int i = tid; i < cands * nq; i += blockDim.x) run_s[i] = run;
   for (int g0 = 0; g0 < G; g0 += teams) {  // the same trip count for every thread
     const int g = min(g0 + gc, G - 1);
     const bool live = on && g0 + gc < G;
@@ -95,15 +155,39 @@ static __global__ void __launch_bounds__(kGatherThreads)
     PHASE_MARK(1);
     const size_t at = (size_t)g * U + u[0];
     const float sc = live && row_scales != nullptr ? __ldg(row_scales + at) : 1.f;
-    gather_row(norm_s, rows + at * d, sc, row_scales != nullptr, nq, live);
+    if (WIDE)
+      gather_row_wide(norm_s, rows + at * d, sc, row_scales != nullptr, nq, live);
+    else
+      gather_row(norm_s, rows + at * d, sc, row_scales != nullptr, nq, live);
     PHASE_MARK(2);
     __syncthreads();
-    if (tid < cands * nq) gather_sum(run, norm_s, teams, min(teams, G - g0), nq);
+    if (WIDE) {  // (candidate, float4 column) i, i + threads, ...: gather_sum's adds
+      const int ng = min(teams, G - g0);
+      for (int i = tid; i < cands * nq; i += blockDim.x) {
+        float4 r = run_s[i];
+        const float* p = norm_s + (size_t)(i / nq) * teams * nq * 4 + 4 * (i % nq);
+        for (int g = 0; g < ng; ++g) {
+          const float4 v = load4(p + (size_t)g * nq * 4);
+          r = make_float4(r.x + v.x, r.y + v.y, r.z + v.z, r.w + v.w);
+        }
+        run_s[i] = r;
+      }
+    } else if (tid < cands * nq) {
+      gather_sum(run, norm_s, teams, min(teams, G - g0), nq);
+    }
     __syncthreads();  // the chunk's rows read before the next overwrites them
     PHASE_MARK(3);
   }
-  if (tid < cands * nq && c0 + tid / nq < C) {
-    const float groups = static_cast<float>(G);
+  const float groups = static_cast<float>(G);
+  if (WIDE) {
+    for (int i = tid; i < cands * nq; i += blockDim.x)
+      if (c0 + i / nq < C) {
+        const float4 r = run_s[i];
+        store4(out + ((size_t)b * C + c0 + i / nq) * d + 4 * (i % nq),
+               make_float4(r.x / groups * pres, r.y / groups * pres, r.z / groups * pres,
+                           r.w / groups * pres));
+      }
+  } else if (tid < cands * nq && c0 + tid / nq < C) {
     store4(out + ((size_t)b * C + c0 + tid / nq) * d + 4 * (tid % nq),
            make_float4(run.x / groups * pres, run.y / groups * pres, run.z / groups * pres,
                        run.w / groups * pres));
@@ -112,17 +196,17 @@ static __global__ void __launch_bounds__(kGatherThreads)
   PHASE_END();
 }
 
-template <typename TS, int TAU>
+template <typename TS, int TAU, bool WIDE>
 static cudaError_t fused_query_large_tau(const void* store, const float* scales,
                                          const int* slots, const float* present, const float* q,
                                          const float* R, float* out, int B, int C, int G, int d,
                                          cudaStream_t stream) {
-  const GatherShape sh = gather_shape(B, C, G);
-  const size_t smem = fused_query_large_tau_smem(sh.cands, sh.teams, d);
-  const void* fn = reinterpret_cast<const void*>(fused_query_large_tau_kernel<TS, TAU>);
+  const GatherShape sh = WIDE ? gather_shape_wide(B, C, G, d) : gather_shape(B, C, G);
+  const size_t smem = fused_query_large_tau_smem(sh.cands, sh.teams, d, WIDE);
+  const void* fn = reinterpret_cast<const void*>(fused_query_large_tau_kernel<TS, TAU, WIDE>);
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
-  fused_query_large_tau_kernel<TS, TAU>
+  fused_query_large_tau_kernel<TS, TAU, WIDE>
       <<<gather_grid(B, C, sh.cands), sh.cands * sh.teams * kEncodeHashLanes, smem, stream>>>(
           static_cast<const TS*>(store), scales, slots, present, q, R, out, C, G, d, sh.cands,
           sh.teams);
@@ -136,10 +220,13 @@ static cudaError_t launch_fused_query_large_tau(const void* store, const float* 
                                                 int C, int G, int d, int tau,
                                                 cudaStream_t stream) {
   switch (tau) {
-#define SDIM_FUSED_TAU(t)                                                                  \
-  case t:                                                                                  \
-    return fused_query_large_tau<TS, t>(store, scales, slots, present, q, R, out, B, C, G, \
-                                        d, stream);
+#define SDIM_FUSED_TAU(t)                                                                   \
+  case t:                                                                                   \
+    return d > 4 * kEncodeHashLanes * kLargeTauCols                                         \
+               ? fused_query_large_tau<TS, t, true>(store, scales, slots, present, q, R, out, \
+                                                    B, C, G, d, stream)                     \
+               : fused_query_large_tau<TS, t, false>(store, scales, slots, present, q, R,   \
+                                                     out, B, C, G, d, stream);
     SDIM_FUSED_TAU(5)
     SDIM_FUSED_TAU(6)
     SDIM_FUSED_TAU(7)

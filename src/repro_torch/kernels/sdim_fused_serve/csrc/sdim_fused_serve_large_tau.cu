@@ -17,7 +17,8 @@
 // selected fp32 rows), so latency sets its time.
 //
 // Design: fused_query_large_tau.cuh's body (large_tau.cuh's gather body)
-// with the slot, the presence and the dequantization.
+// with the slot, the presence and the dequantization; any d a multiple of
+// 4 (its WIDE variant above d = 128).
 #include "fused_query_large_tau.cuh"
 
 PHASE_READER(sdim_fused_serve_large_tau_phases)
@@ -30,7 +31,7 @@ cudaError_t launch_fused_serve_large_tau(const void* store, int store_dtype,
                                          float* out, int B, int C, int G, int U, int d, int tau,
                                          cudaStream_t stream) {
   if (B < 0 || C < 0 || G <= 0 || tau < kLargeTauMin || tau > kLargeTauMax ||
-      U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128)
+      U != (1 << tau) || d <= 0 || d % 4 != 0)
     return cudaErrorInvalidValue;
   if (B == 0 || C == 0) return cudaSuccess;
   switch (store_dtype) {

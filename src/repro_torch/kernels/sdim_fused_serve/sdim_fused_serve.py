@@ -8,12 +8,18 @@ or raises. ``sdim_fused_serve.launches`` counts kernel launches. Store
 dtypes: fp32, bf16, and int8 or fp8 (e4m3) with per-row scales. The kernel
 gives each user a thread-block cluster that splits the row and the
 candidates, so each present user's row is read from device memory once.
+Where that body's shared memory does not fit a CTA (``query_plan``: d =
+256 at tau = 4, m = 500) the wrapper launches sdim_query's wide path with
+the slot, the scales and present (``kernels/sdim_query/csrc/wide_query.cuh``),
+the body sdim_query takes at the same shape, so the fused read and the
+fetched read (``sdim_query(store[slots], ...)``) give the same bits.
 tau 5..10 (32..1,024 buckets a group: a user's table no longer fits a
 CTA) launch the large-tau path (``csrc/sdim_fused_serve_large_tau.cu``:
 each candidate hashes itself for every group, then reads, dequantizes and
 normalizes only the G rows it selects, eight rows' loads in flight at
-once; d up to 128). The kernel has no backward (it serves): on CUDA the
-wrapper raises where autograd would record the call.
+once; any d, its columns in a loop above 128, ``gather_shape_wide``). The
+kernel has no backward (it serves): on CUDA the wrapper raises where
+autograd would record the call.
 """
 from __future__ import annotations
 
@@ -24,7 +30,33 @@ import torch
 from repro_torch.core import sdim, simhash
 from repro_torch.kernels import _build
 from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU
+from repro_torch.kernels.sdim_query.sdim_query import launch_plan
 from repro_torch.serve.quant import is_quantized
+
+GATHER_WIDE_SMEM = 96 * 1024   # csrc/fused_query_large_tau.cuh kGatherWideSmem
+
+
+def gather_large_tau_smem(cands: int, teams: int, d: int, wide: bool) -> int:
+    """The large-tau gather CTA's shared memory
+    (``fused_query_large_tau_smem``): the normalized rows, the candidates
+    and, ``wide`` (d > 128), the running sums."""
+    return 4 * d * (cands * teams + (2 if wide else 1) * cands)
+
+
+def gather_shape_wide(cands: int, teams: int, d: int) -> tuple[int, int]:
+    """The WIDE gather's (candidates, teams) a CTA from ``gather_shape``'s
+    (``gather_shape_wide`` in ``csrc/fused_query_large_tau.cuh``): the
+    candidates halved, then the teams, while the CTA's shared memory
+    exceeds ``GATHER_WIDE_SMEM``."""
+    while gather_large_tau_smem(cands, teams, d, True) > GATHER_WIDE_SMEM:
+        if cands > 1:
+            cands //= 2
+        elif teams > 1:
+            teams = (teams + 1) // 2
+        else:
+            break
+    return cands, teams
+
 
 def sdim_fused_serve_ref(store: torch.Tensor, slots: torch.Tensor,
                          q: torch.Tensor, R: torch.Tensor, tau: int, *,
@@ -66,12 +98,10 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     code = _build.dtype_code("sdim_fused_serve", store,
                              (torch.float32, torch.bfloat16, torch.int8,
                               torch.float8_e4m3fn))
-    if (not 1 <= tau <= MAX_TAU or d % 4 or G * U * d * store.element_size() % 16
-            or tau > 4 and d > 128):
-        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..{MAX_TAU} (d up to 128 "
-                         f"above tau 4), d a multiple of 4 and a user's table of G*U*d values "
-                         f"in whole 16-byte loads; got tau {tau}, G {G}, U {U}, d {d}, "
-                         f"{store.dtype}")
+    if not 1 <= tau <= MAX_TAU or d % 4 or G * U * d * store.element_size() % 16:
+        raise ValueError(f"sdim_fused_serve: the kernel takes tau 1..{MAX_TAU}, d a multiple "
+                         f"of 4 and a user's table of G*U*d values in whole 16-byte loads; got "
+                         f"tau {tau}, G {G}, U {U}, d {d}, {store.dtype}")
     if is_quantized(store.dtype) != (scales is not None):
         raise ValueError("sdim_fused_serve: int8 and fp8 stores need scales; "
                          "other stores take none")
@@ -86,12 +116,13 @@ def sdim_fused_serve(store: torch.Tensor, slots: torch.Tensor, q: torch.Tensor,
     out = torch.empty_like(q)               # (B, C, d) fp32, contiguous like q
     if B == 0 or C == 0:
         return out
+    tile, gc, r_staged = launch_plan(B, C, G, d, tau, store.dtype, dev, store=True)
     lib = _build.load()
     with _build.on_device(dev):
         err = lib.sdim_fused_serve(
             store.data_ptr(), code, _build.ptr(scales), slots.data_ptr(),
             _build.ptr(present), q.data_ptr(), R.data_ptr(), out.data_ptr(),
-            B, C, G, U, d, m, tau, _build.stream(dev))
+            B, C, G, U, d, m, tau, tile, gc, r_staged, _build.stream(dev))
     _build.check(err, "sdim_fused_serve")
     sdim_fused_serve.launches += 1
     return out

@@ -22,6 +22,8 @@
 // (candidate, group) hashes the candidate and loads the selected row at
 // once, the rows over their norms summed in g order by a thread a
 // (candidate, float4 column), then / G. The same bits as the fused read.
+// Any d a multiple of 4: above 128 the body's WIDE variant (the row's
+// columns in a loop, the running sums in shared memory).
 //
 // Backward design. A row no candidate selects
 // has g = 0, so its gradient is +0 for a finite table: it is written
@@ -294,15 +296,17 @@ __global__ void __launch_bounds__(kBwdThreads, 4)
   PHASE_END();
 }
 
-static bool large_tau_query_ok(int B, int C, int G, int U, int d, int tau) {
+// The shapes the large-tau paths take: d up to 128 (the backward), any
+// width where `any_d` (the forward, WIDE above 128).
+static bool large_tau_query_ok(int B, int C, int G, int U, int d, int tau, bool any_d = false) {
   return B >= 0 && C >= 0 && G > 0 && G <= 65535 && tau >= kLargeTauMin &&
-         tau <= kLargeTauMax && U == (1 << tau) && d > 0 && d % 4 == 0 && d <= 128;
+         tau <= kLargeTauMax && U == (1 << tau) && d > 0 && d % 4 == 0 && (any_d || d <= 128);
 }
 
 cudaError_t launch_query_large_tau(const void* table, int table_dtype, const float* q,
                                    const float* R, float* out, int B, int C, int G, int U, int d,
                                    int tau, cudaStream_t stream) {
-  if (!large_tau_query_ok(B, C, G, U, d, tau)) return cudaErrorInvalidValue;
+  if (!large_tau_query_ok(B, C, G, U, d, tau, true)) return cudaErrorInvalidValue;
   if (B == 0 || C == 0) return cudaSuccess;
   switch (table_dtype) {
     case kF32:

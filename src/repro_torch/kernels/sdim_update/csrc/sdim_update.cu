@@ -65,7 +65,9 @@
 // aligned operands (the wrapper checks); E of any size. tau 5..10 (32..1,024
 // buckets a group) launch large_tau.cuh's path (sdim_update_large_tau.cu:
 // a CTA a (batch row, group) reads and writes only the cells its events
-// reach).
+// reach), and so does d > 128 at any tau (its wide rows: at d = 256 a CTA
+// here holds kItems * kThreads / 64 = 8 cells, fewer than one group's 16
+// at tau = 4; the list path holds no cell in registers across events).
 #include "tile_staging.cuh"
 #include "large_tau.cuh"
 
@@ -471,14 +473,15 @@ PHASE_READER(sdim_update_phases)
 
 // store (N, G*U, d) fp32 updated in place; slots (B,) int32 in [0, N);
 // events (B, E, d) fp32|bf16; mask (B, E) fp32; R (m, d) fp32; S group
-// slices per batch row (tau <= 4); work: B*G*U*d floats of scratch where
-// tau > 4 and E > 8,192 (the large-tau path's chunks), else unused (null).
+// slices per batch row (tau <= 4 at d <= 128); work: B*G*U*d floats of
+// scratch where the large-tau path (tau > 4 or d > 128) takes E > 8,192 in
+// chunks, else unused (null).
 extern "C" int sdim_update(float* store, const int* slots, const void* events, int ev_dtype,
                            const float* mask, const float* R, float* work, int B, int E, int G,
                            int U, int d, int m, int tau, int S, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G <= 0 || U != (1 << tau) || m != G * tau) return cudaErrorInvalidValue;
-  if (tau > 4)  // large_tau.cuh
+  if (tau > 4 || d > 128)  // large_tau.cuh
     return sdim::launch_update_large_tau(store, slots, events, ev_dtype, mask, R, work, B, E, G,
                                          U, d, tau, s);
   switch (ev_dtype) {

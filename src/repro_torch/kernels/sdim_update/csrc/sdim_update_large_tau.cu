@@ -68,8 +68,16 @@
 //   store gets cell + sum, once, in b order. So the same operations in the
 //   same order as one sub-window of all E events, with the same contracts;
 //   the store is never written with a partial sum.
-// Takes tau 5..10, d a multiple of 4 up to 128, events fp32 or bf16, any E;
-// the store is updated in place.
+// - Wide rows (WIDE: d > 128, any tau 1..10; the entry sdim_update.cu
+//   launches it there at tau <= 4 too, where its register sums hold too few
+//   cells of a wide row): each event hashed by its eight lanes over its
+//   columns in a loop (bucket_rows_at: bucket_of's bits, as bse_encode's
+//   wide path), R read through L1 (not staged), each cell folded in passes
+//   of 128 columns (a lane's kLargeTauCols float4 columns a pass: each
+//   column's chain the same as in one pass), and one instance for both
+//   sub-windows and chunks (chunked at E > kUpdateMaxE, at run time).
+// Takes tau 5..10 at d a multiple of 4 up to 128 and tau 1..10 at any wider
+// d, events fp32 or bf16, any E; the store is updated in place.
 // Phase clocks (phase_clocks.py fold): the loads and copies (until R and
 // row b's events land), the owner barrier, the owner list, the hash, its
 // barrier, the sort (+ barrier), the fold (cell and event loads, sums,
@@ -83,6 +91,8 @@ constexpr int kUpdateTeams = kLargeTauThreads / kEncodeHashLanes;  // events has
 constexpr int kUpdateEvents = kLargeTauThreads;  // events a sub-window holds at E <= 256
 constexpr int kUpdateInFlight = 4;               // a cell's event loads issued together
 constexpr int kUpdateMaxE = 8192;                // sdim_update.py UPDATE_LT_MAX_E: a chunk
+constexpr int kPassCols = kEncodeHashLanes * kLargeTauCols;  // float4 columns a fold pass (WIDE)
+constexpr int kPassValues = 4 * kPassCols;
 
 // Dynamic shared memory: R's rows of the group, the window's owned rows,
 // a sub-window's buckets, weights, ranks and sorted events, a count (then a
@@ -118,7 +128,7 @@ __host__ __device__ inline size_t update_smem(int E, int U, int d, int tau, bool
                  : update_layout(E, U, d, tau).total;
 }
 
-template <typename T, int TAU, bool CHUNKED>
+template <typename T, int TAU, bool CHUNKED, bool WIDE>
 __global__ void __launch_bounds__(kLargeTauThreads, 2)
     update_large_tau_kernel(float* __restrict__ store, const int* __restrict__ slots,
                             const T* __restrict__ events, const float* __restrict__ mask,
@@ -127,8 +137,10 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   constexpr int U = 1 << TAU;
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  const int Ec = CHUNKED ? kUpdateMaxE : E;  // events a sub-window holds
-  const UpdateLayout lay = update_layout(Ec, U, d, TAU);
+  // WIDE (d > 128): chunked where E > kUpdateMaxE (one instance for both)
+  const bool chunked = CHUNKED || (WIDE && E > kUpdateMaxE);
+  const int Ec = chunked ? kUpdateMaxE : E;  // events a sub-window holds
+  const UpdateLayout lay = update_layout(Ec, U, WIDE ? 0 : d, TAU);  // WIDE: R not staged
   float* r_s = reinterpret_cast<float*>(smem);
   int* rows_s = reinterpret_cast<int*>(smem + lay.rows);  // the window's owned batch rows
   int* key_s = reinterpret_cast<int*>(smem + lay.key);    // an event's bucket, -1: none
@@ -143,6 +155,7 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   __shared__ int count_s[kLargeTauThreads / 32];
   __shared__ int n_cells_s;
   const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x, nq = d / 4;
+  const int passes = WIDE ? (nq + kPassCols - 1) / kPassCols : 1;  // a cell's column passes
   const int part = tid % kEncodeHashLanes, team = tid / kEncodeHashLanes;
   const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
   PHASE_BEGIN();
@@ -150,16 +163,20 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   // R's rows of group g, row b's first events and their weights, the slot
   // and the slots of the first window, all in flight at once
   const int n_pre = E < kUpdateTeams ? E : kUpdateTeams;  // row b's events a team holds
-  for (int i = tid; i < TAU * d / 4; i += blockDim.x)
-    cp_async16(r_s + 4 * i, R + (size_t)g * TAU * d + 4 * i, 16);
+  if (!WIDE)
+    for (int i = tid; i < TAU * d / 4; i += blockDim.x)
+      cp_async16(r_s + 4 * i, R + (size_t)g * TAU * d + 4 * i, 16);
   cp_async_commit();
+  const float* r_g = WIDE ? R + (size_t)g * TAU * d : r_s;  // WIDE: through L1
   float4 xpre[1][kLargeTauCols];
-  load_cols(xpre[0], events + ((size_t)b * E + (team < n_pre ? team : 0)) * d, nq, team < n_pre);
+  if (!WIDE)
+    load_cols(xpre[0], events + ((size_t)b * E + (team < n_pre ? team : 0)) * d, nq,
+              team < n_pre);
   const float wpre = team < n_pre ? __ldg(mask + (size_t)b * E + team) : 0.f;
   const int slot = __ldg(slots + b);
   const int first_slot = b + tid < B ? __ldg(slots + b + tid) : -1;
   for (int u = tid; u < U; u += blockDim.x) cnt_s[u] = 0;
-  if (CHUNKED)
+  if (chunked)
     for (int u = tid; u < U; u += blockDim.x) mark_s[u] = 0;
   bool earlier = false;
   for (int i = tid; i < b; i += blockDim.x) earlier |= __ldg(slots + i) == slot;
@@ -169,7 +186,7 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   PHASE_MARK(1);
 
   float* row = store + ((size_t)slot * G + g) * U * d;  // group g of the store row
-  float* part_row = CHUNKED ? work + ((size_t)b * G + g) * U * d : nullptr;  // the row's sums
+  float* part_row = chunked ? work + ((size_t)b * G + g) * U * d : nullptr;  // the row's sums
   const int W = E < kUpdateEvents ? kUpdateEvents / E : 1;  // owned rows a sub-window
   for (int p = b; p < B; p += kUpdateRows) {
     // the window's batch rows with this slot, in b order
@@ -190,9 +207,9 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
 
     for (int s0 = 0; s0 < count; s0 += W)  // the same trip counts for every thread
     for (int e0 = 0; e0 < E; e0 += Ec) {   // a sub-window; CHUNKED: a chunk of row s0
-      const int n = CHUNKED ? min(Ec, E - e0) : min(W, count - s0) * E;
+      const int n = chunked ? min(Ec, E - e0) : min(W, count - s0) * E;
       auto flat = [&](int k) -> size_t {    // the event index of event k of the sub-window
-        return CHUNKED ? (size_t)rows_s[s0] * E + e0 + k : (size_t)rows_s[s0 + k / E] * E + k % E;
+        return chunked ? (size_t)rows_s[s0] * E + e0 + k : (size_t)rows_s[s0 + k / E] * E + k % E;
       };
       auto event = [&](int, int k) -> const T* { return events + flat(k) * d; };
 
@@ -202,18 +219,25 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
         if (base + 4 * warp >= n) continue;  // the whole warp
         const int k = base + team;
         const bool live = k < n;
-        float4 x[1][kLargeTauCols];
         float w;
-        if (p == b && s0 == 0 && e0 == 0 && k < n_pre) {  // row b's, loaded at the start
-#pragma unroll
-          for (int j = 0; j < kLargeTauCols; ++j) x[0][j] = xpre[0][j];
-          w = wpre;
-        } else {
-          load_cols(x[0], event(s0, live ? k : 0), nq, live);
-          w = live ? __ldg(mask + flat(k)) : 0.f;
-        }
         int u[1];
-        bucket_rows<TAU, 1>(x, r_s, d, u);
+        if (WIDE) {  // the event's columns from L1, a loop (any d): bucket_of's bits
+          const T* const ev[1] = {event(s0, live ? k : 0)};
+          const bool lv[1] = {live};
+          bucket_rows_at<TAU, 1>(ev, lv, r_g, d, u);
+          w = live ? __ldg(mask + flat(k)) : 0.f;
+        } else {
+          float4 x[1][kLargeTauCols];
+          if (p == b && s0 == 0 && e0 == 0 && k < n_pre) {  // row b's, loaded at the start
+#pragma unroll
+            for (int j = 0; j < kLargeTauCols; ++j) x[0][j] = xpre[0][j];
+            w = wpre;
+          } else {
+            load_cols(x[0], event(s0, live ? k : 0), nq, live);
+            w = live ? __ldg(mask + flat(k)) : 0.f;
+          }
+          bucket_rows<TAU, 1>(x, r_g, d, u);
+        }
         if (live && part == 0) {
           key_s[k] = w != 0.f ? u[0] : -1;
           w_s[k] = w;
@@ -294,23 +318,28 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
       __syncthreads();  // the cells and their lists
       PHASE_MARK(5);
 
-      // fold: eight lanes a cell, its events in (b, e) order
+      // fold: eight lanes a cell, its events in (b, e) order; WIDE: the cell's
+      // columns in passes of 128 (kLargeTauCols float4 columns a lane), each
+      // column's chain as in one pass
       const int n_cells = n_cells_s;
       for (int c0 = 0; c0 < n_cells; c0 += kUpdateTeams) {
         const int c = c0 + team;
         if (c >= n_cells) break;
         const int u = cell_key[c], start = cell_start[c], cnt = cell_count[c];
-        if (CHUNKED) {  // the chunk's events continue the row's sum in work
-          float* psum = part_row + (size_t)u * d;
+        for (int pass = 0; pass < passes; ++pass) {
+        const int off = WIDE ? kPassValues * pass : 0,
+                  pq = WIDE ? min(kPassCols, nq - pass * kPassCols) : nq;
+        if (chunked) {  // the chunk's events continue the row's sum in work
+          float* psum = part_row + (size_t)u * d + off;
           float4 delta[kLargeTauCols];
-          load_cols(delta, psum, nq, mark_s[u] != 0);  // +0 where no earlier chunk reached it
+          load_cols(delta, psum, pq, mark_s[u] != 0);  // +0 where no earlier chunk reached it
           for (int v0 = 0; v0 < cnt; v0 += kUpdateInFlight) {
             int ks[kUpdateInFlight];
             float4 xs[kUpdateInFlight][kLargeTauCols];
 #pragma unroll
             for (int v = 0; v < kUpdateInFlight; ++v) {
               ks[v] = v0 + v < cnt ? sorted_s[start + v0 + v] : 0;
-              load_cols(xs[v], event(s0, ks[v]), nq, v0 + v < cnt);
+              load_cols(xs[v], event(s0, ks[v]) + off, pq, v0 + v < cnt);
             }
 #pragma unroll
             for (int v = 0; v < kUpdateInFlight; ++v) {
@@ -323,20 +352,19 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
 #pragma unroll
           for (int j = 0; j < kLargeTauCols; ++j) {
             const int k4 = part + j * kEncodeHashLanes;
-            if (k4 < nq) store4(psum + 4 * k4, delta[j]);
+            if (k4 < pq) store4(psum + 4 * k4, delta[j]);
           }
-          if (part == 0) cnt_s[u] = 0;  // the bucket's count, for the next chunk
           continue;
         }
-        float* cell = row + (size_t)u * d;
+        float* cell = row + (size_t)u * d + off;
         float4 acc[kLargeTauCols], delta[kLargeTauCols];
-        load_cols(acc, cell, nq, true);
+        load_cols(acc, cell, pq, true);
         int ks[kUpdateInFlight];
         float4 xs[kUpdateInFlight][kLargeTauCols];
 #pragma unroll
         for (int v = 0; v < kUpdateInFlight; ++v) {  // the first events, with the cell
           ks[v] = v < cnt ? sorted_s[start + v] : 0;
-          load_cols(xs[v], event(s0, ks[v]), nq, v < cnt);
+          load_cols(xs[v], event(s0, ks[v]) + off, pq, v < cnt);
         }
 #pragma unroll
         for (int j = 0; j < kLargeTauCols; ++j) delta[j] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -346,7 +374,7 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
 #pragma unroll
             for (int v = 0; v < kUpdateInFlight; ++v) {
               ks[v] = v0 + v < cnt ? sorted_s[start + v0 + v] : 0;
-              load_cols(xs[v], event(s0, ks[v]), nq, v0 + v < cnt);
+              load_cols(xs[v], event(s0, ks[v]) + off, pq, v0 + v < cnt);
             }
           }
 #pragma unroll
@@ -370,16 +398,17 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
 #pragma unroll
         for (int j = 0; j < kLargeTauCols; ++j) {
           const int k4 = part + j * kEncodeHashLanes;
-          if (k4 < nq)
+          if (k4 < pq)
             store4(cell + 4 * k4,
                    make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
                                acc[j].z + delta[j].z, acc[j].w + delta[j].w));
         }
-        if (part == 0) cnt_s[u] = 0;  // the bucket's count, for the next sub-window
+        }  // passes
+        if (part == 0) cnt_s[u] = 0;  // the bucket's count, for the next sub-window or chunk
       }
       __syncthreads();  // the cells written, the lists free for the next sub-window
       PHASE_MARK(6);
-      if (CHUNKED) {
+      if (chunked) {
         for (int c = tid; c < n_cells; c += blockDim.x) mark_s[cell_key[c]] = 1;
         if (e0 + Ec < E) continue;  // (the next chunk's barriers order these writes)
         __syncthreads();            // the row's last chunk: every mark set
@@ -387,17 +416,21 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
         for (int u0 = 0; u0 < U; u0 += kUpdateTeams) {
           const int u = u0 + team;
           if (u >= U || mark_s[u] == 0) continue;
-          float* cell = row + (size_t)u * d;
-          float4 acc[kLargeTauCols], delta[kLargeTauCols];
-          load_cols(acc, cell, nq, true);
-          load_cols(delta, part_row + (size_t)u * d, nq, true);
+          for (int pass = 0; pass < passes; ++pass) {
+            const int off = WIDE ? kPassValues * pass : 0,
+                      pq = WIDE ? min(kPassCols, nq - pass * kPassCols) : nq;
+            float* cell = row + (size_t)u * d + off;
+            float4 acc[kLargeTauCols], delta[kLargeTauCols];
+            load_cols(acc, cell, pq, true);
+            load_cols(delta, part_row + (size_t)u * d + off, pq, true);
 #pragma unroll
-          for (int j = 0; j < kLargeTauCols; ++j) {
-            const int k4 = part + j * kEncodeHashLanes;
-            if (k4 < nq)
-              store4(cell + 4 * k4,
-                     make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
-                                 acc[j].z + delta[j].z, acc[j].w + delta[j].w));
+            for (int j = 0; j < kLargeTauCols; ++j) {
+              const int k4 = part + j * kEncodeHashLanes;
+              if (k4 < pq)
+                store4(cell + 4 * k4,
+                       make_float4(acc[j].x + delta[j].x, acc[j].y + delta[j].y,
+                                   acc[j].z + delta[j].z, acc[j].w + delta[j].w));
+            }
           }
         }
         __syncthreads();  // every mark read before it is cleared for the next row
@@ -408,12 +441,13 @@ __global__ void __launch_bounds__(kLargeTauThreads, 2)
   PHASE_END();
 }
 
-template <typename T, int TAU, bool CHUNKED>
+template <typename T, int TAU, bool CHUNKED, bool WIDE = false>
 static cudaError_t update_large_tau(float* store, const int* slots, const void* events,
                                     const float* mask, const float* R, float* work, int B, int E,
                                     int G, int d, cudaStream_t stream) {
-  const size_t smem = update_smem(E, 1 << TAU, d, TAU, CHUNKED);
-  const auto kernel = update_large_tau_kernel<T, TAU, CHUNKED>;
+  const size_t smem = update_smem(E, 1 << TAU, WIDE ? 0 : d, TAU,
+                                  CHUNKED || (WIDE && E > kUpdateMaxE));
+  const auto kernel = update_large_tau_kernel<T, TAU, CHUNKED, WIDE>;
   const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, G), kLargeTauThreads, smem, stream>>>(
@@ -425,6 +459,9 @@ template <typename T, int TAU>
 static cudaError_t update_large_tau_e(float* store, const int* slots, const void* events,
                                       const float* mask, const float* R, float* work, int B,
                                       int E, int G, int d, cudaStream_t stream) {
+  if (d > kPassValues)  // wide rows: one instance, chunked at run time
+    return update_large_tau<T, TAU, false, true>(store, slots, events, mask, R, work, B, E, G, d,
+                                                 stream);
   if (E > kUpdateMaxE)
     return update_large_tau<T, TAU, true>(store, slots, events, mask, R, work, B, E, G, d, stream);
   return update_large_tau<T, TAU, false>(store, slots, events, mask, R, nullptr, B, E, G, d,
@@ -438,6 +475,15 @@ static cudaError_t update_large_tau_t(float* store, const int* slots, const void
   switch (tau) {
 #define SDIM_UPDATE_TAU(t) \
   case t: return update_large_tau_e<T, t>(store, slots, events, mask, R, work, B, E, G, d, stream);
+#define SDIM_UPDATE_WIDE_TAU(t)                                                                 \
+  case t:                                                                                       \
+    return update_large_tau<T, t, false, true>(store, slots, events, mask, R, work, B, E, G, d, \
+                                               stream);
+    SDIM_UPDATE_WIDE_TAU(1)  // tau <= 4 only at d > 128
+    SDIM_UPDATE_WIDE_TAU(2)
+    SDIM_UPDATE_WIDE_TAU(3)
+    SDIM_UPDATE_WIDE_TAU(4)
+#undef SDIM_UPDATE_WIDE_TAU
     SDIM_UPDATE_TAU(5)
     SDIM_UPDATE_TAU(6)
     SDIM_UPDATE_TAU(7)
@@ -453,8 +499,10 @@ cudaError_t launch_update_large_tau(float* store, const int* slots, const void* 
                                    int ev_dtype, const float* mask, const float* R, float* work,
                                    int B, int E, int G, int U, int d, int tau,
                                    cudaStream_t stream) {
-  if (B < 0 || E < 0 || G <= 0 || G > 65535 || tau < kLargeTauMin || tau > kLargeTauMax ||
-      U != (1 << tau) || d <= 0 || d % 4 != 0 || d > 128 || (E > kUpdateMaxE && !work))
+  // tau 5..10 at d <= 128; any tau 1..10 at d > 128 (the wide rows)
+  if (B < 0 || E < 0 || G <= 0 || G > 65535 || tau < (d > 128 ? 1 : kLargeTauMin) ||
+      tau > kLargeTauMax || U != (1 << tau) || d <= 0 || d % 4 != 0 ||
+      (E > kUpdateMaxE && !work))
     return cudaErrorInvalidValue;
   if (B == 0 || E == 0) return cudaSuccess;
   switch (ev_dtype) {

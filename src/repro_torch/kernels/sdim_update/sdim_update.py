@@ -17,7 +17,12 @@ slot's events by bucket in shared memory and reads and writes only the
 cells they reach, with the same contracts; any E: rows of more than
 ``UPDATE_LT_MAX_E`` events are taken in chunks of that many, each cell's
 partial row sum carried from chunk to chunk in a device scratch that the
-wrapper allocates on that path only, ``update_large_tau_path``).
+wrapper allocates on that path only, ``update_large_tau_path``). Rows
+wider than ``MAX_REG_D`` (d > 128: a CTA of the tau <= 4 kernel holds
+``update_cells(d)`` cells, 8 at d = 256, fewer than a group's 16 at tau =
+4) take the large-tau path at every tau (``update_path``): eight lanes an
+event hash its columns in a loop (bucket_of's bits, as bse_encode's wide
+path), and a cell is folded in passes of 128 columns.
 The kernel has no backward (it ingests): on CUDA the wrapper raises where
 autograd would record the call.
 """
@@ -28,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_TAU, bse_encode_ref
+from repro_torch.kernels.sdim_bucket.sdim_bucket import MAX_REG_D, MAX_TAU, bse_encode_ref
 
 ITEMS = 2           # (cell, float4 column) sums a thread holds (sdim_update.cu kItems)
 THREADS = 256       # threads a CTA (sdim_common.cuh kThreads)
@@ -58,6 +63,14 @@ def update_splits(B: int, G: int, U: int, d: int, n_sm: int) -> int:
     return max(s_min, min(G, 2 * n_sm // max(B, 1)))
 
 
+def update_path(d: int, tau: int) -> str:
+    """The fold's path: ``"groups"`` (csrc/sdim_update.cu, signature-group
+    slices with register sums) at tau <= 4 and d <= ``MAX_REG_D``, else
+    ``"lists"`` (csrc/sdim_update_large_tau.cu; its wide variant above
+    ``MAX_REG_D``)."""
+    return "groups" if tau <= 4 and d <= MAX_REG_D else "lists"
+
+
 def update_large_tau_path(E: int) -> str:
     """The large-tau fold's path for rows of E events: ``"sorted"`` (a
     row's events sorted in shared memory at once, no device scratch) up to
@@ -80,7 +93,7 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
                      splits: Optional[int] = None) -> torch.Tensor:
     """The kernel launch of ``sdim_update`` with ``splits`` signature-group
     slices per batch row (None: ``update_splits`` for this device; tau <= 4
-    only, the large-tau path gives each group a CTA)."""
+    at d <= 128 only, the large-tau path gives each group a CTA)."""
     _build.refuse_grad("sdim_update", store, events, mask, R)
     N, G, U, d = store.shape
     B, E, _ = events.shape
@@ -91,9 +104,9 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise ValueError(f"sdim_update: shapes store {tuple(store.shape)} "
                          f"events {tuple(events.shape)} slots "
                          f"{tuple(slots.shape)} mask {tuple(mask.shape)}")
-    if not 1 <= tau <= MAX_TAU or d % 4 or not 4 <= d <= 128:
+    if not 1 <= tau <= MAX_TAU or d % 4 or d < 4:
         raise ValueError(f"sdim_update: the kernel takes tau 1..{MAX_TAU} and d a multiple "
-                         f"of 4 up to 128; got tau {tau}, d {d}")
+                         f"of 4; got tau {tau}, d {d}")
     code = _build.dtype_code("sdim_update", events, (torch.float32, torch.bfloat16))
     if store.dtype != torch.float32:
         raise TypeError("sdim_update: the store must be float32")
@@ -103,20 +116,21 @@ def sdim_update_cuda(store: torch.Tensor, slots: torch.Tensor, events: torch.Ten
         raise TypeError("sdim_update: mask and R must be float32")
     dev = _build.require_cuda("sdim_update", store, slots, events, mask, R)
     _build.require_aligned("sdim_update", store, events, R)
-    if tau > 4:
+    lists = update_path(d, tau) == "lists"
+    if lists:
         if splits is not None:
             raise ValueError("sdim_update: group slices are the tau <= 4 kernel's; the "
                              "large-tau path gives each (batch row, group) a CTA")
         splits = 1
     elif splits is None:
         splits = update_splits(B, G, U, d, _build.sm_count(dev))
-    if tau <= 4 and (not 1 <= splits <= G or -(-G // splits) * U > update_cells(d)):
+    if not lists and (not 1 <= splits <= G or -(-G // splits) * U > update_cells(d)):
         raise ValueError(f"sdim_update: {splits} group slices of G = {G} groups; the kernel "
                          f"takes 1..G slices of at most {update_cells(d)} cells at d = {d}")
     if B == 0 or E == 0:
         return store
     work = None
-    if tau > 4 and update_large_tau_path(E) == "chunked":
+    if lists and update_large_tau_path(E) == "chunked":
         work = torch.empty((B, G, U, d), dtype=torch.float32, device=dev)
     lib = _build.load()
     with _build.on_device(dev):

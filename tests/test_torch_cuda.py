@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs import sdim_paper
 from repro_torch.core import simhash
+from repro_torch.core.target_attention import default_scale
 from repro_torch.kernels.screen import (hashed_behaviors, item_rows_clear, screen_item_rows,
                                         screened_normal)
 from repro_torch.kernels.sdim_bucket.sdim_bucket import (
@@ -716,18 +717,20 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """bse_encode takes tau 1..10, d a multiple of 4 up to 128 (one float4
-    column a lane) and any L (past MAX_L its batch list takes the rows in
-    spans: held against the plain version); sdim_fused_serve and sdim_query take tau 1..10 (d up
-    to 128 above tau 4), a user's table in whole 16-byte loads and 16-byte
-    aligned operands; sdim_update takes
-    tau 1..10, d a multiple of 4 up to 128, at tau <= 4 1..G group slices
-    that keep a CTA at update_cells(d) cells (above, none), and 16-byte
-    aligned operands; sdim_fused_serve and bse_serve take tau 1..10, d up to
-    128 above tau 4."""
+    """bse_encode takes tau 1..10, any d a multiple of 4 (past 128 on its
+    list path: held against the plain version at d = 136) and any L (past
+    MAX_L its batch list takes the rows in spans: held against the plain
+    version); sdim_fused_serve and sdim_query take tau 1..10, any d a
+    multiple of 4 (d = 136 at tau 5 held against the plain versions), a
+    user's table in whole 16-byte loads and 16-byte aligned operands;
+    sdim_update takes tau 1..10, any d a multiple of 4 (d = 136 held
+    against the plain version), at tau <= 4 and d <= 128 1..G group slices
+    that keep a CTA at update_cells(d) cells (elsewhere none), and 16-byte
+    aligned operands; bse_serve takes tau 1..10 and d up to 128."""
     seq, q, mask, R, rng = _inputs((2, 64, 16, 136, 10, 5), dev)
-    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
-        bse_encode(seq, mask, R[:8].contiguous(), 2)             # d = 136
+    R8 = R[:8].contiguous()
+    torch.testing.assert_close(bse_encode(seq, mask, R8, 2),          # d = 136
+                               bse_encode_ref(seq, mask, R8, 2), **ATOMIC)
     with pytest.raises(ValueError, match="tau 1..10"):
         bse_encode(seq[..., :128].contiguous(), mask, torch.zeros((11, 128), device=dev), 11)
     with pytest.raises(ValueError, match="d a multiple of 4"):
@@ -757,9 +760,10 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="tau 1..10"):
         sdim_query(q[:2, :, :8].contiguous(), torch.zeros((2, 1, 2048, 8), device=dev),
                    torch.zeros((11, 8), device=dev), 11)
-    with pytest.raises(ValueError, match="d up to 128 above tau 4"):
-        sdim_query(q[:2, :, :136].contiguous(), torch.zeros((2, 1, 32, 136), device=dev),
-                   R[:5, :136].contiguous(), 5)
+    R5 = R[:5].contiguous()
+    table136 = torch.from_numpy(rng.standard_normal((2, 1, 32, 136)).astype(np.float32)).to(dev)
+    torch.testing.assert_close(sdim_query(q, table136, R5, 5),
+                               sdim_query_ref(q, table136, R5, 5), **FP32)
     table = torch.zeros((2, 4, 4, 8), device=dev)
     shifted_t = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):
@@ -768,12 +772,14 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ev = torch.zeros((2, 3, 8), device=dev)
     ev_mask = torch.ones((2, 3), device=dev)
     store8 = torch.zeros((4, 4, 4, 8), device=dev)
-    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
+    with pytest.raises(ValueError, match="d a multiple of 4"):
         sdim_update(torch.zeros((4, 4, 4, 10), device=dev), slots,
                     torch.zeros((2, 3, 10), device=dev), ev_mask, R[:8, :10].contiguous(), 2)
-    with pytest.raises(ValueError, match="d a multiple of 4 up to 128"):
-        sdim_update(torch.zeros((4, 4, 4, 136), device=dev), slots,
-                    torch.zeros((2, 3, 136), device=dev), ev_mask, R[:8].contiguous(), 2)
+    ev136 = torch.from_numpy(screened_normal(rng, (2, 3, 136), R8.cpu().numpy())).to(dev)
+    store136 = torch.from_numpy(rng.standard_normal((4, 4, 4, 136)).astype(np.float32)).to(dev)
+    torch.testing.assert_close(sdim_update(store136.clone(), slots, ev136, ev_mask, R8, 2),
+                               sdim_update_ref(store136.clone(), slots, ev136, ev_mask, R8, 2),
+                               **FP32)
     with pytest.raises(ValueError, match="tau 1..10"):
         sdim_update(torch.zeros((4, 1, 2048, 8), device=dev), slots, ev, ev_mask,
                     torch.zeros((11, 8), device=dev), 11)
@@ -784,9 +790,9 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="tau 1..10"):
         sdim_fused_serve(torch.zeros((3, 1, 2048, 8), device=dev), slots, q8,
                          torch.zeros((11, 8), device=dev), 11)
-    with pytest.raises(ValueError, match="d up to 128 above tau 4"):
-        sdim_fused_serve(torch.zeros((3, 1, 32, 136), device=dev), slots,
-                         q[:2, :, :136].contiguous(), R[:5, :136].contiguous(), 5)
+    store5 = torch.cat([table136, table136.flip(0)])             # (4, 1, 32, 136)
+    torch.testing.assert_close(sdim_fused_serve(store5, slots, q, R5, 5),
+                               sdim_fused_serve_ref(store5, slots, q, R5, 5), **FP32)
     with pytest.raises(ValueError, match="tau 1..10"):
         bse_serve(q8, torch.zeros((2, 64, 8), device=dev), mask, torch.zeros((11, 8), device=dev),
                   11)
@@ -803,6 +809,123 @@ def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted_s = torch.empty(store8.numel() + 1, device=dev)[1:].view(store8.shape)
     with pytest.raises(ValueError, match="16-byte boundary"):
         sdim_update(shifted_s, slots, ev, ev_mask, R[:8, :8].contiguous(), 2)
+
+
+# ---------------------------------------------------------------------------
+# the decoupled deployment's four kernels past d = 128 (bse_encode and
+# sdim_update on their lists' wide variants at every tau, sdim_query and
+# sdim_fused_serve on the fused body, the wide path or the large-tau
+# gather's wide variant) and past the fused body's shared memory at tau <= 4
+# (the wide path, R read from device memory at m = 500)
+# ---------------------------------------------------------------------------
+WIDE_TAUS = [(3, 48), (4, 48), (5, 45), (10, 40)]   # (tau, m)
+
+
+def _decoupled_read_checks(q, store, slots, R, tau):
+    """sdim_query off the fetched rows store[slots] and sdim_fused_serve off
+    the store, fp32 and bf16 (and int8, fp8 for the fused read), against
+    their plain versions, each the same bits twice; the fused read of the
+    fp32 store equals sdim_query of its rows bit for bit; an absent user's
+    answers are zero."""
+    table = store[slots.long()].contiguous()
+    for dt in (torch.float32, torch.bfloat16):
+        t = table.to(dt)
+        got = sdim_query(q, t, R, tau)
+        torch.testing.assert_close(got, sdim_query_ref(q, t, R, tau), **FP32)
+        assert torch.equal(got, sdim_query(q, t, R, tau))
+    fused = sdim_fused_serve(store, slots, q, R, tau)
+    assert torch.equal(fused, sdim_query(q, table, R, tau))      # one body, one set of bits
+    present = torch.ones(q.shape[0], device=q.device)
+    present[-1] = 0.0
+    for dt in TABLE_DTYPES.values():
+        if dt in (torch.float32, torch.bfloat16):
+            st, sc = store.to(dt), None
+        else:
+            st, sc = quantize_rows(store, dtype=dt)
+        got = sdim_fused_serve(st, slots, q, R, tau, scales=sc, present=present)
+        torch.testing.assert_close(got, sdim_fused_serve_ref(st, slots, q, R, tau, scales=sc,
+                                                             present=present), **FP32)
+        assert torch.equal(got, sdim_fused_serve(st, slots, q, R, tau, scales=sc,
+                                                 present=present))
+        assert not got[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [132, 256])
+@pytest.mark.parametrize("tau, m", WIDE_TAUS)
+def test_decoupled_kernels_take_wide_rows(tau, m, d, dev):
+    """bse_encode (fp32 and bf16 behaviors, a fully masked user), an
+    sdim_update fold (a duplicate slot, a zero-mask row) on the encoded
+    store, and both reads of the folded store, at d > 128, against their
+    plain versions, each the same bits twice: the encode-plus-fold store
+    rows equal the plain versions' within ATOMIC, so encode and fold bucket
+    every behavior alike."""
+    B, L, C, E, N = 4, 300, 70, 20, 6
+    seq, q, mask, R, rng = _inputs((B, L, C, d, m, tau), dev, torch.bfloat16)
+    seq = seq.float()                         # bf16 values: screened in both types
+    mask[-1] = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        s = seq.to(dt)
+        got = bse_encode(s, mask, R, tau)
+        torch.testing.assert_close(got, bse_encode_ref(s, mask, R, tau), **ATOMIC)
+        assert torch.equal(got, bse_encode(s, mask, R, tau))
+    G, U = m // tau, 1 << tau
+    store = torch.zeros((N, G, U, d), device=dev)
+    slots = torch.tensor([4, 1, 0, 2], dtype=torch.int32, device=dev)
+    store[slots.long()] = bse_encode(seq, mask, R, tau)
+    plain = torch.zeros_like(store)
+    plain[slots.long()] = bse_encode_ref(seq, mask, R, tau)
+    ev_slots = torch.tensor([1, 4, 1, 3], dtype=torch.int32, device=dev)   # 1 twice; 3 new
+    events = torch.from_numpy(screened_normal(rng, (4, E, d), R.cpu().numpy(),
+                                              torch.bfloat16)).to(dev)
+    ev_mask = torch.from_numpy((rng.random((4, E)) > 0.2).astype(np.float32)).to(dev)
+    ev_mask[2] = 0.0                                                          # a zero-mask row
+    for dt in (torch.float32, torch.bfloat16):
+        ev = events.to(dt)
+        got = sdim_update(store.clone(), ev_slots, ev, ev_mask, R, tau)
+        torch.testing.assert_close(got, sdim_update_ref(store.clone(), ev_slots, ev, ev_mask, R,
+                                                        tau), **FP32)
+        assert torch.equal(got, sdim_update(store.clone(), ev_slots, ev, ev_mask, R, tau))
+    sdim_update(store, ev_slots, events, ev_mask, R, tau)
+    sdim_update_ref(plain, ev_slots, events, ev_mask, R, tau)
+    torch.testing.assert_close(store, plain, **ATOMIC)
+    _decoupled_read_checks(q[:, :C], store, slots, R, tau)
+    torch.cuda.synchronize()
+
+
+QUERY_PLAN_SHAPES = [  # (m, tau, d, plan on the H100): the fused body's layout past a CTA
+    (500, 4, 128, ("wide", 125, False)),   # R alone 256,000 B: read from device memory
+    (48, 4, 256, ("wide", 12, True)),      # R + table + candidates 280,080 B
+    (500, 4, 256, ("wide", 74, False)),    # two buffers of a candidate's rows too: chunks
+    (48, 3, 256, ("fused", 16, True)),     # fits (215,056 B)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, tau, d, plan", QUERY_PLAN_SHAPES)
+def test_reads_past_the_fused_body(m, tau, d, plan, dev):
+    """sdim_query and sdim_fused_serve where the fused body's shared memory
+    does not fit a CTA (these ended in a CUDA launch error): the wide path
+    (R read from device memory at m = 500, the selected rows in chunks of
+    groups at m = 500, d = 256) against the plain versions, the same bits
+    twice, the fused read equal to sdim_query of the fetched rows bit for
+    bit, fp32 / bf16 / int8 / fp8 stores."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sdim_query.sdim_query import query_plan
+
+    optin = _build.smem_optin(dev)
+    if optin == 232448:
+        assert query_plan(m // tau, 1 << tau, d, m, 4, optin) == plan
+    B, C, N = 4, 70, 6
+    rng = np.random.default_rng(m + d)
+    R = rng.standard_normal((m, d)).astype(np.float32)
+    q = torch.from_numpy(screened_normal(rng, (B, C, d), R)).to(dev)
+    store = torch.from_numpy(rng.standard_normal((N, m // tau, 1 << tau, d))
+                             .astype(np.float32)).to(dev)
+    store[:, :, 1] = 0.0                                        # empty buckets
+    slots = torch.tensor([5, 0, 3, 3], dtype=torch.int32, device=dev)
+    _decoupled_read_checks(q, store, slots, torch.from_numpy(R).to(dev), tau)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -1129,6 +1252,22 @@ def test_sdim_query_large_tau_at_its_shapes(tau, m, C, dtype, dev):
             assert torch.equal(out, bse_serve(q, seq, mask, R, tau))
 
 
+def _target_backward_fp64(dout, q, seq, mask, out):
+    """target_attention_flash_backward_ref's closed form summed in fp64 on
+    the same fp32 inputs: (dq, dseq) fp64."""
+    x, qf, do = seq.double(), q.double(), dout.double()
+    scale = default_scale(q.shape[-1])
+    valid = (mask > 0)[:, None, :]
+    s = torch.einsum("bcd,bld->bcl", qf, x) * scale
+    P = torch.softmax(torch.where(valid, s, torch.full((), -1e30, dtype=s.dtype,
+                                                       device=s.device)), dim=-1)
+    dP = torch.einsum("bcd,bld->bcl", do, x)
+    dS = torch.where(valid, P * (dP - torch.sum(do * out.double(), dim=-1, keepdim=True)),
+                     torch.zeros((), dtype=s.dtype, device=s.device))
+    return (scale * torch.einsum("bcl,bld->bcd", dS, x),
+            torch.einsum("bcl,bcd->bld", P, do) + scale * torch.einsum("bcl,bcd->bld", dS, qf))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1136,21 +1275,31 @@ def test_sdim_query_large_tau_at_its_shapes(tau, m, C, dtype, dev):
 def test_target_attention_flash_backward_kernel(shape, dtype, layout, dev):
     """dq and dseq against the plain version, at the training shape's C = 1
     and the shape's C, d up to 256; (B > 1) a fully masked last user:
-    uniform weights, its rows get sum_c dout / L, its candidates nothing."""
+    uniform weights, its rows get sum_c dout / L, its candidates nothing.
+    dout comes from a generator of the test's own (the global CUDA
+    generator's state depends on the tests run before), and the kernel and
+    the plain version are each also held against the closed form summed in
+    fp64."""
     seq, q, mask, _, rng = _inputs(shape, dev, dtype, seed=9)
     mask = _layout(mask, layout, rng)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tol = FP32 if dtype == torch.float32 else BF16_OUT
     for C in (1, shape[2]):
         qc = q[:, :C].contiguous()
         out = target_attention_flash(qc, seq, mask)
-        dout = torch.randn(qc.shape, device=dev)
+        dout = torch.randn(qc.shape, device=dev, generator=gen)
         before = target_attention_flash_backward.launches
         dq, dseq = target_attention_flash_backward(dout, qc, seq, mask, out)
         torch.cuda.synchronize()
         assert target_attention_flash_backward.launches == before + 1 and dseq.dtype == dtype
         rq, rseq = target_attention_flash_backward_ref(dout, qc, seq, mask, out)
         torch.testing.assert_close(dq, rq, **FP32)
-        torch.testing.assert_close(dseq.float(), rseq.float(),
-                                   **(FP32 if dtype == torch.float32 else BF16_OUT))
+        torch.testing.assert_close(dseq.float(), rseq.float(), **tol)
+        eq, eseq = _target_backward_fp64(dout, qc, seq, mask, out)
+        for name, got_q, got_seq in (("kernel", dq, dseq), ("plain", rq, rseq)):
+            torch.testing.assert_close(got_q.double(), eq, **FP32, msg=lambda m: f"{name}: {m}")
+            torch.testing.assert_close(got_seq.double(), eseq.to(dtype).double(), **tol,
+                                       msg=lambda m: f"{name}: {m}")
         if shape[0] > 1:
             assert not dq[-1].any()
 
@@ -2045,14 +2194,26 @@ def test_sdim_query_fused_path_is_kernel_3s_body(d, dev):
 
 @pytest.mark.cuda
 def test_sdim_query_raises_where_no_path_launches(dev):
-    """A width that overflows a CTA even on the wide path (d = 8,192: R
-    alone is 1.5 MB, past a CTA's 227 KB of shared memory) raises; it never
-    falls back to the plain version."""
-    B, C, d, m, tau = 1, 4, 8192, 48, 3
-    q = torch.zeros((B, C, d), device=dev)
-    table = torch.zeros((B, m // tau, 1 << tau, d), device=dev)
-    with pytest.raises(RuntimeError, match="sdim_query: CUDA error"):
-        sdim_query(q, table, torch.ones((m, d), device=dev), tau)
+    """A width that overflows a CTA even on the wide path's smallest plan
+    (d = 16,384: one candidate, R read from device memory and chunks of one
+    group, 262 KB against a CTA's 227 KB of shared memory) raises; it never
+    falls back to the plain version. (d = 8,192, which raised before the
+    wide path read R from device memory, now launches it: held against the
+    plain version.)"""
+    B, C, m, tau = 1, 4, 48, 3
+    launches = sdim_query.launches
+    for d in (8192, 16384):
+        q = torch.zeros((B, C, d), device=dev)
+        q[..., ::3] = 1.0
+        table = torch.ones((B, m // tau, 1 << tau, d), device=dev)
+        R = torch.ones((m, d), device=dev)
+        if d == 8192:
+            torch.testing.assert_close(sdim_query(q, table, R, tau),
+                                       sdim_query_ref(q, table, R, tau), **FP32)
+            continue
+        with pytest.raises(ValueError, match="does not fit the wide path"):
+            sdim_query(q, table, R, tau)
+    assert sdim_query.launches == launches + 1
 
 
 # the GNN at SMOKE widths on the card (fp32): 4,096 edges over 512 nodes, so
